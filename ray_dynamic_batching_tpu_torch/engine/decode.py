@@ -1,0 +1,786 @@
+"""Continuous-batching decode engine — slot-based KV-cache serving, in torch.
+
+Port of ``ray_dynamic_batching_tpu/engine/decode.py::DecodeEngine``, the
+slab + monolithic-prefill arm (the constructor defaults there):
+
+- **prefill**: a group of same-bucket prompts runs on a fresh row cache,
+  the rows are copied into the shared slab cache at their slots, and the
+  first token is sampled on the device (:meth:`_prefill_impl`);
+- **decode**: ``horizon`` chained steps for all slots per host sync, with
+  presence/frequency penalties, sparse logit bias and the per-request
+  sampler on the device; everything the host needs comes back as ONE
+  packed ``[2h+1, B]`` int32 tensor fetched once per dispatch
+  (:meth:`_decode_impl`).
+
+PyTorch runs eagerly, so there is nothing to compile: the reference's
+jit programs are plain methods, its donated buffers are tensors updated in
+place, and its group padding to compiled widths is gone (a group is
+exactly the admitted rows). The paged pool, chunked prefill, speculative
+decoding, the prefix/session caches, the page fabric, weight quantisation
+and the mesh are later slices; a prompt longer than the largest bucket
+raises :class:`BadRequest` naming the missing long-fill path.
+
+Sampling: ``jax.random`` keys cannot be reproduced in torch, so sampled
+rows draw gumbel noise from a counter-based hash of (base_seed, request
+seed, token index, vocab index) — a request's sampled stream depends on
+neither its slot nor its batch neighbours. Greedy rows are an argmax over
+f32 logits, the reference's rule exactly.
+"""
+
+from __future__ import annotations
+
+import collections
+import math
+import threading
+import time
+import zlib
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
+from ray_dynamic_batching_tpu_torch.engine.request import (
+    BadRequest,
+    Request,
+    now_ms,
+)
+from ray_dynamic_batching_tpu_torch.models.base import resolve_device
+from ray_dynamic_batching_tpu_torch.utils.logging import get_logger
+
+logger = get_logger("torch.decode")
+
+_M32 = 0xFFFFFFFF
+
+
+@dataclass
+class DecodeResult:
+    """Fulfilled into the request future when a sequence finishes."""
+
+    tokens: List[int]
+    finish_reason: str            # "eos" | "length" | "capacity"
+    ttft_ms: float
+    total_ms: float
+
+
+@dataclass
+class _Slot:
+    request: Optional[Request] = None
+    generated: List[int] = field(default_factory=list)
+    max_new_tokens: int = 0
+    prefill_done_ms: float = 0.0
+    stop: frozenset = frozenset()  # per-request stop token ids
+
+    @property
+    def free(self) -> bool:
+        return self.request is None
+
+
+def bucket_up(value: int, buckets: Sequence[int]) -> Optional[int]:
+    """Smallest bucket >= value; None if value exceeds every bucket."""
+    for b in sorted(buckets):
+        if b >= value:
+            return b
+    return None
+
+
+def copy_rows_into(cache, rows, slots: torch.Tensor) -> None:
+    """In place: the row cache's per-request rows into the shared cache at
+    ``slots`` (the reference's donated dynamic_update_slice)."""
+    cache.k.index_copy_(1, slots, rows.k)
+    cache.v.index_copy_(1, slots, rows.v)
+    cache.lengths.index_copy_(0, slots, rows.lengths)
+
+
+def _mix32(x):
+    """A bijective 32-bit integer mix (xorshift-multiply) on values in
+    [0, 2^32): int64 tensors or Python ints. Multipliers stay below 2^31
+    so no product leaves int64."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x1B873593) & _M32
+    return x ^ (x >> 16)
+
+
+def gumbel_noise(base_seed: int, seeds: torch.Tensor, tok_idx: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """Gumbel(0, 1) noise [B, V], a pure function of (base_seed, seeds[b],
+    tok_idx[b], vocab index): the counter-based stand-in for the
+    reference's ``fold_in(fold_in(PRNGKey(base_seed), seed), idx)``."""
+    dev = seeds.device
+    base = _mix32(int(base_seed) & _M32)  # host int: no device upload
+    row = _mix32((seeds.to(torch.int64) + base) & _M32)
+    row = _mix32((row + tok_idx.to(torch.int64)) & _M32)
+    iota = torch.arange(vocab, dtype=torch.int64, device=dev)
+    bits = _mix32(row[:, None] ^ iota[None, :]) >> 8      # 24 random bits
+    u = (bits.to(torch.float32) + 0.5) * (1.0 / (1 << 24))  # in (0, 1)
+    return -torch.log(-torch.log(u))
+
+
+class DecodeEngine:
+    """Continuous-batching executor for one CausalLM on one device.
+
+    ``model`` provides ``make_cache``, ``prefill``, ``decode_step`` and
+    ``cfg`` (:class:`~ray_dynamic_batching_tpu_torch.models.causal_lm.
+    CausalLM`) and owns its weights; ``device`` must be the model's device
+    and defaults to ``"cuda"``.
+    """
+
+    def __init__(
+        self,
+        model: Any,
+        queue: RequestQueue,
+        num_slots: int = 8,
+        max_len: int = 256,
+        prompt_buckets: Optional[Sequence[int]] = None,
+        eos_token_id: Optional[int] = None,
+        default_max_new_tokens: int = 64,
+        idle_wait_s: float = 0.005,
+        decode_horizon: int = 8,
+        ttft_horizon: Optional[int] = None,
+        max_admissions_per_step: int = 2,
+        base_seed: int = 0,
+        device: Union[str, torch.device, None] = "cuda",
+    ):
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(
+                f"model lives on {model.device}, engine asked for "
+                f"{self.device}"
+            )
+        self.model = model
+        self.queue = queue
+        self.num_slots = num_slots
+        self.max_len = max_len
+        self.prompt_buckets = sorted(prompt_buckets or [16, 32, 64, 128])
+        self.prompt_buckets = [b for b in self.prompt_buckets if b <= max_len]
+        self.eos_token_id = eos_token_id
+        self.default_max_new_tokens = default_max_new_tokens
+        self.idle_wait_s = idle_wait_s
+        self.base_seed = int(base_seed)
+
+        self._slots = [_Slot() for _ in range(num_slots)]
+        # Host mirror of per-slot cache lengths (kv_occupancy).
+        self._len_host = np.zeros((num_slots,), dtype=np.int32)
+        with torch.inference_mode():
+            self._cache = model.make_cache(num_slots, max_len)
+            V = model.cfg.vocab_size
+            # Per-slot generated-token counts for the penalties, on device.
+            self._counts = torch.zeros((num_slots, V), dtype=torch.int32,
+                                       device=self.device)
+        self._tokens = np.zeros((num_slots, 1), dtype=np.int32)
+        self._active_mask = np.zeros((num_slots,), dtype=bool)
+        self._temps = np.zeros((num_slots,), dtype=np.float32)
+        self._topk = np.zeros((num_slots,), dtype=np.int32)
+        self._topp = np.ones((num_slots,), dtype=np.float32)
+        self._seeds = np.zeros((num_slots,), dtype=np.int32)
+        self._pres = np.zeros((num_slots,), dtype=np.float32)
+        self._freq = np.zeros((num_slots,), dtype=np.float32)
+        self.max_bias_entries = 16
+        self._bias_ids = np.zeros((num_slots, self.max_bias_entries),
+                                  dtype=np.int32)
+        self._bias_vals = np.zeros((num_slots, self.max_bias_entries),
+                                   dtype=np.float32)
+
+        self.decode_horizon = max(1, int(decode_horizon))
+        if ttft_horizon is None:
+            ttft_horizon = max(1, self.decode_horizon // 4)
+        self.ttft_horizon = min(max(1, int(ttft_horizon)),
+                                self.decode_horizon)
+        self.max_admissions_per_step = max(1, int(max_admissions_per_step))
+        # TTFT decomposition (queue_wait, scan_wait, prefill) per admission.
+        self._scan_start_ms = 0.0
+        self._scan_end_ms = 0.0
+        self._ttft_parts: collections.deque = collections.deque(maxlen=1024)
+        # Device copies of the per-slot sampling arrays; rebuilt only when
+        # an admission changes them.
+        self._sampling_dev = None
+        self._admitting = 0
+        self._thread: Optional[threading.Thread] = None
+        self._run = threading.Event()
+        self.steps = 0
+        self.prefill_groups = 0
+        self.completed = 0
+        self.last_heartbeat = time.monotonic()
+
+    # --- device programs ---------------------------------------------------
+    @staticmethod
+    def _apply_bias(logits, bias_ids, bias_vals):
+        """Sparse per-row logit bias: logits[b, ids[b, j]] += vals[b, j];
+        padding entries (0, 0.0) add nothing."""
+        return logits.scatter_add(1, bias_ids.long(),
+                                  bias_vals.to(logits.dtype))
+
+    def _sample_tokens(self, logits, temps, topk, seeds, tok_idx,
+                       bias_ids, bias_vals, topp, any_sampled: bool):
+        """Per-request sampling on the device: temperature 0 -> greedy
+        argmax; otherwise top-k then top-p masked, temperature-scaled
+        categorical via gumbel-argmax keyed by (base_seed, request seed,
+        token index). ``any_sampled`` is the host's knowledge that some
+        row samples (the reference's runtime ``lax.cond`` — here decided
+        on the host so no device value is read)."""
+        logits = self._apply_bias(logits.float(), bias_ids, bias_vals)
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        if not any_sampled:
+            return greedy
+        V = logits.shape[-1]
+        k_eff = torch.where(topk > 0, torch.clamp(topk, max=V),
+                            torch.full_like(topk, V)).long()
+        sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+        kth = torch.gather(sorted_desc, 1, (k_eff - 1)[:, None])
+        # Scalars, not device tensors built from host values: nothing in
+        # the horizon loop may upload or fetch.
+        neg_inf = float("-inf")
+        t = torch.clamp(temps, min=1e-6)[:, None]
+        scaled = logits.masked_fill(logits < kth, neg_inf) / t
+        # Top-p over the top-k-masked sorted view (no second sort).
+        p_eff = torch.where((topp > 0.0) & (topp < 1.0), topp,
+                            torch.ones_like(topp))[:, None]
+        ranks = torch.arange(V, device=logits.device)[None, :]
+        sorted_scaled = sorted_desc.masked_fill(ranks >= k_eff[:, None],
+                                                neg_inf) / t
+        probs = torch.softmax(sorted_scaled, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep_sorted = (cum - probs) < p_eff
+        kept_min = sorted_scaled.masked_fill(~keep_sorted, float("inf")
+                                             ).amin(dim=-1, keepdim=True)
+        scaled = scaled.masked_fill(scaled < kept_min, neg_inf)
+        noise = gumbel_noise(self.base_seed, seeds, tok_idx, V)
+        sampled = torch.argmax(scaled + noise, dim=-1).to(torch.int32)
+        return torch.where(temps > 0.0, sampled, greedy)
+
+    @torch.inference_mode()
+    def _prefill_impl(self, tokmask, meta_i, meta_f, bias_ids, bias_vals,
+                      any_sampled: bool) -> torch.Tensor:
+        """``nB`` prompts -> cache rows at ``slots`` + first sampled tokens.
+        Inputs arrive packed by dtype: ``tokmask`` [2, nB, T] (tokens,
+        attention mask), ``meta_i`` [3, nB] (slots, top_k, seeds),
+        ``meta_f`` [2, nB] (temperature, top_p)."""
+        tokens, attn_mask = tokmask[0], tokmask[1]
+        slots, topk, seeds = meta_i[0], meta_i[1], meta_i[2]
+        temps, topp = meta_f[0], meta_f[1]
+        nB = tokens.shape[0]
+        # A fresh zeroed row cache: positions past the prompt are masked,
+        # and zeros (not stale memory) is what they hold, as in the
+        # reference.
+        rows = self.model.make_cache(nB, self.max_len)
+        last_logits, rows = self.model.prefill(tokens, attn_mask, rows)
+        copy_rows_into(self._cache, rows, slots.long())
+        return self._sample_tokens(
+            last_logits, temps, topk, seeds, torch.zeros_like(slots),
+            bias_ids, bias_vals, topp, any_sampled,
+        )
+
+    @torch.inference_mode()
+    def _decode_impl(self, step_state, horizon: int, samp_f, samp_i,
+                     bias_ids, bias_vals, any_sampled: bool,
+                     any_penalty: bool) -> torch.Tensor:
+        """``horizon`` chained decode steps; one packed int32 result
+        [2h+1, B] (h token rows, h advanced rows, 1 lengths row) so the
+        host fetches once per dispatch.
+
+        ``step_state`` [3, B] packs pending tokens / active mask / next
+        sample index; ``samp_f`` [4, B] temperature/top_p/presence/
+        frequency; ``samp_i`` [2, B] top_k/seeds. Rows at capacity produce
+        garbage logits; the in-bounds check folds into ``advanced`` so
+        their token is never surfaced. ``any_penalty`` (host-known: some
+        active row has a penalty) skips the penalty pass and the counts
+        update, which are exact no-ops otherwise."""
+        tokens = step_state[0][:, None]
+        active = step_state[1].bool()
+        tok_idx0 = step_state[2]
+        temps = torch.where(active, samp_f[0], torch.zeros_like(samp_f[0]))
+        topp, pres, freq = samp_f[1], samp_f[2], samp_f[3]
+        topk, seeds = samp_i[0], samp_i[1]
+        cache = self._cache
+        rows = torch.arange(tokens.shape[0], device=self.device)
+        toks, advs = [], []
+        for j in range(horizon):
+            advanced = active & (cache.lengths < cache.capacity)
+            logits, cache = self.model.decode_step(tokens, cache, advanced)
+            logits = logits.float()
+            if any_penalty:
+                counts = self._counts
+                logits = logits - (pres[:, None] * (counts > 0)
+                                   + freq[:, None] * counts.float())
+            nxt = self._sample_tokens(logits, temps, topk, seeds,
+                                      tok_idx0 + j, bias_ids, bias_vals,
+                                      topp, any_sampled)
+            nxt = torch.where(advanced, nxt, tokens[:, 0])
+            if any_penalty:
+                self._counts.index_put_((rows, nxt.long()),
+                                        advanced.to(torch.int32),
+                                        accumulate=True)
+            tokens = nxt[:, None]
+            toks.append(nxt)
+            advs.append(advanced.to(torch.int32))
+        return torch.cat([torch.stack(toks), torch.stack(advs),
+                          cache.lengths[None, :]], dim=0)
+
+    def warmup(self) -> None:
+        """Build the kernels and run every admission-group width of every
+        prompt bucket plus a greedy and a sampled decode step before
+        serving — the reference's warmup grid, here priming the kernel
+        build, the GEMM heuristics and the allocator instead of XLA
+        compiles — so the first requests pay none of it. The cache and
+        counts state is reset afterwards."""
+        if self.device.type == "cuda":
+            from ray_dynamic_batching_tpu_torch.ops import _build
+
+            _build.build()
+        dev = self.device
+        K = self.max_bias_entries
+        for b in self.prompt_buckets:
+            for g in range(1, self.max_admissions_per_step + 1):
+                tokmask = torch.stack([torch.zeros((g, b), dtype=torch.int32),
+                                       torch.ones((g, b), dtype=torch.int32)])
+                meta_i = torch.zeros((3, g), dtype=torch.int32)
+                meta_i[0] = torch.arange(g) % self.num_slots
+                meta_f = torch.zeros((2, g))
+                meta_f[1] = 1.0
+                self._prefill_impl(
+                    tokmask.to(dev), meta_i.to(dev), meta_f.to(dev),
+                    torch.zeros((g, K), dtype=torch.int32, device=dev),
+                    torch.zeros((g, K), device=dev), g % 2 == 0,
+                )
+        samp_f, samp_i, bias_ids, bias_vals = self._sampling_arrays()
+        for sampled in (False, True):
+            self._decode_impl(
+                torch.zeros((3, self.num_slots), dtype=torch.int32,
+                            device=dev),
+                1, samp_f, samp_i, bias_ids, bias_vals, sampled, sampled,
+            )
+        with torch.inference_mode():
+            self._cache.lengths.zero_()
+            self._counts.zero_()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    # --- admission ---------------------------------------------------------
+    def _free_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self._slots) if s.free]
+
+    def _prep_prompt(self, req: Request) -> Tuple[np.ndarray, int, Dict]:
+        """Validate one request before it costs a dispatch; returns
+        (prompt ids, bucket, opts) or raises BadRequest."""
+        try:
+            prompt = np.asarray(
+                req.payload["tokens"] if isinstance(req.payload, dict)
+                else req.payload,
+                dtype=np.int32,
+            ).reshape(-1)
+        except (TypeError, ValueError, KeyError) as e:
+            raise BadRequest(f"{req.request_id}: malformed tokens: {e}")
+        if prompt.size == 0:
+            raise BadRequest(f"{req.request_id}: empty prompt")
+        V = self.model.cfg.vocab_size
+        if prompt.min() < 0 or prompt.max() >= V:
+            raise BadRequest(f"{req.request_id}: token id out of vocab")
+        bucket = bucket_up(int(prompt.size), self.prompt_buckets)
+        if bucket is None:
+            raise BadRequest(
+                f"{req.request_id}: prompt length {prompt.size} exceeds the "
+                f"largest prompt bucket {max(self.prompt_buckets)}; the "
+                "chunked long-fill path (engine/decode.py::_prefill_long in "
+                "the JAX package) is not ported yet"
+            )
+        opts = {
+            "_cache_len": int(prompt.size),
+            "max_new": self.default_max_new_tokens,
+            "temperature": 0.0,
+            "top_k": 0,
+            # Stable default seed from the request id (crc32), so a
+            # re-submitted request resamples the same way on any replica.
+            "seed": zlib.crc32(req.request_id.encode()) & 0x7FFFFFFF,
+            "stop": frozenset(),
+            "logit_bias": {},
+            "presence_penalty": 0.0,
+            "frequency_penalty": 0.0,
+            "top_p": 1.0,
+        }
+        if isinstance(req.payload, dict):
+            p = req.payload
+            try:
+                opts["max_new"] = int(p.get("max_new_tokens", opts["max_new"]))
+                opts["temperature"] = float(p.get("temperature", 0.0))
+                opts["top_k"] = int(p.get("top_k", 0))
+                opts["top_p"] = float(p.get("top_p", 1.0))
+                opts["presence_penalty"] = float(
+                    p.get("presence_penalty", 0.0))
+                opts["frequency_penalty"] = float(
+                    p.get("frequency_penalty", 0.0))
+                if not (math.isfinite(opts["presence_penalty"])
+                        and math.isfinite(opts["frequency_penalty"])):
+                    raise BadRequest(
+                        f"{req.request_id}: penalties must be finite")
+                if "seed" in p:
+                    opts["seed"] = int(p["seed"]) & 0x7FFFFFFF
+                opts["stop"] = frozenset(
+                    int(t) for t in p.get("stop_token_ids", ()))
+                bias = {int(t): float(v)
+                        for t, v in dict(p.get("logit_bias", {})).items()}
+                for t in p.get("banned_tokens", ()):
+                    bias[int(t)] = -1e9  # a ban = very negative bias
+            except (TypeError, ValueError) as e:
+                raise BadRequest(f"{req.request_id}: malformed field: {e}")
+            if len(bias) > self.max_bias_entries:
+                raise BadRequest(
+                    f"{req.request_id}: {len(bias)} logit-bias entries "
+                    f"exceed the limit of {self.max_bias_entries}")
+            if any(not 0 <= t < V for t in bias):
+                raise BadRequest(
+                    f"{req.request_id}: logit-bias token id out of vocab")
+            opts["logit_bias"] = bias
+            if not 0.0 <= opts["top_p"] <= 1.0:
+                raise BadRequest(f"{req.request_id}: top_p must be in [0, 1]")
+            if opts["top_p"] == 0.0:
+                opts["top_p"] = 1e-9  # the smallest nucleus: argmax alone
+            if opts["temperature"] < 0.0:
+                raise BadRequest(
+                    f"{req.request_id}: temperature must be >= 0")
+        return prompt, bucket, opts
+
+    def _bias_arrays(self, opts: Dict):
+        """opts -> fixed-width (ids [K], vals [K]) padded with (0, 0.0)."""
+        K = self.max_bias_entries
+        ids = np.zeros((K,), dtype=np.int32)
+        vals = np.zeros((K,), dtype=np.float32)
+        for j, (t, v) in enumerate(opts.get("logit_bias", {}).items()):
+            ids[j] = t
+            vals[j] = v
+        return ids, vals
+
+    def _admit(self) -> int:
+        """Fill free slots from the queue (continuous batching join). While
+        slots are decoding, at most ``max_admissions_per_step`` prefills
+        run between decode steps; an idle engine fills every free slot."""
+        free = self._free_slots()
+        if not free:
+            return 0
+        if self._active_mask.any():
+            free = free[: self.max_admissions_per_step]
+        batch = self.queue.get_batch(len(free), discard_stale=True)
+        self._admitting = len(batch)
+        try:
+            return self._admit_batch(batch, free)
+        finally:
+            self._admitting = 0
+
+    def _admit_batch(self, batch: List[Request], free: List[int]) -> int:
+        t_dequeue = now_ms()
+        by_bucket: Dict[int, List[Tuple[Request, np.ndarray, Dict]]] = {}
+        for req in batch:
+            req.admit_ms = t_dequeue
+            try:
+                prompt, bucket, opts = self._prep_prompt(req)
+            except Exception as e:  # noqa: BLE001 — bad prompt must not kill loop
+                req.reject(e)
+                continue
+            by_bucket.setdefault(bucket, []).append((req, prompt, opts))
+        admitted = 0
+        cap = self.max_admissions_per_step
+        for bucket, items in by_bucket.items():
+            for off in range(0, len(items), cap):
+                chunk = items[off: off + cap]
+                slots = free[admitted: admitted + len(chunk)]
+                try:
+                    self._prefill_group(bucket, chunk, slots)
+                except Exception as e:  # noqa: BLE001 — no dangling futures
+                    logger.exception("%s: prefill group failed",
+                                     self.model.name)
+                    for req, _p, _o in chunk:
+                        req.reject(e)
+                    continue
+                admitted += len(chunk)
+        return admitted
+
+    def _prefill_group(self, bucket: int,
+                       items: List[Tuple[Request, np.ndarray, Dict]],
+                       slot_ids: List[int]) -> None:
+        n = len(items)
+        tokens = np.zeros((n, bucket), dtype=np.int32)
+        mask = np.zeros((n, bucket), dtype=np.int32)
+        meta_i = np.zeros((3, n), dtype=np.int32)
+        meta_f = np.zeros((2, n), dtype=np.float32)
+        bias_ids = np.zeros((n, self.max_bias_entries), dtype=np.int32)
+        bias_vals = np.zeros((n, self.max_bias_entries), dtype=np.float32)
+        for i, (_req, prompt, opts) in enumerate(items):
+            tokens[i, : prompt.size] = prompt
+            mask[i, : prompt.size] = 1
+            meta_i[:, i] = (slot_ids[i], opts["top_k"], opts["seed"])
+            meta_f[:, i] = (opts["temperature"], opts.get("top_p", 1.0))
+            bias_ids[i], bias_vals[i] = self._bias_arrays(opts)
+        dev = self.device
+        first = self._prefill_impl(
+            torch.from_numpy(np.stack([tokens, mask])).to(dev),
+            torch.from_numpy(meta_i).to(dev),
+            torch.from_numpy(meta_f).to(dev),
+            torch.from_numpy(bias_ids).to(dev),
+            torch.from_numpy(bias_vals).to(dev),
+            bool((meta_f[0] > 0).any()),
+        )
+        first_host = first.cpu().numpy()  # ONE fetch for the whole group
+        self.prefill_groups += 1
+        t = now_ms()
+        for i, (req, _prompt, opts) in enumerate(items):
+            self._register(slot_ids[i], req, int(first_host[i]), opts, t)
+
+    def _register(self, slot_idx: int, req: Request, first_tok: int,
+                  opts: Dict, t: float) -> None:
+        max_new = opts["max_new"]
+        slot = self._slots[slot_idx]
+        slot.request = req
+        slot.generated = [first_tok]
+        slot.max_new_tokens = max_new
+        slot.prefill_done_ms = t
+        slot.stop = opts["stop"]
+        self._len_host[slot_idx] = int(opts.get("_cache_len", 0))
+        self._tokens[slot_idx, 0] = first_tok
+        self._active_mask[slot_idx] = True
+        self._temps[slot_idx] = opts["temperature"]
+        self._topk[slot_idx] = opts["top_k"]
+        self._topp[slot_idx] = opts.get("top_p", 1.0)
+        self._seeds[slot_idx] = opts["seed"]
+        self._bias_ids[slot_idx], self._bias_vals[slot_idx] = \
+            self._bias_arrays(opts)
+        self._pres[slot_idx] = opts.get("presence_penalty", 0.0)
+        self._freq[slot_idx] = opts.get("frequency_penalty", 0.0)
+        self._sampling_dev = None  # host arrays changed
+        if self._pres[slot_idx] or self._freq[slot_idx]:
+            # Fresh tenant: zero the reused row, then count the
+            # prefill-sampled first token.
+            with torch.inference_mode():
+                self._counts[slot_idx].zero_()
+                self._counts[slot_idx, first_tok] = 1
+        admit_ms = req.admit_ms or t
+        queue_wait = max(0.0, admit_ms - req.arrival_ms)
+        scan_wait = max(0.0, min(admit_ms, self._scan_end_ms)
+                        - max(req.arrival_ms, self._scan_start_ms))
+        self._ttft_parts.append(
+            (queue_wait, min(scan_wait, queue_wait), max(0.0, t - admit_ms))
+        )
+        req.stream_put(first_tok)
+        if self._is_stop(slot, first_tok) or max_new <= 1:
+            reason = "eos" if self._is_stop(slot, first_tok) else "length"
+            self._finish(slot_idx, reason)
+
+    def _is_stop(self, slot: _Slot, tok: int) -> bool:
+        return ((self.eos_token_id is not None and tok == self.eos_token_id)
+                or tok in slot.stop)
+
+    # --- step + eviction ---------------------------------------------------
+    def _finish(self, slot_idx: int, reason: str) -> None:
+        slot = self._slots[slot_idx]
+        req = slot.request
+        t = now_ms()
+        req.fulfill(DecodeResult(
+            tokens=list(slot.generated),
+            finish_reason=reason,
+            ttft_ms=slot.prefill_done_ms - req.arrival_ms,
+            total_ms=t - req.arrival_ms,
+        ))
+        self.queue.record_batch_completion([req], completed_at_ms=t)
+        self._slots[slot_idx] = _Slot()
+        self._active_mask[slot_idx] = False
+        self._len_host[slot_idx] = 0
+        self._temps[slot_idx] = 0.0
+        self._topk[slot_idx] = 0
+        self._topp[slot_idx] = 1.0
+        self._seeds[slot_idx] = 0
+        self._bias_ids[slot_idx] = 0
+        self._bias_vals[slot_idx] = 0.0
+        self._pres[slot_idx] = 0.0
+        self._freq[slot_idx] = 0.0
+        # No device-array invalidation: a freed slot's stale device values
+        # are masked by the active row of the next dispatch.
+        self.completed += 1
+
+    def _pick_horizon(self) -> int:
+        """Full scan only when the batch is full, single steps while
+        requests wait for a free slot, the short ``ttft_horizon`` when
+        slots are free but nothing is queued."""
+        if self.decode_horizon <= 1:
+            return 1
+        if not self._free_slots():
+            return self.decode_horizon
+        if len(self.queue) == 0:
+            return self.ttft_horizon
+        return 1
+
+    def ttft_breakdown(self) -> Dict[str, float]:
+        """p50/p95 of the TTFT components over the rolling window."""
+        parts = list(self._ttft_parts)
+        if not parts:
+            return {"n": 0}
+        out: Dict[str, float] = {"n": len(parts)}
+        for name, vals in zip(
+            ("queue_wait_ms", "scan_wait_ms", "prefill_ms"), zip(*parts),
+        ):
+            s = sorted(vals)
+            out[f"{name}_p50"] = round(s[len(s) // 2], 2)
+            out[f"{name}_p95"] = round(
+                s[min(len(s) - 1, int(len(s) * 0.95))], 2)
+        return out
+
+    def _sampling_arrays(self):
+        """Device copies of the per-slot sampling state, packed by dtype."""
+        if self._sampling_dev is None:
+            dev = self.device
+            self._sampling_dev = (
+                torch.from_numpy(np.stack(
+                    [self._temps, self._topp, self._pres, self._freq]
+                )).to(dev),
+                torch.from_numpy(np.stack([self._topk, self._seeds])).to(dev),
+                torch.from_numpy(self._bias_ids.copy()).to(dev),
+                torch.from_numpy(self._bias_vals.copy()).to(dev),
+            )
+        return self._sampling_dev
+
+    def _step(self, horizon: Optional[int] = None) -> None:
+        h = horizon if horizon is not None else self._pick_horizon()
+        # Per-slot index of the NEXT token to sample (prefill was index 0).
+        tok_idx = np.asarray(
+            [len(s.generated) if not s.free else 0 for s in self._slots],
+            dtype=np.int32,
+        )
+        active = self._active_mask.copy()
+        samp_f, samp_i, bias_ids, bias_vals = self._sampling_arrays()
+        self._scan_start_ms = now_ms()
+        packed = self._decode_impl(
+            torch.from_numpy(np.stack([
+                self._tokens[:, 0], active.astype(np.int32), tok_idx,
+            ])).to(self.device),
+            h, samp_f, samp_i, bias_ids, bias_vals,
+            bool((self._temps[active] > 0).any()),
+            bool(self._pres[active].any() or self._freq[active].any()),
+        )
+        packed_host = packed.cpu().numpy()   # ONE fetch per dispatch
+        self._scan_end_ms = now_ms()
+        self.steps += h
+        self._harvest(packed_host[:h], packed_host[h: 2 * h].astype(bool),
+                      packed_host[2 * h], h)
+
+    def _harvest(self, toks_host, advanced_host, lengths_host,
+                 h: int) -> None:
+        """Distribute a scan's [h, B] outputs to their slots: a
+        non-advanced substep finishes "capacity", a stop token is accepted
+        then finishes "eos", the max_new bound accepts its last token then
+        finishes "length" (eos beats length beats capacity at equal
+        counts)."""
+        active_idx = [i for i, slot in enumerate(self._slots)
+                      if not slot.free and self._active_mask[i]]
+        if not active_idx:
+            return
+        cols = np.asarray(active_idx, dtype=np.int64)
+        self._len_host[cols] = lengths_host[cols]
+        toks = toks_host[:, cols]
+        adv = advanced_host[:, cols]
+        blocked = ~adv
+        cap_at = np.where(blocked.any(axis=0), blocked.argmax(axis=0), h)
+        if self.eos_token_id is not None:
+            stop_mask = toks == self.eos_token_id
+        else:
+            stop_mask = np.zeros_like(adv)
+        for c, i in enumerate(active_idx):
+            extra = self._slots[i].stop
+            if extra:
+                stop_mask[:, c] |= np.isin(
+                    toks[:, c], np.fromiter(extra, dtype=np.int64))
+        stop_take = np.where(stop_mask.any(axis=0),
+                             stop_mask.argmax(axis=0) + 1, h + 1)
+        len_take = np.asarray([
+            max(0, self._slots[i].max_new_tokens
+                - len(self._slots[i].generated))
+            for i in active_idx
+        ])
+        accepted = np.minimum.reduce(
+            [cap_at, stop_take, len_take, np.full_like(cap_at, h)])
+        for c, i in enumerate(active_idx):
+            slot = self._slots[i]
+            acc = int(accepted[c])
+            if acc > 0:
+                new_toks = toks[:acc, c].tolist()
+                slot.generated.extend(new_toks)
+                self._tokens[i, 0] = new_toks[-1]
+                if slot.request.stream is not None:
+                    for tok in new_toks:
+                        slot.request.stream_put(tok)
+            if stop_take[c] == accepted[c]:
+                self._finish(i, "eos")
+            elif len_take[c] == accepted[c]:
+                self._finish(i, "length")
+            elif cap_at[c] == accepted[c] and cap_at[c] < h:
+                self._finish(i, "capacity")
+            elif lengths_host[i] >= self.max_len:
+                self._finish(i, "capacity")
+
+    # --- loop --------------------------------------------------------------
+    def run_until_idle(self, timeout_s: float = 60.0) -> None:
+        """Drive admissions + steps until queue and slots are empty."""
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            admitted = self._admit()
+            if self._active_mask.any():
+                self._step()
+            elif not admitted and len(self.queue) == 0:
+                return
+        raise TimeoutError(f"{self.model.name}: decode did not drain")
+
+    def _loop(self) -> None:
+        while self._run.is_set():
+            try:
+                self._admit()
+                if self._active_mask.any():
+                    self._step()
+                else:
+                    self.queue.wait_for_requests(self.idle_wait_s)
+                self.last_heartbeat = time.monotonic()
+            except Exception:  # noqa: BLE001 — engine must not die silently
+                logger.exception("%s: decode loop iteration failed",
+                                 self.model.name)
+                time.sleep(0.05)
+
+    def release_buffers(self) -> None:
+        """Drop the engine's device footprint (cache, counts). Call only
+        after the loop has stopped; the engine is unusable afterwards."""
+        self._cache = None
+        self._counts = None
+        self._sampling_dev = None
+
+    def abort_active(self, exc: Exception) -> None:
+        """Reject every request still occupying a slot (shutdown). Call
+        only after the loop has stopped."""
+        for i, slot in enumerate(self._slots):
+            if not slot.free and slot.request is not None:
+                slot.request.reject(exc)
+                self._slots[i] = _Slot()
+                self._active_mask[i] = False
+
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._run.set()
+        self._thread = threading.Thread(
+            target=self._loop, name=f"decode-{self.model.name}", daemon=True)
+        self._thread.start()
+
+    def stop(self, timeout_s: float = 5.0) -> None:
+        self._run.clear()
+        if self._thread is not None:
+            self._thread.join(timeout_s)
+            if self._thread.is_alive():
+                logger.warning("%s: loop thread did not exit within %.1fs",
+                               self.model.name, timeout_s)
+            else:
+                self._thread = None
+
+    def kv_occupancy(self) -> float:
+        """Useful fraction of reserved KV positions (num_slots * max_len)."""
+        reserved = float(self.num_slots * self.max_len)
+        return float(self._len_host.sum()) / reserved if reserved else 1.0
+
+    @property
+    def active_slots(self) -> int:
+        return int(self._active_mask.sum())

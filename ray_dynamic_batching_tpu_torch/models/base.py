@@ -1,0 +1,84 @@
+"""Servable-model interface + registry, in torch.
+
+Port of ``ray_dynamic_batching_tpu/models/base.py``. A servable model here
+is an ``nn.Module`` that owns its weights on an explicit ``device``, plus
+the metadata the engine needs. The JAX package's sharding rules belong to
+the multi-GPU slice and are not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Union
+
+import torch
+from torch import nn
+
+
+def resolve_device(device: Union[str, torch.device, None] = "cuda"
+                   ) -> torch.device:
+    """The port's device rule: the card unless the caller asks for the
+    CPU. A CUDA request without CUDA raises — there is no silent CPU
+    fallback that would hide a missing card."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+@dataclass(frozen=True)
+class ModelSLO:
+    """Per-model serving contract."""
+
+    latency_slo_ms: float
+
+
+class ServableModel(nn.Module):
+    """A model the engine can serve: weights on ``device`` in ``dtype``."""
+
+    #: registry key, e.g. "llama3_8b"
+    name: str = "unnamed"
+    #: "causal_lm" for the decoder family
+    family: str = "unnamed"
+
+    def __init__(self, dtype: torch.dtype = torch.bfloat16,
+                 device: Union[str, torch.device, None] = "cuda"):
+        super().__init__()
+        self.dtype = dtype
+        self.device = resolve_device(device)
+
+    def param_bytes(self) -> int:
+        return sum(p.numel() * p.element_size()
+                   for p in self.state_dict().values())
+
+
+_MODEL_REGISTRY: Dict[str, Callable[..., ServableModel]] = {}
+_MODEL_SLOS: Dict[str, ModelSLO] = {}
+
+
+def register_model(
+    name: str, slo: Optional[ModelSLO] = None
+) -> Callable[[Callable[..., ServableModel]], Callable[..., ServableModel]]:
+    def deco(factory: Callable[..., ServableModel]
+             ) -> Callable[..., ServableModel]:
+        _MODEL_REGISTRY[name] = factory
+        if slo is not None:
+            _MODEL_SLOS[name] = slo
+        return factory
+
+    return deco
+
+
+def get_model(name: str, **kwargs: Any) -> ServableModel:
+    """Build a registered model; ``device`` defaults to ``"cuda"``."""
+    if name not in _MODEL_REGISTRY:
+        raise KeyError(
+            f"unknown model {name!r}; registered: {sorted(_MODEL_REGISTRY)}"
+        )
+    return _MODEL_REGISTRY[name](**kwargs)
+
+
+def registered_models() -> List[str]:
+    return sorted(_MODEL_REGISTRY)

@@ -1,0 +1,176 @@
+"""Causal-LM servable models (GPT-2 family, Llama family) on the shared decoder.
+
+Port of ``ray_dynamic_batching_tpu/models/causal_lm.py`` (the slab arm):
+``make_cache``, ``prefill`` and ``decode_step``, the configs ``LLAMA3_8B``,
+``GPT2_MEDIUM`` and ``TINY_LM``, and their registry entries. The model
+owns its weights on an explicit device; :meth:`CausalLM.init_random`
+fills them from a seed on that device (no download), and
+``models/convert.py`` maps the JAX package's params onto them.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+
+from ray_dynamic_batching_tpu_torch.models.base import (
+    ModelSLO,
+    ServableModel,
+    register_model,
+)
+from ray_dynamic_batching_tpu_torch.models.decoder import (
+    DecoderConfig,
+    DecoderModule,
+    KVCache,
+    LayerNorm,
+    RMSNorm,
+    decode_mask,
+    prefill_mask,
+)
+
+
+class CausalLM(ServableModel):
+    family = "causal_lm"
+
+    def __init__(
+        self,
+        cfg: DecoderConfig,
+        name: str,
+        dtype: torch.dtype = torch.bfloat16,
+        device: Union[str, torch.device, None] = "cuda",
+        seed: Optional[int] = 0,
+    ):
+        super().__init__(dtype, device)
+        self.name = name
+        self.cfg = cfg
+        self.module = DecoderModule(cfg, dtype=dtype, device=self.device)
+        if seed is not None:
+            self.init_random(seed)
+
+    @torch.no_grad()
+    def init_random(self, seed: int) -> None:
+        """Random weights from ``seed``, drawn on the model's device:
+        matrices and embeddings N(0, 1/fan_in), norm scales 1, biases 0."""
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        for mod in self.module.modules():
+            if isinstance(mod, (RMSNorm, LayerNorm)):
+                mod.scale.fill_(1.0)
+                if isinstance(mod, LayerNorm):
+                    mod.bias.zero_()
+        for name, p in sorted(self.module.named_parameters()):
+            if name.endswith("scale") or (name.endswith("bias")
+                                          and "norm" in name):
+                continue
+            if name.endswith("bias"):
+                p.zero_()
+                continue
+            fan_in = p.shape[-1]
+            p.normal_(0.0, fan_in ** -0.5, generator=gen)
+
+    # --- decode interface (used by engine.decode) -------------------------
+    def make_cache(self, batch_size: int,
+                   max_len: Optional[int] = None) -> KVCache:
+        return KVCache.zeros(self.cfg, batch_size, max_len, dtype=self.dtype,
+                             device=self.device)
+
+    def prefill(self, tokens: torch.Tensor, attn_mask: torch.Tensor,
+                cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+        """Run the prompt through the model, filling ``cache`` in place.
+
+        tokens [B, T] right-padded; attn_mask [B, T]. Returns
+        last-valid-token logits [B, V] and the cache with ``lengths`` set
+        per row. Queries attend the whole capacity: positions past T are
+        masked off, as in the reference."""
+        B, T = tokens.shape
+        S = cache.capacity
+        if T > S:
+            raise ValueError(
+                f"prompt length {T} exceeds KV-cache capacity {S}; "
+                "bucket the prompt or allocate a larger cache"
+            )
+        positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
+        lengths = attn_mask.sum(dim=1).to(torch.int32)
+        base = prefill_mask(attn_mask)  # [B, 1, T, T]
+        if S > T:
+            pad = torch.zeros((B, 1, T, S - T), dtype=torch.bool,
+                              device=tokens.device)
+            mask = torch.cat([base, pad], dim=-1)
+        else:
+            mask = base
+        # lengths - 1 wraps like the reference's take_along_axis index.
+        last = self.module(tokens, positions, mask, cache,
+                           take=torch.remainder(lengths - 1, T))
+        cache.lengths = lengths
+        return last, cache
+
+    def decode_step(self, tokens: torch.Tensor, cache: KVCache,
+                    active: torch.Tensor) -> Tuple[torch.Tensor, KVCache]:
+        """One decode step for all slots; returns logits [B, V] and the
+        cache (written in place, ``lengths`` advanced for active rows).
+        Rows whose cache is full are force-deactivated: their write is
+        dropped, their logits are garbage, their length stops at
+        capacity."""
+        in_bounds = cache.lengths < cache.capacity
+        active = active & in_bounds
+        positions = cache.lengths[:, None]
+        mask = decode_mask(cache.lengths, cache.capacity)
+        logits = self.module(tokens, positions, mask, cache)
+        cache.lengths = cache.lengths + active.to(torch.int32)
+        return logits[:, 0], cache
+
+
+GPT2_MEDIUM = DecoderConfig(
+    vocab_size=50257,
+    d_model=1024,
+    num_layers=24,
+    num_heads=16,
+    num_kv_heads=16,
+    mlp_dim=4096,
+    max_seq_len=1024,
+    pos="learned",
+    norm="ln",
+    gated_mlp=False,
+    use_bias=True,
+    tie_embeddings=True,
+)
+
+LLAMA3_8B = DecoderConfig(
+    vocab_size=128256,
+    d_model=4096,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=8,
+    mlp_dim=14336,
+    max_seq_len=8192,
+    pos="rope",
+    norm="rms",
+    gated_mlp=True,
+    use_bias=False,
+    rope_theta=500000.0,
+)
+
+TINY_LM = DecoderConfig(
+    vocab_size=512,
+    d_model=64,
+    num_layers=2,
+    num_heads=4,
+    num_kv_heads=2,
+    mlp_dim=128,
+    max_seq_len=256,
+)
+
+
+@register_model("gpt2_medium", slo=ModelSLO(latency_slo_ms=500.0))
+def _gpt2_medium(**kwargs) -> CausalLM:
+    return CausalLM(GPT2_MEDIUM, name="gpt2_medium", **kwargs)
+
+
+@register_model("llama3_8b", slo=ModelSLO(latency_slo_ms=150.0))
+def _llama3_8b(**kwargs) -> CausalLM:
+    return CausalLM(LLAMA3_8B, name="llama3_8b", **kwargs)
+
+
+@register_model("llama_tiny")
+def _llama_tiny(**kwargs) -> CausalLM:
+    return CausalLM(TINY_LM, name="llama_tiny", **kwargs)

@@ -1,0 +1,141 @@
+"""Slab decode attention: the CUDA kernel, its plain version, its count.
+
+Replaces ``ray_dynamic_batching_tpu/ops/decode_attention.py::_decode_attention``
+(Pallas bodies ``_decode_kernel`` + ``_scan_tile``). The kernel is
+``csrc/decode_attention.cu``: one block per (slot, KV head); all
+G = N / K query heads of that KV head times the Tq window rows ride one
+read of each K/V tile (GQA by layout — no repeat of the cache read); a
+sequential loop over S tiles inside the block carries the online-softmax
+state, in place of the TPU's sequential grid axis; the int8 window mask
+[B, Tq, S] gates the scores.
+
+What bounds it on the H100: the bytes of K/V — every decode step reads
+the whole slot capacity once. The design reads each K/V row exactly once
+per step with 16-byte loads; splitting S over more blocks per slot (to
+keep more loads in flight) is the later speed-up.
+
+The int8-cache branch of the reference (``k_scale``/``v_scale``) is not
+ported: the port has no int8 KV cache yet, and the wrapper raises when
+scales are passed. The paged twin (``_paged_decode_attention``) is the
+next slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ray_dynamic_batching_tpu_torch.ops.flash_attention import keep_mask
+
+NEG_INF = -1e30
+
+# Windows past this are prefill-shaped work (the JAX package's
+# MAX_WINDOW_FOR_KERNEL).
+MAX_WINDOW_FOR_KERNEL = 8
+
+#: Kernel launches since the last reset (plain-version calls do not count).
+launches = 0
+
+
+def decode_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """What the kernel computes, in PyTorch. q [B, Tq, N, H], k/v
+    [B, S, K, H], mask int8 [B, Tq, S] (1 = attend) or None. Masked scores
+    become NEG_INF and still enter the softmax (so a row with no attended
+    key averages V, as in the reference kernel); f32 scores and softmax,
+    probabilities rounded to the input type before the PV product."""
+    B, Tq, N, H = q.shape
+    _, S, K, _ = k.shape
+    G = N // K
+    scale = H ** -0.5 if scale is None else scale
+    qg = q.reshape(B, Tq, K, G, H).float()
+    s = torch.einsum("btkgh,bskh->bktgs", qg, k.float()) * scale
+    if mask is not None:
+        valid = (mask != 0)[:, None, :, None, :]          # [B, 1, Tq, 1, S]
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bktgs,bskh->bktgh", p.to(q.dtype).float(), v.float())
+    out = acc / torch.where(l == 0.0, torch.ones_like(l), l)
+    return out.permute(0, 2, 1, 3, 4).reshape(B, Tq, N, H).to(q.dtype)
+
+
+def _launch(q, k, v, mask_i8, *, scale: float) -> torch.Tensor:
+    from ray_dynamic_batching_tpu_torch.ops import _build
+
+    global launches
+    B, Tq, N, H = q.shape
+    _, S, K, _ = k.shape
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"decode kernel: unsupported dtype {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("decode kernel: q, k and v must share one dtype")
+    if H not in (64, 128):
+        raise ValueError(f"decode kernel: head_dim {H} not in (64, 128)")
+    R = Tq * (N // K)
+    smem = 4 * (R * (H + 1) + 64 * (H + 1) + 64 * H + R * 64 + R * H + 3 * R)
+    if smem > 227 * 1024:
+        raise ValueError(f"decode kernel: {R} window rows per KV head need "
+                         f"{smem} bytes of shared memory (max 232448)")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    for t in (q, k, v):
+        if t.device != q.device or t.data_ptr() % 16:
+            raise ValueError("decode kernel: inputs must be 16-byte aligned "
+                             "tensors on one device")
+    if mask_i8 is not None and mask_i8.device != q.device:
+        raise ValueError("decode kernel: mask on another device")
+    out = torch.empty_like(q)
+    lib = _build.load("decode_attention")
+    rc = lib.rdb_decode_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        mask_i8.data_ptr() if mask_i8 is not None else None,
+        out.data_ptr(), B, Tq, S, N, K, H, float(scale),
+        0 if q.dtype == torch.float32 else 1,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, rc, "decode_attention")
+    launches += 1
+    return out
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Fused small-window attention. q [B, Tq, N, H] with 1 <= Tq <= 8,
+    k/v [B, S, K, H] with K dividing N, mask None or broadcastable to
+    [B, 1, Tq, S]; other shapes raise (``ops/attention.route`` sends only
+    these here — the reference's decline, decided before the call). CUDA
+    tensors launch the kernel (or raise); CPU tensors run the plain
+    version."""
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "decode_attention: the int8 KV-cache branch (k_scale/v_scale) "
+            "is not ported yet"
+        )
+    B, Tq, N, H = q.shape
+    _, S, K, _ = k.shape
+    if not (1 <= Tq <= MAX_WINDOW_FOR_KERNEL):
+        raise ValueError(f"decode_attention: window {Tq} not in 1..8")
+    if K == 0 or N % K != 0 or v.shape != k.shape:
+        raise ValueError(f"decode_attention: k {tuple(k.shape)} / v "
+                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    mask_i8 = keep_mask(mask, B, Tq, S)
+    scale = H ** -0.5 if scale is None else float(scale)
+    if q.is_cuda:
+        return _launch(q, k, v, mask_i8, scale=scale)
+    return decode_attention_plain(q, k, v, mask_i8, scale=scale)

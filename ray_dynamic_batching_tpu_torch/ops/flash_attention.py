@@ -1,0 +1,141 @@
+"""Flash prefill attention: the CUDA kernel, its plain version, its count.
+
+Replaces ``ray_dynamic_batching_tpu/ops/flash_attention.py::_flash_attention``
+(Pallas body ``_attn_kernel``). The kernel is ``csrc/flash_attention.cu``:
+FlashAttention-2 forward, one block per (batch row, query head, 64-row
+query tile), KV tiles staged in shared memory, online softmax in f32, the
+int8 keep-mask and the causal iota rule, KV head ``n // (N // K)``, and a
+row with no attended key giving 0.
+
+What bounds it on the H100: at the serving shapes (64-token prompts over
+a 512-position row cache, ``prefill`` attending the whole capacity) the
+K/V bytes; at long prompts the FLOPs. This first version issues the two
+products as FMAs on the CUDA cores; tensor-core products (``wgmma``) fed
+by TMA, and skipping KV tiles the mask voids, are the later speed-ups.
+
+On a CUDA tensor :func:`flash_attention` launches the kernel or raises;
+on a CPU tensor it runs :func:`flash_attention_plain`, the same function
+written in PyTorch, which the tests hold against the JAX kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+# Query windows below this go to the decode kernel or the plain version
+# (the JAX package's MIN_QUERY_FOR_PALLAS).
+MIN_QUERY_FOR_KERNEL = 16
+
+#: Kernel launches since the last reset (plain-version calls do not count).
+launches = 0
+
+
+def keep_mask(mask: Optional[torch.Tensor], B: int, Tq: int, Tk: int
+              ) -> Optional[torch.Tensor]:
+    """A mask broadcastable to [B, 1, Tq, Tk] (True = attend) -> the dense
+    contiguous int8 [B, Tq, Tk] both kernels read (raises on another
+    pattern, e.g. a per-head mask)."""
+    if mask is None:
+        return None
+    return mask.expand(B, 1, Tq, Tk).reshape(B, Tq, Tk).to(
+        torch.int8).contiguous()
+
+
+def flash_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    *,
+    causal: bool = False,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """What the kernel computes, in PyTorch. q [B, Tq, N, H], k/v
+    [B, Tk, K, H], mask int8 [B, Tq, Tk] (1 = attend) or None. Scores and
+    the softmax in f32; probabilities rounded to the input type before the
+    PV product; a row with no attended key gives 0."""
+    B, Tq, N, H = q.shape
+    _, Tk, K, _ = k.shape
+    G = N // K
+    scale = H ** -0.5 if scale is None else scale
+    qg = q.reshape(B, Tq, K, G, H).float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * scale
+    valid = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        qpos = torch.arange(Tq, device=q.device)[:, None]
+        kpos = torch.arange(Tk, device=q.device)[None, :]
+        valid = kpos <= qpos + (Tk - Tq)
+    valid = valid[None, None, None]
+    if mask is not None:
+        valid = valid & (mask != 0)[:, None, None]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    pv = torch.einsum("bkgqs,bskh->bkgqh", p.to(v.dtype).float(), v.float())
+    out = pv / torch.where(l == 0.0, torch.ones_like(l), l)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Tq, N, H).to(q.dtype)
+
+
+def _launch(q, k, v, mask_i8, *, causal: bool, scale: float) -> torch.Tensor:
+    from ray_dynamic_batching_tpu_torch.ops import _build
+
+    global launches
+    B, Tq, N, H = q.shape
+    _, Tk, K, _ = k.shape
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash kernel: unsupported dtype {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash kernel: q, k and v must share one dtype")
+    if H not in (64, 128):
+        raise ValueError(f"flash kernel: head_dim {H} not in (64, 128)")
+    if v.shape != k.shape or k.shape[0] != B or k.shape[3] != H:
+        raise ValueError(f"flash kernel: k {tuple(k.shape)} / v "
+                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    for t in (q, k, v):
+        if t.device != q.device or t.data_ptr() % 16:
+            raise ValueError("flash kernel: inputs must be 16-byte aligned "
+                             "tensors on one device")
+    if mask_i8 is not None and (mask_i8.device != q.device
+                                or tuple(mask_i8.shape) != (B, Tq, Tk)):
+        raise ValueError(f"flash kernel: mask must be int8 [{B}, {Tq}, {Tk}]")
+    out = torch.empty_like(q)
+    lib = _build.load("flash_attention")
+    rc = lib.rdb_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        mask_i8.data_ptr() if mask_i8 is not None else None,
+        out.data_ptr(), B, Tq, Tk, N, K, H, float(scale), int(causal),
+        0 if q.dtype == torch.float32 else 1,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, rc, "flash_attention")
+    launches += 1
+    return out
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Fused attention. q [B, Tq, N, H], k/v [B, Tk, K, H] (K divides N),
+    mask broadcastable to [B, 1, Tq, Tk] (True = attend). CUDA tensors launch the kernel (or raise); CPU tensors
+    run the plain version."""
+    B, Tq, N, H = q.shape
+    _, Tk, K, _ = k.shape
+    if K == 0 or N % K != 0:
+        raise ValueError(f"query heads {N} not divisible by kv heads {K}")
+    scale = H ** -0.5 if scale is None else float(scale)
+    mask_i8 = keep_mask(mask, B, Tq, Tk)
+    if q.is_cuda:
+        return _launch(q, k, v, mask_i8, causal=causal, scale=scale)
+    return flash_attention_plain(q, k, v, mask_i8, causal=causal, scale=scale)

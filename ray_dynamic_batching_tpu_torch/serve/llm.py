@@ -1,0 +1,274 @@
+"""LLM serving deployment — continuous-batching decode behind the replica
+surface, in torch.
+
+Port of ``ray_dynamic_batching_tpu/serve/llm.py``: ``LLMDeployment`` builds
+the model once (random weights from a seed, or an injected model) and
+makes replicas; each :class:`LLMReplica` owns a
+:class:`~ray_dynamic_batching_tpu_torch.engine.decode.DecodeEngine` whose
+request queue is the replica's admission queue.
+
+This slice serves one length bucket with an explicit ``num_slots``; the
+reference's auto-sizing (HBM model, measured tables), length buckets,
+speculative drafts, checkpoints and quantisation come later.
+
+Payload contract (as the reference)::
+
+    {"tokens": [1, 2, 3], "max_new_tokens": 64, "temperature": 0.8,
+     "top_k": 40, "top_p": 0.9, "seed": 1234}
+
+Result: ``DecodeResult`` (tokens, finish_reason, ttft_ms, total_ms).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+
+import torch
+
+from ray_dynamic_batching_tpu_torch.engine.decode import DecodeEngine
+from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
+from ray_dynamic_batching_tpu_torch.engine.request import (
+    Request,
+    RequestDropped,
+)
+from ray_dynamic_batching_tpu_torch.serve.replica import (
+    Replica,
+    ReplicaConfig,
+)
+from ray_dynamic_batching_tpu_torch.utils.logging import get_logger
+
+logger = get_logger("torch.serve.llm")
+
+
+class LLMReplica(Replica):
+    """Decode engines behind the replica surface.
+
+    ``engine_builders`` maps a KV-capacity bucket (max_len) to a builder
+    that receives that bucket's request queue and returns an un-started
+    :class:`DecodeEngine`; admission routes each request to the smallest
+    bucket that fits prompt + max_new_tokens. Engines warm up (kernel
+    build + one prefill and decode) at construction."""
+
+    def __init__(
+        self,
+        replica_id: str,
+        deployment: str,
+        engine_builders: Dict[int, Callable[[RequestQueue], DecodeEngine]],
+        max_ongoing_requests: int = 256,
+        warmup: bool = True,
+        default_max_new_tokens: int = 64,
+    ) -> None:
+        super().__init__(replica_id, deployment, max_ongoing_requests)
+        self.default_max_new_tokens = default_max_new_tokens
+        # Admission goes straight to the per-bucket queues below.
+        self.queue.close()
+        self.engines: Dict[int, DecodeEngine] = {}
+        self._queues: Dict[int, RequestQueue] = {}
+        for bucket in sorted(engine_builders):
+            q = RequestQueue(f"{deployment}:{bucket}",
+                             max_len=max_ongoing_requests)
+            self._queues[bucket] = q
+            self.engines[bucket] = engine_builders[bucket](q)
+        if warmup:
+            for engine in self.engines.values():
+                engine.warmup()
+
+    @property
+    def engine(self) -> DecodeEngine:
+        return self.engines[max(self.engines)]
+
+    def _engine_for(self, payload: Any) -> int:
+        max_new = self.default_max_new_tokens
+        tokens = payload
+        if isinstance(payload, dict):
+            tokens = payload.get("tokens", ())
+            max_new = int(payload.get("max_new_tokens", max_new))
+        try:
+            need = len(tokens) + max_new
+        except TypeError:
+            need = 1 + max_new
+        for bucket in sorted(self.engines):
+            if bucket >= need:
+                return bucket
+        return max(self.engines)  # the largest finishes it: "capacity"
+
+    def assign(self, request: Request) -> bool:
+        if not self.accepting():
+            return False
+        q = self._queues[self._engine_for(request.payload)]
+        ok = q.add_request(request, reject_on_full=False)
+        if ok and request.multiplexed_model_id:
+            self.record_multiplexed_model(request.multiplexed_model_id)
+        return ok
+
+    def start(self) -> None:
+        for engine in self.engines.values():
+            engine.start()
+
+    def stop(self, timeout_s: float = 5.0, drain: bool = True) -> None:
+        self._stopped = True
+        if drain:
+            deadline = time.monotonic() + timeout_s
+            while self.queue_len() > 0 and time.monotonic() < deadline:
+                time.sleep(0.01)
+        exc = RequestDropped(f"{self.replica_id} stopped")
+        for engine in self.engines.values():
+            engine._run.clear()
+        join_deadline = time.monotonic() + timeout_s
+        for engine in self.engines.values():
+            engine.stop(max(0.1, join_deadline - time.monotonic()))
+        for bucket, q in self._queues.items():
+            q.close()
+            self.engines[bucket].abort_active(exc)
+        for req in self.drain_queue():
+            self._queues[self._engine_for(req.payload)].count_external_drop(
+                req, reason="closed")
+            req.reject(exc)
+        for engine in self.engines.values():
+            t = engine._thread
+            if t is None or not t.is_alive():
+                engine.release_buffers()
+
+    def drain_queue(self) -> List[Request]:
+        self._stopped = True
+        out: List[Request] = []
+        for q in self._queues.values():
+            while len(q) > 0:
+                out.extend(q.get_batch(self.max_ongoing_requests,
+                                       discard_stale=False))
+        return out
+
+    def queue_len(self) -> int:
+        return sum(
+            len(q) + self.engines[b].active_slots + self.engines[b]._admitting
+            for b, q in self._queues.items()
+        )
+
+    def healthy(self, stall_timeout_s: float = 60.0) -> bool:
+        """Every engine's loop thread alive and making progress."""
+        for engine in self.engines.values():
+            t = engine._thread
+            if t is None or not t.is_alive():
+                return False
+            if (time.monotonic() - engine.last_heartbeat) >= stall_timeout_s:
+                return False
+        return True
+
+    def slo_compliance(self) -> float:
+        return min((q.slo_compliance() for q in self._queues.values()),
+                   default=1.0)
+
+    def stats(self) -> dict:
+        s: dict = {}
+        if len(self._queues) == 1:
+            s.update(next(iter(self._queues.values())).stats())
+        for bucket, q in self._queues.items():
+            engine = self.engines[bucket]
+            s[f"bucket_{bucket}"] = {
+                **q.stats(),
+                "active_slots": float(engine.active_slots),
+                "decode_steps": float(engine.steps),
+                "completed": float(engine.completed),
+            }
+        s["ongoing"] = float(self.queue_len())
+        s["active_slots"] = float(
+            sum(e.active_slots for e in self.engines.values()))
+        s["decode_steps"] = float(sum(e.steps for e in self.engines.values()))
+        s["completed"] = float(
+            sum(e.completed for e in self.engines.values()))
+        return s
+
+
+class LLMDeployment:
+    """Deployment factory: builds the model once, makes replicas.
+
+    ``device`` defaults to ``"cuda"`` (raising without CUDA); the CPU runs
+    only with ``device="cpu"``. Without an injected ``model`` the weights
+    are random, drawn on the device from ``seed``."""
+
+    def __init__(
+        self,
+        model_name: str,
+        num_slots: int = 8,
+        max_len: int = 256,
+        prompt_buckets: Optional[Sequence[int]] = None,
+        eos_token_id: Optional[int] = None,
+        default_max_new_tokens: int = 64,
+        decode_horizon: int = 8,
+        ttft_horizon: Optional[int] = None,
+        max_admissions_per_step: int = 2,
+        dtype: Optional[torch.dtype] = None,
+        model: Any = None,
+        warmup: bool = True,
+        device: Union[str, torch.device, None] = "cuda",
+        seed: int = 0,
+        base_seed: int = 0,
+    ) -> None:
+        if num_slots <= 0:
+            raise ValueError(
+                "num_slots must be explicit: auto-sizing from HBM tables is "
+                "not ported yet")
+        self.model_name = model_name
+        self.num_slots = num_slots
+        self.max_len = max_len
+        self.prompt_buckets = prompt_buckets
+        self.eos_token_id = eos_token_id
+        self.default_max_new_tokens = default_max_new_tokens
+        self.decode_horizon = decode_horizon
+        self.ttft_horizon = ttft_horizon
+        self.max_admissions_per_step = max_admissions_per_step
+        self.warmup = warmup
+        self.device = device
+        self.seed = seed
+        self.base_seed = base_seed
+        self._dtype = dtype
+        self._model = model
+        self._init_lock = threading.Lock()
+
+    def _ensure_model(self):
+        with self._init_lock:
+            if self._model is None:
+                from ray_dynamic_batching_tpu_torch.models import registry
+
+                kwargs = {"device": self.device, "seed": self.seed}
+                if self._dtype is not None:
+                    kwargs["dtype"] = self._dtype
+                self._model = registry.get_model(self.model_name, **kwargs)
+            return self._model
+
+    def build_engine(self, queue: RequestQueue,
+                     max_len: Optional[int] = None) -> DecodeEngine:
+        model = self._ensure_model()
+        max_len = max_len or self.max_len
+        prompt_buckets = self.prompt_buckets
+        if prompt_buckets is not None:
+            prompt_buckets = [b for b in prompt_buckets if b <= max_len] \
+                or [max_len]
+        return DecodeEngine(
+            model,
+            queue,
+            num_slots=self.num_slots,
+            max_len=max_len,
+            prompt_buckets=prompt_buckets,
+            eos_token_id=self.eos_token_id,
+            default_max_new_tokens=self.default_max_new_tokens,
+            decode_horizon=self.decode_horizon,
+            ttft_horizon=self.ttft_horizon,
+            max_admissions_per_step=self.max_admissions_per_step,
+            base_seed=self.base_seed,
+            device=model.device,
+        )
+
+    def make_replica(self, replica_id: str,
+                     config: Optional[ReplicaConfig] = None) -> LLMReplica:
+        config = config or ReplicaConfig(name=self.model_name)
+        return LLMReplica(
+            replica_id=replica_id,
+            deployment=config.name,
+            engine_builders={self.max_len: self.build_engine},
+            max_ongoing_requests=config.max_ongoing_requests,
+            warmup=self.warmup,
+            default_max_new_tokens=self.default_max_new_tokens,
+        )

@@ -1,0 +1,205 @@
+"""Port attention ops vs the JAX package's kernels (CPU, f32).
+
+The same numpy inputs, made from a seed, go through the JAX function (its
+Pallas kernel in interpret mode, as the JAX package's own tests run it)
+and through the port's plain PyTorch version of the CUDA kernel (what the
+port's wrappers run on CPU tensors). Tolerance: atol 1e-5 in f32 — the
+same math summed in another order (the JAX kernels tile the KV axis, the
+plain versions reduce it at once).
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from ray_dynamic_batching_tpu.ops import attention as j_attention
+from ray_dynamic_batching_tpu.ops import decode_attention as j_decode
+from ray_dynamic_batching_tpu.ops import flash_attention as j_flash
+from ray_dynamic_batching_tpu_torch.ops import attention as t_attention
+from ray_dynamic_batching_tpu_torch.ops import decode_attention as t_decode
+from ray_dynamic_batching_tpu_torch.ops import flash_attention as t_flash
+
+torch.set_num_threads(2)
+
+ATOL = 1e-5
+
+
+def _qkv(rng, B, Tq, Tk, N, K, H):
+    q = rng.standard_normal((B, Tq, N, H)).astype(np.float32)
+    k = rng.standard_normal((B, Tk, K, H)).astype(np.float32)
+    v = rng.standard_normal((B, Tk, K, H)).astype(np.float32)
+    return q, k, v
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+class TestFlashPlainVsJaxKernel:
+    @pytest.mark.parametrize("causal,N,K,Tq,Tk", [
+        (True, 4, 4, 32, 32),     # causal, MHA
+        (True, 4, 2, 16, 48),     # causal GQA, Tq < Tk (diagonal offset)
+        (False, 8, 2, 32, 64),    # non-causal GQA, no mask
+    ])
+    def test_matches(self, causal, N, K, Tq, Tk):
+        rng = np.random.default_rng(0)
+        q, k, v = _qkv(rng, 2, Tq, Tk, N, K, 32)
+        want = j_flash.flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+            interpret=True)
+        got = t_flash.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+    def test_int8_mask_and_fully_masked_rows_give_zero(self):
+        rng = np.random.default_rng(1)
+        B, Tq, Tk, N, K, H = 2, 16, 64, 4, 2, 32
+        q, k, v = _qkv(rng, B, Tq, Tk, N, K, H)
+        mask = rng.random((B, 1, Tq, Tk)) < 0.6
+        mask[0, 0, 3, :] = False      # fully masked rows
+        mask[1, 0, 10, :] = False
+        want = np.asarray(j_flash.flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            mask=jnp.asarray(mask), interpret=True))
+        got = t_flash.flash_attention(_t(q), _t(k), _t(v),
+                                      mask=_t(mask)).numpy()
+        np.testing.assert_allclose(got, want, atol=ATOL)
+        assert np.all(got[0, 3] == 0.0) and np.all(got[1, 10] == 0.0)
+        assert np.all(want[0, 3] == 0.0)
+
+    def test_prefill_mask_over_padded_capacity(self):
+        """The serving shape: a causal prefill mask over a row cache wider
+        than the prompt (padding beyond T is False)."""
+        rng = np.random.default_rng(2)
+        B, T, S, N, K, H = 2, 16, 64, 4, 2, 32
+        q, k, v = _qkv(rng, B, T, S, N, K, H)
+        lengths = np.array([11, 16])
+        causal = np.tril(np.ones((T, T), bool))
+        valid = np.arange(T)[None, :] < lengths[:, None]
+        base = causal[None, None] & valid[:, None, None, :]
+        mask = np.concatenate([base, np.zeros((B, 1, T, S - T), bool)], -1)
+        want = j_flash.flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            mask=jnp.asarray(mask), interpret=True)
+        got = t_flash.flash_attention(_t(q), _t(k), _t(v), mask=_t(mask))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+class TestDecodePlainVsJaxKernel:
+    @pytest.mark.parametrize("Tq", [1, 2, 3, 4, 5, 6, 7, 8])
+    @pytest.mark.parametrize("N,K", [(4, 4), (8, 2)])   # MHA, GQA
+    def test_window_mask_multi_tile(self, Tq, N, K):
+        """S = 256 scanned in two 128-wide tiles by the JAX kernel
+        (block_k=128) against the plain version's one-shot softmax."""
+        rng = np.random.default_rng(Tq * 10 + N)
+        B, S, H = 2, 256, 32
+        q, k, v = _qkv(rng, B, Tq, S, N, K, H)
+        lengths = rng.integers(1, S - Tq, size=B)
+        mask = (np.arange(S)[None, None, None, :]
+                <= (lengths[:, None] + np.arange(Tq)[None, :])[:, None, :,
+                                                                None])
+        want = j_decode.decode_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            mask=jnp.asarray(mask), block_k=128, interpret=True)
+        got = t_decode.decode_attention(_t(q), _t(k), _t(v), mask=_t(mask))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+    def test_no_mask_and_fully_masked_row(self):
+        rng = np.random.default_rng(3)
+        B, Tq, S, N, K, H = 2, 1, 128, 8, 2, 32
+        q, k, v = _qkv(rng, B, Tq, S, N, K, H)
+        want = j_decode.decode_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True)
+        got = t_decode.decode_attention(_t(q), _t(k), _t(v))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+        # A row with no attended key averages V in both (reference rule).
+        mask = np.ones((B, 1, Tq, S), bool)
+        mask[1] = False
+        want = j_decode.decode_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            mask=jnp.asarray(mask), interpret=True)
+        got = t_decode.decode_attention(_t(q), _t(k), _t(v), mask=_t(mask))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+    def test_refuses_what_it_does_not_take(self):
+        q = torch.zeros((1, 9, 4, 32))
+        k = torch.zeros((1, 64, 2, 32))
+        with pytest.raises(ValueError, match="window"):
+            t_decode.decode_attention(q, k, k)   # Tq > 8: route says plain
+        q1 = q[:, :1]
+        with pytest.raises(NotImplementedError, match="int8"):
+            t_decode.decode_attention(q1, k, k,
+                                      k_scale=torch.ones((1, 64, 2)),
+                                      v_scale=torch.ones((1, 64, 2)))
+
+
+# (Tq, causal, mask kind) -> the route the JAX dispatcher takes on its
+# Pallas branch; "window" = [B, 1, Tq, S], "head" = per-head [B, N, Tq, S].
+ROUTE_CASES = [
+    (1, False, "window"), (4, False, None), (8, False, "window"),
+    (12, False, "window"), (16, False, "window"), (32, True, None),
+    (4, True, None), (1, False, "head"),
+]
+
+
+class TestDispatcherRule:
+    @pytest.mark.parametrize("Tq,causal,mask_kind", ROUTE_CASES)
+    def test_route_and_output_match_reference(self, Tq, causal, mask_kind,
+                                              monkeypatch):
+        rng = np.random.default_rng(Tq)
+        B, S, N, K, H = 2, 128, 4, 2, 32
+        q, k, v = _qkv(rng, B, Tq, S, N, K, H)
+        mask = None
+        if mask_kind == "window":
+            mask = rng.random((B, 1, Tq, S)) < 0.7
+            mask[..., 0] = True
+        elif mask_kind == "head":
+            mask = rng.random((B, N, Tq, S)) < 0.7
+            mask[..., 0] = True
+        taken = []
+
+        def spy(name, fn):
+            def wrapped(*a, **kw):
+                kw.setdefault("interpret", True)
+                out = fn(*a, **kw)
+                if out is not None:
+                    taken.append(name)
+                return out
+            return wrapped
+
+        monkeypatch.setattr(j_decode, "decode_attention",
+                            spy("decode", j_decode.decode_attention))
+        monkeypatch.setattr(j_flash, "flash_attention",
+                            spy("flash", j_flash.flash_attention))
+        j_attention.set_attention_backend("pallas")
+        try:
+            want = j_attention.dot_product_attention(
+                jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                causal=causal,
+                mask=None if mask is None else jnp.asarray(mask))
+        finally:
+            j_attention.set_attention_backend("auto")
+        jax_route = taken[0] if taken else "plain"
+        port_route = t_attention.route(
+            q.shape, k.shape, causal=causal,
+            mask_shape=None if mask is None else mask.shape)
+        assert port_route == jax_route
+        before = t_attention.plain_launches
+        got = t_attention.dot_product_attention(
+            _t(q), _t(k), _t(v), causal=causal,
+            mask=None if mask is None else _t(mask))
+        assert (t_attention.plain_launches - before) == (
+            1 if port_route == "plain" else 0)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+    def test_reference_attention_matches_xla_path(self):
+        rng = np.random.default_rng(9)
+        q, k, v = _qkv(rng, 2, 12, 40, 8, 2, 16)
+        mask = rng.random((2, 1, 12, 40)) < 0.5
+        mask[1, 0, 4] = False    # a fully masked row averages V
+        want = j_attention._xla_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+            mask=jnp.asarray(mask), scale=None)
+        got = t_attention.reference_attention(
+            _t(q), _t(k), _t(v), causal=True, mask=_t(mask))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)

@@ -1,0 +1,83 @@
+"""The port imports neither JAX, flax nor the JAX package.
+
+An AST scan of every module of ``ray_dynamic_batching_tpu_torch`` and of
+``chip_smoke.py`` matches whole module names (``ray_dynamic_batching_tpu``
+is a prefix of ``ray_dynamic_batching_tpu_torch`` as a string, not as a
+module); a subprocess with those modules blocked imports the port and
+serves a tiny model on the CPU.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "ray_dynamic_batching_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "ray_dynamic_batching_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_whole_name_matching():
+    assert _forbidden("jax.numpy") and _forbidden("ray_dynamic_batching_tpu")
+    assert _forbidden("ray_dynamic_batching_tpu.ops.attention")
+    assert not _forbidden("ray_dynamic_batching_tpu_torch.ops.attention")
+    assert not _forbidden("jaxtyping")
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
+def test_no_forbidden_imports(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+_PROBE = """
+import sys
+for name in {forbidden!r}:
+    sys.modules[name] = None      # any import of them now raises
+import torch
+torch.set_num_threads(2)
+from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
+from ray_dynamic_batching_tpu_torch.engine.request import Request
+from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+dep = LLMDeployment("llama_tiny", num_slots=2, max_len=32,
+                    prompt_buckets=[8], default_max_new_tokens=3,
+                    dtype=torch.float32, device="cpu", seed=0)
+replica = dep.make_replica("probe")
+engine = replica.engine
+req = Request(model="llama_tiny", payload={{"tokens": [1, 2, 3]}},
+              slo_ms=1e7)
+engine.queue.add_request(req)
+engine.run_until_idle(timeout_s=60)
+print(len(req.future.result(timeout=5).tokens))
+"""
+
+
+def test_port_runs_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(forbidden=FORBIDDEN)],
+        capture_output=True, text=True, timeout=120, cwd=str(ROOT), env=env,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "3"
