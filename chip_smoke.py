@@ -4,28 +4,42 @@ Run from the root of a checkout on a machine with one CUDA card::
 
     python3 chip_smoke.py
 
-Phases, each printing its own line; any failure exits non-zero before the
+Phases, each printing its own lines; any failure exits non-zero before the
 last line:
 
 1. device — the card's name and power limit (``nvidia-smi``);
-2. build — ``nvcc`` builds both kernels from ``csrc/`` (one process each,
-   in parallel);
+2. build — ``nvcc`` builds the three kernels from ``csrc/`` (one process
+   each, in parallel);
 3. kernels — each kernel against its plain PyTorch version at the main
-   path's shapes, in bf16 and f32: max abs error against the stated
-   tolerance, median CUDA-event times of kernel / plain version /
-   ``F.scaled_dot_product_attention`` (a yardstick, never used by the
-   port), and the bound from bytes and FLOPs;
-4. parity — llama3_8b at full width, 2 layers, f32: ``prefill`` then one
-   ``decode_step`` through the kernels and through the plain versions;
-5. main path — ``LLMDeployment("llama3_8b")`` at full width and depth in
-   bf16 with random weights serves 8 requests (6 greedy, 2 sampled); both
-   kernels' launch counts, set to 0 just before, must have moved.
+   paths' shapes, in bf16 and f32 (the paged kernel also at a Tq = 4
+   staircase window in f32): max abs error against the stated tolerance,
+   median CUDA-event times of kernel / plain version / one-call PyTorch
+   yardstick (``F.scaled_dot_product_attention``, never used by the port;
+   for the paged kernel gather + SDPA, two calls), and the bound from bytes
+   and FLOPs;
+4. parity — llama3_8b at full width, 2 layers, f32: slab ``prefill`` then
+   one ``decode_step``, and paged ``prefill_chunk_paged`` (a W = 64 and a
+   W = 8 chunk) then ``decode_step_paged``, each through the kernels and
+   through the plain versions; the paged logits also against the slab
+   logits of the same prompts;
+5. main — ``LLMDeployment("llama3_8b")`` (slab + monolithic prefill) at
+   full width and depth in bf16 with random weights serves 8 requests
+   (6 greedy, 2 sampled);
+6. paged — ``LLMDeployment("llama3_8b", paged=True)`` (paged pool +
+   token-budget chunked prefill), the same model rebuilt after phase 5's
+   is freed, serves 10 requests: 8 of 40-60 tokens (6 greedy, 2 sampled)
+   and 2 greedy of 150-300 tokens, which run as multi-chunk trains.
 
-The line before the last is one JSON object with the per-kernel numbers;
+Phases 5 and 6 each set every launch count to 0 just before they serve and
+read them just after: each kernel of the path must have launched the
+number of times the engine's dispatches imply, and the plain route never.
+
+The line before the last is one JSON object with the per-kernel numbers
+(``launches`` sums both serving phases; ``launches_by_path`` splits them);
 the last line is ``{"ok": true, "device": {...}}``. ``--phases`` runs a
-subset (for bring-up); the default runs all. ``--profile`` traces the
-main-path window with ``torch.profiler`` and prints the device's busy
-share and its time by kernel (used for PERF.md's breakdown).
+subset (for bring-up); the default runs all. ``--profile`` traces each
+serving window with ``torch.profiler`` and prints the device's busy share
+and its time by kernel (used for PERF.md's breakdown).
 
 Tolerances: bf16 2e-2 absolute — kernel and plain version both accumulate
 in f32 from the same bf16 inputs, and the outputs (|x| < 4) differ by at
@@ -40,6 +54,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -55,9 +70,13 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 LOGIT_TOL = 1e-3
 
-# Main-path shapes (llama3_8b, 16 slots, max_len 512, bucket 64, groups of 4).
+# Main-path shapes (llama3_8b, 16 slots, max_len 512, bucket 64, groups of
+# 4; paged: 128-token pages, 4 table entries per slot, a 64-page pool).
 NB, T, S, SLOTS = 4, 64, 512, 16
 N_HEADS, KV_HEADS, HEAD_DIM = 32, 8, 128
+PS = 128
+NP = S // PS
+POOL = SLOTS * NP
 
 
 def fail(msg: str) -> None:
@@ -92,6 +111,10 @@ def bound(nbytes: int, flops: int, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def phase_device() -> dict:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a card")
@@ -122,7 +145,8 @@ def phase_build() -> None:
           f"{seconds:.3f} s", flush=True)
 
 
-def _prefill_inputs(dtype, gen):
+# --- phase 3: each kernel against its plain version ------------------------
+def _prefill_inputs(dtype, gen, rng):
     from ray_dynamic_batching_tpu_torch.models.decoder import prefill_mask
 
     dev = "cuda"
@@ -133,10 +157,10 @@ def _prefill_inputs(dtype, gen):
     attn = (torch.arange(T, device=dev)[None, :] < lengths[:, None]).int()
     mask = torch.cat([prefill_mask(attn), torch.zeros(
         (NB, 1, T, S - T), dtype=torch.bool, device=dev)], dim=-1)
-    return q.to(dtype), k.to(dtype), v.to(dtype), mask
+    return dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype), mask=mask)
 
 
-def _decode_inputs(dtype, gen):
+def _decode_inputs(dtype, gen, rng):
     from ray_dynamic_batching_tpu_torch.models.decoder import decode_mask
 
     dev = "cuda"
@@ -144,7 +168,31 @@ def _decode_inputs(dtype, gen):
     k = torch.randn((SLOTS, S, KV_HEADS, HEAD_DIM), generator=gen, device=dev)
     v = torch.randn((SLOTS, S, KV_HEADS, HEAD_DIM), generator=gen, device=dev)
     lengths = torch.randint(40, S - 1, (SLOTS,), generator=gen, device=dev)
-    return q.to(dtype), k.to(dtype), v.to(dtype), decode_mask(lengths, S)
+    return dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype),
+                mask=decode_mask(lengths, S))
+
+
+def _paged_inputs(dtype, gen, rng, tq: int = 1):
+    """A 64-page pool in shuffled order, lengths 40..510 over the 16 slots
+    (in shuffled slot order), each slot holding just the pages its
+    positions <= length + tq - 1 need and the sentinel past them."""
+    dev = "cuda"
+    q = torch.randn((SLOTS, tq, N_HEADS, HEAD_DIM), generator=gen, device=dev)
+    k = torch.randn((POOL, PS, KV_HEADS, HEAD_DIM), generator=gen, device=dev)
+    v = torch.randn((POOL, PS, KV_HEADS, HEAD_DIM), generator=gen, device=dev)
+    lengths = np.minimum(np.linspace(40, 510, SLOTS).astype(np.int32),
+                         S - tq)
+    rng.shuffle(lengths)
+    perm = rng.permutation(POOL)
+    table = np.full((SLOTS, NP), POOL, np.int32)
+    used = 0
+    for b in range(SLOTS):
+        n = -(-(int(lengths[b]) + tq) // PS)
+        table[b, :n] = perm[used: used + n]
+        used += n
+    return dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype),
+                table=torch.from_numpy(table).to(dev),
+                lengths=torch.from_numpy(lengths).to(dev))
 
 
 def _sdpa(q, k, v, mask):
@@ -154,71 +202,153 @@ def _sdpa(q, k, v, mask):
     ).transpose(1, 2)
 
 
-def phase_kernels() -> dict:
+def _dense_cost(x, tq, batch) -> tuple:
+    """Bytes (q, k, v, out once each, the int8 mask one byte an entry) and
+    FLOPs (4 B N Tq S H) of a dense-window kernel call."""
+    nbytes = _nbytes(x["q"], x["k"], x["v"], x["q"]) + batch * tq * S
+    return nbytes, 4 * batch * N_HEADS * tq * S * HEAD_DIM
+
+
+def _paged_cost(x) -> tuple:
+    """What this call's data needs: each slot reads the K/V of positions
+    [0, length + Tq) once (the kernel skips tiles past them), plus q, out,
+    the table and the lengths; FLOPs 4 N Tq H per attended position."""
+    B, tq = x["q"].shape[:2]
+    kv_elt = KV_HEADS * HEAD_DIM * x["k"].element_size()
+    positions = int((x["lengths"].long() + tq).sum().item())
+    nbytes = (2 * positions * kv_elt + 2 * _nbytes(x["q"])
+              + _nbytes(x["table"], x["lengths"]))
+    return nbytes, 4 * N_HEADS * tq * HEAD_DIM * positions
+
+
+def _gather_sdpa(x):
+    """The paged yardstick: gather the logical view, then SDPA (2 calls)."""
+    from ray_dynamic_batching_tpu_torch.models.decoder import (
+        paged_window_mask,
+    )
+    from ray_dynamic_batching_tpu_torch.ops import decode_attention as dec
+
+    k_g = dec.logical_view(x["k"], x["table"])
+    v_g = dec.logical_view(x["v"], x["table"])
+    mask = paged_window_mask(x["lengths"], k_g.shape[1], x["q"].shape[1])
+    return _sdpa(x["q"], k_g, v_g, mask)
+
+
+def _kernel_specs():
     from ray_dynamic_batching_tpu_torch.ops import decode_attention as dec
     from ray_dynamic_batching_tpu_torch.ops import flash_attention as fl
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    specs = {
+    return {
         "flash_attention": dict(
             source="ray_dynamic_batching_tpu_torch/csrc/flash_attention.cu",
             replaces="ray_dynamic_batching_tpu/ops/flash_attention.py:154",
             inputs=_prefill_inputs,
-            kernel=lambda q, k, v, m: fl.flash_attention(q, k, v, mask=m),
-            plain=lambda q, k, v, m: fl.flash_attention_plain(
-                q, k, v, fl.keep_mask(m, NB, T, S)),
-            tq=T, batch=NB,
+            kernel=lambda x: fl.flash_attention(x["q"], x["k"], x["v"],
+                                                mask=x["mask"]),
+            plain=lambda x: fl.flash_attention_plain(
+                x["q"], x["k"], x["v"], fl.keep_mask(x["mask"], NB, T, S)),
+            library=lambda x: _sdpa(x["q"], x["k"], x["v"], x["mask"]),
+            yardstick=None,
+            cost=lambda x: _dense_cost(x, T, NB),
         ),
         "decode_attention": dict(
             source="ray_dynamic_batching_tpu_torch/csrc/decode_attention.cu",
             replaces="ray_dynamic_batching_tpu/ops/decode_attention.py:238",
             inputs=_decode_inputs,
-            kernel=lambda q, k, v, m: dec.decode_attention(q, k, v, mask=m),
-            plain=lambda q, k, v, m: dec.decode_attention_plain(
-                q, k, v, fl.keep_mask(m, SLOTS, 1, S)),
-            tq=1, batch=SLOTS,
+            kernel=lambda x: dec.decode_attention(x["q"], x["k"], x["v"],
+                                                  mask=x["mask"]),
+            plain=lambda x: dec.decode_attention_plain(
+                x["q"], x["k"], x["v"], fl.keep_mask(x["mask"], SLOTS, 1, S)),
+            library=lambda x: _sdpa(x["q"], x["k"], x["v"], x["mask"]),
+            yardstick=None,
+            cost=lambda x: _dense_cost(x, 1, SLOTS),
+        ),
+        "paged_decode_attention": dict(
+            source=("ray_dynamic_batching_tpu_torch/csrc/"
+                    "paged_decode_attention.cu"),
+            replaces="ray_dynamic_batching_tpu/ops/decode_attention.py:319",
+            inputs=_paged_inputs,
+            kernel=lambda x: dec.paged_decode_attention(
+                x["q"], x["k"], x["v"], x["table"], x["lengths"]),
+            plain=lambda x: dec.paged_decode_attention_plain(
+                x["q"], x["k"], x["v"], x["table"], x["lengths"]),
+            library=None,       # no one PyTorch call reads a page table
+            yardstick=_gather_sdpa,
+            cost=_paged_cost,
+            extra_cases=[(torch.float32, 4)],   # Tq = 4 staircase
         ),
     }
+
+
+def phase_kernels() -> dict:
+    from ray_dynamic_batching_tpu_torch.ops import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rng = np.random.default_rng(0)
     results = {}
-    for name, sp in specs.items():
+    for name, sp in _kernel_specs().items():
         row = {"name": name, "route": "cuda", "source": sp["source"],
                "replaces": sp["replaces"]}
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, m = sp["inputs"](dtype, gen)
-            out = sp["kernel"](q, k, v, m)
+        cases = [(torch.float32, None), (torch.bfloat16, None)]
+        cases += sp.get("extra_cases", [])
+        for dtype, tq in cases:
+            make = sp["inputs"]
+            x = make(dtype, gen, rng) if tq is None else make(dtype, gen,
+                                                             rng, tq)
+            out = sp["kernel"](x)
             torch.cuda.synchronize()
-            ref = sp["plain"](q, k, v, m)
+            ref = sp["plain"](x)
             err = (out.float() - ref.float()).abs().max().item()
             if not torch.isfinite(out.float()).all():
                 fail(f"{name} {dtype}: non-finite output")
             tag = "bf16" if dtype == torch.bfloat16 else "f32"
-            print(f"[kernels] {name} {tag} q{tuple(q.shape)} "
-                  f"k{tuple(k.shape)}: max_abs_err {err:.3e} "
+            if tq is not None:
+                tag += f" Tq={tq}"
+            print(f"[kernels] {name} {tag} q{tuple(x['q'].shape)} "
+                  f"k{tuple(x['k'].shape)}: max_abs_err {err:.3e} "
                   f"(tol {TOL[dtype]:.0e})", flush=True)
             if not err <= TOL[dtype]:
                 fail(f"{name} {tag}: max_abs_err {err} > {TOL[dtype]}")
+            if tq is not None:
+                row[f"max_abs_err_f32_tq{tq}"] = err
+                continue
             if dtype == torch.float32:
                 row["max_abs_err_f32"] = err
                 continue
-            m_i8 = m.expand(sp["batch"], 1, sp["tq"], S)
-            nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-            nbytes += m_i8.numel()  # int8 mask, one byte per entry
-            flops = 4 * sp["batch"] * N_HEADS * sp["tq"] * S * HEAD_DIM
+            nbytes, flops = sp["cost"](x)
             b_ms, b_by = bound(nbytes, flops, dtype)
             row.update(
                 dtype="bfloat16",
-                q_shape=list(q.shape), kv_shape=list(k.shape),
+                q_shape=list(x["q"].shape), kv_shape=list(x["k"].shape),
                 max_abs_err=err,
-                ms=time_ms(lambda: sp["kernel"](q, k, v, m)),
-                plain_ms=time_ms(lambda: sp["plain"](q, k, v, m)),
-                library_ms=time_ms(lambda: _sdpa(q, k, v, m)),
+                ms=time_ms(lambda: sp["kernel"](x)),
+                plain_ms=time_ms(lambda: sp["plain"](x)),
+                library_ms=(time_ms(lambda: sp["library"](x))
+                            if sp["library"] else None),
                 bound_ms=b_ms, bound_by=b_by,
             )
+            if sp["yardstick"] is not None:
+                row["gather_sdpa_ms"] = time_ms(lambda: sp["yardstick"](x))
+            lib = (f"sdpa {row['library_ms']:.4f} ms" if sp["library"] else
+                   f"gather + sdpa (2 calls) {row['gather_sdpa_ms']:.4f} ms")
             print(f"[kernels] {name} bf16: kernel {row['ms']:.4f} ms, plain "
-                  f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} "
-                  f"ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+                  f"{row['plain_ms']:.4f} ms, {lib}, bound {b_ms:.4f} ms "
+                  f"({b_by}, {nbytes / 1e6:.1f} MB)", flush=True)
         results[name] = row
+    attention.reset_counts()   # comparison launches do not count
     return results
+
+
+# --- phase 4: model parity --------------------------------------------------
+def _counts() -> dict:
+    from ray_dynamic_batching_tpu_torch.ops import attention
+    from ray_dynamic_batching_tpu_torch.ops import decode_attention as dec
+    from ray_dynamic_batching_tpu_torch.ops import flash_attention as fl
+
+    return {"flash_attention": fl.launches,
+            "decode_attention": dec.launches,
+            "paged_decode_attention": dec.paged_launches,
+            "plain": attention.plain_launches}
 
 
 def phase_parity() -> None:
@@ -233,32 +363,34 @@ def phase_parity() -> None:
     cfg = dataclasses.replace(LLAMA3_8B, num_layers=2)
     model = CausalLM(cfg, "llama3_8b_2layer", dtype=torch.float32,
                      device="cuda", seed=0)
+    V = cfg.vocab_size
     rng = np.random.default_rng(0)
-    tokens = torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (2, T)).astype(np.int32)).cuda()
-    attn = torch.ones((2, T), dtype=torch.int32, device="cuda")
+
+    def cuda_i32(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).cuda()
+
+    # Slab: a 64-token prompt and a 50-token one, prefill then one step.
+    tokens = rng.integers(0, V, (2, T))
+    attn = np.ones((2, T), np.int32)
     attn[1, 50:] = 0
-    nxt = torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (2, 1)).astype(np.int32)).cuda()
+    nxt = cuda_i32(rng.integers(0, V, (2, 1)))
     active = torch.ones((2,), dtype=torch.bool, device="cuda")
 
-    def run():
+    def run_slab(toks, mask, cap=S):
         with torch.inference_mode():
-            cache = model.make_cache(2, S)
-            first, cache = model.prefill(tokens, attn, cache)
+            cache = model.make_cache(2, cap)
+            first, cache = model.prefill(cuda_i32(toks), cuda_i32(mask),
+                                         cache)
             second, cache = model.decode_step(nxt, cache, active)
             return first.float(), second.float()
 
     attention.reset_counts()
-    got = run()
-    from ray_dynamic_batching_tpu_torch.ops import decode_attention as dec
-    from ray_dynamic_batching_tpu_torch.ops import flash_attention as fl
-
-    if fl.launches != 2 or dec.launches != 2:
-        fail(f"parity: kernel path launched flash {fl.launches} / decode "
-             f"{dec.launches} times, expected 2 / 2")
+    got = run_slab(tokens, attn)
+    c = _counts()
+    if (c["flash_attention"], c["decode_attention"]) != (2, 2):
+        fail(f"parity: slab path launched {c}, expected flash 2 / decode 2")
     with attention.plain_attention():
-        want = run()
+        want = run_slab(tokens, attn)
     errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
     scale = max(w.abs().max().item() for w in want)
     print(f"[parity] llama3_8b width, 2 layers, f32: prefill logits err "
@@ -266,10 +398,69 @@ def phase_parity() -> None:
           f"{scale:.2f}, tol {LOGIT_TOL:.0e})", flush=True)
     if not all(np.isfinite(errs)) or max(errs) > LOGIT_TOL:
         fail(f"parity: logits differ by {errs}")
+
+    # Paged: row 0 a 72-token prompt as a W = 64 chunk and a W = 8 chunk,
+    # row 1 a 50-token prompt in the first chunk (idle, all-sentinel
+    # table, in the second); then one paged decode step. Pages shuffled.
+    long_p = rng.integers(0, V, 72)
+    pool = 2 * NP
+    perm = rng.permutation(pool)
+    table = np.full((2, NP), pool, np.int32)
+    table[0, :1] = perm[:1]                  # 72 + 1 positions: one page
+    table[1, :1] = perm[1:2]
+    tok1 = np.zeros((2, T), np.int32)
+    tok1[0] = long_p[:T]
+    tok1[1, :50] = tokens[1, :50]
+    idle = table.copy()
+    idle[1] = pool
+
+    def run_paged():
+        with torch.inference_mode():
+            cache = model.make_paged_cache(2, pool, PS, S)
+            first_1, _ = model.prefill_chunk_paged(
+                cuda_i32(tok1), cuda_i32(attn), cache, cuda_i32(table),
+                cuda_i32([0, 0]), cuda_i32([T - 1, 49]))
+            tok2 = np.zeros((2, 8), np.int32)
+            tok2[0] = long_p[T:]
+            first_0, _ = model.prefill_chunk_paged(
+                cuda_i32(tok2), cuda_i32([[1] * 8, [0] * 8]), cache,
+                cuda_i32(idle), cuda_i32([T, 0]), cuda_i32([7, 0]))
+            cache.page_table = cuda_i32(table)
+            cache.lengths = cuda_i32([72, 50])
+            second, cache = model.decode_step_paged(nxt, cache, active)
+            return (torch.stack([first_0[0], first_1[1]]).float(),
+                    second.float())
+
+    attention.reset_counts()
+    got = run_paged()
+    c = _counts()
+    if (c["flash_attention"], c["paged_decode_attention"],
+            c["decode_attention"], c["plain"]) != (2, 4, 0, 0):
+        fail(f"parity: paged path launched {c}, expected flash 2 / paged "
+             "decode 4 / slab decode 0 / plain 0")
+    with attention.plain_attention():
+        want = run_paged()
+    errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+    slab_toks = np.zeros((2, 72), np.int32)
+    slab_toks[0] = long_p
+    slab_toks[1, :50] = tokens[1, :50]
+    slab_mask = np.ones((2, 72), np.int32)
+    slab_mask[1, 50:] = 0
+    slab = run_slab(slab_toks, slab_mask)
+    errs_slab = [(g - w).abs().max().item() for g, w in zip(got, slab)]
+    print(f"[parity] paged, f32: chunk logits err {errs[0]:.3e}, decode "
+          f"logits err {errs[1]:.3e} vs plain; vs the slab path "
+          f"{errs_slab[0]:.3e} / {errs_slab[1]:.3e} (tol {LOGIT_TOL:.0e})",
+          flush=True)
+    if (not all(np.isfinite(errs + errs_slab))
+            or max(errs + errs_slab) > LOGIT_TOL):
+        fail(f"paged parity: logits differ by {errs} / {errs_slab}")
     del model
+    gc.collect()
     torch.cuda.empty_cache()
 
 
+# --- phases 5 and 6: serving through LLMDeployment --------------------------
 def _profile_report(prof, wall_s: float) -> None:
     """Device time by kernel and the device's busy share of the window."""
     rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
@@ -285,35 +476,22 @@ def _profile_report(prof, wall_s: float) -> None:
               f"x{e.count:<6d} {e.key[:90]}", flush=True)
 
 
-def phase_main(profile: bool = False) -> dict:
+def _serve(tag: str, payloads, dep_kwargs: dict, profile: bool):
+    """Build a full-depth llama3_8b deployment, serve ``payloads`` with
+    the launch counts zeroed just before, and return (results, counts,
+    engine, wall seconds). The loop thread is stopped, the replica not."""
     from ray_dynamic_batching_tpu_torch.engine.request import Request
     from ray_dynamic_batching_tpu_torch.ops import attention
-    from ray_dynamic_batching_tpu_torch.ops import decode_attention as dec
-    from ray_dynamic_batching_tpu_torch.ops import flash_attention as fl
     from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
 
-    max_new = 32
     t0 = time.monotonic()
-    dep = LLMDeployment(
-        "llama3_8b", num_slots=SLOTS, max_len=S, prompt_buckets=[T],
-        default_max_new_tokens=max_new, decode_horizon=8,
-        max_admissions_per_step=NB, dtype=torch.bfloat16, seed=0,
-    )
+    dep = LLMDeployment("llama3_8b", dtype=torch.bfloat16, seed=0,
+                        **dep_kwargs)
     replica = dep.make_replica("llama3_8b-0")
     engine = replica.engine
-    layers = engine.model.cfg.num_layers
-    V = engine.model.cfg.vocab_size
-    print(f"[main] llama3_8b bf16 {layers} layers, "
+    print(f"[{tag}] llama3_8b bf16 {engine.model.cfg.num_layers} layers, "
           f"{engine.model.param_bytes() / 1e9:.2f} GB of weights, replica "
           f"built and warmed in {time.monotonic() - t0:.1f} s", flush=True)
-    rng = np.random.default_rng(0)
-    payloads = []
-    for i in range(8):
-        prompt = rng.integers(0, V, int(rng.integers(40, 61))).tolist()
-        payload = {"tokens": prompt, "max_new_tokens": max_new}
-        if i >= 6:
-            payload.update(temperature=0.8, top_k=50, seed=100 + i)
-        payloads.append(payload)
     prof = contextlib.nullcontext()
     if profile:
         from torch.profiler import ProfilerActivity, profile as _profile
@@ -329,50 +507,118 @@ def phase_main(profile: bool = False) -> dict:
             reqs.append(Request(model="llama3_8b", payload=payload,
                                 slo_ms=600_000.0))
             if not replica.assign(reqs[-1]):
-                fail("replica refused a request")
+                fail(f"{tag}: replica refused a request")
         results = [r.future.result(timeout=600) for r in reqs]
         wall = time.monotonic() - t_start
-        replica.stop()
+        engine.stop()
         torch.cuda.synchronize()
+        counts = _counts()
     if profile:
         _profile_report(prof, wall)
-    counts = {"flash_attention": fl.launches,
-              "decode_attention": dec.launches,
-              "plain": attention.plain_launches}
+    V = engine.model.cfg.vocab_size
     for i, res in enumerate(results):
-        if len(res.tokens) != max_new or res.finish_reason != "length":
-            fail(f"request {i}: {len(res.tokens)} tokens, "
+        if (len(res.tokens) != payloads[i]["max_new_tokens"]
+                or res.finish_reason != "length"):
+            fail(f"{tag} request {i}: {len(res.tokens)} tokens, "
                  f"{res.finish_reason}")
         if not all(0 <= t < V for t in res.tokens):
-            fail(f"request {i}: token id out of vocab")
-    expect_flash = layers * engine.prefill_groups
-    expect_decode = layers * engine.steps
-    if counts["flash_attention"] != expect_flash or expect_flash == 0:
-        fail(f"flash launches {counts['flash_attention']}, expected "
-             f"{expect_flash} ({engine.prefill_groups} prefill groups)")
-    if counts["decode_attention"] != expect_decode or expect_decode == 0:
-        fail(f"decode launches {counts['decode_attention']}, expected "
-             f"{expect_decode} ({engine.steps} decode steps)")
+            fail(f"{tag} request {i}: token id out of vocab")
     if counts["plain"] != 0:
-        fail(f"{counts['plain']} attention calls took the plain route")
+        fail(f"{tag}: {counts['plain']} attention calls took the plain route")
+    return results, counts, engine, replica, wall
+
+
+def _expect(tag: str, counts: dict, name: str, want: int, what: str) -> None:
+    if counts[name] != want or want == 0:
+        fail(f"{tag}: {name} launches {counts[name]}, expected {want} "
+             f"({what})")
+
+
+def _report(tag, results, counts, engine, wall) -> None:
     ttfts = sorted(r.ttft_ms for r in results)
     n_tok = sum(len(r.tokens) for r in results)
-    print(f"[main] 8 requests, {n_tok} tokens in {wall:.3f} s: "
+    print(f"[{tag}] {len(results)} requests, {n_tok} tokens in {wall:.3f} s: "
           f"{n_tok / wall:.1f} tok/s, TTFT p50 "
           f"{statistics.median(ttfts):.1f} ms (max {ttfts[-1]:.1f} ms), "
-          f"{engine.prefill_groups} prefill groups, {engine.steps} decode "
-          f"steps, launches {counts}", flush=True)
-    print(f"[main] TTFT parts {engine.ttft_breakdown()}", flush=True)
+          f"{engine.prefill_groups} prefill groups, {engine.chunk_dispatches}"
+          f" chunk dispatches, {engine.steps} decode steps, launches "
+          f"{counts}", flush=True)
+    print(f"[{tag}] TTFT parts {engine.ttft_breakdown()}", flush=True)
+
+
+def _payloads(rng, V, max_new, n_short, n_sampled, n_long) -> list:
+    out = []
+    for i in range(n_short + n_long):
+        lo, hi = (40, 61) if i < n_short else (150, 301)
+        prompt = rng.integers(0, V, int(rng.integers(lo, hi))).tolist()
+        payload = {"tokens": prompt, "max_new_tokens": max_new}
+        if n_short - n_sampled <= i < n_short:
+            payload.update(temperature=0.8, top_k=50, seed=100 + i)
+        out.append(payload)
+    return out
+
+
+def phase_main(profile: bool = False) -> dict:
+    tag = "main"
+    payloads = _payloads(np.random.default_rng(0), 128256, 32, 8, 2, 0)
+    results, counts, engine, replica, wall = _serve(tag, payloads, dict(
+        num_slots=SLOTS, max_len=S, prompt_buckets=[T],
+        default_max_new_tokens=32, decode_horizon=8,
+        max_admissions_per_step=NB,
+    ), profile)
+    layers = engine.model.cfg.num_layers
+    _expect(tag, counts, "flash_attention", layers * engine.prefill_groups,
+            f"{engine.prefill_groups} prefill groups")
+    _expect(tag, counts, "decode_attention", layers * engine.steps,
+            f"{engine.steps} decode steps")
+    if counts["paged_decode_attention"] != 0:
+        fail(f"{tag}: the slab path launched the paged kernel")
+    _report(tag, results, counts, engine, wall)
+    replica.stop()
+    return counts
+
+
+def phase_paged(profile: bool = False) -> dict:
+    tag = "paged"
+    gc.collect()
+    torch.cuda.empty_cache()
+    payloads = _payloads(np.random.default_rng(1), 128256, 32, 8, 2, 2)
+    results, counts, engine, replica, wall = _serve(tag, payloads, dict(
+        paged=True, page_size=PS, num_slots=SLOTS, max_len=S,
+        prompt_buckets=[T], prefill_token_budget=256,
+        max_admissions_per_step=NB, default_max_new_tokens=32,
+        decode_horizon=8,
+    ), profile)
+    layers = engine.model.cfg.num_layers
+    if engine.num_pages != POOL:
+        fail(f"{tag}: pool of {engine.num_pages} pages, expected {POOL}")
+    _expect(tag, counts, "paged_decode_attention", layers * engine.steps,
+            f"{engine.steps} decode steps")
+    _expect(tag, counts, "flash_attention", layers * engine.chunk_dispatches,
+            f"{engine.chunk_dispatches} chunk dispatches, all W = {T}")
+    if counts["decode_attention"] != 0:
+        fail(f"{tag}: the paged path launched the slab decode kernel")
+    if engine.chunk_dispatches <= 4:
+        fail(f"{tag}: {engine.chunk_dispatches} chunk dispatches cannot "
+             "have served the multi-chunk prompts")
+    engine._allocator.check()
+    if engine._allocator.free_pages != engine.num_pages:
+        fail(f"{tag}: {engine._allocator.free_pages} of {engine.num_pages} "
+             "pages free after the drain")
+    _report(tag, results, counts, engine, wall)
+    print(f"[{tag}] pool conserved: {engine.num_pages} of {engine.num_pages}"
+          " pages free after the drain", flush=True)
+    replica.stop()
     return counts
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,parity,main",
+    ap.add_argument("--phases", default="build,kernels,parity,main,paged",
                     help="comma-separated subset of build,kernels,parity,"
-                         "main (the device phase always runs)")
+                         "main,paged (the device phase always runs)")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the main-path window with torch.profiler "
+                    help="trace each serving window with torch.profiler "
                          "and print device time by kernel")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -382,9 +628,15 @@ def main() -> None:
     kernels = phase_kernels() if "kernels" in phases else {}
     if "parity" in phases:
         phase_parity()
-    counts = phase_main(args.profile) if "main" in phases else {}
+    by_path = {}
+    if "main" in phases:
+        by_path["slab"] = phase_main(args.profile)
+    if "paged" in phases:
+        by_path["paged"] = phase_paged(args.profile)
     for name, row in kernels.items():
-        row["launches"] = counts.get(name)
+        split = {path: c[name] for path, c in by_path.items()}
+        row["launches"] = sum(split.values()) if split else None
+        row["launches_by_path"] = split
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],

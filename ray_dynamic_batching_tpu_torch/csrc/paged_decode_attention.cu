@@ -1,0 +1,113 @@
+// Paged decode attention for Hopper (sm_90a), plain FMA version.
+//
+// Replaces ray_dynamic_batching_tpu/ops/decode_attention.py::
+// _paged_decode_attention (Pallas body: _scan_tile over page-table tiles):
+// a fused KV scan for a small query window (1 <= Tq <= 8) over a page pool
+// shared by all slots, each slot's logical KV run named by its row of the
+// page table. The int8-pool branch (k_scale/v_scale) is not here: the port
+// has no int8 KV cache yet and the wrapper refuses scales.
+//
+// Layouts: q/out [B, Tq, N, H]; k/v pools [P, ps, K, H] (the caller passes
+// the P real pages; the engine's sink page past them is never named);
+// table [B, NP] int32, sentinel P = unallocated; lengths [B] int32. All
+// contiguous.
+//
+// Grid (K, B): one block per (slot, KV head), the R = Tq * G window rows
+// of that KV head riding one read of each K/V tile, exactly as the slab
+// kernel (csrc/decode_attention.cu) — the per-tile scan IS the slab
+// kernel's (rdb::DecodeScan, common.cuh), as both TPU kernels share
+// _scan_tile. What differs is addressing and validity:
+//
+// - logical tile t covers positions [64 t, 64 t + 64) of page p = 64 t / ps,
+//   read from physical page min(table[b, p], P - 1) (sentinel and stray
+//   entries clamp to a real page; the length bound masks them);
+// - window row r = t' * G + g attends position pos iff pos <= lengths[b] + t',
+//   computed here from the lengths (the staircase rule) — no mask stream.
+//
+// Tiles wholly past lengths[b] + Tq - 1 are not read: tile 0 always holds
+// an attended key (position 0), so the running max is finite from the
+// first tile on, and a fully masked tile would add exp(NEG_INF - m) = 0 to
+// l and acc and rescale them by exp(0) = 1 — the result is the full scan's.
+//
+// What bounds it on the H100: the bytes of the K/V positions each slot
+// attends (the skip makes that the run's lengths, not the table width).
+// Tiles are staged with 16-byte loads from wherever the page lies; split-S
+// across blocks, TMA staging and tensor-core products are later work.
+
+#include "common.cuh"
+
+namespace {
+
+template <typename T, int H>
+__global__ void __launch_bounds__(rdb::DecodeScan<T, H>::THREADS)
+paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ table,
+                    const int* __restrict__ lengths, T* __restrict__ out,
+                    int Tq, int N, int K, int P, int ps, int NP, float scale) {
+  using Scan = rdb::DecodeScan<T, H>;
+  extern __shared__ float smem[];
+  const int G = N / K;
+  Scan scan(smem, Tq * G, G);
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  scan.begin(q, b, Tq, N, kvh);
+
+  const int len = lengths[b];
+  const int* row = table + static_cast<size_t>(b) * NP;
+  const size_t kv_rs = static_cast<size_t>(K) * H;
+  const int n_tiles = min(NP * (ps / Scan::BS), (len + Tq - 1) / Scan::BS + 1);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int pos0 = t * Scan::BS;
+    const int p = pos0 / ps;
+    const int page = min(row[p], P - 1);
+    const size_t off =
+        (static_cast<size_t>(page) * ps + (pos0 - p * ps)) * kv_rs +
+        static_cast<size_t>(kvh) * H;
+    scan.tile(k + off, v + off, kv_rs, Scan::BS,
+              [=](int r, int j) { return pos0 + j <= len + r / G; }, scale);
+  }
+  scan.end(out, b, Tq, N, kvh);
+}
+
+template <typename T, int H>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const int* table, const int* lengths, void* out, int B,
+                   int Tq, int N, int K, int P, int ps, int NP, float scale,
+                   cudaStream_t stream) {
+  using Scan = rdb::DecodeScan<T, H>;
+  if (ps % Scan::BS != 0) return cudaErrorInvalidValue;
+  const size_t smem = Scan::smem_bytes(Tq * (N / K));
+  auto kern = paged_decode_kernel<T, H>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(K, B);
+  kern<<<grid, Scan::THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), table, lengths, static_cast<T*>(out), Tq, N, K,
+      P, ps, NP, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+extern "C" int rdb_paged_decode_attention(const void* q, const void* k,
+                                          const void* v, const void* table,
+                                          const void* lengths, void* out, int B,
+                                          int Tq, int N, int K, int H, int P,
+                                          int ps, int NP, float scale,
+                                          int dtype, void* stream) {
+  const int* tb = static_cast<const int*>(table);
+  const int* ln = static_cast<const int*>(lengths);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && H == 64)
+    return launch<float, 64>(q, k, v, tb, ln, out, B, Tq, N, K, P, ps, NP, scale, st);
+  if (dtype == 0 && H == 128)
+    return launch<float, 128>(q, k, v, tb, ln, out, B, Tq, N, K, P, ps, NP, scale, st);
+  if (dtype == 1 && H == 64)
+    return launch<__nv_bfloat16, 64>(q, k, v, tb, ln, out, B, Tq, N, K, P, ps, NP, scale, st);
+  if (dtype == 1 && H == 128)
+    return launch<__nv_bfloat16, 128>(q, k, v, tb, ln, out, B, Tq, N, K, P, ps, NP, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

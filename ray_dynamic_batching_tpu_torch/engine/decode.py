@@ -1,24 +1,39 @@
 """Continuous-batching decode engine — slot-based KV-cache serving, in torch.
 
-Port of ``ray_dynamic_batching_tpu/engine/decode.py::DecodeEngine``, the
-slab + monolithic-prefill arm (the constructor defaults there):
+Port of ``ray_dynamic_batching_tpu/engine/decode.py::DecodeEngine``, three
+of its arms:
 
-- **prefill**: a group of same-bucket prompts runs on a fresh row cache,
-  the rows are copied into the shared slab cache at their slots, and the
-  first token is sampled on the device (:meth:`_prefill_impl`);
-- **decode**: ``horizon`` chained steps for all slots per host sync, with
-  presence/frequency penalties, sparse logit bias and the per-request
-  sampler on the device; everything the host needs comes back as ONE
-  packed ``[2h+1, B]`` int32 tensor fetched once per dispatch
-  (:meth:`_decode_impl`).
+- **slab + monolithic prefill** (the constructor defaults): a group of
+  same-bucket prompts runs on a fresh row cache, the rows are copied into
+  the shared slab cache at their slots, and the first token is sampled on
+  the device (:meth:`_prefill_impl`);
+- **paged + token-budget chunked prefill** (``paged=True``; chunking is
+  its default): every admission becomes a chunk train holding a slot;
+  between decode turns :meth:`_pump_prefill` spends at most
+  ``prefill_token_budget`` prompt tokens, same-width single-chunk trains
+  grouped into one pages-direct chunk program
+  (:meth:`_chunk_group_paged_impl`) whose k/v go straight into the pages
+  granted for that chunk; prompts longer than the largest bucket run as
+  multi-chunk trains;
+- **paged + monolithic prefill** (``paged=True, chunked_prefill=False``):
+  the slab arm's prefill, its rows cut into pages at admission.
+
+Decode is shared: ``horizon`` chained steps for all slots per host sync,
+with presence/frequency penalties, sparse logit bias and the per-request
+sampler on the device; everything the host needs comes back as ONE packed
+``[2h+1, B]`` int32 tensor fetched once per dispatch
+(:meth:`_decode_impl`). Page grants, eviction and the page table live on
+the host (``engine/paging.py``); the device table has one writer,
+:meth:`_refresh_table`.
 
 PyTorch runs eagerly, so there is nothing to compile: the reference's
 jit programs are plain methods, its donated buffers are tensors updated in
 place, and its group padding to compiled widths is gone (a group is
-exactly the admitted rows). The paged pool, chunked prefill, speculative
-decoding, the prefix/session caches, the page fabric, weight quantisation
-and the mesh are later slices; a prompt longer than the largest bucket
-raises :class:`BadRequest` naming the missing long-fill path.
+exactly its rows, so no index is written twice). The slab long-fill path,
+speculative decoding, the prefix/session caches, the page fabric, weight
+quantisation and the mesh are later slices: on the monolithic arms a
+prompt longer than the largest bucket raises :class:`BadRequest` naming
+the long-fill path, and ``chunked_prefill=True`` on a slab engine raises.
 
 Sampling: ``jax.random`` keys cannot be reproduced in torch, so sampled
 rows draw gumbel noise from a counter-based hash of (base_seed, request
@@ -40,10 +55,18 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ray_dynamic_batching_tpu_torch.engine.paging import (
+    OutOfPages,
+    PageAllocator,
+    PageEventJournal,
+    pages_for,
+    table_array,
+)
 from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
 from ray_dynamic_batching_tpu_torch.engine.request import (
     BadRequest,
     Request,
+    RequestDropped,
     now_ms,
 )
 from ray_dynamic_batching_tpu_torch.models.base import resolve_device
@@ -71,10 +94,28 @@ class _Slot:
     max_new_tokens: int = 0
     prefill_done_ms: float = 0.0
     stop: frozenset = frozenset()  # per-request stop token ids
+    # Paged mode: the slot's physical page ids in logical order.
+    pages: List[int] = field(default_factory=list)
 
     @property
     def free(self) -> bool:
         return self.request is None
+
+
+@dataclass
+class _ChunkTrain:
+    """One admission mid-chunked-prefill: the unit the token-budget
+    scheduler advances between decode turns. The train HOLDS its slot
+    (``_free_slots`` excludes it) and the pages granted so far
+    (``opts["_pages"]``); ``pos`` is the next position to prefill."""
+
+    req: Request
+    prompt: np.ndarray
+    opts: Dict
+    slot_idx: int
+    C: int                 # chunk width
+    total: int             # prompt length (prefill ends here)
+    pos: int = 0
 
 
 def bucket_up(value: int, buckets: Sequence[int]) -> Optional[int]:
@@ -90,6 +131,23 @@ def copy_rows_into(cache, rows, slots: torch.Tensor) -> None:
     ``slots`` (the reference's donated dynamic_update_slice)."""
     cache.k.index_copy_(1, slots, rows.k)
     cache.v.index_copy_(1, slots, rows.v)
+    cache.lengths.index_copy_(0, slots, rows.lengths)
+
+
+def copy_rows_into_paged(cache, rows, slots: torch.Tensor,
+                         write_pids: torch.Tensor) -> None:
+    """In place: each row of the row cache, cut into page-size pieces,
+    lands at the physical pages ``write_pids`` [nB, NP] names (sentinel
+    entries land in the pool's sink page, which nothing reads); the
+    per-slot lengths land at ``slots``."""
+    L, nB = rows.k.shape[0], rows.k.shape[1]
+    ps = cache.page_size
+    S = write_pids.shape[1] * ps
+    flat = write_pids.reshape(-1).long()
+    for src, dst in ((rows.k, cache.k), (rows.v, cache.v)):
+        pages = src[:, :, :S].reshape((L, nB * (S // ps), ps)
+                                      + tuple(src.shape[3:]))
+        dst.index_copy_(1, flat, pages)
     cache.lengths.index_copy_(0, slots, rows.lengths)
 
 
@@ -122,10 +180,12 @@ def gumbel_noise(base_seed: int, seeds: torch.Tensor, tok_idx: torch.Tensor,
 class DecodeEngine:
     """Continuous-batching executor for one CausalLM on one device.
 
-    ``model`` provides ``make_cache``, ``prefill``, ``decode_step`` and
-    ``cfg`` (:class:`~ray_dynamic_batching_tpu_torch.models.causal_lm.
-    CausalLM`) and owns its weights; ``device`` must be the model's device
-    and defaults to ``"cuda"``.
+    ``model`` provides ``make_cache``, ``prefill``, ``decode_step`` (and,
+    paged, ``make_paged_cache``, ``prefill_chunk_paged``,
+    ``decode_step_paged``) and ``cfg``
+    (:class:`~ray_dynamic_batching_tpu_torch.models.causal_lm.CausalLM`)
+    and owns its weights; ``device`` must be the model's device and
+    defaults to ``"cuda"``.
     """
 
     def __init__(
@@ -143,6 +203,11 @@ class DecodeEngine:
         max_admissions_per_step: int = 2,
         base_seed: int = 0,
         device: Union[str, torch.device, None] = "cuda",
+        paged: bool = False,
+        page_size: int = 128,
+        kv_pool_pages: Optional[int] = None,
+        chunked_prefill: Optional[bool] = None,
+        prefill_token_budget: Optional[int] = None,
     ):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -162,10 +227,58 @@ class DecodeEngine:
         self.base_seed = int(base_seed)
 
         self._slots = [_Slot() for _ in range(num_slots)]
-        # Host mirror of per-slot cache lengths (kv_occupancy).
+        # Host mirror of per-slot cache lengths (page headroom,
+        # kv_occupancy).
         self._len_host = np.zeros((num_slots,), dtype=np.int32)
+        # Paged pool: one pool of pages shared by every slot through a
+        # per-slot page table, so occupancy follows cached tokens.
+        self.paged = bool(paged)
+        self.page_size = int(page_size)
+        self._page_journal: Optional[PageEventJournal] = None
+        if self.paged:
+            if self.page_size <= 0 or self.page_size % 128:
+                raise ValueError(
+                    f"page_size {self.page_size} must be a multiple of 128 "
+                    "(the engine's page rule, shared with the JAX package)"
+                )
+            # Logical capacity: whole pages covering max_len; max_len
+            # stays the generation bound (token-exactness vs the slab).
+            self._n_table_entries = pages_for(max_len, self.page_size)
+            self._paged_capacity = self._n_table_entries * self.page_size
+            full_backing = num_slots * self._n_table_entries
+            self.num_pages = int(kv_pool_pages or full_backing)
+            # Over-subscription is allowed, but the pool must back one
+            # slot or nothing could ever decode.
+            if self.num_pages < self._n_table_entries:
+                raise ValueError(
+                    f"kv_pool_pages {self.num_pages} cannot back even one "
+                    f"slot ({self._n_table_entries} pages at page_size "
+                    f"{self.page_size}, max_len {max_len})"
+                )
+            self._page_journal = PageEventJournal()
+            self._allocator = PageAllocator(self.num_pages,
+                                            journal=self._page_journal)
+            self._table_host = np.full(
+                (num_slots, self._n_table_entries), self.num_pages,
+                dtype=np.int32,
+            )
+            self._table_dirty = True
+        if chunked_prefill is None:
+            chunked_prefill = self.paged
+        if chunked_prefill and not self.paged:
+            raise ValueError(
+                "chunked_prefill=True on a slab engine needs the slab "
+                "long-fill path (row-cache chunks + commit; ROADMAP queue 1 "
+                "item 2), which is not ported yet: use paged=True"
+            )
+        self.chunked_prefill = bool(chunked_prefill)
         with torch.inference_mode():
-            self._cache = model.make_cache(num_slots, max_len)
+            if self.paged:
+                self._cache = model.make_paged_cache(
+                    num_slots, self.num_pages, self.page_size,
+                    self._paged_capacity)
+            else:
+                self._cache = model.make_cache(num_slots, max_len)
             V = model.cfg.vocab_size
             # Per-slot generated-token counts for the penalties, on device.
             self._counts = torch.zeros((num_slots, V), dtype=torch.int32,
@@ -190,6 +303,14 @@ class DecodeEngine:
         self.ttft_horizon = min(max(1, int(ttft_horizon)),
                                 self.decode_horizon)
         self.max_admissions_per_step = max(1, int(max_admissions_per_step))
+        # Token-budget chunked admission: the most prefill tokens one
+        # scheduler round spends between decode turns, at least one chunk
+        # of the largest bucket so a full-width chunk can always go.
+        chunk_w = self.prompt_buckets[-1] if self.prompt_buckets else max_len
+        self.prefill_token_budget = max(
+            int(prefill_token_budget or chunk_w), chunk_w)
+        self._trains: List[_ChunkTrain] = []   # FIFO (arrival order)
+        self._train_slots: set = set()
         # TTFT decomposition (queue_wait, scan_wait, prefill) per admission.
         self._scan_start_ms = 0.0
         self._scan_end_ms = 0.0
@@ -201,7 +322,8 @@ class DecodeEngine:
         self._thread: Optional[threading.Thread] = None
         self._run = threading.Event()
         self.steps = 0
-        self.prefill_groups = 0
+        self.prefill_groups = 0      # monolithic prefill dispatches
+        self.chunk_dispatches = 0    # chunk-group dispatches
         self.completed = 0
         self.last_heartbeat = time.monotonic()
 
@@ -253,11 +375,15 @@ class DecodeEngine:
 
     @torch.inference_mode()
     def _prefill_impl(self, tokmask, meta_i, meta_f, bias_ids, bias_vals,
-                      any_sampled: bool) -> torch.Tensor:
+                      any_sampled: bool,
+                      write_pids: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
         """``nB`` prompts -> cache rows at ``slots`` + first sampled tokens.
         Inputs arrive packed by dtype: ``tokmask`` [2, nB, T] (tokens,
         attention mask), ``meta_i`` [3, nB] (slots, top_k, seeds),
-        ``meta_f`` [2, nB] (temperature, top_p)."""
+        ``meta_f`` [2, nB] (temperature, top_p). Paged engines pass
+        ``write_pids`` [nB, NP]: the rows are cut into pages and land at
+        those physical pages."""
         tokens, attn_mask = tokmask[0], tokmask[1]
         slots, topk, seeds = meta_i[0], meta_i[1], meta_i[2]
         temps, topp = meta_f[0], meta_f[1]
@@ -265,12 +391,43 @@ class DecodeEngine:
         # A fresh zeroed row cache: positions past the prompt are masked,
         # and zeros (not stale memory) is what they hold, as in the
         # reference.
-        rows = self.model.make_cache(nB, self.max_len)
+        rows = self.model.make_cache(
+            nB, self._paged_capacity if self.paged else self.max_len)
         last_logits, rows = self.model.prefill(tokens, attn_mask, rows)
-        copy_rows_into(self._cache, rows, slots.long())
+        if self.paged:
+            copy_rows_into_paged(self._cache, rows, slots.long(), write_pids)
+        else:
+            copy_rows_into(self._cache, rows, slots.long())
         return self._sample_tokens(
             last_logits, temps, topk, seeds, torch.zeros_like(slots),
             bias_ids, bias_vals, topp, any_sampled,
+        )
+
+    @torch.inference_mode()
+    def _chunk_group_paged_impl(self, tokmask, tables, meta_i, meta_f,
+                                bias_ids, bias_vals, n_final: int,
+                                any_sampled: bool) -> torch.Tensor:
+        """One pages-direct chunk program for a group of chunk trains:
+        row i is one train's next ``<= W``-token chunk, its k/v written
+        straight through its own table row ``tables[i]`` into the pages
+        granted for it, its read the staircase window from its own start.
+        The first token is sampled for every row (only final rows' are
+        used). ``meta_i`` [6, g] packs start / take_idx / top_k / seed and,
+        in its first ``n_final`` columns, the final rows' slots and prompt
+        lengths (host-built, so no index is steered anywhere); ``meta_f``
+        [2, g] temperature / top_p."""
+        tokens, attn_mask = tokmask[0], tokmask[1]
+        starts, take_idx, topk, seeds = meta_i[0], meta_i[1], meta_i[2], \
+            meta_i[3]
+        temps, topp = meta_f[0], meta_f[1]
+        taken, _ = self.model.prefill_chunk_paged(
+            tokens, attn_mask, self._cache, tables, starts, take_idx)
+        if n_final:
+            self._cache.lengths.index_copy_(
+                0, meta_i[4, :n_final].long(), meta_i[5, :n_final])
+        return self._sample_tokens(
+            taken, temps, topk, seeds, torch.zeros_like(starts), bias_ids,
+            bias_vals, topp, any_sampled,
         )
 
     @torch.inference_mode()
@@ -296,10 +453,16 @@ class DecodeEngine:
         topk, seeds = samp_i[0], samp_i[1]
         cache = self._cache
         rows = torch.arange(tokens.shape[0], device=self.device)
+        # Paged pools round capacity up to whole pages; max_len stays the
+        # generation bound, so paged and slab engines stop at the same
+        # length (for slab caches the two coincide).
+        limit = self.max_len if self.paged else cache.capacity
+        step_fn = (self.model.decode_step_paged if self.paged
+                   else self.model.decode_step)
         toks, advs = [], []
         for j in range(horizon):
-            advanced = active & (cache.lengths < cache.capacity)
-            logits, cache = self.model.decode_step(tokens, cache, advanced)
+            advanced = active & (cache.lengths < limit)
+            logits, cache = step_fn(tokens, cache, advanced)
             logits = logits.float()
             if any_penalty:
                 counts = self._counts
@@ -320,12 +483,18 @@ class DecodeEngine:
                           cache.lengths[None, :]], dim=0)
 
     def warmup(self) -> None:
-        """Build the kernels and run every admission-group width of every
-        prompt bucket plus a greedy and a sampled decode step before
-        serving — the reference's warmup grid, here priming the kernel
-        build, the GEMM heuristics and the allocator instead of XLA
-        compiles — so the first requests pay none of it. The cache and
-        counts state is reset afterwards."""
+        """Build the kernels and run every admission shape — the
+        (bucket x group) prefill grid on monolithic arms; on the chunked
+        arm the chunk program at every bucket width and every group size
+        up to ``min(max_admissions_per_step, budget // W)`` (the largest
+        bucket's group of 1 is the multi-chunk train's shape) — plus a
+        greedy and a sampled decode step before serving: the reference's
+        warmup grid, here priming the kernel build, the GEMM heuristics
+        and the allocator instead of XLA compiles, so the first requests
+        pay none of it. Paged warmup writes through all-sentinel tables
+        (every write lands in the sink page; no page is allocated), so the
+        allocator is untouched. The lengths and counts are reset
+        afterwards."""
         if self.device.type == "cuda":
             from ray_dynamic_batching_tpu_torch.ops import _build
 
@@ -333,17 +502,32 @@ class DecodeEngine:
         dev = self.device
         K = self.max_bias_entries
         for b in self.prompt_buckets:
-            for g in range(1, self.max_admissions_per_step + 1):
+            top = self.max_admissions_per_step
+            if self.chunked_prefill:
+                top = min(top, self.prefill_token_budget // b)
+            for g in range(1, top + 1):
                 tokmask = torch.stack([torch.zeros((g, b), dtype=torch.int32),
                                        torch.ones((g, b), dtype=torch.int32)])
-                meta_i = torch.zeros((3, g), dtype=torch.int32)
-                meta_i[0] = torch.arange(g) % self.num_slots
                 meta_f = torch.zeros((2, g))
                 meta_f[1] = 1.0
+                bias = (torch.zeros((g, K), dtype=torch.int32, device=dev),
+                        torch.zeros((g, K), device=dev))
+                sentinel = None
+                if self.paged:
+                    sentinel = torch.full((g, self._n_table_entries),
+                                          self.num_pages, dtype=torch.int32,
+                                          device=dev)
+                if self.chunked_prefill:
+                    self._chunk_group_paged_impl(
+                        tokmask.to(dev), sentinel,
+                        torch.zeros((6, g), dtype=torch.int32, device=dev),
+                        meta_f.to(dev), *bias, 0, g % 2 == 0)
+                    continue
+                meta_i = torch.zeros((3, g), dtype=torch.int32)
+                meta_i[0] = torch.arange(g) % self.num_slots
                 self._prefill_impl(
-                    tokmask.to(dev), meta_i.to(dev), meta_f.to(dev),
-                    torch.zeros((g, K), dtype=torch.int32, device=dev),
-                    torch.zeros((g, K), device=dev), g % 2 == 0,
+                    tokmask.to(dev), meta_i.to(dev), meta_f.to(dev), *bias,
+                    g % 2 == 0, sentinel,
                 )
         samp_f, samp_i, bias_ids, bias_vals = self._sampling_arrays()
         for sampled in (False, True):
@@ -360,7 +544,8 @@ class DecodeEngine:
 
     # --- admission ---------------------------------------------------------
     def _free_slots(self) -> List[int]:
-        return [i for i, s in enumerate(self._slots) if s.free]
+        return [i for i, s in enumerate(self._slots)
+                if s.free and i not in self._train_slots]
 
     def _prep_prompt(self, req: Request) -> Tuple[np.ndarray, int, Dict]:
         """Validate one request before it costs a dispatch; returns
@@ -379,7 +564,15 @@ class DecodeEngine:
         if prompt.min() < 0 or prompt.max() >= V:
             raise BadRequest(f"{req.request_id}: token id out of vocab")
         bucket = bucket_up(int(prompt.size), self.prompt_buckets)
-        if bucket is None:
+        if bucket is None and self.chunked_prefill:
+            # Longer than every bucket: a multi-chunk train (bucket -1),
+            # as long as the cache holds the prompt plus one token.
+            if prompt.size >= self.max_len:
+                raise BadRequest(
+                    f"{req.request_id}: prompt length {prompt.size} "
+                    f"exceeds KV capacity {self.max_len}")
+            bucket = -1
+        elif bucket is None:
             raise BadRequest(
                 f"{req.request_id}: prompt length {prompt.size} exceeds the "
                 f"largest prompt bucket {max(self.prompt_buckets)}; the "
@@ -453,17 +646,23 @@ class DecodeEngine:
         return ids, vals
 
     def _admit(self) -> int:
-        """Fill free slots from the queue (continuous batching join). While
-        slots are decoding, at most ``max_admissions_per_step`` prefills
-        run between decode steps; an idle engine fills every free slot."""
+        """Fill free slots from the queue (continuous batching join).
+        Chunked engines admit into chunk trains, every free slot at once:
+        their prefill work is paced by the token budget in
+        :meth:`_pump_prefill`. Monolithic arms ration by count instead:
+        while slots are decoding, at most ``max_admissions_per_step``
+        prefills run between decode steps; an idle engine fills every
+        free slot."""
         free = self._free_slots()
         if not free:
             return 0
-        if self._active_mask.any():
+        if self._active_mask.any() and not self.chunked_prefill:
             free = free[: self.max_admissions_per_step]
         batch = self.queue.get_batch(len(free), discard_stale=True)
         self._admitting = len(batch)
         try:
+            if self.chunked_prefill:
+                return self._admit_chunked(batch, free)
             return self._admit_batch(batch, free)
         finally:
             self._admitting = 0
@@ -478,6 +677,9 @@ class DecodeEngine:
             except Exception as e:  # noqa: BLE001 — bad prompt must not kill loop
                 req.reject(e)
                 continue
+            if self.paged and not self._alloc_admission_pages(
+                    req, prompt, opts):
+                continue  # page-starved: requeued (or refused) inside
             by_bucket.setdefault(bucket, []).append((req, prompt, opts))
         admitted = 0
         cap = self.max_admissions_per_step
@@ -490,7 +692,8 @@ class DecodeEngine:
                 except Exception as e:  # noqa: BLE001 — no dangling futures
                     logger.exception("%s: prefill group failed",
                                      self.model.name)
-                    for req, _p, _o in chunk:
+                    for req, _p, opts in chunk:
+                        self._release_pages(opts)
                         req.reject(e)
                     continue
                 admitted += len(chunk)
@@ -513,6 +716,13 @@ class DecodeEngine:
             meta_f[:, i] = (opts["temperature"], opts.get("top_p", 1.0))
             bias_ids[i], bias_vals[i] = self._bias_arrays(opts)
         dev = self.device
+        pids = None
+        if self.paged:
+            # Physical destination pages per row (sentinel tail).
+            pids = torch.from_numpy(np.stack([
+                table_array(opts["_pages"], self._n_table_entries,
+                            self.num_pages) for _r, _p, opts in items
+            ])).to(dev)
         first = self._prefill_impl(
             torch.from_numpy(np.stack([tokens, mask])).to(dev),
             torch.from_numpy(meta_i).to(dev),
@@ -520,12 +730,248 @@ class DecodeEngine:
             torch.from_numpy(bias_ids).to(dev),
             torch.from_numpy(bias_vals).to(dev),
             bool((meta_f[0] > 0).any()),
+            pids,
         )
         first_host = first.cpu().numpy()  # ONE fetch for the whole group
         self.prefill_groups += 1
         t = now_ms()
         for i, (req, _prompt, opts) in enumerate(items):
             self._register(slot_ids[i], req, int(first_host[i]), opts, t)
+
+    # --- token-budget chunked admission ------------------------------------
+    def _admit_chunked(self, batch: List[Request], free: List[int]) -> int:
+        """Every dequeued request becomes a :class:`_ChunkTrain` holding a
+        slot; no prefill dispatches here — :meth:`_pump_prefill` advances
+        trains between decode turns."""
+        t_dequeue = now_ms()
+        started = 0
+        for req in batch:
+            req.admit_ms = t_dequeue
+            try:
+                prompt, bucket, opts = self._prep_prompt(req)
+            except Exception as e:  # noqa: BLE001 — bad prompt must not kill loop
+                req.reject(e)
+                continue
+            slot_idx = free[started]  # len(batch) <= len(free) by dequeue
+            try:
+                self._start_train(req, prompt, bucket, opts, slot_idx)
+            except Exception as e:  # noqa: BLE001 — no-dangle rule
+                logger.exception("%s: train admission failed",
+                                 self.model.name)
+                self._release_pages(opts)
+                req.reject(e)
+                continue
+            started += 1
+        return started
+
+    def _start_train(self, req: Request, prompt: np.ndarray, bucket: int,
+                     opts: Dict, slot_idx: int) -> None:
+        """Park one admission's chunk train for the budget pump. A
+        bucketed prompt keeps its bucket as the chunk width, so
+        same-bucket trains group into one program; a long prompt chunks
+        at the largest bucket."""
+        W = bucket if bucket > 0 else self.prompt_buckets[-1]
+        opts["_pages"] = []
+        self._trains.append(_ChunkTrain(
+            req=req, prompt=prompt, opts=opts, slot_idx=slot_idx, C=W,
+            total=int(prompt.size),
+        ))
+        self._train_slots.add(slot_idx)
+
+    def _pump_prefill(self) -> None:
+        """Spend at most ``prefill_token_budget`` tokens advancing pending
+        chunk trains, FCFS from the oldest. Single-chunk trains of the
+        head's width group into one dispatch of at most
+        ``min(max_admissions_per_step, budget // W)`` rows; a multi-chunk
+        train dispatches alone. A train whose next chunk cannot get its
+        pages parks for the round (live streams are never evicted to feed
+        an admission); a round where nothing could progress while no
+        stream decodes requeues the newest train, so parked trains cannot
+        deadlock the pool among themselves."""
+        if not self._trains:
+            return
+        budget = self.prefill_token_budget
+        parked: set = set()
+        dispatched_any = False
+        while budget > 0:
+            head = next(
+                (t for t in self._trains if id(t) not in parked), None)
+            if head is None or head.C > budget:
+                break
+            members = [head]
+            if head.total <= head.C:
+                cap = min(self.max_admissions_per_step,
+                          max(1, budget // head.C))
+                for t in self._trains:
+                    if len(members) >= cap:
+                        break
+                    if (t is head or id(t) in parked or t.C != head.C
+                            or t.total > t.C):
+                        continue
+                    members.append(t)
+            ready = []
+            for t in members:
+                if self._grant_train_pages(t):
+                    ready.append(t)
+                else:
+                    parked.add(id(t))
+            if not ready:
+                continue
+            try:
+                self._dispatch_chunk_group(ready)
+            except Exception as e:  # noqa: BLE001 — no-dangle rule
+                logger.exception("%s: chunk dispatch failed",
+                                 self.model.name)
+                for t in ready:
+                    self._drop_train(t, e)
+                continue
+            budget -= head.C * len(ready)
+            dispatched_any = True
+        if (not dispatched_any and self._trains
+                and not self._active_mask.any()):
+            self._relieve_train_starvation()
+
+    def _drain_prefill(self) -> None:
+        """Pump pending chunk trains to completion (tests and manual
+        drivers; the serving loop pumps one budget per turn). Decode turns
+        run only while trains are parked behind pages that active streams
+        hold."""
+        while self._trains:
+            before = (sum(t.pos for t in self._trains), len(self._trains))
+            self._pump_prefill()
+            after = (sum(t.pos for t in self._trains), len(self._trains))
+            if after != before:
+                continue
+            if self._active_mask.any():
+                self._step(horizon=1)
+                continue
+            raise TimeoutError(
+                f"{self.model.name}: chunk trains cannot progress "
+                "(page-starved with no active streams)")
+
+    def _grant_train_pages(self, train: _ChunkTrain) -> bool:
+        """Extend the train's pages to cover its NEXT chunk's real
+        positions (a final chunk also covers the first generated token);
+        False when the pool cannot (the train parks)."""
+        take = min(train.C, train.total - train.pos)
+        if train.pos + take >= train.total:
+            need = pages_for(min(train.total + 1, self._paged_capacity),
+                             self.page_size)
+        else:
+            need = pages_for(train.pos + take, self.page_size)
+        delta = need - len(train.opts["_pages"])
+        if delta <= 0:
+            return True
+        if not self._allocator.can_alloc(delta):
+            return False
+        train.opts["_pages"].extend(self._allocator.alloc(delta))
+        return True
+
+    def _dispatch_chunk_group(self, trains: List[_ChunkTrain]) -> None:
+        """ONE pages-direct chunk program for same-width trains; the
+        first token of each final row is fetched in one copy and the
+        train registers into its slot."""
+        W = trains[0].C
+        g = len(trains)
+        tokens = np.zeros((g, W), np.int32)
+        mask = np.zeros((g, W), np.int32)
+        tables = np.empty((g, self._n_table_entries), np.int32)
+        meta_i = np.zeros((6, g), np.int32)
+        meta_f = np.zeros((2, g), np.float32)
+        bias_ids = np.zeros((g, self.max_bias_entries), np.int32)
+        bias_vals = np.zeros((g, self.max_bias_entries), np.float32)
+        finals: List[Tuple[int, _ChunkTrain]] = []
+        for i, t in enumerate(trains):
+            piece = t.prompt[t.pos: t.pos + W]
+            take = int(piece.size)
+            tokens[i, :take] = piece
+            mask[i, :take] = 1
+            tables[i] = table_array(t.opts["_pages"], self._n_table_entries,
+                                    self.num_pages)
+            meta_i[:4, i] = (t.pos, take - 1, t.opts["top_k"],
+                             t.opts["seed"])
+            meta_f[:, i] = (t.opts["temperature"], t.opts.get("top_p", 1.0))
+            bias_ids[i], bias_vals[i] = self._bias_arrays(t.opts)
+            if t.pos + take >= t.total:
+                # Only the final chunk publishes the prompt's length.
+                meta_i[4:, len(finals)] = (t.slot_idx, t.total)
+                finals.append((i, t))
+        dev = self.device
+        first = self._chunk_group_paged_impl(
+            torch.from_numpy(np.stack([tokens, mask])).to(dev),
+            torch.from_numpy(tables).to(dev),
+            torch.from_numpy(meta_i).to(dev),
+            torch.from_numpy(meta_f).to(dev),
+            torch.from_numpy(bias_ids).to(dev),
+            torch.from_numpy(bias_vals).to(dev),
+            len(finals), bool((meta_f[0] > 0).any()),
+        )
+        for t in trains:
+            t.pos = min(t.pos + W, t.total)
+        self.chunk_dispatches += 1
+        if not finals:
+            return
+        first_host = first.cpu().numpy()  # ONE fetch, final rows only
+        t_done = now_ms()
+        for i, t in finals:
+            self._retire_train(t)
+            self._register(t.slot_idx, t.req, int(first_host[i]), t.opts,
+                           t_done)
+
+    def _retire_train(self, train: _ChunkTrain) -> None:
+        if train in self._trains:
+            self._trains.remove(train)
+        self._train_slots.discard(train.slot_idx)
+
+    def _drop_train(self, train: _ChunkTrain, exc: Exception) -> None:
+        """A failed train releases its pages and rejects its caller."""
+        self._retire_train(train)
+        self._release_pages(train.opts)
+        train.req.reject(exc)
+
+    def _relieve_train_starvation(self) -> None:
+        """Deadlock valve: with no active streams no EOS can free pages,
+        so requeue the newest train (preferring one that has not
+        dispatched yet) and release its grant."""
+        if not self._trains:
+            return
+        train = next((t for t in reversed(self._trains) if t.pos == 0),
+                     self._trains[-1])
+        self._retire_train(train)
+        self._release_pages(train.opts)
+        self._requeue(train.req, "page-starved chunked admission")
+
+    # --- paged admission bookkeeping ---------------------------------------
+    def _requeue(self, req: Request, why: str) -> None:
+        """Back to the queue untouched; a refused requeue rejects (the
+        engine holds the only reference)."""
+        if not self.queue.add_request(req, reject_on_full=False,
+                                      requeue=True):
+            self.queue.count_external_drop(req, reason="requeue_refused")
+            req.reject(RequestDropped(
+                f"{req.request_id}: queue refused requeue during {why}"))
+
+    def _alloc_admission_pages(self, req: Request, prompt: np.ndarray,
+                               opts: Dict) -> bool:
+        """Reserve a monolithic admission's pages (prompt + the first
+        generated token); page-starved, the request goes back to the
+        queue (False)."""
+        try:
+            opts["_pages"] = self._allocator.alloc(
+                pages_for(int(prompt.size) + 1, self.page_size))
+            return True
+        except OutOfPages:
+            self._requeue(req, "page-starved admission")
+            return False
+
+    def _release_pages(self, opts: Dict) -> None:
+        """Undo an admission's page reservation (failed or requeued before
+        a slot took ownership)."""
+        if not self.paged:
+            return
+        pages = opts.pop("_pages", None)
+        if pages:
+            self._allocator.decref(pages)
 
     def _register(self, slot_idx: int, req: Request, first_tok: int,
                   opts: Dict, t: float) -> None:
@@ -537,6 +983,13 @@ class DecodeEngine:
         slot.prefill_done_ms = t
         slot.stop = opts["stop"]
         self._len_host[slot_idx] = int(opts.get("_cache_len", 0))
+        if self.paged:
+            # The slot now owns the admission's pages; the host table
+            # maps them for the next dispatch's refresh.
+            slot.pages = list(opts.get("_pages", ()))
+            self._table_host[slot_idx] = table_array(
+                slot.pages, self._n_table_entries, self.num_pages)
+            self._table_dirty = True
         self._tokens[slot_idx, 0] = first_tok
         self._active_mask[slot_idx] = True
         self._temps[slot_idx] = opts["temperature"]
@@ -575,6 +1028,8 @@ class DecodeEngine:
         slot = self._slots[slot_idx]
         req = slot.request
         t = now_ms()
+        if self.paged and slot.pages:
+            self._free_slot_pages(slot_idx)
         req.fulfill(DecodeResult(
             tokens=list(slot.generated),
             finish_reason=reason,
@@ -597,11 +1052,82 @@ class DecodeEngine:
         # are masked by the active row of the next dispatch.
         self.completed += 1
 
+    # --- page-pool management (paged mode) --------------------------------
+    def _free_slot_pages(self, slot_idx: int) -> None:
+        """Return a finished slot's pages to the pool at once (EOS frees
+        mid-cycle); its table row goes to sentinel at the next refresh,
+        before any dispatch could write through it."""
+        slot = self._slots[slot_idx]
+        if slot.pages:
+            self._allocator.decref(slot.pages)
+            slot.pages = []
+        self._table_host[slot_idx] = self.num_pages
+        self._len_host[slot_idx] = 0
+        self._table_dirty = True
+
+    def _refresh_table(self) -> None:
+        """Upload the host page table when it changed. This is the device
+        table's only writer, and it uploads a fresh copy, so later host
+        edits of the mirror never race the copy."""
+        if self._table_dirty:
+            self._cache.page_table = torch.from_numpy(
+                self._table_host.copy()).to(self.device)
+            self._table_dirty = False
+
+    def _ensure_page_headroom(self, horizon: int) -> None:
+        """Grow active slots' pages to cover the next ``horizon`` substeps
+        before the dispatch. When an over-subscribed pool runs dry, the
+        most recently admitted other slot is capacity-finished and its
+        pages reused (newest first keeps the streams with the most sunk
+        cost); if even that cannot cover a slot, the slot itself is
+        capacity-finished. Full-backing pools never evict."""
+        for i in np.flatnonzero(self._active_mask):
+            slot = self._slots[i]
+            if slot.free:
+                continue
+            need = pages_for(
+                min(int(self._len_host[i]) + horizon, self.max_len),
+                self.page_size)
+            delta = need - len(slot.pages)
+            if delta <= 0:
+                continue
+            while not self._allocator.can_alloc(delta):
+                victim = self._eviction_victim(exclude=int(i))
+                if victim is None:
+                    break
+                self._page_journal.record(
+                    "eviction", len(self._slots[victim].pages),
+                    self._allocator.allocated_pages, slot=int(victim))
+                self._finish(victim, "capacity")
+            if not self._allocator.can_alloc(delta):
+                self._page_journal.record(
+                    "eviction", len(slot.pages),
+                    self._allocator.allocated_pages, slot=int(i))
+                self._finish(int(i), "capacity")
+                continue
+            slot.pages.extend(self._allocator.alloc(delta))
+            self._table_host[i] = table_array(
+                slot.pages, self._n_table_entries, self.num_pages)
+            self._table_dirty = True
+
+    def _eviction_victim(self, exclude: int) -> Optional[int]:
+        """Most recently admitted active slot other than ``exclude``."""
+        best, best_t = None, -1.0
+        for j, s in enumerate(self._slots):
+            if j == exclude or s.free or not self._active_mask[j]:
+                continue
+            if s.prefill_done_ms > best_t:
+                best, best_t = j, s.prefill_done_ms
+        return best
+
     def _pick_horizon(self) -> int:
-        """Full scan only when the batch is full, single steps while
-        requests wait for a free slot, the short ``ttft_horizon`` when
-        slots are free but nothing is queued."""
+        """Single steps while chunk trains are pending (a long scan would
+        stretch every pending train's TTFT) or requests wait for a free
+        slot; the full scan only when the batch is full; the short
+        ``ttft_horizon`` when slots are free but nothing is queued."""
         if self.decode_horizon <= 1:
+            return 1
+        if self._trains:
             return 1
         if not self._free_slots():
             return self.decode_horizon
@@ -640,6 +1166,11 @@ class DecodeEngine:
 
     def _step(self, horizon: Optional[int] = None) -> None:
         h = horizon if horizon is not None else self._pick_horizon()
+        if self.paged:
+            # Pages for every position this dispatch can write, granted
+            # on the host first; then the table upload when it changed.
+            self._ensure_page_headroom(h)
+            self._refresh_table()
         # Per-slot index of the NEXT token to sample (prefill was index 0).
         tok_idx = np.asarray(
             [len(s.generated) if not s.free else 0 for s in self._slots],
@@ -722,9 +1253,11 @@ class DecodeEngine:
         deadline = time.monotonic() + timeout_s
         while time.monotonic() < deadline:
             admitted = self._admit()
+            self._pump_prefill()
             if self._active_mask.any():
                 self._step()
-            elif not admitted and len(self.queue) == 0:
+            elif (not admitted and not self._trains
+                    and len(self.queue) == 0):
                 return
         raise TimeoutError(f"{self.model.name}: decode did not drain")
 
@@ -732,9 +1265,10 @@ class DecodeEngine:
         while self._run.is_set():
             try:
                 self._admit()
+                self._pump_prefill()
                 if self._active_mask.any():
                     self._step()
-                else:
+                elif not self._trains:
                     self.queue.wait_for_requests(self.idle_wait_s)
                 self.last_heartbeat = time.monotonic()
             except Exception:  # noqa: BLE001 — engine must not die silently
@@ -748,6 +1282,9 @@ class DecodeEngine:
         self._cache = None
         self._counts = None
         self._sampling_dev = None
+        if self.paged:
+            self._allocator = None
+            self._table_host = None
 
     def abort_active(self, exc: Exception) -> None:
         """Reject every request still occupying a slot (shutdown). Call
@@ -755,8 +1292,17 @@ class DecodeEngine:
         for i, slot in enumerate(self._slots):
             if not slot.free and slot.request is not None:
                 slot.request.reject(exc)
+                if self.paged and self._allocator is not None:
+                    self._free_slot_pages(i)
                 self._slots[i] = _Slot()
                 self._active_mask[i] = False
+        # Chunk trains hold a slot and pages but no tokens yet.
+        for train in list(self._trains):
+            train.req.reject(exc)
+            if self.paged and self._allocator is not None:
+                self._release_pages(train.opts)
+        self._trains.clear()
+        self._train_slots.clear()
 
     def start(self) -> None:
         if self._thread is not None:
@@ -777,9 +1323,16 @@ class DecodeEngine:
                 self._thread = None
 
     def kv_occupancy(self) -> float:
-        """Useful fraction of reserved KV positions (num_slots * max_len)."""
-        reserved = float(self.num_slots * self.max_len)
-        return float(self._len_host.sum()) / reserved if reserved else 1.0
+        """Useful fraction of reserved KV positions: of ``num_slots *
+        max_len`` on a slab engine, of the allocated pages' positions on a
+        paged one. 1.0 when nothing is reserved."""
+        used = float(self._len_host.sum())
+        if self.paged:
+            reserved = float(self._allocator.allocated_pages * self.page_size
+                             if self._allocator is not None else 0)
+        else:
+            reserved = float(self.num_slots * self.max_len)
+        return used / reserved if reserved > 0 else 1.0
 
     @property
     def active_slots(self) -> int:

@@ -1,7 +1,9 @@
 """Causal-LM servable models (GPT-2 family, Llama family) on the shared decoder.
 
-Port of ``ray_dynamic_batching_tpu/models/causal_lm.py`` (the slab arm):
-``make_cache``, ``prefill`` and ``decode_step``, the configs ``LLAMA3_8B``,
+Port of ``ray_dynamic_batching_tpu/models/causal_lm.py``: the slab arm
+(``make_cache``, ``prefill``, ``decode_step``), the paged arm
+(``make_paged_cache``, ``prefill_chunk_paged``, ``decode_step_paged``),
+the configs ``LLAMA3_8B``,
 ``GPT2_MEDIUM`` and ``TINY_LM``, and their registry entries. The model
 owns its weights on an explicit device; :meth:`CausalLM.init_random`
 fills them from a seed on that device (no download), and
@@ -24,6 +26,7 @@ from ray_dynamic_batching_tpu_torch.models.decoder import (
     DecoderModule,
     KVCache,
     LayerNorm,
+    PagedKVCache,
     RMSNorm,
     decode_mask,
     prefill_mask,
@@ -116,6 +119,59 @@ class CausalLM(ServableModel):
         positions = cache.lengths[:, None]
         mask = decode_mask(cache.lengths, cache.capacity)
         logits = self.module(tokens, positions, mask, cache)
+        cache.lengths = cache.lengths + active.to(torch.int32)
+        return logits[:, 0], cache
+
+
+    def make_paged_cache(self, batch_size: int, num_pages: int,
+                         page_size: int, max_len: int) -> PagedKVCache:
+        """A paged pool of ``num_pages`` pages (plus the sink page) and a
+        ``[batch_size, max_len // page_size]`` all-sentinel page table;
+        the engine owns allocation (``engine/paging.py``)."""
+        return PagedKVCache.zeros(self.cfg, batch_size, num_pages, page_size,
+                                  max_len, dtype=self.dtype,
+                                  device=self.device)
+
+    def prefill_chunk_paged(
+        self,
+        tokens: torch.Tensor,     # [B, W] one chunk per row (tail padded)
+        attn_mask: torch.Tensor,  # [B, W] 1 = real token
+        cache: PagedKVCache,
+        tables: torch.Tensor,     # [B, NP] per-row page-table rows
+        starts: torch.Tensor,     # [B] global position of tokens[:, 0]
+        take_idx: torch.Tensor,   # [B] per-row logits row to return
+    ) -> Tuple[torch.Tensor, PagedKVCache]:
+        """Pages-direct chunked prefill: row b's chunk occupies positions
+        [starts[b], starts[b] + W), its k/v written through ``tables`` into
+        the pages the engine granted (positions past logical capacity are
+        steered to S and dropped), attention reading the staircase window
+        (row t attends positions <= starts + t). Padded tail positions
+        write garbage past the final length that nothing attends.
+        ``lengths`` and ``page_table`` pass through untouched. Returns
+        (logits at ``take_idx`` [B, V], cache); the head runs only on the
+        taken rows."""
+        B, W = tokens.shape
+        S = tables.shape[1] * cache.page_size
+        positions = starts[:, None] + torch.arange(W, device=tokens.device)
+        positions = torch.where(positions < S, positions,
+                                torch.full_like(positions, S))
+        taken = self.module(tokens, positions, None, cache, take=take_idx,
+                            page_table=tables, kv_lengths=starts)
+        return taken, cache
+
+    def decode_step_paged(self, tokens: torch.Tensor, cache: PagedKVCache,
+                          active: torch.Tensor
+                          ) -> Tuple[torch.Tensor, PagedKVCache]:
+        """:meth:`decode_step` over the paged pool: writes and reads go
+        through the page table, rows at logical capacity are
+        force-deactivated (their write is dropped), ``lengths`` advance
+        for active rows."""
+        in_bounds = cache.lengths < cache.capacity
+        active = active & in_bounds
+        positions = cache.lengths[:, None]
+        logits = self.module(tokens, positions, None, cache,
+                             page_table=cache.page_table,
+                             kv_lengths=cache.lengths)
         cache.lengths = cache.lengths + active.to(torch.int32)
         return logits[:, 0], cache
 

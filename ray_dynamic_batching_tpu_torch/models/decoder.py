@@ -1,6 +1,7 @@
-"""Shared causal-decoder transformer with an explicit slab KV cache, in torch.
+"""Shared causal-decoder transformer with an explicit KV cache, in torch.
 
-Port of ``ray_dynamic_batching_tpu/models/decoder.py`` (the slab arm): one
+Port of ``ray_dynamic_batching_tpu/models/decoder.py`` (the slab cache and
+the paged pool): one
 config-driven module covers both families — RoPE/RMSNorm/SwiGLU/GQA for
 Llama, learned positions/LayerNorm/GeLU/bias/tied embeddings for GPT-2.
 
@@ -18,7 +19,11 @@ Numerics follow the flax reference:
 - RoPE rotates split halves with angles in f32.
 
 Where JAX donated the cache buffers, the port writes the cache in place.
-Int8 KV, the paged pool, chunked/scatter writes and MoE are later slices.
+The paged pool keeps one extra SINK page past the ``P`` real ones: the
+reference's sentinel-steered ``mode="drop"`` writes land there (an index
+of ``P`` would be out of bounds in torch, and clamping a dropped write
+onto a real page could race another slot's write to the same cell), and
+no read ever names it. Int8 KV and MoE are later slices.
 """
 
 from __future__ import annotations
@@ -81,6 +86,57 @@ class KVCache:
     @property
     def capacity(self) -> int:
         return self.k.shape[2]
+
+
+@dataclass
+class PagedKVCache:
+    """Paged KV pool: k/v [L, P + 1, ps, K, H] — ``P`` real pages plus the
+    sink page ``P`` — gathered per slot through ``page_table`` [B, NP]
+    int32 (entry j names the physical page backing logical positions
+    [j*ps, (j+1)*ps) of that slot; unallocated entries carry the sentinel
+    ``P``, so writes through them land in the sink and reads clamp to
+    page ``P - 1`` under the length mask); lengths [B] int32."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    page_table: torch.Tensor
+    lengths: torch.Tensor
+
+    @staticmethod
+    def zeros(cfg: DecoderConfig, batch_size: int, num_pages: int,
+              page_size: int, max_len: int,
+              dtype: torch.dtype = torch.bfloat16,
+              device: torch.device = torch.device("cpu")) -> "PagedKVCache":
+        if max_len % page_size != 0:
+            raise ValueError(
+                f"max_len {max_len} must be a multiple of page_size "
+                f"{page_size} (logical capacity is whole pages)"
+            )
+        shape = (cfg.num_layers, num_pages + 1, page_size, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return PagedKVCache(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device),
+            page_table=torch.full((batch_size, max_len // page_size),
+                                  num_pages, dtype=torch.int32,
+                                  device=device),
+            lengths=torch.zeros((batch_size,), dtype=torch.int32,
+                                device=device),
+        )
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def num_pages(self) -> int:
+        """Real pages (the sink page is not counted)."""
+        return self.k.shape[1] - 1
+
+    @property
+    def capacity(self) -> int:
+        """Per-slot LOGICAL capacity: table width x page size."""
+        return self.page_table.shape[1] * self.k.shape[2]
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int,
@@ -184,6 +240,23 @@ def write_decode_rows(full: torch.Tensor, index, new: torch.Tensor) -> None:
     full[rows, safe] = torch.where(inside, new.to(full.dtype), keep)
 
 
+def paged_write_index(positions: torch.Tensor, page_table: torch.Tensor,
+                      num_pages: int, page_size: int):
+    """(page, offset) [B, T] long for writing tokens at ``positions``
+    [B, T] through ``page_table`` [B, NP]: the reference's paged write
+    rule (``decoder.py:305-314``). Unallocated entries carry the sentinel
+    ``num_pages`` and positions past logical capacity are steered to it,
+    so those writes land in the sink page — dropped, as ``mode="drop"``
+    drops them."""
+    n_entries = page_table.shape[1]
+    idx = positions.long()
+    pidx = torch.clamp(idx // page_size, max=n_entries - 1)
+    pid = torch.gather(page_table.long(), 1, pidx)
+    pid = torch.where(idx < n_entries * page_size, pid,
+                      torch.full_like(pid, num_pages))
+    return pid, idx % page_size
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: DecoderConfig, dtype, device):
         super().__init__()
@@ -211,7 +284,9 @@ class DecoderLayer(nn.Module):
         cache: Optional[KVCache] = None,
         layer_idx: int = 0,
         rope=None,          # (cos, sin) from rope_tables (rope models)
-        write_index=None,   # decode_write_index(...) (T == 1 cache writes)
+        write_index=None,   # decode_write_index / paged_write_index
+        page_table: Optional[torch.Tensor] = None,  # [B, NP]: paged pool
+        kv_lengths: Optional[torch.Tensor] = None,  # [B] paged bound
     ) -> torch.Tensor:
         cfg = self.cfg
         B, T, _ = x.shape
@@ -223,7 +298,21 @@ class DecoderLayer(nn.Module):
         if cfg.pos == "rope":
             q = rotate(q, *rope)
             k = rotate(k, *rope)
-        if cache is not None:
+        if cache is not None and page_table is not None:
+            # Paged: the cache arrays are page pools [L, P + 1, ps, K, H];
+            # each token's position maps through its row's table to a
+            # physical (page, offset) — decode (T == 1) and per-row chunk
+            # windows alike. Dropped writes land in the sink page P,
+            # which the read below never sees.
+            pid, off = write_index
+            k_pool, v_pool = cache.k[layer_idx], cache.v[layer_idx]
+            k_pool[pid, off] = k.to(k_pool.dtype)
+            v_pool[pid, off] = v.to(v_pool.dtype)
+            P = cache.num_pages
+            attn = attn_ops.dot_product_attention(
+                q, k_pool[:P], v_pool[:P], page_table=page_table,
+                kv_lengths=kv_lengths)
+        elif cache is not None:
             # In-place writes into the stacked [L, B, S, K, H] cache (the
             # reference donates the buffer and XLA updates it in place).
             k_full, v_full = cache.k[layer_idx], cache.v[layer_idx]
@@ -276,15 +365,20 @@ class DecoderModule(nn.Module):
         tokens: torch.Tensor,              # [B, T]
         positions: torch.Tensor,           # [B, T]
         mask: Optional[torch.Tensor],      # [B, 1, T, S]
-        cache: Optional[KVCache] = None,
+        cache=None,                        # KVCache or PagedKVCache
         take: Optional[torch.Tensor] = None,  # [B]: only these rows' logits
+        page_table: Optional[torch.Tensor] = None,  # [B, NP] (paged)
+        kv_lengths: Optional[torch.Tensor] = None,  # [B] (paged)
     ) -> torch.Tensor:
         """Logits [B, T, V] — or [B, V] at row ``take[b]`` of each batch
         row (the head runs only on the rows the caller keeps; per-row the
         numbers are the ones the full [B, T, V] would hold)."""
         x = self.tok_embed(tokens.long())
         if self.cfg.pos == "learned":
-            x = x + self.pos_embed(positions.long())
+            # A row steered past capacity (its write dropped, its output
+            # never used) may sit past the table; clamp it in range.
+            x = x + self.pos_embed(
+                torch.clamp(positions.long(), max=self.cfg.max_seq_len - 1))
         # Per-forward tables shared by every layer (host work once, not
         # once per layer).
         rope = None
@@ -292,11 +386,15 @@ class DecoderModule(nn.Module):
             rope = rope_tables(positions, self.cfg.head_dim,
                                self.cfg.rope_theta)
         write_index = None
-        if cache is not None and tokens.shape[1] == 1:
+        if cache is not None and page_table is not None:
+            write_index = paged_write_index(positions, page_table,
+                                            cache.num_pages, cache.page_size)
+        elif cache is not None and tokens.shape[1] == 1:
             write_index = decode_write_index(positions[:, 0], cache.capacity)
         for i, layer in enumerate(self.layers):
             x = layer(x, positions, mask, cache, layer_idx=i, rope=rope,
-                      write_index=write_index)
+                      write_index=write_index, page_table=page_table,
+                      kv_lengths=kv_lengths)
         x = self.final_norm(x)
         if take is not None:
             x = x[torch.arange(x.shape[0], device=x.device), take.long()]
@@ -319,3 +417,13 @@ def decode_mask(lengths: torch.Tensor, capacity: int) -> torch.Tensor:
     """Attend to positions [0, lengths] inclusive. lengths [B] -> [B,1,1,S]."""
     pos = torch.arange(capacity, device=lengths.device)[None, None, None, :]
     return pos <= lengths[:, None, None, None]
+
+
+def paged_window_mask(lengths: torch.Tensor, capacity: int,
+                      window: int) -> torch.Tensor:
+    """STAIRCASE window over the paged logical view: window row t attends
+    positions [0, lengths + t] inclusive. lengths [B] -> [B, 1, window,
+    capacity]; ``window == 1`` is exactly :func:`decode_mask`."""
+    pos = torch.arange(capacity, device=lengths.device)[None, None, None, :]
+    bound = lengths[:, None] + torch.arange(window, device=lengths.device)
+    return pos <= bound[:, None, :, None]

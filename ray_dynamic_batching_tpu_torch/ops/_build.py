@@ -48,6 +48,11 @@ KERNELS: Dict[str, tuple] = {
         "rdb_decode_attention",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     ),
+    "paged_decode_attention": (
+        "rdb_paged_decode_attention",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+         _P],
+    ),
 }
 
 _lock = threading.Lock()

@@ -1,9 +1,14 @@
-"""Attention dispatch: the decode kernel, the flash kernel, or the plain
+"""Attention dispatch: the decode kernels, the flash kernel, or the plain
 reference — decided by shape before launch.
 
 Port of ``ray_dynamic_batching_tpu/ops/attention.py::dot_product_attention``
-(its Pallas branch, lines 154-186):
+(its Pallas branch, lines 149-251):
 
+- a ``page_table`` (the paged pool) -> :func:`_paged_attention`: the
+  paged decode kernel for 1 <= Tq <= 8 (route ``"paged_decode"``);
+  otherwise the logical view is gathered through the clamped table and
+  re-enters this dispatch with ``paged_window_mask`` — flash for W >= 16,
+  the plain route for W 9..15;
 - non-causal with 1 <= Tq <= 8 (and a window mask broadcastable to
   [B, 1, Tq, S]) -> the slab decode kernel (``ops/decode_attention.py``);
 - otherwise Tq >= 16 -> the flash kernel (``ops/flash_attention.py``);
@@ -50,17 +55,30 @@ def plain_attention():
 
 
 def reset_counts() -> None:
-    """Zero the launch counts of both kernels and of the plain route."""
+    """Zero the launch counts of every kernel and of the plain route."""
     global plain_launches
     plain_launches = 0
     _flash.launches = 0
     _decode.launches = 0
+    _decode.paged_launches = 0
 
 
 def route(q_shape: Sequence[int], k_shape: Sequence[int], *,
-          causal: bool, mask_shape: Optional[Sequence[int]] = None) -> str:
-    """The route for these shapes — "decode", "flash" or "plain" — by
-    the reference's Pallas-branch rule (see the module docstring)."""
+          causal: bool, mask_shape: Optional[Sequence[int]] = None,
+          page_table_shape: Optional[Sequence[int]] = None,
+          lengths_shape: Optional[Sequence[int]] = None) -> str:
+    """The route for these shapes — "paged_decode", "decode", "flash" or
+    "plain" — by the reference's Pallas-branch rule (see the module
+    docstring). With ``page_table_shape`` k_shape is a page pool
+    [P, ps, K, H]."""
+    if page_table_shape is not None:
+        if _decode.paged_eligible(q_shape, k_shape, k_shape,
+                                  page_table_shape, lengths_shape):
+            return "paged_decode"
+        B, Tq = q_shape[0], q_shape[1]
+        S = page_table_shape[1] * k_shape[1]
+        return route(q_shape, (B, S) + tuple(k_shape[2:]), causal=False,
+                     mask_shape=(B, 1, Tq, S))
     B, Tq, N, _ = q_shape
     S, K = k_shape[1], k_shape[2]
     heads_ok = K > 0 and N % K == 0
@@ -93,11 +111,21 @@ def dot_product_attention(
     scale: Optional[float] = None,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    page_table: Optional[torch.Tensor] = None,
+    kv_lengths: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Multi-head attention. q [B, Tq, N, H], k/v [B, Tk, K, H] with K
     dividing N (grouped-query attention); mask broadcastable to
-    [B, 1, Tq, Tk], True = attend."""
+    [B, 1, Tq, Tk], True = attend.
+
+    ``page_table`` [B, NP] + ``kv_lengths`` [B] switch to the paged read:
+    k/v are page pools [P, ps, K, H] shared by all slots, and window row
+    t attends logical positions <= kv_lengths + t."""
     global plain_launches
+    if page_table is not None:
+        return _paged_attention(q, k, v, page_table, kv_lengths, mask=mask,
+                                scale=scale, k_scale=k_scale,
+                                v_scale=v_scale)
     if k_scale is not None or v_scale is not None:
         raise NotImplementedError(
             "int8 KV-cache attention (k_scale/v_scale) is not ported yet"
@@ -121,6 +149,40 @@ def dot_product_attention(
     plain_launches += 1
     return reference_attention(q, k, v, causal=causal, mask=mask,
                                scale=scale)
+
+
+def _paged_attention(q, k, v, page_table, kv_lengths, *, mask, scale,
+                     k_scale, v_scale) -> torch.Tensor:
+    """Paged read (reference ``attention.py:189-251``): the paged decode
+    kernel for small windows; otherwise gather the logical view through
+    the clamped table and re-enter :func:`dot_product_attention` with the
+    staircase window mask."""
+    if mask is not None:
+        raise ValueError(
+            "paged attention derives its window from kv_lengths; an "
+            "explicit mask on this path means a caller mixed the slab "
+            "and paged conventions"
+        )
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "int8 KV-cache attention (k_scale/v_scale) is not ported yet"
+        )
+    from ray_dynamic_batching_tpu_torch.models.decoder import (
+        paged_window_mask,
+    )
+
+    if route(q.shape, k.shape, causal=False,
+             page_table_shape=page_table.shape,
+             lengths_shape=kv_lengths.shape) == "paged_decode":
+        if _PLAIN.get():
+            return _decode.paged_decode_attention_plain(
+                q, k, v, page_table, kv_lengths, scale=scale)
+        return _decode.paged_decode_attention(q, k, v, page_table,
+                                              kv_lengths, scale=scale)
+    k_g = _decode.logical_view(k, page_table)
+    v_g = _decode.logical_view(v, page_table)
+    win = paged_window_mask(kv_lengths, k_g.shape[1], q.shape[1])
+    return dot_product_attention(q, k_g, v_g, mask=win, scale=scale)
 
 
 def reference_attention(

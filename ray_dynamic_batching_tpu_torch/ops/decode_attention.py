@@ -1,6 +1,8 @@
-"""Slab decode attention: the CUDA kernel, its plain version, its count.
+"""Decode attention, slab and paged: the CUDA kernels, their plain versions,
+their counts.
 
-Replaces ``ray_dynamic_batching_tpu/ops/decode_attention.py::_decode_attention``
+**Slab** — replaces
+``ray_dynamic_batching_tpu/ops/decode_attention.py::_decode_attention``
 (Pallas bodies ``_decode_kernel`` + ``_scan_tile``). The kernel is
 ``csrc/decode_attention.cu``: one block per (slot, KV head); all
 G = N / K query heads of that KV head times the Tq window rows ride one
@@ -14,10 +16,20 @@ the whole slot capacity once. The design reads each K/V row exactly once
 per step with 16-byte loads; splitting S over more blocks per slot (to
 keep more loads in flight) is the later speed-up.
 
-The int8-cache branch of the reference (``k_scale``/``v_scale``) is not
-ported: the port has no int8 KV cache yet, and the wrapper raises when
-scales are passed. The paged twin (``_paged_decode_attention``) is the
-next slice.
+**Paged** — replaces ``_paged_decode_attention`` (the same ``_scan_tile``
+body over a page pool). The kernel is ``csrc/paged_decode_attention.cu``:
+the same block layout and the SAME per-tile scan (``csrc/common.cuh``,
+``DecodeScan``), its KV tiles walked through the slot's page-table row
+(entry p -> physical page ``min(table[b, p], P - 1)``, logical positions
+[p*ps, (p+1)*ps)), validity ``pos <= lengths[b] + t`` computed in the
+kernel (no mask stream). Tiles wholly past ``lengths[b] + Tq - 1`` are
+skipped: once the running max is finite a fully masked tile adds exactly
+0, so the result is the one the full scan gives. Bound on the H100: the
+bytes of the K/V positions each slot attends.
+
+The int8-cache branches of the reference (``k_scale``/``v_scale``) are
+not ported: the port has no int8 KV cache yet, and both wrappers raise
+when scales are passed.
 """
 
 from __future__ import annotations
@@ -34,8 +46,15 @@ NEG_INF = -1e30
 # MAX_WINDOW_FOR_KERNEL).
 MAX_WINDOW_FOR_KERNEL = 8
 
-#: Kernel launches since the last reset (plain-version calls do not count).
+# The engine's page-size rule (the JAX package's lane-aligned page): the
+# paged kernel route takes only pages that are a multiple of this.
+PAGE_ALIGN = 128
+
+#: Slab-kernel launches since the last reset (plain-version calls do not
+#: count).
 launches = 0
+#: Paged-kernel launches since the last reset (likewise).
+paged_launches = 0
 
 
 def decode_attention_plain(
@@ -139,3 +158,136 @@ def decode_attention(
     if q.is_cuda:
         return _launch(q, k, v, mask_i8, scale=scale)
     return decode_attention_plain(q, k, v, mask_i8, scale=scale)
+
+
+def logical_view(pool: torch.Tensor, page_table: torch.Tensor
+                  ) -> torch.Tensor:
+    """Gather each slot's logical KV run [B, NP * ps, K, H] from a page
+    pool [P, ps, K, H] through ``page_table`` [B, NP], sentinel and stray
+    entries clamped to page P - 1 (the length bound masks whatever they
+    contribute)."""
+    P, ps = pool.shape[0], pool.shape[1]
+    B, NP = page_table.shape
+    safe = torch.clamp(page_table.long(), max=P - 1)
+    return pool[safe].reshape((B, NP * ps) + tuple(pool.shape[2:]))
+
+
+def paged_decode_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """What the paged kernel computes, in PyTorch: clamp the table, gather
+    the logical view, apply the staircase and the slab kernel's softmax
+    rule. q [B, Tq, N, H]; k/v pools [P, ps, K, H]; page_table [B, NP]
+    int32 (sentinel P); lengths [B]."""
+    from ray_dynamic_batching_tpu_torch.models.decoder import (
+        paged_window_mask,
+    )
+
+    k_g = logical_view(k, page_table)
+    v_g = logical_view(v, page_table)
+    B, Tq = q.shape[:2]
+    S = k_g.shape[1]
+    mask = keep_mask(paged_window_mask(lengths, S, Tq), B, Tq, S)
+    return decode_attention_plain(q, k_g, v_g, mask, scale=scale)
+
+
+def _launch_paged(q, k, v, page_table, lengths, *, scale: float
+                  ) -> torch.Tensor:
+    from ray_dynamic_batching_tpu_torch.ops import _build
+
+    global paged_launches
+    B, Tq, N, H = q.shape
+    P, ps, K, _ = k.shape
+    NP = page_table.shape[1]
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"paged decode kernel: unsupported dtype {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("paged decode kernel: q, k and v must share one dtype")
+    if H not in (64, 128):
+        raise ValueError(f"paged decode kernel: head_dim {H} not in (64, 128)")
+    R = Tq * (N // K)
+    smem = 4 * (R * (H + 1) + 64 * (H + 1) + 64 * H + R * 64 + R * H + 3 * R)
+    if smem > 227 * 1024:
+        raise ValueError(f"paged decode kernel: {R} window rows per KV head "
+                         f"need {smem} bytes of shared memory (max 232448)")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    table = page_table.to(torch.int32).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    for t in (q, k, v, table, lens):
+        if t.device != q.device:
+            raise ValueError("paged decode kernel: inputs on another device")
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError("paged decode kernel: q, k and v must be "
+                             "16-byte aligned")
+    out = torch.empty_like(q)
+    lib = _build.load("paged_decode_attention")
+    rc = lib.rdb_paged_decode_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
+        lens.data_ptr(), out.data_ptr(), B, Tq, N, K, H, P, ps, NP,
+        float(scale), 0 if q.dtype == torch.float32 else 1,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, rc, "paged_decode_attention")
+    paged_launches += 1
+    return out
+
+
+def paged_eligible(q_shape, k_shape, v_shape, table_shape,
+                   lengths_shape) -> bool:
+    """The reference wrapper's shape contract (``decode_attention.py:
+    449-467``) minus its TPU VMEM budget: 1 <= Tq <= 8, pools [P, ps, K, H]
+    with K dividing N and the head dim of q, a 2-D table with B rows,
+    lengths [B], and a page that is a multiple of :data:`PAGE_ALIGN`."""
+    if len(q_shape) != 4 or len(k_shape) != 4:
+        return False
+    B, Tq, N, H = q_shape
+    P, ps, K, Hk = k_shape
+    return (1 <= Tq <= MAX_WINDOW_FOR_KERNEL and Hk == H
+            and tuple(v_shape) == tuple(k_shape) and K > 0 and N % K == 0
+            and len(table_shape) == 2 and table_shape[0] == B
+            and tuple(lengths_shape) == (B,)
+            and ps > 0 and ps % PAGE_ALIGN == 0)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Fused page-table decode attention. q [B, Tq, N, H] with
+    1 <= Tq <= 8; k/v page pools [P, ps, K, H] with K dividing N;
+    page_table [B, NP] int32 (sentinel P = unallocated); lengths [B].
+    Window row t attends logical positions <= lengths[b] + t. Shapes
+    outside :func:`paged_eligible` raise (``ops/attention.route`` sends
+    only these here). CUDA tensors launch the kernel (or raise); CPU
+    tensors run the plain version."""
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "paged_decode_attention: the int8 KV-cache branch "
+            "(k_scale/v_scale) is not ported yet"
+        )
+    if not paged_eligible(q.shape, k.shape, v.shape, page_table.shape,
+                          lengths.shape):
+        raise ValueError(
+            f"paged_decode_attention: q {tuple(q.shape)}, pools "
+            f"{tuple(k.shape)}, table {tuple(page_table.shape)}, lengths "
+            f"{tuple(lengths.shape)} are not the paged decode pattern")
+    H = q.shape[3]
+    scale = H ** -0.5 if scale is None else float(scale)
+    if q.is_cuda:
+        return _launch_paged(q, k, v, page_table, lengths, scale=scale)
+    return paged_decode_attention_plain(q, k, v, page_table, lengths,
+                                        scale=scale)

@@ -7,9 +7,12 @@ makes replicas; each :class:`LLMReplica` owns a
 :class:`~ray_dynamic_batching_tpu_torch.engine.decode.DecodeEngine` whose
 request queue is the replica's admission queue.
 
-This slice serves one length bucket with an explicit ``num_slots``; the
-reference's auto-sizing (HBM model, measured tables), length buckets,
-speculative drafts, checkpoints and quantisation come later.
+This slice serves one length bucket with an explicit ``num_slots``, on a
+slab cache (the default) or the paged pool (``paged=True``: token-budget
+chunked prefill by default, so prompts longer than the largest bucket are
+served as multi-chunk trains); the reference's auto-sizing (HBM model,
+measured tables), length buckets, speculative drafts, checkpoints and
+quantisation come later.
 
 Payload contract (as the reference)::
 
@@ -143,6 +146,7 @@ class LLMReplica(Replica):
     def queue_len(self) -> int:
         return sum(
             len(q) + self.engines[b].active_slots + self.engines[b]._admitting
+            + len(self.engines[b]._trains)
             for b, q in self._queues.items()
         )
 
@@ -205,6 +209,11 @@ class LLMDeployment:
         device: Union[str, torch.device, None] = "cuda",
         seed: int = 0,
         base_seed: int = 0,
+        paged: bool = False,
+        page_size: int = 128,
+        kv_pool_pages: Optional[int] = None,
+        chunked_prefill: Optional[bool] = None,
+        prefill_token_budget: Optional[int] = None,
     ) -> None:
         if num_slots <= 0:
             raise ValueError(
@@ -223,6 +232,13 @@ class LLMDeployment:
         self.device = device
         self.seed = seed
         self.base_seed = base_seed
+        # KV layout: the slab cache, or the paged pool with token-budget
+        # chunked admission (the engine's default when paged).
+        self.paged = bool(paged)
+        self.page_size = int(page_size)
+        self.kv_pool_pages = kv_pool_pages
+        self.chunked_prefill = chunked_prefill
+        self.prefill_token_budget = prefill_token_budget
         self._dtype = dtype
         self._model = model
         self._init_lock = threading.Lock()
@@ -259,6 +275,11 @@ class LLMDeployment:
             max_admissions_per_step=self.max_admissions_per_step,
             base_seed=self.base_seed,
             device=model.device,
+            paged=self.paged,
+            page_size=self.page_size,
+            kv_pool_pages=self.kv_pool_pages,
+            chunked_prefill=self.chunked_prefill,
+            prefill_token_budget=self.prefill_token_budget,
         )
 
     def make_replica(self, replica_id: str,

@@ -203,3 +203,147 @@ class TestDispatcherRule:
         got = t_attention.reference_attention(
             _t(q), _t(k), _t(v), causal=True, mask=_t(mask))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def _paged_inputs(rng, B, Tq, N, K, H, P, ps, NP, lengths):
+    """Pools [P, ps, K, H], a shuffled table whose entries past each
+    slot's length + window are the sentinel P, and q."""
+    q = rng.standard_normal((B, Tq, N, H)).astype(np.float32)
+    k = rng.standard_normal((P, ps, K, H)).astype(np.float32)
+    v = rng.standard_normal((P, ps, K, H)).astype(np.float32)
+    perm = rng.permutation(P)
+    table = np.full((B, NP), P, np.int32)
+    used = 0
+    for b in range(B):
+        n = -(-(int(lengths[b]) + Tq) // ps)
+        table[b, :n] = perm[used: used + n]
+        used += n
+    return q, k, v, table, np.asarray(lengths, np.int32)
+
+
+class TestPagedPlainVsJaxKernel:
+    @pytest.mark.parametrize("Tq", [1, 2, 3, 4, 5, 6, 7, 8])
+    @pytest.mark.parametrize("N,K", [(4, 4), (8, 2)])   # MHA, GQA
+    def test_staircase_sentinels_shuffled_pool(self, Tq, N, K):
+        """ps = 128, 3 table entries per slot; one slot holds a single
+        allocated page (the rest sentinel), the others span two or three
+        pages of a shuffled pool."""
+        rng = np.random.default_rng(100 + Tq * 10 + N)
+        B, H, ps, NP = 3, 32, 128, 3
+        lengths = [5, 200, 380 - Tq]
+        q, k, v, table, lens = _paged_inputs(rng, B, Tq, N, K, H, 8, ps, NP,
+                                             lengths)
+        assert (table[0] == 8).sum() == 2        # one page, two sentinels
+        want = j_decode.paged_decode_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(table), jnp.asarray(lens), interpret=True)
+        got = t_decode.paged_decode_attention(_t(q), _t(k), _t(v), _t(table),
+                                              _t(lens))
+        assert t_attention.route(q.shape, k.shape, causal=False,
+                                 page_table_shape=table.shape,
+                                 lengths_shape=lens.shape) == "paged_decode"
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+    def test_plain_version_is_the_gathered_slab_rule(self):
+        """The plain version equals the slab plain version over the
+        gathered view with the staircase mask (the reference's fallback)."""
+        rng = np.random.default_rng(7)
+        q, k, v, table, lens = _paged_inputs(rng, 2, 4, 8, 2, 32, 6, 128, 2,
+                                             [10, 130])
+        got = t_decode.paged_decode_attention_plain(
+            _t(q), _t(k), _t(v), _t(table), _t(lens))
+        want = j_attention._paged_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(table), jnp.asarray(lens), mask=None, scale=None,
+            k_scale=None, v_scale=None)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+    def test_refuses_what_it_does_not_take(self):
+        q = torch.zeros((1, 1, 4, 32))
+        pool = torch.zeros((4, 128, 2, 32))
+        table = torch.zeros((1, 2), dtype=torch.int32)
+        lens = torch.zeros((1,), dtype=torch.int32)
+        with pytest.raises(NotImplementedError, match="int8"):
+            t_decode.paged_decode_attention(
+                q, pool, pool, table, lens,
+                k_scale=torch.ones((4, 128, 2)),
+                v_scale=torch.ones((4, 128, 2)))
+        with pytest.raises(ValueError, match="paged decode pattern"):
+            t_decode.paged_decode_attention(torch.zeros((1, 9, 4, 32)), pool,
+                                            pool, table, lens)
+        with pytest.raises(ValueError, match="explicit mask"):
+            t_attention.dot_product_attention(
+                q, pool, pool, mask=torch.ones((1, 1, 1, 256), dtype=bool),
+                page_table=table, kv_lengths=lens)
+
+
+# (window W, page size) -> the route the JAX dispatcher takes on its
+# Pallas branch for a paged call: its paged kernel, or (declined) the
+# gather re-entry into the slab rule.
+PAGED_ROUTE_CASES = [(1, 128), (8, 128), (12, 128), (16, 128), (32, 128),
+                     (1, 64)]
+
+
+class TestPagedDispatcherRule:
+    @pytest.mark.parametrize("W,ps", PAGED_ROUTE_CASES)
+    def test_route_and_output_match_reference(self, W, ps, monkeypatch):
+        rng = np.random.default_rng(W + ps)
+        B, N, K, H, NP = 2, 4, 2, 32, 2
+        q, k, v, table, lens = _paged_inputs(rng, B, W, N, K, H, 5, ps, NP,
+                                             [3, ps - W + 5])
+        taken = []
+
+        def spy(name, fn):
+            def wrapped(*a, **kw):
+                kw.setdefault("interpret", True)
+                out = fn(*a, **kw)
+                if out is not None:
+                    taken.append(name)
+                return out
+            return wrapped
+
+        monkeypatch.setattr(j_decode, "paged_decode_attention",
+                            spy("paged_decode",
+                                j_decode.paged_decode_attention))
+        monkeypatch.setattr(j_decode, "decode_attention",
+                            spy("decode", j_decode.decode_attention))
+        monkeypatch.setattr(j_flash, "flash_attention",
+                            spy("flash", j_flash.flash_attention))
+        j_attention.set_attention_backend("pallas")
+        try:
+            want = j_attention.dot_product_attention(
+                jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                page_table=jnp.asarray(table), kv_lengths=jnp.asarray(lens))
+        finally:
+            j_attention.set_attention_backend("auto")
+        jax_route = taken[0] if taken else "plain"
+        port_route = t_attention.route(
+            q.shape, k.shape, causal=False, page_table_shape=table.shape,
+            lengths_shape=lens.shape)
+        assert port_route == jax_route
+        assert port_route == {1: "paged_decode", 8: "paged_decode",
+                              12: "plain", 16: "flash", 32: "flash"}[W] \
+            or ps != 128
+        before = t_attention.plain_launches
+        got = t_attention.dot_product_attention(
+            _t(q), _t(k), _t(v), page_table=_t(table), kv_lengths=_t(lens))
+        assert (t_attention.plain_launches - before) == (
+            1 if port_route == "plain" else 0)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+    def test_reset_counts_zeroes_the_paged_counter(self):
+        t_decode.paged_launches = 5
+        t_attention.reset_counts()
+        assert t_decode.paged_launches == 0
+
+    def test_plain_attention_covers_the_paged_kernel(self):
+        rng = np.random.default_rng(11)
+        q, k, v, table, lens = _paged_inputs(rng, 2, 1, 4, 2, 32, 4, 128, 2,
+                                             [40, 150])
+        with t_attention.plain_attention():
+            got = t_attention.dot_product_attention(
+                _t(q), _t(k), _t(v), page_table=_t(table),
+                kv_lengths=_t(lens))
+        want = t_decode.paged_decode_attention_plain(
+            _t(q), _t(k), _t(v), _t(table), _t(lens))
+        assert torch.equal(got, want)

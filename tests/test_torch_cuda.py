@@ -3,7 +3,8 @@
 Marked ``cuda``: without a card each test skips (decided inside the
 test, never at import). Shapes cover what ``chip_smoke.py`` does not:
 ragged KV tails, causal prefill with a diagonal offset, head_dim 64,
-wide decode windows. This file imports no JAX, so it runs on a machine
+wide decode windows, and for the paged kernel ragged lengths, sentinel
+tails, Tq 1..8 staircases and shuffled pools. This file imports no JAX, so it runs on a machine
 without it::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -15,6 +16,7 @@ Tolerance: f32 1e-4 (the same math summed in another order), bf16 2e-2
 import pytest
 import torch
 
+from ray_dynamic_batching_tpu_torch.models.decoder import paged_window_mask
 from ray_dynamic_batching_tpu_torch.ops import decode_attention as dec
 from ray_dynamic_batching_tpu_torch.ops import flash_attention as fl
 
@@ -86,6 +88,77 @@ def test_decode_kernel_matches_plain(card, dtype, B, Tq, S, N, K, H):
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
 
 
+def _paged(gen, B, Tq, N, K, H, P, ps, NP, dtype, dev):
+    """Pools of P pages, a table of shuffled distinct pages covering each
+    slot's positions <= length + Tq - 1 and the sentinel P past them."""
+    q = _rand(gen, (B, Tq, N, H), dtype, dev)
+    k = _rand(gen, (P, ps, K, H), dtype, dev)
+    v = _rand(gen, (P, ps, K, H), dtype, dev)
+    lengths = torch.randint(0, NP * ps - Tq + 1, (B,), generator=gen,
+                            device=dev)
+    lengths[0] = 0                            # a slot on its first page
+    perm = torch.randperm(P, generator=gen, device=dev)
+    table = torch.full((B, NP), P, dtype=torch.int32, device=dev)
+    used = 0
+    for b in range(B):
+        n = -(-(int(lengths[b]) + Tq) // ps)
+        table[b, :n] = perm[used: used + n].to(torch.int32)
+        used += n
+    return q, k, v, table, lengths.to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Tq,N,K,H,ps,NP", [
+    (4, 1, 32, 8, 128, 128, 4),     # llama3_8b geometry, decode
+    (3, 8, 32, 8, 128, 128, 3),     # widest window: 32 rows per KV head
+    (5, 3, 16, 16, 64, 256, 2),     # MHA, head_dim 64, 256-token pages
+    (2, 5, 8, 2, 64, 128, 5),
+])
+def test_paged_kernel_matches_plain(card, dtype, B, Tq, N, K, H, ps, NP):
+    gen = torch.Generator(device=card).manual_seed(B * 100 + Tq)
+    P = B * NP + 3
+    q, k, v, table, lengths = _paged(gen, B, Tq, N, K, H, P, ps, NP, dtype,
+                                     card)
+    before = dec.paged_launches
+    out = dec.paged_decode_attention(q, k, v, table, lengths)
+    torch.cuda.synchronize()
+    assert dec.paged_launches == before + 1
+    ref = dec.paged_decode_attention_plain(q, k, v, table, lengths)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("Tq", [1, 2, 4, 6, 7, 8])
+def test_paged_kernel_staircase_windows(card, Tq):
+    gen = torch.Generator(device=card).manual_seed(Tq)
+    q, k, v, table, lengths = _paged(gen, 6, Tq, 32, 8, 128, 30, 128, 4,
+                                     torch.float32, card)
+    out = dec.paged_decode_attention(q, k, v, table, lengths)
+    ref = dec.paged_decode_attention_plain(q, k, v, table, lengths)
+    assert (out - ref).abs().max().item() <= TOL[torch.float32]
+
+
+def test_slab_and_paged_kernels_agree_on_one_run(card):
+    """The shared tile body: a slab cache cut into pages in shuffled order
+    gives the paged kernel the slab kernel's numbers for the same
+    staircase."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    B, Tq, S, N, K, H, ps = 3, 4, 512, 32, 8, 128, 128
+    q = _rand(gen, (B, Tq, N, H), torch.bfloat16, card)
+    k = _rand(gen, (B, S, K, H), torch.bfloat16, card)
+    v = _rand(gen, (B, S, K, H), torch.bfloat16, card)
+    lengths = torch.tensor([0, 200, S - Tq], dtype=torch.int32, device=card)
+    perm = torch.randperm(B * S // ps, generator=gen, device=card)
+    table = perm.reshape(B, S // ps).to(torch.int32)
+    k_pool = torch.empty((B * S // ps, ps, K, H), dtype=k.dtype, device=card)
+    v_pool = torch.empty_like(k_pool)
+    k_pool[table.long().reshape(-1)] = k.reshape(-1, ps, K, H)
+    v_pool[table.long().reshape(-1)] = v.reshape(-1, ps, K, H)
+    paged = dec.paged_decode_attention(q, k_pool, v_pool, table, lengths)
+    slab = dec.decode_attention(q, k, v,
+                                mask=paged_window_mask(lengths, S, Tq))
+    assert torch.equal(paged, slab)
+
+
 def test_kernels_refuse_what_they_do_not_take(card):
     q = torch.zeros((1, 16, 4, 96), device=card)
     with pytest.raises(ValueError, match="head_dim"):
@@ -93,3 +166,8 @@ def test_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(TypeError, match="dtype"):
         h = torch.zeros((1, 1, 4, 64), device=card, dtype=torch.float16)
         dec.decode_attention(h, h, h)
+    pool = torch.zeros((4, 128, 2, 64), device=card)
+    table = torch.zeros((1, 2), dtype=torch.int32, device=card)
+    lens = torch.zeros((1,), dtype=torch.int32, device=card)
+    with pytest.raises(TypeError, match="dtype"):
+        dec.paged_decode_attention(h, pool.half(), pool.half(), table, lens)

@@ -23,6 +23,8 @@ from ray_dynamic_batching_tpu_torch.models.decoder import (
     DecoderConfig,
     apply_rope,
     decode_write_index,
+    paged_window_mask,
+    paged_write_index,
     write_decode_rows,
 )
 
@@ -210,3 +212,178 @@ def test_bf16_dtype_points_match_jax(family):
                                np.asarray(j_logits, np.float32), atol=6.25e-2)
     np.testing.assert_allclose(t_cache.k.float().numpy(),
                                np.asarray(j_cache.k, np.float32), atol=6.25e-2)
+
+
+# Paged pool geometry for the tiny llama: 128-token pages (the engine's
+# page rule), 2 table entries per slot (logical capacity 256), 6 pages.
+PS, NP, P = 128, 2, 6
+
+
+@pytest.fixture(scope="module")
+def llama_pair():
+    return _pair(LLAMA_TINY, seed=2)
+
+
+def _paged_caches(jm, tm, B, rng):
+    """The same random pool contents on both sides (so a dropped or stray
+    write shows), all-sentinel tables, zero lengths."""
+    j_cache = jm.make_paged_cache(B, P, PS, NP * PS)
+    shape = tuple(j_cache.k.shape)
+    k0 = rng.standard_normal(shape).astype(np.float32)
+    v0 = rng.standard_normal(shape).astype(np.float32)
+    j_cache = j_cache.replace(k=jnp.asarray(k0), v=jnp.asarray(v0))
+    t_cache = tm.make_paged_cache(B, P, PS, NP * PS)
+    assert tuple(t_cache.k.shape) == (shape[0], P + 1) + shape[2:]
+    t_cache.k[:, :P] = torch.from_numpy(k0)
+    t_cache.v[:, :P] = torch.from_numpy(v0)
+    return j_cache, t_cache, k0
+
+
+def _chunk_both(jm, params, tm, j_cache, t_cache, tokens, mask, tables,
+                starts, take):
+    args = [tokens, mask, None, tables, starts, take]
+    j_args = [jnp.asarray(a) if a is not None else None for a in args]
+    j_args[2] = j_cache
+    j_taken, j_cache = jm.prefill_chunk_paged(params, *j_args)
+    t_args = [torch.from_numpy(a) if a is not None else None for a in args]
+    t_args[2] = t_cache
+    with torch.inference_mode():
+        t_taken, t_cache = tm.prefill_chunk_paged(*t_args)
+    return j_taken, j_cache, t_taken, t_cache
+
+
+def _assert_pools_close(j_cache, t_cache):
+    np.testing.assert_allclose(t_cache.k[:, :P].numpy(),
+                               np.asarray(j_cache.k), atol=ATOL)
+    np.testing.assert_allclose(t_cache.v[:, :P].numpy(),
+                               np.asarray(j_cache.v), atol=ATOL)
+
+
+def test_paged_chunks_then_decode_match_jax(llama_pair):
+    """Two trains through one group: a 40-token prompt as chunks of 16,
+    16 and 8 (the last chunk W = 8 runs the paged decode route, the W = 16
+    ones the gathered flash route) beside a 10-token single chunk; then
+    three paged decode steps. Logits and every real page against JAX."""
+    jm, params, tm = llama_pair
+    V = tm.cfg.vocab_size
+    rng = np.random.default_rng(3)
+    j_cache, t_cache, _ = _paged_caches(jm, tm, 2, rng)
+    long_p = rng.integers(0, V, 40).astype(np.int32)
+    short_p = rng.integers(0, V, 10).astype(np.int32)
+    tables = np.array([[4, 1], [2, P]], np.int32)
+    for start, W in ((0, 16), (16, 16), (32, 8)):
+        tokens = np.zeros((2, W), np.int32)
+        mask = np.zeros((2, W), np.int32)
+        piece = long_p[start: start + W]
+        tokens[0, :piece.size], mask[0, :piece.size] = piece, 1
+        starts = np.array([start, 0], np.int32)
+        take = np.array([piece.size - 1, 9 if start == 0 else 0], np.int32)
+        rows = tables.copy()
+        if start == 0:
+            tokens[1, :10], mask[1, :10] = short_p, 1
+        else:
+            rows[1] = P      # an idle row of the group: every write drops
+        j_taken, j_cache, t_taken, t_cache = _chunk_both(
+            jm, params, tm, j_cache, t_cache, tokens, mask, rows, starts,
+            take)
+        np.testing.assert_allclose(t_taken.numpy(), np.asarray(j_taken),
+                                   atol=ATOL)
+        _assert_pools_close(j_cache, t_cache)
+    lengths = np.array([40, 10], np.int32)
+    j_cache = j_cache.replace(page_table=jnp.asarray(tables),
+                              lengths=jnp.asarray(lengths))
+    t_cache.page_table = torch.from_numpy(tables)
+    t_cache.lengths = torch.from_numpy(lengths)
+    nxt = rng.integers(0, V, (2, 1)).astype(np.int32)
+    active = np.array([True, True])
+    for _ in range(3):
+        j_logits, j_cache = jm.decode_step_paged(
+            params, jnp.asarray(nxt), j_cache, jnp.asarray(active))
+        with torch.inference_mode():
+            t_logits, t_cache = tm.decode_step_paged(
+                torch.from_numpy(nxt), t_cache, torch.from_numpy(active))
+        np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
+                                   atol=ATOL)
+        np.testing.assert_array_equal(t_cache.lengths.numpy(),
+                                      np.asarray(j_cache.lengths))
+        _assert_pools_close(j_cache, t_cache)
+        nxt = np.asarray(j_logits).argmax(-1).astype(np.int32)[:, None]
+
+
+@pytest.mark.parametrize("W", [8, 16])
+def test_dropped_paged_writes_leave_real_pages_untouched(llama_pair, W):
+    """Row A owns page P-1 and writes offsets [0, W); row B's table is all
+    sentinel, so its writes at the SAME logical positions drop — clamped
+    onto page P-1 they would race A's writes to those very cells; row C
+    runs past logical capacity, its overflow positions drop. Every real
+    page cell that no kept write names stays bit-identical, and A's and
+    C's kept cells hold what JAX writes."""
+    jm, params, tm = llama_pair
+    V = tm.cfg.vocab_size
+    rng = np.random.default_rng(10 + W)
+    j_cache, t_cache, k0 = _paged_caches(jm, tm, 3, rng)
+    tables = np.array([[P - 1, P], [P, P], [2, 4]], np.int32)
+    starts = np.array([0, 0, NP * PS - W // 2], np.int32)
+    tokens = rng.integers(0, V, (3, W)).astype(np.int32)
+    mask = np.ones((3, W), np.int32)
+    take = np.array([W - 1, W - 1, W // 2 - 1], np.int32)
+    j_taken, j_cache, t_taken, t_cache = _chunk_both(
+        jm, params, tm, j_cache, t_cache, tokens, mask, tables, starts, take)
+    _assert_pools_close(j_cache, t_cache)
+    for rows in (0, 2):
+        np.testing.assert_allclose(t_taken[rows].numpy(),
+                                   np.asarray(j_taken)[rows], atol=ATOL)
+    written = np.zeros(k0.shape[1:3], bool)     # [P, ps]
+    written[P - 1, :W] = True
+    written[4, PS - W // 2:] = True
+    got = t_cache.k[:, :P].numpy()
+    np.testing.assert_array_equal(got[:, ~written], k0[:, ~written])
+    assert not np.allclose(got[:, P - 1, :W], k0[:, P - 1, :W])
+
+
+def test_paged_write_index_steers_drops_to_the_sink():
+    table = torch.tensor([[3, 0], [5, 5]], dtype=torch.int32)
+    pos = torch.tensor([[0, 130, 256], [1, 2, 3]])
+    pid, off = paged_write_index(pos, table, 5, 128)
+    assert pid.tolist() == [[3, 0, 5], [5, 5, 5]]
+    assert off.tolist() == [[0, 2, 0], [1, 2, 3]]
+
+
+def test_paged_window_mask_matches_jax():
+    from ray_dynamic_batching_tpu.models.decoder import (
+        paged_window_mask as j_mask,
+    )
+
+    lengths = np.array([0, 5, 30], np.int32)
+    for window in (1, 4, 8):
+        want = np.asarray(j_mask(jnp.asarray(lengths), 32, window))
+        got = paged_window_mask(torch.from_numpy(lengths), 32, window)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_learned_positions_past_the_table_are_clamped():
+    """GPT-2 family at capacity == max_seq_len: a full row's decode
+    position (= capacity) lies past the position table. Its write drops and
+    its logits are never used, but it must not raise; the other rows match
+    JAX."""
+    jm, params, tm = _pair(GPT2_TINY, seed=4)
+    V, S = tm.cfg.vocab_size, GPT2_TINY["max_seq_len"]
+    rng = np.random.default_rng(6)
+    tokens = rng.integers(0, V, (2, S)).astype(np.int32)
+    mask = np.ones((2, S), np.int32)
+    mask[1, 5:] = 0
+    _, j_cache = jm.prefill(params, jnp.asarray(tokens), jnp.asarray(mask),
+                            jm.make_cache(2, S))
+    with torch.inference_mode():
+        _, t_cache = tm.prefill(torch.from_numpy(tokens),
+                                torch.from_numpy(mask), tm.make_cache(2, S))
+    nxt = rng.integers(0, V, (2, 1)).astype(np.int32)
+    act = np.array([True, True])
+    j_logits, j_cache = jm.decode_step(params, jnp.asarray(nxt), j_cache,
+                                       jnp.asarray(act))
+    with torch.inference_mode():
+        t_logits, t_cache = tm.decode_step(torch.from_numpy(nxt), t_cache,
+                                           torch.from_numpy(act))
+    assert t_cache.lengths.tolist() == [S, 6]
+    np.testing.assert_allclose(t_logits[1].numpy(), np.asarray(j_logits)[1],
+                               atol=ATOL)

@@ -188,3 +188,163 @@ def test_llm_deployment_replica_answers_requests():
     assert [len(r.tokens) for r in results] == [5, 5, 5]
     assert all(0 <= t < 512 for r in results for t in r.tokens)
     assert replica.stats()["completed"] == 3.0
+
+
+# --- the paged pool with token-budget chunked prefill -----------------------
+# The canonical paged engine (tools/check_compiles.py): llama_tiny f32, 4
+# slots, max_len 96, buckets [8, 16], 128-token pages, chunked, horizon 4.
+PAGED = dict(num_slots=4, max_len=96, prompt_buckets=[8, 16],
+             eos_token_id=None, default_max_new_tokens=8, decode_horizon=4,
+             paged=True, page_size=128, chunked_prefill=True)
+
+
+def _canonical_mix(n=10):
+    """check_compiles.py's seed-17 mix: mostly bucketed single-chunk
+    trains, every third an over-bucket multi-chunk train (40-69 tokens)."""
+    rng = np.random.default_rng(17)
+    out = []
+    for i in range(n):
+        plen = (int(rng.integers(3, 14)) if i % 3
+                else int(rng.integers(40, 70)))
+        out.append({"tokens": rng.integers(1, 500, plen).tolist(),
+                    "max_new_tokens": 6})
+    return out
+
+
+def _serve_jax(jm, params, payloads, **kw):
+    jq = JQueue("j", max_len=256)
+    je = JEngine(jm, params, jq, **kw)
+    reqs = [JRequest(model="j", payload=p, slo_ms=6e4) for p in payloads]
+    for r in reqs:
+        jq.add_request(r)
+    je.run_until_idle(timeout_s=300)
+    je._allocator.check()
+    return [r.future.result(timeout=5) for r in reqs]
+
+
+@pytest.mark.parametrize("pool", [None, 2], ids=["full_pool", "tight_pool"])
+def test_paged_chunked_streams_identical_to_jax_engine(models, pool):
+    """Greedy streams and finish reasons of the canonical mix, multi-chunk
+    prompts included, equal the JAX paged engine's — with the full pool,
+    and with a pool of 2 pages for 4 slots, where trains park until
+    streams finish and free their pages. The allocator is whole after."""
+    jm, params, tm = models
+    payloads = _canonical_mix()
+    cfg = {**PAGED, "kv_pool_pages": pool}
+    want = _serve_jax(jm, params, payloads, **cfg)
+    got, engine = _serve_torch(tm, payloads, **cfg)
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    assert [r.finish_reason for r in got] == [r.finish_reason for r in want]
+    assert all(len(r.tokens) == 6 for r in got)
+    engine._allocator.check()
+    assert engine._allocator.free_pages == engine.num_pages
+    assert engine.chunk_dispatches > 0 and engine.prefill_groups == 0
+    if pool is not None:
+        # At most two streams ever held pages at once.
+        assert max(e["pages_in_use"] for e in
+                   engine._page_journal.snapshot()) == 2
+
+
+def test_paged_mono_arm_equals_slab_arm(models):
+    """paged=True, chunked_prefill=False gives the slab engine's streams
+    (the reference's test_paged_matches_slab_f32), and returns every
+    page."""
+    _jm, _params, tm = models
+    payloads = [{"tokens": p, "max_new_tokens": 10 + i}
+                for i, p in enumerate(_prompts(8, 6))]
+    slab, _ = _serve_torch(tm, payloads)
+    paged, engine = _serve_torch(tm, payloads, paged=True, page_size=128,
+                                 chunked_prefill=False)
+    assert [r.tokens for r in paged] == [r.tokens for r in slab]
+    assert engine.prefill_groups > 0 and engine.chunk_dispatches == 0
+    engine._allocator.check()
+    assert engine._allocator.free_pages == engine.num_pages
+
+
+def test_stop_token_frees_pages_mid_cycle(models):
+    """A stream that stops on a stop token returns its pages at the
+    harvest that sees it, while its neighbour keeps decoding."""
+    _jm, _params, tm = models
+    prompts = _prompts(9, 2)
+    first, _ = _serve_torch(tm, [{"tokens": prompts[0],
+                                  "max_new_tokens": 8}], **PAGED)
+    stop_at = first[0].tokens[2]
+    q = RequestQueue("t")
+    engine = DecodeEngine(tm, q, device="cpu", **PAGED)
+    reqs = [Request(model="t", payload=p, slo_ms=1e7) for p in (
+        {"tokens": prompts[0], "max_new_tokens": 8,
+         "stop_token_ids": [stop_at]},
+        {"tokens": prompts[1], "max_new_tokens": 30})]
+    for r in reqs:
+        q.add_request(r)
+    engine._admit()
+    engine._drain_prefill()
+    assert engine._allocator.allocated_pages == 2
+    while not reqs[0].future.done():
+        engine._step(horizon=1)
+    assert engine.active_slots == 1
+    assert engine._allocator.allocated_pages == 1       # freed mid-cycle
+    engine._allocator.check()
+    res = reqs[0].future.result(timeout=5)
+    assert res.finish_reason == "eos" and res.tokens[-1] == stop_at
+    engine.run_until_idle(timeout_s=60)
+    assert reqs[1].future.result(timeout=5).finish_reason == "length"
+    assert engine._allocator.free_pages == engine.num_pages
+
+
+def test_paged_generation_stops_at_max_len_like_slab(models):
+    """Paged capacity rounds up to whole pages (128 here) but both arms
+    stop at max_len: a request asking past it finishes "capacity" at the
+    same token on both."""
+    _jm, _params, tm = models
+    payload = [{"tokens": _prompts(12, 1)[0], "max_new_tokens": 200}]
+    slab, _ = _serve_torch(tm, payload)
+    paged, engine = _serve_torch(tm, payload, paged=True, page_size=128,
+                                 chunked_prefill=False)
+    assert paged[0].finish_reason == slab[0].finish_reason == "capacity"
+    assert paged[0].tokens == slab[0].tokens
+    assert engine._paged_capacity == 128 and engine.max_len == 64
+
+
+def test_chunked_prefill_on_a_slab_engine_names_long_fill(models):
+    _jm, _params, tm = models
+    with pytest.raises(ValueError, match="long-fill"):
+        DecodeEngine(tm, RequestQueue("t"), device="cpu",
+                     chunked_prefill=True, **ENGINE)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        DecodeEngine(tm, RequestQueue("t"), device="cpu", paged=True,
+                     page_size=64, **ENGINE)
+    with pytest.raises(ValueError, match="cannot back even one slot"):
+        DecodeEngine(tm, RequestQueue("t"), device="cpu", paged=True,
+                     kv_pool_pages=3, **{**ENGINE, "max_len": 512})
+
+
+def test_paged_warmup_leaves_the_pool_whole(models):
+    _jm, _params, tm = models
+    engine = DecodeEngine(tm, RequestQueue("t"), device="cpu", **PAGED)
+    engine.warmup()
+    engine._allocator.check()
+    assert engine._allocator.free_pages == engine.num_pages
+    assert engine._cache.lengths.eq(0).all()
+    assert engine._cache.page_table.eq(engine.num_pages).all()
+
+
+def test_llm_deployment_paged_answers_a_long_prompt():
+    dep = LLMDeployment("llama_tiny", num_slots=2, max_len=128,
+                        prompt_buckets=[16], default_max_new_tokens=5,
+                        dtype=torch.float32, device="cpu", seed=3,
+                        paged=True, page_size=128)
+    replica = dep.make_replica("llama_tiny-0")
+    assert replica.engine.paged and replica.engine.chunked_prefill
+    replica.start()
+    try:
+        prompts = _prompts(5, 2) + [list(range(1, 60))]   # 59 > bucket 16
+        reqs = [Request(model="llama_tiny", payload={"tokens": p},
+                        slo_ms=1e7) for p in prompts]
+        assert all(replica.assign(r) for r in reqs)
+        results = [r.future.result(timeout=60) for r in reqs]
+    finally:
+        replica.stop()
+    assert [len(r.tokens) for r in results] == [5, 5, 5]
+    assert all(r.finish_reason == "length" for r in results)
+    assert replica.engine.chunk_dispatches >= 4 + 1    # 4 chunks for 59
