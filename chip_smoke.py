@@ -12,30 +12,42 @@ last line:
    each, in parallel);
 3. kernels — each kernel against its plain PyTorch version at the main
    paths' shapes, in bf16 and f32 (the paged kernel also at a Tq = 4
-   staircase window in f32): max abs error against the stated tolerance,
-   median CUDA-event times of kernel / plain version / one-call PyTorch
-   yardstick (``F.scaled_dot_product_attention``, never used by the port;
-   for the paged kernel gather + SDPA, two calls), and the bound from bytes
-   and FLOPs;
-4. parity — llama3_8b at full width, 2 layers, f32: slab ``prefill`` then
-   one ``decode_step``, and paged ``prefill_chunk_paged`` (a W = 64 and a
+   staircase window in f32), and the int8-KV branch of both decode
+   kernels (int8 codes + f32 scales, q in bf16 and f32): max abs error
+   against the stated tolerance, median CUDA-event times of kernel /
+   plain version / a PyTorch yardstick never used by the port (one
+   ``F.scaled_dot_product_attention`` call for flash and slab decode;
+   gather + SDPA, 3 calls, for the paged kernel; dequantize + SDPA, 3
+   calls, and gather + dequantize + SDPA, 7 calls, for the int8
+   branches), and the bound from bytes and FLOPs;
+4. parity — llama3_8b at full width, 2 layers, f32, with the model's own
+   cache and with the int8 KV cache: slab ``prefill`` then one
+   ``decode_step``, and paged ``prefill_chunk_paged`` (a W = 64 and a
    W = 8 chunk) then ``decode_step_paged``, each through the kernels and
    through the plain versions; the paged logits also against the slab
-   logits of the same prompts;
+   logits of the same prompts; the int8-vs-f32-cache logit difference is
+   printed, not gated;
 5. main — ``LLMDeployment("llama3_8b")`` (slab + monolithic prefill) at
    full width and depth in bf16 with random weights serves 8 requests
    (6 greedy, 2 sampled);
 6. paged — ``LLMDeployment("llama3_8b", paged=True)`` (paged pool +
    token-budget chunked prefill), the same model rebuilt after phase 5's
    is freed, serves 10 requests: 8 of 40-60 tokens (6 greedy, 2 sampled)
-   and 2 greedy of 150-300 tokens, which run as multi-chunk trains.
+   and 2 greedy of 150-300 tokens, which run as multi-chunk trains;
+7. int8 — ``LLMDeployment("llama3_8b", quantize_kv=True)`` (slab + mono,
+   int8 KV cache) serves phase 6's 10 requests; the two long prompts go
+   through the long fill;
+8. int8_paged — ``LLMDeployment("llama3_8b", paged=True,
+   quantize_kv=True)`` serves the same 10, and the cache bytes of the four
+   serving phases are printed side by side.
 
-Phases 5 and 6 each set every launch count to 0 just before they serve and
+Phases 5 to 8 each set every launch count to 0 just before they serve and
 read them just after: each kernel of the path must have launched the
-number of times the engine's dispatches imply, and the plain route never.
+number of times the engine's dispatches imply, the other kernels and the
+plain route never.
 
 The line before the last is one JSON object with the per-kernel numbers
-(``launches`` sums both serving phases; ``launches_by_path`` splits them);
+(``launches`` sums the serving phases; ``launches_by_path`` splits them);
 the last line is ``{"ok": true, "device": {...}}``. ``--phases`` runs a
 subset (for bring-up); the default runs all. ``--profile`` traces each
 serving window with ``torch.profiler`` and prints the device's busy share
@@ -46,7 +58,11 @@ in f32 from the same bf16 inputs, and the outputs (|x| < 4) differ by at
 most a couple of bf16 ulps (2^-8 at 1) from the probabilities rounded at
 another running max; f32 1e-4 — the same math summed in another order.
 Model parity: 1e-3 absolute on logits of unit scale, two layers of f32
-matmuls between the two attention paths.
+matmuls between the two attention paths (with int8 KV an f32 sum in
+another order can flip a code at a .5 boundary in layer 1, which moves
+these logits by ~2e-4). The paged run is also held, at 1e-3, to the slab
+path in the same chunks (``prefill_chunk``), whose k/v come from the
+same products.
 """
 
 from __future__ import annotations
@@ -172,6 +188,26 @@ def _decode_inputs(dtype, gen, rng):
                 mask=decode_mask(lengths, S))
 
 
+def _quantized(x):
+    """The same inputs with k/v as int8 codes + f32 scales, quantized by
+    the cache's write rule."""
+    from ray_dynamic_batching_tpu_torch.models.decoder import (
+        quantize_kv_rows,
+    )
+
+    k, ks = quantize_kv_rows(x["k"])
+    v, vs = quantize_kv_rows(x["v"])
+    return dict(x, k=k, v=v, ks=ks, vs=vs)
+
+
+def _int8_decode_inputs(dtype, gen, rng):
+    return _quantized(_decode_inputs(dtype, gen, rng))
+
+
+def _int8_paged_inputs(dtype, gen, rng, tq: int = 1):
+    return _quantized(_paged_inputs(dtype, gen, rng, tq))
+
+
 def _paged_inputs(dtype, gen, rng, tq: int = 1):
     """A 64-page pool in shuffled order, lengths 40..510 over the 16 slots
     (in shuffled slot order), each slot holding just the pages its
@@ -202,34 +238,59 @@ def _sdpa(q, k, v, mask):
     ).transpose(1, 2)
 
 
+def _scales(x) -> list:
+    return [x[n] for n in ("ks", "vs") if n in x]
+
+
 def _dense_cost(x, tq, batch) -> tuple:
-    """Bytes (q, k, v, out once each, the int8 mask one byte an entry) and
-    FLOPs (4 B N Tq S H) of a dense-window kernel call."""
-    nbytes = _nbytes(x["q"], x["k"], x["v"], x["q"]) + batch * tq * S
+    """Bytes (q, k, v, the scales of int8 k/v, out once each, the int8
+    mask one byte an entry) and FLOPs (4 B N Tq S H) of a dense-window
+    kernel call."""
+    nbytes = (_nbytes(x["q"], x["k"], x["v"], x["q"], *_scales(x))
+              + batch * tq * S)
     return nbytes, 4 * batch * N_HEADS * tq * S * HEAD_DIM
 
 
 def _paged_cost(x) -> tuple:
-    """What this call's data needs: each slot reads the K/V of positions
-    [0, length + Tq) once (the kernel skips tiles past them), plus q, out,
-    the table and the lengths; FLOPs 4 N Tq H per attended position."""
+    """What this call's data needs: each slot reads the K/V (and, int8,
+    the scales) of positions [0, length + Tq) once (the kernel skips tiles
+    past them), plus q, out, the table and the lengths; FLOPs 4 N Tq H per
+    attended position."""
     B, tq = x["q"].shape[:2]
     kv_elt = KV_HEADS * HEAD_DIM * x["k"].element_size()
+    if "ks" in x:
+        kv_elt += KV_HEADS * 4
     positions = int((x["lengths"].long() + tq).sum().item())
     nbytes = (2 * positions * kv_elt + 2 * _nbytes(x["q"])
               + _nbytes(x["table"], x["lengths"]))
     return nbytes, 4 * N_HEADS * tq * HEAD_DIM * positions
 
 
+def _dequant_sdpa(x):
+    """The int8 slab yardstick: dequantize k and v, then SDPA (3 calls)."""
+    from ray_dynamic_batching_tpu_torch.models.decoder import dequantize_kv
+
+    dt = x["q"].dtype
+    return _sdpa(x["q"], dequantize_kv(x["k"], x["ks"], dt),
+                 dequantize_kv(x["v"], x["vs"], dt), x["mask"])
+
+
 def _gather_sdpa(x):
-    """The paged yardstick: gather the logical view, then SDPA (2 calls)."""
+    """The paged yardstick: gather the logical view (k, v; with int8 pools
+    also their scales, then dequantize them), then SDPA — 3 calls, 7 with
+    int8 pools."""
     from ray_dynamic_batching_tpu_torch.models.decoder import (
+        dequantize_kv,
         paged_window_mask,
     )
     from ray_dynamic_batching_tpu_torch.ops import decode_attention as dec
 
     k_g = dec.logical_view(x["k"], x["table"])
     v_g = dec.logical_view(x["v"], x["table"])
+    if "ks" in x:
+        dt = x["q"].dtype
+        k_g = dequantize_kv(k_g, dec.logical_view(x["ks"], x["table"]), dt)
+        v_g = dequantize_kv(v_g, dec.logical_view(x["vs"], x["table"]), dt)
     mask = paged_window_mask(x["lengths"], k_g.shape[1], x["q"].shape[1])
     return _sdpa(x["q"], k_g, v_g, mask)
 
@@ -273,9 +334,42 @@ def _kernel_specs():
             plain=lambda x: dec.paged_decode_attention_plain(
                 x["q"], x["k"], x["v"], x["table"], x["lengths"]),
             library=None,       # no one PyTorch call reads a page table
-            yardstick=_gather_sdpa,
+            yardstick=(_gather_sdpa, "gather + sdpa (3 calls)"),
             cost=_paged_cost,
             extra_cases=[(torch.float32, 4)],   # Tq = 4 staircase
+        ),
+        # The int8-KV branch of kernels 2 and 3: the same sources and
+        # wrappers, 1-byte codes + f32 scales (the reference's scale
+        # BlockSpecs and _scan_tile's ks/vs arithmetic).
+        "decode_attention_int8": dict(
+            source="ray_dynamic_batching_tpu_torch/csrc/decode_attention.cu",
+            replaces="ray_dynamic_batching_tpu/ops/decode_attention.py:268",
+            inputs=_int8_decode_inputs,
+            kernel=lambda x: dec.decode_attention(
+                x["q"], x["k"], x["v"], mask=x["mask"], k_scale=x["ks"],
+                v_scale=x["vs"]),
+            plain=lambda x: dec.decode_attention_plain(
+                x["q"], x["k"], x["v"], fl.keep_mask(x["mask"], SLOTS, 1, S),
+                k_scale=x["ks"], v_scale=x["vs"]),
+            library=None,       # no one PyTorch call reads int8 codes
+            yardstick=(_dequant_sdpa, "dequantize + sdpa (3 calls)"),
+            cost=lambda x: _dense_cost(x, 1, SLOTS),
+        ),
+        "paged_decode_attention_int8": dict(
+            source=("ray_dynamic_batching_tpu_torch/csrc/"
+                    "paged_decode_attention.cu"),
+            replaces="ray_dynamic_batching_tpu/ops/decode_attention.py:354",
+            inputs=_int8_paged_inputs,
+            kernel=lambda x: dec.paged_decode_attention(
+                x["q"], x["k"], x["v"], x["table"], x["lengths"],
+                k_scale=x["ks"], v_scale=x["vs"]),
+            plain=lambda x: dec.paged_decode_attention_plain(
+                x["q"], x["k"], x["v"], x["table"], x["lengths"],
+                k_scale=x["ks"], v_scale=x["vs"]),
+            library=None,
+            yardstick=(_gather_sdpa, "gather + dequantize + sdpa (7 calls)"),
+            cost=_paged_cost,
+            extra_cases=[(torch.float32, 4)],
         ),
     }
 
@@ -319,6 +413,7 @@ def phase_kernels() -> dict:
             b_ms, b_by = bound(nbytes, flops, dtype)
             row.update(
                 dtype="bfloat16",
+                kv_dtype=str(x["k"].dtype).replace("torch.", ""),
                 q_shape=list(x["q"].shape), kv_shape=list(x["k"].shape),
                 max_abs_err=err,
                 ms=time_ms(lambda: sp["kernel"](x)),
@@ -328,9 +423,10 @@ def phase_kernels() -> dict:
                 bound_ms=b_ms, bound_by=b_by,
             )
             if sp["yardstick"] is not None:
-                row["gather_sdpa_ms"] = time_ms(lambda: sp["yardstick"](x))
+                fn, row["yardstick"] = sp["yardstick"]
+                row["yardstick_ms"] = time_ms(lambda: fn(x))
             lib = (f"sdpa {row['library_ms']:.4f} ms" if sp["library"] else
-                   f"gather + sdpa (2 calls) {row['gather_sdpa_ms']:.4f} ms")
+                   f"{row['yardstick']} {row['yardstick_ms']:.4f} ms")
             print(f"[kernels] {name} bf16: kernel {row['ms']:.4f} ms, plain "
                   f"{row['plain_ms']:.4f} ms, {lib}, bound {b_ms:.4f} ms "
                   f"({b_by}, {nbytes / 1e6:.1f} MB)", flush=True)
@@ -348,22 +444,28 @@ def _counts() -> dict:
     return {"flash_attention": fl.launches,
             "decode_attention": dec.launches,
             "paged_decode_attention": dec.paged_launches,
+            "decode_attention_int8": dec.int8_launches,
+            "paged_decode_attention_int8": dec.paged_int8_launches,
             "plain": attention.plain_launches}
 
 
-def phase_parity() -> None:
-    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
-        LLAMA3_8B,
-        CausalLM,
-    )
+def _expect_only(tag: str, counts: dict, want: dict) -> None:
+    """Every kernel count equals ``want`` (missing names: 0)."""
+    got = {n: c for n, c in counts.items() if c or n in want}
+    if got != want:
+        fail(f"{tag}: launched {counts}, expected {want} and nothing else")
+
+
+def _parity(model, tag: str) -> tuple:
+    """Slab prefill + decode and paged chunks + decode through the kernels
+    and through the plain versions (1e-3 apart), the paged logits also
+    against the slab logits of the same prompts. Returns the kernel
+    path's (slab, paged) logits."""
     from ray_dynamic_batching_tpu_torch.ops import attention
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(LLAMA3_8B, num_layers=2)
-    model = CausalLM(cfg, "llama3_8b_2layer", dtype=torch.float32,
-                     device="cuda", seed=0)
-    V = cfg.vocab_size
+    int8 = model.kv_dtype == torch.int8
+    suffix = "_int8" if int8 else ""
+    V = model.cfg.vocab_size
     rng = np.random.default_rng(0)
 
     def cuda_i32(a):
@@ -385,19 +487,18 @@ def phase_parity() -> None:
             return first.float(), second.float()
 
     attention.reset_counts()
-    got = run_slab(tokens, attn)
-    c = _counts()
-    if (c["flash_attention"], c["decode_attention"]) != (2, 2):
-        fail(f"parity: slab path launched {c}, expected flash 2 / decode 2")
+    got_slab = run_slab(tokens, attn)
+    _expect_only(f"parity {tag} slab", _counts(), {
+        "flash_attention": 2, "decode_attention" + suffix: 2})
     with attention.plain_attention():
         want = run_slab(tokens, attn)
-    errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+    errs = [(g - w).abs().max().item() for g, w in zip(got_slab, want)]
     scale = max(w.abs().max().item() for w in want)
-    print(f"[parity] llama3_8b width, 2 layers, f32: prefill logits err "
-          f"{errs[0]:.3e}, decode logits err {errs[1]:.3e} (|logits| max "
-          f"{scale:.2f}, tol {LOGIT_TOL:.0e})", flush=True)
+    print(f"[parity] llama3_8b width, 2 layers, f32, {tag}: prefill logits "
+          f"err {errs[0]:.3e}, decode logits err {errs[1]:.3e} (|logits| "
+          f"max {scale:.2f}, tol {LOGIT_TOL:.0e})", flush=True)
     if not all(np.isfinite(errs)) or max(errs) > LOGIT_TOL:
-        fail(f"parity: logits differ by {errs}")
+        fail(f"parity {tag}: logits differ by {errs}")
 
     # Paged: row 0 a 72-token prompt as a W = 64 chunk and a W = 8 chunk,
     # row 1 a 50-token prompt in the first chunk (idle, all-sentinel
@@ -431,36 +532,84 @@ def phase_parity() -> None:
             return (torch.stack([first_0[0], first_1[1]]).float(),
                     second.float())
 
+    def run_slab_chunks():
+        """The same two chunks and decode step on a slab cache through
+        ``prefill_chunk`` (the long fill's program): every k/v row comes
+        from the same products as the paged run's."""
+        with torch.inference_mode():
+            cache = model.make_cache(2, S)
+            first_1, cache = model.prefill_chunk(
+                cuda_i32(tok1), cuda_i32(attn), cache, 0, 49)
+            tok2 = np.zeros((2, 8), np.int32)
+            tok2[0] = long_p[T:]
+            first_0, cache = model.prefill_chunk(
+                cuda_i32(tok2), cuda_i32([[1] * 8, [0] * 8]), cache, T, 7)
+            second, cache = model.decode_step(nxt, cache, active)
+            return (torch.stack([first_0[0], first_1[1]]).float(),
+                    second.float())
+
     attention.reset_counts()
-    got = run_paged()
-    c = _counts()
-    if (c["flash_attention"], c["paged_decode_attention"],
-            c["decode_attention"], c["plain"]) != (2, 4, 0, 0):
-        fail(f"parity: paged path launched {c}, expected flash 2 / paged "
-             "decode 4 / slab decode 0 / plain 0")
+    got_paged = run_paged()
+    _expect_only(f"parity {tag} paged", _counts(), {
+        "flash_attention": 2, "paged_decode_attention" + suffix: 4})
     with attention.plain_attention():
         want = run_paged()
-    errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+    errs = [(g - w).abs().max().item() for g, w in zip(got_paged, want)]
+    errs_chunks = [(g - w).abs().max().item()
+                   for g, w in zip(got_paged, run_slab_chunks())]
     slab_toks = np.zeros((2, 72), np.int32)
     slab_toks[0] = long_p
     slab_toks[1, :50] = tokens[1, :50]
     slab_mask = np.ones((2, 72), np.int32)
     slab_mask[1, 50:] = 0
     slab = run_slab(slab_toks, slab_mask)
-    errs_slab = [(g - w).abs().max().item() for g, w in zip(got, slab)]
-    print(f"[parity] paged, f32: chunk logits err {errs[0]:.3e}, decode "
-          f"logits err {errs[1]:.3e} vs plain; vs the slab path "
-          f"{errs_slab[0]:.3e} / {errs_slab[1]:.3e} (tol {LOGIT_TOL:.0e})",
-          flush=True)
-    if (not all(np.isfinite(errs + errs_slab))
-            or max(errs + errs_slab) > LOGIT_TOL):
-        fail(f"paged parity: logits differ by {errs} / {errs_slab}")
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
+    errs_slab = [(g - w).abs().max().item() for g, w in zip(got_paged, slab)]
+    print(f"[parity] paged, f32, {tag}: chunk logits err {errs[0]:.3e}, "
+          f"decode logits err {errs[1]:.3e} vs plain; vs the slab path in "
+          f"the same chunks {errs_chunks[0]:.3e} / {errs_chunks[1]:.3e}; "
+          f"vs the slab path's one-shot prefill {errs_slab[0]:.3e} / "
+          f"{errs_slab[1]:.3e}{' (not gated)' if int8 else ''} "
+          f"(tol {LOGIT_TOL:.0e})", flush=True)
+    # With int8 codes the one-shot prefill is not gated: its k/v come from
+    # a [2, 72] product instead of [2, 64] + [2, 8] ones, f32 sums in
+    # another order, and a value on a .5 code boundary rounds the other
+    # way — one code flip moves these logits by ~2e-3 (measured on the
+    # CPU at reduced width). The same-chunks run isolates the layouts.
+    gated = errs + errs_chunks + ([] if int8 else errs_slab)
+    if not all(np.isfinite(errs + errs_chunks + errs_slab)) or \
+            max(gated) > LOGIT_TOL:
+        fail(f"paged parity {tag}: logits differ by {errs} / {errs_chunks} "
+             f"/ {errs_slab}")
+    return got_slab, got_paged
 
 
-# --- phases 5 and 6: serving through LLMDeployment --------------------------
+def phase_parity() -> None:
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        LLAMA3_8B,
+        CausalLM,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=2)
+    runs = {}
+    for kv_dtype, tag in ((None, "f32 cache"), (torch.int8, "int8 KV")):
+        # The same seed: the same weights in both models.
+        model = CausalLM(cfg, "llama3_8b_2layer", dtype=torch.float32,
+                         device="cuda", seed=0, kv_dtype=kv_dtype)
+        runs[tag] = _parity(model, tag)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    diffs = [(a - b).abs().max().item()
+             for pair in zip(runs["int8 KV"], runs["f32 cache"])
+             for a, b in zip(*pair)]
+    print("[parity] int8 KV against the f32 cache, same weights and prompts "
+          "(not gated): slab prefill / decode, paged chunk / decode logits "
+          "differ by " + " / ".join(f"{d:.3e}" for d in diffs), flush=True)
+
+
+# --- phases 5 to 8: serving through LLMDeployment ---------------------------
 def _profile_report(prof, wall_s: float) -> None:
     """Device time by kernel and the device's busy share of the window."""
     rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
@@ -489,9 +638,11 @@ def _serve(tag: str, payloads, dep_kwargs: dict, profile: bool):
                         **dep_kwargs)
     replica = dep.make_replica("llama3_8b-0")
     engine = replica.engine
+    kv = "int8" if engine.model.kv_dtype == torch.int8 else "bf16"
     print(f"[{tag}] llama3_8b bf16 {engine.model.cfg.num_layers} layers, "
-          f"{engine.model.param_bytes() / 1e9:.2f} GB of weights, replica "
-          f"built and warmed in {time.monotonic() - t0:.1f} s", flush=True)
+          f"{kv} KV cache, {engine.model.param_bytes() / 1e9:.2f} GB of "
+          f"weights, replica built and warmed in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
     prof = contextlib.nullcontext()
     if profile:
         from torch.profiler import ProfilerActivity, profile as _profile
@@ -523,15 +674,7 @@ def _serve(tag: str, payloads, dep_kwargs: dict, profile: bool):
                  f"{res.finish_reason}")
         if not all(0 <= t < V for t in res.tokens):
             fail(f"{tag} request {i}: token id out of vocab")
-    if counts["plain"] != 0:
-        fail(f"{tag}: {counts['plain']} attention calls took the plain route")
     return results, counts, engine, replica, wall
-
-
-def _expect(tag: str, counts: dict, name: str, want: int, what: str) -> None:
-    if counts[name] != want or want == 0:
-        fail(f"{tag}: {name} launches {counts[name]}, expected {want} "
-             f"({what})")
 
 
 def _report(tag, results, counts, engine, wall) -> None:
@@ -541,8 +684,9 @@ def _report(tag, results, counts, engine, wall) -> None:
           f"{n_tok / wall:.1f} tok/s, TTFT p50 "
           f"{statistics.median(ttfts):.1f} ms (max {ttfts[-1]:.1f} ms), "
           f"{engine.prefill_groups} prefill groups, {engine.chunk_dispatches}"
-          f" chunk dispatches, {engine.steps} decode steps, launches "
-          f"{counts}", flush=True)
+          f" chunk dispatches, {engine.long_chunk_dispatches} long-fill "
+          f"chunks, {engine.steps} decode steps, launches {counts}",
+          flush=True)
     print(f"[{tag}] TTFT parts {engine.ttft_breakdown()}", flush=True)
 
 
@@ -558,81 +702,113 @@ def _payloads(rng, V, max_new, n_short, n_sampled, n_long) -> list:
     return out
 
 
-def phase_main(profile: bool = False) -> dict:
-    tag = "main"
-    payloads = _payloads(np.random.default_rng(0), 128256, 32, 8, 2, 0)
-    results, counts, engine, replica, wall = _serve(tag, payloads, dict(
-        num_slots=SLOTS, max_len=S, prompt_buckets=[T],
-        default_max_new_tokens=32, decode_horizon=8,
-        max_admissions_per_step=NB,
-    ), profile)
-    layers = engine.model.cfg.num_layers
-    _expect(tag, counts, "flash_attention", layers * engine.prefill_groups,
-            f"{engine.prefill_groups} prefill groups")
-    _expect(tag, counts, "decode_attention", layers * engine.steps,
-            f"{engine.steps} decode steps")
-    if counts["paged_decode_attention"] != 0:
-        fail(f"{tag}: the slab path launched the paged kernel")
-    _report(tag, results, counts, engine, wall)
-    replica.stop()
-    return counts
+# The serving knobs: 16 slots, max_len 512, one bucket of 64, groups of 4,
+# horizon 8, 32 new tokens; paged: 128-token pages, a full-backing pool
+# and a 256-token prefill budget.
+SLAB_KNOBS = dict(num_slots=SLOTS, max_len=S, prompt_buckets=[T],
+                  default_max_new_tokens=32, decode_horizon=8,
+                  max_admissions_per_step=NB)
+PAGED_KNOBS = dict(SLAB_KNOBS, paged=True, page_size=PS,
+                   prefill_token_budget=256)
 
 
-def phase_paged(profile: bool = False) -> dict:
-    tag = "paged"
+def _cache_bytes(engine) -> int:
+    c = engine._cache
+    return _nbytes(*[t for t in (c.k, c.v, c.k_scale, c.v_scale)
+                     if t is not None])
+
+
+def _serving_phase(tag: str, payloads, knobs: dict, profile: bool) -> tuple:
+    """Serve ``payloads`` through a fresh deployment and hold every launch
+    count to what the engine's dispatches imply: each decode step runs the
+    arm's decode kernel once per layer; flash runs once per layer for each
+    prefill group, long-fill chunk (monolithic arms) or chunk dispatch
+    (paged + chunked); every other kernel and the plain route never.
+    Returns (counts, cache bytes)."""
     gc.collect()
     torch.cuda.empty_cache()
-    payloads = _payloads(np.random.default_rng(1), 128256, 32, 8, 2, 2)
-    results, counts, engine, replica, wall = _serve(tag, payloads, dict(
-        paged=True, page_size=PS, num_slots=SLOTS, max_len=S,
-        prompt_buckets=[T], prefill_token_budget=256,
-        max_admissions_per_step=NB, default_max_new_tokens=32,
-        decode_horizon=8,
-    ), profile)
-    layers = engine.model.cfg.num_layers
-    if engine.num_pages != POOL:
-        fail(f"{tag}: pool of {engine.num_pages} pages, expected {POOL}")
-    _expect(tag, counts, "paged_decode_attention", layers * engine.steps,
-            f"{engine.steps} decode steps")
-    _expect(tag, counts, "flash_attention", layers * engine.chunk_dispatches,
-            f"{engine.chunk_dispatches} chunk dispatches, all W = {T}")
-    if counts["decode_attention"] != 0:
-        fail(f"{tag}: the paged path launched the slab decode kernel")
-    if engine.chunk_dispatches <= 4:
-        fail(f"{tag}: {engine.chunk_dispatches} chunk dispatches cannot "
-             "have served the multi-chunk prompts")
-    engine._allocator.check()
-    if engine._allocator.free_pages != engine.num_pages:
-        fail(f"{tag}: {engine._allocator.free_pages} of {engine.num_pages} "
-             "pages free after the drain")
+    results, counts, engine, replica, wall = _serve(tag, payloads, knobs,
+                                                    profile)
+    L = engine.model.cfg.num_layers
+    int8 = "_int8" if engine.model.kv_dtype == torch.int8 else ""
+    decode = ("paged_decode_attention" if engine.paged
+              else "decode_attention") + int8
+    fills = (engine.prefill_groups + engine.long_chunk_dispatches
+             + engine.chunk_dispatches)
+    want = {decode: L * engine.steps, "flash_attention": L * fills}
+    if not all(want.values()):
+        fail(f"{tag}: a kernel of the path never launched: {want}")
+    _expect_only(tag, counts, want)
+    # The two long prompts: chunks of T, as multi-chunk trains (paged +
+    # chunked) or through the long fill (monolithic arms).
+    long_chunks = sum(-(-len(p["tokens"]) // T) for p in payloads
+                      if len(p["tokens"]) > T)
+    if engine.chunked_prefill:
+        # A multi-chunk train dispatches alone, once per chunk.
+        if engine.chunk_dispatches < long_chunks:
+            fail(f"{tag}: {engine.chunk_dispatches} chunk dispatches cannot "
+                 f"have served the {long_chunks} chunks of the long prompts")
+    elif engine.long_chunk_dispatches != long_chunks:
+        fail(f"{tag}: {engine.long_chunk_dispatches} long-fill chunks, "
+             f"expected {long_chunks}")
+    if engine.paged:
+        if engine.num_pages != POOL:
+            fail(f"{tag}: pool of {engine.num_pages} pages, expected {POOL}")
+        engine._allocator.check()
+        if engine._allocator.free_pages != engine.num_pages:
+            fail(f"{tag}: {engine._allocator.free_pages} of "
+                 f"{engine.num_pages} pages free after the drain")
     _report(tag, results, counts, engine, wall)
-    print(f"[{tag}] pool conserved: {engine.num_pages} of {engine.num_pages}"
-          " pages free after the drain", flush=True)
+    if engine.paged:
+        print(f"[{tag}] pool conserved: {engine.num_pages} of "
+              f"{engine.num_pages} pages free after the drain", flush=True)
+    nbytes = _cache_bytes(engine)
+    print(f"[{tag}] KV cache {nbytes / 1e9:.3f} GB; "
+          f"{engine.model.kv_bytes_per_slot(S) / 1e6:.1f} MB per slot at "
+          f"max_len {S}", flush=True)
     replica.stop()
-    return counts
+    return counts, nbytes
+
+
+# phase -> (launch-count path name, payloads of rng seed / long prompts,
+# knobs): the int8 phases serve phase 6's 10 requests.
+SERVING = {
+    "main": ("slab", 0, 0, SLAB_KNOBS),
+    "paged": ("paged", 1, 2, PAGED_KNOBS),
+    "int8": ("int8", 1, 2, dict(SLAB_KNOBS, quantize_kv=True)),
+    "int8_paged": ("int8_paged", 1, 2, dict(PAGED_KNOBS, quantize_kv=True)),
+}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,parity,main,paged",
-                    help="comma-separated subset of build,kernels,parity,"
-                         "main,paged (the device phase always runs)")
+    all_phases = ["build", "kernels", "parity"] + list(SERVING)
+    ap.add_argument("--phases", default=",".join(all_phases),
+                    help=f"comma-separated subset of {','.join(all_phases)} "
+                         "(the device phase always runs)")
     ap.add_argument("--profile", action="store_true",
                     help="trace each serving window with torch.profiler "
                          "and print device time by kernel")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
+    if not phases <= set(all_phases):
+        fail(f"unknown phases {sorted(phases - set(all_phases))}")
     dev = phase_device()
     if "build" in phases:
         phase_build()
     kernels = phase_kernels() if "kernels" in phases else {}
     if "parity" in phases:
         phase_parity()
-    by_path = {}
-    if "main" in phases:
-        by_path["slab"] = phase_main(args.profile)
-    if "paged" in phases:
-        by_path["paged"] = phase_paged(args.profile)
+    by_path, cache = {}, {}
+    for phase, (path, seed, n_long, knobs) in SERVING.items():
+        if phase in phases:
+            payloads = _payloads(np.random.default_rng(seed), 128256, 32, 8,
+                                 2, n_long)
+            by_path[path], cache[path] = _serving_phase(
+                phase, payloads, knobs, args.profile)
+    if cache:
+        print("[cache] KV cache bytes by serving phase: " + ", ".join(
+            f"{p} {b / 1e9:.3f} GB" for p, b in cache.items()), flush=True)
     for name, row in kernels.items():
         split = {path: c[name] for path, c in by_path.items()}
         row["launches"] = sum(split.values()) if split else None

@@ -6,7 +6,11 @@ of its arms:
 - **slab + monolithic prefill** (the constructor defaults): a group of
   same-bucket prompts runs on a fresh row cache, the rows are copied into
   the shared slab cache at their slots, and the first token is sampled on
-  the device (:meth:`_prefill_impl`);
+  the device (:meth:`_prefill_impl`); a prompt longer than the largest
+  bucket takes the long fill (:meth:`_prefill_long`): chunks of the
+  largest bucket into a private single-row cache, one decode step for
+  the active batch between chunks, then one commit of the row into the
+  shared cache;
 - **paged + token-budget chunked prefill** (``paged=True``; chunking is
   its default): every admission becomes a chunk train holding a slot;
   between decode turns :meth:`_pump_prefill` spends at most
@@ -16,7 +20,11 @@ of its arms:
   granted for that chunk; prompts longer than the largest bucket run as
   multi-chunk trains;
 - **paged + monolithic prefill** (``paged=True, chunked_prefill=False``):
-  the slab arm's prefill, its rows cut into pages at admission.
+  the slab arm's prefill and long fill, its rows cut into pages at
+  admission.
+
+Every arm serves a model with an int8 KV cache (``kv_dtype=torch.int8``):
+the row copies carry the scale planes beside the codes.
 
 Decode is shared: ``horizon`` chained steps for all slots per host sync,
 with presence/frequency penalties, sparse logit bias and the per-request
@@ -29,11 +37,10 @@ the host (``engine/paging.py``); the device table has one writer,
 PyTorch runs eagerly, so there is nothing to compile: the reference's
 jit programs are plain methods, its donated buffers are tensors updated in
 place, and its group padding to compiled widths is gone (a group is
-exactly its rows, so no index is written twice). The slab long-fill path,
-speculative decoding, the prefix/session caches, the page fabric, weight
-quantisation and the mesh are later slices: on the monolithic arms a
-prompt longer than the largest bucket raises :class:`BadRequest` naming
-the long-fill path, and ``chunked_prefill=True`` on a slab engine raises.
+exactly its rows, so no index is written twice). The slab-train arm
+(``chunked_prefill=True`` on a slab engine, which raises), speculative
+decoding, the prefix/session caches, the page fabric, weight quantisation
+and the mesh are later slices.
 
 Sampling: ``jax.random`` keys cannot be reproduced in torch, so sampled
 rows draw gumbel noise from a counter-based hash of (base_seed, request
@@ -126,12 +133,33 @@ def bucket_up(value: int, buckets: Sequence[int]) -> Optional[int]:
     return None
 
 
+def _planes(rows, cache):
+    """(source, destination) pairs of every per-position plane: k and v,
+    and on an int8 cache their scale planes — a copy that dropped the
+    scales would reconstruct garbage KV for every admitted prompt."""
+    pairs = [(rows.k, cache.k), (rows.v, cache.v)]
+    if cache.quantized:
+        pairs += [(rows.k_scale, cache.k_scale), (rows.v_scale, cache.v_scale)]
+    return pairs
+
+
 def copy_rows_into(cache, rows, slots: torch.Tensor) -> None:
     """In place: the row cache's per-request rows into the shared cache at
     ``slots`` (the reference's donated dynamic_update_slice)."""
-    cache.k.index_copy_(1, slots, rows.k)
-    cache.v.index_copy_(1, slots, rows.v)
+    for src, dst in _planes(rows, cache):
+        dst.index_copy_(1, slots, src)
     cache.lengths.index_copy_(0, slots, rows.lengths)
+
+
+def commit_row(cache, row, slot: int) -> None:
+    """In place: a single finished row cache into the shared slab cache at
+    ``slot``, cut down to shared capacity (the long fill's row is whole
+    chunks and may be longer; past ``lengths`` it holds nothing anyone
+    attends)."""
+    S = cache.capacity
+    for src, dst in _planes(row, cache):
+        dst[:, slot] = src[:, 0, :S]
+    cache.lengths[slot] = row.lengths[0]
 
 
 def copy_rows_into_paged(cache, rows, slots: torch.Tensor,
@@ -144,11 +172,32 @@ def copy_rows_into_paged(cache, rows, slots: torch.Tensor,
     ps = cache.page_size
     S = write_pids.shape[1] * ps
     flat = write_pids.reshape(-1).long()
-    for src, dst in ((rows.k, cache.k), (rows.v, cache.v)):
+    for src, dst in _planes(rows, cache):
         pages = src[:, :, :S].reshape((L, nB * (S // ps), ps)
                                       + tuple(src.shape[3:]))
         dst.index_copy_(1, flat, pages)
     cache.lengths.index_copy_(0, slots, rows.lengths)
+
+
+def run_chunked(chunk_fn, prompt: np.ndarray, C: int, row, device,
+                between=None):
+    """Host loop driving ``chunk_fn`` over a prompt: full-width chunks, a
+    right-padded tail, and ``between`` after every non-final chunk (the
+    decode-interleave hook). Returns (last logits, row)."""
+    L = int(prompt.size)
+    n_chunks = (L + C - 1) // C
+    last = None
+    for ci in range(n_chunks):
+        piece = prompt[ci * C: (ci + 1) * C]
+        tokmask = np.zeros((2, 1, C), dtype=np.int32)
+        tokmask[0, 0, : piece.size] = piece
+        tokmask[1, 0, : piece.size] = 1
+        tokmask = torch.from_numpy(tokmask).to(device)
+        last, row = chunk_fn(tokmask[0], tokmask[1], row, ci * C,
+                             int(piece.size) - 1)
+        if ci < n_chunks - 1 and between is not None:
+            between()
+    return last, row
 
 
 def _mix32(x):
@@ -267,9 +316,9 @@ class DecodeEngine:
             chunked_prefill = self.paged
         if chunked_prefill and not self.paged:
             raise ValueError(
-                "chunked_prefill=True on a slab engine needs the slab "
-                "long-fill path (row-cache chunks + commit; ROADMAP queue 1 "
-                "item 2), which is not ported yet: use paged=True"
+                "chunked_prefill=True on a slab engine needs the slab-train "
+                "arm (token-budget chunk trains on row caches; ROADMAP "
+                "queue 1 item 2), which is not ported yet: use paged=True"
             )
         self.chunked_prefill = bool(chunked_prefill)
         with torch.inference_mode():
@@ -324,6 +373,7 @@ class DecodeEngine:
         self.steps = 0
         self.prefill_groups = 0      # monolithic prefill dispatches
         self.chunk_dispatches = 0    # chunk-group dispatches
+        self.long_chunk_dispatches = 0   # long-fill chunk dispatches
         self.completed = 0
         self.last_heartbeat = time.monotonic()
 
@@ -401,6 +451,35 @@ class DecodeEngine:
         return self._sample_tokens(
             last_logits, temps, topk, seeds, torch.zeros_like(slots),
             bias_ids, bias_vals, topp, any_sampled,
+        )
+
+    @torch.inference_mode()
+    def _long_chunk_impl(self, tokens, attn_mask, row, start: int,
+                         take_idx: int):
+        """One long-fill chunk on the private row cache."""
+        self.long_chunk_dispatches += 1
+        return self.model.prefill_chunk(tokens, attn_mask, row, start,
+                                        take_idx)
+
+    @torch.inference_mode()
+    def _commit_long_impl(self, row, slot: int, meta_i, last_logits,
+                          meta_f, bias_ids, bias_vals, any_sampled: bool,
+                          write_pids: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+        """Close a long fill: the finished row into the shared cache at
+        ``slot`` (slab: cut to capacity; paged: cut into the pages
+        ``write_pids`` [1, NP] names), then the first token sampled.
+        ``meta_i`` [3] packs slot / top_k / seed, ``meta_f`` [2]
+        temperature / top_p (the token index of a first sample is 0)."""
+        if self.paged:
+            copy_rows_into_paged(self._cache, row, meta_i[0:1].long(),
+                                 write_pids)
+        else:
+            commit_row(self._cache, row, slot)
+        return self._sample_tokens(
+            last_logits, meta_f[0:1], meta_i[1:2], meta_i[2:3],
+            torch.zeros_like(meta_i[0:1]), bias_ids, bias_vals, meta_f[1:2],
+            any_sampled,
         )
 
     @torch.inference_mode()
@@ -564,21 +643,15 @@ class DecodeEngine:
         if prompt.min() < 0 or prompt.max() >= V:
             raise BadRequest(f"{req.request_id}: token id out of vocab")
         bucket = bucket_up(int(prompt.size), self.prompt_buckets)
-        if bucket is None and self.chunked_prefill:
-            # Longer than every bucket: a multi-chunk train (bucket -1),
-            # as long as the cache holds the prompt plus one token.
+        if bucket is None:
+            # Longer than every bucket: chunked (bucket -1) — a multi-chunk
+            # train, or on the monolithic arms the long fill — as long as
+            # the cache holds the prompt plus one generated token.
             if prompt.size >= self.max_len:
                 raise BadRequest(
                     f"{req.request_id}: prompt length {prompt.size} "
                     f"exceeds KV capacity {self.max_len}")
             bucket = -1
-        elif bucket is None:
-            raise BadRequest(
-                f"{req.request_id}: prompt length {prompt.size} exceeds the "
-                f"largest prompt bucket {max(self.prompt_buckets)}; the "
-                "chunked long-fill path (engine/decode.py::_prefill_long in "
-                "the JAX package) is not ported yet"
-            )
         opts = {
             "_cache_len": int(prompt.size),
             "max_new": self.default_max_new_tokens,
@@ -683,6 +756,7 @@ class DecodeEngine:
             by_bucket.setdefault(bucket, []).append((req, prompt, opts))
         admitted = 0
         cap = self.max_admissions_per_step
+        long_items = by_bucket.pop(-1, [])
         for bucket, items in by_bucket.items():
             for off in range(0, len(items), cap):
                 chunk = items[off: off + cap]
@@ -697,6 +771,22 @@ class DecodeEngine:
                         req.reject(e)
                     continue
                 admitted += len(chunk)
+        # Long prompts fill one by one after the groups; past the free
+        # slots they go back to the queue untouched (pages re-granted at
+        # their next admission).
+        for req, prompt, opts in long_items:
+            if admitted >= len(free):
+                self._release_pages(opts)
+                self._requeue(req, "long-prompt admission")
+                continue
+            try:
+                self._prefill_long(req, prompt, opts, free[admitted])
+            except Exception as e:  # noqa: BLE001 — same no-dangle rule
+                logger.exception("%s: long fill failed", self.model.name)
+                self._release_pages(opts)
+                req.reject(e)
+                continue
+            admitted += 1
         return admitted
 
     def _prefill_group(self, bucket: int,
@@ -737,6 +827,55 @@ class DecodeEngine:
         t = now_ms()
         for i, (req, _prompt, opts) in enumerate(items):
             self._register(slot_ids[i], req, int(first_host[i]), opts, t)
+
+    # --- the long fill (monolithic arms) -----------------------------------
+    def _long_row_cap(self, C: int) -> int:
+        """Row-cache capacity of a long fill: whole chunks covering the
+        cache (the paged one page-rounded, so the commit's page cut has
+        whole pages) plus one spare chunk — one shape for every prompt,
+        as the reference keeps it. The commit cuts it back down."""
+        cap = self._paged_capacity if self.paged else self.max_len
+        return ((cap + C - 1) // C) * C + C
+
+    def _interleave_step(self) -> None:
+        """One plain decode step for the active batch between long-fill
+        chunks: a long prompt stalls in-flight streams by at most one
+        chunk."""
+        if self._active_mask.any():
+            self._step(horizon=1)
+
+    def _prefill_long(self, req: Request, prompt: np.ndarray, opts: Dict,
+                      slot_idx: int) -> None:
+        """Admit one prompt longer than every bucket: prefill it in chunks
+        of the largest bucket into a private single-row cache, one decode
+        step for the active batch between chunks, then ONE commit (row into
+        the shared cache + first-token sample) and registration. Paged
+        engines granted the prompt's pages at admission; the commit cuts
+        the row into them."""
+        C = self.prompt_buckets[-1]
+        with torch.inference_mode():
+            row = self.model.make_cache(1, self._long_row_cap(C))
+        last, row = run_chunked(self._long_chunk_impl, prompt, C, row,
+                                self.device, between=self._interleave_step)
+        bids, bvals = self._bias_arrays(opts)
+        pids = None
+        if self.paged:
+            pids = torch.from_numpy(table_array(
+                opts["_pages"], self._n_table_entries, self.num_pages
+            )[None]).to(self.device)
+        dev = self.device
+        first = self._commit_long_impl(
+            row, slot_idx,
+            torch.tensor([slot_idx, opts["top_k"], opts["seed"]],
+                         dtype=torch.int32).to(dev),
+            last,
+            torch.tensor([opts["temperature"], opts["top_p"]],
+                         dtype=torch.float32).to(dev),
+            torch.from_numpy(bids[None]).to(dev),
+            torch.from_numpy(bvals[None]).to(dev),
+            opts["temperature"] > 0, pids,
+        )
+        self._register(slot_idx, req, int(first.cpu()[0]), opts, now_ms())
 
     # --- token-budget chunked admission ------------------------------------
     def _admit_chunked(self, batch: List[Request], free: List[int]) -> int:
@@ -1277,8 +1416,9 @@ class DecodeEngine:
                 time.sleep(0.05)
 
     def release_buffers(self) -> None:
-        """Drop the engine's device footprint (cache, counts). Call only
-        after the loop has stopped; the engine is unusable afterwards."""
+        """Drop the engine's device footprint (the cache with its scale
+        planes, the counts). Call only after the loop has stopped; the
+        engine is unusable afterwards."""
         self._cache = None
         self._counts = None
         self._sampling_dev = None

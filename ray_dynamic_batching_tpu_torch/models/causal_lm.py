@@ -1,10 +1,12 @@
 """Causal-LM servable models (GPT-2 family, Llama family) on the shared decoder.
 
 Port of ``ray_dynamic_batching_tpu/models/causal_lm.py``: the slab arm
-(``make_cache``, ``prefill``, ``decode_step``), the paged arm
-(``make_paged_cache``, ``prefill_chunk_paged``, ``decode_step_paged``),
-the configs ``LLAMA3_8B``,
-``GPT2_MEDIUM`` and ``TINY_LM``, and their registry entries. The model
+(``make_cache``, ``prefill``, ``prefill_chunk``, ``decode_step``), the
+paged arm (``make_paged_cache``, ``prefill_chunk_paged``,
+``decode_step_paged``), the int8 KV cache (``kv_dtype=torch.int8``,
+``kv_bytes_per_slot``), the configs ``LLAMA3_8B``, ``GPT2_MEDIUM`` and
+``TINY_LM``, and their registry entries (``llama_tiny_int8kv`` among
+them). The model
 owns its weights on an explicit device; :meth:`CausalLM.init_random`
 fills them from a seed on that device (no download), and
 ``models/convert.py`` maps the JAX package's params onto them.
@@ -43,10 +45,15 @@ class CausalLM(ServableModel):
         dtype: torch.dtype = torch.bfloat16,
         device: Union[str, torch.device, None] = "cuda",
         seed: Optional[int] = 0,
+        kv_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__(dtype, device)
         self.name = name
         self.cfg = cfg
+        # KV-cache storage dtype (None = the model dtype). int8 stores
+        # codes + one f32 scale per cached (token, head) row, quantized at
+        # write (models/decoder.py::quantize_kv_rows): half the bytes.
+        self.kv_dtype = kv_dtype
         self.module = DecoderModule(cfg, dtype=dtype, device=self.device)
         if seed is not None:
             self.init_random(seed)
@@ -74,7 +81,8 @@ class CausalLM(ServableModel):
     # --- decode interface (used by engine.decode) -------------------------
     def make_cache(self, batch_size: int,
                    max_len: Optional[int] = None) -> KVCache:
-        return KVCache.zeros(self.cfg, batch_size, max_len, dtype=self.dtype,
+        return KVCache.zeros(self.cfg, batch_size, max_len,
+                             dtype=self.kv_dtype or self.dtype,
                              device=self.device)
 
     def prefill(self, tokens: torch.Tensor, attn_mask: torch.Tensor,
@@ -107,6 +115,30 @@ class CausalLM(ServableModel):
         cache.lengths = lengths
         return last, cache
 
+    def prefill_chunk(self, tokens: torch.Tensor, attn_mask: torch.Tensor,
+                      cache: KVCache, start: int, take_idx: int
+                      ) -> Tuple[torch.Tensor, KVCache]:
+        """One chunk of a long prompt on a row cache: k/v written at
+        [start, start + C), each token at global position p attending
+        cache positions [0, p] (earlier chunks are resident; position 0 is
+        always visible, so padded query rows keep a sane softmax).
+        ``start`` and ``take_idx`` are host ints. Chunks arrive in order,
+        all full but the last; padded tail positions write garbage past
+        the final length that nothing attends. Returns (logits at row
+        ``take_idx`` [B, V], cache with ``lengths`` advanced by the
+        chunk's real tokens)."""
+        B, C = tokens.shape
+        S = cache.capacity
+        dev = tokens.device
+        positions = start + torch.arange(C, device=dev)[None, :].expand(B, C)
+        mask = (torch.arange(S, device=dev)[None, None, None, :]
+                <= positions[:, None, :, None])
+        take = torch.full((B,), take_idx, dtype=torch.int64, device=dev)
+        taken = self.module(tokens, positions, mask, cache, take=take,
+                            write_start=start)
+        cache.lengths = cache.lengths + attn_mask.sum(dim=1).to(torch.int32)
+        return taken, cache
+
     def decode_step(self, tokens: torch.Tensor, cache: KVCache,
                     active: torch.Tensor) -> Tuple[torch.Tensor, KVCache]:
         """One decode step for all slots; returns logits [B, V] and the
@@ -129,7 +161,7 @@ class CausalLM(ServableModel):
         ``[batch_size, max_len // page_size]`` all-sentinel page table;
         the engine owns allocation (``engine/paging.py``)."""
         return PagedKVCache.zeros(self.cfg, batch_size, num_pages, page_size,
-                                  max_len, dtype=self.dtype,
+                                  max_len, dtype=self.kv_dtype or self.dtype,
                                   device=self.device)
 
     def prefill_chunk_paged(
@@ -174,6 +206,17 @@ class CausalLM(ServableModel):
                              kv_lengths=cache.lengths)
         cache.lengths = cache.lengths + active.to(torch.int32)
         return logits[:, 0], cache
+
+    def kv_bytes_per_slot(self, max_len: Optional[int] = None) -> int:
+        """Bytes of k and v for one slot of ``max_len`` positions (an int8
+        cache adds one f32 scale per cached (token, head) row)."""
+        c = self.cfg
+        S = max_len or c.max_seq_len
+        kv_dtype = self.kv_dtype or self.dtype
+        per_row = c.head_dim * kv_dtype.itemsize
+        if kv_dtype == torch.int8:
+            per_row += 4
+        return 2 * c.num_layers * S * c.num_kv_heads * per_row
 
 
 GPT2_MEDIUM = DecoderConfig(
@@ -230,3 +273,10 @@ def _llama3_8b(**kwargs) -> CausalLM:
 @register_model("llama_tiny")
 def _llama_tiny(**kwargs) -> CausalLM:
     return CausalLM(TINY_LM, name="llama_tiny", **kwargs)
+
+
+@register_model("llama_tiny_int8kv")
+def _llama_tiny_int8kv(**kwargs) -> CausalLM:
+    """llama_tiny with the int8 KV cache, under its own registry name."""
+    kwargs.setdefault("kv_dtype", torch.int8)
+    return CausalLM(TINY_LM, name="llama_tiny_int8kv", **kwargs)

@@ -1,7 +1,7 @@
 """Shared causal-decoder transformer with an explicit KV cache, in torch.
 
-Port of ``ray_dynamic_batching_tpu/models/decoder.py`` (the slab cache and
-the paged pool): one
+Port of ``ray_dynamic_batching_tpu/models/decoder.py`` (the slab cache,
+the paged pool and the int8 KV cache): one
 config-driven module covers both families — RoPE/RMSNorm/SwiGLU/GQA for
 Llama, learned positions/LayerNorm/GeLU/bias/tied embeddings for GPT-2.
 
@@ -23,14 +23,16 @@ The paged pool keeps one extra SINK page past the ``P`` real ones: the
 reference's sentinel-steered ``mode="drop"`` writes land there (an index
 of ``P`` would be out of bounds in torch, and clamping a dropped write
 onto a real page could race another slot's write to the same cell), and
-no read ever names it. Int8 KV and MoE are later slices.
+no read ever names it. With ``kv_dtype=int8`` both caches hold int8 codes
+plus one f32 scale per cached (token, head) row, quantized at every write
+(:func:`quantize_kv_rows`). MoE is a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -60,13 +62,26 @@ class DecoderConfig:
         return self.d_model // self.num_heads
 
 
+def _scale_planes(shape, dtype, device):
+    """(k_scale, v_scale) f32 zeros of ``shape[:-1]`` for an int8 cache,
+    else (None, None)."""
+    if dtype != torch.int8:
+        return None, None
+    return (torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+
+
 @dataclass
 class KVCache:
-    """Slab cache: k/v [L, B, S, K, H]; lengths [B] int32 = valid prefix."""
+    """Slab cache: k/v [L, B, S, K, H]; lengths [B] int32 = valid prefix.
+    An int8 cache holds codes in k/v and one f32 scale per cached
+    (token, head) row in ``k_scale``/``v_scale`` [L, B, S, K]."""
 
     k: torch.Tensor
     v: torch.Tensor
     lengths: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @staticmethod
     def zeros(cfg: DecoderConfig, batch_size: int,
@@ -76,16 +91,22 @@ class KVCache:
         S = max_len or cfg.max_seq_len
         shape = (cfg.num_layers, batch_size, S, cfg.num_kv_heads,
                  cfg.head_dim)
+        k_scale, v_scale = _scale_planes(shape, dtype, device)
         return KVCache(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
             lengths=torch.zeros((batch_size,), dtype=torch.int32,
                                 device=device),
+            k_scale=k_scale, v_scale=v_scale,
         )
 
     @property
     def capacity(self) -> int:
         return self.k.shape[2]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
 
 @dataclass
@@ -95,12 +116,17 @@ class PagedKVCache:
     int32 (entry j names the physical page backing logical positions
     [j*ps, (j+1)*ps) of that slot; unallocated entries carry the sentinel
     ``P``, so writes through them land in the sink and reads clamp to
-    page ``P - 1`` under the length mask); lengths [B] int32."""
+    page ``P - 1`` under the length mask); lengths [B] int32. An int8
+    pool holds codes plus ``k_scale``/``v_scale`` [L, P + 1, ps, K] f32,
+    paged by the same table (the sink page takes dropped scale writes
+    too)."""
 
     k: torch.Tensor
     v: torch.Tensor
     page_table: torch.Tensor
     lengths: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @staticmethod
     def zeros(cfg: DecoderConfig, batch_size: int, num_pages: int,
@@ -114,6 +140,7 @@ class PagedKVCache:
             )
         shape = (cfg.num_layers, num_pages + 1, page_size, cfg.num_kv_heads,
                  cfg.head_dim)
+        k_scale, v_scale = _scale_planes(shape, dtype, device)
         return PagedKVCache(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
@@ -122,6 +149,7 @@ class PagedKVCache:
                                   device=device),
             lengths=torch.zeros((batch_size,), dtype=torch.int32,
                                 device=device),
+            k_scale=k_scale, v_scale=v_scale,
         )
 
     @property
@@ -137,6 +165,32 @@ class PagedKVCache:
     def capacity(self) -> int:
         """Per-slot LOGICAL capacity: table width x page size."""
         return self.page_table.shape[1] * self.k.shape[2]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) absmax int8 quantization: x [..., H] ->
+    (codes int8 [..., H], scale f32 [...]). The reference's rule exactly:
+    scale absmax / 127 (1 for an all-zero row), the division (not a
+    multiplication by its reciprocal), round half to even, clip to
+    +-127 — so equal inputs give bit-identical codes."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=-1)
+    scale = torch.where(absmax > 0, absmax / 127.0,
+                        torch.ones_like(absmax))
+    codes = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return codes.to(torch.int8), scale
+
+
+def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """codes int8 [..., H] * scale [...] -> [..., H] in ``dtype``: the one
+    dequant rule, used by every attention route that does not read the
+    codes itself."""
+    return (codes.float() * scale[..., None]).to(dtype)
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int,
@@ -228,15 +282,17 @@ def decode_write_index(idx: torch.Tensor, capacity: int):
     rows = torch.arange(idx.shape[0], device=idx.device)
     inside = (idx >= 0) & (idx < capacity)
     safe = torch.where(inside, idx, torch.full_like(idx, capacity - 1))
-    return rows, safe.long(), inside[:, None, None]
+    return rows, safe.long(), inside
 
 
 def write_decode_rows(full: torch.Tensor, index, new: torch.Tensor) -> None:
     """In place: full[b, idx[b]] = new[b] for every row inside capacity;
-    the others are dropped. full [B, S, K, H], new [B, K, H], ``index``
-    from :func:`decode_write_index`."""
+    the others are dropped. full [B, S, ...], new [B, ...] (k/v rows
+    [B, K, H] or their scales [B, K]), ``index`` from
+    :func:`decode_write_index`."""
     rows, safe, inside = index
     keep = full[rows, safe]
+    inside = inside.view((-1,) + (1,) * (new.dim() - 1))
     full[rows, safe] = torch.where(inside, new.to(full.dtype), keep)
 
 
@@ -287,6 +343,7 @@ class DecoderLayer(nn.Module):
         write_index=None,   # decode_write_index / paged_write_index
         page_table: Optional[torch.Tensor] = None,  # [B, NP]: paged pool
         kv_lengths: Optional[torch.Tensor] = None,  # [B] paged bound
+        write_start: int = 0,  # slab prefill: position of the chunk's row 0
     ) -> torch.Tensor:
         cfg = self.cfg
         B, T, _ = x.shape
@@ -298,35 +355,49 @@ class DecoderLayer(nn.Module):
         if cfg.pos == "rope":
             q = rotate(q, *rope)
             k = rotate(k, *rope)
+        if cache is not None:
+            # An int8 cache stores codes + per-row scales, and every write
+            # path writes both with the SAME indices. The read below takes
+            # what was written, so a prompt's own keys are attended as
+            # their quantized values, in prefill too (as the reference).
+            k_full, v_full = cache.k[layer_idx], cache.v[layer_idx]
+            writes = [(k_full, k), (v_full, v)]
+            scales = {}
+            if cache.quantized:
+                k_w, k_s = quantize_kv_rows(k)
+                v_w, v_s = quantize_kv_rows(v)
+                scales = {"k_scale": cache.k_scale[layer_idx],
+                          "v_scale": cache.v_scale[layer_idx]}
+                writes = [(k_full, k_w), (v_full, v_w),
+                          (scales["k_scale"], k_s), (scales["v_scale"], v_s)]
         if cache is not None and page_table is not None:
-            # Paged: the cache arrays are page pools [L, P + 1, ps, K, H];
+            # Paged: the cache arrays are page pools [L, P + 1, ps, K, ...];
             # each token's position maps through its row's table to a
             # physical (page, offset) — decode (T == 1) and per-row chunk
             # windows alike. Dropped writes land in the sink page P,
             # which the read below never sees.
             pid, off = write_index
-            k_pool, v_pool = cache.k[layer_idx], cache.v[layer_idx]
-            k_pool[pid, off] = k.to(k_pool.dtype)
-            v_pool[pid, off] = v.to(v_pool.dtype)
+            for full, new in writes:
+                full[pid, off] = new.to(full.dtype)
             P = cache.num_pages
             attn = attn_ops.dot_product_attention(
-                q, k_pool[:P], v_pool[:P], page_table=page_table,
-                kv_lengths=kv_lengths)
+                q, k_full[:P], v_full[:P], page_table=page_table,
+                kv_lengths=kv_lengths,
+                **{name: t[:P] for name, t in scales.items()})
         elif cache is not None:
-            # In-place writes into the stacked [L, B, S, K, H] cache (the
+            # In-place writes into the stacked [L, B, S, K, ...] cache (the
             # reference donates the buffer and XLA updates it in place).
-            k_full, v_full = cache.k[layer_idx], cache.v[layer_idx]
-            if T == 1:
-                # Decode: this token's k/v at its row position; a full
-                # row's write at position S is dropped.
-                write_decode_rows(k_full, write_index, k[:, 0])
-                write_decode_rows(v_full, write_index, v[:, 0])
-            else:
-                # Prefill: contiguous write at offset 0.
-                k_full[:, :T] = k.to(k_full.dtype)
-                v_full[:, :T] = v.to(v_full.dtype)
-            attn = attn_ops.dot_product_attention(q, k_full, v_full,
-                                                  mask=mask)
+            for full, new in writes:
+                if T == 1:
+                    # Decode: this token's row at its position; a full
+                    # row's write at position S is dropped.
+                    write_decode_rows(full, write_index, new[:, 0])
+                else:
+                    # Prefill: a contiguous write at ``write_start`` (0,
+                    # or a long prompt's chunk offset in its row cache).
+                    full[:, write_start:write_start + T] = new.to(full.dtype)
+            attn = attn_ops.dot_product_attention(
+                q, k_full, v_full, mask=mask, **scales)
         else:
             attn = attn_ops.dot_product_attention(q, k, v, mask=mask)
         x = x + self.o(attn.reshape(B, T, N * H))
@@ -369,6 +440,7 @@ class DecoderModule(nn.Module):
         take: Optional[torch.Tensor] = None,  # [B]: only these rows' logits
         page_table: Optional[torch.Tensor] = None,  # [B, NP] (paged)
         kv_lengths: Optional[torch.Tensor] = None,  # [B] (paged)
+        write_start: int = 0,   # slab prefill write offset (long-fill chunks)
     ) -> torch.Tensor:
         """Logits [B, T, V] — or [B, V] at row ``take[b]`` of each batch
         row (the head runs only on the rows the caller keeps; per-row the
@@ -394,7 +466,7 @@ class DecoderModule(nn.Module):
         for i, layer in enumerate(self.layers):
             x = layer(x, positions, mask, cache, layer_idx=i, rope=rope,
                       write_index=write_index, page_table=page_table,
-                      kv_lengths=kv_lengths)
+                      kv_lengths=kv_lengths, write_start=write_start)
         x = self.final_norm(x)
         if take is not None:
             x = x[torch.arange(x.shape[0], device=x.device), take.long()]

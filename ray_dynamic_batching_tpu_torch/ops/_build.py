@@ -46,12 +46,13 @@ KERNELS: Dict[str, tuple] = {
     ),
     "decode_attention": (
         "rdb_decode_attention",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+         _P],
     ),
     "paged_decode_attention": (
         "rdb_paged_decode_attention",
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-         _P],
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+         _F, _I, _I, _P],
     ),
 }
 

@@ -17,6 +17,13 @@ Port of ``ray_dynamic_batching_tpu/ops/attention.py::dot_product_attention``
   counterpart of ``_xla_attention``, counted apart in
   :data:`plain_launches`.
 
+With ``k_scale``/``v_scale`` (the int8 KV cache: k/v hold codes) the
+routes stay the same: the two decode kernels read the codes and apply the
+scales inside their products; every other route dequantizes first
+(``models/decoder.py::dequantize_kv``, to the query dtype) and proceeds
+as without scales — on the paged read after gathering codes and scales
+through the clamped table.
+
 The reference's TPU-only declines — its VMEM budget, (8, 128) tile
 alignment and the Mosaic workarounds in ``flash_attention`` /
 ``_pick_sb`` — have no counterpart on the H100 and are not mirrored. On
@@ -60,7 +67,9 @@ def reset_counts() -> None:
     plain_launches = 0
     _flash.launches = 0
     _decode.launches = 0
+    _decode.int8_launches = 0
     _decode.paged_launches = 0
+    _decode.paged_int8_launches = 0
 
 
 def route(q_shape: Sequence[int], k_shape: Sequence[int], *,
@@ -118,31 +127,45 @@ def dot_product_attention(
     dividing N (grouped-query attention); mask broadcastable to
     [B, 1, Tq, Tk], True = attend.
 
+    ``k_scale``/``v_scale`` [B, Tk, K] f32: k/v are int8 KV-cache codes
+    (``models/decoder.py::KVCache``); both or neither.
+
     ``page_table`` [B, NP] + ``kv_lengths`` [B] switch to the paged read:
-    k/v are page pools [P, ps, K, H] shared by all slots, and window row
-    t attends logical positions <= kv_lengths + t."""
+    k/v are page pools [P, ps, K, H] shared by all slots (scales
+    [P, ps, K]), and window row t attends logical positions
+    <= kv_lengths + t."""
     global plain_launches
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("int8 KV attention needs both k_scale and v_scale")
     if page_table is not None:
         return _paged_attention(q, k, v, page_table, kv_lengths, mask=mask,
                                 scale=scale, k_scale=k_scale,
                                 v_scale=v_scale)
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 KV-cache attention (k_scale/v_scale) is not ported yet"
-        )
     which = route(q.shape, k.shape, causal=causal,
                   mask_shape=None if mask is None else mask.shape)
+    if k_scale is not None and which != "decode":
+        # Deferred import (the decoder imports this module): the dequant
+        # rule has one definition, beside the quantizer it inverts.
+        from ray_dynamic_batching_tpu_torch.models.decoder import (
+            dequantize_kv,
+        )
+
+        k = dequantize_kv(k, k_scale, q.dtype)
+        v = dequantize_kv(v, v_scale, q.dtype)
+        k_scale = v_scale = None
     if which != "plain" and _PLAIN.get():
         B, Tq, _, _ = q.shape
         Tk = k.shape[1]
         if which == "decode":
             return _decode.decode_attention_plain(
-                q, k, v, _flash.keep_mask(mask, B, Tq, Tk), scale=scale)
+                q, k, v, _flash.keep_mask(mask, B, Tq, Tk), scale=scale,
+                k_scale=k_scale, v_scale=v_scale)
         return _flash.flash_attention_plain(
             q, k, v, _flash.keep_mask(mask, B, Tq, Tk), causal=causal,
             scale=scale)
     if which == "decode":
-        return _decode.decode_attention(q, k, v, mask=mask, scale=scale)
+        return _decode.decode_attention(q, k, v, mask=mask, scale=scale,
+                                        k_scale=k_scale, v_scale=v_scale)
     if which == "flash":
         return _flash.flash_attention(q, k, v, causal=causal, mask=mask,
                                       scale=scale)
@@ -154,35 +177,37 @@ def dot_product_attention(
 def _paged_attention(q, k, v, page_table, kv_lengths, *, mask, scale,
                      k_scale, v_scale) -> torch.Tensor:
     """Paged read (reference ``attention.py:189-251``): the paged decode
-    kernel for small windows; otherwise gather the logical view through
-    the clamped table and re-enter :func:`dot_product_attention` with the
-    staircase window mask."""
+    kernel for small windows; otherwise gather the logical view (codes and
+    scales alike) through the clamped table and re-enter
+    :func:`dot_product_attention` with the staircase window mask."""
     if mask is not None:
         raise ValueError(
             "paged attention derives its window from kv_lengths; an "
             "explicit mask on this path means a caller mixed the slab "
             "and paged conventions"
         )
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 KV-cache attention (k_scale/v_scale) is not ported yet"
-        )
     from ray_dynamic_batching_tpu_torch.models.decoder import (
         paged_window_mask,
     )
 
+    scales = dict(k_scale=k_scale, v_scale=v_scale)
     if route(q.shape, k.shape, causal=False,
              page_table_shape=page_table.shape,
              lengths_shape=kv_lengths.shape) == "paged_decode":
         if _PLAIN.get():
             return _decode.paged_decode_attention_plain(
-                q, k, v, page_table, kv_lengths, scale=scale)
+                q, k, v, page_table, kv_lengths, scale=scale, **scales)
         return _decode.paged_decode_attention(q, k, v, page_table,
-                                              kv_lengths, scale=scale)
+                                              kv_lengths, scale=scale,
+                                              **scales)
     k_g = _decode.logical_view(k, page_table)
     v_g = _decode.logical_view(v, page_table)
+    if k_scale is not None:
+        scales = {name: _decode.logical_view(t, page_table)
+                  for name, t in scales.items()}
     win = paged_window_mask(kv_lengths, k_g.shape[1], q.shape[1])
-    return dot_product_attention(q, k_g, v_g, mask=win, scale=scale)
+    return dot_product_attention(q, k_g, v_g, mask=win, scale=scale,
+                                 **scales)
 
 
 def reference_attention(

@@ -27,9 +27,17 @@ skipped: once the running max is finite a fully masked tile adds exactly
 0, so the result is the one the full scan gives. Bound on the H100: the
 bytes of the K/V positions each slot attends.
 
-The int8-cache branches of the reference (``k_scale``/``v_scale``) are
-not ported: the port has no int8 KV cache yet, and both wrappers raise
-when scales are passed.
+**Int8 KV** — the reference's ``k_scale``/``v_scale`` branch of both
+kernels (``_scan_tile`` lines 142-167): k/v hold int8 codes and the
+scales are one f32 per cached (token, head) row, in the cache's own
+``[B, S, K]`` / ``[P, ps, K]`` layout (the reference transposes them to
+``[B, K, S]`` / ``[P, K, ps]`` for the TPU's lane tiling; the H100 has no
+reason to). The same kernels, instantiated for 1-byte K/V: codes are cast
+to the query type, scores are ``(q . codes) * scale * k_scale[key]``, the
+running sum takes the unscaled ``p``, and ``p * v_scale[key]`` is rounded
+to the query type before the PV product with the codes. They read half
+the bytes of a bf16 cache (plus 4 per row). Their launches are counted
+apart (:data:`int8_launches`, :data:`paged_int8_launches`).
 """
 
 from __future__ import annotations
@@ -51,10 +59,12 @@ MAX_WINDOW_FOR_KERNEL = 8
 PAGE_ALIGN = 128
 
 #: Slab-kernel launches since the last reset (plain-version calls do not
-#: count).
+#: count), bf16/f32 K/V and int8 K/V apart.
 launches = 0
+int8_launches = 0
 #: Paged-kernel launches since the last reset (likewise).
 paged_launches = 0
+paged_int8_launches = 0
 
 
 def decode_attention_plain(
@@ -64,64 +74,121 @@ def decode_attention_plain(
     mask: Optional[torch.Tensor] = None,
     *,
     scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """What the kernel computes, in PyTorch. q [B, Tq, N, H], k/v
     [B, S, K, H], mask int8 [B, Tq, S] (1 = attend) or None. Masked scores
     become NEG_INF and still enter the softmax (so a row with no attended
     key averages V, as in the reference kernel); f32 scores and softmax,
-    probabilities rounded to the input type before the PV product."""
+    probabilities rounded to the input type before the PV product.
+
+    With ``k_scale``/``v_scale`` [B, S, K] f32, k/v are int8 codes, cast
+    to q's type; the scores take ``scale * k_scale[key]`` after the dot,
+    the running sum takes the unscaled probabilities, and ``p *
+    v_scale[key]`` is what is rounded before the PV product (the
+    reference's ``_scan_tile``)."""
     B, Tq, N, H = q.shape
     _, S, K, _ = k.shape
     G = N // K
     scale = H ** -0.5 if scale is None else scale
     qg = q.reshape(B, Tq, K, G, H).float()
-    s = torch.einsum("btkgh,bskh->bktgs", qg, k.float()) * scale
+    kf, vf = k.to(q.dtype).float(), v.to(q.dtype).float()
+    s = torch.einsum("btkgh,bskh->bktgs", qg, kf) * scale
+    if k_scale is not None:
+        s = s * k_scale.permute(0, 2, 1)[:, :, None, None, :]
     if mask is not None:
         valid = (mask != 0)[:, None, :, None, :]          # [B, 1, Tq, 1, S]
         s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bktgs,bskh->bktgh", p.to(q.dtype).float(), v.float())
+    if v_scale is not None:
+        p = p * v_scale.permute(0, 2, 1)[:, :, None, None, :]
+    acc = torch.einsum("bktgs,bskh->bktgh", p.to(q.dtype).float(), vf)
     out = acc / torch.where(l == 0.0, torch.ones_like(l), l)
     return out.permute(0, 2, 1, 3, 4).reshape(B, Tq, N, H).to(q.dtype)
 
 
-def _launch(q, k, v, mask_i8, *, scale: float) -> torch.Tensor:
-    from ray_dynamic_batching_tpu_torch.ops import _build
+def _check_scales(k, k_scale, v_scale, what: str) -> None:
+    """Both scales or neither; with scales, k holds int8 codes and each
+    scale plane is f32 of k's shape without the head dim."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{what}: pass both k_scale and v_scale or neither")
+    if k_scale is None:
+        return
+    want = tuple(k.shape[:-1])
+    if k.dtype != torch.int8:
+        raise TypeError(f"{what}: scales given but k/v are {k.dtype}, "
+                        "not int8 codes")
+    for t in (k_scale, v_scale):
+        if tuple(t.shape) != want or t.dtype != torch.float32:
+            raise ValueError(f"{what}: scale planes must be f32 {want}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
 
-    global launches
+
+def _kernel_args(q, k, v, k_scale, v_scale, what: str):
+    """The checks both launches share: types, head dim, shared memory,
+    contiguity, one device and 16-byte alignment. Returns (q, k, v,
+    k_scale, v_scale) contiguous, the dtype code of q and the int8 flag."""
     B, Tq, N, H = q.shape
-    _, S, K, _ = k.shape
+    K = k.shape[2]
     if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"decode kernel: unsupported dtype {q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("decode kernel: q, k and v must share one dtype")
+        raise TypeError(f"{what}: unsupported dtype {q.dtype}")
+    int8 = k_scale is not None
+    if v.dtype != k.dtype or k.dtype != (torch.int8 if int8 else q.dtype):
+        raise TypeError(f"{what}: k and v must be q's dtype, or int8 codes "
+                        "with scales")
     if H not in (64, 128):
-        raise ValueError(f"decode kernel: head_dim {H} not in (64, 128)")
+        raise ValueError(f"{what}: head_dim {H} not in (64, 128)")
     R = Tq * (N // K)
-    smem = 4 * (R * (H + 1) + 64 * (H + 1) + 64 * H + R * 64 + R * H + 3 * R)
+    smem = 4 * (R * (H + 1) + 64 * (H + 1) + 64 * H + R * 64 + R * H + 3 * R
+                + 2 * 64)
     if smem > 227 * 1024:
-        raise ValueError(f"decode kernel: {R} window rows per KV head need "
+        raise ValueError(f"{what}: {R} window rows per KV head need "
                          f"{smem} bytes of shared memory (max 232448)")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     for t in (q, k, v):
         if t.device != q.device or t.data_ptr() % 16:
-            raise ValueError("decode kernel: inputs must be 16-byte aligned "
+            raise ValueError(f"{what}: q, k and v must be 16-byte aligned "
                              "tensors on one device")
+    if int8:
+        # Scales are read one f32 at a time: natural alignment suffices.
+        k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
+        if k_scale.device != q.device or v_scale.device != q.device:
+            raise ValueError(f"{what}: scales on another device")
+    return q, k, v, k_scale, v_scale, \
+        0 if q.dtype == torch.float32 else 1, int8
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(q, k, v, mask_i8, k_scale, v_scale, *, scale: float
+            ) -> torch.Tensor:
+    from ray_dynamic_batching_tpu_torch.ops import _build
+
+    global launches, int8_launches
+    B, Tq, N, H = q.shape
+    _, S, K, _ = k.shape
+    q, k, v, k_scale, v_scale, dtype, int8 = _kernel_args(
+        q, k, v, k_scale, v_scale, "decode kernel")
     if mask_i8 is not None and mask_i8.device != q.device:
         raise ValueError("decode kernel: mask on another device")
     out = torch.empty_like(q)
     lib = _build.load("decode_attention")
     rc = lib.rdb_decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        mask_i8.data_ptr() if mask_i8 is not None else None,
-        out.data_ptr(), B, Tq, S, N, K, H, float(scale),
-        0 if q.dtype == torch.float32 else 1,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
+        _ptr(v_scale), _ptr(mask_i8), out.data_ptr(), B, Tq, S, N, K, H,
+        float(scale), dtype, int(int8),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "decode_attention")
-    launches += 1
+    if int8:
+        int8_launches += 1
+    else:
+        launches += 1
     return out
 
 
@@ -140,12 +207,8 @@ def decode_attention(
     [B, 1, Tq, S]; other shapes raise (``ops/attention.route`` sends only
     these here — the reference's decline, decided before the call). CUDA
     tensors launch the kernel (or raise); CPU tensors run the plain
-    version."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "decode_attention: the int8 KV-cache branch (k_scale/v_scale) "
-            "is not ported yet"
-        )
+    version. ``k_scale``/``v_scale`` [B, S, K] f32 with int8 k/v: the
+    int8-cache branch."""
     B, Tq, N, H = q.shape
     _, S, K, _ = k.shape
     if not (1 <= Tq <= MAX_WINDOW_FOR_KERNEL):
@@ -153,19 +216,21 @@ def decode_attention(
     if K == 0 or N % K != 0 or v.shape != k.shape:
         raise ValueError(f"decode_attention: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    _check_scales(k, k_scale, v_scale, "decode_attention")
     mask_i8 = keep_mask(mask, B, Tq, S)
     scale = H ** -0.5 if scale is None else float(scale)
     if q.is_cuda:
-        return _launch(q, k, v, mask_i8, scale=scale)
-    return decode_attention_plain(q, k, v, mask_i8, scale=scale)
+        return _launch(q, k, v, mask_i8, k_scale, v_scale, scale=scale)
+    return decode_attention_plain(q, k, v, mask_i8, scale=scale,
+                                  k_scale=k_scale, v_scale=v_scale)
 
 
 def logical_view(pool: torch.Tensor, page_table: torch.Tensor
                   ) -> torch.Tensor:
     """Gather each slot's logical KV run [B, NP * ps, K, H] from a page
-    pool [P, ps, K, H] through ``page_table`` [B, NP], sentinel and stray
-    entries clamped to page P - 1 (the length bound masks whatever they
-    contribute)."""
+    pool [P, ps, K, H] (or its scales [B, NP * ps, K] from [P, ps, K])
+    through ``page_table`` [B, NP], sentinel and stray entries clamped to
+    page P - 1 (the length bound masks whatever they contribute)."""
     P, ps = pool.shape[0], pool.shape[1]
     B, NP = page_table.shape
     safe = torch.clamp(page_table.long(), max=P - 1)
@@ -180,62 +245,58 @@ def paged_decode_attention_plain(
     lengths: torch.Tensor,
     *,
     scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """What the paged kernel computes, in PyTorch: clamp the table, gather
-    the logical view, apply the staircase and the slab kernel's softmax
-    rule. q [B, Tq, N, H]; k/v pools [P, ps, K, H]; page_table [B, NP]
-    int32 (sentinel P); lengths [B]."""
+    the logical view (and the scales' with int8 pools), apply the
+    staircase and the slab kernel's softmax rule. q [B, Tq, N, H]; k/v
+    pools [P, ps, K, H]; page_table [B, NP] int32 (sentinel P); lengths
+    [B]; k_scale/v_scale [P, ps, K] f32 or None."""
     from ray_dynamic_batching_tpu_torch.models.decoder import (
         paged_window_mask,
     )
 
     k_g = logical_view(k, page_table)
     v_g = logical_view(v, page_table)
+    if k_scale is not None:
+        k_scale = logical_view(k_scale, page_table)
+        v_scale = logical_view(v_scale, page_table)
     B, Tq = q.shape[:2]
     S = k_g.shape[1]
     mask = keep_mask(paged_window_mask(lengths, S, Tq), B, Tq, S)
-    return decode_attention_plain(q, k_g, v_g, mask, scale=scale)
+    return decode_attention_plain(q, k_g, v_g, mask, scale=scale,
+                                  k_scale=k_scale, v_scale=v_scale)
 
 
-def _launch_paged(q, k, v, page_table, lengths, *, scale: float
-                  ) -> torch.Tensor:
+def _launch_paged(q, k, v, page_table, lengths, k_scale, v_scale, *,
+                  scale: float) -> torch.Tensor:
     from ray_dynamic_batching_tpu_torch.ops import _build
 
-    global paged_launches
+    global paged_launches, paged_int8_launches
     B, Tq, N, H = q.shape
     P, ps, K, _ = k.shape
     NP = page_table.shape[1]
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"paged decode kernel: unsupported dtype {q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("paged decode kernel: q, k and v must share one dtype")
-    if H not in (64, 128):
-        raise ValueError(f"paged decode kernel: head_dim {H} not in (64, 128)")
-    R = Tq * (N // K)
-    smem = 4 * (R * (H + 1) + 64 * (H + 1) + 64 * H + R * 64 + R * H + 3 * R)
-    if smem > 227 * 1024:
-        raise ValueError(f"paged decode kernel: {R} window rows per KV head "
-                         f"need {smem} bytes of shared memory (max 232448)")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v, k_scale, v_scale, dtype, int8 = _kernel_args(
+        q, k, v, k_scale, v_scale, "paged decode kernel")
     table = page_table.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
-    for t in (q, k, v, table, lens):
+    for t in (table, lens):
         if t.device != q.device:
             raise ValueError("paged decode kernel: inputs on another device")
-    for t in (q, k, v):
-        if t.data_ptr() % 16:
-            raise ValueError("paged decode kernel: q, k and v must be "
-                             "16-byte aligned")
     out = torch.empty_like(q)
     lib = _build.load("paged_decode_attention")
     rc = lib.rdb_paged_decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), B, Tq, N, K, H, P, ps, NP,
-        float(scale), 0 if q.dtype == torch.float32 else 1,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
+        _ptr(v_scale), table.data_ptr(), lens.data_ptr(), out.data_ptr(), B,
+        Tq, N, K, H, P, ps, NP, float(scale), dtype, int(int8),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "paged_decode_attention")
-    paged_launches += 1
+    if int8:
+        paged_int8_launches += 1
+    else:
+        paged_launches += 1
     return out
 
 
@@ -273,21 +334,20 @@ def paged_decode_attention(
     Window row t attends logical positions <= lengths[b] + t. Shapes
     outside :func:`paged_eligible` raise (``ops/attention.route`` sends
     only these here). CUDA tensors launch the kernel (or raise); CPU
-    tensors run the plain version."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "paged_decode_attention: the int8 KV-cache branch "
-            "(k_scale/v_scale) is not ported yet"
-        )
+    tensors run the plain version. ``k_scale``/``v_scale`` [P, ps, K] f32
+    with int8 pools: the int8-pool branch."""
     if not paged_eligible(q.shape, k.shape, v.shape, page_table.shape,
                           lengths.shape):
         raise ValueError(
             f"paged_decode_attention: q {tuple(q.shape)}, pools "
             f"{tuple(k.shape)}, table {tuple(page_table.shape)}, lengths "
             f"{tuple(lengths.shape)} are not the paged decode pattern")
+    _check_scales(k, k_scale, v_scale, "paged_decode_attention")
     H = q.shape[3]
     scale = H ** -0.5 if scale is None else float(scale)
     if q.is_cuda:
-        return _launch_paged(q, k, v, page_table, lengths, scale=scale)
+        return _launch_paged(q, k, v, page_table, lengths, k_scale, v_scale,
+                             scale=scale)
     return paged_decode_attention_plain(q, k, v, page_table, lengths,
-                                        scale=scale)
+                                        scale=scale, k_scale=k_scale,
+                                        v_scale=v_scale)

@@ -9,9 +9,11 @@ request queue is the replica's admission queue.
 
 This slice serves one length bucket with an explicit ``num_slots``, on a
 slab cache (the default) or the paged pool (``paged=True``: token-budget
-chunked prefill by default, so prompts longer than the largest bucket are
-served as multi-chunk trains); the reference's auto-sizing (HBM model,
-measured tables), length buckets, speculative drafts, checkpoints and
+chunked prefill by default), in the model dtype or with the int8 KV cache
+(``quantize_kv=True``). Prompts longer than the largest bucket are served
+as multi-chunk trains (paged + chunked) or through the long fill (the
+monolithic arms). The reference's auto-sizing (HBM model, measured
+tables), length buckets, speculative drafts, checkpoints and weight
 quantisation come later.
 
 Payload contract (as the reference)::
@@ -190,7 +192,9 @@ class LLMDeployment:
 
     ``device`` defaults to ``"cuda"`` (raising without CUDA); the CPU runs
     only with ``device="cpu"``. Without an injected ``model`` the weights
-    are random, drawn on the device from ``seed``."""
+    are random, drawn on the device from ``seed``. ``quantize_kv=True``
+    builds the model with ``kv_dtype=torch.int8``; an injected model must
+    already have it."""
 
     def __init__(
         self,
@@ -214,6 +218,7 @@ class LLMDeployment:
         kv_pool_pages: Optional[int] = None,
         chunked_prefill: Optional[bool] = None,
         prefill_token_budget: Optional[int] = None,
+        quantize_kv: bool = False,
     ) -> None:
         if num_slots <= 0:
             raise ValueError(
@@ -239,6 +244,9 @@ class LLMDeployment:
         self.kv_pool_pages = kv_pool_pages
         self.chunked_prefill = chunked_prefill
         self.prefill_token_budget = prefill_token_budget
+        # int8 KV cache: codes + per-(token, head) f32 scales, half the
+        # bytes per slot (models/decoder.py::quantize_kv_rows).
+        self.quantize_kv = bool(quantize_kv)
         self._dtype = dtype
         self._model = model
         self._init_lock = threading.Lock()
@@ -251,7 +259,20 @@ class LLMDeployment:
                 kwargs = {"device": self.device, "seed": self.seed}
                 if self._dtype is not None:
                     kwargs["dtype"] = self._dtype
+                if self.quantize_kv:
+                    kwargs["kv_dtype"] = torch.int8
                 self._model = registry.get_model(self.model_name, **kwargs)
+            elif self.quantize_kv and getattr(
+                    self._model, "kv_dtype", None) != torch.int8:
+                # An injected model owns its cache dtype; serving a
+                # full-precision cache while the operator believes int8 is
+                # on would skew every memory and slot-count decision.
+                raise ValueError(
+                    "quantize_kv=True but the injected model was not built "
+                    "with kv_dtype=int8 — construct it with CausalLM(..., "
+                    "kv_dtype=torch.int8) or pass model_name and let the "
+                    "deployment build it"
+                )
             return self._model
 
     def build_engine(self, queue: RequestQueue,

@@ -126,11 +126,20 @@ class TestDecodePlainVsJaxKernel:
         k = torch.zeros((1, 64, 2, 32))
         with pytest.raises(ValueError, match="window"):
             t_decode.decode_attention(q, k, k)   # Tq > 8: route says plain
+        # Scales come in pairs, with int8 codes, in k's shape minus H.
         q1 = q[:, :1]
-        with pytest.raises(NotImplementedError, match="int8"):
+        codes = k.to(torch.int8)
+        with pytest.raises(ValueError, match="both"):
+            t_decode.decode_attention(q1, codes, codes,
+                                      k_scale=torch.ones((1, 64, 2)))
+        with pytest.raises(TypeError, match="int8 codes"):
             t_decode.decode_attention(q1, k, k,
                                       k_scale=torch.ones((1, 64, 2)),
                                       v_scale=torch.ones((1, 64, 2)))
+        with pytest.raises(ValueError, match="scale planes"):
+            t_decode.decode_attention(q1, codes, codes,
+                                      k_scale=torch.ones((1, 2, 64)),
+                                      v_scale=torch.ones((1, 2, 64)))
 
 
 # (Tq, causal, mask kind) -> the route the JAX dispatcher takes on its
@@ -263,11 +272,15 @@ class TestPagedPlainVsJaxKernel:
         pool = torch.zeros((4, 128, 2, 32))
         table = torch.zeros((1, 2), dtype=torch.int32)
         lens = torch.zeros((1,), dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match="int8"):
+        with pytest.raises(TypeError, match="int8 codes"):
             t_decode.paged_decode_attention(
                 q, pool, pool, table, lens,
                 k_scale=torch.ones((4, 128, 2)),
                 v_scale=torch.ones((4, 128, 2)))
+        codes = pool.to(torch.int8)
+        with pytest.raises(ValueError, match="both"):
+            t_decode.paged_decode_attention(
+                q, codes, codes, table, lens, v_scale=torch.ones((4, 128, 2)))
         with pytest.raises(ValueError, match="paged decode pattern"):
             t_decode.paged_decode_attention(torch.zeros((1, 9, 4, 32)), pool,
                                             pool, table, lens)

@@ -4,8 +4,10 @@ Marked ``cuda``: without a card each test skips (decided inside the
 test, never at import). Shapes cover what ``chip_smoke.py`` does not:
 ragged KV tails, causal prefill with a diagonal offset, head_dim 64,
 wide decode windows, and for the paged kernel ragged lengths, sentinel
-tails, Tq 1..8 staircases and shuffled pools. This file imports no JAX, so it runs on a machine
-without it::
+tails, Tq 1..8 staircases and shuffled pools — and the int8-KV branch of
+both decode kernels at the same shapes (int8 codes, f32 scales, q in f32
+and bf16). This file imports no JAX, so it runs on a machine without
+it::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -16,7 +18,10 @@ Tolerance: f32 1e-4 (the same math summed in another order), bf16 2e-2
 import pytest
 import torch
 
-from ray_dynamic_batching_tpu_torch.models.decoder import paged_window_mask
+from ray_dynamic_batching_tpu_torch.models.decoder import (
+    paged_window_mask,
+    quantize_kv_rows,
+)
 from ray_dynamic_batching_tpu_torch.ops import decode_attention as dec
 from ray_dynamic_batching_tpu_torch.ops import flash_attention as fl
 
@@ -159,6 +164,96 @@ def test_slab_and_paged_kernels_agree_on_one_run(card):
     assert torch.equal(paged, slab)
 
 
+def _int8(gen, shape, dev):
+    """int8 codes and f32 scales of random rows (the cache's write rule)."""
+    return quantize_kv_rows(torch.randn(shape, generator=gen, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Tq,S,N,K,H", [
+    (3, 1, 100, 16, 16, 64),    # gpt2 geometry, ragged S tail
+    (2, 8, 256, 32, 8, 128),    # widest window: 32 rows per KV head
+    (4, 5, 130, 8, 2, 128),
+])
+def test_decode_kernel_int8_matches_plain(card, dtype, B, Tq, S, N, K, H):
+    gen = torch.Generator(device=card).manual_seed(S + Tq + 1)
+    q = _rand(gen, (B, Tq, N, H), dtype, card)
+    k, ks = _int8(gen, (B, S, K, H), card)
+    v, vs = _int8(gen, (B, S, K, H), card)
+    lengths = torch.randint(0, S - Tq, (B,), generator=gen, device=card)
+    pos = torch.arange(S, device=card)
+    mask = (pos[None, None, None, :]
+            <= (lengths[:, None] + torch.arange(Tq, device=card))[:, None, :,
+                                                                  None])
+    mask[0] = False                     # no attended key: averages scaled V
+    before = dec.int8_launches, dec.launches
+    out = dec.decode_attention(q, k, v, mask=mask, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert (dec.int8_launches, dec.launches) == (before[0] + 1, before[1])
+    ref = dec.decode_attention_plain(q, k, v, fl.keep_mask(mask, B, Tq, S),
+                                     k_scale=ks, v_scale=vs)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+def _paged_int8(gen, B, Tq, N, K, H, P, ps, NP, dtype, dev):
+    q, k, v, table, lengths = _paged(gen, B, Tq, N, K, H, P, ps, NP, dtype,
+                                     dev)
+    k, ks = quantize_kv_rows(k.float())
+    v, vs = quantize_kv_rows(v.float())
+    return q, k, v, ks, vs, table, lengths
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Tq,N,K,H,ps,NP", [
+    (4, 1, 32, 8, 128, 128, 4),     # llama3_8b geometry, decode
+    (3, 8, 32, 8, 128, 128, 3),     # widest window: 32 rows per KV head
+    (5, 3, 16, 16, 64, 256, 2),     # MHA, head_dim 64, 256-token pages
+    (2, 5, 8, 2, 64, 128, 5),
+])
+def test_paged_kernel_int8_matches_plain(card, dtype, B, Tq, N, K, H, ps,
+                                         NP):
+    gen = torch.Generator(device=card).manual_seed(B * 100 + Tq + 1)
+    q, k, v, ks, vs, table, lengths = _paged_int8(
+        gen, B, Tq, N, K, H, B * NP + 3, ps, NP, dtype, card)
+    before = dec.paged_int8_launches, dec.paged_launches
+    out = dec.paged_decode_attention(q, k, v, table, lengths, k_scale=ks,
+                                     v_scale=vs)
+    torch.cuda.synchronize()
+    assert (dec.paged_int8_launches, dec.paged_launches) == (
+        before[0] + 1, before[1])
+    ref = dec.paged_decode_attention_plain(q, k, v, table, lengths,
+                                           k_scale=ks, v_scale=vs)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+def test_slab_and_paged_int8_kernels_agree_on_one_run(card):
+    """The shared tile body with int8 codes: a slab cache and its scales
+    cut into shuffled pages give bit-identical outputs through both
+    kernels."""
+    gen = torch.Generator(device=card).manual_seed(8)
+    B, Tq, S, N, K, H, ps = 3, 4, 512, 32, 8, 128, 128
+    q = _rand(gen, (B, Tq, N, H), torch.bfloat16, card)
+    k, ks = _int8(gen, (B, S, K, H), card)
+    v, vs = _int8(gen, (B, S, K, H), card)
+    lengths = torch.tensor([0, 200, S - Tq], dtype=torch.int32, device=card)
+    perm = torch.randperm(B * S // ps, generator=gen, device=card)
+    table = perm.reshape(B, S // ps).to(torch.int32)
+    flat = table.long().reshape(-1)
+
+    def pages(x):
+        out = torch.empty((B * S // ps, ps) + tuple(x.shape[2:]),
+                          dtype=x.dtype, device=card)
+        out[flat] = x.reshape((-1, ps) + tuple(x.shape[2:]))
+        return out
+
+    paged = dec.paged_decode_attention(q, pages(k), pages(v), table, lengths,
+                                       k_scale=pages(ks), v_scale=pages(vs))
+    slab = dec.decode_attention(q, k, v,
+                                mask=paged_window_mask(lengths, S, Tq),
+                                k_scale=ks, v_scale=vs)
+    assert torch.equal(paged, slab)
+
+
 def test_kernels_refuse_what_they_do_not_take(card):
     q = torch.zeros((1, 16, 4, 96), device=card)
     with pytest.raises(ValueError, match="head_dim"):
@@ -171,3 +266,12 @@ def test_kernels_refuse_what_they_do_not_take(card):
     lens = torch.zeros((1,), dtype=torch.int32, device=card)
     with pytest.raises(TypeError, match="dtype"):
         dec.paged_decode_attention(h, pool.half(), pool.half(), table, lens)
+    # int8 codes without scales, and scales on another device.
+    q1 = torch.zeros((1, 1, 4, 64), device=card)
+    codes = pool.to(torch.int8)
+    with pytest.raises(TypeError, match="int8 codes with scales"):
+        dec.paged_decode_attention(q1, codes, codes, table, lens)
+    scales = torch.ones((4, 128, 2))
+    with pytest.raises(ValueError, match="another device"):
+        dec.paged_decode_attention(q1, codes, codes, table, lens,
+                                   k_scale=scales, v_scale=scales)
