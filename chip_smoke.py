@@ -12,14 +12,21 @@ last line:
    each, in parallel);
 3. kernels — each kernel against its plain PyTorch version at the main
    paths' shapes, in bf16 and f32 (the paged kernel also at a Tq = 4
-   staircase window in f32), and the int8-KV branch of both decode
-   kernels (int8 codes + f32 scales, q in bf16 and f32): max abs error
-   against the stated tolerance, median CUDA-event times of kernel /
-   plain version / a PyTorch yardstick never used by the port (one
+   staircase window in f32; flash also at a paged chunk deep in a long
+   prompt, q [2, 64, 32, 128] over 512 positions with 3 and 5 live KV
+   tiles), and the int8-KV branch of both decode kernels (int8 codes +
+   f32 scales, q in bf16 and f32): max abs error against the stated
+   tolerance, median CUDA-event times of kernel / plain version / a
+   PyTorch yardstick never used by the port (one
    ``F.scaled_dot_product_attention`` call for flash and slab decode;
    gather + SDPA, 3 calls, for the paged kernel; dequantize + SDPA, 3
    calls, and gather + dequantize + SDPA, 7 calls, for the int8
-   branches), and the bound from bytes and FLOPs;
+   branches), and the bound from bytes and FLOPs over what the call's
+   data needs: the K/V of the positions some window row attends (kernels
+   1 and 2 skip the 64-key tiles no row attends; kernel 3 the tiles past
+   each length). The masked kernels are timed on the int8 keep-mask they
+   read; their time with the wrapper's cast of the boolean mask, and the
+   dense bound (every position of k and v read), are printed beside;
 4. parity — llama3_8b at full width, 2 layers, f32, with the model's own
    cache and with the int8 KV cache: slab ``prefill`` then one
    ``decode_step``, and paged ``prefill_chunk_paged`` (a W = 64 and a
@@ -173,7 +180,36 @@ def _prefill_inputs(dtype, gen, rng):
     attn = (torch.arange(T, device=dev)[None, :] < lengths[:, None]).int()
     mask = torch.cat([prefill_mask(attn), torch.zeros(
         (NB, 1, T, S - T), dtype=torch.bool, device=dev)], dim=-1)
-    return dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype), mask=mask)
+    return _with_keep_mask(dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype),
+                                mask=mask))
+
+
+def _with_keep_mask(x):
+    """Beside the boolean mask, the int8 keep-mask [B, Tq, S] the kernels
+    read, made once: the kernel rows are timed on it, so ``ms`` is the
+    kernel's own time; ``ms_bool_mask`` also counts the wrapper's cast of
+    the boolean mask, one more small kernel per call."""
+    from ray_dynamic_batching_tpu_torch.ops import flash_attention as fl
+
+    B, Tq = x["q"].shape[:2]
+    return dict(x, keep=fl.keep_mask(x["mask"], B, Tq, x["k"].shape[1]))
+
+
+def _paged_chunk_inputs(dtype, gen, rng):
+    """A paged chunk deep in a long prompt, as the paged arm's flash call
+    sees it: q [2, 64, 32, 128] over the gathered view k/v [2, 512, 8, 128]
+    with the staircase of lengths 128 and 256 (3 and 5 live KV tiles)."""
+    from ray_dynamic_batching_tpu_torch.models.decoder import (
+        paged_window_mask,
+    )
+
+    dev = "cuda"
+    q = torch.randn((2, T, N_HEADS, HEAD_DIM), generator=gen, device=dev)
+    k = torch.randn((2, S, KV_HEADS, HEAD_DIM), generator=gen, device=dev)
+    v = torch.randn((2, S, KV_HEADS, HEAD_DIM), generator=gen, device=dev)
+    mask = paged_window_mask(torch.tensor([128, 256], device=dev), S, T)
+    return _with_keep_mask(dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype),
+                                mask=mask))
 
 
 def _decode_inputs(dtype, gen, rng):
@@ -184,8 +220,8 @@ def _decode_inputs(dtype, gen, rng):
     k = torch.randn((SLOTS, S, KV_HEADS, HEAD_DIM), generator=gen, device=dev)
     v = torch.randn((SLOTS, S, KV_HEADS, HEAD_DIM), generator=gen, device=dev)
     lengths = torch.randint(40, S - 1, (SLOTS,), generator=gen, device=dev)
-    return dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype),
-                mask=decode_mask(lengths, S))
+    return _with_keep_mask(dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype),
+                                mask=decode_mask(lengths, S)))
 
 
 def _quantized(x):
@@ -242,13 +278,29 @@ def _scales(x) -> list:
     return [x[n] for n in ("ks", "vs") if n in x]
 
 
-def _dense_cost(x, tq, batch) -> tuple:
+def _dense_cost(x) -> tuple:
     """Bytes (q, k, v, the scales of int8 k/v, out once each, the int8
     mask one byte an entry) and FLOPs (4 B N Tq S H) of a dense-window
-    kernel call."""
-    nbytes = (_nbytes(x["q"], x["k"], x["v"], x["q"], *_scales(x))
-              + batch * tq * S)
-    return nbytes, 4 * batch * N_HEADS * tq * S * HEAD_DIM
+    call, printed beside the recount over attended positions."""
+    B, tq = x["q"].shape[:2]
+    Tk = x["k"].shape[1]
+    nbytes = _nbytes(x["q"], x["k"], x["v"], x["q"], *_scales(x), x["keep"])
+    return nbytes, 4 * B * N_HEADS * tq * Tk * HEAD_DIM
+
+
+def _masked_cost(x) -> tuple:
+    """What this call's data needs (kernels 1 and 2): the K/V (and, int8,
+    the scales) of the positions that at least one window row attends,
+    read once, plus q, out and the int8 mask; FLOPs 4 N H per attended
+    (row, key) pair. The kernels skip the 64-key tiles no row attends."""
+    keep = x["keep"] != 0                               # [B, Tq, Tk]
+    positions = int(keep.any(dim=1).sum().item())
+    pairs = int(keep.sum().item())
+    kv_elt = KV_HEADS * HEAD_DIM * x["k"].element_size()
+    if "ks" in x:
+        kv_elt += KV_HEADS * 4
+    nbytes = 2 * positions * kv_elt + 2 * _nbytes(x["q"]) + _nbytes(x["keep"])
+    return nbytes, 4 * N_HEADS * HEAD_DIM * pairs
 
 
 def _paged_cost(x) -> tuple:
@@ -305,24 +357,30 @@ def _kernel_specs():
             replaces="ray_dynamic_batching_tpu/ops/flash_attention.py:154",
             inputs=_prefill_inputs,
             kernel=lambda x: fl.flash_attention(x["q"], x["k"], x["v"],
-                                                mask=x["mask"]),
+                                                mask=x["keep"][:, None]),
+            kernel_bool_mask=lambda x: fl.flash_attention(
+                x["q"], x["k"], x["v"], mask=x["mask"]),
             plain=lambda x: fl.flash_attention_plain(
-                x["q"], x["k"], x["v"], fl.keep_mask(x["mask"], NB, T, S)),
+                x["q"], x["k"], x["v"], x["keep"]),
             library=lambda x: _sdpa(x["q"], x["k"], x["v"], x["mask"]),
             yardstick=None,
-            cost=lambda x: _dense_cost(x, T, NB),
+            cost=_masked_cost,
+            # A paged chunk deep in a long prompt (3 and 5 live tiles).
+            serving_case=("paged_chunk", _paged_chunk_inputs),
         ),
         "decode_attention": dict(
             source="ray_dynamic_batching_tpu_torch/csrc/decode_attention.cu",
             replaces="ray_dynamic_batching_tpu/ops/decode_attention.py:238",
             inputs=_decode_inputs,
             kernel=lambda x: dec.decode_attention(x["q"], x["k"], x["v"],
-                                                  mask=x["mask"]),
+                                                  mask=x["keep"][:, None]),
+            kernel_bool_mask=lambda x: dec.decode_attention(
+                x["q"], x["k"], x["v"], mask=x["mask"]),
             plain=lambda x: dec.decode_attention_plain(
-                x["q"], x["k"], x["v"], fl.keep_mask(x["mask"], SLOTS, 1, S)),
+                x["q"], x["k"], x["v"], x["keep"]),
             library=lambda x: _sdpa(x["q"], x["k"], x["v"], x["mask"]),
             yardstick=None,
-            cost=lambda x: _dense_cost(x, 1, SLOTS),
+            cost=_masked_cost,
         ),
         "paged_decode_attention": dict(
             source=("ray_dynamic_batching_tpu_torch/csrc/"
@@ -346,14 +404,17 @@ def _kernel_specs():
             replaces="ray_dynamic_batching_tpu/ops/decode_attention.py:268",
             inputs=_int8_decode_inputs,
             kernel=lambda x: dec.decode_attention(
+                x["q"], x["k"], x["v"], mask=x["keep"][:, None], k_scale=x["ks"],
+                v_scale=x["vs"]),
+            kernel_bool_mask=lambda x: dec.decode_attention(
                 x["q"], x["k"], x["v"], mask=x["mask"], k_scale=x["ks"],
                 v_scale=x["vs"]),
             plain=lambda x: dec.decode_attention_plain(
-                x["q"], x["k"], x["v"], fl.keep_mask(x["mask"], SLOTS, 1, S),
-                k_scale=x["ks"], v_scale=x["vs"]),
+                x["q"], x["k"], x["v"], x["keep"], k_scale=x["ks"],
+                v_scale=x["vs"]),
             library=None,       # no one PyTorch call reads int8 codes
             yardstick=(_dequant_sdpa, "dequantize + sdpa (3 calls)"),
-            cost=lambda x: _dense_cost(x, 1, SLOTS),
+            cost=_masked_cost,
         ),
         "paged_decode_attention_int8": dict(
             source=("ray_dynamic_batching_tpu_torch/csrc/"
@@ -374,6 +435,60 @@ def _kernel_specs():
     }
 
 
+def _check(name: str, tag: str, sp, x, dtype) -> float:
+    """The kernel against its plain version on ``x``: max abs error, held
+    to the dtype's tolerance (fails the run past it)."""
+    out = sp["kernel"](x)
+    torch.cuda.synchronize()
+    ref = sp["plain"](x)
+    err = (out.float() - ref.float()).abs().max().item()
+    if not torch.isfinite(out.float()).all():
+        fail(f"{name} {tag}: non-finite output")
+    print(f"[kernels] {name} {tag} q{tuple(x['q'].shape)} "
+          f"k{tuple(x['k'].shape)}: max_abs_err {err:.3e} "
+          f"(tol {TOL[dtype]:.0e})", flush=True)
+    if not err <= TOL[dtype]:
+        fail(f"{name} {tag}: max_abs_err {err} > {TOL[dtype]}")
+    return err
+
+
+def _timed(sp, x, dtype) -> dict:
+    """Kernel, plain, library / yardstick times and the bounds of one bf16
+    case: the bound over what the call needs, and (kernels 1 and 2) the
+    dense bound (every position read)."""
+    nbytes, flops = sp["cost"](x)
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    row = dict(ms=time_ms(lambda: sp["kernel"](x)),
+               plain_ms=time_ms(lambda: sp["plain"](x)),
+               library_ms=(time_ms(lambda: sp["library"](x))
+                           if sp["library"] else None),
+               bound_ms=b_ms, bound_by=b_by, bound_mb=nbytes / 1e6)
+    if "kernel_bool_mask" in sp:
+        row["ms_bool_mask"] = time_ms(lambda: sp["kernel_bool_mask"](x))
+    if sp["cost"] is _masked_cost:
+        d_bytes, d_flops = _dense_cost(x)
+        row["dense_bound_ms"], _ = bound(d_bytes, d_flops, dtype)
+    if sp["yardstick"] is not None:
+        fn, row["yardstick"] = sp["yardstick"]
+        row["yardstick_ms"] = time_ms(lambda: fn(x))
+    return row
+
+
+def _print_times(name: str, row: dict) -> None:
+    lib = (f"sdpa {row['library_ms']:.4f} ms"
+           if row["library_ms"] is not None else
+           f"{row['yardstick']} {row['yardstick_ms']:.4f} ms")
+    extra = ""
+    if "ms_bool_mask" in row:
+        extra += f" ({row['ms_bool_mask']:.4f} ms with the bool-mask cast)"
+    dense = ""
+    if "dense_bound_ms" in row:
+        dense = f"; dense bound {row['dense_bound_ms']:.4f} ms"
+    print(f"[kernels] {name} bf16: kernel {row['ms']:.4f} ms{extra}, plain "
+          f"{row['plain_ms']:.4f} ms, {lib}, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}, {row['bound_mb']:.1f} MB){dense}", flush=True)
+
+
 def phase_kernels() -> dict:
     from ray_dynamic_batching_tpu_torch.ops import attention
 
@@ -389,47 +504,37 @@ def phase_kernels() -> dict:
             make = sp["inputs"]
             x = make(dtype, gen, rng) if tq is None else make(dtype, gen,
                                                              rng, tq)
-            out = sp["kernel"](x)
-            torch.cuda.synchronize()
-            ref = sp["plain"](x)
-            err = (out.float() - ref.float()).abs().max().item()
-            if not torch.isfinite(out.float()).all():
-                fail(f"{name} {dtype}: non-finite output")
             tag = "bf16" if dtype == torch.bfloat16 else "f32"
             if tq is not None:
                 tag += f" Tq={tq}"
-            print(f"[kernels] {name} {tag} q{tuple(x['q'].shape)} "
-                  f"k{tuple(x['k'].shape)}: max_abs_err {err:.3e} "
-                  f"(tol {TOL[dtype]:.0e})", flush=True)
-            if not err <= TOL[dtype]:
-                fail(f"{name} {tag}: max_abs_err {err} > {TOL[dtype]}")
+            err = _check(name, tag, sp, x, dtype)
             if tq is not None:
                 row[f"max_abs_err_f32_tq{tq}"] = err
                 continue
             if dtype == torch.float32:
                 row["max_abs_err_f32"] = err
                 continue
-            nbytes, flops = sp["cost"](x)
-            b_ms, b_by = bound(nbytes, flops, dtype)
             row.update(
                 dtype="bfloat16",
                 kv_dtype=str(x["k"].dtype).replace("torch.", ""),
                 q_shape=list(x["q"].shape), kv_shape=list(x["k"].shape),
-                max_abs_err=err,
-                ms=time_ms(lambda: sp["kernel"](x)),
-                plain_ms=time_ms(lambda: sp["plain"](x)),
-                library_ms=(time_ms(lambda: sp["library"](x))
-                            if sp["library"] else None),
-                bound_ms=b_ms, bound_by=b_by,
-            )
-            if sp["yardstick"] is not None:
-                fn, row["yardstick"] = sp["yardstick"]
-                row["yardstick_ms"] = time_ms(lambda: fn(x))
-            lib = (f"sdpa {row['library_ms']:.4f} ms" if sp["library"] else
-                   f"{row['yardstick']} {row['yardstick_ms']:.4f} ms")
-            print(f"[kernels] {name} bf16: kernel {row['ms']:.4f} ms, plain "
-                  f"{row['plain_ms']:.4f} ms, {lib}, bound {b_ms:.4f} ms "
-                  f"({b_by}, {nbytes / 1e6:.1f} MB)", flush=True)
+                max_abs_err=err, **_timed(sp, x, dtype))
+            _print_times(name, row)
+        if "serving_case" in sp:
+            case, make = sp["serving_case"]
+            for dtype in (torch.float32, torch.bfloat16):
+                x = make(dtype, gen, rng)
+                tag = ("bf16" if dtype == torch.bfloat16 else "f32") + \
+                    f" {case}"
+                err = _check(name, tag, sp, x, dtype)
+                if dtype == torch.float32:
+                    row[f"{case}_max_abs_err_f32"] = err
+                    continue
+                sub = dict(q_shape=list(x["q"].shape),
+                           kv_shape=list(x["k"].shape), max_abs_err=err,
+                           **_timed(sp, x, dtype))
+                _print_times(f"{name} {case}", sub)
+                row.update({f"{case}_{k}": v for k, v in sub.items()})
         results[name] = row
     attention.reset_counts()   # comparison launches do not count
     return results

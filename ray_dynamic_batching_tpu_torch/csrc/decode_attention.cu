@@ -1,4 +1,4 @@
-// Slab decode attention for Hopper (sm_90a), plain FMA version.
+// Slab decode attention for Hopper (sm_90a): split-S with in-launch merge.
 //
 // Replaces ray_dynamic_batching_tpu/ops/decode_attention.py::_decode_attention
 // (Pallas bodies _decode_kernel + _scan_tile): a fused KV scan for a small
@@ -12,21 +12,33 @@
 // Layouts: q/out [B, Tq, N, H]; k/v [B, S, K, H]; scales [B, S, K] (the
 // cache's own layout: key pos of KV head kvh at (b * S + pos) * K + kvh);
 // all contiguous.
-// Grid (K, B): one block per (slot, KV head). All G = N / K query heads of
-// that KV head, times the Tq window rows (rows ordered (t, g), R = Tq * G),
-// ride one read of each K/V tile — GQA by layout, no repeat of the cache.
-// A sequential loop over S tiles inside the block carries (m, l, acc) in
-// shared memory; it replaces the TPU's sequential ("arbitrary") grid axis.
-// The per-tile scan and its softmax rule are rdb::DecodeScan (common.cuh),
-// shared with the paged kernel; here a tile is 64 consecutive slab rows and
-// validity comes from the int8 mask.
 //
-// What bounds it on the H100: the bytes of K/V (every step reads the whole
-// slot capacity; an int8 cache halves them, plus 4 bytes of scale per
-// (key, head) row). This version stages each tile with 16-byte loads into
-// shared memory (widened to f32 there); splitting S across blocks (more
-// loads in flight per slot) and keeping K/V narrow in shared memory are
-// the later speed-ups.
+// What bounds it on the H100: the bytes of the K/V positions that some
+// window row attends (plus their scales), read once. With one block per
+// (slot, KV head) walking all S positions, 128 blocks at the main shape
+// would leave most SMs one block and the card mostly waiting. This design:
+//
+// - Grid (splits, K, B): a block per 128 logical positions of one
+//   (slot, KV head); all G = N / K query heads times the Tq window rows
+//   (R = Tq * G rows, ordered (t, g)) ride one read of each K/V tile —
+//   GQA by layout. 512 blocks at the main shape.
+// - Every block reads its slot's window mask row (Tq x S bytes) first
+//   and marks the 64-key tiles that some row attends; it skips the void
+//   tiles and the splits with none, and reads its own split's mask bytes
+//   into shared memory for the scores. When some row attends no key at
+//   all, nothing is skipped, so that row gets the reference's mean of V.
+// - Live tiles are staged narrow with cp.async, all issued before the
+//   first is computed; the products run on the tensor cores for a bf16
+//   query; the scan and the merge of the splits are rdb::DecodeScan
+//   (common.cuh), shared with the paged kernel.
+//
+// Measured at the main shape on an H100 (700 W; chip_smoke.py phase 3,
+// PERF.md): 0.0157 ms against a bound of 0.0050 ms over the attended
+// positions, about 3x.
+// What is left is the chain of one block — the mask read, its tiles'
+// loads, two tiles' products and, for slots of several splits, the
+// partial write, the arrival and the merge's two rounds of loads — more
+// than the bytes.
 
 #include "common.cuh"
 
@@ -37,72 +49,161 @@ __global__ void __launch_bounds__(rdb::DecodeScan<T, TK, H>::THREADS)
 decode_kernel(const T* __restrict__ q, const TK* __restrict__ k,
               const TK* __restrict__ v, const float* __restrict__ k_scale,
               const float* __restrict__ v_scale,
-              const int8_t* __restrict__ mask, T* __restrict__ out, int Tq,
-              int S, int N, int K, float scale) {
+              const int8_t* __restrict__ mask, T* __restrict__ out,
+              float* __restrict__ ws, int* __restrict__ cnt, int Tq, int S,
+              int N, int K, float scale) {
   using Scan = rdb::DecodeScan<T, TK, H>;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int G = N / K;
   Scan scan(smem, Tq * G, G);
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  scan.begin(q, b, Tq, N, kvh);
+  const int split = blockIdx.x;
+  const int nsplit = gridDim.x;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int ntiles = (S + Scan::BS - 1) / Scan::BS;
+  const int p0 = split * Scan::SPLIT;            // first position of the split
+
+  // Caller's shared bytes: this split's mask [Tq][SPLIT], then one flag
+  // per tile of the slot, one per window row and one per split.
+  int8_t* ms = reinterpret_cast<int8_t*>(scan.extra);
+  unsigned char* live = scan.extra + Tq * Scan::SPLIT;
+  unsigned char* row_any = live + ntiles;
+  unsigned char* split_flags = row_any + Tq;
+  bool all_live = mask == nullptr;
+  if (mask != nullptr) {
+    const int8_t* mb = mask + static_cast<size_t>(b) * Tq * S;
+    // The first chunk's load is in flight across the barrier that
+    // publishes the zeroed flags.
+    const bool vec = S % 16 == 0;  // 16-byte chunks never straddle rows or tiles
+    const int cpr = vec ? S / 16 : S;
+    uint4 w0 = make_uint4(0u, 0u, 0u, 0u);
+    if (vec && tid < Tq * cpr)
+      w0 = *reinterpret_cast<const uint4*>(mb + static_cast<size_t>(tid / cpr) * S +
+                                           (tid % cpr) * 16);
+    for (int t = tid; t < ntiles; t += Scan::THREADS) live[t] = 0;
+    for (int t = tid; t < Tq; t += Scan::THREADS) row_any[t] = 0;
+    for (int t = tid; t < nsplit; t += Scan::THREADS) split_flags[t] = 0;
+    __syncthreads();
+    if (vec) {
+      for (int e = tid; e < Tq * cpr; e += Scan::THREADS) {
+        const int t = e / cpr, pos = (e % cpr) * 16;
+        const uint4 w = e == tid ? w0
+                                 : *reinterpret_cast<const uint4*>(
+                                       mb + static_cast<size_t>(t) * S + pos);
+        if (pos >= p0 && pos < p0 + Scan::SPLIT)
+          *reinterpret_cast<uint4*>(ms + t * Scan::SPLIT + pos - p0) = w;
+        if ((w.x | w.y | w.z | w.w) != 0u) {
+          live[pos / Scan::BS] = 1;
+          split_flags[pos / Scan::SPLIT] = 1;
+          row_any[t] = 1;
+        }
+      }
+    } else {
+      for (int e = tid; e < Tq * S; e += Scan::THREADS) {
+        const int t = e / S, pos = e % S;
+        const int8_t x = mb[e];
+        if (pos >= p0 && pos < p0 + Scan::SPLIT) ms[t * Scan::SPLIT + pos - p0] = x;
+        if (x != 0) {
+          live[pos / Scan::BS] = 1;
+          split_flags[pos / Scan::SPLIT] = 1;
+          row_any[t] = 1;
+        }
+      }
+    }
+    __syncthreads();
+    for (int t = 0; t < Tq; ++t) all_live = all_live || row_any[t] == 0;
+  }
+  auto tile_live = [&](int t) { return all_live || live[t] != 0; };
+  // A split is live when one of its tiles is (the merge reads these in a
+  // loop over splits).
+  auto split_live = [=](int s) { return all_live || split_flags[s] != 0; };
+  int n_live = 0;
+  for (int s = 0; s < nsplit; ++s) n_live += split_live(s) ? 1 : 0;
+  if (!split_live(split)) return;  // nothing to read; the merge skips it
+  scan.load_q(q, b, Tq, N, kvh);
 
   const size_t kv_rs = static_cast<size_t>(K) * H;
   const TK* kb = k + static_cast<size_t>(b) * S * kv_rs + static_cast<size_t>(kvh) * H;
   const TK* vb = v + static_cast<size_t>(b) * S * kv_rs + static_cast<size_t>(kvh) * H;
   // Scales of key pos: (b * S + pos) * K + kvh (null without int8 codes).
   const size_t sc0 = static_cast<size_t>(b) * S * K + kvh;
-  for (int s0 = 0; s0 < S; s0 += Scan::BS) {
-    // Window row r = t * G + g reads mask row t at this tile's keys.
-    const int8_t* mt =
-        mask == nullptr ? nullptr : mask + static_cast<size_t>(b) * Tq * S + s0;
-    const size_t sc = sc0 + static_cast<size_t>(s0) * K;
-    scan.tile(kb + s0 * kv_rs, vb + s0 * kv_rs, kv_rs,
-              k_scale == nullptr ? nullptr : k_scale + sc,
-              v_scale == nullptr ? nullptr : v_scale + sc, K,
-              min(Scan::BS, S - s0),
-              [=](int r, int j) {
-                return mt == nullptr || mt[static_cast<size_t>(r / G) * S + j] != 0;
+  // The split's live tiles into buffers 0 .. nt - 1, each K then its V.
+  // A split has one or two tiles: buffer i holds tile t0 + (i ? 1 : first).
+  const int t0 = split * Scan::TILES;
+  const bool live0 = tile_live(t0);
+  const bool live1 = Scan::TILES == 2 && t0 + 1 < ntiles && tile_live(t0 + 1);
+  const int first = live0 ? 0 : 1;
+  const int nt = (live0 ? 1 : 0) + (live1 ? 1 : 0);
+#pragma unroll
+  for (int i = 0; i < Scan::TILES; ++i) {
+    if (i >= nt) break;
+    const int pos0 = (t0 + (i ? 1 : first)) * Scan::BS;
+    const int nk = min(Scan::BS, S - pos0);
+    const size_t sc = sc0 + static_cast<size_t>(pos0) * K;
+    scan.issue(i, 0, kb + pos0 * kv_rs, kv_rs, k_scale == nullptr ? nullptr : k_scale + sc,
+               K, nk);
+    scan.issue(i, 1, vb + pos0 * kv_rs, kv_rs, v_scale == nullptr ? nullptr : v_scale + sc,
+               K, nk);
+  }
+  scan.begin();
+#pragma unroll
+  for (int i = 0; i < Scan::TILES; ++i) {
+    if (i >= nt) break;
+    const int pos0 = (t0 + (i ? 1 : first)) * Scan::BS;
+    const int8_t* mt = ms + (pos0 - p0);
+    scan.tile(i, nt, min(Scan::BS, S - pos0),
+              [=](int j) {
+                if (mask == nullptr) return 0xffffffffu;
+                unsigned bits = 0;
+                for (int t = 0; t < Tq; ++t)
+                  bits |= (mt[t * Scan::SPLIT + j] != 0 ? 1u : 0u) << t;
+                return bits;
               },
               scale);
   }
-  scan.end(out, b, Tq, N, kvh);
+  scan.finish(out, ws, cnt, b, Tq, N, K, kvh, split, nsplit, n_live, split_live);
 }
 
 template <typename T, typename TK, int H>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* k_scale, const float* v_scale,
-                   const int8_t* mask, void* out, int B, int Tq, int S, int N,
-                   int K, float scale, cudaStream_t stream) {
+                   const int8_t* mask, void* out, float* ws, int* cnt, int B,
+                   int Tq, int S, int N, int K, float scale,
+                   cudaStream_t stream) {
   using Scan = rdb::DecodeScan<T, TK, H>;
   if (Scan::QUANT && (k_scale == nullptr || v_scale == nullptr))
     return cudaErrorInvalidValue;
-  const size_t smem = Scan::smem_bytes(Tq * (N / K));
+  const int ntiles = (S + Scan::BS - 1) / Scan::BS;
+  const int nsplit = (S + Scan::SPLIT - 1) / Scan::SPLIT;
+  if (!Scan::merge_fits(Tq * (N / K), nsplit)) return cudaErrorInvalidValue;
+  const size_t smem = Scan::smem_bytes(Tq * (N / K), Tq * Scan::SPLIT + ntiles + Tq + nsplit);
   auto kern = decode_kernel<T, TK, H>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid(K, B);
+  dim3 grid(nsplit, K, B);
   kern<<<grid, Scan::THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const TK*>(k),
       static_cast<const TK*>(v), k_scale, v_scale, mask, static_cast<T*>(out),
-      Tq, S, N, K, scale);
+      ws, cnt, Tq, S, N, K, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_h(const void* q, const void* k, const void* v,
                      const float* ks, const float* vs, const int8_t* m,
-                     void* out, int B, int Tq, int S, int N, int K, int H,
-                     float scale, int kv_int8, cudaStream_t st) {
+                     void* out, float* ws, int* cnt, int B, int Tq, int S,
+                     int N, int K, int H, float scale, int kv_int8,
+                     cudaStream_t st) {
   if (kv_int8 && H == 64)
-    return launch<T, int8_t, 64>(q, k, v, ks, vs, m, out, B, Tq, S, N, K, scale, st);
+    return launch<T, int8_t, 64>(q, k, v, ks, vs, m, out, ws, cnt, B, Tq, S, N, K, scale, st);
   if (kv_int8 && H == 128)
-    return launch<T, int8_t, 128>(q, k, v, ks, vs, m, out, B, Tq, S, N, K, scale, st);
+    return launch<T, int8_t, 128>(q, k, v, ks, vs, m, out, ws, cnt, B, Tq, S, N, K, scale, st);
   if (!kv_int8 && H == 64)
-    return launch<T, T, 64>(q, k, v, nullptr, nullptr, m, out, B, Tq, S, N, K, scale, st);
+    return launch<T, T, 64>(q, k, v, nullptr, nullptr, m, out, ws, cnt, B, Tq, S, N, K, scale, st);
   if (!kv_int8 && H == 128)
-    return launch<T, T, 128>(q, k, v, nullptr, nullptr, m, out, B, Tq, S, N, K, scale, st);
+    return launch<T, T, 128>(q, k, v, nullptr, nullptr, m, out, ws, cnt, B, Tq, S, N, K, scale, st);
   return cudaErrorInvalidValue;
 }
 
@@ -110,21 +211,27 @@ cudaError_t launch_h(const void* q, const void* k, const void* v,
 
 // dtype (of q and out): 0 = float32, 1 = bfloat16. kv_int8: 0 = k/v are
 // q's type, 1 = int8 codes with f32 scales (both scale pointers non-null).
+// workspace: f32, at least B * K * ceil(S / 128) * Tq * (N / K) * (H + 2)
+// floats; counters: B * K int32, zero before the first launch (each launch
+// leaves them zero). Launches sharing them must run in stream order.
 // Returns a cudaError_t (0 = launched).
 extern "C" int rdb_decode_attention(const void* q, const void* k, const void* v,
                                     const void* k_scale, const void* v_scale,
                                     const void* mask, void* out, int B, int Tq,
                                     int S, int N, int K, int H, float scale,
-                                    int dtype, int kv_int8, void* stream) {
+                                    int dtype, int kv_int8, void* workspace,
+                                    void* counters, void* stream) {
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
   const int8_t* m = static_cast<const int8_t*>(mask);
+  float* ws = static_cast<float*>(workspace);
+  int* cnt = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_h<float>(q, k, v, ks, vs, m, out, B, Tq, S, N, K, H, scale,
-                           kv_int8, st);
+    return launch_h<float>(q, k, v, ks, vs, m, out, ws, cnt, B, Tq, S, N, K, H,
+                           scale, kv_int8, st);
   if (dtype == 1)
-    return launch_h<__nv_bfloat16>(q, k, v, ks, vs, m, out, B, Tq, S, N, K, H,
-                                   scale, kv_int8, st);
+    return launch_h<__nv_bfloat16>(q, k, v, ks, vs, m, out, ws, cnt, B, Tq, S,
+                                   N, K, H, scale, kv_int8, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

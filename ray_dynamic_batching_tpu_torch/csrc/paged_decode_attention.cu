@@ -1,4 +1,4 @@
-// Paged decode attention for Hopper (sm_90a), plain FMA version.
+// Paged decode attention for Hopper (sm_90a): split-S with in-launch merge.
 //
 // Replaces ray_dynamic_batching_tpu/ops/decode_attention.py::
 // _paged_decode_attention (Pallas body: _scan_tile over page-table tiles):
@@ -13,11 +13,12 @@
 // scales [P, ps, K] (offset (page * ps + off) * K + kvh); table [B, NP]
 // int32, sentinel P = unallocated; lengths [B] int32. All contiguous.
 //
-// Grid (K, B): one block per (slot, KV head), the R = Tq * G window rows
-// of that KV head riding one read of each K/V tile, exactly as the slab
-// kernel (csrc/decode_attention.cu) — the per-tile scan IS the slab
-// kernel's (rdb::DecodeScan, common.cuh), as both TPU kernels share
-// _scan_tile. What differs is addressing and validity:
+// Grid (splits, K, B), splits of 128 logical positions: the slab kernel's
+// layout (csrc/decode_attention.cu), and the same scan and merge
+// (rdb::DecodeScan, common.cuh), as both TPU kernels share _scan_tile. On
+// a slab cache cut into pages the two give bit-identical outputs: they
+// read the same live tiles into the same splits and merge the same
+// partials in the same order. What differs is addressing and validity:
 //
 // - logical tile t covers positions [64 t, 64 t + 64) of page p = 64 t / ps,
 //   read from physical page min(table[b, p], P - 1) (sentinel and stray
@@ -26,16 +27,13 @@
 // - window row r = t' * G + g attends position pos iff pos <= lengths[b] + t',
 //   computed here from the lengths (the staircase rule) — no mask stream.
 //
-// Tiles wholly past lengths[b] + Tq - 1 are not read: tile 0 always holds
-// an attended key (position 0), so the running max is finite from the
-// first tile on, and a fully masked tile would add exp(NEG_INF - m) = 0 to
-// l and acc and rescale them by exp(0) = 1 — the result is the full scan's.
+// Tiles and splits wholly past lengths[b] + Tq - 1 are not read, and their
+// blocks exit at once: every row attends position 0, so what they would
+// add after the merge is exactly 0 (common.cuh).
 //
 // What bounds it on the H100: the bytes of the K/V positions each slot
-// attends (the skip makes that the run's lengths, not the table width;
-// int8 pools halve them, plus 4 bytes of scale per (key, head) row).
-// Tiles are staged with 16-byte loads from wherever the page lies; split-S
-// across blocks, TMA staging and tensor-core products are later work.
+// attends (int8 pools halve them, plus 4 bytes of scale per (key, head)
+// row). Tiles are staged narrow with cp.async from wherever the page lies.
 
 #include "common.cuh"
 
@@ -48,79 +46,116 @@ paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ k,
                     const float* __restrict__ v_scale,
                     const int* __restrict__ table,
                     const int* __restrict__ lengths, T* __restrict__ out,
-                    int Tq, int N, int K, int P, int ps, int NP, float scale) {
+                    float* __restrict__ ws, int* __restrict__ cnt, int Tq,
+                    int N, int K, int P, int ps, int NP, float scale) {
   using Scan = rdb::DecodeScan<T, TK, H>;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int G = N / K;
   Scan scan(smem, Tq * G, G);
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  scan.begin(q, b, Tq, N, kvh);
+  const int split = blockIdx.x;
+  const int nsplit = gridDim.x;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
 
-  const int len = lengths[b];
+  // The split's table entries are read beside the length, not after it.
   const int* row = table + static_cast<size_t>(b) * NP;
+  const int t0 = split * Scan::TILES;
+  int pages[Scan::TILES];
+#pragma unroll
+  for (int u = 0; u < Scan::TILES; ++u) {
+    const int p = (t0 + u) * Scan::BS / ps;
+    pages[u] = p < NP ? row[p] : 0;
+  }
+  const int len = lengths[b];
+  // Last attended logical position (row Tq - 1's), within the table.
+  const int last_pos = min(NP * ps, len + Tq) - 1;
+  auto split_live = [=](int s) { return s * Scan::SPLIT <= last_pos; };
+  if (!split_live(split)) return;
+  scan.load_q(q, b, Tq, N, kvh);
+  const int n_live = min(nsplit, last_pos / Scan::SPLIT + 1);
+
   const size_t kv_rs = static_cast<size_t>(K) * H;
-  const int n_tiles = min(NP * (ps / Scan::BS), (len + Tq - 1) / Scan::BS + 1);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int pos0 = t * Scan::BS;
+  // The live tiles are a prefix of the split: t0 + u into buffer u, each
+  // K then its V.
+  const int nt = min(last_pos / Scan::BS + 1, t0 + Scan::TILES) - t0;
+#pragma unroll
+  for (int u = 0; u < Scan::TILES; ++u) {
+    if (u >= nt) break;
+    const int pos0 = (t0 + u) * Scan::BS;
     const int p = pos0 / ps;
-    const int page = min(row[p], P - 1);
-    const size_t cell = static_cast<size_t>(page) * ps + (pos0 - p * ps);
+    const size_t cell = static_cast<size_t>(min(pages[u], P - 1)) * ps + (pos0 - p * ps);
     const size_t off = cell * kv_rs + static_cast<size_t>(kvh) * H;
     const size_t sc = cell * K + kvh;
-    scan.tile(k + off, v + off, kv_rs,
-              k_scale == nullptr ? nullptr : k_scale + sc,
-              v_scale == nullptr ? nullptr : v_scale + sc, K, Scan::BS,
-              [=](int r, int j) { return pos0 + j <= len + r / G; }, scale);
+    scan.issue(u, 0, k + off, kv_rs, k_scale == nullptr ? nullptr : k_scale + sc, K,
+               Scan::BS);
+    scan.issue(u, 1, v + off, kv_rs, v_scale == nullptr ? nullptr : v_scale + sc, K,
+               Scan::BS);
   }
-  scan.end(out, b, Tq, N, kvh);
+  scan.begin();
+#pragma unroll
+  for (int u = 0; u < Scan::TILES; ++u) {
+    if (u >= nt) break;
+    const int pos0 = (t0 + u) * Scan::BS;
+    scan.tile(u, nt, Scan::BS,
+              [=](int j) {
+                // Row t' attends position pos0 + j iff pos0 + j <= len + t'.
+                const int need = pos0 + j - len;
+                if (need <= 0) return 0xffffffffu;
+                return need >= 32 ? 0u : ~((1u << need) - 1u);
+              },
+              scale);
+  }
+  scan.finish(out, ws, cnt, b, Tq, N, K, kvh, split, nsplit, n_live, split_live);
 }
 
 template <typename T, typename TK, int H>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* k_scale, const float* v_scale,
-                   const int* table, const int* lengths, void* out, int B,
-                   int Tq, int N, int K, int P, int ps, int NP, float scale,
-                   cudaStream_t stream) {
+                   const int* table, const int* lengths, void* out, float* ws,
+                   int* cnt, int B, int Tq, int N, int K, int P, int ps, int NP,
+                   float scale, cudaStream_t stream) {
   using Scan = rdb::DecodeScan<T, TK, H>;
   if (ps % Scan::BS != 0) return cudaErrorInvalidValue;
   if (Scan::QUANT && (k_scale == nullptr || v_scale == nullptr))
     return cudaErrorInvalidValue;
-  const size_t smem = Scan::smem_bytes(Tq * (N / K));
+  if (!Scan::merge_fits(Tq * (N / K), (NP * ps + Scan::SPLIT - 1) / Scan::SPLIT))
+    return cudaErrorInvalidValue;
+  const size_t smem = Scan::smem_bytes(Tq * (N / K), 0);
   auto kern = paged_decode_kernel<T, TK, H>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid(K, B);
+  dim3 grid((NP * ps + Scan::SPLIT - 1) / Scan::SPLIT, K, B);
   kern<<<grid, Scan::THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const TK*>(k),
       static_cast<const TK*>(v), k_scale, v_scale, table, lengths,
-      static_cast<T*>(out), Tq, N, K, P, ps, NP, scale);
+      static_cast<T*>(out), ws, cnt, Tq, N, K, P, ps, NP, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_h(const void* q, const void* k, const void* v,
                      const float* ks, const float* vs, const int* tb,
-                     const int* ln, void* out, int B, int Tq, int N, int K,
-                     int H, int P, int ps, int NP, float scale, int kv_int8,
-                     cudaStream_t st) {
+                     const int* ln, void* out, float* ws, int* cnt, int B,
+                     int Tq, int N, int K, int H, int P, int ps, int NP,
+                     float scale, int kv_int8, cudaStream_t st) {
   if (kv_int8 && H == 64)
-    return launch<T, int8_t, 64>(q, k, v, ks, vs, tb, ln, out, B, Tq, N, K, P, ps, NP, scale, st);
+    return launch<T, int8_t, 64>(q, k, v, ks, vs, tb, ln, out, ws, cnt, B, Tq, N, K, P, ps, NP, scale, st);
   if (kv_int8 && H == 128)
-    return launch<T, int8_t, 128>(q, k, v, ks, vs, tb, ln, out, B, Tq, N, K, P, ps, NP, scale, st);
+    return launch<T, int8_t, 128>(q, k, v, ks, vs, tb, ln, out, ws, cnt, B, Tq, N, K, P, ps, NP, scale, st);
   if (!kv_int8 && H == 64)
-    return launch<T, T, 64>(q, k, v, nullptr, nullptr, tb, ln, out, B, Tq, N, K, P, ps, NP, scale, st);
+    return launch<T, T, 64>(q, k, v, nullptr, nullptr, tb, ln, out, ws, cnt, B, Tq, N, K, P, ps, NP, scale, st);
   if (!kv_int8 && H == 128)
-    return launch<T, T, 128>(q, k, v, nullptr, nullptr, tb, ln, out, B, Tq, N, K, P, ps, NP, scale, st);
+    return launch<T, T, 128>(q, k, v, nullptr, nullptr, tb, ln, out, ws, cnt, B, Tq, N, K, P, ps, NP, scale, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype (of q and out): 0 = float32, 1 = bfloat16. kv_int8: 0 = pools are
-// q's type, 1 = int8 codes with f32 scale pools (both non-null). Returns a
-// cudaError_t (0 = launched).
+// q's type, 1 = int8 codes with f32 scale pools (both non-null).
+// workspace / counters: as rdb_decode_attention's, with S = NP * ps.
+// Returns a cudaError_t (0 = launched).
 extern "C" int rdb_paged_decode_attention(const void* q, const void* k,
                                           const void* v, const void* k_scale,
                                           const void* v_scale,
@@ -129,17 +164,20 @@ extern "C" int rdb_paged_decode_attention(const void* q, const void* k,
                                           int Tq, int N, int K, int H, int P,
                                           int ps, int NP, float scale,
                                           int dtype, int kv_int8,
+                                          void* workspace, void* counters,
                                           void* stream) {
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
   const int* tb = static_cast<const int*>(table);
   const int* ln = static_cast<const int*>(lengths);
+  float* ws = static_cast<float*>(workspace);
+  int* cnt = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_h<float>(q, k, v, ks, vs, tb, ln, out, B, Tq, N, K, H, P, ps,
-                           NP, scale, kv_int8, st);
+    return launch_h<float>(q, k, v, ks, vs, tb, ln, out, ws, cnt, B, Tq, N, K,
+                           H, P, ps, NP, scale, kv_int8, st);
   if (dtype == 1)
-    return launch_h<__nv_bfloat16>(q, k, v, ks, vs, tb, ln, out, B, Tq, N, K, H,
-                                   P, ps, NP, scale, kv_int8, st);
+    return launch_h<__nv_bfloat16>(q, k, v, ks, vs, tb, ln, out, ws, cnt, B, Tq,
+                                   N, K, H, P, ps, NP, scale, kv_int8, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,28 +4,36 @@ their counts.
 **Slab** — replaces
 ``ray_dynamic_batching_tpu/ops/decode_attention.py::_decode_attention``
 (Pallas bodies ``_decode_kernel`` + ``_scan_tile``). The kernel is
-``csrc/decode_attention.cu``: one block per (slot, KV head); all
-G = N / K query heads of that KV head times the Tq window rows ride one
-read of each K/V tile (GQA by layout — no repeat of the cache read); a
-sequential loop over S tiles inside the block carries the online-softmax
-state, in place of the TPU's sequential grid axis; the int8 window mask
+``csrc/decode_attention.cu``: one block per (slot, KV head, split of
+:data:`SPLIT` logical positions); all G = N / K query heads of that KV
+head times the Tq window rows ride one read of each K/V tile (GQA by
+layout — no repeat of the cache read); each split block carries the
+online-softmax state over its tiles, and the last split of a (slot, KV
+head) to finish merges the splits' partials inside the same launch (in
+place of the TPU's sequential grid axis); the int8 window mask
 [B, Tq, S] gates the scores.
 
-What bounds it on the H100: the bytes of K/V — every decode step reads
-the whole slot capacity once. The design reads each K/V row exactly once
-per step with 16-byte loads; splitting S over more blocks per slot (to
-keep more loads in flight) is the later speed-up.
+What bounds it on the H100: the bytes of the K/V positions some window
+row attends. Each block reads its slot's mask row first and skips the
+64-key tiles and splits no row attends (exact under the reference's rule
+unless a row attends nothing, when everything is read so that it gets
+the mean of V).
 
 **Paged** — replaces ``_paged_decode_attention`` (the same ``_scan_tile``
 body over a page pool). The kernel is ``csrc/paged_decode_attention.cu``:
 the same block layout and the SAME per-tile scan (``csrc/common.cuh``,
-``DecodeScan``), its KV tiles walked through the slot's page-table row
-(entry p -> physical page ``min(table[b, p], P - 1)``, logical positions
-[p*ps, (p+1)*ps)), validity ``pos <= lengths[b] + t`` computed in the
-kernel (no mask stream). Tiles wholly past ``lengths[b] + Tq - 1`` are
-skipped: once the running max is finite a fully masked tile adds exactly
-0, so the result is the one the full scan gives. Bound on the H100: the
-bytes of the K/V positions each slot attends.
+``DecodeScan``, the same splits and the same merge, so that a slab cache
+cut into pages gives bit-identical outputs), its KV tiles walked through
+the slot's page-table row (entry p -> physical page
+``min(table[b, p], P - 1)``, logical positions [p*ps, (p+1)*ps)),
+validity ``pos <= lengths[b] + t`` computed in the kernel (no mask
+stream). Tiles and splits wholly past ``lengths[b] + Tq - 1`` are not
+read: every row attends position 0, so what they would add is exactly 0.
+Bound on the H100: the bytes of the K/V positions each slot attends.
+
+Both kernels take a per-device scratch for the split merge
+(:func:`_workspace`): partials and arrival counters, allocated once and
+reused, so calls on one device must run in stream order.
 
 **Int8 KV** — the reference's ``k_scale``/``v_scale`` branch of both
 kernels (``_scan_tile`` lines 142-167): k/v hold int8 codes and the
@@ -142,8 +150,15 @@ def _kernel_args(q, k, v, k_scale, v_scale, what: str):
     if H not in (64, 128):
         raise ValueError(f"{what}: head_dim {H} not in (64, 128)")
     R = Tq * (N // K)
-    smem = 4 * (R * (H + 1) + 64 * (H + 1) + 64 * H + R * 64 + R * H + 3 * R
-                + 2 * 64)
+    # common.cuh DecodeScan::smem_bytes: two K and two V tiles in the K/V
+    # element type, the query rows (f32, or bf16 padded to 16 rows), f32
+    # acc, scores and scales, plus the slab kernel's split mask (Tq x 128
+    # bytes) and flags (a byte per 64-key tile, per window row and per
+    # split; the paged kernel has none, counted all the same).
+    kv_size = 1 if int8 else q.element_size()
+    q_bytes = max(4 * R, 2 * (-(-R // 16) * 16)) * H
+    smem = (256 * H * kv_size + q_bytes + 4 * (R * H + 72 * R + 256 + 3 * R)
+            + 20 + Tq * 128 + -(-k.shape[1] // 64) + Tq + -(-k.shape[1] // 128))
     if smem > 227 * 1024:
         raise ValueError(f"{what}: {R} window rows per KV head need "
                          f"{smem} bytes of shared memory (max 232448)")
@@ -165,6 +180,33 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+#: Split length of both decode kernels, in logical positions
+#: (``DecodeScan::SPLIT`` in ``csrc/common.cuh``).
+SPLIT = 128
+
+# device index -> (f32 partials, int32 arrival counters), grown on demand.
+_workspaces: dict = {}
+
+
+def _workspace(device: torch.device, B: int, K: int, S: int, R: int, H: int):
+    """The split merge's scratch for one launch: per (slot, KV head, split)
+    the partial (m, l, acc) of R rows, and one arrival counter per (slot,
+    KV head). Kept per device and reused, never one allocation per call:
+    each launch leaves the counters at 0, and they are zeroed only when
+    created. Launches on one device share it, so they must run in stream
+    order (the engine issues every kernel on the current stream)."""
+    n_ws = B * K * (-(-S // SPLIT)) * R * (H + 2)
+    n_cnt = B * K
+    key = device.index
+    ws, cnt = _workspaces.get(key, (None, None))
+    if ws is None or ws.numel() < n_ws:
+        ws = torch.empty((n_ws,), dtype=torch.float32, device=device)
+    if cnt is None or cnt.numel() < n_cnt:
+        cnt = torch.zeros((n_cnt,), dtype=torch.int32, device=device)
+    _workspaces[key] = (ws, cnt)
+    return ws, cnt
+
+
 def _launch(q, k, v, mask_i8, k_scale, v_scale, *, scale: float
             ) -> torch.Tensor:
     from ray_dynamic_batching_tpu_torch.ops import _build
@@ -176,12 +218,15 @@ def _launch(q, k, v, mask_i8, k_scale, v_scale, *, scale: float
         q, k, v, k_scale, v_scale, "decode kernel")
     if mask_i8 is not None and mask_i8.device != q.device:
         raise ValueError("decode kernel: mask on another device")
+    if mask_i8 is not None and mask_i8.data_ptr() % 16:
+        mask_i8 = mask_i8.clone()     # the kernel reads it in 16-byte loads
     out = torch.empty_like(q)
+    ws, cnt = _workspace(q.device, B, K, S, Tq * (N // K), H)
     lib = _build.load("decode_attention")
     rc = lib.rdb_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
         _ptr(v_scale), _ptr(mask_i8), out.data_ptr(), B, Tq, S, N, K, H,
-        float(scale), dtype, int(int8),
+        float(scale), dtype, int(int8), ws.data_ptr(), cnt.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "decode_attention")
@@ -285,11 +330,13 @@ def _launch_paged(q, k, v, page_table, lengths, k_scale, v_scale, *,
         if t.device != q.device:
             raise ValueError("paged decode kernel: inputs on another device")
     out = torch.empty_like(q)
+    ws, cnt = _workspace(q.device, B, K, NP * ps, Tq * (N // K), H)
     lib = _build.load("paged_decode_attention")
     rc = lib.rdb_paged_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
         _ptr(v_scale), table.data_ptr(), lens.data_ptr(), out.data_ptr(), B,
         Tq, N, K, H, P, ps, NP, float(scale), dtype, int(int8),
+        ws.data_ptr(), cnt.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "paged_decode_attention")

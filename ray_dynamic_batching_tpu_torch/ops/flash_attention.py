@@ -9,9 +9,14 @@ row with no attended key giving 0.
 
 What bounds it on the H100: at the serving shapes (64-token prompts over
 a 512-position row cache, ``prefill`` attending the whole capacity) the
-K/V bytes; at long prompts the FLOPs. This first version issues the two
-products as FMAs on the CUDA cores; tensor-core products (``wgmma``) fed
-by TMA, and skipping KV tiles the mask voids, are the later speed-ups.
+K/V bytes of the tiles the mask leaves live; at long prompts the FLOPs.
+For bf16 each block reads its rows of the mask first and walks only the
+64-key tiles some row attends (exact: a wholly masked tile changes
+nothing under the flash rule), with both products on the tensor cores
+(``mma.sync``) and K/V staged bf16 by ``cp.async`` into a double buffer;
+f32 keeps an FMA body (TF32 would miss the f32 tolerance). The kernel
+reads the mask in 16-byte loads, so an int8 mask that is not 16-byte
+aligned is copied first.
 
 On a CUDA tensor :func:`flash_attention` launches the kernel or raises;
 on a CPU tensor it runs :func:`flash_attention_plain`, the same function
@@ -104,6 +109,8 @@ def _launch(q, k, v, mask_i8, *, causal: bool, scale: float) -> torch.Tensor:
     if mask_i8 is not None and (mask_i8.device != q.device
                                 or tuple(mask_i8.shape) != (B, Tq, Tk)):
         raise ValueError(f"flash kernel: mask must be int8 [{B}, {Tq}, {Tk}]")
+    if mask_i8 is not None and mask_i8.data_ptr() % 16:
+        mask_i8 = mask_i8.clone()     # the kernel reads it in 16-byte loads
     out = torch.empty_like(q)
     lib = _build.load("flash_attention")
     rc = lib.rdb_flash_attention(

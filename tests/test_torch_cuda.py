@@ -6,8 +6,11 @@ ragged KV tails, causal prefill with a diagonal offset, head_dim 64,
 wide decode windows, and for the paged kernel ragged lengths, sentinel
 tails, Tq 1..8 staircases and shuffled pools — and the int8-KV branch of
 both decode kernels at the same shapes (int8 codes, f32 scales, q in f32
-and bf16). This file imports no JAX, so it runs on a machine without
-it::
+and bf16); for the live-tile skip and the split-S merge: a void KV tile
+between live ones, an all-zero mask row, a window row that attends
+nothing beside normal slots, whole void splits, a ragged last split, and
+slab/paged bit-identity at split boundaries. This file imports no JAX, so
+it runs on a machine without it::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -275,3 +278,120 @@ def test_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="another device"):
         dec.paged_decode_attention(q1, codes, codes, table, lens,
                                    k_scale=scales, v_scale=scales)
+
+
+# --- the redesigned kernels: live-tile skipping and split-S ----------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_skips_void_tiles_exactly(card, dtype):
+    """A void KV tile between live ones (the block walks tiles 0 and 2 of
+    4) and a batch row whose mask is all zero (no live tile: 0 rows)."""
+    gen = torch.Generator(device=card).manual_seed(41)
+    B, Tq, Tk, N, K, H = 2, 64, 256, 8, 2, 128
+    q = _rand(gen, (B, Tq, N, H), dtype, card)
+    k = _rand(gen, (B, Tk, K, H), dtype, card)
+    v = _rand(gen, (B, Tk, K, H), dtype, card)
+    mask = torch.rand((B, 1, Tq, Tk), generator=gen, device=card) < 0.6
+    mask[..., 64:128] = False
+    mask[..., 192:] = False
+    mask[1] = False
+    out = fl.flash_attention(q, k, v, mask=mask)
+    torch.cuda.synchronize()
+    ref = fl.flash_attention_plain(q, k, v, fl.keep_mask(mask, B, Tq, Tk))
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert out[1].float().abs().max().item() == 0.0
+
+
+def _slab_window(lengths, Tq, S, dev):
+    pos = torch.arange(S, device=dev)
+    return (pos[None, None, None, :]
+            <= (lengths[:, None] + torch.arange(Tq, device=dev))[:, None, :,
+                                                                 None])
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tq", [1, 8])
+def test_decode_kernel_row_with_no_key_beside_normal_slots(card, Tq, dtype,
+                                                           int8):
+    """One slot's window attends nothing (its rows average V, so every
+    tile of that slot is read) beside slots whose later splits are void."""
+    gen = torch.Generator(device=card).manual_seed(Tq + 2 * int8)
+    B, S, N, K, H = 4, 512, 32, 8, 128
+    q = _rand(gen, (B, Tq, N, H), dtype, card)
+    if int8:
+        k, ks = _int8(gen, (B, S, K, H), card)
+        v, vs = _int8(gen, (B, S, K, H), card)
+    else:
+        k = _rand(gen, (B, S, K, H), dtype, card)
+        v = _rand(gen, (B, S, K, H), dtype, card)
+        ks = vs = None
+    lengths = torch.tensor([3, 140, 0, 300], device=card)
+    mask = _slab_window(lengths, Tq, S, card)
+    mask[2] = False
+    out = dec.decode_attention(q, k, v, mask=mask, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    ref = dec.decode_attention_plain(q, k, v, fl.keep_mask(mask, B, Tq, S),
+                                     k_scale=ks, v_scale=vs)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,lengths", [
+    (512, [0, 5, 127, 128]),      # all but the first split void
+    (200, [150, 199 - 3, 60, 10]),  # S past the last full split, ragged tile
+    (300, [290, 256, 100, 3]),    # three splits, the last of 44 positions
+])
+def test_decode_kernel_void_and_ragged_splits(card, dtype, S, lengths):
+    gen = torch.Generator(device=card).manual_seed(S)
+    B, Tq, N, K, H = 4, 4, 32, 8, 128
+    q = _rand(gen, (B, Tq, N, H), dtype, card)
+    k = _rand(gen, (B, S, K, H), dtype, card)
+    v = _rand(gen, (B, S, K, H), dtype, card)
+    lens = torch.tensor(lengths, device=card).clamp(max=S - Tq)
+    mask = _slab_window(lens, Tq, S, card)
+    before = dec.launches
+    out = dec.decode_attention(q, k, v, mask=mask)
+    torch.cuda.synchronize()
+    assert dec.launches == before + 1
+    ref = dec.decode_attention_plain(q, k, v, fl.keep_mask(mask, B, Tq, S))
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    # The merge leaves its arrival counters at zero for the next launch.
+    _, counters = dec._workspaces[q.device.index]
+    assert int(counters.abs().sum().item()) == 0
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_slab_and_paged_agree_at_split_boundaries(card, int8):
+    """Bit-identity of kernels 2 and 3 where windows end on, just before
+    and just after a split boundary (128 positions) and a tile boundary."""
+    gen = torch.Generator(device=card).manual_seed(9 + int8)
+    B, Tq, S, N, K, H, ps = 6, 4, 512, 32, 8, 128, 128
+    q = _rand(gen, (B, Tq, N, H), torch.bfloat16, card)
+    if int8:
+        k, ks = _int8(gen, (B, S, K, H), card)
+        v, vs = _int8(gen, (B, S, K, H), card)
+    else:
+        k = _rand(gen, (B, S, K, H), torch.bfloat16, card)
+        v = _rand(gen, (B, S, K, H), torch.bfloat16, card)
+        ks = vs = None
+    # Last attended positions 127, 128, 124 + 3, 255, 63 + 3, 383 + 3.
+    lengths = torch.tensor([124, 125, 121, 252, 60, 380], dtype=torch.int32,
+                           device=card)
+    perm = torch.randperm(B * S // ps, generator=gen, device=card)
+    table = perm.reshape(B, S // ps).to(torch.int32)
+    flat = table.long().reshape(-1)
+
+    def pages(x):
+        out = torch.empty((B * S // ps, ps) + tuple(x.shape[2:]),
+                          dtype=x.dtype, device=card)
+        out[flat] = x.reshape((-1, ps) + tuple(x.shape[2:]))
+        return out
+
+    paged = dec.paged_decode_attention(
+        q, pages(k), pages(v), table, lengths,
+        k_scale=None if ks is None else pages(ks),
+        v_scale=None if vs is None else pages(vs))
+    slab = dec.decode_attention(q, k, v,
+                                mask=paged_window_mask(lengths, S, Tq),
+                                k_scale=ks, v_scale=vs)
+    assert torch.equal(paged, slab)
