@@ -24,9 +24,12 @@ last line:
    branches), and the bound from bytes and FLOPs over what the call's
    data needs: the K/V of the positions some window row attends (kernels
    1 and 2 skip the 64-key tiles no row attends; kernel 3 the tiles past
-   each length). The masked kernels are timed on the int8 keep-mask they
-   read; their time with the wrapper's cast of the boolean mask, and the
-   dense bound (every position of k and v read), are printed beside;
+   each length). The masked kernels are timed on the int8 keep-mask
+   [B, 1, Tq, S], which the model makes once per forward and every
+   layer's call takes as it is; their time on a boolean mask, which the
+   wrapper casts first (one more kernel a call; the paged arm's flash
+   chunks still build their staircase mask per layer), and the dense
+   bound (every position of k and v read), are printed beside;
 4. parity — llama3_8b at full width, 2 layers, f32, with the model's own
    cache and with the int8 KV cache: slab ``prefill`` then one
    ``decode_step``, and paged ``prefill_chunk_paged`` (a W = 64 and a
@@ -186,9 +189,10 @@ def _prefill_inputs(dtype, gen, rng):
 
 def _with_keep_mask(x):
     """Beside the boolean mask, the int8 keep-mask [B, Tq, S] the kernels
-    read, made once: the kernel rows are timed on it, so ``ms`` is the
-    kernel's own time; ``ms_bool_mask`` also counts the wrapper's cast of
-    the boolean mask, one more small kernel per call."""
+    read, made once, as the model makes it once per forward for all its
+    layers (``ops/attention.py`` ``kernel_mask``): ``ms`` is the call as
+    the slab layers make it; ``ms_bool_mask`` is the call on the boolean
+    mask, the wrapper's cast included."""
     from ray_dynamic_batching_tpu_torch.ops import flash_attention as fl
 
     B, Tq = x["q"].shape[:2]

@@ -182,16 +182,16 @@ __device__ __forceinline__ uint32_t codes_bf16(int8_t lo, int8_t hi) {
 // (TF32 would not meet the f32 tolerance): four threads per key for the
 // scores, one per (row, dim pair) for PV.
 //
-// DECODE_SPLIT is a compile-time knob for measurement only
-// (kernel_variants.py): 64 was slower at the main shape than 128.
-#ifndef DECODE_SPLIT
-#define DECODE_SPLIT 128
-#endif
+// SPLIT is fixed at 128. Splits of 64 (twice the blocks, each with one
+// tile) measured slower at the main shape on an H100 (700 W): slab decode
+// 0.0211 against 0.0163 ms (a compile-time variant since removed;
+// PERF.md). Callers size the merge's workspace for it, and the launch
+// functions check the sizes they are given.
 
 template <typename T, typename TK, int H>
 struct DecodeScan {
   static constexpr int BS = 64;            // keys per KV tile
-  static constexpr int SPLIT = DECODE_SPLIT;  // logical positions per split
+  static constexpr int SPLIT = 128;        // logical positions per split
   static constexpr int TILES = SPLIT / BS; // tiles per split, one buffer each
   static constexpr int THREADS = 256;
   static constexpr int WARPS = THREADS / 32;
@@ -210,7 +210,7 @@ struct DecodeScan {
   static_assert(NCH % PARTS == 0 && (NCH % 8 == 0 || NCH == 4),
                 "head dim and element size give 4 or a multiple of 8 chunks");
   static_assert(!TC || NTW == 1 || NTW == 2, "head dim 64 or 128");
-  static_assert(TILES == 1 || TILES == 2, "a split holds one or two tiles");
+  static_assert(TILES == 2, "a split holds two tiles");
 
   // Physical chunk of logical chunk c in row j. Tensor-core path: XOR with
   // j % 8, so the 8 rows an ldmatrix reads hit 8 bank groups. FMA path:
@@ -237,10 +237,13 @@ struct DecodeScan {
   }
 
   // Whether the merge's scratch ([nsplit][R] x 2 + [R] floats) fits in
-  // the K/V tiles, where it is kept.
-  static bool merge_fits(int R, int nsplit) {
+  // the K/V tiles, where it is kept, and the caller's workspace (ws_len
+  // floats) and counters (cnt_len) hold B x K (slot, KV head)s.
+  static bool merge_fits(int R, int nsplit, int B, int K, long long ws_len, int cnt_len) {
+    const long long need = static_cast<long long>(B) * K * nsplit * R * (H + 2);
     return static_cast<size_t>(2 * nsplit + 1) * R * sizeof(float) <=
-           static_cast<size_t>(2) * TILES * BS * ROWB;
+               static_cast<size_t>(2) * TILES * BS * ROWB &&
+           need <= ws_len && static_cast<long long>(B) * K <= cnt_len;
   }
 
   unsigned char* kb;  // [TILES][BS][ROWB] K tiles (element type, swizzled)

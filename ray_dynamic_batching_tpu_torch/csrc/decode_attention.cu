@@ -33,7 +33,7 @@
 //   (common.cuh), shared with the paged kernel.
 //
 // Measured at the main shape on an H100 (700 W; chip_smoke.py phase 3,
-// PERF.md): 0.0157 ms against a bound of 0.0050 ms over the attended
+// PERF.md): 0.0155 ms against a bound of 0.0050 ms over the attended
 // positions, about 3x.
 // What is left is the chain of one block — the mask read, its tiles'
 // loads, two tiles' products and, for slots of several splits, the
@@ -129,10 +129,10 @@ decode_kernel(const T* __restrict__ q, const TK* __restrict__ k,
   // Scales of key pos: (b * S + pos) * K + kvh (null without int8 codes).
   const size_t sc0 = static_cast<size_t>(b) * S * K + kvh;
   // The split's live tiles into buffers 0 .. nt - 1, each K then its V.
-  // A split has one or two tiles: buffer i holds tile t0 + (i ? 1 : first).
+  // A split has one or two live tiles: buffer i holds tile t0 + (i ? 1 : first).
   const int t0 = split * Scan::TILES;
   const bool live0 = tile_live(t0);
-  const bool live1 = Scan::TILES == 2 && t0 + 1 < ntiles && tile_live(t0 + 1);
+  const bool live1 = t0 + 1 < ntiles && tile_live(t0 + 1);
   const int first = live0 ? 0 : 1;
   const int nt = (live0 ? 1 : 0) + (live1 ? 1 : 0);
 #pragma unroll
@@ -168,15 +168,16 @@ decode_kernel(const T* __restrict__ q, const TK* __restrict__ k,
 template <typename T, typename TK, int H>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* k_scale, const float* v_scale,
-                   const int8_t* mask, void* out, float* ws, int* cnt, int B,
-                   int Tq, int S, int N, int K, float scale,
-                   cudaStream_t stream) {
+                   const int8_t* mask, void* out, float* ws, long long ws_len,
+                   int* cnt, int cnt_len, int B, int Tq, int S, int N, int K,
+                   float scale, cudaStream_t stream) {
   using Scan = rdb::DecodeScan<T, TK, H>;
   if (Scan::QUANT && (k_scale == nullptr || v_scale == nullptr))
     return cudaErrorInvalidValue;
   const int ntiles = (S + Scan::BS - 1) / Scan::BS;
   const int nsplit = (S + Scan::SPLIT - 1) / Scan::SPLIT;
-  if (!Scan::merge_fits(Tq * (N / K), nsplit)) return cudaErrorInvalidValue;
+  if (!Scan::merge_fits(Tq * (N / K), nsplit, B, K, ws_len, cnt_len))
+    return cudaErrorInvalidValue;
   const size_t smem = Scan::smem_bytes(Tq * (N / K), Tq * Scan::SPLIT + ntiles + Tq + nsplit);
   auto kern = decode_kernel<T, TK, H>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -193,17 +194,17 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 template <typename T>
 cudaError_t launch_h(const void* q, const void* k, const void* v,
                      const float* ks, const float* vs, const int8_t* m,
-                     void* out, float* ws, int* cnt, int B, int Tq, int S,
-                     int N, int K, int H, float scale, int kv_int8,
+                     void* out, float* ws, long long wl, int* cnt, int cl, int B,
+                     int Tq, int S, int N, int K, int H, float scale, int kv_int8,
                      cudaStream_t st) {
   if (kv_int8 && H == 64)
-    return launch<T, int8_t, 64>(q, k, v, ks, vs, m, out, ws, cnt, B, Tq, S, N, K, scale, st);
+    return launch<T, int8_t, 64>(q, k, v, ks, vs, m, out, ws, wl, cnt, cl, B, Tq, S, N, K, scale, st);
   if (kv_int8 && H == 128)
-    return launch<T, int8_t, 128>(q, k, v, ks, vs, m, out, ws, cnt, B, Tq, S, N, K, scale, st);
+    return launch<T, int8_t, 128>(q, k, v, ks, vs, m, out, ws, wl, cnt, cl, B, Tq, S, N, K, scale, st);
   if (!kv_int8 && H == 64)
-    return launch<T, T, 64>(q, k, v, nullptr, nullptr, m, out, ws, cnt, B, Tq, S, N, K, scale, st);
+    return launch<T, T, 64>(q, k, v, nullptr, nullptr, m, out, ws, wl, cnt, cl, B, Tq, S, N, K, scale, st);
   if (!kv_int8 && H == 128)
-    return launch<T, T, 128>(q, k, v, nullptr, nullptr, m, out, ws, cnt, B, Tq, S, N, K, scale, st);
+    return launch<T, T, 128>(q, k, v, nullptr, nullptr, m, out, ws, wl, cnt, cl, B, Tq, S, N, K, scale, st);
   return cudaErrorInvalidValue;
 }
 
@@ -211,16 +212,18 @@ cudaError_t launch_h(const void* q, const void* k, const void* v,
 
 // dtype (of q and out): 0 = float32, 1 = bfloat16. kv_int8: 0 = k/v are
 // q's type, 1 = int8 codes with f32 scales (both scale pointers non-null).
-// workspace: f32, at least B * K * ceil(S / 128) * Tq * (N / K) * (H + 2)
-// floats; counters: B * K int32, zero before the first launch (each launch
-// leaves them zero). Launches sharing them must run in stream order.
-// Returns a cudaError_t (0 = launched).
+// workspace: ws_len f32, at least B * K * ceil(S / 128) * Tq * (N / K) *
+// (H + 2); counters: cnt_len int32, at least B * K, zero before the first
+// launch (each launch leaves them zero); smaller ones are refused.
+// Launches sharing them must run in stream order. Returns a cudaError_t
+// (0 = launched).
 extern "C" int rdb_decode_attention(const void* q, const void* k, const void* v,
                                     const void* k_scale, const void* v_scale,
                                     const void* mask, void* out, int B, int Tq,
                                     int S, int N, int K, int H, float scale,
                                     int dtype, int kv_int8, void* workspace,
-                                    void* counters, void* stream) {
+                                    long long ws_len, void* counters,
+                                    int cnt_len, void* stream) {
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
   const int8_t* m = static_cast<const int8_t*>(mask);
@@ -228,10 +231,11 @@ extern "C" int rdb_decode_attention(const void* q, const void* k, const void* v,
   int* cnt = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_h<float>(q, k, v, ks, vs, m, out, ws, cnt, B, Tq, S, N, K, H,
-                           scale, kv_int8, st);
+    return launch_h<float>(q, k, v, ks, vs, m, out, ws, ws_len, cnt, cnt_len, B,
+                           Tq, S, N, K, H, scale, kv_int8, st);
   if (dtype == 1)
-    return launch_h<__nv_bfloat16>(q, k, v, ks, vs, m, out, ws, cnt, B, Tq, S,
-                                   N, K, H, scale, kv_int8, st);
+    return launch_h<__nv_bfloat16>(q, k, v, ks, vs, m, out, ws, ws_len, cnt,
+                                   cnt_len, B, Tq, S, N, K, H, scale, kv_int8,
+                                   st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,7 +14,7 @@
 // fill chunks, paged chunks over the gathered view), and the mask voids
 // most KV tiles: at the main shape 7 of 8. The work the function needs is
 // the K/V of the live tiles plus q, out and the mask — bytes, 0.0015 ms at
-// the main shape. This design runs at 0.0093 ms there on an H100 (700 W),
+// the main shape. This design runs at 0.0089 ms there on an H100 (700 W),
 // about 6x the bound (chip_smoke.py phase 3, PERF.md): what is left is
 // latency — the mask prepass, one tile's load, its products and the
 // epilogue, each a dependent step of a block that has one tile of work.
@@ -33,31 +33,31 @@
 //   rounded to bf16 on the way, which is the reference's p.astype(v.dtype).
 //   The running sum takes the unrounded p, as the reference's does.
 // - Eight warps a block: four 16-row query slabs times two key halves of
-//   every tile, each warp with its own running (m, l, o); the halves are
-//   merged once at the end with weights exp(m_h - M), as split-S decode
-//   merges its splits. Two warps a scheduler instead of one hide most of
-//   the mma and ldmatrix latency; exp is the fast ex2-based one.
+//   every tile, each warp with its own running (l, o). The two warps of a
+//   slab share each tile's row max (one exchange through shared memory and
+//   a 64-thread named barrier per tile), so both round p to bf16 against
+//   the running max over the whole 64-key tile, exactly where the
+//   reference rounds it (m_new = max(m_prev, tile max), then
+//   p.astype(v.dtype)); at the end their o and l are summed. Two warps a
+//   scheduler instead of one hide most of the mma and ldmatrix latency;
+//   exp is the fast ex2-based one.
 // - Narrow, asynchronous staging: Q, K, V (and each tile's mask bytes)
 //   stay bf16 / int8 in shared memory, 16-byte chunks XOR-swizzled
 //   against ldmatrix bank conflicts, loaded with cp.async into a double
 //   buffer: the next live tile lands while this one is computed.
 // - GQA: one block per (batch row, query head, 64-row tile) — 128 blocks
 //   at the main shape, one wave on 132 SMs. Packing the G = 4 heads of a
-//   KV head into one block (FLASH_GQA_PACK=4) reads each K/V tile once
-//   per 4 heads but leaves 32 blocks of 32 warps for 132 SMs: measured
-//   0.0589 against 0.0092 ms at the main shape on an H100 (700 W;
-//   kernel_variants.py, PERF.md), so K/V re-reads from L2 are the cheaper
-//   side.
+//   KV head into one block reads each K/V tile once per 4 heads but
+//   leaves 32 blocks of 32 warps for 132 SMs: a compile-time variant that
+//   did so (since removed) measured 0.0589 against 0.0092 ms at the main
+//   shape on an H100 (700 W; PERF.md), so K/V re-reads from L2 are the
+//   cheaper side.
 //
 // f32 (the model-parity runs and f32 tests, tolerance 1e-4) keeps the
 // first version's FMA body below: TF32 tensor cores keep ~3 decimal
 // digits and would not meet 1e-4.
 
 #include "common.cuh"
-
-#ifndef FLASH_GQA_PACK
-#define FLASH_GQA_PACK 1
-#endif
 
 namespace {
 
@@ -79,59 +79,58 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * (H * 2) + ((c ^ (r & 7)) << 4);
 }
 
-template <int H, int GP>
+template <int H>
 struct FlashSmem {
   static constexpr int TILE = TBK * H * 2;  // bytes of one K or V tile
-  // The key halves' exchange at the end: per warp of the second half,
-  // its (o, m, l) fragments, lane-minor.
-  static constexpr int EXCH = GP * 4 * (H / 2 + 4) * 32 * 4;
+  // The key halves' sum at the end: per warp of the second half, its
+  // (o, l) fragments, lane-minor.
+  static constexpr int EXCH = 4 * (H / 2 + 2) * 32 * 4;
   static size_t bytes(int ntiles) {
-    const size_t main = static_cast<size_t>(GP) * TBQ * H * 2 + 4 * TILE +
-                        2 * TBQ * MROW +
-                        sizeof(int) * (2 * static_cast<size_t>(ntiles) + 1);
-    const size_t exch = static_cast<size_t>(GP) * TBQ * H * 2 + EXCH;
+    const size_t main = static_cast<size_t>(TBQ) * H * 2 + 4 * TILE + 2 * TBQ * MROW +
+                        sizeof(int) * (2 * static_cast<size_t>(ntiles) + 1) +
+                        sizeof(float) * 2 * TBQ;
+    const size_t exch = static_cast<size_t>(TBQ) * H * 2 + EXCH;
     return main > exch ? main : exch;
   }
 };
 
-// Grid (ceil(Tq / 64), N / GP, B); GP query heads of one KV head per
-// block, 8 warps each: warp w takes query rows 16 (w % 4) .. + 15 and the
-// key half w / 4 (32 keys) of every tile, with its own running (m, l, o);
-// the two halves are merged once, at the end.
-template <int H, int GP>
-__global__ void __launch_bounds__(256 * GP)
+// Grid (ceil(Tq / 64), N, B), 8 warps a block: warp w takes query rows
+// 16 (w % 4) .. + 15 and the key half w / 4 (32 keys) of every tile, with
+// its own running (l, o) and the slab's shared running max; the two
+// halves are summed once, at the end.
+template <int H>
+__global__ void __launch_bounds__(256)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   const int8_t* __restrict__ mask, __nv_bfloat16* __restrict__ out,
                   int Tq, int Tk, int N, int K, float scale, int causal) {
-  constexpr int THREADS = 256 * GP;
+  constexpr int THREADS = 256;
   constexpr int NCH = H / 8;   // 16-byte chunks per row
   constexpr int KS = H / 16;   // k-steps of QK^T
   constexpr int NT = H / 8;    // n-tiles of the output
-  using Sm = FlashSmem<H, GP>;
+  using Sm = FlashSmem<H>;
   extern __shared__ __align__(128) unsigned char tc_smem[];
-  unsigned char* qs = tc_smem;                             // [GP][64][H]
-  unsigned char* ks = qs + GP * TBQ * H * 2;               // [2][64][H]
+  unsigned char* qs = tc_smem;                             // [64][H]
+  unsigned char* ks = qs + TBQ * H * 2;                    // [2][64][H]
   unsigned char* vs = ks + 2 * Sm::TILE;                   // [2][64][H]
   int8_t* msk = reinterpret_cast<int8_t*>(vs + 2 * Sm::TILE);  // [2][64][MROW]
   int* live = reinterpret_cast<int*>(msk + 2 * TBQ * MROW);
   const int ntiles = (Tk + TBK - 1) / TBK;
   int* list = live + ntiles;
   int* nlive = list + ntiles;
+  float* tmax = reinterpret_cast<float*>(nlive + 1);      // [2 halves][64 rows]
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const int g = warp / 8;            // head within the block
-  const int kh = (warp / 4) % 2;     // key half of every tile
+  const int kh = warp / 4;           // key half of every tile
   const int w16 = (warp % 4) * 16;   // this warp's first row in the tile
   const int kb0 = 32 * kh;           // this warp's first key in a tile
   const int q0 = blockIdx.x * TBQ;
-  const int n = blockIdx.y * GP + g;
+  const int n = blockIdx.y;
   const int b = blockIdx.z;
-  const int G = N / K;
-  const int kvh = (blockIdx.y * GP) / G;
+  const int kvh = n / (N / K);
   const int rows = min(TBQ, Tq - q0);
   const int offset = Tk - Tq;
 
@@ -141,14 +140,13 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + static_cast<size_t>(b) * Tk * kv_rs + static_cast<size_t>(kvh) * H;
   const int8_t* mb = mask == nullptr ? nullptr : mask + (static_cast<size_t>(b) * Tq + q0) * Tk;
 
-  // Q tiles of the block's GP heads; rows past Tq are zero.
-  for (int e = tid; e < GP * TBQ * NCH; e += THREADS) {
-    const int gh = e / (TBQ * NCH), r = (e / NCH) % TBQ, c = e % NCH;
+  // The Q tile; rows past Tq are zero.
+  for (int e = tid; e < TBQ * NCH; e += THREADS) {
+    const int r = e / NCH, c = e % NCH;
     const bool in = r < rows;
-    const __nv_bfloat16* src =
-        q + (static_cast<size_t>(b) * Tq + q0 + (in ? r : 0)) * q_rs +
-        static_cast<size_t>(blockIdx.y * GP + gh) * H + c * 8;
-    rdb::cp_async16(qs + gh * TBQ * H * 2 + swz<H>(r, c), src, in);
+    const __nv_bfloat16* src = q + (static_cast<size_t>(b) * Tq + q0 + (in ? r : 0)) * q_rs +
+                               static_cast<size_t>(n) * H + c * 8;
+    rdb::cp_async16(qs + swz<H>(r, c), src, in);
   }
   rdb::cp_async_commit();
 
@@ -244,11 +242,10 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   if (nl > 0) issue(list[0], 0);
 
   // Q fragments (A operands), one per k-step, held for the whole scan.
-  const unsigned char* qw = qs + g * TBQ * H * 2;
   uint32_t qa[KS][4];
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk)
-    ldsm_x4(qa[kk], rdb::smem_addr(qw + swz<H>(w16 + (lane % 16), kk * 2 + lane / 16)));
+    ldsm_x4(qa[kk], rdb::smem_addr(qs + swz<H>(w16 + (lane % 16), kk * 2 + lane / 16)));
 
   float o[NT][4];
 #pragma unroll
@@ -319,11 +316,24 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         mx[c / 2] = fmaxf(mx[c / 2], x);
       }
     }
-    float corr[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    }
+    // The row max over the whole tile: this half's, then the other
+    // half's through shared memory (a named barrier for the slab's two
+    // warps; the previous tile's reads finished before the barrier that
+    // ended it).
+    if (lane % 4 == 0) {
+      tmax[kh * TBQ + w16 + lane / 4] = mx[0];
+      tmax[kh * TBQ + w16 + lane / 4 + 8] = mx[1];
+    }
+    asm volatile("bar.sync %0, 64;\n" ::"r"(1 + warp % 4) : "memory");
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], tmax[(1 - kh) * TBQ + w16 + lane / 4 + 8 * h]);
       const float m_new = fmaxf(m_r[h], mx[h]);
       corr[h] = __expf(m_r[h] - m_new);
       m_r[h] = m_new;
@@ -372,10 +382,10 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();  // this buffer is free for the tile after next
   }
 
-  // Finalize: l over the quad; the second key half hands its (o, m, l)
-  // to the first through shared memory (the K/V tiles are free now), which
-  // merges them with weights exp(m_h - M); a row with no attended key
-  // keeps l == 0 and gives 0.
+  // Finalize: l over the quad; the second key half hands its (o, l) to
+  // the first through shared memory (the K/V tiles are free now), which
+  // adds them — both halves carry the same running max, so the sum needs
+  // no weights; a row with no attended key keeps l == 0 and gives 0.
   float lq[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -384,35 +394,28 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     lq[h] = l;
   }
-  float* xw = reinterpret_cast<float*>(ks) + (g * 4 + warp % 4) * (NT * 4 + 4) * 32 + lane;
+  float* xw = reinterpret_cast<float*>(ks) + (warp % 4) * (NT * 4 + 2) * 32 + lane;
   if (kh == 1) {
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int c = 0; c < 4; ++c) xw[(nt * 4 + c) * 32] = o[nt][c];
-    xw[(NT * 4) * 32] = m_r[0];
-    xw[(NT * 4 + 1) * 32] = m_r[1];
-    xw[(NT * 4 + 2) * 32] = lq[0];
-    xw[(NT * 4 + 3) * 32] = lq[1];
+    xw[(NT * 4) * 32] = lq[0];
+    xw[(NT * 4 + 1) * 32] = lq[1];
   }
   __syncthreads();
   if (kh == 1) return;
-  float inv[2], w_own[2], w_other[2];
+  float inv[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const float m1 = xw[(NT * 4 + h) * 32];
-    const float M = fmaxf(m_r[h], m1);
-    w_own[h] = __expf(m_r[h] - M);
-    w_other[h] = __expf(m1 - M);
-    const float l = w_own[h] * lq[h] + w_other[h] * xw[(NT * 4 + 2 + h) * 32];
+    const float l = lq[h] + xw[(NT * 4 + h) * 32];
     inv[h] = l == 0.f ? 1.f : 1.f / l;  // one reciprocal a row, not H divisions
   }
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      o[nt][c] = w_own[c / 2] * o[nt][c] + w_other[c / 2] * xw[(nt * 4 + c) * 32];
-  unsigned char* ow = qs + g * TBQ * H * 2;
+    for (int c = 0; c < 4; ++c) o[nt][c] += xw[(nt * 4 + c) * 32];
+  unsigned char* ow = qs;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
@@ -437,25 +440,17 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         const int8_t* mask, void* out, int B, int Tq, int Tk,
                         int N, int K, float scale, int causal,
                         cudaStream_t stream) {
-  const int G = N / K;
-  const int ntiles = (Tk + TBK - 1) / TBK;
-  auto go = [&](auto gp) -> cudaError_t {
-    constexpr int GP = decltype(gp)::value;
-    const size_t smem = FlashSmem<H, GP>::bytes(ntiles);
-    auto kern = flash_bf16_kernel<H, GP>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    dim3 grid((Tq + TBQ - 1) / TBQ, N / GP, B);
-    kern<<<grid, 256 * GP, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), mask, static_cast<__nv_bfloat16*>(out),
-        Tq, Tk, N, K, scale, causal);
-    return cudaGetLastError();
-  };
-  if (FLASH_GQA_PACK > 1 && G % FLASH_GQA_PACK == 0)
-    return go(std::integral_constant<int, FLASH_GQA_PACK>());
-  return go(std::integral_constant<int, 1>());
+  const size_t smem = FlashSmem<H>::bytes((Tk + TBK - 1) / TBK);
+  auto kern = flash_bf16_kernel<H>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((Tq + TBQ - 1) / TBQ, N, B);
+  kern<<<grid, 256, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), mask, static_cast<__nv_bfloat16*>(out),
+      Tq, Tk, N, K, scale, causal);
+  return cudaGetLastError();
 }
 
 // --- f32: the FMA body -----------------------------------------------------

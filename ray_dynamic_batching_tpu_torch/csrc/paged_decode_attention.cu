@@ -112,13 +112,14 @@ template <typename T, typename TK, int H>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* k_scale, const float* v_scale,
                    const int* table, const int* lengths, void* out, float* ws,
-                   int* cnt, int B, int Tq, int N, int K, int P, int ps, int NP,
-                   float scale, cudaStream_t stream) {
+                   long long ws_len, int* cnt, int cnt_len, int B, int Tq, int N,
+                   int K, int P, int ps, int NP, float scale, cudaStream_t stream) {
   using Scan = rdb::DecodeScan<T, TK, H>;
   if (ps % Scan::BS != 0) return cudaErrorInvalidValue;
   if (Scan::QUANT && (k_scale == nullptr || v_scale == nullptr))
     return cudaErrorInvalidValue;
-  if (!Scan::merge_fits(Tq * (N / K), (NP * ps + Scan::SPLIT - 1) / Scan::SPLIT))
+  if (!Scan::merge_fits(Tq * (N / K), (NP * ps + Scan::SPLIT - 1) / Scan::SPLIT, B, K,
+                        ws_len, cnt_len))
     return cudaErrorInvalidValue;
   const size_t smem = Scan::smem_bytes(Tq * (N / K), 0);
   auto kern = paged_decode_kernel<T, TK, H>;
@@ -136,17 +137,17 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 template <typename T>
 cudaError_t launch_h(const void* q, const void* k, const void* v,
                      const float* ks, const float* vs, const int* tb,
-                     const int* ln, void* out, float* ws, int* cnt, int B,
-                     int Tq, int N, int K, int H, int P, int ps, int NP,
-                     float scale, int kv_int8, cudaStream_t st) {
+                     const int* ln, void* out, float* ws, long long wl, int* cnt,
+                     int cl, int B, int Tq, int N, int K, int H, int P, int ps,
+                     int NP, float scale, int kv_int8, cudaStream_t st) {
   if (kv_int8 && H == 64)
-    return launch<T, int8_t, 64>(q, k, v, ks, vs, tb, ln, out, ws, cnt, B, Tq, N, K, P, ps, NP, scale, st);
+    return launch<T, int8_t, 64>(q, k, v, ks, vs, tb, ln, out, ws, wl, cnt, cl, B, Tq, N, K, P, ps, NP, scale, st);
   if (kv_int8 && H == 128)
-    return launch<T, int8_t, 128>(q, k, v, ks, vs, tb, ln, out, ws, cnt, B, Tq, N, K, P, ps, NP, scale, st);
+    return launch<T, int8_t, 128>(q, k, v, ks, vs, tb, ln, out, ws, wl, cnt, cl, B, Tq, N, K, P, ps, NP, scale, st);
   if (!kv_int8 && H == 64)
-    return launch<T, T, 64>(q, k, v, nullptr, nullptr, tb, ln, out, ws, cnt, B, Tq, N, K, P, ps, NP, scale, st);
+    return launch<T, T, 64>(q, k, v, nullptr, nullptr, tb, ln, out, ws, wl, cnt, cl, B, Tq, N, K, P, ps, NP, scale, st);
   if (!kv_int8 && H == 128)
-    return launch<T, T, 128>(q, k, v, nullptr, nullptr, tb, ln, out, ws, cnt, B, Tq, N, K, P, ps, NP, scale, st);
+    return launch<T, T, 128>(q, k, v, nullptr, nullptr, tb, ln, out, ws, wl, cnt, cl, B, Tq, N, K, P, ps, NP, scale, st);
   return cudaErrorInvalidValue;
 }
 
@@ -164,7 +165,8 @@ extern "C" int rdb_paged_decode_attention(const void* q, const void* k,
                                           int Tq, int N, int K, int H, int P,
                                           int ps, int NP, float scale,
                                           int dtype, int kv_int8,
-                                          void* workspace, void* counters,
+                                          void* workspace, long long ws_len,
+                                          void* counters, int cnt_len,
                                           void* stream) {
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
@@ -174,10 +176,11 @@ extern "C" int rdb_paged_decode_attention(const void* q, const void* k,
   int* cnt = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_h<float>(q, k, v, ks, vs, tb, ln, out, ws, cnt, B, Tq, N, K,
-                           H, P, ps, NP, scale, kv_int8, st);
+    return launch_h<float>(q, k, v, ks, vs, tb, ln, out, ws, ws_len, cnt, cnt_len,
+                           B, Tq, N, K, H, P, ps, NP, scale, kv_int8, st);
   if (dtype == 1)
-    return launch_h<__nv_bfloat16>(q, k, v, ks, vs, tb, ln, out, ws, cnt, B, Tq,
-                                   N, K, H, P, ps, NP, scale, kv_int8, st);
+    return launch_h<__nv_bfloat16>(q, k, v, ks, vs, tb, ln, out, ws, ws_len, cnt,
+                                   cnt_len, B, Tq, N, K, H, P, ps, NP, scale,
+                                   kv_int8, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

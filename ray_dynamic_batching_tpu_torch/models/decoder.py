@@ -457,6 +457,9 @@ class DecoderModule(nn.Module):
         if self.cfg.pos == "rope":
             rope = rope_tables(positions, self.cfg.head_dim,
                                self.cfg.rope_theta)
+        # The int8 keep-mask the attention kernels read, made once here:
+        # every layer's kernel takes it as it is.
+        mask = attn_ops.kernel_mask(mask, *tokens.shape)
         write_index = None
         if cache is not None and page_table is not None:
             write_index = paged_write_index(positions, page_table,

@@ -36,6 +36,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # kernel -> (C entry point, argtypes); every entry point returns a
 # cudaError_t as int (0 = launched).
@@ -47,12 +48,12 @@ KERNELS: Dict[str, tuple] = {
     "decode_attention": (
         "rdb_decode_attention",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
-         _P, _P, _P],
+         _P, _L, _P, _I, _P],
     ),
     "paged_decode_attention": (
         "rdb_paged_decode_attention",
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-         _F, _I, _I, _P, _P, _P],
+         _F, _I, _I, _P, _L, _P, _I, _P],
     ),
 }
 

@@ -72,6 +72,17 @@ def reset_counts() -> None:
     _decode.paged_int8_launches = 0
 
 
+def kernel_mask(mask: Optional[torch.Tensor], B: int, Tq: int
+                ) -> Optional[torch.Tensor]:
+    """A mask broadcastable to [B, 1, Tq, S] (True = attend) -> the dense
+    int8 [B, 1, Tq, S] keep-mask the kernels read, which their wrappers
+    take as it is (no cast, no copy). A model makes it once per forward
+    for all its layers; a boolean mask would be cast again in each."""
+    if mask is None:
+        return None
+    return _flash.keep_mask(mask, B, Tq, mask.shape[-1]).unsqueeze(1)
+
+
 def route(q_shape: Sequence[int], k_shape: Sequence[int], *,
           causal: bool, mask_shape: Optional[Sequence[int]] = None,
           page_table_shape: Optional[Sequence[int]] = None,
@@ -126,6 +137,9 @@ def dot_product_attention(
     """Multi-head attention. q [B, Tq, N, H], k/v [B, Tk, K, H] with K
     dividing N (grouped-query attention); mask broadcastable to
     [B, 1, Tq, Tk], True = attend.
+
+    The mask may be boolean or the int8 keep-mask of :func:`kernel_mask`
+    (1 = attend), which the kernel routes take without a cast.
 
     ``k_scale``/``v_scale`` [B, Tk, K] f32: k/v are int8 KV-cache codes
     (``models/decoder.py::KVCache``); both or neither.
@@ -221,7 +235,8 @@ def reference_attention(
 ) -> torch.Tensor:
     """The counterpart of ``_xla_attention``: GQA by repeat, f32 logits,
     masked logits filled with -1e30 (so a fully masked row averages V),
-    probabilities cast to the input dtype before the PV product."""
+    probabilities cast to the input dtype before the PV product. The mask
+    is boolean or an int8 keep-mask (nonzero = attend)."""
     B, Tq, N, H = q.shape
     _, Tk, K, _ = k.shape
     if K != N:
@@ -236,7 +251,8 @@ def reference_attention(
                           device=q.device).tril(Tk - Tq)
         logits = logits.masked_fill(~keep, -1e30)
     if mask is not None:
-        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+        logits = torch.where(mask.bool(), logits,
+                             torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bnqk,bknh->bqnh", probs.float(),
                         v.float()).to(q.dtype)

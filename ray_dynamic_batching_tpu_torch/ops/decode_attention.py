@@ -181,7 +181,8 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 #: Split length of both decode kernels, in logical positions
-#: (``DecodeScan::SPLIT`` in ``csrc/common.cuh``).
+#: (``DecodeScan::SPLIT`` in ``csrc/common.cuh``): sizes the merge's
+#: workspace; the launch refuses a workspace too small for its own.
 SPLIT = 128
 
 # device index -> (f32 partials, int32 arrival counters), grown on demand.
@@ -226,7 +227,8 @@ def _launch(q, k, v, mask_i8, k_scale, v_scale, *, scale: float
     rc = lib.rdb_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
         _ptr(v_scale), _ptr(mask_i8), out.data_ptr(), B, Tq, S, N, K, H,
-        float(scale), dtype, int(int8), ws.data_ptr(), cnt.data_ptr(),
+        float(scale), dtype, int(int8), ws.data_ptr(), ws.numel(),
+        cnt.data_ptr(), cnt.numel(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "decode_attention")
@@ -336,7 +338,7 @@ def _launch_paged(q, k, v, page_table, lengths, k_scale, v_scale, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
         _ptr(v_scale), table.data_ptr(), lens.data_ptr(), out.data_ptr(), B,
         Tq, N, K, H, P, ps, NP, float(scale), dtype, int(int8),
-        ws.data_ptr(), cnt.data_ptr(),
+        ws.data_ptr(), ws.numel(), cnt.data_ptr(), cnt.numel(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "paged_decode_attention")

@@ -201,6 +201,24 @@ class TestDispatcherRule:
             1 if port_route == "plain" else 0)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
+    @pytest.mark.parametrize("Tq", [1, 12, 16])   # decode, plain, flash
+    def test_int8_keep_mask_from_kernel_mask(self, Tq):
+        """The model makes the int8 keep-mask once per forward: every route
+        gives on it what it gives on the boolean mask, and the kernels'
+        wrappers take it as it is (no copy)."""
+        rng = np.random.default_rng(Tq)
+        B, S, N, K, H = 2, 128, 4, 2, 32
+        q, k, v = _qkv(rng, B, Tq, S, N, K, H)
+        mask = _t(rng.random((B, 1, Tq, S)) < 0.7)
+        keep = t_attention.kernel_mask(mask, B, Tq)
+        assert keep.dtype == torch.int8 and tuple(keep.shape) == (B, 1, Tq, S)
+        assert t_flash.keep_mask(keep, B, Tq, S).data_ptr() == keep.data_ptr()
+        want = t_attention.dot_product_attention(_t(q), _t(k), _t(v),
+                                                 mask=mask)
+        got = t_attention.dot_product_attention(_t(q), _t(k), _t(v),
+                                                mask=keep)
+        assert torch.equal(got, want)
+
     def test_reference_attention_matches_xla_path(self):
         rng = np.random.default_rng(9)
         q, k, v = _qkv(rng, 2, 12, 40, 8, 2, 16)

@@ -280,6 +280,42 @@ def test_kernels_refuse_what_they_do_not_take(card):
                                    k_scale=scales, v_scale=scales)
 
 
+def test_decode_kernels_refuse_a_small_merge_workspace(card):
+    """The launch checks the split merge's workspace and counters against
+    the split length it was built with: too small is refused, never
+    written past; the exact size launches."""
+    from ray_dynamic_batching_tpu_torch.ops import _build
+
+    B, Tq, S, N, K, H = 1, 1, 256, 4, 2, 64
+    q = torch.zeros((B, Tq, N, H), device=card)
+    k = torch.zeros((B, S, K, H), device=card)
+    pool = torch.zeros((2, 128, K, H), device=card)
+    table = torch.tensor([[0, 1]], dtype=torch.int32, device=card)
+    lens = torch.tensor([200], dtype=torch.int32, device=card)
+    out = torch.empty_like(q)
+    need = B * K * (S // dec.SPLIT) * Tq * (N // K) * (H + 2)
+    cnt = torch.zeros((B * K,), dtype=torch.int32, device=card)
+    stream = torch.cuda.current_stream(card).cuda_stream
+    slab = _build.load("decode_attention")
+    paged = _build.load("paged_decode_attention")
+    for n_ws, n_cnt, ok in [(need - 1, B * K, False), (need, B * K - 1, False),
+                            (need, B * K, True)]:
+        ws = torch.zeros((need,), device=card)
+        rc = slab.rdb_decode_attention(
+            q.data_ptr(), k.data_ptr(), k.data_ptr(), None, None, None,
+            out.data_ptr(), B, Tq, S, N, K, H, 0.125, 0, 0, ws.data_ptr(),
+            n_ws, cnt.data_ptr(), n_cnt, stream)
+        assert (rc == 0) == ok
+        rc = paged.rdb_paged_decode_attention(
+            q.data_ptr(), pool.data_ptr(), pool.data_ptr(), None, None,
+            table.data_ptr(), lens.data_ptr(), out.data_ptr(), B, Tq, N, K,
+            H, 2, 128, 2, 0.125, 0, 0, ws.data_ptr(), n_ws, cnt.data_ptr(),
+            n_cnt, stream)
+        assert (rc == 0) == ok
+    torch.cuda.synchronize()
+    assert int(cnt.abs().sum().item()) == 0
+
+
 # --- the redesigned kernels: live-tile skipping and split-S ----------------
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_skips_void_tiles_exactly(card, dtype):

@@ -14,11 +14,17 @@ in interpret mode), on the same numpy inputs:
   attends no key at all, when everything is scanned.
 - **Flash live-tile skipping** (``csrc/flash_attention.cu``, kernel 1): a
   block of 64 query rows walks only the 64-key tiles where some row attends
-  some key under the mask and the causal rule.
+  some key under the mask and the causal rule. Each tile's keys are split
+  in two halves of 32, each with its own running (l, acc), both holding
+  the running max over the whole tile: p is rounded to v's type against
+  that max, where the reference rounds it; the halves are summed at the end.
 
 Each model is also run without skipping: the outputs must be bit-identical
-(skipping is exact, not merely close). Tolerance against JAX: atol 1e-5 in
-f32 — the same math summed in another order.
+(skipping is exact, not merely close). Tolerance against JAX: atol 1e-5 —
+the same math summed in another order. The flash model is also held to
+the JAX kernel with bf16 K/V and an f32 query of bf16 values, so that the
+output stays f32 and shows where p was rounded: at 1e-5 this tells the
+shared tile max from each half's own max, which the test checks too.
 """
 
 import jax.numpy as jnp
@@ -92,10 +98,14 @@ def split_scan_model(q, k, v, mask, split: int, skip: bool = True):
     return out
 
 
-def live_tile_flash_model(q, k, v, mask, causal: bool, skip: bool = True):
-    """Kernel 1's rule in PyTorch, f32: 64-row query blocks walk the
-    64-key tiles that some row of the block attends. mask bool [B, Tq, Tk]
-    or None."""
+def live_tile_flash_model(q, k, v, mask, causal: bool, skip: bool = True,
+                          shared_max: bool = True):
+    """Kernel 1's rule in PyTorch: 64-row query blocks walk the 64-key
+    tiles that some row of the block attends; each tile's two key halves
+    keep their own (l, acc) and, with ``shared_max``, the running max over
+    the whole tile (without it, each half's own: a departure the tests
+    must see). Scores and sums in f32, p rounded to v's type before PV.
+    mask bool [B, Tq, Tk] or None. Returns f32 [B, Tq, N, H]."""
     B, Tq, N, H = q.shape
     Tk, K = k.shape[1], k.shape[2]
     G = N // K
@@ -105,33 +115,49 @@ def live_tile_flash_model(q, k, v, mask, causal: bool, skip: bool = True):
                   <= torch.arange(Tq)[:, None] + (Tk - Tq))[None]
     if mask is not None:
         valid &= mask
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=torch.float32)
     for b in range(B):
         for q0 in range(0, Tq, 64):
             vb = valid[b, q0:q0 + 64]
             tiles = [t for t in range(-(-Tk // TILE))
                      if not skip or bool(vb[:, t * TILE:(t + 1) * TILE].any())]
             for n in range(N):
-                qb = q[b, q0:q0 + 64, n]
-                m = torch.full((qb.shape[0],), NEG_INF)
-                l = torch.zeros(qb.shape[0])
-                acc = torch.zeros(qb.shape[0], H)
+                qb = q[b, q0:q0 + 64, n].float()
+                R = qb.shape[0]
+                m = [torch.full((R,), NEG_INF) for _ in range(2)]
+                l = [torch.zeros(R) for _ in range(2)]
+                acc = [torch.zeros(R, H) for _ in range(2)]
                 for t in tiles:
-                    kt = k[b, t * TILE:(t + 1) * TILE, n // G]
-                    vt = v[b, t * TILE:(t + 1) * TILE, n // G]
-                    ok = vb[:, t * TILE:(t + 1) * TILE]
-                    sc = torch.where(ok, (qb @ kt.T) * H ** -0.5,
-                                     torch.full((qb.shape[0], kt.shape[0]),
-                                                NEG_INF))
-                    m_new = torch.maximum(m, sc.amax(dim=1))
-                    p = torch.where(ok, torch.exp(sc - m_new[:, None]),
-                                    torch.zeros_like(sc))
-                    corr = torch.exp(m - m_new)
-                    l = l * corr + p.sum(dim=1)
-                    acc = acc * corr[:, None] + p @ vt
-                    m = m_new
-                out[b, q0:q0 + 64, n] = acc / torch.where(
-                    l == 0, torch.ones_like(l), l)[:, None]
+                    halves = []
+                    for h in range(2):
+                        lo = t * TILE + 32 * h
+                        hi = min(lo + 32, Tk)
+                        if lo >= hi:
+                            continue           # ragged tail: no keys here
+                        ok = vb[:, lo:hi]
+                        sc = torch.where(
+                            ok, (qb @ k[b, lo:hi, n // G].float().T) * H ** -0.5,
+                            torch.full((R, hi - lo), NEG_INF))
+                        halves.append((h, lo, hi, ok, sc))
+                    tile_max = torch.stack(
+                        [sc.amax(dim=1) for *_, sc in halves]).amax(dim=0)
+                    for h, lo, hi, ok, sc in halves:
+                        mx = tile_max if shared_max else sc.amax(dim=1)
+                        m_new = torch.maximum(m[h], mx)
+                        p = torch.where(ok, torch.exp(sc - m_new[:, None]),
+                                        torch.zeros_like(sc))
+                        corr = torch.exp(m[h] - m_new)
+                        vt = v[b, lo:hi, n // G]
+                        l[h] = l[h] * corr + p.sum(dim=1)
+                        acc[h] = (acc[h] * corr[:, None]
+                                  + p.to(vt.dtype).float() @ vt.float())
+                        m[h] = m_new
+                M = torch.maximum(m[0], m[1])
+                w = [torch.exp(m[h] - M) for h in range(2)]
+                L = w[0] * l[0] + w[1] * l[1]
+                A = w[0][:, None] * acc[0] + w[1][:, None] * acc[1]
+                out[b, q0:q0 + 64, n] = A / torch.where(
+                    L == 0, torch.ones_like(L), L)[:, None]
     return out
 
 
@@ -228,3 +254,29 @@ def test_live_tile_skip_matches_the_jax_flash_kernel(case):
                                                   causal, skip=False))
     if case == "all_zero_batch_row":
         assert got[1].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("case", ["void_middle_tile_causal_mask",
+                                  "all_zero_batch_row",
+                                  "causal_offset_two_blocks"])
+def test_live_tile_skip_rounds_p_where_the_jax_flash_kernel_does(case):
+    """bf16 K/V: p is rounded to bf16 before PV against the running max
+    over the whole 64-key tile, in both key halves. The query is f32 (of
+    bf16 values), so the JAX kernel's output stays f32 and the rounding
+    point shows at 1e-5; rounding against each half's own max does not
+    meet it."""
+    rng = np.random.default_rng(len(case))
+    q, k, v, mask, causal = _flash_case(case, rng)
+    q = _t(q).bfloat16().float()
+    k, v = _t(k).bfloat16(), _t(v).bfloat16()
+    want = np.asarray(j_flash.flash_attention(
+        jnp.asarray(q.numpy()), jnp.asarray(k.float().numpy(), jnp.bfloat16),
+        jnp.asarray(v.float().numpy(), jnp.bfloat16), causal=causal,
+        mask=None if mask is None else jnp.asarray(mask[:, None]),
+        block_q=64, block_k=64, interpret=True))
+    assert want.dtype == np.float32
+    m = None if mask is None else _t(mask)
+    got = live_tile_flash_model(q, k, v, m, causal)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    own = live_tile_flash_model(q, k, v, m, causal, shared_max=False)
+    assert np.abs(own.numpy() - want).max() > 10 * ATOL
