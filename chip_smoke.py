@@ -48,20 +48,36 @@ last line:
    int8 KV cache) serves phase 6's 10 requests; the two long prompts go
    through the long fill;
 8. int8_paged — ``LLMDeployment("llama3_8b", paged=True,
-   quantize_kv=True)`` serves the same 10, and the cache bytes of the four
-   serving phases are printed side by side.
+   quantize_kv=True)`` serves the same 10, and the cache bytes of the
+   serving phases are printed side by side;
+9. slab_chunked — ``LLMDeployment("llama3_8b", chunked_prefill=True)``
+   (slab cache, token-budget chunk trains on row caches) serves the same
+   10: every prompt is a train of 64-token chunks; its tok/s and TTFT are
+   printed beside phases 5 and 7;
+10. front — the default deployment built as ``bench.py`` builds it:
+    ``make_replica`` -> ``Router(max_assign_timeout_s=30)`` ->
+    ``DeploymentHandle(default_slo_ms=300000)``, an ``HTTPProxy`` on
+    127.0.0.1 in front. Saturation: 16 greedy requests of 40-60 tokens
+    through ``handle.remote`` (tok/s, capacity = tok/s / 32 req/s); then
+    Poisson arrivals at 0.6 x capacity for 8 s from ``WorkloadDriver``
+    (TTFT p50 / p99, the engine's TTFT breakdown, KV occupancy, the
+    handle + router hop per request); then one buffered and one streamed
+    ``POST /api/llama3_8b``. Every request is answered (none rejected),
+    the router routed exactly the requests submitted, and the streamed
+    chunks equal the final line's tokens.
 
-Phases 5 to 8 each set every launch count to 0 just before they serve and
+Phases 5 to 10 each set every launch count to 0 just before they serve and
 read them just after: each kernel of the path must have launched the
 number of times the engine's dispatches imply, the other kernels and the
 plain route never.
 
 The line before the last is one JSON object with the per-kernel numbers
-(``launches`` sums the serving phases; ``launches_by_path`` splits them);
-the last line is ``{"ok": true, "device": {...}}``. ``--phases`` runs a
-subset (for bring-up); the default runs all. ``--profile`` traces each
-serving window with ``torch.profiler`` and prints the device's busy share
-and its time by kernel (used for PERF.md's breakdown).
+(``launches`` sums the serving phases; ``launches_by_path`` splits them)
+and the front phase's numbers (``front``); the last line is
+``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (for
+bring-up); the default runs all. ``--profile`` traces each serving window
+with ``torch.profiler`` and prints the device's busy share and its time by
+kernel (used for PERF.md's breakdown).
 
 Tolerances: bf16 2e-2 absolute — kernel and plain version both accumulate
 in f32 from the same bf16 inputs, and the outputs (|x| < 4) differ by at
@@ -81,6 +97,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import http.client
 import json
 import statistics
 import subprocess
@@ -786,17 +803,20 @@ def _serve(tag: str, payloads, dep_kwargs: dict, profile: bool):
     return results, counts, engine, replica, wall
 
 
-def _report(tag, results, counts, engine, wall) -> None:
+def _report(tag, results, counts, engine, wall) -> dict:
     ttfts = sorted(r.ttft_ms for r in results)
     n_tok = sum(len(r.tokens) for r in results)
+    summary = dict(tok_s=n_tok / wall, ttft_p50_ms=statistics.median(ttfts),
+                   ttft_max_ms=ttfts[-1])
     print(f"[{tag}] {len(results)} requests, {n_tok} tokens in {wall:.3f} s: "
-          f"{n_tok / wall:.1f} tok/s, TTFT p50 "
-          f"{statistics.median(ttfts):.1f} ms (max {ttfts[-1]:.1f} ms), "
+          f"{summary['tok_s']:.1f} tok/s, TTFT p50 "
+          f"{summary['ttft_p50_ms']:.1f} ms (max {ttfts[-1]:.1f} ms), "
           f"{engine.prefill_groups} prefill groups, {engine.chunk_dispatches}"
           f" chunk dispatches, {engine.long_chunk_dispatches} long-fill "
           f"chunks, {engine.steps} decode steps, launches {counts}",
           flush=True)
     print(f"[{tag}] TTFT parts {engine.ttft_breakdown()}", flush=True)
+    return summary
 
 
 def _payloads(rng, V, max_new, n_short, n_sampled, n_long) -> list:
@@ -827,17 +847,11 @@ def _cache_bytes(engine) -> int:
                      if t is not None])
 
 
-def _serving_phase(tag: str, payloads, knobs: dict, profile: bool) -> tuple:
-    """Serve ``payloads`` through a fresh deployment and hold every launch
-    count to what the engine's dispatches imply: each decode step runs the
-    arm's decode kernel once per layer; flash runs once per layer for each
-    prefill group, long-fill chunk (monolithic arms) or chunk dispatch
-    (paged + chunked); every other kernel and the plain route never.
-    Returns (counts, cache bytes)."""
-    gc.collect()
-    torch.cuda.empty_cache()
-    results, counts, engine, replica, wall = _serve(tag, payloads, knobs,
-                                                    profile)
+def _expect_dispatches(tag: str, counts: dict, engine) -> None:
+    """Each decode step runs the arm's decode kernel once per layer; flash
+    runs once per layer for each prefill group, long-fill chunk
+    (monolithic arms) or chunk dispatch (chunked arms); every other kernel
+    and the plain route never."""
     L = engine.model.cfg.num_layers
     int8 = "_int8" if engine.model.kv_dtype == torch.int8 else ""
     decode = ("paged_decode_attention" if engine.paged
@@ -848,11 +862,31 @@ def _serving_phase(tag: str, payloads, knobs: dict, profile: bool) -> tuple:
     if not all(want.values()):
         fail(f"{tag}: a kernel of the path never launched: {want}")
     _expect_only(tag, counts, want)
-    # The two long prompts: chunks of T, as multi-chunk trains (paged +
-    # chunked) or through the long fill (monolithic arms).
+
+
+def _serving_phase(tag: str, payloads, knobs: dict, profile: bool) -> tuple:
+    """Serve ``payloads`` through a fresh deployment and hold every launch
+    count to what the engine's dispatches imply (:func:`_expect_dispatches`).
+    Returns (counts, cache bytes, tok/s and TTFT summary)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    results, counts, engine, replica, wall = _serve(tag, payloads, knobs,
+                                                    profile)
+    _expect_dispatches(tag, counts, engine)
+    # The two long prompts: chunks of T, as multi-chunk trains (chunked
+    # arms) or through the long fill (monolithic arms).
     long_chunks = sum(-(-len(p["tokens"]) // T) for p in payloads
                       if len(p["tokens"]) > T)
-    if engine.chunked_prefill:
+    if engine.chunked_prefill and not engine.paged:
+        # Slab trains: every prompt is a train of T-token chunks.
+        chunks = sum(-(-len(p["tokens"]) // T) for p in payloads)
+        if (engine.chunk_dispatches != chunks or engine.prefill_groups
+                or engine.long_chunk_dispatches):
+            fail(f"{tag}: {engine.chunk_dispatches} chunk dispatches, "
+                 f"{engine.prefill_groups} prefill groups, "
+                 f"{engine.long_chunk_dispatches} long-fill chunks; expected "
+                 f"{chunks} chunk dispatches and nothing else")
+    elif engine.chunked_prefill:
         # A multi-chunk train dispatches alone, once per chunk.
         if engine.chunk_dispatches < long_chunks:
             fail(f"{tag}: {engine.chunk_dispatches} chunk dispatches cannot "
@@ -867,7 +901,9 @@ def _serving_phase(tag: str, payloads, knobs: dict, profile: bool) -> tuple:
         if engine._allocator.free_pages != engine.num_pages:
             fail(f"{tag}: {engine._allocator.free_pages} of "
                  f"{engine.num_pages} pages free after the drain")
-    _report(tag, results, counts, engine, wall)
+    summary = _report(tag, results, counts, engine, wall)
+    summary["ttft_long_ms"] = [r.ttft_ms for p, r in zip(payloads, results)
+                               if len(p["tokens"]) > T]
     if engine.paged:
         print(f"[{tag}] pool conserved: {engine.num_pages} of "
               f"{engine.num_pages} pages free after the drain", flush=True)
@@ -876,22 +912,209 @@ def _serving_phase(tag: str, payloads, knobs: dict, profile: bool) -> tuple:
           f"{engine.model.kv_bytes_per_slot(S) / 1e6:.1f} MB per slot at "
           f"max_len {S}", flush=True)
     replica.stop()
-    return counts, nbytes
+    return counts, nbytes, summary
 
 
 # phase -> (launch-count path name, payloads of rng seed / long prompts,
-# knobs): the int8 phases serve phase 6's 10 requests.
+# knobs): the int8 phases and slab_chunked serve phase 6's 10 requests.
 SERVING = {
     "main": ("slab", 0, 0, SLAB_KNOBS),
     "paged": ("paged", 1, 2, PAGED_KNOBS),
     "int8": ("int8", 1, 2, dict(SLAB_KNOBS, quantize_kv=True)),
     "int8_paged": ("int8_paged", 1, 2, dict(PAGED_KNOBS, quantize_kv=True)),
+    "slab_chunked": ("slab_chunked", 1, 2,
+                     dict(SLAB_KNOBS, chunked_prefill=True)),
 }
+
+
+# --- phase 10: the front door ----------------------------------------------
+def _answered(tag: str, fut, max_new: int):
+    """A routed request's result: every request is answered with
+    ``max_new`` tokens, none rejected."""
+    try:
+        res = fut.result(timeout=600)
+    except Exception as e:  # noqa: BLE001 — a rejection fails the run
+        fail(f"{tag}: request rejected or failed: {type(e).__name__}: {e}")
+    if len(res.tokens) != max_new or res.finish_reason != "length":
+        fail(f"{tag}: {len(res.tokens)} tokens, {res.finish_reason}")
+    return res
+
+
+def _post(proxy, path: str, payload: dict) -> tuple:
+    """One POST through the proxy: (status, body text)."""
+    conn = http.client.HTTPConnection(proxy.host, proxy.port, timeout=600)
+    try:
+        conn.request("POST", path, body=json.dumps(payload),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+    finally:
+        conn.close()
+
+
+def phase_front(profile: bool) -> tuple:
+    """Saturation, Poisson arrivals and HTTP through handle -> router ->
+    replica, the launch counts zeroed just before and read just after.
+    Returns (counts, the phase's numbers)."""
+    from ray_dynamic_batching_tpu_torch.engine.workload import (
+        RatePattern,
+        WorkloadDriver,
+        arrival_times,
+    )
+    from ray_dynamic_batching_tpu_torch.ops import attention
+    from ray_dynamic_batching_tpu_torch.serve.handle import DeploymentHandle
+    from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+    from ray_dynamic_batching_tpu_torch.serve.proxy import (
+        HTTPProxy,
+        ProxyRouter,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.replica import ReplicaConfig
+    from ray_dynamic_batching_tpu_torch.serve.router import Router
+
+    tag, max_new, duration_s = "front", 32, 8.0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    dep = LLMDeployment("llama3_8b", dtype=torch.bfloat16, seed=0,
+                        **SLAB_KNOBS)
+    replica = dep.make_replica(
+        "llama3_8b#bench",
+        ReplicaConfig(name="llama3_8b", max_ongoing_requests=4096))
+    engine = replica.engine
+    print(f"[{tag}] llama3_8b bf16 {engine.model.cfg.num_layers} layers "
+          f"(slab + mono), replica built and warmed in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    V = engine.model.cfg.vocab_size
+    rng = np.random.default_rng(2)
+
+    def payload() -> dict:
+        n = int(rng.integers(40, 61))
+        return {"tokens": rng.integers(0, V, n).tolist(),
+                "max_new_tokens": max_new}
+
+    routes = ProxyRouter()
+    proxy = HTTPProxy(routes, host="127.0.0.1", port=0)
+    router = None
+    prof = contextlib.nullcontext()
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as _profile
+
+        prof = _profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+    try:
+        with prof:
+            attention.reset_counts()
+            t_window = time.monotonic()
+            replica.start()
+            router = Router("llama3_8b", replicas=[replica],
+                            max_assign_timeout_s=30.0)
+            handle = DeploymentHandle(router, default_slo_ms=300_000.0)
+            routes.set_route("/api/llama3_8b", handle)
+            proxy.start()
+
+            # Saturation: every request at once.
+            t_sat = time.monotonic()
+            futs = [handle.remote(payload()) for _ in range(16)]
+            sat = [_answered(f"{tag} saturation", f, max_new) for f in futs]
+            sat_s = time.monotonic() - t_sat
+            tok_s = sum(len(r.tokens) for r in sat) / sat_s
+            capacity = tok_s / max_new
+            print(f"[{tag}] saturation: 16 requests, {16 * max_new} tokens in "
+                  f"{sat_s:.3f} s: {tok_s:.1f} tok/s, capacity "
+                  f"{capacity:.2f} req/s", flush=True)
+
+            # Poisson arrivals at 0.6 x capacity.
+            offered = 0.6 * capacity
+            engine.reset_ttft_window()
+            poisson_futs, hop_ms, seen_occ = [], [], []
+
+            def submit(_model: str, _offset: float) -> None:
+                p = payload()
+                seen_occ.append(engine.kv_occupancy())
+                t = time.perf_counter()
+                poisson_futs.append(handle.remote(p))
+                hop_ms.append((time.perf_counter() - t) * 1e3)
+
+            pattern = RatePattern("constant", base_rps=offered)
+            arrivals = len(list(arrival_times(pattern, duration_s, True, 7)))
+            driver = WorkloadDriver(submit, "llama3_8b", pattern,
+                                    duration_s=duration_s, poisson=True,
+                                    seed=7)
+            driver.start()
+            driver.join(duration_s + 60)
+            if driver._thread.is_alive():
+                fail(f"{tag}: the workload driver did not finish")
+            # The driver logs and skips a submit that raises: every
+            # scheduled arrival must have been submitted.
+            if driver.sent != arrivals or not arrivals:
+                fail(f"{tag}: {driver.sent} of {arrivals} arrivals submitted")
+            poisson = [_answered(f"{tag} poisson", f, max_new)
+                       for f in poisson_futs]
+            ttfts = sorted(r.ttft_ms for r in poisson)
+            p50 = statistics.median(ttfts)
+            p99 = ttfts[min(len(ttfts) - 1, int(len(ttfts) * 0.99))]
+            breakdown = engine.ttft_breakdown()
+            occupancy = engine.kv_occupancy()   # bench.py's read: drained
+            occ_seen = statistics.mean(seen_occ)
+            print(f"[{tag}] poisson @{offered:.2f} rps for {duration_s:.0f} s:"
+                  f" {len(poisson)} of {driver.sent} requests answered, TTFT "
+                  f"p50 {p50:.1f} ms p99 {p99:.1f} ms, handle + router hop "
+                  f"p50 {statistics.median(hop_ms):.3f} ms (max "
+                  f"{max(hop_ms):.3f}), TTFT parts {breakdown}, KV occupancy "
+                  f"{occupancy:.4f} drained, {occ_seen:.4f} mean as each "
+                  f"arrival saw it", flush=True)
+
+            # HTTP: one buffered and one streamed request.
+            code_b, body_b = _post(proxy, "/api/llama3_8b", payload())
+            code_s, body_s = _post(proxy, "/api/llama3_8b",
+                                   {**payload(), "stream": True})
+            wall = time.monotonic() - t_window
+            engine.stop()
+            torch.cuda.synchronize()
+            counts = _counts()
+    finally:
+        proxy.stop()
+        if router is not None:
+            router.close()
+        replica.stop(drain=False)
+    if profile:
+        _profile_report(prof, wall)
+    if code_b != 200 or code_s != 200:
+        fail(f"{tag}: HTTP {code_b} / {code_s}: {body_b[:200]} / "
+             f"{body_s[:200]}")
+    buffered = json.loads(body_b)["result"]["tokens"]
+    lines = [json.loads(ln) for ln in body_s.splitlines() if ln]
+    chunks = [ln["chunk"] for ln in lines if "chunk" in ln]
+    finals = [ln["result"] for ln in lines if "result" in ln]
+    if len(finals) != 1 or chunks != finals[0]["tokens"]:
+        fail(f"{tag}: streamed chunks {chunks} against final {finals}")
+    if len(buffered) != max_new or len(chunks) != max_new:
+        fail(f"{tag}: HTTP answers of {len(buffered)} and {len(chunks)} "
+             f"tokens, expected {max_new}")
+    print(f"[{tag}] HTTP: buffered 200 ({len(buffered)} tokens), streamed "
+          f"200 ({len(chunks)} chunks = the final line's tokens)", flush=True)
+    submitted = len(sat) + len(poisson) + 2
+    if router.total_routed != submitted:
+        fail(f"{tag}: router routed {router.total_routed}, "
+             f"{submitted} submitted")
+    _expect_dispatches(tag, counts, engine)
+    print(f"[{tag}] {submitted} requests routed, none rejected, "
+          f"{engine.prefill_groups} prefill groups, {engine.steps} decode "
+          f"steps, launches {counts}", flush=True)
+    numbers = dict(
+        saturation_tok_s=tok_s, capacity_rps=capacity, offered_rps=offered,
+        poisson_requests=len(poisson), ttft_p50_ms=p50, ttft_p99_ms=p99,
+        ttft_breakdown=breakdown, kv_occupancy=occupancy,
+        kv_occupancy_at_arrival=occ_seen,
+        hop_p50_ms=statistics.median(hop_ms), hop_max_ms=max(hop_ms),
+        routed=router.total_routed, http_buffered=code_b,
+        http_streamed=code_s)
+    return counts, numbers
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    all_phases = ["build", "kernels", "parity"] + list(SERVING)
+    all_phases = ["build", "kernels", "parity"] + list(SERVING) + ["front"]
     ap.add_argument("--phases", default=",".join(all_phases),
                     help=f"comma-separated subset of {','.join(all_phases)} "
                          "(the device phase always runs)")
@@ -908,21 +1131,37 @@ def main() -> None:
     kernels = phase_kernels() if "kernels" in phases else {}
     if "parity" in phases:
         phase_parity()
-    by_path, cache = {}, {}
+    by_path, cache, summary = {}, {}, {}
     for phase, (path, seed, n_long, knobs) in SERVING.items():
         if phase in phases:
             payloads = _payloads(np.random.default_rng(seed), 128256, 32, 8,
                                  2, n_long)
-            by_path[path], cache[path] = _serving_phase(
+            by_path[path], cache[path], summary[path] = _serving_phase(
                 phase, payloads, knobs, args.profile)
     if cache:
         print("[cache] KV cache bytes by serving phase: " + ", ".join(
             f"{p} {b / 1e9:.3f} GB" for p, b in cache.items()), flush=True)
+    if "slab_chunked" in summary:
+        beside = []
+        for p in ("slab", "int8", "slab_chunked"):
+            if p not in summary:
+                continue
+            s = summary[p]
+            longs = " / ".join(f"{t:.1f}" for t in s["ttft_long_ms"])
+            beside.append(
+                f"{p} {s['tok_s']:.1f} tok/s, TTFT p50 {s['ttft_p50_ms']:.1f}"
+                f" ms (max {s['ttft_max_ms']:.1f})"
+                + (f", the long prompts {longs} ms" if longs else ""))
+        print("[slab_chunked] beside main and int8: " + "; ".join(beside),
+              flush=True)
+    front = None
+    if "front" in phases:
+        by_path["front"], front = phase_front(args.profile)
     for name, row in kernels.items():
         split = {path: c[name] for path, c in by_path.items()}
         row["launches"] = sum(split.values()) if split else None
         row["launches_by_path"] = split
-    print(json.dumps({"kernels": list(kernels.values())}))
+    print(json.dumps({"kernels": list(kernels.values()), "front": front}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],
         "count": torch.cuda.device_count()}}))

@@ -21,7 +21,12 @@ of its arms:
   multi-chunk trains;
 - **paged + monolithic prefill** (``paged=True, chunked_prefill=False``):
   the slab arm's prefill and long fill, its rows cut into pages at
-  admission.
+  admission;
+- **slab + token-budget chunked prefill** (``chunked_prefill=True`` on a
+  slab engine): every admission becomes a chunk train on a private row
+  cache, advanced one chunk of the largest bucket at a time by the same
+  budget pump (:meth:`_advance_train_slab`, the long fill's chunk and
+  commit), so a long prompt stalls decode by at most one chunk.
 
 Every arm serves a model with an int8 KV cache (``kv_dtype=torch.int8``):
 the row copies carry the scale planes beside the codes.
@@ -37,10 +42,9 @@ the host (``engine/paging.py``); the device table has one writer,
 PyTorch runs eagerly, so there is nothing to compile: the reference's
 jit programs are plain methods, its donated buffers are tensors updated in
 place, and its group padding to compiled widths is gone (a group is
-exactly its rows, so no index is written twice). The slab-train arm
-(``chunked_prefill=True`` on a slab engine, which raises), speculative
-decoding, the prefix/session caches, the page fabric, weight quantisation
-and the mesh are later slices.
+exactly its rows, so no index is written twice). Speculative decoding,
+the prefix/session caches, the page fabric, weight quantisation and the
+mesh are later slices.
 
 Sampling: ``jax.random`` keys cannot be reproduced in torch, so sampled
 rows draw gumbel noise from a counter-based hash of (base_seed, request
@@ -113,7 +117,7 @@ class _Slot:
 class _ChunkTrain:
     """One admission mid-chunked-prefill: the unit the token-budget
     scheduler advances between decode turns. The train HOLDS its slot
-    (``_free_slots`` excludes it) and the pages granted so far
+    (``_free_slots`` excludes it) and — paged — the pages granted so far
     (``opts["_pages"]``); ``pos`` is the next position to prefill."""
 
     req: Request
@@ -123,6 +127,8 @@ class _ChunkTrain:
     C: int                 # chunk width
     total: int             # prompt length (prefill ends here)
     pos: int = 0
+    row: Any = None        # slab: the train's private row cache
+    last: Any = None       # slab: the last chunk's take-row logits
 
 
 def bucket_up(value: int, buckets: Sequence[int]) -> Optional[int]:
@@ -179,6 +185,20 @@ def copy_rows_into_paged(cache, rows, slots: torch.Tensor,
     cache.lengths.index_copy_(0, slots, rows.lengths)
 
 
+def run_chunk(chunk_fn, prompt: np.ndarray, pos: int, C: int, row, device):
+    """One chunk of ``prompt`` from ``pos``: up to ``C`` tokens, the tail
+    right-padded, through ``chunk_fn``. Returns (take-row logits, row,
+    tokens taken)."""
+    piece = prompt[pos: pos + C]
+    tokmask = np.zeros((2, 1, C), dtype=np.int32)
+    tokmask[0, 0, : piece.size] = piece
+    tokmask[1, 0, : piece.size] = 1
+    tokmask = torch.from_numpy(tokmask).to(device)
+    last, row = chunk_fn(tokmask[0], tokmask[1], row, pos,
+                         int(piece.size) - 1)
+    return last, row, int(piece.size)
+
+
 def run_chunked(chunk_fn, prompt: np.ndarray, C: int, row, device,
                 between=None):
     """Host loop driving ``chunk_fn`` over a prompt: full-width chunks, a
@@ -188,13 +208,7 @@ def run_chunked(chunk_fn, prompt: np.ndarray, C: int, row, device,
     n_chunks = (L + C - 1) // C
     last = None
     for ci in range(n_chunks):
-        piece = prompt[ci * C: (ci + 1) * C]
-        tokmask = np.zeros((2, 1, C), dtype=np.int32)
-        tokmask[0, 0, : piece.size] = piece
-        tokmask[1, 0, : piece.size] = 1
-        tokmask = torch.from_numpy(tokmask).to(device)
-        last, row = chunk_fn(tokmask[0], tokmask[1], row, ci * C,
-                             int(piece.size) - 1)
+        last, row, _ = run_chunk(chunk_fn, prompt, ci * C, C, row, device)
         if ci < n_chunks - 1 and between is not None:
             between()
     return last, row
@@ -314,12 +328,6 @@ class DecodeEngine:
             self._table_dirty = True
         if chunked_prefill is None:
             chunked_prefill = self.paged
-        if chunked_prefill and not self.paged:
-            raise ValueError(
-                "chunked_prefill=True on a slab engine needs the slab-train "
-                "arm (token-budget chunk trains on row caches; ROADMAP "
-                "queue 1 item 2), which is not ported yet: use paged=True"
-            )
         self.chunked_prefill = bool(chunked_prefill)
         with torch.inference_mode():
             if self.paged:
@@ -372,7 +380,7 @@ class DecodeEngine:
         self._run = threading.Event()
         self.steps = 0
         self.prefill_groups = 0      # monolithic prefill dispatches
-        self.chunk_dispatches = 0    # chunk-group dispatches
+        self.chunk_dispatches = 0    # chunk-train dispatches
         self.long_chunk_dispatches = 0   # long-fill chunk dispatches
         self.completed = 0
         self.last_heartbeat = time.monotonic()
@@ -454,10 +462,10 @@ class DecodeEngine:
         )
 
     @torch.inference_mode()
-    def _long_chunk_impl(self, tokens, attn_mask, row, start: int,
-                         take_idx: int):
-        """One long-fill chunk on the private row cache."""
-        self.long_chunk_dispatches += 1
+    def _row_chunk_impl(self, tokens, attn_mask, row, start: int,
+                        take_idx: int):
+        """One chunk on a private row cache (the long fill's and the slab
+        trains'); the caller counts it."""
         return self.model.prefill_chunk(tokens, attn_mask, row, start,
                                         take_idx)
 
@@ -563,10 +571,11 @@ class DecodeEngine:
 
     def warmup(self) -> None:
         """Build the kernels and run every admission shape — the
-        (bucket x group) prefill grid on monolithic arms; on the chunked
-        arm the chunk program at every bucket width and every group size
-        up to ``min(max_admissions_per_step, budget // W)`` (the largest
-        bucket's group of 1 is the multi-chunk train's shape) — plus a
+        (bucket x group) prefill grid on monolithic arms; on the paged
+        chunked arm the chunk program at every bucket width and every
+        group size up to ``min(max_admissions_per_step, budget // W)`` (the
+        largest bucket's group of 1 is the multi-chunk train's shape); on
+        the slab chunked arm its one row-cache chunk and commit — plus a
         greedy and a sampled decode step before serving: the reference's
         warmup grid, here priming the kernel build, the GEMM heuristics
         and the allocator instead of XLA compiles, so the first requests
@@ -580,7 +589,19 @@ class DecodeEngine:
             _build.build()
         dev = self.device
         K = self.max_bias_entries
-        for b in self.prompt_buckets:
+        slab_trains = self.chunked_prefill and not self.paged
+        if slab_trains:
+            C = self.prompt_buckets[-1]
+            with torch.inference_mode():
+                row = self.model.make_cache(1, self._long_row_cap(C))
+            last, row, _ = run_chunk(self._row_chunk_impl,
+                                     np.zeros((C,), np.int32), 0, C, row, dev)
+            self._commit_long_impl(
+                row, 0, torch.zeros((3,), dtype=torch.int32, device=dev),
+                last, torch.tensor([0.0, 1.0], device=dev),
+                torch.zeros((1, K), dtype=torch.int32, device=dev),
+                torch.zeros((1, K), device=dev), True)
+        for b in [] if slab_trains else self.prompt_buckets:
             top = self.max_admissions_per_step
             if self.chunked_prefill:
                 top = min(top, self.prefill_token_budget // b)
@@ -855,8 +876,20 @@ class DecodeEngine:
         C = self.prompt_buckets[-1]
         with torch.inference_mode():
             row = self.model.make_cache(1, self._long_row_cap(C))
-        last, row = run_chunked(self._long_chunk_impl, prompt, C, row,
-                                self.device, between=self._interleave_step)
+
+        def chunk(*args):
+            self.long_chunk_dispatches += 1
+            return self._row_chunk_impl(*args)
+
+        last, row = run_chunked(chunk, prompt, C, row, self.device,
+                                between=self._interleave_step)
+        self._commit_and_register(req, opts, slot_idx, row, last)
+
+    def _commit_and_register(self, req: Request, opts: Dict, slot_idx: int,
+                             row, last) -> None:
+        """Shared tail of every row-cache admission (the long fill, a slab
+        train's final chunk): ONE commit (the row into the shared cache +
+        first-token sample), then registration."""
         bids, bvals = self._bias_arrays(opts)
         pids = None
         if self.paged:
@@ -905,22 +938,33 @@ class DecodeEngine:
 
     def _start_train(self, req: Request, prompt: np.ndarray, bucket: int,
                      opts: Dict, slot_idx: int) -> None:
-        """Park one admission's chunk train for the budget pump. A
+        """Park one admission's chunk train for the budget pump. Paged: a
         bucketed prompt keeps its bucket as the chunk width, so
         same-bucket trains group into one program; a long prompt chunks
-        at the largest bucket."""
-        W = bucket if bucket > 0 else self.prompt_buckets[-1]
-        opts["_pages"] = []
+        at the largest bucket. Slab trains always chunk at the largest
+        bucket, on a private row cache of :meth:`_long_row_cap` (the
+        long fill's shapes, so one chunk and one commit serve every
+        train)."""
+        C_max = self.prompt_buckets[-1]
+        row = None
+        if self.paged:
+            W = bucket if bucket > 0 else C_max
+            opts["_pages"] = []
+        else:
+            W = C_max
+            with torch.inference_mode():
+                row = self.model.make_cache(1, self._long_row_cap(W))
         self._trains.append(_ChunkTrain(
             req=req, prompt=prompt, opts=opts, slot_idx=slot_idx, C=W,
-            total=int(prompt.size),
+            total=int(prompt.size), row=row,
         ))
         self._train_slots.add(slot_idx)
 
     def _pump_prefill(self) -> None:
         """Spend at most ``prefill_token_budget`` tokens advancing pending
-        chunk trains, FCFS from the oldest. Single-chunk trains of the
-        head's width group into one dispatch of at most
+        chunk trains, FCFS from the oldest. Slab trains advance one
+        row-cache chunk each. Paged: single-chunk trains of the head's
+        width group into one dispatch of at most
         ``min(max_admissions_per_step, budget // W)`` rows; a multi-chunk
         train dispatches alone. A train whose next chunk cannot get its
         pages parks for the round (live streams are never evicted to feed
@@ -937,6 +981,17 @@ class DecodeEngine:
                 (t for t in self._trains if id(t) not in parked), None)
             if head is None or head.C > budget:
                 break
+            if not self.paged:
+                try:
+                    self._advance_train_slab(head)
+                except Exception as e:  # noqa: BLE001 — no-dangle rule
+                    logger.exception("%s: chunk dispatch failed",
+                                     self.model.name)
+                    self._drop_train(head, e)
+                    continue
+                budget -= head.C
+                dispatched_any = True
+                continue
             members = [head]
             if head.total <= head.C:
                 cap = min(self.max_admissions_per_step,
@@ -966,7 +1021,7 @@ class DecodeEngine:
                 continue
             budget -= head.C * len(ready)
             dispatched_any = True
-        if (not dispatched_any and self._trains
+        if (self.paged and not dispatched_any and self._trains
                 and not self._active_mask.any()):
             self._relieve_train_starvation()
 
@@ -1056,6 +1111,20 @@ class DecodeEngine:
             self._retire_train(t)
             self._register(t.slot_idx, t.req, int(first_host[i]), t.opts,
                            t_done)
+
+    def _advance_train_slab(self, train: _ChunkTrain) -> None:
+        """One row-cache chunk for a slab train; the final chunk flows
+        into the commit (row into the shared cache + first-token sample)
+        and registration."""
+        train.last, train.row, take = run_chunk(
+            self._row_chunk_impl, train.prompt, train.pos, train.C,
+            train.row, self.device)
+        train.pos += take
+        self.chunk_dispatches += 1
+        if train.pos >= train.total:
+            self._retire_train(train)
+            self._commit_and_register(train.req, train.opts, train.slot_idx,
+                                      train.row, train.last)
 
     def _retire_train(self, train: _ChunkTrain) -> None:
         if train in self._trains:
@@ -1273,6 +1342,10 @@ class DecodeEngine:
         if len(self.queue) == 0:
             return self.ttft_horizon
         return 1
+
+    def reset_ttft_window(self) -> None:
+        """Drop the rolling TTFT window (benchmark phase boundaries)."""
+        self._ttft_parts.clear()
 
     def ttft_breakdown(self) -> Dict[str, float]:
         """p50/p95 of the TTFT components over the rolling window."""

@@ -7,14 +7,21 @@ makes replicas; each :class:`LLMReplica` owns a
 :class:`~ray_dynamic_batching_tpu_torch.engine.decode.DecodeEngine` whose
 request queue is the replica's admission queue.
 
+The replica surface (``queue_len`` / ``accepting`` / ``assign`` /
+``failure_sink`` / ``quarantine`` / ``healthy`` / ``stats``) is inherited
+from :class:`~ray_dynamic_batching_tpu_torch.serve.replica.Replica`, so the
+pow-2 router treats LLM replicas like batch replicas; the decode engine's
+own thread replaces the batch loop.
+
 This slice serves one length bucket with an explicit ``num_slots``, on a
 slab cache (the default) or the paged pool (``paged=True``: token-budget
 chunked prefill by default), in the model dtype or with the int8 KV cache
-(``quantize_kv=True``). Prompts longer than the largest bucket are served
-as multi-chunk trains (paged + chunked) or through the long fill (the
+(``quantize_kv=True``); ``chunked_prefill=True`` on the slab runs the
+slab-train arm. Prompts longer than the largest bucket are served as
+multi-chunk trains (the chunked arms) or through the long fill (the
 monolithic arms). The reference's auto-sizing (HBM model, measured
-tables), length buckets, speculative drafts, checkpoints and weight
-quantisation come later.
+tables), length buckets, speculative drafts, checkpoints, weight
+quantisation, prefix digests and the page fabric surface come later.
 
 Payload contract (as the reference)::
 
@@ -43,6 +50,7 @@ from ray_dynamic_batching_tpu_torch.serve.replica import (
     ReplicaConfig,
 )
 from ray_dynamic_batching_tpu_torch.utils.logging import get_logger
+from ray_dynamic_batching_tpu_torch.utils.sketch import QuantileSketch
 
 logger = get_logger("torch.serve.llm")
 
@@ -54,7 +62,9 @@ class LLMReplica(Replica):
     that receives that bucket's request queue and returns an un-started
     :class:`DecodeEngine`; admission routes each request to the smallest
     bucket that fits prompt + max_new_tokens. Engines warm up (kernel
-    build + one prefill and decode) at construction."""
+    build + one prefill and decode) at construction. The router wires
+    ``failure_sink`` and ``quarantine`` on registration; the engines,
+    not the batch loop, execute, so neither fires here."""
 
     def __init__(
         self,
@@ -65,7 +75,12 @@ class LLMReplica(Replica):
         warmup: bool = True,
         default_max_new_tokens: int = 64,
     ) -> None:
-        super().__init__(replica_id, deployment, max_ongoing_requests)
+        super().__init__(
+            replica_id=replica_id,
+            deployment=deployment,
+            fn=self._reject_batch_path,  # engines own execution, not the loop
+            max_ongoing_requests=max_ongoing_requests,
+        )
         self.default_max_new_tokens = default_max_new_tokens
         # Admission goes straight to the per-bucket queues below.
         self.queue.close()
@@ -83,6 +98,10 @@ class LLMReplica(Replica):
     @property
     def engine(self) -> DecodeEngine:
         return self.engines[max(self.engines)]
+
+    @staticmethod
+    def _reject_batch_path(payloads: List[Any]) -> Sequence[Any]:
+        raise RuntimeError("LLMReplica executes via its DecodeEngines")
 
     def _engine_for(self, payload: Any) -> int:
         max_new = self.default_max_new_tokens
@@ -116,7 +135,7 @@ class LLMReplica(Replica):
         self._stopped = True
         if drain:
             deadline = time.monotonic() + timeout_s
-            while self.queue_len() > 0 and time.monotonic() < deadline:
+            while self._unfinished() > 0 and time.monotonic() < deadline:
                 time.sleep(0.01)
         exc = RequestDropped(f"{self.replica_id} stopped")
         for engine in self.engines.values():
@@ -146,11 +165,20 @@ class LLMReplica(Replica):
         return out
 
     def queue_len(self) -> int:
+        """The pow-2 routing signal, as the reference counts it: queued +
+        decoding + mid-admission. Pending chunk trains are not counted, so
+        both packages route the same engine state the same way."""
         return sum(
             len(q) + self.engines[b].active_slots + self.engines[b]._admitting
-            + len(self.engines[b]._trains)
             for b, q in self._queues.items()
         )
+
+    def _unfinished(self) -> int:
+        """:meth:`queue_len` plus pending chunk trains: what a draining
+        :meth:`stop` waits for, so it never aborts a train that holds a
+        slot (the reference's drain reads ``queue_len`` and can)."""
+        return self.queue_len() + sum(
+            len(e._trains) for e in self.engines.values())
 
     def healthy(self, stall_timeout_s: float = 60.0) -> bool:
         """Every engine's loop thread alive and making progress."""
@@ -163,8 +191,18 @@ class LLMReplica(Replica):
         return True
 
     def slo_compliance(self) -> float:
+        """Worst recent compliance across the bucket queues (the base
+        queue is closed here)."""
         return min((q.slo_compliance() for q in self._queues.values()),
                    default=1.0)
+
+    def latency_observation(self) -> tuple:
+        """Merged recent-latency sketch across the bucket queues: the gray
+        detector's and the hedge bar's read."""
+        views = [q.latency_window.view() for q in self._queues.values()]
+        merged = QuantileSketch.merged(views)
+        return (merged.percentile(0.5), merged.percentile(0.95),
+                len(merged))
 
     def stats(self) -> dict:
         s: dict = {}

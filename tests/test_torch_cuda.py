@@ -9,7 +9,8 @@ both decode kernels at the same shapes (int8 codes, f32 scales, q in f32
 and bf16); for the live-tile skip and the split-S merge: a void KV tile
 between live ones, an all-zero mask row, a window row that attends
 nothing beside normal slots, whole void splits, a ragged last split, and
-slab/paged bit-identity at split boundaries. This file imports no JAX, so
+slab/paged bit-identity at split boundaries; a slab train's chunk over its
+row cache of 576 positions. This file imports no JAX, so
 it runs on a machine without it::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -431,3 +432,28 @@ def test_slab_and_paged_agree_at_split_boundaries(card, int8):
                                 mask=paged_window_mask(lengths, S, Tq),
                                 k_scale=ks, v_scale=vs)
     assert torch.equal(paged, slab)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("start", [0, 64, 192, 448])
+def test_flash_kernel_on_a_slab_train_chunk(card, dtype, start):
+    """A slab train's chunk as the model calls flash: q [1, 64, 32, 128]
+    over its row cache of ``_long_row_cap(64)`` = 576 positions (max_len
+    512 in whole chunks plus a spare one), each row at global position p
+    attending [0, p] — the live tiles grow with ``start``, the tail past
+    the chunk is void."""
+    gen = torch.Generator(device=card).manual_seed(start)
+    C, S = 64, 576
+    q = _rand(gen, (1, C, 32, 128), dtype, card)
+    k = _rand(gen, (1, S, 8, 128), dtype, card)
+    v = _rand(gen, (1, S, 8, 128), dtype, card)
+    positions = start + torch.arange(C, device=card)
+    mask = (torch.arange(S, device=card)[None, None, None, :]
+            <= positions[None, None, :, None])
+    keep = fl.keep_mask(mask, 1, C, S)
+    before = fl.launches
+    out = fl.flash_attention(q, k, v, mask=keep[:, None])
+    torch.cuda.synchronize()
+    assert fl.launches == before + 1
+    ref = fl.flash_attention_plain(q, k, v, keep)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]

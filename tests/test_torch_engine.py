@@ -306,10 +306,17 @@ def test_paged_generation_stops_at_max_len_like_slab(models):
 
 
 def test_chunked_prefill_on_a_slab_engine_names_long_fill(models):
-    _jm, _params, tm = models
-    with pytest.raises(ValueError, match="slab-train"):
-        DecodeEngine(tm, RequestQueue("t"), device="cpu",
-                     chunked_prefill=True, **ENGINE)
+    """``chunked_prefill=True`` on a slab engine serves the slab-train arm:
+    a prompt past the largest bucket (20 > 16) runs as a two-chunk train
+    instead of the long fill, with the JAX engine's stream; the bad page
+    configurations still raise."""
+    jm, params, tm = models
+    payload = [{"tokens": list(range(20))}]
+    want = _serve_jax(jm, params, payload, chunked_prefill=True, **ENGINE)
+    got, engine = _serve_torch(tm, payload, chunked_prefill=True)
+    assert got[0].tokens == want[0].tokens
+    assert engine.chunked_prefill and not engine.paged
+    assert engine.chunk_dispatches == 2 and engine.long_chunk_dispatches == 0
     with pytest.raises(ValueError, match="multiple of 128"):
         DecodeEngine(tm, RequestQueue("t"), device="cpu", paged=True,
                      page_size=64, **ENGINE)
