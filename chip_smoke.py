@@ -64,16 +64,37 @@ last line:
     handle + router hop per request); then one buffered and one streamed
     ``POST /api/llama3_8b``. Every request is answered (none rejected),
     the router routed exactly the requests submitted, and the streamed
-    chunks equal the final line's tokens.
+    chunks equal the final line's tokens;
+11. controller — the declarative path of the README: ``apply_config``
+    deploys application ``chat`` (route ``/chat``) with one ``llm:``
+    deployment ``llama3_8b`` (phase 5's knobs, version ``v1``,
+    ``max_ongoing_requests`` 4096) on the module controller and the module
+    HTTP proxy that ``serve.api`` starts. Through the returned handle: 16
+    saturating requests (tok/s and TTFT p50 beside phase 10's), one
+    buffered and one streamed ``POST /chat``, ``serve.api.status()``; a
+    redeploy of the same version with ``max_ongoing_requests`` 128
+    reconfigures the live replica and every bucket queue; a wedged engine
+    is replaced by the control loop and a 48-token probe served alone
+    gives the same greedy tokens before and after; a 96-token generation
+    decoding on v1 finishes through the rolling update to ``v2`` (the v1
+    model through ``model=``, ``default_max_new_tokens`` 40), after which
+    a request without ``max_new_tokens`` gets 40 tokens; after
+    ``serve.api.shutdown()`` the device memory is back within 0.5 GB of
+    its value before the phase.
 
-Phases 5 to 10 each set every launch count to 0 just before they serve and
+Phases 5 to 11 each set every launch count to 0 just before they serve and
 read them just after: each kernel of the path must have launched the
 number of times the engine's dispatches imply, the other kernels and the
-plain route never.
+plain route never. Phase 11 builds three engines inside its window (v1,
+the heal's replacement, v2), and each engine's warmup launches its
+prefill grid (one group of each size up to 4 at the one bucket) and two
+decode steps; those warmup dispatches are added to the dispatches the
+engines counted while serving.
 
 The line before the last is one JSON object with the per-kernel numbers
 (``launches`` sums the serving phases; ``launches_by_path`` splits them)
-and the front phase's numbers (``front``); the last line is
+and the numbers of the front and controller phases (``front``,
+``controller``); the last line is
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (for
 bring-up); the default runs all. ``--profile`` traces each serving window
 with ``torch.profiler`` and prints the device's busy share and its time by
@@ -757,12 +778,16 @@ def _serve(tag: str, payloads, dep_kwargs: dict, profile: bool):
     engine, wall seconds). The loop thread is stopped, the replica not."""
     from ray_dynamic_batching_tpu_torch.engine.request import Request
     from ray_dynamic_batching_tpu_torch.ops import attention
+    from ray_dynamic_batching_tpu_torch.serve.controller import (
+        DeploymentConfig,
+    )
     from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
 
     t0 = time.monotonic()
     dep = LLMDeployment("llama3_8b", dtype=torch.bfloat16, seed=0,
                         **dep_kwargs)
-    replica = dep.make_replica("llama3_8b-0")
+    replica = dep.make_replica("llama3_8b-0",
+                               DeploymentConfig(name="llama3_8b"))
     engine = replica.engine
     kv = "int8" if engine.model.kv_dtype == torch.int8 else "bf16"
     print(f"[{tag}] llama3_8b bf16 {engine.model.cfg.num_layers} layers, "
@@ -962,13 +987,15 @@ def phase_front(profile: bool) -> tuple:
         arrival_times,
     )
     from ray_dynamic_batching_tpu_torch.ops import attention
+    from ray_dynamic_batching_tpu_torch.serve.controller import (
+        DeploymentConfig,
+    )
     from ray_dynamic_batching_tpu_torch.serve.handle import DeploymentHandle
     from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
     from ray_dynamic_batching_tpu_torch.serve.proxy import (
         HTTPProxy,
         ProxyRouter,
     )
-    from ray_dynamic_batching_tpu_torch.serve.replica import ReplicaConfig
     from ray_dynamic_batching_tpu_torch.serve.router import Router
 
     tag, max_new, duration_s = "front", 32, 8.0
@@ -979,7 +1006,7 @@ def phase_front(profile: bool) -> tuple:
                         **SLAB_KNOBS)
     replica = dep.make_replica(
         "llama3_8b#bench",
-        ReplicaConfig(name="llama3_8b", max_ongoing_requests=4096))
+        DeploymentConfig(name="llama3_8b", max_ongoing_requests=4096))
     engine = replica.engine
     print(f"[{tag}] llama3_8b bf16 {engine.model.cfg.num_layers} layers "
           f"(slab + mono), replica built and warmed in "
@@ -1112,9 +1139,244 @@ def phase_front(profile: bool) -> tuple:
     return counts, numbers
 
 
+# --- phase 11: the controller and the declarative entry points -------------
+WARMUP_FILLS = NB       # one prefill group of each size 1..NB at bucket T
+WARMUP_STEPS = 2        # one greedy and one sampled decode step
+
+
+def _controller_run(front: dict | None) -> dict:
+    """Deploy through ``apply_config``, then saturate, call over HTTP,
+    read the status, redeploy in place, heal a wedged engine and roll to
+    v2; shut everything down. Returns plain numbers only, so nothing of
+    the phase outlives this call."""
+    from ray_dynamic_batching_tpu_torch.ops import attention
+    from ray_dynamic_batching_tpu_torch.serve import api as serve
+    from ray_dynamic_batching_tpu_torch.serve.controller import (
+        DeploymentConfig,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+    from ray_dynamic_batching_tpu_torch.serve.schema import (
+        ServeConfigSchema,
+        apply_config,
+    )
+
+    tag, max_new, name = "controller", 32, "llama3_8b"
+    rng = np.random.default_rng(11)
+
+    def payload(n_new=max_new) -> dict:
+        n = int(rng.integers(40, 61))
+        out = {"tokens": rng.integers(0, 128256, n).tolist()}
+        if n_new is not None:
+            out["max_new_tokens"] = n_new
+        return out
+
+    built = {}      # replica id -> replica: every engine the window built
+
+    def track(router) -> None:
+        for r in router.replicas():
+            built.setdefault(r.replica_id, r)
+
+    config = ServeConfigSchema.from_dict({"applications": [{
+        "name": "chat", "route_prefix": "/chat",
+        "deployments": [{
+            "name": name,
+            "llm": {"model": name, "dtype": "bfloat16", "seed": 0,
+                    **SLAB_KNOBS},
+            "version": "v1", "max_ongoing_requests": 4096,
+        }],
+    }]})
+    out = {}
+    attention.reset_counts()
+    t_phase = time.monotonic()
+    try:
+        # 1. Deploy: the module controller and proxy, as the README does.
+        handle = apply_config(config)[name]
+        ctl = serve._get_controller()
+        router = ctl.get_router(name)
+        track(router)
+        out["deploy_s"] = time.monotonic() - t_phase
+        print(f"[{tag}] apply_config deployed {name} (v1) on the module "
+              f"controller (control interval {ctl.control_interval_s} s) in "
+              f"{out['deploy_s']:.1f} s", flush=True)
+
+        # 2. Saturation through the handle.
+        t_sat = time.monotonic()
+        futs = [handle.remote(payload()) for _ in range(16)]
+        sat = [_answered(f"{tag} saturation", f, max_new) for f in futs]
+        sat_s = time.monotonic() - t_sat
+        out["saturation_tok_s"] = sum(len(r.tokens) for r in sat) / sat_s
+        out["saturation_ttft_p50_ms"] = statistics.median(
+            r.ttft_ms for r in sat)
+        beside = ("" if front is None else
+                  f"; phase 10 in this call: {front['saturation_tok_s']:.1f}"
+                  " tok/s")
+        print(f"[{tag}] saturation: 16 requests, {16 * max_new} tokens in "
+              f"{sat_s:.3f} s: {out['saturation_tok_s']:.1f} tok/s, TTFT p50 "
+              f"{out['saturation_ttft_p50_ms']:.1f} ms{beside}", flush=True)
+
+        # 3. HTTP through the module proxy.
+        proxy = serve.get_proxy()
+        code_b, body_b = _post(proxy, "/chat", payload())
+        code_s, body_s = _post(proxy, "/chat", {**payload(), "stream": True})
+        if code_b != 200 or code_s != 200:
+            fail(f"{tag}: HTTP {code_b} / {code_s}: {body_b[:200]} / "
+                 f"{body_s[:200]}")
+        buffered = json.loads(body_b)["result"]["tokens"]
+        lines = [json.loads(ln) for ln in body_s.splitlines() if ln]
+        chunks = [ln["chunk"] for ln in lines if "chunk" in ln]
+        finals = [ln["result"] for ln in lines if "result" in ln]
+        if len(finals) != 1 or chunks != finals[0]["tokens"]:
+            fail(f"{tag}: streamed chunks {chunks} against final {finals}")
+        if len(buffered) != max_new or len(chunks) != max_new:
+            fail(f"{tag}: HTTP answers of {len(buffered)} and {len(chunks)} "
+                 f"tokens, expected {max_new}")
+        out["http"] = [code_b, code_s]
+        print(f"[{tag}] HTTP /chat: buffered 200 ({len(buffered)} tokens), "
+              f"streamed 200 ({len(chunks)} chunks = the final line's "
+              "tokens)", flush=True)
+
+        # 4. Status.
+        st = serve.status()[name]
+        stats = next(iter(st["replicas"].values()))
+        if st["running_replicas"] != 1 or not {
+                "active_slots", "decode_steps"} <= set(stats):
+            fail(f"{tag}: status {st['running_replicas']} running, replica "
+                 f"stats {sorted(stats)}")
+        print(f"[{tag}] status: running_replicas 1, active_slots "
+              f"{stats['active_slots']:.0f}, decode_steps "
+              f"{stats['decode_steps']:.0f}, versions {st['versions']}",
+              flush=True)
+
+        # 5. Redeploy in place: same replica, the bound on every queue.
+        replica = router.replicas()[0]
+        ctl.deploy(DeploymentConfig(name=name, version="v1",
+                                    max_ongoing_requests=128,
+                                    user_config={"note": "redeploy"}))
+        caps = [q.max_len for q in replica._queues.values()]
+        if (router.replicas() != [replica]
+                or replica.max_ongoing_requests != 128 or caps != [128]):
+            fail(f"{tag}: redeploy rebuilt the replica or missed the queues:"
+                 f" {replica.max_ongoing_requests}, queues {caps}")
+        _answered(f"{tag} redeploy", handle.remote(payload()), max_new)
+        print(f"[{tag}] redeploy in place: same replica "
+              f"{replica.replica_id}, max_ongoing_requests 128 on the replica"
+              f" and its {len(caps)} bucket queue(s); a request served",
+              flush=True)
+
+        # 6. Heal: wedge the engine, the control loop replaces the replica.
+        probe = {"tokens": np.random.default_rng(48).integers(
+            0, 128256, 48).tolist(), "max_new_tokens": max_new}
+        before = _answered(f"{tag} probe", handle.remote(dict(probe)),
+                           max_new).tokens
+        victim = replica
+        t_wedge = time.monotonic()
+        victim.engine._run.clear()
+        victim.engine.last_heartbeat -= 3600.0
+        while True:
+            reps = router.replicas()
+            if reps and reps[0] is not victim and reps[0].healthy():
+                break
+            if time.monotonic() - t_wedge > 120:
+                fail(f"{tag}: the wedged replica was not replaced in 120 s")
+            time.sleep(0.05)
+        replaced_s = time.monotonic() - t_wedge
+        track(router)
+        after = _answered(f"{tag} probe after heal",
+                          handle.remote(dict(probe)), max_new).tokens
+        out["heal_s"] = time.monotonic() - t_wedge
+        out["heal_replaced_s"] = replaced_s
+        if after != before:
+            print(f"[{tag}] probe before the heal: {before}", flush=True)
+            print(f"[{tag}] probe after the heal:  {after}", flush=True)
+            fail(f"{tag}: the healed replica's greedy tokens differ")
+        print(f"[{tag}] heal: {victim.replica_id} wedged, replaced by "
+              f"{reps[0].replica_id} (healthy) in {replaced_s:.2f} s, serving "
+              f"again {out['heal_s']:.2f} s after the wedge; the 48-token "
+              f"probe gives the same {max_new} greedy tokens", flush=True)
+
+        # 7. Rolling update to v2 while a 96-token generation decodes.
+        old = reps[0]
+        done_before = old.engine.completed
+        inflight = handle.remote({**payload(None), "max_new_tokens": 96})
+        deadline = time.monotonic() + 60
+        while old.engine.active_slots == 0 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        if old.engine.active_slots == 0:
+            fail(f"{tag}: the 96-token generation never started decoding")
+        v2 = LLMDeployment(name, model=old.engine.model, dtype=torch.bfloat16,
+                           **dict(SLAB_KNOBS, default_max_new_tokens=40))
+        t_roll = time.monotonic()
+        ctl.deploy(DeploymentConfig(name=name, version="v2",
+                                    max_ongoing_requests=4096), factory=v2)
+        out["rollout_s"] = time.monotonic() - t_roll
+        track(router)
+        if not inflight.done():
+            fail(f"{tag}: deploy(v2) returned before v1 drained")
+        res = _answered(f"{tag} in-flight", inflight, 96)
+        if old.engine.completed - done_before != 1:
+            fail(f"{tag}: the in-flight request did not finish on v1")
+        versions = serve.status()[name]["versions"]
+        if versions != {"v2": 1}:
+            fail(f"{tag}: versions {versions} after the rollout")
+        fresh = _answered(f"{tag} v2 default", handle.remote(payload(None)),
+                          40)
+        print(f"[{tag}] rolling update: the 96-token generation finished on "
+              f"{old.replica_id} (v1, {len(res.tokens)} tokens) through the "
+              f"graceful drain; deploy(v2) took {out['rollout_s']:.2f} s; "
+              f"versions {versions}; a request without max_new_tokens got "
+              f"{len(fresh.tokens)} tokens", flush=True)
+    finally:
+        serve.shutdown()
+    wall = time.monotonic() - t_phase
+    torch.cuda.synchronize()
+    counts = _counts()
+
+    # Launches: 32 x (the dispatches the engines counted + warmup).
+    engines = [r.engine for r in built.values()]
+    L = engines[0].model.cfg.num_layers
+    fills = sum(e.prefill_groups + e.long_chunk_dispatches
+                + e.chunk_dispatches for e in engines)
+    steps = sum(e.steps for e in engines)
+    if any(e.paged or e.chunked_prefill or e.model.kv_dtype == torch.int8
+           or e.max_admissions_per_step != WARMUP_FILLS
+           or len(e.prompt_buckets) != 1 for e in engines):
+        fail(f"{tag}: an engine off the slab + mono arm")
+    want = {"flash_attention": L * (fills + WARMUP_FILLS * len(engines)),
+            "decode_attention": L * (steps + WARMUP_STEPS * len(engines))}
+    _expect_only(tag, counts, want)
+    print(f"[{tag}] {len(engines)} engines built in the window "
+          f"({', '.join(built)}): {fills} prefill dispatches + "
+          f"{WARMUP_FILLS} x {len(engines)} warmup groups, {steps} decode "
+          f"steps + {WARMUP_STEPS} x {len(engines)} warmup steps; launches "
+          f"{counts}; phase wall time {wall:.1f} s", flush=True)
+    out.update(counts=counts, engines=len(engines), dispatches=fills,
+               steps=steps, wall_s=wall)
+    return out
+
+
+def phase_controller(front: dict | None) -> tuple:
+    """Phase 11; returns (counts, the phase's numbers)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_before = torch.cuda.memory_allocated()
+    out = _controller_run(front)
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
+    print(f"[controller] device memory allocated: {mem_before / 1e9:.3f} GB "
+          f"before the phase, {mem_after / 1e9:.3f} GB after the shutdown",
+          flush=True)
+    if abs(mem_after - mem_before) > 0.5e9:
+        fail("controller: a replaced or retired engine was not released "
+             f"({(mem_after - mem_before) / 1e9:.3f} GB more than before)")
+    out.update(mem_before_gb=mem_before / 1e9, mem_after_gb=mem_after / 1e9)
+    return out.pop("counts"), out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    all_phases = ["build", "kernels", "parity"] + list(SERVING) + ["front"]
+    all_phases = (["build", "kernels", "parity"] + list(SERVING)
+                  + ["front", "controller"])
     ap.add_argument("--phases", default=",".join(all_phases),
                     help=f"comma-separated subset of {','.join(all_phases)} "
                          "(the device phase always runs)")
@@ -1154,14 +1416,17 @@ def main() -> None:
                 + (f", the long prompts {longs} ms" if longs else ""))
         print("[slab_chunked] beside main and int8: " + "; ".join(beside),
               flush=True)
-    front = None
+    front = controller = None
     if "front" in phases:
         by_path["front"], front = phase_front(args.profile)
+    if "controller" in phases:
+        by_path["controller"], controller = phase_controller(front)
     for name, row in kernels.items():
         split = {path: c[name] for path, c in by_path.items()}
         row["launches"] = sum(split.values()) if split else None
         row["launches_by_path"] = split
-    print(json.dumps({"kernels": list(kernels.values()), "front": front}))
+    print(json.dumps({"kernels": list(kernels.values()), "front": front,
+                      "controller": controller}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],
         "count": torch.cuda.device_count()}}))

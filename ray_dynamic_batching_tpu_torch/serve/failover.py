@@ -1,10 +1,7 @@
 """Request failover — one failure taxonomy, deadline-budgeted re-dispatch.
 
-Own copy of ``ray_dynamic_batching_tpu/serve/failover.py`` with its import
-paths rewritten. Trimmed: ``FabricUnreachable`` is a class of this module
-(the control-plane fabric, ``serve/fabric.py``, is not ported), and
-:func:`reject_disposition` has no ``AdmissionRejected`` branch until the
-admission controller comes with the controller slice.
+Own copy of ``ray_dynamic_batching_tpu/serve/failover.py``, whole, with
+its import paths rewritten.
 
 The reference substrate makes actor death survivable: tasks are retried
 from ownership metadata (Ray, OSDI '18 lineage) and the Nexus-style SLO
@@ -49,6 +46,7 @@ from ray_dynamic_batching_tpu_torch.engine.request import (
     RequestStale,
     now_ms,
 )
+from ray_dynamic_batching_tpu_torch.serve.fabric import FabricUnreachable
 from ray_dynamic_batching_tpu_torch.utils.concurrency import OrderedLock
 from ray_dynamic_batching_tpu_torch.serve.grayhealth import median_or_zero
 from ray_dynamic_batching_tpu_torch.utils.chaos import ChaosInjected
@@ -74,19 +72,6 @@ HEDGE_TOTAL = m.Counter(
     "done, first token emitted, deadline too tight, or no second replica)",
     tag_keys=("deployment", "outcome"),
 )
-
-
-class FabricUnreachable(RuntimeError):
-    """A control message could not be delivered (a partitioned edge or a
-    chaos drop). Same name and fields as the reference's
-    ``serve/fabric.py`` class, which raises it; retryable here."""
-
-    def __init__(self, message: str, edge: str = "", src: str = "",
-                 dst: str = "") -> None:
-        super().__init__(message)
-        self.edge = edge
-        self.src = src
-        self.dst = dst
 
 
 class RetryableSystemError(RuntimeError):
@@ -211,6 +196,7 @@ def reject_disposition(exc: BaseException) -> RejectDisposition:
     - **internal** (500 / INTERNAL): genuine bugs — must alarm, never
       invite a retry."""
     from ray_dynamic_batching_tpu_torch.engine.request import BadRequest
+    from ray_dynamic_batching_tpu_torch.serve.admission import AdmissionRejected
 
     if isinstance(exc, (BadRequest, PoisonRequest)):
         # A bisection-isolated poison is the payload's fault by proof of
@@ -226,7 +212,7 @@ def reject_disposition(exc: BaseException) -> RejectDisposition:
         # open: the system is failing, not merely full — 503, not 429.
         return RejectDisposition("system", 503, "UNAVAILABLE",
                                  retry_after_s=1.0)
-    if is_shed(exc):
+    if isinstance(exc, AdmissionRejected) or is_shed(exc):
         return RejectDisposition(
             "capacity", 429, "RESOURCE_EXHAUSTED",
             retry_after_s=float(getattr(exc, "retry_after_s", 0.0) or 1.0),

@@ -19,9 +19,12 @@ chunked prefill by default), in the model dtype or with the int8 KV cache
 (``quantize_kv=True``); ``chunked_prefill=True`` on the slab runs the
 slab-train arm. Prompts longer than the largest bucket are served as
 multi-chunk trains (the chunked arms) or through the long fill (the
-monolithic arms). The reference's auto-sizing (HBM model, measured
-tables), length buckets, speculative drafts, checkpoints, weight
-quantisation, prefix digests and the page fabric surface come later.
+monolithic arms). The controller builds replicas through
+:meth:`LLMDeployment.make_replica` with a ``DeploymentConfig`` and the
+devices of the replica's placement bundle (one card; more raise until
+multi-GPU). The reference's auto-sizing (HBM model, measured tables),
+length buckets, speculative drafts, checkpoints, weight quantisation,
+prefix digests and the page fabric surface come later.
 
 Payload contract (as the reference)::
 
@@ -45,10 +48,7 @@ from ray_dynamic_batching_tpu_torch.engine.request import (
     Request,
     RequestDropped,
 )
-from ray_dynamic_batching_tpu_torch.serve.replica import (
-    Replica,
-    ReplicaConfig,
-)
+from ray_dynamic_batching_tpu_torch.serve.replica import Replica
 from ray_dynamic_batching_tpu_torch.utils.logging import get_logger
 from ray_dynamic_batching_tpu_torch.utils.sketch import QuantileSketch
 
@@ -190,6 +190,22 @@ class LLMReplica(Replica):
                 return False
         return True
 
+    def reconfigure(
+        self,
+        max_batch_size: Optional[int] = None,
+        batch_wait_timeout_s: Optional[float] = None,
+        max_ongoing_requests: Optional[int] = None,
+        user_config: Optional[dict] = None,
+    ) -> None:
+        # Slot count / buckets are compile-shape decisions and can't change
+        # on a live engine; only admission-side knobs apply. user_config is
+        # accepted for base-contract compatibility (the controller passes
+        # it to every replica kind) but has no user callable to deliver to.
+        if max_ongoing_requests is not None:
+            self.max_ongoing_requests = max_ongoing_requests
+            for q in self._queues.values():
+                q.max_len = max_ongoing_requests
+
     def slo_compliance(self) -> float:
         """Worst recent compliance across the bucket queues (the base
         queue is closed here)."""
@@ -226,10 +242,12 @@ class LLMReplica(Replica):
 
 
 class LLMDeployment:
-    """Deployment factory: builds the model once, makes replicas.
+    """Deployment factory the controller consumes via ``make_replica``:
+    builds the model once and shares it across replicas.
 
     ``device`` defaults to ``"cuda"`` (raising without CUDA); the CPU runs
-    only with ``device="cpu"``. Without an injected ``model`` the weights
+    only with ``device="cpu"``. A replica placed on a card builds the
+    model there if none exists yet. Without an injected ``model`` the weights
     are random, drawn on the device from ``seed``. ``quantize_kv=True``
     builds the model with ``kv_dtype=torch.int8``; an injected model must
     already have it."""
@@ -245,7 +263,7 @@ class LLMDeployment:
         decode_horizon: int = 8,
         ttft_horizon: Optional[int] = None,
         max_admissions_per_step: int = 2,
-        dtype: Optional[torch.dtype] = None,
+        dtype: Union[torch.dtype, str, None] = None,
         model: Any = None,
         warmup: bool = True,
         device: Union[str, torch.device, None] = "cuda",
@@ -285,16 +303,35 @@ class LLMDeployment:
         # int8 KV cache: codes + per-(token, head) f32 scales, half the
         # bytes per slot (models/decoder.py::quantize_kv_rows).
         self.quantize_kv = bool(quantize_kv)
+        if isinstance(dtype, str):
+            # A declarative config names the dtype ("bfloat16"), as the
+            # reference's JAX models accept a dtype name.
+            named = getattr(torch, dtype, None)
+            if not isinstance(named, torch.dtype):
+                raise ValueError(f"unknown dtype {dtype!r}")
+            dtype = named
         self._dtype = dtype
         self._model = model
         self._init_lock = threading.Lock()
 
-    def _ensure_model(self):
+    def _ensure_model(self, device: Optional[torch.device] = None):
+        """The deployment's one model, built at first use on ``device``
+        (a replica's placed card) or the deployment's ``device``. A model
+        that already sits on another device than ``device`` raises: it is
+        never moved quietly."""
         with self._init_lock:
+            if self._model is not None and device is not None \
+                    and not _same_device(self._model.device, device):
+                raise ValueError(
+                    f"{self.model_name}: the model sits on "
+                    f"{self._model.device}, but the replica was placed on "
+                    f"{device}; one model per deployment is shared by its "
+                    "replicas and is never moved")
             if self._model is None:
                 from ray_dynamic_batching_tpu_torch.models import registry
 
-                kwargs = {"device": self.device, "seed": self.seed}
+                kwargs = {"device": device if device is not None
+                          else self.device, "seed": self.seed}
                 if self._dtype is not None:
                     kwargs["dtype"] = self._dtype
                 if self.quantize_kv:
@@ -314,8 +351,9 @@ class LLMDeployment:
             return self._model
 
     def build_engine(self, queue: RequestQueue,
-                     max_len: Optional[int] = None) -> DecodeEngine:
-        model = self._ensure_model()
+                     max_len: Optional[int] = None,
+                     device: Optional[torch.device] = None) -> DecodeEngine:
+        model = self._ensure_model(device)
         max_len = max_len or self.max_len
         prompt_buckets = self.prompt_buckets
         if prompt_buckets is not None:
@@ -341,14 +379,56 @@ class LLMDeployment:
             prefill_token_budget=self.prefill_token_budget,
         )
 
-    def make_replica(self, replica_id: str,
-                     config: Optional[ReplicaConfig] = None) -> LLMReplica:
-        config = config or ReplicaConfig(name=self.model_name)
-        return LLMReplica(
+    # Controller protocol: factories exposing make_replica own replica
+    # construction. ``devices`` arrives from the replica's placement-group
+    # bundle when the deployment reserves chips.
+    def make_replica(
+        self, replica_id: str, config: Any, devices: Optional[Sequence] = None,
+    ) -> LLMReplica:
+        device = None
+        if devices and len(devices) > 1:
+            # Fail BEFORE any model or engine build (and before the
+            # placement group's chips are consumed by a doomed start).
+            raise NotImplementedError(
+                f"{config.name}: a {len(devices)}-chip (tensor-parallel) "
+                "replica needs multi-GPU meshes, which are not ported yet "
+                "(ROADMAP queue 1 item 8) — drop chips_per_replica")
+        if devices:
+            device = _torch_device(devices[0])
+        replica = LLMReplica(
             replica_id=replica_id,
             deployment=config.name,
-            engine_builders={self.max_len: self.build_engine},
+            engine_builders={
+                self.max_len: lambda q: self.build_engine(q, device=device),
+            },
             max_ongoing_requests=config.max_ongoing_requests,
             warmup=self.warmup,
             default_max_new_tokens=self.default_max_new_tokens,
         )
+        replica.devices = list(devices) if devices else None
+        return replica
+
+    # Legacy callable protocol (factory() -> fn) is not meaningful here.
+    def __call__(self) -> Callable[[List[Any]], Sequence[Any]]:
+        raise TypeError(
+            "LLMDeployment builds replicas via make_replica; register it "
+            "with the controller directly"
+        )
+
+
+def _torch_device(device: Any) -> torch.device:
+    """A placed device as a ``torch.device``: placement's ``CudaDevice``
+    carries one; a ``torch.device`` or a string converts."""
+    return getattr(device, "torch_device", None) or torch.device(device)
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Equal devices, with a bare ``cuda`` read as the current card."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    current = torch.cuda.current_device() if torch.cuda.is_available() else 0
+    return (a.index if a.index is not None else current) == \
+        (b.index if b.index is not None else current)

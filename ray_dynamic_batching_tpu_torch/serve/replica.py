@@ -1,10 +1,8 @@
 """Serve replica — one worker executing a deployment's callable with
 opportunistic batching.
 
-Own copy of ``ray_dynamic_batching_tpu/serve/replica.py`` with its
-import paths rewritten, whole, plus :class:`ReplicaConfig`, the part of
-the controller's ``DeploymentConfig`` a replica reads, until the
-controller is ported.
+Own copy of ``ray_dynamic_batching_tpu/serve/replica.py``, whole, with
+its import paths rewritten.
 
 Re-creates Ray Serve's ``ReplicaActor``
 (``python/ray/serve/_private/replica.py:233``: ``handle_request`` :515-544,
@@ -24,7 +22,6 @@ from __future__ import annotations
 import inspect
 import threading
 import time
-from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Sequence
 
 from contextlib import ExitStack
@@ -53,15 +50,6 @@ REPLICA_ERRORS = m.Counter(
     "rdb_replica_errors_total", "Callable errors",
     tag_keys=("deployment", "replica"),
 )
-
-
-@dataclass(frozen=True)
-class ReplicaConfig:
-    """What a replica reads of its deployment's config (the controller's
-    ``DeploymentConfig`` carries these two fields among others)."""
-
-    name: str
-    max_ongoing_requests: int = 256
 
 
 # Replica executing on the current thread (set around user-callable

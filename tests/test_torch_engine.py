@@ -26,6 +26,7 @@ from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
 from ray_dynamic_batching_tpu_torch.engine.request import Request
 from ray_dynamic_batching_tpu_torch.models import causal_lm as t_lm
 from ray_dynamic_batching_tpu_torch.models.convert import params_from_flax
+from ray_dynamic_batching_tpu_torch.serve.controller import DeploymentConfig
 from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
 
 torch.set_num_threads(2)
@@ -173,7 +174,8 @@ def test_llm_deployment_replica_answers_requests():
     dep = LLMDeployment("llama_tiny", num_slots=2, max_len=64,
                         prompt_buckets=[16], default_max_new_tokens=5,
                         dtype=torch.float32, device="cpu", seed=3)
-    replica = dep.make_replica("llama_tiny-0")
+    replica = dep.make_replica("llama_tiny-0",
+                               DeploymentConfig(name="llama_tiny"))
     replica.start()
     try:
         reqs = [Request(model="llama_tiny", payload={"tokens": p},
@@ -340,7 +342,8 @@ def test_llm_deployment_paged_answers_a_long_prompt():
                         prompt_buckets=[16], default_max_new_tokens=5,
                         dtype=torch.float32, device="cpu", seed=3,
                         paged=True, page_size=128)
-    replica = dep.make_replica("llama_tiny-0")
+    replica = dep.make_replica("llama_tiny-0",
+                               DeploymentConfig(name="llama_tiny"))
     assert replica.engine.paged and replica.engine.chunked_prefill
     replica.start()
     try:

@@ -3,8 +3,9 @@
 An AST scan of every module of ``ray_dynamic_batching_tpu_torch`` and of
 ``chip_smoke.py`` matches whole module names (``ray_dynamic_batching_tpu``
 is a prefix of ``ray_dynamic_batching_tpu_torch`` as a string, not as a
-module); a subprocess with those modules blocked imports the port and
-serves a tiny model on the CPU.
+module); a subprocess with those modules blocked imports the port, serves a
+tiny model on the CPU, and deploys it through the port's controller and
+handle.
 """
 
 import ast
@@ -59,17 +60,31 @@ import torch
 torch.set_num_threads(2)
 from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
 from ray_dynamic_batching_tpu_torch.engine.request import Request
+from ray_dynamic_batching_tpu_torch.serve.controller import (
+    DeploymentConfig,
+    ServeController,
+)
+from ray_dynamic_batching_tpu_torch.serve.handle import DeploymentHandle
 from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
 dep = LLMDeployment("llama_tiny", num_slots=2, max_len=32,
                     prompt_buckets=[8], default_max_new_tokens=3,
                     dtype=torch.float32, device="cpu", seed=0)
-replica = dep.make_replica("probe")
+replica = dep.make_replica("probe", DeploymentConfig(name="llama_tiny"))
 engine = replica.engine
 req = Request(model="llama_tiny", payload={{"tokens": [1, 2, 3]}},
               slo_ms=1e7)
 engine.queue.add_request(req)
 engine.run_until_idle(timeout_s=60)
 print(len(req.future.result(timeout=5).tokens))
+ctl = ServeController(control_interval_s=0.1)
+try:
+    router = ctl.deploy(DeploymentConfig(name="llama_tiny"), factory=dep)
+    ctl.start()
+    out = DeploymentHandle(router).remote({{"tokens": [4, 5]}})
+    print(len(out.result(timeout=60).tokens),
+          ctl.status()["llama_tiny"]["running_replicas"])
+finally:
+    ctl.shutdown()
 """
 
 
@@ -80,4 +95,4 @@ def test_port_runs_with_jax_blocked():
         capture_output=True, text=True, timeout=120, cwd=str(ROOT), env=env,
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert out.stdout.strip().splitlines()[-1] == "3"
+    assert out.stdout.strip().splitlines()[-2:] == ["3", "3 1"]

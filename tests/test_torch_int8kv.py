@@ -49,6 +49,7 @@ from ray_dynamic_batching_tpu_torch.models.decoder import (
 )
 from ray_dynamic_batching_tpu_torch.ops import attention as t_attention
 from ray_dynamic_batching_tpu_torch.ops import decode_attention as t_decode
+from ray_dynamic_batching_tpu_torch.serve.controller import DeploymentConfig
 from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
 
 torch.set_num_threads(2)
@@ -475,7 +476,8 @@ def test_llm_deployment_int8_streams_identical_to_jax_engine(models):
     want = _serve_jax(jm, params, payloads, ENGINE)
     dep = LLMDeployment("llama_tiny_int8kv", model=tm, quantize_kv=True,
                         device="cpu", warmup=False, **ENGINE)
-    replica = dep.make_replica("llama_tiny_int8kv-0")
+    replica = dep.make_replica("llama_tiny_int8kv-0",
+                               DeploymentConfig(name="llama_tiny_int8kv"))
     replica.start()
     try:
         reqs = [Request(model="llama_tiny_int8kv", payload=p, slo_ms=1e7)
@@ -497,4 +499,5 @@ def test_quantize_kv_builds_int8_and_refuses_a_full_precision_model():
     dep = LLMDeployment("llama_tiny", model=plain, quantize_kv=True,
                         device="cpu", num_slots=2, max_len=32)
     with pytest.raises(ValueError, match="kv_dtype=int8"):
-        dep.make_replica("llama_tiny-0")
+        dep.make_replica("llama_tiny-0",
+                         DeploymentConfig(name="llama_tiny"))

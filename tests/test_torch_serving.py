@@ -34,6 +34,8 @@ from ray_dynamic_batching_tpu.serve import failover as j_failover
 from ray_dynamic_batching_tpu.serve import handle as j_handle
 from ray_dynamic_batching_tpu.serve import llm as j_llm
 from ray_dynamic_batching_tpu.serve import quarantine as j_quarantine
+from ray_dynamic_batching_tpu.serve import admission as j_admission
+from ray_dynamic_batching_tpu.serve import fabric as j_fabric
 from ray_dynamic_batching_tpu.serve import router as j_router
 from ray_dynamic_batching_tpu.serve.controller import DeploymentConfig
 from ray_dynamic_batching_tpu.utils import chaos as j_chaos
@@ -45,9 +47,13 @@ from ray_dynamic_batching_tpu_torch.serve import failover as t_failover
 from ray_dynamic_batching_tpu_torch.serve import handle as t_handle
 from ray_dynamic_batching_tpu_torch.serve import llm as t_llm
 from ray_dynamic_batching_tpu_torch.serve import quarantine as t_quarantine
+from ray_dynamic_batching_tpu_torch.serve import admission as t_admission
+from ray_dynamic_batching_tpu_torch.serve import fabric as t_fabric
 from ray_dynamic_batching_tpu_torch.serve import router as t_router
+from ray_dynamic_batching_tpu_torch.serve.controller import (
+    DeploymentConfig as TDeploymentConfig,
+)
 from ray_dynamic_batching_tpu_torch.serve.proxy import HTTPProxy, ProxyRouter
-from ray_dynamic_batching_tpu_torch.serve.replica import ReplicaConfig
 from ray_dynamic_batching_tpu_torch.utils import chaos as t_chaos
 
 torch.set_num_threads(2)
@@ -55,10 +61,12 @@ torch.set_num_threads(2)
 PKGS = {
     "jax": types.SimpleNamespace(
         name="jax", request=j_request, router=j_router, failover=j_failover,
-        quarantine=j_quarantine, workload=j_workload, chaos=j_chaos),
+        quarantine=j_quarantine, workload=j_workload, chaos=j_chaos,
+        admission=j_admission, fabric=j_fabric),
     "torch": types.SimpleNamespace(
         name="torch", request=t_request, router=t_router, failover=t_failover,
-        quarantine=t_quarantine, workload=t_workload, chaos=t_chaos),
+        quarantine=t_quarantine, workload=t_workload, chaos=t_chaos,
+        admission=t_admission, fabric=t_fabric),
 }
 
 
@@ -236,6 +244,10 @@ def _exceptions(pkg):
         "replica_dead": f.ReplicaDeadError("x"),
         "drain_evicted": f.DrainEvicted("x"),
         "chaos": pkg.chaos.ChaosInjected("x"),
+        "admission_rejected": pkg.admission.AdmissionRejected(
+            "x", retry_after_s=0.75),
+        "fabric_unreachable": pkg.fabric.FabricUnreachable(
+            "x", edge="store.append", src="ctl", dst="log"),
         "bug": RuntimeError("x"),
     }
 
@@ -308,7 +320,7 @@ def _deployment(name, tiny, **kw):
 
 
 def _config(name):
-    cls = DeploymentConfig if name == "jax" else ReplicaConfig
+    cls = DeploymentConfig if name == "jax" else TDeploymentConfig
     return cls(name="llama_tiny", max_ongoing_requests=64)
 
 
@@ -350,10 +362,36 @@ def test_pending_train_routes_alike(tiny, seed):
     assert picks[0] == "A"
 
 
+def _reconfigure_scenario(pkg, tiny):
+    """A redeploy's concurrency bound on an unstarted llama_tiny replica:
+    every bucket queue's ``max_len`` and what the replica then admits."""
+    dep = _deployment(pkg.name, tiny, warmup=False, **ENGINE)
+    replica = dep.make_replica("A", _config(pkg.name))
+    try:
+        before = [q.max_len for q in replica._queues.values()]
+        replica.reconfigure(max_batch_size=2, batch_wait_timeout_s=0.01,
+                            max_ongoing_requests=3,
+                            user_config={"note": "redeploy"})
+        after = [q.max_len for q in replica._queues.values()]
+        admitted = [replica.assign(_request(pkg, i, {"tokens": [1, 2]}))
+                    for i in range(5)]
+    finally:
+        replica.stop(timeout_s=1.0, drain=False)
+    return before, replica.max_ongoing_requests, after, admitted
+
+
+def test_reconfigure_reaches_every_bucket_queue(tiny):
+    """``LLMReplica.reconfigure`` applies ``max_ongoing_requests`` to the
+    bucket queues that hold the requests, as the reference's does."""
+    before, cap, after, admitted = _both(_reconfigure_scenario, tiny)
+    assert before == [64] and cap == 3 and after == [3]
+    assert admitted == [True, True, True, False, False]
+
+
 def test_draining_stop_waits_for_a_pending_train(tiny):
     dep = _deployment("torch", tiny, warmup=False, paged=True,
                       chunked_prefill=True, **ENGINE)
-    replica = dep.make_replica("A")
+    replica = dep.make_replica("A", _config("torch"))
     req = _request(PKGS["torch"], 0, {"tokens": list(range(1, 40))})
     replica.assign(req)
     replica.engine._admit()

@@ -25,6 +25,7 @@ from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
 from ray_dynamic_batching_tpu_torch.engine.request import Request
 from ray_dynamic_batching_tpu_torch.models import registry
 from ray_dynamic_batching_tpu_torch.models.convert import params_from_flax
+from ray_dynamic_batching_tpu_torch.serve.controller import DeploymentConfig
 from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
 
 torch.set_num_threads(2)
@@ -177,7 +178,8 @@ def test_slab_train_warmup_and_deployment(models):
                         chunked_prefill=True,
                         **{k: v for k, v in SLAB_TRAINS.items()
                            if k not in ("paged", "chunked_prefill")})
-    replica = dep.make_replica("llama_tiny-0")
+    replica = dep.make_replica("llama_tiny-0",
+                               DeploymentConfig(name="llama_tiny"))
     assert replica.engine.chunked_prefill and not replica.engine.paged
     replica.start()
     try:
