@@ -80,21 +80,63 @@ last line:
     model through ``model=``, ``default_max_new_tokens`` 40), after which
     a request without ``max_new_tokens`` gets 40 tokens; after
     ``serve.api.shutdown()`` the device memory is back within 0.5 GB of
-    its value before the phase.
+    its value before the phase;
+12. colocate — measured tables and Nexus colocation. The memory budget
+    (``hbm_budget_bytes``) is set from the card's total memory through the
+    config. ``DecodeProfiler`` sweeps llama3_8b's decode step (every slot
+    active, horizon 1) at 4, 8, 16 and 32 slots, capacity 512, and its
+    prefill group program at bucket 64, groups 1 and 4 (8 timed
+    dispatches, 2 warmup), prints every row and writes the two summary
+    tables into ``build/profiles_h100/``; a zero row fails.
+    ``LLMDeployment(num_slots=0, profiles_dir=...)`` builds an engine from
+    the table plan (slots and both horizons, from the token SLO and the
+    model's registered 150 ms TTFT SLO), and ``auto_num_slots()`` sizes
+    from the same budget (256, the cap). A deployment with
+    ``length_buckets=[256, 512]`` serves a prompt that fits 256 and one
+    (300 tokens, the long fill) that needs 512, each reaching its own
+    engine. Then two contracts, ``llama_a`` and ``llama_b``, share one
+    model: ``pack_llm_engines`` plans them from the table just written,
+    one ``ColocatedLLMEngines`` on the card runs the plan under an
+    ``LLMLiveScheduler`` (control interval 2 s, rate window 8 s,
+    headroom 0.85). The token SLO is twice ``slo_safety_factor`` times
+    the 16-slot step (at once that step, the packer's SLO term alone
+    would need two cards for the pair; the phase prints the plan it would
+    give). Poisson arrivals of 40-60-token greedy prompts with 32 new
+    tokens (seed 11) offer each contract 0.1 of the 16-slot row's
+    full-occupancy throughput for 20 s, then 20 s with ``llama_a`` at
+    twice that. Per contract and half: sent, completed, dropped, stale,
+    SLO compliance, token gap and TTFT; planned fractions beside measured
+    busy shares; the audit log; which branch the replan after the surge
+    took, and whether it moved the plan. The phase fails on a dropped,
+    stale or unanswered request; when no replan after the surge saw
+    ``llama_a`` at 1.5 times its first-half offered rate, or the last such replan
+    applied a plan other than the packer's for the rates it saw; on a
+    48-token greedy probe through ``llama_a``'s colocated engine that
+    differs from a lone engine of the same shape; or on device memory
+    held by tensors after the shutdown more than 0.1 GB above its value
+    before the phase (both read with cuBLAS's per-thread workspaces
+    dropped: the process keeps one for each thread that ran a GEMM, and
+    the phase starts several threads). The same traffic then runs again
+    at 0.2 as a diagnostic that gates nothing but a lost request: at 0.2
+    the packer admits a pair the host-bound card cannot keep, and the
+    run prints how far it falls short.
 
-Phases 5 to 11 each set every launch count to 0 just before they serve and
+Phases 5 to 12 each set every launch count to 0 just before they serve and
 read them just after: each kernel of the path must have launched the
 number of times the engine's dispatches imply, the other kernels and the
 plain route never. Phase 11 builds three engines inside its window (v1,
 the heal's replacement, v2), and each engine's warmup launches its
 prefill grid (one group of each size up to 4 at the one bucket) and two
 decode steps; those warmup dispatches are added to the dispatches the
-engines counted while serving.
+engines counted while serving. Phase 12 adds, beside its engines'
+dispatches and warmups (the length-bucket replica's two engines and every
+engine the scheduler builds are warmed), the profiler's: each config runs
+2 + 3 x 8 dispatches, one prefill group or one decode step each.
 
 The line before the last is one JSON object with the per-kernel numbers
 (``launches`` sums the serving phases; ``launches_by_path`` splits them)
-and the numbers of the front and controller phases (``front``,
-``controller``); the last line is
+and the numbers of the front, controller and colocate phases (``front``,
+``controller``, ``colocate``); the last line is
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (for
 bring-up); the default runs all. ``--profile`` traces each serving window
 with ``torch.profiler`` and prints the device's busy share and its time by
@@ -1373,10 +1415,551 @@ def phase_controller(front: dict | None) -> tuple:
     return out.pop("counts"), out
 
 
+# --- phase 12: measured tables and Nexus colocation ------------------------
+# The sweep, the sizing, the length buckets and the colocation traffic of
+# phase 12 (llama3_8b, bf16, full width and depth; 16 slots where a count
+# is pinned, capacity 512, prompt bucket 64, groups of 4, 32 new tokens).
+# Each contract is offered 0.1 of the 16-slot row's full-occupancy
+# throughput; 0.2 runs after it as a diagnostic: there the surged pair
+# saturates the card although the packer admits it (PERF.md), since the
+# planner's fraction counts decode steps at full occupancy and no
+# prefill, while a co-tenant's partly filled step costs a whole step.
+# A replan sees the surge when it reads llama_a at 1.5 x its first half.
+COLOCATE = dict(
+    model="llama3_8b", dtype=torch.bfloat16, capacity=S, bucket=T,
+    slots=(4, 8, 16, 32), groups=(1, NB), timing_iters=8, warmup_iters=2,
+    pinned=SLOTS, length_buckets=(256, S), long_prompt=300,
+    contracts=("llama_a", "llama_b"), util=0.1, diagnostic_util=0.2,
+    surge=2.0, surge_seen=1.5, half_s=20.0,
+    headroom=0.85, monitoring_interval_s=2.0, rate_window_s=8.0,
+    max_new=32, prompt=(40, 61), probe_len=48, seed=11, expect_auto=256,
+)
+PROFILES_DIR = "build/profiles_h100"
+
+
+def _colocate_run(dev, budget: int, ttft_slo_ms: float, profiles_dir: str,
+                  c: dict = COLOCATE) -> dict:
+    """Profile the decode engine, size deployments from the table and
+    from the budget, route two prompts through two length buckets, then
+    serve two contracts colocated by ``pack_llm_engines`` under an
+    ``LLMLiveScheduler`` through a rate surge, and hold a greedy probe of
+    the colocated engine against a lone engine; then the same traffic at
+    the diagnostic utilization. The config carries the
+    budget and the control loop's timing for the run. Returns plain
+    numbers only (the dispatches every engine and the profiler ran among
+    them), so nothing of the run outlives this call."""
+    from ray_dynamic_batching_tpu_torch.utils.config import (
+        RDBConfig,
+        reset_config,
+        set_config,
+    )
+
+    set_config(RDBConfig.from_env(
+        hbm_budget_bytes=budget,
+        monitoring_interval_s=c["monitoring_interval_s"],
+        rate_window_s=c["rate_window_s"]))
+    try:
+        return _colocate_body(dev, ttft_slo_ms, profiles_dir, c)
+    finally:
+        reset_config()
+
+
+def _colocate_body(dev, ttft_slo_ms: float, profiles_dir: str,
+                   c: dict) -> dict:
+    from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+    from ray_dynamic_batching_tpu_torch.models import registry
+    from ray_dynamic_batching_tpu_torch.profiles.decode_profiler import (
+        DecodeProfiler,
+    )
+    from ray_dynamic_batching_tpu_torch.profiles.profiler import (
+        write_profile_outputs,
+    )
+    from ray_dynamic_batching_tpu_torch.scheduler.nexus import (
+        LLMSession,
+        pack_llm_engines,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.controller import (
+        DeploymentConfig,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+    from ray_dynamic_batching_tpu_torch.utils.config import get_config
+
+    tag, name, cap = "colocate", c["model"], c["capacity"]
+    cfg = get_config()
+    out: dict = {"budget_bytes": cfg.hbm_budget_bytes}
+    model = registry.get_model(name, dtype=c["dtype"], device=dev, seed=0)
+    V = model.cfg.vocab_size
+    engines, warmed = [], []   # every engine that dispatched in the run
+
+    # 1. The sweep: decode (slots x capacity) and prefill (bucket x group).
+    prof = DecodeProfiler(model, timing_iters=c["timing_iters"],
+                          warmup_iters=c["warmup_iters"])
+    decode, prefill = prof.sweep(slot_buckets=c["slots"], capacities=(cap,),
+                                 prompt_buckets=(c["bucket"],),
+                                 group_sizes=c["groups"])
+    rows = decode.rows + prefill.rows
+    for kind, table in (("decode", decode), ("prefill", prefill)):
+        for r in table.rows:
+            print(f"[{tag}] {kind} row: batch_size {r.batch_size}, seq_len "
+                  f"{r.seq_len}, latency_ms {r.latency_ms:.3f}, "
+                  f"latency_std_ms {r.latency_std_ms:.3f}, hbm_bytes "
+                  f"{r.hbm_bytes}, compile_ms {r.compile_ms:.1f}", flush=True)
+    if (len(decode.rows) != len(c["slots"])
+            or len(prefill.rows) != len(c["groups"])
+            or any(r.hbm_bytes <= 0 or r.latency_ms <= 0 for r in rows)):
+        fail(f"{tag}: the sweep gave {len(decode.rows)} decode and "
+             f"{len(prefill.rows)} prefill rows, or a zero row")
+    paths = [write_profile_outputs(t, profiles_dir)[0]
+             for t in (decode, prefill)]
+    print(f"[{tag}] tables written: {', '.join(paths)}", flush=True)
+    out["decode_rows"] = [dict(slots=r.batch_size, ms=r.latency_ms,
+                               std_ms=r.latency_std_ms, hbm=r.hbm_bytes,
+                               first_ms=r.compile_ms) for r in decode.rows]
+    out["prefill_rows"] = [dict(group=r.batch_size, ms=r.latency_ms,
+                                std_ms=r.latency_std_ms, hbm=r.hbm_bytes,
+                                first_ms=r.compile_ms) for r in prefill.rows]
+    prof_fills = len(prefill.rows) * prof.dispatches_per_config
+    prof_steps = len(decode.rows) * prof.dispatches_per_config
+
+    # 2. Sizing: the table plan and the budget's answer.
+    pinned = decode.row_for(c["pinned"], cap)
+    token_slo = cfg.slo_safety_factor * pinned.latency_ms * 2.0
+    max_new = c["max_new"]
+    knobs = dict(model=model, max_len=cap, prompt_buckets=[c["bucket"]],
+                 default_max_new_tokens=max_new,
+                 max_admissions_per_step=NB, token_slo_ms=token_slo,
+                 ttft_slo_ms=ttft_slo_ms, profiles_dir=profiles_dir)
+    sized = LLMDeployment(name, num_slots=0, **knobs)
+    e = sized.build_engine(RequestQueue("sized"))
+    plan = dict(num_slots=e.num_slots, decode_horizon=e.decode_horizon,
+                ttft_horizon=e.ttft_horizon)
+    e.release_buffers()
+    auto = sized.auto_num_slots()
+    out.update(token_slo_ms=token_slo, table_plan=plan, auto_num_slots=auto)
+    print(f"[{tag}] token SLO {token_slo:.1f} ms (2 x slo_safety_factor "
+          f"{cfg.slo_safety_factor} x the {c['pinned']}-slot step), TTFT "
+          f"SLO {ttft_slo_ms:.0f} ms; LLMDeployment(num_slots=0) table plan "
+          f"{plan}; auto_num_slots() on the same budget: {auto}",
+          flush=True)
+    if plan["num_slots"] not in {r.batch_size for r in decode.rows}:
+        fail(f"{tag}: the table plan's {plan['num_slots']} slots is no "
+             "measured row")
+    if auto != c["expect_auto"]:
+        fail(f"{tag}: auto_num_slots() {auto}, expected {c['expect_auto']}")
+
+    # 3. Length buckets: one engine per bucket, the smallest that fits.
+    rng = np.random.default_rng(c["seed"])
+    lb = LLMDeployment(name, num_slots=c["pinned"],
+                       length_buckets=list(c["length_buckets"]),
+                       **{k: v for k, v in knobs.items()
+                          if k not in ("profiles_dir", "token_slo_ms",
+                                       "ttft_slo_ms")})
+    replica = lb.make_replica(f"{name}-lb", DeploymentConfig(name=name))
+    warmed += replica.engines.values()
+    replica.start()
+    small, large = sorted(replica.engines)
+    lens = {small: int(rng.integers(*c["prompt"])), large: c["long_prompt"]}
+    reqs = {b: Request(model=name, payload={
+        "tokens": rng.integers(0, V, n).tolist(), "max_new_tokens": max_new},
+        slo_ms=600_000.0) for b, n in lens.items()}
+    for r in reqs.values():
+        if not replica.assign(r):
+            fail(f"{tag}: the length-bucket replica refused a request")
+    for r in reqs.values():
+        _answered(f"{tag} length bucket", r.future, max_new)
+    deadline = time.monotonic() + 30
+    while (sum(e.completed for e in replica.engines.values()) < 2
+           and time.monotonic() < deadline):
+        time.sleep(0.01)
+    replica.stop()
+    engines += replica.engines.values()
+    done = {b: e.completed for b, e in replica.engines.items()}
+    if any(n != 1 for n in done.values()):
+        fail(f"{tag}: prompts of {lens[small]} and {lens[large]} tokens "
+             f"left {done} completions by bucket, expected one each")
+    print(f"[{tag}] length_buckets {sorted(replica.engines)}: a "
+          f"{lens[small]}-token prompt reached the {small} engine, a "
+          f"{lens[large]}-token prompt the {large} engine (+{max_new} new "
+          "tokens each)", flush=True)
+    out["length_buckets"] = {str(b): lens[b] for b in lens}
+
+    # 4. Colocation: two contracts of one model, packed from the table,
+    # at the gated utilization and then at the diagnostic one.
+    budget = cfg.hbm_budget_bytes * cfg.hbm_plan_fraction
+    slo_once = cfg.slo_safety_factor * pinned.latency_ms
+    try:
+        n = len(pack_llm_engines(
+            [LLMSession(m, 1.0, slo_once) for m in c["contracts"]],
+            {m: decode for m in c["contracts"]}, hbm_budget_bytes=budget,
+            compute_headroom=c["headroom"]))
+        at_once = f"{n} card(s) for the pair"
+    except ValueError as e:
+        at_once = f"no plan ({e})"
+    print(f"[{tag}] at a token SLO of once slo_safety_factor x the "
+          f"{c['pinned']}-slot step ({slo_once:.1f} ms) the packer needs "
+          f"{at_once}", flush=True)
+    out["slo_at_once"] = at_once
+    runs = {}
+    for label, util, gated in (("gated", c["util"], True),
+                               ("diagnostic", c["diagnostic_util"], False)):
+        run = _colocate_traffic(tag, c, util, model, decode, knobs,
+                                token_slo, ttft_slo_ms, engines, warmed,
+                                probe=gated)
+        runs[label] = _traffic_report(f"{tag} {label} {util}", c, run,
+                                      decode, token_slo, budget, gated)
+    out.update(
+        runs=runs,
+        fills=prof_fills + WARMUP_FILLS * len(warmed) + sum(
+            e.prefill_groups + e.long_chunk_dispatches + e.chunk_dispatches
+            for e in engines),
+        steps=prof_steps + WARMUP_STEPS * len(warmed) + sum(
+            e.steps for e in engines),
+        engines=len(engines), layers=model.cfg.num_layers)
+    return out
+
+
+def _colocate_traffic(tag, c, util, model, decode, knobs, token_slo,
+                      ttft_slo_ms, engines, warmed, probe: bool) -> dict:
+    """Serve ``llama_a`` and ``llama_b`` colocated on the card under an
+    ``LLMLiveScheduler``: each is offered ``util`` of the pinned row's
+    full-occupancy throughput for one half, then ``llama_a`` the surge
+    multiple of it for the second. With ``probe``, a greedy probe goes
+    through ``llama_a``'s colocated engine and a lone engine of its
+    shape. Appends every engine built to ``engines`` (and the warmed
+    ones to ``warmed``), and returns the run's record."""
+    from ray_dynamic_batching_tpu_torch.engine.colocate import (
+        ColocatedLLMEngines,
+    )
+    from ray_dynamic_batching_tpu_torch.engine.decode import DecodeEngine
+    from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+    from ray_dynamic_batching_tpu_torch.scheduler.llm_control import (
+        LLMLiveScheduler,
+        deployment_engine_factory,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+
+    a, b = c["contracts"]
+    cap, max_new, name = c["capacity"], c["max_new"], c["model"]
+    V = model.cfg.vocab_size
+
+    # Utilization of the pinned row's full-occupancy throughput, the row
+    # the token SLO is set from. The host-bound rows are flat, so the
+    # planner's row is the one with the least worst-case step and moves
+    # with the rows' noise; a rate tied to it ranged 4x between calls, and
+    # at its lowest a contract's 8 s window held no arrival and the
+    # monitor drained it.
+    row = decode.row_for(c["pinned"], cap)
+    rate = util * 1000.0 * row.batch_size / row.latency_ms
+    rates = {a: rate, b: rate}
+    deployments = {m: LLMDeployment(name, num_slots=0, **knobs)
+                   for m in (a, b)}
+    build = deployment_engine_factory(deployments)
+
+    def factory(m, placement, queue, device):
+        engine = build(m, placement, queue, device)
+        engine.warmup()          # attach-ready: a migration never serves cold
+        warmed.append(engine)
+        engines.append(engine)
+        return engine
+
+    chip = ColocatedLLMEngines(device=model.device, name="card0")
+    sched = LLMLiveScheduler({a: decode, b: decode}, [chip], factory,
+                             compute_headroom=c["headroom"])
+    req_slo = ttft_slo_ms + max_new * token_slo
+    for m in (a, b):
+        sched.register_model(m, token_slo_ms=token_slo,
+                             tokens_per_request=max_new)
+    sent: dict = {}            # (contract, half) -> [request]
+    colo_tokens = lone_tokens = None
+    try:
+        first = sched.rebalance(rates=rates)
+        print(f"[{tag}] utilization {util}: offered {rate:.1f} tok/s each "
+              f"({rate / max_new:.2f} req/s; of the {row.batch_size}-slot "
+              f"row's {1000.0 * row.batch_size / row.latency_ms:.1f} tok/s)"
+              "; plan: " + "; ".join(
+                  f"{p.model} {p.num_slots} slots, f {p.compute_fraction:.3f}"
+                  for chip_plan in first for p in chip_plan), flush=True)
+        if len(first) != 1 or sorted(chip.models()) != [a, b]:
+            fail(f"{tag}: the first plan does not colocate both contracts "
+                 f"on the card: {[[p.model for p in x] for x in first]}")
+        chip.start()
+        sched.start_monitoring()
+        arr = np.random.default_rng(c["seed"])
+        halves = []
+        for half, mult in ((0, 1.0), (1, c["surge"])):
+            events = []
+            for m in (a, b):
+                rps = rates[m] * (mult if m == a else 1.0) / max_new
+                t = float(arr.exponential(1.0 / rps))
+                while t < c["half_s"]:
+                    events.append((t, m))
+                    t += float(arr.exponential(1.0 / rps))
+            events.sort()
+            chip.reset_accounting()
+            t_wall, t0 = time.time(), time.monotonic()
+            for t, m in events:
+                time.sleep(max(0.0, t0 + t - time.monotonic()))
+                req = Request(model=m, payload={
+                    "tokens": arr.integers(
+                        0, V, int(arr.integers(*c["prompt"]))).tolist(),
+                    "max_new_tokens": max_new}, slo_ms=req_slo)
+                sent.setdefault((m, half), []).append(req)
+                sched.submit_request(req)
+            time.sleep(max(0.0, t0 + c["half_s"] - time.monotonic()))
+            plan_now = {p.model: p for x in sched._current_plan for p in x}
+            halves.append(dict(
+                start_wall=t_wall, busy=chip.busy_fractions(),
+                planned={m: (p.num_slots, p.compute_fraction)
+                         for m, p in plan_now.items()}))
+        sched.stop_monitoring()
+        results = {}
+        for key, reqs_ in sent.items():
+            results[key] = []
+            for r in reqs_:
+                try:
+                    results[key].append(r.future.result(timeout=300))
+                except Exception as e:  # noqa: BLE001 — counted, then fails
+                    results[key].append(e)
+        if probe:   # llama_a's colocated engine against a lone engine
+            toks = np.random.default_rng(48).integers(0, V, c["probe_len"])
+            preq = Request(model=a, payload={"tokens": toks.tolist(),
+                                             "max_new_tokens": max_new},
+                           slo_ms=600_000.0)
+            sched.submit_request(preq)
+            colo_tokens = _answered(f"{tag} probe", preq.future,
+                                    max_new).tokens
+            served = chip.engine_for(a)
+            lone = DecodeEngine(
+                model, RequestQueue("lone"), num_slots=served.num_slots,
+                max_len=served.max_len, prompt_buckets=served.prompt_buckets,
+                default_max_new_tokens=max_new,
+                decode_horizon=served.decode_horizon,
+                ttft_horizon=served.ttft_horizon,
+                max_admissions_per_step=served.max_admissions_per_step,
+                device=model.device)
+            lreq = Request(model=a, payload={"tokens": toks.tolist(),
+                                             "max_new_tokens": max_new},
+                           slo_ms=600_000.0)
+            lone.queue.add_request(lreq)
+            lone.run_until_idle(timeout_s=120)
+            lone_tokens = _answered(f"{tag} lone probe", lreq.future,
+                                    max_new).tokens
+            lone.release_buffers()
+            engines.append(lone)
+        audit = sched.audit.to_dicts()
+        stats = sched.queues.stats()
+    finally:
+        sched.shutdown()
+    return dict(util=util, rates=rates, req_slo=req_slo, sent=sent,
+                results=results, halves=halves, audit=audit, stats=stats,
+                probe=(colo_tokens, lone_tokens))
+
+
+def _traffic_report(tag, c, run, decode, token_slo, budget,
+                    gated: bool) -> dict:
+    """Print a colocation run: per contract and half, the plan beside the
+    busy shares, the queues, the audit log, whether the scheduler saw the
+    surge and what its replan did. With ``gated``, fail the phase on a
+    stale or lost request, a surge no replan saw, a replan that applied
+    another plan than the packer's for the rates it saw, or a probe that
+    differs from the lone engine's; without it, fail only on a request
+    that was never answered. Returns the run's numbers."""
+    from ray_dynamic_batching_tpu_torch.engine.queue import RequestStale
+    from ray_dynamic_batching_tpu_torch.scheduler.nexus import (
+        LLMSession,
+        pack_llm_engines,
+        worst_latency_ms,
+    )
+
+    a, b = c["contracts"]
+    halves, results, audit = run["halves"], run["results"], run["audit"]
+    for h, half in enumerate(halves):
+        for m in (a, b):
+            res = results.get((m, h), [])
+            done = [r for r in res if not isinstance(r, Exception)]
+            ok = [r for r in done if r.total_ms <= run["req_slo"]]
+            gaps = [(r.total_ms - r.ttft_ms) / max(1, len(r.tokens) - 1)
+                    for r in done]
+            half.setdefault("contracts", {})[m] = dict(
+                sent=len(res), completed=len(done),
+                stale=sum(isinstance(r, RequestStale) for r in res),
+                dropped=sum(isinstance(r, Exception)
+                            and not isinstance(r, RequestStale)
+                            for r in res),
+                slo_compliance=len(ok) / len(res) if res else 1.0,
+                token_gap_p50_ms=statistics.median(gaps) if gaps else 0.0,
+                ttft_p50_ms=statistics.median(r.ttft_ms for r in done)
+                if done else 0.0)
+        print(f"[{tag}] half {h + 1} ({'surge: ' + a + ' x' + str(c['surge']) if h else 'base'}): "
+              + "; ".join(
+                  f"{m} sent {s['sent']}, completed {s['completed']}, "
+                  f"dropped {s['dropped']}, stale {s['stale']}, SLO "
+                  f"compliance {s['slo_compliance']:.3f}, token gap p50 "
+                  f"{s['token_gap_p50_ms']:.1f} ms, TTFT p50 "
+                  f"{s['ttft_p50_ms']:.1f} ms"
+                  for m, s in half["contracts"].items()), flush=True)
+        print(f"[{tag}] half {h + 1}: planned (slots, compute fraction) "
+              f"{ {m: (n, round(f, 3)) for m, (n, f) in half['planned'].items()} }"
+              f", measured busy fractions "
+              f"{ {m: round(f, 3) for m, f in half['busy'].items()} }",
+              flush=True)
+    stats = run["stats"]
+    stale = {m: s["stale"] for m, s in stats.items()}
+    print(f"[{tag}] queue totals: " + "; ".join(
+        f"{m} enqueued {s['enqueued']:.0f}, completed {s['completed']:.0f},"
+        f" dropped {s['dropped']:.0f}, stale {s['stale']:.0f}"
+        for m, s in sorted(stats.items())), flush=True)
+    for rec in audit:
+        print(f"[{tag}] audit #{rec['seq']} {rec['trigger']} at "
+              f"+{rec['wall_time'] - halves[0]['start_wall']:.1f} s: "
+              f"rates {rec['observed'].get('rates_tok_s')}, placements "
+              f"{rec['inputs'].get('placements')}, diff {rec['diff']}, "
+              f"moved {rec['migration_cost']:.0f}"
+              + (f", note: {rec['note']}" if rec["note"] else ""),
+              flush=True)
+
+    # The surge: a replan after it starts that saw llama_a's rate at
+    # c["surge_seen"] times the first half's offered rate.
+    base = run["rates"][a]
+    after = [r for r in audit if r["trigger"] == "rate_change"
+             and r["wall_time"] >= halves[1]["start_wall"]]
+    seen = [r for r in after
+            if r["observed"]["rates_tok_s"].get(a, 0.0)
+            >= c["surge_seen"] * base]
+    branch, moved_plan, agrees = "none", None, None
+    if seen:
+        last = seen[-1]
+        observed = last["observed"]["rates_tok_s"]
+        if "over capacity" in last["note"]:
+            branch = "over capacity: kept the previous plan"
+        elif "infeasible" in last["note"]:
+            branch = "infeasible: kept the previous plan"
+        else:
+            placed = {p["model"]: (p["slots"], p["compute_fraction"])
+                      for p in last["inputs"]["placements"]}
+            branch = "applied on the same executor: " + ", ".join(
+                f"{m} {n} slots, f {f}" for m, (n, f) in placed.items())
+            want = {p.model: (p.num_slots, p.compute_fraction)
+                    for chip_plan in pack_llm_engines(
+                        [LLMSession(m, r, token_slo)
+                         for m, r in observed.items() if r > 0],
+                        {m: decode for m in observed},
+                        hbm_budget_bytes=budget,
+                        compute_headroom=c["headroom"])
+                    for p in chip_plan}
+            # The record rounds rates to 0.1 tok/s and fractions to 3
+            # places, so a fraction may differ in its last place.
+            agrees = (placed.keys() == want.keys() and all(
+                placed[m][0] == want[m][0]
+                and abs(placed[m][1] - want[m][1]) <= 2e-3 for m in want))
+            before = halves[0]["planned"][a]
+            moved_plan = placed.get(a, (0,))[0] != before[0]
+            row = decode.row_for(placed[a][0], c["capacity"])
+            terms = (f"on {placed[a][0]} slots its capacity term "
+                     f"{observed[a] * row.latency_ms / (1000.0 * row.batch_size):.3f}"
+                     f", its SLO term {worst_latency_ms(row) / token_slo:.3f}")
+            branch += (f"; the surge moved {a} from {before[0]} to "
+                       f"{placed[a][0]} slots ({terms})" if moved_plan else
+                       f"; the surge left {a}'s row unchanged ({terms})")
+            branch += ("; the packer gives the same plan for these rates"
+                       if agrees else f"; the packer gives {want}")
+        branch = (f"saw {a} at {observed[a]:.1f} tok/s (offered "
+                  f"{base:.1f}, then {c['surge'] * base:.1f}): " + branch)
+    print(f"[{tag}] {len(after)} replan(s) after the surge, {len(seen)} "
+          f"saw {a} at >= {c['surge_seen']} x {base:.1f} tok/s; the last: "
+          f"{branch}", flush=True)
+    if any(x is not None for x in run["probe"]):
+        print(f"[{tag}] probe: colocated {run['probe'][0]}", flush=True)
+        print(f"[{tag}] probe: lone      {run['probe'][1]}", flush=True)
+    unanswered = {k: sum(isinstance(r, TimeoutError) for r in v)
+                  for k, v in results.items()}
+    lost = {k: sum(isinstance(r, Exception)
+                   and not isinstance(r, RequestStale) for r in v)
+            for k, v in results.items()}
+    if any(unanswered.values()) or sum(
+            len(v) for v in run["sent"].values()) != sum(
+            len(v) for v in results.values()):
+        fail(f"{tag}: requests unanswered or unaccounted for: {unanswered}")
+    if gated:
+        if any(lost.values()) or any(stale.values()):
+            fail(f"{tag}: requests dropped {lost}, stale {stale}")
+        if not seen:
+            fail(f"{tag}: no replan after the surge saw {a} at "
+                 f"{c['surge_seen']} x its first-half rate")
+        if agrees is False:
+            fail(f"{tag}: the replan after the surge applied another plan "
+                 "than the packer's for the rates it saw")
+        if run["probe"][0] != run["probe"][1]:
+            fail(f"{tag}: the colocated engine's greedy probe differs from "
+                 "a lone engine's")
+    return dict(
+        util=run["util"], offered_tok_s=base,
+        halves=[{k: v for k, v in h.items() if k != "start_wall"}
+                for h in halves],
+        replans_after_surge=len(after), saw_surge=len(seen), branch=branch,
+        surge_moved_plan=moved_plan, stale=sum(stale.values()))
+
+
+def _tensor_bytes_on_card() -> int:
+    """Device memory held by live tensors once cuBLAS's per-thread GEMM
+    workspaces are dropped: each new thread's first GEMM allocates one,
+    which the process keeps and reuses, not a leak of the phase's
+    engines."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def phase_colocate() -> tuple:
+    """Phase 12; returns (counts, the phase's numbers)."""
+    from ray_dynamic_batching_tpu_torch.models import registry  # noqa: F401
+    from ray_dynamic_batching_tpu_torch.models.base import _MODEL_SLOS
+    from ray_dynamic_batching_tpu_torch.ops import attention
+
+    mem_before = _tensor_bytes_on_card()
+    budget = torch.cuda.get_device_properties(0).total_memory
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"[colocate] hbm_budget_bytes {budget} (the card's total memory; "
+          f"{smi})", flush=True)
+    attention.reset_counts()
+    t0 = time.monotonic()
+    out = _colocate_run(torch.device("cuda", 0), budget,
+                        _MODEL_SLOS[COLOCATE["model"]].latency_slo_ms,
+                        PROFILES_DIR)
+    wall = time.monotonic() - t0
+    torch.cuda.synchronize()
+    counts = _counts()
+    L = out.pop("layers")
+    _expect_only("colocate", counts, {
+        "flash_attention": L * out["fills"],
+        "decode_attention": L * out["steps"]})
+    mem_after = _tensor_bytes_on_card()
+    print(f"[colocate] launches {counts} = {L} x ({out['fills']} prefill "
+          f"dispatches, {out['steps']} decode steps) over the profiler, "
+          f"{out['engines']} engines and their warmups; device memory held "
+          f"by tensors (cuBLAS workspaces dropped) {mem_before / 1e9:.3f} GB "
+          f"before the phase, {mem_after / 1e9:.3f} GB after the shutdown; "
+          f"phase wall time {wall:.1f} s",
+          flush=True)
+    if mem_after - mem_before > 0.1e9:
+        fail("colocate: a drained or replaced engine was not released "
+             f"({(mem_after - mem_before) / 1e9:.3f} GB more than before)")
+    out.update(mem_before_gb=mem_before / 1e9, mem_after_gb=mem_after / 1e9,
+               wall_s=wall)
+    return counts, out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     all_phases = (["build", "kernels", "parity"] + list(SERVING)
-                  + ["front", "controller"])
+                  + ["front", "controller", "colocate"])
     ap.add_argument("--phases", default=",".join(all_phases),
                     help=f"comma-separated subset of {','.join(all_phases)} "
                          "(the device phase always runs)")
@@ -1416,17 +1999,19 @@ def main() -> None:
                 + (f", the long prompts {longs} ms" if longs else ""))
         print("[slab_chunked] beside main and int8: " + "; ".join(beside),
               flush=True)
-    front = controller = None
+    front = controller = colocate = None
     if "front" in phases:
         by_path["front"], front = phase_front(args.profile)
     if "controller" in phases:
         by_path["controller"], controller = phase_controller(front)
+    if "colocate" in phases:
+        by_path["colocate"], colocate = phase_colocate()
     for name, row in kernels.items():
         split = {path: c[name] for path, c in by_path.items()}
         row["launches"] = sum(split.values()) if split else None
         row["launches_by_path"] = split
     print(json.dumps({"kernels": list(kernels.values()), "front": front,
-                      "controller": controller}))
+                      "controller": controller, "colocate": colocate}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],
         "count": torch.cuda.device_count()}}))

@@ -56,12 +56,14 @@ f32 logits, the reference's rule exactly.
 from __future__ import annotations
 
 import collections
+import contextlib
 import math
 import threading
 import time
 import zlib
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -375,6 +377,10 @@ class DecodeEngine:
         # Device copies of the per-slot sampling arrays; rebuilt only when
         # an admission changes them.
         self._sampling_dev = None
+        # Installed by a colocation executor (engine/colocate.py): called
+        # between the chunk dispatches of long admissions so co-tenant
+        # engines on the same device are not stalled.
+        self.interleave_hook: Optional[Callable[[], None]] = None
         self._admitting = 0
         self._thread: Optional[threading.Thread] = None
         self._run = threading.Event()
@@ -384,6 +390,13 @@ class DecodeEngine:
         self.long_chunk_dispatches = 0   # long-fill chunk dispatches
         self.completed = 0
         self.last_heartbeat = time.monotonic()
+
+    def _device_ctx(self):
+        """The engine's card as the current device (a null context on the
+        CPU): the scope a colocation executor's turns run under."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
 
     # --- device programs ---------------------------------------------------
     @staticmethod
@@ -861,9 +874,13 @@ class DecodeEngine:
     def _interleave_step(self) -> None:
         """One plain decode step for the active batch between long-fill
         chunks: a long prompt stalls in-flight streams by at most one
-        chunk."""
+        chunk. When a colocation executor hosts this engine it installs
+        ``interleave_hook``, so co-tenant engines get scans between chunks
+        too, not only this engine's own batch."""
         if self._active_mask.any():
             self._step(horizon=1)
+        if self.interleave_hook is not None:
+            self.interleave_hook()
 
     def _prefill_long(self, req: Request, prompt: np.ndarray, opts: Dict,
                       slot_idx: int) -> None:
@@ -991,6 +1008,10 @@ class DecodeEngine:
                     continue
                 budget -= head.C
                 dispatched_any = True
+                # Colocation fairness: co-tenant engines get their scans
+                # between chunk dispatches (engine/colocate.py).
+                if self.interleave_hook is not None:
+                    self.interleave_hook()
                 continue
             members = [head]
             if head.total <= head.C:
@@ -1021,6 +1042,8 @@ class DecodeEngine:
                 continue
             budget -= head.C * len(ready)
             dispatched_any = True
+            if self.interleave_hook is not None:
+                self.interleave_hook()
         if (self.paged and not dispatched_any and self._trains
                 and not self._active_mask.any()):
             self._relieve_train_starvation()

@@ -1,8 +1,9 @@
 """Per-model request queues with staleness discard and SLO accounting.
 
 Own copy of ``ray_dynamic_batching_tpu/engine/queue.py`` with its import
-paths rewritten. Trimmed: the page fabric's migration counters and
-``QueueManager`` (neither is ported).
+paths rewritten, ``QueueManager`` included (the live LLM scheduler's
+per-model queues). Trimmed: the page fabric's migration counters (the
+page fabric is not ported).
 
 Re-creates the reference's ``RequestQueue``
 (``293-project/src/scheduler.py:190-372``): bounded add with drop-when-full
@@ -590,3 +591,24 @@ class RequestQueue:
         with self._lock:
             return self._classes.stats(self._buckets.depth_by_class())
 
+
+class QueueManager:
+    """Name → queue registry shared by ingress, engines, and control loop."""
+
+    def __init__(self, max_len: int = 4096):
+        self.max_len = max_len
+        self._queues: Dict[str, RequestQueue] = {}
+        self._lock = threading.Lock()
+
+    def queue(self, model: str) -> RequestQueue:
+        with self._lock:
+            if model not in self._queues:
+                self._queues[model] = RequestQueue(model, self.max_len)
+            return self._queues[model]
+
+    def queues(self) -> Dict[str, RequestQueue]:
+        with self._lock:
+            return dict(self._queues)
+
+    def stats(self) -> Dict[str, Dict[str, float]]:
+        return {m: q.stats() for m, q in self.queues().items()}

@@ -58,6 +58,14 @@ KERNELS: Dict[str, tuple] = {
 }
 
 _lock = threading.Lock()
+#: Held across each host-side launch call. A launch sets its kernel's
+#: dynamic shared-memory limit (a per-function, process-wide attribute)
+#: and then launches, so two threads launching one kernel at shapes that
+#: need different limits — the engines of two length buckets, or a
+#: colocated engine beside a successor warming up on another thread —
+#: must not interleave the two calls; the decode kernels' shared merge
+#: scratch is picked under it too, so its reuse follows launch order.
+launch_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # nvcc's resource report (-Xptxas -v) per kernel, kept for the smoke run.
 ptxas_log: Dict[str, str] = {}

@@ -222,15 +222,16 @@ def _launch(q, k, v, mask_i8, k_scale, v_scale, *, scale: float
     if mask_i8 is not None and mask_i8.data_ptr() % 16:
         mask_i8 = mask_i8.clone()     # the kernel reads it in 16-byte loads
     out = torch.empty_like(q)
-    ws, cnt = _workspace(q.device, B, K, S, Tq * (N // K), H)
     lib = _build.load("decode_attention")
-    rc = lib.rdb_decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
-        _ptr(v_scale), _ptr(mask_i8), out.data_ptr(), B, Tq, S, N, K, H,
-        float(scale), dtype, int(int8), ws.data_ptr(), ws.numel(),
-        cnt.data_ptr(), cnt.numel(),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    with _build.launch_lock:
+        ws, cnt = _workspace(q.device, B, K, S, Tq * (N // K), H)
+        rc = lib.rdb_decode_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
+            _ptr(v_scale), _ptr(mask_i8), out.data_ptr(), B, Tq, S, N, K,
+            H, float(scale), dtype, int(int8), ws.data_ptr(), ws.numel(),
+            cnt.data_ptr(), cnt.numel(),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
     _build.check(lib, rc, "decode_attention")
     if int8:
         int8_launches += 1
@@ -332,15 +333,16 @@ def _launch_paged(q, k, v, page_table, lengths, k_scale, v_scale, *,
         if t.device != q.device:
             raise ValueError("paged decode kernel: inputs on another device")
     out = torch.empty_like(q)
-    ws, cnt = _workspace(q.device, B, K, NP * ps, Tq * (N // K), H)
     lib = _build.load("paged_decode_attention")
-    rc = lib.rdb_paged_decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
-        _ptr(v_scale), table.data_ptr(), lens.data_ptr(), out.data_ptr(), B,
-        Tq, N, K, H, P, ps, NP, float(scale), dtype, int(int8),
-        ws.data_ptr(), ws.numel(), cnt.data_ptr(), cnt.numel(),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    with _build.launch_lock:
+        ws, cnt = _workspace(q.device, B, K, NP * ps, Tq * (N // K), H)
+        rc = lib.rdb_paged_decode_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
+            _ptr(v_scale), table.data_ptr(), lens.data_ptr(),
+            out.data_ptr(), B, Tq, N, K, H, P, ps, NP, float(scale), dtype,
+            int(int8), ws.data_ptr(), ws.numel(), cnt.data_ptr(),
+            cnt.numel(), torch.cuda.current_stream(q.device).cuda_stream,
+        )
     _build.check(lib, rc, "paged_decode_attention")
     if int8:
         paged_int8_launches += 1

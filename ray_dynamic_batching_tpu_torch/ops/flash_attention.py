@@ -113,13 +113,14 @@ def _launch(q, k, v, mask_i8, *, causal: bool, scale: float) -> torch.Tensor:
         mask_i8 = mask_i8.clone()     # the kernel reads it in 16-byte loads
     out = torch.empty_like(q)
     lib = _build.load("flash_attention")
-    rc = lib.rdb_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        mask_i8.data_ptr() if mask_i8 is not None else None,
-        out.data_ptr(), B, Tq, Tk, N, K, H, float(scale), int(causal),
-        0 if q.dtype == torch.float32 else 1,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    with _build.launch_lock:
+        rc = lib.rdb_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            mask_i8.data_ptr() if mask_i8 is not None else None,
+            out.data_ptr(), B, Tq, Tk, N, K, H, float(scale), int(causal),
+            0 if q.dtype == torch.float32 else 1,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
     _build.check(lib, rc, "flash_attention")
     launches += 1
     return out

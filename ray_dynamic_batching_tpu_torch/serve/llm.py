@@ -13,18 +13,24 @@ from :class:`~ray_dynamic_batching_tpu_torch.serve.replica.Replica`, so the
 pow-2 router treats LLM replicas like batch replicas; the decode engine's
 own thread replaces the batch loop.
 
-This slice serves one length bucket with an explicit ``num_slots``, on a
-slab cache (the default) or the paged pool (``paged=True``: token-budget
-chunked prefill by default), in the model dtype or with the int8 KV cache
-(``quantize_kv=True``); ``chunked_prefill=True`` on the slab runs the
-slab-train arm. Prompts longer than the largest bucket are served as
-multi-chunk trains (the chunked arms) or through the long fill (the
-monolithic arms). The controller builds replicas through
-:meth:`LLMDeployment.make_replica` with a ``DeploymentConfig`` and the
-devices of the replica's placement bundle (one card; more raise until
-multi-GPU). The reference's auto-sizing (HBM model, measured tables),
-length buckets, speculative drafts, checkpoints, weight quantisation,
-prefix digests and the page fabric surface come later.
+A deployment serves one engine per ``length_buckets`` entry (default: one
+at ``max_len``), requests routed to the smallest cache that fits prompt +
+max_new_tokens, on a slab cache (the default) or the paged pool
+(``paged=True``: token-budget chunked prefill by default), in the model
+dtype or with the int8 KV cache (``quantize_kv=True``);
+``chunked_prefill=True`` on the slab runs the slab-train arm. Prompts
+longer than the largest bucket are served as multi-chunk trains (the
+chunked arms) or through the long fill (the monolithic arms).
+``num_slots <= 0`` sizes each engine: from measured decode tables when
+``profiles_dir`` holds them (:meth:`LLMDeployment.plan_from_tables`, which
+also derives the horizons from ``token_slo_ms`` / ``ttft_slo_ms``), else
+from the memory budget (:meth:`LLMDeployment.auto_num_slots`). The
+controller builds replicas through :meth:`LLMDeployment.make_replica` with
+a ``DeploymentConfig`` and the devices of the replica's placement bundle
+(one card; more raise until multi-GPU). The reference's speculative
+drafts, session and prefix caches, checkpoints, weight quantisation,
+prefix digests and the page fabric surface come later; their terms in
+:meth:`LLMDeployment.auto_num_slots` are zero until then.
 
 Payload contract (as the reference)::
 
@@ -38,6 +44,7 @@ from __future__ import annotations
 
 import threading
 import time
+import os
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import torch
@@ -48,7 +55,10 @@ from ray_dynamic_batching_tpu_torch.engine.request import (
     Request,
     RequestDropped,
 )
+from ray_dynamic_batching_tpu_torch.models.quant import tree_weight_bytes
+from ray_dynamic_batching_tpu_torch.profiles.table import BatchProfile
 from ray_dynamic_batching_tpu_torch.serve.replica import Replica
+from ray_dynamic_batching_tpu_torch.utils.config import get_config
 from ray_dynamic_batching_tpu_torch.utils.logging import get_logger
 from ray_dynamic_batching_tpu_torch.utils.sketch import QuantileSketch
 
@@ -250,7 +260,11 @@ class LLMDeployment:
     model there if none exists yet. Without an injected ``model`` the weights
     are random, drawn on the device from ``seed``. ``quantize_kv=True``
     builds the model with ``kv_dtype=torch.int8``; an injected model must
-    already have it."""
+    already have it.
+
+    ``num_slots <= 0`` means "size me" (:meth:`build_engine`): the
+    memory budget is the config's ``hbm_budget_bytes``, which on a card
+    the caller sets from the card; nothing here reads a card's memory."""
 
     def __init__(
         self,
@@ -275,11 +289,11 @@ class LLMDeployment:
         chunked_prefill: Optional[bool] = None,
         prefill_token_budget: Optional[int] = None,
         quantize_kv: bool = False,
+        length_buckets: Optional[Sequence[int]] = None,
+        profiles_dir: Optional[str] = None,
+        token_slo_ms: Optional[float] = None,
+        ttft_slo_ms: Optional[float] = None,
     ) -> None:
-        if num_slots <= 0:
-            raise ValueError(
-                "num_slots must be explicit: auto-sizing from HBM tables is "
-                "not ported yet")
         self.model_name = model_name
         self.num_slots = num_slots
         self.max_len = max_len
@@ -290,6 +304,10 @@ class LLMDeployment:
         self.ttft_horizon = ttft_horizon
         self.max_admissions_per_step = max_admissions_per_step
         self.warmup = warmup
+        # KV-capacity buckets: one engine per entry, requests routed to the
+        # smallest cache fitting prompt + max_new (LLMReplica). Default:
+        # one engine at max_len.
+        self.length_buckets = sorted(length_buckets or [max_len])
         self.device = device
         self.seed = seed
         self.base_seed = base_seed
@@ -312,6 +330,17 @@ class LLMDeployment:
             dtype = named
         self._dtype = dtype
         self._model = model
+        # Measured-table control (ref nexus.py:129-296 — profiled-latency-
+        # driven planning): when ``profiles_dir`` holds
+        # ``<model>_decode_summary.csv`` / ``<model>_prefill_summary.csv``
+        # tables (profiles/decode_profiler.py), single-card engines derive
+        # num_slots (if not pinned), decode_horizon and ttft_horizon from
+        # measurement + the token/TTFT SLOs instead of the analytic memory
+        # model — see plan_from_tables.
+        self.profiles_dir = profiles_dir
+        self.token_slo_ms = token_slo_ms
+        self.ttft_slo_ms = ttft_slo_ms
+        self._table_plans: Dict[tuple, Optional[Dict[str, int]]] = {}
         self._init_lock = threading.Lock()
 
     def _ensure_model(self, device: Optional[torch.device] = None):
@@ -350,11 +379,230 @@ class LLMDeployment:
                 )
             return self._model
 
+    def auto_num_slots(self, n_chips: int = 1,
+                       max_len: Optional[int] = None,
+                       budget_fraction: float = 1.0) -> int:
+        """Size the continuous batch from the memory budget: per device,
+        subtract this device's weight share, apply the planner's fraction
+        (``RDB_HBM_PLAN_FRACTION`` — the knob the Nexus packer uses), and
+        fill the rest with this device's KV-row shares. Tensor-parallel
+        replicas would shard both weights and KV 1/n_chips, so per-device
+        terms divide through (the arithmetic is the reference's; the port
+        builds one-card replicas). Rounded down to a power of two (aligns
+        prefill group widths), at most 256."""
+        model = self._ensure_model()
+        cfg = get_config()
+        weights_bytes = tree_weight_bytes(model) / max(1, n_chips)
+        budget = float(cfg.hbm_budget_bytes)
+        per_slot = float(
+            model.kv_bytes_per_slot(max_len or self.max_len)
+        ) / max(1, n_chips)
+        # The reference's speculative draft (its weights, and a draft KV
+        # row per slot) and session cache (a pinned KV row per stored
+        # turn, per length bucket) enter here; both come with ROADMAP
+        # queue 1 item 5 and are zero terms until then.
+        draft_weights_bytes = draft_per_slot = session_rows_bytes = 0.0
+        weights_bytes += draft_weights_bytes + session_rows_bytes
+        per_slot += draft_per_slot
+        usable = (
+            (budget - weights_bytes) * cfg.hbm_plan_fraction * budget_fraction
+        )
+        n = int(max(1.0, usable / max(per_slot, 1.0)))
+        n = min(n, 256)
+        n = 1 << (n.bit_length() - 1)   # round down to a power of two
+        logger.info(
+            "%s: auto num_slots=%d (%d chip(s), weights %.0f MB/chip, "
+            "%.2f MB/slot/chip, budget %.0f GB/chip x %.2f)",
+            self.model_name, n, n_chips, weights_bytes / 1e6,
+            per_slot / 1e6, budget / 1e9, cfg.hbm_plan_fraction,
+        )
+        return n
+
+    def plan_from_tables(
+        self,
+        decode_profile,
+        prefill_profile=None,
+        *,
+        max_len: Optional[int] = None,
+        token_slo_ms: Optional[float] = None,
+        ttft_slo_ms: Optional[float] = None,
+        num_slots: Optional[int] = None,
+    ) -> Dict[str, int]:
+        """Derive (num_slots, decode_horizon, ttft_horizon) from MEASURED
+        decode tables + SLOs — the reference's profiled-latency control
+        theory (``293-project/src/nexus.py:129-296``: committed tables
+        drive admission/packing) applied to the decode phase, replacing
+        the analytic memory model of :meth:`auto_num_slots`:
+
+        - **num_slots**: among measured (slots, capacity) configs whose
+          program fits the planner's HBM budget and whose per-substep
+          latency respects the token SLO, the one with the highest
+          full-occupancy token throughput.
+        - **decode_horizon**: tokens reach the host only at scan end, so a
+          full-batch scan of ``h`` substeps delivers bursts with gaps of
+          ``h x step_ms`` — the token-latency SLO bounds ``h``.
+        - **ttft_horizon**: an idle-queue arrival waits out at most one
+          ttft-tier scan, then prefills; the TTFT budget left after the
+          measured prefill latency (largest prompt bucket, group 1),
+          with 20% headroom for queue/dispatch, bounds the tier.
+
+        ``num_slots`` pins the slot count (the colocation planner's
+        placement dictates it): horizons are then derived from THAT
+        config's measured step — horizons computed for a different batch
+        size would silently re-break the SLO the scan length encodes.
+
+        Tables are profiled at the model's default (bf16) cache. Planning
+        an int8-KV deployment (``quantize_kv=True``) from them is SAFE
+        but conservative: the quantized scan is faster and smaller than
+        the measured rows, so slot counts and horizons under-promise —
+        re-profile with the quantized model to plan at its true capacity.
+        """
+        cfg = get_config()
+        budget = cfg.hbm_budget_bytes * cfg.hbm_plan_fraction / max(
+            1, len(self.length_buckets)
+        )
+        max_len = max_len or self.max_len
+        token_slo_ms = token_slo_ms or self.token_slo_ms
+        ttft_slo_ms = ttft_slo_ms or self.ttft_slo_ms
+        candidates = [
+            r for r in decode_profile.rows
+            if r.seq_len == max_len and r.hbm_bytes > 0
+        ]
+        if num_slots is not None:
+            # Pin BEFORE the budget filter: a caller-pinned config (the
+            # colocation planner's placement) was already validated
+            # against the planner's own HBM budget — re-filtering it
+            # against the deployment's per-bucket slice would reject a
+            # measured row that exists and silently fall back to default
+            # horizons, the exact burst-SLO breach the pin prevents.
+            rows = [r for r in candidates if r.batch_size == num_slots]
+            if not rows:
+                raise ValueError(
+                    f"{self.model_name}: no measured decode row at "
+                    f"(slots={num_slots}, cap={max_len}) to derive "
+                    "horizons from"
+                )
+        else:
+            rows = [r for r in candidates if r.hbm_bytes <= budget]
+        if token_slo_ms is not None:
+            fitting = [r for r in rows if r.latency_ms <= token_slo_ms]
+            if not fitting and rows:
+                # Nothing meets the SLO: serve with the fastest config
+                # rather than refusing (the SLO viewer will show red).
+                fitting = [min(rows, key=lambda r: r.latency_ms)]
+            rows = fitting
+        if not rows:
+            raise ValueError(
+                f"{self.model_name}: no measured decode config at "
+                f"capacity {max_len} fits the HBM budget "
+                f"({budget / 1e9:.1f} GB) — re-run the decode profiler"
+            )
+        best = max(rows, key=lambda r: r.batch_size / r.latency_ms)
+        step_ms = best.latency_ms
+        plan: Dict[str, int] = {"num_slots": int(best.batch_size)}
+        horizon = self.decode_horizon
+        if token_slo_ms is not None:
+            horizon = max(1, int(token_slo_ms // step_ms))
+            plan["decode_horizon"] = horizon
+        if ttft_slo_ms is not None:
+            prefill_ms = 0.0
+            if prefill_profile is not None and prefill_profile.rows:
+                largest = max(r.seq_len for r in prefill_profile.rows)
+                singles = [
+                    r for r in prefill_profile.rows
+                    if r.seq_len == largest and r.batch_size == 1
+                ] or [r for r in prefill_profile.rows
+                      if r.seq_len == largest]
+                prefill_ms = singles[0].latency_ms
+            scan_budget = 0.8 * ttft_slo_ms - prefill_ms
+            plan["ttft_horizon"] = int(
+                min(max(1, scan_budget // step_ms), horizon)
+            )
+        logger.info(
+            "%s: table plan at cap %d -> %s (step %.2f ms, %d candidate "
+            "rows)", self.model_name, max_len, plan, step_ms, len(rows),
+        )
+        return plan
+
+    def _table_plan(
+        self, max_len: int, num_slots: Optional[int] = None,
+    ) -> Optional[Dict[str, int]]:
+        """Load committed tables from ``profiles_dir`` once per
+        (capacity, pinned-slots) config; None when the decode table is
+        absent (callers fall back to the analytic path)."""
+        if self.profiles_dir is None:
+            return None
+        cache_key = (max_len, num_slots)
+        if cache_key in self._table_plans:
+            return self._table_plans[cache_key]
+        decode_csv = os.path.join(
+            self.profiles_dir, f"{self.model_name}_decode_summary.csv"
+        )
+        if not os.path.exists(decode_csv):
+            logger.warning(
+                "%s: profiles_dir=%s has no decode table — falling back "
+                "to the analytic memory model", self.model_name,
+                self.profiles_dir,
+            )
+            return None
+        decode_profile = BatchProfile.from_csv(
+            f"{self.model_name}_decode", decode_csv
+        )
+        prefill_csv = os.path.join(
+            self.profiles_dir, f"{self.model_name}_prefill_summary.csv"
+        )
+        prefill_profile = None
+        if os.path.exists(prefill_csv):
+            prefill_profile = BatchProfile.from_csv(
+                f"{self.model_name}_prefill", prefill_csv
+            )
+        try:
+            plan = self.plan_from_tables(
+                decode_profile, prefill_profile, max_len=max_len,
+                num_slots=num_slots,
+            )
+        except ValueError as e:
+            # A table that exists but has no row at this capacity (swept at
+            # different max_lens) must degrade exactly like a missing
+            # table — raising here would crash-loop every replica start
+            # until the controller marks the deployment unhealthy.
+            logger.warning(
+                "%s: committed tables unusable at capacity %d (%s) — "
+                "falling back to the analytic memory model",
+                self.model_name, max_len, e,
+            )
+            plan = None
+        self._table_plans[cache_key] = plan
+        return plan
+
     def build_engine(self, queue: RequestQueue,
                      max_len: Optional[int] = None,
-                     device: Optional[torch.device] = None) -> DecodeEngine:
+                     device: Optional[torch.device] = None,
+                     num_slots: Optional[int] = None) -> DecodeEngine:
+        """One engine at capacity ``max_len``. ``num_slots`` overrides the
+        deployment's (the colocation control loop passes the planner's
+        placement shape): a positive count is pinned and its horizons come
+        from its own measured row when the tables have one; ``<= 0`` takes
+        the table plan's slot count, or else :meth:`auto_num_slots`."""
         model = self._ensure_model(device)
         max_len = max_len or self.max_len
+        num_slots = num_slots if num_slots is not None else self.num_slots
+        decode_horizon = self.decode_horizon
+        ttft_horizon = self.ttft_horizon
+        # ANY pinned slot count pins the plan to ITS measured row, so the
+        # horizons below always describe the config that actually runs.
+        plan = self._table_plan(
+            max_len, num_slots=num_slots if num_slots > 0 else None)
+        if plan is not None:
+            if num_slots <= 0:
+                num_slots = plan["num_slots"]
+            decode_horizon = plan.get("decode_horizon", decode_horizon)
+            ttft_horizon = plan.get("ttft_horizon", ttft_horizon)
+        elif num_slots <= 0:
+            num_slots = self.auto_num_slots(
+                1, max_len=max_len,
+                budget_fraction=1.0 / len(self.length_buckets),
+            )
         prompt_buckets = self.prompt_buckets
         if prompt_buckets is not None:
             prompt_buckets = [b for b in prompt_buckets if b <= max_len] \
@@ -362,13 +610,13 @@ class LLMDeployment:
         return DecodeEngine(
             model,
             queue,
-            num_slots=self.num_slots,
+            num_slots=num_slots,
             max_len=max_len,
             prompt_buckets=prompt_buckets,
             eos_token_id=self.eos_token_id,
             default_max_new_tokens=self.default_max_new_tokens,
-            decode_horizon=self.decode_horizon,
-            ttft_horizon=self.ttft_horizon,
+            decode_horizon=decode_horizon,
+            ttft_horizon=ttft_horizon,
             max_admissions_per_step=self.max_admissions_per_step,
             base_seed=self.base_seed,
             device=model.device,
@@ -399,7 +647,9 @@ class LLMDeployment:
             replica_id=replica_id,
             deployment=config.name,
             engine_builders={
-                self.max_len: lambda q: self.build_engine(q, device=device),
+                bucket: (lambda q, b=bucket: self.build_engine(
+                    q, max_len=b, device=device))
+                for bucket in self.length_buckets
             },
             max_ongoing_requests=config.max_ongoing_requests,
             warmup=self.warmup,

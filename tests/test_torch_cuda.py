@@ -457,3 +457,48 @@ def test_flash_kernel_on_a_slab_train_chunk(card, dtype, start):
     assert fl.launches == before + 1
     ref = fl.flash_attention_plain(q, k, v, keep)
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+def test_kernels_launch_from_two_threads_at_different_shapes(card):
+    """Two engines of different KV capacities (two length buckets, each
+    on its own thread) launch the same kernels at shapes that need
+    different shared-memory limits: no launch is refused and every
+    result equals the plain version's."""
+    import threading
+
+    dtype = torch.bfloat16
+    inputs = {}
+    for S in (256, 512):
+        gen = torch.Generator(device=card).manual_seed(S)
+        q = _rand(gen, (16, 1, 32, 128), dtype, card)
+        k = _rand(gen, (16, S, 8, 128), dtype, card)
+        v = _rand(gen, (16, S, 8, 128), dtype, card)
+        mask = torch.rand((16, 1, 1, S), generator=gen, device=card) < 0.9
+        qf = _rand(gen, (2, 64, 32, 128), dtype, card)
+        kf = _rand(gen, (2, S, 8, 128), dtype, card)
+        vf = _rand(gen, (2, S, 8, 128), dtype, card)
+        inputs[S] = (q, k, v, mask, qf, kf, vf)
+    errors, worst = [], {}
+
+    def run(S):
+        q, k, v, mask, qf, kf, vf = inputs[S]
+        try:
+            for _ in range(200):
+                out = dec.decode_attention(q, k, v, mask=mask)
+                out_f = fl.flash_attention(qf, kf, vf, causal=True)
+            torch.cuda.synchronize()
+            ref = dec.decode_attention_plain(q, k, v,
+                                             fl.keep_mask(mask, 16, 1, S))
+            ref_f = fl.flash_attention_plain(qf, kf, vf, None, causal=True)
+            worst[S] = max((out.float() - ref.float()).abs().max().item(),
+                           (out_f.float() - ref_f.float()).abs().max().item())
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"S={S}: {e}")
+
+    threads = [threading.Thread(target=run, args=(S,)) for S in inputs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors, errors
+    assert all(w <= TOL[dtype] for w in worst.values()), worst

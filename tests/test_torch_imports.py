@@ -3,9 +3,10 @@
 An AST scan of every module of ``ray_dynamic_batching_tpu_torch`` and of
 ``chip_smoke.py`` matches whole module names (``ray_dynamic_batching_tpu``
 is a prefix of ``ray_dynamic_batching_tpu_torch`` as a string, not as a
-module); a subprocess with those modules blocked imports the port, serves a
-tiny model on the CPU, and deploys it through the port's controller and
-handle.
+module); a subprocess with those modules blocked imports the port (the profiles
+package, the packers, the colocation executor and the live scheduler
+among it), profiles and packs a tiny model, serves it on the CPU, and
+deploys it through the port's controller and handle.
 """
 
 import ast
@@ -71,6 +72,30 @@ dep = LLMDeployment("llama_tiny", num_slots=2, max_len=32,
                     dtype=torch.float32, device="cpu", seed=0)
 replica = dep.make_replica("probe", DeploymentConfig(name="llama_tiny"))
 engine = replica.engine
+from ray_dynamic_batching_tpu_torch import state
+from ray_dynamic_batching_tpu_torch.engine.colocate import (
+    ColocatedLLMEngines,
+)
+from ray_dynamic_batching_tpu_torch.models.quant import tree_weight_bytes
+from ray_dynamic_batching_tpu_torch.profiles.decode_profiler import (
+    DecodeProfiler,
+)
+from ray_dynamic_batching_tpu_torch.profiles.profiler import _is_oom
+from ray_dynamic_batching_tpu_torch.scheduler.llm_control import (
+    LLMLiveScheduler,
+    deployment_engine_factory,
+)
+from ray_dynamic_batching_tpu_torch.scheduler.nexus import (
+    LLMSession,
+    pack_llm_engines,
+)
+row = DecodeProfiler(engine.model, timing_iters=2,
+                     warmup_iters=1).profile_decode_config(2, 32)
+assert row.latency_ms > 0 and row.hbm_bytes > tree_weight_bytes(engine.model)
+from ray_dynamic_batching_tpu_torch.profiles.table import BatchProfile
+chips = pack_llm_engines([LLMSession("m", 10.0, 1e4)],
+                         {{"m": BatchProfile("m_decode", [row])}})
+assert chips[0][0].num_slots == 2
 req = Request(model="llama_tiny", payload={{"tokens": [1, 2, 3]}},
               slo_ms=1e7)
 engine.queue.add_request(req)
