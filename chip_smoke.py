@@ -14,7 +14,8 @@ last line:
    paths' shapes, in bf16 and f32 (the paged kernel also at a Tq = 4
    staircase window in f32; flash also at a paged chunk deep in a long
    prompt, q [2, 64, 32, 128] over 512 positions with 3 and 5 live KV
-   tiles), and the int8-KV branch of both decode kernels (int8 codes +
+   tiles, and at ViT-B/16's unmasked attention, q/k/v [64, 197, 12, 64],
+   whose bound counts q, k, v and out once), and the int8-KV branch of both decode kernels (int8 codes +
    f32 scales, q in bf16 and f32): max abs error against the stated
    tolerance, median CUDA-event times of kernel / plain version / a
    PyTorch yardstick never used by the port (one
@@ -121,7 +122,33 @@ last line:
     the packer admits a pair the host-bound card cannot keep, and the
     run prints how far it falls short.
 
-Phases 5 to 12 each set every launch count to 0 just before they serve and
+13. vision — the Nexus vision path, bf16 with random weights from seed 0.
+    Parity: ``resnet50``, ``shufflenet_v2``, ``efficientnet_v2s`` and
+    ``vit_b_16`` at 224 x 224, batch 8, in f32 on the card (TF32 off):
+    logits through the kernel route against ``plain_attention()``, held
+    to 1e-4 (only ViT differs: 12 flash launches a forward); then the
+    served bf16 model's logits on the same input against that f32
+    forward, held to 5e-2 x max |logit|. Profiles:
+    ``ModelProfiler`` sweeps the reference's accelerator buckets (resnet50
+    1-1024, shufflenet_v2 1-2048, efficientnet_v2s 1-512 at its 384,
+    vit_b_16 1-256) into ``build/profiles_h100/`` and prints every row.
+    The SLO run is ``tools/run_slo_demo.py``'s non-CPU shape: the three
+    demo models' tables -> ``SquishyBinPacker`` (12 GiB) -> three
+    ``ReplicaEngine``s on the card under one ``LiveScheduler`` (monitor
+    every 5 s, rate window 10 s, 5% threshold), SLOs 2000 / 1500 /
+    4000 ms, Poisson arrivals of one NHWC example at min(200, max(0.2,
+    0.010 x profiled peak)) rps for 60 s, resnet50's rate doubled at
+    30 s. It prints the plans, the replans with their rates, per model
+    the sent / completed / stale / dropped counts and the compliance of
+    each half, per engine the batches, busy share beside the planned
+    occupancy and step / profiled-latency ratios, and resnet50's queue
+    depth every 5 s. The scheduler plans at 1.5 x the rates it reads
+    (``RATE_HEADROOM`` in ``scheduler/control.py``). It fails on a request
+    not accounted for, when no rate-change replan after the shift saw
+    resnet50 at 1.5 x its offered rate, or on a compliance under 0.95 in
+    any half of any model.
+
+Phases 5 to 13 each set every launch count to 0 just before they serve and
 read them just after: each kernel of the path must have launched the
 number of times the engine's dispatches imply, the other kernels and the
 plain route never. Phase 11 builds three engines inside its window (v1,
@@ -131,12 +158,14 @@ decode steps; those warmup dispatches are added to the dispatches the
 engines counted while serving. Phase 12 adds, beside its engines'
 dispatches and warmups (the length-bucket replica's two engines and every
 engine the scheduler builds are warmed), the profiler's: each config runs
-2 + 3 x 8 dispatches, one prefill group or one decode step each.
+2 + 3 x 8 dispatches, one prefill group or one decode step each. Phase 13
+sets them to 0 just before its SLO run: flash = 12 x (the vit_b_16
+batches served + the vit_b_16 buckets the engines warmed).
 
 The line before the last is one JSON object with the per-kernel numbers
 (``launches`` sums the serving phases; ``launches_by_path`` splits them)
-and the numbers of the front, controller and colocate phases (``front``,
-``controller``, ``colocate``); the last line is
+and the numbers of the front, controller, colocate and vision phases
+(``front``, ``controller``, ``colocate``, ``vision``); the last line is
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (for
 bring-up); the default runs all. ``--profile`` traces each serving window
 with ``torch.profiler`` and prints the device's busy share and its time by
@@ -165,6 +194,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -183,6 +213,9 @@ N_HEADS, KV_HEADS, HEAD_DIM = 32, 8, 128
 PS = 128
 NP = S // PS
 POOL = SLOTS * NP
+# ViT-B/16's attention (phase 3's vit case): batch 64, 197 tokens, 12
+# heads of 64.
+VIT_B, VIT_T, VIT_HEADS, VIT_HD = 64, 197, 12, 64
 
 
 def fail(msg: str) -> None:
@@ -294,6 +327,22 @@ def _paged_chunk_inputs(dtype, gen, rng):
     mask = paged_window_mask(torch.tensor([128, 256], device=dev), S, T)
     return _with_keep_mask(dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype),
                                 mask=mask))
+
+
+def _vit_inputs(dtype, gen, rng):
+    """ViT-B/16's attention at the profiled batch 64: q/k/v [64, 197, 12,
+    64], non-causal, no mask (a ragged last query tile: 197 = 3 x 64 + 5)."""
+    q, k, v = (torch.randn((VIT_B, VIT_T, VIT_HEADS, VIT_HD), generator=gen,
+                           device="cuda").to(dtype) for _ in range(3))
+    return dict(q=q, k=k, v=v, mask=None, keep=None)
+
+
+def _qkvo_cost(x) -> tuple:
+    """An unmasked call reads q, k and v once and writes out once; FLOPs
+    4 B N Tq Tk H."""
+    B, Tq, N, H = x["q"].shape
+    return (_nbytes(x["q"], x["k"], x["v"], x["q"]),
+            4 * B * N * Tq * x["k"].shape[1] * H)
 
 
 def _decode_inputs(dtype, gen, rng):
@@ -440,8 +489,9 @@ def _kernel_specs():
             source="ray_dynamic_batching_tpu_torch/csrc/flash_attention.cu",
             replaces="ray_dynamic_batching_tpu/ops/flash_attention.py:154",
             inputs=_prefill_inputs,
-            kernel=lambda x: fl.flash_attention(x["q"], x["k"], x["v"],
-                                                mask=x["keep"][:, None]),
+            kernel=lambda x: fl.flash_attention(
+                x["q"], x["k"], x["v"],
+                mask=None if x["keep"] is None else x["keep"][:, None]),
             kernel_bool_mask=lambda x: fl.flash_attention(
                 x["q"], x["k"], x["v"], mask=x["mask"]),
             plain=lambda x: fl.flash_attention_plain(
@@ -449,8 +499,10 @@ def _kernel_specs():
             library=lambda x: _sdpa(x["q"], x["k"], x["v"], x["mask"]),
             yardstick=None,
             cost=_masked_cost,
-            # A paged chunk deep in a long prompt (3 and 5 live tiles).
-            serving_case=("paged_chunk", _paged_chunk_inputs),
+            # A paged chunk deep in a long prompt (3 and 5 live tiles),
+            # and ViT-B/16's unmasked attention (the vision path).
+            serving_cases=[("paged_chunk", _paged_chunk_inputs, None),
+                           ("vit", _vit_inputs, _qkvo_cost)],
         ),
         "decode_attention": dict(
             source="ray_dynamic_batching_tpu_torch/csrc/decode_attention.cu",
@@ -536,20 +588,21 @@ def _check(name: str, tag: str, sp, x, dtype) -> float:
     return err
 
 
-def _timed(sp, x, dtype) -> dict:
+def _timed(sp, x, dtype, cost=None) -> dict:
     """Kernel, plain, library / yardstick times and the bounds of one bf16
-    case: the bound over what the call needs, and (kernels 1 and 2) the
-    dense bound (every position read)."""
-    nbytes, flops = sp["cost"](x)
+    case: the bound over what the call needs, and (kernels 1 and 2, on a
+    masked case) the dense bound (every position read)."""
+    cost = cost or sp["cost"]
+    nbytes, flops = cost(x)
     b_ms, b_by = bound(nbytes, flops, dtype)
     row = dict(ms=time_ms(lambda: sp["kernel"](x)),
                plain_ms=time_ms(lambda: sp["plain"](x)),
                library_ms=(time_ms(lambda: sp["library"](x))
                            if sp["library"] else None),
                bound_ms=b_ms, bound_by=b_by, bound_mb=nbytes / 1e6)
-    if "kernel_bool_mask" in sp:
+    if "kernel_bool_mask" in sp and x["mask"] is not None:
         row["ms_bool_mask"] = time_ms(lambda: sp["kernel_bool_mask"](x))
-    if sp["cost"] is _masked_cost:
+    if cost is _masked_cost:
         d_bytes, d_flops = _dense_cost(x)
         row["dense_bound_ms"], _ = bound(d_bytes, d_flops, dtype)
     if sp["yardstick"] is not None:
@@ -604,8 +657,7 @@ def phase_kernels() -> dict:
                 q_shape=list(x["q"].shape), kv_shape=list(x["k"].shape),
                 max_abs_err=err, **_timed(sp, x, dtype))
             _print_times(name, row)
-        if "serving_case" in sp:
-            case, make = sp["serving_case"]
+        for case, make, cost in sp.get("serving_cases", []):
             for dtype in (torch.float32, torch.bfloat16):
                 x = make(dtype, gen, rng)
                 tag = ("bf16" if dtype == torch.bfloat16 else "f32") + \
@@ -616,7 +668,7 @@ def phase_kernels() -> dict:
                     continue
                 sub = dict(q_shape=list(x["q"].shape),
                            kv_shape=list(x["k"].shape), max_abs_err=err,
-                           **_timed(sp, x, dtype))
+                           **_timed(sp, x, dtype, cost))
                 _print_times(f"{name} {case}", sub)
                 row.update({f"{case}_{k}": v for k, v in sub.items()})
         results[name] = row
@@ -1956,10 +2008,374 @@ def phase_colocate() -> tuple:
     return counts, out
 
 
+# --- phase 13: the Nexus vision path ---------------------------------------
+# The four vision servables at 224 x 224 (EfficientNet-V2-S profiles at its
+# own 384), bf16, random weights from seed 0. Profile buckets are the
+# reference's accelerator sweep (tools/run_profiles.py:41-44); the SLO run
+# is tools/run_slo_demo.py's non-CPU shape (:52-58, :191-): its SLOs, its
+# offered load (min(200, max(0.2, 0.010 x profiled peak throughput)) rps),
+# one NHWC example per model, 60 s with resnet50's rate doubled at 30 s,
+# three engines, the packer's 12 GiB budget and the scheduler's default
+# config (monitor every 5 s, rate window 10 s, 5% threshold).
+VISION = dict(
+    parity=("resnet50", "shufflenet_v2", "efficientnet_v2s", "vit_b_16"),
+    parity_batch=8, parity_size=224, parity_tol=1e-4, bf16_rel_tol=5e-2,
+    buckets={
+        "resnet50": [1, 8, 32, 64, 128, 256, 512, 1024],
+        "shufflenet_v2": [1, 8, 32, 128, 256, 512, 1024, 2048],
+        "efficientnet_v2s": [1, 8, 32, 64, 128, 256, 512],
+        "vit_b_16": [1, 8, 16, 32, 64, 128, 256],
+    },
+    warmup_iters=2, timing_iters=4,
+    workload=(("resnet50", 2000.0, 0.010, 2.0),
+              ("shufflenet_v2", 1500.0, 0.010, 1.0),
+              ("vit_b_16", 4000.0, 0.010, 1.0)),
+    max_rps=200.0, min_rps=0.2, duration_s=60.0, engines=3,
+    hbm_budget_bytes=12 << 30, gate=0.95, surge_seen=1.5,
+    vit="vit_b_16", vit_layers=12, classes=1000,
+)
+COUNTER_FIELDS = ("completed", "violations", "stale", "dropped")
+
+
+def _phase_compliance(start: dict, end: dict) -> dict:
+    """tools/run_slo_demo.py's per-phase accounting: counter deltas, with
+    stale and dropped requests counted as misses."""
+    d = {k: end[k] - start[k] for k in COUNTER_FIELDS}
+    accounted = d["completed"] + d["stale"] + d["dropped"]
+    misses = d["violations"] + d["stale"] + d["dropped"]
+    d["slo_compliance"] = 1.0 - misses / accounted if accounted else 1.0
+    return d
+
+
+def _vision_parity(c: dict) -> dict:
+    """Each model in f32 on the card (TF32 off for convs and matmuls),
+    batch 8: logits through the kernel route against the plain route; then
+    the served bf16 model against that f32 forward."""
+    from ray_dynamic_batching_tpu_torch.models.base import get_model
+    from ray_dynamic_batching_tpu_torch.ops import attention
+    from ray_dynamic_batching_tpu_torch.ops import flash_attention as fl
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {}
+    try:
+        for name in c["parity"]:
+            model = get_model(name, dtype=torch.float32,
+                              image_size=c["parity_size"]).eval()
+            x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+                (c["parity_batch"], c["parity_size"], c["parity_size"], 3)
+            ).astype(np.float32)).cuda()
+            before = fl.launches
+            with torch.inference_mode():
+                out = model(x)
+                with attention.plain_attention():
+                    ref = model(x)
+            torch.cuda.synchronize()
+            launched = fl.launches - before
+            want = c["vit_layers"] if name == c["vit"] else 0
+            if tuple(out.shape) != (c["parity_batch"], c["classes"]) or not (
+                    bool(torch.isfinite(out).all())):
+                fail(f"vision parity {name}: logits {tuple(out.shape)} not "
+                     f"finite [{c['parity_batch']}, {c['classes']}]")
+            err = (out - ref).abs().max().item()
+            print(f"[vision] parity {name} f32 batch {c['parity_batch']} at "
+                  f"{c['parity_size']}: kernel route vs plain route max abs "
+                  f"logit err {err:.3e} (max |logit| "
+                  f"{ref.abs().max().item():.3f}; tol {c['parity_tol']:.0e}); "
+                  f"flash launches {launched} (expected {want})", flush=True)
+            if launched != want:
+                fail(f"vision parity {name}: {launched} flash launches, "
+                     f"expected {want}")
+            if not err <= c["parity_tol"]:
+                fail(f"vision parity {name}: {err} > {c['parity_tol']}")
+            # The model as served (bf16, channels-last, cuDNN's bf16
+            # convolutions) against the f32 forward of the same weights.
+            served = get_model(name, image_size=c["parity_size"]).eval()
+            with torch.inference_mode():
+                low = served(x).float()
+            scale = ref.abs().max().item()
+            rel = (low - ref).abs().max().item() / scale
+            print(f"[vision] parity {name} bf16 (served) vs f32: max abs "
+                  f"logit err {rel * scale:.3e} = {rel:.3e} x max |logit| "
+                  f"(tol {c['bf16_rel_tol']:.0e})", flush=True)
+            if not rel <= c["bf16_rel_tol"]:
+                fail(f"vision parity {name}: bf16 logits off the f32 "
+                     f"forward by {rel:.3e} x max |logit|")
+            errs[name] = {"route_f32": err, "bf16_vs_f32_rel": rel}
+            del model, out, ref, served, low
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    attention.reset_counts()   # comparison launches do not count
+    return errs
+
+
+def _vision_profiles(c: dict, profiles_dir: str) -> dict:
+    """``ModelProfiler`` over the reference's buckets for each model,
+    written to ``profiles_dir``; returns name -> BatchProfile."""
+    from ray_dynamic_batching_tpu_torch.models.base import get_model
+    from ray_dynamic_batching_tpu_torch.profiles.profiler import ModelProfiler
+
+    out = {}
+    for name, buckets in c["buckets"].items():
+        t0 = time.monotonic()
+        model = get_model(name).eval()
+        profiler = ModelProfiler(model, warmup_iters=c["warmup_iters"],
+                                 timing_iters=c["timing_iters"])
+        prof = profiler.sweep(batch_buckets=buckets)
+        if not prof.rows:
+            fail(f"vision profile {name}: no feasible bucket")
+        csv_path, _, _ = profiler.write_outputs(prof, profiles_dir)
+        for r in prof.rows:
+            r = r.with_throughput()
+            print(f"[vision] profile {name} b={r.batch_size}: "
+                  f"{r.latency_ms:.3f} ms (std {r.latency_std_ms:.3f}), "
+                  f"{r.throughput_sps:.1f} img/s, hbm_bytes {r.hbm_bytes}, "
+                  f"first dispatch {r.compile_ms:.1f} ms", flush=True)
+        missing = sorted(set(buckets) - {r.batch_size for r in prof.rows})
+        print(f"[vision] profile {name}: {len(prof.rows)} rows -> {csv_path}"
+              f" (infeasible: {missing or 'none'}; "
+              f"{time.monotonic() - t0:.1f} s)", flush=True)
+        out[name] = prof
+        del model, profiler
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _vision_slo_run(c: dict, profiles_dir: str) -> tuple:
+    """run_slo_demo's live run on the card: profiles read back from
+    ``profiles_dir`` -> ``SquishyBinPacker`` -> three ``ReplicaEngine``s
+    under a ``LiveScheduler``, Poisson arrivals through a rate step.
+    Returns (launch counts, the run's numbers)."""
+    from ray_dynamic_batching_tpu_torch.engine import worker
+    from ray_dynamic_batching_tpu_torch.engine.host import ModelHost
+    from ray_dynamic_batching_tpu_torch.engine.queue import QueueManager
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+    from ray_dynamic_batching_tpu_torch.engine.workload import (
+        RatePattern,
+        WorkloadDriver,
+    )
+    from ray_dynamic_batching_tpu_torch.models.base import get_model
+    from ray_dynamic_batching_tpu_torch.ops import attention
+    from ray_dynamic_batching_tpu_torch.profiles.table import BatchProfile
+    from ray_dynamic_batching_tpu_torch.scheduler.control import (
+        LiveScheduler,
+    )
+    from ray_dynamic_batching_tpu_torch.scheduler.nexus import (
+        SquishyBinPacker,
+    )
+
+    names = [w[0] for w in c["workload"]]
+    slos = {w[0]: w[1] for w in c["workload"]}
+    profiles = {n: BatchProfile.from_csv(
+        n, f"{profiles_dir}/{n}_summary.csv") for n in names}
+    packer = SquishyBinPacker(profiles, hbm_budget_bytes=c["hbm_budget_bytes"])
+    queues = QueueManager()
+    host = ModelHost()
+    engines = [worker.ReplicaEngine(f"card{i}", queues, host)
+               for i in range(c["engines"])]
+    sched = LiveScheduler(packer, engines, queues=queues)
+    for n in names:
+        sched.register_model(n, slo_ms=slos[n])
+    example = {}   # one NHWC example per model (run_slo_demo.py:276-280)
+    for n in names:
+        (spec,) = get_model(n, device="meta", seed=None).input_shapes(1)
+        example[n] = np.zeros(spec.shape[1:], np.float32)
+    base = {n: min(c["max_rps"], max(c["min_rps"],
+                                     util * profiles[n].max_throughput()))
+            for n, _, util, _ in c["workload"]}
+    mult = {n: m for n, _, _, m in c["workload"]}
+    (surged,) = [n for n, m in mult.items() if m != 1.0]
+    shift_at = c["duration_s"] / 2.0
+    print(f"[vision] offered rps {({n: round(r, 2) for n, r in base.items()})}"
+          f"; SLOs {slos} ms; shift at {shift_at:.0f} s: {surged} x "
+          f"{mult[surged]}", flush=True)
+
+    def batches(e, n):
+        return worker.BATCHES_TOTAL.get(tags={"engine": e.engine_id,
+                                              "model": n})
+
+    b0 = {(e.engine_id, n): batches(e, n) for e in engines for n in names}
+    depths: list = []            # (t_s, {model: queue depth}) every second
+    sampling = threading.Event()
+
+    def sample_depths(t_start: float) -> None:
+        while not sampling.wait(1.0):
+            depths.append((time.monotonic() - t_start,
+                           {n: len(queues.queue(n)) for n in names}))
+
+    attention.reset_counts()
+    for e in engines:
+        e.track_ratios = True
+        e.start()
+    drivers, snap_mid = [], None
+    try:
+        plans = sched.rebalance(rates=base)
+        baseline = sched.schedule_changes
+        for p in plans:
+            print(f"[vision] plan: {p.describe()}", flush=True)
+        initial = {e.engine_id: 0.0 for e in engines}
+        deadline = time.monotonic() + 120
+        while not set(names) <= {m for e in engines for m in e.models}:
+            if time.monotonic() > deadline:
+                fail("vision: engines never loaded the planned models")
+            time.sleep(0.1)
+        for e in engines:
+            initial[e.engine_id] = sum(
+                p.occupancy for p in e._schedule.placements)
+            e.busy_ms = 0.0
+            e.drain_ratios()
+        sched.start_monitoring()
+
+        def submit(model: str, _offset: float) -> None:
+            sched.submit_request(Request(model=model, payload=example[model],
+                                         slo_ms=slos[model]))
+
+        drivers = [
+            WorkloadDriver(submit, n, RatePattern(
+                "step", base_rps=base[n], amplitude=base[n] * (mult[n] - 1.0),
+                step_at_s=shift_at), duration_s=c["duration_s"],
+                poisson=True, seed=17 + i)
+            for i, n in enumerate(names)
+        ]
+        t0 = time.monotonic()
+        for d in drivers:
+            d.start()
+        sampler = threading.Thread(target=sample_depths, args=(t0,),
+                                   daemon=True)
+        sampler.start()
+        time.sleep(max(0.0, shift_at - (time.monotonic() - t0)))
+        snap_mid = {n: dict(queues.queue(n).stats()) for n in names}
+        for d in drivers:
+            d.join(c["duration_s"] + 60)
+        deadline = time.monotonic() + 60
+        while (any(len(queues.queue(n)) > 0 for n in names)
+               and time.monotonic() < deadline):
+            time.sleep(0.1)
+        time.sleep(0.5)
+        wall_s = time.monotonic() - t0
+        last = {e.engine_id: sum(p.occupancy for p in e._schedule.placements)
+                for e in engines}
+    finally:
+        sampling.set()
+        sched.stop_monitoring()
+        for e in engines:
+            e.stop()
+    torch.cuda.synchronize()
+    counts = _counts()
+    ratios = {e.engine_id: e.drain_ratios() for e in engines}
+    served = {(e.engine_id, n): batches(e, n) - b0[(e.engine_id, n)]
+              for e in engines for n in names}
+    warmups = sum(1 for e in engines for k in e._warmed if k[0] == c["vit"])
+    vit_batches = sum(v for (_, n), v in served.items() if n == c["vit"])
+    _expect_only("vision", counts, {
+        "flash_attention": c["vit_layers"] * (vit_batches + warmups)})
+
+    out = {"offered_rps": base, "wall_s": wall_s, "models": {},
+           "replans": [], "engines": {}}
+    worst = 1.0
+    zero = {k: 0 for k in COUNTER_FIELDS}
+    for d in drivers:
+        n = d.model
+        end = queues.queue(n).stats()
+        p1 = _phase_compliance(zero, snap_mid[n])
+        p2 = _phase_compliance(snap_mid[n], end)
+        worst = min(worst, p1["slo_compliance"], p2["slo_compliance"])
+        lost = d.sent - (end["completed"] + end["stale"] + end["dropped"])
+        out["models"][n] = dict(
+            sent=d.sent, completed=end["completed"], stale=end["stale"],
+            dropped=end["dropped"], depth=end["depth"], lost=lost,
+            phase1=p1, phase2=p2, p95_ms=end["latency_p95_ms"],
+            p99_ms=end["latency_p99_ms"])
+        print(f"[vision] {n}: sent {d.sent}, completed {end['completed']:.0f}"
+              f", stale {end['stale']:.0f}, dropped {end['dropped']:.0f}, "
+              f"unaccounted {lost:.0f}; compliance first half "
+              f"{p1['slo_compliance']:.4f}, second half "
+              f"{p2['slo_compliance']:.4f}; latency p95 "
+              f"{end['latency_p95_ms']:.1f} ms, p99 "
+              f"{end['latency_p99_ms']:.1f} ms", flush=True)
+        if lost or end["depth"]:
+            fail(f"vision: {n} has {lost:.0f} requests unaccounted for and "
+                 f"{end['depth']:.0f} still queued")
+    surge_seen = []
+    for rec in sched.schedule_log[baseline:]:
+        t_s = rec["ts"] - t0
+        rates = rec["rates"]
+        out["replans"].append({"t_s": t_s, "rates": rates,
+                               "nodes": rec["nodes"]})
+        print(f"[vision] replan at {t_s:+.1f} s, rates "
+              f"{({k: round(v, 2) for k, v in rates.items()})}: "
+              f"{rec['nodes']}", flush=True)
+        if t_s >= shift_at and (rates.get(surged, 0.0)
+                                >= c["surge_seen"] * base[surged]):
+            surge_seen.append(t_s)
+    triggers = [a["trigger"] for a in sched.audit.to_dicts()]
+    for e in engines:
+        r = sorted(ratios[e.engine_id])
+        busy = e.busy_ms / (wall_s * 1e3)
+        out["engines"][e.engine_id] = dict(
+            batches={n: served[(e.engine_id, n)] for n in names},
+            busy_share=busy, planned_first=initial[e.engine_id],
+            planned_last=last[e.engine_id],
+            ratio_p50=r[len(r) // 2] if r else None,
+            ratio_p95=r[int(0.95 * (len(r) - 1))] if r else None)
+        print(f"[vision] engine {e.engine_id}: batches "
+              f"{({n: served[(e.engine_id, n)] for n in names})}; busy "
+              f"share {busy:.3f} against planned occupancy "
+              f"{initial[e.engine_id]:.3f} (first plan), "
+              f"{last[e.engine_id]:.3f} (last); step / profiled "
+              f"bucket latency p50 "
+              f"{out['engines'][e.engine_id]['ratio_p50']}, p95 "
+              f"{out['engines'][e.engine_id]['ratio_p95']} over {len(r)} "
+              f"steps", flush=True)
+    out["depths"] = depths
+    print(f"[vision] queue depth {surged} / all, every 5 s: " + ", ".join(
+        f"{t_s:.0f} s {d[surged]} / {sum(d.values())}"
+        for t_s, d in depths[4::5]), flush=True)
+    low = {(n, h): out["models"][n][h]["slo_compliance"]
+           for n in names for h in ("phase1", "phase2")
+           if out["models"][n][h]["slo_compliance"] < c["gate"]}
+    print(f"[vision] worst-phase compliance {worst:.4f} (gate {c['gate']}"
+          f"; under it: {low or 'none'}); {surged} after the shift "
+          f"{out['models'][surged]['phase2']['slo_compliance']:.4f}; "
+          f"replan triggers {triggers}; replans after the "
+          f"shift that saw {surged} >= {c['surge_seen']} x offered: "
+          f"{len(surge_seen)}; launches {counts} = {c['vit_layers']} x "
+          f"({vit_batches} {c['vit']} batches + {warmups} warm-ups); "
+          f"wall {wall_s:.1f} s", flush=True)
+    out.update(worst_compliance=worst, triggers=triggers,
+               surge_replans=len(surge_seen), vit_batches=vit_batches,
+               vit_warmups=warmups)
+    if low:
+        fail(f"vision: SLO compliance under {c['gate']}: {low}")
+    if "rate_change" not in triggers[1:] or not surge_seen:
+        fail(f"vision: no rate-change replan after the shift saw {surged}'s "
+             "raised rate")
+    return counts, out
+
+
+def phase_vision() -> tuple:
+    """Phase 13; returns (counts, the phase's numbers)."""
+    from ray_dynamic_batching_tpu_torch.models import registry  # noqa: F401
+
+    t0 = time.monotonic()
+    errs = _vision_parity(VISION)
+    profiles = _vision_profiles(VISION, PROFILES_DIR)
+    counts, out = _vision_slo_run(VISION, PROFILES_DIR)
+    out.update(parity_max_abs_err=errs, wall_phase_s=time.monotonic() - t0,
+               profiled={n: len(p.rows) for n, p in profiles.items()})
+    print(f"[vision] phase wall time {out['wall_phase_s']:.1f} s",
+          flush=True)
+    return counts, out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     all_phases = (["build", "kernels", "parity"] + list(SERVING)
-                  + ["front", "controller", "colocate"])
+                  + ["front", "controller", "colocate", "vision"])
     ap.add_argument("--phases", default=",".join(all_phases),
                     help=f"comma-separated subset of {','.join(all_phases)} "
                          "(the device phase always runs)")
@@ -1999,19 +2415,22 @@ def main() -> None:
                 + (f", the long prompts {longs} ms" if longs else ""))
         print("[slab_chunked] beside main and int8: " + "; ".join(beside),
               flush=True)
-    front = controller = colocate = None
+    front = controller = colocate = vision = None
     if "front" in phases:
         by_path["front"], front = phase_front(args.profile)
     if "controller" in phases:
         by_path["controller"], controller = phase_controller(front)
     if "colocate" in phases:
         by_path["colocate"], colocate = phase_colocate()
+    if "vision" in phases:
+        by_path["vision"], vision = phase_vision()
     for name, row in kernels.items():
         split = {path: c[name] for path, c in by_path.items()}
         row["launches"] = sum(split.values()) if split else None
         row["launches_by_path"] = split
     print(json.dumps({"kernels": list(kernels.values()), "front": front,
-                      "controller": controller, "colocate": colocate}))
+                      "controller": controller, "colocate": colocate,
+                      "vision": vision}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],
         "count": torch.cuda.device_count()}}))

@@ -2,14 +2,18 @@
 
 Port of ``ray_dynamic_batching_tpu/models/base.py``. A servable model here
 is an ``nn.Module`` that owns its weights on an explicit ``device``, plus
-the metadata the engine needs. The JAX package's sharding rules belong to
-the multi-GPU slice and are not ported yet.
+the metadata the engine, the collator and the profiler need: ``family``,
+``example_inputs`` (the canonical zero batch of a bucket, in the
+reference's layout), ``input_shapes`` and ``flops_per_sample``. The
+reference's ``init``/``apply`` pair becomes the module's own weights and
+``forward``. Its sharding rules belong to the multi-GPU slice and are not
+ported yet.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -35,12 +39,20 @@ class ModelSLO:
     latency_slo_ms: float
 
 
+class InputSpec(NamedTuple):
+    """Shape and dtype of one model input (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
 class ServableModel(nn.Module):
     """A model the engine can serve: weights on ``device`` in ``dtype``."""
 
     #: registry key, e.g. "llama3_8b"
     name: str = "unnamed"
-    #: "causal_lm" for the decoder family
+    #: "vision" | "text_classifier" | "causal_lm" | "asr"
     family: str = "unnamed"
 
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
@@ -48,6 +60,28 @@ class ServableModel(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.device = resolve_device(device)
+
+    # --- shape contract --------------------------------------------------
+    def example_inputs(self, batch_size: int, seq_len: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, ...]:
+        """Canonical zero inputs for a (batch, seq) bucket, on ``device``."""
+        raise NotImplementedError(f"{type(self).__name__} has no batch "
+                                  "input contract")
+
+    def input_shapes(self, batch_size: int, seq_len: Optional[int] = None
+                     ) -> Tuple[InputSpec, ...]:
+        return tuple(InputSpec(tuple(x.shape), x.dtype)
+                     for x in self.example_inputs(batch_size, seq_len))
+
+    # --- planning metadata ----------------------------------------------
+    def flops_per_sample(self, seq_len: Optional[int] = None) -> float:
+        """Rough forward FLOPs per sample (for roofline sanity checks)."""
+        return 0.0
+
+    def param_count(self) -> int:
+        """Elements of every weight and statistic (the reference counts
+        every leaf of its params tree, BatchNorm statistics included)."""
+        return sum(p.numel() for p in self.state_dict().values())
 
     def param_bytes(self) -> int:
         return sum(p.numel() * p.element_size()
@@ -78,6 +112,10 @@ def get_model(name: str, **kwargs: Any) -> ServableModel:
             f"unknown model {name!r}; registered: {sorted(_MODEL_REGISTRY)}"
         )
     return _MODEL_REGISTRY[name](**kwargs)
+
+
+def get_slo(name: str) -> Optional[ModelSLO]:
+    return _MODEL_SLOS.get(name)
 
 
 def registered_models() -> List[str]:

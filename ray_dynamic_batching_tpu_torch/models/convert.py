@@ -1,4 +1,4 @@
-"""Map the JAX package's decoder params onto the port's weights.
+"""Map the JAX package's params onto the port's weights.
 
 ``params_from_flax(tree, cfg)`` takes the flax params as a nested dict of
 numpy arrays (``{"params": {...}}`` or the inner dict) and returns a
@@ -12,11 +12,30 @@ numpy arrays (``{"params": {...}}`` or the inner dict) and returns a
 - ``*_norm`` scale/bias as they are;
 - ``tok_embed/embedding`` and ``pos_embed/embedding`` ``[rows, D]`` as
   they are; ``lm_head/kernel`` ``[D, V]`` -> ``[V, D]``.
+
+The vision families' converters (``resnet_params_from_flax``,
+``shufflenet_params_from_flax``, ``efficientnet_params_from_flax``,
+``vit_params_from_flax``) take the whole ``init`` tree (``params`` and,
+for the CNNs, ``batch_stats``) and return a ``state_dict`` for the
+family's module in ``models/{resnet,shufflenet,efficientnet,vit}.py``:
+
+- conv kernels ``[kh, kw, in/groups, out]`` -> ``[out, in/groups, kh,
+  kw]`` (depthwise convs included); ``Dense`` kernels ``[in, out]`` ->
+  ``[out, in]``; biases flattened;
+- BatchNorm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` as
+  they are; LayerNorm ``scale`` -> ``weight``;
+- ViT's ``DenseGeneral`` ``qkv`` ``[D, 3, N, H]`` -> ``[3*N*H, D]`` and
+  ``proj`` ``[N, H, D]`` -> ``[D, N*H]``; ``cls_token`` and
+  ``pos_embed`` as they are;
+- numbered flax modules (``stage{i}_block{j}``, ``stage{s}_down`` /
+  ``stage{s}_unit{i}``, ``block{i}``) -> the port's flat ``blocks.{k}`` /
+  ``units.{k}`` in build order.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import re
+from typing import Any, Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -67,3 +86,77 @@ def params_from_flax(tree: Mapping[str, Any],
         sd["lm_head.weight"] = _t(
             np.asarray(p["lm_head"]["kernel"], dtype=np.float32).T)
     return sd
+
+
+# --- vision families --------------------------------------------------------
+def _vision_leaf(module: str, leaf: str, x: np.ndarray
+                 ) -> Tuple[str, np.ndarray]:
+    """(port leaf name, port layout) of one flax leaf of ``module``."""
+    if leaf == "kernel":
+        if module == "qkv":                   # DenseGeneral [D, 3, N, H]
+            return "weight", x.reshape(x.shape[0], -1).T
+        if module == "proj":                  # DenseGeneral [N, H, D]
+            return "weight", x.reshape(-1, x.shape[-1]).T
+        if x.ndim == 4:                       # conv [kh, kw, in/g, out]
+            return "weight", x.transpose(3, 2, 0, 1)
+        return "weight", x.T                  # Dense [in, out]
+    if leaf == "bias":
+        return "bias", x.reshape(-1)
+    if leaf == "scale" and module.startswith("ln"):
+        return "weight", x
+    return leaf, x                            # BN scale / mean / var, ...
+
+
+def _vision_from_flax(tree: Mapping[str, Any],
+                      rename: Callable[[str], str]) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Any, path: Tuple[str, ...]) -> None:
+        if isinstance(node, Mapping):
+            for key, child in node.items():
+                walk(child, path + (key,))
+            return
+        *mods, leaf = path
+        name, x = _vision_leaf(mods[-1] if mods else "", leaf,
+                               np.asarray(node, dtype=np.float32))
+        prefix = ".".join([rename(mods[0])] + mods[1:]) if mods else ""
+        sd[f"{prefix}.{name}" if prefix else name] = _t(x)
+
+    for collection in ("params", "batch_stats"):
+        walk(tree.get(collection, {}), ())
+    return sd
+
+
+def _numbered(tree: Mapping[str, Any], pattern: str, flat: str,
+              key: Callable[[re.Match], Tuple[int, ...]]
+              ) -> Callable[[str], str]:
+    """Rename the flax modules matching ``pattern`` to ``{flat}.{k}``, k
+    counting them in ``key`` order (the port's build order)."""
+    names = [n for n in tree.get("params", {}) if re.fullmatch(pattern, n)]
+    order = sorted(names, key=lambda n: key(re.fullmatch(pattern, n)))
+    index = {n: f"{flat}.{k}" for k, n in enumerate(order)}
+    return lambda n: index.get(n, n)
+
+
+def resnet_params_from_flax(tree: Mapping[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    return _vision_from_flax(tree, _numbered(
+        tree, r"stage(\d+)_block(\d+)", "blocks",
+        lambda m: (int(m[1]), int(m[2]))))
+
+
+def shufflenet_params_from_flax(tree: Mapping[str, Any]
+                                ) -> Dict[str, torch.Tensor]:
+    return _vision_from_flax(tree, _numbered(
+        tree, r"stage(\d+)_(down|unit(\d+))", "units",
+        lambda m: (int(m[1]), -1 if m[2] == "down" else int(m[3]))))
+
+
+def efficientnet_params_from_flax(tree: Mapping[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    return resnet_params_from_flax(tree)      # the same numbering
+
+
+def vit_params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    return _vision_from_flax(tree, _numbered(
+        tree, r"block(\d+)", "blocks", lambda m: (int(m[1]),)))

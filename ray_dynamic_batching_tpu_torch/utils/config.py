@@ -7,14 +7,13 @@ variable names are the JAX package's, so one environment drives both
 packages. Kept: the scheduling, batching, memory and queue fields of
 the reference's ``:44-79`` and ``max_queue_len``, the SLO status
 thresholds and the chaos seed. The planner (``scheduler/nexus.py``),
-deployment sizing (``serve/llm.py``), the live scheduler
-(``scheduler/llm_control.py``) and the status table (``state.py``) read
-the scheduling, memory, queue and threshold fields. ``rate_min_span_s``
-and the batching block (``max_batch_size``,
-``default_batch_wait_timeout_s``, ``default_max_batch_size``,
-``min_seq_bucket``, ``max_seq_len``) are read by no ported module yet:
-they wait for the reference's ``scheduler/control.py`` and vision
-serving, which are still to be ported. Trimmed: the reference's XLA
+deployment sizing (``serve/llm.py``), the live schedulers
+(``scheduler/llm_control.py``, ``scheduler/control.py``, which also reads
+``rate_min_span_s``) and the status table (``state.py``) read the
+scheduling, memory, queue and threshold fields. The batching block
+(``max_batch_size``, ``default_batch_wait_timeout_s``,
+``default_max_batch_size``, ``min_seq_bucket``, ``max_seq_len``) is read
+by no ported module yet. Trimmed: the reference's XLA
 compile-management block (no counterpart in eager torch), the staleness
 flag ``discard_stale_requests`` (which the reference reads nowhere), and
 its control-plane timing, transport, metrics interval and RPC-failure

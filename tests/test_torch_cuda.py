@@ -3,6 +3,7 @@
 Marked ``cuda``: without a card each test skips (decided inside the
 test, never at import). Shapes cover what ``chip_smoke.py`` does not:
 ragged KV tails, causal prefill with a diagonal offset, head_dim 64,
+ViT-B/16's attention (197 tokens, 12 heads of 64, no mask),
 wide decode windows, and for the paged kernel ragged lengths, sentinel
 tails, Tq 1..8 staircases and shuffled pools — and the int8-KV branch of
 both decode kernels at the same shapes (int8 codes, f32 scales, q in f32
@@ -51,6 +52,7 @@ def _rand(gen, shape, dtype, dev):
     (1, 33, 100, 8, 2, 128, True, False),   # causal, Tq < Tk
     (2, 48, 200, 16, 16, 64, False, True),  # gpt2 width, random mask
     (1, 16, 64, 4, 1, 128, False, True),    # one KV head, masked rows
+    (4, 197, 197, 12, 12, 64, False, False),  # ViT-B/16: ragged last tile
 ])
 def test_flash_kernel_matches_plain(card, dtype, B, Tq, Tk, N, K, H, causal,
                                     masked):

@@ -6,7 +6,9 @@ is a prefix of ``ray_dynamic_batching_tpu_torch`` as a string, not as a
 module); a subprocess with those modules blocked imports the port (the profiles
 package, the packers, the colocation executor and the live scheduler
 among it), profiles and packs a tiny model, serves it on the CPU, and
-deploys it through the port's controller and handle.
+deploys it through the port's controller and handle; then profiles a
+tiny vision model with ``ModelProfiler`` and serves it through a
+``ReplicaEngine`` under the vision ``LiveScheduler``.
 """
 
 import ast
@@ -101,6 +103,32 @@ req = Request(model="llama_tiny", payload={{"tokens": [1, 2, 3]}},
 engine.queue.add_request(req)
 engine.run_until_idle(timeout_s=60)
 print(len(req.future.result(timeout=5).tokens))
+import numpy as np
+from ray_dynamic_batching_tpu_torch.engine.host import ModelHost
+from ray_dynamic_batching_tpu_torch.engine.queue import QueueManager
+from ray_dynamic_batching_tpu_torch.engine.worker import ReplicaEngine
+from ray_dynamic_batching_tpu_torch.models import registry
+from ray_dynamic_batching_tpu_torch.profiles.profiler import ModelProfiler
+from ray_dynamic_batching_tpu_torch.scheduler.control import LiveScheduler
+from ray_dynamic_batching_tpu_torch.scheduler.nexus import SquishyBinPacker
+vhost = ModelHost(device="cpu")
+vprof = ModelProfiler(vhost.acquire("vit_tiny"), timing_iters=2,
+                      warmup_iters=1).sweep([1, 2])
+vhost.release("vit_tiny")
+vq = QueueManager()
+veng = ReplicaEngine("v0", vq, vhost)
+vsched = LiveScheduler(SquishyBinPacker({{"vit_tiny": vprof}}), [veng],
+                       queues=vq)
+vsched.register_model("vit_tiny", slo_ms=10000.0)
+veng.start()
+try:
+    vsched.rebalance(rates={{"vit_tiny": 5.0}})
+    vreq = Request(model="vit_tiny", payload=np.zeros((32, 32, 3),
+                                                      np.float32), slo_ms=1e7)
+    assert vsched.submit_request(vreq)
+    assert vreq.future.result(timeout=60).shape == (10,)
+finally:
+    veng.stop()
 ctl = ServeController(control_interval_s=0.1)
 try:
     router = ctl.deploy(DeploymentConfig(name="llama_tiny"), factory=dep)
