@@ -14,8 +14,11 @@ last line:
    paths' shapes, in bf16 and f32 (the paged kernel also at a Tq = 4
    staircase window in f32; flash also at a paged chunk deep in a long
    prompt, q [2, 64, 32, 128] over 512 positions with 3 and 5 live KV
-   tiles, and at ViT-B/16's unmasked attention, q/k/v [64, 197, 12, 64],
-   whose bound counts q, k, v and out once), and the int8-KV branch of both decode kernels (int8 codes +
+   tiles, and at the unmasked attention of ViT-B/16, q/k/v [64, 197, 12,
+   64], and of ViT-G/14, [32, 257, 16, 104] (head_dim 104), each fed as
+   the model feeds it: views of one packed qkv projection, read in place;
+   their bounds count q, k, v and out once), and the int8-KV branch of
+   both decode kernels (int8 codes +
    f32 scales, q in bf16 and f32): max abs error against the stated
    tolerance, median CUDA-event times of kernel / plain version / a
    PyTorch yardstick never used by the port (one
@@ -123,15 +126,18 @@ last line:
     run prints how far it falls short.
 
 13. vision — the Nexus vision path, bf16 with random weights from seed 0.
-    Parity: ``resnet50``, ``shufflenet_v2``, ``efficientnet_v2s`` and
-    ``vit_b_16`` at 224 x 224, batch 8, in f32 on the card (TF32 off):
-    logits through the kernel route against ``plain_attention()``, held
-    to 1e-4 (only ViT differs: 12 flash launches a forward); then the
-    served bf16 model's logits on the same input against that f32
-    forward, held to 5e-2 x max |logit|. Profiles:
-    ``ModelProfiler`` sweeps the reference's accelerator buckets (resnet50
-    1-1024, shufflenet_v2 1-2048, efficientnet_v2s 1-512 at its 384,
-    vit_b_16 1-256) into ``build/profiles_h100/`` and prints every row.
+    Parity: ``resnet50``, ``shufflenet_v2``, ``efficientnet_v2s``,
+    ``vit_b_16`` and ``vit_g_14`` (48 layers, head_dim 104) at 224 x 224,
+    batch 8, in f32 on the card (TF32 off): logits through the kernel
+    route against ``plain_attention()``, held to 1e-4 (only the ViTs
+    differ: 12 and 48 flash launches a forward); then the served bf16
+    model's logits on the same input against that f32 forward, held to
+    5e-2 x max |logit|. Profiles: ``ModelProfiler`` sweeps the
+    reference's accelerator buckets (resnet50 1-1024, shufflenet_v2
+    1-2048, efficientnet_v2s 1-512 at its 384, vit_b_16 1-256) into
+    ``build/profiles_h100/`` and prints every row; ``vit_g_14``, which the
+    SLO run does not serve (nor does the reference's demo), is timed at
+    batch 1 and 32 through ``ModelProfiler.profile_bucket`` and printed.
     The SLO run is ``tools/run_slo_demo.py``'s non-CPU shape: the three
     demo models' tables -> ``SquishyBinPacker`` (12 GiB) -> three
     ``ReplicaEngine``s on the card under one ``LiveScheduler`` (monitor
@@ -214,12 +220,15 @@ PS = 128
 NP = S // PS
 POOL = SLOTS * NP
 # ViT-B/16's attention (phase 3's vit case): batch 64, 197 tokens, 12
-# heads of 64.
-VIT_B, VIT_T, VIT_HEADS, VIT_HD = 64, 197, 12, 64
+# heads of 64; ViT-G/14's (the vit_g case): batch 32, 257 tokens, 16
+# heads of 104.
+VIT_SHAPE = (64, 197, 12, 64)
+VIT_G_SHAPE = (32, 257, 16, 104)
 
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -329,12 +338,27 @@ def _paged_chunk_inputs(dtype, gen, rng):
                                 mask=mask))
 
 
-def _vit_inputs(dtype, gen, rng):
-    """ViT-B/16's attention at the profiled batch 64: q/k/v [64, 197, 12,
-    64], non-causal, no mask (a ragged last query tile: 197 = 3 x 64 + 5)."""
-    q, k, v = (torch.randn((VIT_B, VIT_T, VIT_HEADS, VIT_HD), generator=gen,
-                           device="cuda").to(dtype) for _ in range(3))
+def _packed_qkv(shape, dtype, gen):
+    """q, k, v [B, T, N, H] as ``models/vit.py`` hands them to the
+    attention: views of one packed [B, T, 3 N H] projection (strided over
+    tokens, heads H apart), non-causal, no mask."""
+    B, T, N, H = shape
+    qkv = torch.randn((B, T, 3 * N * H), generator=gen,
+                      device="cuda").to(dtype)
+    q, k, v = qkv.view(B, T, 3, N, H).unbind(2)
     return dict(q=q, k=k, v=v, mask=None, keep=None)
+
+
+def _vit_inputs(dtype, gen, rng):
+    """ViT-B/16's attention at the profiled batch 64 (197 tokens: 13
+    query slabs of 16, the last with 5 rows)."""
+    return _packed_qkv(VIT_SHAPE, dtype, gen)
+
+
+def _vit_g_inputs(dtype, gen, rng):
+    """ViT-G/14's attention at batch 32 (257 tokens, head_dim 104 on the
+    kernel's 128-wide tiles)."""
+    return _packed_qkv(VIT_G_SHAPE, dtype, gen)
 
 
 def _qkvo_cost(x) -> tuple:
@@ -500,9 +524,11 @@ def _kernel_specs():
             yardstick=None,
             cost=_masked_cost,
             # A paged chunk deep in a long prompt (3 and 5 live tiles),
-            # and ViT-B/16's unmasked attention (the vision path).
+            # and ViT-B/16's and ViT-G/14's unmasked attention (the
+            # vision path).
             serving_cases=[("paged_chunk", _paged_chunk_inputs, None),
-                           ("vit", _vit_inputs, _qkvo_cost)],
+                           ("vit", _vit_inputs, _qkvo_cost),
+                           ("vit_g", _vit_g_inputs, _qkvo_cost)],
         ),
         "decode_attention": dict(
             source="ray_dynamic_batching_tpu_torch/csrc/decode_attention.cu",
@@ -1809,19 +1835,57 @@ def _colocate_traffic(tag, c, util, model, decode, knobs, token_slo,
                 probe=(colo_tokens, lone_tokens))
 
 
+def _replan(observed: dict, prev: list, decode, token_slo: float,
+            budget: float, headroom: float) -> dict:
+    """The plan ``LLMLiveScheduler.rebalance`` should apply for the rates
+    it saw, from the packer alone: each contract's previous shape
+    (``prev``, an audit record's placements) where that row alone still
+    serves its rate, unless keeping them costs a card; else the packer's
+    plan. Returns {contract: (slots, compute fraction)}."""
+    from ray_dynamic_batching_tpu_torch.profiles.table import BatchProfile
+    from ray_dynamic_batching_tpu_torch.scheduler.nexus import (
+        LLMSession,
+        pack_llm_engines,
+    )
+
+    sessions = [LLMSession(m, r, token_slo)
+                for m, r in observed.items() if r > 0]
+    tables = {s.model: decode for s in sessions}
+
+    def pack(t):
+        return pack_llm_engines(sessions, t, hbm_budget_bytes=budget,
+                                compute_headroom=headroom)
+
+    plan, held = pack(tables), dict(tables)
+    for s in sessions:
+        shape = next(((p["slots"], p["capacity"]) for p in prev
+                      if p["model"] == s.model), None)
+        own = BatchProfile(decode.model_name, [
+            r for r in decode.rows
+            if (r.batch_size, r.seq_len) == shape and r.spec == "off"])
+        try:
+            pack_llm_engines([s], {s.model: own}, hbm_budget_bytes=budget,
+                             compute_headroom=headroom)
+        except ValueError:     # no such row, or it no longer serves
+            continue
+        held[s.model] = own
+    kept = pack(held)
+    return {p.model: (p.num_slots, p.compute_fraction)
+            for chip in (kept if len(kept) <= len(plan) else plan)
+            for p in chip}
+
+
 def _traffic_report(tag, c, run, decode, token_slo, budget,
                     gated: bool) -> dict:
     """Print a colocation run: per contract and half, the plan beside the
     busy shares, the queues, the audit log, whether the scheduler saw the
     surge and what its replan did. With ``gated``, fail the phase on a
     stale or lost request, a surge no replan saw, a replan that applied
-    another plan than the packer's for the rates it saw, or a probe that
+    another plan than the planner's for the rates it saw, or a probe that
     differs from the lone engine's; without it, fail only on a request
     that was never answered. Returns the run's numbers."""
     from ray_dynamic_batching_tpu_torch.engine.queue import RequestStale
     from ray_dynamic_batching_tpu_torch.scheduler.nexus import (
-        LLMSession,
-        pack_llm_engines,
         worst_latency_ms,
     )
 
@@ -1893,14 +1957,11 @@ def _traffic_report(tag, c, run, decode, token_slo, budget,
                       for p in last["inputs"]["placements"]}
             branch = "applied on the same executor: " + ", ".join(
                 f"{m} {n} slots, f {f}" for m, (n, f) in placed.items())
-            want = {p.model: (p.num_slots, p.compute_fraction)
-                    for chip_plan in pack_llm_engines(
-                        [LLMSession(m, r, token_slo)
-                         for m, r in observed.items() if r > 0],
-                        {m: decode for m in observed},
-                        hbm_budget_bytes=budget,
-                        compute_headroom=c["headroom"])
-                    for p in chip_plan}
+            prev = next(r["inputs"]["placements"]
+                        for r in reversed(audit[:audit.index(last)])
+                        if r["inputs"].get("placements"))
+            want = _replan(observed, prev, decode, token_slo, budget,
+                           c["headroom"])
             # The record rounds rates to 0.1 tok/s and fractions to 3
             # places, so a fraction may differ in its last place.
             agrees = (placed.keys() == want.keys() and all(
@@ -1915,8 +1976,9 @@ def _traffic_report(tag, c, run, decode, token_slo, budget,
             branch += (f"; the surge moved {a} from {before[0]} to "
                        f"{placed[a][0]} slots ({terms})" if moved_plan else
                        f"; the surge left {a}'s row unchanged ({terms})")
-            branch += ("; the packer gives the same plan for these rates"
-                       if agrees else f"; the packer gives {want}")
+            branch += ("; the planner gives the same plan for these rates"
+                       " and the shapes it held" if agrees
+                       else f"; the planner gives {want}")
         branch = (f"saw {a} at {observed[a]:.1f} tok/s (offered "
                   f"{base:.1f}, then {c['surge'] * base:.1f}): " + branch)
     print(f"[{tag}] {len(after)} replan(s) after the surge, {len(seen)} "
@@ -1942,7 +2004,7 @@ def _traffic_report(tag, c, run, decode, token_slo, budget,
                  f"{c['surge_seen']} x its first-half rate")
         if agrees is False:
             fail(f"{tag}: the replan after the surge applied another plan "
-                 "than the packer's for the rates it saw")
+                 "than the planner's for the rates it saw")
         if run["probe"][0] != run["probe"][1]:
             fail(f"{tag}: the colocated engine's greedy probe differs from "
                  "a lone engine's")
@@ -2018,7 +2080,8 @@ def phase_colocate() -> tuple:
 # three engines, the packer's 12 GiB budget and the scheduler's default
 # config (monitor every 5 s, rate window 10 s, 5% threshold).
 VISION = dict(
-    parity=("resnet50", "shufflenet_v2", "efficientnet_v2s", "vit_b_16"),
+    parity=("resnet50", "shufflenet_v2", "efficientnet_v2s", "vit_b_16",
+            "vit_g_14"),
     parity_batch=8, parity_size=224, parity_tol=1e-4, bf16_rel_tol=5e-2,
     buckets={
         "resnet50": [1, 8, 32, 64, 128, 256, 512, 1024],
@@ -2032,7 +2095,11 @@ VISION = dict(
               ("vit_b_16", 4000.0, 0.010, 1.0)),
     max_rps=200.0, min_rps=0.2, duration_s=60.0, engines=3,
     hbm_budget_bytes=12 << 30, gate=0.95, surge_seen=1.5,
-    vit="vit_b_16", vit_layers=12, classes=1000,
+    vit="vit_b_16", classes=1000,
+    # Flash launches a forward (one a layer); the other models have none.
+    flash_layers={"vit_b_16": 12, "vit_g_14": 48},
+    # Timed apart from the sweep: not in the demo, so not in the SLO run.
+    extra_buckets={"vit_g_14": [1, 32]},
 )
 COUNTER_FIELDS = ("completed", "violations", "stale", "dropped")
 
@@ -2074,7 +2141,7 @@ def _vision_parity(c: dict) -> dict:
                     ref = model(x)
             torch.cuda.synchronize()
             launched = fl.launches - before
-            want = c["vit_layers"] if name == c["vit"] else 0
+            want = c["flash_layers"].get(name, 0)
             if tuple(out.shape) != (c["parity_batch"], c["classes"]) or not (
                     bool(torch.isfinite(out).all())):
                 fail(f"vision parity {name}: logits {tuple(out.shape)} not "
@@ -2139,6 +2206,37 @@ def _vision_profiles(c: dict, profiles_dir: str) -> dict:
               f" (infeasible: {missing or 'none'}; "
               f"{time.monotonic() - t0:.1f} s)", flush=True)
         out[name] = prof
+        del model, profiler
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _extra_profiles(c: dict) -> dict:
+    """The models outside the SLO run, timed at a few buckets through
+    ``ModelProfiler.profile_bucket`` and printed (nothing written)."""
+    from ray_dynamic_batching_tpu_torch.models.base import get_model
+    from ray_dynamic_batching_tpu_torch.profiles.profiler import ModelProfiler
+
+    out = {}
+    for name, buckets in c["extra_buckets"].items():
+        model = get_model(name).eval()
+        profiler = ModelProfiler(model, warmup_iters=c["warmup_iters"],
+                                 timing_iters=c["timing_iters"])
+        rows = {}
+        for b in buckets:
+            r = profiler.profile_bucket(b)
+            if r is None:
+                fail(f"vision profile {name} b={b}: out of device memory")
+            r = r.with_throughput()
+            print(f"[vision] profile {name} b={b}: {r.latency_ms:.3f} ms "
+                  f"(std {r.latency_std_ms:.3f}), {r.throughput_sps:.1f} "
+                  f"img/s, hbm_bytes {r.hbm_bytes}, first dispatch "
+                  f"{r.compile_ms:.1f} ms", flush=True)
+            rows[b] = {"latency_ms": r.latency_ms,
+                       "throughput_sps": r.throughput_sps,
+                       "hbm_bytes": r.hbm_bytes}
+        out[name] = rows
         del model, profiler
         gc.collect()
         torch.cuda.empty_cache()
@@ -2269,10 +2367,11 @@ def _vision_slo_run(c: dict, profiles_dir: str) -> tuple:
     ratios = {e.engine_id: e.drain_ratios() for e in engines}
     served = {(e.engine_id, n): batches(e, n) - b0[(e.engine_id, n)]
               for e in engines for n in names}
+    layers = c["flash_layers"][c["vit"]]
     warmups = sum(1 for e in engines for k in e._warmed if k[0] == c["vit"])
     vit_batches = sum(v for (_, n), v in served.items() if n == c["vit"])
     _expect_only("vision", counts, {
-        "flash_attention": c["vit_layers"] * (vit_batches + warmups)})
+        "flash_attention": layers * (vit_batches + warmups)})
 
     out = {"offered_rps": base, "wall_s": wall_s, "models": {},
            "replans": [], "engines": {}}
@@ -2343,7 +2442,7 @@ def _vision_slo_run(c: dict, profiles_dir: str) -> tuple:
           f"{out['models'][surged]['phase2']['slo_compliance']:.4f}; "
           f"replan triggers {triggers}; replans after the "
           f"shift that saw {surged} >= {c['surge_seen']} x offered: "
-          f"{len(surge_seen)}; launches {counts} = {c['vit_layers']} x "
+          f"{len(surge_seen)}; launches {counts} = {layers} x "
           f"({vit_batches} {c['vit']} batches + {warmups} warm-ups); "
           f"wall {wall_s:.1f} s", flush=True)
     out.update(worst_compliance=worst, triggers=triggers,
@@ -2364,9 +2463,11 @@ def phase_vision() -> tuple:
     t0 = time.monotonic()
     errs = _vision_parity(VISION)
     profiles = _vision_profiles(VISION, PROFILES_DIR)
+    extra = _extra_profiles(VISION)
     counts, out = _vision_slo_run(VISION, PROFILES_DIR)
     out.update(parity_max_abs_err=errs, wall_phase_s=time.monotonic() - t0,
-               profiled={n: len(p.rows) for n, p in profiles.items()})
+               profiled={n: len(p.rows) for n, p in profiles.items()},
+               extra_profiles=extra)
     print(f"[vision] phase wall time {out['wall_phase_s']:.1f} s",
           flush=True)
     return counts, out

@@ -4,7 +4,9 @@ Port of ``ray_dynamic_batching_tpu/models/vit.py``: ``vit_b_16``,
 ``vit_g_14`` and ``vit_tiny``. Attention goes through
 :func:`~ray_dynamic_batching_tpu_torch.ops.attention.dot_product_attention`
 (q, k and v ``[B, T, N, H]``, non-causal, no mask), which sends ViT-B/16's
-197 tokens to the flash kernel. Matmuls run in ``dtype`` (bf16 by
+197 tokens of head_dim 64 and ViT-G/14's 257 of 104 to the flash kernel;
+q, k and v are views of the packed ``qkv`` output, which the kernel reads
+in place. Matmuls run in ``dtype`` (bf16 by
 default); the LayerNorms (eps 1e-6) and the head run in f32, and the MLP
 uses the tanh GELU (flax's ``nn.gelu`` default), as the reference's. The
 ``qkv`` projection is one ``[3 * N * H, D]`` weight (the reference's

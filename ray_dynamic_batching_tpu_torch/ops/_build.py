@@ -43,7 +43,8 @@ _L = ctypes.c_longlong
 KERNELS: Dict[str, tuple] = {
     "flash_attention": (
         "rdb_flash_attention",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
+         _F, _I, _I, _P],
     ),
     "decode_attention": (
         "rdb_decode_attention",

@@ -26,8 +26,11 @@ through the clamped table.
 
 The reference's TPU-only declines — its VMEM budget, (8, 128) tile
 alignment and the Mosaic workarounds in ``flash_attention`` /
-``_pick_sb`` — have no counterpart on the H100 and are not mirrored. On
-CPU tensors the kernel wrappers run their plain versions.
+``_pick_sb`` — have no counterpart on the H100 and are not mirrored: ViT-G/14's
+257 tokens of head_dim 104, which the reference declines to XLA (its
+degenerate-tiling rule, reference ``ops/flash_attention.py:282-285``), take
+the flash route on the card, as ViT-B/16's 197 of 64 do. On CPU tensors
+the kernel wrappers run their plain versions.
 """
 
 from __future__ import annotations

@@ -2,21 +2,35 @@
 
 Replaces ``ray_dynamic_batching_tpu/ops/flash_attention.py::_flash_attention``
 (Pallas body ``_attn_kernel``). The kernel is ``csrc/flash_attention.cu``:
-FlashAttention-2 forward, one block per (batch row, query head, 64-row
-query tile), KV tiles staged in shared memory, online softmax in f32, the
-int8 keep-mask and the causal iota rule, KV head ``n // (N // K)``, and a
-row with no attended key giving 0.
+FlashAttention-2 forward, online softmax in f32, the int8 keep-mask and the
+causal iota rule, KV head ``n // (N // K)``, and a row with no attended key
+giving 0. Head dims: any multiple of 8 up to 128 (64 and 128 natively; 104,
+ViT-G/14's, on the 128 tiles with zero-filled columns).
 
-What bounds it on the H100: at the serving shapes (64-token prompts over
-a 512-position row cache, ``prefill`` attending the whole capacity) the
-K/V bytes of the tiles the mask leaves live; at long prompts the FLOPs.
-For bf16 each block reads its rows of the mask first and walks only the
-64-key tiles some row attends (exact: a wholly masked tile changes
-nothing under the flash rule), with both products on the tensor cores
-(``mma.sync``) and K/V staged bf16 by ``cp.async`` into a double buffer;
-f32 keeps an FMA body (TF32 would miss the f32 tolerance). The kernel
-reads the mask in 16-byte loads, so an int8 mask that is not 16-byte
-aligned is copied first.
+Which body takes which shape (decided in the launcher, by shape alone):
+
+- bf16 with a mask or causal, or with one head's K/V too large for shared
+  memory (the LLM shapes: 64-row chunks over a 512-position row cache):
+  one block per (batch row, query head, 64-row tile); each block reads its
+  rows of the mask first and walks only the 64-key tiles some row attends
+  (exact: a wholly masked tile changes nothing under the flash rule), with
+  both products on the tensor cores (``mma.sync``) and K/V staged bf16 by
+  ``cp.async`` into a double buffer. What bounds it: the K/V bytes of the
+  live tiles.
+- bf16, no mask, not causal, one (batch row, KV head)'s K and V resident in
+  shared memory (the vision shapes: ViT-B/16's 197 x 64, ViT-G/14's 257 x
+  104): one block per (query head, batch row) that loads K/V once and whose
+  warps walk the 16-row query slabs over every key. What bounds it: q, k,
+  v and out, each moved once.
+- f32 (parity runs): an FMA body, one block per 64-row tile (TF32 would
+  miss the f32 tolerance).
+
+q, k and v go in with their own batch and token strides (heads ``H`` apart,
+the last dim contiguous), so the views of a packed qkv projection
+(``models/vit.py``) are read in place; a tensor laid out otherwise, or with
+a stride that breaks 16-byte chunks, is copied first. The output is a fresh
+contiguous ``[B, Tq, N, H]``. The kernel reads the mask in 16-byte loads, so
+an int8 mask that is not 16-byte aligned is copied first.
 
 On a CUDA tensor :func:`flash_attention` launches the kernel or raises;
 on a CPU tensor it runs :func:`flash_attention_plain`, the same function
@@ -60,9 +74,9 @@ def flash_attention_plain(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """What the kernel computes, in PyTorch. q [B, Tq, N, H], k/v
-    [B, Tk, K, H], mask int8 [B, Tq, Tk] (1 = attend) or None. Scores and
-    the softmax in f32; probabilities rounded to the input type before the
-    PV product; a row with no attended key gives 0."""
+    [B, Tk, K, H] (any strides), mask int8 [B, Tq, Tk] (1 = attend) or
+    None. Scores and the softmax in f32; probabilities rounded to the
+    input type before the PV product; a row with no attended key gives 0."""
     B, Tq, N, H = q.shape
     _, Tk, K, _ = k.shape
     G = N // K
@@ -86,6 +100,19 @@ def flash_attention_plain(
     return out.permute(0, 3, 1, 2, 4).reshape(B, Tq, N, H).to(q.dtype)
 
 
+def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` [B, T, heads, H] as the kernel reads it: the last dim
+    contiguous, heads ``H`` apart, batch and token strides whole 16-byte
+    chunks (a size-1 dim's stride is never used). Anything else is copied;
+    the packed qkv views pass as they are."""
+    unit = 16 // t.element_size()
+    B, T, heads, H = t.shape
+    ok = (t.stride(3) == 1 and (heads == 1 or t.stride(2) == H)
+          and (B == 1 or t.stride(0) % unit == 0)
+          and (T == 1 or t.stride(1) % unit == 0))
+    return t if ok else t.contiguous()
+
+
 def _launch(q, k, v, mask_i8, *, causal: bool, scale: float) -> torch.Tensor:
     from ray_dynamic_batching_tpu_torch.ops import _build
 
@@ -96,28 +123,34 @@ def _launch(q, k, v, mask_i8, *, causal: bool, scale: float) -> torch.Tensor:
         raise TypeError(f"flash kernel: unsupported dtype {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash kernel: q, k and v must share one dtype")
-    if H not in (64, 128):
-        raise ValueError(f"flash kernel: head_dim {H} not in (64, 128)")
+    if H % 8 or not 0 < H <= 128:
+        raise ValueError(f"flash kernel: head_dim {H} is not a multiple of 8 "
+                         "up to 128")
     if v.shape != k.shape or k.shape[0] != B or k.shape[3] != H:
         raise ValueError(f"flash kernel: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _kernel_layout(q), _kernel_layout(k), _kernel_layout(v)
     for t in (q, k, v):
         if t.device != q.device or t.data_ptr() % 16:
             raise ValueError("flash kernel: inputs must be 16-byte aligned "
                              "tensors on one device")
+        if t.stride(1) * t.shape[1] >= 2 ** 31:
+            raise ValueError("flash kernel: a token stride times the length "
+                             "must fit 32 bits")
     if mask_i8 is not None and (mask_i8.device != q.device
                                 or tuple(mask_i8.shape) != (B, Tq, Tk)):
         raise ValueError(f"flash kernel: mask must be int8 [{B}, {Tq}, {Tk}]")
     if mask_i8 is not None and mask_i8.data_ptr() % 16:
         mask_i8 = mask_i8.clone()     # the kernel reads it in 16-byte loads
-    out = torch.empty_like(q)
+    out = torch.empty((B, Tq, N, H), dtype=q.dtype, device=q.device)
     lib = _build.load("flash_attention")
     with _build.launch_lock:
         rc = lib.rdb_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             mask_i8.data_ptr() if mask_i8 is not None else None,
-            out.data_ptr(), B, Tq, Tk, N, K, H, float(scale), int(causal),
+            out.data_ptr(), B, Tq, Tk, N, K, H,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), float(scale), int(causal),
             0 if q.dtype == torch.float32 else 1,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -135,9 +168,10 @@ def flash_attention(
     mask: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Fused attention. q [B, Tq, N, H], k/v [B, Tk, K, H] (K divides N),
-    mask broadcastable to [B, 1, Tq, Tk] (True = attend). CUDA tensors launch the kernel (or raise); CPU tensors
-    run the plain version."""
+    """Fused attention. q [B, Tq, N, H], k/v [B, Tk, K, H] (K divides N;
+    strided views welcome, see the module docstring), mask broadcastable
+    to [B, 1, Tq, Tk] (True = attend). CUDA tensors launch the kernel (or
+    raise); CPU tensors run the plain version."""
     B, Tq, N, H = q.shape
     _, Tk, K, _ = k.shape
     if K == 0 or N % K != 0:

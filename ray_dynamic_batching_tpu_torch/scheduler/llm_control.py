@@ -1,7 +1,11 @@
 """Live LLM scheduler — token-rate monitoring, colocation replan, migration.
 
 Own copy of ``ray_dynamic_batching_tpu/scheduler/llm_control.py``, whole,
-with its import paths rewritten. Engines are the port's
+with its import paths rewritten and one change: a replan keeps each
+hosted engine's shape while that shape still serves its model's new rate
+(:meth:`LLMLiveScheduler._keep_hosted_shapes`), where the reference
+applies the packer's plan as it comes and so moves an engine between
+tied rows on rate noise. Engines are the port's
 :class:`~ray_dynamic_batching_tpu_torch.engine.decode.DecodeEngine`; the
 factory receives the chip's ``device`` (a ``torch.device`` on a card,
 ``None`` for an unpinned executor). One executor per card; plans over
@@ -275,6 +279,7 @@ class LLMLiveScheduler:
                     note=f"infeasible, kept previous plan: {e}",
                 )
                 return self._current_plan
+            plan = self._keep_hosted_shapes(sessions, plan)
             if len(plan) > len(self.chips):
                 if self._current_plan:
                     # Over capacity: applying a truncated plan would DRAIN
@@ -354,6 +359,46 @@ class LLMLiveScheduler:
                 {k: round(v, 1) for k, v in rates.items()},
             )
             return plan
+
+    def _keep_hosted_shapes(
+        self, sessions: List[LLMSession], plan: List[List[LLMPlacement]]
+    ) -> List[List[LLMPlacement]]:
+        """The plan again, with each hosted engine keeping its (slots,
+        capacity) wherever that measured row still serves the model's new
+        rate, unless keeping them costs a chip.
+
+        Host-bound decode steps are flat in the slot count, so several
+        rows tie on the SLO term and the packer's HBM tie-break follows
+        the rate reading across the tie: a reading within its window's
+        noise would move an engine to another shape, and every move is a
+        drain, a build and a warmup in which the model admits nothing.
+        With one row per model this returns the packer's plan."""
+        hosted = {m: p for chip in self.chips
+                  for m, p in chip.placements().items()}
+        kept: Dict[str, BatchProfile] = {}
+        for s in sessions:
+            cur, profile = hosted.get(s.model), self.profiles.get(s.model)
+            if cur is None or profile is None:
+                continue
+            rows = [r for r in profile.rows if r.spec == "off"
+                    and (r.batch_size, r.seq_len)
+                    == (cur.num_slots, cur.capacity)]
+            if not rows:
+                continue
+            own = BatchProfile(profile.model_name, rows)
+            try:        # the hosted row alone must serve the session
+                pack_llm_engines([s], {s.model: own},
+                                 hbm_budget_bytes=self.hbm_budget_bytes,
+                                 compute_headroom=self.compute_headroom)
+            except ValueError:
+                continue
+            kept[s.model] = own
+        if not kept:
+            return plan
+        sticky = pack_llm_engines(sessions, {**self.profiles, **kept},
+                                  hbm_budget_bytes=self.hbm_budget_bytes,
+                                  compute_headroom=self.compute_headroom)
+        return sticky if len(sticky) <= len(plan) else plan
 
     def _apply(
         self, assignment: List[Optional[List[LLMPlacement]]]

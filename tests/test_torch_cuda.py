@@ -3,7 +3,11 @@
 Marked ``cuda``: without a card each test skips (decided inside the
 test, never at import). Shapes cover what ``chip_smoke.py`` does not:
 ragged KV tails, causal prefill with a diagonal offset, head_dim 64,
-ViT-B/16's attention (197 tokens, 12 heads of 64, no mask),
+ViT-B/16's attention (197 tokens, 12 heads of 64, no mask) and ViT-G/14's
+(257 tokens, 16 heads of 104), both also as views of a packed qkv (read
+in place: the call allocates its output and nothing else), head_dim 104
+masked and causal, unmasked shapes whose K/V is or is not resident in
+shared memory,
 wide decode windows, and for the paged kernel ragged lengths, sentinel
 tails, Tq 1..8 staircases and shuffled pools — and the int8-KV branch of
 both decode kernels at the same shapes (int8 codes, f32 scales, q in f32
@@ -53,6 +57,13 @@ def _rand(gen, shape, dtype, dev):
     (2, 48, 200, 16, 16, 64, False, True),  # gpt2 width, random mask
     (1, 16, 64, 4, 1, 128, False, True),    # one KV head, masked rows
     (4, 197, 197, 12, 12, 64, False, False),  # ViT-B/16: ragged last tile
+    (4, 257, 257, 16, 16, 104, False, False),  # ViT-G/14: head_dim 104
+    (2, 70, 130, 8, 2, 104, True, False),   # head_dim 104, causal, GQA
+    (2, 48, 200, 16, 16, 104, False, True),  # head_dim 104, random mask
+    (2, 20, 77, 4, 4, 128, False, False),   # fewer slabs than warps
+    (2, 100, 600, 8, 4, 64, False, False),  # 10 resident tiles, GQA
+    (1, 40, 1000, 4, 2, 64, False, False),  # K/V not resident: 64-row tiles
+    (1, 64, 1024, 4, 4, 128, False, False),  # the same at head_dim 128
 ])
 def test_flash_kernel_matches_plain(card, dtype, B, Tq, Tk, N, K, H, causal,
                                     masked):
@@ -261,9 +272,10 @@ def test_slab_and_paged_int8_kernels_agree_on_one_run(card):
 
 
 def test_kernels_refuse_what_they_do_not_take(card):
-    q = torch.zeros((1, 16, 4, 96), device=card)
-    with pytest.raises(ValueError, match="head_dim"):
-        fl.flash_attention(q, q, q)
+    for H in (100, 136):    # not a multiple of 8; past 128
+        q = torch.zeros((1, 16, 4, H), device=card)
+        with pytest.raises(ValueError, match="head_dim"):
+            fl.flash_attention(q, q, q)
     with pytest.raises(TypeError, match="dtype"):
         h = torch.zeros((1, 1, 4, 64), device=card, dtype=torch.float16)
         dec.decode_attention(h, h, h)
@@ -317,6 +329,32 @@ def test_decode_kernels_refuse_a_small_merge_workspace(card):
         assert (rc == 0) == ok
     torch.cuda.synchronize()
     assert int(cnt.abs().sum().item()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,N,H", [(4, 197, 12, 64), (4, 257, 16, 104)])
+def test_flash_kernel_reads_packed_qkv_views(card, dtype, B, T, N, H):
+    """q/k/v as ``models/vit.py`` makes them (views of one [B, T, 3 N H]
+    projection) give the plain version's result and the kernel's own
+    result on contiguous copies, and the call allocates only its output:
+    no copy of q, k or v, not even a transient one."""
+    gen = torch.Generator(device=card).manual_seed(T + H)
+    qkv = _rand(gen, (B, T, 3 * N * H), dtype, card)
+    q, k, v = qkv.view(B, T, 3, N, H).unbind(2)
+    fl.flash_attention(q, k, v)          # the build and the first launch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    out = fl.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    nbytes = out.numel() * out.element_size()
+    assert torch.cuda.memory_allocated(card) - base == nbytes
+    assert torch.cuda.max_memory_allocated(card) - base == nbytes
+    assert out.is_contiguous() and out.shape == (B, T, N, H)
+    ref = fl.flash_attention_plain(q, k, v)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    same = fl.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(out, same)
 
 
 # --- the redesigned kernels: live-tile skipping and split-S ----------------
@@ -479,21 +517,29 @@ def test_kernels_launch_from_two_threads_at_different_shapes(card):
         qf = _rand(gen, (2, 64, 32, 128), dtype, card)
         kf = _rand(gen, (2, S, 8, 128), dtype, card)
         vf = _rand(gen, (2, S, 8, 128), dtype, card)
-        inputs[S] = (q, k, v, mask, qf, kf, vf)
+        # The vision body at head_dim 104: 257 tokens (the 256 thread) or
+        # 130 (the 512 one) need different shared-memory limits too.
+        T = 257 if S == 256 else 130
+        qkv = _rand(gen, (2, T, 3 * 16 * 104), dtype, card)
+        inputs[S] = (q, k, v, mask, qf, kf, vf,
+                     qkv.view(2, T, 3, 16, 104).unbind(2))
     errors, worst = [], {}
 
     def run(S):
-        q, k, v, mask, qf, kf, vf = inputs[S]
+        q, k, v, mask, qf, kf, vf, qkv = inputs[S]
         try:
             for _ in range(200):
                 out = dec.decode_attention(q, k, v, mask=mask)
                 out_f = fl.flash_attention(qf, kf, vf, causal=True)
+                out_v = fl.flash_attention(*qkv)
             torch.cuda.synchronize()
             ref = dec.decode_attention_plain(q, k, v,
                                              fl.keep_mask(mask, 16, 1, S))
             ref_f = fl.flash_attention_plain(qf, kf, vf, None, causal=True)
+            ref_v = fl.flash_attention_plain(*qkv)
             worst[S] = max((out.float() - ref.float()).abs().max().item(),
-                           (out_f.float() - ref_f.float()).abs().max().item())
+                           (out_f.float() - ref_f.float()).abs().max().item(),
+                           (out_v.float() - ref_v.float()).abs().max().item())
         except Exception as e:  # noqa: BLE001 — reported below
             errors.append(f"S={S}: {e}")
 

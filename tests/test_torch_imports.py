@@ -1,7 +1,8 @@
 """The port imports neither JAX, flax nor the JAX package.
 
 An AST scan of every module of ``ray_dynamic_batching_tpu_torch`` and of
-``chip_smoke.py`` matches whole module names (``ray_dynamic_batching_tpu``
+the card scripts (``chip_smoke.py``, ``flash_variants.py``,
+``replan_rules.py``) matches whole module names (``ray_dynamic_batching_tpu``
 is a prefix of ``ray_dynamic_batching_tpu_torch`` as a string, not as a
 module); a subprocess with those modules blocked imports the port (the profiles
 package, the packers, the colocation executor and the live scheduler
@@ -39,7 +40,9 @@ def _imported_modules(path: Path):
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [
+        ROOT / name
+        for name in ("chip_smoke.py", "flash_variants.py", "replan_rules.py")]
 
 
 def test_whole_name_matching():

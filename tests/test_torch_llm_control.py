@@ -11,6 +11,11 @@ packages' classes with the same fakes, and the decisions must be the
 same: hosted models after each step, plans, served requests and the
 audit records' triggers, notes, diffs and placements. Every scheduler is
 shut down and every wait has a timeout.
+
+The last section holds where the port departs from the reference: a
+replan keeps a hosted engine's shape while that measured row still
+serves the model's rate, where the reference moves the engine to
+whichever tied row the packer's HBM tie-break picks for the reading.
 """
 
 import contextlib
@@ -653,3 +658,99 @@ def _dead_executor(ns):
 
 def test_dead_executor_thread_is_restarted():
     assert _twin(_dead_executor) == [True, True, "a"]
+
+
+# --- where the port departs: a hosted shape is kept while it serves ----------
+def _tied_profile(ns, name):
+    """Flat 10 ms steps at 4, 8 and 32 slots (the host-bound shape of the
+    card's rows): at a 40 ms token SLO every row's SLO term is 0.25, so a
+    low rate ties them and the packer's HBM tie-break takes the fewest
+    slots whose capacity term stays under 0.25."""
+    return ns.table.BatchProfile(f"{name}_decode", [
+        ns.table.ProfileRow(batch_size=n, seq_len=128, latency_ms=10.0,
+                            latency_std_ms=0.0, hbm_bytes=int(gb * GB),
+                            compile_ms=100.0)
+        for n, gb in ((4, 1.0), (8, 1.1), (32, 1.3))])
+
+
+def _tied_sched(ns, models):
+    chips = [FakeChip(f"chip{i}") for i in range(2)]
+    built = []
+
+    def factory(model, placement, queue, device):
+        built.append((model, placement.num_slots))
+        return FakeEngine(model, placement.num_slots, placement.capacity)
+
+    sched = ns.control.LLMLiveScheduler(
+        {m: _tied_profile(ns, m) for m in models}, chips, factory)
+    for m in models:
+        sched.register_model(m, token_slo_ms=40.0)
+    return sched, chips, built
+
+
+def _slots(sched):
+    return {p.model: p.num_slots for chip in sched._current_plan
+            for p in chip}
+
+
+def _rate_noise(ns):
+    """One model's rate reading wanders 160 -> 80 -> 160 -> 200 -> 500
+    tok/s. At 80 four slots tie on the SLO floor; from 100 to 200 eight
+    slots do; at 500 four slots would need 1.25 of the chip, eight 0.625
+    and 32 the 0.25 floor."""
+    sched, chips, built = _tied_sched(ns, ("a",))
+    trace = []
+    try:
+        for r in (160.0, 80.0, 160.0, 200.0, 500.0):
+            sched.rebalance(rates={"a": r})
+            trace.append((_slots(sched)["a"], sched.migrations))
+    finally:
+        sched.shutdown()
+    return trace, built
+
+
+def test_replan_keeps_a_hosted_shape_while_it_serves():
+    ref, ref_built = _rate_noise(JAX)
+    port, port_built = _rate_noise(PORT)
+    # The reference follows the tie-break across every reading.
+    assert ref == [(8, 0), (4, 1), (8, 2), (8, 2), (32, 3)]
+    assert [n for _, n in ref_built] == [8, 4, 8, 32]
+    # The port keeps 8 slots while they serve (0.25 up to 200 tok/s,
+    # 0.625 at 500, under the 0.85 headroom): one build.
+    assert port == [(8, 0)] * 5
+    assert port_built == [("a", 8)]
+
+
+def _hosted_row_stops_serving(ns):
+    sched, chips, built = _tied_sched(ns, ("a",))
+    try:
+        sched.rebalance(rates={"a": 60.0})     # 4 slots: 0.25
+        sched.rebalance(rates={"a": 400.0})    # 4 slots would need 1.0
+        return _slots(sched)["a"], sched.migrations
+    finally:
+        sched.shutdown()
+
+
+def test_a_hosted_shape_that_no_longer_serves_moves_as_the_packer_says():
+    # 8 slots would need 0.5 at 400 tok/s, 32 slots the 0.25 floor.
+    assert _twin(_hosted_row_stops_serving) == (32, 1)
+
+
+def _keeping_costs_a_chip(ns):
+    sched, chips, built = _tied_sched(ns, ("a", "b"))
+    try:
+        sched.rebalance(rates={"a": 60.0, "b": 60.0})
+        first = (_slots(sched), _hosted(chips))
+        # a at 300 tok/s: its 4 slots alone would serve it (0.75), but
+        # beside b's 0.25 they need a second chip; 32 slots (0.25) keep
+        # the pair on one.
+        sched.rebalance(rates={"a": 300.0, "b": 60.0})
+        return first, (_slots(sched), _hosted(chips))
+    finally:
+        sched.shutdown()
+
+
+def test_kept_shapes_yield_when_they_cost_a_chip():
+    (slots1, hosted1), (slots2, hosted2) = _twin(_keeping_costs_a_chip)
+    assert slots1 == {"a": 4, "b": 4} and hosted1 == [["a", "b"], []]
+    assert slots2 == {"a": 32, "b": 4} and hosted2 == [["a", "b"], []]
