@@ -66,9 +66,20 @@ last line:
     Poisson arrivals at 0.6 x capacity for 8 s from ``WorkloadDriver``
     (TTFT p50 / p99, the engine's TTFT breakdown, KV occupancy, the
     handle + router hop per request); then one buffered and one streamed
-    ``POST /api/llama3_8b``. Every request is answered (none rejected),
-    the router routed exactly the requests submitted, and the streamed
-    chunks equal the final line's tokens;
+    ``POST /api/llama3_8b``, and ``GET /metrics``, which must carry the
+    engine's ``rdb_decode_*`` families. Every request is answered (none
+    rejected), the router routed exactly the requests submitted, and the
+    streamed chunks equal the final line's tokens. The Poisson window
+    alone runs with a ``ChromeTraceCollector`` installed: the load
+    generator opens a root span for each arrival (submit -> answer; the
+    serving path's spans join its trace), and ``request_ledgers`` splits
+    each request into hops, once whole and once cut at its first token
+    (the end of its ``decode.prefill``): every ledger must conserve, the
+    served ledgers must be the answered requests, and the phase prints
+    the per-hop p50 / p95 of both, the queue wait split by whether every
+    slot was decoding at arrival (beside the share spent waiting out a
+    scan), the 8 slowest TTFT ledgers and the engine's ``snapshot()``,
+    and writes the Chrome trace to ``build/traces/front.json``;
 11. controller — the declarative path of the README: ``apply_config``
     deploys application ``chat`` (route ``/chat``) with one ``llm:``
     deployment ``llama3_8b`` (phase 5's knobs, version ``v1``,
@@ -123,7 +134,9 @@ last line:
     the phase starts several threads). The same traffic then runs again
     at 0.2 as a diagnostic that gates nothing but a lost request: at 0.2
     the packer admits a pair the host-bound card cannot keep, and the
-    run prints how far it falls short.
+    run prints how far it falls short. The diagnostic run alone is
+    traced: each contract's ``decode.turn`` time per step is printed
+    against the number of sequences active in the turn.
 
 13. vision — the Nexus vision path, bf16 with random weights from seed 0.
     Parity: ``resnet50``, ``shufflenet_v2``, ``efficientnet_v2s``,
@@ -152,7 +165,16 @@ last line:
     (``RATE_HEADROOM`` in ``scheduler/control.py``). It fails on a request
     not accounted for, when no rate-change replan after the shift saw
     resnet50 at 1.5 x its offered rate, or on a compliance under 0.95 in
-    any half of any model.
+    any half of any model. After the gated run (its numbers read first,
+    with tracing off throughout), 10 s more at the second half's rates
+    run traced: every 4th arrival goes in under a load root and a
+    ``handle.remote`` span (``tools/run_slo_demo.py``'s shape); the
+    phase prints those requests' per-hop p50 / p95, the 5 slowest
+    requests' ledgers and, per model,
+    ``collate.batch`` against the ``engine.step`` it runs in and the step
+    less its collate against the profiled row, and writes
+    ``build/traces/vision.json``; a traced request not answered or a
+    ledger that does not conserve fails it.
 
 Phases 5 to 13 each set every launch count to 0 just before they serve and
 read them just after: each kernel of the path must have launched the
@@ -165,13 +187,16 @@ engines counted while serving. Phase 12 adds, beside its engines'
 dispatches and warmups (the length-bucket replica's two engines and every
 engine the scheduler builds are warmed), the profiler's: each config runs
 2 + 3 x 8 dispatches, one prefill group or one decode step each. Phase 13
-sets them to 0 just before its SLO run: flash = 12 x (the vit_b_16
-batches served + the vit_b_16 buckets the engines warmed).
+sets them to 0 just before its SLO run and reads them after its traced
+window: flash = 12 x (the vit_b_16 batches served in both + the vit_b_16
+buckets the engines warmed).
 
 The line before the last is one JSON object with the per-kernel numbers
 (``launches`` sums the serving phases; ``launches_by_path`` splits them)
 and the numbers of the front, controller, colocate and vision phases
-(``front``, ``controller``, ``colocate``, ``vision``); the last line is
+(``front``, ``controller``, ``colocate``, ``vision``; the per-hop splits
+under ``front.hops``, ``colocate.runs.diagnostic.turns`` and
+``vision.traced``); the last line is
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (for
 bring-up); the default runs all. ``--profile`` traces each serving window
 with ``torch.profiler`` and prints the device's busy share and its time by
@@ -1097,6 +1122,148 @@ def _post(proxy, path: str, payload: dict) -> tuple:
         conn.close()
 
 
+# --- flight records (phases 10, 12, 13) -------------------------------------
+TRACE_DIR = "build/traces"
+
+
+class _LoadRoots:
+    """The load generator's own root span for each traced request: it
+    opens before the request enters the serving path and closes when the
+    request's future resolves. The generator originates the trace, as a
+    client sending a W3C ``traceparent`` does, so the serving path's spans
+    join it and a ledger's window is the request's latency as the client
+    sees it. The roots stay with the generator; :meth:`spans` adds them
+    to a capture."""
+
+    NAME = "load.request"
+
+    def __init__(self) -> None:
+        self._roots: dict = {}
+        self._lock = threading.Lock()
+
+    def open(self, **attributes) -> dict:
+        """A new root; returns the context its children join."""
+        import random
+        import uuid
+
+        from ray_dynamic_batching_tpu_torch.utils.tracing import Span
+
+        root = Span(name=self.NAME, trace_id=uuid.uuid4().hex,
+                    span_id=random.getrandbits(63), parent_id=None,
+                    start_ms=time.monotonic() * 1000.0,
+                    attributes=dict(attributes))
+        with self._lock:
+            self._roots[root.trace_id] = root
+        return root.context()
+
+    def close_on(self, ctx: dict, fut) -> None:
+        """Close the root when ``fut`` resolves."""
+        root = self._roots[ctx["trace_id"]]
+
+        def done(_f) -> None:
+            root.end_ms = time.monotonic() * 1000.0
+
+        fut.add_done_callback(done)
+
+    def spans(self) -> list:
+        with self._lock:
+            return list(self._roots.values())
+
+
+def _load_ledgers(tag: str, spans: list, loads: _LoadRoots,
+                  cut_at: str | None = None) -> list:
+    """The conserving hop ledger of every traced request whose root
+    closed. With ``cut_at``, each root ends where its trace's span of
+    that name ends (``decode.prefill``: the first token), so the ledger
+    splits the TTFT. A ledger that does not conserve fails the phase."""
+    from ray_dynamic_batching_tpu_torch.utils.hops import (
+        LedgerError,
+        request_ledgers,
+    )
+
+    roots = [r for r in loads.spans() if r.end_ms is not None]
+    if cut_at is not None:
+        ends = {s.trace_id: s.end_ms for s in spans if s.name == cut_at}
+        roots = [dataclasses.replace(r, end_ms=ends[r.trace_id])
+                 for r in roots if r.trace_id in ends]
+    ids = {r.trace_id for r in roots}
+    try:
+        ledgers, _skipped = request_ledgers(list(spans) + roots,
+                                            require_front_door=False)
+    except LedgerError as e:
+        fail(f"{tag}: a ledger does not conserve: {e}")
+    return [l for l in ledgers if l.trace_id in ids]
+
+
+def _hop_quantiles(ledgers: list) -> dict:
+    """p50 / p95 (ms) of each hop over the ledgers, a ledger without the
+    hop counting 0 ms, with the number of ledgers that have it; then the
+    residual and the end-to-end."""
+    from ray_dynamic_batching_tpu_torch.utils.hops import (
+        HOP_ORDER,
+        UNATTRIBUTED,
+    )
+
+    cols = {h: [l.hops.get(h, 0.0) for l in ledgers] for h in HOP_ORDER
+            if any(h in l.hops for l in ledgers)}
+    cols[UNATTRIBUTED] = [l.unattributed_ms for l in ledgers]
+    cols["end_to_end"] = [l.end_to_end_ms for l in ledgers]
+    return {h: dict(**_pcts(v), n=sum(1 for x in v if x > 0.0))
+            for h, v in cols.items()}
+
+
+def _print_hops(tag: str, label: str, ledgers: list) -> dict:
+    q = _hop_quantiles(ledgers)
+    worst = max(abs(sum(l.hops.values()) + l.unattributed_ms
+                    - l.end_to_end_ms) for l in ledgers)
+    print(f"[{tag}] {label}, {len(ledgers)} ledgers (every one conserves: "
+          f"max |hops + unattributed - end to end| {worst:.2e} ms), p50 / "
+          "p95 ms: " + "; ".join(
+              f"{h} {v['p50']:.3f} / {v['p95']:.3f} ({v['n']})"
+              for h, v in q.items()), flush=True)
+    return q
+
+
+def _write_trace(name: str, spans: list, journal=None) -> str:
+    """The Chrome trace of a capture (with the page journal's lane when
+    given) under ``build/traces/``."""
+    import os
+
+    from ray_dynamic_batching_tpu_torch.utils.trace_export import (
+        to_chrome_trace,
+    )
+
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    path = f"{TRACE_DIR}/{name}.json"
+    with open(path, "w") as f:
+        json.dump(to_chrome_trace(spans, journal=journal), f)
+    return path
+
+
+def _pcts(values: list) -> dict | None:
+    return (dict(p50=float(np.percentile(values, 50)),
+                 p95=float(np.percentile(values, 95))) if values else None)
+
+
+def _span_quantiles(values: list, unit: str = "ms") -> str:
+    q = _pcts(values)
+    return f"p50 {q['p50']:.3f} / p95 {q['p95']:.3f} {unit}" if q else "none"
+
+
+def _get(proxy, path: str) -> str:
+    """One GET through the proxy: the body text (200 or the run fails)."""
+    conn = http.client.HTTPConnection(proxy.host, proxy.port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        body = resp.read().decode()
+    finally:
+        conn.close()
+    if resp.status != 200:
+        fail(f"GET {path}: HTTP {resp.status}")
+    return body
+
+
 def phase_front(profile: bool) -> tuple:
     """Saturation, Poisson arrivals and HTTP through handle -> router ->
     replica, the launch counts zeroed just before and read just after.
@@ -1117,6 +1284,14 @@ def phase_front(profile: bool) -> tuple:
         ProxyRouter,
     )
     from ray_dynamic_batching_tpu_torch.serve.router import Router
+    from ray_dynamic_batching_tpu_torch.utils.hops import (
+        format_ledger_table,
+        is_served,
+    )
+    from ray_dynamic_batching_tpu_torch.utils.trace_export import (
+        ChromeTraceCollector,
+    )
+    from ray_dynamic_batching_tpu_torch.utils.tracing import tracer
 
     tag, max_new, duration_s = "front", 32, 8.0
     gc.collect()
@@ -1170,33 +1345,53 @@ def phase_front(profile: bool) -> tuple:
                   f"{sat_s:.3f} s: {tok_s:.1f} tok/s, capacity "
                   f"{capacity:.2f} req/s", flush=True)
 
-            # Poisson arrivals at 0.6 x capacity.
+            # Poisson arrivals at 0.6 x capacity, each request traced:
+            # the collector is installed for this window only.
             offered = 0.6 * capacity
             engine.reset_ttft_window()
             poisson_futs, hop_ms, seen_occ = [], [], []
+            collector, loads = ChromeTraceCollector(), _LoadRoots()
+            busy_at = {}    # trace id -> slots decoding as it arrived
 
             def submit(_model: str, _offset: float) -> None:
                 p = payload()
                 seen_occ.append(engine.kv_occupancy())
-                t = time.perf_counter()
-                poisson_futs.append(handle.remote(p))
-                hop_ms.append((time.perf_counter() - t) * 1e3)
+                ctx = loads.open(deployment="llama3_8b")
+                busy_at[ctx["trace_id"]] = engine.active_slots
+                with tracer().attach_context(ctx, "load.submit"):
+                    t = time.perf_counter()
+                    fut = handle.remote(p)
+                    hop_ms.append((time.perf_counter() - t) * 1e3)
+                loads.close_on(ctx, fut)
+                poisson_futs.append(fut)
 
             pattern = RatePattern("constant", base_rps=offered)
             arrivals = len(list(arrival_times(pattern, duration_s, True, 7)))
             driver = WorkloadDriver(submit, "llama3_8b", pattern,
                                     duration_s=duration_s, poisson=True,
                                     seed=7)
-            driver.start()
-            driver.join(duration_s + 60)
-            if driver._thread.is_alive():
-                fail(f"{tag}: the workload driver did not finish")
-            # The driver logs and skips a submit that raises: every
-            # scheduled arrival must have been submitted.
-            if driver.sent != arrivals or not arrivals:
-                fail(f"{tag}: {driver.sent} of {arrivals} arrivals submitted")
-            poisson = [_answered(f"{tag} poisson", f, max_new)
-                       for f in poisson_futs]
+            tracer().set_exporter(collector.export)
+            try:
+                driver.start()
+                driver.join(duration_s + 60)
+                if driver._thread.is_alive():
+                    fail(f"{tag}: the workload driver did not finish")
+                # The driver logs and skips a submit that raises: every
+                # scheduled arrival must have been submitted.
+                if driver.sent != arrivals or not arrivals:
+                    fail(f"{tag}: {driver.sent} of {arrivals} arrivals "
+                         "submitted")
+                poisson = [_answered(f"{tag} poisson", f, max_new)
+                           for f in poisson_futs]
+                # decode.sequence is recorded just after each future
+                # resolves.
+                deadline = time.monotonic() + 10
+                while (sum(s.name == "decode.sequence"
+                           for s in collector.spans) < len(poisson)
+                       and time.monotonic() < deadline):
+                    time.sleep(0.01)
+            finally:
+                tracer().reset()
             ttfts = sorted(r.ttft_ms for r in poisson)
             p50 = statistics.median(ttfts)
             p99 = ttfts[min(len(ttfts) - 1, int(len(ttfts) * 0.99))]
@@ -1210,11 +1405,15 @@ def phase_front(profile: bool) -> tuple:
                   f"{max(hop_ms):.3f}), TTFT parts {breakdown}, KV occupancy "
                   f"{occupancy:.4f} drained, {occ_seen:.4f} mean as each "
                   f"arrival saw it", flush=True)
+            hops = _front_ledgers(tag, collector, loads, poisson, max_new,
+                                  engine, busy_at, format_ledger_table,
+                                  is_served)
 
             # HTTP: one buffered and one streamed request.
             code_b, body_b = _post(proxy, "/api/llama3_8b", payload())
             code_s, body_s = _post(proxy, "/api/llama3_8b",
                                    {**payload(), "stream": True})
+            metrics_text = _get(proxy, "/metrics")
             wall = time.monotonic() - t_window
             engine.stop()
             torch.cuda.synchronize()
@@ -1240,6 +1439,16 @@ def phase_front(profile: bool) -> tuple:
              f"tokens, expected {max_new}")
     print(f"[{tag}] HTTP: buffered 200 ({len(buffered)} tokens), streamed "
           f"200 ({len(chunks)} chunks = the final line's tokens)", flush=True)
+    families = ("rdb_decode_tokens_total", "rdb_decode_steps_total",
+                "rdb_decode_prefills_total", "rdb_decode_ttft_ms_bucket")
+    decode_lines = [ln for ln in metrics_text.splitlines()
+                    if ln.startswith(families[:3])]
+    missing = [f for f in families
+               if not any(ln.startswith(f)
+                          for ln in metrics_text.splitlines())]
+    if missing:
+        fail(f"{tag}: GET /metrics lacks the engine's families {missing}")
+    print(f"[{tag}] GET /metrics: {'; '.join(decode_lines)}", flush=True)
     submitted = len(sat) + len(poisson) + 2
     if router.total_routed != submitted:
         fail(f"{tag}: router routed {router.total_routed}, "
@@ -1255,8 +1464,83 @@ def phase_front(profile: bool) -> tuple:
         kv_occupancy_at_arrival=occ_seen,
         hop_p50_ms=statistics.median(hop_ms), hop_max_ms=max(hop_ms),
         routed=router.total_routed, http_buffered=code_b,
-        http_streamed=code_s)
+        http_streamed=code_s, hops=hops)
     return counts, numbers
+
+
+def _front_ledgers(tag, collector, loads, poisson, max_new, engine, busy_at,
+                   format_ledger_table, is_served) -> dict:
+    """Phase 10's flight record: one ledger per Poisson request from its
+    load root (submit -> answer) and one cut at its first token (the
+    TTFT split), each conserving; the served ledgers must be the
+    answered requests, each with one ``decode.prefill`` and a
+    ``decode.sequence`` of ``max_new`` tokens. Prints the per-hop p50 /
+    p95 of both; the queue wait split by whether every slot was decoding
+    when the request arrived (``busy_at``: trace id -> slots decoding),
+    beside the share of it spent waiting out an in-flight scan (the
+    ``scan_wait_ms`` of its ``decode.prefill``); the slowest TTFT
+    ledgers' rows and the engine's snapshot; and writes the Chrome trace
+    under ``build/traces/``."""
+    spans = collector.spans
+    if collector.dropped:
+        fail(f"{tag}: the collector dropped {collector.dropped} spans")
+    full = _load_ledgers(tag, spans, loads)
+    ttft = _load_ledgers(tag, spans, loads, cut_at="decode.prefill")
+    served = [l for l in full if is_served(l)]
+    prefills = [s for s in spans if s.name == "decode.prefill"]
+    seqs = [s for s in spans if s.name == "decode.sequence"]
+    traced = {l.trace_id for l in served}
+    if (len(served) != len(poisson) or len(ttft) != len(poisson)
+            or sorted(s.trace_id for s in prefills) != sorted(traced)
+            or {s.trace_id for s in seqs} != traced
+            or any(s.attributes["tokens"] != max_new for s in seqs)):
+        fail(f"{tag}: {len(served)} served ledgers, {len(ttft)} TTFT "
+             f"ledgers, {len(prefills)} decode.prefill and {len(seqs)} "
+             f"decode.sequence spans for {len(poisson)} answered requests")
+    turns: dict = {}       # horizon -> per-step ms of each decode.turn
+    for s in spans:
+        if s.name == "decode.turn":
+            h = s.attributes["horizon"]
+            turns.setdefault(h, []).append((s.end_ms - s.start_ms) / h)
+    print(f"[{tag}] flight record of the Poisson window: {len(spans)} spans,"
+          f" {len(served)} served ledgers = the answered requests; "
+          "decode.turn by horizon (turns, ms a step p50 / p95): " + "; ".join(
+              f"{h}: {len(v)}, {np.percentile(v, 50):.2f} / "
+              f"{np.percentile(v, 95):.2f}" for h, v in sorted(turns.items())),
+          flush=True)
+    out = {"turns_by_horizon": {h: dict(n=len(v), **_pcts(v))
+                                for h, v in sorted(turns.items())},
+           "ttft": _print_hops(tag, "TTFT split by hop (load root cut at "
+                               "the first token)", ttft),
+           "request": _print_hops(tag, "whole request by hop (load root, "
+                                  "submit -> answer)", served)}
+    scan = {s.trace_id: s.attributes["scan_wait_ms"] for s in prefills}
+    groups = {"a slot free": [], "every slot decoding": []}
+    for l in ttft:
+        full_at = busy_at[l.trace_id] >= engine.num_slots
+        groups["every slot decoding" if full_at else "a slot free"].append(l)
+    split = {}
+    for label, ls in groups.items():
+        wait = [l.hops.get("queue.wait", 0.0) for l in ls]
+        sw = [scan[l.trace_id] for l in ls]
+        split[label] = dict(n=len(ls), queue_wait=_pcts(wait),
+                            scan_wait=_pcts(sw),
+                            ttft=_pcts([l.end_to_end_ms for l in ls]))
+        print(f"[{tag}] arrivals with {label}: {len(ls)}; queue.wait "
+              f"{_span_quantiles(wait)}, of it waiting out a scan "
+              f"{_span_quantiles(sw)}; TTFT "
+              f"{_span_quantiles([l.end_to_end_ms for l in ls])}",
+              flush=True)
+    out["by_slots_at_arrival"] = split
+    slow = sorted(ttft, key=lambda l: l.end_to_end_ms)[-8:]
+    print(f"[{tag}] the 8 slowest TTFT ledgers (ms):\n"
+          + format_ledger_table(slow), flush=True)
+    print(f"[{tag}] engine snapshot {engine.snapshot()}", flush=True)
+    snap = engine.snapshot().get("page_journal", {})
+    path = _write_trace("front", spans + loads.spans(),
+                        journal=snap.get("events"))
+    print(f"[{tag}] Chrome trace written to {path}", flush=True)
+    return out
 
 
 # --- phase 11: the controller and the declarative entry points -------------
@@ -1683,9 +1967,12 @@ def _colocate_body(dev, ttft_slo_ms: float, profiles_dir: str,
                                ("diagnostic", c["diagnostic_util"], False)):
         run = _colocate_traffic(tag, c, util, model, decode, knobs,
                                 token_slo, ttft_slo_ms, engines, warmed,
-                                probe=gated)
+                                probe=gated, traced=not gated)
         runs[label] = _traffic_report(f"{tag} {label} {util}", c, run,
                                       decode, token_slo, budget, gated)
+        if not gated:
+            runs[label]["turns"] = _turn_report(f"{tag} {label} {util}",
+                                                run)
     out.update(
         runs=runs,
         fills=prof_fills + WARMUP_FILLS * len(warmed) + sum(
@@ -1698,14 +1985,21 @@ def _colocate_body(dev, ttft_slo_ms: float, profiles_dir: str,
 
 
 def _colocate_traffic(tag, c, util, model, decode, knobs, token_slo,
-                      ttft_slo_ms, engines, warmed, probe: bool) -> dict:
+                      ttft_slo_ms, engines, warmed, probe: bool,
+                      traced: bool = False) -> dict:
     """Serve ``llama_a`` and ``llama_b`` colocated on the card under an
     ``LLMLiveScheduler``: each is offered ``util`` of the pinned row's
     full-occupancy throughput for one half, then ``llama_a`` the surge
     multiple of it for the second. With ``probe``, a greedy probe goes
     through ``llama_a``'s colocated engine and a lone engine of its
-    shape. Appends every engine built to ``engines`` (and the warmed
-    ones to ``warmed``), and returns the run's record."""
+    shape. With ``traced``, a collector is installed for the traffic and
+    every request carries a trace context of its own; the record then
+    holds the spans and each trace's contract. Appends every engine built
+    to ``engines`` (and the warmed ones to ``warmed``), and returns the
+    run's record."""
+    import random
+    import uuid
+
     from ray_dynamic_batching_tpu_torch.engine.colocate import (
         ColocatedLLMEngines,
     )
@@ -1717,6 +2011,10 @@ def _colocate_traffic(tag, c, util, model, decode, knobs, token_slo,
         deployment_engine_factory,
     )
     from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+    from ray_dynamic_batching_tpu_torch.utils.trace_export import (
+        ChromeTraceCollector,
+    )
+    from ray_dynamic_batching_tpu_torch.utils.tracing import tracer
 
     a, b = c["contracts"]
     cap, max_new, name = c["capacity"], c["max_new"], c["model"]
@@ -1751,6 +2049,7 @@ def _colocate_traffic(tag, c, util, model, decode, knobs, token_slo,
                              tokens_per_request=max_new)
     sent: dict = {}            # (contract, half) -> [request]
     colo_tokens = lone_tokens = None
+    collector, contract_of = ChromeTraceCollector(), {}
     try:
         first = sched.rebalance(rates=rates)
         print(f"[{tag}] utilization {util}: offered {rate:.1f} tok/s each "
@@ -1764,6 +2063,8 @@ def _colocate_traffic(tag, c, util, model, decode, knobs, token_slo,
                  f"on the card: {[[p.model for p in x] for x in first]}")
         chip.start()
         sched.start_monitoring()
+        if traced:
+            tracer().set_exporter(collector.export)
         arr = np.random.default_rng(c["seed"])
         halves = []
         for half, mult in ((0, 1.0), (1, c["surge"])):
@@ -1779,10 +2080,16 @@ def _colocate_traffic(tag, c, util, model, decode, knobs, token_slo,
             t_wall, t0 = time.time(), time.monotonic()
             for t, m in events:
                 time.sleep(max(0.0, t0 + t - time.monotonic()))
+                ctx = {}
+                if traced:
+                    ctx = {"trace_id": uuid.uuid4().hex,
+                           "parent_span_id": random.getrandbits(63)}
+                    contract_of[ctx["trace_id"]] = m
                 req = Request(model=m, payload={
                     "tokens": arr.integers(
                         0, V, int(arr.integers(*c["prompt"]))).tolist(),
-                    "max_new_tokens": max_new}, slo_ms=req_slo)
+                    "max_new_tokens": max_new}, slo_ms=req_slo,
+                    trace_ctx=ctx)
                 sent.setdefault((m, half), []).append(req)
                 sched.submit_request(req)
             time.sleep(max(0.0, t0 + c["half_s"] - time.monotonic()))
@@ -1800,6 +2107,7 @@ def _colocate_traffic(tag, c, util, model, decode, knobs, token_slo,
                     results[key].append(r.future.result(timeout=300))
                 except Exception as e:  # noqa: BLE001 — counted, then fails
                     results[key].append(e)
+        tracer().reset()
         if probe:   # llama_a's colocated engine against a lone engine
             toks = np.random.default_rng(48).integers(0, V, c["probe_len"])
             preq = Request(model=a, payload={"tokens": toks.tolist(),
@@ -1829,10 +2137,47 @@ def _colocate_traffic(tag, c, util, model, decode, knobs, token_slo,
         audit = sched.audit.to_dicts()
         stats = sched.queues.stats()
     finally:
+        tracer().reset()
         sched.shutdown()
     return dict(util=util, rates=rates, req_slo=req_slo, sent=sent,
                 results=results, halves=halves, audit=audit, stats=stats,
-                probe=(colo_tokens, lone_tokens))
+                probe=(colo_tokens, lone_tokens), spans=collector.spans,
+                dropped_spans=collector.dropped, contract_of=contract_of)
+
+
+def _turn_report(tag: str, run: dict) -> dict:
+    """Each contract's ``decode.turn`` time per decode step (the turn's
+    duration over its horizon) against the number of sequences active in
+    the turn (a turn links to each of them, so its links name the
+    contract), with the horizons it ran: what a step of each engine costs
+    at each occupancy while the two share the card. Returns {contract:
+    {active: {n, p50, p95}}} (ms)."""
+    by: dict = {}
+    horizons: dict = {}
+    for s in run["spans"]:
+        if s.name != "decode.turn":
+            continue
+        owners = {run["contract_of"].get(l["trace_id"]) for l in s.links}
+        if len(owners) != 1 or None in owners:
+            fail(f"{tag}: a decode.turn links to {owners}")
+        (m,) = owners
+        h = s.attributes["horizon"]
+        by.setdefault(m, {}).setdefault(s.attributes["active"], []).append(
+            (s.end_ms - s.start_ms) / h)
+        horizons.setdefault(m, set()).add(h)
+    out = {}
+    for m in sorted(by):
+        rows = {k: dict(n=len(v), **_pcts(v))
+                for k, v in sorted(by[m].items())}
+        out[m] = rows
+        print(f"[{tag}] {m} decode.turn ms a step by active sequences "
+              f"(horizons {sorted(horizons[m])}; turns, p50 / p95): "
+              + "; ".join(f"{k}: {r['n']}, {r['p50']:.2f} / {r['p95']:.2f}"
+                          for k, r in rows.items()), flush=True)
+    if run["dropped_spans"]:
+        print(f"[{tag}] the collector dropped {run['dropped_spans']} spans",
+              flush=True)
+    return out
 
 
 def _replan(observed: dict, prev: list, decode, token_slo: float,
@@ -2094,6 +2439,9 @@ VISION = dict(
               ("shufflenet_v2", 1500.0, 0.010, 1.0),
               ("vit_b_16", 4000.0, 0.010, 1.0)),
     max_rps=200.0, min_rps=0.2, duration_s=60.0, engines=3,
+    # The traced window after the gated run: its length, and every how
+    # many arrivals one goes in traced.
+    traced_s=10.0, traced_every=4,
     hbm_budget_bytes=12 << 30, gate=0.95, surge_seen=1.5,
     vit="vit_b_16", classes=1000,
     # Flash launches a forward (one a layer); the other models have none.
@@ -2357,6 +2705,18 @@ def _vision_slo_run(c: dict, profiles_dir: str) -> tuple:
         wall_s = time.monotonic() - t0
         last = {e.engine_id: sum(p.occupancy for p in e._schedule.placements)
                 for e in engines}
+        # The gated run's numbers, read before the traced window.
+        sampling.set()
+        ratios = {e.engine_id: e.drain_ratios() for e in engines}
+        busy_ms = {e.engine_id: e.busy_ms for e in engines}
+        ends = {n: queues.queue(n).stats() for n in names}
+        served = {(e.engine_id, n): batches(e, n) - b0[(e.engine_id, n)]
+                  for e in engines for n in names}
+        schedule_log = list(sched.schedule_log)
+        audit = sched.audit.to_dicts()
+        traced = _vision_traced_window(
+            c, sched, queues, names, example, slos,
+            {n: base[n] * mult[n] for n in names}, profiles)
     finally:
         sampling.set()
         sched.stop_monitoring()
@@ -2364,22 +2724,21 @@ def _vision_slo_run(c: dict, profiles_dir: str) -> tuple:
             e.stop()
     torch.cuda.synchronize()
     counts = _counts()
-    ratios = {e.engine_id: e.drain_ratios() for e in engines}
-    served = {(e.engine_id, n): batches(e, n) - b0[(e.engine_id, n)]
-              for e in engines for n in names}
     layers = c["flash_layers"][c["vit"]]
     warmups = sum(1 for e in engines for k in e._warmed if k[0] == c["vit"])
     vit_batches = sum(v for (_, n), v in served.items() if n == c["vit"])
+    vit_traced = sum(batches(e, c["vit"]) - b0[(e.engine_id, c["vit"])]
+                     for e in engines) - vit_batches
     _expect_only("vision", counts, {
-        "flash_attention": layers * (vit_batches + warmups)})
+        "flash_attention": layers * (vit_batches + vit_traced + warmups)})
 
     out = {"offered_rps": base, "wall_s": wall_s, "models": {},
-           "replans": [], "engines": {}}
+           "replans": [], "engines": {}, "traced": traced}
     worst = 1.0
     zero = {k: 0 for k in COUNTER_FIELDS}
     for d in drivers:
         n = d.model
-        end = queues.queue(n).stats()
+        end = ends[n]
         p1 = _phase_compliance(zero, snap_mid[n])
         p2 = _phase_compliance(snap_mid[n], end)
         worst = min(worst, p1["slo_compliance"], p2["slo_compliance"])
@@ -2400,7 +2759,7 @@ def _vision_slo_run(c: dict, profiles_dir: str) -> tuple:
             fail(f"vision: {n} has {lost:.0f} requests unaccounted for and "
                  f"{end['depth']:.0f} still queued")
     surge_seen = []
-    for rec in sched.schedule_log[baseline:]:
+    for rec in schedule_log[baseline:]:
         t_s = rec["ts"] - t0
         rates = rec["rates"]
         out["replans"].append({"t_s": t_s, "rates": rates,
@@ -2411,10 +2770,10 @@ def _vision_slo_run(c: dict, profiles_dir: str) -> tuple:
         if t_s >= shift_at and (rates.get(surged, 0.0)
                                 >= c["surge_seen"] * base[surged]):
             surge_seen.append(t_s)
-    triggers = [a["trigger"] for a in sched.audit.to_dicts()]
+    triggers = [a["trigger"] for a in audit]
     for e in engines:
         r = sorted(ratios[e.engine_id])
-        busy = e.busy_ms / (wall_s * 1e3)
+        busy = busy_ms[e.engine_id] / (wall_s * 1e3)
         out["engines"][e.engine_id] = dict(
             batches={n: served[(e.engine_id, n)] for n in names},
             busy_share=busy, planned_first=initial[e.engine_id],
@@ -2443,8 +2802,8 @@ def _vision_slo_run(c: dict, profiles_dir: str) -> tuple:
           f"replan triggers {triggers}; replans after the "
           f"shift that saw {surged} >= {c['surge_seen']} x offered: "
           f"{len(surge_seen)}; launches {counts} = {layers} x "
-          f"({vit_batches} {c['vit']} batches + {warmups} warm-ups); "
-          f"wall {wall_s:.1f} s", flush=True)
+          f"({vit_batches} {c['vit']} batches + {vit_traced} in the traced "
+          f"window + {warmups} warm-ups); wall {wall_s:.1f} s", flush=True)
     out.update(worst_compliance=worst, triggers=triggers,
                surge_replans=len(surge_seen), vit_batches=vit_batches,
                vit_warmups=warmups)
@@ -2454,6 +2813,123 @@ def _vision_slo_run(c: dict, profiles_dir: str) -> tuple:
         fail(f"vision: no rate-change replan after the shift saw {surged}'s "
              "raised rate")
     return counts, out
+
+
+def _vision_traced_window(c: dict, sched, queues, names, example, slos,
+                          rates: dict, profiles: dict) -> dict:
+    """After the gated SLO run, ``c["traced_s"]`` seconds more of Poisson
+    arrivals at the rates of its second half with a collector installed.
+    Every ``c["traced_every"]``-th arrival goes in under a load root and
+    a ``handle.remote`` span whose context the request carries (as
+    ``tools/run_slo_demo.py``'s ``_SchedulerHandle`` submits); the rest
+    are submitted bare. Prints the traced requests' per-hop p50 / p95
+    and, per model, ``collate.batch`` against the ``engine.step`` it
+    runs in, and the step less its collate against the profiled row of
+    the step's bucket; writes the Chrome trace under ``build/traces/``.
+    Fails on a traced request not answered or a ledger that does not
+    conserve."""
+    import itertools
+
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+    from ray_dynamic_batching_tpu_torch.engine.workload import (
+        RatePattern,
+        WorkloadDriver,
+    )
+    from ray_dynamic_batching_tpu_torch.utils.hops import format_ledger_table
+    from ray_dynamic_batching_tpu_torch.utils.trace_export import (
+        ChromeTraceCollector,
+    )
+    from ray_dynamic_batching_tpu_torch.utils.tracing import tracer
+
+    tag = "vision traced"
+    collector, loads = ChromeTraceCollector(), _LoadRoots()
+    counter = itertools.count()
+    futs = []
+
+    def submit(model: str, _offset: float) -> None:
+        if next(counter) % c["traced_every"]:
+            sched.submit_request(Request(model=model, payload=example[model],
+                                         slo_ms=slos[model]))
+            return
+        ctx = loads.open(deployment=model)
+        with tracer().attach_context(ctx, "handle.remote", deployment=model,
+                                     lane=model):
+            req = Request(model=model, payload=example[model],
+                          slo_ms=slos[model],
+                          trace_ctx=tracer().inject_context())
+            sched.submit_request(req)
+        loads.close_on(ctx, req.future)
+        futs.append(req.future)
+
+    drivers = [WorkloadDriver(submit, n, RatePattern("constant",
+                                                     base_rps=rates[n]),
+                              duration_s=c["traced_s"], poisson=True,
+                              seed=71 + i)
+               for i, n in enumerate(names)]
+    tracer().set_exporter(collector.export)
+    try:
+        for d in drivers:
+            d.start()
+        for d in drivers:
+            d.join(c["traced_s"] + 60)
+        for f in futs:
+            try:
+                f.result(timeout=60)
+            except Exception as e:  # noqa: BLE001 — a lost request fails
+                fail(f"{tag}: a traced request failed: "
+                     f"{type(e).__name__}: {e}")
+        deadline = time.monotonic() + 60
+        while (any(len(queues.queue(n)) > 0 for n in names)
+               and time.monotonic() < deadline):
+            time.sleep(0.1)
+        time.sleep(0.5)
+    finally:
+        tracer().reset()
+    spans = collector.spans
+    if collector.dropped:
+        fail(f"{tag}: the collector dropped {collector.dropped} spans")
+    ledgers = _load_ledgers(tag, spans, loads)
+    if len(ledgers) != len(futs):
+        fail(f"{tag}: {len(ledgers)} ledgers for {len(futs)} traced "
+             "requests")
+    print(f"[{tag}] {c['traced_s']:.0f} s at {({n: round(r, 2) for n, r in rates.items()})}"
+          f" rps: {sum(d.sent for d in drivers)} arrivals, {len(futs)} "
+          f"traced, {len(spans)} spans", flush=True)
+    out = {"sent": sum(d.sent for d in drivers), "traced": len(futs),
+           "hops": _print_hops(tag, "request by hop (load root, submit -> "
+                               "answer)", ledgers), "models": {}}
+    slow = sorted(ledgers, key=lambda l: l.end_to_end_ms)[-5:]
+    print(f"[{tag}] the 5 slowest traced requests (ms):\n"
+          + format_ledger_table(slow), flush=True)
+    steps = {s.span_id: s for s in spans if s.name == "engine.step"}
+    collates: dict = {}
+    for s in spans:
+        if s.name == "collate.batch" and s.parent_id in steps:
+            collates[s.parent_id] = s
+    for n in names:
+        mine = [s for s in steps.values() if s.attributes["model"] == n]
+        step_ms = [s.end_ms - s.start_ms for s in mine]
+        coll_ms = [collates[s.span_id].end_ms - collates[s.span_id].start_ms
+                   for s in mine if s.span_id in collates]
+        share = sum(coll_ms) / sum(step_ms) if step_ms else 0.0
+        # The step less its collate over the profiled row of its bucket.
+        rest = [(s.end_ms - s.start_ms
+                 - (collates[s.span_id].end_ms - collates[s.span_id].start_ms)
+                 ) / profiles[n].latency_ms(s.attributes["batch_bucket"])
+                for s in mine if s.span_id in collates]
+        out["models"][n] = dict(
+            steps=len(mine), collate_share=share, step_ms=_pcts(step_ms),
+            collate_ms=_pcts(coll_ms), rest_over_profiled=_pcts(rest))
+        print(f"[{tag}] {n}: {len(mine)} engine.step spans, "
+              f"{_span_quantiles(step_ms)}; collate.batch inside them "
+              f"{_span_quantiles(coll_ms)}; collate {share:.3f} of the "
+              "steps' time; the step less its collate over the profiled "
+              f"row of its bucket {_span_quantiles(rest, unit='x')} (buckets "
+              f"{sorted({s.attributes['batch_bucket'] for s in mine})})",
+              flush=True)
+    path = _write_trace("vision", spans + loads.spans())
+    print(f"[{tag}] Chrome trace written to {path}", flush=True)
+    return out
 
 
 def phase_vision() -> tuple:

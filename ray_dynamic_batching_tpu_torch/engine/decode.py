@@ -51,6 +51,16 @@ rows draw gumbel noise from a counter-based hash of (base_seed, request
 seed, token index, vocab index) — a request's sampled stream depends on
 neither its slot nor its batch neighbours. Greedy rows are an argmax over
 f32 logits, the reference's rule exactly.
+
+Flight recorder: the reference's metric families for the code paths
+ported here (tokens, steps, prefills, TTFT and its queue/prefill shares,
+active slots, the paged pool's gauges and evictions, the chunk
+scheduler's counters) in the port's default registry, and its three
+spans — the retroactive ``decode.prefill`` (admit -> first token) and
+``decode.turn`` (dispatch -> the one host fetch), and ``decode.sequence``
+at completion — each emitted only while the tracer is enabled, from
+timestamps the engine already takes (no device sync of its own). The
+speculation, prefix and session families come with those features.
 """
 
 from __future__ import annotations
@@ -84,8 +94,66 @@ from ray_dynamic_batching_tpu_torch.engine.request import (
 )
 from ray_dynamic_batching_tpu_torch.models.base import resolve_device
 from ray_dynamic_batching_tpu_torch.utils.logging import get_logger
+from ray_dynamic_batching_tpu_torch.utils import metrics as m
+from ray_dynamic_batching_tpu_torch.utils.tracing import link_to as _link_to
+from ray_dynamic_batching_tpu_torch.utils.tracing import tracer as _tracer
 
 logger = get_logger("torch.decode")
+
+TOKENS_TOTAL = m.Counter(
+    "rdb_decode_tokens_total", "Generated tokens", tag_keys=("model",)
+)
+DECODE_STEPS = m.Counter(
+    "rdb_decode_steps_total", "Decode steps executed", tag_keys=("model",)
+)
+PREFILLS_TOTAL = m.Counter(
+    "rdb_decode_prefills_total", "Prompts prefilled", tag_keys=("model",)
+)
+TTFT_MS = m.Histogram(
+    "rdb_decode_ttft_ms", "Time to first token", tag_keys=("model",)
+)
+TTFT_QUEUE_MS = m.Histogram(
+    "rdb_decode_ttft_queue_ms",
+    "Arrival->dequeue share of TTFT (includes waiting out in-flight scans)",
+    tag_keys=("model",),
+)
+TTFT_PREFILL_MS = m.Histogram(
+    "rdb_decode_ttft_prefill_ms",
+    "Dequeue->first-token share of TTFT",
+    tag_keys=("model",),
+)
+ACTIVE_SLOTS = m.Gauge(
+    "rdb_decode_active_slots", "Slots currently decoding", tag_keys=("model",)
+)
+KV_PAGES_FREE = m.Gauge(
+    "rdb_decode_kv_pages_free", "Free pages in the paged KV pool",
+    tag_keys=("model",),
+)
+KV_PAGE_OCCUPANCY = m.Gauge(
+    "rdb_decode_kv_page_occupancy",
+    "Allocated fraction of the paged KV pool", tag_keys=("model",),
+)
+PAGE_EVICTIONS = m.Counter(
+    "rdb_decode_page_evictions_total",
+    "Slots capacity-finished to reclaim pages (over-subscribed pool)",
+    tag_keys=("model",),
+)
+# Token-budget prefill scheduler: chunk programs dispatched (one per
+# train row), trains parked on page starvation, the pending-train depth.
+PREFILL_CHUNKS = m.Counter(
+    "rdb_decode_prefill_chunks_total",
+    "Chunk programs dispatched by the token-budget prefill scheduler",
+    tag_keys=("model",),
+)
+PREFILL_STARVED = m.Counter(
+    "rdb_decode_prefill_starved_total",
+    "Chunk dispatches deferred by page starvation (train parked)",
+    tag_keys=("model",),
+)
+PREFILL_PENDING = m.Gauge(
+    "rdb_decode_prefill_pending_trains",
+    "Chunk trains awaiting prefill budget", tag_keys=("model",),
+)
 
 _M32 = 0xFFFFFFFF
 
@@ -990,6 +1058,7 @@ class DecodeEngine:
         deadlock the pool among themselves."""
         if not self._trains:
             return
+        model_tag = {"model": self.model.name}
         budget = self.prefill_token_budget
         parked: set = set()
         dispatched_any = False
@@ -1030,6 +1099,7 @@ class DecodeEngine:
                     ready.append(t)
                 else:
                     parked.add(id(t))
+                    PREFILL_STARVED.inc(tags=model_tag)
             if not ready:
                 continue
             try:
@@ -1047,6 +1117,7 @@ class DecodeEngine:
         if (self.paged and not dispatched_any and self._trains
                 and not self._active_mask.any()):
             self._relieve_train_starvation()
+        PREFILL_PENDING.set(float(len(self._trains)), tags=model_tag)
 
     def _drain_prefill(self) -> None:
         """Pump pending chunk trains to completion (tests and manual
@@ -1126,6 +1197,7 @@ class DecodeEngine:
         for t in trains:
             t.pos = min(t.pos + W, t.total)
         self.chunk_dispatches += 1
+        PREFILL_CHUNKS.inc(g, tags={"model": self.model.name})
         if not finals:
             return
         first_host = first.cpu().numpy()  # ONE fetch, final rows only
@@ -1144,6 +1216,7 @@ class DecodeEngine:
             train.row, self.device)
         train.pos += take
         self.chunk_dispatches += 1
+        PREFILL_CHUNKS.inc(tags={"model": self.model.name})
         if train.pos >= train.total:
             self._retire_train(train)
             self._commit_and_register(train.req, train.opts, train.slot_idx,
@@ -1238,13 +1311,38 @@ class DecodeEngine:
             with torch.inference_mode():
                 self._counts[slot_idx].zero_()
                 self._counts[slot_idx, first_tok] = 1
+        PREFILLS_TOTAL.inc(tags={"model": self.model.name})
+        TTFT_MS.observe(
+            t - req.arrival_ms, tags={"model": self.model.name},
+            trace_id=(req.trace_ctx or {}).get("trace_id"),
+        )
         admit_ms = req.admit_ms or t
         queue_wait = max(0.0, admit_ms - req.arrival_ms)
+        # The share of queue_wait spent inside the decode scan that was in
+        # flight when the request arrived: overlap of [arrival, dequeue]
+        # with the most recently completed scan window.
         scan_wait = max(0.0, min(admit_ms, self._scan_end_ms)
                         - max(req.arrival_ms, self._scan_start_ms))
+        prefill_ms = max(0.0, t - admit_ms)
         self._ttft_parts.append(
-            (queue_wait, min(scan_wait, queue_wait), max(0.0, t - admit_ms))
+            (queue_wait, min(scan_wait, queue_wait), prefill_ms)
         )
+        TTFT_QUEUE_MS.observe(queue_wait, tags={"model": self.model.name})
+        TTFT_PREFILL_MS.observe(prefill_ms, tags={"model": self.model.name})
+        if _tracer().enabled:
+            # Retroactive prefill span (admit -> first token) in the
+            # request's trace: with the queue.wait span the pop emitted,
+            # the flight record shows the full TTFT decomposition.
+            _tracer().record_span(
+                "decode.prefill",
+                ctx=req.trace_ctx,
+                start_ms=admit_ms,
+                end_ms=t,
+                model=self.model.name,
+                lane=self.model.name,
+                queue_wait_ms=round(queue_wait, 2),
+                scan_wait_ms=round(min(scan_wait, queue_wait), 2),
+            )
         req.stream_put(first_tok)
         if self._is_stop(slot, first_tok) or max_new <= 1:
             reason = "eos" if self._is_stop(slot, first_tok) else "length"
@@ -1261,13 +1359,27 @@ class DecodeEngine:
         t = now_ms()
         if self.paged and slot.pages:
             self._free_slot_pages(slot_idx)
-        req.fulfill(DecodeResult(
+        result = DecodeResult(
             tokens=list(slot.generated),
             finish_reason=reason,
             ttft_ms=slot.prefill_done_ms - req.arrival_ms,
             total_ms=t - req.arrival_ms,
-        ))
+        )
+        req.fulfill(result)
+        if _tracer().enabled:
+            # Completion event joined to the caller's trace: carries the
+            # numbers an operator actually debugs with.
+            with _tracer().attach_context(req.trace_ctx,
+                                          "decode.sequence") as sp:
+                if sp is not None:
+                    sp.attributes.update(
+                        tokens=len(slot.generated),
+                        finish_reason=reason,
+                        ttft_ms=round(result.ttft_ms, 1),
+                        total_ms=round(result.total_ms, 1),
+                    )
         self.queue.record_batch_completion([req], completed_at_ms=t)
+        TOKENS_TOTAL.inc(len(slot.generated), tags={"model": self.model.name})
         self._slots[slot_idx] = _Slot()
         self._active_mask[slot_idx] = False
         self._len_host[slot_idx] = 0
@@ -1326,11 +1438,14 @@ class DecodeEngine:
                 victim = self._eviction_victim(exclude=int(i))
                 if victim is None:
                     break
+                PAGE_EVICTIONS.inc(tags={"model": self.model.name})
                 self._page_journal.record(
                     "eviction", len(self._slots[victim].pages),
                     self._allocator.allocated_pages, slot=int(victim))
                 self._finish(victim, "capacity")
             if not self._allocator.can_alloc(delta):
+                # Not even eviction could cover this slot: truncate IT.
+                PAGE_EVICTIONS.inc(tags={"model": self.model.name})
                 self._page_journal.record(
                     "eviction", len(slot.pages),
                     self._allocator.allocated_pages, slot=int(i))
@@ -1399,6 +1514,28 @@ class DecodeEngine:
             )
         return self._sampling_dev
 
+    def _record_turn_span(self, horizon: int, active_mask) -> None:
+        """One retroactive span per decode scan (dispatch -> host fetch),
+        linked to every sequence that was active in it: continuous
+        batching's fan-in, the decode analogue of the batch-execution
+        span. Bounded by num_slots links per turn."""
+        links = [
+            _link_to(slot.request.trace_ctx)
+            for i, slot in enumerate(self._slots)
+            if active_mask[i] and slot.request is not None
+        ]
+        _tracer().record_span(
+            "decode.turn",
+            start_ms=self._scan_start_ms,
+            end_ms=self._scan_end_ms,
+            links=links,
+            model=self.model.name,
+            lane=self.model.name,
+            horizon=int(horizon),
+            active=int(active_mask.sum()),
+            spec=False,
+        )
+
     def _step(self, horizon: Optional[int] = None) -> None:
         h = horizon if horizon is not None else self._pick_horizon()
         if self.paged:
@@ -1424,7 +1561,10 @@ class DecodeEngine:
         )
         packed_host = packed.cpu().numpy()   # ONE fetch per dispatch
         self._scan_end_ms = now_ms()
+        if _tracer().enabled and active.any():
+            self._record_turn_span(h, active)
         self.steps += h
+        DECODE_STEPS.inc(h, tags={"model": self.model.name})
         self._harvest(packed_host[:h], packed_host[h: 2 * h].astype(bool),
                       packed_host[2 * h], h)
 
@@ -1496,6 +1636,16 @@ class DecodeEngine:
                 return
         raise TimeoutError(f"{self.model.name}: decode did not drain")
 
+    def _set_gauges(self) -> None:
+        """The loop's per-turn gauges: active slots and, paged, the
+        pool's free pages and allocated fraction."""
+        tags = {"model": self.model.name}
+        ACTIVE_SLOTS.set(float(self._active_mask.sum()), tags=tags)
+        if self.paged:
+            KV_PAGES_FREE.set(float(self._allocator.free_pages), tags=tags)
+            KV_PAGE_OCCUPANCY.set(
+                self._allocator.allocated_pages / self.num_pages, tags=tags)
+
     def _loop(self) -> None:
         while self._run.is_set():
             try:
@@ -1503,6 +1653,7 @@ class DecodeEngine:
                 self._pump_prefill()
                 if self._active_mask.any():
                     self._step()
+                    self._set_gauges()
                 elif not self._trains:
                     self.queue.wait_for_requests(self.idle_wait_s)
                 self.last_heartbeat = time.monotonic()
@@ -1569,6 +1720,42 @@ class DecodeEngine:
         else:
             reserved = float(self.num_slots * self.max_len)
         return used / reserved if reserved > 0 else 1.0
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Operator-facing state dump: slot/KV occupancy, the TTFT
+        breakdown and the prefill scheduler, plus — in paged mode — the
+        pool's page counts and the allocator event journal (bounded ring;
+        ``events`` carries the retained tail, ``journal_total`` /
+        ``journal_rotated`` say how much history the ring has seen/shed,
+        so a consumer can tell a quiet pool from a ring that wrapped).
+        The journal feeds ``utils/trace_export.to_chrome_trace(spans,
+        journal=...)`` for a lane time-aligned with the decode-turn
+        spans. The reference's ``fabric`` and ``spec`` blocks come with
+        the page fabric and speculative decoding."""
+        out: Dict[str, Any] = {
+            "model": self.model.name,
+            "paged": self.paged,
+            "num_slots": self.num_slots,
+            "active_slots": self.active_slots,
+            "kv_occupancy": self.kv_occupancy(),
+            "ttft": self.ttft_breakdown(),
+            "prefill": {
+                "mode": "chunked" if self.chunked_prefill else "mono",
+                "token_budget": self.prefill_token_budget,
+                "pending_trains": len(self._trains),
+            },
+        }
+        if self.paged:
+            out["page_size"] = self.page_size
+            out["num_pages"] = self.num_pages
+            out["free_pages"] = self._allocator.free_pages
+            out["allocated_pages"] = self._allocator.allocated_pages
+            out["page_journal"] = {
+                "events": self._page_journal.snapshot(),
+                "journal_total": self._page_journal.total,
+                "journal_rotated": self._page_journal.rotated_out,
+            }
+        return out
 
     @property
     def active_slots(self) -> int:

@@ -1,11 +1,9 @@
 """SLO observatory — burn-rate alerting, forecast scoring, fidelity drift.
 
 Own copy of ``ray_dynamic_batching_tpu/serve/observatory.py``, with its
-import paths rewritten. Trimmed: the fidelity replay
-(:class:`FidelityMonitor`) grades with ``sim/report.hop_drift_report``,
-which comes with the simulator (ROADMAP queue 1 item 7); until then the
-stand-in :func:`hop_drift_report` reports every hop ungraded and the
-replay never raises.
+import paths rewritten, whole: the fidelity replay
+(:class:`FidelityMonitor`) grades with the port's own
+``sim/report.hop_drift_report``.
 
 Every prior control-plane defense here trusts a model of the system:
 the planner trusts the profile tables, the rate-change trigger trusts
@@ -486,38 +484,6 @@ class ForecastScorer:
 PriceFn = Callable[[str], Optional[Dict[str, float]]]
 
 
-NO_SIM_REPORT = ("no sim report: the simulator's hop_drift_report is not "
-                 "ported yet (ROADMAP queue 1 item 7)")
-
-
-def hop_drift_report(
-    live: Dict[str, Any],
-    sim: Dict[str, Any],
-    tolerance: float = 0.5,
-    min_count: int = 5,
-) -> Dict[str, Any]:
-    """Stand-in for ``sim/report.hop_drift_report`` until the simulator
-    is ported: the same report shape with every hop ungraded (marked
-    ``graded: False``, so the caller names the reason) and nothing
-    drifting. Never raises."""
-    ungraded = {
-        hop: {
-            "live_count": 0 if live.get(hop) is None else live[hop].count,
-            "sim_count": 0 if sim.get(hop) is None else sim[hop].count,
-            "graded": False,
-        }
-        for hop in sorted(set(live) | set(sim))
-    }
-    return {
-        "metric": "hop_drift",
-        "tolerance": tolerance,
-        "hops": {},
-        "ungraded": ungraded,
-        "drifting_hops": [],
-        "ok": True,
-    }
-
-
 class FidelityMonitor:
     """Online sim-vs-live drift: ring-buffer real arrivals, replay them
     through the installed cost model every N ticks, and grade predicted
@@ -576,6 +542,8 @@ class FidelityMonitor:
 
     def _replay(self, window: List[Tuple[float, str, Any]],
                 live_hops: Dict[str, Dict[str, Any]]) -> None:
+        from ray_dynamic_batching_tpu_torch.sim.report import hop_drift_report
+
         p = self.policy
         self.replays += 1
         arrivals_by_model: Dict[str, int] = {}
@@ -602,18 +570,14 @@ class FidelityMonitor:
             )
             for hop, entry in report["ungraded"].items():
                 # Never-silent: say WHY each ungraded hop went ungraded.
-                graded = entry.pop("graded", True)
                 entry["reason"] = (
                     "not-priced" if entry["sim_count"] == 0
                     else "no-live-samples" if entry["live_count"] == 0
-                    else NO_SIM_REPORT if graded is False
                     else "insufficient-samples"
                 )
             self._apply_floor(report)
             if not priced_by_model.get(model):
                 report["ungraded_reason"] = "unpriced: no cost model"
-            else:
-                report["ungraded_reason"] = NO_SIM_REPORT
             reports[model] = report
             for hop, entry in report["hops"].items():
                 FIDELITY_DRIFT.set(entry["worst_drift"],

@@ -843,22 +843,97 @@ def test_rate_forecasts_and_scoring_match():
     assert snap["m"]["refused"] > 0 and snap["m"]["scored"] > 0
 
 
-def test_fidelity_replay_reports_itself_ungraded():
-    """The port's replay waits for the simulator: every hop ungraded,
-    nothing drifting, never a raise."""
-    o = t_observatory
+def _live_hops(pkg, wait_ms, step_ms, n=50):
+    hops = {}
+    for hop, ms in (("queue.wait", wait_ms), ("engine.step", step_ms)):
+        sk = pkg.observatory.QuantileSketch()
+        sk.observe(ms, n=n)
+        hops[hop] = sk
+    return {"m": hops}
+
+
+def _fidelity_last(mon):
+    """The replay's report with its clock stamp left out."""
+    last = dict(mon.snapshot()["last"])
+    last.pop("at")
+    return last
+
+
+def _guilty_hop_scenario(pkg):
+    o = pkg.observatory
+    mon = o.FidelityMonitor(
+        "test", o.ObservatoryPolicy(replay_every_ticks=1, drift_min_count=5),
+        clock=FakeClock(), price=lambda model: {"engine.step": 10.0})
+    mon.note_arrivals("m", 50)
+    mon.tick(_live_hops(pkg, wait_ms=200.0, step_ms=30.0))
+    return _fidelity_last(mon)
+
+
+def test_fidelity_names_the_guilty_hop_as_the_reference_does():
+    """Twin of ``tests/test_observatory.py::TestFidelityDrift``: the
+    engine runs 3x its price and is named; the slow but unpriced
+    queue.wait stays ungraded with its reason. Both packages give the
+    same report."""
+    report = _both(_guilty_hop_scenario)["models"]["m"]
+    assert report["drifting_hops"] == ["engine.step"]
+    assert report["ungraded"]["queue.wait"]["reason"] == "not-priced"
+    assert report["hops"]["engine.step"]["ok"] is False
+
+
+def _price_at_arrival_scenario(pkg):
+    o = pkg.observatory
+    price = {"engine.step": 10.0}
+    mon = o.FidelityMonitor(
+        "test", o.ObservatoryPolicy(replay_every_ticks=1, drift_min_count=5),
+        clock=FakeClock(), price=lambda model: dict(price))
+    mon.note_arrivals("m", 50)
+    price["engine.step"] = 2.0  # the replan
+    mon.note_arrivals("m", 50)
+    live = o.QuantileSketch()
+    live.observe(10.0, n=50)
+    live.observe(2.0, n=50)
+    mon.tick({"m": {"engine.step": live}})
+    return _fidelity_last(mon)
+
+
+def test_fidelity_prices_each_arrival_as_it_came():
+    report = _both(_price_at_arrival_scenario)["models"]["m"]
+    assert report["drifting_hops"] == []
+    assert report["hops"]["engine.step"]["ok"] is True
+
+
+def _unpriced_scenario(pkg):
+    o = pkg.observatory
     mon = o.FidelityMonitor("test", o.ObservatoryPolicy(replay_every_ticks=1),
-                            clock=FakeClock(),
-                            price=lambda model: {"queue.wait": 5.0})
-    sketch = t_observatory.QuantileSketch()
-    for _ in range(50):
-        sketch.observe(5.0)
+                            clock=FakeClock(), price=None)
     mon.note_arrivals("m", 20)
-    mon.tick({"m": {"queue.wait": sketch}})
-    report = mon.snapshot()["last"]["models"]["m"]
-    assert report["drifting_hops"] == [] and report["hops"] == {}
-    assert report["ungraded"]["queue.wait"]["reason"] == o.NO_SIM_REPORT
-    assert report["ungraded_reason"] == o.NO_SIM_REPORT
+    mon.tick(_live_hops(pkg, wait_ms=5.0, step_ms=20.0))
+    return _fidelity_last(mon)
+
+
+def test_fidelity_unpriced_model_is_ungraded_never_silent():
+    report = _both(_unpriced_scenario)["models"]["m"]
+    assert report["drifting_hops"] == []
+    assert report["ungraded_reason"] == "unpriced: no cost model"
+    assert all(e["reason"] == "not-priced"
+               for e in report["ungraded"].values())
+
+
+def _cadence_scenario(pkg):
+    o = pkg.observatory
+    mon = o.FidelityMonitor("test", o.ObservatoryPolicy(replay_every_ticks=4),
+                            clock=FakeClock(),
+                            price=lambda model: {"engine.step": 5.0})
+    mon.note_arrivals("m", 20)
+    for _ in range(12):
+        mon.tick(_live_hops(pkg, wait_ms=1.0, step_ms=5.0))
+    return mon.replays, _fidelity_last(mon)
+
+
+def test_fidelity_replay_cadence():
+    replays, last = _both(_cadence_scenario)
+    assert replays == 3
+    assert last["models"]["m"]["hops"]["engine.step"]["ok"] is True
 
 
 def _audit_scenario(pkg):

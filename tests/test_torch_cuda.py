@@ -15,7 +15,9 @@ and bf16); for the live-tile skip and the split-S merge: a void KV tile
 between live ones, an all-zero mask row, a window row that attends
 nothing beside normal slots, whole void splits, a ragged last split, and
 slab/paged bit-identity at split boundaries; a slab train's chunk over its
-row cache of 576 positions. This file imports no JAX, so
+row cache of 576 positions; and that a decode step on the card with a
+span exporter installed reads device values back no more often than one
+without. This file imports no JAX, so
 it runs on a machine without it::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -550,3 +552,72 @@ def test_kernels_launch_from_two_threads_at_different_shapes(card):
         t.join(timeout=120)
     assert not errors, errors
     assert all(w <= TOL[dtype] for w in worst.values()), worst
+
+
+_HOST_READS = ("cpu", "item", "tolist", "numpy", "__bool__", "__int__",
+               "__float__")
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["slab", "paged"])
+def test_traced_decode_step_adds_no_host_fetch(card, paged, monkeypatch):
+    """The engine's spans are retroactive: a decode step on the card with
+    an exporter installed reads device values to the host exactly as one
+    without does (each tensor method that brings a value back counted),
+    and records one ``decode.turn``."""
+    import dataclasses
+
+    from ray_dynamic_batching_tpu_torch.engine.decode import DecodeEngine
+    from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        TINY_LM,
+        CausalLM,
+    )
+    from ray_dynamic_batching_tpu_torch.utils.trace_export import (
+        ChromeTraceCollector,
+    )
+    from ray_dynamic_batching_tpu_torch.utils.tracing import tracer
+
+    # llama_tiny widened to heads of 64, a width the decode kernels take.
+    cfg = dataclasses.replace(TINY_LM, d_model=256)
+    model = CausalLM(cfg, name="llama_tiny", dtype=torch.bfloat16,
+                     device=card, seed=0)
+    assert cfg.head_dim == 64
+    q = RequestQueue("t")
+    engine = DecodeEngine(model, q, num_slots=4, max_len=128,
+                          prompt_buckets=[16], device=card, paged=paged)
+    for i in range(3):
+        q.add_request(Request(model="t", slo_ms=6e4, trace_ctx={
+            "trace_id": f"{i + 1:032x}", "parent_span_id": i + 1},
+            payload={"tokens": list(range(1, 10 + i)),
+                     "max_new_tokens": 40}))
+    engine._admit()
+    engine._drain_prefill()
+    engine._step(horizon=2)            # builds and warms the kernels
+
+    def reads():
+        calls = []
+        for name in _HOST_READS:
+            orig = getattr(torch.Tensor, name)
+
+            def wrapped(self, *a, _orig=orig, _name=name, **kw):
+                calls.append(_name)
+                return _orig(self, *a, **kw)
+
+            monkeypatch.setattr(torch.Tensor, name, wrapped)
+        try:
+            engine._step(horizon=2)
+        finally:
+            monkeypatch.undo()
+        return calls
+
+    plain = reads()
+    collector = ChromeTraceCollector()
+    tracer().set_exporter(collector.export)
+    try:
+        traced = reads()
+    finally:
+        tracer().reset()
+    assert traced == plain == ["cpu", "numpy"]
+    assert [s.name for s in collector.spans] == ["decode.turn"]
+    assert collector.spans[0].attributes["active"] == 3

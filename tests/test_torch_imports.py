@@ -9,10 +9,13 @@ package, the packers, the colocation executor and the live scheduler
 among it), profiles and packs a tiny model, serves it on the CPU, and
 deploys it through the port's controller and handle; then profiles a
 tiny vision model with ``ModelProfiler`` and serves it through a
-``ReplicaEngine`` under the vision ``LiveScheduler``.
+``ReplicaEngine`` under the vision ``LiveScheduler``. A second probe,
+with the same modules blocked, captures a handle request's flight record
+(the hop ledger, the trace export, the sim's drift report).
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -152,3 +155,71 @@ def test_port_runs_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-2:] == ["3", "3 1"]
+
+
+_TRACE_PROBE = """
+import sys
+import time
+for name in {forbidden!r}:
+    sys.modules[name] = None      # any import of them now raises
+import torch
+torch.set_num_threads(2)
+from ray_dynamic_batching_tpu_torch.serve.controller import DeploymentConfig
+from ray_dynamic_batching_tpu_torch.serve.handle import DeploymentHandle
+from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+from ray_dynamic_batching_tpu_torch.serve.router import Router
+from ray_dynamic_batching_tpu_torch.sim.report import hop_drift_report
+from ray_dynamic_batching_tpu_torch.utils.hops import (
+    hop_sketches,
+    request_ledgers,
+)
+from ray_dynamic_batching_tpu_torch.utils.trace_export import (
+    ChromeTraceCollector,
+)
+from ray_dynamic_batching_tpu_torch.utils.tracing import tracer
+dep = LLMDeployment("llama_tiny", num_slots=2, max_len=32,
+                    prompt_buckets=[8], default_max_new_tokens=3,
+                    dtype=torch.float32, device="cpu", seed=0, warmup=False)
+replica = dep.make_replica("probe", DeploymentConfig(name="llama_tiny"))
+replica.start()
+router = Router("llama_tiny", replicas=[replica])
+collector = ChromeTraceCollector()
+tracer().set_exporter(collector.export)
+try:
+    out = DeploymentHandle(router).remote({{"tokens": [4, 5]}})
+    print(len(out.result(timeout=60).tokens))
+    # decode.sequence is recorded just after the future resolves.
+    deadline = time.monotonic() + 10
+    while (not any(s.name == "decode.sequence" for s in collector.spans)
+           and time.monotonic() < deadline):
+        time.sleep(0.01)
+finally:
+    tracer().reset()
+    router.close()
+    replica.stop(timeout_s=5.0, drain=False)
+ledgers, _skipped = request_ledgers(collector.spans)
+ledgers[0].check()
+print(sorted(ledgers[0].hops))
+print(sorted({{s.name for s in collector.spans
+               if s.trace_id == ledgers[0].trace_id}}))
+sketches = hop_sketches(ledgers)
+print(hop_drift_report(sketches, sketches, min_count=1)["ok"])
+"""
+
+
+def test_flight_recorder_runs_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", _TRACE_PROBE.format(forbidden=FORBIDDEN)],
+        capture_output=True, text=True, timeout=120, cwd=str(ROOT), env=env,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    n, hops, names, ok = out.stdout.strip().splitlines()[-4:]
+    assert n == "3" and ok == "True"
+    # The handle.remote root closes once the request is routed: its
+    # ledger holds the routing and the queue; the decode spans join the
+    # same trace past it.
+    assert {"router.assign", "queue.wait"} <= set(json.loads(
+        hops.replace("'", '"')))
+    assert {"handle.remote", "decode.prefill", "decode.sequence"} <= set(
+        json.loads(names.replace("'", '"')))
