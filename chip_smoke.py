@@ -94,8 +94,10 @@ last line:
     decoding on v1 finishes through the rolling update to ``v2`` (the v1
     model through ``model=``, ``default_max_new_tokens`` 40), after which
     a request without ``max_new_tokens`` gets 40 tokens; after
-    ``serve.api.shutdown()`` the device memory is back within 0.5 GB of
-    its value before the phase;
+    ``serve.api.shutdown()`` the device memory held by tensors is back
+    within 0.5 GB of its value before the phase (both read with cuBLAS's
+    workspaces dropped, as phase 12 reads them: cuBLAS keeps one for each
+    stream a GEMM ran on, each engine's capture stream among them);
 12. colocate — measured tables and Nexus colocation. The memory budget
     (``hbm_budget_bytes``) is set from the card's total memory through the
     config. ``DecodeProfiler`` sweeps llama3_8b's decode step (every slot
@@ -176,31 +178,56 @@ last line:
     ``build/traces/vision.json``; a traced request not answered or a
     ledger that does not conserve fails it.
 
-Phases 5 to 13 each set every launch count to 0 just before they serve and
+14. graphs — the engine's hot programs captured as CUDA graphs
+    (``ops/graphs.py``) against the same programs run eagerly
+    (``graphs.disable_capture()``), in one call. Parity, gated: llama3_8b
+    at full width, 2 layers, f32, phase 6's 10 requests on the slab,
+    paged, int8, int8-paged and slab-train arms (the paged chunk program
+    and the slab trains' row-cache chunks among them), each served by an
+    eager and a graphed engine: greedy tokens identical, launch counts
+    equal, and the graphed engine captured. Speed, printed only:
+    llama3_8b at full width and depth, bf16, phase 5's 8 requests on the
+    slab arm and phase 6's 10 on the paged arm, eager then graphed, each
+    served twice — once with a span collector (tok/s, TTFT p50 / max,
+    ``decode.turn`` a step p50 by horizon) and once under
+    ``torch.profiler`` (CUDA activity only: the device's idle share) —
+    with the graphed engine's captures, capture seconds and pool bytes,
+    beside the card's name, power limit, the host's CPU and ``nproc``.
+
+Every engine is warmed before it serves, and every serving phase (5-12,
+14) ends with the capture ledger's ``check_steady()``: no program was
+captured after a warmup ended. Phases 5 to 13 are served graphed.
+
+Phases 5 to 14 each set every launch count to 0 just before they serve and
 read them just after: each kernel of the path must have launched the
 number of times the engine's dispatches imply, the other kernels and the
-plain route never. Phase 11 builds three engines inside its window (v1,
-the heal's replacement, v2), and each engine's warmup launches its
-prefill grid (one group of each size up to 4 at the one bucket) and two
-decode steps; those warmup dispatches are added to the dispatches the
-engines counted while serving. Phase 12 adds, beside its engines'
-dispatches and warmups (the length-bucket replica's two engines and every
-engine the scheduler builds are warmed), the profiler's: each config runs
-2 + 3 x 8 dispatches, one prefill group or one decode step each. Phase 13
-sets them to 0 just before its SLO run and reads them after its traced
-window: flash = 12 x (the vit_b_16 batches served in both + the vit_b_16
-buckets the engines warmed).
+plain route never (a graph replay adds the launches its capture
+recorded). Phase 11 builds three engines inside its window (v1, the
+heal's replacement, v2); each engine's warmup dispatches (its prefill
+grid with greedy and sampled rows, the long fill's chunk, the decode
+keys: ``warmup_fills`` and ``warmup_steps``) are added to the dispatches
+the engines counted while serving. Phase 12 adds, beside its engines'
+dispatches and warmups (the length-bucket replica's two engines, every
+engine the scheduler builds and the lone probe engine are warmed), the
+profiler's: each config runs 2 + 3 x 8 dispatches, one prefill group or
+one decode step each. Phase 13 sets them to 0 just before its SLO run and
+reads them after its traced window: flash = 12 x (the vit_b_16 batches
+served in both + the vit_b_16 buckets the engines warmed).
 
 The line before the last is one JSON object with the per-kernel numbers
-(``launches`` sums the serving phases; ``launches_by_path`` splits them)
-and the numbers of the front, controller, colocate and vision phases
-(``front``, ``controller``, ``colocate``, ``vision``; the per-hop splits
+(``launches`` sums the serving phases, phase 14's graphed speed runs
+among them; ``launches_by_path`` splits them) and the numbers of the
+front, controller, colocate, vision and graphs phases (``front``,
+``controller``, ``colocate``, ``vision``, ``graphs``; the per-hop splits
 under ``front.hops``, ``colocate.runs.diagnostic.turns`` and
 ``vision.traced``); the last line is
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (for
 bring-up); the default runs all. ``--profile`` traces each serving window
-with ``torch.profiler`` and prints the device's busy share and its time by
-kernel (used for PERF.md's breakdown).
+with ``torch.profiler`` (CUDA activity) and prints the device's busy share
+and its time by kernel (used for PERF.md's breakdown); ``--eager`` builds
+every engine with its programs run eagerly (``graphs.disable_capture()``),
+for the eager side of PERF.md's graphed-vs-eager table (phase 14 skips
+under it: it makes that comparison itself).
 
 Tolerances: bf16 2e-2 absolute — kernel and plain version both accumulate
 in f32 from the same bf16 inputs, and the outputs (|x| < 4) differ by at
@@ -222,6 +249,8 @@ import dataclasses
 import gc
 import http.client
 import json
+import os
+import platform
 import statistics
 import subprocess
 import sys
@@ -748,6 +777,33 @@ def _expect_only(tag: str, counts: dict, want: dict) -> None:
         fail(f"{tag}: launched {counts}, expected {want} and nothing else")
 
 
+def _steady(tag: str) -> None:
+    """No program was captured (or first run) after a warmup ended: the
+    capture ledger's steady-state gate."""
+    from ray_dynamic_batching_tpu_torch.utils.compile_ledger import (
+        SteadyStateViolation,
+        get_ledger,
+    )
+
+    try:
+        get_ledger().check_steady()
+    except SteadyStateViolation as e:
+        fail(f"{tag}: {e}")
+
+
+def _capture_line(tag: str, engines) -> str:
+    """Captures, their seconds and the device memory reserved while
+    capturing, per engine."""
+    parts = []
+    for e in engines:
+        st = e.capture_stats()
+        parts.append(f"{st['captures']} captures in {st['capture_s']:.2f} s, "
+                     f"pool {st['pool_bytes'] / 1e6:.1f} MB")
+    line = f"[{tag}] graphs per engine: " + "; ".join(parts)
+    print(line, flush=True)
+    return line
+
+
 def _parity(model, tag: str) -> tuple:
     """Slab prefill + decode and paged chunks + decode through the kernels
     and through the plain versions (1e-3 apart), the paged logits also
@@ -943,8 +999,7 @@ def _serve(tag: str, payloads, dep_kwargs: dict, profile: bool):
     if profile:
         from torch.profiler import ProfilerActivity, profile as _profile
 
-        prof = _profile(activities=[ProfilerActivity.CPU,
-                                    ProfilerActivity.CUDA])
+        prof = _profile(activities=[ProfilerActivity.CUDA])
     with prof:
         attention.reset_counts()
         replica.start()
@@ -1071,7 +1126,9 @@ def _serving_phase(tag: str, payloads, knobs: dict, profile: bool) -> tuple:
         if engine._allocator.free_pages != engine.num_pages:
             fail(f"{tag}: {engine._allocator.free_pages} of "
                  f"{engine.num_pages} pages free after the drain")
+    _steady(tag)
     summary = _report(tag, results, counts, engine, wall)
+    _capture_line(tag, [engine])
     summary["ttft_long_ms"] = [r.ttft_ms for p, r in zip(payloads, results)
                                if len(p["tokens"]) > T]
     if engine.paged:
@@ -1321,8 +1378,7 @@ def phase_front(profile: bool) -> tuple:
     if profile:
         from torch.profiler import ProfilerActivity, profile as _profile
 
-        prof = _profile(activities=[ProfilerActivity.CPU,
-                                    ProfilerActivity.CUDA])
+        prof = _profile(activities=[ProfilerActivity.CUDA])
     try:
         with prof:
             attention.reset_counts()
@@ -1454,6 +1510,7 @@ def phase_front(profile: bool) -> tuple:
         fail(f"{tag}: router routed {router.total_routed}, "
              f"{submitted} submitted")
     _expect_dispatches(tag, counts, engine)
+    _steady(tag)
     print(f"[{tag}] {submitted} requests routed, none rejected, "
           f"{engine.prefill_groups} prefill groups, {engine.steps} decode "
           f"steps, launches {counts}", flush=True)
@@ -1544,10 +1601,6 @@ def _front_ledgers(tag, collector, loads, poisson, max_new, engine, busy_at,
 
 
 # --- phase 11: the controller and the declarative entry points -------------
-WARMUP_FILLS = NB       # one prefill group of each size 1..NB at bucket T
-WARMUP_STEPS = 2        # one greedy and one sampled decode step
-
-
 def _controller_run(front: dict | None) -> dict:
     """Deploy through ``apply_config``, then saturate, call over HTTP,
     read the status, redeploy in place, heal a wedged engine and roll to
@@ -1735,24 +1788,26 @@ def _controller_run(front: dict | None) -> dict:
     torch.cuda.synchronize()
     counts = _counts()
 
-    # Launches: 32 x (the dispatches the engines counted + warmup).
+    # Launches: 32 x (the dispatches the engines counted + their warmups).
     engines = [r.engine for r in built.values()]
     L = engines[0].model.cfg.num_layers
     fills = sum(e.prefill_groups + e.long_chunk_dispatches
                 + e.chunk_dispatches for e in engines)
     steps = sum(e.steps for e in engines)
+    warm_fills = sum(e.warmup_fills for e in engines)
+    warm_steps = sum(e.warmup_steps for e in engines)
     if any(e.paged or e.chunked_prefill or e.model.kv_dtype == torch.int8
-           or e.max_admissions_per_step != WARMUP_FILLS
            or len(e.prompt_buckets) != 1 for e in engines):
         fail(f"{tag}: an engine off the slab + mono arm")
-    want = {"flash_attention": L * (fills + WARMUP_FILLS * len(engines)),
-            "decode_attention": L * (steps + WARMUP_STEPS * len(engines))}
+    want = {"flash_attention": L * (fills + warm_fills),
+            "decode_attention": L * (steps + warm_steps)}
     _expect_only(tag, counts, want)
+    _steady(tag)
     print(f"[{tag}] {len(engines)} engines built in the window "
           f"({', '.join(built)}): {fills} prefill dispatches + "
-          f"{WARMUP_FILLS} x {len(engines)} warmup groups, {steps} decode "
-          f"steps + {WARMUP_STEPS} x {len(engines)} warmup steps; launches "
-          f"{counts}; phase wall time {wall:.1f} s", flush=True)
+          f"{warm_fills} in warmups, {steps} decode steps + {warm_steps} in "
+          f"warmups; launches {counts}; phase wall time {wall:.1f} s",
+          flush=True)
     out.update(counts=counts, engines=len(engines), dispatches=fills,
                steps=steps, wall_s=wall)
     return out
@@ -1760,16 +1815,12 @@ def _controller_run(front: dict | None) -> dict:
 
 def phase_controller(front: dict | None) -> tuple:
     """Phase 11; returns (counts, the phase's numbers)."""
-    gc.collect()
-    torch.cuda.empty_cache()
-    mem_before = torch.cuda.memory_allocated()
+    mem_before = _tensor_bytes_on_card()
     out = _controller_run(front)
-    gc.collect()
-    torch.cuda.synchronize()
-    mem_after = torch.cuda.memory_allocated()
-    print(f"[controller] device memory allocated: {mem_before / 1e9:.3f} GB "
-          f"before the phase, {mem_after / 1e9:.3f} GB after the shutdown",
-          flush=True)
+    mem_after = _tensor_bytes_on_card()
+    print(f"[controller] device memory held by tensors (cuBLAS workspaces "
+          f"dropped): {mem_before / 1e9:.3f} GB before the phase, "
+          f"{mem_after / 1e9:.3f} GB after the shutdown", flush=True)
     if abs(mem_after - mem_before) > 0.5e9:
         fail("controller: a replaced or retired engine was not released "
              f"({(mem_after - mem_before) / 1e9:.3f} GB more than before)")
@@ -1975,10 +2026,10 @@ def _colocate_body(dev, ttft_slo_ms: float, profiles_dir: str,
                                                 run)
     out.update(
         runs=runs,
-        fills=prof_fills + WARMUP_FILLS * len(warmed) + sum(
+        fills=prof_fills + sum(e.warmup_fills for e in warmed) + sum(
             e.prefill_groups + e.long_chunk_dispatches + e.chunk_dispatches
             for e in engines),
-        steps=prof_steps + WARMUP_STEPS * len(warmed) + sum(
+        steps=prof_steps + sum(e.warmup_steps for e in warmed) + sum(
             e.steps for e in engines),
         engines=len(engines), layers=model.cfg.num_layers)
     return out
@@ -2125,6 +2176,8 @@ def _colocate_traffic(tag, c, util, model, decode, knobs, token_slo,
                 ttft_horizon=served.ttft_horizon,
                 max_admissions_per_step=served.max_admissions_per_step,
                 device=model.device)
+            lone.warmup()
+            warmed.append(lone)
             lreq = Request(model=a, payload={"tokens": toks.tolist(),
                                              "max_new_tokens": max_new},
                            slo_ms=600_000.0)
@@ -2362,10 +2415,11 @@ def _traffic_report(tag, c, run, decode, token_slo, budget,
 
 
 def _tensor_bytes_on_card() -> int:
-    """Device memory held by live tensors once cuBLAS's per-thread GEMM
-    workspaces are dropped: each new thread's first GEMM allocates one,
-    which the process keeps and reuses, not a leak of the phase's
-    engines."""
+    """Device memory held by live tensors once cuBLAS's GEMM workspaces
+    are dropped: cuBLAS keeps one for each (thread, stream) a GEMM ran on
+    — each new thread's first GEMM, each engine's capture stream — which
+    the process keeps and reuses, not a leak of the phase's engines.
+    Read only while no captured program is alive or running."""
     gc.collect()
     torch.cuda.synchronize()
     torch._C._cuda_clearCublasWorkspaces()
@@ -2399,6 +2453,7 @@ def phase_colocate() -> tuple:
     _expect_only("colocate", counts, {
         "flash_attention": L * out["fills"],
         "decode_attention": L * out["steps"]})
+    _steady("colocate")
     mem_after = _tensor_bytes_on_card()
     print(f"[colocate] launches {counts} = {L} x ({out['fills']} prefill "
           f"dispatches, {out['steps']} decode steps) over the profiler, "
@@ -2949,21 +3004,265 @@ def phase_vision() -> tuple:
     return counts, out
 
 
+# --- phase 14: the captured programs, graphed against eager -----------------
+def _host() -> str:
+    """The host's CPU model and core count: host-bound numbers move with
+    them, so they stand beside the card's (``lscpu``'s model name, which
+    also names CPUs whose ``/proc/cpuinfo`` carries none)."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                         timeout=60).stdout
+    names = [ln.split(":", 1)[1].strip() for ln in out.splitlines()
+             if ln.startswith("Model name")]
+    return (f"{' / '.join(names) or platform.machine()}, "
+            f"nproc {os.cpu_count()}")
+
+
+def _graph_parity(model, arm: str, knobs: dict, payloads) -> dict:
+    """One arm's engine, warmed and serving ``payloads`` twice: every
+    program eager (``graphs.disable_capture()``), then captured. Greedy
+    tokens must be identical and the launch counts equal."""
+    from ray_dynamic_batching_tpu_torch.engine.decode import DecodeEngine
+    from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+    from ray_dynamic_batching_tpu_torch.ops import attention, graphs
+
+    tag = f"graphs parity {arm}"
+    runs = {}
+    for mode in ("eager", "graphed"):
+        ctx = (graphs.disable_capture() if mode == "eager"
+               else contextlib.nullcontext())
+        with ctx:
+            queue = RequestQueue(arm, max_len=64)
+            engine = DecodeEngine(model, queue, device="cuda", **knobs)
+            engine.warmup()
+        reqs = [Request(model=arm, payload=p, slo_ms=600_000.0)
+                for p in payloads]
+        attention.reset_counts()
+        for r in reqs:
+            queue.add_request(r)
+        engine.run_until_idle(timeout_s=300)
+        torch.cuda.synchronize()
+        runs[mode] = dict(tokens=[r.future.result(5).tokens for r in reqs],
+                          counts=_counts(), stats=engine.capture_stats())
+        if mode == "graphed":
+            _expect_dispatches(tag, runs[mode]["counts"], engine)
+            _steady(tag)
+        engine.release_buffers()
+    greedy = [i for i, p in enumerate(payloads)
+              if not p.get("temperature")]
+    same = [runs["eager"]["tokens"][i] == runs["graphed"]["tokens"][i]
+            for i in range(len(payloads))]
+    st = runs["graphed"]["stats"]
+    print(f"[{tag}] greedy tokens identical on {sum(same[i] for i in greedy)}"
+          f" of {len(greedy)} requests, sampled on "
+          f"{sum(same) - sum(same[i] for i in greedy)} of "
+          f"{len(payloads) - len(greedy)} (not gated); launches eager "
+          f"{runs['eager']['counts']}, graphed {runs['graphed']['counts']}; "
+          f"{st['captures']} captures ({st['graphs']})", flush=True)
+    if not all(same[i] for i in greedy):
+        fail(f"{tag}: greedy tokens differ between eager and graphed")
+    if runs["eager"]["counts"] != runs["graphed"]["counts"]:
+        fail(f"{tag}: launch counts differ between eager and graphed")
+    if not st["captures"] or runs["eager"]["stats"]["captures"]:
+        fail(f"{tag}: captures eager {runs['eager']['stats']}, graphed {st}")
+    return {"greedy_identical": True, "captures": st["captures"]}
+
+
+def _speed_run(tag: str, model, payloads, knobs: dict, eager: bool):
+    """One full-depth deployment (eager or graphed) serving ``payloads``
+    twice: once with a span collector (tok/s, TTFT, ``decode.turn`` a
+    step by horizon) and once under ``torch.profiler`` (CUDA activity
+    only; the device's busy share of the window)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+    from ray_dynamic_batching_tpu_torch.ops import attention, graphs
+    from ray_dynamic_batching_tpu_torch.serve.controller import (
+        DeploymentConfig,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+    from ray_dynamic_batching_tpu_torch.utils.trace_export import (
+        ChromeTraceCollector,
+    )
+    from ray_dynamic_batching_tpu_torch.utils.tracing import tracer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    with graphs.disable_capture() if eager else contextlib.nullcontext():
+        dep = LLMDeployment("llama3_8b", dtype=torch.bfloat16, seed=0,
+                            model=model, **knobs)
+        replica = dep.make_replica(f"llama3_8b-{tag}",
+                                   DeploymentConfig(name="llama3_8b"))
+    engine = replica.engine
+    build_s = time.monotonic() - t0
+    replica.start()
+
+    def serve():
+        t = time.monotonic()
+        reqs = [Request(model="llama3_8b", payload=p, slo_ms=600_000.0)
+                for p in payloads]
+        for r in reqs:
+            if not replica.assign(r):
+                fail(f"{tag}: replica refused a request")
+        res = [r.future.result(timeout=600) for r in reqs]
+        return res, time.monotonic() - t
+
+    collector = ChromeTraceCollector()
+    attention.reset_counts()
+    tracer().set_exporter(collector.export)
+    try:
+        results, wall = serve()
+    finally:
+        tracer().reset()
+    torch.cuda.synchronize()
+    counts = _counts()
+    _expect_dispatches(tag, counts, engine)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, prof_wall = serve()
+        torch.cuda.synchronize()
+    engine.stop()
+    _steady(tag)
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    turns: dict = {}
+    for sp in collector.spans:
+        if sp.name == "decode.turn":
+            h = sp.attributes["horizon"]
+            turns.setdefault(h, []).append((sp.end_ms - sp.start_ms) / h)
+    ttfts = sorted(r.ttft_ms for r in results)
+    n_tok = sum(len(r.tokens) for r in results)
+    for i, r in enumerate(results):
+        if (len(r.tokens) != payloads[i]["max_new_tokens"]
+                or r.finish_reason != "length"):
+            fail(f"{tag} request {i}: {len(r.tokens)} tokens, "
+                 f"{r.finish_reason}")
+    st = engine.capture_stats()
+    out = dict(
+        tok_s=n_tok / wall, ttft_p50_ms=statistics.median(ttfts),
+        ttft_max_ms=ttfts[-1],
+        turn_ms_a_step_p50={h: statistics.median(v)
+                            for h, v in sorted(turns.items())},
+        turns={h: len(v) for h, v in sorted(turns.items())},
+        busy_ms=busy_ms, window_ms=prof_wall * 1e3,
+        idle_share=(1.0 - busy_ms / (prof_wall * 1e3)) if rows else None,
+        kernel_rows=len(rows), captures=st["captures"],
+        capture_s=st["capture_s"], pool_mb=st["pool_bytes"] / 1e6,
+        build_and_warm_s=build_s, counts=counts)
+    replica.stop()
+    return out
+
+
+def phase_graphs() -> tuple:
+    """Phase 14: graphed against eager. Parity (gated): llama3_8b at full
+    width, 2 layers, f32, phase 6's 10 requests on the slab, paged, int8,
+    int8-paged and slab-train arms. Speed (printed, not gated): llama3_8b
+    at full width and depth, bf16, phase 5's 8 requests on the slab arm
+    and phase 6's 10 on the paged arm, eager then graphed. Returns (the
+    graphed speed runs' launch counts, the phase's numbers)."""
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        LLAMA3_8B,
+        CausalLM,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    host = _host()
+    print(f"[graphs] {smi}; host {host}", flush=True)
+    V = LLAMA3_8B.vocab_size
+    payloads = _payloads(np.random.default_rng(1), V, 32, 8, 2, 2)
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=2)
+    parity = {}
+    arms = {None: (("slab", SLAB_KNOBS), ("paged", PAGED_KNOBS),
+                   ("slab_chunked", dict(SLAB_KNOBS, chunked_prefill=True))),
+            torch.int8: (("int8", SLAB_KNOBS),
+                         ("int8_paged", PAGED_KNOBS))}
+    for kv_dtype, cases in arms.items():
+        model = CausalLM(cfg, "llama3_8b_2layer", dtype=torch.float32,
+                         device="cuda", seed=0, kv_dtype=kv_dtype)
+        for arm, knobs in cases:
+            parity[arm] = _graph_parity(model, arm, knobs, payloads)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    model = CausalLM(LLAMA3_8B, "llama3_8b", dtype=torch.bfloat16,
+                     device="cuda", seed=0)
+    speed, counts = {}, {}
+    for arm, knobs, load in (
+            ("slab", SLAB_KNOBS,
+             _payloads(np.random.default_rng(0), V, 32, 8, 2, 0)),
+            ("paged", PAGED_KNOBS, payloads)):
+        for mode in ("eager", "graphed"):
+            run = _speed_run(f"graphs {arm} {mode}", model, load, knobs,
+                             eager=mode == "eager")
+            speed[f"{arm}_{mode}"] = run
+            if mode == "graphed":
+                for name, n in run["counts"].items():
+                    counts[name] = counts.get(name, 0) + n
+        e, g = speed[f"{arm}_eager"], speed[f"{arm}_graphed"]
+
+        def turn(r):
+            return " / ".join(f"{r['turn_ms_a_step_p50'][h]:.2f}"
+                              f" (h{h}, {r['turns'][h]})"
+                              for h in r["turn_ms_a_step_p50"])
+
+        def idle(r):
+            return ("not traced" if r["idle_share"] is None
+                    else f"{100 * r['idle_share']:.1f}%")
+
+        print(f"[graphs] {arm} ({smi}; {host}), eager | graphed: tok/s "
+              f"{e['tok_s']:.1f} | {g['tok_s']:.1f}; TTFT p50 "
+              f"{e['ttft_p50_ms']:.1f} | {g['ttft_p50_ms']:.1f} ms (max "
+              f"{e['ttft_max_ms']:.1f} | {g['ttft_max_ms']:.1f}); "
+              f"decode.turn ms a step p50 by horizon (turns) {turn(e)} | "
+              f"{turn(g)}; device idle {idle(e)} | {idle(g)} (busy "
+              f"{e['busy_ms']:.1f} of {e['window_ms']:.1f} ms | "
+              f"{g['busy_ms']:.1f} of {g['window_ms']:.1f} ms, "
+              f"{e['kernel_rows']} | {g['kernel_rows']} kernel rows); "
+              f"graphed engine: {g['captures']} captures in "
+              f"{g['capture_s']:.2f} s, pool {g['pool_mb']:.1f} MB, built "
+              f"and warmed in {g['build_and_warm_s']:.1f} s (eager "
+              f"{e['build_and_warm_s']:.1f} s)", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, dict(card=smi, host=host, parity=parity, speed=speed)
+
+
 def main() -> None:
+    with contextlib.ExitStack() as stack:
+        _main(stack)
+
+
+def _main(stack: contextlib.ExitStack) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     all_phases = (["build", "kernels", "parity"] + list(SERVING)
-                  + ["front", "controller", "colocate", "vision"])
+                  + ["front", "controller", "colocate", "vision", "graphs"])
     ap.add_argument("--phases", default=",".join(all_phases),
                     help=f"comma-separated subset of {','.join(all_phases)} "
                          "(the device phase always runs)")
     ap.add_argument("--profile", action="store_true",
                     help="trace each serving window with torch.profiler "
-                         "and print device time by kernel")
+                         "(CUDA activity) and print device time by kernel")
+    ap.add_argument("--eager", action="store_true",
+                    help="build every engine with its programs run eagerly "
+                         "(graphs.disable_capture()): the eager side of "
+                         "PERF.md's graphed-vs-eager table")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not phases <= set(all_phases):
         fail(f"unknown phases {sorted(phases - set(all_phases))}")
     dev = phase_device()
+    if args.eager:
+        from ray_dynamic_batching_tpu_torch.ops import graphs
+
+        stack.enter_context(graphs.disable_capture())
+        print("[device] --eager: every engine runs its programs eagerly",
+              flush=True)
     if "build" in phases:
         phase_build()
     kernels = phase_kernels() if "kernels" in phases else {}
@@ -2992,7 +3291,7 @@ def main() -> None:
                 + (f", the long prompts {longs} ms" if longs else ""))
         print("[slab_chunked] beside main and int8: " + "; ".join(beside),
               flush=True)
-    front = controller = colocate = vision = None
+    front = controller = colocate = vision = graphed = None
     if "front" in phases:
         by_path["front"], front = phase_front(args.profile)
     if "controller" in phases:
@@ -3001,13 +3300,15 @@ def main() -> None:
         by_path["colocate"], colocate = phase_colocate()
     if "vision" in phases:
         by_path["vision"], vision = phase_vision()
+    if "graphs" in phases and not args.eager:
+        by_path["graphs"], graphed = phase_graphs()
     for name, row in kernels.items():
         split = {path: c[name] for path, c in by_path.items()}
         row["launches"] = sum(split.values()) if split else None
         row["launches_by_path"] = split
     print(json.dumps({"kernels": list(kernels.values()), "front": front,
                       "controller": controller, "colocate": colocate,
-                      "vision": vision}))
+                      "vision": vision, "graphs": graphed}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],
         "count": torch.cuda.device_count()}}))

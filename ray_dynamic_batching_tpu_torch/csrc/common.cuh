@@ -666,6 +666,21 @@ struct DecodeScan {
   }
 };
 
+// Raise a kernel's dynamic shared-memory limit to at least `smem`; never
+// lower it. A CUDA graph's launch of the kernel runs under the limit in
+// force when it is replayed, so a later launch at a smaller shape (another
+// engine's, on another thread) must not shrink it below what a captured
+// shape needs. Callers hold the host launch lock.
+template <typename Kern>
+inline cudaError_t raise_smem_limit(Kern kern, size_t smem) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kern);
+  if (err != cudaSuccess) return err;
+  if (static_cast<size_t>(attr.maxDynamicSharedSizeBytes) >= smem) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 }  // namespace rdb
 
 extern "C" const char* rdb_cuda_error_string(int code) {

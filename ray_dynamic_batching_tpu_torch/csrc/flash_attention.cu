@@ -133,11 +133,11 @@ struct Strides {
   int qt, kt, vt;
 };
 
-// A kernel's dynamic shared-memory limit (set before every launch).
+// A kernel's dynamic shared-memory limit, raised before a launch that needs
+// more (never lowered: rdb::raise_smem_limit).
 template <typename Kern>
 cudaError_t set_smem(Kern kern, size_t smem) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+  return rdb::raise_smem_limit(kern, smem);
 }
 
 // --- bf16: tensor cores ----------------------------------------------------

@@ -123,8 +123,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   const size_t smem = Scan::smem_bytes(Tq * (N / K), 0);
   auto kern = paged_decode_kernel<T, TK, H>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t err = rdb::raise_smem_limit(kern, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((NP * ps + Scan::SPLIT - 1) / Scan::SPLIT, K, B);
   kern<<<grid, Scan::THREADS, smem, stream>>>(

@@ -5,9 +5,10 @@ its import paths rewritten. Where the reference scopes the executor's
 thread with ``jax.default_device``, the port makes the card current
 (``torch.cuda.device``; nothing on the CPU), and every turn runs under the
 engine's own ``_device_ctx()``. A "compiled scan" below is, in the port,
-one eager dispatch of ``DecodeEngine._decode_impl``; a hosted engine's
-"HBM" is its card memory (the cache and its scale planes, the penalty
-counts), which ``release_buffers`` drops.
+one dispatch of the engine's decode program (a CUDA graph replay on the
+card, ``ops/graphs.py``); a hosted engine's "HBM" is its card memory (the
+cache and its scale planes, the penalty counts, its graphs' pool), which
+``release_buffers`` drops.
 
 ``scheduler.nexus.pack_llm_engines`` plans which decode engines share a
 chip by profiled compute fraction + resident HBM; this module is the

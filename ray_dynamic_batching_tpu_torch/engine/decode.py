@@ -39,12 +39,21 @@ sampler on the device; everything the host needs comes back as ONE packed
 the host (``engine/paging.py``); the device table has one writer,
 :meth:`_refresh_table`.
 
-PyTorch runs eagerly, so there is nothing to compile: the reference's
-jit programs are plain methods, its donated buffers are tensors updated in
-place, and its group padding to compiled widths is gone (a group is
-exactly its rows, so no index is written twice). Speculative decoding,
-the prefix/session caches, the page fabric, weight quantisation and the
-mesh are later slices.
+The reference's hot jit programs (``ops/jit_model.py``) are created at
+init as the port's programs (``ops/graphs.py``): on the card each key —
+the program's host-static arguments and input shapes — is captured once
+as a CUDA graph and replayed with one launch, its inputs copied into
+static buffers; the reference's donated buffers are state updated in
+place at fixed addresses (the cache with its lengths, page table and
+scale planes; the penalty counts). :meth:`warmup` runs every key the
+arm can dispatch inside the capture ledger's warmup phase and checks
+the episodes against ``jit_model.required_for``; after it, a new key
+raises. The long fill's chunk and commit run eagerly (their row cache
+is per fill; the registry says so). The reference's group padding to
+compiled widths is gone (a group is exactly its rows, so no index is
+written twice): every group width is its own key. Speculative
+decoding, the prefix/session caches, the page fabric, weight
+quantisation and the mesh are later slices.
 
 Sampling: ``jax.random`` keys cannot be reproduced in torch, so sampled
 rows draw gumbel noise from a counter-based hash of (base_seed, request
@@ -67,6 +76,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import inspect
 import math
 import threading
 import time
@@ -93,6 +103,13 @@ from ray_dynamic_batching_tpu_torch.engine.request import (
     now_ms,
 )
 from ray_dynamic_batching_tpu_torch.models.base import resolve_device
+from ray_dynamic_batching_tpu_torch.ops import decode_attention as _decode_ops
+from ray_dynamic_batching_tpu_torch.ops import graphs, jit_model
+from ray_dynamic_batching_tpu_torch.utils.compile_ledger import (
+    PHASE_WARMUP,
+    get_ledger,
+    instrument,
+)
 from ray_dynamic_batching_tpu_torch.utils.logging import get_logger
 from ray_dynamic_batching_tpu_torch.utils import metrics as m
 from ray_dynamic_batching_tpu_torch.utils.tracing import link_to as _link_to
@@ -255,22 +272,21 @@ def copy_rows_into_paged(cache, rows, slots: torch.Tensor,
     cache.lengths.index_copy_(0, slots, rows.lengths)
 
 
-def run_chunk(chunk_fn, prompt: np.ndarray, pos: int, C: int, row, device):
+def run_chunk(chunk_fn, prompt: np.ndarray, pos: int, C: int, row):
     """One chunk of ``prompt`` from ``pos``: up to ``C`` tokens, the tail
-    right-padded, through ``chunk_fn``. Returns (take-row logits, row,
-    tokens taken)."""
+    right-padded, through ``chunk_fn`` (host tensors in; the program
+    uploads them). Returns (take-row logits, row, tokens taken)."""
     piece = prompt[pos: pos + C]
     tokmask = np.zeros((2, 1, C), dtype=np.int32)
     tokmask[0, 0, : piece.size] = piece
     tokmask[1, 0, : piece.size] = 1
-    tokmask = torch.from_numpy(tokmask).to(device)
+    tokmask = torch.from_numpy(tokmask)
     last, row = chunk_fn(tokmask[0], tokmask[1], row, pos,
                          int(piece.size) - 1)
     return last, row, int(piece.size)
 
 
-def run_chunked(chunk_fn, prompt: np.ndarray, C: int, row, device,
-                between=None):
+def run_chunked(chunk_fn, prompt: np.ndarray, C: int, row, between=None):
     """Host loop driving ``chunk_fn`` over a prompt: full-width chunks, a
     right-padded tail, and ``between`` after every non-final chunk (the
     decode-interleave hook). Returns (last logits, row)."""
@@ -278,7 +294,7 @@ def run_chunked(chunk_fn, prompt: np.ndarray, C: int, row, device,
     n_chunks = (L + C - 1) // C
     last = None
     for ci in range(n_chunks):
-        last, row, _ = run_chunk(chunk_fn, prompt, ci * C, C, row, device)
+        last, row, _ = run_chunk(chunk_fn, prompt, ci * C, C, row)
         if ci < n_chunks - 1 and between is not None:
             between()
     return last, row
@@ -456,8 +472,61 @@ class DecodeEngine:
         self.prefill_groups = 0      # monolithic prefill dispatches
         self.chunk_dispatches = 0    # chunk-train dispatches
         self.long_chunk_dispatches = 0   # long-fill chunk dispatches
+        # What warmup dispatched: prefill groups, chunks and long-fill
+        # chunks, and decode substeps (each a forward of every layer).
+        self.warmup_fills = 0
+        self.warmup_steps = 0
         self.completed = 0
         self.last_heartbeat = time.monotonic()
+
+        # The hot programs (ops/jit_model.py), created here as the
+        # reference creates its jit programs; one graph pool and capture
+        # stream for all of them.
+        self._graphs = graphs.GraphSet(self.device)
+        self._decode_fn = self._program("decode_step", self._decode_impl)
+        self._prefill_fn = (
+            self._program("prefill_group_paged", self._prefill_paged_impl)
+            if self.paged
+            else self._program("prefill_group", self._prefill_impl))
+        self._chunk_paged_fn = self._program("chunk_prefill",
+                                             self._chunk_group_paged_impl)
+        self._zero_counts_fn = self._program("zero_counts",
+                                             self._reset_counts)
+        self._long_chunk_fn = self._program("long_chunk",
+                                            self._prefill_chunk_impl)
+        self._long_commit_fn = (
+            self._program("long_commit_paged", self._commit_long_paged_impl)
+            if self.paged
+            else self._program("long_commit", self._commit_long_impl))
+        # The decode kernels' merge scratch, sized for the largest launch
+        # any program can make (decode over every slot; a prefill group,
+        # chunk group or long-fill chunk of a bucket <= 8 takes the
+        # decode kernels too) before anything is captured, and held for
+        # as long as the graphs that bake it in.
+        self._workspace = None
+        if self.device.type == "cuda":
+            cfg = model.cfg
+            small = [b for b in self.prompt_buckets
+                     if b <= _decode_ops.MAX_WINDOW_FOR_KERNEL]
+            cap = self._paged_capacity if self.paged else max_len
+            self._workspace = _decode_ops.reserve(
+                self.device,
+                B=max(num_slots, self.max_admissions_per_step),
+                K=cfg.num_kv_heads,
+                S=max(cap, self._long_row_cap(chunk_w)),
+                R=max([1] + small) * (cfg.num_heads // cfg.num_kv_heads),
+                H=cfg.head_dim)
+
+    def _program(self, name: str, impl: Callable) -> Callable:
+        """``impl`` as the registry's program ``name``: its host-static
+        arguments (by name, from the registry) form the key beside the
+        input shapes, and it is captured unless the registry says why not;
+        every call goes through the capture ledger."""
+        spec = jit_model.program(name)
+        params = list(inspect.signature(impl).parameters)
+        static = [params.index(a) for a in spec.static]
+        return instrument(name, self._graphs.program(
+            name, impl, static, eager=not spec.captured))
 
     def _device_ctx(self):
         """The engine's card as the current device (a null context on the
@@ -512,11 +581,9 @@ class DecodeEngine:
         sampled = torch.argmax(scaled + noise, dim=-1).to(torch.int32)
         return torch.where(temps > 0.0, sampled, greedy)
 
-    @torch.inference_mode()
-    def _prefill_impl(self, tokmask, meta_i, meta_f, bias_ids, bias_vals,
+    def _prefill_rows(self, tokmask, meta_i, meta_f, bias_ids, bias_vals,
                       any_sampled: bool,
-                      write_pids: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      write_pids: Optional[torch.Tensor]) -> torch.Tensor:
         """``nB`` prompts -> cache rows at ``slots`` + first sampled tokens.
         Inputs arrive packed by dtype: ``tokmask`` [2, nB, T] (tokens,
         attention mask), ``meta_i`` [3, nB] (slots, top_k, seeds),
@@ -533,7 +600,7 @@ class DecodeEngine:
         rows = self.model.make_cache(
             nB, self._paged_capacity if self.paged else self.max_len)
         last_logits, rows = self.model.prefill(tokens, attn_mask, rows)
-        if self.paged:
+        if write_pids is not None:
             copy_rows_into_paged(self._cache, rows, slots.long(), write_pids)
         else:
             copy_rows_into(self._cache, rows, slots.long())
@@ -543,8 +610,24 @@ class DecodeEngine:
         )
 
     @torch.inference_mode()
-    def _row_chunk_impl(self, tokens, attn_mask, row, start: int,
-                        take_idx: int):
+    def _prefill_impl(self, tokmask, meta_i, meta_f, bias_ids, bias_vals,
+                      any_sampled: bool) -> torch.Tensor:
+        """The slab group prefill (:meth:`_prefill_rows`)."""
+        return self._prefill_rows(tokmask, meta_i, meta_f, bias_ids,
+                                  bias_vals, any_sampled, None)
+
+    @torch.inference_mode()
+    def _prefill_paged_impl(self, tokmask, meta_i, meta_f, bias_ids,
+                            bias_vals, write_pids,
+                            any_sampled: bool) -> torch.Tensor:
+        """The paged group prefill: rows cut into the pages ``write_pids``
+        [nB, NP] names (:meth:`_prefill_rows`)."""
+        return self._prefill_rows(tokmask, meta_i, meta_f, bias_ids,
+                                  bias_vals, any_sampled, write_pids)
+
+    @torch.inference_mode()
+    def _prefill_chunk_impl(self, tokens, attn_mask, row, start: int,
+                            take_idx: int):
         """One chunk on a private row cache (the long fill's and the slab
         trains'); the caller counts it."""
         return self.model.prefill_chunk(tokens, attn_mask, row, start,
@@ -552,19 +635,29 @@ class DecodeEngine:
 
     @torch.inference_mode()
     def _commit_long_impl(self, row, slot: int, meta_i, last_logits,
-                          meta_f, bias_ids, bias_vals, any_sampled: bool,
-                          write_pids: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
-        """Close a long fill: the finished row into the shared cache at
-        ``slot`` (slab: cut to capacity; paged: cut into the pages
-        ``write_pids`` [1, NP] names), then the first token sampled.
+                          meta_f, bias_ids, bias_vals,
+                          any_sampled: bool) -> torch.Tensor:
+        """Close a slab long fill: the finished row into the shared cache
+        at ``slot``, cut to capacity, then the first token sampled.
         ``meta_i`` [3] packs slot / top_k / seed, ``meta_f`` [2]
         temperature / top_p (the token index of a first sample is 0)."""
-        if self.paged:
-            copy_rows_into_paged(self._cache, row, meta_i[0:1].long(),
-                                 write_pids)
-        else:
-            commit_row(self._cache, row, slot)
+        commit_row(self._cache, row, slot)
+        return self._sample_first(meta_i, last_logits, meta_f, bias_ids,
+                                  bias_vals, any_sampled)
+
+    @torch.inference_mode()
+    def _commit_long_paged_impl(self, row, meta_i, last_logits, meta_f,
+                                bias_ids, bias_vals, write_pids,
+                                any_sampled: bool) -> torch.Tensor:
+        """Close a paged long fill: the finished row cut into the pages
+        ``write_pids`` [1, NP] names, then the first token sampled."""
+        copy_rows_into_paged(self._cache, row, meta_i[0:1].long(),
+                             write_pids)
+        return self._sample_first(meta_i, last_logits, meta_f, bias_ids,
+                                  bias_vals, any_sampled)
+
+    def _sample_first(self, meta_i, last_logits, meta_f, bias_ids,
+                      bias_vals, any_sampled: bool) -> torch.Tensor:
         return self._sample_tokens(
             last_logits, meta_f[0:1], meta_i[1:2], meta_i[2:3],
             torch.zeros_like(meta_i[0:1]), bias_ids, bias_vals, meta_f[1:2],
@@ -573,30 +666,43 @@ class DecodeEngine:
 
     @torch.inference_mode()
     def _chunk_group_paged_impl(self, tokmask, tables, meta_i, meta_f,
-                                bias_ids, bias_vals, n_final: int,
+                                bias_ids, bias_vals,
                                 any_sampled: bool) -> torch.Tensor:
         """One pages-direct chunk program for a group of chunk trains:
         row i is one train's next ``<= W``-token chunk, its k/v written
         straight through its own table row ``tables[i]`` into the pages
         granted for it, its read the staircase window from its own start.
         The first token is sampled for every row (only final rows' are
-        used). ``meta_i`` [6, g] packs start / take_idx / top_k / seed and,
-        in its first ``n_final`` columns, the final rows' slots and prompt
-        lengths (host-built, so no index is steered anywhere); ``meta_f``
-        [2, g] temperature / top_p."""
+        used). ``meta_i`` [6, g] packs start / take_idx / top_k / seed /
+        slot / prompt length (-1 on a row whose prompt does not end in
+        this chunk: its slot's length is written back unchanged);
+        ``meta_f`` [2, g] temperature / top_p."""
         tokens, attn_mask = tokmask[0], tokmask[1]
         starts, take_idx, topk, seeds = meta_i[0], meta_i[1], meta_i[2], \
             meta_i[3]
         temps, topp = meta_f[0], meta_f[1]
         taken, _ = self.model.prefill_chunk_paged(
             tokens, attn_mask, self._cache, tables, starts, take_idx)
-        if n_final:
-            self._cache.lengths.index_copy_(
-                0, meta_i[4, :n_final].long(), meta_i[5, :n_final])
+        # Only a final chunk publishes its prompt's length.
+        lengths = self._cache.lengths
+        slots = meta_i[4].long()
+        lengths.index_copy_(0, slots, torch.where(
+            meta_i[5] >= 0, meta_i[5], lengths.index_select(0, slots)))
         return self._sample_tokens(
             taken, temps, topk, seeds, torch.zeros_like(starts), bias_ids,
             bias_vals, topp, any_sampled,
         )
+
+    @torch.inference_mode()
+    def _reset_counts(self, slot_tok) -> None:
+        """Fresh tenant: zero the reused counts row, then count the
+        prefill-sampled first token (the scan counts only the tokens it
+        samples itself). ``slot_tok`` [2] int32: slot, first token."""
+        slot = slot_tok[0:1].long()
+        self._counts.index_fill_(0, slot, 0)
+        self._counts.index_put_(
+            (slot, slot_tok[1:2].long()),
+            torch.ones((1,), dtype=torch.int32, device=self._counts.device))
 
     @torch.inference_mode()
     def _decode_impl(self, step_state, horizon: int, samp_f, samp_i,
@@ -651,77 +757,158 @@ class DecodeEngine:
                           cache.lengths[None, :]], dim=0)
 
     def warmup(self) -> None:
-        """Build the kernels and run every admission shape — the
-        (bucket x group) prefill grid on monolithic arms; on the paged
-        chunked arm the chunk program at every bucket width and every
-        group size up to ``min(max_admissions_per_step, budget // W)`` (the
-        largest bucket's group of 1 is the multi-chunk train's shape); on
-        the slab chunked arm its one row-cache chunk and commit — plus a
-        greedy and a sampled decode step before serving: the reference's
-        warmup grid, here priming the kernel build, the GEMM heuristics
-        and the allocator instead of XLA compiles, so the first requests
-        pay none of it. Paged warmup writes through all-sentinel tables
-        (every write lands in the sink page; no page is allocated), so the
-        allocator is untouched. The lengths and counts are reset
-        afterwards."""
+        """Build the kernels and run every key the arm can dispatch, so
+        that each hot program is captured before serving (the reference
+        compiles its jit programs here): :meth:`_warmup_impl`.
+
+        The whole run is bracketed by the capture ledger's warmup phase —
+        ``end_warmup`` arms the steady-state mark, after which any capture
+        is a recorded violation — and the engine's programs are sealed:
+        on the card a key first seen later raises. The ledger's warmup
+        counts are cross-checked against ``ops/jit_model.required_for``:
+        a registered program this arm needs that warmup did not run
+        raises HERE, at startup."""
+        ledger = get_ledger()
+        before = ledger.counts(phase=PHASE_WARMUP)
+        ledger.begin_warmup()
+        try:
+            with self._device_ctx():
+                self._warmup_impl()
+        finally:
+            ledger.end_warmup()
+        self._graphs.seal()
+        after = ledger.counts(phase=PHASE_WARMUP)
+        if after == before:
+            # Nothing new: every key was already captured (this engine
+            # was warmed before) — nothing to cross-check.
+            return
+        required = jit_model.required_for(
+            self.chunked_prefill, self.paged, False)
+        gaps = [
+            p.name for p in required
+            if after.get(p.name, 0) <= before.get(p.name, 0)
+        ]
+        if gaps:
+            raise RuntimeError(
+                f"warmup coverage gap: registered hot-path program(s) "
+                f"{gaps} compiled nothing during warmup — the warmup "
+                "routine and ops/jit_model.required_for disagree; fix "
+                "whichever is wrong before this engine serves"
+            )
+
+    def _warmup_impl(self) -> None:
+        """The arm's admission programs — the (bucket x group) prefill
+        grid on monolithic arms; on the paged chunked arm the chunk
+        program at every bucket width and every group size up to
+        ``min(max_admissions_per_step, budget // W)`` (the largest
+        bucket's group of 1 is the multi-chunk train's shape); on the
+        slab chunked arm its one row-cache chunk and commit, which the
+        monolithic arms also warm when a prompt past the largest bucket
+        fits — each with greedy and with sampled rows; then the decode
+        keys (:meth:`_warmup_decode`). Paged warmup writes through
+        all-sentinel tables (every write lands in the sink page; no page
+        is allocated), so the allocator is untouched. The lengths and
+        counts are reset afterwards."""
         if self.device.type == "cuda":
             from ray_dynamic_batching_tpu_torch.ops import _build
 
             _build.build()
-        dev = self.device
-        K = self.max_bias_entries
-        slab_trains = self.chunked_prefill and not self.paged
-        if slab_trains:
-            C = self.prompt_buckets[-1]
-            with torch.inference_mode():
-                row = self.model.make_cache(1, self._long_row_cap(C))
-            last, row, _ = run_chunk(self._row_chunk_impl,
-                                     np.zeros((C,), np.int32), 0, C, row, dev)
-            self._commit_long_impl(
-                row, 0, torch.zeros((3,), dtype=torch.int32, device=dev),
-                last, torch.tensor([0.0, 1.0], device=dev),
-                torch.zeros((1, K), dtype=torch.int32, device=dev),
-                torch.zeros((1, K), device=dev), True)
-        for b in [] if slab_trains else self.prompt_buckets:
-            top = self.max_admissions_per_step
-            if self.chunked_prefill:
-                top = min(top, self.prefill_token_budget // b)
-            for g in range(1, top + 1):
-                tokmask = torch.stack([torch.zeros((g, b), dtype=torch.int32),
-                                       torch.ones((g, b), dtype=torch.int32)])
-                meta_f = torch.zeros((2, g))
-                meta_f[1] = 1.0
-                bias = (torch.zeros((g, K), dtype=torch.int32, device=dev),
-                        torch.zeros((g, K), device=dev))
-                sentinel = None
-                if self.paged:
-                    sentinel = torch.full((g, self._n_table_entries),
-                                          self.num_pages, dtype=torch.int32,
-                                          device=dev)
-                if self.chunked_prefill:
-                    self._chunk_group_paged_impl(
-                        tokmask.to(dev), sentinel,
-                        torch.zeros((6, g), dtype=torch.int32, device=dev),
-                        meta_f.to(dev), *bias, 0, g % 2 == 0)
-                    continue
-                meta_i = torch.zeros((3, g), dtype=torch.int32)
-                meta_i[0] = torch.arange(g) % self.num_slots
-                self._prefill_impl(
-                    tokmask.to(dev), meta_i.to(dev), meta_f.to(dev), *bias,
-                    g % 2 == 0, sentinel,
-                )
-        samp_f, samp_i, bias_ids, bias_vals = self._sampling_arrays()
-        for sampled in (False, True):
-            self._decode_impl(
-                torch.zeros((3, self.num_slots), dtype=torch.int32,
-                            device=dev),
-                1, samp_f, samp_i, bias_ids, bias_vals, sampled, sampled,
-            )
+        if self.chunked_prefill and self.paged:
+            self._warmup_chunks()
+        elif self.chunked_prefill:
+            self._warmup_long_fill()
+        else:
+            self._warmup_prefill_groups()
+            if self.prompt_buckets[-1] + 1 < self.max_len:
+                self._warmup_long_fill()
+        self._warmup_decode()
         with torch.inference_mode():
             self._cache.lengths.zero_()
             self._counts.zero_()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _warmup_inputs(self, b: int, g: int, sampled: bool):
+        """Host inputs of a (bucket, group) admission program: all-zero
+        prompts of full masks, top_p 1, greedy or (temperature 1)
+        sampled rows, no bias."""
+        tokmask = torch.stack([torch.zeros((g, b), dtype=torch.int32),
+                               torch.ones((g, b), dtype=torch.int32)])
+        meta_f = torch.ones((2, g))
+        meta_f[0] = float(sampled)
+        K = self.max_bias_entries
+        return (tokmask, meta_f, torch.zeros((g, K), dtype=torch.int32),
+                torch.zeros((g, K)))
+
+    def _sentinel_table(self, g: int) -> torch.Tensor:
+        return torch.full((g, self._n_table_entries), self.num_pages,
+                          dtype=torch.int32)
+
+    def _warmup_prefill_groups(self) -> None:
+        for b in self.prompt_buckets:
+            for g in range(1, self.max_admissions_per_step + 1):
+                for sampled in (False, True):
+                    tokmask, meta_f, bids, bvals = self._warmup_inputs(
+                        b, g, sampled)
+                    meta_i = torch.zeros((3, g), dtype=torch.int32)
+                    meta_i[0] = torch.arange(g) % self.num_slots
+                    extra = ((self._sentinel_table(g),) if self.paged
+                             else ())
+                    self._prefill_fn(tokmask, meta_i, meta_f, bids, bvals,
+                                     *extra, sampled)
+                    self.warmup_fills += 1
+
+    def _warmup_chunks(self) -> None:
+        for b in self.prompt_buckets:
+            top = min(self.max_admissions_per_step,
+                      self.prefill_token_budget // b)
+            for g in range(1, top + 1):
+                for sampled in (False, True):
+                    tokmask, meta_f, bids, bvals = self._warmup_inputs(
+                        b, g, sampled)
+                    meta_i = torch.zeros((6, g), dtype=torch.int32)
+                    meta_i[4] = torch.arange(g) % self.num_slots
+                    meta_i[5] = -1
+                    self._chunk_paged_fn(tokmask, self._sentinel_table(g),
+                                         meta_i, meta_f, bids, bvals,
+                                         sampled)
+                    self.warmup_fills += 1
+
+    def _warmup_long_fill(self) -> None:
+        """One chunk of the largest bucket on a row cache and one commit
+        (paged: through an all-sentinel table); both run eagerly, so one
+        key each."""
+        C = self.prompt_buckets[-1]
+        with torch.inference_mode():
+            row = self.model.make_cache(1, self._long_row_cap(C))
+        last, row, _ = run_chunk(self._long_chunk_fn,
+                                 np.zeros((C,), np.int32), 0, C, row)
+        self.warmup_fills += 1
+        _tokmask, meta_f, bids, bvals = self._warmup_inputs(C, 1, False)
+        meta_i = torch.zeros((3,), dtype=torch.int32)
+        if self.paged:
+            self._long_commit_fn(row, meta_i, last, meta_f[:, 0], bids,
+                                 bvals, self._sentinel_table(1), False)
+        else:
+            self._long_commit_fn(row, 0, meta_i, last, meta_f[:, 0], bids,
+                                 bvals, False)
+
+    def _warmup_decode(self) -> None:
+        """Every decode key ``_step`` can dispatch: horizons {1,
+        ttft_horizon, decode_horizon} x greedy or sampled rows x
+        penalties off or on (the reference decides the last two at run
+        time; the port on the host), over all-inactive slots; then the
+        counts reset of a fresh penalised tenant."""
+        samp_f, samp_i, bias_ids, bias_vals = self._sampling_arrays()
+        for h in sorted({1, self.ttft_horizon, self.decode_horizon}):
+            for sampled in (False, True):
+                for penalty in (False, True):
+                    self._decode_fn(
+                        torch.zeros((3, self.num_slots), dtype=torch.int32),
+                        h, samp_f, samp_i, bias_ids, bias_vals, sampled,
+                        penalty)
+                    self.warmup_steps += h
+        self._zero_counts_fn(torch.zeros((2,), dtype=torch.int32))
 
     # --- admission ---------------------------------------------------------
     def _free_slots(self) -> List[int]:
@@ -907,22 +1094,18 @@ class DecodeEngine:
             meta_i[:, i] = (slot_ids[i], opts["top_k"], opts["seed"])
             meta_f[:, i] = (opts["temperature"], opts.get("top_p", 1.0))
             bias_ids[i], bias_vals[i] = self._bias_arrays(opts)
-        dev = self.device
-        pids = None
+        extra = ()
         if self.paged:
             # Physical destination pages per row (sentinel tail).
-            pids = torch.from_numpy(np.stack([
+            extra = (torch.from_numpy(np.stack([
                 table_array(opts["_pages"], self._n_table_entries,
                             self.num_pages) for _r, _p, opts in items
-            ])).to(dev)
-        first = self._prefill_impl(
-            torch.from_numpy(np.stack([tokens, mask])).to(dev),
-            torch.from_numpy(meta_i).to(dev),
-            torch.from_numpy(meta_f).to(dev),
-            torch.from_numpy(bias_ids).to(dev),
-            torch.from_numpy(bias_vals).to(dev),
-            bool((meta_f[0] > 0).any()),
-            pids,
+            ])),)
+        first = self._prefill_fn(
+            torch.from_numpy(np.stack([tokens, mask])),
+            torch.from_numpy(meta_i), torch.from_numpy(meta_f),
+            torch.from_numpy(bias_ids), torch.from_numpy(bias_vals),
+            *extra, bool((meta_f[0] > 0).any()),
         )
         first_host = first.cpu().numpy()  # ONE fetch for the whole group
         self.prefill_groups += 1
@@ -964,9 +1147,9 @@ class DecodeEngine:
 
         def chunk(*args):
             self.long_chunk_dispatches += 1
-            return self._row_chunk_impl(*args)
+            return self._long_chunk_fn(*args)
 
-        last, row = run_chunked(chunk, prompt, C, row, self.device,
+        last, row = run_chunked(chunk, prompt, C, row,
                                 between=self._interleave_step)
         self._commit_and_register(req, opts, slot_idx, row, last)
 
@@ -976,23 +1159,23 @@ class DecodeEngine:
         train's final chunk): ONE commit (the row into the shared cache +
         first-token sample), then registration."""
         bids, bvals = self._bias_arrays(opts)
-        pids = None
+        meta_i = torch.tensor([slot_idx, opts["top_k"], opts["seed"]],
+                              dtype=torch.int32)
+        meta_f = torch.tensor([opts["temperature"], opts["top_p"]],
+                              dtype=torch.float32)
+        sampled = opts["temperature"] > 0
         if self.paged:
             pids = torch.from_numpy(table_array(
                 opts["_pages"], self._n_table_entries, self.num_pages
-            )[None]).to(self.device)
-        dev = self.device
-        first = self._commit_long_impl(
-            row, slot_idx,
-            torch.tensor([slot_idx, opts["top_k"], opts["seed"]],
-                         dtype=torch.int32).to(dev),
-            last,
-            torch.tensor([opts["temperature"], opts["top_p"]],
-                         dtype=torch.float32).to(dev),
-            torch.from_numpy(bids[None]).to(dev),
-            torch.from_numpy(bvals[None]).to(dev),
-            opts["temperature"] > 0, pids,
-        )
+            )[None])
+            first = self._long_commit_fn(
+                row, meta_i, last, meta_f, torch.from_numpy(bids[None]),
+                torch.from_numpy(bvals[None]), pids, sampled)
+        else:
+            first = self._long_commit_fn(
+                row, slot_idx, meta_i, last, meta_f,
+                torch.from_numpy(bids[None]), torch.from_numpy(bvals[None]),
+                sampled)
         self._register(slot_idx, req, int(first.cpu()[0]), opts, now_ms())
 
     # --- token-budget chunked admission ------------------------------------
@@ -1176,23 +1359,19 @@ class DecodeEngine:
             mask[i, :take] = 1
             tables[i] = table_array(t.opts["_pages"], self._n_table_entries,
                                     self.num_pages)
-            meta_i[:4, i] = (t.pos, take - 1, t.opts["top_k"],
-                             t.opts["seed"])
+            final = t.pos + take >= t.total
+            # Only the final chunk publishes the prompt's length.
+            meta_i[:, i] = (t.pos, take - 1, t.opts["top_k"], t.opts["seed"],
+                            t.slot_idx, t.total if final else -1)
             meta_f[:, i] = (t.opts["temperature"], t.opts.get("top_p", 1.0))
             bias_ids[i], bias_vals[i] = self._bias_arrays(t.opts)
-            if t.pos + take >= t.total:
-                # Only the final chunk publishes the prompt's length.
-                meta_i[4:, len(finals)] = (t.slot_idx, t.total)
+            if final:
                 finals.append((i, t))
-        dev = self.device
-        first = self._chunk_group_paged_impl(
-            torch.from_numpy(np.stack([tokens, mask])).to(dev),
-            torch.from_numpy(tables).to(dev),
-            torch.from_numpy(meta_i).to(dev),
-            torch.from_numpy(meta_f).to(dev),
-            torch.from_numpy(bias_ids).to(dev),
-            torch.from_numpy(bias_vals).to(dev),
-            len(finals), bool((meta_f[0] > 0).any()),
+        first = self._chunk_paged_fn(
+            torch.from_numpy(np.stack([tokens, mask])),
+            torch.from_numpy(tables), torch.from_numpy(meta_i),
+            torch.from_numpy(meta_f), torch.from_numpy(bias_ids),
+            torch.from_numpy(bias_vals), bool((meta_f[0] > 0).any()),
         )
         for t in trains:
             t.pos = min(t.pos + W, t.total)
@@ -1212,8 +1391,8 @@ class DecodeEngine:
         into the commit (row into the shared cache + first-token sample)
         and registration."""
         train.last, train.row, take = run_chunk(
-            self._row_chunk_impl, train.prompt, train.pos, train.C,
-            train.row, self.device)
+            self._long_chunk_fn, train.prompt, train.pos, train.C,
+            train.row)
         train.pos += take
         self.chunk_dispatches += 1
         PREFILL_CHUNKS.inc(tags={"model": self.model.name})
@@ -1308,9 +1487,8 @@ class DecodeEngine:
         if self._pres[slot_idx] or self._freq[slot_idx]:
             # Fresh tenant: zero the reused row, then count the
             # prefill-sampled first token.
-            with torch.inference_mode():
-                self._counts[slot_idx].zero_()
-                self._counts[slot_idx, first_tok] = 1
+            self._zero_counts_fn(torch.tensor([slot_idx, first_tok],
+                                              dtype=torch.int32))
         PREFILLS_TOTAL.inc(tags={"model": self.model.name})
         TTFT_MS.observe(
             t - req.arrival_ms, tags={"model": self.model.name},
@@ -1409,12 +1587,15 @@ class DecodeEngine:
         self._table_dirty = True
 
     def _refresh_table(self) -> None:
-        """Upload the host page table when it changed. This is the device
-        table's only writer, and it uploads a fresh copy, so later host
-        edits of the mirror never race the copy."""
+        """Upload the host page table when it changed, into the device
+        table in place (the captured programs read it at its address).
+        This is the device table's only writer, and it uploads from a
+        fresh copy of the mirror, so later host edits of the mirror never
+        race the copy."""
         if self._table_dirty:
-            self._cache.page_table = torch.from_numpy(
-                self._table_host.copy()).to(self.device)
+            with torch.inference_mode():
+                self._cache.page_table.copy_(
+                    torch.from_numpy(self._table_host.copy()))
             self._table_dirty = False
 
     def _ensure_page_headroom(self, horizon: int) -> None:
@@ -1551,10 +1732,10 @@ class DecodeEngine:
         active = self._active_mask.copy()
         samp_f, samp_i, bias_ids, bias_vals = self._sampling_arrays()
         self._scan_start_ms = now_ms()
-        packed = self._decode_impl(
+        packed = self._decode_fn(
             torch.from_numpy(np.stack([
                 self._tokens[:, 0], active.astype(np.int32), tok_idx,
-            ])).to(self.device),
+            ])),
             h, samp_f, samp_i, bias_ids, bias_vals,
             bool((self._temps[active] > 0).any()),
             bool(self._pres[active].any() or self._freq[active].any()),
@@ -1664,8 +1845,11 @@ class DecodeEngine:
 
     def release_buffers(self) -> None:
         """Drop the engine's device footprint (the cache with its scale
-        planes, the counts). Call only after the loop has stopped; the
-        engine is unusable afterwards."""
+        planes, the counts, the captured programs with their memory pool
+        and the merge scratch they hold). Call only after the loop has
+        stopped; the engine is unusable afterwards."""
+        self._graphs.release()
+        self._workspace = None
         self._cache = None
         self._counts = None
         self._sampling_dev = None
@@ -1756,6 +1940,12 @@ class DecodeEngine:
                 "journal_rotated": self._page_journal.rotated_out,
             }
         return out
+
+    def capture_stats(self) -> Dict[str, Any]:
+        """The engine's captured programs: captures, the seconds they
+        took, the device memory reserved while capturing and the graphs
+        of each program (zeros where nothing is captured)."""
+        return self._graphs.stats()
 
     @property
     def active_slots(self) -> int:

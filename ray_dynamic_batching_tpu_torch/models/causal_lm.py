@@ -112,7 +112,7 @@ class CausalLM(ServableModel):
         # lengths - 1 wraps like the reference's take_along_axis index.
         last = self.module(tokens, positions, mask, cache,
                            take=torch.remainder(lengths - 1, T))
-        cache.lengths = lengths
+        cache.lengths.copy_(lengths)
         return last, cache
 
     def prefill_chunk(self, tokens: torch.Tensor, attn_mask: torch.Tensor,
@@ -136,7 +136,7 @@ class CausalLM(ServableModel):
         take = torch.full((B,), take_idx, dtype=torch.int64, device=dev)
         taken = self.module(tokens, positions, mask, cache, take=take,
                             write_start=start)
-        cache.lengths = cache.lengths + attn_mask.sum(dim=1).to(torch.int32)
+        cache.lengths.add_(attn_mask.sum(dim=1).to(torch.int32))
         return taken, cache
 
     def decode_step(self, tokens: torch.Tensor, cache: KVCache,
@@ -151,7 +151,7 @@ class CausalLM(ServableModel):
         positions = cache.lengths[:, None]
         mask = decode_mask(cache.lengths, cache.capacity)
         logits = self.module(tokens, positions, mask, cache)
-        cache.lengths = cache.lengths + active.to(torch.int32)
+        cache.lengths.add_(active.to(torch.int32))
         return logits[:, 0], cache
 
 
@@ -204,7 +204,7 @@ class CausalLM(ServableModel):
         logits = self.module(tokens, positions, None, cache,
                              page_table=cache.page_table,
                              kv_lengths=cache.lengths)
-        cache.lengths = cache.lengths + active.to(torch.int32)
+        cache.lengths.add_(active.to(torch.int32))
         return logits[:, 0], cache
 
     def kv_bytes_per_slot(self, max_len: Optional[int] = None) -> int:

@@ -43,6 +43,7 @@ import torch
 
 from ray_dynamic_batching_tpu_torch.ops import decode_attention as _decode
 from ray_dynamic_batching_tpu_torch.ops import flash_attention as _flash
+from ray_dynamic_batching_tpu_torch.ops import graphs
 
 #: Calls routed to :func:`reference_attention` since the last reset.
 plain_launches = 0
@@ -151,7 +152,6 @@ def dot_product_attention(
     k/v are page pools [P, ps, K, H] shared by all slots (scales
     [P, ps, K]), and window row t attends logical positions
     <= kv_lengths + t."""
-    global plain_launches
     if (k_scale is None) != (v_scale is None):
         raise ValueError("int8 KV attention needs both k_scale and v_scale")
     if page_table is not None:
@@ -186,7 +186,7 @@ def dot_product_attention(
     if which == "flash":
         return _flash.flash_attention(q, k, v, causal=causal, mask=mask,
                                       scale=scale)
-    plain_launches += 1
+    graphs.count_launch(globals(), "plain_launches")
     return reference_attention(q, k, v, causal=causal, mask=mask,
                                scale=scale)
 

@@ -33,7 +33,9 @@ Bound on the H100: the bytes of the K/V positions each slot attends.
 
 Both kernels take a per-device scratch for the split merge
 (:func:`_workspace`): partials and arrival counters, allocated once and
-reused, so calls on one device must run in stream order.
+reused, so calls on one device must run in stream order. An engine
+sizes it with :func:`reserve` before it captures a CUDA graph
+(``ops/graphs.py``); under capture a launch never grows it.
 
 **Int8 KV** — the reference's ``k_scale``/``v_scale`` branch of both
 kernels (``_scan_tile`` lines 142-167): k/v hold int8 codes and the
@@ -54,6 +56,7 @@ from typing import Optional
 
 import torch
 
+from ray_dynamic_batching_tpu_torch.ops import graphs
 from ray_dynamic_batching_tpu_torch.ops.flash_attention import keep_mask
 
 NEG_INF = -1e30
@@ -67,7 +70,8 @@ MAX_WINDOW_FOR_KERNEL = 8
 PAGE_ALIGN = 128
 
 #: Slab-kernel launches since the last reset (plain-version calls do not
-#: count), bf16/f32 K/V and int8 K/V apart.
+#: count; a graph replay adds the launches its capture recorded), bf16/f32
+#: K/V and int8 K/V apart.
 launches = 0
 int8_launches = 0
 #: Paged-kernel launches since the last reset (likewise).
@@ -189,17 +193,27 @@ SPLIT = 128
 _workspaces: dict = {}
 
 
-def _workspace(device: torch.device, B: int, K: int, S: int, R: int, H: int):
-    """The split merge's scratch for one launch: per (slot, KV head, split)
-    the partial (m, l, acc) of R rows, and one arrival counter per (slot,
-    KV head). Kept per device and reused, never one allocation per call:
-    each launch leaves the counters at 0, and they are zeroed only when
-    created. Launches on one device share it, so they must run in stream
-    order (the engine issues every kernel on the current stream)."""
-    n_ws = B * K * (-(-S // SPLIT)) * R * (H + 2)
-    n_cnt = B * K
+def _sizes(B: int, K: int, S: int, R: int, H: int):
+    """(partials, counters) elements a launch of these dims needs."""
+    return B * K * (-(-S // SPLIT)) * R * (H + 2), B * K
+
+
+def _grow(device: torch.device, n_ws: int, n_cnt: int):
+    """The device's scratch, replaced by a larger one when it holds less
+    than (n_ws, n_cnt). A replaced scratch is freed only when nothing
+    else holds it: a captured graph's owner keeps the one it captured
+    (:func:`reserve`)."""
     key = device.index
     ws, cnt = _workspaces.get(key, (None, None))
+    if ws is not None and ws.numel() >= n_ws and cnt.numel() >= n_cnt:
+        return ws, cnt
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"decode workspace: a launch under graph capture needs "
+            f"{n_ws} partials and {n_cnt} counters, the scratch holds "
+            f"{0 if ws is None else ws.numel()} and "
+            f"{0 if cnt is None else cnt.numel()}; reserve() the "
+            "engine's largest shape before capturing")
     if ws is None or ws.numel() < n_ws:
         ws = torch.empty((n_ws,), dtype=torch.float32, device=device)
     if cnt is None or cnt.numel() < n_cnt:
@@ -208,11 +222,38 @@ def _workspace(device: torch.device, B: int, K: int, S: int, R: int, H: int):
     return ws, cnt
 
 
+def _workspace(device: torch.device, B: int, K: int, S: int, R: int, H: int):
+    """The split merge's scratch for one launch: per (slot, KV head, split)
+    the partial (m, l, acc) of R rows, and one arrival counter per (slot,
+    KV head). Kept per device and reused, never one allocation per call:
+    each launch leaves the counters at 0, and they are zeroed only when
+    created (outside any graph). Launches on one device share it, so they
+    must run in stream order (the engine issues every kernel on the
+    current stream, and replays its graphs there). Under graph capture a
+    launch that needs more than the scratch holds raises instead of
+    growing it: the graph would bake in memory the growth frees."""
+    return _grow(device, *_sizes(B, K, S, R, H))
+
+
+def reserve(device: torch.device, B: int, K: int, S: int, R: int, H: int):
+    """Size the device's scratch for launches up to these dims (B slots,
+    K KV heads, S positions, R window rows per KV head, head dim H)
+    before any graph captures a launch; returns the scratch, which the
+    caller keeps for as long as its graphs live (another engine's larger
+    reserve replaces the device's entry, not the caller's buffers)."""
+    from ray_dynamic_batching_tpu_torch.ops import _build
+
+    device = torch.device(device)
+    if device.index is None:   # launches key the scratch by their index
+        device = torch.device(device.type, torch.cuda.current_device())
+    with _build.launch_lock:
+        return _grow(device, *_sizes(B, K, S, R, H))
+
+
 def _launch(q, k, v, mask_i8, k_scale, v_scale, *, scale: float
             ) -> torch.Tensor:
     from ray_dynamic_batching_tpu_torch.ops import _build
 
-    global launches, int8_launches
     B, Tq, N, H = q.shape
     _, S, K, _ = k.shape
     q, k, v, k_scale, v_scale, dtype, int8 = _kernel_args(
@@ -233,10 +274,7 @@ def _launch(q, k, v, mask_i8, k_scale, v_scale, *, scale: float
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, rc, "decode_attention")
-    if int8:
-        int8_launches += 1
-    else:
-        launches += 1
+    graphs.count_launch(globals(), "int8_launches" if int8 else "launches")
     return out
 
 
@@ -321,7 +359,6 @@ def _launch_paged(q, k, v, page_table, lengths, k_scale, v_scale, *,
                   scale: float) -> torch.Tensor:
     from ray_dynamic_batching_tpu_torch.ops import _build
 
-    global paged_launches, paged_int8_launches
     B, Tq, N, H = q.shape
     P, ps, K, _ = k.shape
     NP = page_table.shape[1]
@@ -344,10 +381,8 @@ def _launch_paged(q, k, v, page_table, lengths, k_scale, v_scale, *,
             cnt.numel(), torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, rc, "paged_decode_attention")
-    if int8:
-        paged_int8_launches += 1
-    else:
-        paged_launches += 1
+    graphs.count_launch(globals(), "paged_int8_launches" if int8
+                        else "paged_launches")
     return out
 
 

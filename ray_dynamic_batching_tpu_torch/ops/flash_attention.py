@@ -43,13 +43,16 @@ from typing import Optional
 
 import torch
 
+from ray_dynamic_batching_tpu_torch.ops import graphs
+
 NEG_INF = -1e30
 
 # Query windows below this go to the decode kernel or the plain version
 # (the JAX package's MIN_QUERY_FOR_PALLAS).
 MIN_QUERY_FOR_KERNEL = 16
 
-#: Kernel launches since the last reset (plain-version calls do not count).
+#: Kernel launches since the last reset (plain-version calls do not count;
+#: a graph replay adds the launches its capture recorded).
 launches = 0
 
 
@@ -116,7 +119,6 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
 def _launch(q, k, v, mask_i8, *, causal: bool, scale: float) -> torch.Tensor:
     from ray_dynamic_batching_tpu_torch.ops import _build
 
-    global launches
     B, Tq, N, H = q.shape
     _, Tk, K, _ = k.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -155,7 +157,7 @@ def _launch(q, k, v, mask_i8, *, causal: bool, scale: float) -> torch.Tensor:
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, rc, "flash_attention")
-    launches += 1
+    graphs.count_launch(globals(), "launches")
     return out
 
 

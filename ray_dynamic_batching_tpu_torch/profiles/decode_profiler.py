@@ -10,9 +10,10 @@ continuous-batching decode engine along its two cost axes:
 
 - **Decode step**: per-substep latency + device footprint vs
   ``num_slots`` (batch occupancy) x ``max_len`` (KV capacity): the
-  engine's own ``_decode_impl`` with every slot active and horizon 1.
+  engine's own decode program (``_decode_fn``, the graph serving
+  replays) with every slot active and horizon 1.
 - **Prefill**: admission-group latency vs (prompt bucket x group width),
-  the engine's own group program ``_prefill_impl`` — the TTFT-side cost.
+  the engine's own group program (``_prefill_fn``) — the TTFT-side cost.
 
 Rows reuse :class:`~ray_dynamic_batching_tpu_torch.profiles.table.ProfileRow`
 (decode: ``batch_size`` = num_slots, ``seq_len`` = KV capacity; prefill:
@@ -22,13 +23,15 @@ Rows reuse :class:`~ray_dynamic_batching_tpu_torch.profiles.table.ProfileRow`
 the tables :meth:`LLMDeployment.plan_from_tables` and
 :func:`~ray_dynamic_batching_tpu_torch.scheduler.nexus.pack_llm_engines` read.
 
-Where eager torch differs from the reference's compiled programs:
+Where the port differs from the reference's compiled programs:
 
 - **Timing** is the reference's: chained dispatches, one host fetch per
   timing block of ``timing_iters`` (three blocks), so per-dispatch host
-  cost is in the row, as it is in serving. On a card the port's steps are
-  mostly host dispatch (the device idles most of a step), so a row is
-  what serving pays, and slower than a graphed engine's would be.
+  cost is in the row, as it is in serving. On a card the first dispatch
+  captures the program as a CUDA graph (``ops/graphs.py``) and every
+  timed one replays it, as serving does. A profiled engine is never
+  warmed; its captures run inside the capture ledger's warmup phase, as
+  the reference's profiling compiles are startup work.
 - **The cache is nearly full while timed.** The port's decode kernel
   skips the KV tiles no row attends, so its cost follows the fill, where
   the reference's static-shape scan reads the whole capacity whatever
@@ -43,9 +46,9 @@ Where eager torch differs from the reference's compiled programs:
   ``max_memory_allocated`` less ``memory_allocated`` after). On the CPU
   the transient is not measured and is left out.
 - **``compile_ms``** is the wall time of the first (warmup) dispatch,
-  host fetch included: eager torch compiles nothing; on a card that
-  dispatch pays the kernel build, if it is the process's first, and the
-  GEMM heuristics' first look at the shapes.
+  host fetch included: on a card that dispatch runs the program eagerly
+  and captures it, and pays the kernel build, if it is the process's
+  first.
 - An out-of-memory at any point of a config, the engine's cache
   allocation included, marks it infeasible; every other error is raised.
 """
@@ -66,6 +69,7 @@ from ray_dynamic_batching_tpu_torch.profiles.table import (
     BatchProfile,
     ProfileRow,
 )
+from ray_dynamic_batching_tpu_torch.utils.compile_ledger import get_ledger
 from ray_dynamic_batching_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("torch.decode_profiler")
@@ -157,6 +161,8 @@ class DecodeProfiler:
         """Build one config's engine, measure it, release it; None when
         the config runs out of device memory."""
         engine = None
+        ledger = get_ledger()
+        ledger.begin_warmup()
         try:
             engine = build()
             compile_ms, hbm_bytes, samples = run(engine)
@@ -167,6 +173,7 @@ class DecodeProfiler:
                 return None
             raise
         finally:
+            ledger.end_warmup()
             if engine is not None and engine._cache is not None:
                 engine.release_buffers()
         return ProfileRow(
@@ -202,9 +209,8 @@ class DecodeProfiler:
                         + _tensor_bytes(step_state, samp_f, samp_i,
                                         bias_ids, bias_vals))
             return self._measure(
-                lambda: engine._decode_impl(step_state, 1, samp_f, samp_i,
-                                            bias_ids, bias_vals, False,
-                                            False),
+                lambda: engine._decode_fn(step_state, 1, samp_f, samp_i,
+                                          bias_ids, bias_vals, False, False),
                 resident)
 
         return self._row("decode",
@@ -235,8 +241,8 @@ class DecodeProfiler:
                         + _tensor_bytes(tokmask, meta_i, meta_f, bias_ids,
                                         bias_vals))
             return self._measure(
-                lambda: engine._prefill_impl(tokmask, meta_i, meta_f,
-                                             bias_ids, bias_vals, False),
+                lambda: engine._prefill_fn(tokmask, meta_i, meta_f,
+                                           bias_ids, bias_vals, False),
                 resident)
 
         return self._row(

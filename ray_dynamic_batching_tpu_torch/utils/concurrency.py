@@ -58,8 +58,8 @@ LOCKORDER_ENV_VAR = "RDB_TESTING_LOCKORDER"
 #                  delivery; near-leaf by design.
 #   sketch         RollingSketch epoch state — read under queue /
 #                  observatory locks.
-#   compile_ledger CompileLedger episode/violation state — updated from
-#                  jax.monitoring callbacks during dispatch; bumps the
+#   compile_ledger CompileLedger episode/violation state — updated by
+#                  the graph runner (ops/graphs.py) during dispatch; bumps the
 #                  rdb_jit_compiles_total counter while held, so it must
 #                  sit ABOVE every dispatcher lock and BELOW metrics.
 #   metrics        Metric/registry state — THE innermost: counters are

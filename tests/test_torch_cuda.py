@@ -17,8 +17,12 @@ nothing beside normal slots, whole void splits, a ragged last split, and
 slab/paged bit-identity at split boundaries; a slab train's chunk over its
 row cache of 576 positions; and that a decode step on the card with a
 span exporter installed reads device values back no more often than one
-without. This file imports no JAX, so
-it runs on a machine without it::
+without; and the captured programs (``ops/graphs.py``): graphed and
+eager engines serving identical tokens with equal launch counts on every
+arm, a failed capture raising, the merge scratch refusing to grow under
+capture, a graph replaying after other shapes moved the kernel's
+shared-memory limit, and a released engine giving its pool back. This
+file imports no JAX, so it runs on a machine without it::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -621,3 +625,211 @@ def test_traced_decode_step_adds_no_host_fetch(card, paged, monkeypatch):
     assert traced == plain == ["cpu", "numpy"]
     assert [s.name for s in collector.spans] == ["decode.turn"]
     assert collector.spans[0].attributes["active"] == 3
+
+
+# --- captured programs (ops/graphs.py) --------------------------------------
+def _tiny_lm(card, kv_dtype=None):
+    """llama_tiny widened to heads of 64 (a width the decode kernels
+    take), f32, 2 layers."""
+    import dataclasses
+
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        TINY_LM,
+        CausalLM,
+    )
+
+    cfg = dataclasses.replace(TINY_LM, d_model=256)
+    return CausalLM(cfg, name="llama_tiny", dtype=torch.float32,
+                    device=card, seed=0, kv_dtype=kv_dtype)
+
+
+# The five engine arms: (kv dtype, engine knobs).
+_ARMS = {
+    "slab": (None, {}),
+    "paged": (None, {"paged": True}),
+    "int8": (torch.int8, {}),
+    "int8_paged": (torch.int8, {"paged": True}),
+    "slab_chunked": (None, {"chunked_prefill": True}),
+}
+
+
+def _serve_arm(model, knobs, eager: bool):
+    """Warm an engine and serve six greedy prompts (two past the largest
+    bucket: the long fill or multi-chunk trains) and one penalised one;
+    returns (token streams, launch counts while serving, engine)."""
+    import contextlib
+
+    from ray_dynamic_batching_tpu_torch.engine.decode import DecodeEngine
+    from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+    from ray_dynamic_batching_tpu_torch.ops import attention, graphs
+
+    ctx = graphs.disable_capture() if eager else contextlib.nullcontext()
+    with ctx:
+        q = RequestQueue("t")
+        engine = DecodeEngine(model, q, num_slots=4, max_len=256,
+                              prompt_buckets=[16, 32], decode_horizon=4,
+                              default_max_new_tokens=12, device=model.device,
+                              **knobs)
+        engine.warmup()
+    gen = torch.Generator().manual_seed(7)
+    reqs = []
+    for i, n in enumerate([5, 12, 30, 70, 17, 100, 9]):
+        payload = {"tokens": torch.randint(1, 512, (n,), generator=gen
+                                           ).tolist()}
+        if i == 6:
+            payload.update(presence_penalty=0.5, frequency_penalty=0.3)
+        reqs.append(Request(model="t", payload=payload, slo_ms=6e4))
+        q.add_request(reqs[-1])
+    attention.reset_counts()
+    engine.run_until_idle(timeout_s=120)
+    torch.cuda.synchronize()
+    counts = (fl.launches, dec.launches, dec.int8_launches,
+              dec.paged_launches, dec.paged_int8_launches,
+              attention.plain_launches)
+    return [r.future.result(5).tokens for r in reqs], counts, engine
+
+
+@pytest.mark.parametrize("arm", list(_ARMS))
+def test_graphed_engine_equals_eager(card, arm):
+    """Each arm serves the same requests with its programs replayed as
+    CUDA graphs and run eagerly: identical greedy tokens (f32), the same
+    launch counts, and the graphed engine captured every program it
+    dispatched during warmup (nothing after it)."""
+    kv_dtype, knobs = _ARMS[arm]
+    model = _tiny_lm(card, kv_dtype)
+    eager, eager_counts, e_eng = _serve_arm(model, knobs, eager=True)
+    graphed, graphed_counts, g_eng = _serve_arm(model, knobs, eager=False)
+    assert graphed == eager
+    assert graphed_counts == eager_counts
+    assert e_eng.capture_stats()["captures"] == 0
+    stats = g_eng.capture_stats()
+    assert stats["captures"] == sum(stats["graphs"].values()) > 0
+    assert set(stats["graphs"]) >= {"decode_step", "zero_counts"}
+
+
+def test_failed_capture_raises_without_fallback(card):
+    """A program whose body cannot be captured (it reads a device value
+    on the host) raises CaptureError, on its first call and again on the
+    next, as does every other program of its set: nothing runs it eagerly
+    instead. A sealed set raises on a key it never captured."""
+    from ray_dynamic_batching_tpu_torch.ops import graphs
+
+    gs = graphs.GraphSet(card)
+    prog = gs.program("bad", lambda x: x * float(x.sum().item()))
+    x = torch.ones((4,), device=card)
+    with pytest.raises(graphs.CaptureError, match="capture of key"):
+        prog(x)
+    with pytest.raises(graphs.CaptureError, match="earlier capture"):
+        prog(x)
+    with pytest.raises(graphs.CaptureError, match="earlier capture"):
+        gs.program("other", lambda x: x + 1)(x)
+    fresh = graphs.GraphSet(card)
+    good = fresh.program("good", lambda x: x * 2)
+    assert good(x).tolist() == [2.0] * 4        # eager first call
+    assert good(x + 1).tolist() == [4.0] * 4    # a replay
+    fresh.seal()
+    with pytest.raises(graphs.CaptureError, match="after warmup"):
+        good(torch.ones((8,), device=card))
+
+
+def test_reserved_workspace_refuses_a_larger_launch_under_capture(card):
+    """reserve() sizes the merge scratch; a launch under capture that
+    needs more raises instead of reallocating memory the graph would
+    bake in. Outside capture the same launch grows the scratch."""
+    card = torch.device("cuda", torch.cuda.current_device())
+    saved = dec._workspaces.pop(card.index, None)
+    try:
+        ws, cnt = dec.reserve(card, B=1, K=2, S=128, R=2, H=64)
+        gen = torch.Generator(device=card).manual_seed(3)
+        q = _rand(gen, (2, 1, 4, 64), torch.float32, card)
+        k = _rand(gen, (2, 512, 2, 64), torch.float32, card)
+        dec.decode_attention(q[:1], k[:1, :128], k[:1, :128])  # fits
+        graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream(card)
+        stream.wait_stream(torch.cuda.current_stream(card))
+        with torch.cuda.stream(stream):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                with pytest.raises(RuntimeError, match="reserve"):
+                    dec.decode_attention(q, k, k)
+            finally:
+                graph.capture_end()
+        assert dec._workspaces[card.index][0] is ws     # not reallocated
+        out = dec.decode_attention(q, k, k)             # eager: grows
+        ref = dec.decode_attention_plain(q, k, k)
+        assert (out - ref).abs().max().item() <= TOL[torch.float32]
+        assert dec._workspaces[card.index][0].numel() > ws.numel()
+    finally:
+        if saved is not None:
+            dec._workspaces[card.index] = saved
+
+
+def test_graph_replays_after_other_shapes_set_the_smem_limit(card):
+    """A decode launch captured at one shape replays correctly after
+    another thread launched the same kernel at a shape needing more
+    shared memory and then at one needing less (the limit a launch sets
+    is never lowered)."""
+    import threading
+
+    from ray_dynamic_batching_tpu_torch.ops import graphs
+
+    gen = torch.Generator(device=card).manual_seed(5)
+    dtype = torch.bfloat16
+
+    def inputs(B, Tq, S, N):
+        q = _rand(gen, (B, Tq, N, 128), dtype, card)
+        k = _rand(gen, (B, S, 8, 128), dtype, card)
+        v = _rand(gen, (B, S, 8, 128), dtype, card)
+        return q, k, v
+
+    mid = inputs(4, 4, 512, 32)      # 16 window rows a KV head
+    gs = graphs.GraphSet(card)
+    prog = gs.program("decode", lambda q, k, v: dec.decode_attention(
+        q, k, v))
+    prog(*mid)                       # eager, then captured
+    others = [inputs(2, 8, 256, 32), inputs(2, 1, 256, 8)]  # 32, 1 rows
+
+    def launch_others():
+        for x in others:
+            dec.decode_attention(*x)
+        torch.cuda.synchronize()
+
+    t = threading.Thread(target=launch_others)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive()
+    out = prog(*mid).clone()         # a replay
+    ref = dec.decode_attention_plain(*mid)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+def test_released_engine_returns_its_pool(card):
+    """An engine's graphs live in its own pool; release_buffers() drops
+    them with the cache, and the card's allocated memory returns to its
+    value before the engine was built."""
+    import gc
+
+    from ray_dynamic_batching_tpu_torch.engine.decode import DecodeEngine
+    from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
+
+    def held() -> int:
+        # cuBLAS keeps a workspace per (handle, stream) it ran a GEMM on,
+        # the engines' capture streams among them: dropped first.
+        gc.collect()
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(card)
+
+    model = _tiny_lm(card)
+    DecodeEngine(model, RequestQueue("w"), num_slots=4, max_len=256,
+                 prompt_buckets=[16, 32], device=card).warmup()  # builds
+    before = held()
+    engine = DecodeEngine(model, RequestQueue("t"), num_slots=4, max_len=256,
+                          prompt_buckets=[16, 32], device=card)
+    engine.warmup()
+    assert engine.capture_stats()["captures"] > 0
+    assert held() > before
+    engine.release_buffers()
+    del engine
+    assert held() == before

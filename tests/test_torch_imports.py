@@ -223,3 +223,43 @@ def test_flight_recorder_runs_with_jax_blocked():
         hops.replace("'", '"')))
     assert {"handle.remote", "decode.prefill", "decode.sequence"} <= set(
         json.loads(names.replace("'", '"')))
+
+
+# The captured-program layer: the graph runner, the hot-program registry
+# and the capture ledger.
+GRAPH_MODULES = ("ops/graphs.py", "ops/jit_model.py",
+                 "utils/compile_ledger.py")
+
+_GRAPH_PROBE = """
+import sys
+for name in {forbidden!r}:
+    sys.modules[name] = None      # any import of them now raises
+import torch
+from ray_dynamic_batching_tpu_torch.ops import graphs, jit_model
+from ray_dynamic_batching_tpu_torch.utils.compile_ledger import get_ledger
+ledger = get_ledger()
+prog = ledger.instrument("toy", graphs.GraphSet(torch.device("cpu")).program(
+    "toy", lambda x: x + 1))
+ledger.begin_warmup()
+prog(torch.zeros(3))
+ledger.end_warmup()
+prog(torch.zeros(3))
+ledger.check_steady()
+print(ledger.counts(), len(jit_model.required_for(True, True, False)))
+"""
+
+
+def test_captured_program_modules_import_no_jax():
+    """The three modules exist, the AST scan above covers them, and with
+    JAX and the JAX package blocked they import and record a warmed
+    program's episode (once) on the CPU."""
+    scanned = {p.relative_to(PORT).as_posix() for p in _sources()
+               if PORT in p.parents}
+    assert set(GRAPH_MODULES) <= scanned
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", _GRAPH_PROBE.format(forbidden=FORBIDDEN)],
+        capture_output=True, text=True, timeout=120, cwd=str(ROOT), env=env,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "{'toy': 1} 3"
