@@ -79,7 +79,25 @@ last line:
     the per-hop p50 / p95 of both, the queue wait split by whether every
     slot was decoding at arrival (beside the share spent waiting out a
     scan), the 8 slowest TTFT ledgers and the engine's ``snapshot()``,
-    and writes the Chrome trace to ``build/traces/front.json``;
+    and writes the Chrome trace to ``build/traces/front.json``. Then the
+    sharded front door (``serve/frontdoor.py``): two ``HTTPProxy``s, each
+    taking one shard of one ``FrontDoor(n_shards=2,
+    gossip_interval_s=0.2)`` as its admission, in front of the same
+    handle; the global budget's rate is 0.5 x the capacity just measured,
+    its burst 1 s of that rate; Poisson arrivals (phase 10's prompts) at
+    1.0 x the capacity for 8 s, alternating between the proxies. It fails
+    unless the fleet admits no more than ``rate T + burst + (N - 1) rate
+    staleness + N`` (the bound the reference's ``serve/frontdoor.py``
+    states; T up to the last admission decision, staleness the largest
+    peer age the shards' ledgers showed, sampled every 20 ms), every
+    admitted request is
+    answered 200 with its tokens, every reject is a 429 with
+    ``Retry-After``, no other status comes back, the admitted requests
+    are among those the router counted, and ``FrontDoor.stop()`` leaves
+    no gossip thread alive; it prints the admitted and rejected counts per
+    shard, ``drift_audit`` and the TTFT p50 / p99 of the admitted requests
+    beside the card's name and power limit. Its launches count under
+    ``front``;
 11. controller — the declarative path of the README: ``apply_config``
     deploys application ``chat`` (route ``/chat``) with one ``llm:``
     deployment ``llama3_8b`` (phase 5's knobs, version ``v1``,
@@ -176,7 +194,14 @@ last line:
     ``collate.batch`` against the ``engine.step`` it runs in and the step
     less its collate against the profiled row, and writes
     ``build/traces/vision.json``; a traced request not answered or a
-    ledger that does not conserve fails it.
+    ledger that does not conserve fails it. For phase 15 the gated run's
+    drivers record every arrival they submit
+    (``WorkloadDriver(record_path=build/profiles_h100/arrivals.jsonl)``,
+    ``tools/run_slo_demo.py``'s shape), what it served per model and half
+    goes to ``build/profiles_h100/vision_served.json``, and the traced
+    window's spans to ``build/traces/vision_spans.jsonl`` (every popped
+    request has a ``queue.wait`` span, traced or not, so the span replay
+    is the whole window's).
 
 14. graphs — the engine's hot programs captured as CUDA graphs
     (``ops/graphs.py``) against the same programs run eagerly
@@ -193,6 +218,23 @@ last line:
     ``torch.profiler`` (CUDA activity only: the device's idle share) —
     with the graphed engine's captures, capture seconds and pool bytes,
     beside the card's name, power limit, the host's CPU and ``nproc``.
+
+15. sim — the simulator (``sim/*``) on the card, over phase 13's files;
+    it fails if one is missing. (a) ``python -m
+    ray_dynamic_batching_tpu_torch.sim --smoke`` in-process: the reference
+    arm (``scheduler/control.reference_headroom()``) must pass every check
+    of the reference's gate, the port arm (1.5 x) determinism and the
+    floors; its two occupancy comparisons are printed with their
+    verdicts. (b) The recorded arrivals replayed on the card's
+    ``resnet50``, ``shufflenet_v2`` and ``vit_b_16`` tables at the demo's
+    SLOs, 3 engines and the port's rule, twice: the two reports must be
+    byte-identical and every recorded arrival accounted for; per model and
+    half, the sim's compliance is printed beside what phase 13 served.
+    (c) ``--hop-drift`` over the traced window's spans: at least one hop
+    must be graded; each graded hop's p50 / p95 live and sim and the hops
+    past the tolerance are printed. (d) The occupancy floor phase 12's
+    decode table implies (the 4-slot row over the 32-slot row) beside the
+    sim's default 0.35, printed only, when that table is there.
 
 Every engine is warmed before it serves, and every serving phase (5-12,
 14) ends with the capture ledger's ``check_steady()``: no program was
@@ -217,10 +259,11 @@ served in both + the vit_b_16 buckets the engines warmed).
 The line before the last is one JSON object with the per-kernel numbers
 (``launches`` sums the serving phases, phase 14's graphed speed runs
 among them; ``launches_by_path`` splits them) and the numbers of the
-front, controller, colocate, vision and graphs phases (``front``,
-``controller``, ``colocate``, ``vision``, ``graphs``; the per-hop splits
-under ``front.hops``, ``colocate.runs.diagnostic.turns`` and
-``vision.traced``); the last line is
+front, controller, colocate, vision, graphs and sim phases (``front``,
+``controller``, ``colocate``, ``vision``, ``graphs``, ``sim``; the
+per-hop splits under ``front.hops``, ``colocate.runs.diagnostic.turns``
+and ``vision.traced``, the front-door run under ``front.front_door``);
+the last line is
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (for
 bring-up); the default runs all. ``--profile`` traces each serving window
 with ``torch.profiler`` (CUDA activity) and prints the device's busy share
@@ -317,9 +360,8 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def phase_device() -> dict:
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: this smoke run needs a card")
+def _smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reports them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -327,7 +369,13 @@ def phase_device() -> dict:
     )
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    line = smi.stdout.strip().splitlines()[0]
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device() -> dict:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs a card")
+    line = _smi()
     print(f"[device] {line}", flush=True)
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"cards {torch.cuda.device_count()}", flush=True)
@@ -1297,6 +1345,23 @@ def _write_trace(name: str, spans: list, journal=None) -> str:
     return path
 
 
+def _write_spans_jsonl(path: str, spans: list) -> str:
+    """A capture as span JSONL (``utils/trace_export.FileSpanExporter``'s
+    format, which the simulator's ``--spans`` and ``--hop-drift`` read)."""
+    from ray_dynamic_batching_tpu_torch.utils.trace_export import (
+        FileSpanExporter,
+    )
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    sink = FileSpanExporter(path)
+    for span in spans:
+        sink.export(span)
+    sink.close()
+    if sink.dropped:
+        fail(f"{path}: {sink.dropped} spans not written")
+    return path
+
+
 def _pcts(values: list) -> dict | None:
     return (dict(p50=float(np.percentile(values, 50)),
                  p95=float(np.percentile(values, 95))) if values else None)
@@ -1470,6 +1535,8 @@ def phase_front(profile: bool) -> tuple:
             code_s, body_s = _post(proxy, "/api/llama3_8b",
                                    {**payload(), "stream": True})
             metrics_text = _get(proxy, "/metrics")
+            front_door = _front_door_run(tag, handle, capacity, payload,
+                                         max_new)
             wall = time.monotonic() - t_window
             engine.stop()
             torch.cuda.synchronize()
@@ -1505,7 +1572,7 @@ def phase_front(profile: bool) -> tuple:
     if missing:
         fail(f"{tag}: GET /metrics lacks the engine's families {missing}")
     print(f"[{tag}] GET /metrics: {'; '.join(decode_lines)}", flush=True)
-    submitted = len(sat) + len(poisson) + 2
+    submitted = len(sat) + len(poisson) + 2 + front_door["admitted"]
     if router.total_routed != submitted:
         fail(f"{tag}: router routed {router.total_routed}, "
              f"{submitted} submitted")
@@ -1521,8 +1588,182 @@ def phase_front(profile: bool) -> tuple:
         kv_occupancy_at_arrival=occ_seen,
         hop_p50_ms=statistics.median(hop_ms), hop_max_ms=max(hop_ms),
         routed=router.total_routed, http_buffered=code_b,
-        http_streamed=code_s, hops=hops)
+        http_streamed=code_s, hops=hops, front_door=front_door)
     return counts, numbers
+
+
+# Phase 10's front-door run: shards of one FrontDoor, each the admission
+# layer of its own HTTPProxy over the same deployment; the global budget a
+# share of the capacity just measured, with a burst of ``burst_s`` of it,
+# offered Poisson arrivals at ``offered_share`` of it.
+FRONT_DOOR = dict(n_shards=2, gossip_interval_s=0.2, budget_share=0.5,
+                  burst_s=1.0, offered_share=1.0, duration_s=8.0, seed=13)
+
+
+class _TimedShard:
+    """A front-door shard as a proxy's admission layer, stamping the
+    time of each decision (the bound is taken at the last one)."""
+
+    def __init__(self, shard) -> None:
+        self.shard = shard
+        self.last_s = 0.0
+
+    def admit(self, deployment: str, tenant: str = "",
+              qos_class: str = "standard") -> tuple:
+        out = self.shard.admit(deployment, tenant, qos_class)
+        self.last_s = max(self.last_s, time.monotonic())
+        return out
+
+
+def _front_door_run(tag: str, handle, capacity: float, payload,
+                    max_new: int) -> dict:
+    """Two ``HTTPProxy``s, each taking one shard of one
+    ``FrontDoor(n_shards=2)`` as its admission, in front of the phase's
+    deployment: Poisson arrivals split evenly over the two. Gated: the
+    fleet admits no more than ``rate T + burst + (N - 1) rate staleness +
+    N`` (``staleness`` the largest peer age the shards' ledgers showed);
+    every admitted request is answered 200 with its tokens, every reject
+    is a 429 with ``Retry-After``, nothing else comes back; ``stop()``
+    leaves no gossip thread alive."""
+    from ray_dynamic_batching_tpu_torch.engine.workload import (
+        RatePattern,
+        arrival_times,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.frontdoor import FrontDoor
+    from ray_dynamic_batching_tpu_torch.serve.proxy import (
+        HTTPProxy,
+        ProxyRouter,
+    )
+
+    c, dep = FRONT_DOOR, handle.deployment
+    tag = f"{tag} front door"
+    rate = c["budget_share"] * capacity
+    burst = c["burst_s"] * rate
+    offered = c["offered_share"] * capacity
+    offsets = list(arrival_times(RatePattern("constant", base_rps=offered),
+                                 c["duration_s"], True, c["seed"]))
+    payloads = [payload() for _ in offsets]
+    fd = FrontDoor(n_shards=c["n_shards"],
+                   gossip_interval_s=c["gossip_interval_s"])
+    fd.configure(dep, rate_rps=rate, burst=burst)
+    gates = [_TimedShard(fd.shards[sid]) for sid in sorted(fd.shards)]
+    routes = ProxyRouter()
+    routes.set_route(f"/api/{dep}", handle)
+    proxies = [HTTPProxy(routes, host="127.0.0.1", port=0, admission=g,
+                         shard_id=g.shard.shard_id) for g in gates]
+    results: list = [None] * len(offsets)
+    staleness = [0.0]
+    sampling = threading.Event()
+
+    def sample() -> None:
+        while not sampling.wait(0.02):
+            now = time.monotonic()
+            for shard in list(fd.shards.values()):
+                ledger = shard.ledger(dep)
+                if ledger is not None:
+                    staleness[0] = max(staleness[0],
+                                       ledger.peer_staleness_s(now))
+
+    def send(i: int) -> None:
+        proxy = proxies[i % len(proxies)]
+        conn = http.client.HTTPConnection(proxy.host, proxy.port,
+                                          timeout=600)
+        try:
+            conn.request("POST", f"/api/{dep}", body=json.dumps(payloads[i]),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            results[i] = (resp.status, resp.getheader("Retry-After"),
+                          resp.read().decode(), i % len(proxies))
+        except Exception as e:  # noqa: BLE001 — a lost request fails
+            results[i] = (None, None, f"{type(e).__name__}: {e}",
+                          i % len(proxies))
+        finally:
+            conn.close()
+
+    senders = []
+    sampler = threading.Thread(target=sample, daemon=True)
+    try:
+        for p in proxies:
+            p.start()
+        fd.start()
+        sampler.start()
+        t0 = time.monotonic()
+        for i, offset in enumerate(offsets):
+            delay = t0 + offset - time.monotonic()
+            if delay > 0:
+                time.sleep(delay)
+            senders.append(threading.Thread(target=send, args=(i,),
+                                            daemon=True))
+            senders[-1].start()
+        for t in senders:
+            t.join(600)
+        wall_s = time.monotonic() - t0
+    finally:
+        sampling.set()
+        if sampler.is_alive():
+            sampler.join(5)
+        fd.stop()
+        for p in proxies:
+            p.stop()
+    gossip_alive = [t.name for t in threading.enumerate()
+                    if t.name == "frontdoor-gossip" and t.is_alive()]
+    if fd._thread is not None or gossip_alive:
+        fail(f"{tag}: FrontDoor.stop() left {gossip_alive} alive")
+    if any(t.is_alive() for t in senders):
+        fail(f"{tag}: a request never returned")
+    admitted = fd.true_admitted(dep)
+    by_code: dict = {}
+    ttfts, per_proxy = [], [dict(ok=0, rejected=0) for _ in proxies]
+    for status, retry_after, body, k in results:
+        by_code[status] = by_code.get(status, 0) + 1
+        if status == 200:
+            res = json.loads(body)["result"]
+            if len(res["tokens"]) != max_new:
+                fail(f"{tag}: an admitted request got {len(res['tokens'])}"
+                     f" tokens, expected {max_new}")
+            ttfts.append(res["ttft_ms"])
+            per_proxy[k]["ok"] += 1
+        elif status == 429:
+            if not retry_after:
+                fail(f"{tag}: a 429 without Retry-After: {body[:200]}")
+            per_proxy[k]["rejected"] += 1
+        else:
+            fail(f"{tag}: HTTP {status}: {body[:200]}")
+    if by_code.get(200, 0) != admitted:
+        fail(f"{tag}: {by_code.get(200, 0)} answered 200, the shards "
+             f"admitted {admitted}")
+    budget = fd.budget(dep)
+    horizon_s = max(g.last_s for g in gates) - budget.t0
+    n = len(fd.shards)
+    bound = (rate * horizon_s + burst + (n - 1) * rate * staleness[0] + n)
+    shards = {sid: dict(admitted=s.admitted, rejected=s.rejected)
+              for sid, s in sorted(fd.shards.items())}
+    drift = fd.drift_audit(dep)
+    ttfts.sort()
+    p50 = statistics.median(ttfts) if ttfts else None
+    p99 = ttfts[min(len(ttfts) - 1, int(len(ttfts) * 0.99))] if ttfts else None
+    smi = _smi()
+    print(f"[{tag}] {len(offsets)} Poisson arrivals at {offered:.2f} rps "
+          f"over {c['duration_s']:.0f} s, split over {len(proxies)} proxies; "
+          f"budget rate {rate:.2f} rps, burst {burst:.2f}; responses "
+          f"{by_code}; per shard {shards}; per proxy {per_proxy}; admitted "
+          f"{admitted} <= bound {bound:.2f} (rate x {horizon_s:.3f} s + "
+          f"burst + {n - 1} x rate x staleness {staleness[0]:.3f} s + {n})"
+          f"; gossip rounds {fd.gossip_rounds}; drift_audit {drift}; TTFT "
+          f"of the admitted p50 {p50} ms p99 {p99} ms; wall {wall_s:.1f} s; "
+          f"{smi}", flush=True)
+    if admitted > bound:
+        fail(f"{tag}: admitted {admitted} > bound {bound:.2f}")
+    if not admitted or not by_code.get(429):
+        fail(f"{tag}: the run admitted {admitted} and rejected "
+             f"{by_code.get(429, 0)}: the budget was never exercised")
+    return dict(arrivals=len(offsets), offered_rps=offered,
+                budget_rps=rate, burst=burst, admitted=admitted,
+                rejected=by_code.get(429, 0), shards=shards,
+                proxies=per_proxy, bound=bound, horizon_s=horizon_s,
+                staleness_s=staleness[0], gossip_rounds=fd.gossip_rounds,
+                drift_audit=drift, ttft_p50_ms=p50, ttft_p99_ms=p99,
+                wall_s=wall_s, card=smi)
 
 
 def _front_ledgers(tag, collector, loads, poisson, max_new, engine, busy_at,
@@ -1848,6 +2089,12 @@ COLOCATE = dict(
     max_new=32, prompt=(40, 61), probe_len=48, seed=11, expect_auto=256,
 )
 PROFILES_DIR = "build/profiles_h100"
+# What phase 13 leaves for phase 15: the gated run's recorded arrivals
+# (every submitted arrival, WorkloadDriver(record_path=...)), what it
+# served per model and half, and the traced window's spans as JSONL.
+ARRIVALS_PATH = f"{PROFILES_DIR}/arrivals.jsonl"
+SERVED_PATH = f"{PROFILES_DIR}/vision_served.json"
+VISION_SPANS_PATH = f"{TRACE_DIR}/vision_spans.jsonl"
 
 
 def _colocate_run(dev, budget: int, ttft_slo_ms: float, profiles_dir: str,
@@ -2435,10 +2682,7 @@ def phase_colocate() -> tuple:
 
     mem_before = _tensor_bytes_on_card()
     budget = torch.cuda.get_device_properties(0).total_memory
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
+    smi = _smi()
     print(f"[colocate] hbm_budget_bytes {budget} (the card's total memory; "
           f"{smi})", flush=True)
     attention.reset_counts()
@@ -2735,11 +2979,13 @@ def _vision_slo_run(c: dict, profiles_dir: str) -> tuple:
             sched.submit_request(Request(model=model, payload=example[model],
                                          slo_ms=slos[model]))
 
+        os.makedirs(profiles_dir, exist_ok=True)
+        open(ARRIVALS_PATH, "w").close()     # the drivers append to it
         drivers = [
             WorkloadDriver(submit, n, RatePattern(
                 "step", base_rps=base[n], amplitude=base[n] * (mult[n] - 1.0),
                 step_at_s=shift_at), duration_s=c["duration_s"],
-                poisson=True, seed=17 + i)
+                poisson=True, seed=17 + i, record_path=ARRIVALS_PATH)
             for i, n in enumerate(names)
         ]
         t0 = time.monotonic()
@@ -2862,6 +3108,15 @@ def _vision_slo_run(c: dict, profiles_dir: str) -> tuple:
     out.update(worst_compliance=worst, triggers=triggers,
                surge_replans=len(surge_seen), vit_batches=vit_batches,
                vit_warmups=warmups)
+    with open(SERVED_PATH, "w") as f:
+        json.dump({"slo_ms": slos, "duration_s": c["duration_s"],
+                   "shift_at_s": shift_at, "engines": c["engines"],
+                   "arrivals": ARRIVALS_PATH,
+                   "models": {n: {"sent": m["sent"],
+                                  "phase1": m["phase1"]["slo_compliance"],
+                                  "phase2": m["phase2"]["slo_compliance"]}
+                              for n, m in out["models"].items()},
+                   "traced": traced}, f, indent=1)
     if low:
         fail(f"vision: SLO compliance under {c['gate']}: {low}")
     if "rate_change" not in triggers[1:] or not surge_seen:
@@ -2921,6 +3176,7 @@ def _vision_traced_window(c: dict, sched, queues, names, example, slos,
                               duration_s=c["traced_s"], poisson=True,
                               seed=71 + i)
                for i, n in enumerate(names)]
+    before = {n: dict(queues.queue(n).stats()) for n in names}
     tracer().set_exporter(collector.export)
     try:
         for d in drivers:
@@ -2943,6 +3199,10 @@ def _vision_traced_window(c: dict, sched, queues, names, example, slos,
     spans = collector.spans
     if collector.dropped:
         fail(f"{tag}: the collector dropped {collector.dropped} spans")
+    window = {k: sum(queues.queue(n).stats()[k] - before[n][k]
+                     for n in names) for k in COUNTER_FIELDS}
+    jsonl = _write_spans_jsonl(VISION_SPANS_PATH, spans + loads.spans())
+    waits = sum(1 for s in spans if s.name == "queue.wait")
     ledgers = _load_ledgers(tag, spans, loads)
     if len(ledgers) != len(futs):
         fail(f"{tag}: {len(ledgers)} ledgers for {len(futs)} traced "
@@ -2950,7 +3210,13 @@ def _vision_traced_window(c: dict, sched, queues, names, example, slos,
     print(f"[{tag}] {c['traced_s']:.0f} s at {({n: round(r, 2) for n, r in rates.items()})}"
           f" rps: {sum(d.sent for d in drivers)} arrivals, {len(futs)} "
           f"traced, {len(spans)} spans", flush=True)
+    print(f"[{tag}] queue.wait spans {waits} (every popped request's, "
+          f"traced or not) for {window['completed']:.0f} completed, "
+          f"{window['stale']:.0f} stale, {window['dropped']:.0f} dropped; "
+          f"spans written to {jsonl}", flush=True)
     out = {"sent": sum(d.sent for d in drivers), "traced": len(futs),
+           "queue_wait_spans": waits, "spans_jsonl": jsonl,
+           **{f"window_{k}": v for k, v in window.items()},
            "hops": _print_hops(tag, "request by hop (load root, submit -> "
                                "answer)", ledgers), "models": {}}
     slow = sorted(ledgers, key=lambda l: l.end_to_end_ms)[-5:]
@@ -3166,10 +3432,7 @@ def phase_graphs() -> tuple:
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
+    smi = _smi()
     host = _host()
     print(f"[graphs] {smi}; host {host}", flush=True)
     V = LLAMA3_8B.vocab_size
@@ -3233,6 +3496,197 @@ def phase_graphs() -> tuple:
     return counts, dict(card=smi, host=host, parity=parity, speed=speed)
 
 
+# --- phase 15: the simulator on the card's own tables ------------------------
+# The demo's contracts as phase 13 serves them, for the sim's CLI.
+SIM_MODEL_ARGS = ("--model", "resnet50=2000", "--model", "shufflenet_v2=1500",
+                  "--model", "vit_b_16=4000")
+SIM_OUT_DIR = "build/sim"
+
+
+def _sim_cli(tag: str, argv: list) -> tuple:
+    """The simulator's CLI (``python -m ray_dynamic_batching_tpu_torch.sim``)
+    in-process: (exit code, its standard output)."""
+    import io
+
+    from ray_dynamic_batching_tpu_torch.sim.__main__ import main as sim_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = sim_main(argv)
+    print(f"[{tag}] sim {' '.join(argv)} -> exit {rc}", flush=True)
+    return rc, buf.getvalue()
+
+
+def _sim_smoke() -> dict:
+    """(a) ``--smoke``: the reference arm gates every check of the
+    reference's smoke, the port arm determinism and the floors; the port
+    arm's occupancy comparisons are printed, not gated."""
+    rc, text = _sim_cli("sim smoke", ["--smoke"])
+    lines = text.splitlines()
+    summary = json.loads(lines[0])
+    for arm in ("reference", "port"):
+        a = summary[arm]
+        print(f"[sim smoke] {arm} arm (headroom {a['rate_headroom']}): "
+              f"batch {a['slo_attainment']}, migrations {a['migrations']}, "
+              f"chips {a['chips_used']}, completed {a['completed']}; slot "
+              f"{a['occupancy_model']['slot_attainment']}, completed "
+              f"{a['occupancy_model']['completed']}; deterministic "
+              f"{a['deterministic']} / "
+              f"{a['occupancy_model']['deterministic']}", flush=True)
+    for ln in lines[1:]:
+        print(f"[sim smoke] {ln}", flush=True)
+    if rc != 0 or not summary["ok"]:
+        fail(f"sim smoke: exit {rc}, ok {summary['ok']}")
+    return summary
+
+
+def _sim_replay(served: dict) -> dict:
+    """(b) Phase 13's recorded arrivals on the card's tables, at the
+    demo's SLOs and engine count, the port's rule: run twice (the reports
+    must be byte-identical, every recorded arrival accounted for), and
+    once to the step for the first half; per model and half the sim's
+    compliance beside what phase 13 served."""
+    from ray_dynamic_batching_tpu_torch.profiles.table import BatchProfile
+    from ray_dynamic_batching_tpu_torch.sim import Simulation, render_json
+    from ray_dynamic_batching_tpu_torch.sim.simulator import (
+        Scenario,
+        SimModelSpec,
+    )
+    from ray_dynamic_batching_tpu_torch.sim.workload import (
+        load_recorded_arrivals,
+    )
+
+    tag = "sim replay"
+    slos = served["slo_ms"]
+    profiles = {n: BatchProfile.from_csv(
+        n, f"{PROFILES_DIR}/{n}_summary.csv") for n in slos}
+    arrivals = load_recorded_arrivals(ARRIVALS_PATH)
+    sent = {n: m["sent"] for n, m in served["models"].items()}
+    recorded = {n: sum(1 for _, m in arrivals if m == n) for n in slos}
+    if recorded != sent:
+        fail(f"{tag}: {ARRIVALS_PATH} holds {recorded} arrivals, phase 13 "
+             f"sent {sent}")
+
+    def run(duration_s: float) -> dict:
+        return Simulation(profiles, Scenario(
+            models=[SimModelSpec(n, slo) for n, slo in slos.items()],
+            duration_s=duration_s, n_engines=served["engines"], seed=0,
+            arrivals=arrivals)).run()
+
+    t0 = time.monotonic()
+    texts = [render_json(run(served["duration_s"])) for _ in range(2)]
+    first = run(served["shift_at_s"])
+    wall_s = time.monotonic() - t0
+    if texts[0] != texts[1]:
+        fail(f"{tag}: two runs of the same replay differ")
+    os.makedirs(SIM_OUT_DIR, exist_ok=True)
+    with open(f"{SIM_OUT_DIR}/replay.json", "w") as f:
+        f.write(texts[0])
+    whole = json.loads(texts[0])
+    lost = {n: m["arrivals"] - (m["completed"] + m["stale"] + m["dropped"]
+                                + m["pending"])
+            for n, m in whole["models"].items()}
+    if (whole["arrivals_total"] != len(arrivals) or any(lost.values())
+            or whole["arrivals_truncated_past_horizon"]
+            or whole.get("arrivals_ignored_unregistered_model")):
+        fail(f"{tag}: {whole['arrivals_total']} of {len(arrivals)} "
+             f"arrivals replayed, unaccounted {lost}")
+    out = {"arrivals": len(arrivals), "wall_s": wall_s,
+           "chips_used": whole["chips_used"],
+           "migrations": whole["migrations"],
+           "schedule_changes": whole["schedule_changes"], "models": {}}
+    def miss(m: dict) -> int:
+        return m["stale"] + m["dropped"] + m["violations"]
+
+    for n in slos:
+        w, h = whole["models"][n], first["models"][n]
+        a2 = w["arrivals"] - h["arrivals"]
+        sim = (1.0 - miss(h) / h["arrivals"] if h["arrivals"] else 1.0,
+               1.0 - (miss(w) - miss(h)) / a2 if a2 else 1.0)
+        live = (served["models"][n]["phase1"], served["models"][n]["phase2"])
+        out["models"][n] = {"sim": sim, "served": live,
+                            "arrivals": w["arrivals"],
+                            "completed": w["completed"], "stale": w["stale"],
+                            "dropped": w["dropped"],
+                            "violations": w["violations"]}
+        print(f"[{tag}] {n}: {w['arrivals']} arrivals; compliance first "
+              f"half sim {sim[0]:.4f} served {live[0]:.4f}, second half "
+              f"sim {sim[1]:.4f} served {live[1]:.4f}", flush=True)
+    print(f"[{tag}] {len(arrivals)} recorded arrivals replayed on "
+          f"{served['engines']} engines at the port's rule, twice "
+          f"(byte-identical), all accounted for; {whole['chips_used']} "
+          f"chips used, {whole['migrations']} migrations, "
+          f"{whole['schedule_changes']} schedule changes; 3 runs in "
+          f"{wall_s:.2f} s", flush=True)
+    return out
+
+
+def _sim_hop_drift(served: dict) -> dict:
+    """(c) ``--hop-drift`` over phase 13's traced window: at least one hop
+    graded; each graded hop's p50 / p95 live and sim, and the hops past
+    the tolerance, printed."""
+    tag = "sim hop drift"
+    path = f"{SIM_OUT_DIR}/hop_drift.json"
+    os.makedirs(SIM_OUT_DIR, exist_ok=True)
+    rc, _ = _sim_cli(tag, ["--hop-drift", VISION_SPANS_PATH, "--profiles",
+                           PROFILES_DIR, *SIM_MODEL_ARGS, "--engines",
+                           str(served["engines"]), "--out", path])
+    if rc not in (0, 1):
+        fail(f"{tag}: exit {rc} (2: no hop graded, or a usage error)")
+    with open(path) as f:
+        diff = json.load(f)
+    if not diff["hops"]:
+        fail(f"{tag}: no hop graded ({diff['ungraded']})")
+    for hop, e in diff["hops"].items():
+        print(f"[{tag}] {hop}: p50 live {e['p50']['live_ms']:.3f} sim "
+              f"{e['p50']['sim_ms']:.3f} ms, p95 live "
+              f"{e['p95']['live_ms']:.3f} sim {e['p95']['sim_ms']:.3f} ms, "
+              f"worst drift {e['worst_drift']:.3f} ({e['live_count']} live / "
+              f"{e['sim_count']} sim samples)", flush=True)
+    print(f"[{tag}] drifting beyond {diff['tolerance']}: "
+          f"{diff['drifting_hops'] or 'none'}; ungraded "
+          f"{sorted(diff['ungraded'])}", flush=True)
+    return diff
+
+
+def _sim_occupancy_floor() -> dict:
+    """(d) The slot occupancy floor phase 12's decode table implies (the
+    4-slot step over the 32-slot step), beside the sim's default."""
+    from ray_dynamic_batching_tpu_torch.profiles.table import BatchProfile
+    from ray_dynamic_batching_tpu_torch.sim.simulator import Scenario
+
+    default = Scenario(models=[]).occupancy_floor
+    path = f"{PROFILES_DIR}/llama3_8b_decode_summary.csv"
+    if not os.path.exists(path):
+        print(f"[sim floor] {path} is not there (phase 12 did not run); "
+              f"the sim's default floor is {default}", flush=True)
+        return {"default": default, "table": None}
+    table = BatchProfile.from_csv("llama3_8b_decode", path)
+    rows = {r.batch_size: r.latency_ms for r in table.rows}
+    floor = rows[4] / rows[32]
+    print(f"[sim floor] llama3_8b decode step: 4 slots {rows[4]:.3f} ms, "
+          f"32 slots {rows[32]:.3f} ms: implied occupancy floor "
+          f"{floor:.3f} against the sim's default {default}", flush=True)
+    return {"default": default, "table": floor, "rows_ms": rows}
+
+
+def phase_sim() -> dict:
+    """Phase 15: the simulator on the card, over phase 13's files."""
+    t0 = time.monotonic()
+    missing = [p for p in (SERVED_PATH, ARRIVALS_PATH, VISION_SPANS_PATH)
+               if not os.path.exists(p)]
+    if missing:
+        fail(f"sim: phase 13's files are missing: {missing}")
+    with open(SERVED_PATH) as f:
+        served = json.load(f)
+    out = {"smoke": _sim_smoke(), "replay": _sim_replay(served),
+           "hop_drift": _sim_hop_drift(served),
+           "occupancy_floor": _sim_occupancy_floor()}
+    out["wall_s"] = time.monotonic() - t0
+    print(f"[sim] phase wall time {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     with contextlib.ExitStack() as stack:
         _main(stack)
@@ -3241,7 +3695,8 @@ def main() -> None:
 def _main(stack: contextlib.ExitStack) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     all_phases = (["build", "kernels", "parity"] + list(SERVING)
-                  + ["front", "controller", "colocate", "vision", "graphs"])
+                  + ["front", "controller", "colocate", "vision", "graphs",
+                     "sim"])
     ap.add_argument("--phases", default=",".join(all_phases),
                     help=f"comma-separated subset of {','.join(all_phases)} "
                          "(the device phase always runs)")
@@ -3291,7 +3746,7 @@ def _main(stack: contextlib.ExitStack) -> None:
                 + (f", the long prompts {longs} ms" if longs else ""))
         print("[slab_chunked] beside main and int8: " + "; ".join(beside),
               flush=True)
-    front = controller = colocate = vision = graphed = None
+    front = controller = colocate = vision = graphed = sim = None
     if "front" in phases:
         by_path["front"], front = phase_front(args.profile)
     if "controller" in phases:
@@ -3302,13 +3757,15 @@ def _main(stack: contextlib.ExitStack) -> None:
         by_path["vision"], vision = phase_vision()
     if "graphs" in phases and not args.eager:
         by_path["graphs"], graphed = phase_graphs()
+    if "sim" in phases:
+        sim = phase_sim()
     for name, row in kernels.items():
         split = {path: c[name] for path, c in by_path.items()}
         row["launches"] = sum(split.values()) if split else None
         row["launches_by_path"] = split
     print(json.dumps({"kernels": list(kernels.values()), "front": front,
                       "controller": controller, "colocate": colocate,
-                      "vision": vision, "graphs": graphed}))
+                      "vision": vision, "graphs": graphed, "sim": sim}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],
         "count": torch.cuda.device_count()}}))

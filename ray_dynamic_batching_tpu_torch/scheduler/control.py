@@ -26,10 +26,11 @@ schedule log and the change detector keep the rates as read.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 from ray_dynamic_batching_tpu_torch.engine.queue import QueueManager
 from ray_dynamic_batching_tpu_torch.engine.rates import RateRegistry
@@ -66,6 +67,31 @@ logger = get_logger("control")
 # doubled rate that the next pass half-sees (1.5x read, 2.25x planned) is
 # already planned past.
 RATE_HEADROOM = 0.5
+
+
+def planned_sessions(models: Dict[str, ModelEntry],
+                     rates: Dict[str, float]) -> List[Session]:
+    """The sessions the packer is handed: each model at ``1 +
+    RATE_HEADROOM`` times the rate read. The live scheduler and the
+    simulator's (``sim/control.py``) both plan through this; the constant
+    is read at call time, so ``reference_headroom()`` reaches both."""
+    scale = 1.0 + RATE_HEADROOM
+    return sessions_for(models, {m: r * scale for m, r in rates.items()})
+
+
+@contextlib.contextmanager
+def reference_headroom() -> Iterator[None]:
+    """Plan at the reference's rule (headroom 0.0: the rates as read)
+    inside the block, and restore the constant after. For comparisons
+    with the JAX package (the sim smoke's reference arm, the tests);
+    nothing on the serving path enters it."""
+    global RATE_HEADROOM
+    saved = RATE_HEADROOM
+    RATE_HEADROOM = 0.0
+    try:
+        yield
+    finally:
+        RATE_HEADROOM = saved
 
 
 class LiveScheduler:
@@ -156,11 +182,6 @@ class LiveScheduler:
         return self.queues.queue(request.model).add_request(request)
 
     # --- scheduling -------------------------------------------------------
-    def _sessions_for(self, rates: Dict[str, float]) -> List[Session]:
-        scale = 1.0 + RATE_HEADROOM
-        return sessions_for(self._models,
-                            {m: r * scale for m, r in rates.items()})
-
     @staticmethod
     def _engine_alive(engine) -> bool:
         """Duck-typed liveness: engines exposing ``healthy()`` (ReplicaEngine,
@@ -206,7 +227,7 @@ class LiveScheduler:
             decision = decide_replan(
                 self.packer,
                 [frozenset(e.models) for e in alive],
-                self._sessions_for(rates),
+                planned_sessions(self._models, rates),
                 rates,
                 capacity_factors=factors,
                 engine_widths=widths,

@@ -5,9 +5,8 @@ Re-creation of Ray Serve's architecture, in the port as in
 deployment state and checkpoints it; routers schedule requests over
 replicas with power-of-two-choices; replicas run user callables with
 size-or-timeout batching; config changes flow over long poll. Re-exports
-what the port has ported: the reference's list less the sharded front
-door (``frontdoor``, ROADMAP queue 1 item 7) and the OpenAI adapter
-(``openai_api``, item 10).
+what the port has ported: the reference's list less the OpenAI adapter
+(``openai_api``, ROADMAP queue 1 item 10).
 """
 
 from ray_dynamic_batching_tpu_torch.serve.api import (
@@ -42,6 +41,12 @@ from ray_dynamic_batching_tpu_torch.serve.fabric import (
     default_fabric,
     parse_partition_spec,
     reset_fabric,
+)
+from ray_dynamic_batching_tpu_torch.serve.frontdoor import (
+    FrontDoor,
+    FrontDoorShard,
+    GlobalBudget,
+    HashRing,
 )
 from ray_dynamic_batching_tpu_torch.serve.store import (
     CompactedLogError,
@@ -111,6 +116,10 @@ __all__ = [
     "DeploymentHandle",
     "DrainEvicted",
     "FabricUnreachable",
+    "FrontDoor",
+    "FrontDoorShard",
+    "GlobalBudget",
+    "HashRing",
     "InMemoryStore",
     "LeaderLease",
     "ReplicaCatalog",

@@ -21,8 +21,9 @@ without; and the captured programs (``ops/graphs.py``): graphed and
 eager engines serving identical tokens with equal launch counts on every
 arm, a failed capture raising, the merge scratch refusing to grow under
 capture, a graph replaying after other shapes moved the kernel's
-shared-memory limit, and a released engine giving its pool back. This
-file imports no JAX, so it runs on a machine without it::
+shared-memory limit, and a released engine giving its pool back; and a
+two-shard front door admitting within its bound in front of a 2-layer
+llama3_8b deployment. This file imports no JAX, so it runs on a machine without it::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -833,3 +834,107 @@ def test_released_engine_returns_its_pool(card):
     engine.release_buffers()
     del engine
     assert held() == before
+
+
+# --- the sharded front door (serve/frontdoor.py) ----------------------------
+def test_front_door_shards_admit_within_the_bound(card):
+    """Two ``HTTPProxy``s, each with one shard of one ``FrontDoor(n_shards=
+    2)`` as its admission, in front of a 2-layer llama3_8b slab deployment
+    (bf16, graphed): 48 requests over 2 s, alternating proxies, against a
+    global budget of 6 rps with a burst of 6. Every admitted request is
+    answered 200 with its tokens, every reject is a 429 with
+    ``Retry-After``; the fleet admits no more than ``rate T + burst +
+    (N - 1) rate staleness + N`` with the staleness two gossip intervals;
+    ``stop()`` ends the gossip thread."""
+    import dataclasses
+    import http.client
+    import json
+    import threading
+    import time
+
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        LLAMA3_8B,
+        CausalLM,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.controller import (
+        DeploymentConfig,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.frontdoor import FrontDoor
+    from ray_dynamic_batching_tpu_torch.serve.handle import DeploymentHandle
+    from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+    from ray_dynamic_batching_tpu_torch.serve.proxy import (
+        HTTPProxy,
+        ProxyRouter,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.router import Router
+
+    model = CausalLM(dataclasses.replace(LLAMA3_8B, num_layers=2),
+                     "llama3_8b", dtype=torch.bfloat16, device=card, seed=0)
+    dep = LLMDeployment("llama3_8b", model=model, num_slots=8, max_len=128,
+                        prompt_buckets=[32], default_max_new_tokens=8,
+                        device=card)
+    replica = dep.make_replica("llama3_8b#fd", DeploymentConfig(
+        name="llama3_8b", max_ongoing_requests=4096))
+    rate, burst, n, gap_s = 6.0, 6.0, 48, 2.0 / 48
+    fd = FrontDoor(n_shards=2, gossip_interval_s=0.2)
+    fd.configure("llama3_8b", rate_rps=rate, burst=burst)
+    routes = ProxyRouter()
+    proxies, router = [], None
+    results = [None] * n
+    gen = torch.Generator().manual_seed(3)
+    bodies = [{"tokens": torch.randint(1, 1000, (20,), generator=gen
+                                       ).tolist(), "max_new_tokens": 8}
+              for _ in range(n)]
+
+    def send(i, proxy):
+        body = bodies[i]
+        conn = http.client.HTTPConnection(proxy.host, proxy.port, timeout=300)
+        try:
+            conn.request("POST", "/api/llama3_8b", body=json.dumps(body),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            results[i] = (resp.status, resp.getheader("Retry-After"),
+                          resp.read().decode())
+        finally:
+            conn.close()
+
+    senders = []
+    try:
+        replica.start()
+        router = Router("llama3_8b", replicas=[replica],
+                        max_assign_timeout_s=30.0)
+        routes.set_route("/api/llama3_8b",
+                         DeploymentHandle(router, default_slo_ms=300_000.0))
+        proxies = [HTTPProxy(routes, port=0, admission=fd.shards[sid],
+                             shard_id=sid).start()
+                   for sid in sorted(fd.shards)]
+        fd.start()
+        for i in range(n):
+            senders.append(threading.Thread(
+                target=send, args=(i, proxies[i % 2]), daemon=True))
+            senders[-1].start()
+            time.sleep(gap_s)
+        for t in senders:
+            t.join(300)
+        horizon_s = time.monotonic() - fd.budget("llama3_8b").t0
+    finally:
+        fd.stop()
+        for p in proxies:
+            p.stop()
+        if router is not None:
+            router.close()
+        replica.stop(drain=False)
+    assert fd._thread is None
+    assert not [t for t in threading.enumerate()
+                if t.name == "frontdoor-gossip" and t.is_alive()]
+    codes = [r[0] for r in results]
+    admitted = fd.true_admitted("llama3_8b")
+    assert set(codes) == {200, 429}
+    assert codes.count(200) == admitted
+    for code, retry_after, body in results:
+        if code == 200:
+            assert len(json.loads(body)["result"]["tokens"]) == 8
+        else:
+            assert retry_after
+    assert admitted <= rate * horizon_s + burst + rate * 0.2 * 2 + 2
+    assert {s.admitted for s in fd.shards.values()} != {0}

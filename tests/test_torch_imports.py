@@ -11,7 +11,9 @@ deploys it through the port's controller and handle; then profiles a
 tiny vision model with ``ModelProfiler`` and serves it through a
 ``ReplicaEngine`` under the vision ``LiveScheduler``. A second probe,
 with the same modules blocked, captures a handle request's flight record
-(the hop ledger, the trace export, the sim's drift report).
+(the hop ledger, the trace export, the sim's drift report). A third
+runs the simulator's smoke, a partition and a migration twin, and a
+live sharded front door.
 """
 
 import ast
@@ -263,3 +265,52 @@ def test_captured_program_modules_import_no_jax():
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == "{'toy': 1} 3"
+
+
+# The simulator and the sharded front door.
+SIM_MODULES = tuple(f"sim/{n}.py" for n in (
+    "__init__", "__main__", "clock", "queue", "workload", "engine",
+    "control", "simulator", "kvfabric", "frontdoor", "scenarios",
+    "report")) + ("serve/frontdoor.py",)
+
+_SIM_PROBE = """
+import sys
+for name in {forbidden!r}:
+    sys.modules[name] = None      # any import of them now raises
+import json
+import logging
+logging.disable(logging.WARNING)
+from ray_dynamic_batching_tpu_torch.serve import FrontDoor
+from ray_dynamic_batching_tpu_torch.sim.__main__ import main
+from ray_dynamic_batching_tpu_torch.sim.frontdoor import run_partition_sim
+from ray_dynamic_batching_tpu_torch.sim.kvfabric import (
+    MigrationScenario,
+    run_migration_sim,
+)
+from ray_dynamic_batching_tpu_torch.sim.scenarios import partition_scenario
+rc = main(["--smoke"])
+part = run_partition_sim(partition_scenario("gossip_only"))
+mig = run_migration_sim(MigrationScenario(), "migrate")
+fd = FrontDoor(n_shards=2, gossip_interval_s=0.01).start()
+fd.configure("m", rate_rps=10.0)
+ok = fd.admit("m", payload={{"session_id": "a"}})[1]
+fd.stop()
+print(rc, part["reconverged"], mig["dropped"], ok, fd._thread is None)
+"""
+
+
+def test_sim_and_front_door_run_with_jax_blocked():
+    """The simulator's modules and ``serve/frontdoor.py`` are under the
+    AST scan, and with JAX and the JAX package blocked the CLI's smoke
+    passes, a partition and a migration twin run, and a live front door
+    admits and stops its gossip thread."""
+    scanned = {p.relative_to(PORT).as_posix() for p in _sources()
+               if PORT in p.parents}
+    assert set(SIM_MODULES) <= scanned
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", _SIM_PROBE.format(forbidden=FORBIDDEN)],
+        capture_output=True, text=True, timeout=120, cwd=str(ROOT), env=env,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "0 True 0 True True"
