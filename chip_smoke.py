@@ -236,31 +236,69 @@ last line:
     decode table implies (the 4-slot row over the 32-slot row) beside the
     sim's default 0.35, printed only, when that table is there.
 
-Every engine is warmed before it serves, and every serving phase (5-12,
-14) ends with the capture ledger's ``check_steady()``: no program was
-captured after a warmup ended. Phases 5 to 13 are served graphed.
+16. reuse — KV reuse (prefix and session caches, the host spill tier,
+    the page fabric). (a) f32 parity, llama3_8b at full width, 2 layers,
+    graphed engines on the slab, paged (chunked and monolithic) and
+    int8-paged arms: a prefix hit (chunk granularity on the slab, a
+    borrowed page run on the pool) against a cache-off engine, a
+    session's second turn over a 216-token history (the paged arms
+    borrow its full page, gated by the journal; the slab chunks from an
+    unaligned base) against the whole history served fresh, and on the
+    paged arms a prefix reloaded
+    from the spill tier against its in-memory hit and a stream migrated
+    mid-decode between two engines against its straight run; greedy
+    tokens identical. (b) Full depth, bf16: two replicas of phase 6's
+    paged deployment with ``prefix_cache_size=8``,
+    ``session_cache_size=8`` and ``host_spill_pages=16`` behind the
+    controller's router: a 384-token shared prefix (1 page miss, then 7
+    concurrent hits with 16-48-token tails, routed to the holder by the
+    published digests' ``chain_for``, 3 pages borrowed each), four
+    two-turn sessions (4 session hits), 15 streams of 100 + 300 tokens
+    that fill the pool and spill the prefix to host memory, the same
+    request before and after the reload (tokens equal), one stream
+    migrated between the replicas through ``KVPageFabric.migrate``
+    (tokens equal its straight run's), one prefix pushed to the peer,
+    which then borrows it. Gated: every request answered, each queue's
+    books conserve with ``migrated_out``, ``PageAllocator.check()``, no
+    page left once the caches clear, ``check_steady()``. (c) The slab
+    deployment with the same caches: the shared-prefix and session runs
+    at chunk granularity. Printed: TTFT of the hits beside the miss, of
+    turn 2 beside turn 1, the spill and reload ms and pages (a spill's
+    read split into its wait for the engine's stream, its pinned
+    allocation and the rest), the parcel bytes, export and import ms. The kernels on these inputs (a chunk
+    past the borrowed prefix over the pool's own pages, a decode window
+    over tables sharing their head pages, a session chunk from an
+    unaligned base, a decode window over seeded slab rows) against their
+    plain versions, in f32 in (a) and bf16 in (b) and (c), timed in
+    bf16 beside SDPA or the gather yardstick, with their bounds.
 
-Phases 5 to 14 each set every launch count to 0 just before they serve and
-read them just after: each kernel of the path must have launched the
-number of times the engine's dispatches imply, the other kernels and the
-plain route never (a graph replay adds the launches its capture
-recorded). Phase 11 builds three engines inside its window (v1, the
-heal's replacement, v2); each engine's warmup dispatches (its prefill
-grid with greedy and sampled rows, the long fill's chunk, the decode
-keys: ``warmup_fills`` and ``warmup_steps``) are added to the dispatches
-the engines counted while serving. Phase 12 adds, beside its engines'
-dispatches and warmups (the length-bucket replica's two engines, every
-engine the scheduler builds and the lone probe engine are warmed), the
-profiler's: each config runs 2 + 3 x 8 dispatches, one prefill group or
-one decode step each. Phase 13 sets them to 0 just before its SLO run and
-reads them after its traced window: flash = 12 x (the vit_b_16 batches
-served in both + the vit_b_16 buckets the engines warmed).
+Every engine is warmed before it serves, and every serving phase (5-12,
+14, 16) ends with the capture ledger's ``check_steady()``: no program was
+captured after a warmup ended. Phases 5 to 13 and 16 are served graphed.
+
+Phases 5 to 14 and 16's full-depth runs each set every launch count to 0
+just before they serve and read them just after: each kernel of the path
+must have launched the number of times the engine's dispatches imply,
+the other kernels and the plain route never (a graph replay adds the
+launches its capture recorded). Phase 11 builds three engines inside its
+window (v1, the heal's replacement, v2); each engine's warmup dispatches
+(its prefill grid with greedy and sampled rows, the long fill's chunk,
+the decode keys: ``warmup_fills`` and ``warmup_steps``) are added to the
+dispatches the engines counted while serving. Phase 12 adds, beside its
+engines' dispatches and warmups (the length-bucket replica's two
+engines, every engine the scheduler builds and the lone probe engine are
+warmed), the profiler's: each config runs 2 + 3 x 8 dispatches, one
+prefill group or one decode step each. Phase 13 sets them to 0 just
+before its SLO run and reads them after its traced window: flash = 12 x
+(the vit_b_16 batches served in both + the vit_b_16 buckets the engines
+warmed).
 
 The line before the last is one JSON object with the per-kernel numbers
 (``launches`` sums the serving phases, phase 14's graphed speed runs
 among them; ``launches_by_path`` splits them) and the numbers of the
-front, controller, colocate, vision, graphs and sim phases (``front``,
-``controller``, ``colocate``, ``vision``, ``graphs``, ``sim``; the
+front, controller, colocate, vision, graphs, sim and reuse phases
+(``front``, ``controller``, ``colocate``, ``vision``, ``graphs``,
+``sim``, ``reuse``; the
 per-hop splits under ``front.hops``, ``colocate.runs.diagnostic.turns``
 and ``vision.traced``, the front-door run under ``front.front_door``);
 the last line is
@@ -563,18 +601,32 @@ def _masked_cost(x) -> tuple:
 
 
 def _paged_cost(x) -> tuple:
-    """What this call's data needs: each slot reads the K/V (and, int8,
-    the scales) of positions [0, length + Tq) once (the kernel skips tiles
-    past them), plus q, out, the table and the lengths; FLOPs 4 N Tq H per
-    attended position."""
+    """What this call's data needs: each slot attends positions
+    [0, length + Tq) (the kernel skips tiles past them); the K/V (and,
+    int8, the scales) of each distinct (page, offset) those windows reach
+    is read once, so tables that share head pages share their bytes; plus
+    q, out, the table and the lengths. FLOPs 4 N Tq H per position a slot
+    attends."""
     B, tq = x["q"].shape[:2]
+    ps = x["k"].shape[1]
     kv_elt = KV_HEADS * HEAD_DIM * x["k"].element_size()
     if "ks" in x:
         kv_elt += KV_HEADS * 4
-    positions = int((x["lengths"].long() + tq).sum().item())
-    nbytes = (2 * positions * kv_elt + 2 * _nbytes(x["q"])
+    need = x["lengths"].long() + tq                             # [B]
+    table = x["table"].long()
+    first = torch.arange(table.shape[1], device=table.device) * ps
+    used = (need[:, None] - first[None, :]).clamp(0, ps)        # [B, NP]
+    live = used > 0
+    # A slot uses offsets [0, used) of each page it reaches: a page read
+    # by several slots is read to the deepest of them.
+    deepest = torch.zeros(int(table.max().item()) + 1, dtype=torch.long,
+                          device=table.device).scatter_reduce_(
+        0, table[live], used[live], "amax")
+    distinct = int(deepest.sum().item())
+    pairs = int(need.sum().item())
+    nbytes = (2 * distinct * kv_elt + 2 * _nbytes(x["q"])
               + _nbytes(x["table"], x["lengths"]))
-    return nbytes, 4 * N_HEADS * tq * HEAD_DIM * positions
+    return nbytes, 4 * N_HEADS * tq * HEAD_DIM * pairs
 
 
 def _dequant_sdpa(x):
@@ -3687,6 +3739,697 @@ def phase_sim() -> dict:
     return out
 
 
+# --- phase 16: KV reuse ------------------------------------------------------
+# Phase 6's paged engine (16 slots, 128-token pages, a 64-page pool, a
+# 256-token budget) with the reuse caches on; the slab arm with the same
+# caches at chunk granularity.
+REUSE_CACHES = dict(prefix_cache_size=8, session_cache_size=8)
+REUSE_PAGED = dict(PAGED_KNOBS, **REUSE_CACHES, host_spill_pages=16)
+REUSE_SLAB = dict(SLAB_KNOBS, **REUSE_CACHES)
+REUSE_PREFIX = 384     # three full pages
+REUSE_NEW = 32
+
+
+def _reuse_counter(family: str, model_name: str, granularity=None) -> float:
+    from ray_dynamic_batching_tpu_torch.engine import decode
+
+    tags = {"model": model_name}
+    if granularity is not None:
+        tags["granularity"] = granularity
+    return getattr(decode, family).get(tags=tags)
+
+
+def _reuse_engine(model, knobs: dict):
+    from ray_dynamic_batching_tpu_torch.engine.decode import DecodeEngine
+    from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
+
+    queue = RequestQueue("reuse", max_len=256)
+    engine = DecodeEngine(model, queue, device="cuda", **knobs)
+    engine.warmup()
+    return engine, queue
+
+
+def _reuse_serve(engine, queue, payloads) -> list:
+    """Serve ``payloads`` on a hand-driven engine; their token lists."""
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+
+    reqs = [Request(model="reuse", payload=p, slo_ms=600_000.0)
+            for p in payloads]
+    for r in reqs:
+        queue.add_request(r)
+    engine.run_until_idle(timeout_s=300)
+    return [r.future.result(timeout=5).tokens for r in reqs]
+
+
+def _drained(tag: str, engine) -> None:
+    """The pool conserves, no slot holds a page, and once the caches are
+    cleared every page is free."""
+    engine._allocator.check()
+    if not all(s.free for s in engine._slots):
+        fail(f"{tag}: a slot still holds a stream after the drain")
+    for cache in (engine.paged_prefix, engine.paged_sessions):
+        if cache is not None:
+            cache.clear()
+    engine._allocator.check()
+    if engine._allocator.free_pages != engine.num_pages:
+        fail(f"{tag}: {engine._allocator.free_pages} of {engine.num_pages} "
+             "pages free once the caches were cleared (a page leaked)")
+
+
+def _same(tag: str, what: str, got, want) -> None:
+    if got != want:
+        fail(f"{tag}: {what}: {got} != {want}")
+
+
+def _reuse_parity_arm(model, arm: str, knobs: dict, rng, V: int) -> dict:
+    """One arm at full width, 2 layers, f32: a prefix hit against a
+    cache-off engine, a session's turn 2 against the whole history served
+    fresh (paged: borrowing the history's full page), and (paged) a spill-reloaded prefix against the in-memory hit
+    and a stream migrated mid-decode against the same stream served
+    straight. Greedy tokens must be identical."""
+    tag = f"reuse parity {arm}"
+    name = model.name
+    paged = bool(knobs.get("paged"))
+    gran = "page" if paged else "chunk"
+    caches = dict(REUSE_CACHES, **({"host_spill_pages": 16} if paged
+                                   else {}))
+    warm, wq = _reuse_engine(model, dict(knobs, **caches))
+    cold, cq = _reuse_engine(model, knobs)
+    head = rng.integers(0, V, 300).tolist()
+    p1, p2, p3 = (head + rng.integers(0, V, n).tolist() for n in (20, 13, 9))
+    out = {}
+    _reuse_serve(warm, wq, [{"tokens": p1, "max_new_tokens": 16}])
+    hits = _reuse_counter("PREFIX_HITS", name, gran)
+    hit = _reuse_serve(warm, wq, [{"tokens": p2, "max_new_tokens": 16}])
+    _same(tag, f"{gran} prefix hits", _reuse_counter(
+        "PREFIX_HITS", name, gran) - hits, 1)
+    _same(tag, "prefix hit against a cache-off engine", hit,
+          _reuse_serve(cold, cq, [{"tokens": p2, "max_new_tokens": 16}]))
+    # Turn 1's history (216 tokens) passes a page: a paged turn 2
+    # borrows its full page and recomputes from the boundary; a slab turn
+    # 2 starts its chunks at 216, not a multiple of 64.
+    t1 = rng.integers(0, V, 200).tolist()
+    s1 = _reuse_serve(warm, wq, [{"tokens": t1, "max_new_tokens": 16,
+                                  "session_id": "parity"}])[0]
+    t2 = t1 + s1 + rng.integers(0, V, 20).tolist()
+    hits = _reuse_counter("SESSION_HITS", name)
+    seen = warm._page_journal.total if paged else 0
+    s2 = _reuse_serve(warm, wq, [{"tokens": t2, "max_new_tokens": 16,
+                                  "session_id": "parity"}])
+    _same(tag, "session hits", _reuse_counter("SESSION_HITS", name) - hits,
+          1)
+    if paged:
+        journal = warm._page_journal
+        borrowed = [e["pages"] for e in
+                    journal.snapshot()[-(journal.total - seen):]
+                    if e["kind"] == "cow_copy"
+                    and e.get("source") == "session"]
+        _same(tag, "pages turn 2 borrowed from the session", borrowed,
+              [len(t1 + s1) // PS])
+    _same(tag, "session turn 2 against the history served fresh", s2,
+          _reuse_serve(cold, cq, [{"tokens": t2, "max_new_tokens": 16}]))
+    out.update(prefix_hit=True, session=True)
+    if paged:
+        in_memory = _reuse_serve(warm, wq, [{"tokens": p3,
+                                             "max_new_tokens": 16}])
+        while len(warm.paged_prefix):
+            warm._reclaim_cache_pins()      # spill + evict every entry
+        reloads = warm.host_spill.reloads
+        reloaded = _reuse_serve(warm, wq, [{"tokens": p3,
+                                            "max_new_tokens": 16}])
+        _same(tag, "reloads", warm.host_spill.reloads - reloads, 1)
+        _same(tag, "spill-reloaded prefix against the in-memory hit",
+              reloaded, in_memory)
+        dest, dq = _reuse_engine(model, knobs)
+        m = {"tokens": rng.integers(0, V, 40).tolist(),
+             "max_new_tokens": 24}
+        straight = _reuse_serve(cold, cq, [m])
+        from ray_dynamic_batching_tpu_torch.engine.request import Request
+
+        req = Request(model="reuse", payload=m, slo_ms=600_000.0)
+        wq.add_request(req)
+        while not warm.live_stream_ids():
+            warm._admit()
+            warm._pump_prefill()
+            if warm._active_mask.any():
+                warm._step()
+        if not warm.request_migration(req.request_id, dest.accept_parcel):
+            fail(f"{tag}: the live stream was not accepted for migration")
+        warm._service_fabric()
+        dest.run_until_idle(timeout_s=300)
+        warm.run_until_idle(timeout_s=300)
+        _same(tag, "migrations out / in",
+              (warm.migrated_out, dest.migrated_in), (1, 1))
+        _same(tag, "migrated stream against the straight run",
+              [req.future.result(timeout=5).tokens], straight)
+        out.update(reloaded=True, migrated=True)
+        out["kernels"] = _reuse_kernels(tag, warm, torch.float32)
+        for e in (warm, cold, dest):
+            _drained(tag, e)
+        dest.release_buffers()
+    else:
+        out["kernels"] = _reuse_kernels(tag, warm, torch.float32)
+    _steady(tag)
+    print(f"[{tag}] greedy tokens identical: prefix hit vs cache-off, "
+          f"session turn 2 vs the history served fresh"
+          + (", spill-reloaded vs in-memory hit, migrated vs straight"
+             if paged else ""), flush=True)
+    for e in (warm, cold):
+        e.release_buffers()
+    return out
+
+
+def _reuse_kernel_inputs(engine, dtype, gen) -> dict:
+    """The kernels' inputs on the reuse paths, from the engine's own
+    cache, as ``case -> (kernel spec, inputs)``: paged, the logical view a
+    chunk past the engine's deepest borrowed prefix gathers through a
+    table whose head is that prefix's pages (layer 0 of the pool; an int8
+    pool dequantized, as the route does before flash), and a decode window
+    over 16 slots whose tables all begin with those pages; slab, a
+    session chunk from an unaligned base over a 576-position row cache
+    (the long-fill row of max_len 512), and a decode window over the slab
+    cache's rows (layer 0)."""
+    from ray_dynamic_batching_tpu_torch.models.decoder import (
+        decode_mask,
+        dequantize_kv,
+        paged_window_mask,
+    )
+    from ray_dynamic_batching_tpu_torch.ops import decode_attention as dec
+
+    dev = "cuda"
+    cache = engine._cache
+    out = {}
+    if engine.paged:
+        head = list(max(engine.paged_prefix._entries.values(), key=len))
+        n = len(head)
+        rest = [p for p in range(engine.num_pages) if p not in head]
+        table = torch.full((1, NP), engine.num_pages, dtype=torch.int32)
+        table[0, :n + 1] = torch.tensor(head + rest[:1])
+        table = table.to(dev)
+        k_g = dec.logical_view(cache.k[0], table)
+        v_g = dec.logical_view(cache.v[0], table)
+        if cache.quantized:
+            k_g = dequantize_kv(k_g, dec.logical_view(cache.k_scale[0],
+                                                      table), dtype)
+            v_g = dequantize_kv(v_g, dec.logical_view(cache.v_scale[0],
+                                                      table), dtype)
+        q = torch.randn((1, T, N_HEADS, HEAD_DIM), generator=gen, device=dev)
+        out["flash_borrowed_chunk"] = ("flash_attention", _with_keep_mask(
+            dict(q=q.to(dtype), k=k_g.to(dtype), v=v_g.to(dtype),
+                 mask=paged_window_mask(torch.tensor([n * PS], device=dev),
+                                        S, T))))
+        tables = torch.full((SLOTS, NP), engine.num_pages, dtype=torch.int32)
+        lengths = []
+        for b in range(SLOTS):
+            length = min(n * PS + 16 + 8 * b, S - 1)
+            tables[b, :n] = torch.tensor(head)
+            for j in range(n, -(-(length + 1) // PS)):
+                tables[b, j] = rest[(b * NP + j) % len(rest)]
+            lengths.append(length)
+        q = torch.randn((SLOTS, 1, N_HEADS, HEAD_DIM), generator=gen,
+                        device=dev)
+        x = dict(q=q.to(dtype), k=cache.k[0], v=cache.v[0],
+                 table=tables.to(dev),
+                 lengths=torch.tensor(lengths, dtype=torch.int32,
+                                      device=dev))
+        name = "paged_decode_attention"
+        if cache.quantized:
+            x.update(ks=cache.k_scale[0], vs=cache.v_scale[0])
+            name += "_int8"
+        else:
+            x.update(k=x["k"].to(dtype), v=x["v"].to(dtype))
+        out["paged_shared_heads"] = (name, x)
+    else:
+        row = 576
+        start = 77                                  # not a multiple of 64
+        q = torch.randn((1, T, N_HEADS, HEAD_DIM), generator=gen, device=dev)
+        k = torch.randn((1, row, KV_HEADS, HEAD_DIM), generator=gen,
+                        device=dev)
+        v = torch.randn((1, row, KV_HEADS, HEAD_DIM), generator=gen,
+                        device=dev)
+        pos = start + torch.arange(T, device=dev)
+        mask = (torch.arange(row, device=dev)[None, None, None, :]
+                <= pos[None, None, :, None])
+        out["flash_unaligned_chunk"] = ("flash_attention", _with_keep_mask(
+            dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype), mask=mask)))
+        B, Sc = cache.k.shape[1], cache.k.shape[2]
+        q = torch.randn((B, 1, N_HEADS, HEAD_DIM), generator=gen, device=dev)
+        lengths = torch.randint(40, Sc - 1, (B,), generator=gen, device=dev)
+        out["decode_seeded_rows"] = ("decode_attention", _with_keep_mask(
+            dict(q=q.to(dtype), k=cache.k[0].to(dtype),
+                 v=cache.v[0].to(dtype), mask=decode_mask(lengths, Sc))))
+    return out
+
+
+def _reuse_kernels(tag: str, engine, dtype) -> dict:
+    """Each kernel of the reuse paths against its plain version on those
+    inputs (the phase-3 tolerance); in bf16 also timed beside the plain
+    version and SDPA (or the gather yardstick), with its bound. These
+    launches do not count: the counts are reset after."""
+    from ray_dynamic_batching_tpu_torch.ops import attention
+
+    specs = _kernel_specs()
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rows = {}
+    for case, (name, x) in _reuse_kernel_inputs(engine, dtype, gen).items():
+        sp = specs[name]
+        dt = "bf16" if dtype == torch.bfloat16 else "f32"
+        row = {"kernel": name,
+               "max_abs_err": _check(name, f"{dt} {case}", sp, x, dtype),
+               "q_shape": list(x["q"].shape),
+               "kv_shape": list(x["k"].shape)}
+        if dtype == torch.bfloat16:
+            row.update(_timed(sp, x, dtype))
+            _print_times(f"{name} {case}", row)
+        rows[case] = row
+    attention.reset_counts()
+    return rows
+
+
+def _reuse_parity(V: int) -> dict:
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        LLAMA3_8B,
+        CausalLM,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=2)
+    rng = np.random.default_rng(16)
+    out = {}
+    for kv_dtype, arms in ((None, (("slab", SLAB_KNOBS),
+                                   ("paged", PAGED_KNOBS),
+                                   ("paged_mono", dict(
+                                       PAGED_KNOBS, chunked_prefill=False)))),
+                           (torch.int8, (("int8_paged", PAGED_KNOBS),))):
+        model = CausalLM(cfg, "llama3_8b_2layer", dtype=torch.float32,
+                         device="cuda", seed=0, kv_dtype=kv_dtype)
+        for arm, knobs in arms:
+            out[arm] = _reuse_parity_arm(model, arm, knobs, rng, V)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+class _Timed:
+    """Wall time of every call of ``fn`` (the spill tier's page IO, the
+    fabric's export and import), in ms, up to the engine's stream
+    finishing what the call queued (a host-to-card copy from pinned
+    memory returns before it is done). The calls run on an engine's loop
+    thread and queue on its current stream, the card's default stream,
+    which the two replicas of a process share; only that stream is
+    waited for. With ``split`` (a page read to host), the wait for what
+    the stream held before the call is taken first and kept apart
+    (``wait_ms``), so the call's own time starts on a drained stream, and
+    the call's pinned host allocations (``torch.empty(pin_memory=True)``
+    on its thread) are timed inside it (``alloc_ms``): the rest of the
+    call is the gather and the copy."""
+
+    def __init__(self, fn, split: bool = False):
+        self.fn, self.split = fn, split
+        self.ms, self.wait_ms, self.alloc_ms = [], [], []
+
+    def __call__(self, *args):
+        stream = torch.cuda.current_stream()
+        empty, alloc = torch.empty, [0.0]
+        if self.split:
+            t0 = time.perf_counter()
+            stream.synchronize()
+            self.wait_ms.append((time.perf_counter() - t0) * 1e3)
+            me = threading.get_ident()
+
+            def timed_empty(*a, **kw):
+                if not (kw.get("pin_memory") and threading.get_ident() == me):
+                    return empty(*a, **kw)
+                t = time.perf_counter()
+                try:
+                    return empty(*a, **kw)
+                finally:
+                    alloc[0] += (time.perf_counter() - t) * 1e3
+
+            torch.empty = timed_empty
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args)
+        finally:
+            stream.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            if self.split:
+                torch.empty = empty
+                self.alloc_ms.append(alloc[0])
+
+
+def _expect_reuse(tag: str, counts: dict, engines) -> None:
+    """Each decode step of any engine runs the arm's decode kernel once a
+    layer, each prefill group, long-fill chunk or chunk dispatch runs flash
+    once a layer; nothing else launches."""
+    L = engines[0].model.cfg.num_layers
+    decode = ("paged_decode_attention" if engines[0].paged
+              else "decode_attention")
+    want = {decode: L * sum(e.steps for e in engines),
+            "flash_attention": L * sum(
+                e.prefill_groups + e.long_chunk_dispatches
+                + e.chunk_dispatches for e in engines)}
+    if not all(want.values()):
+        fail(f"{tag}: a kernel of the path never launched: {want}")
+    _expect_only(tag, counts, want)
+
+
+def _queue_books(tag: str, replica) -> dict:
+    """Every bucket queue conserves: enqueued = completed + stale +
+    dropped + migrated_out + depth."""
+    s = replica.stats()
+    for key, b in s.items():
+        if not key.startswith("bucket_"):
+            continue
+        rhs = (b["completed"] + b["stale"] + b["dropped"]
+               + b.get("migrated_out", 0.0) + b["depth"])
+        if b["enqueued"] != rhs:
+            fail(f"{tag}: {replica.replica_id} {key} books do not conserve:"
+                 f" {b}")
+    return s
+
+
+def _reuse_bf16(V: int) -> tuple:
+    """Phase 16's full-depth paged run; returns (launch counts, numbers)."""
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+    from ray_dynamic_batching_tpu_torch.ops import attention
+    from ray_dynamic_batching_tpu_torch.serve.controller import (
+        DeploymentConfig,
+        ServeController,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.kv_fabric import KVPageFabric
+    from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+
+    tag = "reuse paged"
+    rng = np.random.default_rng(160)
+    t0 = time.monotonic()
+    dep = LLMDeployment("llama3_8b", dtype=torch.bfloat16, seed=0,
+                        **REUSE_PAGED)
+    ctl = ServeController(control_interval_s=3600.0)
+    name = "llama3_8b_reuse"
+    router = ctl.deploy(DeploymentConfig(name=name, num_replicas=2),
+                        factory=dep)
+    replicas = router.replicas()
+    engines = [r.engine for r in replicas]
+    print(f"[{tag}] two replicas of llama3_8b bf16, "
+          f"{engines[0].model.cfg.num_layers} layers, caches prefix 8 / "
+          f"session 8 / spill 16 pages, built and warmed in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    results, out = [], {}
+
+    def send(replica_or_router, payload):
+        req = Request(model=name, payload=payload, slo_ms=600_000.0)
+        ok = (replica_or_router.assign_request(req)
+              if replica_or_router is router else
+              replica_or_router.assign(req))
+        if not ok:
+            fail(f"{tag}: a request was refused")
+        return req
+
+    def done(reqs):
+        res = [r.future.result(timeout=300) for r in reqs]
+        for p, r in zip((q.payload for q in reqs), res):
+            if (len(r.tokens) != p["max_new_tokens"]
+                    or r.finish_reason != "length"):
+                fail(f"{tag}: {len(r.tokens)} tokens, {r.finish_reason}")
+        results.extend(res)
+        return res
+
+    fabric = KVPageFabric()
+    attention.reset_counts()
+    t_start = time.monotonic()
+    # Shared prefix: one miss, then seven concurrent hits on the holder.
+    prefix = rng.integers(0, V, REUSE_PREFIX).tolist()
+    tails = [rng.integers(0, V, int(n)).tolist()
+             for n in rng.integers(16, 49, 9)]
+    misses = _reuse_counter("PREFIX_MISSES", "llama3_8b", "page")
+    hits = _reuse_counter("PREFIX_HITS", "llama3_8b", "page")
+    first = send(router, {"tokens": prefix + tails[0],
+                          "max_new_tokens": REUSE_NEW})
+    miss_res = done([first])
+    holder = next(r for r in replicas if r.replica_id ==
+                  first._assigned_replica)
+    other = next(r for r in replicas if r is not holder)
+    ctl._publish_prefix_digests(ctl._deployments[name])
+    chain = router.digests.chain_for({"tokens": prefix + tails[1]})
+    if len(chain) != 3:
+        fail(f"{tag}: chain_for gave {len(chain)} levels, expected 3")
+    cow = len([e for e in holder.engine._page_journal.snapshot()
+               if e["kind"] == "cow_copy"])
+    batch = [send(router, {"tokens": prefix + t,
+                           "max_new_tokens": REUSE_NEW})
+             for t in tails[1:8]]
+    hit_res = done(batch)
+    steered = {r._assigned_replica for r in batch}
+    _same(tag, "replicas the shared-prefix requests were routed to",
+          steered, {holder.replica_id})
+    _same(tag, "page misses / hits",
+          (_reuse_counter("PREFIX_MISSES", "llama3_8b", "page") - misses,
+           _reuse_counter("PREFIX_HITS", "llama3_8b", "page") - hits),
+          (1, 7))
+    borrows = [e for e in holder.engine._page_journal.snapshot()
+               if e["kind"] == "cow_copy"][cow:]
+    _same(tag, "pages borrowed by each hit", [e["pages"] for e in borrows],
+          [3] * 7)
+    out["ttft_miss_ms"] = miss_res[0].ttft_ms
+    out["ttft_hit_ms"] = [r.ttft_ms for r in hit_res]
+    print(f"[{tag}] shared {REUSE_PREFIX}-token prefix: 1 page miss, 7 page "
+          f"hits on {holder.replica_id} (chain_for steered all 7), 3 pages "
+          f"shared by each; TTFT of the miss {out['ttft_miss_ms']:.1f} ms, "
+          f"of the hits {_span_quantiles(out['ttft_hit_ms'])}", flush=True)
+    # Sessions: four two-turn chats.
+    s_hits = _reuse_counter("SESSION_HITS", "llama3_8b")
+    turn1 = [rng.integers(0, V, int(n)).tolist()
+             for n in rng.integers(40, 61, 4)]
+    r1 = done([send(holder, {"tokens": t, "max_new_tokens": REUSE_NEW,
+                             "session_id": f"chat-{i}"})
+               for i, t in enumerate(turn1)])
+    r2 = done([send(holder, {"tokens": t + r.tokens
+                             + rng.integers(0, V, 20).tolist(),
+                             "max_new_tokens": REUSE_NEW,
+                             "session_id": f"chat-{i}"})
+               for i, (t, r) in enumerate(zip(turn1, r1))])
+    _same(tag, "session hits",
+          _reuse_counter("SESSION_HITS", "llama3_8b") - s_hits, 4)
+    out["ttft_session_turn1_ms"] = [r.ttft_ms for r in r1]
+    out["ttft_session_turn2_ms"] = [r.ttft_ms for r in r2]
+    print(f"[{tag}] 4 sessions: 4 session hits; TTFT turn 1 "
+          f"{_span_quantiles(out['ttft_session_turn1_ms'])}, turn 2 "
+          f"{_span_quantiles(out['ttft_session_turn2_ms'])}", flush=True)
+    # Spill and reload: the in-memory hit of one request alone, pool
+    # pressure (15 streams growing to 4 pages each shed every cache pin,
+    # the prefix's pages spilled to host memory), the same request alone
+    # again (reloaded).
+    he = holder.engine
+    spill = he.host_spill
+    spill._read = _Timed(spill._read, split=True)
+    spill._write = _Timed(spill._write)
+    x = {"tokens": prefix + tails[8], "max_new_tokens": REUSE_NEW}
+    in_memory = done([send(holder, x)])[0]
+    spills = spill.spills
+    done([send(holder, {"tokens": rng.integers(0, V, 100).tolist(),
+                        "max_new_tokens": 300}) for _ in range(15)])
+    if spill.spills - spills < 3 or len(spill) < 3:
+        fail(f"{tag}: pool pressure spilled {spill.spills - spills} "
+             f"entries ({spill.stats()}); expected the prefix's 3 levels")
+    reloads = spill.reloads
+    reloaded = done([send(holder, x)])[0]
+    _same(tag, "reloads", spill.reloads - reloads, 1)
+    _same(tag, "reloaded tokens against the in-memory hit's",
+          reloaded.tokens, in_memory.tokens)
+    out["spill"] = dict(spill.stats(), spill_wait_ms=spill._read.wait_ms,
+                        spill_ms=spill._read.ms,
+                        spill_alloc_ms=spill._read.alloc_ms,
+                        reload_ms=spill._write.ms,
+                        ttft_in_memory_ms=in_memory.ttft_ms,
+                        ttft_reloaded_ms=reloaded.ttft_ms)
+    print(f"[{tag}] spill by pool pressure: {out['spill']['spills']} "
+          f"spills; each page read to host waited "
+          f"{[round(t, 2) for t in spill._read.wait_ms]} ms for the engine's "
+          f"stream, then read in {[round(t, 2) for t in spill._read.ms]} ms,"
+          f" of which allocating pinned host memory "
+          f"{[round(t, 2) for t in spill._read.alloc_ms]} ms;"
+          f" reload of {REUSE_PREFIX // PS} pages "
+          f"{[round(t, 2) for t in spill._write.ms]} ms; reloaded tokens "
+          f"equal the in-memory hit's; TTFT in memory "
+          f"{in_memory.ttft_ms:.1f} ms, reloaded {reloaded.ttft_ms:.1f} ms",
+          flush=True)
+    # Migration: a straight run, then the same stream moved mid-decode
+    # from the holder to the other replica.
+    m = {"tokens": rng.integers(0, V, 50).tolist(), "max_new_tokens": 96}
+    straight = done([send(holder, m)])[0]
+    he._migrate_stream_out = _Timed(he._migrate_stream_out)
+    oe = other.engine
+    oe._import_parcel = _Timed(oe._import_parcel)
+    moving = send(holder, m)
+    deadline = time.monotonic() + 60
+    while moving.request_id not in holder.live_stream_ids():
+        if time.monotonic() > deadline:
+            fail(f"{tag}: the stream never went live")
+        time.sleep(0.001)
+    t_m = time.monotonic()
+    if not fabric.migrate(holder, other, moving.request_id):
+        fail(f"{tag}: the migration was not requested")
+    moved = done([moving])[0]
+    _same(tag, "migrated tokens against the straight run's", moved.tokens,
+          straight.tokens)
+    _same(tag, "migrations out / in", (he.migrated_out, oe.migrated_in),
+          (1, 1))
+    ev = next(e for e in he._page_journal.snapshot()
+              if e["kind"] == "migrate_out")
+    out["migration"] = dict(parcel_bytes=ev["bytes"], pages=ev["pages"],
+                            export_ms=he._migrate_stream_out.ms[-1],
+                            import_ms=oe._import_parcel.ms[-1],
+                            request_to_done_ms=(time.monotonic() - t_m)
+                            * 1e3)
+    print(f"[{tag}] migrated one live stream {holder.replica_id} -> "
+          f"{other.replica_id} through KVPageFabric.migrate: "
+          f"{ev['pages']} pages, parcel {ev['bytes'] / 1e6:.2f} MB, export "
+          f"+ delivery {out['migration']['export_ms']:.1f} ms, import "
+          f"{out['migration']['import_ms']:.1f} ms; tokens equal the "
+          f"straight run's", flush=True)
+    # Prefix push: the holder's hot prefix to the other replica, which
+    # then hits it.
+    pushed = fabric.push_hot_prefixes(name, replicas)
+    deadline = time.monotonic() + 60
+    while oe.pushes_in < 1:
+        if time.monotonic() > deadline:
+            fail(f"{tag}: no pushed prefix installed on {other.replica_id}")
+        time.sleep(0.01)
+    cow = len([e for e in oe._page_journal.snapshot()
+               if e["kind"] == "cow_copy"])
+    done([send(other, {"tokens": prefix + tails[2],
+                       "max_new_tokens": REUSE_NEW})])
+    peer = [e for e in oe._page_journal.snapshot()
+            if e["kind"] == "cow_copy"][cow:]
+    if not peer:
+        fail(f"{tag}: the peer did not hit the pushed prefix")
+    out["push"] = dict(parcels=pushed, peer_hit_pages=peer[0]["pages"])
+    print(f"[{tag}] pushed {pushed} prefix parcel(s) to "
+          f"{other.replica_id}; its next shared-prefix request borrowed "
+          f"{peer[0]['pages']} pages", flush=True)
+    wall = time.monotonic() - t_start
+    for e in engines:
+        e.stop()
+    torch.cuda.synchronize()
+    counts = _counts()
+    _expect_reuse(tag, counts, engines)
+    out["kernels"] = _reuse_kernels(tag, he, torch.bfloat16)
+    for r in replicas:
+        out.setdefault("books", {})[r.replica_id] = _queue_books(tag, r)
+    _steady(tag)
+    for e in engines:
+        _drained(tag, e)
+    n_tok = sum(len(r.tokens) for r in results)
+    out.update(requests=len(results), tokens=n_tok, wall_s=wall)
+    print(f"[{tag}] {len(results)} requests answered, {n_tok} tokens in "
+          f"{wall:.1f} s; queue books conserve (migrated_out included); "
+          f"pools conserve and are whole once the caches clear; launches "
+          f"{counts}", flush=True)
+    ctl.shutdown()
+    return counts, out
+
+
+def _reuse_slab(V: int) -> tuple:
+    """Phase 16's slab arm at full depth: the shared-prefix and session
+    runs at chunk granularity; returns (launch counts, numbers)."""
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+    from ray_dynamic_batching_tpu_torch.ops import attention
+    from ray_dynamic_batching_tpu_torch.serve.controller import (
+        DeploymentConfig,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+
+    tag = "reuse slab"
+    rng = np.random.default_rng(161)
+    dep = LLMDeployment("llama3_8b", dtype=torch.bfloat16, seed=0,
+                        **REUSE_SLAB)
+    replica = dep.make_replica("slab-0", DeploymentConfig(name="reuse_slab"))
+    engine = replica.engine
+    replica.start()
+
+    def run(payloads):
+        reqs = [Request(model="reuse_slab", payload=p, slo_ms=600_000.0)
+                for p in payloads]
+        for r in reqs:
+            if not replica.assign(r):
+                fail(f"{tag}: a request was refused")
+        res = [r.future.result(timeout=300) for r in reqs]
+        if any(len(r.tokens) != REUSE_NEW for r in res):
+            fail(f"{tag}: a request was cut short")
+        return res
+
+    attention.reset_counts()
+    prefix = rng.integers(0, V, REUSE_PREFIX).tolist()
+    tails = [rng.integers(0, V, int(n)).tolist()
+             for n in rng.integers(16, 49, 8)]
+    misses = _reuse_counter("PREFIX_MISSES", "llama3_8b", "chunk")
+    hits = _reuse_counter("PREFIX_HITS", "llama3_8b", "chunk")
+    miss = run([{"tokens": prefix + tails[0], "max_new_tokens": REUSE_NEW}])
+    hit = run([{"tokens": prefix + t, "max_new_tokens": REUSE_NEW}
+               for t in tails[1:]])
+    _same(tag, "chunk misses / hits",
+          (_reuse_counter("PREFIX_MISSES", "llama3_8b", "chunk") - misses,
+           _reuse_counter("PREFIX_HITS", "llama3_8b", "chunk") - hits),
+          (1, 7))
+    s_hits = _reuse_counter("SESSION_HITS", "llama3_8b")
+    turn1 = [rng.integers(0, V, int(n)).tolist()
+             for n in rng.integers(40, 61, 4)]
+    r1 = run([{"tokens": t, "max_new_tokens": REUSE_NEW,
+               "session_id": f"slab-{i}"} for i, t in enumerate(turn1)])
+    r2 = run([{"tokens": t + r.tokens + rng.integers(0, V, 20).tolist(),
+               "max_new_tokens": REUSE_NEW, "session_id": f"slab-{i}"}
+              for i, (t, r) in enumerate(zip(turn1, r1))])
+    _same(tag, "session hits",
+          _reuse_counter("SESSION_HITS", "llama3_8b") - s_hits, 4)
+    engine.stop()
+    torch.cuda.synchronize()
+    counts = _counts()
+    _expect_reuse(tag, counts, [engine])
+    _queue_books(tag, replica)
+    _steady(tag)
+    out = dict(ttft_miss_ms=miss[0].ttft_ms,
+               ttft_hit_ms=[r.ttft_ms for r in hit],
+               ttft_session_turn1_ms=[r.ttft_ms for r in r1],
+               ttft_session_turn2_ms=[r.ttft_ms for r in r2])
+    print(f"[{tag}] shared {REUSE_PREFIX}-token prefix at chunk "
+          f"granularity: 1 miss, 7 hits (chunk 0 seeded); TTFT of the miss "
+          f"{out['ttft_miss_ms']:.1f} ms, of the hits "
+          f"{_span_quantiles(out['ttft_hit_ms'])}; 4 sessions, 4 hits, "
+          f"TTFT turn 1 {_span_quantiles(out['ttft_session_turn1_ms'])}, "
+          f"turn 2 {_span_quantiles(out['ttft_session_turn2_ms'])}; "
+          f"launches {counts}",
+          flush=True)
+    out["kernels"] = _reuse_kernels(tag, engine, torch.bfloat16)
+    replica.stop()
+    return counts, out
+
+
+def phase_reuse() -> tuple:
+    """Phase 16; returns (launch counts, the phase's numbers)."""
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import LLAMA3_8B
+
+    t0 = time.monotonic()
+    smi = _smi()
+    V = LLAMA3_8B.vocab_size
+    parity = _reuse_parity(V)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paged_counts, paged = _reuse_bf16(V)
+    gc.collect()
+    torch.cuda.empty_cache()
+    slab_counts, slab = _reuse_slab(V)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = {n: paged_counts.get(n, 0) + slab_counts.get(n, 0)
+              for n in set(paged_counts) | set(slab_counts)}
+    wall = time.monotonic() - t0
+    print(f"[reuse] {smi}: phase wall time {wall:.1f} s", flush=True)
+    return counts, dict(card=smi, parity=parity, paged=paged, slab=slab,
+                        wall_s=wall)
+
+
 def main() -> None:
     with contextlib.ExitStack() as stack:
         _main(stack)
@@ -3696,7 +4439,7 @@ def _main(stack: contextlib.ExitStack) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     all_phases = (["build", "kernels", "parity"] + list(SERVING)
                   + ["front", "controller", "colocate", "vision", "graphs",
-                     "sim"])
+                     "sim", "reuse"])
     ap.add_argument("--phases", default=",".join(all_phases),
                     help=f"comma-separated subset of {','.join(all_phases)} "
                          "(the device phase always runs)")
@@ -3746,7 +4489,7 @@ def _main(stack: contextlib.ExitStack) -> None:
                 + (f", the long prompts {longs} ms" if longs else ""))
         print("[slab_chunked] beside main and int8: " + "; ".join(beside),
               flush=True)
-    front = controller = colocate = vision = graphed = sim = None
+    front = controller = colocate = vision = graphed = sim = reuse = None
     if "front" in phases:
         by_path["front"], front = phase_front(args.profile)
     if "controller" in phases:
@@ -3759,13 +4502,16 @@ def _main(stack: contextlib.ExitStack) -> None:
         by_path["graphs"], graphed = phase_graphs()
     if "sim" in phases:
         sim = phase_sim()
+    if "reuse" in phases:
+        by_path["reuse"], reuse = phase_reuse()
     for name, row in kernels.items():
         split = {path: c[name] for path, c in by_path.items()}
         row["launches"] = sum(split.values()) if split else None
         row["launches_by_path"] = split
     print(json.dumps({"kernels": list(kernels.values()), "front": front,
                       "controller": controller, "colocate": colocate,
-                      "vision": vision, "graphs": graphed, "sim": sim}))
+                      "vision": vision, "graphs": graphed, "sim": sim,
+                      "reuse": reuse}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],
         "count": torch.cuda.device_count()}}))

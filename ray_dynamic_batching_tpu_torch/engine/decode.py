@@ -31,6 +31,20 @@ of its arms:
 Every arm serves a model with an int8 KV cache (``kv_dtype=torch.int8``):
 the row copies carry the scale planes beside the codes.
 
+KV reuse (off by default): ``prefix_cache_size`` keeps prompt-prefix KV —
+by page reference on the paged pool (:class:`PagedPrefixCache`: the
+longest shared page-prefix borrowed copy-on-write, looked up at a chunk
+train's first dispatch or at a mono long fill), as chunk-0 device copies
+on the slab (:class:`PrefixCache`); ``host_spill_pages`` (paged, beside a
+prefix cache) spills shed prefix entries to pinned host memory and
+reloads them on the next match; ``session_cache_size`` continues a
+payload's ``session_id`` from its previous turn (paged: the finished
+turn's pages pinned; slab: its row copied), prefilling only the new
+tail. The page fabric (``engine/pagefabric.py``) moves a live paged
+stream to another engine or pushes a prefix entry to one, through
+mailboxes the loop services between decode turns; imports write the pool
+in place.
+
 Decode is shared: ``horizon`` chained steps for all slots per host sync,
 with presence/frequency penalties, sparse logit bias and the per-request
 sampler on the device; everything the host needs comes back as ONE packed
@@ -49,11 +63,11 @@ scale planes; the penalty counts). :meth:`warmup` runs every key the
 arm can dispatch inside the capture ledger's warmup phase and checks
 the episodes against ``jit_model.required_for``; after it, a new key
 raises. The long fill's chunk and commit run eagerly (their row cache
-is per fill; the registry says so). The reference's group padding to
-compiled widths is gone (a group is exactly its rows, so no index is
-written twice): every group width is its own key. Speculative
-decoding, the prefix/session caches, the page fabric, weight
-quantisation and the mesh are later slices.
+is per fill; the registry says so), as do the reuse programs' row seeds
+and extracts, each warmed when its cache is on. The reference's group
+padding to compiled widths is gone (a group is exactly its rows, so no
+index is written twice): every group width is its own key. Speculative
+decoding, weight quantisation and the mesh are later slices.
 
 Sampling: ``jax.random`` keys cannot be reproduced in torch, so sampled
 rows draw gumbel noise from a counter-based hash of (base_seed, request
@@ -68,8 +82,9 @@ scheduler's counters) in the port's default registry, and its three
 spans — the retroactive ``decode.prefill`` (admit -> first token) and
 ``decode.turn`` (dispatch -> the one host fetch), and ``decode.sequence``
 at completion — each emitted only while the tracer is enabled, from
-timestamps the engine already takes (no device sync of its own). The
-speculation, prefix and session families come with those features.
+timestamps the engine already takes (no device sync of its own); and
+the prefix and session hit/miss families. The speculation families come
+with speculative decoding.
 """
 
 from __future__ import annotations
@@ -88,10 +103,21 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
 import numpy as np
 import torch
 
+from ray_dynamic_batching_tpu_torch.engine.pagefabric import (
+    PREFIX,
+    STREAM,
+    PageParcel,
+    export_prefix_parcel,
+    export_stream_parcel,
+)
 from ray_dynamic_batching_tpu_torch.engine.paging import (
+    HostSpillTier,
     OutOfPages,
     PageAllocator,
+    PagedPrefixCache,
+    PagedSessionCache,
     PageEventJournal,
+    digest_chain,
     pages_for,
     table_array,
 )
@@ -110,6 +136,7 @@ from ray_dynamic_batching_tpu_torch.utils.compile_ledger import (
     get_ledger,
     instrument,
 )
+from ray_dynamic_batching_tpu_torch.utils.concurrency import OrderedLock
 from ray_dynamic_batching_tpu_torch.utils.logging import get_logger
 from ray_dynamic_batching_tpu_torch.utils import metrics as m
 from ray_dynamic_batching_tpu_torch.utils.tracing import link_to as _link_to
@@ -149,6 +176,24 @@ KV_PAGES_FREE = m.Gauge(
 KV_PAGE_OCCUPANCY = m.Gauge(
     "rdb_decode_kv_page_occupancy",
     "Allocated fraction of the paged KV pool", tag_keys=("model",),
+)
+PREFIX_HITS = m.Counter(
+    "rdb_decode_prefix_hits_total", "Prompt-prefix KV cache hits",
+    # granularity: "chunk" = slab whole-segment byte equality, "page" =
+    # paged longest-shared-page-prefix.
+    tag_keys=("model", "granularity"),
+)
+PREFIX_MISSES = m.Counter(
+    "rdb_decode_prefix_misses_total", "Prompt-prefix KV cache misses",
+    tag_keys=("model", "granularity"),
+)
+SESSION_HITS = m.Counter(
+    "rdb_decode_session_hits_total", "Session KV continuations",
+    tag_keys=("model",),
+)
+SESSION_MISSES = m.Counter(
+    "rdb_decode_session_misses_total",
+    "Session requests without reusable KV", tag_keys=("model",),
 )
 PAGE_EVICTIONS = m.Counter(
     "rdb_decode_page_evictions_total",
@@ -192,8 +237,13 @@ class _Slot:
     max_new_tokens: int = 0
     prefill_done_ms: float = 0.0
     stop: frozenset = frozenset()  # per-request stop token ids
-    # Paged mode: the slot's physical page ids in logical order.
+    session_id: Optional[str] = None        # store the turn on finish
+    prompt_tokens: Optional[np.ndarray] = None  # session history head
+    # Paged mode: the slot's physical page ids in logical order; the
+    # first ``shared_pages`` are borrowed (refcounted) from a prefix or
+    # session entry and never written by this slot.
     pages: List[int] = field(default_factory=list)
+    shared_pages: int = 0
 
     @property
     def free(self) -> bool:
@@ -205,7 +255,10 @@ class _ChunkTrain:
     """One admission mid-chunked-prefill: the unit the token-budget
     scheduler advances between decode turns. The train HOLDS its slot
     (``_free_slots`` excludes it) and — paged — the pages granted so far
-    (``opts["_pages"]``); ``pos`` is the next position to prefill."""
+    (``opts["_pages"]``: a borrowed head, then per-chunk grants); ``pos``
+    is the next position to prefill, ``base`` the first position the
+    train computes (those below it were seeded from a prefix or session
+    entry)."""
 
     req: Request
     prompt: np.ndarray
@@ -214,8 +267,10 @@ class _ChunkTrain:
     C: int                 # chunk width
     total: int             # prompt length (prefill ends here)
     pos: int = 0
+    base: int = 0
     row: Any = None        # slab: the train's private row cache
     last: Any = None       # slab: the last chunk's take-row logits
+    insert_prefix: bool = False  # slab: publish chunk 0 once computed
 
 
 def bucket_up(value: int, buckets: Sequence[int]) -> Optional[int]:
@@ -226,14 +281,19 @@ def bucket_up(value: int, buckets: Sequence[int]) -> Optional[int]:
     return None
 
 
-def _planes(rows, cache):
-    """(source, destination) pairs of every per-position plane: k and v,
+def _kv_planes(cache) -> Dict[str, torch.Tensor]:
+    """A cache's per-position planes under the parcel's names: k and v,
     and on an int8 cache their scale planes — a copy that dropped the
-    scales would reconstruct garbage KV for every admitted prompt."""
-    pairs = [(rows.k, cache.k), (rows.v, cache.v)]
+    scales would reconstruct garbage KV."""
+    out = {"k": cache.k, "v": cache.v}
     if cache.quantized:
-        pairs += [(rows.k_scale, cache.k_scale), (rows.v_scale, cache.v_scale)]
-    return pairs
+        out.update(k_scale=cache.k_scale, v_scale=cache.v_scale)
+    return out
+
+
+def _planes(rows, cache):
+    """(source, destination) pairs of every per-position plane."""
+    return list(zip(_kv_planes(rows).values(), _kv_planes(cache).values()))
 
 
 def copy_rows_into(cache, rows, slots: torch.Tensor) -> None:
@@ -286,18 +346,106 @@ def run_chunk(chunk_fn, prompt: np.ndarray, pos: int, C: int, row):
     return last, row, int(piece.size)
 
 
-def run_chunked(chunk_fn, prompt: np.ndarray, C: int, row, between=None):
-    """Host loop driving ``chunk_fn`` over a prompt: full-width chunks, a
-    right-padded tail, and ``between`` after every non-final chunk (the
-    decode-interleave hook). Returns (last logits, row)."""
-    L = int(prompt.size)
-    n_chunks = (L + C - 1) // C
+def run_chunked(chunk_fn, prompt: np.ndarray, C: int, row, between=None,
+                start_chunk: int = 0, after_first=None, base: int = 0):
+    """Host loop driving ``chunk_fn`` over ``prompt[base:]``: full-width
+    chunks from global position ``base`` (seeded positions below it; it
+    need not be chunk-aligned), a right-padded tail, ``between`` after
+    every non-final chunk (the decode-interleave hook) and
+    ``after_first`` on chunk 0 (the prefix-cache insert hook).
+    ``start_chunk`` skips chunks a prefix seed already holds. Returns
+    (last logits, row)."""
+    n_chunks = (int(prompt.size) - base + C - 1) // C
     last = None
-    for ci in range(n_chunks):
-        last, row, _ = run_chunk(chunk_fn, prompt, ci * C, C, row)
+    for ci in range(start_chunk, n_chunks):
+        last, row, _ = run_chunk(chunk_fn, prompt, base + ci * C, C, row)
+        if ci == 0 and after_first is not None:
+            after_first(row)
         if ci < n_chunks - 1 and between is not None:
             between()
     return last, row
+
+
+class _DeviceLRU:
+    """Bounded LRU whose values hold device tensors: dropping the last
+    reference on eviction frees the memory. Shared mechanics of the slab
+    prefix and session caches."""
+
+    def __init__(self, capacity: int):
+        self.capacity = int(capacity)
+        self._entries: "collections.OrderedDict" = collections.OrderedDict()
+
+    def _get(self, key):
+        entry = self._entries.get(key)
+        if entry is not None:
+            self._entries.move_to_end(key)
+        return entry
+
+    def _put(self, key, value) -> None:
+        self._entries[key] = value
+        self._entries.move_to_end(key)
+        while len(self._entries) > self.capacity:
+            self._entries.popitem(last=False)
+
+    def clear(self) -> None:
+        self._entries.clear()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+
+class PrefixCache(_DeviceLRU):
+    """Device-resident LRU of prompt-prefix KV segments, chunk-granular:
+    each entry is one chunk width's computed k/v (``[L, 1, C, K, H]``,
+    with the scale planes on an int8 cache) keyed by the exact first C
+    token ids; a hit seeds an admission's row cache with a copy instead
+    of recomputing chunk 0."""
+
+    def __init__(self, capacity: int, width: int):
+        super().__init__(capacity)
+        self.width = int(width)
+
+    def _key(self, prompt: np.ndarray) -> bytes:
+        return np.ascontiguousarray(prompt[: self.width]).tobytes()
+
+    def lookup(self, prompt: np.ndarray) -> Optional[Tuple]:
+        """(k, v, k_scale, v_scale) — scales None for a model-dtype
+        cache."""
+        return self._get(self._key(prompt))
+
+    def insert(self, prompt: np.ndarray, k: torch.Tensor, v: torch.Tensor,
+               k_scale=None, v_scale=None) -> None:
+        key = self._key(prompt)
+        if key not in self._entries:
+            self._put(key, (k, v, k_scale, v_scale))
+
+
+class SessionCache(_DeviceLRU):
+    """Device-resident LRU of finished conversation turns, keyed by
+    session id: the previous turn's cache row (prompt + generated tokens)
+    is exactly the prefix KV of the next turn's prompt, so a hit seeds
+    the admission with the stored row and prefills only the new tail.
+    Entries hold one full row ([L, 1, S, K, H] k/v and scale planes)
+    plus the token history for the prefix check."""
+
+    def lookup(self, session_id: str, prompt: np.ndarray):
+        """(k, v, k_scale, v_scale, history_len) when the stored turn is
+        a strict prefix of ``prompt`` (>= 1 tail token left to
+        prefill)."""
+        entry = self._get(session_id)
+        if entry is None:
+            return None
+        seg, history = entry
+        n = int(history.size)
+        if n >= prompt.size or not np.array_equal(history, prompt[:n]):
+            return None
+        return (*seg, n)
+
+    def store(self, session_id: str, seg: Tuple,
+              history: np.ndarray) -> None:
+        """``seg`` is :meth:`DecodeEngine._extract_row_impl`'s (k, v,
+        k_scale, v_scale)."""
+        self._put(session_id, (seg, np.asarray(history, np.int32)))
 
 
 def _mix32(x):
@@ -357,6 +505,9 @@ class DecodeEngine:
         kv_pool_pages: Optional[int] = None,
         chunked_prefill: Optional[bool] = None,
         prefill_token_budget: Optional[int] = None,
+        prefix_cache_size: int = 0,
+        session_cache_size: int = 0,
+        host_spill_pages: int = 0,
     ):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -454,6 +605,37 @@ class DecodeEngine:
             int(prefill_token_budget or chunk_w), chunk_w)
         self._trains: List[_ChunkTrain] = []   # FIFO (arrival order)
         self._train_slots: set = set()
+        # Prompt-prefix KV reuse (0 = off; needs a prompt bucket): paged
+        # engines reuse by page reference (longest shared page-prefix,
+        # copy-on-write), slab engines keep chunk-granular device copies.
+        self.prefix_cache: Optional[PrefixCache] = None
+        self.paged_prefix: Optional[PagedPrefixCache] = None
+        if prefix_cache_size > 0 and self.prompt_buckets:
+            if self.paged:
+                self.paged_prefix = PagedPrefixCache(
+                    prefix_cache_size, self.page_size, self._allocator)
+            else:
+                self.prefix_cache = PrefixCache(prefix_cache_size,
+                                                self.prompt_buckets[-1])
+        # Device -> host-memory spill tier (0 = off; only beside a paged
+        # prefix cache): a prefix entry shed under pool pressure keeps
+        # its page contents in pinned host memory and reloads on the next
+        # matching prompt instead of recomputing.
+        self.host_spill: Optional[HostSpillTier] = None
+        if host_spill_pages > 0 and self.paged_prefix is not None:
+            self.host_spill = HostSpillTier(
+                host_spill_pages, self._read_pages, self._write_pages,
+                journal=self._page_journal)
+        # Multi-turn session continuation (0 = off): the paged store pins
+        # the finished slot's pages, the slab store copies its row.
+        self.session_cache: Optional[SessionCache] = None
+        self.paged_sessions: Optional[PagedSessionCache] = None
+        if session_cache_size > 0:
+            if self.paged:
+                self.paged_sessions = PagedSessionCache(
+                    session_cache_size, self.page_size, self._allocator)
+            else:
+                self.session_cache = SessionCache(session_cache_size)
         # TTFT decomposition (queue_wait, scan_wait, prefill) per admission.
         self._scan_start_ms = 0.0
         self._scan_end_ms = 0.0
@@ -466,6 +648,19 @@ class DecodeEngine:
         # engines on the same device are not stalled.
         self.interleave_hook: Optional[Callable[[], None]] = None
         self._admitting = 0
+        # Page-fabric mailboxes (live migration + prefix push): other
+        # threads request work through them and the loop services them
+        # between decode turns (:meth:`_service_fabric`). The lock takes
+        # the "allocator" rank and is never held across queue or
+        # request-future calls.
+        self._fabric_lock = OrderedLock("allocator")
+        self._migrate_out_q: List[Tuple[str, Callable]] = []
+        self._push_out_q: List[Tuple[bytes, Callable]] = []
+        self._parcel_in_q: List[PageParcel] = []
+        self.migrated_out = 0
+        self.migrated_in = 0
+        self.pushes_out = 0
+        self.pushes_in = 0
         self._thread: Optional[threading.Thread] = None
         self._run = threading.Event()
         self.steps = 0
@@ -498,6 +693,18 @@ class DecodeEngine:
             self._program("long_commit_paged", self._commit_long_paged_impl)
             if self.paged
             else self._program("long_commit", self._commit_long_impl))
+        # The reuse programs: row-cache copies, run eagerly (a row cache
+        # is per fill), each warmed when its cache is on.
+        self._prefix_seed_fn = self._program("prefix_seed",
+                                             self._seed_prefix_impl)
+        self._prefix_extract_fn = self._program("prefix_extract",
+                                                self._extract_prefix_impl)
+        self._paged_seed_fn = self._program("paged_seed",
+                                            self._seed_paged_impl)
+        self._session_seed_fn = self._program("session_seed",
+                                              self._seed_session_impl)
+        self._session_extract_fn = self._program("session_extract",
+                                                 self._extract_row_impl)
         # The decode kernels' merge scratch, sized for the largest launch
         # any program can make (decode over every slot; a prefill group,
         # chunk group or long-fill chunk of a bucket <= 8 takes the
@@ -664,6 +871,60 @@ class DecodeEngine:
             any_sampled,
         )
 
+    # --- the reuse programs: row-cache seeds and extracts ------------------
+    @torch.inference_mode()
+    def _seed_prefix_impl(self, row_cache, pk, pv, pks, pvs):
+        """Copy a cached prefix segment into positions [0, C) of a fresh
+        row cache, in place (the copy that replaces recomputing chunk 0);
+        its valid length is its width."""
+        return self._seed_session_impl(row_cache, pk, pv, pks, pvs,
+                                       pk.shape[2])
+
+    @torch.inference_mode()
+    def _extract_prefix_impl(self, row_cache, width: int):
+        """Copies of the row cache's first ``width`` positions (the chunk
+        0 just computed), scale planes included on an int8 cache."""
+        out = [p[:, :, :width].clone()
+               for p in _kv_planes(row_cache).values()]
+        return tuple(out + [None] * (4 - len(out)))
+
+    @torch.inference_mode()
+    def _seed_session_impl(self, row_cache, ek, ev, eks, evs, elen: int):
+        """Copy a stored row (``[L, 1, n, K, H]`` k/v, and on an int8
+        cache its scale planes) into positions [0, n) of a fresh row
+        cache, in place, and mark ``elen`` positions valid."""
+        n = ek.shape[2]
+        for src, dst in zip((ek, ev, eks, evs),
+                            _kv_planes(row_cache).values()):
+            dst[:, :, :n].copy_(src)
+        row_cache.lengths.fill_(int(elen))
+        return row_cache
+
+    @torch.inference_mode()
+    def _extract_row_impl(self, cache, slot: int):
+        """Copies of one slot's full row of the shared slab cache (the
+        finished turn's KV, stored for the session's next turn)."""
+        out = [p[:, slot:slot + 1].clone()
+               for p in _kv_planes(cache).values()]
+        return tuple(out + [None] * (4 - len(out)))
+
+    @torch.inference_mode()
+    def _seed_paged_impl(self, row_cache, cache, table_row, elen: int):
+        """Gather a page run (``table_row`` [NP] int32, sentinel-padded:
+        the sentinel is the pool's sink page) into positions [0, S) of a
+        fresh row cache, in place, and mark ``elen`` valid — how a mono
+        borrower sees its shared prefix during the tail prefill. Past
+        ``elen`` the row holds garbage that the tail overwrites or the
+        mask never attends."""
+        S = self._paged_capacity
+        idx = table_row.long()
+        for src, dst in _planes(cache, row_cache):
+            g = src.index_select(1, idx)       # [L, NP, ps, ...]
+            dst[:, :, :S].copy_(g.reshape((g.shape[0], 1, S)
+                                          + tuple(g.shape[3:])))
+        row_cache.lengths.fill_(int(elen))
+        return row_cache
+
     @torch.inference_mode()
     def _chunk_group_paged_impl(self, tokmask, tables, meta_i, meta_f,
                                 bias_ids, bias_vals,
@@ -819,8 +1080,13 @@ class DecodeEngine:
             self._warmup_long_fill()
         else:
             self._warmup_prefill_groups()
-            if self.prompt_buckets[-1] + 1 < self.max_len:
+            # Mono session continuations take the long fill's chunk and
+            # commit whatever the prompt's length.
+            if (self.prompt_buckets[-1] + 1 < self.max_len
+                    or self.session_cache is not None
+                    or self.paged_sessions is not None):
                 self._warmup_long_fill()
+        self._warmup_reuse()
         self._warmup_decode()
         with torch.inference_mode():
             self._cache.lengths.zero_()
@@ -893,6 +1159,28 @@ class DecodeEngine:
             self._long_commit_fn(row, 0, meta_i, last, meta_f[:, 0], bids,
                                  bvals, False)
 
+    def _warmup_reuse(self) -> None:
+        """The reuse programs this engine can dispatch, once each (one
+        key apiece), on a throwaway row cache: the chunk-granular seed
+        and extract beside a slab prefix cache, the row seed and extract
+        beside a slab session cache, the page-run seed on a mono paged
+        engine with a prefix or session cache (the chunked paged arm
+        borrows pages and seeds nothing)."""
+        C = self.prompt_buckets[-1]
+        with torch.inference_mode():
+            row = self.model.make_cache(1, self._long_row_cap(C))
+        if self.prefix_cache is not None:
+            seg = self._prefix_extract_fn(row, C)
+            self._prefix_seed_fn(row, *seg)
+        if self.session_cache is not None:
+            seg = self._session_extract_fn(self._cache, 0)
+            self._session_seed_fn(row, *seg, 0)
+        if (self.paged and not self.chunked_prefill
+                and (self.paged_prefix is not None
+                     or self.paged_sessions is not None)):
+            self._paged_seed_fn(row, self._cache,
+                                self._sentinel_table(1)[0], 0)
+
     def _warmup_decode(self) -> None:
         """Every decode key ``_step`` can dispatch: horizons {1,
         ttft_horizon, decode_horizon} x greedy or sampled rows x
@@ -950,6 +1238,7 @@ class DecodeEngine:
             # re-submitted request resamples the same way on any replica.
             "seed": zlib.crc32(req.request_id.encode()) & 0x7FFFFFFF,
             "stop": frozenset(),
+            "session_id": None,   # multi-turn KV continuation key
             "logit_bias": {},
             "presence_penalty": 0.0,
             "frequency_penalty": 0.0,
@@ -974,6 +1263,9 @@ class DecodeEngine:
                     opts["seed"] = int(p["seed"]) & 0x7FFFFFFF
                 opts["stop"] = frozenset(
                     int(t) for t in p.get("stop_token_ids", ()))
+                if p.get("session_id") is not None:
+                    opts["session_id"] = str(p["session_id"])
+                    opts["_prompt_tokens"] = prompt
                 bias = {int(t): float(v)
                         for t, v in dict(p.get("logit_bias", {})).items()}
                 for t in p.get("banned_tokens", ()):
@@ -1032,6 +1324,8 @@ class DecodeEngine:
     def _admit_batch(self, batch: List[Request], free: List[int]) -> int:
         t_dequeue = now_ms()
         by_bucket: Dict[int, List[Tuple[Request, np.ndarray, Dict]]] = {}
+        session_items: List[Tuple[Request, np.ndarray, Dict, Tuple]] = []
+        sessions = self.paged_sessions if self.paged else self.session_cache
         for req in batch:
             req.admit_ms = t_dequeue
             try:
@@ -1039,9 +1333,28 @@ class DecodeEngine:
             except Exception as e:  # noqa: BLE001 — bad prompt must not kill loop
                 req.reject(e)
                 continue
+            hit = None
+            if sessions is not None and opts["session_id"]:
+                hit = sessions.lookup(opts["session_id"], prompt)
+                if hit is not None and self.paged:
+                    # Seed-read hold, taken at lookup: a long fill of this
+                    # round interleaves decode steps whose finishes can
+                    # store new turns and evict this entry; the hold keeps
+                    # its pages until the seed has read them, and lets the
+                    # reservation below cover only the non-shared tail.
+                    self._allocator.incref(hit[0])
+                    opts["_session_hold"] = list(hit[0])
+                    opts["_session_share"] = hit[1] // self.page_size
+                if hit is None:
+                    # Counted once, at registration (a requeue re-looks
+                    # up).
+                    opts["_session_miss"] = True
             if self.paged and not self._alloc_admission_pages(
                     req, prompt, opts):
                 continue  # page-starved: requeued (or refused) inside
+            if hit is not None:
+                session_items.append((req, prompt, opts, hit))
+                continue
             by_bucket.setdefault(bucket, []).append((req, prompt, opts))
         admitted = 0
         cap = self.max_admissions_per_step
@@ -1060,18 +1373,25 @@ class DecodeEngine:
                         req.reject(e)
                     continue
                 admitted += len(chunk)
-        # Long prompts fill one by one after the groups; past the free
-        # slots they go back to the queue untouched (pages re-granted at
-        # their next admission).
-        for req, prompt, opts in long_items:
+        # Long prompts and session continuations fill one by one after the
+        # groups; past the free slots they go back to the queue untouched
+        # (pages re-granted at their next admission).
+        session_fill = (self._prefill_session_paged if self.paged
+                        else self._prefill_session)
+        singles = ([(self._prefill_long, (req, prompt, opts))
+                    for req, prompt, opts in long_items]
+                   + [(session_fill, (req, prompt, opts, hit))
+                      for req, prompt, opts, hit in session_items])
+        for fill, args in singles:
+            req, opts = args[0], args[2]
             if admitted >= len(free):
                 self._release_pages(opts)
-                self._requeue(req, "long-prompt admission")
+                self._requeue(req, "chunked admission")
                 continue
             try:
-                self._prefill_long(req, prompt, opts, free[admitted])
+                fill(*args, free[admitted])
             except Exception as e:  # noqa: BLE001 — same no-dangle rule
-                logger.exception("%s: long fill failed", self.model.name)
+                logger.exception("%s: chunked fill failed", self.model.name)
                 self._release_pages(opts)
                 req.reject(e)
                 continue
@@ -1133,6 +1453,16 @@ class DecodeEngine:
         if self.interleave_hook is not None:
             self.interleave_hook()
 
+    def _long_chunk(self, *args):
+        """The long fill's chunk program, counted."""
+        self.long_chunk_dispatches += 1
+        return self._long_chunk_fn(*args)
+
+    def _new_row(self):
+        with torch.inference_mode():
+            return self.model.make_cache(
+                1, self._long_row_cap(self.prompt_buckets[-1]))
+
     def _prefill_long(self, req: Request, prompt: np.ndarray, opts: Dict,
                       slot_idx: int) -> None:
         """Admit one prompt longer than every bucket: prefill it in chunks
@@ -1140,24 +1470,67 @@ class DecodeEngine:
         step for the active batch between chunks, then ONE commit (row into
         the shared cache + first-token sample) and registration. Paged
         engines granted the prompt's pages at admission; the commit cuts
-        the row into them."""
+        the row into them.
+
+        With a prefix cache the fill reuses: paged, the longest shared
+        page-prefix is borrowed by reference (the tail is recomputed into
+        private pages, the row seeded from the borrowed pages) and the
+        prompt's own full pages are published once committed; slab, a
+        cached first chunk seeds the row and chunk 0 is skipped, or a
+        computed chunk 0 is published."""
         C = self.prompt_buckets[-1]
-        with torch.inference_mode():
-            row = self.model.make_cache(1, self._long_row_cap(C))
+        row = self._new_row()
+        start_chunk = base = 0
+        after_first = after_commit = None
+        model_tag = {"model": self.model.name}
+        if self.paged_prefix is not None:
+            hit = self.paged_prefix.lookup(prompt)
+            if hit is None and self.host_spill is not None:
+                hit = self._reload_spilled_prefix(prompt)
+            if hit is not None:
+                shared_ids, shared_len = hit
+                self._swap_in_shared(opts, shared_ids)
+                row = self._paged_seed_fn(
+                    row, self._cache, torch.from_numpy(table_array(
+                        shared_ids, self._n_table_entries, self.num_pages)),
+                    shared_len)
+                base = shared_len
+                PREFIX_HITS.inc(tags={**model_tag, "granularity": "page"})
+            else:
+                PREFIX_MISSES.inc(tags={**model_tag, "granularity": "page"})
 
-        def chunk(*args):
-            self.long_chunk_dispatches += 1
-            return self._long_chunk_fn(*args)
-
-        last, row = run_chunked(chunk, prompt, C, row,
-                                between=self._interleave_step)
-        self._commit_and_register(req, opts, slot_idx, row, last)
+            def after_commit():
+                self.paged_prefix.insert(prompt, opts["_pages"])
+        elif self.prefix_cache is not None:
+            # Chunk 0 is full (a long prompt has two chunks or more), so
+            # its k/v depend only on the first C token ids.
+            hit = self.prefix_cache.lookup(prompt)
+            if hit is not None:
+                row = self._prefix_seed_fn(row, *hit)
+                start_chunk = 1
+                PREFIX_HITS.inc(tags={**model_tag, "granularity": "chunk"})
+            else:
+                def after_first(r):
+                    self.prefix_cache.insert(
+                        prompt, *self._prefix_extract_fn(r, C))
+                PREFIX_MISSES.inc(tags={**model_tag,
+                                        "granularity": "chunk"})
+        last, row = run_chunked(self._long_chunk, prompt, C, row,
+                                between=self._interleave_step,
+                                start_chunk=start_chunk,
+                                after_first=after_first, base=base)
+        self._commit_and_register(req, opts, slot_idx, row, last,
+                                  after_commit=after_commit)
 
     def _commit_and_register(self, req: Request, opts: Dict, slot_idx: int,
-                             row, last) -> None:
-        """Shared tail of every row-cache admission (the long fill, a slab
-        train's final chunk): ONE commit (the row into the shared cache +
-        first-token sample), then registration."""
+                             row, last, after_commit=None) -> None:
+        """Shared tail of every row-cache admission (the long fill, a
+        session fill, a slab train's final chunk): ONE commit (the row into
+        the shared cache + first-token sample), ``after_commit`` (the paged
+        prefix publish, which must see committed pages and run before a
+        stop-on-first-token registration frees them), then registration.
+        Paged: borrowed head pages are steered to the sink page, so the
+        commit never rewrites a shared page."""
         bids, bvals = self._bias_arrays(opts)
         meta_i = torch.tensor([slot_idx, opts["top_k"], opts["seed"]],
                               dtype=torch.int32)
@@ -1165,9 +1538,11 @@ class DecodeEngine:
                               dtype=torch.float32)
         sampled = opts["temperature"] > 0
         if self.paged:
+            shared = int(opts.get("_shared_pages", 0))
+            wp = list(opts["_pages"])
+            wp[:shared] = [self.num_pages] * shared
             pids = torch.from_numpy(table_array(
-                opts["_pages"], self._n_table_entries, self.num_pages
-            )[None])
+                wp, self._n_table_entries, self.num_pages)[None])
             first = self._long_commit_fn(
                 row, meta_i, last, meta_f, torch.from_numpy(bids[None]),
                 torch.from_numpy(bvals[None]), pids, sampled)
@@ -1176,7 +1551,73 @@ class DecodeEngine:
                 row, slot_idx, meta_i, last, meta_f,
                 torch.from_numpy(bids[None]), torch.from_numpy(bvals[None]),
                 sampled)
-        self._register(slot_idx, req, int(first.cpu()[0]), opts, now_ms())
+        first_tok = int(first.cpu()[0])
+        if after_commit is not None:
+            after_commit()
+        self._register(slot_idx, req, first_tok, opts, now_ms())
+
+    def _prefill_session(self, req: Request, prompt: np.ndarray, opts: Dict,
+                         hit: Tuple, slot_idx: int) -> None:
+        """Continue a conversation from its stored row (slab): seed the row
+        cache with the previous turn, chunk-prefill only the new tail from
+        the stored length (not chunk-aligned), and commit."""
+        ek, ev, eks, evs, elen = hit
+        SESSION_HITS.inc(tags={"model": self.model.name})
+        row = self._session_seed_fn(self._new_row(), ek, ev, eks, evs, elen)
+        last, row = run_chunked(self._long_chunk, prompt,
+                                self.prompt_buckets[-1], row,
+                                between=self._interleave_step, base=elen)
+        self._commit_and_register(req, opts, slot_idx, row, last)
+
+    def _swap_in_shared(self, opts: Dict, shared_ids: List[int]) -> None:
+        """Copy-on-write borrow at a mono fill: pin the shared pages, hand
+        back the equivalent leading private pages reserved at admission,
+        and splice — ``opts["_pages"]`` stays the slot's full logical run,
+        ``_shared_pages`` marking the borrowed (never written) head.
+        Incref before decref, so no page passes through refcount 0."""
+        n = len(shared_ids)
+        pages = opts["_pages"]
+        self._allocator.incref(shared_ids)
+        self._allocator.decref(pages[:n])
+        opts["_pages"] = list(shared_ids) + pages[n:]
+        opts["_shared_pages"] = n
+        self._page_journal.record(
+            "cow_copy", n, self._allocator.allocated_pages, source="prefix")
+
+    def _prefill_session_paged(self, req: Request, prompt: np.ndarray,
+                               opts: Dict, hit: Tuple,
+                               slot_idx: int) -> None:
+        """Paged session continuation (mono): borrow the stored turn's FULL
+        pages by reference, seed the row from the whole stored run (the
+        boundary page's content rides into the row; the commit writes its
+        private copy — the copy-on-write), prefill only the new tail and
+        commit the tail pages as private. The admission's hold pinned
+        every stored page and its reservation covers only the tail: the
+        hold's full-page head becomes the slot's borrow, its boundary page
+        stays held until the commit has written the private copy."""
+        shared_ids, stored_len = hit
+        SESSION_HITS.inc(tags={"model": self.model.name})
+        n_share = stored_len // self.page_size
+        opts.pop("_session_hold", None)
+        opts.pop("_session_share", None)
+        opts["_pages"] = list(shared_ids[:n_share]) + opts["_pages"]
+        opts["_shared_pages"] = n_share
+        opts["_hold_tail"] = list(shared_ids[n_share:])
+        self._page_journal.record(
+            "cow_copy", n_share, self._allocator.allocated_pages,
+            source="session")
+        row = self._paged_seed_fn(
+            self._new_row(), self._cache, torch.from_numpy(table_array(
+                shared_ids, self._n_table_entries, self.num_pages)),
+            stored_len)
+        last, row = run_chunked(self._long_chunk, prompt,
+                                self.prompt_buckets[-1], row,
+                                between=self._interleave_step,
+                                base=stored_len)
+        self._commit_and_register(req, opts, slot_idx, row, last)
+        hold_tail = opts.pop("_hold_tail", None)
+        if hold_tail:
+            self._allocator.decref(hold_tail)
 
     # --- token-budget chunked admission ------------------------------------
     def _admit_chunked(self, batch: List[Request], free: List[int]) -> int:
@@ -1206,25 +1647,72 @@ class DecodeEngine:
 
     def _start_train(self, req: Request, prompt: np.ndarray, bucket: int,
                      opts: Dict, slot_idx: int) -> None:
-        """Park one admission's chunk train for the budget pump. Paged: a
-        bucketed prompt keeps its bucket as the chunk width, so
-        same-bucket trains group into one program; a long prompt chunks
-        at the largest bucket. Slab trains always chunk at the largest
-        bucket, on a private row cache of :meth:`_long_row_cap` (the
-        long fill's shapes, so one chunk and one commit serve every
-        train)."""
+        """Park one admission's chunk train for the budget pump, with its
+        reuse resolved. Paged: a bucketed prompt keeps its bucket as the
+        chunk width, so same-bucket trains group into one program; a long
+        prompt or a session continuation chunks at the largest bucket. A
+        session hit borrows the stored turn's full pages by reference and
+        starts at the page boundary (the boundary positions are in the
+        prompt and are recomputed into the train's own pages); the prefix
+        lookup waits for the train's first dispatch
+        (:meth:`_maybe_borrow_prefix`). Slab trains always chunk at the
+        largest bucket, on a private row cache of :meth:`_long_row_cap`
+        (the long fill's shapes, so one chunk and one commit serve every
+        train), seeded from a stored session row or a cached first
+        chunk."""
         C_max = self.prompt_buckets[-1]
+        total = int(prompt.size)
+        base = 0
         row = None
+        insert_prefix = False
+        W = bucket if bucket > 0 else C_max
+        sessions = self.paged_sessions if self.paged else self.session_cache
+        hit = None
+        if sessions is not None and opts["session_id"]:
+            hit = sessions.lookup(opts["session_id"], prompt)
+            if hit is None:
+                opts["_session_miss"] = True
         if self.paged:
-            W = bucket if bucket > 0 else C_max
-            opts["_pages"] = []
+            opts.setdefault("_pages", [])
+            opts["_shared_pages"] = 0
+            if hit is not None:
+                shared_ids, stored_len = hit
+                n_share = stored_len // self.page_size
+                # Counted at registration: a starvation requeue re-admits
+                # and re-looks-up.
+                opts["_session_hit"] = True
+                if n_share > 0:
+                    head = list(shared_ids[:n_share])
+                    self._allocator.incref(head)
+                    opts["_pages"] = head
+                    opts["_shared_pages"] = n_share
+                    base = n_share * self.page_size
+                    self._page_journal.record(
+                        "cow_copy", n_share,
+                        self._allocator.allocated_pages, source="session")
+                W = C_max
         else:
             W = C_max
-            with torch.inference_mode():
-                row = self.model.make_cache(1, self._long_row_cap(W))
+            row = self._new_row()
+            if hit is not None:
+                ek, ev, eks, evs, elen = hit
+                opts["_session_hit"] = True   # counted at _register
+                row = self._session_seed_fn(row, ek, ev, eks, evs, elen)
+                base = int(elen)
+            elif self.prefix_cache is not None and total > W:
+                model_tag = {"model": self.model.name, "granularity": "chunk"}
+                phit = self.prefix_cache.lookup(prompt)
+                if phit is not None:
+                    row = self._prefix_seed_fn(row, *phit)
+                    base = W
+                    PREFIX_HITS.inc(tags=model_tag)
+                else:
+                    insert_prefix = True
+                    PREFIX_MISSES.inc(tags=model_tag)
         self._trains.append(_ChunkTrain(
             req=req, prompt=prompt, opts=opts, slot_idx=slot_idx, C=W,
-            total=int(prompt.size), row=row,
+            total=total, pos=base, base=base, row=row,
+            insert_prefix=insert_prefix,
         ))
         self._train_slots.add(slot_idx)
 
@@ -1266,18 +1754,22 @@ class DecodeEngine:
                     self.interleave_hook()
                 continue
             members = [head]
-            if head.total <= head.C:
+            # Single-chunk trains group; a multi-chunk train dispatches
+            # alone, so it completes (and publishes its prefix pages)
+            # before an identical queued prompt's first chunk looks up.
+            if head.total - head.base <= head.C:
                 cap = min(self.max_admissions_per_step,
                           max(1, budget // head.C))
                 for t in self._trains:
                     if len(members) >= cap:
                         break
                     if (t is head or id(t) in parked or t.C != head.C
-                            or t.total > t.C):
+                            or t.total - t.base > t.C):
                         continue
                     members.append(t)
             ready = []
             for t in members:
+                self._maybe_borrow_prefix(t)
                 if self._grant_train_pages(t):
                     ready.append(t)
                 else:
@@ -1320,10 +1812,41 @@ class DecodeEngine:
                 f"{self.model.name}: chunk trains cannot progress "
                 "(page-starved with no active streams)")
 
+    def _maybe_borrow_prefix(self, train: _ChunkTrain) -> None:
+        """Longest-shared-page-prefix borrow, resolved at the train's first
+        chunk dispatch (not at dequeue): trains of the same burst publish
+        their pages as they complete, so an identical queued prompt finds
+        them. Borrowed pages become the train's head; ``pos``/``base``
+        jump past the shared positions."""
+        if (self.paged_prefix is None or train.pos != 0 or train.base != 0
+                or train.opts.get("_shared_pages", 0)
+                or train.opts.get("_prefix_done")
+                or train.total <= self.page_size):
+            return
+        train.opts["_prefix_done"] = True
+        model_tag = {"model": self.model.name, "granularity": "page"}
+        phit = self.paged_prefix.lookup(train.prompt)
+        if phit is None and self.host_spill is not None:
+            phit = self._reload_spilled_prefix(train.prompt)
+        if phit is None:
+            PREFIX_MISSES.inc(tags=model_tag)
+            return
+        shared_ids, shared_len = phit
+        head = list(shared_ids)
+        self._allocator.incref(head)
+        train.opts["_pages"] = head + train.opts["_pages"]
+        train.opts["_shared_pages"] = len(head)
+        train.pos = train.base = shared_len
+        self._page_journal.record(
+            "cow_copy", len(head), self._allocator.allocated_pages,
+            source="prefix")
+        PREFIX_HITS.inc(tags=model_tag)
+
     def _grant_train_pages(self, train: _ChunkTrain) -> bool:
         """Extend the train's pages to cover its NEXT chunk's real
         positions (a final chunk also covers the first generated token);
-        False when the pool cannot (the train parks)."""
+        cache pins are shed first; False when the pool still cannot (the
+        train parks: live streams are never evicted for an admission)."""
         take = min(train.C, train.total - train.pos)
         if train.pos + take >= train.total:
             need = pages_for(min(train.total + 1, self._paged_capacity),
@@ -1333,8 +1856,9 @@ class DecodeEngine:
         delta = need - len(train.opts["_pages"])
         if delta <= 0:
             return True
-        if not self._allocator.can_alloc(delta):
-            return False
+        while not self._allocator.can_alloc(delta):
+            if not self._reclaim_cache_pins():
+                return False
         train.opts["_pages"].extend(self._allocator.alloc(delta))
         return True
 
@@ -1383,6 +1907,10 @@ class DecodeEngine:
         t_done = now_ms()
         for i, t in finals:
             self._retire_train(t)
+            if self.paged_prefix is not None:
+                # Publish before registration: a stop on the first token
+                # frees the slot's pages, and the insert pins them first.
+                self.paged_prefix.insert(t.prompt, t.opts["_pages"])
             self._register(t.slot_idx, t.req, int(first_host[i]), t.opts,
                            t_done)
 
@@ -1393,6 +1921,10 @@ class DecodeEngine:
         train.last, train.row, take = run_chunk(
             self._long_chunk_fn, train.prompt, train.pos, train.C,
             train.row)
+        if train.insert_prefix and train.pos == 0 and take == train.C:
+            # Chunk 0 was full: its k/v depend only on the first C tokens.
+            self.prefix_cache.insert(
+                train.prompt, *self._prefix_extract_fn(train.row, train.C))
         train.pos += take
         self.chunk_dispatches += 1
         PREFILL_CHUNKS.inc(tags={"model": self.model.name})
@@ -1418,8 +1950,8 @@ class DecodeEngine:
         dispatched yet) and release its grant."""
         if not self._trains:
             return
-        train = next((t for t in reversed(self._trains) if t.pos == 0),
-                     self._trains[-1])
+        train = next((t for t in reversed(self._trains)
+                      if t.pos == t.base), self._trains[-1])
         self._retire_train(train)
         self._release_pages(train.opts)
         self._requeue(train.req, "page-starved chunked admission")
@@ -1437,24 +1969,142 @@ class DecodeEngine:
     def _alloc_admission_pages(self, req: Request, prompt: np.ndarray,
                                opts: Dict) -> bool:
         """Reserve a monolithic admission's pages (prompt + the first
-        generated token); page-starved, the request goes back to the
-        queue (False)."""
-        try:
-            opts["_pages"] = self._allocator.alloc(
-                pages_for(int(prompt.size) + 1, self.page_size))
-            return True
-        except OutOfPages:
-            self._requeue(req, "page-starved admission")
-            return False
+        generated token, minus the session pages the borrow will cover);
+        under pressure cache pins are shed first. Page-starved, the
+        request goes back to the queue untouched (False) and any session
+        hold is released."""
+        need = max(0, pages_for(int(prompt.size) + 1, self.page_size)
+                   - int(opts.get("_session_share", 0)))
+        while True:
+            try:
+                opts["_pages"] = self._allocator.alloc(need)
+                return True
+            except OutOfPages:
+                if not self._reclaim_cache_pins():
+                    break
+        hold = opts.pop("_session_hold", None)
+        opts.pop("_session_share", None)
+        if hold:
+            self._allocator.decref(hold)
+        self._requeue(req, "page-starved admission")
+        return False
 
     def _release_pages(self, opts: Dict) -> None:
         """Undo an admission's page reservation (failed or requeued before
-        a slot took ownership)."""
+        a slot took ownership): the whole list is decrefed (a borrowed
+        head releases its borrow, private pages free), and so is any
+        outstanding session hold."""
         if not self.paged:
             return
         pages = opts.pop("_pages", None)
+        opts.pop("_shared_pages", None)
+        opts.pop("_session_share", None)
         if pages:
             self._allocator.decref(pages)
+        for key in ("_session_hold", "_hold_tail"):
+            hold = opts.pop(key, None)
+            if hold:
+                self._allocator.decref(hold)
+
+    # --- page contents between the pool and the host (spill, parcels) -----
+    def _read_pages(self, page_ids: List[int]) -> Dict[str, torch.Tensor]:
+        """The listed pages' contents in host tensors (pinned on the card):
+        k/v ``[L, n, ps, K, H]`` and, on an int8 pool, the scale planes
+        ``[L, n, ps, K]``. The copies are queued on the engine's stream,
+        behind every program that wrote those pages, and waited for."""
+        idx = torch.tensor(page_ids, dtype=torch.long, device=self.device)
+        pin = self.device.type == "cuda"
+        out = {}
+        with torch.inference_mode():
+            for name, plane in _kv_planes(self._cache).items():
+                g = plane.index_select(1, idx)
+                host = torch.empty(g.shape, dtype=g.dtype, pin_memory=pin)
+                host.copy_(g, non_blocking=pin)
+                out[name] = host
+        if pin:
+            torch.cuda.current_stream(self.device).synchronize()
+        return out
+
+    def _write_pages(self, page_ids: List[int], payload: Dict) -> None:
+        """Copy page contents (host tensors or numpy arrays in the layout
+        :meth:`_read_pages` gives) into the listed pages, in place on the
+        engine's stream: the pool keeps its address, which the captured
+        programs hold."""
+        idx = torch.tensor(page_ids, dtype=torch.long, device=self.device)
+        with torch.inference_mode():
+            for name, plane in _kv_planes(self._cache).items():
+                src = torch.as_tensor(payload[name])
+                plane.index_copy_(1, idx, src.to(
+                    device=self.device, dtype=plane.dtype,
+                    non_blocking=src.is_pinned()))
+
+    def _reload_spilled_prefix(
+            self, prompt: np.ndarray) -> Optional[Tuple[List[int], int]]:
+        """Probe the spill tier for the longest spilled page-prefix of
+        ``prompt``; on a hit the pages come back into fresh pool pages, are
+        republished in the prefix cache and returned as a borrow
+        ``(page_ids, shared_len)``, exactly as a resident hit. None when
+        absent or when the pool has no pages for the reload (recompute:
+        a reload never deepens the pressure)."""
+        max_n = (int(prompt.size) - 1) // self.page_size
+        if max_n <= 0 or len(self.host_spill) == 0:
+            return None
+        keys = digest_chain(prompt, self.page_size, max_n)
+        for n in range(max_n, 0, -1):
+            if keys[n - 1] not in self.host_spill:
+                continue
+            pids = self.host_spill.reload(keys[n - 1], self._allocator)
+            if pids is None:
+                return None
+            # Republish (the cache pins them), then drop the reload's own
+            # hold — the pin symmetry of a slot publishing.
+            self.paged_prefix.insert(prompt[: n * self.page_size], pids)
+            self._allocator.decref(pids)
+            return self.paged_prefix.lookup(prompt)
+        return None
+
+    def prefix_digests(self, limit: int = 128) -> Optional[Dict[str, Any]]:
+        """Bounded digest publication for cluster-wide prefix routing:
+        resident prefix entries plus spilled ones (both servable here), as
+        ``{"page_size": ..., "digests": {hex: chain_len}}``; the digests a
+        reload brought back since the last call ride under ``reloaded``
+        (the controller forces a directory push on them)."""
+        if self.paged_prefix is None:
+            return None
+        digests = self.paged_prefix.digests(limit)
+        if self.host_spill is not None and len(digests) < limit:
+            for key, n in self.host_spill.digests(
+                    limit - len(digests)).items():
+                digests.setdefault(key, n)
+        out: Dict[str, Any] = {"page_size": self.page_size,
+                               "digests": digests}
+        if self.host_spill is not None:
+            reloaded = self.host_spill.drain_republish()
+            if reloaded:
+                out["reloaded"] = reloaded
+        return out
+
+    def _reclaim_cache_pins(self) -> bool:
+        """Shed one LRU cache pin under pool pressure — prefix entries
+        first (recompute cost), then session turns — before any live
+        stream is capacity-finished. With a spill tier the shed prefix
+        entry's page contents go to host memory first. True if an entry
+        was dropped (its pages free unless a borrower holds them: callers
+        loop)."""
+        if self.paged_prefix is not None and self.host_spill is not None:
+            lru = self.paged_prefix.peek_lru()
+            if lru is not None:
+                key, pages = lru
+                self.host_spill.spill(key, list(pages),
+                                      self._allocator.allocated_pages)
+        for which, cache in (("prefix", self.paged_prefix),
+                             ("session", self.paged_sessions)):
+            if cache is not None and cache.evict_lru():
+                self._page_journal.record(
+                    "cache_reclaim", 0, self._allocator.allocated_pages,
+                    cache=which)
+                return True
+        return False
 
     def _register(self, slot_idx: int, req: Request, first_tok: int,
                   opts: Dict, t: float) -> None:
@@ -1465,11 +2115,14 @@ class DecodeEngine:
         slot.max_new_tokens = max_new
         slot.prefill_done_ms = t
         slot.stop = opts["stop"]
+        slot.session_id = opts.get("session_id")
+        slot.prompt_tokens = opts.get("_prompt_tokens")
         self._len_host[slot_idx] = int(opts.get("_cache_len", 0))
         if self.paged:
             # The slot now owns the admission's pages; the host table
             # maps them for the next dispatch's refresh.
             slot.pages = list(opts.get("_pages", ()))
+            slot.shared_pages = int(opts.get("_shared_pages", 0))
             self._table_host[slot_idx] = table_array(
                 slot.pages, self._n_table_entries, self.num_pages)
             self._table_dirty = True
@@ -1490,6 +2143,12 @@ class DecodeEngine:
             self._zero_counts_fn(torch.tensor([slot_idx, first_tok],
                                               dtype=torch.int32))
         PREFILLS_TOTAL.inc(tags={"model": self.model.name})
+        if opts.get("_session_hit"):
+            # Chunk trains count their session hit here, past every
+            # requeue window (mono session fills count at fill start).
+            SESSION_HITS.inc(tags={"model": self.model.name})
+        if opts.get("_session_miss"):
+            SESSION_MISSES.inc(tags={"model": self.model.name})
         TTFT_MS.observe(
             t - req.arrival_ms, tags={"model": self.model.name},
             trace_id=(req.trace_ctx or {}).get("trace_id"),
@@ -1535,8 +2194,26 @@ class DecodeEngine:
         slot = self._slots[slot_idx]
         req = slot.request
         t = now_ms()
+        stores = slot.session_id and slot.prompt_tokens is not None
+        if stores:
+            # The cache holds prompt + generated[:-1] (the last token is
+            # pending, never fed): that history is what the next turn's
+            # prompt must extend.
+            history = np.concatenate([
+                np.asarray(slot.prompt_tokens, np.int32),
+                np.asarray(slot.generated[:-1], np.int32)])
         if self.paged and slot.pages:
+            if self.paged_sessions is not None and stores:
+                # Pin the pages covering the history (the store's incref
+                # comes before the slot's decref below, so no page passes
+                # through the free list).
+                self.paged_sessions.store(slot.session_id, slot.pages,
+                                          history)
             self._free_slot_pages(slot_idx)
+        if self.session_cache is not None and stores:
+            self.session_cache.store(
+                slot.session_id,
+                self._session_extract_fn(self._cache, slot_idx), history)
         result = DecodeResult(
             tokens=list(slot.generated),
             finish_reason=reason,
@@ -1582,6 +2259,7 @@ class DecodeEngine:
         if slot.pages:
             self._allocator.decref(slot.pages)
             slot.pages = []
+            slot.shared_pages = 0
         self._table_host[slot_idx] = self.num_pages
         self._len_host[slot_idx] = 0
         self._table_dirty = True
@@ -1616,6 +2294,11 @@ class DecodeEngine:
             if delta <= 0:
                 continue
             while not self._allocator.can_alloc(delta):
+                # Cache pins go before any live stream is truncated (being
+                # the only non-slot owners, they are what makes slot
+                # eviction reclaim nothing).
+                if self._reclaim_cache_pins():
+                    continue
                 victim = self._eviction_victim(exclude=int(i))
                 if victim is None:
                     break
@@ -1803,17 +2486,353 @@ class DecodeEngine:
             elif lengths_host[i] >= self.max_len:
                 self._finish(i, "capacity")
 
+    # --- page fabric (live stream migration + prefix push) -----------------
+    def live_stream_ids(self) -> List[str]:
+        """Request ids of migration-eligible streams: slotted, past
+        their first token, not mid-chunked-prefill (trains hold no
+        emitted tokens yet, so they are requeue-safe under the
+        at-most-once-after-first-token pin and drain the old way).
+        Benign-racy read for planners; eligibility is re-checked on the
+        engine thread at service time."""
+        out: List[str] = []
+        for i, s in enumerate(self._slots):
+            if s.free or s.request is None or i in self._train_slots:
+                continue
+            if s.generated:
+                out.append(s.request.request_id)
+        return out
+
+    def request_migration(
+        self, request_id: str,
+        deliver: Callable[[PageParcel], bool],
+    ) -> bool:
+        """Thread-safe: ask this engine to migrate ``request_id`` out
+        through ``deliver`` at its next between-turns service point.
+        ``deliver`` is invoked ON the engine thread with the frozen
+        parcel and must return True only once the destination accepted
+        it; the slot is committed (freed without fulfil) on True and
+        left decoding untouched on False/raise. Returns False if the
+        stream is not live here (advisory — a stream that finishes
+        before service is simply skipped, duplicates are harmless)."""
+        if not self.paged:
+            return False
+        live = any(
+            (not s.free) and s.request is not None
+            and s.request.request_id == request_id
+            for s in self._slots
+        )
+        if not live:
+            return False
+        with self._fabric_lock:
+            self._migrate_out_q.append((request_id, deliver))
+        return True
+
+    def request_prefix_push(
+        self, key: bytes, deliver: Callable[[PageParcel], bool],
+    ) -> bool:
+        """Thread-safe: export prefix-cache entry ``key`` as a push
+        parcel through ``deliver`` at the next service point (skipped
+        if evicted by then)."""
+        if not self.paged or self.paged_prefix is None:
+            return False
+        with self._fabric_lock:
+            self._push_out_q.append((key, deliver))
+        return True
+
+    def accept_parcel(self, parcel: PageParcel) -> bool:
+        """Thread-safe destination half of the courier edge: admission-
+        check ``parcel`` and enqueue it for import on the engine thread.
+        The checks are ADVISORY (the free-pages read races the engine
+        thread benignly); the import path keeps its own OOM fallback
+        chain (reclaim cache pins -> capacity-truncate), so a stale
+        accept is honest, never corrupting. A False return leaves the
+        source slot untouched — it simply resumes decoding."""
+        if not self.paged or parcel.page_size != self.page_size:
+            return False
+        if parcel.kind == STREAM:
+            if parcel.resume_len > self.max_len:
+                return False
+            s = parcel.sampling
+            if (float(s.get("temperature", 0.0)) > 0.0
+                    and int(s.get("base_seed", -1)) != self.base_seed):
+                # Sampled rows only resume byte-identically under the
+                # same engine-level noise seed; greedy rows never consult
+                # it.
+                return False
+            with self._fabric_lock:
+                pending = [p for p in self._parcel_in_q
+                           if p.kind == STREAM]
+                free_slots = sum(
+                    1 for i, sl in enumerate(self._slots)
+                    if sl.free and i not in self._train_slots
+                )
+                if len(pending) + 1 > free_slots:
+                    return False
+                pend_pages = sum(p.n_pages for p in pending)
+                if not self._allocator.can_alloc(
+                        pend_pages + parcel.n_pages):
+                    return False
+                self._parcel_in_q.append(parcel)
+            return True
+        # Prefix pushes are speculative: admission only rejects the
+        # impossible (bigger than the pool); a tight pool skips the
+        # install at import time rather than deepening pressure.
+        if parcel.n_pages > self.num_pages:
+            return False
+        with self._fabric_lock:
+            self._parcel_in_q.append(parcel)
+        return True
+
+    def _fabric_pending(self) -> bool:
+        if not self.paged:
+            return False
+        with self._fabric_lock:
+            return bool(self._parcel_in_q or self._migrate_out_q
+                        or self._push_out_q)
+
+    def _service_fabric(self) -> None:
+        """Engine thread, between decode turns: drain the parcel
+        mailboxes and process them. Pops under the fabric lock into
+        locals first, then processes unlocked — the handlers call into
+        queue accounting and request futures, whose locks rank below
+        it. Imports write the pool in place and the next dispatch's
+        table refresh maps them."""
+        if not self.paged:
+            return
+        with self._fabric_lock:
+            if not (self._parcel_in_q or self._migrate_out_q
+                    or self._push_out_q):
+                return
+            inbound, self._parcel_in_q = self._parcel_in_q, []
+            moves, self._migrate_out_q = self._migrate_out_q, []
+            pushes, self._push_out_q = self._push_out_q, []
+        for parcel in inbound:
+            self._import_parcel(parcel)
+        for rid, deliver in moves:
+            self._migrate_stream_out(rid, deliver)
+        for key, deliver in pushes:
+            self._push_prefix_out(key, deliver)
+
+    def _migrate_stream_out(
+        self, request_id: str,
+        deliver: Callable[[PageParcel], bool],
+    ) -> None:
+        """Freeze -> deliver -> commit. The export is read-only and the
+        slot is torn down only AFTER the courier acknowledged delivery,
+        so every failure mode (courier death, partition mid-parcel,
+        destination refusal) leaves the stream decoding here as if the
+        directive never arrived."""
+        idx = None
+        for i, s in enumerate(self._slots):
+            if (not s.free and s.request is not None
+                    and s.request.request_id == request_id
+                    and i not in self._train_slots and s.generated):
+                idx = i
+                break
+        if idx is None:
+            return  # finished/moved since requested — nothing to do
+        slot = self._slots[idx]
+        req = slot.request
+        parcel = export_stream_parcel(self, idx)
+        ok = False
+        try:
+            ok = bool(deliver(parcel))
+        except Exception:  # noqa: BLE001 — a courier fault keeps the stream
+            logger.exception(
+                "%s: migrate_out delivery failed for %s",
+                self.model.name, request_id,
+            )
+        if not ok:
+            return
+        # Commit: the destination owns the stream now. Mirror _finish's
+        # slot/sampling reset WITHOUT fulfil or completion accounting —
+        # the same TokenStream keeps flowing from the new engine, and
+        # note_migrated_out closes this queue's books instead.
+        self._page_journal.record(
+            "migrate_out", parcel.n_pages,
+            self._allocator.allocated_pages,
+            slot=int(idx), bytes=parcel.nbytes, request=request_id,
+        )
+        self.queue.note_migrated_out(req)
+        self._free_slot_pages(idx)
+        self._slots[idx] = _Slot()
+        self._active_mask[idx] = False
+        self._temps[idx] = 0.0
+        self._topk[idx] = 0
+        self._topp[idx] = 1.0
+        self._seeds[idx] = 0
+        self._bias_ids[idx] = 0
+        self._bias_vals[idx] = 0.0
+        self._pres[idx] = 0.0
+        self._freq[idx] = 0.0
+        self.migrated_out += 1
+
+    def _import_parcel(self, parcel: PageParcel) -> None:
+        if parcel.kind == PREFIX:
+            self._install_prefix(parcel)
+            return
+        idx = None
+        for i, s in enumerate(self._slots):
+            if s.free and i not in self._train_slots:
+                idx = i
+                break
+        need = parcel.n_pages
+        if idx is not None:
+            while not self._allocator.can_alloc(need):
+                # Accepted capacity evaporated (admissions raced the
+                # courier): cache pins are optimizations, inbound live
+                # streams are not.
+                if not self._reclaim_cache_pins():
+                    break
+        if idx is None or not self._allocator.can_alloc(need):
+            # OOM-after-accept last resort: a complete-but-truncated
+            # result — the same honest contract as cache exhaustion.
+            self._fulfill_truncated(parcel)
+            return
+        pages = self._allocator.alloc(need) if need else []
+        if parcel.payload:
+            self._write_pages(pages, parcel.payload)
+        self._register_migrated(idx, parcel, pages)
+        self._page_journal.record(
+            "migrate_in", need, self._allocator.allocated_pages,
+            slot=int(idx), bytes=parcel.nbytes,
+            request=parcel.request.request_id,
+        )
+        self.queue.note_migrated_in(parcel.request)
+        self.migrated_in += 1
+
+    def _register_migrated(
+        self, slot_idx: int, parcel: PageParcel, pages: List[int],
+    ) -> None:
+        """Splice an imported stream into ``slot_idx`` and resume it.
+        The _register variant for a stream that already emitted tokens:
+        no stream_put / TTFT / prefill accounting (all happened at the
+        source), device ``lengths`` set explicitly (normally the
+        prefill program's job), penalty counts reconstructed from the
+        generated list (the counts row of a live slot equals
+        ``bincount(generated)`` — the scan counts only tokens it
+        sampled plus the register-counted first token, and a live slot
+        kept every one of them)."""
+        slot = self._slots[slot_idx]
+        slot.request = parcel.request
+        slot.generated = list(parcel.generated)
+        slot.max_new_tokens = parcel.max_new_tokens
+        slot.prefill_done_ms = parcel.prefill_done_ms
+        slot.stop = parcel.stop
+        slot.session_id = parcel.session_id
+        slot.prompt_tokens = parcel.prompt_tokens
+        slot.pages = list(pages)
+        slot.shared_pages = 0
+        self._len_host[slot_idx] = int(parcel.cache_len)
+        self._table_host[slot_idx] = table_array(
+            slot.pages, self._n_table_entries, self.num_pages
+        )
+        self._table_dirty = True
+        self._tokens[slot_idx, 0] = int(parcel.generated[-1])
+        self._active_mask[slot_idx] = True
+        s = parcel.sampling
+        self._temps[slot_idx] = float(s.get("temperature", 0.0))
+        self._topk[slot_idx] = int(s.get("top_k", 0))
+        self._topp[slot_idx] = float(s.get("top_p", 1.0))
+        self._seeds[slot_idx] = int(s.get("seed", 0))
+        self._bias_ids[slot_idx] = np.asarray(s["bias_ids"]) \
+            if "bias_ids" in s else 0
+        self._bias_vals[slot_idx] = np.asarray(s["bias_vals"]) \
+            if "bias_vals" in s else 0.0
+        self._pres[slot_idx] = float(s.get("presence_penalty", 0.0))
+        self._freq[slot_idx] = float(s.get("frequency_penalty", 0.0))
+        self._sampling_dev = None  # host arrays changed
+        with torch.inference_mode():
+            # In place: the captured programs hold these addresses.
+            self._cache.lengths[slot_idx] = int(parcel.cache_len)
+            if self._pres[slot_idx] or self._freq[slot_idx]:
+                vocab = int(self._counts.shape[1])
+                row = np.bincount(
+                    np.asarray(parcel.generated, np.int64) % vocab,
+                    minlength=vocab,
+                )[:vocab].astype(np.int32)
+                self._counts[slot_idx].copy_(torch.from_numpy(row))
+
+    def _fulfill_truncated(self, parcel: PageParcel) -> None:
+        """Destination-OOM fallback after accept: resolve the stream as
+        complete-but-truncated instead of stranding it (the source
+        already committed the hand-off and cannot take it back)."""
+        req = parcel.request
+        t = now_ms()
+        self.queue.note_migrated_in(req)
+        req.fulfill(DecodeResult(
+            tokens=list(parcel.generated),
+            finish_reason="capacity",
+            ttft_ms=parcel.prefill_done_ms - req.arrival_ms,
+            total_ms=t - req.arrival_ms,
+        ))
+        self.queue.record_batch_completion([req], completed_at_ms=t)
+        self.completed += 1
+        logger.warning(
+            "%s: migrated-in stream %s capacity-truncated "
+            "(destination OOM after accept)",
+            self.model.name, req.request_id,
+        )
+
+    def _push_prefix_out(
+        self, key: bytes, deliver: Callable[[PageParcel], bool],
+    ) -> None:
+        parcel = export_prefix_parcel(self, key)
+        if parcel is None:
+            return  # evicted between planning and export
+        ok = False
+        try:
+            ok = bool(deliver(parcel))
+        except Exception:  # noqa: BLE001 — a failed push costs nothing
+            logger.exception(
+                "%s: prefix push delivery failed", self.model.name
+            )
+        if not ok:
+            return
+        self._page_journal.record(
+            "push_out", parcel.n_pages,
+            self._allocator.allocated_pages, bytes=parcel.nbytes,
+        )
+        self.pushes_out += 1
+
+    def _install_prefix(self, parcel: PageParcel) -> None:
+        """Install a pushed prefix parcel digest-direct: alloc, write,
+        publish under the parcel's chain address. Skips duplicates and
+        tight pools (a speculative warm must never evict local state to
+        make room for itself)."""
+        cache = self.paged_prefix
+        if cache is None or not parcel.digest:
+            return
+        if parcel.digest in cache._entries:
+            return
+        need = parcel.n_pages
+        if not self._allocator.can_alloc(need):
+            return
+        pages = self._allocator.alloc(need)
+        self._write_pages(pages, parcel.payload)
+        if cache.install(parcel.digest, pages):
+            self._page_journal.record(
+                "push_in", need, self._allocator.allocated_pages,
+                bytes=parcel.nbytes,
+            )
+            self.pushes_in += 1
+        # Pin symmetry: install increfs for the cache; drop the alloc's
+        # own hold (pages free immediately on the losing race branch).
+        self._allocator.decref(pages)
+
     # --- loop --------------------------------------------------------------
     def run_until_idle(self, timeout_s: float = 60.0) -> None:
         """Drive admissions + steps until queue and slots are empty."""
         deadline = time.monotonic() + timeout_s
         while time.monotonic() < deadline:
+            self._service_fabric()
             admitted = self._admit()
             self._pump_prefill()
             if self._active_mask.any():
                 self._step()
             elif (not admitted and not self._trains
-                    and len(self.queue) == 0):
+                    and len(self.queue) == 0
+                    and not self._fabric_pending()):
                 return
         raise TimeoutError(f"{self.model.name}: decode did not drain")
 
@@ -1830,6 +2849,7 @@ class DecodeEngine:
     def _loop(self) -> None:
         while self._run.is_set():
             try:
+                self._service_fabric()
                 self._admit()
                 self._pump_prefill()
                 if self._active_mask.any():
@@ -1853,7 +2873,16 @@ class DecodeEngine:
         self._cache = None
         self._counts = None
         self._sampling_dev = None
+        if self.prefix_cache is not None:
+            self.prefix_cache.clear()    # device k/v entries freed
+        if self.session_cache is not None:
+            self.session_cache.clear()
         if self.paged:
+            # Cache pins drop first (clean decrefs), then the pool state.
+            for cache in (self.paged_prefix, self.paged_sessions,
+                          self.host_spill):
+                if cache is not None:
+                    cache.clear()
             self._allocator = None
             self._table_host = None
 
@@ -1874,6 +2903,17 @@ class DecodeEngine:
                 self._release_pages(train.opts)
         self._trains.clear()
         self._train_slots.clear()
+        # Accepted but not yet imported parcels hold live streams their
+        # source already released: reject them too (they entered no books
+        # here, so conservation holds on both sides).
+        if self.paged:
+            with self._fabric_lock:
+                inbound, self._parcel_in_q = self._parcel_in_q, []
+                self._migrate_out_q.clear()
+                self._push_out_q.clear()
+            for parcel in inbound:
+                if parcel.kind == STREAM and parcel.request is not None:
+                    parcel.request.reject(exc)
 
     def start(self) -> None:
         if self._thread is not None:
@@ -1914,8 +2954,8 @@ class DecodeEngine:
         so a consumer can tell a quiet pool from a ring that wrapped).
         The journal feeds ``utils/trace_export.to_chrome_trace(spans,
         journal=...)`` for a lane time-aligned with the decode-turn
-        spans. The reference's ``fabric`` and ``spec`` blocks come with
-        the page fabric and speculative decoding."""
+        spans; ``fabric`` counts the parcels moved. The reference's
+        ``spec`` block comes with speculative decoding."""
         out: Dict[str, Any] = {
             "model": self.model.name,
             "paged": self.paged,
@@ -1938,6 +2978,12 @@ class DecodeEngine:
                 "events": self._page_journal.snapshot(),
                 "journal_total": self._page_journal.total,
                 "journal_rotated": self._page_journal.rotated_out,
+            }
+            out["fabric"] = {
+                "migrated_out": self.migrated_out,
+                "migrated_in": self.migrated_in,
+                "pushes_out": self.pushes_out,
+                "pushes_in": self.pushes_in,
             }
         return out
 

@@ -2,8 +2,7 @@
 
 Own copy of ``ray_dynamic_batching_tpu/engine/queue.py`` with its import
 paths rewritten, ``QueueManager`` included (the live LLM scheduler's
-per-model queues). Trimmed: the page fabric's migration counters (the
-page fabric is not ported).
+per-model queues) and the page fabric's migration counters.
 
 Re-creates the reference's ``RequestQueue``
 (``293-project/src/scheduler.py:190-372``): bounded add with drop-when-full
@@ -294,6 +293,15 @@ class RequestQueue:
         self.total_stale = 0
         self.total_completed = 0
         self.total_violations = 0
+        # Live-migration accounting (page fabric): a stream moved to a
+        # peer engine leaves this queue's books through migrated_out
+        # (neither completed nor dropped — it finishes elsewhere) and
+        # enters the destination's through migrated_in (counted as
+        # offered-at-door enqueued there). Conservation extends to
+        # ``enqueued == completed + stale + dropped + migrated_out +
+        # depth`` — trivially the old identity while both stay zero.
+        self.total_migrated_out = 0
+        self.total_migrated_in = 0
         # Per-class slices of the same counters (ClassCounters docstring
         # has the offered-at-door conservation contract).
         self._classes = ClassCounters()
@@ -559,6 +567,23 @@ class RequestQueue:
         SHED_TOTAL.inc(tags={"model": self.model,
                              "qos": request.qos_class, "reason": reason})
 
+    def note_migrated_out(self, request: Request) -> None:
+        """Close this queue's books on a stream the page fabric moved to
+        a peer engine: it was enqueued here but will complete THERE —
+        neither a completion nor a drop (the client sees one unbroken
+        stream). Called by the engine thread at migrate-out commit."""
+        with self._lock:
+            self.total_migrated_out += 1
+
+    def note_migrated_in(self, request: Request) -> None:
+        """Open this queue's books on a stream migrated in from a peer:
+        counted as offered-at-door enqueued (same rule as every other
+        arrival) so its eventual record_batch_completion balances."""
+        with self._lock:
+            self.total_enqueued += 1
+            self.total_migrated_in += 1
+            self._cls(request.qos_class)["enqueued"] += 1
+
     def slo_compliance(self) -> float:
         """Fraction of recent completions inside SLO (1.0 when idle)."""
         # Snapshot under the lock: an unlocked sum()/len() pair can
@@ -571,7 +596,7 @@ class RequestQueue:
         return sum(outcomes) / len(outcomes)
 
     def stats(self) -> Dict[str, float]:
-        return {
+        out = {
             "depth": float(len(self)),
             "enqueued": float(self.total_enqueued),
             "dropped": float(self.total_dropped),
@@ -584,6 +609,13 @@ class RequestQueue:
             "latency_p99_ms": self.latency_window.percentile(0.99),
             "queue_delay_p95_ms": self.queue_delay_window.percentile(0.95),
         }
+        # Elided when zero so non-migrating deployments' stats payloads
+        # stay byte-identical to pre-fabric builds.
+        if self.total_migrated_out:
+            out["migrated_out"] = float(self.total_migrated_out)
+        if self.total_migrated_in:
+            out["migrated_in"] = float(self.total_migrated_in)
+        return out
 
     def class_stats(self) -> Dict[str, Dict[str, float]]:
         """Per-class counter slices + live depth, for QoS accounting

@@ -12,7 +12,8 @@ first seen after warmup raises: ``ops/graphs.py``).
 
 The 18 entries keep the reference's ``name``, ``impl``, ``arm``,
 ``donated``, ``grid`` and warmed/lazy split; ``attr`` names the port's
-engine attribute ("" where the program's feature is not ported yet).
+engine attribute ("" where the program's feature — speculative decoding —
+is not ported yet).
 The port changes three things:
 
 - ``donated`` names the state a program updates IN PLACE. A CUDA graph
@@ -53,9 +54,12 @@ _ROW_CACHE = (
     "chunk's start and take row are host ints, so a graph would bake in "
     "one train's row cache and one chunk position"
 )
-_SPEC = "not ported: speculative decoding is ROADMAP queue 1 item 5"
-_PREFIX = ("not ported: the prefix and session caches are ROADMAP queue 1 "
-           "item 5")
+_SPEC = "not ported: speculative decoding is ROADMAP queue 1 item 5b"
+_REUSE = (
+    "a row-cache copy: it reads or writes the per-fill row cache (see "
+    "long_chunk); warmed by _warmup_reuse when its cache is on, so its one "
+    "key is recorded before the steady mark"
+)
 
 
 @dataclass(frozen=True)
@@ -194,47 +198,47 @@ HOT_PROGRAMS: Tuple[JitProgram, ...] = (
     ),
     JitProgram(
         name="prefix_seed",
-        attr="", impl="_seed_prefix_impl",
+        attr="_prefix_seed_fn", impl="_seed_prefix_impl",
         donated=("row cache",),
         grid="one shape per chunk size",
         lazy_reason="prefix-cache CoW seeding rides the long-fill path; "
         "slab engines with no long prompts never dispatch it",
-        arm=ARM_MONO, eager_reason=_PREFIX,
+        arm=ARM_MONO, eager_reason=_REUSE,
     ),
     JitProgram(
         name="prefix_extract",
-        attr="", impl="_extract_prefix_impl",
+        attr="_prefix_extract_fn", impl="_extract_prefix_impl",
         grid="one shape per (chunk, prefix length bucket)",
         lazy_reason="runs once per prefix PUBLISH (cold, off the decode "
         "turn); publishing is already an amortized slow path",
-        arm=ARM_MONO, eager_reason=_PREFIX,
+        arm=ARM_MONO, eager_reason=_REUSE,
     ),
     JitProgram(
         name="paged_seed",
-        attr="", impl="_seed_paged_impl",
+        attr="_paged_seed_fn", impl="_seed_paged_impl",
         donated=("row cache",),
         grid="one shape: (1 x row_cap)",
         lazy_reason="legacy mono-paged session/prefix seeding only; the "
         "chunked-universal arm seeds pages-direct through the chunk "
         "program and never calls this",
-        arm=ARM_MONO, eager_reason=_PREFIX,
+        arm=ARM_MONO, eager_reason=_REUSE,
     ),
     JitProgram(
         name="session_seed",
-        attr="", impl="_seed_session_impl",
+        attr="_session_seed_fn", impl="_seed_session_impl",
         donated=("row cache",),
         grid="one shape: (1 x max_len)",
         lazy_reason="slab session continuation only — sessions may "
         "never be enabled; first turn-2 on a restart pays it once",
-        arm=ARM_MONO, eager_reason=_PREFIX,
+        arm=ARM_MONO, eager_reason=_REUSE,
     ),
     JitProgram(
         name="session_extract",
-        attr="", impl="_extract_row_impl",
+        attr="_session_extract_fn", impl="_extract_row_impl",
         grid="one shape: (1 x max_len)",
         lazy_reason="runs once per session FINISH (cold, off the "
         "decode turn) to pin the finished row",
-        arm=ARM_MONO, eager_reason=_PREFIX,
+        arm=ARM_MONO, eager_reason=_REUSE,
     ),
     JitProgram(
         name="draft_long_chunk",

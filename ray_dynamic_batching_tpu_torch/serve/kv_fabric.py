@@ -2,10 +2,11 @@
 parcels between replicas.
 
 Own copy of ``ray_dynamic_batching_tpu/serve/kv_fabric.py``, whole, with
-its import paths rewritten. It stays inert for the port's ``LLMReplica``,
-which has no ``live_stream_ids`` (nor the export/import surface) until the
-live-migration surface is ported (ROADMAP queue 1 item 5): the
-controller's courier finds no live stream to move.
+its import paths rewritten. The port's ``LLMReplica`` exposes the live
+streams of its paged engines (``live_stream_ids``, ``request_migration``,
+``accept_parcel``) and its hot prefixes (``hot_prefixes``,
+``request_prefix_push``), so the controller's courier moves streams and
+pushes prefixes between replicas as the reference's does.
 
 The engine half (``engine/pagefabric.py``) freezes and splices parcels;
 this module is the plane that MOVES them. Every delivery crosses the

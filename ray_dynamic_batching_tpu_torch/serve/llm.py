@@ -27,15 +27,18 @@ also derives the horizons from ``token_slo_ms`` / ``ttft_slo_ms``), else
 from the memory budget (:meth:`LLMDeployment.auto_num_slots`). The
 controller builds replicas through :meth:`LLMDeployment.make_replica` with
 a ``DeploymentConfig`` and the devices of the replica's placement bundle
-(one card; more raise until multi-GPU). The reference's speculative
-drafts, session and prefix caches, checkpoints, weight quantisation,
-prefix digests and the page fabric surface come later; their terms in
-:meth:`LLMDeployment.auto_num_slots` are zero until then.
+(one card; more raise until multi-GPU). KV reuse comes through
+``prefix_cache_size``, ``session_cache_size`` and ``host_spill_pages``
+(``DecodeEngine``), and the replica exposes the prefix digests and the
+page-fabric surface (live migration, prefix push) the controller's
+courier drives. The reference's speculative drafts, checkpoints and
+weight quantisation come later; the draft term of
+:meth:`LLMDeployment.auto_num_slots` is zero until then.
 
 Payload contract (as the reference)::
 
     {"tokens": [1, 2, 3], "max_new_tokens": 64, "temperature": 0.8,
-     "top_k": 40, "top_p": 0.9, "seed": 1234}
+     "top_k": 40, "top_p": 0.9, "seed": 1234, "session_id": "chat-1"}
 
 Result: ``DecodeResult`` (tokens, finish_reason, ttft_ms, total_ms).
 """
@@ -174,6 +177,95 @@ class LLMReplica(Replica):
                                        discard_stale=False))
         return out
 
+    def prefix_digests(self, limit: int = 128) -> Optional[dict]:
+        """Bounded prefix-page digest publication merged across this
+        replica's bucket engines (cluster-wide prefix routing).
+        The controller collects this each control step and pushes it to
+        the router's digest directory over the long-poll channel."""
+        merged: dict = {}
+        page_size = None
+        reloaded: List[str] = []
+        for engine in self.engines.values():
+            pub = engine.prefix_digests(limit)
+            if pub is None:
+                continue
+            page_size = pub["page_size"]
+            # Spill round-trip republish: forwarded so the controller can
+            # force a directory push even when the advertised union is
+            # unchanged.
+            reloaded.extend(pub.get("reloaded", ()))
+            for key, n in pub["digests"].items():
+                if len(merged) >= limit:
+                    break
+                merged.setdefault(key, n)
+        if page_size is None:
+            return None
+        out: dict = {"page_size": page_size, "digests": merged}
+        if reloaded:
+            out["reloaded"] = reloaded
+        return out
+
+    # --- page fabric surface (live migration + prefix push) ---------------
+    def live_stream_ids(self) -> List[str]:
+        """Migration-eligible stream ids across this replica's bucket
+        engines (paged engines only; slab engines migrate nothing)."""
+        out: List[str] = []
+        for engine in self.engines.values():
+            if engine.paged:
+                out.extend(engine.live_stream_ids())
+        return out
+
+    def request_migration(self, request_id: str, deliver) -> bool:
+        """Ask whichever bucket engine holds ``request_id`` to migrate it
+        out through ``deliver`` (see DecodeEngine.request_migration)."""
+        for engine in self.engines.values():
+            if engine.paged and engine.request_migration(
+                    request_id, deliver):
+                return True
+        return False
+
+    def accept_parcel(self, parcel) -> bool:
+        """Destination half of the courier edge at replica granularity:
+        stream parcels route to the smallest capacity bucket that fits
+        the stream's resume length (same bandwidth-per-token rule as
+        fresh admissions), falling back to any accepting engine; prefix
+        parcels go to the largest engine (where long prompts land)."""
+        if self._stopped:
+            return False
+        if parcel.kind == "stream":
+            need = parcel.resume_len
+            for bucket in sorted(self.engines):
+                if bucket >= need and self.engines[bucket].accept_parcel(
+                        parcel):
+                    return True
+            for bucket in sorted(self.engines, reverse=True):
+                if self.engines[bucket].accept_parcel(parcel):
+                    return True
+            return False
+        return self.engine.accept_parcel(parcel)
+
+    def hot_prefixes(self, limit: int = 8) -> List[tuple]:
+        """Hit-ranked resident prefix entries across bucket engines, as
+        ``(digest_hex, n_pages, hits)`` — the push planner's ranking."""
+        out: List[tuple] = []
+        for engine in self.engines.values():
+            if engine.paged_prefix is not None:
+                out.extend(engine.paged_prefix.hot(limit))
+        out.sort(key=lambda t: -t[2])
+        return out[:limit]
+
+    def request_prefix_push(self, digest_hex: str, deliver) -> bool:
+        """Export the prefix entry addressed by ``digest_hex`` through
+        ``deliver`` from whichever engine holds it."""
+        key = bytes.fromhex(digest_hex)
+        for engine in self.engines.values():
+            cache = engine.paged_prefix
+            if cache is None or key not in cache._entries:
+                continue
+            if engine.request_prefix_push(key, deliver):
+                return True
+        return False
+
     def queue_len(self) -> int:
         """The pow-2 routing signal, as the reference counts it: queued +
         decoding + mid-admission. Pending chunk trains are not counted, so
@@ -288,6 +380,9 @@ class LLMDeployment:
         kv_pool_pages: Optional[int] = None,
         chunked_prefill: Optional[bool] = None,
         prefill_token_budget: Optional[int] = None,
+        prefix_cache_size: int = 0,
+        session_cache_size: int = 0,
+        host_spill_pages: int = 0,
         quantize_kv: bool = False,
         length_buckets: Optional[Sequence[int]] = None,
         profiles_dir: Optional[str] = None,
@@ -318,6 +413,13 @@ class LLMDeployment:
         self.kv_pool_pages = kv_pool_pages
         self.chunked_prefill = chunked_prefill
         self.prefill_token_budget = prefill_token_budget
+        # KV reuse, per engine (0 = off): prefix entries, the host spill
+        # tier's pages (paged, beside a prefix cache) and session turns.
+        # A conversation that outgrows its length bucket lands on a larger
+        # engine and re-prefills once.
+        self.prefix_cache_size = prefix_cache_size
+        self.host_spill_pages = host_spill_pages
+        self.session_cache_size = session_cache_size
         # int8 KV cache: codes + per-(token, head) f32 scales, half the
         # bytes per slot (models/decoder.py::quantize_kv_rows).
         self.quantize_kv = bool(quantize_kv)
@@ -398,12 +500,22 @@ class LLMDeployment:
             model.kv_bytes_per_slot(max_len or self.max_len)
         ) / max(1, n_chips)
         # The reference's speculative draft (its weights, and a draft KV
-        # row per slot) and session cache (a pinned KV row per stored
-        # turn, per length bucket) enter here; both come with ROADMAP
-        # queue 1 item 5 and are zero terms until then.
-        draft_weights_bytes = draft_per_slot = session_rows_bytes = 0.0
-        weights_bytes += draft_weights_bytes + session_rows_bytes
+        # row per slot) enters here with ROADMAP queue 1 item 5b; a zero
+        # term until then.
+        draft_weights_bytes = draft_per_slot = 0.0
+        weights_bytes += draft_weights_bytes
         per_slot += draft_per_slot
+        if self.session_cache_size > 0:
+            # Each stored session turn pins a full KV row: the cache at
+            # capacity is that many phantom slots, in EVERY length-bucket
+            # engine (rows sized by its bucket), while this call sees a
+            # 1/n_buckets slice — so the whole deployment's session
+            # residency comes off the top here.
+            weights_bytes += (
+                self.session_cache_size
+                * float(sum(model.kv_bytes_per_slot(b)
+                            for b in self.length_buckets))
+            ) / max(1, n_chips)
         usable = (
             (budget - weights_bytes) * cfg.hbm_plan_fraction * budget_fraction
         )
@@ -625,6 +737,9 @@ class LLMDeployment:
             kv_pool_pages=self.kv_pool_pages,
             chunked_prefill=self.chunked_prefill,
             prefill_token_budget=self.prefill_token_budget,
+            prefix_cache_size=self.prefix_cache_size,
+            session_cache_size=self.session_cache_size,
+            host_spill_pages=self.host_spill_pages,
         )
 
     # Controller protocol: factories exposing make_replica own replica
@@ -656,6 +771,13 @@ class LLMDeployment:
             default_max_new_tokens=self.default_max_new_tokens,
         )
         replica.devices = list(devices) if devices else None
+        if self.session_cache_size > 0:
+            # Session-affinity ids ride the replica's advertised multiplex
+            # LRU: it must outlast the cached turns, or sessions would age
+            # each other out of the routing view.
+            replica.max_multiplexed_models = max(
+                replica.max_multiplexed_models,
+                len(self.length_buckets) * self.session_cache_size + 8)
         return replica
 
     # Legacy callable protocol (factory() -> fn) is not meaningful here.

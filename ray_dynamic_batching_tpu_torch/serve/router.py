@@ -1,9 +1,8 @@
 """Request router — power-of-two-choices replica scheduling.
 
 Own copy of ``ray_dynamic_batching_tpu/serve/router.py`` with its import
-paths rewritten. Trimmed: :meth:`PrefixDigestDirectory.chain_for` is
-always empty — no port engine publishes prefix digests, and
-``digest_chain`` comes with the prefix caches.
+paths rewritten; :meth:`PrefixDigestDirectory.chain_for` hashes with the
+port's own ``engine/paging.digest_chain``.
 
 Re-creates Ray Serve's ``PowerOfTwoChoicesReplicaScheduler``
 (``python/ray/serve/_private/replica_scheduler/pow_2_scheduler.py:52``; the
@@ -34,6 +33,8 @@ import random
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
+
+import numpy as np
 
 from ray_dynamic_batching_tpu_torch.engine.request import Request, RequestDropped
 from ray_dynamic_batching_tpu_torch.serve.failover import (
@@ -303,11 +304,30 @@ class PrefixDigestDirectory:
                 del self._by_replica[rid]
 
     def chain_for(self, payload: Any) -> List[str]:
-        """The request's digest chain (hex level keys, deepest last).
-        Always empty here: no port engine publishes prefix digests yet,
-        and the reference's ``digest_chain`` hash comes with the prefix
-        caches — so routing falls straight through to pow-2."""
-        return []
+        """The request's digest chain (hex level keys, deepest last) —
+        empty when the directory is idle or the payload has no tokens
+        spanning a full page. Hashing costs one O(L) pass; skipped
+        entirely while nothing is published."""
+        with self._lock:
+            ps = self._page_size
+            empty = not self._by_replica
+        if empty or ps is None or not isinstance(payload, dict):
+            return []
+        tokens = payload.get("tokens")
+        if not isinstance(tokens, (list, tuple)) or len(tokens) <= ps:
+            return []
+        from ray_dynamic_batching_tpu_torch.engine.paging import digest_chain
+
+        try:
+            arr = np.asarray(tokens, np.int32)
+        except (TypeError, ValueError, OverflowError):
+            # Malformed client tokens must not crash the routing layer:
+            # un-steered routing proceeds and the replica rejects them.
+            return []
+        if arr.ndim != 1:
+            return []  # nested lists convert, but are not a token row
+        max_n = (arr.size - 1) // ps  # >=1 tail token stays prefillable
+        return [k.hex() for k in digest_chain(arr, ps, max_n)]
 
     def best(self, chain: List[str],
              candidate_ids: List[str]) -> Tuple[int, Set[str]]:

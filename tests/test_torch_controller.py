@@ -978,8 +978,9 @@ def test_kv_stores_match(tmp_path):
 
 
 def test_kv_fabric_is_inert_for_the_ports_llm_replica():
-    """No port replica exposes live streams yet: the courier moves
-    nothing and says so."""
+    """A replica that exposes no live streams (no ``live_stream_ids``,
+    as a slab or a non-LLM replica): the courier moves nothing and says
+    so."""
     class Replica:
         replica_id = "r0"
 

@@ -21,9 +21,12 @@ without; and the captured programs (``ops/graphs.py``): graphed and
 eager engines serving identical tokens with equal launch counts on every
 arm, a failed capture raising, the merge scratch refusing to grow under
 capture, a graph replaying after other shapes moved the kernel's
-shared-memory limit, and a released engine giving its pool back; and a
+shared-memory limit, and a released engine giving its pool back; a
 two-shard front door admitting within its bound in front of a 2-layer
-llama3_8b deployment. This file imports no JAX, so it runs on a machine without it::
+llama3_8b deployment; and KV reuse's new inputs: flash on a paged chunk
+past a borrowed prefix and on a session chunk from an unaligned base,
+the paged kernel over tables sharing their head pages, and a spill
+reload and a parcel import writing the pool in place. This file imports no JAX, so it runs on a machine without it::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -938,3 +941,163 @@ def test_front_door_shards_admit_within_the_bound(card):
             assert retry_after
     assert admitted <= rate * horizon_s + burst + rate * 0.2 * 2 + 2
     assert {s.admitted for s in fd.shards.values()} != {0}
+
+
+# --- KV reuse: the kernels' new inputs and in-place page writes --------------
+def _shared_head_tables(gen, B, n_shared, lengths, ps, NP, P, dev):
+    """Page tables whose first ``n_shared`` entries are the same pages
+    for every slot (a borrowed prefix), private pages past them as each
+    length needs, the sentinel P after."""
+    perm = torch.randperm(P, generator=gen, device=dev).tolist()
+    head, rest = perm[:n_shared], perm[n_shared:]
+    table = torch.full((B, NP), P, dtype=torch.int32, device=dev)
+    used = 0
+    for b in range(B):
+        need = -(-(int(lengths[b]) + 1) // ps)
+        table[b, :n_shared] = torch.tensor(head, device=dev)
+        n = max(0, need - n_shared)
+        table[b, n_shared:n_shared + n] = torch.tensor(
+            rest[used:used + n], dtype=torch.int32, device=dev)
+        used += n
+    return table
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_shared", [1, 3])
+def test_flash_kernel_on_a_paged_chunk_past_a_borrowed_prefix(card, dtype,
+                                                              n_shared):
+    """A chunk train's first chunk after a prefix borrow, as the paged route
+    calls flash: q [2, 64, 32, 128] over the logical views two slots gather
+    through tables sharing their first ``n_shared`` pages, the staircase
+    starting at the borrowed length."""
+    gen = torch.Generator(device=card).manual_seed(n_shared)
+    ps, NP, P, C = 128, 4, 12, 64
+    k = _rand(gen, (P + 1, ps, 8, 128), dtype, card)
+    v = _rand(gen, (P + 1, ps, 8, 128), dtype, card)
+    base = n_shared * ps
+    table = _shared_head_tables(gen, 2, n_shared, [base + C] * 2, ps, NP, P,
+                                card)
+    q = _rand(gen, (2, C, 32, 128), dtype, card)
+    k_g, v_g = dec.logical_view(k, table), dec.logical_view(v, table)
+    mask = paged_window_mask(torch.full((2,), base, device=card), NP * ps, C)
+    keep = fl.keep_mask(mask, 2, C, NP * ps)
+    before = fl.launches
+    out = fl.flash_attention(q, k_g, v_g, mask=keep[:, None])
+    torch.cuda.synchronize()
+    assert fl.launches == before + 1
+    ref = fl.flash_attention_plain(q, k_g, v_g, keep)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("start", [77, 131, 383, 449])
+def test_flash_kernel_on_a_session_chunk_from_an_unaligned_base(card, dtype,
+                                                                start):
+    """A session continuation's tail chunk on the slab: it starts at the
+    stored length, not a multiple of the 64-key tile, over the 576-position
+    row cache — the tile holding the base is live for every row."""
+    gen = torch.Generator(device=card).manual_seed(start)
+    C, S = 64, 576
+    q = _rand(gen, (1, C, 32, 128), dtype, card)
+    k = _rand(gen, (1, S, 8, 128), dtype, card)
+    v = _rand(gen, (1, S, 8, 128), dtype, card)
+    positions = start + torch.arange(C, device=card)
+    mask = (torch.arange(S, device=card)[None, None, None, :]
+            <= positions[None, None, :, None])
+    keep = fl.keep_mask(mask, 1, C, S)
+    out = fl.flash_attention(q, k, v, mask=keep[:, None])
+    torch.cuda.synchronize()
+    ref = fl.flash_attention_plain(q, k, v, keep)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_over_shared_head_pages(card, dtype, int8):
+    """Sixteen slots whose tables begin with the same three pages (a
+    prefix borrowed by every slot), private pages after, ragged lengths
+    past the prefix."""
+    gen = torch.Generator(device=card).manual_seed(16 + int8)
+    B, ps, NP, P = 16, 128, 4, 64
+    lengths = [min(384 + 7 * b, NP * ps - 1) for b in range(B)]
+    table = _shared_head_tables(gen, B, 3, lengths, ps, NP, P, card)
+    q = _rand(gen, (B, 1, 32, 128), dtype, card)
+    k = _rand(gen, (P + 1, ps, 8, 128), dtype, card)
+    v = _rand(gen, (P + 1, ps, 8, 128), dtype, card)
+    scales = {}
+    if int8:
+        k, ks = quantize_kv_rows(k)
+        v, vs = quantize_kv_rows(v)
+        scales = dict(k_scale=ks, v_scale=vs)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=card)
+    out = dec.paged_decode_attention(q, k, v, table, lens, **scales)
+    torch.cuda.synchronize()
+    ref = dec.paged_decode_attention_plain(q, k, v, table, lens, **scales)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+def test_reload_and_import_write_the_pool_in_place(card):
+    """A spill reload and a parcel import write the existing pool (the
+    captured programs hold its address): the pool tensors keep their
+    ``data_ptr()``, the reloaded prompt's tokens equal the in-memory
+    hit's, and the migrated stream's equal its straight run's."""
+    from ray_dynamic_batching_tpu_torch.engine.decode import DecodeEngine
+    from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+
+    model = _tiny_lm(card, torch.int8)
+    knobs = dict(num_slots=4, max_len=256, prompt_buckets=[16, 32],
+                 decode_horizon=4, default_max_new_tokens=12,
+                 device=card, paged=True, page_size=128)
+
+    def engine(**kw):
+        q = RequestQueue("t")
+        e = DecodeEngine(model, q, **knobs, **kw)
+        e.warmup()
+        return e, q
+
+    def ptrs(e):
+        c = e._cache
+        return [t.data_ptr() for t in (c.k, c.v, c.k_scale, c.v_scale,
+                                       c.page_table, c.lengths)]
+
+    def serve(e, q, tokens, max_new=12):
+        r = Request(model="t", payload={"tokens": tokens,
+                                        "max_new_tokens": max_new},
+                    slo_ms=6e4)
+        q.add_request(r)
+        e.run_until_idle(timeout_s=120)
+        return r.future.result(5).tokens
+
+    gen = torch.Generator().manual_seed(3)
+    head = torch.randint(1, 512, (140,), generator=gen).tolist()
+    x = head + [7, 8, 9]
+    a, qa = engine(prefix_cache_size=4, host_spill_pages=8)
+    at_build = ptrs(a)
+    serve(a, qa, head + [1, 2])
+    in_memory = serve(a, qa, x)
+    while len(a.paged_prefix):
+        a._reclaim_cache_pins()
+    reloaded = serve(a, qa, x)
+    assert a.host_spill.reloads == 1
+    assert reloaded == in_memory
+    assert ptrs(a) == at_build
+    b, qb = engine()
+    b_ptrs = ptrs(b)
+    straight = serve(b, qb, x, max_new=40)
+    req = Request(model="t", payload={"tokens": x, "max_new_tokens": 40},
+                  slo_ms=6e4)
+    qa.add_request(req)
+    while not a.live_stream_ids():
+        a._admit()
+        a._pump_prefill()
+        if a._active_mask.any():
+            a._step()
+    assert a.request_migration(req.request_id, b.accept_parcel)
+    a._service_fabric()
+    b.run_until_idle(timeout_s=120)
+    assert (a.migrated_out, b.migrated_in) == (1, 1)
+    assert req.future.result(5).tokens == straight
+    assert ptrs(b) == b_ptrs
+    for e in (a, b):
+        e._allocator.check()

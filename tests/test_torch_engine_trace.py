@@ -60,6 +60,10 @@ FAMILIES = {
     "rdb_decode_prefill_chunks_total": "Counter",
     "rdb_decode_prefill_starved_total": "Counter",
     "rdb_decode_prefill_pending_trains": "Gauge",
+    "rdb_decode_prefix_hits_total": "Counter",
+    "rdb_decode_prefix_misses_total": "Counter",
+    "rdb_decode_session_hits_total": "Counter",
+    "rdb_decode_session_misses_total": "Counter",
 }
 COUNTERS = [n for n, kind in FAMILIES.items() if kind == "Counter"]
 
@@ -179,9 +183,7 @@ def _record(engine, spans, deltas):
 def test_flight_record_matches_jax_engine(models, arm):
     """The same requests through both engines: equal counter deltas,
     ``decode.turn`` sequences, ``decode.sequence`` attributes and
-    snapshots. The reference's snapshot also has a ``fabric`` block in
-    paged mode (the page fabric is not ported); every other key is
-    equal."""
+    snapshots (the paged arms' ``fabric`` block included)."""
     cfg = ARMS[arm]
     payloads = _mix()
     j_engine, _r, j_spans, j_deltas = _serve_traced("jax", models, cfg,
@@ -190,7 +192,6 @@ def test_flight_record_matches_jax_engine(models, arm):
                                                       payloads)
     want = _record(j_engine, j_spans, j_deltas)
     got = _record(t_engine, t_spans, t_deltas)
-    want[3].pop("fabric", None)
     assert got[0] == want[0]           # decode.turn sequence
     assert got[1] == want[1]           # decode.sequence attributes
     assert got[2] == want[2]           # counter deltas
@@ -368,13 +369,12 @@ def test_loop_sets_the_gauges(models):
 
 @pytest.mark.parametrize("paged", [False, True], ids=["slab", "paged"])
 def test_snapshot_shape(models, paged):
-    """The snapshot of an idle engine: the reference's keys, less the
-    page fabric's block, and the journal block in paged mode."""
+    """The snapshot of an idle engine: the reference's keys, with the
+    journal and the page fabric's blocks in paged mode."""
     cfg = ARMS["paged_chunked" if paged else "slab_mono"]
     j_engine, _q, _c = _engine("jax", models, cfg)
     t_engine, _q, _c = _engine("torch", models, cfg)
     want = j_engine.snapshot()
-    want.pop("fabric", None)
     got = t_engine.snapshot()
     assert set(got) == set(want)
     assert _snapshot_view(got) == _snapshot_view(want)
@@ -382,6 +382,8 @@ def test_snapshot_shape(models, paged):
     if paged:
         assert got["page_journal"] == {"events": [], "journal_total": 0,
                                        "journal_rotated": 0}
+        assert got["fabric"] == {"migrated_out": 0, "migrated_in": 0,
+                                 "pushes_out": 0, "pushes_in": 0}
 
 
 @pytest.mark.parametrize("pkg", list(PKGS))
