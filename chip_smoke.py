@@ -17,8 +17,14 @@ last line:
    tiles, and at the unmasked attention of ViT-B/16, q/k/v [64, 197, 12,
    64], and of ViT-G/14, [32, 257, 16, 104] (head_dim 104), each fed as
    the model feeds it: views of one packed qkv projection, read in place;
-   their bounds count q, k, v and out once), and the int8-KV branch of
-   both decode kernels (int8 codes +
+   their bounds count q, k, v and out once; the slab decode kernel also
+   at the speculative verify window, q [16, 5, 32, 128] over k/v
+   [16, 512, 8, 128] (llama3_8b: 20 window rows a KV head) and q
+   [64, 5, 16, 64] over [64, 256, 16, 64] (gpt2_medium), with the
+   staircase mask ``verify_step`` builds; the paged kernel at q
+   [16, 5, 32, 128] over the 64-page pool, each slot 1-4 positions short
+   of a page boundary with one scratch page past its owned run), and
+   the int8-KV branch of both decode kernels (int8 codes +
    f32 scales, q in bf16 and f32): max abs error against the stated
    tolerance, median CUDA-event times of kernel / plain version / a
    PyTorch yardstick never used by the port (one
@@ -272,11 +278,54 @@ last line:
     plain versions, in f32 in (a) and bf16 in (b) and (c), timed in
     bf16 beside SDPA or the gather yardstick, with their bounds.
 
-Every engine is warmed before it serves, and every serving phase (5-12,
-14, 16) ends with the capture ledger's ``check_steady()``: no program was
-captured after a warmup ended. Phases 5 to 13 and 16 are served graphed.
+17. spec — speculative decoding (``draft_model``, ``spec_tokens`` 4).
+    (a) llama3_8b at full width, 2 layers, f32, graphed engines: phase
+    6's 10 requests on the slab, paged (chunked and monolithic),
+    int8-paged and slab-train arms with a divergent draft (a second
+    module of the same widths from seed 1), each against the same engine
+    without a draft: greedy tokens identical; then the target as its own
+    draft on each of the five arms: tokens identical and acceptance at
+    least 0.99, so that every fill path of the draft (group prefill,
+    long-fill replay at a fill's and a train's end, catch-ups, int8) is
+    held by what it proposes. (b) llama3_8b bf16 at full width and depth,
+    the target module as its own draft (``LLMDeployment(draft_model=)``),
+    on the slab and paged (chunked) arms beside the same deployment
+    without a draft: phase 5's 6 greedy requests, then phase 5's whole
+    mix (its 2 sampled rows make every step they share plain, each
+    followed by the draft's catch-up); each window traced for
+    ``decode.turn`` (a spec round's ms beside a plain step's). The mix's
+    tokens decoded by plain steps (every sampled row, each greedy row up
+    to its first round: all of it on the slab) must equal the plain
+    deployment's mix token for token: the same programs at the same
+    shapes. Tokens of verify rounds against plain steps are not gated
+    (the verify's GEMMs have other shapes than a step's): where they
+    differ, both tokens' gaps to the top logit are printed. (c)
+    gpt2_medium (1024 x 24 layers x 16 heads of 64, vocab 50257) with
+    the registry's ``gpt2_draft`` (``LLMDeployment(draft_model_name=)``,
+    seed 1), bf16, random weights, at ``bench_llm_serving``'s shape cut
+    to the phase (64 slots, ``max_len`` 256, one bucket of 64, horizon
+    32, groups of 8): 64 requests of 48 tokens and 96 new, with and
+    without the draft, slab and paged; random weights put acceptance
+    near 0, the reference's bounded-degradation floor. Every window:
+    launch counts held to the dispatches (the target's decode kernel
+    once a layer a step or round, the draft's ``k + 1`` times a layer a
+    round and once a catch-up window, flash for every fill of either),
+    the speculation families held to the rounds' device outputs (one
+    round logged for each counted, k drafted a slot in a round, accepted
+    the tokens each slot was offered less the target's own; every slot
+    took all it was offered unless it finished), no capture after
+    warmup, the pool whole with no scratch page left. Every kernel shape
+    the phase launches (warmup captures included) must be one phase 3
+    held against its plain version: phase 17 needs phase 3. Printed:
+    tok/s and TTFT p50 with and without the draft, rounds, acceptance,
+    tokens a row per round, catch-ups, the kernel shapes launched.
 
-Phases 5 to 14 and 16's full-depth runs each set every launch count to 0
+Every engine is warmed before it serves, and every serving phase (5-12,
+14, 16, 17) ends with the capture ledger's ``check_steady()``: no program
+was captured after a warmup ended. Phases 5 to 13, 16 and 17 are served
+graphed.
+
+Phases 5 to 14, 16 and 17's runs each set every launch count to 0
 just before they serve and read them just after: each kernel of the path
 must have launched the number of times the engine's dispatches imply,
 the other kernels and the plain route never (a graph replay adds the
@@ -298,7 +347,7 @@ The line before the last is one JSON object with the per-kernel numbers
 among them; ``launches_by_path`` splits them) and the numbers of the
 front, controller, colocate, vision, graphs, sim and reuse phases
 (``front``, ``controller``, ``colocate``, ``vision``, ``graphs``,
-``sim``, ``reuse``; the
+``sim``, ``reuse``, ``spec``; the
 per-hop splits under ``front.hops``, ``colocate.runs.diagnostic.turns``
 and ``vision.traced``, the front-door run under ``front.front_door``);
 the last line is
@@ -541,21 +590,28 @@ def _int8_paged_inputs(dtype, gen, rng, tq: int = 1):
     return _quantized(_paged_inputs(dtype, gen, rng, tq))
 
 
-def _paged_inputs(dtype, gen, rng, tq: int = 1):
-    """A 64-page pool in shuffled order, lengths 40..510 over the 16 slots
-    (in shuffled slot order), each slot holding just the pages its
-    positions <= length + tq - 1 need and the sentinel past them."""
+def _paged_inputs(dtype, gen, rng, tq: int = 1,
+                  shape=(SLOTS, N_HEADS, KV_HEADS, HEAD_DIM, NP)):
+    """A pool of B x NP pages in shuffled order, lengths 40..NP ps - 2 over
+    the B slots (in shuffled slot order), each slot holding just the
+    pages its positions <= length + tq - 1 need and the sentinel past
+    them. ``shape`` is (B, N, K, H, NP); the default is llama3_8b's
+    16 slots over a 64-page pool."""
+    B, n_heads, kv_heads, head_dim, n_table = shape
+    pool, cap = B * n_table, n_table * PS
     dev = "cuda"
-    q = torch.randn((SLOTS, tq, N_HEADS, HEAD_DIM), generator=gen, device=dev)
-    k = torch.randn((POOL, PS, KV_HEADS, HEAD_DIM), generator=gen, device=dev)
-    v = torch.randn((POOL, PS, KV_HEADS, HEAD_DIM), generator=gen, device=dev)
-    lengths = np.minimum(np.linspace(40, 510, SLOTS).astype(np.int32),
-                         S - tq)
+    q = torch.randn((B, tq, n_heads, head_dim), generator=gen, device=dev)
+    k = torch.randn((pool, PS, kv_heads, head_dim), generator=gen,
+                    device=dev)
+    v = torch.randn((pool, PS, kv_heads, head_dim), generator=gen,
+                    device=dev)
+    lengths = np.minimum(np.linspace(40, cap - 2, B).astype(np.int32),
+                         cap - tq)
     rng.shuffle(lengths)
-    perm = rng.permutation(POOL)
-    table = np.full((SLOTS, NP), POOL, np.int32)
+    perm = rng.permutation(pool)
+    table = np.full((B, n_table), pool, np.int32)
     used = 0
-    for b in range(SLOTS):
+    for b in range(B):
         n = -(-(int(lengths[b]) + tq) // PS)
         table[b, :n] = perm[used: used + n]
         used += n
@@ -579,10 +635,10 @@ def _dense_cost(x) -> tuple:
     """Bytes (q, k, v, the scales of int8 k/v, out once each, the int8
     mask one byte an entry) and FLOPs (4 B N Tq S H) of a dense-window
     call, printed beside the recount over attended positions."""
-    B, tq = x["q"].shape[:2]
+    B, tq, n_heads, head_dim = x["q"].shape
     Tk = x["k"].shape[1]
     nbytes = _nbytes(x["q"], x["k"], x["v"], x["q"], *_scales(x), x["keep"])
-    return nbytes, 4 * B * N_HEADS * tq * Tk * HEAD_DIM
+    return nbytes, 4 * B * n_heads * tq * Tk * head_dim
 
 
 def _masked_cost(x) -> tuple:
@@ -593,11 +649,13 @@ def _masked_cost(x) -> tuple:
     keep = x["keep"] != 0                               # [B, Tq, Tk]
     positions = int(keep.any(dim=1).sum().item())
     pairs = int(keep.sum().item())
-    kv_elt = KV_HEADS * HEAD_DIM * x["k"].element_size()
+    n_heads, head_dim = x["q"].shape[2:]
+    kv_heads = x["k"].shape[2]
+    kv_elt = kv_heads * head_dim * x["k"].element_size()
     if "ks" in x:
-        kv_elt += KV_HEADS * 4
+        kv_elt += kv_heads * 4
     nbytes = 2 * positions * kv_elt + 2 * _nbytes(x["q"]) + _nbytes(x["keep"])
-    return nbytes, 4 * N_HEADS * HEAD_DIM * pairs
+    return nbytes, 4 * n_heads * head_dim * pairs
 
 
 def _paged_cost(x) -> tuple:
@@ -607,11 +665,11 @@ def _paged_cost(x) -> tuple:
     is read once, so tables that share head pages share their bytes; plus
     q, out, the table and the lengths. FLOPs 4 N Tq H per position a slot
     attends."""
-    B, tq = x["q"].shape[:2]
-    ps = x["k"].shape[1]
-    kv_elt = KV_HEADS * HEAD_DIM * x["k"].element_size()
+    B, tq, n_heads, head_dim = x["q"].shape
+    ps, kv_heads = x["k"].shape[1:3]
+    kv_elt = kv_heads * head_dim * x["k"].element_size()
     if "ks" in x:
-        kv_elt += KV_HEADS * 4
+        kv_elt += kv_heads * 4
     need = x["lengths"].long() + tq                             # [B]
     table = x["table"].long()
     first = torch.arange(table.shape[1], device=table.device) * ps
@@ -626,7 +684,126 @@ def _paged_cost(x) -> tuple:
     pairs = int(need.sum().item())
     nbytes = (2 * distinct * kv_elt + 2 * _nbytes(x["q"])
               + _nbytes(x["table"], x["lengths"]))
-    return nbytes, 4 * N_HEADS * tq * HEAD_DIM * pairs
+    return nbytes, 4 * n_heads * tq * head_dim * pairs
+
+
+# The speculative verify window: spec_tokens + 1 = 5 query rows a slot.
+SPEC_WINDOW = 5
+# Phase 17's own launch shapes beside the main path's, as its engines
+# launch them (B included), each held to its plain version and timed:
+# llama3_8b's draft slab is max_len + 5 = 517 positions, its long fill's
+# row cache 576; gpt2_medium (16 heads of 64) serves 64 slots over 256
+# positions (a 128-page pool, 2 pages a slot), gpt2_draft (4 heads of 64)
+# over 261, both long fills over 320. Catch-up windows are as wide as
+# the plain step's horizon (1, 2 or 8 on llama3_8b; 8 or 32 on
+# gpt2_medium, flash from 16 on).
+FLASH_SPEC_CASES = (
+    # (case, B, Tq, N, Tk, K, H, prefill)
+    ("draft_prefill", NB, T, N_HEADS, 517, KV_HEADS, HEAD_DIM, True),
+    ("long_chunk", 1, T, N_HEADS, 576, KV_HEADS, HEAD_DIM, False),
+    ("gpt2_prefill", 8, 64, 16, 256, 16, 64, True),
+    ("gpt2_long_chunk", 1, 64, 16, 320, 16, 64, False),
+    ("gpt2_draft_prefill", 8, 64, 4, 261, 4, 64, True),
+    ("gpt2_draft_long_chunk", 1, 64, 4, 320, 4, 64, False),
+    ("gpt2_draft_catchup32", 64, 32, 4, 261, 4, 64, False),
+)
+DECODE_SPEC_CASES = (
+    # (case, B, Tq, N, Tk, K, H); the verify windows first
+    ("verify", SLOTS, SPEC_WINDOW, N_HEADS, S, KV_HEADS, HEAD_DIM),
+    ("verify_gpt2", 64, SPEC_WINDOW, 16, 256, 16, 64),
+    ("draft_step", SLOTS, 1, N_HEADS, 517, KV_HEADS, HEAD_DIM),
+    ("draft_catchup2", SLOTS, 2, N_HEADS, 517, KV_HEADS, HEAD_DIM),
+    ("draft_catchup8", SLOTS, 8, N_HEADS, 517, KV_HEADS, HEAD_DIM),
+    ("gpt2_step", 64, 1, 16, 256, 16, 64),
+    ("gpt2_draft_step", 64, 1, 4, 261, 4, 64),
+    ("gpt2_draft_catchup8", 64, 8, 4, 261, 4, 64),
+)
+# The int8 draft slab of 17a's self-draft on the int8 pool.
+DECODE_INT8_SPEC_CASES = DECODE_SPEC_CASES[2:5]
+PAGED_SPEC_CASES = (
+    # (case, B, Tq, N, K, H, pages a slot, scratch)
+    ("verify", SLOTS, SPEC_WINDOW, N_HEADS, KV_HEADS, HEAD_DIM, NP, True),
+    ("gpt2_step", 64, 1, 16, 16, 64, 2, False),
+    ("gpt2_verify", 64, SPEC_WINDOW, 16, 16, 64, 2, True),
+)
+
+
+def _slab_case(B, tq, n_heads, Tk, kv_heads, head_dim, prefill=False,
+               int8=False):
+    """Inputs of kernel 1 or 2 as a slab program hands them over: q
+    [B, tq, N, H] over k/v [B, Tk, K, H]. ``prefill``: a prompt group's
+    causal mask over positions [0, tq) (prompts of 3/4 tq to tq tokens)
+    and nothing past them. Else the staircase ``pos <= lengths + t``
+    (``paged_window_mask``; at tq = 1 ``decode_mask``) from lengths drawn
+    in [min(40, Tk - tq), Tk - tq]: a decode step, a verify or catch-up
+    window, a long fill's chunk at its base. ``int8``: k/v as codes and
+    scales (:func:`_quantized`)."""
+    from ray_dynamic_batching_tpu_torch.models.decoder import (
+        paged_window_mask,
+        prefill_mask,
+    )
+
+    def make(dtype, gen, rng):
+        dev = "cuda"
+        q = torch.randn((B, tq, n_heads, head_dim), generator=gen,
+                        device=dev)
+        k = torch.randn((B, Tk, kv_heads, head_dim), generator=gen,
+                        device=dev)
+        v = torch.randn((B, Tk, kv_heads, head_dim), generator=gen,
+                        device=dev)
+        if prefill:
+            n = torch.randint(3 * tq // 4, tq + 1, (B,), generator=gen,
+                              device=dev)
+            attn = (torch.arange(tq, device=dev)[None, :] < n[:, None]).int()
+            mask = torch.cat([prefill_mask(attn), torch.zeros(
+                (B, 1, tq, Tk - tq), dtype=torch.bool, device=dev)], dim=-1)
+        else:
+            lengths = torch.randint(min(40, Tk - tq), Tk - tq + 1, (B,),
+                                    generator=gen, device=dev)
+            mask = paged_window_mask(lengths, Tk, tq)
+        x = _with_keep_mask(dict(q=q.to(dtype), k=k.to(dtype),
+                                 v=v.to(dtype), mask=mask))
+        return _quantized(x) if int8 else x
+
+    return make
+
+
+def _paged_case(B, tq, n_heads, kv_heads, head_dim, n_table,
+                scratch=False, int8=False):
+    """Kernel 3's inputs: q [B, tq, N, H] over a pool of B x n_table
+    pages of ``PS`` positions. ``scratch``: a spec round's tables, each
+    slot's length 1..tq - 1 positions short of a page boundary, its
+    table holding its owned pages and then one SCRATCH page that only
+    the window reaches, the sentinel past. Else
+    :func:`_paged_inputs`'s tables. ``int8``: codes and scales."""
+    shape = (B, n_heads, kv_heads, head_dim, n_table)
+
+    def make(dtype, gen, rng):
+        if not scratch:
+            x = _paged_inputs(dtype, gen, rng, tq, shape)
+            return _quantized(x) if int8 else x
+        pool, dev = B * n_table, "cuda"
+        q = torch.randn((B, tq, n_heads, head_dim), generator=gen,
+                        device=dev)
+        k = torch.randn((pool, PS, kv_heads, head_dim), generator=gen,
+                        device=dev)
+        v = torch.randn((pool, PS, kv_heads, head_dim), generator=gen,
+                        device=dev)
+        owned = rng.integers(1, n_table, B)
+        lengths = (owned * PS - rng.integers(1, tq, B)).astype(np.int32)
+        perm = rng.permutation(pool)
+        table = np.full((B, n_table), pool, np.int32)
+        used = 0
+        for b in range(B):
+            n = int(owned[b]) + 1
+            table[b, :n] = perm[used: used + n]
+            used += n
+        x = dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype),
+                 table=torch.from_numpy(table).to(dev),
+                 lengths=torch.from_numpy(lengths).to(dev))
+        return _quantized(x) if int8 else x
+
+    return make
 
 
 def _dequant_sdpa(x):
@@ -678,11 +855,13 @@ def _kernel_specs():
             yardstick=None,
             cost=_masked_cost,
             # A paged chunk deep in a long prompt (3 and 5 live tiles),
-            # and ViT-B/16's and ViT-G/14's unmasked attention (the
-            # vision path).
+            # ViT-B/16's and ViT-G/14's unmasked attention (the vision
+            # path), and phase 17's fills.
             serving_cases=[("paged_chunk", _paged_chunk_inputs, None),
                            ("vit", _vit_inputs, _qkvo_cost),
-                           ("vit_g", _vit_g_inputs, _qkvo_cost)],
+                           ("vit_g", _vit_g_inputs, _qkvo_cost)] + [
+                (c, _slab_case(*dims), None)
+                for c, *dims in FLASH_SPEC_CASES],
         ),
         "decode_attention": dict(
             source="ray_dynamic_batching_tpu_torch/csrc/decode_attention.cu",
@@ -697,6 +876,11 @@ def _kernel_specs():
             library=lambda x: _sdpa(x["q"], x["k"], x["v"], x["mask"]),
             yardstick=None,
             cost=_masked_cost,
+            # Phase 17's: the slab verify windows, llama3_8b's (20 rows a
+            # KV head) and gpt2_medium's (5), the draft steps, the
+            # catch-up windows, gpt2_medium's step.
+            serving_cases=[(c, _slab_case(*dims), None)
+                           for c, *dims in DECODE_SPEC_CASES],
         ),
         "paged_decode_attention": dict(
             source=("ray_dynamic_batching_tpu_torch/csrc/"
@@ -711,6 +895,10 @@ def _kernel_specs():
             yardstick=(_gather_sdpa, "gather + sdpa (3 calls)"),
             cost=_paged_cost,
             extra_cases=[(torch.float32, 4)],   # Tq = 4 staircase
+            # Phase 17's: the paged verify windows over scratch pages,
+            # gpt2_medium's step.
+            serving_cases=[(c, _paged_case(*dims), None)
+                           for c, *dims in PAGED_SPEC_CASES],
         ),
         # The int8-KV branch of kernels 2 and 3: the same sources and
         # wrappers, 1-byte codes + f32 scales (the reference's scale
@@ -731,6 +919,8 @@ def _kernel_specs():
             library=None,       # no one PyTorch call reads int8 codes
             yardstick=(_dequant_sdpa, "dequantize + sdpa (3 calls)"),
             cost=_masked_cost,
+            serving_cases=[(c, _slab_case(*dims, int8=True), None)
+                           for c, *dims in DECODE_INT8_SPEC_CASES],
         ),
         "paged_decode_attention_int8": dict(
             source=("ray_dynamic_batching_tpu_torch/csrc/"
@@ -747,13 +937,62 @@ def _kernel_specs():
             yardstick=(_gather_sdpa, "gather + dequantize + sdpa (7 calls)"),
             cost=_paged_cost,
             extra_cases=[(torch.float32, 4)],
+            serving_cases=[(c, _paged_case(*dims, int8=True), None)
+                           for c, *dims in PAGED_SPEC_CASES[:1]],
         ),
     }
+
+
+# Every kernel shape :func:`_check` has held against the plain version
+# (keyed by :func:`_shape_key`): phase 17 fails on a launch outside it.
+_CHECKED: set = set()
+
+
+def _shape_key(name: str, q, k) -> tuple:
+    """A kernel call's shape as phases 3 and 17 compare them: the kernel
+    (its int8 branch apart), q without its batch, k/v without theirs (a
+    pool's page count left out), and the two dtypes. The batch and the
+    page count size the grid, not the code a block runs."""
+    return (name, tuple(q.shape[1:]), tuple(k.shape[1:]),
+            str(q.dtype).removeprefix("torch."),
+            str(k.dtype).removeprefix("torch."))
+
+
+@contextlib.contextmanager
+def _kernel_shapes():
+    """Count every kernel wrapper call, by :func:`_shape_key`, while the
+    block runs: the wrappers as ``ops/attention`` reaches them, the
+    models' only route to the kernels. A captured graph calls them once,
+    at its capture; eager programs at every call."""
+    import collections
+
+    from ray_dynamic_batching_tpu_torch.ops import attention
+
+    seen = collections.Counter()
+    saved = []
+    for mod, fn_name in ((attention._flash, "flash_attention"),
+                         (attention._decode, "decode_attention"),
+                         (attention._decode, "paged_decode_attention")):
+        fn = getattr(mod, fn_name)
+
+        def counted(q, k, *args, _fn=fn, _name=fn_name, **kw):
+            int8 = kw.get("k_scale") is not None
+            seen[_shape_key(_name + ("_int8" if int8 else ""), q, k)] += 1
+            return _fn(q, k, *args, **kw)
+
+        setattr(mod, fn_name, counted)
+        saved.append((mod, fn_name, fn))
+    try:
+        yield seen
+    finally:
+        for mod, fn_name, fn in saved:
+            setattr(mod, fn_name, fn)
 
 
 def _check(name: str, tag: str, sp, x, dtype) -> float:
     """The kernel against its plain version on ``x``: max abs error, held
     to the dtype's tolerance (fails the run past it)."""
+    _CHECKED.add(_shape_key(name, x["q"], x["k"]))
     out = sp["kernel"](x)
     torch.cuda.synchronize()
     ref = sp["plain"](x)
@@ -1172,18 +1411,54 @@ def _cache_bytes(engine) -> int:
                      if t is not None])
 
 
-def _expect_dispatches(tag: str, counts: dict, engine) -> None:
-    """Each decode step runs the arm's decode kernel once per layer; flash
-    runs once per layer for each prefill group, long-fill chunk
-    (monolithic arms) or chunk dispatch (chunked arms); every other kernel
-    and the plain route never."""
+DISPATCH_COUNTERS = ("steps", "prefill_groups", "long_chunk_dispatches",
+                     "chunk_dispatches", "spec_rounds", "draft_catchups",
+                     "draft_prefill_groups", "draft_chunk_dispatches")
+
+
+def _dispatch_state(engine) -> dict:
+    """The engine's dispatch counters, for :func:`_expect_dispatches` over
+    one window of a longer-lived engine."""
+    return {n: getattr(engine, n) for n in DISPATCH_COUNTERS}
+
+
+def _expect_dispatches(tag: str, counts: dict, engine, since=None,
+                       catchup_windows=None) -> None:
+    """Each decode step (or speculative verify round) runs the arm's
+    decode kernel once per layer; flash runs once per layer for each
+    prefill group, long-fill chunk (monolithic arms) or chunk dispatch
+    (chunked arms); every other kernel and the plain route never. With a
+    draft (a slab, in its own KV dtype): its decode kernel once per
+    draft layer for each of the k + 1 draft steps of a round and for
+    each catch-up window of at most 8 rows (``catchup_windows``, by
+    width, when the engine's horizons reach past 8: flash takes 16 and
+    more), and flash once per draft layer for each draft prefill group
+    and long-fill chunk. ``since`` (:func:`_dispatch_state`) counts from
+    a point in the engine's life."""
+    now = _dispatch_state(engine)
+    d = {n: now[n] - (since or {}).get(n, 0) for n in now}
     L = engine.model.cfg.num_layers
     int8 = "_int8" if engine.model.kv_dtype == torch.int8 else ""
     decode = ("paged_decode_attention" if engine.paged
               else "decode_attention") + int8
-    fills = (engine.prefill_groups + engine.long_chunk_dispatches
-             + engine.chunk_dispatches)
-    want = {decode: L * engine.steps, "flash_attention": L * fills}
+    fills = (d["prefill_groups"] + d["long_chunk_dispatches"]
+             + d["chunk_dispatches"])
+    want = {decode: L * d["steps"], "flash_attention": L * fills}
+    if engine.draft_model is not None:
+        Ld = engine.draft_model.cfg.num_layers
+        ddec = "decode_attention" + (
+            "_int8" if engine.draft_model.kv_dtype == torch.int8 else "")
+        windows = catchup_windows or {1: d["draft_catchups"]}
+        if sum(windows.values()) != d["draft_catchups"] or any(
+                8 < h < 16 for h in windows):
+            fail(f"{tag}: catch-up windows {windows} against "
+                 f"{d['draft_catchups']} catch-ups")
+        small = sum(n for h, n in windows.items() if h <= 8)
+        want[ddec] = want.get(ddec, 0) + Ld * (
+            (engine.spec_tokens + 1) * d["spec_rounds"] + small)
+        want["flash_attention"] += Ld * (
+            d["draft_prefill_groups"] + d["draft_chunk_dispatches"]
+            + sum(n for h, n in windows.items() if h >= 16))
     if not all(want.values()):
         fail(f"{tag}: a kernel of the path never launched: {want}")
     _expect_only(tag, counts, want)
@@ -4430,6 +4705,609 @@ def phase_reuse() -> tuple:
                         wall_s=wall)
 
 
+# --- phase 17: speculative decoding -----------------------------------------
+SPEC_TOKENS = 4
+# 17a's f32 self-draft: the least acceptance that passes (near ties that
+# another GEMM shape rounds the other way may reject a few proposals).
+SELF_DRAFT_ACCEPTANCE = 0.99
+# gpt2_medium + gpt2_draft at bench_llm_serving's shape (the reference's
+# bench.py), cut to fit the phase: 64 slots, max_len 256, one bucket of 64
+# (48-token prompts), 96 new tokens, horizon 32, groups of 8.
+GPT2_KNOBS = dict(num_slots=64, max_len=256, prompt_buckets=[64],
+                  default_max_new_tokens=96, decode_horizon=32,
+                  max_admissions_per_step=8)
+
+
+def _spec_books(engine) -> dict:
+    """The speculation families under the engine's tags: rounds, drafted,
+    accepted and rejected tokens."""
+    from ray_dynamic_batching_tpu_torch.engine import decode as dmod
+
+    tags = {"model": engine.model.name,
+            "paged": "true" if engine.paged else "false"}
+    return {n: getattr(dmod, f"SPEC_{n.upper()}").get(tags=tags)
+            for n in ("rounds", "drafted", "accepted", "rejected")}
+
+
+def _watch_rounds(engine) -> list:
+    """Log each speculative round as its harvest receives it: for every
+    slot in the round, its request, the tokens it had, the tokens the
+    round's device output offered it (``advanced``'s count, the
+    target's own token included) and the tokens it took. The log is
+    ``engine.round_log``."""
+    log = []
+    fn = engine._harvest
+
+    def watched(toks, advanced, lengths, h, blocked_finishes_capacity=True):
+        if blocked_finishes_capacity:
+            return fn(toks, advanced, lengths, h)
+        offered = advanced.sum(axis=0)
+        rows = [(s.request, s.generated, len(s.generated), int(offered[i]))
+                for i, s in enumerate(engine._slots)
+                if not s.free and engine._active_mask[i]]
+        fn(toks, advanced, lengths, h, blocked_finishes_capacity=False)
+        log.append([dict(request=req, before=n0, offered=n,
+                         took=len(gen) - n0, finished=req.future.done())
+                    for req, gen, n0, n in rows])
+
+    engine._harvest = watched
+    engine.round_log = log
+    return log
+
+
+def _count_catchups(engine) -> "collections.Counter":
+    """Count the engine's catch-up dispatches by window width (after its
+    warmup): the launch rule routes widths of 16 and more to flash."""
+    import collections
+
+    seen = collections.Counter()
+    fn = engine._draft_catchup_fn
+
+    def counted(window, active, counts):
+        seen[int(window.shape[1])] += 1
+        return fn(window, active, counts)
+
+    engine._draft_catchup_fn = counted
+    engine.catchup_widths = seen
+    return seen
+
+
+def _pool_whole(tag: str, engine) -> None:
+    """Paged: no scratch page outlived its round, and the pool is whole
+    (:func:`_drained`)."""
+    if not engine.paged:
+        return
+    if engine._spec_scratch:
+        fail(f"{tag}: scratch {engine._spec_scratch} left after the drain")
+    _drained(tag, engine)
+
+
+def _spec_window(tag: str, engine, payloads, submit, wait) -> dict:
+    """One served window on a warmed engine: launch counts zeroed just
+    before and held to the engine's dispatches just after, the
+    speculation books held to the rounds' device outputs
+    (:func:`_round_books`), no capture after warmup, the pool whole.
+    Returns tokens, results, counts and numbers; on a draft engine also
+    ``plain_prefix``, each request's tokens before its first round (None:
+    no round took it)."""
+    import collections
+
+    from ray_dynamic_batching_tpu_torch.ops import attention
+
+    spec = engine.draft_model is not None
+    state0 = _dispatch_state(engine)
+    books0 = _spec_books(engine) if spec else None
+    log0 = len(engine.round_log) if spec else 0
+    widths0 = collections.Counter(getattr(engine, "catchup_widths", {}))
+    captures0 = engine.capture_stats()["captures"]
+    attention.reset_counts()
+    t0 = time.monotonic()
+    futures = submit(payloads)
+    results = wait(futures)
+    wall = time.monotonic() - t0
+    # A replica's loop resets a slot just after fulfilling its request.
+    deadline = time.monotonic() + 10
+    while engine._active_mask.any() and time.monotonic() < deadline:
+        time.sleep(0.001)
+    torch.cuda.synchronize()
+    counts = _counts()
+    widths = None
+    if spec:
+        widths = dict(collections.Counter(engine.catchup_widths) - widths0)
+    _expect_dispatches(tag, counts, engine, since=state0,
+                       catchup_windows=widths)
+    if engine.capture_stats()["captures"] != captures0:
+        fail(f"{tag}: {engine.capture_stats()['captures'] - captures0} "
+             "captures after warmup")
+    _steady(tag)
+    _pool_whole(tag, engine)
+    for i, r in enumerate(results):
+        if (len(r.tokens) != payloads[i]["max_new_tokens"]
+                or r.finish_reason != "length"):
+            fail(f"{tag} request {i}: {len(r.tokens)} tokens, "
+                 f"{r.finish_reason}")
+    ttfts = sorted(r.ttft_ms for r in results)
+    out = dict(tokens=[r.tokens for r in results], counts=counts,
+               tok_s=sum(len(r.tokens) for r in results) / wall,
+               ttft_p50_ms=statistics.median(ttfts), wall_s=wall)
+    if spec:
+        b1 = _spec_books(engine)
+        d = {n: b1[n] - books0[n] for n in b1}
+        rounds = engine.spec_rounds - state0["spec_rounds"]
+        catchups = engine.draft_catchups - state0["draft_catchups"]
+        log = engine.round_log[log0:]
+        _round_books(tag, engine, d, rounds, log)
+        # A sampled row keeps every batch it is in plain: such a window
+        # must catch the draft up; an all-greedy one must speculate.
+        sampled = any(p.get("temperature") for p in payloads)
+        if not (catchups if sampled else rounds):
+            fail(f"{tag}: {rounds} rounds, {catchups} catch-ups")
+        index = {id(r): i for i, r in enumerate(futures)}
+        prefix = [None] * len(payloads)
+        for rnd in log:
+            for row in rnd:
+                i = index[id(row["request"])]
+                if prefix[i] is None or row["before"] < prefix[i]:
+                    prefix[i] = row["before"]
+        acc = d["accepted"] / d["drafted"] if d["drafted"] else 0.0
+        out.update(rounds=rounds, drafted=d["drafted"],
+                   accepted=d["accepted"], rejected=d["rejected"],
+                   acceptance=acc,
+                   tokens_a_row_per_round=1 + engine.spec_tokens * acc,
+                   catchups=catchups,
+                   catchup_widths=widths,
+                   pool_fallbacks=engine.spec_pool_fallbacks,
+                   plain_prefix=prefix)
+    return out
+
+
+def _round_books(tag: str, engine, books: dict, rounds: int, log) -> None:
+    """The window's speculation families held to what its rounds' device
+    outputs say (:func:`_watch_rounds`): one round logged for each the
+    engine and ``rdb_decode_spec_rounds_total`` count; k drafted for each
+    slot in a round; accepted the offered tokens less the target's own,
+    summed over the slots offered any; rejected the rest. Every slot took
+    all it was offered unless its request finished in that round."""
+    k = engine.spec_tokens
+    want = dict(rounds=len(log),
+                drafted=k * sum(len(rnd) for rnd in log),
+                accepted=sum(max(row["offered"] - 1, 0)
+                             for rnd in log for row in rnd))
+    want["rejected"] = want["drafted"] - want["accepted"]
+    if books != want or rounds != len(log):
+        fail(f"{tag}: books {books} and {rounds} engine rounds against the "
+             f"rounds' outputs {want}")
+    for j, rnd in enumerate(log):
+        for row in rnd:
+            if not (row["took"] <= row["offered"] <= k + 1
+                    and (row["took"] == row["offered"] or row["finished"])):
+                fail(f"{tag}: round {j} offered a slot {row['offered']} "
+                     f"tokens, it took {row['took']} (finished "
+                     f"{row['finished']})")
+
+
+def _engine_io(engine, queue):
+    """(submit, wait) for an engine driven by ``run_until_idle``."""
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+
+    def submit(payloads):
+        reqs = [Request(model="spec", payload=p, slo_ms=600_000.0)
+                for p in payloads]
+        for r in reqs:
+            queue.add_request(r)
+        engine.run_until_idle(timeout_s=600)
+        return reqs
+
+    return submit, lambda reqs: [r.future.result(5) for r in reqs]
+
+
+def _replica_io(tag: str, replica):
+    """(submit, wait) for a started replica (its engine's own thread)."""
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+
+    def submit(payloads):
+        reqs = [Request(model=replica.engine.model.name, payload=p,
+                        slo_ms=600_000.0) for p in payloads]
+        for r in reqs:
+            if not replica.assign(r):
+                fail(f"{tag}: replica refused a request")
+        return reqs
+
+    return submit, lambda reqs: [r.future.result(timeout=600) for r in reqs]
+
+
+def _greedy_same(tag: str, got, want, payloads) -> None:
+    """Every greedy request's tokens equal (fails on the first that
+    differs)."""
+    for i, p in enumerate(payloads):
+        j = _first_difference(got[i], want[i])
+        if not p.get("temperature") and (j is not None
+                                          or len(got[i]) != len(want[i])):
+            fail(f"{tag}: greedy request {i} differs from token {j}")
+
+
+def _plain_rows_same(tag: str, payloads, row: dict, want) -> int:
+    """Each request's tokens before its first speculative round (all of
+    them where no round took it; see :func:`_spec_window`) equal
+    ``want``'s, token for token; fails on the first that differs.
+    Returns the number of tokens held."""
+    held = 0
+    for i, p in enumerate(payloads):
+        cut = row["plain_prefix"][i]
+        if p.get("temperature") and cut is not None:
+            fail(f"{tag}: sampled request {i} was in a round")
+        got, ref = row["tokens"][i][:cut], want[i][:cut]
+        if got != ref:
+            fail(f"{tag}: request {i} differs at token "
+                 f"{_first_difference(got, ref)} of its {len(got)} "
+                 "plain-step tokens")
+        held += len(got)
+    print(f"[spec] {tag}: {held} tokens decoded by plain steps identical "
+          f"({sum(c is not None for c in row['plain_prefix'])} of "
+          f"{len(payloads)} requests cut at their first round)", flush=True)
+    return held
+
+
+def _first_difference(got, want):
+    return next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                None)
+
+
+def _near_ties(tag: str, model, payloads, got, want) -> list:
+    """Two greedy runs of the same prompts in bf16 through programs of
+    other shapes (a verify window's GEMMs against a step's, or a plain
+    step's against a verify's): where a stream first differs, recompute
+    the logits after the prompt and the shared tokens (one prefill, on
+    the attention's plain version) and measure both tokens' gaps to the
+    top logit against two bf16 ulps of it (a near tie, which rounding in
+    either run may break either way). Printed, not gated: each request
+    when a few differ, else a summary. Returns one record per differing
+    request."""
+    import math
+
+    from ray_dynamic_batching_tpu_torch.ops import attention
+
+    out = []
+    for i, p in enumerate(payloads):
+        j = _first_difference(got[i], want[i])
+        if j is None:
+            continue
+        seq = list(p["tokens"]) + list(got[i][:j])
+        with torch.inference_mode(), attention.plain_attention():
+            cache = model.make_cache(1, len(seq))
+            tokens = torch.tensor([seq], dtype=torch.int32,
+                                  device=model.device)
+            logits, _ = model.prefill(tokens, torch.ones_like(tokens), cache)
+        lg = logits[0].float()
+        top = lg.max().item()
+        tol = 2 * 2.0 ** (math.floor(math.log2(abs(top))) - 7)
+        gaps = [top - lg[got[i][j]].item(), top - lg[want[i][j]].item()]
+        out.append(dict(request=i, index=j, tokens=[got[i][j], want[i][j]],
+                        top=top, gaps=gaps, tol=tol,
+                        near_tie=max(gaps) <= tol))
+    if len(out) <= 8:
+        for r in out:
+            print(f"[spec] {tag}: request {r['request']} first differs at "
+                  f"token {r['index']}: {r['tokens'][0]} vs "
+                  f"{r['tokens'][1]}, {r['gaps'][0]:.4f} and "
+                  f"{r['gaps'][1]:.4f} below the top logit {r['top']:.3f} "
+                  f"(two bf16 ulps {r['tol']:.4f}); not gated", flush=True)
+    else:
+        at = [r["index"] for r in out]
+        print(f"[spec] {tag}: {len(out)} of {len(payloads)} requests "
+              f"differ, first at tokens {min(at)}-{max(at)}; both tokens "
+              f"within two bf16 ulps of the top logit in "
+              f"{sum(r['near_tie'] for r in out)}, the largest gap "
+              f"{max(max(r['gaps']) for r in out):.4f}; not gated",
+              flush=True)
+    return out
+
+
+def _spec_parity(V: int) -> dict:
+    """17a: llama3_8b at full width, 2 layers, f32, graphed engines;
+    phase 6's 10 requests on five arms with a divergent draft (a second
+    module of the same widths from seed 1) against the engine without a
+    draft, then with the target as its own draft."""
+    from ray_dynamic_batching_tpu_torch.engine.decode import DecodeEngine
+    from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        LLAMA3_8B,
+        CausalLM,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    payloads = _payloads(np.random.default_rng(1), V, 32, 8, 2, 2)
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=2)
+    draft = CausalLM(cfg, "llama3_8b_2layer_draft", dtype=torch.float32,
+                     device="cuda", seed=1)
+    arms = {None: (("slab", SLAB_KNOBS), ("paged", PAGED_KNOBS),
+                   ("paged_mono", dict(PAGED_KNOBS, chunked_prefill=False)),
+                   ("slab_chunked", dict(SLAB_KNOBS, chunked_prefill=True))),
+            torch.int8: (("int8_paged", PAGED_KNOBS),)}
+    out, counts = {}, {}
+
+    def run(tag, model, knobs, d):
+        queue = RequestQueue("spec", max_len=64)
+        extra = dict(draft_model=d, spec_tokens=SPEC_TOKENS) if d else {}
+        engine = DecodeEngine(model, queue, device="cuda", **knobs, **extra)
+        engine.warmup()
+        if d is not None:
+            _count_catchups(engine)
+            _watch_rounds(engine)
+        row = _spec_window(tag, engine, payloads, *_engine_io(engine, queue))
+        for n, c in row.pop("counts").items():
+            counts[n] = counts.get(n, 0) + c
+        engine.release_buffers()
+        return row
+
+    for kv_dtype, cases in arms.items():
+        model = CausalLM(cfg, "llama3_8b_2layer", dtype=torch.float32,
+                         device="cuda", seed=0, kv_dtype=kv_dtype)
+        for arm, knobs in cases:
+            tag = f"spec parity {arm}"
+            plain = run(f"{tag} plain", model, knobs, None)
+            row = run(tag, model, knobs, draft)
+            _greedy_same(tag, row["tokens"], plain["tokens"], payloads)
+            print(f"[spec] {tag}: greedy tokens identical to the engine "
+                  f"without a draft; {row['rounds']} rounds, acceptance "
+                  f"{row['acceptance']:.3f}, {row['catchups']} catch-ups, "
+                  f"pool fallbacks {row['pool_fallbacks']}", flush=True)
+            out[arm] = {k: row[k] for k in ("rounds", "acceptance",
+                                           "catchups", "drafted")}
+            # The target as its own draft proposes what the target then
+            # picks (f32, no TF32): every fill path of the draft (group
+            # prefill, long-fill replay, catch-ups) must leave it in step,
+            # or its rows stop being accepted.
+            tag = f"spec parity {arm} self-draft"
+            row = run(tag, model, knobs, model)
+            _greedy_same(tag, row["tokens"], plain["tokens"], payloads)
+            if not row["acceptance"] >= SELF_DRAFT_ACCEPTANCE:
+                fail(f"{tag}: acceptance {row['acceptance']:.4f} < "
+                     f"{SELF_DRAFT_ACCEPTANCE} ({row['accepted']} of "
+                     f"{row['drafted']})")
+            print(f"[spec] {tag}: greedy tokens identical; acceptance "
+                  f"{row['acceptance']:.4f} ({int(row['accepted'])} of "
+                  f"{int(row['drafted'])}, gate {SELF_DRAFT_ACCEPTANCE}), "
+                  f"{row['tokens_a_row_per_round']:.2f} tokens a row per "
+                  f"round, {row['catchups']} catch-ups", flush=True)
+            out[f"{arm}_self"] = {k: row[k] for k in (
+                "rounds", "acceptance", "drafted",
+                "tokens_a_row_per_round")}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    del draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def _turn_ms(spans) -> dict:
+    """decode.turn ms: a spec round's, and a plain step's (turn / h)."""
+    spec = [s.end_ms - s.start_ms for s in spans
+            if s.name == "decode.turn" and s.attributes["spec"]]
+    plain = [(s.end_ms - s.start_ms) / s.attributes["horizon"] for s in spans
+             if s.name == "decode.turn" and not s.attributes["spec"]]
+    return dict(spec_round_p50=statistics.median(spec) if spec else None,
+                spec_rounds=len(spec),
+                plain_step_p50=statistics.median(plain) if plain else None,
+                plain_turns=len(plain))
+
+
+def _spec_deployment_runs(tag, model, knobs, loads, draft=None,
+                          draft_name=None) -> tuple:
+    """One deployment (``LLMDeployment`` -> ``make_replica``, warmed)
+    serving each of ``loads`` in turn through the replica, each window
+    traced (decode.turn spans) and held by :func:`_spec_window`."""
+    from ray_dynamic_batching_tpu_torch.serve.controller import (
+        DeploymentConfig,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+    from ray_dynamic_batching_tpu_torch.utils.trace_export import (
+        ChromeTraceCollector,
+    )
+    from ray_dynamic_batching_tpu_torch.utils.tracing import tracer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    dep = LLMDeployment(model.name, dtype=torch.bfloat16, model=model,
+                        draft_model=draft, draft_model_name=draft_name,
+                        spec_tokens=SPEC_TOKENS, **knobs)
+    replica = dep.make_replica(f"{model.name}-{tag}",
+                               DeploymentConfig(name=model.name))
+    engine = replica.engine
+    build_s = time.monotonic() - t0
+    if engine.draft_model is not None:
+        _count_catchups(engine)
+        _watch_rounds(engine)
+    replica.start()
+    rows, counts = [], {}
+    try:
+        for i, load in enumerate(loads):
+            collector = ChromeTraceCollector()
+            tracer().set_exporter(collector.export)
+            try:
+                row = _spec_window(f"{tag} window {i}", engine, load,
+                                   *_replica_io(tag, replica))
+            finally:
+                tracer().reset()
+            row.update(_turn_ms(collector.spans))
+            for n, c in row.pop("counts").items():
+                counts[n] = counts.get(n, 0) + c
+            rows.append(row)
+    finally:
+        replica.stop()
+    return rows, counts, dict(build_and_warm_s=build_s,
+                              captures=engine.capture_stats()["captures"])
+
+
+def _fmt(r: dict) -> str:
+    s = (f"{r['tok_s']:.1f} tok/s, TTFT p50 {r['ttft_p50_ms']:.1f} ms")
+    if r.get("spec_round_p50") is not None:
+        s += (f", decode.turn a spec round p50 {r['spec_round_p50']:.2f} ms"
+              f" ({r['spec_rounds']})")
+    if r.get("plain_step_p50") is not None:
+        s += (f", a plain step p50 {r['plain_step_p50']:.2f} ms "
+              f"({r['plain_turns']} turns)")
+    if "rounds" in r:
+        s += (f"; {r['rounds']} rounds, acceptance {r['acceptance']:.3f} "
+              f"({r['accepted']} of {r['drafted']} drafted, "
+              f"{r['rejected']} rejected), "
+              f"{r['tokens_a_row_per_round']:.2f} tokens a row per round, "
+              f"{r['catchups']} catch-ups {r['catchup_widths']}, "
+              f"pool fallbacks {r['pool_fallbacks']}")
+    return s
+
+
+def _spec_llama(smi: str, V: int) -> tuple:
+    """17b: llama3_8b bf16 at full depth, self-draft (the target module
+    as ``draft_model``), slab and paged (chunked): phase 5's 6 greedy
+    requests alone, then phase 5's mix (2 sampled rows: plain steps and
+    catch-ups); each beside the same deployment without a draft."""
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        LLAMA3_8B,
+        CausalLM,
+    )
+
+    mix = _payloads(np.random.default_rng(0), V, 32, 8, 2, 0)
+    greedy = [p for p in mix if not p.get("temperature")]
+    model = CausalLM(LLAMA3_8B, "llama3_8b", dtype=torch.bfloat16,
+                     device="cuda", seed=0)
+    out, counts = {}, {}
+    for arm, knobs in (("slab", SLAB_KNOBS), ("paged", PAGED_KNOBS)):
+        tag = f"spec llama3_8b {arm}"
+        (p_greedy, p_mix), p_counts, p_info = _spec_deployment_runs(
+            f"{tag} plain", model, knobs, [greedy, mix])
+        (s_greedy, s_mix), s_counts, s_info = _spec_deployment_runs(
+            tag, model, knobs, [greedy, mix], draft=model)
+        for c in (p_counts, s_counts):
+            for n, k in c.items():
+                counts[n] = counts.get(n, 0) + k
+        # The mix's rows before their first round (on the slab the mix
+        # runs none, on the pool the greedy rows may meet one before the
+        # sampled rows are admitted) and its sampled rows (never in a
+        # round) ran the plain deployment's own programs at its shapes:
+        # equal to its mix token for token.
+        gated = _plain_rows_same(f"{tag} mix vs the plain deployment's",
+                                 mix, s_mix, p_mix["tokens"])
+        # Verify rounds against plain steps: GEMMs of other shapes, where
+        # bf16 may break a near tie the other way. Printed, not gated.
+        mixed_greedy = [t for p, t in zip(mix, s_mix["tokens"])
+                        if not p.get("temperature")]
+        mixed_ties = _near_ties(f"{tag} mixed vs greedy-only", model,
+                                greedy, mixed_greedy, s_greedy["tokens"])
+        plain_ties = _near_ties(f"{tag} vs the plain deployment", model,
+                                greedy, s_greedy["tokens"],
+                                p_greedy["tokens"])
+        print(f"[spec] {tag} ({smi}): greedy-only, draft | plain: "
+              f"{_fmt(s_greedy)} | {_fmt(p_greedy)}", flush=True)
+        print(f"[spec] {tag} ({smi}): phase 5's mix, draft | plain: "
+              f"{_fmt(s_mix)} | {_fmt(p_mix)}; captures after warmup 0; "
+              f"built and warmed in {s_info['build_and_warm_s']:.1f} s "
+              f"({s_info['captures']} captures) | "
+              f"{p_info['build_and_warm_s']:.1f} s", flush=True)
+        for r in (s_greedy, s_mix, p_greedy, p_mix):
+            r.pop("tokens")
+            r.pop("plain_prefix", None)
+        out[arm] = dict(spec_greedy=s_greedy, spec_mix=s_mix,
+                        plain_greedy=p_greedy, plain_mix=p_mix,
+                        mix_tokens_gated=gated,
+                        mixed_vs_greedy_only=mixed_ties,
+                        greedy_vs_plain=plain_ties,
+                        spec_build=s_info, plain_build=p_info)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def _spec_gpt2(smi: str) -> tuple:
+    """17c: gpt2_medium (24 layers x 16 heads of 64, vocab 50257) with
+    the registry's gpt2_draft, both bf16 at their published widths and
+    depths with random weights (the draft from seed 1), 64 greedy
+    48-token requests at once, with and without the draft, slab and
+    paged: random weights put acceptance near 0, so this is the
+    reference's bounded-degradation floor."""
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        GPT2_MEDIUM,
+        CausalLM,
+    )
+
+    V = GPT2_MEDIUM.vocab_size
+    rng = np.random.default_rng(17)
+    load = [{"tokens": rng.integers(0, V, 48).tolist(), "max_new_tokens": 96}
+            for _ in range(64)]
+    model = CausalLM(GPT2_MEDIUM, "gpt2_medium", dtype=torch.bfloat16,
+                     device="cuda", seed=0)
+    out, counts = {}, {}
+    for arm, extra in (("slab", {}), ("paged", dict(paged=True,
+                                                    page_size=PS))):
+        knobs = dict(GPT2_KNOBS, **extra)
+        tag = f"spec gpt2_medium {arm}"
+        (plain,), p_counts, _pi = _spec_deployment_runs(
+            f"{tag} plain", model, knobs, [load])
+        (spec,), s_counts, s_info = _spec_deployment_runs(
+            tag, model, knobs, [load], draft_name="gpt2_draft")
+        for c in (p_counts, s_counts):
+            for n, k in c.items():
+                counts[n] = counts.get(n, 0) + k
+        ties = _near_ties(f"{tag} vs the plain deployment", model, load,
+                          spec["tokens"], plain["tokens"])
+        print(f"[spec] {tag} + gpt2_draft ({smi}): draft | plain: "
+              f"{_fmt(spec)} | {_fmt(plain)}; tok/s ratio "
+              f"{spec['tok_s'] / plain['tok_s']:.3f}", flush=True)
+        for r in (spec, plain):
+            r.pop("tokens")
+            r.pop("plain_prefix", None)
+        out[arm] = dict(spec=spec, plain=plain, spec_build=s_info,
+                        vs_plain=ties)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def phase_spec() -> tuple:
+    """Phase 17; returns (launch counts, the phase's numbers)."""
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import LLAMA3_8B
+
+    t0 = time.monotonic()
+    smi = _smi()
+    with _kernel_shapes() as shapes:
+        parity, c1 = _spec_parity(LLAMA3_8B.vocab_size)
+        llama, c2 = _spec_llama(smi, LLAMA3_8B.vocab_size)
+        gpt2, c3 = _spec_gpt2(smi)
+    launched = _held_shapes(shapes)
+    counts = {n: c1.get(n, 0) + c2.get(n, 0) + c3.get(n, 0)
+              for n in set(c1) | set(c2) | set(c3)}
+    wall = time.monotonic() - t0
+    print(f"[spec] {smi}: phase wall time {wall:.1f} s", flush=True)
+    return counts, dict(card=smi, parity=parity, llama3_8b=llama,
+                        gpt2_medium=gpt2, kernel_shapes=launched, wall_s=wall)
+
+
+def _held_shapes(shapes) -> list:
+    """Every kernel shape phase 17 launched (its captures and eager
+    calls, by :func:`_shape_key`) must be one that phase 3 held against
+    its plain version; prints each with its wrapper calls."""
+    rows = []
+    for key, n in sorted(shapes.items()):
+        name, q, kv, q_dtype, kv_dtype = key
+        held = key in _CHECKED
+        print(f"[spec] kernel shape {name} q[., {', '.join(map(str, q))}] "
+              f"k/v[., {', '.join(map(str, kv))}] {q_dtype}/{kv_dtype}: "
+              f"{n} wrapper calls, held in phase 3: {held}", flush=True)
+        rows.append(dict(kernel=name, q=list(q), kv=list(kv),
+                         dtype=q_dtype, kv_dtype=kv_dtype, calls=n))
+    missing = [k for k in shapes if k not in _CHECKED]
+    if missing:
+        fail(f"phase 17 launched {len(missing)} kernel shapes phase 3 did "
+             f"not hold against the plain version (run phase 3, "
+             f"'kernels', with it): {missing}")
+    return rows
+
+
 def main() -> None:
     with contextlib.ExitStack() as stack:
         _main(stack)
@@ -4439,7 +5317,7 @@ def _main(stack: contextlib.ExitStack) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     all_phases = (["build", "kernels", "parity"] + list(SERVING)
                   + ["front", "controller", "colocate", "vision", "graphs",
-                     "sim", "reuse"])
+                     "sim", "reuse", "spec"])
     ap.add_argument("--phases", default=",".join(all_phases),
                     help=f"comma-separated subset of {','.join(all_phases)} "
                          "(the device phase always runs)")
@@ -4490,6 +5368,7 @@ def _main(stack: contextlib.ExitStack) -> None:
         print("[slab_chunked] beside main and int8: " + "; ".join(beside),
               flush=True)
     front = controller = colocate = vision = graphed = sim = reuse = None
+    spec = None
     if "front" in phases:
         by_path["front"], front = phase_front(args.profile)
     if "controller" in phases:
@@ -4504,6 +5383,8 @@ def _main(stack: contextlib.ExitStack) -> None:
         sim = phase_sim()
     if "reuse" in phases:
         by_path["reuse"], reuse = phase_reuse()
+    if "spec" in phases:
+        by_path["spec"], spec = phase_spec()
     for name, row in kernels.items():
         split = {path: c[name] for path, c in by_path.items()}
         row["launches"] = sum(split.values()) if split else None
@@ -4511,7 +5392,7 @@ def _main(stack: contextlib.ExitStack) -> None:
     print(json.dumps({"kernels": list(kernels.values()), "front": front,
                       "controller": controller, "colocate": colocate,
                       "vision": vision, "graphs": graphed, "sim": sim,
-                      "reuse": reuse}))
+                      "reuse": reuse, "spec": spec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],
         "count": torch.cuda.device_count()}}))

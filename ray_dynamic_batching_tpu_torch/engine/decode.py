@@ -66,8 +66,25 @@ raises. The long fill's chunk and commit run eagerly (their row cache
 is per fill; the registry says so), as do the reuse programs' row seeds
 and extracts, each warmed when its cache is on. The reference's group
 padding to compiled widths is gone (a group is exactly its rows, so no
-index is written twice): every group width is its own key. Speculative
-decoding, weight quantisation and the mesh are later slices.
+index is written twice): every group width is its own key. Weight
+quantisation and the mesh are later slices.
+
+Speculative decoding (``draft_model``, ``spec_tokens``; greedy rows only):
+a draft model — a second module with its own weights, or the target
+module itself — proposes ``spec_tokens`` continuations per slot and the
+target scores the whole window in ONE forward (:meth:`_spec_impl`); each
+row accepts its longest matching prefix plus the target's own token, so a
+round emits 1 to ``spec_tokens + 1`` tokens, exactly the plain greedy
+stream. A sampled or penalised row sends the whole batch to a plain step,
+after which the draft catches up on the tokens it did not see
+(:meth:`_draft_catchup_impl`). The draft's cache is a slab of ``max_len +
+spec_tokens + 1`` positions on every arm, filled beside every target
+admission (its group prefill on the monolithic arms, otherwise a replay of
+the whole prompt through its own chunk program). On the paged pool a
+round's window writes into scratch pages drawn before the dispatch; the
+accepted pages are spliced into the slot with no copy and the rejected
+tail freed (:meth:`_splice_spec_pages`); a pool too tight for a window
+makes the round one plain paged step (``spec_pool_fallbacks``).
 
 Sampling: ``jax.random`` keys cannot be reproduced in torch, so sampled
 rows draw gumbel noise from a counter-based hash of (base_seed, request
@@ -83,14 +100,16 @@ spans — the retroactive ``decode.prefill`` (admit -> first token) and
 ``decode.turn`` (dispatch -> the one host fetch), and ``decode.sequence``
 at completion — each emitted only while the tracer is enabled, from
 timestamps the engine already takes (no device sync of its own); and
-the prefix and session hit/miss families. The speculation families come
-with speculative decoding.
+the prefix and session hit/miss families and the speculation families
+(rounds, drafted / accepted / rejected tokens and the rolling acceptance,
+tagged ``paged``).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import inspect
 import math
 import threading
@@ -119,6 +138,7 @@ from ray_dynamic_batching_tpu_torch.engine.paging import (
     PageEventJournal,
     digest_chain,
     pages_for,
+    spec_scratch_pages,
     table_array,
 )
 from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
@@ -216,6 +236,29 @@ PREFILL_PENDING = m.Gauge(
     "rdb_decode_prefill_pending_trains",
     "Chunk trains awaiting prefill budget", tag_keys=("model",),
 )
+# Speculation: the ``paged`` tag ("true"/"false") splits the slab and
+# paged arms; accepted + rejected == drafted holds per round.
+SPEC_ROUNDS = m.Counter(
+    "rdb_decode_spec_rounds_total", "Speculative verify rounds",
+    tag_keys=("model", "paged"),
+)
+SPEC_ACCEPTED = m.Counter(
+    "rdb_decode_spec_accepted_total", "Draft tokens accepted by verify",
+    tag_keys=("model", "paged"),
+)
+SPEC_DRAFTED = m.Counter(
+    "rdb_decode_spec_drafted_total", "Draft tokens proposed to verify",
+    tag_keys=("model", "paged"),
+)
+SPEC_REJECTED = m.Counter(
+    "rdb_decode_spec_rejected_total", "Draft tokens rejected by verify",
+    tag_keys=("model", "paged"),
+)
+SPEC_ACCEPTANCE = m.Gauge(
+    "rdb_decode_spec_acceptance",
+    "Rolling draft-token acceptance rate (accepted/drafted, bounded "
+    "window)", tag_keys=("model", "paged"),
+)
 
 _M32 = 0xFFFFFFFF
 
@@ -308,11 +351,18 @@ def commit_row(cache, row, slot: int) -> None:
     """In place: a single finished row cache into the shared slab cache at
     ``slot``, cut down to shared capacity (the long fill's row is whole
     chunks and may be longer; past ``lengths`` it holds nothing anyone
-    attends)."""
+    attends). Shared by the target's long fill and the draft's."""
     S = cache.capacity
     for src, dst in _planes(row, cache):
         dst[:, slot] = src[:, 0, :S]
     cache.lengths[slot] = row.lengths[0]
+
+
+def chunk_impl(model, tokens, attn_mask, row, start: int, take_idx: int):
+    """One chunk of a prompt through ``model`` on its row cache: the
+    draft long fill's chunk program (the draft has no pages-direct path,
+    its cache being a slab, so every admission replays its prompt)."""
+    return model.prefill_chunk(tokens, attn_mask, row, start, take_idx)
 
 
 def copy_rows_into_paged(cache, rows, slots: torch.Tensor,
@@ -482,7 +532,10 @@ class DecodeEngine:
     ``decode_step_paged``) and ``cfg``
     (:class:`~ray_dynamic_batching_tpu_torch.models.causal_lm.CausalLM`)
     and owns its weights; ``device`` must be the model's device and
-    defaults to ``"cuda"``.
+    defaults to ``"cuda"``. ``draft_model`` (a CausalLM on the same
+    device and of the same vocabulary, owning its weights — the target
+    module itself for a self-draft) turns on speculative decoding with
+    ``spec_tokens`` proposals a round.
     """
 
     def __init__(
@@ -508,6 +561,8 @@ class DecodeEngine:
         prefix_cache_size: int = 0,
         session_cache_size: int = 0,
         host_spill_pages: int = 0,
+        draft_model: Any = None,
+        spec_tokens: int = 4,
     ):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -515,6 +570,18 @@ class DecodeEngine:
                 f"model lives on {model.device}, engine asked for "
                 f"{self.device}"
             )
+        if draft_model is not None:
+            if draft_model.device != self.device:
+                raise ValueError(
+                    f"draft model lives on {draft_model.device}, engine "
+                    f"asked for {self.device}")
+            if draft_model.cfg.vocab_size != model.cfg.vocab_size:
+                # A proposal must index the target's logits (and the
+                # target's embedding: on the card an id past its table is
+                # a device-side assert, not an error).
+                raise ValueError(
+                    f"draft vocab {draft_model.cfg.vocab_size} differs from "
+                    f"the target's {model.cfg.vocab_size}")
         self.model = model
         self.queue = queue
         self.num_slots = num_slots
@@ -667,8 +734,9 @@ class DecodeEngine:
         self.prefill_groups = 0      # monolithic prefill dispatches
         self.chunk_dispatches = 0    # chunk-train dispatches
         self.long_chunk_dispatches = 0   # long-fill chunk dispatches
-        # What warmup dispatched: prefill groups, chunks and long-fill
-        # chunks, and decode substeps (each a forward of every layer).
+        # What warmup dispatched on the target: prefill groups, chunks and
+        # long-fill chunks, and decode substeps (each a forward of every
+        # layer); a draft's warmup keys are not counted here.
         self.warmup_fills = 0
         self.warmup_steps = 0
         self.completed = 0
@@ -705,24 +773,74 @@ class DecodeEngine:
                                               self._seed_session_impl)
         self._session_extract_fn = self._program("session_extract",
                                                  self._extract_row_impl)
+        # Speculative decoding (greedy rows only): the draft's cache is a
+        # SLAB on every arm, with headroom past max_len for the k + 1
+        # positions a round drafts near the end (the pool's pages are
+        # target-geometry tensors; the target-side KV of drafted tokens is
+        # what pages, in scratch pages spliced on accept). It is engine
+        # state the captured programs read, allocated once and updated in
+        # place.
+        self.draft_model = draft_model
+        self.spec_tokens = max(1, int(spec_tokens))
+        self._dcache = None
+        # Rolling (accepted, drafted) pairs per round: the acceptance
+        # gauge, spec_acceptance() and snapshot()["spec"].
+        self._spec_acc_window: collections.deque = collections.deque(
+            maxlen=512)
+        # Paged: slot -> (first table index, scratch page ids) of the
+        # round in flight, always resolved (spliced or freed) before the
+        # round's harvest.
+        self._spec_scratch: Dict[int, Tuple[int, List[int]]] = {}
+        self.spec_rounds = 0          # verify rounds dispatched
+        self.spec_pool_fallbacks = 0  # rounds made plain by a tight pool
+        self.draft_catchups = 0       # catch-up dispatches after plain steps
+        self.draft_prefill_groups = 0     # draft group prefills (mono)
+        self.draft_chunk_dispatches = 0   # draft long-fill chunks
+        if draft_model is not None:
+            with torch.inference_mode():
+                self._dcache = draft_model.make_cache(
+                    num_slots, max_len + self.spec_tokens + 1)
+            self._spec_fn = self._program("spec_verify", self._spec_impl)
+            self._draft_catchup_fn = self._program(
+                "draft_catchup", self._draft_catchup_impl)
+            self._draft_prefill_fn = self._program(
+                "draft_prefill", self._draft_prefill_impl)
+            self._draft_long_chunk_fn = self._program(
+                "draft_long_chunk", functools.partial(chunk_impl,
+                                                      draft_model))
+            self._draft_long_commit_fn = self._program(
+                "draft_long_commit", functools.partial(commit_row,
+                                                       self._dcache))
         # The decode kernels' merge scratch, sized for the largest launch
         # any program can make (decode over every slot; a prefill group,
         # chunk group or long-fill chunk of a bucket <= 8 takes the
-        # decode kernels too) before anything is captured, and held for
-        # as long as the graphs that bake it in.
+        # decode kernels too; with a draft, the verify window on the
+        # target, and the draft's steps, catch-up windows and fills on its
+        # own shapes) before anything is captured, and held for as long
+        # as the graphs that bake it in.
         self._workspace = None
         if self.device.type == "cuda":
-            cfg = model.cfg
             small = [b for b in self.prompt_buckets
                      if b <= _decode_ops.MAX_WINDOW_FOR_KERNEL]
             cap = self._paged_capacity if self.paged else max_len
-            self._workspace = _decode_ops.reserve(
-                self.device,
-                B=max(num_slots, self.max_admissions_per_step),
-                K=cfg.num_kv_heads,
-                S=max(cap, self._long_row_cap(chunk_w)),
-                R=max([1] + small) * (cfg.num_heads // cfg.num_kv_heads),
-                H=cfg.head_dim)
+            window = max([1] + small)
+            shapes = [(model.cfg, max(cap, self._long_row_cap(chunk_w)))]
+            if draft_model is not None:
+                window = max(window, self.spec_tokens + 1,
+                             min(self.decode_horizon,
+                                 _decode_ops.MAX_WINDOW_FOR_KERNEL))
+                shapes.append((draft_model.cfg,
+                               -(-self._dcache.capacity // chunk_w)
+                               * chunk_w))
+            # Each reserve keeps the larger scratch, so the last one is
+            # the device's entry and covers every shape.
+            self._workspace = [
+                _decode_ops.reserve(
+                    self.device,
+                    B=max(num_slots, self.max_admissions_per_step),
+                    K=c.num_kv_heads, S=cap_, H=c.head_dim,
+                    R=window * (c.num_heads // c.num_kv_heads))
+                for c, cap_ in shapes]
 
     def _program(self, name: str, impl: Callable) -> Callable:
         """``impl`` as the registry's program ``name``: its host-static
@@ -1017,6 +1135,88 @@ class DecodeEngine:
         return torch.cat([torch.stack(toks), torch.stack(advs),
                           cache.lengths[None, :]], dim=0)
 
+    @torch.inference_mode()
+    def _spec_impl(self, step_state, bias_ids, bias_vals) -> torch.Tensor:
+        """One speculative round for the whole batch, greedy-exact.
+        ``step_state`` [2, B] int32 packs pending tokens and the active
+        mask.
+
+        The draft runs ``k + 1`` single-token steps (proposing d_1..d_k
+        and keeping its own cache complete through d_k), the target
+        scores the [t0, d_1..d_k] window in one verify forward, and each
+        row accepts its longest matching prefix plus the target's own
+        next token: 1 to k + 1 tokens, never other than what plain greedy
+        decode would emit. Rows past capacity emit only the tokens whose
+        k/v landed. Returns packed int32 [k + 3, B]: k + 1 output-token
+        rows, the count row and the post-round lengths row (one fetch)."""
+        tokens = step_state[0][:, None]
+        active = step_state[1].bool()
+        k = self.spec_tokens
+        B = tokens.shape[0]
+        cache, dcache = self._cache, self._dcache
+        dlen0 = dcache.lengths.clone()
+        drafts, tok = [], tokens
+        for _ in range(k + 1):
+            logits, _ = self.draft_model.decode_step(tok, dcache, active)
+            nxt = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+            nxt = torch.where(active, nxt, tok[:, 0])
+            drafts.append(nxt)
+            tok = nxt[:, None]
+        # The last proposal is drafted only to keep the draft cache
+        # complete; it is never verified.
+        d = torch.stack(drafts[:k], dim=1)                       # [B, k]
+        window = torch.cat([tokens, d], dim=1)                   # [B, k+1]
+        verify = (self.model.verify_step_paged if self.paged
+                  else self.model.verify_step)
+        logits, _ = verify(window, cache, active)
+        logits = logits.float()
+        # The plain path's bias, broadcast over the window, so biased
+        # greedy stays exact.
+        dense_bias = self._apply_bias(
+            torch.zeros((B, logits.shape[-1]), device=logits.device),
+            bias_ids, bias_vals)
+        greedy = torch.argmax(logits + dense_bias[:, None, :],
+                              dim=-1).to(torch.int32)            # [B, k+1]
+        match = (d == greedy[:, :k]).to(torch.int32)
+        m = torch.cumprod(match, dim=1).sum(dim=1)               # accepted
+        # Capacity clamp: only tokens whose k/v landed may count.
+        remaining = torch.clamp(self.max_len - cache.lengths, min=0)
+        n_out = torch.where(active, torch.minimum(m + 1, remaining),
+                            torch.zeros_like(remaining)).to(torch.int32)
+        gm = torch.gather(greedy, 1, m[:, None])                 # [B, 1]
+        d_pad = torch.cat([d, torch.zeros_like(d[:, :1])], dim=1)
+        j_idx = torch.arange(k + 1, device=d.device)[None, :]
+        out = torch.where(j_idx < m[:, None], d_pad, gm)         # [B, k+1]
+        cache.lengths.add_(n_out)
+        # The draft tracked the same sequence: its lengths roll back to
+        # the verified prefix (past them its k/v are garbage that is
+        # overwritten before anything attends it).
+        dcache.lengths.copy_(dlen0 + n_out)
+        return torch.cat([out.t(), n_out[None, :], cache.lengths[None, :]],
+                         dim=0)
+
+    @torch.inference_mode()
+    def _draft_catchup_impl(self, window, active, counts) -> None:
+        """Write the draft k/v of the tokens the target just decoded
+        plainly (``window`` [B, h] at each row's own draft length) and
+        advance the draft lengths by each row's advanced count: the draft
+        stays in step with the sequence without influencing it."""
+        self.draft_model.verify_step(window, self._dcache, active)
+        self._dcache.lengths.add_(
+            torch.where(active, counts, torch.zeros_like(counts)))
+
+    @torch.inference_mode()
+    def _draft_prefill_impl(self, tokmask, meta_i) -> None:
+        """The draft's rows for a monolithic prefill group: the target
+        group's packed inputs (``tokmask`` [2, nB, T], ``meta_i`` [3, nB]
+        with the slots in row 0) through the draft on a fresh row cache,
+        copied into the draft cache at the slots (no sampling: the draft
+        only ever proposes from its cache)."""
+        nB = tokmask.shape[1]
+        rows = self.draft_model.make_cache(nB, self._dcache.capacity)
+        _, rows = self.draft_model.prefill(tokmask[0], tokmask[1], rows)
+        copy_rows_into(self._dcache, rows, meta_i[0].long())
+
     def warmup(self) -> None:
         """Build the kernels and run every key the arm can dispatch, so
         that each hot program is captured before serving (the reference
@@ -1044,7 +1244,7 @@ class DecodeEngine:
             # was warmed before) — nothing to cross-check.
             return
         required = jit_model.required_for(
-            self.chunked_prefill, self.paged, False)
+            self.chunked_prefill, self.paged, self.draft_model is not None)
         gaps = [
             p.name for p in required
             if after.get(p.name, 0) <= before.get(p.name, 0)
@@ -1066,10 +1266,12 @@ class DecodeEngine:
         slab chunked arm its one row-cache chunk and commit, which the
         monolithic arms also warm when a prompt past the largest bucket
         fits — each with greedy and with sampled rows; then the decode
-        keys (:meth:`_warmup_decode`). Paged warmup writes through
-        all-sentinel tables (every write lands in the sink page; no page
-        is allocated), so the allocator is untouched. The lengths and
-        counts are reset afterwards."""
+        keys (:meth:`_warmup_decode`, with a draft its verify, catch-up
+        and prefill keys and the draft's long-fill pair). Paged warmup
+        writes through all-sentinel tables (every write lands in the sink
+        page; no page is allocated), so the allocator is untouched. The
+        lengths (the draft's too) and counts are reset afterwards, in
+        place."""
         if self.device.type == "cuda":
             from ray_dynamic_batching_tpu_torch.ops import _build
 
@@ -1080,19 +1282,25 @@ class DecodeEngine:
             self._warmup_long_fill()
         else:
             self._warmup_prefill_groups()
-            # Mono session continuations take the long fill's chunk and
-            # commit whatever the prompt's length.
-            if (self.prompt_buckets[-1] + 1 < self.max_len
-                    or self.session_cache is not None
-                    or self.paged_sessions is not None):
+            if self._mono_long_fills():
                 self._warmup_long_fill()
         self._warmup_reuse()
         self._warmup_decode()
         with torch.inference_mode():
             self._cache.lengths.zero_()
             self._counts.zero_()
+            if self._dcache is not None:
+                self._dcache.lengths.zero_()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _mono_long_fills(self) -> bool:
+        """A monolithic engine can take the long fill: a prompt past the
+        largest bucket fits, or a session continuation (which takes the
+        long fill's chunk and commit whatever the prompt's length)."""
+        return (self.prompt_buckets[-1] + 1 < self.max_len
+                or self.session_cache is not None
+                or self.paged_sessions is not None)
 
     def _warmup_inputs(self, b: int, g: int, sampled: bool):
         """Host inputs of a (bucket, group) admission program: all-zero
@@ -1197,6 +1405,35 @@ class DecodeEngine:
                         penalty)
                     self.warmup_steps += h
         self._zero_counts_fn(torch.zeros((2,), dtype=torch.int32))
+        if self._dcache is not None:
+            self._warmup_spec()
+
+    def _warmup_spec(self) -> None:
+        """Every key a draft adds: the draft's group prefill over the
+        (bucket x group) grid on monolithic arms, one verify round, the
+        catch-up window of each decode horizon, and — wherever an
+        admission replays its prompt through the draft (every chunked
+        admission, and a mono long fill or session fill) — one draft
+        long-fill chunk and commit, all over all-inactive slots."""
+        B = self.num_slots
+        if not self.chunked_prefill:
+            for b in self.prompt_buckets:
+                for g in range(1, self.max_admissions_per_step + 1):
+                    tokmask, _f, _ids, _vals = self._warmup_inputs(
+                        b, g, False)
+                    meta_i = torch.zeros((3, g), dtype=torch.int32)
+                    meta_i[0] = torch.arange(g) % B
+                    self._draft_prefill_fn(tokmask, meta_i)
+        _f, _i, bias_ids, bias_vals = self._sampling_arrays()
+        self._spec_fn(torch.zeros((2, B), dtype=torch.int32), bias_ids,
+                      bias_vals)
+        for h in sorted({1, self.ttft_horizon, self.decode_horizon}):
+            self._draft_catchup_fn(torch.zeros((B, h), dtype=torch.int32),
+                                   torch.zeros((B,), dtype=torch.bool),
+                                   torch.zeros((B,), dtype=torch.int32))
+        if self.chunked_prefill or self._mono_long_fills():
+            self._draft_long_fill(np.zeros((self.prompt_buckets[-1],),
+                                           np.int32), 0, warm=True)
 
     # --- admission ---------------------------------------------------------
     def _free_slots(self) -> List[int]:
@@ -1421,12 +1658,17 @@ class DecodeEngine:
                 table_array(opts["_pages"], self._n_table_entries,
                             self.num_pages) for _r, _p, opts in items
             ])),)
+        tokmask = torch.from_numpy(np.stack([tokens, mask]))
+        meta_i = torch.from_numpy(meta_i)
         first = self._prefill_fn(
-            torch.from_numpy(np.stack([tokens, mask])),
-            torch.from_numpy(meta_i), torch.from_numpy(meta_f),
+            tokmask, meta_i, torch.from_numpy(meta_f),
             torch.from_numpy(bias_ids), torch.from_numpy(bias_vals),
             *extra, bool((meta_f[0] > 0).any()),
         )
+        if self._dcache is not None:
+            # The draft must see the same prompts: its rows too.
+            self._draft_prefill_fn(tokmask, meta_i)
+            self.draft_prefill_groups += 1
         first_host = first.cpu().numpy()  # ONE fetch for the whole group
         self.prefill_groups += 1
         t = now_ms()
@@ -1519,18 +1761,44 @@ class DecodeEngine:
                                 between=self._interleave_step,
                                 start_chunk=start_chunk,
                                 after_first=after_first, base=base)
-        self._commit_and_register(req, opts, slot_idx, row, last,
+        self._commit_and_register(req, prompt, opts, slot_idx, row, last,
                                   after_commit=after_commit)
 
-    def _commit_and_register(self, req: Request, opts: Dict, slot_idx: int,
-                             row, last, after_commit=None) -> None:
+    def _draft_long_fill(self, prompt: np.ndarray, slot_idx: int,
+                         warm: bool = False) -> None:
+        """The whole prompt through the draft's chunk program (chunks of
+        the largest bucket from position 0, the draft keeping no stored
+        row) into a private draft row, one decode step for the active
+        batch between chunks as the target's fill interleaves them, then
+        the row committed into the draft cache at ``slot_idx``. ``warm``
+        (warmup): no interleave, and the chunks are not counted in
+        ``draft_chunk_dispatches``."""
+        C = self.prompt_buckets[-1]
+        with torch.inference_mode():
+            row = self.draft_model.make_cache(
+                1, -(-self._dcache.capacity // C) * C)
+
+        def chunk(*args):
+            if not warm:
+                self.draft_chunk_dispatches += 1
+            return self._draft_long_chunk_fn(*args)
+
+        _, row = run_chunked(
+            chunk, prompt, C, row,
+            between=None if warm else self._interleave_step)
+        self._draft_long_commit_fn(row, slot_idx)
+
+    def _commit_and_register(self, req: Request, prompt: np.ndarray,
+                             opts: Dict, slot_idx: int, row, last,
+                             after_commit=None) -> None:
         """Shared tail of every row-cache admission (the long fill, a
         session fill, a slab train's final chunk): ONE commit (the row into
         the shared cache + first-token sample), ``after_commit`` (the paged
         prefix publish, which must see committed pages and run before a
-        stop-on-first-token registration frees them), then registration.
-        Paged: borrowed head pages are steered to the sink page, so the
-        commit never rewrites a shared page."""
+        stop-on-first-token registration frees them), the draft's replay
+        of the whole ``prompt`` when a draft rides along, then
+        registration. Paged: borrowed head pages are steered to the sink
+        page, so the commit never rewrites a shared page."""
         bids, bvals = self._bias_arrays(opts)
         meta_i = torch.tensor([slot_idx, opts["top_k"], opts["seed"]],
                               dtype=torch.int32)
@@ -1554,6 +1822,8 @@ class DecodeEngine:
         first_tok = int(first.cpu()[0])
         if after_commit is not None:
             after_commit()
+        if self._dcache is not None:
+            self._draft_long_fill(prompt, slot_idx)
         self._register(slot_idx, req, first_tok, opts, now_ms())
 
     def _prefill_session(self, req: Request, prompt: np.ndarray, opts: Dict,
@@ -1567,7 +1837,7 @@ class DecodeEngine:
         last, row = run_chunked(self._long_chunk, prompt,
                                 self.prompt_buckets[-1], row,
                                 between=self._interleave_step, base=elen)
-        self._commit_and_register(req, opts, slot_idx, row, last)
+        self._commit_and_register(req, prompt, opts, slot_idx, row, last)
 
     def _swap_in_shared(self, opts: Dict, shared_ids: List[int]) -> None:
         """Copy-on-write borrow at a mono fill: pin the shared pages, hand
@@ -1614,7 +1884,7 @@ class DecodeEngine:
                                 self.prompt_buckets[-1], row,
                                 between=self._interleave_step,
                                 base=stored_len)
-        self._commit_and_register(req, opts, slot_idx, row, last)
+        self._commit_and_register(req, prompt, opts, slot_idx, row, last)
         hold_tail = opts.pop("_hold_tail", None)
         if hold_tail:
             self._allocator.decref(hold_tail)
@@ -1844,11 +2114,15 @@ class DecodeEngine:
 
     def _grant_train_pages(self, train: _ChunkTrain) -> bool:
         """Extend the train's pages to cover its NEXT chunk's real
-        positions (a final chunk also covers the first generated token);
+        positions (a final chunk also covers the first generated token —
+        with a draft, the first verify window: :func:`spec_scratch_pages`);
         cache pins are shed first; False when the pool still cannot (the
         train parks: live streams are never evicted for an admission)."""
         take = min(train.C, train.total - train.pos)
-        if train.pos + take >= train.total:
+        if train.pos + take >= train.total and self._dcache is not None:
+            need = spec_scratch_pages(train.total, self.spec_tokens + 1,
+                                      self.page_size, self._paged_capacity)
+        elif train.pos + take >= train.total:
             need = pages_for(min(train.total + 1, self._paged_capacity),
                              self.page_size)
         else:
@@ -1911,6 +2185,11 @@ class DecodeEngine:
                 # Publish before registration: a stop on the first token
                 # frees the slot's pages, and the insert pins them first.
                 self.paged_prefix.insert(t.prompt, t.opts["_pages"])
+            if self._dcache is not None:
+                # The draft has no pages-direct path (its cache is a
+                # slab): the whole prompt replays through its chunk
+                # program so speculation starts in step.
+                self._draft_long_fill(t.prompt, t.slot_idx)
             self._register(t.slot_idx, t.req, int(first_host[i]), t.opts,
                            t_done)
 
@@ -1930,8 +2209,8 @@ class DecodeEngine:
         PREFILL_CHUNKS.inc(tags={"model": self.model.name})
         if train.pos >= train.total:
             self._retire_train(train)
-            self._commit_and_register(train.req, train.opts, train.slot_idx,
-                                      train.row, train.last)
+            self._commit_and_register(train.req, train.prompt, train.opts,
+                                      train.slot_idx, train.row, train.last)
 
     def _retire_train(self, train: _ChunkTrain) -> None:
         if train in self._trains:
@@ -1969,12 +2248,18 @@ class DecodeEngine:
     def _alloc_admission_pages(self, req: Request, prompt: np.ndarray,
                                opts: Dict) -> bool:
         """Reserve a monolithic admission's pages (prompt + the first
-        generated token, minus the session pages the borrow will cover);
-        under pressure cache pins are shed first. Page-starved, the
-        request goes back to the queue untouched (False) and any session
-        hold is released."""
-        need = max(0, pages_for(int(prompt.size) + 1, self.page_size)
-                   - int(opts.get("_session_share", 0)))
+        generated token — with a draft, the first verify window, whose
+        row 0 is that token: :func:`spec_scratch_pages` — minus the
+        session pages the borrow will cover); under pressure cache pins
+        are shed first. Page-starved, the request goes back to the queue
+        untouched (False) and any session hold is released."""
+        if self._dcache is not None:
+            need_pages = spec_scratch_pages(
+                int(prompt.size), self.spec_tokens + 1, self.page_size,
+                self._paged_capacity)
+        else:
+            need_pages = pages_for(int(prompt.size) + 1, self.page_size)
+        need = max(0, need_pages - int(opts.get("_session_share", 0)))
         while True:
             try:
                 opts["_pages"] = self._allocator.alloc(need)
@@ -2378,7 +2663,8 @@ class DecodeEngine:
             )
         return self._sampling_dev
 
-    def _record_turn_span(self, horizon: int, active_mask) -> None:
+    def _record_turn_span(self, horizon: int, active_mask,
+                          spec: bool = False) -> None:
         """One retroactive span per decode scan (dispatch -> host fetch),
         linked to every sequence that was active in it: continuous
         batching's fan-in, the decode analogue of the batch-execution
@@ -2397,10 +2683,178 @@ class DecodeEngine:
             lane=self.model.name,
             horizon=int(horizon),
             active=int(active_mask.sum()),
-            spec=False,
+            spec=spec,
         )
 
+    def _use_spec(self) -> bool:
+        """Speculative rounds serve all-greedy batches only: a sampled row
+        would need rejection sampling to stay exact, and penalties need
+        the plain path's per-step counts (negative ones too, so the test
+        is on magnitude) — either sends the whole batch to a plain step."""
+        active = self._active_mask
+        return (
+            self._dcache is not None
+            and bool(active.any())
+            and float(self._temps[active].max(initial=0.0)) == 0.0
+            and float(np.abs(self._pres[active]).max(initial=0.0)) == 0.0
+            and float(np.abs(self._freq[active]).max(initial=0.0)) == 0.0
+        )
+
+    # --- paged spec rounds: scratch pages ---------------------------------
+    def _reserve_spec_scratch(self) -> bool:
+        """Extend each active slot's table to cover this round's window
+        ``[len, len + k + 1)`` with SCRATCH pages from the shared pool
+        (:func:`spec_scratch_pages`, the admission headroom rule applied
+        per round). The table names them, so the verify writes through
+        them, but the slot does not own them yet: the round's outcome
+        splices the accepted prefix's pages into ``slot.pages`` and frees
+        the rejected tail (:meth:`_splice_spec_pages`). Under pool
+        pressure cache pins are shed first; if the pool still cannot host
+        a window, every page taken for this round goes back and the
+        caller makes the round one plain paged step (False)."""
+        win = self.spec_tokens + 1
+        for i in np.flatnonzero(self._active_mask):
+            slot = self._slots[i]
+            if slot.free:
+                continue
+            need = spec_scratch_pages(int(self._len_host[i]), win,
+                                      self.page_size, self._paged_capacity)
+            delta = need - len(slot.pages)
+            if delta <= 0:
+                continue  # the partial page's headroom covers the window
+            while not self._allocator.can_alloc(delta):
+                if not self._reclaim_cache_pins():
+                    break
+            if not self._allocator.can_alloc(delta):
+                self._rollback_spec_scratch()
+                return False
+            pids = self._allocator.alloc(delta)
+            n0 = len(slot.pages)
+            self._spec_scratch[int(i)] = (n0, pids)
+            self._table_host[i, n0:n0 + delta] = pids
+            self._table_dirty = True
+        return True
+
+    def _rollback_spec_scratch(self) -> None:
+        """Give back every scratch page of an unresolved round (an aborted
+        reserve, or a round whose dispatch raised). The table row is
+        REBUILT from the slot's owned pages rather than sentinel-stamped
+        over the recorded span: by now the row may have been rewritten (a
+        plain step's headroom growth, a finish and a new tenant), and
+        sentinels there would drop a live occupant's writes. The scratch
+        pages themselves are held by the round alone (refcount 1, never
+        in ``slot.pages``), so the decref is always right."""
+        for i, (_n0, pids) in self._spec_scratch.items():
+            self._table_host[i] = table_array(
+                self._slots[i].pages, self._n_table_entries, self.num_pages)
+            self._table_dirty = True
+            self._allocator.decref(pids)
+        self._spec_scratch.clear()
+
+    def _splice_spec_pages(self, lengths_host: np.ndarray) -> None:
+        """Resolve the round's scratch pages from the verified lengths:
+        the pages the ACCEPTED length covers commit by table splice — into
+        ``slot.pages``, no k/v copied (the table already names them and
+        the accepted tokens' k/v landed there) — and the rejected tail
+        frees back to the pool, its table entries reset to the sentinel.
+        Each is a journal event (``spec_commit`` / ``spec_reject``). Runs
+        before the harvest, so a finishing slot frees exactly the pages it
+        owns; the dict is drained first, so no later rollback can decref
+        the same pages twice."""
+        items = list(self._spec_scratch.items())
+        self._spec_scratch.clear()
+        for i, (n0, pids) in items:
+            slot = self._slots[i]
+            covered = pages_for(int(lengths_host[i]), self.page_size)
+            commit_n = max(0, min(covered - n0, len(pids)))
+            committed, rejected = pids[:commit_n], pids[commit_n:]
+            if committed:
+                slot.pages.extend(committed)
+                self._page_journal.record(
+                    "spec_commit", len(committed),
+                    self._allocator.allocated_pages, slot=int(i))
+            if rejected:
+                self._table_host[i, n0 + commit_n:n0 + len(pids)] = \
+                    self.num_pages
+                self._table_dirty = True
+                self._allocator.decref(rejected)
+                self._page_journal.record(
+                    "spec_reject", len(rejected),
+                    self._allocator.allocated_pages, slot=int(i))
+
+    def spec_acceptance(self) -> Optional[float]:
+        """Rolling draft-token acceptance rate (accepted / drafted over the
+        bounded window of rounds), or None before the first round."""
+        if not self._spec_acc_window:
+            return None
+        acc = sum(a for a, _ in self._spec_acc_window)
+        drafted = sum(d for _, d in self._spec_acc_window)
+        return acc / drafted if drafted else None
+
+    def _spec_step(self) -> None:
+        """One speculative round (:meth:`_spec_impl`): on the paged pool
+        its scratch pages are reserved first — a pool too tight for them
+        makes it one plain paged step — and resolved before the harvest;
+        every round books drafted = accepted + rejected."""
+        k = self.spec_tokens
+        if self.paged:
+            if self._spec_scratch:
+                # A round that raised between reserve and splice.
+                self._rollback_spec_scratch()
+            if not self._reserve_spec_scratch():
+                self.spec_pool_fallbacks += 1
+                return self._step(horizon=1)
+        active = self._active_mask.copy()
+        try:
+            # From here to the fetch the scratch is armed but unresolved:
+            # any failure rolls it back now (a sampled row may keep every
+            # later batch plain, and nothing else would return it).
+            if self.paged:
+                self._refresh_table()
+            _f, _i, bias_ids, bias_vals = self._sampling_arrays()
+            self._scan_start_ms = now_ms()
+            packed = self._spec_fn(
+                torch.from_numpy(np.stack([self._tokens[:, 0],
+                                           active.astype(np.int32)])),
+                bias_ids, bias_vals)
+            ph = packed.cpu().numpy()       # ONE fetch per round
+        except BaseException:
+            if self.paged:
+                self._rollback_spec_scratch()
+            raise
+        self._scan_end_ms = now_ms()
+        if _tracer().enabled:
+            self._record_turn_span(k, active, spec=True)
+        out, n_out, lengths = ph[: k + 1], ph[k + 1], ph[k + 2]
+        if self.paged:
+            # Accepted prefixes splice, rejected tails free, before the
+            # harvest can finish (and free) any slot.
+            self._splice_spec_pages(lengths)
+        self.steps += 1
+        self.spec_rounds += 1
+        DECODE_STEPS.inc(tags={"model": self.model.name})
+        tags = {"model": self.model.name,
+                "paged": "true" if self.paged else "false"}
+        SPEC_ROUNDS.inc(tags=tags)
+        live = np.asarray([not slot.free and active[i] and n_out[i] > 0
+                           for i, slot in enumerate(self._slots)])
+        drafted = k * int(active.sum())
+        accepted = int((n_out[live] - 1).sum()) if live.any() else 0
+        if drafted:
+            SPEC_DRAFTED.inc(drafted, tags=tags)
+            SPEC_REJECTED.inc(drafted - accepted, tags=tags)
+            self._spec_acc_window.append((accepted, drafted))
+            SPEC_ACCEPTANCE.set(self.spec_acceptance(), tags=tags)
+        if accepted:
+            SPEC_ACCEPTED.inc(accepted, tags=tags)
+        # The plain harvest with advanced = (j < n_out): a short row is a
+        # rejected draft, not a full cache.
+        self._harvest(out, np.arange(k + 1)[:, None] < n_out[None, :],
+                      lengths, k + 1, blocked_finishes_capacity=False)
+
     def _step(self, horizon: Optional[int] = None) -> None:
+        if horizon is None and self._use_spec():
+            return self._spec_step()
         h = horizon if horizon is not None else self._pick_horizon()
         if self.paged:
             # Pages for every position this dispatch can write, granted
@@ -2413,6 +2867,7 @@ class DecodeEngine:
             dtype=np.int32,
         )
         active = self._active_mask.copy()
+        prev_tokens = self._tokens.copy()   # the draft catch-up's head
         samp_f, samp_i, bias_ids, bias_vals = self._sampling_arrays()
         self._scan_start_ms = now_ms()
         packed = self._decode_fn(
@@ -2429,16 +2884,31 @@ class DecodeEngine:
             self._record_turn_span(h, active)
         self.steps += h
         DECODE_STEPS.inc(h, tags={"model": self.model.name})
-        self._harvest(packed_host[:h], packed_host[h: 2 * h].astype(bool),
-                      packed_host[2 * h], h)
+        toks, advanced = packed_host[:h], packed_host[h: 2 * h].astype(bool)
+        if self._dcache is not None:
+            # Keep the draft in step through plain intervals (a sampled
+            # row, the steps between chunks), or speculation resumes from
+            # a stale draft context: the tokens whose k/v landed at
+            # [len, len + h) are [pending, emitted[:-1]].
+            window = np.concatenate([prev_tokens, toks[: h - 1].T], axis=1)
+            self._draft_catchup_fn(
+                torch.from_numpy(np.ascontiguousarray(window)),
+                torch.from_numpy(active),
+                torch.from_numpy(advanced.sum(axis=0).astype(np.int32)))
+            self.draft_catchups += 1
+        self._harvest(toks, advanced, packed_host[2 * h], h)
 
     def _harvest(self, toks_host, advanced_host, lengths_host,
-                 h: int) -> None:
+                 h: int, blocked_finishes_capacity: bool = True) -> None:
         """Distribute a scan's [h, B] outputs to their slots: a
         non-advanced substep finishes "capacity", a stop token is accepted
         then finishes "eos", the max_new bound accepts its last token then
         finishes "length" (eos beats length beats capacity at equal
-        counts)."""
+        counts). A speculative round passes advanced = (j < n_out) and
+        ``blocked_finishes_capacity=False``: there a short row is a
+        rejected draft, and only a row with no room even for the target's
+        own token (n_out == 0) finishes "capacity", besides the trailing
+        max_len check."""
         active_idx = [i for i, slot in enumerate(self._slots)
                       if not slot.free and self._active_mask[i]]
         if not active_idx:
@@ -2481,7 +2951,9 @@ class DecodeEngine:
                 self._finish(i, "eos")
             elif len_take[c] == accepted[c]:
                 self._finish(i, "length")
-            elif cap_at[c] == accepted[c] and cap_at[c] < h:
+            elif cap_at[c] == accepted[c] and (
+                    cap_at[c] < h if blocked_finishes_capacity
+                    else cap_at[c] == 0):
                 self._finish(i, "capacity")
             elif lengths_host[i] >= self.max_len:
                 self._finish(i, "capacity")
@@ -2865,14 +3337,20 @@ class DecodeEngine:
 
     def release_buffers(self) -> None:
         """Drop the engine's device footprint (the cache with its scale
-        planes, the counts, the captured programs with their memory pool
-        and the merge scratch they hold). Call only after the loop has
-        stopped; the engine is unusable afterwards."""
+        planes, the draft's cache and programs, the counts, the captured
+        programs with their memory pool and the merge scratch they hold).
+        Call only after the loop has stopped; the engine is unusable
+        afterwards."""
         self._graphs.release()
         self._workspace = None
         self._cache = None
         self._counts = None
         self._sampling_dev = None
+        self._dcache = None
+        if self.draft_model is not None:
+            self._spec_fn = self._draft_catchup_fn = None
+            self._draft_prefill_fn = None
+            self._draft_long_chunk_fn = self._draft_long_commit_fn = None
         if self.prefix_cache is not None:
             self.prefix_cache.clear()    # device k/v entries freed
         if self.session_cache is not None:
@@ -2954,8 +3432,8 @@ class DecodeEngine:
         so a consumer can tell a quiet pool from a ring that wrapped).
         The journal feeds ``utils/trace_export.to_chrome_trace(spans,
         journal=...)`` for a lane time-aligned with the decode-turn
-        spans; ``fabric`` counts the parcels moved. The reference's
-        ``spec`` block comes with speculative decoding."""
+        spans; ``fabric`` counts the parcels moved; ``spec`` (with a draft)
+        the window and the rolling acceptance."""
         out: Dict[str, Any] = {
             "model": self.model.name,
             "paged": self.paged,
@@ -2984,6 +3462,12 @@ class DecodeEngine:
                 "migrated_in": self.migrated_in,
                 "pushes_out": self.pushes_out,
                 "pushes_in": self.pushes_in,
+            }
+        if self.draft_model is not None:
+            out["spec"] = {
+                "spec_tokens": self.spec_tokens,
+                "acceptance": self.spec_acceptance(),
+                "rounds_windowed": len(self._spec_acc_window),
             }
         return out
 

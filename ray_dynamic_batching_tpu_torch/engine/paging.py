@@ -2,7 +2,8 @@
 copy-on-write stores, host side.
 
 Port of ``ray_dynamic_batching_tpu/engine/paging.py`` plus ``pages_for``
-from ``ops/tile_math.py``. The DEVICE half is the page pool of
+and ``spec_scratch_pages`` from ``ops/tile_math.py`` (own copies: the
+port imports nothing of the JAX package). The DEVICE half is the page pool of
 ``models/decoder.py::PagedKVCache`` (k/v ``[L, P + 1, ps, K, H]``)
 gathered through per-slot page tables; this module owns which pages
 belong to whom:
@@ -44,6 +45,18 @@ def pages_for(length: int, page_size: int) -> int:
     if length <= 0:
         return 0
     return -(-int(length) // int(page_size))
+
+
+def spec_scratch_pages(length: int, spec_window: int,
+                       page_size: int, capacity: int) -> int:
+    """Pages a speculative verify round needs a slot's table to cover: the
+    round writes the ``spec_window`` (= spec_tokens + 1) positions
+    ``[length, length + spec_window)``, clamped to the slot's logical
+    ``capacity``. The one rule of the engine's per-round scratch
+    reservation and of its admission headroom, so the two never disagree
+    about a round's page demand."""
+    return pages_for(min(int(length) + int(spec_window), int(capacity)),
+                     page_size)
 
 
 def digest_chain(prompt: np.ndarray, page_size: int,

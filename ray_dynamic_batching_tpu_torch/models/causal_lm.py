@@ -3,10 +3,11 @@
 Port of ``ray_dynamic_batching_tpu/models/causal_lm.py``: the slab arm
 (``make_cache``, ``prefill``, ``prefill_chunk``, ``decode_step``), the
 paged arm (``make_paged_cache``, ``prefill_chunk_paged``,
-``decode_step_paged``), the int8 KV cache (``kv_dtype=torch.int8``,
-``kv_bytes_per_slot``), the configs ``LLAMA3_8B``, ``GPT2_MEDIUM`` and
-``TINY_LM``, and their registry entries (``llama_tiny_int8kv`` among
-them). The model
+``decode_step_paged``), the speculative verify on both
+(``verify_step``, ``verify_step_paged``), the int8 KV cache
+(``kv_dtype=torch.int8``, ``kv_bytes_per_slot``), the configs
+``LLAMA3_8B``, ``GPT2_MEDIUM``, ``GPT2_DRAFT`` and ``TINY_LM``, and their
+registry entries (``gpt2_draft`` and ``llama_tiny_int8kv`` among them). The model
 owns its weights on an explicit device; :meth:`CausalLM.init_random`
 fills them from a seed on that device (no download), and
 ``models/convert.py`` maps the JAX package's params onto them.
@@ -154,6 +155,34 @@ class CausalLM(ServableModel):
         cache.lengths.add_(active.to(torch.int32))
         return logits[:, 0], cache
 
+    @staticmethod
+    def _window_positions(tokens: torch.Tensor, lengths: torch.Tensor,
+                          active: torch.Tensor, capacity: int):
+        """Row b's window positions ``lengths[b] + [0, T)`` [B, T], with
+        inactive rows and positions past ``capacity`` steered to it (their
+        writes drop, their logits are never used)."""
+        T = tokens.shape[1]
+        positions = lengths[:, None] + torch.arange(T, device=tokens.device)
+        keep = active[:, None] & (positions < capacity)
+        return torch.where(keep, positions,
+                           torch.full_like(positions, capacity))
+
+    def verify_step(self, tokens: torch.Tensor, cache: KVCache,
+                    active: torch.Tensor) -> Tuple[torch.Tensor, KVCache]:
+        """Score a T-token window per row in ONE forward (the speculative
+        verify): row b's window [pending token, proposals] starts at its
+        own ``lengths[b]``, its k/v written per row at those positions
+        (past capacity dropped into the sink row), and logits[b, j]
+        [B, T, V] score the token AFTER window position j. ``lengths``
+        are not advanced: the caller accepts a per-row prefix and sets
+        them. Inactive rows are steered to capacity."""
+        S = cache.capacity
+        positions = self._window_positions(tokens, cache.lengths, active, S)
+        mask = (torch.arange(S, device=tokens.device)[None, None, None, :]
+                <= positions[:, None, :, None])
+        logits = self.module(tokens, positions, mask, cache,
+                             scatter_writes=True)
+        return logits, cache
 
     def make_paged_cache(self, batch_size: int, num_pages: int,
                          page_size: int, max_len: int) -> PagedKVCache:
@@ -207,6 +236,21 @@ class CausalLM(ServableModel):
         cache.lengths.add_(active.to(torch.int32))
         return logits[:, 0], cache
 
+    def verify_step_paged(self, tokens: torch.Tensor, cache: PagedKVCache,
+                          active: torch.Tensor
+                          ) -> Tuple[torch.Tensor, PagedKVCache]:
+        """:meth:`verify_step` over the paged pool: row b's window is
+        written through the page table into the round's scratch pages
+        (steered rows land in the sink page), and attention reads the
+        staircase window (row t attends positions <= lengths + t).
+        ``lengths`` are not advanced."""
+        positions = self._window_positions(tokens, cache.lengths, active,
+                                           cache.capacity)
+        logits = self.module(tokens, positions, None, cache,
+                             page_table=cache.page_table,
+                             kv_lengths=cache.lengths)
+        return logits, cache
+
     def kv_bytes_per_slot(self, max_len: Optional[int] = None) -> int:
         """Bytes of k and v for one slot of ``max_len`` positions (an int8
         cache adds one f32 scale per cached (token, head) row)."""
@@ -249,6 +293,24 @@ LLAMA3_8B = DecoderConfig(
     rope_theta=500000.0,
 )
 
+# Draft companion for gpt2_medium (the reference's speculative pair):
+# the same vocab and position style, so its proposals index the target's
+# logit space, at about 1/40 of the FLOPs.
+GPT2_DRAFT = DecoderConfig(
+    vocab_size=50257,
+    d_model=256,
+    num_layers=4,
+    num_heads=4,
+    num_kv_heads=4,
+    mlp_dim=1024,
+    max_seq_len=1024,
+    pos="learned",
+    norm="ln",
+    gated_mlp=False,
+    use_bias=True,
+    tie_embeddings=True,
+)
+
 TINY_LM = DecoderConfig(
     vocab_size=512,
     d_model=64,
@@ -268,6 +330,11 @@ def _gpt2_medium(**kwargs) -> CausalLM:
 @register_model("llama3_8b", slo=ModelSLO(latency_slo_ms=150.0))
 def _llama3_8b(**kwargs) -> CausalLM:
     return CausalLM(LLAMA3_8B, name="llama3_8b", **kwargs)
+
+
+@register_model("gpt2_draft")
+def _gpt2_draft(**kwargs) -> CausalLM:
+    return CausalLM(GPT2_DRAFT, name="gpt2_draft", **kwargs)
 
 
 @register_model("llama_tiny")

@@ -25,7 +25,10 @@ of ``P`` would be out of bounds in torch, and clamping a dropped write
 onto a real page could race another slot's write to the same cell), and
 no read ever names it. With ``kv_dtype=int8`` both caches hold int8 codes
 plus one f32 scale per cached (token, head) row, quantized at every write
-(:func:`quantize_kv_rows`). MoE is a later slice.
+(:func:`quantize_kv_rows`). The slab cache's planes keep one sink row
+per layer past their last position, where the speculative verify's
+per-row window writes drop what falls past capacity
+(:func:`window_write_index`). MoE is a later slice.
 """
 
 from __future__ import annotations
@@ -62,20 +65,50 @@ class DecoderConfig:
         return self.d_model // self.num_heads
 
 
-def _scale_planes(shape, dtype, device):
-    """(k_scale, v_scale) f32 zeros of ``shape[:-1]`` for an int8 cache,
-    else (None, None)."""
+def _scale_planes(shape, dtype, device, alloc=torch.zeros):
+    """(k_scale, v_scale) f32 zeros of ``shape[:-1]`` for an int8 cache
+    (made by ``alloc``), else (None, None)."""
     if dtype != torch.int8:
         return None, None
-    return (torch.zeros(shape[:-1], dtype=torch.float32, device=device),
-            torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+    return (alloc(shape[:-1], dtype=torch.float32, device=device),
+            alloc(shape[:-1], dtype=torch.float32, device=device))
+
+
+def _slab_plane(shape, dtype, device) -> torch.Tensor:
+    """A zeroed slab plane ``[L, B, S, ...]`` whose every layer is
+    followed in memory by one SINK row (``[...]``, one position's worth):
+    each layer's ``[B, S, ...]`` is contiguous, and :func:`sink_rows`
+    views it as ``B * S + 1`` rows, the last of which a window write
+    steers its dropped positions to (the reference's ``mode="drop"``;
+    nothing reads the sink)."""
+    L, B, S = shape[:3]
+    rest = tuple(shape[3:])
+    store = torch.zeros((L, B * S + 1) + rest, dtype=dtype, device=device)
+    return store[:, :B * S].view((L, B, S) + rest)
+
+
+def sink_rows(full: torch.Tensor) -> torch.Tensor:
+    """One layer of a slab plane (``full`` [B, S, ...], made by
+    :func:`_slab_plane`) as ``B * S + 1`` rows: row ``b * S + p`` is
+    position p of slot b, row ``B * S`` the layer's sink."""
+    B, S = full.shape[:2]
+    row = full[0, 0].numel()
+    end = (full.storage_offset() + (B * S + 1) * row) * full.element_size()
+    if not full.is_contiguous() or end > full.untyped_storage().nbytes():
+        raise ValueError("window write into a slab plane without a sink row")
+    return full.as_strided((B * S + 1,) + tuple(full.shape[2:]),
+                           (row,) + tuple(full.stride()[2:]),
+                           full.storage_offset())
 
 
 @dataclass
 class KVCache:
     """Slab cache: k/v [L, B, S, K, H]; lengths [B] int32 = valid prefix.
     An int8 cache holds codes in k/v and one f32 scale per cached
-    (token, head) row in ``k_scale``/``v_scale`` [L, B, S, K]."""
+    (token, head) row in ``k_scale``/``v_scale`` [L, B, S, K]. Each
+    plane's layers carry one sink row past their last position
+    (:func:`sink_rows`), where a window write drops what falls past
+    capacity."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -91,10 +124,11 @@ class KVCache:
         S = max_len or cfg.max_seq_len
         shape = (cfg.num_layers, batch_size, S, cfg.num_kv_heads,
                  cfg.head_dim)
-        k_scale, v_scale = _scale_planes(shape, dtype, device)
+        k_scale, v_scale = _scale_planes(shape, dtype, device,
+                                         alloc=_slab_plane)
         return KVCache(
-            k=torch.zeros(shape, dtype=dtype, device=device),
-            v=torch.zeros(shape, dtype=dtype, device=device),
+            k=_slab_plane(shape, dtype, device),
+            v=_slab_plane(shape, dtype, device),
             lengths=torch.zeros((batch_size,), dtype=torch.int32,
                                 device=device),
             k_scale=k_scale, v_scale=v_scale,
@@ -296,6 +330,20 @@ def write_decode_rows(full: torch.Tensor, index, new: torch.Tensor) -> None:
     full[rows, safe] = torch.where(inside, new.to(full.dtype), keep)
 
 
+def window_write_index(positions: torch.Tensor, capacity: int
+                       ) -> torch.Tensor:
+    """Rows [B, T] long into a slab layer's :func:`sink_rows` for writing
+    each row's window at its own ``positions`` [B, T] (the reference's
+    per-row ``scatter_writes``): ``b * S + p`` inside capacity, the sink
+    row ``B * S`` otherwise — dropped, as ``mode="drop"`` drops them. No
+    two kept writes share a row, and nothing reads the sink."""
+    B = positions.shape[0]
+    idx = positions.long()
+    rows = torch.arange(B, device=idx.device)[:, None] * capacity + idx
+    inside = (idx >= 0) & (idx < capacity)
+    return torch.where(inside, rows, torch.full_like(rows, B * capacity))
+
+
 def paged_write_index(positions: torch.Tensor, page_table: torch.Tensor,
                       num_pages: int, page_size: int):
     """(page, offset) [B, T] long for writing tokens at ``positions``
@@ -344,6 +392,7 @@ class DecoderLayer(nn.Module):
         page_table: Optional[torch.Tensor] = None,  # [B, NP]: paged pool
         kv_lengths: Optional[torch.Tensor] = None,  # [B] paged bound
         write_start: int = 0,  # slab prefill: position of the chunk's row 0
+        scatter_writes: bool = False,  # slab: per-row windows (verify)
     ) -> torch.Tensor:
         cfg = self.cfg
         B, T, _ = x.shape
@@ -388,7 +437,13 @@ class DecoderLayer(nn.Module):
             # In-place writes into the stacked [L, B, S, K, ...] cache (the
             # reference donates the buffer and XLA updates it in place).
             for full, new in writes:
-                if T == 1:
+                if scatter_writes:
+                    # A window per row at its own positions (the
+                    # speculative verify): positions past capacity land
+                    # in the layer's sink row.
+                    rows = sink_rows(full)
+                    rows[write_index] = new.to(full.dtype)
+                elif T == 1:
                     # Decode: this token's row at its position; a full
                     # row's write at position S is dropped.
                     write_decode_rows(full, write_index, new[:, 0])
@@ -441,10 +496,14 @@ class DecoderModule(nn.Module):
         page_table: Optional[torch.Tensor] = None,  # [B, NP] (paged)
         kv_lengths: Optional[torch.Tensor] = None,  # [B] (paged)
         write_start: int = 0,   # slab prefill write offset (long-fill chunks)
+        scatter_writes: bool = False,  # slab: per-row windows at positions
     ) -> torch.Tensor:
         """Logits [B, T, V] — or [B, V] at row ``take[b]`` of each batch
         row (the head runs only on the rows the caller keeps; per-row the
-        numbers are the ones the full [B, T, V] would hold)."""
+        numbers are the ones the full [B, T, V] would hold).
+        ``scatter_writes`` writes each row's T tokens of a slab cache at
+        its own ``positions`` (positions past capacity dropped), the
+        speculative verify's window."""
         x = self.tok_embed(tokens.long())
         if self.cfg.pos == "learned":
             # A row steered past capacity (its write dropped, its output
@@ -464,12 +523,15 @@ class DecoderModule(nn.Module):
         if cache is not None and page_table is not None:
             write_index = paged_write_index(positions, page_table,
                                             cache.num_pages, cache.page_size)
+        elif cache is not None and scatter_writes:
+            write_index = window_write_index(positions, cache.capacity)
         elif cache is not None and tokens.shape[1] == 1:
             write_index = decode_write_index(positions[:, 0], cache.capacity)
         for i, layer in enumerate(self.layers):
             x = layer(x, positions, mask, cache, layer_idx=i, rope=rope,
                       write_index=write_index, page_table=page_table,
-                      kv_lengths=kv_lengths, write_start=write_start)
+                      kv_lengths=kv_lengths, write_start=write_start,
+                      scatter_writes=scatter_writes)
         x = self.final_norm(x)
         if take is not None:
             x = x[torch.arange(x.shape[0], device=x.device), take.long()]

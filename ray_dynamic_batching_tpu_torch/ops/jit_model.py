@@ -12,8 +12,9 @@ first seen after warmup raises: ``ops/graphs.py``).
 
 The 18 entries keep the reference's ``name``, ``impl``, ``arm``,
 ``donated``, ``grid`` and warmed/lazy split; ``attr`` names the port's
-engine attribute ("" where the program's feature — speculative decoding —
-is not ported yet).
+engine attribute. ``impl`` names the engine method a program runs, or,
+for the draft's long-fill pair, the module-level function of
+``engine/decode.py`` bound to the draft (``chunk_impl``, ``commit_row``).
 The port changes three things:
 
 - ``donated`` names the state a program updates IN PLACE. A CUDA graph
@@ -26,8 +27,7 @@ The port changes three things:
   ``any_penalty``). The reference's ``donate``/``static`` argnums are
   ``jax.jit`` arguments and have no counterpart here.
 - ``eager_reason`` says why the port captures nothing for a program
-  (a graph would bake in state that is not at a fixed address, or the
-  program is not ported). An eager program still records its first
+  (a graph would bake in state that is not at a fixed address). An eager program still records its first
   call of each key in the ledger, so warmup coverage is judged the same
   way for every program.
 
@@ -54,7 +54,6 @@ _ROW_CACHE = (
     "chunk's start and take row are host ints, so a graph would bake in "
     "one train's row cache and one chunk position"
 )
-_SPEC = "not ported: speculative decoding is ROADMAP queue 1 item 5b"
 _REUSE = (
     "a row-cache copy: it reads or writes the per-fill row cache (see "
     "long_chunk); warmed by _warmup_reuse when its cache is on, so its one "
@@ -141,24 +140,24 @@ HOT_PROGRAMS: Tuple[JitProgram, ...] = (
     ),
     JitProgram(
         name="spec_verify",
-        attr="", impl="_spec_impl",
+        attr="_spec_fn", impl="_spec_impl",
         donated=("cache", "draft cache"),
         grid="one shape: (num_slots x spec_window)",
-        warmed_by="_warmup_decode", arm=ARM_SPEC, eager_reason=_SPEC,
+        warmed_by="_warmup_decode", arm=ARM_SPEC,
     ),
     JitProgram(
         name="draft_catchup",
-        attr="", impl="_draft_catchup_impl",
+        attr="_draft_catchup_fn", impl="_draft_catchup_impl",
         donated=("draft cache",),
         grid="window h in {1, ttft_horizon, decode_horizon}",
-        warmed_by="_warmup_decode", arm=ARM_SPEC, eager_reason=_SPEC,
+        warmed_by="_warmup_decode", arm=ARM_SPEC,
     ),
     JitProgram(
         name="draft_prefill",
-        attr="", impl="_draft_prefill_impl",
+        attr="_draft_prefill_fn", impl="_draft_prefill_impl",
         donated=("draft cache",),
         grid="(bucket x group) via _admit_group_sizes",
-        warmed_by="_warmup_decode", arm=ARM_SPEC_MONO, eager_reason=_SPEC,
+        warmed_by="_warmup_decode", arm=ARM_SPEC_MONO,
     ),
     JitProgram(
         name="zero_counts",
@@ -242,21 +241,22 @@ HOT_PROGRAMS: Tuple[JitProgram, ...] = (
     ),
     JitProgram(
         name="draft_long_chunk",
-        attr="", impl="chunk_impl",
+        attr="_draft_long_chunk_fn", impl="chunk_impl",
         donated=("draft row cache",),
         grid="chunk = largest bucket",
         lazy_reason="spec engines see long prompts rarely; the draft's "
         "chunk program compiles once at the first long admission and "
         "the chunk-stall bound already prices that turn",
-        arm=ARM_SPEC, eager_reason=_SPEC,
+        arm=ARM_SPEC, eager_reason=_ROW_CACHE,
     ),
     JitProgram(
         name="draft_long_commit",
-        attr="", impl="commit_row",
+        attr="_draft_long_commit_fn", impl="commit_row",
         donated=("draft cache",),
         grid="chunk = largest bucket",
         lazy_reason="paired with draft_long_chunk — same cold path",
-        arm=ARM_SPEC, eager_reason=_SPEC,
+        arm=ARM_SPEC,
+        eager_reason="reads the per-fill draft row cache (see long_chunk)",
     ),
 )
 

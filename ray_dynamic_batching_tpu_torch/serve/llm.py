@@ -31,9 +31,12 @@ a ``DeploymentConfig`` and the devices of the replica's placement bundle
 ``prefix_cache_size``, ``session_cache_size`` and ``host_spill_pages``
 (``DecodeEngine``), and the replica exposes the prefix digests and the
 page-fabric surface (live migration, prefix push) the controller's
-courier drives. The reference's speculative drafts, checkpoints and
-weight quantisation come later; the draft term of
-:meth:`LLMDeployment.auto_num_slots` is zero until then.
+courier drives. Speculative decoding comes through ``draft_model_name``
+(a registry model built beside the target from its own seed, 1) or a
+built ``draft_model`` module (the target module itself for a
+self-draft, sharing its weights), with ``spec_tokens``; every
+length-bucket engine gets the draft. The reference's checkpoints and
+weight quantisation come later.
 
 Payload contract (as the reference)::
 
@@ -352,7 +355,9 @@ class LLMDeployment:
     model there if none exists yet. Without an injected ``model`` the weights
     are random, drawn on the device from ``seed``. ``quantize_kv=True``
     builds the model with ``kv_dtype=torch.int8``; an injected model must
-    already have it.
+    already have it. ``draft_model_name`` builds a draft beside the model
+    (on its device, seed 1, the model dtype, its own KV dtype);
+    ``draft_model`` injects one (the model itself for a self-draft).
 
     ``num_slots <= 0`` means "size me" (:meth:`build_engine`): the
     memory budget is the config's ``hbm_budget_bytes``, which on a card
@@ -388,6 +393,9 @@ class LLMDeployment:
         profiles_dir: Optional[str] = None,
         token_slo_ms: Optional[float] = None,
         ttft_slo_ms: Optional[float] = None,
+        draft_model_name: Optional[str] = None,
+        draft_model: Any = None,
+        spec_tokens: int = 4,
     ) -> None:
         self.model_name = model_name
         self.num_slots = num_slots
@@ -432,6 +440,12 @@ class LLMDeployment:
             dtype = named
         self._dtype = dtype
         self._model = model
+        # Speculative decoding: a smaller registry model (or an injected
+        # module, the counterpart of the reference's draft_params) drafts,
+        # the target verifies (greedy-exact; DecodeEngine._spec_impl).
+        self.draft_model_name = draft_model_name
+        self.spec_tokens = spec_tokens
+        self._draft_model = draft_model
         # Measured-table control (ref nexus.py:129-296 — profiled-latency-
         # driven planning): when ``profiles_dir`` holds
         # ``<model>_decode_summary.csv`` / ``<model>_prefill_summary.csv``
@@ -479,6 +493,16 @@ class LLMDeployment:
                     "kv_dtype=torch.int8) or pass model_name and let the "
                     "deployment build it"
                 )
+            if self.draft_model_name is not None and self._draft_model is None:
+                from ray_dynamic_batching_tpu_torch.models import registry
+
+                # The reference draws the draft's weights from PRNGKey(1):
+                # here its own generator, seed 1, on the target's device.
+                kwargs = {"device": self._model.device, "seed": 1}
+                if self._dtype is not None:
+                    kwargs["dtype"] = self._dtype
+                self._draft_model = registry.get_model(
+                    self.draft_model_name, **kwargs)
             return self._model
 
     def auto_num_slots(self, n_chips: int = 1,
@@ -499,12 +523,16 @@ class LLMDeployment:
         per_slot = float(
             model.kv_bytes_per_slot(max_len or self.max_len)
         ) / max(1, n_chips)
-        # The reference's speculative draft (its weights, and a draft KV
-        # row per slot) enters here with ROADMAP queue 1 item 5b; a zero
-        # term until then.
-        draft_weights_bytes = draft_per_slot = 0.0
-        weights_bytes += draft_weights_bytes
-        per_slot += draft_per_slot
+        draft = self._draft_model
+        if draft is not None:
+            # Speculation's residency: the draft's weights (none extra for
+            # a self-draft, which shares the target module's) and a draft
+            # KV row per slot with the window's headroom past max_len.
+            if draft is not model:
+                weights_bytes += tree_weight_bytes(draft) / max(1, n_chips)
+            per_slot += float(draft.kv_bytes_per_slot(
+                (max_len or self.max_len) + self.spec_tokens + 1
+            )) / max(1, n_chips)
         if self.session_cache_size > 0:
             # Each stored session turn pins a full KV row: the cache at
             # capacity is that many phantom slots, in EVERY length-bucket
@@ -740,6 +768,8 @@ class LLMDeployment:
             prefix_cache_size=self.prefix_cache_size,
             session_cache_size=self.session_cache_size,
             host_spill_pages=self.host_spill_pages,
+            draft_model=self._draft_model,
+            spec_tokens=self.spec_tokens,
         )
 
     # Controller protocol: factories exposing make_replica own replica

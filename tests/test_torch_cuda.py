@@ -1101,3 +1101,174 @@ def test_reload_and_import_write_the_pool_in_place(card):
     assert ptrs(b) == b_ptrs
     for e in (a, b):
         e._allocator.check()
+
+
+# --- speculative decoding: the verify window on the card -------------------
+def _draft_of(card):
+    """A second module of ``_tiny_lm``'s shape from another seed: a
+    divergent draft (partial acceptance)."""
+    import dataclasses
+
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        TINY_LM,
+        CausalLM,
+    )
+
+    return CausalLM(dataclasses.replace(TINY_LM, d_model=256),
+                    name="llama_tiny_draft", dtype=torch.float32,
+                    device=card, seed=1)
+
+
+@pytest.mark.parametrize("arm", list(_ARMS))
+def test_spec_engine_graphed_equals_eager(card, arm):
+    """A speculative engine (divergent draft, three proposals a round) on
+    each arm, its programs replayed as CUDA graphs and run eagerly:
+    identical greedy tokens (f32), the same launch counts, the verify and
+    catch-up captured, no capture after warmup, and the tokens those of
+    the same engine without a draft."""
+    kv_dtype, knobs = _ARMS[arm]
+    model = _tiny_lm(card, kv_dtype)
+    spec = dict(knobs, draft_model=_draft_of(card), spec_tokens=3)
+    eager, eager_counts, e_eng = _serve_arm(model, spec, eager=True)
+    graphed, graphed_counts, g_eng = _serve_arm(model, spec, eager=False)
+    plain, _counts, _eng = _serve_arm(model, knobs, eager=False)
+    assert graphed == eager
+    assert graphed[:6] == plain[:6]          # the greedy requests
+    assert graphed_counts == eager_counts
+    assert g_eng.spec_rounds == e_eng.spec_rounds > 0
+    stats = g_eng.capture_stats()
+    assert set(stats["graphs"]) >= {"spec_verify", "draft_catchup"}
+    assert e_eng.capture_stats()["captures"] == 0
+
+
+def test_draft_cache_keeps_its_addresses(card):
+    """The draft cache is state the captured programs read: its planes
+    and lengths keep their ``data_ptr()`` from construction through
+    warmup (which resets the draft lengths in place) and serving."""
+    from ray_dynamic_batching_tpu_torch.engine.decode import DecodeEngine
+    from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+
+    q = RequestQueue("t")
+    engine = DecodeEngine(_tiny_lm(card), q, num_slots=4, max_len=256,
+                          prompt_buckets=[16, 32], device=card, paged=True,
+                          draft_model=_draft_of(card), spec_tokens=3)
+    dc = engine._dcache
+
+    def ptrs():
+        return [t.data_ptr() for t in (dc.k, dc.v, dc.lengths)]
+
+    at_build = ptrs()
+    engine.warmup()
+    assert ptrs() == at_build and engine._dcache is dc
+    assert dc.lengths.sum().item() == 0
+    reqs = [Request(model="t", payload={"tokens": list(range(1, n)),
+                                        "max_new_tokens": 20}, slo_ms=6e4)
+            for n in (5, 40, 90)]
+    for r in reqs:
+        q.add_request(r)
+    engine.run_until_idle(timeout_s=120)
+    assert [len(r.future.result(5).tokens) for r in reqs] == [20] * 3
+    assert engine.spec_rounds > 0 and engine._dcache is dc
+    assert ptrs() == at_build
+
+
+def test_slab_window_write_past_capacity(card):
+    """A verify window from ``lengths = S - 2`` writes S - 2 and S - 1 and
+    drops three positions past capacity through the sink row (no
+    duplicate writes onto S - 1): on the card, 50 times over, the cache
+    and the logits of the landed rows equal the CPU run's, and nothing
+    below S - 2 moves."""
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import CausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _tiny_lm(card)
+    cpu = CausalLM(model.cfg, name="llama_tiny", dtype=torch.float32,
+                   device="cpu", seed=None)
+    cpu.module.load_state_dict({k: v.cpu() for k, v in
+                                model.module.state_dict().items()})
+    S, T = 32, 5
+    gen = torch.Generator().manual_seed(5)
+    for trial in range(50):
+        tokens = torch.randint(1, 512, (3, T), generator=gen,
+                               dtype=torch.int32)
+        lengths = torch.tensor([S - 2, 7, S - 1], dtype=torch.int32)
+        active = torch.tensor([True, trial % 2 == 0, True])
+        caches, logits = [], []
+        for m, dev in ((model, card), (cpu, torch.device("cpu"))):
+            c = m.make_cache(3, S)
+            with torch.inference_mode():
+                c.k.copy_(torch.randn(c.k.shape, generator=torch.Generator(
+                    ).manual_seed(trial)).to(dev))
+                c.v.copy_(-c.k)
+                c.lengths.copy_(lengths.to(dev))
+                out, c = m.verify_step(tokens.to(dev), c, active.to(dev))
+            caches.append(c)
+            logits.append(out.cpu())
+        torch.cuda.synchronize()
+        g, h = caches
+        for a, b in ((g.k, h.k), (g.v, h.v)):
+            assert (a.cpu() - b).abs().max().item() <= 1e-4
+        assert torch.equal(g.k[:, 0, : S - 2].cpu(), h.k[:, 0, : S - 2])
+        assert (logits[0][0, :2] - logits[1][0, :2]).abs().max() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,N,K,H", [
+    (16, 512, 32, 8, 128),   # llama3_8b: 20 window rows a KV head
+    (64, 256, 16, 16, 64),   # gpt2_medium: 5
+])
+def test_decode_kernel_at_the_verify_window(card, dtype, B, S, N, K, H):
+    """Kernel 2 at the slab verify's shape (Tq = 5, the staircase mask
+    ``pos <= lengths + t``, lengths up to S - 5) against its plain
+    version."""
+    gen = torch.Generator(device=card).manual_seed(B + S)
+    q = _rand(gen, (B, 5, N, H), dtype, card)
+    k = _rand(gen, (B, S, K, H), dtype, card)
+    v = _rand(gen, (B, S, K, H), dtype, card)
+    lengths = torch.randint(40, S - 5 + 1, (B,), generator=gen, device=card)
+    mask = _slab_window(lengths, 5, S, card)
+    before = dec.launches
+    out = dec.decode_attention(q, k, v, mask=mask)
+    torch.cuda.synchronize()
+    assert dec.launches == before + 1
+    ref = dec.decode_attention_plain(q, k, v, fl.keep_mask(mask, B, 5, S))
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_at_the_verify_window(card, dtype, int8):
+    """Kernel 3 at the paged verify's shape: q [16, 5, 32, 128] over a
+    64-page pool of 128-token pages, each slot's table ending in a
+    scratch page that its window alone reaches (lengths just below a
+    page boundary), against its plain version."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    B, P, ps, NP = 16, 64, 128, 4
+    q = _rand(gen, (B, 5, 32, 128), dtype, card)
+    if int8:
+        k, ks = _int8(gen, (P, ps, 8, 128), card)
+        v, vs = _int8(gen, (P, ps, 8, 128), card)
+    else:
+        k = _rand(gen, (P, ps, 8, 128), dtype, card)
+        v = _rand(gen, (P, ps, 8, 128), dtype, card)
+        ks = vs = None
+    pages = torch.randint(1, NP, (B,), generator=gen, device=card)
+    lengths = (pages * ps - torch.randint(1, 5, (B,), generator=gen,
+                                          device=card)).to(torch.int32)
+    perm = torch.randperm(P, generator=gen, device=card).to(torch.int32)
+    table = torch.full((B, NP), P, dtype=torch.int32, device=card)
+    used = 0
+    for b in range(B):
+        n = int(pages[b]) + 1               # the owned run + one scratch
+        table[b, :n] = perm[used: used + n]
+        used += n
+    launched = dec.paged_int8_launches if int8 else dec.paged_launches
+    out = dec.paged_decode_attention(q, k, v, table, lengths, k_scale=ks,
+                                     v_scale=vs)
+    torch.cuda.synchronize()
+    after = dec.paged_int8_launches if int8 else dec.paged_launches
+    assert after == launched + 1
+    ref = dec.paged_decode_attention_plain(q, k, v, table, lengths,
+                                           k_scale=ks, v_scale=vs)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]

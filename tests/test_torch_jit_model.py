@@ -74,21 +74,44 @@ def test_required_for_agrees_with_the_reference(chunked, paged, has_draft):
 
 
 def test_port_entries_name_real_engine_programs():
-    """Every entry with a port attribute names an impl of the port's
-    engine whose parameters include its static names; the others are
-    features not ported yet, and say so. The captured set is the five
-    programs whose state is at fixed addresses."""
+    """Every entry names the port's engine attribute holding it and the
+    impl it runs — an engine method or, for the draft's long-fill pair, a
+    function of ``engine/decode.py`` that the engine binds to the draft —
+    whose parameters include its static names; a program the port runs
+    eagerly says why. The captured set is the eight programs whose state
+    is at fixed addresses, the three speculative ones among them, and a
+    spec engine holds every entry's attribute."""
     import inspect
 
+    from ray_dynamic_batching_tpu_torch.engine import decode as t_decode
+
+    spec_arms = (t_reg.ARM_SPEC, t_reg.ARM_SPEC_MONO)
     for p in t_reg.HOT_PROGRAMS:
-        if not p.attr:
-            assert p.eager_reason.startswith("not ported"), p.name
-            continue
-        params = inspect.signature(getattr(DecodeEngine, p.impl)).parameters
+        assert p.attr, p.name
+        impl = getattr(DecodeEngine, p.impl, None) or getattr(t_decode,
+                                                              p.impl)
+        params = inspect.signature(impl).parameters
         assert set(p.static) <= set(params), p.name
+        assert p.captured or p.eager_reason, p.name
+        assert not p.eager_reason.startswith("not ported"), p.name
     assert {p.name for p in t_reg.HOT_PROGRAMS if p.captured} == {
         "decode_step", "chunk_prefill", "prefill_group",
-        "prefill_group_paged", "zero_counts"}
+        "prefill_group_paged", "zero_counts", "spec_verify",
+        "draft_catchup", "draft_prefill"}
+    assert {p.name for p in t_reg.HOT_PROGRAMS if p.arm in spec_arms} == {
+        "spec_verify", "draft_catchup", "draft_prefill", "draft_long_chunk",
+        "draft_long_commit"}
+    tm = t_lm.CausalLM(t_lm.TINY_LM, name="llama_tiny", dtype=torch.float32,
+                       device="cpu", seed=0)
+    for knobs in (dict(chunked_prefill=False), PAGED):
+        engine = DecodeEngine(tm, RequestQueue("t", max_len=16),
+                              device="cpu", draft_model=tm,
+                              **{**BASE, **knobs})
+        for p in t_reg.HOT_PROGRAMS:
+            # The slab/paged pairs share one attribute.
+            names = {f"ledger[{q.name}]" for q in t_reg.HOT_PROGRAMS
+                     if q.attr == p.attr}
+            assert getattr(engine, p.attr).__name__ in names, p.name
     with pytest.raises(ValueError, match="eager_reason"):
         t_reg.JitProgram(name="x", attr="", impl="y", warmed_by="z")
 
@@ -149,11 +172,14 @@ def _serve(engine, queue, make_request):
     return [r.future.result(timeout=5).tokens for r in reqs]
 
 
-def _port_engine(models, arm):
+def _port_engine(models, arm, draft: bool = False):
+    """The arm's engine; ``draft``: speculative, the target its own draft
+    (three proposals a round)."""
     kv, knobs = ARMS[arm]
     queue = RequestQueue("t", max_len=256)
+    extra = dict(draft_model=models[kv][2], spec_tokens=3) if draft else {}
     return DecodeEngine(models[kv][2], queue, device="cpu",
-                        **{**BASE, **knobs}), queue
+                        **{**BASE, **knobs, **extra}), queue
 
 
 def _long_fill(engine) -> set:
@@ -232,28 +258,37 @@ def _tensors(obj) -> tuple:
                  if isinstance(t, torch.Tensor))
 
 
-@pytest.mark.parametrize("arm", list(ARMS))
-def test_donated_state_keeps_its_address(models, arm):
-    engine, queue = _port_engine(models, arm)
-
+def _held_addresses(engine, queue) -> set:
+    """Warm ``engine`` and serve the segment with every program wrapped:
+    each ``donated`` buffer keeps its ``data_ptr()`` across each call of
+    its program, and the engine's state (the cache, the counts and, with
+    a draft, the draft's cache) keeps its addresses from construction to
+    the end. Returns the programs called."""
     def state():
-        return _tensors(engine._cache) + (("counts",
-                                           engine._counts.data_ptr()),)
+        out = _tensors(engine._cache) + (("counts",
+                                          engine._counts.data_ptr()),)
+        if engine._dcache is not None:
+            out += _tensors(engine._dcache)
+        return out
 
     def donated(spec, args):
         out = ()
         for what in spec.donated:
             if what in ("cache", "pool cache"):
                 out += _tensors(engine._cache)
+            elif what == "draft cache":
+                out += _tensors(engine._dcache)
             elif what == "counts":
                 out += (("counts", engine._counts.data_ptr()),)
             else:
-                assert what == "row cache", what
+                assert what in ("row cache", "draft row cache"), what
                 out += _tensors(args[2])
         return out
 
     calls, moved = collections.Counter(), []
-    for attr in sorted({p.attr for p in t_reg.HOT_PROGRAMS if p.attr}):
+    for attr in sorted({p.attr for p in t_reg.HOT_PROGRAMS}):
+        if not hasattr(engine, attr):
+            continue    # a draft's programs, on an engine without one
         fn = getattr(engine, attr)
         spec = t_reg.program(fn.__name__[len("ledger["):-1])
 
@@ -272,6 +307,100 @@ def test_donated_state_keeps_its_address(models, arm):
                                             slo_ms=6e4))
     assert moved == []
     assert state() == init
+    return set(calls)
+
+
+@pytest.mark.parametrize("arm", list(ARMS))
+def test_donated_state_keeps_its_address(models, arm):
+    engine, queue = _port_engine(models, arm)
+    called = _held_addresses(engine, queue)
     required = {p.name for p in t_reg.required_for(
         engine.chunked_prefill, engine.paged, False)}
-    assert required | _long_fill(engine) <= set(calls)
+    assert required | _long_fill(engine) <= called
+
+
+# --- speculative engines ------------------------------------------------------
+DRAFT_LONG = {"draft_long_chunk", "draft_long_commit"}
+
+
+@pytest.mark.parametrize("arm", list(ARMS))
+def test_spec_donated_state_keeps_its_address(models, arm):
+    """A self-draft engine on each arm: the draft cache, which the verify,
+    catch-up, prefill and long-fill commit update in place, keeps its
+    addresses through warmup and serving like the target's state."""
+    engine, queue = _port_engine(models, arm, draft=True)
+    called = _held_addresses(engine, queue)
+    required = {p.name for p in t_reg.required_for(
+        engine.chunked_prefill, engine.paged, True)}
+    assert required | _long_fill(engine) | DRAFT_LONG <= called
+    assert engine.spec_rounds > 0 and engine.draft_catchups > 0
+
+
+@pytest.mark.parametrize("arm", list(ARMS))
+def test_spec_warmup_covers_serving_like_the_reference(models, arm):
+    """A self-draft engine on each arm against the JAX engine with the
+    same draft: warmup covers ``required_for(..., has_draft=True)``; the
+    names warmed are the JAX engine's plus the long fill's and the
+    draft's long-fill pairs, which the port warms and the JAX engine
+    compiles at the first long or chunked admission (steady-state
+    compiles there, read off its ledger: nothing else); serving adds
+    zero steady episodes, and greedy tokens equal the JAX engine's."""
+    kv, knobs = ARMS[arm]
+    jm, params, _tm = models[kv]
+    jl = j_ledger.get_ledger()
+    jl.reset()
+    try:
+        jq = JQueue("j", max_len=256)
+        je = JEngine(jm, params, jq, draft_model=jm, draft_params=params,
+                     spec_tokens=3, **{**BASE, **knobs})
+        je.warmup()
+        j_warm = set(jl.counts(phase=j_ledger.PHASE_WARMUP)) - {UNATTRIBUTED}
+        j_tokens = _serve(je, jq, lambda p: JRequest(model="j", payload=p,
+                                                     slo_ms=6e4))
+        j_steady = {v["fn"] for v in jl.violations()} - {UNATTRIBUTED}
+    finally:
+        jl.reset()
+    tl = get_ledger()
+    tl.reset()
+    try:
+        engine, queue = _port_engine(models, arm, draft=True)
+        engine.warmup()
+        t_warm = set(tl.counts(phase=PHASE_WARMUP))
+        t_tokens = _serve(engine, queue, lambda p: Request(
+            model="t", payload=p, slo_ms=6e4))
+        violations = tl.violations()
+    finally:
+        tl.reset()
+    required = {p.name for p in t_reg.required_for(
+        engine.chunked_prefill, engine.paged, True)}
+    lazy = _long_fill(engine) | DRAFT_LONG
+    assert required <= t_warm
+    assert t_warm == j_warm | lazy
+    assert violations == []
+    # JAX's compile cache is process-wide: a ``commit_row`` an earlier
+    # engine of this process compiled at the same shapes records no
+    # episode, while the draft's chunk program (a closure per engine)
+    # always does.
+    assert {"draft_long_chunk"} <= j_steady <= lazy
+    assert t_tokens[:10] == j_tokens[:10]     # the greedy requests
+    if engine.paged:
+        engine._allocator.check()
+        assert engine._allocator.free_pages == engine.num_pages
+
+
+def _spec_required_cases():
+    for arm, (_kv, knobs) in ARMS.items():
+        chunked = knobs["chunked_prefill"]
+        paged = knobs.get("paged", False)
+        for p in t_reg.required_for(chunked, paged, True):
+            if p.arm in (t_reg.ARM_SPEC, t_reg.ARM_SPEC_MONO):
+                yield arm, p.name
+
+
+@pytest.mark.parametrize("arm,program", list(_spec_required_cases()))
+def test_spec_warmup_stripped_of_a_program_raises(models, arm, program):
+    engine, _queue = _port_engine(models, arm, draft=True)
+    spec = t_reg.program(program)
+    setattr(engine, spec.attr, getattr(engine, spec.impl))
+    with pytest.raises(RuntimeError, match=f"warmup coverage gap.*{program}"):
+        engine.warmup()
