@@ -8,7 +8,7 @@ Phases, each printing its own lines; any failure exits non-zero before the
 last line:
 
 1. device — the card's name and power limit (``nvidia-smi``);
-2. build — ``nvcc`` builds the three kernels from ``csrc/`` (one process
+2. build — ``nvcc`` builds the four kernels from ``csrc/`` (one process
    each, in parallel);
 3. kernels — each kernel against its plain PyTorch version at the main
    paths' shapes, in bf16 and f32 (the paged kernel also at a Tq = 4
@@ -39,7 +39,16 @@ last line:
    layer's call takes as it is; their time on a boolean mask, which the
    wrapper casts first (one more kernel a call; the paged arm's flash
    chunks still build their staircase mask per layer), and the dense
-   bound (every position of k and v read), are printed beside;
+   bound (every position of k and v read), are printed beside. Then the
+   int8-weight GEMM (``ops/quant_matmul.py``) at every product phase 18
+   launches — llama3_8b's q/k/v/o/gate/up/down at 16, 64, 128, 192 and
+   256 rows in bf16 and in f32, its head [128256, 4096] at 1-4 and 16
+   rows (f32 activations over bf16 and over f32 weights), the MoE
+   experts at 16-160 rows and the router — against its plain version
+   (dequantize + ``F.linear``), and at 16, 64 and 256 rows (the head at
+   4 and 16) its time beside the plain version's, ``torch.matmul`` on the
+   dequantized weight (what the bf16 deployment runs) and the bound (the
+   code bytes against 2MNK at the activations' peak);
 4. parity — llama3_8b at full width, 2 layers, f32, with the model's own
    cache and with the int8 KV cache: slab ``prefill`` then one
    ``decode_step``, and paged ``prefill_chunk_paged`` (a W = 64 and a
@@ -320,16 +329,38 @@ last line:
     tok/s and TTFT p50 with and without the draft, rounds, acceptance,
     tokens a row per round, catch-ups, the kernel shapes launched.
 
-Every engine is warmed before it serves, and every serving phase (5-12,
-14, 16, 17) ends with the capture ledger's ``check_steady()``: no program
-was captured after a warmup ended. Phases 5 to 13, 16 and 17 are served
-graphed.
+18. weights — weight-only int8 (``quantize_weights=True``) and the MoE
+    decoder. (a) llama3_8b at full width, 2 layers, f32, quantized: slab
+    prefill and decode logits through the int8 kernel against its plain
+    version (1e-3), then phase 6's 10 requests on the slab, paged, slab
+    train, int8-KV and int8-KV paged arms, graphed through the kernel and
+    eager through the plain version (``quant_matmul.plain_products``):
+    greedy tokens identical. (b) llama3_8b bf16 at full width and depth,
+    random weights from seed 0: phase 5's 8 requests on the slab and
+    phase 6's 10 on the pool, graphed, first in bf16 and then with the
+    same model quantized on the card; printed side by side: tok/s, TTFT
+    p50 and max, ``decode.turn`` ms a step, the device's idle share,
+    resident weight GB (``tree_weight_bytes``), ``auto_num_slots()`` at
+    ``max_len`` 512 from the card's memory, and the greedy rows (other
+    weights: not gated); gated: every request answered, nothing captured
+    after warmup, pools whole. (c) the MoE decoder with moe_tiny's
+    routing (4 experts, top-2, capacity 1.25) at llama3_8b's widths, 2
+    layers, bf16 (moe_tiny's own 16-wide heads are not a decode-kernel
+    shape), on the slab and the pool, without and with int8 weights:
+    graphed greedy tokens identical to eager. Every kernel shape the
+    phase launches must be one phase 3 held: phase 18 needs phase 3.
 
-Phases 5 to 14, 16 and 17's runs each set every launch count to 0
+Every engine is warmed before it serves, and every serving phase (5-12,
+14, 16-18) ends with the capture ledger's ``check_steady()``: no program
+was captured after a warmup ended. Phases 5 to 13 and 16 to 18 are
+served graphed.
+
+Phases 5 to 14 and 16 to 18's runs each set every launch count to 0
 just before they serve and read them just after: each kernel of the path
 must have launched the number of times the engine's dispatches imply,
 the other kernels and the plain route never (a graph replay adds the
-launches its capture recorded). Phase 11 builds three engines inside its
+launches its capture recorded); a quantized model's int8 GEMM once per
+int8 weight (each MoE expert's apart) in every forward. Phase 11 builds three engines inside its
 window (v1, the heal's replacement, v2); each engine's warmup dispatches
 (its prefill grid with greedy and sampled rows, the long fill's chunk,
 the decode keys: ``warmup_fills`` and ``warmup_steps``) are added to the
@@ -345,9 +376,9 @@ warmed).
 The line before the last is one JSON object with the per-kernel numbers
 (``launches`` sums the serving phases, phase 14's graphed speed runs
 among them; ``launches_by_path`` splits them) and the numbers of the
-front, controller, colocate, vision, graphs, sim and reuse phases
-(``front``, ``controller``, ``colocate``, ``vision``, ``graphs``,
-``sim``, ``reuse``, ``spec``; the
+front, controller, colocate, vision, graphs, sim, reuse, spec and
+weights phases (``front``, ``controller``, ``colocate``, ``vision``,
+``graphs``, ``sim``, ``reuse``, ``spec``, ``weights``; the
 per-hop splits under ``front.hops``, ``colocate.runs.diagnostic.turns``
 and ``vision.traced``, the front-door run under ``front.front_door``);
 the last line is
@@ -982,6 +1013,17 @@ def _kernel_shapes():
 
         setattr(mod, fn_name, counted)
         saved.append((mod, fn_name, fn))
+    from ray_dynamic_batching_tpu_torch.ops import quant_matmul as qm
+
+    w8 = qm.int8_linear
+
+    def counted_w8(x, codes, scale, bias=None, *, weight_dtype):
+        seen[_w8_key(x.numel() // x.shape[-1], codes, scale, x.dtype,
+                     weight_dtype, bias is not None)] += 1
+        return w8(x, codes, scale, bias, weight_dtype=weight_dtype)
+
+    qm.int8_linear = counted_w8
+    saved.append((qm, "int8_linear", w8))
     try:
         yield seen
     finally:
@@ -1091,8 +1133,169 @@ def phase_kernels() -> dict:
                 _print_times(f"{name} {case}", sub)
                 row.update({f"{case}_{k}": v for k, v in sub.items()})
         results[name] = row
+    results["int8_weight_matmul"] = _w8_kernel_row()
     attention.reset_counts()   # comparison launches do not count
     return results
+
+
+# --- phase 3: the int8-weight GEMM (ops/quant_matmul.py) ---------------------
+# llama3_8b's int8 products as phase 18 runs them: (role, N, K, period); q,
+# k and v keep one scale per head_dim index (their flax kernel is [D, N,
+# H]), the rest one per output feature. The MoE run's router and experts.
+W8_LLAMA = (("q", 4096, 4096, 128), ("kv", 1024, 4096, 128),
+            ("o", 4096, 4096, 4096), ("gate_up", 14336, 4096, 14336),
+            ("down", 4096, 14336, 4096))
+W8_HEAD = ("head", 128256, 4096, 128256)
+W8_ROUTER = ("router", 4, 4096, 4)
+# The rows of those products in phase 18's arms (rehearsed at these knobs
+# and payloads): a decode step's 16 slots and prefill groups / chunks of
+# 1-4 x 64 tokens; the head at a step and at the groups' taken rows; the
+# experts at 16 slots x capacity 1 (a step) and 1-4 x 40 (the capacity of
+# a 64-token row: ceil(2 x 64 / 4 x 1.25)).
+W8_PROJ_M = (16, 64, 128, 192, 256)
+W8_LOGITS_M = (2,)       # 18a's logits check: one decode step of 2 rows (f32)
+W8_HEAD_M = (1, 2, 3, 4, 16)
+W8_EXPERT_M = (16, 40, 80, 120, 160)
+W8_TIMED = {"bf16": (16, 64, 256), "head": (4, 16)}
+W8_SOURCE = "ray_dynamic_batching_tpu_torch/csrc/int8_weight_matmul.cu"
+# No pallas_call: it stands for the XLA fusion of the dequant into the
+# consuming matmul that the JAX engine's in-program dequantize relies on.
+W8_REPLACES = "ray_dynamic_batching_tpu/engine/decode.py:934"
+
+
+def _w8_key(M: int, codes, scale, act, weight_dtype, bias) -> tuple:
+    """An int8 product's shape as phases 3 and 18 compare them: rows,
+    codes [N, K], the scale period, both dtypes, a bias or none."""
+    return ("int8_weight_matmul", (M, codes.shape[1]),
+            (codes.shape[0], codes.shape[1], scale.numel()),
+            str(act).removeprefix("torch."),
+            str(weight_dtype).removeprefix("torch.") + ("+bias" if bias
+                                                        else ""))
+
+
+def _w8_cases() -> list:
+    """(role, M, N, K, period, activations, weight dtype, timed) of every
+    int8 product phase 18 launches, each once."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = []
+    for role, N, K, period in W8_LLAMA:
+        for M in W8_PROJ_M:
+            cases.append((role, M, N, K, period, bf, bf,
+                          M in W8_TIMED["bf16"]))
+        for M in W8_PROJ_M + W8_LOGITS_M:
+            cases.append((role, M, N, K, period, f32, f32, False))
+    for M in W8_HEAD_M:
+        cases.append(W8_HEAD[:1] + (M,) + W8_HEAD[1:]
+                     + (f32, bf, M in W8_TIMED["head"]))
+        cases.append(W8_HEAD[:1] + (M,) + W8_HEAD[1:] + (f32, f32, False))
+    for role, N, K, period in W8_LLAMA[3:]:
+        for M in W8_EXPERT_M:
+            cases.append((f"expert_{role}", M, N, K, period, bf, bf, False))
+    for M in W8_PROJ_M:
+        cases.append(W8_ROUTER[:1] + (M,) + W8_ROUTER[1:] + (f32, bf, False))
+    seen, out = set(), []
+    for c in cases:
+        if c[1:7] not in seen:
+            seen.add(c[1:7])
+            out.append(c)
+    return out
+
+
+def _w8_inputs(M, N, K, period, act, gen, weights: dict):
+    """x [M, K] ~ N(0, 1) in ``act``; codes uniform in [-127, 127] and
+    scales that keep |y| below ~2, made once per (N, K, period)."""
+    if (N, K, period) not in weights:
+        codes = torch.randint(-127, 128, (N, K), generator=gen,
+                              device="cuda", dtype=torch.int8)
+        scale = (torch.rand((period,), generator=gen, device="cuda") + 0.5) \
+            * (0.5 / (127 * K ** 0.5))
+        weights[(N, K, period)] = (codes, scale)
+    codes, scale = weights[(N, K, period)]
+    x = torch.randn((M, K), generator=gen, device="cuda").to(act)
+    return x, codes, scale
+
+
+def _w8_ops(M, N, K, act, wd) -> tuple:
+    """The operations behind an int8-weight product's bound, at the peak
+    of the units the kernel runs them on: bf16 x on the tensor cores
+    (2MNK at the bf16 peak); f32 x over bf16 weights (a bf16 model's
+    head) on the tensor cores too, as three bf16 products (x split into
+    hi + mid + lo); f32 x over f32 weights on the CUDA cores (f32 peak)."""
+    if act == torch.float32 and wd == torch.bfloat16:
+        return 3 * 2 * M * N * K, torch.bfloat16
+    return 2 * M * N * K, act
+
+
+def _w8_kernel_row() -> dict:
+    """Phase 3's int8-weight cases: the kernel against its plain version at
+    every product phase 18 launches (bf16 2e-2, f32 1e-4 — the same sums
+    in another order), and at the timed ones its time beside the plain
+    version (dequantize + ``F.linear``, the three-call yardstick too),
+    ``torch.matmul`` on the bf16 (head: f32) weight — what the bf16
+    deployment runs — and the bound: the code bytes (plus x, scales, y)
+    at 3.35 TB/s against the products at their units' peak
+    (:func:`_w8_ops`)."""
+    from ray_dynamic_batching_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    weights: dict = {}
+    row = {"name": "int8_weight_matmul", "route": "cuda",
+           "source": W8_SOURCE, "replaces": W8_REPLACES, "cases": []}
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for role, M, N, K, period, act, wd, timed in _w8_cases():
+        x, codes, scale = _w8_inputs(M, N, K, period, act, gen, weights)
+        _CHECKED.add(_w8_key(M, codes, scale, act, wd, None))
+        out = qm.int8_linear(x, codes, scale, weight_dtype=wd)
+        torch.cuda.synchronize()
+        ref = qm.int8_linear_plain(x, codes, scale, weight_dtype=wd)
+        err = (out.float() - ref.float()).abs().max().item()
+        tag = (f"{role} x[{M}, {K}] codes[{N}, {K}] period {period} "
+               f"{str(act)[6:]}/{str(wd)[6:]}")
+        if not torch.isfinite(out.float()).all():
+            fail(f"int8_weight_matmul {tag}: non-finite output")
+        if not err <= TOL[act]:
+            fail(f"int8_weight_matmul {tag}: max_abs_err {err} > "
+                 f"{TOL[act]}")
+        errs[act] = max(errs[act], err)
+        if not timed:
+            continue
+        w = qm.dequantize_rows(codes, scale, wd).to(act)
+        nbytes = _nbytes(x, codes, scale) + M * N * x.element_size()
+        b_ms, b_by = bound(nbytes, *_w8_ops(M, N, K, act, wd))
+        case = dict(role=role, M=M, N=N, K=K, period=period,
+                    dtype=str(act)[6:], weight_dtype=str(wd)[6:],
+                    max_abs_err=err,
+                    ms=time_ms(lambda: qm.int8_linear(
+                        x, codes, scale, weight_dtype=wd)),
+                    plain_ms=time_ms(lambda: qm.int8_linear_plain(
+                        x, codes, scale, weight_dtype=wd)),
+                    library_ms=time_ms(lambda: torch.matmul(x, w.T)),
+                    bound_ms=b_ms, bound_by=b_by, bound_mb=nbytes / 1e6)
+        del w
+        row["cases"].append(case)
+        print(f"[kernels] int8_weight_matmul {tag}: kernel "
+              f"{case['ms']:.4f} ms, plain (dequantize + F.linear, 3 "
+              f"calls) {case['plain_ms']:.4f} ms, torch.matmul on the "
+              f"dequantized weight {case['library_ms']:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB); max_abs_err "
+              f"{err:.3e}", flush=True)
+    print(f"[kernels] int8_weight_matmul: {len(_w8_cases())} shapes held "
+          f"against the plain version, max_abs_err f32 "
+          f"{errs[torch.float32]:.3e} (tol {TOL[torch.float32]:.0e}), bf16 "
+          f"{errs[torch.bfloat16]:.3e} (tol {TOL[torch.bfloat16]:.0e})",
+          flush=True)
+    head = next(c for c in row["cases"]
+                if c["role"] == "gate_up" and c["M"] == 16)
+    row.update({k: head[k] for k in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by", "max_abs_err")},
+               q_shape=[16, 4096], kv_shape=[14336, 4096],
+               dtype="bfloat16", kv_dtype="int8",
+               max_abs_err_f32=errs[torch.float32],
+               yardstick="dequantize + F.linear (3 calls): the plain "
+                         "version")
+    del weights
+    torch.cuda.empty_cache()
+    return row
 
 
 # --- phase 4: model parity --------------------------------------------------
@@ -1100,12 +1303,14 @@ def _counts() -> dict:
     from ray_dynamic_batching_tpu_torch.ops import attention
     from ray_dynamic_batching_tpu_torch.ops import decode_attention as dec
     from ray_dynamic_batching_tpu_torch.ops import flash_attention as fl
+    from ray_dynamic_batching_tpu_torch.ops import quant_matmul as qm
 
     return {"flash_attention": fl.launches,
             "decode_attention": dec.launches,
             "paged_decode_attention": dec.paged_launches,
             "decode_attention_int8": dec.int8_launches,
             "paged_decode_attention_int8": dec.paged_int8_launches,
+            "int8_weight_matmul": qm.launches,
             "plain": attention.plain_launches}
 
 
@@ -1444,7 +1649,17 @@ def _expect_dispatches(tag: str, counts: dict, engine, since=None,
     fills = (d["prefill_groups"] + d["long_chunk_dispatches"]
              + d["chunk_dispatches"])
     want = {decode: L * d["steps"], "flash_attention": L * fills}
+    w8 = _w8_per_forward(engine.model)
+    if w8:
+        # Every target forward (a step, a fill, a verify round) runs each
+        # int8 weight once (MoE experts once an expert).
+        want["int8_weight_matmul"] = w8 * (d["steps"] + fills
+                                           + d["spec_rounds"])
     if engine.draft_model is not None:
+        if _w8_per_forward(engine.draft_model):
+            # Also a self-draft of a quantized target, which shares its
+            # int8 weights: no phase serves one.
+            fail(f"{tag}: a quantized draft model is not counted here")
         Ld = engine.draft_model.cfg.num_layers
         ddec = "decode_attention" + (
             "_int8" if engine.draft_model.kv_dtype == torch.int8 else "")
@@ -1462,6 +1677,23 @@ def _expect_dispatches(tag: str, counts: dict, engine, since=None,
     if not all(want.values()):
         fail(f"{tag}: a kernel of the path never launched: {want}")
     _expect_only(tag, counts, want)
+
+
+def _w8_per_forward(model) -> int:
+    """int8-weight launches in one forward of ``model``: each quantized
+    Dense once, each quantized MoE expert tensor once an expert."""
+    from ray_dynamic_batching_tpu_torch.models.decoder import Dense
+    from ray_dynamic_batching_tpu_torch.models.moe import MoEBlock
+
+    n = 0
+    for mod in model.module.modules():
+        if isinstance(mod, Dense) and mod.weight_codes is not None:
+            n += 1
+        elif isinstance(mod, MoEBlock):
+            n += mod.num_experts * sum(
+                getattr(mod, f"{w}_codes") is not None
+                for w in mod.expert_names())
+    return n
 
 
 def _serving_phase(tag: str, payloads, knobs: dict, profile: bool) -> tuple:
@@ -3610,7 +3842,8 @@ def _host() -> str:
             f"nproc {os.cpu_count()}")
 
 
-def _graph_parity(model, arm: str, knobs: dict, payloads) -> dict:
+def _graph_parity(model, arm: str, knobs: dict, payloads,
+                  tag: str | None = None) -> dict:
     """One arm's engine, warmed and serving ``payloads`` twice: every
     program eager (``graphs.disable_capture()``), then captured. Greedy
     tokens must be identical and the launch counts equal."""
@@ -3619,7 +3852,7 @@ def _graph_parity(model, arm: str, knobs: dict, payloads) -> dict:
     from ray_dynamic_batching_tpu_torch.engine.request import Request
     from ray_dynamic_batching_tpu_torch.ops import attention, graphs
 
-    tag = f"graphs parity {arm}"
+    tag = tag or f"graphs parity {arm}"
     runs = {}
     for mode in ("eager", "graphed"):
         ctx = (graphs.disable_capture() if mode == "eager"
@@ -3658,7 +3891,8 @@ def _graph_parity(model, arm: str, knobs: dict, payloads) -> dict:
         fail(f"{tag}: launch counts differ between eager and graphed")
     if not st["captures"] or runs["eager"]["stats"]["captures"]:
         fail(f"{tag}: captures eager {runs['eager']['stats']}, graphed {st}")
-    return {"greedy_identical": True, "captures": st["captures"]}
+    return {"greedy_identical": True, "captures": st["captures"],
+            "counts": runs["graphed"]["counts"]}
 
 
 def _speed_run(tag: str, model, payloads, knobs: dict, eager: bool):
@@ -3716,6 +3950,11 @@ def _speed_run(tag: str, model, payloads, knobs: dict, eager: bool):
         torch.cuda.synchronize()
     engine.stop()
     _steady(tag)
+    if engine.paged:
+        engine._allocator.check()
+        if engine._allocator.free_pages != engine.num_pages:
+            fail(f"{tag}: {engine._allocator.free_pages} of "
+                 f"{engine.num_pages} pages free after the drain")
     rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     turns: dict = {}
@@ -3741,7 +3980,8 @@ def _speed_run(tag: str, model, payloads, knobs: dict, eager: bool):
         idle_share=(1.0 - busy_ms / (prof_wall * 1e3)) if rows else None,
         kernel_rows=len(rows), captures=st["captures"],
         capture_s=st["capture_s"], pool_mb=st["pool_bytes"] / 1e6,
-        build_and_warm_s=build_s, counts=counts)
+        build_and_warm_s=build_s, counts=counts,
+        tokens=[r.tokens for r in results])
     replica.stop()
     return out
 
@@ -3790,6 +4030,7 @@ def phase_graphs() -> tuple:
             run = _speed_run(f"graphs {arm} {mode}", model, load, knobs,
                              eager=mode == "eager")
             speed[f"{arm}_{mode}"] = run
+            run.pop("tokens")
             if mode == "graphed":
                 for name, n in run["counts"].items():
                     counts[name] = counts.get(name, 0) + n
@@ -5287,23 +5528,297 @@ def phase_spec() -> tuple:
                         gpt2_medium=gpt2, kernel_shapes=launched, wall_s=wall)
 
 
-def _held_shapes(shapes) -> list:
-    """Every kernel shape phase 17 launched (its captures and eager
-    calls, by :func:`_shape_key`) must be one that phase 3 held against
-    its plain version; prints each with its wrapper calls."""
+# --- phase 18: weight-only int8 and the MoE decoder ------------------------
+def _moe_cfg():
+    """18c's MoE decoder: moe_tiny's routing (4 experts, top-2, capacity
+    1.25) on llama3_8b's widths, 2 layers. moe_tiny's own heads are 16
+    wide, and the decode kernels take head_dim 64 or 128."""
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        LLAMA3_8B,
+        TINY_MOE,
+    )
+
+    return dataclasses.replace(
+        LLAMA3_8B, num_layers=2, num_experts=TINY_MOE.num_experts,
+        moe_top_k=TINY_MOE.moe_top_k,
+        moe_capacity_factor=TINY_MOE.moe_capacity_factor)
+
+
+def _w8_logits(model) -> float:
+    """Slab prefill of two prompts and one decode step through the int8
+    kernel and through its plain version: the logits' max abs error."""
+    from ray_dynamic_batching_tpu_torch.ops import quant_matmul as qm
+
+    rng = np.random.default_rng(0)
+    V = model.cfg.vocab_size
+    tokens = torch.from_numpy(rng.integers(0, V, (2, T)).astype(
+        np.int32)).cuda()
+    attn = torch.ones_like(tokens)
+    attn[1, 50:] = 0
+    nxt = torch.from_numpy(rng.integers(0, V, (2, 1)).astype(
+        np.int32)).cuda()
+    active = torch.ones((2,), dtype=torch.bool, device="cuda")
+
+    def run():
+        with torch.inference_mode():
+            cache = model.make_cache(2, S)
+            first, cache = model.prefill(tokens, attn, cache)
+            second, _ = model.decode_step(nxt, cache, active)
+            return first.float(), second.float()
+
+    got = run()
+    with qm.plain_products():
+        want = run()
+    return max((g - w).abs().max().item() for g, w in zip(got, want))
+
+
+def _w8_serve(tag: str, model, knobs: dict, payloads, plain: bool):
+    """A quantized engine serving ``payloads``: graphed through the int8
+    kernel, or eager through its plain version (``plain_products``).
+    Returns (tokens, launch counts)."""
+    from ray_dynamic_batching_tpu_torch.engine.decode import DecodeEngine
+    from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+    from ray_dynamic_batching_tpu_torch.ops import attention, graphs
+    from ray_dynamic_batching_tpu_torch.ops import quant_matmul as qm
+
+    with graphs.disable_capture() if plain else contextlib.nullcontext():
+        queue = RequestQueue("w8", max_len=64)
+        engine = DecodeEngine(model, queue, device="cuda",
+                              quantize_weights=True, **knobs)
+        engine.warmup()
+    reqs = [Request(model="w8", payload=p, slo_ms=600_000.0)
+            for p in payloads]
+    attention.reset_counts()
+    with qm.plain_products() if plain else contextlib.nullcontext():
+        for r in reqs:
+            queue.add_request(r)
+        engine.run_until_idle(timeout_s=300)
+    torch.cuda.synchronize()
+    counts = _counts()
+    if plain:
+        if counts["int8_weight_matmul"]:
+            fail(f"{tag}: the plain route launched the int8 kernel")
+    else:
+        _expect_dispatches(tag, counts, engine)
+        _steady(tag)
+    if engine.paged:
+        engine._allocator.check()
+        if engine._allocator.free_pages != engine.num_pages:
+            fail(f"{tag}: pages leaked")
+    tokens = [r.future.result(5).tokens for r in reqs]
+    engine.release_buffers()
+    return tokens, counts
+
+
+def _w8_parity(V: int) -> tuple:
+    """18a: llama3_8b at full width, 2 layers, f32, quantized; phase 6's
+    10 requests on five arms, each served graphed through the int8 kernel
+    and eager through its plain version: greedy tokens identical."""
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        LLAMA3_8B,
+        CausalLM,
+    )
+    from ray_dynamic_batching_tpu_torch.models.quant import quantize_tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    payloads = _payloads(np.random.default_rng(1), V, 32, 8, 2, 2)
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=2)
+    arms = {None: (("slab", SLAB_KNOBS), ("paged", PAGED_KNOBS),
+                   ("slab_chunked", dict(SLAB_KNOBS, chunked_prefill=True))),
+            torch.int8: (("int8", SLAB_KNOBS),
+                         ("int8_paged", PAGED_KNOBS))}
+    out, counts = {}, {}
+    for kv_dtype, cases in arms.items():
+        model = quantize_tree(CausalLM(cfg, "llama3_8b_2layer",
+                                       dtype=torch.float32, device="cuda",
+                                       seed=0, kv_dtype=kv_dtype))
+        err = _w8_logits(model)
+        kv = "int8 KV" if kv_dtype else "f32 cache"
+        # With the int8 KV cache the k/v of the two routes, f32 sums in
+        # another order, can round to codes one apart at a .5 boundary
+        # (phase 4's case): printed, not gated; greedy tokens are.
+        print(f"[weights] parity, int8 weights, {kv}: slab prefill and "
+              f"decode logits, kernel against plain: max abs err "
+              f"{err:.3e} ({'not gated' if kv_dtype else 'tol'} "
+              f"{LOGIT_TOL:.0e})", flush=True)
+        if not kv_dtype and not err <= LOGIT_TOL:
+            fail(f"weights parity {kv}: logits differ by {err}")
+        out[f"logits_err_{'int8kv' if kv_dtype else 'f32'}"] = err
+        for arm, knobs in cases:
+            tag = f"weights parity {arm}"
+            want, _ = _w8_serve(tag + " plain", model, knobs, payloads,
+                                plain=True)
+            got, c = _w8_serve(tag, model, knobs, payloads, plain=False)
+            _greedy_same(tag, got, want, payloads)
+            print(f"[weights] {tag}: greedy tokens of the int8 kernel route "
+                  f"identical to the plain route's; launches {c}",
+                  flush=True)
+            out[arm] = {"greedy_identical": True,
+                        "int8_launches": c["int8_weight_matmul"]}
+            for n, v in c.items():
+                counts[n] = counts.get(n, 0) + v
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, counts
+
+
+def _w8_llama(smi: str, V: int) -> tuple:
+    """18b: llama3_8b bf16 at full width and depth, seed 0, served on the
+    slab (phase 5's 8 requests) and the pool (phase 6's 10), without and
+    then with int8 weights (the same model, quantized on the card)."""
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        LLAMA3_8B,
+        CausalLM,
+    )
+    from ray_dynamic_batching_tpu_torch.models.quant import (
+        quantize_tree,
+        tree_weight_bytes,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+    from ray_dynamic_batching_tpu_torch.utils.config import (
+        RDBConfig,
+        reset_config,
+        set_config,
+    )
+
+    loads = {"slab": (SLAB_KNOBS, _payloads(np.random.default_rng(0), V, 32,
+                                            8, 2, 0)),
+             "paged": (PAGED_KNOBS, _payloads(np.random.default_rng(1), V,
+                                              32, 8, 2, 2))}
+    model = CausalLM(LLAMA3_8B, "llama3_8b", dtype=torch.bfloat16,
+                     device="cuda", seed=0)
+    budget = torch.cuda.get_device_properties(0).total_memory
+    runs, counts = {}, {}
+    for mode in ("bf16", "int8"):
+        if mode == "int8":
+            t0 = time.monotonic()
+            quantize_tree(model)
+            torch.cuda.synchronize()
+            runs["quantize_s"] = time.monotonic() - t0
+        set_config(RDBConfig.from_env(hbm_budget_bytes=budget))
+        try:
+            slots = LLMDeployment(
+                "llama3_8b", model=model, quantize_weights=mode == "int8",
+                **SLAB_KNOBS).auto_num_slots(1, max_len=S)
+        finally:
+            reset_config()
+        runs[mode] = {"weights_gb": tree_weight_bytes(model) / 1e9,
+                      "auto_num_slots": slots}
+        for arm, (knobs, load) in loads.items():
+            run = _speed_run(f"weights {arm} {mode}", model, load,
+                             dict(knobs, quantize_weights=mode == "int8"),
+                             eager=False)
+            runs[mode][arm] = run
+            for n, v in run.pop("counts").items():
+                counts[n] = counts.get(n, 0) + v
+    for arm, (knobs, load) in loads.items():
+        b, q = runs["bf16"][arm], runs["int8"][arm]
+        turn = " | ".join(" / ".join(f"{r['turn_ms_a_step_p50'][h]:.2f} (h{h})"
+                                     for h in r["turn_ms_a_step_p50"])
+                          for r in (b, q))
+        idle = " | ".join("not traced" if r["idle_share"] is None else
+                          f"{100 * r['idle_share']:.1f}%" for r in (b, q))
+        print(f"[weights] llama3_8b {arm} ({smi}), bf16 | int8 weights: "
+              f"tok/s {b['tok_s']:.1f} | {q['tok_s']:.1f}; TTFT p50 "
+              f"{b['ttft_p50_ms']:.1f} | {q['ttft_p50_ms']:.1f} ms (max "
+              f"{b['ttft_max_ms']:.1f} | {q['ttft_max_ms']:.1f}); "
+              f"decode.turn ms a step p50 {turn}; device idle {idle}; "
+              f"resident weights {runs['bf16']['weights_gb']:.2f} | "
+              f"{runs['int8']['weights_gb']:.2f} GB; auto_num_slots at "
+              f"max_len {S} {runs['bf16']['auto_num_slots']} | "
+              f"{runs['int8']['auto_num_slots']}; captures after warmup 0; "
+              f"built and warmed in {b['build_and_warm_s']:.1f} | "
+              f"{q['build_and_warm_s']:.1f} s", flush=True)
+        for i, p in enumerate(load):
+            if p.get("temperature"):
+                continue
+            same = b["tokens"][i] == q["tokens"][i]
+            print(f"[weights] {arm} greedy row {i} (different weights, not "
+                  f"gated){' identical' if same else ''}: bf16 "
+                  f"{b['tokens'][i][:8]}... int8 {q['tokens'][i][:8]}...",
+                  flush=True)
+        for r in (b, q):
+            r.pop("tokens")
+    print(f"[weights] quantized llama3_8b on the card in "
+          f"{runs['quantize_s']:.1f} s", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs, counts
+
+
+def _w8_moe(V: int) -> tuple:
+    """18c: the MoE decoder (:func:`_moe_cfg`), bf16, on the slab and the
+    pool, without and with int8 weights: graphed greedy tokens identical
+    to eager, nothing captured after warmup."""
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import CausalLM
+    from ray_dynamic_batching_tpu_torch.models.quant import quantize_tree
+
+    payloads = _payloads(np.random.default_rng(1), V, 32, 8, 2, 2)
+    out, counts = {}, {}
+    for quant in (False, True):
+        model = CausalLM(_moe_cfg(), "moe_llama_2layer",
+                         dtype=torch.bfloat16, device="cuda", seed=0)
+        if quant:
+            quantize_tree(model)
+        for arm, knobs in (("slab", SLAB_KNOBS), ("paged", PAGED_KNOBS)):
+            name = f"moe {arm}{' int8' if quant else ''}"
+            row = _graph_parity(model, arm, dict(knobs, quantize_weights=quant),
+                                payloads, tag=f"weights {name}")
+            for n, v in row.pop("counts").items():
+                counts[n] = counts.get(n, 0) + v
+            out[name] = row
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, counts
+
+
+def phase_weights() -> tuple:
+    """Phase 18; returns (launch counts, the phase's numbers)."""
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import LLAMA3_8B
+
+    t0 = time.monotonic()
+    smi = _smi()
+    V = LLAMA3_8B.vocab_size
+    with _kernel_shapes() as shapes:
+        parity, c1 = _w8_parity(V)
+        llama, c2 = _w8_llama(smi, V)
+        moe, c3 = _w8_moe(V)
+    launched = _held_shapes(shapes, "weights", 18)
+    counts = {n: c1.get(n, 0) + c2.get(n, 0) + c3.get(n, 0)
+              for n in set(c1) | set(c2) | set(c3)}
+    wall = time.monotonic() - t0
+    print(f"[weights] {smi}: phase wall time {wall:.1f} s", flush=True)
+    return counts, dict(card=smi, parity=parity, llama3_8b=llama, moe=moe,
+                        kernel_shapes=launched, wall_s=wall)
+
+
+def _held_shapes(shapes, tag: str = "spec", phase: int = 17) -> list:
+    """Every kernel shape phase ``phase`` launched (its captures and eager
+    calls, by :func:`_shape_key` / :func:`_w8_key`) must be one that
+    phase 3 held against its plain version; prints each with its wrapper
+    calls."""
     rows = []
     for key, n in sorted(shapes.items()):
         name, q, kv, q_dtype, kv_dtype = key
         held = key in _CHECKED
-        print(f"[spec] kernel shape {name} q[., {', '.join(map(str, q))}] "
-              f"k/v[., {', '.join(map(str, kv))}] {q_dtype}/{kv_dtype}: "
+        if name == "int8_weight_matmul":
+            what = (f"x[{q[0]}, {q[1]}] codes[{kv[0]}, {kv[1]}] period "
+                    f"{kv[2]}")
+        else:
+            what = (f"q[., {', '.join(map(str, q))}] "
+                    f"k/v[., {', '.join(map(str, kv))}]")
+        print(f"[{tag}] kernel shape {name} {what} {q_dtype}/{kv_dtype}: "
               f"{n} wrapper calls, held in phase 3: {held}", flush=True)
         rows.append(dict(kernel=name, q=list(q), kv=list(kv),
                          dtype=q_dtype, kv_dtype=kv_dtype, calls=n))
     missing = [k for k in shapes if k not in _CHECKED]
     if missing:
-        fail(f"phase 17 launched {len(missing)} kernel shapes phase 3 did "
-             f"not hold against the plain version (run phase 3, "
+        fail(f"phase {phase} launched {len(missing)} kernel shapes phase 3 "
+             f"did not hold against the plain version (run phase 3, "
              f"'kernels', with it): {missing}")
     return rows
 
@@ -5317,7 +5832,7 @@ def _main(stack: contextlib.ExitStack) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     all_phases = (["build", "kernels", "parity"] + list(SERVING)
                   + ["front", "controller", "colocate", "vision", "graphs",
-                     "sim", "reuse", "spec"])
+                     "sim", "reuse", "spec", "weights"])
     ap.add_argument("--phases", default=",".join(all_phases),
                     help=f"comma-separated subset of {','.join(all_phases)} "
                          "(the device phase always runs)")
@@ -5368,7 +5883,7 @@ def _main(stack: contextlib.ExitStack) -> None:
         print("[slab_chunked] beside main and int8: " + "; ".join(beside),
               flush=True)
     front = controller = colocate = vision = graphed = sim = reuse = None
-    spec = None
+    spec = weights = None
     if "front" in phases:
         by_path["front"], front = phase_front(args.profile)
     if "controller" in phases:
@@ -5385,14 +5900,16 @@ def _main(stack: contextlib.ExitStack) -> None:
         by_path["reuse"], reuse = phase_reuse()
     if "spec" in phases:
         by_path["spec"], spec = phase_spec()
+    if "weights" in phases:
+        by_path["weights"], weights = phase_weights()
     for name, row in kernels.items():
-        split = {path: c[name] for path, c in by_path.items()}
+        split = {path: c.get(name, 0) for path, c in by_path.items()}
         row["launches"] = sum(split.values()) if split else None
         row["launches_by_path"] = split
     print(json.dumps({"kernels": list(kernels.values()), "front": front,
                       "controller": controller, "colocate": colocate,
                       "vision": vision, "graphs": graphed, "sim": sim,
-                      "reuse": reuse, "spec": spec}))
+                      "reuse": reuse, "spec": spec, "weights": weights}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],
         "count": torch.cuda.device_count()}}))

@@ -66,8 +66,21 @@ raises. The long fill's chunk and commit run eagerly (their row cache
 is per fill; the registry says so), as do the reuse programs' row seeds
 and extracts, each warmed when its cache is on. The reference's group
 padding to compiled widths is gone (a group is exactly its rows, so no
-index is written twice): every group width is its own key. Weight
-quantisation and the mesh are later slices.
+index is written twice): every group width is its own key. The mesh is
+a later slice.
+
+Weight-only int8 (``quantize_weights=True``): the model's matmul weights
+become int8 codes + f32 scales in place at construction
+(``models/quant.py::quantize_tree``, idempotent — a model the deployment
+quantized passes through, shared by every engine), and every product
+reads the codes through ``ops/quant_matmul.int8_linear``: the same
+programs and keys, captured the same way. The model owns its weights, so
+an engine over an already quantized model serves int8 whatever it was
+asked (:attr:`quantized` says which). A separate draft model is not
+quantized; a self-draft is the target module and so shares its int8
+weights (the reference's self-draft keeps its own full-precision
+params). Greedy tokens are the target's either way; the acceptance rate
+is the quantized pair's.
 
 Speculative decoding (``draft_model``, ``spec_tokens``; greedy rows only):
 a draft model — a second module with its own weights, or the target
@@ -149,7 +162,12 @@ from ray_dynamic_batching_tpu_torch.engine.request import (
     now_ms,
 )
 from ray_dynamic_batching_tpu_torch.models.base import resolve_device
+from ray_dynamic_batching_tpu_torch.models.quant import (
+    is_quantized,
+    quantize_tree,
+)
 from ray_dynamic_batching_tpu_torch.ops import decode_attention as _decode_ops
+from ray_dynamic_batching_tpu_torch.ops import quant_matmul as _quant_ops
 from ray_dynamic_batching_tpu_torch.ops import graphs, jit_model
 from ray_dynamic_batching_tpu_torch.utils.compile_ledger import (
     PHASE_WARMUP,
@@ -563,6 +581,7 @@ class DecodeEngine:
         host_spill_pages: int = 0,
         draft_model: Any = None,
         spec_tokens: int = 4,
+        quantize_weights: bool = False,
     ):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -582,6 +601,9 @@ class DecodeEngine:
                 raise ValueError(
                     f"draft vocab {draft_model.cfg.vocab_size} differs from "
                     f"the target's {model.cfg.vocab_size}")
+        if quantize_weights:
+            quantize_tree(model)
+        self.quantized = is_quantized(model)
         self.model = model
         self.queue = queue
         self.num_slots = num_slots
@@ -841,6 +863,8 @@ class DecodeEngine:
                     K=c.num_kv_heads, S=cap_, H=c.head_dim,
                     R=window * (c.num_heads // c.num_kv_heads))
                 for c, cap_ in shapes]
+            if self.quantized:
+                self._workspace.append(_quant_ops.reserve(self.device))
 
     def _program(self, name: str, impl: Callable) -> Callable:
         """``impl`` as the registry's program ``name``: its host-static

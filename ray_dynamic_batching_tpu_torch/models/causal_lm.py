@@ -6,8 +6,9 @@ paged arm (``make_paged_cache``, ``prefill_chunk_paged``,
 ``decode_step_paged``), the speculative verify on both
 (``verify_step``, ``verify_step_paged``), the int8 KV cache
 (``kv_dtype=torch.int8``, ``kv_bytes_per_slot``), the configs
-``LLAMA3_8B``, ``GPT2_MEDIUM``, ``GPT2_DRAFT`` and ``TINY_LM``, and their
-registry entries (``gpt2_draft`` and ``llama_tiny_int8kv`` among them). The model
+``LLAMA3_8B``, ``GPT2_MEDIUM``, ``GPT2_DRAFT``, ``TINY_LM`` and
+``TINY_MOE``, and their registry entries (``gpt2_draft``,
+``llama_tiny_int8kv`` and ``moe_tiny`` among them). The model
 owns its weights on an explicit device; :meth:`CausalLM.init_random`
 fills them from a seed on that device (no download), and
 ``models/convert.py`` maps the JAX package's params onto them.
@@ -62,7 +63,8 @@ class CausalLM(ServableModel):
     @torch.no_grad()
     def init_random(self, seed: int) -> None:
         """Random weights from ``seed``, drawn on the model's device:
-        matrices and embeddings N(0, 1/fan_in), norm scales 1, biases 0."""
+        matrices and embeddings N(0, 1/fan_in), norm scales 1, biases 0
+        (MoE experts ``[E, in, out]``: fan_in is their middle axis)."""
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         for mod in self.module.modules():
             if isinstance(mod, (RMSNorm, LayerNorm)):
@@ -76,7 +78,8 @@ class CausalLM(ServableModel):
             if name.endswith("bias"):
                 p.zero_()
                 continue
-            fan_in = p.shape[-1]
+            fan_in = p.shape[1] if name.endswith(("moe.wi", "moe.wg",
+                                                  "moe.wo")) else p.shape[-1]
             p.normal_(0.0, fan_in ** -0.5, generator=gen)
 
     # --- decode interface (used by engine.decode) -------------------------
@@ -321,6 +324,18 @@ TINY_LM = DecoderConfig(
     max_seq_len=256,
 )
 
+TINY_MOE = DecoderConfig(
+    vocab_size=512,
+    d_model=64,
+    num_layers=2,
+    num_heads=4,
+    num_kv_heads=2,
+    mlp_dim=128,
+    max_seq_len=256,
+    num_experts=4,
+    moe_top_k=2,
+)
+
 
 @register_model("gpt2_medium", slo=ModelSLO(latency_slo_ms=500.0))
 def _gpt2_medium(**kwargs) -> CausalLM:
@@ -347,3 +362,8 @@ def _llama_tiny_int8kv(**kwargs) -> CausalLM:
     """llama_tiny with the int8 KV cache, under its own registry name."""
     kwargs.setdefault("kv_dtype", torch.int8)
     return CausalLM(TINY_LM, name="llama_tiny_int8kv", **kwargs)
+
+
+@register_model("moe_tiny")
+def _moe_tiny(**kwargs) -> CausalLM:
+    return CausalLM(TINY_MOE, name="moe_tiny", **kwargs)

@@ -11,7 +11,18 @@ numpy arrays (``{"params": {...}}`` or the inner dict) and returns a
 - ``mlp_*`` kernels ``[in, out]`` -> ``[out, in]``; biases flattened;
 - ``*_norm`` scale/bias as they are;
 - ``tok_embed/embedding`` and ``pos_embed/embedding`` ``[rows, D]`` as
-  they are; ``lm_head/kernel`` ``[D, V]`` -> ``[V, D]``.
+  they are; ``lm_head/kernel`` ``[D, V]`` -> ``[V, D]``;
+- a MoE layer's ``moe/router/kernel`` ``[D, E]`` -> ``[E, D]``; its
+  experts ``moe/wi``, ``moe/wg`` ``[E, D, F]`` and ``moe/wo`` ``[E, F, D]``
+  as they are.
+
+A JAX-quantized tree (``models/quant.py::quantize_tree`` output, its
+``QTensor`` leaves as objects with ``q`` / ``scale`` or as ``{"q",
+"scale"}`` mappings of numpy arrays) bridges with no requantization:
+each such leaf becomes ``<name>_codes`` (int8, in the layout above; the
+experts' transposed to ``[E, out, in]``, the int8 kernel's) and
+``<name>_scale`` (f32, flattened to the flax last axis), which
+``models/quant.py::load_state`` installs.
 
 The vision families' converters (``resnet_params_from_flax``,
 ``shufflenet_params_from_flax``, ``efficientnet_params_from_flax``,
@@ -35,7 +46,7 @@ family's module in ``models/{resnet,shufflenet,efficientnet,vit}.py``:
 from __future__ import annotations
 
 import re
-from typing import Any, Callable, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +56,17 @@ from ray_dynamic_batching_tpu_torch.models.decoder import DecoderConfig
 
 def _t(x: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _qtensor(x: Any):
+    """(q, scale) numpy arrays of a quantized leaf, else None."""
+    if isinstance(x, Mapping):
+        if set(x) == {"q", "scale"}:
+            return np.asarray(x["q"]), np.asarray(x["scale"])
+        return None
+    if hasattr(x, "q") and hasattr(x, "scale"):
+        return np.asarray(x.q), np.asarray(x.scale)
+    return None
 
 
 def params_from_flax(tree: Mapping[str, Any],
@@ -57,16 +79,30 @@ def params_from_flax(tree: Mapping[str, Any],
     if cfg.pos == "learned":
         sd["pos_embed.weight"] = _t(p["pos_embed"]["embedding"])
 
+    def put(name: str, x: Any, layout: Callable[[np.ndarray], np.ndarray],
+            code_layout: Optional[Callable] = None) -> None:
+        """One leaf, in the port's layout; a quantized one as codes (in
+        ``code_layout``, default the same) + flat scales."""
+        qt = _qtensor(x)
+        if qt is None:
+            sd[name] = _t(layout(np.asarray(x, dtype=np.float32)))
+            return
+        q, scale = qt
+        sd[f"{name}_codes"] = torch.from_numpy(np.ascontiguousarray(
+            (code_layout or layout)(q.astype(np.int8))))
+        sd[f"{name}_scale"] = _t(scale.reshape(-1))
+
     def norm(prefix: str, leaf: Mapping[str, Any]) -> None:
         sd[f"{prefix}.scale"] = _t(leaf["scale"])
         if cfg.norm == "ln":
             sd[f"{prefix}.bias"] = _t(leaf["bias"])
 
-    def dense(prefix: str, leaf: Mapping[str, Any], d_in: int) -> None:
-        kernel = np.asarray(leaf["kernel"], dtype=np.float32)
-        sd[f"{prefix}.weight"] = _t(kernel.reshape(d_in, -1).T)
-        if cfg.use_bias:
-            sd[f"{prefix}.bias"] = _t(np.asarray(leaf["bias"]).reshape(-1))
+    def dense(prefix: str, leaf: Mapping[str, Any], d_in: int,
+              bias: bool = True) -> None:
+        put(f"{prefix}.weight", leaf["kernel"],
+            lambda k: k.reshape(d_in, -1).T)
+        if cfg.use_bias and bias:
+            put(f"{prefix}.bias", leaf["bias"], lambda b: b.reshape(-1))
 
     for i in range(cfg.num_layers):
         layer = p[f"layer{i}"]
@@ -77,14 +113,22 @@ def params_from_flax(tree: Mapping[str, Any],
         dense(f"{pre}.k", layer["k"], D)
         dense(f"{pre}.v", layer["v"], D)
         dense(f"{pre}.o", layer["o"], N * H)
+        if cfg.num_experts > 0:
+            moe = layer["moe"]
+            dense(f"{pre}.moe.router", moe["router"], D, bias=False)
+            for w in ("wi", "wg", "wo") if cfg.gated_mlp else ("wi", "wo"):
+                # Unquantized experts keep the flax layout; int8 codes
+                # take the kernel's [E, out, in].
+                put(f"{pre}.moe.{w}", moe[w], lambda e: e,
+                    lambda e: e.transpose(0, 2, 1))
+            continue
         if cfg.gated_mlp:
             dense(f"{pre}.mlp_gate", layer["mlp_gate"], D)
         dense(f"{pre}.mlp_up", layer["mlp_up"], D)
         dense(f"{pre}.mlp_down", layer["mlp_down"], cfg.mlp_dim)
     norm("final_norm", p["final_norm"])
     if not cfg.tie_embeddings:
-        sd["lm_head.weight"] = _t(
-            np.asarray(p["lm_head"]["kernel"], dtype=np.float32).T)
+        put("lm_head.weight", p["lm_head"]["kernel"], lambda k: k.T)
     return sd
 
 

@@ -28,7 +28,17 @@ plus one f32 scale per cached (token, head) row, quantized at every write
 (:func:`quantize_kv_rows`). The slab cache's planes keep one sink row
 per layer past their last position, where the speculative verify's
 per-row window writes drop what falls past capacity
-(:func:`window_write_index`). MoE is a later slice.
+(:func:`window_write_index`).
+
+Weight-only int8 (``models/quant.py::quantize_tree``) turns a
+:class:`Dense`'s weight into int8 codes plus f32 scales at the flax
+kernel's granularity (``weight_codes`` / ``weight_scale``), routed through
+``ops/quant_matmul.int8_linear``. With ``cfg.num_experts > 0`` the MLP is
+a mixture of experts (``models/moe.py::MoEBlock``).
+
+Trimmed: the reference's no-cache ``token_mask`` path (self-attention
+through ring attention over the ``sp`` mesh axis) and MoE's expert
+parallelism, which come with multi-GPU (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ray_dynamic_batching_tpu_torch.ops import attention as attn_ops
+from ray_dynamic_batching_tpu_torch.ops import quant_matmul
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +70,9 @@ class DecoderConfig:
     use_bias: bool = False
     tie_embeddings: bool = False
     rope_theta: float = 10000.0
+    num_experts: int = 0      # > 0 switches the MLP to a MoE block
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
 
     @property
     def head_dim(self) -> int:
@@ -291,15 +305,44 @@ class LayerNorm(nn.Module):
 
 
 class Dense(nn.Module):
-    """y = x @ W.T (+ b) in the weight dtype; W [out, in]."""
+    """y = x @ W.T (+ b) in the layer's ``dtype``; W [out, in].
 
-    def __init__(self, d_in: int, d_out: int, bias: bool, dtype, device):
+    ``flax_in`` / ``flax_out`` are the flax kernel's contracted and output
+    axes (q: ``(D,)`` / ``(N, H)``, kernel ``[D, N, H]``; o: ``(N, H)`` /
+    ``(D,)``); default ``(d_in,)`` / ``(d_out,)``. Weight-only int8 keeps
+    one scale per index of the flax kernel's last axis: row r of W takes
+    ``scale[r % flax_out[-1]]``. Once quantized (``models/quant.py``) the
+    weight is ``weight_codes`` int8 [out, in] + ``weight_scale`` f32
+    [flax_out[-1]], dequantized in ``weight_dtype`` (the model's) inside
+    ``ops/quant_matmul.int8_linear``; a bias the flax rule quantizes (2-D
+    in flax, e.g. q's ``[N, H]``) becomes ``bias_codes`` / ``bias_scale``."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool, dtype, device,
+                 flax_in: Optional[Tuple[int, ...]] = None,
+                 flax_out: Optional[Tuple[int, ...]] = None):
         super().__init__()
+        self.dtype = dtype
+        self.flax_in = tuple(flax_in or (d_in,))
+        self.flax_out = tuple(flax_out or (d_out,))
         self.weight = _param((d_out, d_in), dtype, device)
         self.bias = _param((d_out,), dtype, device) if bias else None
+        for name in ("weight_codes", "weight_scale", "bias_codes",
+                     "bias_scale"):
+            self.register_parameter(name, None)
+        self.weight_dtype: Optional[torch.dtype] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        x = x.to(self.dtype)
+        if self.weight_codes is None:
+            return F.linear(x, self.weight, self.bias)
+        bias = self.bias
+        if self.bias_codes is not None:
+            bias = quant_matmul.dequantize_rows(
+                self.bias_codes, self.bias_scale,
+                self.weight_dtype).to(self.dtype)
+        return quant_matmul.int8_linear(x, self.weight_codes,
+                                        self.weight_scale, bias,
+                                        weight_dtype=self.weight_dtype)
 
 
 def _norm(cfg: DecoderConfig, device) -> nn.Module:
@@ -370,11 +413,19 @@ class DecoderLayer(nn.Module):
                       cfg.head_dim)
         b = cfg.use_bias
         self.attn_norm = _norm(cfg, device)
-        self.q = Dense(D, N * H, b, dtype, device)
-        self.k = Dense(D, K * H, b, dtype, device)
-        self.v = Dense(D, K * H, b, dtype, device)
-        self.o = Dense(N * H, D, b, dtype, device)
+        self.q = Dense(D, N * H, b, dtype, device, flax_out=(N, H))
+        self.k = Dense(D, K * H, b, dtype, device, flax_out=(K, H))
+        self.v = Dense(D, K * H, b, dtype, device, flax_out=(K, H))
+        self.o = Dense(N * H, D, b, dtype, device, flax_in=(N, H))
         self.mlp_norm = _norm(cfg, device)
+        if cfg.num_experts > 0:
+            from ray_dynamic_batching_tpu_torch.models.moe import MoEBlock
+
+            self.moe = MoEBlock(
+                D, cfg.mlp_dim, cfg.num_experts, top_k=cfg.moe_top_k,
+                capacity_factor=cfg.moe_capacity_factor,
+                gated=cfg.gated_mlp, dtype=dtype, device=device)
+            return
         if cfg.gated_mlp:
             self.mlp_gate = Dense(D, cfg.mlp_dim, b, dtype, device)
         self.mlp_up = Dense(D, cfg.mlp_dim, b, dtype, device)
@@ -458,6 +509,8 @@ class DecoderLayer(nn.Module):
         x = x + self.o(attn.reshape(B, T, N * H))
 
         y = self.mlp_norm(x).to(self.dtype)
+        if cfg.num_experts > 0:
+            return x + self.moe(y)
         if cfg.gated_mlp:
             y = F.silu(self.mlp_gate(y)) * self.mlp_up(y)
         else:

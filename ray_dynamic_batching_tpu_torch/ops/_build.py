@@ -56,6 +56,10 @@ KERNELS: Dict[str, tuple] = {
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
          _F, _I, _I, _P, _L, _P, _I, _P],
     ),
+    "int8_weight_matmul": (
+        "rdb_int8_weight_matmul",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _L, _P, _I, _P],
+    ),
 }
 
 _lock = threading.Lock()

@@ -44,6 +44,7 @@ import torch
 from ray_dynamic_batching_tpu_torch.ops import decode_attention as _decode
 from ray_dynamic_batching_tpu_torch.ops import flash_attention as _flash
 from ray_dynamic_batching_tpu_torch.ops import graphs
+from ray_dynamic_batching_tpu_torch.ops import quant_matmul as _quant
 
 #: Calls routed to :func:`reference_attention` since the last reset.
 plain_launches = 0
@@ -66,9 +67,11 @@ def plain_attention():
 
 
 def reset_counts() -> None:
-    """Zero the launch counts of every kernel and of the plain route."""
+    """Zero the launch counts of every kernel (the int8-weight product's
+    among them) and of the plain route."""
     global plain_launches
     plain_launches = 0
+    _quant.launches = 0
     _flash.launches = 0
     _decode.launches = 0
     _decode.int8_launches = 0

@@ -35,8 +35,13 @@ courier drives. Speculative decoding comes through ``draft_model_name``
 (a registry model built beside the target from its own seed, 1) or a
 built ``draft_model`` module (the target module itself for a
 self-draft, sharing its weights), with ``spec_tokens``; every
-length-bucket engine gets the draft. The reference's checkpoints and
-weight quantisation come later.
+length-bucket engine gets the draft. ``quantize_weights=True`` serves
+weight-only int8 (``models/quant.py``): the model is quantized once in
+place and shared by every length-bucket engine, and ``auto_num_slots``
+counts its int8 bytes. ``params`` takes the JAX package's params tree
+(numpy leaves; a ``quantize_tree`` output keeps its codes) bridged by
+``models/convert.py::params_from_flax``. The reference's checkpoints
+come later.
 
 Payload contract (as the reference)::
 
@@ -61,7 +66,11 @@ from ray_dynamic_batching_tpu_torch.engine.request import (
     Request,
     RequestDropped,
 )
-from ray_dynamic_batching_tpu_torch.models.quant import tree_weight_bytes
+from ray_dynamic_batching_tpu_torch.models.quant import (
+    load_state,
+    quantize_tree,
+    tree_weight_bytes,
+)
 from ray_dynamic_batching_tpu_torch.profiles.table import BatchProfile
 from ray_dynamic_batching_tpu_torch.serve.replica import Replica
 from ray_dynamic_batching_tpu_torch.utils.config import get_config
@@ -358,6 +367,11 @@ class LLMDeployment:
     already have it. ``draft_model_name`` builds a draft beside the model
     (on its device, seed 1, the model dtype, its own KV dtype);
     ``draft_model`` injects one (the model itself for a self-draft).
+    ``params`` (a flax params tree of numpy arrays, possibly quantized by
+    the JAX package) replaces the random weights of the model it builds.
+    ``quantize_weights=True`` quantizes the model once, in place
+    (idempotent: a pre-quantized tree passes through); a separate draft
+    is not quantized, and a self-draft shares the model's int8 weights.
 
     ``num_slots <= 0`` means "size me" (:meth:`build_engine`): the
     memory budget is the config's ``hbm_budget_bytes``, which on a card
@@ -396,7 +410,12 @@ class LLMDeployment:
         draft_model_name: Optional[str] = None,
         draft_model: Any = None,
         spec_tokens: int = 4,
+        quantize_weights: bool = False,
+        params: Any = None,
     ) -> None:
+        if params is not None and model is not None:
+            raise ValueError("pass either params or model, not both — an "
+                             "injected model owns its weights")
         self.model_name = model_name
         self.num_slots = num_slots
         self.max_len = max_len
@@ -431,6 +450,11 @@ class LLMDeployment:
         # int8 KV cache: codes + per-(token, head) f32 scales, half the
         # bytes per slot (models/decoder.py::quantize_kv_rows).
         self.quantize_kv = bool(quantize_kv)
+        # Weight-only int8, quantized once in _ensure_model and shared by
+        # every length-bucket engine (per-engine quantization would
+        # multiply the resident copies by the bucket count).
+        self.quantize_weights = bool(quantize_weights)
+        self._params = params
         if isinstance(dtype, str):
             # A declarative config names the dtype ("bfloat16"), as the
             # reference's JAX models accept a dtype name.
@@ -481,7 +505,17 @@ class LLMDeployment:
                     kwargs["dtype"] = self._dtype
                 if self.quantize_kv:
                     kwargs["kv_dtype"] = torch.int8
+                if self._params is not None:
+                    kwargs["seed"] = None
                 self._model = registry.get_model(self.model_name, **kwargs)
+                if self._params is not None:
+                    from ray_dynamic_batching_tpu_torch.models.convert import (
+                        params_from_flax,
+                    )
+
+                    load_state(self._model, params_from_flax(
+                        self._params, self._model.cfg))
+                    self._params = None
             elif self.quantize_kv and getattr(
                     self._model, "kv_dtype", None) != torch.int8:
                 # An injected model owns its cache dtype; serving a
@@ -493,6 +527,8 @@ class LLMDeployment:
                     "kv_dtype=torch.int8) or pass model_name and let the "
                     "deployment build it"
                 )
+            if self.quantize_weights:
+                quantize_tree(self._model)
             if self.draft_model_name is not None and self._draft_model is None:
                 from ray_dynamic_batching_tpu_torch.models import registry
 
@@ -518,6 +554,8 @@ class LLMDeployment:
         prefill group widths), at most 256."""
         model = self._ensure_model()
         cfg = get_config()
+        # _ensure_model already quantized the model when asked, so a plain
+        # byte count is exact for both modes.
         weights_bytes = tree_weight_bytes(model) / max(1, n_chips)
         budget = float(cfg.hbm_budget_bytes)
         per_slot = float(
@@ -770,6 +808,7 @@ class LLMDeployment:
             host_spill_pages=self.host_spill_pages,
             draft_model=self._draft_model,
             spec_tokens=self.spec_tokens,
+            quantize_weights=self.quantize_weights,
         )
 
     # Controller protocol: factories exposing make_replica own replica

@@ -1272,3 +1272,110 @@ def test_paged_kernel_at_the_verify_window(card, dtype, int8):
     ref = dec.paged_decode_attention_plain(q, k, v, table, lengths,
                                            k_scale=ks, v_scale=vs)
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+# --- the int8-weight GEMM (ops/quant_matmul.py) ----------------------------------
+def _int8_case(card, M, N, K, period, act, w_dtype, bias=False, seed=0):
+    """x [M, K] ~ N(0, 1) in ``act``, codes uniform in [-127, 127], scales
+    that keep |y| below ~2 (so bf16 outputs round at 2^-8 .. 2^-7)."""
+    from ray_dynamic_batching_tpu_torch.ops import quant_matmul
+
+    gen = torch.Generator(device=card).manual_seed(seed + M + N + K)
+    x = torch.randn((M, K), generator=gen, device=card).to(act)
+    codes = torch.randint(-127, 128, (N, K), generator=gen, device=card,
+                          dtype=torch.int8)
+    scale = (torch.rand((period,), generator=gen, device=card) + 0.5) \
+        * (0.5 / (127 * K ** 0.5))
+    b = (torch.randn((N,), generator=gen, device=card).to(act)
+         if bias else None)
+    return quant_matmul, x, codes, scale, b
+
+
+@pytest.mark.parametrize("act,w_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+    (torch.float32, torch.float32)], ids=["bf16", "f32_head", "f32"])
+@pytest.mark.parametrize("M,N,K,period,bias", [
+    (16, 4096, 4096, 128, False),    # llama3_8b q at decode: scale per h
+    (16, 1024, 4096, 128, False),    # k / v: split K 16 ways
+    (16, 14336, 4096, 14336, False),  # mlp_up
+    (16, 4096, 14336, 4096, False),  # mlp_down
+    (256, 4096, 4096, 4096, False),  # o at a prefill group of 4 x 64
+    (80, 1024, 4096, 128, False),    # a verify window of 16 x 5
+    (4, 5000, 4096, 5000, False),    # the head's take rows (narrowed)
+    (1, 77, 80, 77, True),           # odd N, K not a multiple of 64
+    (17, 1000, 208, 8, True),        # odd M, period below N
+    (3, 64, 16, 64, True),           # one 16-deep step
+    (160, 128, 64, 128, False),      # moe_tiny's experts at a prefill
+])
+def test_int8_weight_kernel_matches_plain(card, act, w_dtype, M, N, K,
+                                          period, bias):
+    qm, x, codes, scale, b = _int8_case(card, M, N, K, period, act, w_dtype,
+                                        bias)
+    before = qm.launches
+    got = qm.int8_linear(x, codes, scale, b, weight_dtype=w_dtype)
+    torch.cuda.synchronize()
+    assert qm.launches == before + 1
+    want = qm.int8_linear_plain(x, codes, scale, b, weight_dtype=w_dtype)
+    assert got.dtype == act and got.shape == (M, N)
+    assert torch.isfinite(got.float()).all()
+    tol = TOL[act] if act == torch.float32 else TOL[torch.bfloat16]
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_int8_weight_kernel_is_deterministic_and_replays(card):
+    """A split-K shape (k/v at decode): two eager calls give identical
+    bits (the partials are summed in split order), and a CUDA graph of
+    the call replays to the same bits on new inputs copied in place,
+    adding one launch a replay."""
+    from ray_dynamic_batching_tpu_torch.ops import graphs
+
+    qm, x, codes, scale, _ = _int8_case(card, 16, 1024, 4096, 128,
+                                        torch.bfloat16, torch.bfloat16)
+    qm.reserve(card)
+    first = qm.int8_linear(x, codes, scale, weight_dtype=torch.bfloat16)
+    assert torch.equal(first, qm.int8_linear(x, codes, scale,
+                                             weight_dtype=torch.bfloat16))
+    gs = graphs.GraphSet(card)
+    prog = gs.program("int8_linear", lambda a: qm.int8_linear(
+        a, codes, scale, weight_dtype=torch.bfloat16))
+    prog(x)                                   # eager first call
+    x2 = torch.randn_like(x.float()).to(x.dtype)
+    want = qm.int8_linear(x2, codes, scale, weight_dtype=torch.bfloat16)
+    before = qm.launches
+    got = prog(x2).clone()                    # a replay
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert qm.launches == before + 1
+    assert torch.equal(prog(x).clone(), first)
+
+
+def test_int8_weight_kernel_refuses_what_it_cannot_take(card):
+    qm, x, codes, scale, _ = _int8_case(card, 4, 64, 32, 64, torch.float32,
+                                        torch.float32)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        qm.int8_linear(x[:, :24].contiguous(), codes[:, :24].contiguous(),
+                       scale, weight_dtype=torch.float32)
+    with pytest.raises(ValueError, match="device"):
+        qm.int8_linear(x, codes.cpu(), scale, weight_dtype=torch.float32)
+    with pytest.raises(TypeError, match="bf16 weights"):
+        qm.int8_linear(x.bfloat16(), codes, scale,
+                       weight_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("arm", list(_ARMS))
+def test_quantized_engine_graphed_equals_eager(card, arm):
+    """Weight-only int8 on every arm: the graphed and eager engines serve
+    identical greedy tokens (f32) with every product on the int8 kernel,
+    whose launches are the same in both."""
+    from ray_dynamic_batching_tpu_torch.models.quant import quantize_tree
+    from ray_dynamic_batching_tpu_torch.ops import quant_matmul
+
+    kv_dtype, knobs = _ARMS[arm]
+    model = quantize_tree(_tiny_lm(card, kv_dtype))
+    runs = []
+    for eager in (True, False):
+        tokens, counts, engine = _serve_arm(model, knobs, eager=eager)
+        runs.append((tokens, counts, quant_matmul.launches))
+        assert engine.quantized
+    assert runs[0] == runs[1]
+    assert runs[1][2] > 0

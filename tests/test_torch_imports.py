@@ -314,3 +314,59 @@ def test_sim_and_front_door_run_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == "0 True 0 True True"
+
+
+_W8_PROBE = """
+import sys
+for name in {forbidden!r}:
+    sys.modules[name] = None      # any import of them now raises
+import torch
+torch.set_num_threads(2)
+from ray_dynamic_batching_tpu_torch.engine.request import Request
+from ray_dynamic_batching_tpu_torch.models.quant import (
+    is_quantized,
+    quantized_weight_bytes,
+    tree_weight_bytes,
+)
+from ray_dynamic_batching_tpu_torch.models import registry
+from ray_dynamic_batching_tpu_torch.profiles.decode_profiler import (
+    DecodeProfiler,
+)
+from ray_dynamic_batching_tpu_torch.serve.controller import DeploymentConfig
+from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+full = registry.get_model("moe_tiny", dtype=torch.float32, device="cpu",
+                          seed=0)
+planned = quantized_weight_bytes(full)
+dep = LLMDeployment("moe_tiny", num_slots=2, max_len=32, prompt_buckets=[8],
+                    default_max_new_tokens=3, dtype=torch.float32,
+                    device="cpu", seed=0, quantize_weights=True)
+replica = dep.make_replica("probe", DeploymentConfig(name="moe_tiny"))
+model = replica.engine.model
+assert is_quantized(model) and tree_weight_bytes(model) == planned
+row = DecodeProfiler(model, timing_iters=2,
+                     warmup_iters=1).profile_decode_config(2, 32)
+full_row = DecodeProfiler(full, timing_iters=2,
+                          warmup_iters=1).profile_decode_config(2, 32)
+# The rows differ by exactly the weights' bytes: the int8 ones are counted.
+assert full_row.hbm_bytes - row.hbm_bytes == \
+    tree_weight_bytes(full) - planned > 0
+req = Request(model="moe_tiny", payload={{"tokens": [1, 2, 3]}}, slo_ms=1e7)
+replica.engine.queue.add_request(req)
+replica.engine.run_until_idle(timeout_s=60)
+print(len(req.future.result(timeout=5).tokens))
+"""
+
+
+def test_int8_weights_and_moe_run_with_jax_blocked():
+    """``models/quant.py``, ``models/moe.py`` and ``ops/quant_matmul.py``
+    with JAX blocked: moe_tiny quantized once by ``LLMDeployment``, its
+    resident bytes the planner's estimate, a decode-profiler row that
+    counts them (it differs from the full-precision model's row by the
+    weights' bytes alone), and three greedy tokens served on the CPU."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", _W8_PROBE.format(forbidden=FORBIDDEN)],
+        capture_output=True, text=True, timeout=120, cwd=str(ROOT), env=env,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "3"
