@@ -48,7 +48,17 @@ last line:
    (dequantize + ``F.linear``), and at 16, 64 and 256 rows (the head at
    4 and 16) its time beside the plain version's, ``torch.matmul`` on the
    dequantized weight (what the bf16 deployment runs) and the bound (the
-   code bytes against 2MNK at the activations' peak);
+   code bytes against 2MNK at the activations' peak). Last, every shape
+   phase 19 launches (``SERVABLE_*`` below), f32 and bf16: timed with
+   their bounds and SDPA, flash at DistilBERT-SST2's key-masked
+   [32, T, 12, 64] for T 64, 128 and 256, Whisper-large-v3's encoder
+   [8, 1500, 20, 64] with its frame mask and gpt2_medium's causal
+   no-cache forward with the token mask at T 64, 128 and 256; the slab
+   decode kernel at Whisper's step over its 40-position cache and its
+   cross read over 1500 states (G = 1); kernels 2 and 3 at head_dim 16
+   (llama_tiny's step), bf16 and int8. Held but not timed: the rest
+   (Whisper's 2-layer apply and its stream, DistilBERT at T = 8, the tiny
+   servables' shapes);
 4. parity — llama3_8b at full width, 2 layers, f32, with the model's own
    cache and with the int8 KV cache: slab ``prefill`` then one
    ``decode_step``, and paged ``prefill_chunk_paged`` (a W = 64 and a
@@ -350,12 +360,48 @@ last line:
     graphed greedy tokens identical to eager. Every kernel shape the
     phase launches must be one phase 3 held: phase 18 needs phase 3.
 
+19. servables — DistilBERT, Whisper-style ASR and CausalLM's no-cache
+    forward (``models/{distilbert,asr}.py``, ``CausalLM.apply``). (a) f32,
+    TF32 off, each through the kernel route against ``plain_attention()``
+    (logits to 1e-3, 1e-4 for distilbert_tiny; greedy tokens identical),
+    with its launches counted: distilbert_sst2 at full width and depth
+    (batch 4, T = 128 on flash, T = 8 on the slab decode kernel);
+    whisper_large_v3 at full width, 2 encoder + 2 decoder layers
+    (teacher-forced logits of two clips of 3000 and 2400 frames, then
+    ``bench_asr_rtf``'s transcribe loop, 32 tokens); gpt2_medium's
+    ``apply`` at full width, 2 layers (batch 2 x 128, causal with the
+    token mask); the head_dim-16 servables: distilbert_tiny at T = 16 and
+    8, llama_tiny, llama_tiny_int8kv and moe_tiny through
+    ``LLMDeployment`` on the slab and the pool (greedy tokens against an
+    eager plain-route deployment; kernel 2 or 3 must launch) and
+    whisper_tiny_test's stream. (b) distilbert_sst2 bf16:
+    ``ModelProfiler`` over ``tools/run_profiles.py``'s buckets (batch
+    1-512 x seq 64 / 128 / 256) into ``build/profiles_h100/``, then one
+    ``ReplicaEngine`` planned by ``SquishyBinPacker`` from those rows
+    (seq bucket 128) under a ``LiveScheduler``, Poisson arrivals of ragged
+    token ids (8-128 tokens) for 30 s at min(200, max(0.2, 0.010 x the
+    profiled peak)) rps: compliance per half against the 100 ms SLO
+    (stale and dropped count as misses), gated at 0.95, every request
+    accounted for. (c) whisper_large_v3 bf16 at full width and depth:
+    ``bench_asr_rtf``'s shape (batch 8 x 30 s, 32 tokens, median of 3;
+    RTF, latency, encode / prefill / steps), a 10 s clip streamed in
+    200-frame chunks (8 new tokens a chunk), and the served roundtrip
+    controller -> router -> replica -> ``StreamingASR`` factory, 4
+    requests, each transcript equal to a direct ``StreamingASR`` run. (d)
+    gpt2_medium bf16 at full depth: ``ModelProfiler`` rows over batch
+    1-32 x seq 64 / 128 / 256 with ``flops_per_sample`` beside each.
+    Launches are held to what each run implies (one flash or decode call
+    a layer a forward; the profiler's forwards a row). Every kernel shape
+    the phase launches must be one phase 3 held: phase 19 needs phase 3.
+    It prints its wall time.
+
 Every engine is warmed before it serves, and every serving phase (5-12,
 14, 16-18) ends with the capture ledger's ``check_steady()``: no program
 was captured after a warmup ended. Phases 5 to 13 and 16 to 18 are
-served graphed.
+served graphed (phase 19's decoders too; its encoders and ``StreamingASR``
+run eagerly).
 
-Phases 5 to 14 and 16 to 18's runs each set every launch count to 0
+Phases 5 to 14 and 16 to 19's runs each set every launch count to 0
 just before they serve and read them just after: each kernel of the path
 must have launched the number of times the engine's dispatches imply,
 the other kernels and the plain route never (a graph replay adds the
@@ -376,9 +422,10 @@ warmed).
 The line before the last is one JSON object with the per-kernel numbers
 (``launches`` sums the serving phases, phase 14's graphed speed runs
 among them; ``launches_by_path`` splits them) and the numbers of the
-front, controller, colocate, vision, graphs, sim, reuse, spec and
-weights phases (``front``, ``controller``, ``colocate``, ``vision``,
-``graphs``, ``sim``, ``reuse``, ``spec``, ``weights``; the
+front, controller, colocate, vision, graphs, sim, reuse, spec, weights
+and servables phases (``front``, ``controller``, ``colocate``,
+``vision``, ``graphs``, ``sim``, ``reuse``, ``spec``, ``weights``,
+``servables``; the
 per-hop splits under ``front.hops``, ``colocate.runs.diagnostic.turns``
 and ``vision.traced``, the front-door run under ``front.front_door``);
 the last line is
@@ -678,6 +725,10 @@ def _masked_cost(x) -> tuple:
     read once, plus q, out and the int8 mask; FLOPs 4 N H per attended
     (row, key) pair. The kernels skip the 64-key tiles no row attends."""
     keep = x["keep"] != 0                               # [B, Tq, Tk]
+    if x.get("causal"):     # the kernel applies the causal rule itself
+        Tq, Tk = keep.shape[1:]
+        keep = keep & torch.ones((Tq, Tk), dtype=torch.bool,
+                                 device=keep.device).tril(Tk - Tq)
     positions = int(keep.any(dim=1).sum().item())
     pairs = int(keep.sum().item())
     n_heads, head_dim = x["q"].shape[2:]
@@ -837,6 +888,125 @@ def _paged_case(B, tq, n_heads, kv_heads, head_dim, n_table,
     return make
 
 
+# Phase 19's launch shapes (the remaining servables), as its models hand
+# them over. Timed: DistilBERT-SST2's key-masked attention at batch 32 and
+# the profiled seq buckets, Whisper-large-v3's encoder at bench_asr_rtf's
+# batch 8 x 1500 states, gpt2_medium's causal no-cache forward with the
+# token mask, Whisper's step over its 40-position cache and its cross read
+# over 1500 states (G = 1), and the decode kernels at head_dim 16
+# (llama_tiny's step: 4 heads over 2 KV heads) in bf16 and int8.
+SERVABLE_FLASH_CASES = (
+    # (case, B, Tq, N, Tk, K, H, mask: "key" | "prefill" | "stair", causal)
+    ("distilbert_T64", 32, 64, 12, 64, 12, 64, "key", False),
+    ("distilbert_T128", 32, 128, 12, 128, 12, 64, "key", False),
+    ("distilbert_T256", 32, 256, 12, 256, 12, 64, "key", False),
+    ("whisper_encoder", 8, 1500, 20, 1500, 20, 64, "key", False),
+    ("gpt2_apply_T64", 8, 64, 16, 64, 16, 64, "key", True),
+    ("gpt2_apply_T128", 8, 128, 16, 128, 16, 64, "key", True),
+    ("gpt2_apply_T256", 8, 256, 16, 256, 16, 64, "key", True),
+)
+SERVABLE_DECODE_CASES = (
+    # (case, B, Tq, N, Tk, K, H, mask)
+    ("whisper_step", 8, 1, 20, 40, 20, 64, "stair"),
+    ("whisper_cross", 8, 1, 20, 1500, 20, 64, "key"),
+    ("h16_step", 16, 1, 4, 64, 2, 16, "stair"),
+)
+SERVABLE_PAGED_CASES = (
+    # (case, B, Tq, N, K, H, pages a slot, scratch)
+    ("h16_step", 16, 1, 4, 2, 16, 2, False),
+)
+# Held, not timed: every other shape phase 19 launches. Whisper-large-v3's
+# 2-layer f32 apply and its stream (200-frame chunks: 100 states; a
+# prefix in text buckets 16, 32, 64 over caches of bucket + 8), DistilBERT
+# at T = 8, and the tiny servables' shapes (head_dim 16: llama_tiny,
+# llama_tiny_int8kv and moe_tiny on the slab of 64 and the pool of 128-
+# position pages, buckets 8 and 16; whisper_tiny_test's stream of 100
+# states and caches of 20 and 80; distilbert_tiny at T = 8 and 16).
+SERVABLE_FLASH_HELD = (
+    ("whisper_apply_self", 2, 16, 20, 16, 20, 64, "prefill", False),
+    ("whisper_apply_cross", 2, 16, 20, 1500, 20, 64, "key", False),
+    ("whisper_stream_encoder", 1, 100, 20, 100, 20, 64, "key", False),
+) + tuple(
+    (f"whisper_stream_self_T{t}", 1, t, 20, t + 8, 20, 64, "prefill", False)
+    for t in (16, 32, 64)) + tuple(
+    (f"whisper_stream_cross_T{t}", 1, t, 20, 100, 20, 64, "key", False)
+    for t in (16, 32, 64)) + (
+    ("h16_key16", 4, 16, 4, 16, 4, 16, "key", False),
+    ("h16_prefill16", 4, 16, 4, 64, 2, 16, "prefill", False),
+    ("h16_chunk_paged", 4, 16, 4, 256, 2, 16, "stair", False),
+    ("h16_long_row", 1, 16, 4, 80, 2, 16, "stair", False),
+    ("h16_asr_self", 1, 16, 4, 20, 4, 16, "prefill", False),
+    ("h16_asr_cross", 1, 16, 4, 100, 4, 16, "key", False),
+    ("h16_asr_encoder", 1, 100, 4, 100, 4, 16, "key", False),
+)
+SERVABLE_DECODE_HELD = (
+    ("distilbert_T8", 4, 8, 12, 8, 12, 64, "key"),
+) + tuple(
+    (f"whisper_stream_step_S{t + 8}", 1, 1, 20, t + 8, 20, 64, "stair")
+    for t in (16, 32, 64)) + (
+    ("whisper_stream_cross", 1, 1, 20, 100, 20, 64, "key"),
+    ("h16_key8", 4, 8, 4, 8, 4, 16, "key"),
+    ("h16_prefill8", 4, 8, 4, 64, 2, 16, "prefill"),
+    ("h16_asr_step", 1, 1, 4, 20, 4, 16, "stair"),
+    ("h16_asr_cross", 1, 1, 4, 100, 4, 16, "key"),
+)
+SERVABLE_DECODE_INT8_HELD = (
+    ("h16_prefill8", 4, 8, 4, 64, 2, 16, "prefill"),
+)
+SERVABLE_PAGED_HELD = (
+    ("h16_window8", 4, 8, 4, 2, 16, 2, False),
+)
+
+
+def _own_stream(make, seed: int):
+    """``make`` drawing from generators of its own, seeded by ``seed``,
+    instead of phase 3's shared ones: a case added this way leaves the
+    inputs of every case after it as they were."""
+    def made(dtype, gen, rng):
+        return make(dtype, torch.Generator(device="cuda").manual_seed(seed),
+                    np.random.default_rng(seed))
+
+    return made
+
+
+def _servable_case(B, tq, n_heads, Tk, kv_heads, head_dim, mask_kind,
+                   causal=False, int8=False):
+    """Kernel 1 or 2 inputs as phase 19's models hand them over: q
+    [B, tq, N, H] over k/v [B, Tk, K, H] with a ``mask_kind`` mask —
+    ``"key"``: each row's valid keys a prefix of 3/4 Tk .. Tk (a token or
+    frame mask), with ``causal`` the causal flag beside it (the kernel
+    gets the key mask and applies the causal rule; SDPA the two
+    combined); ``"prefill"`` and ``"stair"``: :func:`_slab_case`'s
+    prefill and staircase masks."""
+    if mask_kind != "key":
+        return _slab_case(B, tq, n_heads, Tk, kv_heads, head_dim,
+                          prefill=mask_kind == "prefill", int8=int8)
+    from ray_dynamic_batching_tpu_torch.ops import flash_attention as fl
+
+    def make(dtype, gen, rng):
+        dev = "cuda"
+        q = torch.randn((B, tq, n_heads, head_dim), generator=gen,
+                        device=dev)
+        k = torch.randn((B, Tk, kv_heads, head_dim), generator=gen,
+                        device=dev)
+        v = torch.randn((B, Tk, kv_heads, head_dim), generator=gen,
+                        device=dev)
+        n = torch.randint(max(1, 3 * Tk // 4), Tk + 1, (B,), generator=gen,
+                          device=dev)
+        key = (torch.arange(Tk, device=dev)[None, :] < n[:, None])
+        key = key[:, None, None, :].expand(B, 1, tq, Tk)
+        keep = fl.keep_mask(key, B, tq, Tk)
+        mask = key
+        if causal:
+            mask = key & torch.ones((tq, Tk), dtype=torch.bool,
+                                    device=dev).tril(Tk - tq)
+        x = dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype), mask=mask,
+                 keep=keep, causal=causal)
+        return _quantized(x) if int8 else x
+
+    return make
+
+
 def _dequant_sdpa(x):
     """The int8 slab yardstick: dequantize k and v, then SDPA (3 calls)."""
     from ray_dynamic_batching_tpu_torch.models.decoder import dequantize_kv
@@ -876,12 +1046,14 @@ def _kernel_specs():
             replaces="ray_dynamic_batching_tpu/ops/flash_attention.py:154",
             inputs=_prefill_inputs,
             kernel=lambda x: fl.flash_attention(
-                x["q"], x["k"], x["v"],
+                x["q"], x["k"], x["v"], causal=x.get("causal", False),
                 mask=None if x["keep"] is None else x["keep"][:, None]),
             kernel_bool_mask=lambda x: fl.flash_attention(
-                x["q"], x["k"], x["v"], mask=x["mask"]),
+                x["q"], x["k"], x["v"], causal=x.get("causal", False),
+                mask=x["mask"]),
             plain=lambda x: fl.flash_attention_plain(
-                x["q"], x["k"], x["v"], x["keep"]),
+                x["q"], x["k"], x["v"], x["keep"],
+                causal=x.get("causal", False)),
             library=lambda x: _sdpa(x["q"], x["k"], x["v"], x["mask"]),
             yardstick=None,
             cost=_masked_cost,
@@ -892,7 +1064,11 @@ def _kernel_specs():
                            ("vit", _vit_inputs, _qkvo_cost),
                            ("vit_g", _vit_g_inputs, _qkvo_cost)] + [
                 (c, _slab_case(*dims), None)
-                for c, *dims in FLASH_SPEC_CASES],
+                for c, *dims in FLASH_SPEC_CASES] + [
+                (c, _own_stream(_servable_case(*dims), i), None)
+                for i, (c, *dims) in enumerate(SERVABLE_FLASH_CASES)],
+            held_cases=[(c, _own_stream(_servable_case(*dims), 100 + i))
+                        for i, (c, *dims) in enumerate(SERVABLE_FLASH_HELD)],
         ),
         "decode_attention": dict(
             source="ray_dynamic_batching_tpu_torch/csrc/decode_attention.cu",
@@ -911,7 +1087,11 @@ def _kernel_specs():
             # KV head) and gpt2_medium's (5), the draft steps, the
             # catch-up windows, gpt2_medium's step.
             serving_cases=[(c, _slab_case(*dims), None)
-                           for c, *dims in DECODE_SPEC_CASES],
+                           for c, *dims in DECODE_SPEC_CASES] + [
+                (c, _own_stream(_servable_case(*dims), 200 + i), None)
+                for i, (c, *dims) in enumerate(SERVABLE_DECODE_CASES)],
+            held_cases=[(c, _own_stream(_servable_case(*dims), 300 + i))
+                        for i, (c, *dims) in enumerate(SERVABLE_DECODE_HELD)],
         ),
         "paged_decode_attention": dict(
             source=("ray_dynamic_batching_tpu_torch/csrc/"
@@ -929,7 +1109,11 @@ def _kernel_specs():
             # Phase 17's: the paged verify windows over scratch pages,
             # gpt2_medium's step.
             serving_cases=[(c, _paged_case(*dims), None)
-                           for c, *dims in PAGED_SPEC_CASES],
+                           for c, *dims in PAGED_SPEC_CASES] + [
+                (c, _own_stream(_paged_case(*dims), 400 + i), None)
+                for i, (c, *dims) in enumerate(SERVABLE_PAGED_CASES)],
+            held_cases=[(c, _own_stream(_paged_case(*dims), 500 + i))
+                        for i, (c, *dims) in enumerate(SERVABLE_PAGED_HELD)],
         ),
         # The int8-KV branch of kernels 2 and 3: the same sources and
         # wrappers, 1-byte codes + f32 scales (the reference's scale
@@ -951,7 +1135,14 @@ def _kernel_specs():
             yardstick=(_dequant_sdpa, "dequantize + sdpa (3 calls)"),
             cost=_masked_cost,
             serving_cases=[(c, _slab_case(*dims, int8=True), None)
-                           for c, *dims in DECODE_INT8_SPEC_CASES],
+                           for c, *dims in DECODE_INT8_SPEC_CASES] + [
+                (c, _own_stream(_servable_case(*dims, int8=True), 600 + i),
+                 None)
+                for i, (c, *dims) in enumerate(SERVABLE_DECODE_CASES[2:])],
+            held_cases=[(c, _own_stream(_servable_case(*dims, int8=True),
+                                        700 + i))
+                        for i, (c, *dims) in enumerate(
+                            SERVABLE_DECODE_INT8_HELD)],
         ),
         "paged_decode_attention_int8": dict(
             source=("ray_dynamic_batching_tpu_torch/csrc/"
@@ -969,7 +1160,12 @@ def _kernel_specs():
             cost=_paged_cost,
             extra_cases=[(torch.float32, 4)],
             serving_cases=[(c, _paged_case(*dims, int8=True), None)
-                           for c, *dims in PAGED_SPEC_CASES[:1]],
+                           for c, *dims in PAGED_SPEC_CASES[:1]] + [
+                (c, _own_stream(_paged_case(*dims, int8=True), 800 + i), None)
+                for i, (c, *dims) in enumerate(SERVABLE_PAGED_CASES)],
+            held_cases=[(c, _own_stream(_paged_case(*dims, int8=True),
+                                        900 + i))
+                        for i, (c, *dims) in enumerate(SERVABLE_PAGED_HELD)],
         ),
     }
 
@@ -1132,6 +1328,14 @@ def phase_kernels() -> dict:
                            **_timed(sp, x, dtype, cost))
                 _print_times(f"{name} {case}", sub)
                 row.update({f"{case}_{k}": v for k, v in sub.items()})
+        for case, make in sp.get("held_cases", []):
+            errs = []
+            for dtype in (torch.float32, torch.bfloat16):
+                tag = ("bf16" if dtype == torch.bfloat16 else "f32") + \
+                    f" {case} (held)"
+                errs.append(_check(name, tag, sp, make(dtype, gen, rng),
+                                   dtype))
+            row.setdefault("held_max_abs_err", {})[case] = errs
         results[name] = row
     results["int8_weight_matmul"] = _w8_kernel_row()
     attention.reset_counts()   # comparison launches do not count
@@ -5796,6 +6000,675 @@ def phase_weights() -> tuple:
                         kernel_shapes=launched, wall_s=wall)
 
 
+# --- phase 19: the remaining servables ---------------------------------------
+SERVABLES = dict(
+    # 19a: f32 parity, kernel route against plain_attention().
+    bert_batch=4, bert_seq=128,
+    asr_layers=2, asr_batch=2, asr_frames=(3000, 2400), asr_text=16,
+    gpt2_layers=2, gpt2_batch=2, gpt2_seq=128,
+    tiny_lms=("llama_tiny", "llama_tiny_int8kv", "moe_tiny"),
+    tiny_knobs={"slab": dict(num_slots=4, max_len=64, prompt_buckets=[8, 16],
+                             default_max_new_tokens=6),
+                "paged": dict(num_slots=4, max_len=256,
+                              prompt_buckets=[8, 16],
+                              default_max_new_tokens=6, paged=True)},
+    tiny_prompts=(3, 7, 12, 5),
+    tiny_clips=(90, 160), tiny_chunk=100, tiny_new=4,
+    # 19b: distilbert_sst2 bf16, tools/run_profiles.py:45's buckets, then
+    # one replica at phase 13's rate rule under the 100 ms SLO.
+    bert_buckets=[1, 8, 32, 128, 256, 512], bert_seqs=(64, 128, 256),
+    bert_serve_seq=128, bert_tokens=(8, 128), bert_util=0.010,
+    max_rps=200.0, min_rps=0.2, bert_duration_s=30.0, gate=0.95,
+    hbm_budget_bytes=12 << 30,
+    # 19c: whisper_large_v3 bf16 at full depth: bench_asr_rtf's shape,
+    # a 10 s stream in 200-frame chunks, the served roundtrip.
+    rtf_batch=8, rtf_audio_s=30.0, rtf_tokens=32, rtf_repeats=3,
+    stream_frames=1000, stream_chunk=200, stream_feed=100, stream_new=8,
+    serve_clips=(150, 120, 180, 90),
+    # 19d: gpt2_medium's no-cache rows (tools/run_profiles.py:46).
+    gpt2_buckets=[1, 4, 8, 16, 32], gpt2_seqs=(64, 128, 256),
+    warmup_iters=2, timing_iters=4,
+)
+BERT_LAYERS = 6
+WHISPER_MAX_NEW = SERVABLES["stream_new"]
+
+
+def _profiler_forwards(warmup_iters: int, timing_iters: int) -> int:
+    """Forwards ``ModelProfiler.profile_bucket`` runs for one row: the
+    first dispatch, ``warmup_iters - 1`` more (at least one) and three
+    samples of ``max(timing_iters, 2)``."""
+    return 1 + max(warmup_iters - 1, 1) + 3 * max(timing_iters, 2)
+
+
+def _route_parity(tag: str, model, inputs, launches: dict, tol: float,
+                  valid=None) -> dict:
+    """One forward of ``model`` through the kernel route and one under
+    ``plain_attention()``: the max abs logit error (over ``valid`` rows),
+    identical argmax, and the kernel launches of the kernel route equal
+    to ``launches``."""
+    from ray_dynamic_batching_tpu_torch.ops import attention
+
+    attention.reset_counts()
+    with torch.inference_mode():
+        out = model(*inputs)
+        torch.cuda.synchronize()
+        counts = _counts()
+        with attention.plain_attention():
+            ref = model(*inputs)
+    torch.cuda.synchronize()
+    if valid is not None:
+        out, ref = out[valid], ref[valid]
+    if not bool(torch.isfinite(out).all()):
+        fail(f"{tag}: non-finite logits")
+    err = (out.float() - ref.float()).abs().max().item()
+    same = bool((out.argmax(-1) == ref.argmax(-1)).all())
+    print(f"[servables] parity {tag}: kernel route vs plain route max abs "
+          f"logit err {err:.3e} (max |logit| {ref.abs().max().item():.3f}; "
+          f"tol {tol:.0e}), argmax identical {same}; launches {counts}",
+          flush=True)
+    _expect_only(f"servables {tag}", counts, launches)
+    if not err <= tol or not same:
+        fail(f"servables {tag}: logits off the plain route by {err} "
+             f"(argmax identical: {same})")
+    attention.reset_counts()
+    return {"max_abs_err": err, "launches": counts}
+
+
+def _asr_transcribe(model, mel, mask, tokens: int) -> tuple:
+    """``bench_asr_rtf``'s program, eagerly: encode, a one-token SOT
+    prefill into a cache of ``tokens + 8``, ``tokens - 1`` greedy steps;
+    the tokens [B, tokens] fetched at the end. Returns (tokens, seconds of
+    encode, prefill, steps), each part ended by a synchronize."""
+    B = mel.shape[0]
+    cfg = model.cfg
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc, emask = model.encode(mel, mask)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cache = model.make_cache(B, max_len=tokens + 8)
+        sot = torch.full((B, 1), cfg.sot_token, dtype=torch.int32,
+                         device="cuda")
+        last, cache = model.prefill(sot, torch.ones_like(sot), enc, emask,
+                                    cache)
+        tok = torch.argmax(last.float(), dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = [tok]
+        active = torch.ones((B,), dtype=torch.bool, device="cuda")
+        for _ in range(tokens - 1):
+            logits, cache = model.decode_step(out[-1][:, None], enc, emask,
+                                              cache, active)
+            out.append(torch.argmax(logits.float(), dim=-1).to(torch.int32))
+        toks = torch.stack(out, dim=1).cpu()
+        t3 = time.perf_counter()
+    return toks, (t1 - t0, t2 - t1, t3 - t2)
+
+
+def _mel_batch(rng, frames, n_mels: int):
+    """Ragged clips of ``frames`` each (numpy) and their collated
+    (mel, mask) on the card."""
+    from ray_dynamic_batching_tpu_torch.models.asr import collate_audio
+
+    clips = [rng.standard_normal((n, n_mels)).astype(np.float32)
+             for n in frames]
+    mel, mask = collate_audio(clips, len(clips))
+    return clips, torch.from_numpy(mel).cuda(), torch.from_numpy(mask).cuda()
+
+
+def _tiny_lm_parity(name: str, c: dict) -> dict:
+    """A registry tiny decoder (head_dim 16) through ``LLMDeployment`` on
+    the card, f32, slab and paged: greedy tokens equal to an eager
+    deployment on the plain route; the decode kernels launch."""
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+    from ray_dynamic_batching_tpu_torch.ops import attention, graphs
+    from ray_dynamic_batching_tpu_torch.serve.controller import (
+        DeploymentConfig,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, 500, n).tolist() for n in c["tiny_prompts"]]
+    out = {}
+    for arm, knobs in c["tiny_knobs"].items():
+        runs = {}
+        for mode in ("kernel", "plain"):
+            with contextlib.ExitStack() as ctx:
+                if mode == "plain":
+                    ctx.enter_context(attention.plain_attention())
+                    ctx.enter_context(graphs.disable_capture())
+                dep = LLMDeployment(name, dtype=torch.float32, seed=0,
+                                    device="cuda", **knobs)
+                replica = dep.make_replica(f"{name}-{arm}",
+                                           DeploymentConfig(name=name))
+                engine = replica.engine
+                reqs = [Request(model=name, payload={"tokens": p},
+                                slo_ms=600_000.0) for p in prompts]
+                attention.reset_counts()
+                for r in reqs:
+                    engine.queue.add_request(r)
+                engine.run_until_idle(timeout_s=300)
+                torch.cuda.synchronize()
+                runs[mode] = ([r.future.result(5).tokens for r in reqs],
+                              _counts())
+                engine.release_buffers()
+        tokens, counts = runs["kernel"]
+        kind = "paged_decode_attention" if arm == "paged" else \
+            "decode_attention"
+        if name.endswith("int8kv"):
+            kind += "_int8"
+        same = tokens == runs["plain"][0]
+        print(f"[servables] {name} {arm} f32 (head_dim 16): greedy tokens "
+              f"identical to the plain route {same}; launches {counts}",
+              flush=True)
+        if not same:
+            fail(f"servables {name} {arm}: greedy tokens differ from the "
+                 "plain route")
+        if not counts.get(kind) or counts.get("plain"):
+            fail(f"servables {name} {arm}: {kind} never launched, or the "
+                 f"plain route did: {counts}")
+        out[arm] = {"greedy_identical": True, "launches": counts}
+    attention.reset_counts()
+    return out
+
+
+def _tiny_asr_parity(c: dict) -> dict:
+    """``whisper_tiny_test`` (head_dim 16) streaming on the card, f32:
+    transcripts through the kernel route equal the plain route's, and
+    the decode kernel launches (its steps and cross reads)."""
+    from ray_dynamic_batching_tpu_torch.models.asr import StreamingASR
+    from ray_dynamic_batching_tpu_torch.models.base import get_model
+    from ray_dynamic_batching_tpu_torch.ops import attention
+
+    model = get_model("whisper_tiny_test", dtype=torch.float32, seed=0)
+    clips, _, _ = _mel_batch(np.random.default_rng(7), c["tiny_clips"],
+                             model.cfg.n_mels)
+    runs = {}
+    for mode in ("kernel", "plain"):
+        ctx = (attention.plain_attention() if mode == "plain"
+               else contextlib.nullcontext())
+        with ctx:
+            attention.reset_counts()
+            got = []
+            for clip in clips:
+                stream = StreamingASR(model, chunk_frames=c["tiny_chunk"],
+                                      max_new_tokens=c["tiny_new"])
+                for i in range(0, len(clip), 50):
+                    stream.feed(clip[i:i + 50])
+                stream.flush()
+                got.append(stream.transcript)
+            torch.cuda.synchronize()
+            runs[mode] = (got, _counts())
+    same = runs["kernel"][0] == runs["plain"][0]
+    counts = runs["kernel"][1]
+    print(f"[servables] whisper_tiny_test f32 (head_dim 16) streaming: "
+          f"transcripts identical to the plain route {same} "
+          f"({runs['kernel'][0]}); launches {counts}", flush=True)
+    if not same:
+        fail("servables whisper_tiny_test: transcripts differ from the "
+             "plain route")
+    if not counts["decode_attention"] or not counts["flash_attention"]:
+        fail(f"servables whisper_tiny_test: a kernel never launched: "
+             f"{counts}")
+    attention.reset_counts()
+    return {"transcripts_identical": True, "launches": counts}
+
+
+def _servable_parity(c: dict) -> dict:
+    """19a: each servable's kernel route against its plain route, f32,
+    TF32 off."""
+    from ray_dynamic_batching_tpu_torch.models.asr import (
+        WHISPER_LARGE_V3,
+        ASRModel,
+    )
+    from ray_dynamic_batching_tpu_torch.models.base import get_model
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        GPT2_MEDIUM,
+        CausalLM,
+    )
+    from ray_dynamic_batching_tpu_torch.ops import attention
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    rng = np.random.default_rng(19)
+    try:
+        # DistilBERT-SST2 at full width and depth: flash at T = 128 with
+        # a key mask; T = 8 takes the slab decode kernel.
+        bert = get_model("distilbert_sst2", dtype=torch.float32,
+                         seed=0).eval()
+        for T, kind in ((c["bert_seq"], "flash_attention"),
+                        (8, "decode_attention")):
+            B = c["bert_batch"]
+            ids = torch.from_numpy(rng.integers(0, 30522, (B, T)).astype(
+                np.int32)).cuda()
+            lens = np.linspace(T // 2, T, B).astype(int)
+            mask = torch.from_numpy((np.arange(T)[None, :] < lens[:, None])
+                                    .astype(np.int32)).cuda()
+            out[f"distilbert_sst2_T{T}"] = _route_parity(
+                f"distilbert_sst2 T={T}", bert, (ids, mask),
+                {kind: BERT_LAYERS}, LOGIT_TOL)
+        del bert
+        # Whisper-large-v3 at full width, 2 + 2 layers: teacher-forced
+        # logits, then bench_asr_rtf's transcribe loop.
+        cfg = dataclasses.replace(WHISPER_LARGE_V3,
+                                  enc_layers=c["asr_layers"],
+                                  dec_layers=c["asr_layers"])
+        asr = ASRModel(cfg, "whisper_large_v3_2layer", dtype=torch.float32,
+                       device="cuda", seed=0).eval()
+        _, mel, mask = _mel_batch(rng, c["asr_frames"], cfg.n_mels)
+        Tt = c["asr_text"]
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+            len(c["asr_frames"]), Tt)).astype(np.int32)).cuda()
+        tmask = torch.ones_like(tokens)
+        tmask[1, Tt - 5:] = 0
+        L = c["asr_layers"]
+        out["whisper_apply"] = _route_parity(
+            "whisper_large_v3 (2+2 layers) apply", asr,
+            (mel, mask, tokens, tmask),
+            {"flash_attention": L + 2 * L}, LOGIT_TOL, valid=tmask.bool())
+        runs = {}
+        for mode in ("kernel", "plain"):
+            ctx = (attention.plain_attention() if mode == "plain"
+                   else contextlib.nullcontext())
+            with ctx:
+                attention.reset_counts()
+                toks, _ = _asr_transcribe(asr, mel, mask, c["rtf_tokens"])
+                runs[mode] = (toks, _counts())
+        same = torch.equal(runs["kernel"][0], runs["plain"][0])
+        want = {"flash_attention": L,
+                "decode_attention": 2 * L * c["rtf_tokens"]}
+        print(f"[servables] parity whisper_large_v3 (2+2 layers) transcribe "
+              f"{c['rtf_tokens']} tokens x {mel.shape[0]}: greedy tokens "
+              f"identical {same}; launches {runs['kernel'][1]}", flush=True)
+        _expect_only("servables whisper transcribe", runs["kernel"][1], want)
+        if not same:
+            fail("servables whisper_large_v3: transcribe tokens differ from "
+                 "the plain route")
+        out["whisper_transcribe"] = {"greedy_identical": True,
+                                     "launches": runs["kernel"][1]}
+        del asr
+        # gpt2_medium.apply at full width, 2 layers: causal flash with the
+        # token mask.
+        gpt2 = CausalLM(dataclasses.replace(GPT2_MEDIUM,
+                                            num_layers=c["gpt2_layers"]),
+                        "gpt2_medium_2layer", dtype=torch.float32,
+                        device="cuda", seed=0).eval()
+        T = c["gpt2_seq"]
+        ids = torch.from_numpy(rng.integers(0, GPT2_MEDIUM.vocab_size, (
+            c["gpt2_batch"], T)).astype(np.int32)).cuda()
+        gmask = torch.ones_like(ids)
+        gmask[1, T - 40:] = 0
+        out["gpt2_medium_apply"] = _route_parity(
+            "gpt2_medium (2 layers) apply", gpt2, (ids, gmask),
+            {"flash_attention": c["gpt2_layers"]}, LOGIT_TOL,
+            valid=gmask.bool())
+        del gpt2
+        # The tiny servables (head_dim 16): the decode kernels at 16.
+        bert = get_model("distilbert_tiny", dtype=torch.float32,
+                         seed=0).eval()
+        for T, kind in ((16, "flash_attention"), (8, "decode_attention")):
+            ids = torch.from_numpy(rng.integers(0, 1000, (4, T)).astype(
+                np.int32)).cuda()
+            mask = torch.ones_like(ids)
+            mask[1, T // 2:] = 0
+            mask[3, 1:] = 0
+            out[f"distilbert_tiny_T{T}"] = _route_parity(
+                f"distilbert_tiny T={T}", bert, (ids, mask), {kind: 2}, 1e-4)
+        del bert
+        for name in c["tiny_lms"]:
+            out[name] = _tiny_lm_parity(name, c)
+        out["whisper_tiny_test"] = _tiny_asr_parity(c)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sweep(tag: str, model, buckets, seqs, c: dict) -> tuple:
+    """``ModelProfiler`` over (batch, seq) buckets, stopped by the
+    profiler as ``tools/run_profiles.py``'s sweep is; rows written to
+    ``PROFILES_DIR`` and printed with ``flops_per_sample`` and the
+    achieved rate. Returns (the table read back, printed rows, forwards
+    run)."""
+    from ray_dynamic_batching_tpu_torch.profiles.profiler import ModelProfiler
+    from ray_dynamic_batching_tpu_torch.profiles.table import BatchProfile
+
+    profiler = ModelProfiler(model, warmup_iters=c["warmup_iters"],
+                             timing_iters=c["timing_iters"])
+    prof = profiler.sweep(batch_buckets=buckets, seq_buckets=seqs)
+    if not prof.rows:
+        fail(f"{tag}: no feasible bucket")
+    csv_path, _, _ = profiler.write_outputs(prof, PROFILES_DIR)
+    rows = []
+    for r in prof.rows:
+        r = r.with_throughput()
+        flops = model.flops_per_sample(r.seq_len)
+        tflops = flops * r.batch_size / (r.latency_ms * 1e-3) / 1e12
+        rows.append(dict(batch=r.batch_size, seq=r.seq_len,
+                         latency_ms=r.latency_ms,
+                         latency_std_ms=r.latency_std_ms,
+                         throughput_sps=r.throughput_sps,
+                         hbm_bytes=r.hbm_bytes, first_ms=r.compile_ms,
+                         flops_per_sample=flops, tflop_s=tflops))
+        print(f"[servables] {tag} b={r.batch_size} s={r.seq_len}: "
+              f"{r.latency_ms:.3f} ms (std {r.latency_std_ms:.3f}), "
+              f"{r.throughput_sps:.1f} samples/s, flops_per_sample "
+              f"{flops:.4g}, {tflops:.1f} TFLOP/s, hbm_bytes {r.hbm_bytes}, "
+              f"first dispatch {r.compile_ms:.1f} ms", flush=True)
+    forwards = len(prof.rows) * _profiler_forwards(c["warmup_iters"],
+                                                   c["timing_iters"])
+    return BatchProfile.from_csv(model.name, csv_path), rows, forwards
+
+
+def _bert_serving(c: dict) -> tuple:
+    """19b: distilbert_sst2 bf16 — the profile sweep, then one
+    ``ReplicaEngine`` planned by ``SquishyBinPacker`` from those rows under
+    Poisson arrivals of ragged token ids. Returns (counts, numbers)."""
+    from ray_dynamic_batching_tpu_torch.engine import worker
+    from ray_dynamic_batching_tpu_torch.engine.host import ModelHost
+    from ray_dynamic_batching_tpu_torch.engine.queue import QueueManager
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+    from ray_dynamic_batching_tpu_torch.engine.workload import (
+        RatePattern,
+        WorkloadDriver,
+    )
+    from ray_dynamic_batching_tpu_torch.models.base import get_model, get_slo
+    from ray_dynamic_batching_tpu_torch.ops import attention
+    from ray_dynamic_batching_tpu_torch.scheduler.control import (
+        LiveScheduler,
+    )
+    from ray_dynamic_batching_tpu_torch.scheduler.nexus import (
+        SquishyBinPacker,
+    )
+
+    name = "distilbert_sst2"
+    slo = get_slo(name).latency_slo_ms
+    model = get_model(name).eval()
+    attention.reset_counts()
+    prof, rows, forwards = _sweep(f"profile {name}", model,
+                                  c["bert_buckets"], c["bert_seqs"], c)
+    torch.cuda.synchronize()
+    counts = _counts()
+    _expect_only(f"servables profile {name}", counts,
+                 {"flash_attention": BERT_LAYERS * forwards})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    seq = c["bert_serve_seq"]
+    rate = min(c["max_rps"], max(c["min_rps"],
+                                 c["bert_util"] * prof.max_throughput(seq)))
+    queues = QueueManager()
+    host = ModelHost()
+    engine = worker.ReplicaEngine("bert0", queues, host)
+    sched = LiveScheduler(SquishyBinPacker(
+        {name: prof}, hbm_budget_bytes=c["hbm_budget_bytes"]), [engine],
+        queues=queues)
+    sched.register_model(name, slo_ms=slo, seq_len=seq)
+    lo, hi = c["bert_tokens"]
+    pay_rng = np.random.default_rng(23)
+
+    def submit(model_name: str, _offset: float) -> None:
+        n = int(pay_rng.integers(lo, hi + 1))
+        sched.submit_request(Request(
+            model=model_name, slo_ms=slo,
+            payload=pay_rng.integers(0, 30522, n).astype(np.int32)))
+
+    def batches():
+        return worker.BATCHES_TOTAL.get(tags={"engine": "bert0",
+                                              "model": name})
+
+    b0 = batches()
+    attention.reset_counts()
+    engine.start()
+    try:
+        plans = sched.rebalance(rates={name: rate})
+        for p in plans:
+            print(f"[servables] plan: {p.describe()}", flush=True)
+        deadline = time.monotonic() + 120
+        while name not in engine.models:
+            if time.monotonic() > deadline:
+                fail("servables: the engine never loaded distilbert_sst2")
+            time.sleep(0.1)
+        engine.busy_ms = 0.0
+        driver = WorkloadDriver(submit, name, RatePattern(
+            "constant", base_rps=rate), duration_s=c["bert_duration_s"],
+            poisson=True, seed=29)
+        t0 = time.monotonic()
+        driver.start()
+        time.sleep(max(0.0, c["bert_duration_s"] / 2
+                       - (time.monotonic() - t0)))
+        mid = dict(queues.queue(name).stats())
+        driver.join(c["bert_duration_s"] + 60)
+        deadline = time.monotonic() + 60
+        while len(queues.queue(name)) > 0 and time.monotonic() < deadline:
+            time.sleep(0.1)
+        time.sleep(0.5)
+        wall = time.monotonic() - t0
+        end = queues.queue(name).stats()
+        busy = engine.busy_ms / (wall * 1e3)
+    finally:
+        engine.stop()
+    torch.cuda.synchronize()
+    served = batches() - b0
+    warmups = sum(1 for k in engine._warmed if k[0] == name)
+    counts = _counts()
+    _expect_only("servables distilbert serving", counts,
+                 {"flash_attention": BERT_LAYERS * (served + warmups)})
+    zero = {k: 0 for k in COUNTER_FIELDS}
+    p1 = _phase_compliance(zero, mid)
+    p2 = _phase_compliance(mid, end)
+    lost = driver.sent - (end["completed"] + end["stale"] + end["dropped"])
+    print(f"[servables] {name} bf16 served at {rate:.2f} rps (0.010 x "
+          f"the profiled peak at seq {seq}) for {c['bert_duration_s']:.0f} "
+          f"s, SLO {slo:.0f} ms: sent {driver.sent}, completed "
+          f"{end['completed']:.0f}, stale {end['stale']:.0f}, dropped "
+          f"{end['dropped']:.0f}, unaccounted {lost:.0f}; compliance first "
+          f"half {p1['slo_compliance']:.4f}, second half "
+          f"{p2['slo_compliance']:.4f}; latency p95 "
+          f"{end['latency_p95_ms']:.1f} ms, p99 {end['latency_p99_ms']:.1f}"
+          f" ms; {served} batches + {warmups} warm-ups, busy share "
+          f"{busy:.3f}; launches {counts}", flush=True)
+    if lost or end["depth"]:
+        fail(f"servables {name}: {lost:.0f} requests unaccounted for, "
+             f"{end['depth']:.0f} still queued")
+    worst = min(p1["slo_compliance"], p2["slo_compliance"])
+    if worst < c["gate"]:
+        fail(f"servables {name}: SLO compliance {worst:.4f} under "
+             f"{c['gate']}")
+    return counts, dict(profile=rows, rate_rps=rate, sent=driver.sent,
+                        completed=end["completed"], stale=end["stale"],
+                        dropped=end["dropped"], phase1=p1, phase2=p2,
+                        p95_ms=end["latency_p95_ms"],
+                        p99_ms=end["latency_p99_ms"], batches=served,
+                        warmups=warmups, busy_share=busy, wall_s=wall)
+
+
+def _asr_serving(c: dict) -> tuple:
+    """19c: whisper_large_v3 bf16 at full width and depth:
+    ``bench_asr_rtf``'s shape (median of 3), a 10 s stream in 200-frame
+    chunks, and the served roundtrip controller -> router -> replica ->
+    ``StreamingASR``, each transcript equal to a direct run."""
+    from ray_dynamic_batching_tpu_torch.models.asr import StreamingASR
+    from ray_dynamic_batching_tpu_torch.models.base import get_model
+    from ray_dynamic_batching_tpu_torch.ops import attention
+    from ray_dynamic_batching_tpu_torch.serve.controller import (
+        DeploymentConfig,
+        ServeController,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.handle import DeploymentHandle
+
+    model = get_model("whisper_large_v3", seed=0).eval()
+    cfg = model.cfg
+    rng = np.random.default_rng(3)
+    B, frames = c["rtf_batch"], int(c["rtf_audio_s"] * 100)
+    mel = torch.from_numpy(rng.standard_normal((B, frames, cfg.n_mels))
+                           .astype(np.float32)).cuda()
+    mask = torch.ones((B, frames), dtype=torch.int32, device="cuda")
+    _asr_transcribe(model, mel, mask, c["rtf_tokens"])     # warm
+    attention.reset_counts()
+    times = [_asr_transcribe(model, mel, mask, c["rtf_tokens"])[1]
+             for _ in range(c["rtf_repeats"])]
+    torch.cuda.synchronize()
+    counts = _counts()
+    L, E, n = cfg.dec_layers, cfg.enc_layers, c["rtf_repeats"]
+    _expect_only("servables whisper rtf", counts, {
+        "flash_attention": E * n,
+        "decode_attention": 2 * L * c["rtf_tokens"] * n})
+    totals = [sum(t) for t in times]
+    med = statistics.median(totals)
+    split = times[totals.index(med)]
+    rtf = B * c["rtf_audio_s"] / med
+    print(f"[servables] whisper_large_v3 bf16 b{B} x {c['rtf_audio_s']:.0f}"
+          f" s, {c['rtf_tokens']} tokens: latency {med * 1e3:.1f} ms (median"
+          f" of {n}: {[round(t * 1e3, 1) for t in totals]}) -> RTF "
+          f"{rtf:.1f} x real time; split encode {split[0] * 1e3:.1f} ms, "
+          f"prefill {split[1] * 1e3:.1f} ms, {c['rtf_tokens'] - 1} steps "
+          f"{split[2] * 1e3:.1f} ms; launches {counts}", flush=True)
+    rtf_row = dict(rtf=rtf, latency_ms=med * 1e3, batch=B,
+                   audio_s=c["rtf_audio_s"], tokens=c["rtf_tokens"],
+                   encode_ms=split[0] * 1e3, prefill_ms=split[1] * 1e3,
+                   steps_ms=split[2] * 1e3,
+                   runs_ms=[t * 1e3 for t in totals])
+    del mel, mask
+
+    # The stream: a 10 s clip fed 100 frames at a time, 200-frame chunks.
+    clip = rng.standard_normal((c["stream_frames"], cfg.n_mels)).astype(
+        np.float32)
+    stream = StreamingASR(model, chunk_frames=c["stream_chunk"],
+                          max_new_tokens=c["stream_new"])
+    attention.reset_counts()
+    chunks = []
+    for i in range(0, len(clip), c["stream_feed"]):
+        t0 = time.perf_counter()
+        new = stream.feed(clip[i:i + c["stream_feed"]])
+        if new is not None:
+            chunks.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                               tokens=len(new)))
+    torch.cuda.synchronize()
+    s_counts = _counts()
+    if (len(chunks) != c["stream_frames"] // c["stream_chunk"]
+            or not all(0 <= t < cfg.vocab_size for t in stream.transcript)
+            or not s_counts["flash_attention"]
+            or not s_counts["decode_attention"] or s_counts["plain"]):
+        fail(f"servables whisper stream: chunks {chunks}, launches "
+             f"{s_counts}")
+    print(f"[servables] whisper_large_v3 stream of {c['stream_frames']} "
+          f"frames in {c['stream_chunk']}-frame chunks: per chunk "
+          f"{[round(ch['ms'], 1) for ch in chunks]} ms, tokens "
+          f"{[ch['tokens'] for ch in chunks]}, transcript length "
+          f"{len(stream.transcript)}; launches {s_counts}", flush=True)
+
+    # The served roundtrip, against direct runs on the same clips.
+    clips = [rng.standard_normal((n, cfg.n_mels)).astype(np.float32)
+             for n in c["serve_clips"]]
+
+    def run(asr, audio):
+        asr.reset()
+        asr.feed(audio)
+        if asr._buffer:
+            asr.flush()
+        return asr.transcript
+
+    direct = [run(StreamingASR(model, chunk_frames=c["stream_chunk"],
+                               max_new_tokens=c["stream_new"]), a)
+              for a in clips]
+
+    def factory():
+        asr = StreamingASR(model, chunk_frames=c["stream_chunk"],
+                           max_new_tokens=c["stream_new"])
+
+        def transcribe(payloads):
+            yield [run(asr, np.asarray(p, np.float32)) for p in payloads]
+
+        return transcribe
+
+    controller = ServeController(control_interval_s=0.2)
+    attention.reset_counts()
+    t0 = time.monotonic()
+    try:
+        router = controller.deploy(
+            DeploymentConfig(name="whisper", num_replicas=1,
+                             max_batch_size=2, batch_wait_timeout_s=0.01),
+            factory=factory)
+        controller.start()
+        handle = DeploymentHandle(router, default_slo_ms=120_000.0)
+        futs = [handle.remote(a.tolist()) for a in clips]
+        served = [f.result(timeout=300)[0] for f in futs]
+    finally:
+        controller.shutdown()
+    wall = time.monotonic() - t0
+    torch.cuda.synchronize()
+    r_counts = _counts()
+    same = served == direct
+    print(f"[servables] whisper served roundtrip (controller -> router -> "
+          f"replica -> StreamingASR), {len(clips)} requests in {wall:.1f} s:"
+          f" transcripts equal to direct runs {same}; launches {r_counts}",
+          flush=True)
+    if not same:
+        fail(f"servables whisper: served transcripts {served} differ from "
+             f"direct runs {direct}")
+    if not r_counts["decode_attention"] or r_counts["plain"]:
+        fail(f"servables whisper served: launches {r_counts}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {k: counts.get(k, 0) + s_counts.get(k, 0) + r_counts.get(k, 0)
+             for k in counts}
+    return total, dict(rtf=rtf_row, stream=dict(chunks=chunks,
+                                                transcript_len=len(
+                                                    stream.transcript)),
+                       served=dict(requests=len(clips), wall_s=wall,
+                                   identical=True))
+
+
+def _gpt2_rows(c: dict) -> tuple:
+    """19d: gpt2_medium bf16 at full depth, no cache: ``ModelProfiler``
+    rows over (batch, seq) with ``flops_per_sample`` beside each."""
+    from ray_dynamic_batching_tpu_torch.models.base import get_model
+    from ray_dynamic_batching_tpu_torch.ops import attention
+
+    model = get_model("gpt2_medium", seed=0).eval()
+    attention.reset_counts()
+    _, rows, forwards = _sweep("profile gpt2_medium (no cache)", model,
+                               c["gpt2_buckets"], c["gpt2_seqs"], c)
+    torch.cuda.synchronize()
+    counts = _counts()
+    _expect_only("servables gpt2_medium rows", counts, {
+        "flash_attention": model.cfg.num_layers * forwards})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, rows
+
+
+def phase_servables() -> tuple:
+    """Phase 19; returns (launch counts, the phase's numbers)."""
+    c = SERVABLES
+    t0 = time.monotonic()
+    smi = _smi()
+    os.makedirs(PROFILES_DIR, exist_ok=True)
+    with _kernel_shapes() as shapes:
+        parity = _servable_parity(c)
+        c1, bert = _bert_serving(c)
+        c2, asr = _asr_serving(c)
+        c3, gpt2 = _gpt2_rows(c)
+    launched = _held_shapes(shapes, "servables", 19)
+    counts = {n: c1.get(n, 0) + c2.get(n, 0) + c3.get(n, 0)
+              for n in set(c1) | set(c2) | set(c3)}
+    wall = time.monotonic() - t0
+    print(f"[servables] {smi}: phase wall time {wall:.1f} s", flush=True)
+    return counts, dict(card=smi, parity=parity, distilbert=bert,
+                        whisper=asr, gpt2_medium_rows=gpt2,
+                        kernel_shapes=launched, wall_s=wall)
+
+
 def _held_shapes(shapes, tag: str = "spec", phase: int = 17) -> list:
     """Every kernel shape phase ``phase`` launched (its captures and eager
     calls, by :func:`_shape_key` / :func:`_w8_key`) must be one that
@@ -5832,7 +6705,7 @@ def _main(stack: contextlib.ExitStack) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     all_phases = (["build", "kernels", "parity"] + list(SERVING)
                   + ["front", "controller", "colocate", "vision", "graphs",
-                     "sim", "reuse", "spec", "weights"])
+                     "sim", "reuse", "spec", "weights", "servables"])
     ap.add_argument("--phases", default=",".join(all_phases),
                     help=f"comma-separated subset of {','.join(all_phases)} "
                          "(the device phase always runs)")
@@ -5883,7 +6756,7 @@ def _main(stack: contextlib.ExitStack) -> None:
         print("[slab_chunked] beside main and int8: " + "; ".join(beside),
               flush=True)
     front = controller = colocate = vision = graphed = sim = reuse = None
-    spec = weights = None
+    spec = weights = servables = None
     if "front" in phases:
         by_path["front"], front = phase_front(args.profile)
     if "controller" in phases:
@@ -5902,6 +6775,8 @@ def _main(stack: contextlib.ExitStack) -> None:
         by_path["spec"], spec = phase_spec()
     if "weights" in phases:
         by_path["weights"], weights = phase_weights()
+    if "servables" in phases:
+        by_path["servables"], servables = phase_servables()
     for name, row in kernels.items():
         split = {path: c.get(name, 0) for path, c in by_path.items()}
         row["launches"] = sum(split.values()) if split else None
@@ -5909,7 +6784,8 @@ def _main(stack: contextlib.ExitStack) -> None:
     print(json.dumps({"kernels": list(kernels.values()), "front": front,
                       "controller": controller, "colocate": colocate,
                       "vision": vision, "graphs": graphed, "sim": sim,
-                      "reuse": reuse, "spec": spec, "weights": weights}))
+                      "reuse": reuse, "spec": spec, "weights": weights,
+                      "servables": servables}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],
         "count": torch.cuda.device_count()}}))

@@ -182,13 +182,29 @@ __device__ __forceinline__ uint32_t codes_bf16(int8_t lo, int8_t hi) {
 // (TF32 would not meet the f32 tolerance): four threads per key for the
 // scores, one per (row, dim pair) for PV.
 //
+// Head dims. The body is H = 64 or 128 wide (four warps of NTW = 1 or 2
+// output n-tiles each); the real head dim HV, a multiple of 16 (16 .. 64
+// on the 64-wide body, 80 .. 128 on the 128-wide one), is a template
+// argument too. Below H it rides the padded body: K/V tiles and query
+// rows are H wide in shared memory, their columns past HV zero-filled by
+// the same cp.async (src-size 0, nothing read from device memory), so
+// every dot product and every PV column past HV adds exact zeros, and
+// only the HV real columns are written out or merged. Device-memory bytes
+// stay HV's; the shared memory and the products are H's (at HV = 16,
+// four times the work of a 16-wide layout). At HV == H the code is the
+// unpadded body's: HV is a constant, not a runtime value (a runtime HV
+// took 16 more registers in one instantiation and cost 5-30% at 64 and
+// 128 on an H100).
+// The slab and paged kernels share it, so they stay bit-identical at
+// every head dim.
+//
 // SPLIT is fixed at 128. Splits of 64 (twice the blocks, each with one
 // tile) measured slower at the main shape on an H100 (700 W): slab decode
 // 0.0211 against 0.0163 ms (a compile-time variant since removed;
 // PERF.md). Callers size the merge's workspace for it, and the launch
 // functions check the sizes they are given.
 
-template <typename T, typename TK, int H>
+template <typename T, typename TK, int H, int HV = H>
 struct DecodeScan {
   static constexpr int BS = 64;            // keys per KV tile
   static constexpr int SPLIT = 128;        // logical positions per split
@@ -209,7 +225,9 @@ struct DecodeScan {
                 "K/V are the query type or int8 codes");
   static_assert(NCH % PARTS == 0 && (NCH % 8 == 0 || NCH == 4),
                 "head dim and element size give 4 or a multiple of 8 chunks");
-  static_assert(!TC || NTW == 1 || NTW == 2, "head dim 64 or 128");
+  static_assert(!TC || NTW == 1 || NTW == 2, "padded head dim 64 or 128");
+  static_assert(HV % 16 == 0 && HV <= H && (H == 64 || HV > 64),
+                "real head dim: a multiple of 16 in 16..64 (H 64) or 80..128 (H 128)");
   static_assert(TILES == 2, "a split holds two tiles");
 
   // Physical chunk of logical chunk c in row j. Tensor-core path: XOR with
@@ -238,9 +256,10 @@ struct DecodeScan {
 
   // Whether the merge's scratch ([nsplit][R] x 2 + [R] floats) fits in
   // the K/V tiles, where it is kept, and the caller's workspace (ws_len
-  // floats) and counters (cnt_len) hold B x K (slot, KV head)s.
+  // floats) and counters (cnt_len) hold B x K (slot, KV head)s of
+  // partials HV wide.
   static bool merge_fits(int R, int nsplit, int B, int K, long long ws_len, int cnt_len) {
-    const long long need = static_cast<long long>(B) * K * nsplit * R * (H + 2);
+    const long long need = static_cast<long long>(B) * K * nsplit * R * (HV + 2);
     return static_cast<size_t>(2 * nsplit + 1) * R * sizeof(float) <=
                static_cast<size_t>(2) * TILES * BS * ROWB &&
            need <= ws_len && static_cast<long long>(B) * K <= cnt_len;
@@ -279,14 +298,16 @@ struct DecodeScan {
 
   // Issue half ``part`` of tile ``i`` of this split (0: K and its scales,
   // 1: V and its scales) as one cp.async group: keys j < n at
-  // src + j * rs, keys j >= n zero-filled; with int8 codes key j's scale
-  // at sc[j * sst]. Callers issue K0, V0, K1, V1.
+  // src + j * rs (HV elements each), keys j >= n and the columns past HV
+  // zero-filled; with int8 codes key j's scale at sc[j * sst]. Callers
+  // issue K0, V0, K1, V1.
   __device__ void issue(int i, int part, const TK* __restrict__ src, size_t rs,
                         const float* __restrict__ sc, size_t sst, int n) {
     unsigned char* dst = (part ? vb : kb) + i * BS * ROWB;
+    constexpr int nch = HV / CH;  // chunks of a row that hold data
     for (int e = threadIdx.x; e < BS * NCH; e += THREADS) {
       const int j = e / NCH, c = e % NCH;
-      const bool in = j < n;
+      const bool in = j < n && c < nch;
       cp_async16(dst + j * ROWB + phys(c, j) * 16,
                  in ? src + static_cast<size_t>(j) * rs + c * CH : src, in);
     }
@@ -298,17 +319,18 @@ struct DecodeScan {
     cp_async_commit();
   }
 
-  // Query rows (t, g) <- q[b, t, kvh * G + g, :] (q [B, Tq, N, H]), as
+  // Query rows (t, g) <- q[b, t, kvh * G + g, :] (q [B, Tq, N, HV]), as
   // one cp.async group issued before the tiles': f32 rows, or bf16 rows
-  // in 16-row m-tiles, ldmatrix-swizzled, pad rows zero.
+  // in 16-row m-tiles, ldmatrix-swizzled, pad rows and columns zero.
   __device__ void load_q(const T* __restrict__ q, int b, int Tq, int N, int kvh) {
     constexpr int QCH = H / VEC_Q;  // 16-byte chunks per row
     const int rows = TC ? padded_rows(R) : R;
+    constexpr int qch = HV / VEC_Q;  // ... that hold data
     for (int e = threadIdx.x; e < rows * QCH; e += THREADS) {
       const int r = e / QCH, c = e % QCH;
-      const bool in = r < R;
+      const bool in = r < R && c < qch;
       const T* src = q + ((static_cast<size_t>(b) * Tq + (in ? r / G : 0)) * N + kvh * G +
-                          (in ? r % G : 0)) * H + c * VEC_Q;
+                          (in ? r % G : 0)) * HV + (in ? c * VEC_Q : 0);
       unsigned char* dst = TC ? qs + r * H * 2 + ((c ^ (r & 7)) << 4)
                               : qs + (r * H + c * VEC_Q) * sizeof(T);
       cp_async16(dst, src, in);
@@ -571,9 +593,10 @@ struct DecodeScan {
 
   // out[b, t, kvh * G + g, :] <- acc / l (0 where l == 0), or the merge of
   // this (slot, KV head)'s ``n_live`` live splits when there are several:
-  // partials go to ws[((b * K + kvh) * nsplit + split) * R * (H + 2)] as
-  // [m R][l R][acc R H]; cnt[b * K + kvh] counts arrivals. ``split_live(s)``
-  // must name the same splits in every block of the (slot, KV head).
+  // partials go to ws[((b * K + kvh) * nsplit + split) * R * (HV + 2)] as
+  // [m R][l R][acc R HV]; cnt[b * K + kvh] counts arrivals. ``split_live(s)``
+  // must name the same splits in every block of the (slot, KV head). Only
+  // the HV real columns of acc are written or merged.
   template <typename SplitLive>
   __device__ void finish(T* __restrict__ out, float* __restrict__ ws,
                          int* __restrict__ cnt, int b, int Tq, int N, int K,
@@ -581,24 +604,25 @@ struct DecodeScan {
                          SplitLive split_live) {
     const int tid = threadIdx.x;
     __syncthreads();
+    const int RV = R * HV;  // real cells
     if (n_live == 1) {
-      for (int e = tid; e < R * H; e += THREADS) {
-        const int r = e / H, d = e % H;
+      for (int e = tid; e < RV; e += THREADS) {
+        const int r = e / HV, d = e % HV;
         const int t = r / G, g = r % G;
         const float l = l_s[r];
-        out[((static_cast<size_t>(b) * Tq + t) * N + kvh * G + g) * H + d] =
-            from_f<T>(acc[e] / (l == 0.f ? 1.f : l));
+        out[((static_cast<size_t>(b) * Tq + t) * N + kvh * G + g) * HV + d] =
+            from_f<T>(acc[r * H + d] / (l == 0.f ? 1.f : l));
       }
       return;
     }
     const size_t slot = static_cast<size_t>(b) * K + kvh;
-    const size_t stride = static_cast<size_t>(R) * (H + 2);
+    const size_t stride = static_cast<size_t>(R) * (HV + 2);
     float* part = ws + (slot * nsplit + split) * stride;
     for (int r = tid; r < R; r += THREADS) {
       part[r] = m_s[r];
       part[R + r] = l_s[r];
     }
-    for (int e = tid; e < R * H; e += THREADS) part[2 * R + e] = acc[e];
+    for (int e = tid; e < RV; e += THREADS) part[2 * R + e] = acc[(e / HV) * H + e % HV];
     __threadfence();
     __syncthreads();
     if (tid == 0) *last = atomicAdd(cnt + slot, 1) == n_live - 1;
@@ -637,10 +661,10 @@ struct DecodeScan {
       Ls[r] = L;
     }
     __syncthreads();
-    for (int e0 = tid; e0 < R * H; e0 += 2 * THREADS) {
+    for (int e0 = tid; e0 < RV; e0 += 2 * THREADS) {
       const int e1 = e0 + THREADS;
-      const bool two = e1 < R * H;
-      const int r0 = e0 / H, r1 = (two ? e1 : e0) / H;
+      const bool two = e1 < RV;
+      const int r0 = e0 / HV, r1 = (two ? e1 : e0) / HV;
       float A0 = 0.f, A1 = 0.f;
 #pragma unroll 4
       for (int s = 0; s < nsplit; ++s) {
@@ -655,10 +679,10 @@ struct DecodeScan {
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         if (u == 1 && !two) break;
-        const int e = u ? e1 : e0, r = u ? r1 : r0, d = e % H;
+        const int e = u ? e1 : e0, r = u ? r1 : r0, d = e % HV;
         const float L = Ls[r];
         const int t = r / G, g = r % G;
-        out[((static_cast<size_t>(b) * Tq + t) * N + kvh * G + g) * H + d] =
+        out[((static_cast<size_t>(b) * Tq + t) * N + kvh * G + g) * HV + d] =
             from_f<T>(As[u] / (L == 0.f ? 1.f : L));
       }
     }

@@ -11,7 +11,9 @@
 //
 // Layouts: q/out [B, Tq, N, H]; k/v [B, S, K, H]; scales [B, S, K] (the
 // cache's own layout: key pos of KV head kvh at (b * S + pos) * K + kvh);
-// all contiguous.
+// all contiguous. H is a multiple of 16 up to 128: the scan body is built
+// 64 and 128 wide, and smaller head dims ride it zero-padded in shared
+// memory (rdb::DecodeScan, common.cuh).
 //
 // What bounds it on the H100: the bytes of the K/V positions that some
 // window row attends (plus their scales), read once. With one block per
@@ -44,15 +46,15 @@
 
 namespace {
 
-template <typename T, typename TK, int H>
-__global__ void __launch_bounds__(rdb::DecodeScan<T, TK, H>::THREADS)
+template <typename T, typename TK, int H, int HV>
+__global__ void __launch_bounds__(rdb::DecodeScan<T, TK, H, HV>::THREADS)
 decode_kernel(const T* __restrict__ q, const TK* __restrict__ k,
               const TK* __restrict__ v, const float* __restrict__ k_scale,
               const float* __restrict__ v_scale,
               const int8_t* __restrict__ mask, T* __restrict__ out,
               float* __restrict__ ws, int* __restrict__ cnt, int Tq, int S,
               int N, int K, float scale) {
-  using Scan = rdb::DecodeScan<T, TK, H>;
+  using Scan = rdb::DecodeScan<T, TK, H, HV>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = N / K;
   Scan scan(smem, Tq * G, G);
@@ -123,9 +125,9 @@ decode_kernel(const T* __restrict__ q, const TK* __restrict__ k,
   if (!split_live(split)) return;  // nothing to read; the merge skips it
   scan.load_q(q, b, Tq, N, kvh);
 
-  const size_t kv_rs = static_cast<size_t>(K) * H;
-  const TK* kb = k + static_cast<size_t>(b) * S * kv_rs + static_cast<size_t>(kvh) * H;
-  const TK* vb = v + static_cast<size_t>(b) * S * kv_rs + static_cast<size_t>(kvh) * H;
+  const size_t kv_rs = static_cast<size_t>(K) * HV;
+  const TK* kb = k + static_cast<size_t>(b) * S * kv_rs + static_cast<size_t>(kvh) * HV;
+  const TK* vb = v + static_cast<size_t>(b) * S * kv_rs + static_cast<size_t>(kvh) * HV;
   // Scales of key pos: (b * S + pos) * K + kvh (null without int8 codes).
   const size_t sc0 = static_cast<size_t>(b) * S * K + kvh;
   // The split's live tiles into buffers 0 .. nt - 1, each K then its V.
@@ -165,13 +167,13 @@ decode_kernel(const T* __restrict__ q, const TK* __restrict__ k,
   scan.finish(out, ws, cnt, b, Tq, N, K, kvh, split, nsplit, n_live, split_live);
 }
 
-template <typename T, typename TK, int H>
+template <typename T, typename TK, int H, int HV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* k_scale, const float* v_scale,
                    const int8_t* mask, void* out, float* ws, long long ws_len,
                    int* cnt, int cnt_len, int B, int Tq, int S, int N, int K,
                    float scale, cudaStream_t stream) {
-  using Scan = rdb::DecodeScan<T, TK, H>;
+  using Scan = rdb::DecodeScan<T, TK, H, HV>;
   if (Scan::QUANT && (k_scale == nullptr || v_scale == nullptr))
     return cudaErrorInvalidValue;
   const int ntiles = (S + Scan::BS - 1) / Scan::BS;
@@ -179,7 +181,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (!Scan::merge_fits(Tq * (N / K), nsplit, B, K, ws_len, cnt_len))
     return cudaErrorInvalidValue;
   const size_t smem = Scan::smem_bytes(Tq * (N / K), Tq * Scan::SPLIT + ntiles + Tq + nsplit);
-  auto kern = decode_kernel<T, TK, H>;
+  auto kern = decode_kernel<T, TK, H, HV>;
   cudaError_t err = rdb::raise_smem_limit(kern, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(nsplit, K, B);
@@ -190,27 +192,42 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// Head dim H -> the body it rides (64 wide for 16 .. 64, 128 wide for
+// 80 .. 128) and its instantiation; other head dims are refused.
+template <typename T, typename TK, typename... A>
+cudaError_t by_head(int H, A... a) {
+  switch (H) {
+    case 16: return launch<T, TK, 64, 16>(a...);
+    case 32: return launch<T, TK, 64, 32>(a...);
+    case 48: return launch<T, TK, 64, 48>(a...);
+    case 64: return launch<T, TK, 64, 64>(a...);
+    case 80: return launch<T, TK, 128, 80>(a...);
+    case 96: return launch<T, TK, 128, 96>(a...);
+    case 112: return launch<T, TK, 128, 112>(a...);
+    case 128: return launch<T, TK, 128, 128>(a...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 cudaError_t launch_h(const void* q, const void* k, const void* v,
                      const float* ks, const float* vs, const int8_t* m,
                      void* out, float* ws, long long wl, int* cnt, int cl, int B,
                      int Tq, int S, int N, int K, int H, float scale, int kv_int8,
                      cudaStream_t st) {
-  if (kv_int8 && H == 64)
-    return launch<T, int8_t, 64>(q, k, v, ks, vs, m, out, ws, wl, cnt, cl, B, Tq, S, N, K, scale, st);
-  if (kv_int8 && H == 128)
-    return launch<T, int8_t, 128>(q, k, v, ks, vs, m, out, ws, wl, cnt, cl, B, Tq, S, N, K, scale, st);
-  if (!kv_int8 && H == 64)
-    return launch<T, T, 64>(q, k, v, nullptr, nullptr, m, out, ws, wl, cnt, cl, B, Tq, S, N, K, scale, st);
-  if (!kv_int8 && H == 128)
-    return launch<T, T, 128>(q, k, v, nullptr, nullptr, m, out, ws, wl, cnt, cl, B, Tq, S, N, K, scale, st);
-  return cudaErrorInvalidValue;
+  if (kv_int8)
+    return by_head<T, int8_t>(H, q, k, v, ks, vs, m, out, ws, wl, cnt, cl, B, Tq, S, N, K,
+                              scale, st);
+  return by_head<T, T>(H, q, k, v, static_cast<const float*>(nullptr),
+                       static_cast<const float*>(nullptr), m, out, ws, wl, cnt, cl, B, Tq,
+                       S, N, K, scale, st);
 }
 
 }  // namespace
 
 // dtype (of q and out): 0 = float32, 1 = bfloat16. kv_int8: 0 = k/v are
 // q's type, 1 = int8 codes with f32 scales (both scale pointers non-null).
+// H: a multiple of 16 in 16 .. 128 (others are refused).
 // workspace: ws_len f32, at least B * K * ceil(S / 128) * Tq * (N / K) *
 // (H + 2); counters: cnt_len int32, at least B * K, zero before the first
 // launch (each launch leaves them zero); smaller ones are refused.

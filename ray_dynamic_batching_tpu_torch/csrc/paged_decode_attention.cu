@@ -11,7 +11,8 @@
 // Layouts: q/out [B, Tq, N, H]; k/v pools [P, ps, K, H] (the caller passes
 // the P real pages; the engine's sink page past them is never named);
 // scales [P, ps, K] (offset (page * ps + off) * K + kvh); table [B, NP]
-// int32, sentinel P = unallocated; lengths [B] int32. All contiguous.
+// int32, sentinel P = unallocated; lengths [B] int32. All contiguous. H
+// is a multiple of 16 up to 128, on the slab kernel's padded bodies.
 //
 // Grid (splits, K, B), splits of 128 logical positions: the slab kernel's
 // layout (csrc/decode_attention.cu), and the same scan and merge
@@ -39,8 +40,8 @@
 
 namespace {
 
-template <typename T, typename TK, int H>
-__global__ void __launch_bounds__(rdb::DecodeScan<T, TK, H>::THREADS)
+template <typename T, typename TK, int H, int HV>
+__global__ void __launch_bounds__(rdb::DecodeScan<T, TK, H, HV>::THREADS)
 paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ k,
                     const TK* __restrict__ v, const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale,
@@ -48,7 +49,7 @@ paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ k,
                     const int* __restrict__ lengths, T* __restrict__ out,
                     float* __restrict__ ws, int* __restrict__ cnt, int Tq,
                     int N, int K, int P, int ps, int NP, float scale) {
-  using Scan = rdb::DecodeScan<T, TK, H>;
+  using Scan = rdb::DecodeScan<T, TK, H, HV>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = N / K;
   Scan scan(smem, Tq * G, G);
@@ -74,7 +75,7 @@ paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ k,
   scan.load_q(q, b, Tq, N, kvh);
   const int n_live = min(nsplit, last_pos / Scan::SPLIT + 1);
 
-  const size_t kv_rs = static_cast<size_t>(K) * H;
+  const size_t kv_rs = static_cast<size_t>(K) * HV;
   // The live tiles are a prefix of the split: t0 + u into buffer u, each
   // K then its V.
   const int nt = min(last_pos / Scan::BS + 1, t0 + Scan::TILES) - t0;
@@ -84,7 +85,7 @@ paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ k,
     const int pos0 = (t0 + u) * Scan::BS;
     const int p = pos0 / ps;
     const size_t cell = static_cast<size_t>(min(pages[u], P - 1)) * ps + (pos0 - p * ps);
-    const size_t off = cell * kv_rs + static_cast<size_t>(kvh) * H;
+    const size_t off = cell * kv_rs + static_cast<size_t>(kvh) * HV;
     const size_t sc = cell * K + kvh;
     scan.issue(u, 0, k + off, kv_rs, k_scale == nullptr ? nullptr : k_scale + sc, K,
                Scan::BS);
@@ -108,13 +109,13 @@ paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ k,
   scan.finish(out, ws, cnt, b, Tq, N, K, kvh, split, nsplit, n_live, split_live);
 }
 
-template <typename T, typename TK, int H>
+template <typename T, typename TK, int H, int HV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* k_scale, const float* v_scale,
                    const int* table, const int* lengths, void* out, float* ws,
                    long long ws_len, int* cnt, int cnt_len, int B, int Tq, int N,
                    int K, int P, int ps, int NP, float scale, cudaStream_t stream) {
-  using Scan = rdb::DecodeScan<T, TK, H>;
+  using Scan = rdb::DecodeScan<T, TK, H, HV>;
   if (ps % Scan::BS != 0) return cudaErrorInvalidValue;
   if (Scan::QUANT && (k_scale == nullptr || v_scale == nullptr))
     return cudaErrorInvalidValue;
@@ -122,7 +123,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                         ws_len, cnt_len))
     return cudaErrorInvalidValue;
   const size_t smem = Scan::smem_bytes(Tq * (N / K), 0);
-  auto kern = paged_decode_kernel<T, TK, H>;
+  auto kern = paged_decode_kernel<T, TK, H, HV>;
   cudaError_t err = rdb::raise_smem_limit(kern, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((NP * ps + Scan::SPLIT - 1) / Scan::SPLIT, K, B);
@@ -133,21 +134,35 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// Head dim H -> the body it rides (64 wide for 16 .. 64, 128 wide for
+// 80 .. 128) and its instantiation; other head dims are refused.
+template <typename T, typename TK, typename... A>
+cudaError_t by_head(int H, A... a) {
+  switch (H) {
+    case 16: return launch<T, TK, 64, 16>(a...);
+    case 32: return launch<T, TK, 64, 32>(a...);
+    case 48: return launch<T, TK, 64, 48>(a...);
+    case 64: return launch<T, TK, 64, 64>(a...);
+    case 80: return launch<T, TK, 128, 80>(a...);
+    case 96: return launch<T, TK, 128, 96>(a...);
+    case 112: return launch<T, TK, 128, 112>(a...);
+    case 128: return launch<T, TK, 128, 128>(a...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 cudaError_t launch_h(const void* q, const void* k, const void* v,
                      const float* ks, const float* vs, const int* tb,
                      const int* ln, void* out, float* ws, long long wl, int* cnt,
                      int cl, int B, int Tq, int N, int K, int H, int P, int ps,
                      int NP, float scale, int kv_int8, cudaStream_t st) {
-  if (kv_int8 && H == 64)
-    return launch<T, int8_t, 64>(q, k, v, ks, vs, tb, ln, out, ws, wl, cnt, cl, B, Tq, N, K, P, ps, NP, scale, st);
-  if (kv_int8 && H == 128)
-    return launch<T, int8_t, 128>(q, k, v, ks, vs, tb, ln, out, ws, wl, cnt, cl, B, Tq, N, K, P, ps, NP, scale, st);
-  if (!kv_int8 && H == 64)
-    return launch<T, T, 64>(q, k, v, nullptr, nullptr, tb, ln, out, ws, wl, cnt, cl, B, Tq, N, K, P, ps, NP, scale, st);
-  if (!kv_int8 && H == 128)
-    return launch<T, T, 128>(q, k, v, nullptr, nullptr, tb, ln, out, ws, wl, cnt, cl, B, Tq, N, K, P, ps, NP, scale, st);
-  return cudaErrorInvalidValue;
+  if (kv_int8)
+    return by_head<T, int8_t>(H, q, k, v, ks, vs, tb, ln, out, ws, wl, cnt, cl, B, Tq, N,
+                              K, P, ps, NP, scale, st);
+  return by_head<T, T>(H, q, k, v, static_cast<const float*>(nullptr),
+                       static_cast<const float*>(nullptr), tb, ln, out, ws, wl, cnt, cl, B,
+                       Tq, N, K, P, ps, NP, scale, st);
 }
 
 }  // namespace

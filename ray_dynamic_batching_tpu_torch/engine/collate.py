@@ -10,9 +10,8 @@ Payload contracts by model family:
 - vision:           np.ndarray [H, W, C] float (NHWC rows)
 - text_classifier:  np.ndarray [T] int32 token ids (ragged across requests)
 - causal_lm:        np.ndarray [T] int32 prompt tokens
-
-Trimmed: ``collate_asr``, which needs the ASR servable's audio collator
-(``models/asr.py``); it raises until that slice is ported.
+- asr:              np.ndarray [T_frames, n_mels] float mel features
+                    (ragged; padded to duration buckets, models/asr.py)
 """
 
 from __future__ import annotations
@@ -67,12 +66,31 @@ def collate_text(
     return (out[0], out[1]), n
 
 
-def collate_asr(model: ServableModel, requests: List[Request],
-                batch_bucket: int, text_bucket: int = 8):
-    raise NotImplementedError(
-        "collate_asr needs the ASR servable (models/asr.py), which is not "
-        "ported yet"
-    )
+def collate_asr(
+    model: ServableModel,
+    requests: List[Request],
+    batch_bucket: int,
+    text_bucket: int = 8,
+) -> Tuple[Tuple[torch.Tensor, ...], int]:
+    """Ragged mel clips -> duration-bucketed (mel, mask) plus a
+    start-of-transcript prompt per row, matching ``ASRModel.apply``'s
+    signature; padding rows keep one valid frame."""
+    from ray_dynamic_batching_tpu_torch.models.asr import collate_audio
+
+    n = len(requests)
+    mels = [np.asarray(r.payload, dtype=np.float32) for r in requests]
+    mel, mask = collate_audio(mels, batch_bucket)
+    tokens = np.zeros((batch_bucket, text_bucket), np.int32)
+    tokens[:, 0] = model.cfg.sot_token
+    text_mask = np.zeros((batch_bucket, text_bucket), np.int32)
+    text_mask[:, 0] = 1
+    mask[n:, 0] = 1  # padding rows: one valid frame keeps softmax well-formed
+    out = []
+    for a in (mel, mask, tokens, text_mask):
+        host = _host_buffer(a.shape, torch.from_numpy(a).dtype, model.device)
+        host.copy_(torch.from_numpy(a))
+        out.append(host.to(model.device, non_blocking=True))
+    return tuple(out), n
 
 
 def collate(

@@ -77,10 +77,14 @@ reads the codes through ``ops/quant_matmul.int8_linear``: the same
 programs and keys, captured the same way. The model owns its weights, so
 an engine over an already quantized model serves int8 whatever it was
 asked (:attr:`quantized` says which). A separate draft model is not
-quantized; a self-draft is the target module and so shares its int8
-weights (the reference's self-draft keeps its own full-precision
-params). Greedy tokens are the target's either way; the acceptance rate
-is the quantized pair's.
+quantized. A self-draft (``draft_model`` is ``model``) drafts from the
+target's weights as they were BEFORE ``quantize_tree``: the engine keeps
+a full-precision copy of the module as the draft, as the reference's
+self-draft keeps the caller's full-precision ``draft_params`` while only
+the target's params are quantized. A model that arrives already quantized
+has lost those weights, and a self-draft of it raises ``ValueError``
+rather than drafting from the codes. Greedy tokens are the target's
+either way; the acceptance rate is the reference's.
 
 Speculative decoding (``draft_model``, ``spec_tokens``; greedy rows only):
 a draft model — a second module with its own weights, or the target
@@ -122,6 +126,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import functools
 import inspect
 import math
@@ -601,6 +606,16 @@ class DecodeEngine:
                 raise ValueError(
                     f"draft vocab {draft_model.cfg.vocab_size} differs from "
                     f"the target's {model.cfg.vocab_size}")
+        if draft_model is model and is_quantized(model):
+            raise ValueError(
+                "a self-draft of an already quantized model would draft "
+                "from its int8 codes: the full-precision weights the draft "
+                "reads are gone; quantize through this engine "
+                "(quantize_weights=True) or pass a full-precision draft")
+        if draft_model is model and quantize_weights:
+            # The draft keeps the weights quantize_tree is about to
+            # replace (the reference's draft_params stay full precision).
+            draft_model = copy.deepcopy(model)
         if quantize_weights:
             quantize_tree(model)
         self.quantized = is_quantized(model)

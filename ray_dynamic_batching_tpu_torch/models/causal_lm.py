@@ -1,6 +1,10 @@
 """Causal-LM servable models (GPT-2 family, Llama family) on the shared decoder.
 
-Port of ``ray_dynamic_batching_tpu/models/causal_lm.py``: the slab arm
+Port of ``ray_dynamic_batching_tpu/models/causal_lm.py``: the no-cache
+forward (``apply`` — also the module's ``forward``, which the profiler
+and the batch engine call — ``apply_with_aux``, ``example_inputs`` and
+``flops_per_sample``, so ``ModelProfiler`` sweeps a decoder's
+(batch, seq) buckets as the reference's does), the slab arm
 (``make_cache``, ``prefill``, ``prefill_chunk``, ``decode_step``), the
 paged arm (``make_paged_cache``, ``prefill_chunk_paged``,
 ``decode_step_paged``), the speculative verify on both
@@ -81,6 +85,54 @@ class CausalLM(ServableModel):
             fan_in = p.shape[1] if name.endswith(("moe.wi", "moe.wg",
                                                   "moe.wo")) else p.shape[-1]
             p.normal_(0.0, fan_in ** -0.5, generator=gen)
+
+    # --- no-cache forward (the profiler's and the batch engine's) --------
+    def apply(self, tokens: torch.Tensor, attn_mask: torch.Tensor
+              ) -> torch.Tensor:
+        """Logits [B, T, V] of a whole sequence with no cache: causal
+        attention over the valid tokens of ``attn_mask`` [B, T]."""
+        return self.module(tokens, self._positions(tokens), None,
+                           token_mask=attn_mask)
+
+    forward = apply
+
+    def apply_with_aux(self, tokens: torch.Tensor, attn_mask: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`apply` plus the MoE load-balance auxiliary loss, summed
+        over the layers (a 0-d f32 tensor, 0 for dense models); a training
+        loss adds ``aux_coef * aux``."""
+        return self.module(tokens, self._positions(tokens), None,
+                           token_mask=attn_mask, return_aux=True)
+
+    @staticmethod
+    def _positions(tokens: torch.Tensor) -> torch.Tensor:
+        T = tokens.shape[1]
+        return torch.arange(T, device=tokens.device)[None, :].expand(
+            tokens.shape)
+
+    def example_inputs(self, batch_size: int, seq_len: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Zero tokens and an all-ones mask [B, T] (T defaults to 128),
+        int32 as the reference's."""
+        T = seq_len or 128
+        return (torch.zeros((batch_size, T), dtype=torch.int32,
+                            device=self.device),
+                torch.ones((batch_size, T), dtype=torch.int32,
+                           device=self.device))
+
+    def flops_per_sample(self, seq_len: Optional[int] = None) -> float:
+        """The reference's estimate: projections and MLP per token, 4 T D
+        for scores and values, and the head, times T tokens."""
+        T = seq_len or 128
+        c = self.cfg
+        per_tok = 2 * (
+            c.d_model * c.head_dim * (c.num_heads + 2 * c.num_kv_heads)
+            + c.num_heads * c.head_dim * c.d_model
+            + (3 if c.gated_mlp else 2) * c.d_model * c.mlp_dim
+        )
+        attn = 4 * T * c.d_model
+        return float(c.num_layers * (per_tok + attn) * T
+                     + 2 * c.d_model * c.vocab_size * T)
 
     # --- decode interface (used by engine.decode) -------------------------
     def make_cache(self, batch_size: int,

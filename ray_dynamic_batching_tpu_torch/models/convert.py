@@ -41,6 +41,19 @@ family's module in ``models/{resnet,shufflenet,efficientnet,vit}.py``:
 - numbered flax modules (``stage{i}_block{j}``, ``stage{s}_down`` /
   ``stage{s}_unit{i}``, ``block{i}``) -> the port's flat ``blocks.{k}`` /
   ``units.{k}`` in build order.
+
+``distilbert_params_from_flax`` (``models/distilbert.py``'s
+``DistilBertModule``) and ``asr_params_from_flax`` (``models/asr.py``'s
+``ASRModel``, from the ``{"encoder", "decoder"}`` tree its ``init``
+returns) map the encoder families:
+
+- ``DenseGeneral`` kernels flatten to ``[in, out]`` and transpose:
+  DistilBERT's ``qkv`` ``[D, 3, N, H]`` -> ``[3*N*H, D]``, its ``proj``
+  and the ASR ``o`` kernels ``[N, H, D]`` -> ``[D, N*H]``, the ASR
+  ``q``/``k``/``v`` ``[D, N, H]`` -> ``[N*H, D]``; biases flattened;
+- LayerNorm ``scale``/``bias`` and embeddings as they are;
+- the ASR convolutions' NWC kernels ``[3, in, out]`` -> ``[out, in, 3]``;
+- numbered ``layer{i}`` -> ``layers.{i}``.
 """
 
 from __future__ import annotations
@@ -204,3 +217,64 @@ def efficientnet_params_from_flax(tree: Mapping[str, Any]
 def vit_params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return _vision_from_flax(tree, _numbered(
         tree, r"block(\d+)", "blocks", lambda m: (int(m[1]),)))
+
+
+# --- encoder families (DistilBERT, ASR) ---------------------------------------
+def _encoder_tree(params: Mapping[str, Any], prefix: str,
+                  kernel: Callable[[str, np.ndarray], np.ndarray]
+                  ) -> Dict[str, torch.Tensor]:
+    """A flax params subtree as a ``state_dict`` under ``prefix``:
+    ``layer{i}`` -> ``layers.{i}``, ``kernel(module, x)`` lays out each
+    kernel, ``embedding`` -> ``weight``, biases flattened."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Any, path: Tuple[str, ...]) -> None:
+        if isinstance(node, Mapping):
+            for key, child in node.items():
+                walk(child, path + (key,))
+            return
+        *mods, leaf = path
+        x = np.asarray(node, dtype=np.float32)
+        if leaf == "kernel":
+            leaf, x = "weight", kernel(mods[-1], x)
+        elif leaf == "embedding":
+            leaf = "weight"
+        elif leaf == "bias":
+            x = x.reshape(-1)
+        mods = [f"layers.{m[5:]}" if re.fullmatch(r"layer\d+", m) else m
+                for m in mods]
+        sd[".".join([prefix] + mods + [leaf]) if prefix
+           else ".".join(mods + [leaf])] = _t(x)
+
+    walk(params.get("params", params), ())
+    return sd
+
+
+def _dense_kernel(module: str, x: np.ndarray) -> np.ndarray:
+    """A (Dense)General kernel -> ``[out, in]``: ``[N, H, D]`` output
+    projections contract their first two axes, every other kernel its
+    first axis."""
+    if module in ("proj", "o", "self_o", "cross_o"):
+        return x.reshape(-1, x.shape[-1]).T
+    return x.reshape(x.shape[0], -1).T
+
+
+def distilbert_params_from_flax(tree: Mapping[str, Any]
+                                ) -> Dict[str, torch.Tensor]:
+    """flax ``DistilBertModule`` params -> its port's ``state_dict``."""
+    return _encoder_tree(tree, "", _dense_kernel)
+
+
+def asr_params_from_flax(tree: Mapping[str, Any]
+                         ) -> Dict[str, torch.Tensor]:
+    """The ASR model's ``{"encoder", "decoder"}`` flax params ->
+    ``ASRModel``'s ``state_dict``."""
+
+    def kernel(module: str, x: np.ndarray) -> np.ndarray:
+        if module.startswith("conv"):            # NWC [3, in, out]
+            return x.transpose(2, 1, 0)
+        return _dense_kernel(module, x)
+
+    sd = _encoder_tree(tree["encoder"], "encoder", kernel)
+    sd.update(_encoder_tree(tree["decoder"], "decoder", kernel))
+    return sd

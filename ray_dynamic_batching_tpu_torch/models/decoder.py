@@ -36,9 +36,15 @@ kernel's granularity (``weight_codes`` / ``weight_scale``), routed through
 ``ops/quant_matmul.int8_linear``. With ``cfg.num_experts > 0`` the MLP is
 a mixture of experts (``models/moe.py::MoEBlock``).
 
-Trimmed: the reference's no-cache ``token_mask`` path (self-attention
-through ring attention over the ``sp`` mesh axis) and MoE's expert
-parallelism, which come with multi-GPU (ROADMAP queue 1 item 8).
+With no cache, a ``token_mask`` [B, T] (the reference's no-cache path,
+``CausalLM.apply``) builds the causal + padding attention in
+``ops/attention.self_attention``; ``return_aux`` also returns the MoE
+layers' load-balance losses summed (0 for a dense model), the
+reference's ``intermediates`` collection.
+
+Trimmed: the ring-attention branch of that path (the sequence sharded
+over the ``sp`` mesh axis) and MoE's expert parallelism, which come with
+multi-GPU (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -444,7 +450,9 @@ class DecoderLayer(nn.Module):
         kv_lengths: Optional[torch.Tensor] = None,  # [B] paged bound
         write_start: int = 0,  # slab prefill: position of the chunk's row 0
         scatter_writes: bool = False,  # slab: per-row windows (verify)
-    ) -> torch.Tensor:
+        token_mask: Optional[torch.Tensor] = None,  # [B, T]: no-cache path
+        return_aux: bool = False,  # also the MoE load-balance loss
+    ):
         cfg = self.cfg
         B, T, _ = x.shape
         N, K, H = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -504,18 +512,28 @@ class DecoderLayer(nn.Module):
                     full[:, write_start:write_start + T] = new.to(full.dtype)
             attn = attn_ops.dot_product_attention(
                 q, k_full, v_full, mask=mask, **scales)
+        elif token_mask is not None:
+            # Full-sequence self-attention: causal + padding from the
+            # token mask (the reference's no-cache path).
+            attn = attn_ops.self_attention(q, k, v, token_mask, causal=True)
         else:
             attn = attn_ops.dot_product_attention(q, k, v, mask=mask)
         x = x + self.o(attn.reshape(B, T, N * H))
 
         y = self.mlp_norm(x).to(self.dtype)
         if cfg.num_experts > 0:
+            if return_aux:
+                y, aux = self.moe(y, return_aux=True)
+                return x + y, aux
             return x + self.moe(y)
         if cfg.gated_mlp:
             y = F.silu(self.mlp_gate(y)) * self.mlp_up(y)
         else:
             y = F.gelu(self.mlp_up(y), approximate="tanh")
-        return x + self.mlp_down(y)
+        x = x + self.mlp_down(y)
+        if return_aux:
+            return x, None
+        return x
 
 
 class DecoderModule(nn.Module):
@@ -550,13 +568,19 @@ class DecoderModule(nn.Module):
         kv_lengths: Optional[torch.Tensor] = None,  # [B] (paged)
         write_start: int = 0,   # slab prefill write offset (long-fill chunks)
         scatter_writes: bool = False,  # slab: per-row windows at positions
-    ) -> torch.Tensor:
+        token_mask: Optional[torch.Tensor] = None,  # [B, T] (no-cache path)
+        return_aux: bool = False,
+    ):
         """Logits [B, T, V] — or [B, V] at row ``take[b]`` of each batch
         row (the head runs only on the rows the caller keeps; per-row the
         numbers are the ones the full [B, T, V] would hold).
         ``scatter_writes`` writes each row's T tokens of a slab cache at
         its own ``positions`` (positions past capacity dropped), the
-        speculative verify's window."""
+        speculative verify's window. With no cache and no ``mask``,
+        ``token_mask`` makes the attention causal over the valid tokens.
+        ``return_aux`` returns (logits, aux): the MoE layers'
+        load-balance losses summed, a 0-d f32 tensor (0 for a dense
+        model)."""
         x = self.tok_embed(tokens.long())
         if self.cfg.pos == "learned":
             # A row steered past capacity (its write dropped, its output
@@ -580,18 +604,26 @@ class DecoderModule(nn.Module):
             write_index = window_write_index(positions, cache.capacity)
         elif cache is not None and tokens.shape[1] == 1:
             write_index = decode_write_index(positions[:, 0], cache.capacity)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, layer in enumerate(self.layers):
             x = layer(x, positions, mask, cache, layer_idx=i, rope=rope,
                       write_index=write_index, page_table=page_table,
                       kv_lengths=kv_lengths, write_start=write_start,
-                      scatter_writes=scatter_writes)
+                      scatter_writes=scatter_writes, token_mask=token_mask,
+                      return_aux=return_aux)
+            if return_aux:
+                x, layer_aux = x
+                if layer_aux is not None:
+                    aux = aux + layer_aux
         x = self.final_norm(x)
         if take is not None:
             x = x[torch.arange(x.shape[0], device=x.device), take.long()]
         if self.cfg.tie_embeddings:
             w = self.tok_embed.weight
-            return F.linear(x.to(w.dtype), w)
-        return self.lm_head(x.float())
+            logits = F.linear(x.to(w.dtype), w)
+        else:
+            logits = self.lm_head(x.float())
+        return (logits, aux) if return_aux else logits
 
 
 def prefill_mask(attn_mask: torch.Tensor) -> torch.Tensor:

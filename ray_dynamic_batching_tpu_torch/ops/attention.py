@@ -9,13 +9,22 @@ Port of ``ray_dynamic_batching_tpu/ops/attention.py::dot_product_attention``
   otherwise the logical view is gathered through the clamped table and
   re-enters this dispatch with ``paged_window_mask`` — flash for W >= 16,
   the plain route for W 9..15;
-- non-causal with 1 <= Tq <= 8 (and a window mask broadcastable to
-  [B, 1, Tq, S]) -> the slab decode kernel (``ops/decode_attention.py``);
+- non-causal with 1 <= Tq <= 8, a head dim the decode kernels take (a
+  multiple of 16 up to 128, ``decode_attention.head_dim_ok``; a shape
+  rule decided before launch, where the reference has none) and a window
+  mask broadcastable to [B, 1, Tq, S] -> the slab decode kernel
+  (``ops/decode_attention.py``); the paged decode kernel takes the same
+  head dims;
 - otherwise Tq >= 16 -> the flash kernel (``ops/flash_attention.py``);
 - everything else the reference sends to XLA (causal Tq <= 15, non-causal
-  Tq 9..15, per-head masks) -> :func:`reference_attention`, the
-  counterpart of ``_xla_attention``, counted apart in
-  :data:`plain_launches`.
+  Tq 9..15, per-head masks), and small windows of a head dim the decode
+  kernels refuse -> :func:`reference_attention`, the counterpart of
+  ``_xla_attention``, counted apart in :data:`plain_launches`.
+
+:func:`self_attention` is the reference's no-cache entry point: it builds
+the padding mask from a ``[B, T]`` token mask and dispatches as above
+(the reference's ``sequence_parallel`` ring branch is trimmed: it comes
+with multi-GPU, ROADMAP queue 1 item 8).
 
 With ``k_scale``/``v_scale`` (the int8 KV cache: k/v hold codes) the
 routes stay the same: the two decode kernels read the codes and apply the
@@ -109,7 +118,8 @@ def route(q_shape: Sequence[int], k_shape: Sequence[int], *,
     B, Tq, N, _ = q_shape
     S, K = k_shape[1], k_shape[2]
     heads_ok = K > 0 and N % K == 0
-    if not causal and heads_ok and 1 <= Tq <= _decode.MAX_WINDOW_FOR_KERNEL:
+    if (not causal and heads_ok and 1 <= Tq <= _decode.MAX_WINDOW_FOR_KERNEL
+            and _decode.head_dim_ok(q_shape[3])):
         if mask_shape is None or _window_broadcastable(mask_shape, B, Tq, S):
             return "decode"
     if Tq >= _flash.MIN_QUERY_FOR_KERNEL and heads_ok:
@@ -192,6 +202,29 @@ def dot_product_attention(
     graphs.count_launch(globals(), "plain_launches")
     return reference_attention(q, k, v, causal=causal, mask=mask,
                                scale=scale)
+
+
+def self_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    token_mask: Optional[torch.Tensor] = None,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Self-attention over a full (un-cached) sequence (reference
+    ``attention.py:76-105``); q/k/v [B, T, *, H], token_mask [B, T]
+    nonzero = valid. Dense attention with the causal flag and the padding
+    mask ``token_mask[:, None, None, :]``, through
+    :func:`dot_product_attention` (so T >= 16 takes the flash kernel).
+    The reference's ring branch under ``sequence_parallel`` is trimmed
+    (multi-GPU)."""
+    mask = None
+    if token_mask is not None:
+        mask = token_mask[:, None, None, :].bool()
+    return dot_product_attention(q, k, v, causal=causal, mask=mask,
+                                 scale=scale)
 
 
 def _paged_attention(q, k, v, page_table, kv_lengths, *, mask, scale,

@@ -31,6 +31,13 @@ stream). Tiles and splits wholly past ``lengths[b] + Tq - 1`` are not
 read: every row attends position 0, so what they would add is exactly 0.
 Bound on the H100: the bytes of the K/V positions each slot attends.
 
+**Head dims.** Both kernels take a head dim that is a multiple of 16 up
+to 128 (:func:`head_dim_ok`): the scan body is built 64 and 128 wide, and
+a smaller head dim rides it with its K/V tiles and query rows zero-padded
+in shared memory (``csrc/common.cuh``), so the bytes read from device
+memory stay the head dim's own. ``ops/attention.route`` sends any other
+head dim to the plain route before launch.
+
 Both kernels take a per-device scratch for the split merge
 (:func:`_workspace`): partials and arrival counters, allocated once and
 reused, so calls on one device must run in stream order. An engine
@@ -68,6 +75,23 @@ MAX_WINDOW_FOR_KERNEL = 8
 # The engine's page-size rule (the JAX package's lane-aligned page): the
 # paged kernel route takes only pages that are a multiple of this.
 PAGE_ALIGN = 128
+
+#: Head dims both decode kernels take: multiples of 16 up to 128.
+MAX_HEAD_DIM = 128
+
+
+def head_dim_ok(H: int) -> bool:
+    """Whether the decode kernels take head dim ``H`` (a multiple of 16
+    in 16..128); ``ops/attention.route`` sends the others to the plain
+    route."""
+    return H % 16 == 0 and 16 <= H <= MAX_HEAD_DIM
+
+
+def padded_head_dim(H: int) -> int:
+    """The width of the scan body ``H`` rides in shared memory
+    (``csrc/common.cuh``): 64 for 16..64, 128 for 80..128."""
+    return 64 if H <= 64 else 128
+
 
 #: Slab-kernel launches since the last reset (plain-version calls do not
 #: count; a graph replay adds the launches its capture recorded), bf16/f32
@@ -151,17 +175,20 @@ def _kernel_args(q, k, v, k_scale, v_scale, what: str):
     if v.dtype != k.dtype or k.dtype != (torch.int8 if int8 else q.dtype):
         raise TypeError(f"{what}: k and v must be q's dtype, or int8 codes "
                         "with scales")
-    if H not in (64, 128):
-        raise ValueError(f"{what}: head_dim {H} not in (64, 128)")
+    if not head_dim_ok(H):
+        raise ValueError(f"{what}: head_dim {H} is not a multiple of 16 "
+                         f"in 16..{MAX_HEAD_DIM}")
     R = Tq * (N // K)
-    # common.cuh DecodeScan::smem_bytes: two K and two V tiles in the K/V
-    # element type, the query rows (f32, or bf16 padded to 16 rows), f32
-    # acc, scores and scales, plus the slab kernel's split mask (Tq x 128
-    # bytes) and flags (a byte per 64-key tile, per window row and per
-    # split; the paged kernel has none, counted all the same).
+    # common.cuh DecodeScan::smem_bytes at the padded width HP: two K and
+    # two V tiles in the K/V element type, the query rows (f32, or bf16
+    # padded to 16 rows), f32 acc, scores and scales, plus the slab
+    # kernel's split mask (Tq x 128 bytes) and flags (a byte per 64-key
+    # tile, per window row and per split; the paged kernel has none,
+    # counted all the same).
+    HP = padded_head_dim(H)
     kv_size = 1 if int8 else q.element_size()
-    q_bytes = max(4 * R, 2 * (-(-R // 16) * 16)) * H
-    smem = (256 * H * kv_size + q_bytes + 4 * (R * H + 72 * R + 256 + 3 * R)
+    q_bytes = max(4 * R, 2 * (-(-R // 16) * 16)) * HP
+    smem = (256 * HP * kv_size + q_bytes + 4 * (R * HP + 72 * R + 256 + 3 * R)
             + 20 + Tq * 128 + -(-k.shape[1] // 64) + Tq + -(-k.shape[1] // 128))
     if smem > 227 * 1024:
         raise ValueError(f"{what}: {R} window rows per KV head need "
@@ -391,12 +418,13 @@ def paged_eligible(q_shape, k_shape, v_shape, table_shape,
     """The reference wrapper's shape contract (``decode_attention.py:
     449-467``) minus its TPU VMEM budget: 1 <= Tq <= 8, pools [P, ps, K, H]
     with K dividing N and the head dim of q, a 2-D table with B rows,
-    lengths [B], and a page that is a multiple of :data:`PAGE_ALIGN`."""
+    lengths [B], and a page that is a multiple of :data:`PAGE_ALIGN`;
+    plus the kernels' own head-dim rule (:func:`head_dim_ok`)."""
     if len(q_shape) != 4 or len(k_shape) != 4:
         return False
     B, Tq, N, H = q_shape
     P, ps, K, Hk = k_shape
-    return (1 <= Tq <= MAX_WINDOW_FOR_KERNEL and Hk == H
+    return (1 <= Tq <= MAX_WINDOW_FOR_KERNEL and Hk == H and head_dim_ok(H)
             and tuple(v_shape) == tuple(k_shape) and K > 0 and N % K == 0
             and len(table_shape) == 2 and table_shape[0] == B
             and tuple(lengths_shape) == (B,)

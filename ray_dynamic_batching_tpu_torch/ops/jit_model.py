@@ -262,6 +262,23 @@ HOT_PROGRAMS: Tuple[JitProgram, ...] = (
 
 _BY_NAME: Dict[str, JitProgram] = {p.name: p for p in HOT_PROGRAMS}
 
+_ASR_STREAM = (
+    "each stream makes a fresh ASRCache sized by its prefix's text bucket "
+    "and its own cross K/V, so a graph would bake in one stream's buffers"
+)
+
+#: ``models/asr.py::StreamingASR``'s programs, beside the decode engine's
+#: (not part of its arms or its warmup): the reference jits them per
+#: (chunk bucket, text bucket); the port runs them eagerly, for the
+#: reason each records.
+ASR_PROGRAMS: Tuple[JitProgram, ...] = tuple(
+    JitProgram(name=f"asr_{impl}", attr="", impl=impl,
+               grid="chunk bucket x text bucket",
+               lazy_reason="a stream's first chunk of each bucket runs it "
+                           "first; eager programs capture nothing",
+               eager_reason=_ASR_STREAM)
+    for impl in ("encode", "prefill", "decode_step"))
+
 
 def program(name: str) -> JitProgram:
     return _BY_NAME[name]

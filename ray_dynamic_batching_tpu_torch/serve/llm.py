@@ -34,7 +34,8 @@ page-fabric surface (live migration, prefix push) the controller's
 courier drives. Speculative decoding comes through ``draft_model_name``
 (a registry model built beside the target from its own seed, 1) or a
 built ``draft_model`` module (the target module itself for a
-self-draft, sharing its weights), with ``spec_tokens``; every
+self-draft, sharing its weights unless ``quantize_weights=True``, where
+it keeps a full-precision copy), with ``spec_tokens``; every
 length-bucket engine gets the draft. ``quantize_weights=True`` serves
 weight-only int8 (``models/quant.py``): the model is quantized once in
 place and shared by every length-bucket engine, and ``auto_num_slots``
@@ -53,6 +54,7 @@ Result: ``DecodeResult`` (tokens, finish_reason, ttft_ms, total_ms).
 
 from __future__ import annotations
 
+import copy
 import threading
 import time
 import os
@@ -67,6 +69,7 @@ from ray_dynamic_batching_tpu_torch.engine.request import (
     RequestDropped,
 )
 from ray_dynamic_batching_tpu_torch.models.quant import (
+    is_quantized,
     load_state,
     quantize_tree,
     tree_weight_bytes,
@@ -371,7 +374,9 @@ class LLMDeployment:
     the JAX package) replaces the random weights of the model it builds.
     ``quantize_weights=True`` quantizes the model once, in place
     (idempotent: a pre-quantized tree passes through); a separate draft
-    is not quantized, and a self-draft shares the model's int8 weights.
+    is not quantized, and a self-draft keeps a full-precision copy of the
+    model's weights made before quantization (the reference's
+    ``draft_params``).
 
     ``num_slots <= 0`` means "size me" (:meth:`build_engine`): the
     memory budget is the config's ``hbm_budget_bytes``, which on a card
@@ -528,6 +533,16 @@ class LLMDeployment:
                     "deployment build it"
                 )
             if self.quantize_weights:
+                if self._draft_model is self._model:
+                    # A self-draft drafts from the full-precision weights
+                    # (the reference's draft_params): keep a copy before
+                    # the codes replace them (engine/decode.py).
+                    if is_quantized(self._model):
+                        raise ValueError(
+                            f"{self.model_name}: a self-draft of an already "
+                            "quantized model would draft from its int8 "
+                            "codes; its full-precision weights are gone")
+                    self._draft_model = copy.deepcopy(self._model)
                 quantize_tree(self._model)
             if self.draft_model_name is not None and self._draft_model is None:
                 from ray_dynamic_batching_tpu_torch.models import registry
@@ -564,8 +579,10 @@ class LLMDeployment:
         draft = self._draft_model
         if draft is not None:
             # Speculation's residency: the draft's weights (none extra for
-            # a self-draft, which shares the target module's) and a draft
-            # KV row per slot with the window's headroom past max_len.
+            # a self-draft that shares the target module's; a quantized
+            # target's self-draft is its full-precision copy, counted as
+            # the reference counts draft_params) and a draft KV row per
+            # slot with the window's headroom past max_len.
             if draft is not model:
                 weights_bytes += tree_weight_bytes(draft) / max(1, n_chips)
             per_slot += float(draft.kv_bytes_per_slot(

@@ -248,6 +248,41 @@ def _paged_inputs(rng, B, Tq, N, K, H, P, ps, NP, lengths):
     return q, k, v, table, np.asarray(lengths, np.int32)
 
 
+class TestHeadDimRule:
+    """The decode kernels take head dims that are multiples of 16 up to
+    128 (smaller ones zero-padded in shared memory on the card); a small
+    window of any other head dim takes the plain route, decided by shape
+    before launch and counted in ``plain_launches``, and gives the JAX
+    package's output (its kernel has no head-dim rule; on the CPU its
+    dispatcher runs XLA)."""
+
+    @pytest.mark.parametrize("H", [8, 16, 24, 48, 64, 80, 104, 128, 136])
+    def test_route_by_head_dim(self, H):
+        ok = H % 16 == 0 and H <= 128
+        assert t_decode.head_dim_ok(H) == ok
+        assert t_attention.route((2, 1, 4, H), (2, 64, 2, H), causal=False,
+                                 mask_shape=(2, 1, 1, 64)) == (
+            "decode" if ok else "plain")
+        assert t_attention.route((2, 1, 4, H), (8, 128, 2, H), causal=False,
+                                 page_table_shape=(2, 2),
+                                 lengths_shape=(2,)) == (
+            "paged_decode" if ok else "plain")
+
+    def test_refused_head_dim_takes_the_plain_route(self):
+        rng = np.random.default_rng(24)
+        q, k, v = _qkv(rng, 2, 3, 40, 4, 2, 24)
+        mask = np.ones((2, 1, 3, 40), bool)
+        mask[1, :, :, 30:] = False
+        t_attention.reset_counts()
+        got = t_attention.dot_product_attention(_t(q), _t(k), _t(v),
+                                                mask=torch.from_numpy(mask))
+        assert t_attention.plain_launches == 1
+        want = j_attention.dot_product_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            mask=jnp.asarray(mask))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
 class TestPagedPlainVsJaxKernel:
     @pytest.mark.parametrize("Tq", [1, 2, 3, 4, 5, 6, 7, 8])
     @pytest.mark.parametrize("N,K", [(4, 4), (8, 2)])   # MHA, GQA

@@ -305,6 +305,80 @@ def test_kernels_refuse_what_they_do_not_take(card):
                                    k_scale=scales, v_scale=scales)
 
 
+#: Head dims the decode kernels take besides 64 and 128: every multiple
+#: of 16 up to 128 (16 is every tiny decoder's, and Whisper-tiny's and
+#: DistilBERT-tiny's), riding the 64- and 128-wide bodies zero-padded.
+NEW_HEAD_DIMS = [16, 32, 48, 80, 96, 112]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", NEW_HEAD_DIMS)
+def test_decode_kernels_at_every_head_dim(card, H, dtype, int8):
+    """Kernels 2 and 3 at a padded head dim against their plain versions
+    (two splits, a ragged tail, a row attending nothing, GQA 4:2), and
+    kernel 3 on the slab cut into shuffled pages bit-identical to
+    kernel 2 on the same staircase."""
+    gen = torch.Generator(device=card).manual_seed(H + 2 * int8)
+    B, Tq, S, N, K, ps = 3, 3, 256, 4, 2, 128
+    q = _rand(gen, (B, Tq, N, H), dtype, card)
+    if int8:
+        k, ks = _int8(gen, (B, S, K, H), card)
+        v, vs = _int8(gen, (B, S, K, H), card)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        k = _rand(gen, (B, S, K, H), dtype, card)
+        v = _rand(gen, (B, S, K, H), dtype, card)
+        scales = {}
+    lengths = torch.tensor([0, 150, S - Tq], dtype=torch.int32, device=card)
+    mask = paged_window_mask(lengths, S, Tq).clone()
+    mask[0, :, 1] = False               # window row 1 of slot 0: no key
+    slab = dec.decode_attention(q, k, v, mask=mask, **scales)
+    ref = dec.decode_attention_plain(q, k, v, fl.keep_mask(mask, B, Tq, S),
+                                     **scales)
+    assert (slab.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+    perm = torch.randperm(B * S // ps, generator=gen, device=card)
+    table = perm.reshape(B, S // ps).to(torch.int32)
+
+    def pages(x):
+        out = torch.empty((B * S // ps, ps) + tuple(x.shape[2:]),
+                          dtype=x.dtype, device=card)
+        out[table.long().reshape(-1)] = x.reshape((-1, ps)
+                                                  + tuple(x.shape[2:]))
+        return out
+
+    pscales = {n: pages(t) for n, t in scales.items()}
+    before = (dec.paged_int8_launches if int8 else dec.paged_launches)
+    paged = dec.paged_decode_attention(q, pages(k), pages(v), table,
+                                       lengths, **pscales)
+    torch.cuda.synchronize()
+    assert (dec.paged_int8_launches if int8
+            else dec.paged_launches) == before + 1
+    pref = dec.paged_decode_attention_plain(q, pages(k), pages(v), table,
+                                            lengths, **pscales)
+    assert (paged.float() - pref.float()).abs().max().item() <= TOL[dtype]
+    same = dec.decode_attention(q, k, v,
+                                mask=paged_window_mask(lengths, S, Tq),
+                                **scales)
+    assert torch.equal(paged, same)
+
+
+def test_decode_kernels_refuse_other_head_dims(card):
+    """Head dims off the rule raise in the wrapper (and the route sends
+    them to the plain version before launch)."""
+    from ray_dynamic_batching_tpu_torch.ops import attention as att
+
+    for H in (8, 24, 136):
+        q = torch.zeros((1, 1, 4, H), device=card)
+        with pytest.raises(ValueError, match="head_dim"):
+            dec.decode_attention(q, q, q)
+        assert att.route(q.shape, q.shape, causal=False) == "plain"
+        before = att.plain_launches
+        out = att.dot_product_attention(q, q, q)
+        assert att.plain_launches == before + 1 and out.shape == q.shape
+
+
 def test_decode_kernels_refuse_a_small_merge_workspace(card):
     """The launch checks the split merge's workspace and counters against
     the split length it was built with: too small is refused, never
@@ -1379,3 +1453,45 @@ def test_quantized_engine_graphed_equals_eager(card, arm):
         assert engine.quantized
     assert runs[0] == runs[1]
     assert runs[1][2] > 0
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("name", ["llama_tiny", "llama_tiny_int8kv",
+                                  "moe_tiny"])
+def test_tiny_decoders_serve_on_the_decode_kernels(card, name, paged):
+    """The registry's tiny decoders (head_dim 16) served through
+    ``LLMDeployment`` on the card: the decode kernels launch, and the
+    greedy tokens (f32) equal an eager deployment's on the plain route."""
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+    from ray_dynamic_batching_tpu_torch.ops import attention as att
+    from ray_dynamic_batching_tpu_torch.ops import graphs
+    from ray_dynamic_batching_tpu_torch.serve.controller import (
+        DeploymentConfig,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(1, 500, (n,), generator=gen).tolist()
+               for n in (3, 7, 12, 5)]
+
+    def serve():
+        dep = LLMDeployment(name, num_slots=4, max_len=256 if paged else 64,
+                            prompt_buckets=[8, 16], default_max_new_tokens=6,
+                            dtype=torch.float32, device=card, seed=0,
+                            paged=paged)
+        replica = dep.make_replica("t", DeploymentConfig(name=name))
+        reqs = [Request(model=name, payload={"tokens": p}, slo_ms=1e7)
+                for p in prompts]
+        for r in reqs:
+            replica.engine.queue.add_request(r)
+        replica.engine.run_until_idle(timeout_s=300)
+        return [r.future.result(timeout=5).tokens for r in reqs]
+
+    att.reset_counts()
+    got = serve()
+    kernel = (dec.paged_launches + dec.paged_int8_launches if paged
+              else dec.launches + dec.int8_launches)
+    assert kernel > 0
+    with att.plain_attention(), graphs.disable_capture():
+        want = serve()
+    assert got == want

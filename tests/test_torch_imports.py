@@ -13,7 +13,8 @@ tiny vision model with ``ModelProfiler`` and serves it through a
 with the same modules blocked, captures a handle request's flight record
 (the hop ledger, the trace export, the sim's drift report). A third
 runs the simulator's smoke, a partition and a migration twin, and a
-live sharded front door.
+live sharded front door. Another profiles DistilBERT, collates and
+transcribes a clip through the ASR model and reads moe_tiny's aux loss.
 """
 
 import ast
@@ -314,6 +315,59 @@ def test_sim_and_front_door_run_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == "0 True 0 True True"
+
+
+_SERVABLES_PROBE = """
+import sys
+for name in {forbidden!r}:
+    sys.modules[name] = None      # any import of them now raises
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from ray_dynamic_batching_tpu_torch.engine.collate import collate
+from ray_dynamic_batching_tpu_torch.engine.request import Request
+from ray_dynamic_batching_tpu_torch.models import registry
+from ray_dynamic_batching_tpu_torch.models.asr import StreamingASR
+from ray_dynamic_batching_tpu_torch.ops.jit_model import ASR_PROGRAMS
+from ray_dynamic_batching_tpu_torch.profiles.profiler import ModelProfiler
+rng = np.random.default_rng(0)
+bert = registry.get_model("distilbert_tiny", dtype=torch.float32,
+                          device="cpu", seed=0)
+rows = ModelProfiler(bert, timing_iters=2, warmup_iters=1).sweep(
+    [1, 2], seq_buckets=[16]).rows
+asr = registry.get_model("whisper_tiny_test", dtype=torch.float32,
+                         device="cpu", seed=0)
+(batch, n) = collate(asr, [Request(model="w", slo_ms=1e4,
+                                   payload=rng.standard_normal((90, 16)))], 2)
+with torch.inference_mode():
+    logits = asr(*batch)
+stream = StreamingASR(asr, chunk_frames=50, max_new_tokens=3)
+stream.feed(rng.standard_normal((60, 16)).astype(np.float32))
+lm = registry.get_model("moe_tiny", dtype=torch.float32, device="cpu",
+                        seed=0)
+with torch.inference_mode():
+    _, aux = lm.apply_with_aux(*lm.example_inputs(2, 16))
+print(len(rows), n, tuple(logits.shape), stream.transcript[0],
+      float(aux) > 0, all(not p.captured for p in ASR_PROGRAMS))
+"""
+
+
+def test_new_servables_run_with_jax_blocked():
+    """``models/distilbert.py``, ``models/asr.py`` (its own
+    ``collate_audio``), ``collate_asr`` and ``CausalLM``'s no-cache
+    forward with JAX and the JAX package blocked: DistilBERT profiled, a
+    clip collated and transcribed, moe_tiny's aux loss."""
+    scanned = {p.relative_to(PORT).as_posix() for p in _sources()
+               if PORT in p.parents}
+    assert {"models/distilbert.py", "models/asr.py"} <= scanned
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", _SERVABLES_PROBE.format(forbidden=FORBIDDEN)],
+        capture_output=True, text=True, timeout=120, cwd=str(ROOT), env=env,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == \
+        "2 1 (2, 8, 256) 254 True True"
 
 
 _W8_PROBE = """

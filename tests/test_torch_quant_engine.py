@@ -10,9 +10,12 @@ monolithic arms, a multi-chunk train on the chunked ones): greedy tokens
 must be identical on the five arms — slab, paged (chunked), int8 KV
 (slab), int8 KV paged, slab trains — and on a speculative arm whose target
 is quantized and whose draft (a different tiny model) is not, as the JAX
-engine allows. A self-draft of a quantized target shares its int8 weights
-(the JAX engine's keeps full-precision params): the greedy tokens are the
-target's all the same.
+engine allows. A self-draft of a quantized target drafts from the
+full-precision weights, as the JAX engine's self-draft reads its
+full-precision ``draft_params``: on the slab and paged arms the spec books
+(per round: accepted and proposed; so rounds, proposed and accepted in
+all) equal the JAX engine's exactly, with identical greedy tokens; a
+self-draft of a model that arrives already quantized is refused.
 """
 
 import jax
@@ -128,22 +131,85 @@ def test_quantized_target_with_an_unquantized_draft(params):
     assert is_quantized(tm) and not is_quantized(draft)
 
 
-def test_self_draft_of_a_quantized_target_shares_its_int8_weights(params):
-    """A self-draft is the target module, so ``quantize_weights=True``
-    quantizes the draft too; greedy tokens stay identical to the JAX
-    engine's, whose self-draft keeps the full-precision params."""
+@pytest.mark.parametrize("arm", ["slab", "paged"])
+def test_self_draft_of_a_quantized_target_books_like_the_jax_engine(params,
+                                                                   arm):
+    """A self-draft of a quantized target drafts from the weights as they
+    were before quantization (the JAX engine quantizes only the target's
+    params; its draft reads the caller's f32 ``draft_params``): the spec
+    books — every round's (accepted, proposed) — and the greedy tokens
+    equal the JAX engine's."""
+    cfg = ARMS[arm][1]
     payloads = [dict(p, max_new_tokens=8) for p in _payloads()]
     jm = j_lm.CausalLM(j_lm.TINY_LM, name="d", dtype=jnp.float32)
-    want = _serve(*_jax_engine("llama_tiny", params[0], SLAB,
-                               draft_model=jm, draft_params=params[0],
-                               spec_tokens=3), payloads, JRequest)
+    jeng, jq = _jax_engine("llama_tiny", params[0], cfg, draft_model=jm,
+                           draft_params=params[0], spec_tokens=3)
+    want = _serve(jeng, jq, payloads, JRequest)
     tm = _bridge("llama_tiny", params[0])
     q = RequestQueue("t")
     engine = DecodeEngine(tm, q, device="cpu", quantize_weights=True,
-                          draft_model=tm, spec_tokens=3, **SLAB)
-    assert engine.draft_model is tm and is_quantized(engine.draft_model)
+                          draft_model=tm, spec_tokens=3, **cfg)
+    assert is_quantized(tm) and engine.draft_model is not tm
+    assert not is_quantized(engine.draft_model)
     got = _serve(engine, q, payloads, Request)
     assert [r.tokens for r in got] == [r.tokens for r in want]
-    assert engine.spec_rounds > 0
-    # The draft reads the target's own codes: every proposal is accepted.
-    assert engine.spec_acceptance() == 1.0
+    books = list(engine._spec_acc_window)
+    assert books == list(jeng._spec_acc_window)
+    assert engine.spec_rounds == len(books) > 0
+    # Not the int8 target reading its own codes, which accepts everything.
+    assert sum(a for a, _ in books) < sum(d for _, d in books)
+    if engine.paged:
+        engine._allocator.check()
+
+
+def test_self_draft_of_an_already_quantized_model_is_refused(params):
+    """A model quantized before the engine sees it has no full-precision
+    weights left for a self-draft: the engine raises rather than draft
+    from the codes."""
+    from ray_dynamic_batching_tpu_torch.models.quant import quantize_tree
+
+    tm = quantize_tree(_bridge("llama_tiny", params[0]))
+    for quantize in (False, True):
+        with pytest.raises(ValueError, match="self-draft"):
+            DecodeEngine(tm, RequestQueue("t"), device="cpu",
+                         quantize_weights=quantize, draft_model=tm,
+                         spec_tokens=3, **SLAB)
+
+
+@pytest.mark.parametrize("budget", [1 << 20, 64 << 20])
+def test_quantized_self_draft_deployment_sizes_like_the_jax_one(params,
+                                                               budget):
+    """``LLMDeployment(quantize_weights=True)`` with a self-draft keeps a
+    full-precision draft (the model's weights before quantization) and
+    sizes its slots as the JAX deployment does, whose sizing counts the
+    int8 target and the f32 ``draft_params``."""
+    from ray_dynamic_batching_tpu.serve.llm import (
+        LLMDeployment as JDeployment,
+    )
+    from ray_dynamic_batching_tpu.utils import config as j_config
+    from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+    from ray_dynamic_batching_tpu_torch.utils import config as t_config
+
+    for cfg in (j_config, t_config):
+        cfg.set_config(cfg.RDBConfig.from_env(hbm_budget_bytes=budget))
+    try:
+        kw = dict(num_slots=0, max_len=64, prompt_buckets=[8], warmup=False,
+                  quantize_weights=True, spec_tokens=3)
+        jm = j_lm.CausalLM(j_lm.TINY_LM, name="llama_tiny",
+                           dtype=jnp.float32)
+        # The JAX deployment's self-draft: the same registry model (f32)
+        # over the caller's f32 params.
+        jdep = JDeployment("llama_tiny", model=jm, params=params[0],
+                           draft_model_name="llama_tiny",
+                           draft_params=params[0], dtype=jnp.float32, **kw)
+        tm = _bridge("llama_tiny", params[0])
+        dep = LLMDeployment("llama_tiny", model=tm, draft_model=tm,
+                            device="cpu", **kw)
+        for n_chips, max_len in ((1, None), (1, 128)):
+            assert dep.auto_num_slots(n_chips, max_len=max_len) == \
+                jdep.auto_num_slots(n_chips, max_len=max_len)
+        assert is_quantized(tm) and dep._draft_model is not tm
+        assert not is_quantized(dep._draft_model)
+    finally:
+        j_config.reset_config()
+        t_config.reset_config()

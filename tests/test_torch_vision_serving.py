@@ -133,8 +133,8 @@ def test_collate_text_and_dispatch_match_jax():
 
 
 def test_collate_refusals():
-    tm = t_reg.get_model("vit_tiny", device="cpu", seed=None)
-    with pytest.raises(NotImplementedError, match="models/asr.py"):
+    tm = t_reg.get_model("whisper_tiny_test", device="cpu", seed=None)
+    with pytest.raises(ValueError, match="empty batch"):
         t_collate.collate_asr(tm, [], 1)
     tm.family = "unknown"
     with pytest.raises(ValueError, match="no collator"):
