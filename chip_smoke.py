@@ -394,6 +394,39 @@ last line:
     a layer a forward; the profiler's forwards a row). Every kernel shape
     the phase launches must be one phase 3 held: phase 19 needs phase 3.
     It prints its wall time.
+20. tp — tensor-parallel serving (``DecodeEngine(mesh=)``,
+    ``parallel/{mesh,spmd,collective}.py``): every mesh here is a gloo
+    world whose ranks (one process each, spawned by rank 0) time-share
+    this one card — the script needs one card, and NCCL takes one rank
+    per card, so the NCCL path is not run. (a) f32 parity at
+    full width, 2 layers: TP 4 engines against the single-card engine on
+    phase 6's 10 requests, on the slab and paged arms, mono and chunked,
+    each with the f32 and the int8 KV cache, and TP 2 engines on the f32
+    ones (the int8 pool's tp 2 shards are held in phase 3): greedy tokens
+    identical; the logits of a prefill and a step through the TP model
+    against the single-card model's (max abs error printed; every rank's
+    gathered logits bit-identical); each rank reports its kernel counts
+    and the arm's kernel (2 on the slab, 4 — kernel 3 per kv-head
+    shard — on the pool) must have launched on every rank. (b) BASELINE
+    config 4: llama3_8b bf16 at full width and depth, TP = 4, served
+    through ``LLMDeployment(paged=True, num_slots=16,
+    mesh_backend="gloo", warmup=False)`` (a mesh engine's programs run
+    eagerly: warming them would only record the capture ledger) and
+    ``make_replica`` with a 4-chip bundle from a ``PlacementManager`` over
+    four rank handles on cuda:0; phase 5's 8 requests all answered, every
+    rank's launches held to what the dispatches imply (kernel 4 once a
+    layer a step, flash once a layer a fill, nothing else); tok/s and the
+    wall per decode step printed as
+    "4 ranks time-sharing one H100 over gloo: not TP speed". It prints
+    the backend, ``torch.cuda.device_count()`` and its wall time.
+
+Phase 3 also holds kernel 4 (``paged_decode_attention_tp``): at llama3_8b's
+shape, q [16, 1, 32, 128] over pools [64, 128, 8, 128] in bf16 and f32
+and with int8 pools, the tp = 2 and tp = 4 shards' launches of kernel 3
+(at tp 4 each q [16, 1, 8, 128] over [64, 128, 2, 128]), concatenated,
+must be bit-identical to one unsharded launch and within tolerance of
+the plain version; one rank's shard is timed at tp 4 (and tp 2) with its
+bound over the shard's bytes and gather + SDPA on the same shard.
 
 Every engine is warmed before it serves, and every serving phase (5-12,
 14, 16-18) ends with the capture ledger's ``check_steady()``: no program
@@ -401,7 +434,7 @@ was captured after a warmup ended. Phases 5 to 13 and 16 to 18 are
 served graphed (phase 19's decoders too; its encoders and ``StreamingASR``
 run eagerly).
 
-Phases 5 to 14 and 16 to 19's runs each set every launch count to 0
+Phases 5 to 14, 16 to 19 and 20b's runs each set every launch count to 0
 just before they serve and read them just after: each kernel of the path
 must have launched the number of times the engine's dispatches imply,
 the other kernels and the plain route never (a graph replay adds the
@@ -422,10 +455,10 @@ warmed).
 The line before the last is one JSON object with the per-kernel numbers
 (``launches`` sums the serving phases, phase 14's graphed speed runs
 among them; ``launches_by_path`` splits them) and the numbers of the
-front, controller, colocate, vision, graphs, sim, reuse, spec, weights
-and servables phases (``front``, ``controller``, ``colocate``,
+front, controller, colocate, vision, graphs, sim, reuse, spec, weights,
+servables and tp phases (``front``, ``controller``, ``colocate``,
 ``vision``, ``graphs``, ``sim``, ``reuse``, ``spec``, ``weights``,
-``servables``; the
+``servables``, ``tp``; the
 per-hop splits under ``front.hops``, ``colocate.runs.diagnostic.turns``
 and ``vision.traced``, the front-door run under ``front.front_door``);
 the last line is
@@ -1338,8 +1371,116 @@ def phase_kernels() -> dict:
             row.setdefault("held_max_abs_err", {})[case] = errs
         results[name] = row
     results["int8_weight_matmul"] = _w8_kernel_row()
+    results["paged_decode_attention_tp"] = _tp_kernel_row()
     attention.reset_counts()   # comparison launches do not count
     return results
+
+
+# --- phase 3: kernel 4, kernel 3 per kv-head shard ---------------------------
+TP_SOURCE = "ray_dynamic_batching_tpu_torch/csrc/paged_decode_attention.cu"
+TP_REPLACES = "ray_dynamic_batching_tpu/ops/decode_attention.py:519"
+
+
+def _tp_mesh(tp: int):
+    """A mesh's shape as a rank's kernel wrapper reads it (no ranks are
+    started: phase 3 launches each shard here)."""
+    from ray_dynamic_batching_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh({"tp": tp}, ["cuda:0"] * tp)
+
+
+def _tp_shard(x: dict, tp: int, r: int) -> dict:
+    """Rank r's shard of a whole paged call: its query heads and kv heads
+    (and their scales), each contiguous as a rank holds them; the table
+    and lengths whole."""
+    n = x["q"].shape[2] // tp
+    kk = x["k"].shape[2] // tp
+    out = dict(x, q=x["q"][:, :, r * n:(r + 1) * n].contiguous(),
+               k=x["k"][:, :, r * kk:(r + 1) * kk].contiguous(),
+               v=x["v"][:, :, r * kk:(r + 1) * kk].contiguous())
+    for name in ("ks", "vs"):
+        if name in x:
+            out[name] = x[name][:, :, r * kk:(r + 1) * kk].contiguous()
+    return out
+
+
+def _tp_kernel_row() -> dict:
+    """Kernel 4 at llama3_8b's shape (see the module docstring): the tp 2
+    and 4 shards' launches, concatenated, bit-identical to one unsharded
+    kernel-3 launch and within tolerance of the plain version, bf16, f32
+    and int8 pools; one rank's shard timed at tp 4 and 2 beside its plain
+    version, gather + SDPA and its bound."""
+    from ray_dynamic_batching_tpu_torch.ops import decode_attention as dec
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rng = np.random.default_rng(4)
+    row = {"name": "paged_decode_attention_tp", "route": "cuda",
+           "source": TP_SOURCE, "replaces": TP_REPLACES, "library_ms": None}
+
+    def scales(x):
+        return dict(k_scale=x.get("ks"), v_scale=x.get("vs"))
+
+    for kind, make in (("", _paged_inputs), ("int8 ", _int8_paged_inputs)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = make(dtype, gen, rng)
+            args = (x["q"], x["k"], x["v"], x["table"], x["lengths"])
+            whole = dec.paged_decode_attention(*args, **scales(x))
+            plain = dec.paged_decode_attention_plain(*args, **scales(x))
+            tag = kind + ("bf16" if dtype == torch.bfloat16 else "f32")
+            for tp in (2, 4):
+                out = dec.paged_decode_attention_tp(*args, tp=tp,
+                                                    **scales(x))
+                torch.cuda.synchronize()
+                if out is None or not torch.equal(out, whole):
+                    fail(f"kernel 4 {tag} tp={tp}: shards not bit-identical "
+                         "to one unsharded launch")
+                if not torch.isfinite(out.float()).all():
+                    fail(f"kernel 4 {tag} tp={tp}: non-finite output")
+                err = (out.float() - plain.float()).abs().max().item()
+                print(f"[kernels] paged_decode_attention_tp {tag} tp={tp} "
+                      f"q{tuple(x['q'].shape)} pools{tuple(x['k'].shape)}: "
+                      f"bit-identical to the unsharded launch, max_abs_err "
+                      f"{err:.3e} vs plain (tol {TOL[dtype]:.0e})",
+                      flush=True)
+                if not err <= TOL[dtype]:
+                    fail(f"kernel 4 {tag} tp={tp}: max_abs_err {err}")
+                key = ("int8_" if kind else "") + (
+                    "max_abs_err" if dtype == torch.bfloat16
+                    else "max_abs_err_f32") + f"_tp{tp}"
+                row[key] = err
+            if dtype != torch.bfloat16:
+                continue
+            for tp in (4, 2):
+                sh = _tp_shard(x, tp, 0)
+                mesh = _tp_mesh(tp)
+                nbytes, flops = _paged_cost(sh)
+                b_ms, b_by = bound(nbytes, flops, dtype)
+                sub = dict(
+                    q_shape=list(sh["q"].shape), kv_shape=list(sh["k"].shape),
+                    ms=time_ms(lambda: dec.paged_decode_attention(
+                        sh["q"], sh["k"], sh["v"], sh["table"],
+                        sh["lengths"], mesh=mesh, **scales(sh))),
+                    plain_ms=time_ms(lambda: dec.paged_decode_attention_plain(
+                        sh["q"], sh["k"], sh["v"], sh["table"],
+                        sh["lengths"], **scales(sh))),
+                    bound_ms=b_ms, bound_by=b_by, bound_mb=nbytes / 1e6,
+                    yardstick="gather + sdpa (3 calls)" if not kind else
+                    "gather + dequantize + sdpa (7 calls)",
+                    yardstick_ms=time_ms(lambda: _gather_sdpa(sh)))
+                print(f"[kernels] paged_decode_attention_tp {kind}bf16 one "
+                      f"rank's shard at tp={tp} q{tuple(sh['q'].shape)} "
+                      f"pools{tuple(sh['k'].shape)}: kernel {sub['ms']:.4f} "
+                      f"ms, plain {sub['plain_ms']:.4f} ms, "
+                      f"{sub['yardstick']} {sub['yardstick_ms']:.4f} ms, "
+                      f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)",
+                      flush=True)
+                if tp == 4 and not kind:
+                    row.update(dtype="bfloat16", kv_dtype="bfloat16",
+                               max_abs_err=row["max_abs_err_tp4"], **sub)
+                else:
+                    pre = ("int8_" if kind else "") + f"tp{tp}_"
+                    row.update({pre + k: v for k, v in sub.items()})
+    return row
 
 
 # --- phase 3: the int8-weight GEMM (ops/quant_matmul.py) ---------------------
@@ -1514,6 +1655,8 @@ def _counts() -> dict:
             "paged_decode_attention": dec.paged_launches,
             "decode_attention_int8": dec.int8_launches,
             "paged_decode_attention_int8": dec.paged_int8_launches,
+            "paged_decode_attention_tp": (dec.tp_paged_launches
+                                          + dec.tp_paged_int8_launches),
             "int8_weight_matmul": qm.launches,
             "plain": attention.plain_launches}
 
@@ -6696,6 +6839,284 @@ def _held_shapes(shapes, tag: str = "spec", phase: int = 17) -> list:
     return rows
 
 
+# --- phase 20: tensor-parallel serving --------------------------------------
+TP_PARITY_LAYERS = 2
+# arm -> (KV dtype, knobs): phase 6's 10 requests through each.
+TP_ARMS = {
+    "slab": (None, SLAB_KNOBS),
+    "slab_chunked": (None, dict(SLAB_KNOBS, chunked_prefill=True)),
+    "paged": (None, PAGED_KNOBS),
+    "paged_mono": (None, dict(PAGED_KNOBS, chunked_prefill=False)),
+    "int8": (torch.int8, SLAB_KNOBS),
+    "int8_chunked": (torch.int8, dict(SLAB_KNOBS, chunked_prefill=True)),
+    "int8_paged": (torch.int8, PAGED_KNOBS),
+    "int8_paged_mono": (torch.int8, dict(PAGED_KNOBS, chunked_prefill=False)),
+}
+TP_LABEL = "4 ranks time-sharing one H100 over gloo: not TP speed"
+# KV dtypes 20a serves at each TP size: every arm at tp 4; the f32 arms at
+# tp 2 (the int8 pool's tp 2 shards are held bit-identical in phase 3 and
+# the card tests; the script's time limit is close).
+TP_PARITY_KV = {2: (None,), 4: (None, torch.int8)}
+
+
+def _rank_counts(ctx, seq) -> dict:
+    """A rank's kernel launch counts (run on every rank)."""
+    return _counts()
+
+
+def _rank_reset(ctx, seq) -> None:
+    from ray_dynamic_batching_tpu_torch.ops import attention
+
+    torch.cuda.synchronize()
+    attention.reset_counts()
+
+
+def _rank_logits(ctx, seq, key: str, tokens, mask) -> tuple:
+    """A prefill of ``tokens`` and one greedy step through rank r's shard
+    of model ``key``: the gathered logits, as every rank computes them."""
+    model = ctx.objects[key]
+    with torch.inference_mode():
+        tok = torch.from_numpy(tokens).to(ctx.mesh.device)
+        am = torch.from_numpy(mask).to(ctx.mesh.device)
+        cache = model.make_cache(tok.shape[0], S)
+        first, cache = model.prefill(tok, am, cache)
+        nxt = torch.argmax(first.float(), dim=-1).to(torch.int32)[:, None]
+        active = torch.ones((tok.shape[0],), dtype=torch.bool,
+                            device=tok.device)
+        second, _ = model.decode_step(nxt, cache, active)
+        return first.float().cpu().numpy(), second.float().cpu().numpy()
+
+
+def _tp_serve(model, payloads, knobs: dict, mesh=None) -> tuple:
+    """Serve ``payloads`` on a fresh engine (eager), drained; returns
+    (results, engine)."""
+    from ray_dynamic_batching_tpu_torch.engine.decode import DecodeEngine
+    from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+
+    q = RequestQueue("tp", max_len=256)
+    engine = DecodeEngine(model, q, device="cuda", mesh=mesh, **knobs)
+    reqs = [Request(model="tp", payload=p, slo_ms=600_000.0)
+            for p in payloads]
+    for r in reqs:
+        q.add_request(r)
+    engine.run_until_idle(timeout_s=600)
+    return [r.future.result(timeout=60) for r in reqs], engine
+
+
+def _tp_parity(payloads) -> dict:
+    """20a (see the module docstring)."""
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        LLAMA3_8B,
+        CausalLM,
+    )
+    from ray_dynamic_batching_tpu_torch.ops import graphs
+    from ray_dynamic_batching_tpu_torch.parallel import mesh as pm
+    from ray_dynamic_batching_tpu_torch.parallel import spmd
+
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=TP_PARITY_LAYERS)
+    greedy = [i for i, p in enumerate(payloads) if "temperature" not in p]
+    rng = np.random.default_rng(20)
+    tokens = rng.integers(0, cfg.vocab_size, (4, T)).astype(np.int32)
+    mask = np.ones((4, T), np.int32)
+    mask[1, 40:] = 0
+    mask[3, 9:] = 0
+    out = {}
+    want, want_logits = {}, {}
+    for kv in (None, torch.int8):
+        model = CausalLM(cfg, name="llama3_8b", dtype=torch.float32,
+                         device="cuda", seed=0, kv_dtype=kv)
+        want_logits[kv] = _rank_logits(
+            types_ns(mesh=types_ns(device=torch.device("cuda")),
+                     objects={"m": model}), 0, "m", tokens, mask)
+        with graphs.disable_capture():
+            for arm, (arm_kv, knobs) in TP_ARMS.items():
+                if arm_kv is kv:
+                    res, engine = _tp_serve(model, payloads, knobs)
+                    want[arm] = [r.tokens for r in res]
+                    engine.release_buffers()
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    for tp in (2, 4):
+        t0 = time.monotonic()
+        mesh = pm.build_mesh(pm.MeshConfig(tp=tp), ["cuda:0"] * tp,
+                             backend="gloo")
+        print(f"[tp] 20a tp={tp}: {mesh!r}, {tp - 1} ranks spawned and joined "
+              f"in {time.monotonic() - t0:.1f} s", flush=True)
+        try:
+            for kv in TP_PARITY_KV[tp]:
+                shard = pm.build_sharded_model(
+                    mesh, CausalLM, cfg, "llama3_8b", dtype=torch.float32,
+                    seed=0, kv_dtype=kv)
+                key = shard.tp_shard.key
+                logits = mesh.world.call(_rank_logits, key, tokens, mask)
+                for r, pair in enumerate(logits[1:], start=1):
+                    if not all(np.array_equal(a, b)
+                               for a, b in zip(pair, logits[0])):
+                        fail(f"20a tp={tp}: rank {r}'s gathered logits "
+                             "differ from rank 0's")
+                errs = [float(np.abs(a - b).max())
+                        for a, b in zip(logits[0], want_logits[kv])]
+                kvname = "int8" if kv is torch.int8 else "f32"
+                print(f"[tp] 20a tp={tp} {kvname} KV: logits vs the "
+                      f"single-card model, prefill {errs[0]:.3e}, step "
+                      f"{errs[1]:.3e} (max abs; every rank's gathered logits "
+                      "bit-identical)", flush=True)
+                out[f"tp{tp}_{kvname}_logit_err"] = max(errs)
+                for arm, (arm_kv, knobs) in TP_ARMS.items():
+                    if arm_kv is not kv:
+                        continue
+                    mesh.world.call(_rank_reset)
+                    t1 = time.monotonic()
+                    res, engine = _tp_serve(shard, payloads, knobs, mesh)
+                    wall = time.monotonic() - t1
+                    counts = mesh.world.call(_rank_counts)
+                    got = [r.tokens for r in res]
+                    same = [got[i] == want[arm][i] for i in greedy]
+                    sampled = [got[i] == want[arm][i]
+                               for i in range(len(got)) if i not in greedy]
+                    kernel = ("paged_decode_attention_tp" if engine.paged
+                              else "decode_attention"
+                              + ("_int8" if kv is torch.int8 else ""))
+                    per_rank = [c[kernel] for c in counts]
+                    print(f"[tp] 20a tp={tp} {arm}: greedy tokens "
+                          f"{sum(same)}/{len(same)} identical to the "
+                          f"single-card engine (sampled rows identical: "
+                          f"{sampled}), {engine.steps} steps in {wall:.1f} "
+                          f"s, {kernel} launches by rank {per_rank}",
+                          flush=True)
+                    if not all(same):
+                        fail(f"20a tp={tp} {arm}: greedy tokens differ "
+                             "from the single-card engine's")
+                    if not all(per_rank):
+                        fail(f"20a tp={tp} {arm}: {kernel} did not launch on "
+                             f"every rank: {counts}")
+                    if engine.paged:
+                        engine._allocator.check()
+                    engine.release_buffers()
+                    out[f"tp{tp}_{arm}"] = dict(greedy_identical=all(same),
+                                                launches_by_rank=per_rank)
+                spmd.drop_objects(mesh.world, key)
+                del shard
+        finally:
+            procs = list(mesh.world._procs)
+            mesh.shutdown()
+            if any(p.is_alive() for p in procs):
+                fail(f"20a tp={tp}: a rank outlived its mesh")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def types_ns(**kw):
+    """A namespace (what a rank's functions read off their context)."""
+    import types
+
+    return types.SimpleNamespace(**kw)
+
+
+def _tp_baseline(payloads) -> tuple:
+    """20b (see the module docstring). Returns (summed launch counts of
+    the serving window over the ranks, summary)."""
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+    from ray_dynamic_batching_tpu_torch.parallel import placement as pl
+    from ray_dynamic_batching_tpu_torch.serve.controller import (
+        DeploymentConfig,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    mgr = pl.PlacementManager([pl.CudaDevice(id=0, hbm_bytes=total)] * 4)
+    pg = mgr.create([pl.Bundle(chips=4)], pl.STRICT_PACK)
+    t0 = time.monotonic()
+    # Not warmed: a mesh engine's programs run eagerly, so warming them
+    # would only record the capture ledger, ~35 s of four ranks on one card.
+    dep = LLMDeployment("llama3_8b", dtype=torch.bfloat16, seed=0,
+                        mesh_backend="gloo", warmup=False, **PAGED_KNOBS)
+    replica = dep.make_replica("llama3_8b-tp4",
+                               DeploymentConfig(name="llama3_8b"),
+                               devices=pg.bundle_devices(0))
+    world = replica.mesh.world
+    procs = list(world._procs)
+    engine = replica.engine
+    try:
+        if engine.num_slots != SLOTS or not engine.paged:
+            fail(f"20b: engine of {engine.num_slots} slots, paged "
+                 f"{engine.paged}")
+        print(f"[tp] 20b llama3_8b bf16 {engine.model.cfg.num_layers} layers "
+              f"TP=4 ({replica.mesh!r}): rank 0 holds "
+              f"{engine.model.param_bytes() / 1e9:.2f} GB of weights, kv "
+              f"heads {engine.model.kv_heads} a rank; replica built and "
+              f"sharded from the seed in {time.monotonic() - t0:.1f} s",
+              flush=True)
+        world.call(_rank_reset)
+        replica.start()
+        t1 = time.monotonic()
+        reqs = []
+        for payload in payloads:
+            reqs.append(Request(model="llama3_8b", payload=payload,
+                                slo_ms=600_000.0))
+            if not replica.assign(reqs[-1]):
+                fail("20b: replica refused a request")
+        results = [r.future.result(timeout=600) for r in reqs]
+        wall = time.monotonic() - t1
+        engine.stop()
+        counts = world.call(_rank_counts)
+    finally:
+        replica.stop(timeout_s=30.0)
+        mgr.remove(pg)
+    if any(p.is_alive() for p in procs) or not world.closed:
+        fail("20b: a rank outlived its replica")
+    V = engine.model.cfg.vocab_size
+    for i, res in enumerate(results):
+        if (len(res.tokens) != payloads[i]["max_new_tokens"]
+                or res.finish_reason != "length"
+                or not all(0 <= t < V for t in res.tokens)):
+            fail(f"20b request {i}: {len(res.tokens)} tokens, "
+                 f"{res.finish_reason}")
+    L = engine.model.cfg.num_layers
+    fills = (engine.prefill_groups + engine.long_chunk_dispatches
+             + engine.chunk_dispatches)
+    want = {"paged_decode_attention_tp": L * engine.steps,
+            "flash_attention": L * fills}
+    for r, c in enumerate(counts):
+        _expect_only(f"20b rank {r}", c, want)
+    summed = {k: sum(c.get(k, 0) for c in counts) for k in counts[0]}
+    n_tok = sum(len(r.tokens) for r in results)
+    ttfts = sorted(r.ttft_ms for r in results)
+    summary = dict(tok_s=n_tok / wall, wall_s=wall, steps=engine.steps,
+                   ms_per_step=wall * 1e3 / max(1, engine.steps),
+                   ttft_p50_ms=statistics.median(ttfts),
+                   kernel4_launches_by_rank=[
+                       c["paged_decode_attention_tp"] for c in counts],
+                   label=TP_LABEL)
+    print(f"[tp] 20b {len(results)} requests, {n_tok} tokens in {wall:.3f} s: "
+          f"{summary['tok_s']:.1f} tok/s, {engine.steps} decode steps, "
+          f"{summary['ms_per_step']:.1f} ms wall per step (prefill "
+          f"included), TTFT p50 {summary['ttft_p50_ms']:.1f} ms — "
+          f"{TP_LABEL}; kernel 4 launches by rank "
+          f"{summary['kernel4_launches_by_rank']}", flush=True)
+    return summed, summary
+
+
+def phase_tp() -> tuple:
+    """Phase 20 (see the module docstring)."""
+    t0 = time.monotonic()
+    print(f"[tp] backend gloo (ranks share the card; NCCL needs a card a "
+          f"rank), torch.cuda.device_count() = {torch.cuda.device_count()}",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parity = _tp_parity(_payloads(np.random.default_rng(1), 128256, 32, 8,
+                                  2, 2))
+    counts, baseline = _tp_baseline(
+        _payloads(np.random.default_rng(0), 128256, 32, 8, 2, 0))
+    wall = time.monotonic() - t0
+    print(f"[tp] phase 20 took {wall:.1f} s", flush=True)
+    return counts, dict(parity=parity, baseline=baseline, wall_s=wall)
+
+
 def main() -> None:
     with contextlib.ExitStack() as stack:
         _main(stack)
@@ -6705,7 +7126,7 @@ def _main(stack: contextlib.ExitStack) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     all_phases = (["build", "kernels", "parity"] + list(SERVING)
                   + ["front", "controller", "colocate", "vision", "graphs",
-                     "sim", "reuse", "spec", "weights", "servables"])
+                     "sim", "reuse", "spec", "weights", "servables", "tp"])
     ap.add_argument("--phases", default=",".join(all_phases),
                     help=f"comma-separated subset of {','.join(all_phases)} "
                          "(the device phase always runs)")
@@ -6756,7 +7177,7 @@ def _main(stack: contextlib.ExitStack) -> None:
         print("[slab_chunked] beside main and int8: " + "; ".join(beside),
               flush=True)
     front = controller = colocate = vision = graphed = sim = reuse = None
-    spec = weights = servables = None
+    spec = weights = servables = tp = None
     if "front" in phases:
         by_path["front"], front = phase_front(args.profile)
     if "controller" in phases:
@@ -6777,6 +7198,8 @@ def _main(stack: contextlib.ExitStack) -> None:
         by_path["weights"], weights = phase_weights()
     if "servables" in phases:
         by_path["servables"], servables = phase_servables()
+    if "tp" in phases:
+        by_path["tp"], tp = phase_tp()
     for name, row in kernels.items():
         split = {path: c.get(name, 0) for path, c in by_path.items()}
         row["launches"] = sum(split.values()) if split else None
@@ -6785,7 +7208,7 @@ def _main(stack: contextlib.ExitStack) -> None:
                       "controller": controller, "colocate": colocate,
                       "vision": vision, "graphs": graphed, "sim": sim,
                       "reuse": reuse, "spec": spec, "weights": weights,
-                      "servables": servables}))
+                      "servables": servables, "tp": tp}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],
         "count": torch.cuda.device_count()}}))

@@ -66,8 +66,26 @@ raises. The long fill's chunk and commit run eagerly (their row cache
 is per fill; the registry says so), as do the reuse programs' row seeds
 and extracts, each warmed when its cache is on. The reference's group
 padding to compiled widths is gone (a group is exactly its rows, so no
-index is written twice): every group width is its own key. The mesh is
-a later slice.
+index is written twice): every group width is its own key.
+
+Tensor parallelism (``mesh=``, a ``parallel/mesh.Mesh`` with ``tp`` > 1;
+reference ``decode.py:540-579``, ``:651-694``, ``:1151-1160``): the
+reference's refusals come first and in its order — a draft on a paged
+mesh engine, ``quantize_weights``, a paged engine over a model with no
+``paged_cache_pspec`` (``ValueError``) — and then the port's stand-ins
+(``NotImplementedError``, ROADMAP queue 1 item 8b): any draft (the TP
+slab arm's speculation), prefix, session and spill caches, and the page
+fabric. Then the model is sharded (``parallel/mesh.shard_params``,
+unless it already is), each rank allocates its share of the kv heads,
+and every rank builds a twin of the engine (``parallel/spmd.py``): every
+program and every other device write of the leader (the row cache of a
+long fill, the page-table upload, warmup) runs first on each follower's
+twin on the same host inputs, then here, so the ranks issue the same
+collectives in the same order. The page table, lengths mirror, allocator
+and its journal, admission and results stay on rank 0. The paged decode
+step runs inside ``ops/attention.tensor_parallel``, so its paged kernel
+launches are kernel 4's (kernel 3 on the rank's shard). Programs of a
+mesh engine run eagerly (``jit_model.eager_reason_for``).
 
 Weight-only int8 (``quantize_weights=True``): the model's matmul weights
 become int8 codes + f32 scales in place at construction
@@ -587,7 +605,24 @@ class DecodeEngine:
         draft_model: Any = None,
         spec_tokens: int = 4,
         quantize_weights: bool = False,
+        mesh: Any = None,
     ):
+        # What a follower rank needs to build this engine's twin.
+        twin_kwargs = {k: v for k, v in locals().items()
+                       if k not in ("self", "model", "queue", "device",
+                                    "mesh", "draft_model")}
+        if mesh is not None and mesh.shape.get("tp", 1) > 1:
+            model = self._shard_for_mesh(
+                model, mesh, paged=paged, draft_model=draft_model,
+                quantize_weights=quantize_weights,
+                caches=(prefix_cache_size, session_cache_size,
+                        host_spill_pages))
+            device = mesh.device
+        else:
+            mesh = None
+        self.mesh = mesh
+        self._tp_key: Optional[str] = None
+        self._tp_quiet = False
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(
@@ -880,17 +915,88 @@ class DecodeEngine:
                 for c, cap_ in shapes]
             if self.quantized:
                 self._workspace.append(_quant_ops.reserve(self.device))
+        if self.mesh is not None and self.mesh.is_leader:
+            from ray_dynamic_batching_tpu_torch.parallel import spmd
+
+            self._tp_key = self.mesh.world.new_key("engine")
+            spmd.attach_engine(self.mesh.world, self._tp_key,
+                               self.model.tp_shard.key, twin_kwargs)
+
+    @staticmethod
+    def _shard_for_mesh(model, mesh, *, paged: bool, draft_model,
+                        quantize_weights: bool, caches) -> Any:
+        """The reference's mesh refusals in its order, then the port's
+        stand-ins, all before any sharding work; then rank 0's shard of
+        ``model`` (the model itself when it already is one)."""
+        from ray_dynamic_batching_tpu_torch.parallel import mesh as mesh_mod
+
+        if paged and draft_model is not None:
+            raise ValueError(
+                "speculative decoding over a TP-mesh paged pool is not "
+                "supported yet: run paged+spec on single-card replicas, "
+                "or drop the draft model for mesh slices")
+        if quantize_weights:
+            raise ValueError(
+                "quantize_weights with a TP mesh is not supported yet: "
+                "sharding rules key on kernel paths, which quantization "
+                "rewrites into codes and scales")
+        if paged and not hasattr(model, "paged_cache_pspec"):
+            raise ValueError(
+                f"{getattr(model, 'name', type(model).__name__)}: "
+                "paged=True on a TP mesh needs the model to define "
+                "paged_cache_pspec (the pool's sharding layout) — see "
+                "CausalLM.paged_cache_pspec")
+        if draft_model is not None:
+            raise NotImplementedError(
+                "speculative decoding on a TP slab engine (a draft model "
+                f"or a self-draft) is {mesh_mod.ITEM_8B}")
+        if any(caches):
+            raise NotImplementedError(
+                "prefix, session and host-spill caches on a TP engine are "
+                f"{mesh_mod.ITEM_8B}")
+        shard = getattr(model, "tp_shard", None)
+        if shard is not None:
+            if shard.mesh is not mesh:
+                raise ValueError(f"{model.name} is sharded over another mesh")
+            return model
+        if not mesh.is_leader:
+            raise ValueError("a follower rank's engine takes its shard")
+        return mesh_mod.shard_params(mesh, model)
+
+    def _spmd(self, attr: str, *args) -> Any:
+        """``getattr(self, attr)(*args)``; on rank 0 of a mesh engine,
+        run first on every follower's twin on the same inputs
+        (``parallel/spmd.World.mirror``), outputs bound to handles."""
+        fn = getattr(self, attr)
+        if self._tp_key is None or self._tp_quiet:
+            return fn(*args)
+        return self.mesh.world.mirror(self._tp_key, attr, fn, args)
 
     def _program(self, name: str, impl: Callable) -> Callable:
         """``impl`` as the registry's program ``name``: its host-static
         arguments (by name, from the registry) form the key beside the
-        input shapes, and it is captured unless the registry says why not;
-        every call goes through the capture ledger."""
+        input shapes, and it is captured unless ``jit_model.eager_reason_for``
+        says why not (the registry's reason, or the mesh's); every call
+        goes through the capture ledger. On rank 0 of a mesh engine a call
+        runs on every follower's twin first (``World.mirror``, as
+        :meth:`_spmd`)."""
         spec = jit_model.program(name)
         params = list(inspect.signature(impl).parameters)
         static = [params.index(a) for a in spec.static]
-        return instrument(name, self._graphs.program(
-            name, impl, static, eager=not spec.captured))
+        backend = self.mesh.backend if self.mesh is not None else None
+        runner = instrument(name, self._graphs.program(
+            name, impl, static,
+            eager=bool(jit_model.eager_reason_for(name, backend))))
+        if self.mesh is None or not self.mesh.is_leader:
+            return runner
+
+        def on_every_rank(*args):
+            if self._tp_key is None or self._tp_quiet:
+                return runner(*args)
+            return self.mesh.world.mirror(self._tp_key, spec.attr, runner,
+                                          args)
+
+        return on_every_rank
 
     def _device_ctx(self):
         """The engine's card as the current device (a null context on the
@@ -1151,6 +1257,10 @@ class DecodeEngine:
         limit = self.max_len if self.paged else cache.capacity
         step_fn = (self.model.decode_step_paged if self.paged
                    else self.model.decode_step)
+        if self.paged and self.mesh is not None:
+            # The paged read of a TP slice: kernel 3 per kv-head shard.
+            step_fn = functools.partial(
+                self._tp_paged_step, self.model.decode_step_paged)
         toks, advs = [], []
         for j in range(horizon):
             advanced = active & (cache.lengths < limit)
@@ -1173,6 +1283,17 @@ class DecodeEngine:
             advs.append(advanced.to(torch.int32))
         return torch.cat([torch.stack(toks), torch.stack(advs),
                           cache.lengths[None, :]], dim=0)
+
+    def _tp_paged_step(self, step_fn, *args):
+        """``step_fn(*args)`` inside the mesh's ``tensor_parallel``
+        context (reference ``decode.py:1151-1160``)."""
+        from ray_dynamic_batching_tpu_torch.ops.attention import (
+            tensor_parallel,
+        )
+
+        with tensor_parallel(self.mesh, "tp",
+                             self.model.tp_shard.heads_split):
+            return step_fn(*args)
 
     @torch.inference_mode()
     def _spec_impl(self, step_state, bias_ids, bias_vals) -> torch.Tensor:
@@ -1268,6 +1389,12 @@ class DecodeEngine:
         counts are cross-checked against ``ops/jit_model.required_for``:
         a registered program this arm needs that warmup did not run
         raises HERE, at startup."""
+        if self._tp_key is not None and not self._tp_quiet:
+            # Every rank warms its own twin, the same keys in the same
+            # order (warmup reads no host state but the configuration);
+            # rank 0 sends none of it and holds the world meanwhile.
+            return self.mesh.world.mirror(self._tp_key, "warmup",
+                                          self._warmup_here, ())
         ledger = get_ledger()
         before = ledger.counts(phase=PHASE_WARMUP)
         ledger.begin_warmup()
@@ -1295,6 +1422,13 @@ class DecodeEngine:
                 "routine and ops/jit_model.required_for disagree; fix "
                 "whichever is wrong before this engine serves"
             )
+
+    def _warmup_here(self) -> None:
+        self._tp_quiet = True
+        try:
+            self.warmup()
+        finally:
+            self._tp_quiet = False
 
     def _warmup_impl(self) -> None:
         """The arm's admission programs — the (bucket x group) prefill
@@ -1740,6 +1874,9 @@ class DecodeEngine:
         return self._long_chunk_fn(*args)
 
     def _new_row(self):
+        return self._spmd("_make_row")
+
+    def _make_row(self):
         with torch.inference_mode():
             return self.model.make_cache(
                 1, self._long_row_cap(self.prompt_buckets[-1]))
@@ -2595,10 +2732,13 @@ class DecodeEngine:
         fresh copy of the mirror, so later host edits of the mirror never
         race the copy."""
         if self._table_dirty:
-            with torch.inference_mode():
-                self._cache.page_table.copy_(
-                    torch.from_numpy(self._table_host.copy()))
+            self._spmd("_upload_table", torch.from_numpy(
+                self._table_host.copy()))
             self._table_dirty = False
+
+    def _upload_table(self, table: torch.Tensor) -> None:
+        with torch.inference_mode():
+            self._cache.page_table.copy_(table)
 
     def _ensure_page_headroom(self, horizon: int) -> None:
         """Grow active slots' pages to cover the next ``horizon`` substeps
@@ -3025,6 +3165,7 @@ class DecodeEngine:
         left decoding untouched on False/raise. Returns False if the
         stream is not live here (advisory — a stream that finishes
         before service is simply skipped, duplicates are harmless)."""
+        self._refuse_fabric()
         if not self.paged:
             return False
         live = any(
@@ -3044,6 +3185,7 @@ class DecodeEngine:
         """Thread-safe: export prefix-cache entry ``key`` as a push
         parcel through ``deliver`` at the next service point (skipped
         if evicted by then)."""
+        self._refuse_fabric()
         if not self.paged or self.paged_prefix is None:
             return False
         with self._fabric_lock:
@@ -3058,6 +3200,7 @@ class DecodeEngine:
         chain (reclaim cache pins -> capacity-truncate), so a stale
         accept is honest, never corrupting. A False return leaves the
         source slot untouched — it simply resumes decoding."""
+        self._refuse_fabric()
         if not self.paged or parcel.page_size != self.page_size:
             return False
         if parcel.kind == STREAM:
@@ -3093,6 +3236,12 @@ class DecodeEngine:
         with self._fabric_lock:
             self._parcel_in_q.append(parcel)
         return True
+
+    def _refuse_fabric(self) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "the page fabric (migrations, prefix pushes) on a TP engine "
+                "is ROADMAP queue 1 item 8b")
 
     def _fabric_pending(self) -> bool:
         if not self.paged:
@@ -3379,7 +3528,14 @@ class DecodeEngine:
         planes, the draft's cache and programs, the counts, the captured
         programs with their memory pool and the merge scratch they hold).
         Call only after the loop has stopped; the engine is unusable
-        afterwards."""
+        afterwards. On rank 0 of a mesh engine every follower drops its
+        twin too."""
+        if self._tp_key is not None:
+            from ray_dynamic_batching_tpu_torch.parallel import spmd
+
+            key, self._tp_key = self._tp_key, None
+            if not (self.mesh.world.closed or self.mesh.world.failed):
+                spmd.drop_objects(self.mesh.world, key)
         self._graphs.release()
         self._workspace = None
         self._cache = None

@@ -6,12 +6,17 @@ the metadata the engine, the collator and the profiler need: ``family``,
 ``example_inputs`` (the canonical zero batch of a bucket, in the
 reference's layout), ``input_shapes`` and ``flops_per_sample``. The
 reference's ``init``/``apply`` pair becomes the module's own weights and
-``forward``. Its sharding rules belong to the multi-GPU slice and are not
-ported yet.
+``forward``. The sharding rules (:meth:`ServableModel.sharding_rules`,
+:meth:`~ServableModel.partition_spec_for`, :func:`param_path_specs`) are
+the reference's, as plain data: a spec is a tuple of mesh-axis names or
+None per axis of the flax kernel (``()`` replicates), keyed by the
+reference's parameter path (``layer3/q/kernel``), which
+:meth:`ServableModel.flax_leaves` gives for each of the port's parameters.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
@@ -86,6 +91,37 @@ class ServableModel(nn.Module):
     def param_bytes(self) -> int:
         return sum(p.numel() * p.element_size()
                    for p in self.state_dict().values())
+
+    # --- distribution ----------------------------------------------------
+    def sharding_rules(self) -> List[Tuple[str, Tuple]]:
+        """(param-path regex, spec over logical axes) — first match wins
+        (reference ``base.py:89-97``). Logical axis names: "tp" (tensor),
+        "dp" (data/replica), "sp" (sequence), "ep" (expert). Unmatched
+        params replicate."""
+        return []
+
+    def partition_spec_for(self, path: str) -> Tuple:
+        for pattern, spec in self.sharding_rules():
+            if re.search(pattern, path):
+                return spec
+        return ()
+
+    def flax_leaves(self) -> Dict[str, Tuple[str, Tuple[int, ...],
+                                             Tuple[int, ...]]]:
+        """Port parameter name -> (the reference's parameter path, the
+        flax leaf's shape, the port dimension each flax axis maps to)."""
+        raise NotImplementedError(f"{type(self).__name__} has no sharding "
+                                  "layout")
+
+
+def param_path_specs(model: ServableModel
+                     ) -> Dict[str, Tuple[str, Tuple, Tuple[int, ...],
+                                          Tuple[int, ...]]]:
+    """Every parameter's spec via the model's rules (reference
+    ``base.py:100-108``): port name -> (reference path, spec, flax shape,
+    port dimension of each flax axis)."""
+    return {name: (path, model.partition_spec_for(path), shape, dims)
+            for name, (path, shape, dims) in model.flax_leaves().items()}
 
 
 _MODEL_REGISTRY: Dict[str, Callable[..., ServableModel]] = {}

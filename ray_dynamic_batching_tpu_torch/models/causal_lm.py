@@ -16,11 +16,19 @@ paged arm (``make_paged_cache``, ``prefill_chunk_paged``,
 owns its weights on an explicit device; :meth:`CausalLM.init_random`
 fills them from a seed on that device (no download), and
 ``models/convert.py`` maps the JAX package's params onto them.
+
+The llama sharding rules (:meth:`CausalLM.sharding_rules`, reference
+``causal_lm.py:360-377``), :meth:`~CausalLM.cache_pspec` and
+:meth:`~CausalLM.paged_cache_pspec` are the reference's as plain data;
+``parallel/mesh.py`` applies them (the ``tp`` axis; the ``moe/*`` rules
+keep their ``ep`` entry). A sharded model's caches hold its share of the
+kv heads (:attr:`CausalLM.kv_heads`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import re
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 import torch
 
@@ -32,10 +40,9 @@ from ray_dynamic_batching_tpu_torch.models.base import (
 from ray_dynamic_batching_tpu_torch.models.decoder import (
     DecoderConfig,
     DecoderModule,
+    Dense,
     KVCache,
-    LayerNorm,
     PagedKVCache,
-    RMSNorm,
     decode_mask,
     prefill_mask,
 )
@@ -61,30 +68,21 @@ class CausalLM(ServableModel):
         # write (models/decoder.py::quantize_kv_rows): half the bytes.
         self.kv_dtype = kv_dtype
         self.module = DecoderModule(cfg, dtype=dtype, device=self.device)
+        # The kv heads of this model's caches: all of them, or under a
+        # mesh this rank's share (parallel/mesh.py::apply_tp, which also
+        # sets ``tp_shard``).
+        self.kv_heads = cfg.num_kv_heads
+        self.tp_shard = None
         if seed is not None:
             self.init_random(seed)
 
     @torch.no_grad()
     def init_random(self, seed: int) -> None:
-        """Random weights from ``seed``, drawn on the model's device:
-        matrices and embeddings N(0, 1/fan_in), norm scales 1, biases 0
-        (MoE experts ``[E, in, out]``: fan_in is their middle axis)."""
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        for mod in self.module.modules():
-            if isinstance(mod, (RMSNorm, LayerNorm)):
-                mod.scale.fill_(1.0)
-                if isinstance(mod, LayerNorm):
-                    mod.bias.zero_()
-        for name, p in sorted(self.module.named_parameters()):
-            if name.endswith("scale") or (name.endswith("bias")
-                                          and "norm" in name):
-                continue
-            if name.endswith("bias"):
-                p.zero_()
-                continue
-            fan_in = p.shape[1] if name.endswith(("moe.wi", "moe.wg",
-                                                  "moe.wo")) else p.shape[-1]
-            p.normal_(0.0, fan_in ** -0.5, generator=gen)
+        """Random weights from ``seed``, drawn on the model's device
+        (:func:`random_leaves`)."""
+        params = dict(self.module.named_parameters())
+        for name, value in random_leaves(self.module, seed, self.device):
+            params[name].copy_(value)
 
     # --- no-cache forward (the profiler's and the batch engine's) --------
     def apply(self, tokens: torch.Tensor, attn_mask: torch.Tensor
@@ -139,7 +137,7 @@ class CausalLM(ServableModel):
                    max_len: Optional[int] = None) -> KVCache:
         return KVCache.zeros(self.cfg, batch_size, max_len,
                              dtype=self.kv_dtype or self.dtype,
-                             device=self.device)
+                             device=self.device, kv_heads=self.kv_heads)
 
     def prefill(self, tokens: torch.Tensor, attn_mask: torch.Tensor,
                 cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
@@ -246,7 +244,7 @@ class CausalLM(ServableModel):
         the engine owns allocation (``engine/paging.py``)."""
         return PagedKVCache.zeros(self.cfg, batch_size, num_pages, page_size,
                                   max_len, dtype=self.kv_dtype or self.dtype,
-                                  device=self.device)
+                                  device=self.device, kv_heads=self.kv_heads)
 
     def prefill_chunk_paged(
         self,
@@ -316,6 +314,97 @@ class CausalLM(ServableModel):
         if kv_dtype == torch.int8:
             per_row += 4
         return 2 * c.num_layers * S * c.num_kv_heads * per_row
+
+    # --- distribution ----------------------------------------------------
+    def sharding_rules(self):
+        """Megatron-style TP (reference ``causal_lm.py:360-377``): q/k/v
+        and the MLP's gate/up split their output heads/columns, o and
+        down their input, the embedding and the head the vocabulary."""
+        return [
+            (r"/q/kernel", (None, "tp", None)),
+            (r"/k/kernel", (None, "tp", None)),
+            (r"/v/kernel", (None, "tp", None)),
+            (r"/o/kernel", ("tp", None, None)),
+            (r"mlp_gate/kernel", (None, "tp")),
+            (r"mlp_up/kernel", (None, "tp")),
+            (r"mlp_down/kernel", ("tp", None)),
+            (r"moe/wi", ("ep", None, "tp")),
+            (r"moe/wg", ("ep", None, "tp")),
+            (r"moe/wo", ("ep", "tp", None)),
+            (r"tok_embed/embedding", ("tp", None)),
+            (r"lm_head/kernel", (None, "tp")),
+        ]
+
+    def cache_pspec(self) -> KVCache:
+        """Specs of the slab cache's planes (kv heads over tp; reference
+        ``causal_lm.py:379-391``)."""
+        scale = (None, None, None, "tp") if self.kv_dtype == torch.int8 \
+            else None
+        return KVCache(k=(None, None, None, "tp", None),    # type: ignore
+                       v=(None, None, None, "tp", None),    # type: ignore
+                       lengths=(None,),                     # type: ignore
+                       k_scale=scale, v_scale=scale)        # type: ignore
+
+    def paged_cache_pspec(self) -> PagedKVCache:
+        """Specs of the paged pool (reference ``causal_lm.py:393-412``):
+        pages cut on the kv-head dim like the slab; the page table and
+        lengths whole on every rank (page indices are shard-invariant)."""
+        scale = (None, None, None, "tp") if self.kv_dtype == torch.int8 \
+            else None
+        return PagedKVCache(k=(None, None, None, "tp", None),     # type: ignore
+                            v=(None, None, None, "tp", None),     # type: ignore
+                            page_table=(None, None),              # type: ignore
+                            lengths=(None,),                      # type: ignore
+                            k_scale=scale, v_scale=scale)         # type: ignore
+
+    def flax_leaves(self) -> Dict[str, Tuple[str, Tuple[int, ...],
+                                             Tuple[int, ...]]]:
+        """Port parameter -> (reference path, flax leaf shape, port dim
+        of each flax axis): a :class:`Dense` kernel is ``flax_in +
+        flax_out`` with its inputs on port dim 1 and outputs on dim 0;
+        embeddings ``embedding`` [rows, D]; every other leaf as it is."""
+        out = {}
+        for mod_name, mod in self.module.named_modules():
+            path = re.sub(r"^layers\.(\d+)", r"layer\1",
+                          mod_name).replace(".", "/")
+            for leaf, p in mod.named_parameters(recurse=False):
+                name = f"{mod_name}.{leaf}" if mod_name else leaf
+                if isinstance(mod, Dense) and leaf == "weight":
+                    out[name] = (f"{path}/kernel", mod.flax_in + mod.flax_out,
+                                 (1,) * len(mod.flax_in)
+                                 + (0,) * len(mod.flax_out))
+                elif isinstance(mod, Dense) and leaf == "bias":
+                    out[name] = (f"{path}/bias", mod.flax_out,
+                                 (0,) * len(mod.flax_out))
+                elif isinstance(mod, torch.nn.Embedding):
+                    out[name] = (f"{path}/embedding", tuple(p.shape), (0, 1))
+                else:
+                    out[name] = (f"{path}/{leaf}", tuple(p.shape),
+                                 tuple(range(p.dim())))
+        return out
+
+
+def random_leaves(module: torch.nn.Module, seed: int, device
+                  ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Every parameter of ``module`` as :meth:`CausalLM.init_random`
+    draws it from ``seed`` on ``device``, one whole leaf at a time in name
+    order: matrices and embeddings N(0, 1/fan_in), norm scales 1, biases 0
+    (MoE experts ``[E, in, out]``: fan_in is their middle axis). The
+    draws depend only on the leaves' shapes and order, so a sharded
+    model (``parallel/mesh.py::build_sharded_model``) keeps slices of the
+    very numbers an unsharded one holds."""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    for name, p in sorted(module.named_parameters()):
+        value = torch.empty(p.shape, dtype=p.dtype, device=device)
+        if name.endswith("scale"):
+            value.fill_(1.0)
+        elif name.endswith("bias"):
+            value.zero_()
+        else:
+            fan_in = p.shape[1] if name.endswith(("moe.wi", "moe.wg",
+                                                  "moe.wo")) else p.shape[-1]
+            value.normal_(0.0, fan_in ** -0.5, generator=gen)
+        yield name, value
 
 
 GPT2_MEDIUM = DecoderConfig(

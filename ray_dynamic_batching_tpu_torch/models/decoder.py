@@ -42,16 +42,28 @@ With no cache, a ``token_mask`` [B, T] (the reference's no-cache path,
 layers' load-balance losses summed (0 for a dense model), the
 reference's ``intermediates`` collection.
 
+Under a tensor-parallel mesh (``parallel/mesh.py::apply_tp``) each rank
+holds its slice of the weights, and the collectives GSPMD inserts in the
+reference are written out on the mesh's ``tp`` group: q/k/v and gate/up
+are column-parallel (a rank computes its heads and its MLP columns), o
+and down are row-parallel, each product summed over the ranks before its
+bias; the vocabulary-sharded embedding looks up its own rows, writes
+zeros elsewhere and sums; the vocabulary-sharded head's logits are
+gathered before sampling. Where the kv heads replicate but q is cut
+(``kv_window``), a rank's query head reads the kv head of its GLOBAL
+index ``n // G``: the attention reads the contiguous window of kv heads
+its heads need.
+
 Trimmed: the ring-attention branch of that path (the sequence sharded
-over the ``sp`` mesh axis) and MoE's expert parallelism, which come with
-multi-GPU (ROADMAP queue 1 item 8).
+over the ``sp`` mesh axis) and MoE's expert parallelism (ROADMAP queue 1
+item 8b).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -140,10 +152,12 @@ class KVCache:
     def zeros(cfg: DecoderConfig, batch_size: int,
               max_len: Optional[int] = None,
               dtype: torch.dtype = torch.bfloat16,
-              device: torch.device = torch.device("cpu")) -> "KVCache":
+              device: torch.device = torch.device("cpu"),
+              kv_heads: Optional[int] = None) -> "KVCache":
+        """``kv_heads``: a rank's share under a mesh (default all)."""
         S = max_len or cfg.max_seq_len
-        shape = (cfg.num_layers, batch_size, S, cfg.num_kv_heads,
-                 cfg.head_dim)
+        shape = (cfg.num_layers, batch_size, S,
+                 kv_heads or cfg.num_kv_heads, cfg.head_dim)
         k_scale, v_scale = _scale_planes(shape, dtype, device,
                                          alloc=_slab_plane)
         return KVCache(
@@ -186,14 +200,16 @@ class PagedKVCache:
     def zeros(cfg: DecoderConfig, batch_size: int, num_pages: int,
               page_size: int, max_len: int,
               dtype: torch.dtype = torch.bfloat16,
-              device: torch.device = torch.device("cpu")) -> "PagedKVCache":
+              device: torch.device = torch.device("cpu"),
+              kv_heads: Optional[int] = None) -> "PagedKVCache":
+        """``kv_heads``: a rank's share under a mesh (default all)."""
         if max_len % page_size != 0:
             raise ValueError(
                 f"max_len {max_len} must be a multiple of page_size "
                 f"{page_size} (logical capacity is whole pages)"
             )
-        shape = (cfg.num_layers, num_pages + 1, page_size, cfg.num_kv_heads,
-                 cfg.head_dim)
+        shape = (cfg.num_layers, num_pages + 1, page_size,
+                 kv_heads or cfg.num_kv_heads, cfg.head_dim)
         k_scale, v_scale = _scale_planes(shape, dtype, device)
         return PagedKVCache(
             k=torch.zeros(shape, dtype=dtype, device=device),
@@ -336,10 +352,16 @@ class Dense(nn.Module):
                      "bias_scale"):
             self.register_parameter(name, None)
         self.weight_dtype: Optional[torch.dtype] = None
+        # Row-parallel under a mesh: the sum over the ranks of their
+        # partial products, taken before the (whole) bias is added.
+        self.reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
         if self.weight_codes is None:
+            if self.reduce is not None:
+                y = self.reduce(F.linear(x, self.weight))
+                return y if self.bias is None else y + self.bias
             return F.linear(x, self.weight, self.bias)
         bias = self.bias
         if self.bias_codes is not None:
@@ -418,6 +440,11 @@ class DecoderLayer(nn.Module):
         D, N, K, H = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                       cfg.head_dim)
         b = cfg.use_bias
+        # This rank's query and kv heads, and under a mesh where k/v
+        # replicate but q is cut, the (first, count) window of kv heads
+        # its query heads read (parallel/mesh.py::apply_tp).
+        self.heads = (N, K)
+        self.kv_window: Optional[Tuple[int, int]] = None
         self.attn_norm = _norm(cfg, device)
         self.q = Dense(D, N * H, b, dtype, device, flax_out=(N, H))
         self.k = Dense(D, K * H, b, dtype, device, flax_out=(K, H))
@@ -455,7 +482,7 @@ class DecoderLayer(nn.Module):
     ):
         cfg = self.cfg
         B, T, _ = x.shape
-        N, K, H = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        (N, K), H = self.heads, cfg.head_dim
         y = self.attn_norm(x).to(self.dtype)
         q = self.q(y).view(B, T, N, H)
         k = self.k(y).view(B, T, K, H)
@@ -488,10 +515,11 @@ class DecoderLayer(nn.Module):
             for full, new in writes:
                 full[pid, off] = new.to(full.dtype)
             P = cache.num_pages
+            win = self._kv_heads
             attn = attn_ops.dot_product_attention(
-                q, k_full[:P], v_full[:P], page_table=page_table,
+                q, win(k_full[:P]), win(v_full[:P]), page_table=page_table,
                 kv_lengths=kv_lengths,
-                **{name: t[:P] for name, t in scales.items()})
+                **{name: win(t[:P]) for name, t in scales.items()})
         elif cache is not None:
             # In-place writes into the stacked [L, B, S, K, ...] cache (the
             # reference donates the buffer and XLA updates it in place).
@@ -510,14 +538,19 @@ class DecoderLayer(nn.Module):
                     # Prefill: a contiguous write at ``write_start`` (0,
                     # or a long prompt's chunk offset in its row cache).
                     full[:, write_start:write_start + T] = new.to(full.dtype)
+            win = self._kv_heads
             attn = attn_ops.dot_product_attention(
-                q, k_full, v_full, mask=mask, **scales)
+                q, win(k_full), win(v_full), mask=mask,
+                **{name: win(t) for name, t in scales.items()})
         elif token_mask is not None:
             # Full-sequence self-attention: causal + padding from the
             # token mask (the reference's no-cache path).
-            attn = attn_ops.self_attention(q, k, v, token_mask, causal=True)
+            attn = attn_ops.self_attention(q, self._kv_heads(k),
+                                           self._kv_heads(v), token_mask,
+                                           causal=True)
         else:
-            attn = attn_ops.dot_product_attention(q, k, v, mask=mask)
+            attn = attn_ops.dot_product_attention(
+                q, self._kv_heads(k), self._kv_heads(v), mask=mask)
         x = x + self.o(attn.reshape(B, T, N * H))
 
         y = self.mlp_norm(x).to(self.dtype)
@@ -534,6 +567,16 @@ class DecoderLayer(nn.Module):
         if return_aux:
             return x, None
         return x
+
+    def _kv_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """The kv heads (axis 2 of k/v and their scales, slab, pool or
+        fresh) this rank's query heads read: all of them, or under a mesh
+        that cuts q but replicates k/v, the window of their global
+        indices."""
+        if self.kv_window is None:
+            return t
+        first, count = self.kv_window
+        return t.narrow(2, first, count)
 
 
 class DecoderModule(nn.Module):
@@ -556,6 +599,12 @@ class DecoderModule(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = Dense(cfg.d_model, cfg.vocab_size, False,
                                  torch.float32, device)
+        # Under a mesh (parallel/mesh.py::apply_tp): the tp group, this
+        # rank's (first, count) rows of a vocabulary-sharded embedding,
+        # and whether the head's logits are this rank's vocabulary slice.
+        self.tp = None
+        self.vocab_rows: Optional[Tuple[int, int]] = None
+        self.gather_logits = False
 
     def forward(
         self,
@@ -581,7 +630,7 @@ class DecoderModule(nn.Module):
         ``return_aux`` returns (logits, aux): the MoE layers'
         load-balance losses summed, a 0-d f32 tensor (0 for a dense
         model)."""
-        x = self.tok_embed(tokens.long())
+        x = self._embed(tokens.long())
         if self.cfg.pos == "learned":
             # A row steered past capacity (its write dropped, its output
             # never used) may sit past the table; clamp it in range.
@@ -623,7 +672,23 @@ class DecoderModule(nn.Module):
             logits = F.linear(x.to(w.dtype), w)
         else:
             logits = self.lm_head(x.float())
+        if self.gather_logits:
+            logits = self.tp.gather_last(logits)
         return (logits, aux) if return_aux else logits
+
+    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+        """Token embeddings; a vocabulary-sharded table looks up the ids
+        in its own rows, zeros the others, and sums over the ranks (one
+        rank holds each row, so the sum is exact)."""
+        if self.vocab_rows is None:
+            return self.tok_embed(ids)
+        first, count = self.vocab_rows
+        local = ids - first
+        inside = (local >= 0) & (local < count)
+        x = self.tok_embed(torch.where(inside, local,
+                                       torch.zeros_like(local)))
+        x = torch.where(inside[..., None], x, torch.zeros_like(x))
+        return self.tp.all_reduce(x)
 
 
 def prefill_mask(attn_mask: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,7 @@ index of the flax last axis, shared by every expert (``wi_scale`` [F],
 Trimmed: the sharding constraints (``_constrain``) are no-ops on one card
 and are not ported; the load-balance loss is computed only when asked
 (``return_aux=True``) and not sown into a training collection — expert
-parallelism and the loss's use in training are ROADMAP queue 1 item 8.
+parallelism and the loss's use in training are ROADMAP queue 1 item 8b.
 """
 
 from __future__ import annotations

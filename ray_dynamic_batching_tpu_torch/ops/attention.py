@@ -23,8 +23,16 @@ Port of ``ray_dynamic_batching_tpu/ops/attention.py::dot_product_attention``
 
 :func:`self_attention` is the reference's no-cache entry point: it builds
 the padding mask from a ``[B, T]`` token mask and dispatches as above
-(the reference's ``sequence_parallel`` ring branch is trimmed: it comes
-with multi-GPU, ROADMAP queue 1 item 8).
+(the reference's ``sequence_parallel`` ring branch is trimmed: ROADMAP
+queue 1 item 8b).
+
+:func:`tensor_parallel` is the reference's TP context (``attention.py:
+57-75``, ``:214-222``): while a mesh engine's paged decode step runs inside
+it, the paged kernel route passes the mesh to
+``decode_attention.paged_decode_attention``, which launches kernel 3 on
+this rank's shard of the kv heads (kernel 4's per-shard body). Where the
+model's kv heads replicate under the mesh (they do not divide), the
+route declines as the reference's does and the gather path runs.
 
 With ``k_scale``/``v_scale`` (the int8 KV cache: k/v hold codes) the
 routes stay the same: the two decode kernels read the codes and apply the
@@ -61,6 +69,12 @@ plain_launches = 0
 _PLAIN: contextvars.ContextVar[bool] = contextvars.ContextVar(
     "plain_attention", default=False
 )
+# (mesh, axis, heads_split) while a TP engine's paged decode step runs.
+# A ContextVar, as in the reference: two engines on two threads never
+# see each other's mesh.
+_TP_CTX: contextvars.ContextVar[Optional[tuple]] = contextvars.ContextVar(
+    "tensor_parallel_ctx", default=None
+)
 
 
 @contextlib.contextmanager
@@ -75,6 +89,22 @@ def plain_attention():
         _PLAIN.reset(token)
 
 
+@contextlib.contextmanager
+def tensor_parallel(mesh, axis: str = "tp", heads_split: bool = True):
+    """While active, the PAGED decode read of a mesh rank routes the
+    kernel through its per-shard form (``paged_decode_attention``'s
+    ``mesh``): q and the pools are this rank's kv-head shard, the page
+    table and lengths whole. ``heads_split`` False (the model's kv heads
+    replicate under the mesh) makes the kernel route decline to the
+    gather path, as the reference's wrapper declines when ``K % tp`` or
+    ``N % tp`` is not 0. The engine enters it around its paged step."""
+    token = _TP_CTX.set((mesh, axis, bool(heads_split)))
+    try:
+        yield
+    finally:
+        _TP_CTX.reset(token)
+
+
 def reset_counts() -> None:
     """Zero the launch counts of every kernel (the int8-weight product's
     among them) and of the plain route."""
@@ -86,6 +116,8 @@ def reset_counts() -> None:
     _decode.int8_launches = 0
     _decode.paged_launches = 0
     _decode.paged_int8_launches = 0
+    _decode.tp_paged_launches = 0
+    _decode.tp_paged_int8_launches = 0
 
 
 def kernel_mask(mask: Optional[torch.Tensor], B: int, Tq: int
@@ -244,15 +276,20 @@ def _paged_attention(q, k, v, page_table, kv_lengths, *, mask, scale,
     )
 
     scales = dict(k_scale=k_scale, v_scale=v_scale)
-    if route(q.shape, k.shape, causal=False,
-             page_table_shape=page_table.shape,
-             lengths_shape=kv_lengths.shape) == "paged_decode":
+    tp = _TP_CTX.get()
+    mesh_kwargs = {}
+    if tp is not None and tp[0].shape.get(tp[1], 1) > 1:
+        mesh_kwargs = {"mesh": tp[0], "mesh_axis": tp[1]}
+    if (not mesh_kwargs or tp[2]) and route(
+            q.shape, k.shape, causal=False,
+            page_table_shape=page_table.shape,
+            lengths_shape=kv_lengths.shape) == "paged_decode":
         if _PLAIN.get():
             return _decode.paged_decode_attention_plain(
                 q, k, v, page_table, kv_lengths, scale=scale, **scales)
         return _decode.paged_decode_attention(q, k, v, page_table,
                                               kv_lengths, scale=scale,
-                                              **scales)
+                                              **scales, **mesh_kwargs)
     k_g = _decode.logical_view(k, page_table)
     v_g = _decode.logical_view(v, page_table)
     if k_scale is not None:

@@ -31,6 +31,20 @@ stream). Tiles and splits wholly past ``lengths[b] + Tq - 1`` are not
 read: every row attends position 0, so what they would add is exactly 0.
 Bound on the H100: the bytes of the K/V positions each slot attends.
 
+**Tensor-parallel paged (kernel 4)** — replaces
+``_paged_decode_attention_tp`` (reference ``decode_attention.py:519-558``,
+a ``shard_map`` of kernel 3 over the mesh's tp axis: q rows and the
+pools split on the kv heads, the page table and lengths replicated, the
+output split on the kv heads). It has no body of its own: each shard
+runs kernel 3 on its slice of the heads, and the numerics are per head,
+so the sharded result is exactly the unsharded one re-laid-out. On a
+mesh rank, :func:`paged_decode_attention` with ``mesh`` launches kernel 3
+on the rank's contiguous shard; :func:`paged_decode_attention_tp` runs
+the ``tp`` shards of a whole call in one process (each shard's launch in
+turn, outputs concatenated), the form the checks hold against one
+unsharded launch, bit for bit. Both count their launches apart
+(:data:`tp_paged_launches`, :data:`tp_paged_int8_launches`).
+
 **Head dims.** Both kernels take a head dim that is a multiple of 16 up
 to 128 (:func:`head_dim_ok`): the scan body is built 64 and 128 wide, and
 a smaller head dim rides it with its K/V tiles and query rows zero-padded
@@ -101,6 +115,10 @@ int8_launches = 0
 #: Paged-kernel launches since the last reset (likewise).
 paged_launches = 0
 paged_int8_launches = 0
+#: Kernel 4: paged-kernel launches on a tensor-parallel shard of the kv
+#: heads since the last reset (likewise; not counted in the two above).
+tp_paged_launches = 0
+tp_paged_int8_launches = 0
 
 
 def decode_attention_plain(
@@ -383,7 +401,7 @@ def paged_decode_attention_plain(
 
 
 def _launch_paged(q, k, v, page_table, lengths, k_scale, v_scale, *,
-                  scale: float) -> torch.Tensor:
+                  scale: float, tp: int = 1) -> torch.Tensor:
     from ray_dynamic_batching_tpu_torch.ops import _build
 
     B, Tq, N, H = q.shape
@@ -408,8 +426,9 @@ def _launch_paged(q, k, v, page_table, lengths, k_scale, v_scale, *,
             cnt.numel(), torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, rc, "paged_decode_attention")
-    graphs.count_launch(globals(), "paged_int8_launches" if int8
-                        else "paged_launches")
+    prefix = "tp_" if tp > 1 else ""
+    graphs.count_launch(globals(), prefix + ("paged_int8_launches" if int8
+                                             else "paged_launches"))
     return out
 
 
@@ -441,6 +460,8 @@ def paged_decode_attention(
     scale: Optional[float] = None,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    mesh=None,
+    mesh_axis: str = "tp",
 ) -> torch.Tensor:
     """Fused page-table decode attention. q [B, Tq, N, H] with
     1 <= Tq <= 8; k/v page pools [P, ps, K, H] with K dividing N;
@@ -449,7 +470,13 @@ def paged_decode_attention(
     outside :func:`paged_eligible` raise (``ops/attention.route`` sends
     only these here). CUDA tensors launch the kernel (or raise); CPU
     tensors run the plain version. ``k_scale``/``v_scale`` [P, ps, K] f32
-    with int8 pools: the int8-pool branch."""
+    with int8 pools: the int8-pool branch.
+
+    ``mesh`` (a mesh rank whose ``mesh_axis`` has more than one rank):
+    q and the pools are this rank's shard of the kv heads (q's N/tp
+    query heads over the pool's K/tp kv heads; the table and lengths
+    whole) — kernel 4's per-shard launch, counted in
+    :data:`tp_paged_launches`."""
     if not paged_eligible(q.shape, k.shape, v.shape, page_table.shape,
                           lengths.shape):
         raise ValueError(
@@ -459,9 +486,62 @@ def paged_decode_attention(
     _check_scales(k, k_scale, v_scale, "paged_decode_attention")
     H = q.shape[3]
     scale = H ** -0.5 if scale is None else float(scale)
+    tp = 1 if mesh is None else int(mesh.shape.get(mesh_axis, 1))
+    return _paged_shard(q, k, v, page_table, lengths, k_scale, v_scale,
+                        scale=scale, tp=tp)
+
+
+def _paged_shard(q, k, v, page_table, lengths, k_scale, v_scale, *,
+                 scale: float, tp: int) -> torch.Tensor:
     if q.is_cuda:
         return _launch_paged(q, k, v, page_table, lengths, k_scale, v_scale,
-                             scale=scale)
+                             scale=scale, tp=tp)
     return paged_decode_attention_plain(q, k, v, page_table, lengths,
                                         scale=scale, k_scale=k_scale,
                                         v_scale=v_scale)
+
+
+def paged_decode_attention_tp(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    tp: int,
+    scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> Optional[torch.Tensor]:
+    """Kernel 4 in one process: a WHOLE call (q [B, Tq, N, H], pools
+    [P, ps, K, H], scales [P, ps, K]) cut into ``tp`` shards on the kv
+    heads — shard s takes query heads [s N/tp, (s+1) N/tp) and kv heads
+    [s K/tp, (s+1) K/tp), each a contiguous copy, as a mesh rank holds
+    it — each shard's kernel-3 launch in turn (what rank s launches),
+    outputs concatenated on the heads. The reference's checks in its
+    order (``decode_attention.py:449-486``, less its TPU VMEM budget);
+    returns None where the reference declines: a shape outside
+    :func:`paged_eligible`, or ``K % tp`` or ``N % tp`` not 0 (the heads
+    would replicate and the gather path run)."""
+    if not paged_eligible(q.shape, k.shape, v.shape, page_table.shape,
+                          lengths.shape):
+        return None
+    if (k_scale is None) != (v_scale is None):
+        return None
+    N, K = q.shape[2], k.shape[2]
+    if tp > 1 and (K % tp != 0 or N % tp != 0):
+        return None
+    _check_scales(k, k_scale, v_scale, "paged_decode_attention_tp")
+    H = q.shape[3]
+    scale = H ** -0.5 if scale is None else float(scale)
+    n, kk = N // tp, K // tp
+    outs = []
+    for s in range(tp):
+        def cut(t, m):
+            return None if t is None else \
+                t.narrow(2, s * m, m).contiguous()
+
+        outs.append(_paged_shard(cut(q, n), cut(k, kk), cut(v, kk),
+                                 page_table, lengths, cut(k_scale, kk),
+                                 cut(v_scale, kk), scale=scale, tp=tp))
+    return torch.cat(outs, dim=2)

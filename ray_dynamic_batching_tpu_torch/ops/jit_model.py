@@ -30,6 +30,9 @@ The port changes three things:
   (a graph would bake in state that is not at a fixed address). An eager program still records its first
   call of each key in the ledger, so warmup coverage is judged the same
   way for every program.
+- A mesh engine's programs all run eagerly (:func:`eager_reason_for`,
+  :data:`MESH_EAGER_REASON`): every rank warms its own twin and the
+  coverage check holds on each.
 
 Dependency-free (no torch import), like the reference.
 """
@@ -278,6 +281,25 @@ ASR_PROGRAMS: Tuple[JitProgram, ...] = tuple(
                            "first; eager programs capture nothing",
                eager_reason=_ASR_STREAM)
     for impl in ("encode", "prefill", "decode_step"))
+
+
+#: Why every program of a tensor-parallel (mesh) engine runs eagerly, by
+#: the mesh's backend.
+MESH_EAGER_REASON = {
+    "gloo": "gloo's collectives run on the host (CUDA tensors are staged "
+            "through host memory), and a CUDA graph cannot capture them",
+    "nccl": "capturing a TP program's NCCL collectives in a CUDA graph is "
+            "ROADMAP queue 1 item 8b",
+}
+
+
+def eager_reason_for(name: str, mesh_backend=None) -> str:
+    """Why the port runs program ``name`` eagerly on an engine whose
+    mesh has ``mesh_backend`` (None: no mesh); empty if it is captured."""
+    own = _BY_NAME[name].eager_reason
+    if own or mesh_backend is None:
+        return own
+    return MESH_EAGER_REASON[mesh_backend]
 
 
 def program(name: str) -> JitProgram:

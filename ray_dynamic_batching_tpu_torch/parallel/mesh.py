@@ -1,0 +1,577 @@
+"""Device meshes over torch.distributed: the port's tensor-parallel substrate.
+
+Port of ``ray_dynamic_batching_tpu/parallel/mesh.py:38-225``. The reference
+lays a model out over a ``jax.sharding.Mesh`` and lets GSPMD insert the
+collectives; the port runs one process per rank (``parallel/spmd.py``) and
+writes the collectives out in the model (``models/decoder.py``) on the
+mesh's ``tp`` process group.
+
+- :class:`MeshConfig` and ``AXIS_ORDER`` are the reference's, ``auto``
+  included. This slice activates ``tp``: a mesh with ``dp``, ``sp``,
+  ``pp`` or ``ep`` above 1 raises ``NotImplementedError`` (ROADMAP queue 1
+  item 8b).
+- A :class:`Mesh` is one rank's view: every rank's device, the axis sizes,
+  this rank's index and the process group of the active axis.
+  :func:`build_mesh` of more than one device starts the ranks: the caller
+  becomes rank 0 and ``parallel/spmd.World`` spawns the others. The
+  backend is the caller's (``nccl`` or ``gloo``); by default NCCL when
+  every rank has its own card and gloo on CPU devices. NCCL with a card
+  listed twice raises before any process starts, and so does a shared
+  card with no backend named: nothing switches to gloo quietly. Gloo may
+  put several ranks on one card (it stages CUDA tensors through the host).
+- Sharding: the model's rules (``models/base.py``; the llama rules in
+  ``models/causal_lm.py``) name, per reference parameter path, the mesh
+  axis of each axis of the flax kernel. :func:`_feasible_spec` drops an
+  axis that does not divide its dimension (that dimension replicates),
+  as the reference does. :func:`shard_params` gives each rank its own
+  slice of each weight, in the port's layout; :func:`build_sharded_model`
+  draws the weights from a seed on every rank and keeps only the slice,
+  so no rank ever holds the whole model.
+- :func:`make_sharded_cache` / :func:`make_sharded_paged_cache` allocate
+  each rank's KV cache directly at its share of the kv heads;
+  :func:`replicate` puts a tree on this rank's device (each rank holds
+  the whole of a replicated tree).
+- :func:`multihost_init` is the reference's distributed bootstrap on
+  ``torch.distributed.init_process_group``.
+
+Trimmed: ``batch_sharding`` and ``seq_sharding`` (the ``dp`` and ``sp``
+axes, ROADMAP queue 1 item 8b).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ray_dynamic_batching_tpu_torch.utils.logging import get_logger
+
+logger = get_logger("mesh")
+
+AXIS_ORDER = ("dp", "pp", "sp", "tp", "ep")
+
+#: A partition spec as plain data: one entry per dimension, an axis name,
+#: a tuple of axis names, or None (replicated). ``()`` replicates all.
+Spec = Tuple[Any, ...]
+
+ITEM_8B = "ROADMAP queue 1 item 8b"
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Axis sizes for the five-way parallelism mesh.
+
+    dp = data/replica, pp = pipeline stages, sp = sequence (ring attention),
+    tp = tensor, ep = expert (MoE). Axes default to 1 (inactive)."""
+
+    dp: int = 1
+    sp: int = 1
+    tp: int = 1
+    pp: int = 1
+    ep: int = 1
+
+    @property
+    def n_devices(self) -> int:
+        return self.dp * self.pp * self.sp * self.tp * self.ep
+
+    @staticmethod
+    def auto(n_devices: int, tp: Optional[int] = None, sp: int = 1) -> "MeshConfig":
+        """Pick dp x sp x tp for a device count: prefer TP up to 4,
+        data-parallel beyond (reference ``mesh.py:55-70``)."""
+        if n_devices % sp != 0:
+            raise ValueError(f"sp={sp} does not divide {n_devices} devices")
+        if tp is None:
+            tp = 1
+            for cand in (4, 2):
+                if n_devices % (cand * sp) == 0:
+                    tp = cand
+                    break
+        if n_devices % (tp * sp) != 0:
+            raise ValueError(
+                f"tp={tp} x sp={sp} does not divide {n_devices} devices"
+            )
+        return MeshConfig(dp=n_devices // (tp * sp), sp=sp, tp=tp)
+
+
+class TPGroup:
+    """The collectives a sharded model issues on its mesh's ``tp`` group:
+    the sum of the row-parallel products and of the vocabulary-sharded
+    embedding, and the gather of vocabulary-sharded logits."""
+
+    def __init__(self, group, size: int) -> None:
+        self.group = group
+        self.size = size
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum ``x`` over the ranks, in place; every rank ends with the
+        same values."""
+        from ray_dynamic_batching_tpu_torch.parallel.collective import (
+            pg_allreduce,
+        )
+
+        x = x.contiguous()
+        pg_allreduce(self.group, x, "sum")
+        return x
+
+    def gather_last(self, x: torch.Tensor) -> torch.Tensor:
+        """Concatenate every rank's ``x`` along its last dimension, in rank
+        order (the logits of a vocabulary-sharded head)."""
+        from ray_dynamic_batching_tpu_torch.parallel.collective import (
+            pg_allgather,
+        )
+
+        parts = pg_allgather(self.group, x.contiguous(), self.size)
+        return torch.cat(list(parts.unbind(0)), dim=-1)
+
+
+class Mesh:
+    """One rank's view of a device mesh (see the module docstring).
+    ``shape`` maps every axis of ``AXIS_ORDER`` to its size, as the
+    reference's ``Mesh.shape`` does."""
+
+    def __init__(self, shape: Dict[str, int], devices: Sequence[torch.device],
+                 rank: int = 0, backend: Optional[str] = None, group=None,
+                 world=None) -> None:
+        self.shape = {ax: int(shape.get(ax, 1)) for ax in AXIS_ORDER}
+        self.devices = [torch.device(d) for d in devices]
+        self.rank = int(rank)
+        self.backend = backend
+        self.group = group
+        self.world = world
+        self.tp = (TPGroup(group, self.shape["tp"])
+                   if self.shape["tp"] > 1 else None)
+
+    @property
+    def device(self) -> torch.device:
+        """This rank's device."""
+        return self.devices[self.rank]
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def is_leader(self) -> bool:
+        return self.rank == 0
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's index along ``axis`` (only ``tp`` is active)."""
+        return self.rank if self.shape.get(axis, 1) > 1 else 0
+
+    def shutdown(self) -> None:
+        """End the ranks of this mesh (rank 0 only; idempotent)."""
+        if self.world is not None:
+            self.world.shutdown()
+
+    def __repr__(self) -> str:
+        axes = " ".join(f"{a}={n}" for a, n in self.shape.items() if n > 1)
+        return (f"Mesh({axes or 'single'}, rank {self.rank}/{self.size}, "
+                f"{self.backend or 'no backend'})")
+
+
+def _torch_device(d: Any) -> torch.device:
+    """A placed device (placement's ``CudaDevice``), a ``torch.device``
+    or a string as a ``torch.device``; a card without an index is the
+    current card (a rank sets its device by index)."""
+    dev = getattr(d, "torch_device", None) or torch.device(d)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _default_backend(devices: List[torch.device]) -> str:
+    kinds = {d.type for d in devices}
+    if kinds == {"cpu"}:
+        return "gloo"
+    if kinds != {"cuda"}:
+        raise ValueError(f"a mesh over {sorted(kinds)} devices: put every "
+                         "rank on the CPU or every rank on a card")
+    if len({d.index for d in devices}) != len(devices):
+        raise ValueError(
+            "several ranks share a card: NCCL takes one rank per card; pass "
+            "backend='gloo' to time-share the card (no quiet fallback)")
+    return "nccl"
+
+
+def build_mesh(config: MeshConfig,
+               devices: Optional[Sequence[Any]] = None,
+               backend: Optional[str] = None) -> Mesh:
+    """Rank 0's view of a mesh over ``devices`` (default: the visible
+    cards). More than one device starts the other ranks' processes (see
+    the module docstring); :meth:`Mesh.shutdown` ends them."""
+    from ray_dynamic_batching_tpu_torch.parallel import spmd
+
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [_torch_device(d) for d in devices]
+    n = config.n_devices
+    if len(devices) < n:
+        raise ValueError(
+            f"mesh needs {n} devices (dp={config.dp} pp={config.pp} "
+            f"sp={config.sp} tp={config.tp} ep={config.ep}) but only "
+            f"{len(devices)} available"
+        )
+    inactive = {ax: getattr(config, ax) for ax in ("dp", "pp", "sp", "ep")
+                if getattr(config, ax) > 1}
+    if inactive:
+        raise NotImplementedError(
+            f"mesh axes {inactive}: this port activates tp only; data, "
+            f"pipeline, sequence and expert parallelism are {ITEM_8B}")
+    devices = devices[:n]
+    if n == 1:
+        return single_device_mesh(devices[0])
+    backend = backend or _default_backend(devices)
+    if backend == "nccl":
+        if any(d.type != "cuda" for d in devices):
+            raise ValueError("backend='nccl' needs every rank on a card")
+        if len({d.index for d in devices}) != len(devices):
+            raise ValueError(
+                "backend='nccl' with a card listed twice: NCCL takes one "
+                "rank per card (pass backend='gloo' to time-share a card)")
+    elif backend != "gloo":
+        raise ValueError(f"unknown backend {backend!r} (nccl or gloo)")
+    shape = {ax: getattr(config, ax) for ax in AXIS_ORDER}
+    world = spmd.World(devices, shape, backend)
+    logger.info("mesh tp=%d over %s (%s)", config.tp,
+                [str(d) for d in devices], backend)
+    return world.mesh
+
+
+def single_device_mesh(device: Any = None) -> Mesh:
+    """A 1x1x1x1x1 mesh on ``device`` (default: the first card)."""
+    device = _torch_device(device if device is not None else "cuda:0")
+    return Mesh({}, [device])
+
+
+# --- sharding helpers -----------------------------------------------------
+
+def _feasible_spec(spec: Spec, shape: Tuple[int, ...], mesh: Mesh) -> Spec:
+    """Drop mesh axes that don't divide the corresponding dim (e.g. GQA with
+    kv_heads < tp replicates the kv projections instead of erroring)."""
+    out = []
+    for i, ax in enumerate(spec):
+        if ax is None:
+            out.append(None)
+            continue
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        size = 1
+        for a in axes:
+            size *= mesh.shape[a]
+        if i < len(shape) and shape[i] % size == 0:
+            out.append(ax)
+        else:
+            out.append(None)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafShard:
+    """How one port parameter is cut: dimension ``dim`` of the port's
+    tensor into ``parts`` equal slices, this rank keeping slice
+    ``index`` (``dim`` None: the whole tensor)."""
+
+    dim: Optional[int]
+    parts: int = 1
+    index: int = 0
+
+    def take(self, full: torch.Tensor) -> torch.Tensor:
+        if self.dim is None or self.parts == 1:
+            return full
+        n = full.shape[self.dim] // self.parts
+        return full.narrow(self.dim, self.index * n, n)
+
+
+def param_shardings(mesh: Mesh, model: Any) -> Dict[str, Spec]:
+    """The feasible spec of every parameter, by port name, in the flax
+    kernel's axes (infeasible axes degrade to replication; reference
+    ``mesh.py:116-125``)."""
+    from ray_dynamic_batching_tpu_torch.models.base import param_path_specs
+
+    return {name: _feasible_spec(spec, shape, mesh)
+            for name, (path, spec, shape, _dims)
+            in param_path_specs(model).items()}
+
+
+def shard_plan(mesh: Mesh, model: Any) -> Dict[str, LeafShard]:
+    """Each port parameter's :class:`LeafShard` on this rank. A spec's
+    sharded flax axis is the major part of the port dimension it maps to
+    (``[N, H]`` flattens to ``N*H`` rows), so a contiguous slice of that
+    dimension is the rank's shard. The bias of a column-parallel layer is
+    cut with its output rows (the reference reshards it under GSPMD); the
+    bias of a row-parallel one stays whole and is added after the sum."""
+    from ray_dynamic_batching_tpu_torch.models.base import param_path_specs
+
+    plan: Dict[str, LeafShard] = {}
+    specs = param_path_specs(model)
+    for name, (path, spec, shape, dims) in specs.items():
+        feasible = _feasible_spec(spec, shape, mesh)
+        plan[name] = LeafShard(None)
+        for i, ax in enumerate(feasible):
+            if ax is None:
+                continue
+            axes = ax if isinstance(ax, tuple) else (ax,)
+            parts = 1
+            for a in axes:
+                parts *= mesh.shape[a]
+            if parts > 1:
+                index = 0
+                for a in axes:
+                    index = index * mesh.shape[a] + mesh.axis_index(a)
+                plan[name] = LeafShard(dims[i], parts, index)
+    for name, shard in list(plan.items()):
+        if name.endswith(".weight") and shard.dim == 0:
+            bias = name[: -len("weight")] + "bias"
+            if bias in plan:
+                plan[bias] = LeafShard(0, shard.parts, shard.index)
+    return plan
+
+
+def _refuse(model: Any) -> None:
+    from ray_dynamic_batching_tpu_torch.models.quant import is_quantized
+
+    if getattr(model, "tp_shard", None) is not None:
+        raise ValueError(f"{model.name} is already sharded")
+    if is_quantized(model):
+        raise ValueError(
+            "a weight-only int8 model on a TP mesh is not supported yet: "
+            "the sharding rules key on kernel paths, which quantization "
+            "rewrites into codes and scales")
+    if getattr(model.cfg, "num_experts", 0) > 0:
+        raise NotImplementedError(
+            f"{model.name}: a mixture of experts on a mesh needs its "
+            f"expert (ep) layout, {ITEM_8B}")
+
+
+def _recipe(model: Any) -> tuple:
+    """What a rank needs to build an empty twin of ``model``."""
+    return (type(model), model.cfg, model.name, model.dtype,
+            getattr(model, "kv_dtype", None))
+
+
+def _twin(recipe: tuple, device: torch.device):
+    cls, cfg, name, dtype, kv_dtype = recipe
+    model = cls(cfg, name=name, dtype=dtype, device="meta", seed=None,
+                kv_dtype=kv_dtype)
+    model.device = device
+    return model
+
+
+def _build_shard(ctx, seq: int, key: str, recipe: tuple, source: tuple):
+    """Every rank's half of :func:`shard_params` / :func:`build_sharded_model`:
+    an empty twin of the model, each parameter filled with this rank's
+    slice of the whole weight — broadcast from rank 0 (``source``
+    ``("rank0",)``) or drawn from the seed on every rank (``("seed",
+    seed)``, ``models/causal_lm.random_leaves``: the same draws as
+    ``init_random``, one whole leaf at a time)."""
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import random_leaves
+    from ray_dynamic_batching_tpu_torch.parallel.collective import (
+        pg_broadcast,
+    )
+
+    mesh = ctx.mesh
+    model = _twin(recipe, mesh.device)
+    plan = shard_plan(mesh, model)
+    params = dict(model.module.named_parameters())
+    if source[0] == "seed":
+        leaves = random_leaves(model.module, source[1], mesh.device)
+    else:
+        full_model = ctx.objects.pop(("source", key), None)
+        state = (dict(full_model.module.named_parameters())
+                 if full_model is not None else None)
+
+        def broadcast():
+            for name in sorted(params):
+                p = params[name]
+                if state is not None:
+                    full = state[name].detach().to(mesh.device).contiguous()
+                else:
+                    full = torch.empty(p.shape, dtype=p.dtype,
+                                       device=mesh.device)
+                pg_broadcast(mesh.group, full, 0)
+                yield name, full
+
+        leaves = broadcast()
+    for name, full in leaves:
+        local = plan[name].take(full).clone()
+        mod_name, _, leaf = name.rpartition(".")
+        mod = model.module.get_submodule(mod_name)
+        mod._parameters[leaf] = nn.Parameter(local, requires_grad=False)
+        del full
+    apply_tp(model, mesh, plan, key)
+    ctx.objects[key] = model
+    return {name: tuple(p.shape) for name, p in
+            sorted(model.module.named_parameters())}
+
+
+def apply_tp(model: Any, mesh: Mesh, plan: Dict[str, LeafShard],
+             key: str) -> None:
+    """Mark a model whose parameters hold this rank's slices (``plan``):
+    each layer's local head counts, its kv-head window where k/v
+    replicate but q is cut, and the collectives of the row-parallel
+    products, the embedding and the head (``models/decoder.py``)."""
+    cfg = model.cfg
+    tp = mesh.shape["tp"]
+    module = model.module
+    q_cut = plan["layers.0.q.weight"].dim is not None
+    kv_cut = plan["layers.0.k.weight"].dim is not None
+    N = cfg.num_heads // (tp if q_cut else 1)
+    K = cfg.num_kv_heads // (tp if kv_cut else 1)
+    kv_window = None
+    G = cfg.num_heads // cfg.num_kv_heads
+    if q_cut and not kv_cut:
+        first = mesh.axis_index("tp") * N      # global index of local head 0
+        if N % G == 0:
+            kv_window = (first // G, N // G)
+        elif G % N == 0:
+            kv_window = (first // G, 1)
+        else:
+            raise NotImplementedError(
+                f"{model.name}: {N} query heads a rank over {G}-head groups "
+                "do not map onto a contiguous kv-head window")
+    for i, layer in enumerate(module.layers):
+        layer.heads = (N, K)
+        layer.kv_window = kv_window
+        for proj in ("o", "mlp_down"):
+            dense = getattr(layer, proj, None)
+            if dense is not None and plan[f"layers.{i}.{proj}.weight"].dim \
+                    is not None:
+                dense.reduce = mesh.tp.all_reduce
+    embed = plan["tok_embed.weight"]
+    if embed.dim is not None:
+        rows = cfg.vocab_size // embed.parts
+        module.vocab_rows = (embed.index * rows, rows)
+    head = plan.get("lm_head.weight", embed if cfg.tie_embeddings else None)
+    module.tp = mesh.tp
+    module.gather_logits = head is not None and head.dim is not None
+    model.kv_heads = K
+    model.tp_shard = TPShard(mesh, key, kv_cut and q_cut)
+
+
+@dataclasses.dataclass
+class TPShard:
+    """A model's place on a mesh: the mesh, its name among the world's
+    per-rank objects, and whether the kv heads are cut (the paged kernel
+    runs per shard; otherwise the heads replicate and the gather path
+    runs, as the reference declines)."""
+
+    mesh: Mesh
+    key: str
+    heads_split: bool
+
+
+def _start_shard(mesh: Mesh, model_or_recipe, source: tuple):
+    world = mesh.world
+    if world is None:
+        raise ValueError(f"{mesh!r} is not rank 0 of a started mesh")
+    key = world.new_key("model")
+    if source[0] == "rank0":
+        world.ctx.objects[("source", key)] = model_or_recipe
+        recipe = _recipe(model_or_recipe)
+    else:
+        recipe = model_or_recipe
+    shapes = world.call(_build_shard, key, recipe, source)
+    if any(s.keys() != shapes[0].keys() for s in shapes):
+        raise RuntimeError("ranks built different parameter sets")
+    return world.ctx.objects[key]
+
+
+def shard_params(mesh: Mesh, model: Any) -> Any:
+    """Place ``model``'s weights on the mesh per its rules (TP weights cut
+    over the tp axis, everything else replicated): returns rank 0's shard,
+    a new model on rank 0's device; every other rank holds its own under
+    the same key. Each whole weight is broadcast from rank 0 once and cut
+    on every rank. ``model`` itself is left as it is. A mesh of one rank
+    returns ``model``."""
+    if mesh.shape["tp"] == 1:
+        return model
+    _refuse(model)
+    with torch.inference_mode(False), torch.no_grad():
+        return _start_shard(mesh, model, ("rank0",))
+
+
+def build_sharded_model(mesh: Mesh, model_cls, cfg, name: str,
+                        dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                        kv_dtype: Optional[torch.dtype] = None) -> Any:
+    """Rank 0's shard of ``model_cls(cfg, name, dtype, seed=seed,
+    kv_dtype=kv_dtype)``, every rank drawing the whole weights from
+    ``seed`` one leaf at a time and keeping its slice: the same numbers
+    as the unsharded model's, and no rank holds more than its share plus
+    one whole leaf."""
+    recipe = (model_cls, cfg, name, dtype, kv_dtype)
+    probe = _twin(recipe, torch.device("meta"))
+    if mesh.shape["tp"] == 1:
+        model = model_cls(cfg, name=name, dtype=dtype, device=mesh.device,
+                          seed=seed, kv_dtype=kv_dtype)
+        return model
+    _refuse(probe)
+    with torch.inference_mode(False), torch.no_grad():
+        return _start_shard(mesh, recipe, ("seed", int(seed)))
+
+
+def make_sharded_cache(mesh: Mesh, model: Any, num_slots: int,
+                       max_len: Optional[int] = None) -> Any:
+    """This rank's KV cache at its share of the kv heads (``cache_pspec``;
+    allocated at that size, never whole on any rank)."""
+    _check_sharded(mesh, model)
+    return model.make_cache(num_slots, max_len)
+
+
+def make_sharded_paged_cache(mesh: Mesh, model: Any, num_slots: int,
+                             num_pages: int, page_size: int,
+                             max_len: int) -> Any:
+    """This rank's paged pool at its share of the kv heads; the page table
+    and lengths are whole on every rank (``paged_cache_pspec``: page
+    indices are shard-invariant, so the host allocator stays global)."""
+    _check_sharded(mesh, model)
+    return model.make_paged_cache(num_slots, num_pages, page_size, max_len)
+
+
+def _check_sharded(mesh: Mesh, model: Any) -> None:
+    shard = getattr(model, "tp_shard", None)
+    if mesh.shape["tp"] > 1 and (shard is None or shard.mesh is not mesh):
+        raise ValueError(f"{model.name} is not sharded over {mesh!r}")
+
+
+def replicate(mesh: Mesh, tree: Any) -> Any:
+    """``tree`` (tensors, tuples, lists, dicts) on this rank's device: a
+    replicated value is whole on every rank."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(mesh.device)
+    if isinstance(tree, dict):
+        return {k: replicate(mesh, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(replicate(mesh, v) for v in tree)
+    return tree
+
+
+# --- multi-host boot ------------------------------------------------------
+
+def multihost_init(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    backend: str = "nccl",
+    timeout_s: float = 120.0,
+) -> Dict[str, int]:
+    """Initialize torch.distributed's default group across hosts: the
+    coordinator (``host:port``, or the ``MASTER_ADDR``/``MASTER_PORT``
+    environment when None) plays the reference's coordinator role. No-op
+    when single-process."""
+    import torch.distributed as dist
+
+    if num_processes is None or num_processes <= 1:
+        return {"process_index": 0, "process_count": 1}
+    init = (f"tcp://{coordinator_address}" if coordinator_address
+            else "env://")
+    dist.init_process_group(
+        backend=backend, init_method=init, world_size=num_processes,
+        rank=process_id, timeout=datetime.timedelta(seconds=timeout_s))
+    return {
+        "process_index": dist.get_rank(),
+        "process_count": dist.get_world_size(),
+    }
+

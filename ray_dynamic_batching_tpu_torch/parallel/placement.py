@@ -20,8 +20,9 @@ import paths rewritten. Trimmed: the default device list is the visible
 CUDA devices (:func:`cuda_devices`: one :class:`CudaDevice` per card, each
 with ``process_index`` 0 — one host — and its total memory as the HBM
 figure); an explicit device list of any objects with ``process_index``
-works as in the reference. :func:`pin_slice` of more than one chip raises:
-tensor-parallel slices come with multi-GPU (ROADMAP queue 1 item 8).
+works as in the reference. :func:`pin_slice` of more than one chip builds
+the slice's tensor-parallel mesh over the bundle's devices
+(``parallel/mesh.build_mesh``), as the reference does.
 """
 
 from __future__ import annotations
@@ -122,24 +123,32 @@ def pin_slice(
     mesh_shape: str,
     strategy: str = STRICT_PACK,
 ):
-    """Pin one ``(model, mesh_shape)`` schedulable unit to silicon:
-    reserve a ``mesh_chips(mesh_shape)``-wide chip SET as a single gang
-    bundle. Returns ``(group, mesh)``; ``mesh`` is None for a 1-chip
-    shape (callers pin the single device instead — the classic path).
-    Release the reservation with ``manager.remove(group)`` when the slice
-    dies or the replica is torn down.
-
-    A shape of more than one chip raises ``NotImplementedError`` before
-    anything is reserved: tensor-parallel meshes come with multi-GPU
-    (ROADMAP queue 1 item 8). ``strategy`` is kept for that slice."""
+    """Pin one ``(model, mesh_shape)`` schedulable unit to silicon
+    (reference ``placement.py:70-98``): reserve a
+    ``mesh_chips(mesh_shape)``-wide chip SET as a single gang bundle and
+    build its TP mesh from exactly those devices. Returns ``(group,
+    mesh)``; ``mesh`` is None for a 1-chip shape (callers pin the single
+    device instead — the classic path). ``STRICT_PACK`` by default: a TP
+    slice's collectives must not straddle hosts. Release the reservation
+    with ``manager.remove(group)`` and end the mesh's ranks with
+    ``mesh.shutdown()`` when the slice dies. The mesh takes
+    ``parallel/mesh.build_mesh``'s default backend: NCCL when every rank
+    has its own card, gloo on CPU devices."""
     chips = mesh_chips(mesh_shape)
-    if chips > 1:
-        raise NotImplementedError(
-            f"pin_slice({mesh_shape!r}): a {chips}-chip tensor-parallel "
-            "slice needs multi-GPU meshes, which are not ported yet "
-            "(ROADMAP queue 1 item 8)")
     pg = manager.create([Bundle(chips=chips)], strategy=strategy)
-    return pg, None
+    if chips == 1:
+        return pg, None
+    from ray_dynamic_batching_tpu_torch.parallel.mesh import (
+        MeshConfig,
+        build_mesh,
+    )
+
+    try:
+        mesh = build_mesh(MeshConfig(tp=chips), pg.bundle_devices(0))
+    except BaseException:
+        manager.remove(pg)
+        raise
+    return pg, mesh
 
 
 class PlacementManager:

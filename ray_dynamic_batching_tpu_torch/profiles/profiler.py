@@ -9,15 +9,17 @@ CUDA-event timing, ``:85-90`` peak memory, ``:163-211`` OOM tolerance and
 early stop) swept power-of-two buckets; so does this one. Where eager
 torch on a card differs from the reference's compiled programs:
 
-- **``compile_ms``** is the bucket's first dispatch (forward + host
-  fetch), as ``profiles/decode_profiler.py`` reads it: eager torch
+- **``compile_ms``** is the bucket's first dispatch (forward + one
+  scalar fetch), as ``profiles/decode_profiler.py`` reads it: eager torch
   compiles nothing, and that dispatch pays the library's first look at
   the shapes.
-- **Timing** fetches every step's output to the host (``.float().cpu()``,
-  a synchronize per step), which is how ``engine/worker.py`` completes and
-  times a step: a row is what a served step costs, host dispatch
-  included. Three samples of ``timing_iters`` steps each; the row is
-  their mean and spread.
+- **Timing** is the reference's rule (:func:`timed_steps_ms`): three
+  samples, each dispatching ``timing_iters`` forwards and ending with one
+  scalar fetch of the last output (the card runs them in order, so that
+  fetch observes every step); a sample's time is divided by its
+  ``timing_iters``. The row is their mean and spread. A served step
+  (``engine/worker.py``) still fetches its whole output: it returns its
+  results.
 - **``hbm_bytes``** is the model's weight bytes + the bucket's input
   bytes + the first dispatch's measured peak transient
   (``torch.cuda.reset_peak_memory_stats`` before it,
@@ -56,24 +58,32 @@ def _is_oom(err: Exception) -> bool:
     return "RESOURCE_EXHAUSTED" in msg or "Out of memory" in msg or "OOM" in msg
 
 
-def _step(model: ServableModel, inputs) -> None:
-    """One served step: the forward, completed by its host fetch."""
-    model(*inputs).float().cpu()
+def _fetch_scalar(out) -> float:
+    """Host fetch of one element of ``out`` (its first tensor's first
+    element): the completion signal of every step dispatched before it
+    (reference ``profiler.py:51-55``)."""
+    leaf = out[0] if isinstance(out, (tuple, list)) else out
+    return float(leaf.reshape(-1)[0].item())
 
 
 def timed_steps_ms(model: ServableModel, inputs, iters: int,
                    warmup: int = 1) -> List[float]:
-    """Per-step latency samples of ``model`` on ``inputs``: after
-    ``warmup`` steps, three samples of the mean over ``iters`` steps, each
-    step ended by its host fetch."""
+    """Per-step latency samples of ``model`` on ``inputs`` (reference
+    ``profiler.py:58-79``): ``warmup`` dispatches and one scalar fetch,
+    then three samples, each ``iters`` dispatches ended by one scalar
+    fetch of the last output, divided by ``iters``. Per-call dispatch
+    overhead is included; the output's transfer to the host is not."""
     with torch.inference_mode():
+        out = None
         for _ in range(max(warmup, 1)):
-            _step(model, inputs)
+            out = model(*inputs)
+        _fetch_scalar(out)
         samples = []
         for _ in range(3):
             t0 = time.perf_counter()
             for _ in range(iters):
-                _step(model, inputs)
+                out = model(*inputs)
+            _fetch_scalar(out)
             samples.append((time.perf_counter() - t0) * 1000.0 / iters)
     return samples
 
@@ -107,7 +117,7 @@ class ModelProfiler:
                 torch.cuda.reset_peak_memory_stats(device)
             t0 = time.perf_counter()
             with torch.inference_mode():
-                _step(self.model, inputs)
+                _fetch_scalar(self.model(*inputs))
             compile_ms = (time.perf_counter() - t0) * 1000.0
             transient = 0
             if cuda:

@@ -26,8 +26,10 @@ chunked arms) or through the long fill (the monolithic arms).
 also derives the horizons from ``token_slo_ms`` / ``ttft_slo_ms``), else
 from the memory budget (:meth:`LLMDeployment.auto_num_slots`). The
 controller builds replicas through :meth:`LLMDeployment.make_replica` with
-a ``DeploymentConfig`` and the devices of the replica's placement bundle
-(one card; more raise until multi-GPU). KV reuse comes through
+a ``DeploymentConfig`` and the devices of the replica's placement bundle;
+a bundle of more than one device makes a tensor-parallel replica over
+its own mesh (``parallel/mesh.py``; reference ``llm.py:885-913``), whose
+ranks the replica ends when it stops. KV reuse comes through
 ``prefix_cache_size``, ``session_cache_size`` and ``host_spill_pages``
 (``DecodeEngine``), and the replica exposes the prefix digests and the
 page-fabric surface (live migration, prefix push) the controller's
@@ -102,7 +104,10 @@ class LLMReplica(Replica):
         max_ongoing_requests: int = 256,
         warmup: bool = True,
         default_max_new_tokens: int = 64,
+        mesh: Any = None,
     ) -> None:
+        # A tensor-parallel replica's mesh: its ranks end with the replica.
+        self.mesh = mesh
         super().__init__(
             replica_id=replica_id,
             deployment=deployment,
@@ -182,6 +187,8 @@ class LLMReplica(Replica):
             t = engine._thread
             if t is None or not t.is_alive():
                 engine.release_buffers()
+        if self.mesh is not None:
+            self.mesh.shutdown()
 
     def drain_queue(self) -> List[Request]:
         self._stopped = True
@@ -380,7 +387,14 @@ class LLMDeployment:
 
     ``num_slots <= 0`` means "size me" (:meth:`build_engine`): the
     memory budget is the config's ``hbm_budget_bytes``, which on a card
-    the caller sets from the card; nothing here reads a card's memory."""
+    the caller sets from the card; nothing here reads a card's memory.
+
+    A replica placed on several devices is tensor-parallel: its mesh runs
+    on ``mesh_backend`` (default: NCCL when every rank has its own card,
+    gloo on the CPU; several ranks on one card need ``"gloo"`` named),
+    and the model is sharded once per mesh — drawn from ``seed`` on every
+    rank, or, with ``params`` or an injected ``model``, cut from the whole
+    weights (``parallel/mesh.py``)."""
 
     def __init__(
         self,
@@ -417,6 +431,7 @@ class LLMDeployment:
         spec_tokens: int = 4,
         quantize_weights: bool = False,
         params: Any = None,
+        mesh_backend: Optional[str] = None,
     ) -> None:
         if params is not None and model is not None:
             raise ValueError("pass either params or model, not both — an "
@@ -487,6 +502,9 @@ class LLMDeployment:
         self.ttft_slo_ms = ttft_slo_ms
         self._table_plans: Dict[tuple, Optional[Dict[str, int]]] = {}
         self._init_lock = threading.Lock()
+        self.mesh_backend = mesh_backend
+        # id(mesh) -> (mesh, rank 0's shard of the model on it).
+        self._mesh_models: Dict[int, tuple] = {}
 
     def _ensure_model(self, device: Optional[torch.device] = None):
         """The deployment's one model, built at first use on ``device``
@@ -556,9 +574,41 @@ class LLMDeployment:
                     self.draft_model_name, **kwargs)
             return self._model
 
+    def _sharded_model(self, mesh: Any):
+        """The deployment's model on ``mesh``, sharded once per mesh: drawn
+        from ``seed`` on every rank (no rank holds the whole model), or
+        cut from the deployment's built model or ``params``."""
+        from ray_dynamic_batching_tpu_torch.models import registry
+        from ray_dynamic_batching_tpu_torch.parallel import mesh as mesh_mod
+
+        with self._init_lock:
+            held = self._mesh_models.get(id(mesh))
+            if held is not None and held[0] is mesh:
+                return held[1]
+            fresh = self._model is None and self._params is None
+        if fresh:
+            kwargs = {"device": "meta", "seed": None}
+            if self._dtype is not None:
+                kwargs["dtype"] = self._dtype
+            if self.quantize_kv:
+                kwargs["kv_dtype"] = torch.int8
+            probe = registry.get_model(self.model_name, **kwargs)
+            shard = mesh_mod.build_sharded_model(
+                mesh, type(probe), probe.cfg, probe.name, dtype=probe.dtype,
+                seed=self.seed, kv_dtype=probe.kv_dtype)
+        else:
+            shard = mesh_mod.shard_params(mesh, self._ensure_model())
+        with self._init_lock:
+            self._mesh_models = {k: v for k, v in self._mesh_models.items()
+                                 if v[0].world is not None
+                                 and not v[0].world.closed}
+            self._mesh_models[id(mesh)] = (mesh, shard)
+        return shard
+
     def auto_num_slots(self, n_chips: int = 1,
                        max_len: Optional[int] = None,
-                       budget_fraction: float = 1.0) -> int:
+                       budget_fraction: float = 1.0,
+                       model: Any = None) -> int:
         """Size the continuous batch from the memory budget: per device,
         subtract this device's weight share, apply the planner's fraction
         (``RDB_HBM_PLAN_FRACTION`` — the knob the Nexus packer uses), and
@@ -566,8 +616,10 @@ class LLMDeployment:
         replicas would shard both weights and KV 1/n_chips, so per-device
         terms divide through (the arithmetic is the reference's; the port
         builds one-card replicas). Rounded down to a power of two (aligns
-        prefill group widths), at most 256."""
-        model = self._ensure_model()
+        prefill group widths), at most 256. ``model``: the model whose
+        whole weights and KV rows are counted (default the deployment's;
+        a TP replica passes an empty twin of the whole model)."""
+        model = model if model is not None else self._ensure_model()
         cfg = get_config()
         # _ensure_model already quantized the model when asked, so a plain
         # byte count is exact for both modes.
@@ -773,20 +825,27 @@ class LLMDeployment:
     def build_engine(self, queue: RequestQueue,
                      max_len: Optional[int] = None,
                      device: Optional[torch.device] = None,
-                     num_slots: Optional[int] = None) -> DecodeEngine:
+                     num_slots: Optional[int] = None,
+                     mesh: Any = None) -> DecodeEngine:
         """One engine at capacity ``max_len``. ``num_slots`` overrides the
         deployment's (the colocation control loop passes the planner's
         placement shape): a positive count is pinned and its horizons come
         from its own measured row when the tables have one; ``<= 0`` takes
-        the table plan's slot count, or else :meth:`auto_num_slots`."""
-        model = self._ensure_model(device)
+        the table plan's slot count, or else :meth:`auto_num_slots`.
+        ``mesh`` (a TP replica's): the engine serves the model's shard on
+        it; measured tables are per-card measurements and are not read
+        (reference ``llm.py:826-848``), and ``<= 0`` slots are sized for
+        the mesh's devices."""
+        tp = mesh is not None and mesh.shape.get("tp", 1) > 1
+        model = self._sharded_model(mesh) if tp \
+            else self._ensure_model(device)
         max_len = max_len or self.max_len
         num_slots = num_slots if num_slots is not None else self.num_slots
         decode_horizon = self.decode_horizon
         ttft_horizon = self.ttft_horizon
         # ANY pinned slot count pins the plan to ITS measured row, so the
         # horizons below always describe the config that actually runs.
-        plan = self._table_plan(
+        plan = None if tp else self._table_plan(
             max_len, num_slots=num_slots if num_slots > 0 else None)
         if plan is not None:
             if num_slots <= 0:
@@ -794,9 +853,17 @@ class LLMDeployment:
             decode_horizon = plan.get("decode_horizon", decode_horizon)
             ttft_horizon = plan.get("ttft_horizon", ttft_horizon)
         elif num_slots <= 0:
+            whole = None
+            if tp:
+                from ray_dynamic_batching_tpu_torch.parallel.mesh import (
+                    _recipe,
+                    _twin,
+                )
+
+                whole = _twin(_recipe(model), torch.device("meta"))
             num_slots = self.auto_num_slots(
-                1, max_len=max_len,
-                budget_fraction=1.0 / len(self.length_buckets),
+                mesh.size if tp else 1, max_len=max_len,
+                budget_fraction=1.0 / len(self.length_buckets), model=whole,
             )
         prompt_buckets = self.prompt_buckets
         if prompt_buckets is not None:
@@ -826,6 +893,7 @@ class LLMDeployment:
             draft_model=self._draft_model,
             spec_tokens=self.spec_tokens,
             quantize_weights=self.quantize_weights,
+            mesh=mesh if tp else None,
         )
 
     # Controller protocol: factories exposing make_replica own replica
@@ -835,27 +903,45 @@ class LLMDeployment:
         self, replica_id: str, config: Any, devices: Optional[Sequence] = None,
     ) -> LLMReplica:
         device = None
+        mesh = None
+        if devices and len(devices) > 1 and self.quantize_weights:
+            # Fail BEFORE the mesh/engine build (and before the placement
+            # group's chips are consumed by a doomed start).
+            raise ValueError(
+                f"{config.name}: quantize_weights is not supported for "
+                "multi-chip (TP) replicas yet — drop chips_per_replica or "
+                "the quantization flag")
         if devices and len(devices) > 1:
-            # Fail BEFORE any model or engine build (and before the
-            # placement group's chips are consumed by a doomed start).
-            raise NotImplementedError(
-                f"{config.name}: a {len(devices)}-chip (tensor-parallel) "
-                "replica needs multi-GPU meshes, which are not ported yet "
-                "(ROADMAP queue 1 item 8) — drop chips_per_replica")
-        if devices:
+            # Multi-device bundle -> a TP replica over its own mesh slice
+            # (its ranks start here and end with the replica).
+            from ray_dynamic_batching_tpu_torch.parallel.mesh import (
+                MeshConfig,
+                build_mesh,
+            )
+
+            mesh = build_mesh(MeshConfig(tp=len(devices)),
+                              [_torch_device(d) for d in devices],
+                              backend=self.mesh_backend)
+        elif devices:
             device = _torch_device(devices[0])
-        replica = LLMReplica(
-            replica_id=replica_id,
-            deployment=config.name,
-            engine_builders={
-                bucket: (lambda q, b=bucket: self.build_engine(
-                    q, max_len=b, device=device))
-                for bucket in self.length_buckets
-            },
-            max_ongoing_requests=config.max_ongoing_requests,
-            warmup=self.warmup,
-            default_max_new_tokens=self.default_max_new_tokens,
-        )
+        try:
+            replica = LLMReplica(
+                replica_id=replica_id,
+                deployment=config.name,
+                engine_builders={
+                    bucket: (lambda q, b=bucket: self.build_engine(
+                        q, max_len=b, device=device, mesh=mesh))
+                    for bucket in self.length_buckets
+                },
+                max_ongoing_requests=config.max_ongoing_requests,
+                warmup=self.warmup,
+                default_max_new_tokens=self.default_max_new_tokens,
+                mesh=mesh,
+            )
+        except BaseException:
+            if mesh is not None:
+                mesh.shutdown()
+            raise
         replica.devices = list(devices) if devices else None
         if self.session_cache_size > 0:
             # Session-affinity ids ride the replica's advertised multiplex

@@ -754,7 +754,8 @@ def test_placement_strategies_match(case):
 
 def test_placement_defaults_to_the_visible_cuda_devices():
     """The port's default device list is the visible CUDA cards (none
-    here); a multi-chip slice raises before anything is reserved."""
+    here); a 4-chip slice on a one-card manager fails as the reference's
+    placement fails (its gang bundle is infeasible), reserving nothing."""
     P = t_placement
     if not torch.cuda.is_available():
         assert P.cuda_devices() == [] and P.PlacementManager().nodes() == {}
@@ -764,9 +765,13 @@ def test_placement_defaults_to_the_visible_cuda_devices():
     view = mgr.resource_view()
     assert view["nodes"]["0"]["hbm_bytes_total"] == 80 * 2**30
     assert view["nodes"]["0"]["platform"] == "gpu"
-    with pytest.raises(NotImplementedError, match="item 8"):
+    jmgr = j_placement.PlacementManager(_cluster(1, 1))
+    with pytest.raises(j_placement.PlacementError) as want:
+        j_placement.pin_slice(jmgr, "1x4")
+    with pytest.raises(P.PlacementError) as got:
         P.pin_slice(mgr, "1x4")
-    assert mgr.free_chips() == {0: 1}
+    assert str(got.value) == str(want.value)
+    assert mgr.free_chips() == {0: 1} and jmgr.free_chips() == {0: 1}
 
 
 # --- observatory, rates and the audit ring ------------------------------------
@@ -1563,18 +1568,40 @@ class _PlacedCPU:
 
 
 def test_make_replica_takes_a_config_and_placed_devices(tiny):
+    """A two-device bundle builds a tensor-parallel replica over its own
+    mesh (the reference's ``make_replica``): it answers with the tokens of
+    the one-device replica built after it, from the same seed, without
+    ever building the whole model, and its ranks end with it."""
     cfg = t_controller.DeploymentConfig(name="llama_tiny",
                                         max_ongoing_requests=16)
     dep = t_llm.LLMDeployment("llama_tiny", dtype=torch.float32, device="cpu",
                               **LLM)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        dep.make_replica("r0", cfg, devices=[_PlacedCPU(0), _PlacedCPU(1)])
-    assert dep._model is None          # refused before any build
+    tp = dep.make_replica("r0", cfg, devices=[_PlacedCPU(0), _PlacedCPU(1)])
+    procs = list(tp.mesh.world._procs)
+    try:
+        assert tp.engine.mesh.shape["tp"] == 2 and len(tp.devices) == 2
+        tp.start()
+        reqs = [t_request.Request(model="llama_tiny", payload=p,
+                                  slo_ms=6e4) for p in PAYLOADS[:2]]
+        for r in reqs:
+            assert tp.assign(r)
+        tp_tokens = [r.future.result(timeout=60).tokens for r in reqs]
+    finally:
+        tp.stop(timeout_s=5.0, drain=False)
+    assert not any(p.is_alive() for p in procs)
+    assert dep._model is None          # shards drawn from the seed
     replica = dep.make_replica("r1", cfg, devices=[_PlacedCPU(0)])
     try:
         assert replica.devices[0].id == 0
         assert replica.engine.model.device == torch.device("cpu")
         assert replica.max_ongoing_requests == 16
+        replica.start()
+        reqs = [t_request.Request(model="llama_tiny", payload=p,
+                                  slo_ms=6e4) for p in PAYLOADS[:2]]
+        for r in reqs:
+            assert replica.assign(r)
+        assert [r.future.result(timeout=60).tokens for r in reqs] \
+            == tp_tokens
     finally:
         replica.stop(timeout_s=1.0, drain=False)
     on_cpu = _llm_deployment("torch", tiny)

@@ -1495,3 +1495,98 @@ def test_tiny_decoders_serve_on_the_decode_kernels(card, name, paged):
     with att.plain_attention(), graphs.disable_capture():
         want = serve()
     assert got == want
+
+
+# --- kernel 4: kernel 3 per kv-head shard (tensor parallelism) ---------------
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tp,B,Tq,N,K,H", [
+    (2, 4, 1, 32, 8, 128, ),      # llama3_8b geometry: 4 kv heads a shard
+    (4, 3, 5, 32, 8, 128),        # 2 a shard, a verify window
+    (8, 2, 1, 32, 8, 128),        # 1 kv head a shard
+    (2, 5, 3, 8, 2, 64),          # head_dim 64, 1 kv head a shard
+])
+def test_tp_shards_bit_identical_to_one_launch(card, tp, B, Tq, N, K, H,
+                                               dtype, int8):
+    """The tp shards' launches (each q / pool cut as a mesh rank holds
+    it), concatenated, equal one unsharded launch bit for bit, and count
+    as kernel 4's launches, not kernel 3's."""
+    from ray_dynamic_batching_tpu_torch.parallel.mesh import Mesh
+
+    gen = torch.Generator(device=card).manual_seed(tp * 10 + Tq)
+    NP, ps = 3, 128
+    P = B * NP + 2
+    if int8:
+        q, k, v, ks, vs, table, lengths = _paged_int8(
+            gen, B, Tq, N, K, H, P, ps, NP, dtype, card)
+    else:
+        q, k, v, table, lengths = _paged(gen, B, Tq, N, K, H, P, ps, NP,
+                                         dtype, card)
+        ks = vs = None
+    whole = dec.paged_decode_attention(q, k, v, table, lengths, k_scale=ks,
+                                       v_scale=vs)
+    counter = "tp_paged_int8_launches" if int8 else "tp_paged_launches"
+    plain = "paged_int8_launches" if int8 else "paged_launches"
+    before = getattr(dec, counter), getattr(dec, plain)
+    out = dec.paged_decode_attention_tp(q, k, v, table, lengths, tp=tp,
+                                        k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert torch.equal(out, whole)
+    assert (getattr(dec, counter), getattr(dec, plain)) == (
+        before[0] + tp, before[1])
+    # One rank's call through the mesh argument: the same launch.
+    n, kk = N // tp, K // tp
+    shard = dec.paged_decode_attention(
+        q[:, :, :n].contiguous(), k[:, :, :kk].contiguous(),
+        v[:, :, :kk].contiguous(), table, lengths,
+        k_scale=None if ks is None else ks[:, :, :kk].contiguous(),
+        v_scale=None if vs is None else vs[:, :, :kk].contiguous(),
+        mesh=Mesh({"tp": tp}, [card] * tp))
+    assert torch.equal(shard, whole[:, :, :n])
+
+
+def test_tp_engine_on_gloo_ranks_sharing_the_card(card):
+    """A tp-2 engine over a gloo world whose two ranks share this card
+    (NCCL takes one rank a card) serves llama_tiny's greedy tokens equal
+    to the single-card engine's, on the slab and the pool, kernels 2 and
+    4 launched on both ranks; its rank ends with the mesh."""
+    import numpy as np
+
+    from ray_dynamic_batching_tpu_torch.engine.decode import DecodeEngine
+    from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+    from ray_dynamic_batching_tpu_torch.models import registry
+    from ray_dynamic_batching_tpu_torch.ops import graphs
+    from ray_dynamic_batching_tpu_torch.parallel import mesh as pm
+
+    model = registry.get_model("llama_tiny", dtype=torch.float32,
+                               device=card, seed=0)
+    rng = np.random.default_rng(3)
+    payloads = [{"tokens": rng.integers(1, 500, n).tolist(),
+                 "max_new_tokens": 6} for n in (5, 12, 30, 40)]
+    knobs = dict(num_slots=4, max_len=128, prompt_buckets=[16],
+                 decode_horizon=4)
+
+    def serve(m, mesh, **kw):
+        q = RequestQueue("t", max_len=64)
+        with graphs.disable_capture():
+            engine = DecodeEngine(m, q, device=card, mesh=mesh,
+                                  **{**knobs, **kw})
+        reqs = [Request(model="t", payload=p, slo_ms=6e4) for p in payloads]
+        for r in reqs:
+            q.add_request(r)
+        engine.run_until_idle(timeout_s=120)
+        out = [r.future.result(timeout=10).tokens for r in reqs]
+        engine.release_buffers()
+        return out
+
+    mesh = pm.build_mesh(pm.MeshConfig(tp=2), [card, card], backend="gloo")
+    procs = list(mesh.world._procs)
+    try:
+        shard = pm.shard_params(mesh, model)
+        for kw in ({}, {"paged": True, "page_size": 128}):
+            assert serve(shard, mesh, **kw) == serve(model, None, **kw)
+        assert not mesh.world.failed
+    finally:
+        mesh.shutdown()
+    assert not any(p.is_alive() for p in procs)

@@ -424,3 +424,46 @@ def test_int8_weights_and_moe_run_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == "3"
+
+
+_TP_PROBE = """
+import sys
+for name in {forbidden!r}:
+    sys.modules[name] = None      # any import of them now raises
+import torch
+torch.set_num_threads(2)
+from ray_dynamic_batching_tpu_torch.engine.request import Request
+from ray_dynamic_batching_tpu_torch.serve.controller import DeploymentConfig
+from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+from tests import torch_ranks
+dep = LLMDeployment("llama_tiny", num_slots=2, max_len=32, prompt_buckets=[8],
+                    default_max_new_tokens=3, dtype=torch.float32,
+                    device="cpu", seed=0)
+replica = dep.make_replica("probe", DeploymentConfig(name="llama_tiny"),
+                           devices=["cpu", "cpu"])
+try:
+    assert replica.engine.mesh.shape["tp"] == 2
+    req = Request(model="llama_tiny", payload={{"tokens": [1, 2, 3]}},
+                  slo_ms=1e7)
+    replica.engine.queue.add_request(req)
+    replica.engine.run_until_idle(timeout_s=60)
+    ranks = replica.mesh.world.call(torch_ranks.imports_of)
+    print(len(req.future.result(timeout=5).tokens), ranks)
+finally:
+    replica.stop(timeout_s=5.0)
+"""
+
+
+def test_tensor_parallel_replica_runs_with_jax_blocked():
+    """``parallel/{mesh,spmd,collective}.py`` and the engine's mesh arm with
+    JAX blocked: a two-device ``make_replica`` spawns its gloo rank,
+    answers one request with three tokens, and no rank's process —
+    the spawned one imports the port as well — has JAX, flax or the JAX
+    package loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", _TP_PROBE.format(forbidden=FORBIDDEN)],
+        capture_output=True, text=True, timeout=120, cwd=str(ROOT), env=env,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "3 [[], []]"

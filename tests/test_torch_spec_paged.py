@@ -423,14 +423,20 @@ def test_verify_window_never_writes_a_shared_page(lm):
 
 # --- exclusions ------------------------------------------------------------------
 def test_paged_spec_takes_no_mesh(lm, draft_lm):
-    """The JAX engine refuses paged+spec over a TP mesh; the port's engine
-    serves one card and takes no mesh at all, so paged+spec has no such
-    configuration to refuse."""
+    """Both engines take a mesh, and both refuse paged + spec over a TP
+    mesh with the reference's ``ValueError``, before any sharding work
+    (the port's mesh here has no ranks: nothing may reach them)."""
+    from ray_dynamic_batching_tpu.parallel import mesh as j_mesh
+    from ray_dynamic_batching_tpu_torch.parallel import mesh as t_mesh
+
     assert "mesh" in inspect.signature(j_decode.DecodeEngine).parameters
-    assert "mesh" not in inspect.signature(
-        t_decode.DecodeEngine).parameters
-    with pytest.raises(TypeError, match="mesh"):
-        _engine("port", lm, paged=True, draft=draft_lm, mesh=object())
+    assert "mesh" in inspect.signature(t_decode.DecodeEngine).parameters
+    jmesh = j_mesh.build_mesh(j_mesh.MeshConfig(tp=2), jax.devices()[:2])
+    with pytest.raises(ValueError, match="TP-mesh paged"):
+        _engine("jax", lm, paged=True, draft=draft_lm, mesh=jmesh)
+    with pytest.raises(ValueError, match="TP-mesh paged"):
+        _engine("port", lm, paged=True, draft=draft_lm,
+                mesh=t_mesh.Mesh({"tp": 2}, ["cpu"] * 2))
 
 
 def test_paged_with_draft_constructs(lm):
