@@ -1560,6 +1560,14 @@ def _w8_inputs(M, N, K, period, act, gen, weights: dict):
     return x, codes, scale
 
 
+def _w8_body(M: int, act, wd) -> str:
+    """The body ``ops/quant_matmul`` launches for M rows of ``act``
+    activations over ``wd`` weights (its ``BODIES``)."""
+    if act == torch.bfloat16:
+        return "prefill" if M > 16 else "decode"
+    return "split3" if wd == torch.bfloat16 else "fma"
+
+
 def _w8_ops(M, N, K, act, wd) -> tuple:
     """The operations behind an int8-weight product's bound, at the peak
     of the units the kernel runs them on: bf16 x on the tensor cores
@@ -1587,15 +1595,22 @@ def _w8_kernel_row() -> dict:
     row = {"name": "int8_weight_matmul", "route": "cuda",
            "source": W8_SOURCE, "replaces": W8_REPLACES, "cases": []}
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    bodies: dict = {}
     for role, M, N, K, period, act, wd, timed in _w8_cases():
         x, codes, scale = _w8_inputs(M, N, K, period, act, gen, weights)
         _CHECKED.add(_w8_key(M, codes, scale, act, wd, None))
+        before = dict(qm.launches_by_body)
         out = qm.int8_linear(x, codes, scale, weight_dtype=wd)
         torch.cuda.synchronize()
+        body = [b for b, n in qm.launches_by_body.items() if n != before[b]]
         ref = qm.int8_linear_plain(x, codes, scale, weight_dtype=wd)
         err = (out.float() - ref.float()).abs().max().item()
         tag = (f"{role} x[{M}, {K}] codes[{N}, {K}] period {period} "
                f"{str(act)[6:]}/{str(wd)[6:]}")
+        if body != [_w8_body(M, act, wd)]:
+            fail(f"int8_weight_matmul {tag}: launched body {body}, expected "
+                 f"{_w8_body(M, act, wd)}")
+        bodies[body[0]] = bodies.get(body[0], 0) + 1
         if not torch.isfinite(out.float()).all():
             fail(f"int8_weight_matmul {tag}: non-finite output")
         if not err <= TOL[act]:
@@ -1609,7 +1624,7 @@ def _w8_kernel_row() -> dict:
         b_ms, b_by = bound(nbytes, *_w8_ops(M, N, K, act, wd))
         case = dict(role=role, M=M, N=N, K=K, period=period,
                     dtype=str(act)[6:], weight_dtype=str(wd)[6:],
-                    max_abs_err=err,
+                    body=body[0], max_abs_err=err,
                     ms=time_ms(lambda: qm.int8_linear(
                         x, codes, scale, weight_dtype=wd)),
                     plain_ms=time_ms(lambda: qm.int8_linear_plain(
@@ -1618,14 +1633,15 @@ def _w8_kernel_row() -> dict:
                     bound_ms=b_ms, bound_by=b_by, bound_mb=nbytes / 1e6)
         del w
         row["cases"].append(case)
-        print(f"[kernels] int8_weight_matmul {tag}: kernel "
+        print(f"[kernels] int8_weight_matmul {tag}: body {body[0]}, kernel "
               f"{case['ms']:.4f} ms, plain (dequantize + F.linear, 3 "
               f"calls) {case['plain_ms']:.4f} ms, torch.matmul on the "
               f"dequantized weight {case['library_ms']:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB); max_abs_err "
               f"{err:.3e}", flush=True)
     print(f"[kernels] int8_weight_matmul: {len(_w8_cases())} shapes held "
-          f"against the plain version, max_abs_err f32 "
+          f"against the plain version (launches by body {bodies}), "
+          f"max_abs_err f32 "
           f"{errs[torch.float32]:.3e} (tol {TOL[torch.float32]:.0e}), bf16 "
           f"{errs[torch.bfloat16]:.3e} (tol {TOL[torch.bfloat16]:.0e})",
           flush=True)
@@ -1658,6 +1674,8 @@ def _counts() -> dict:
             "paged_decode_attention_tp": (dec.tp_paged_launches
                                           + dec.tp_paged_int8_launches),
             "int8_weight_matmul": qm.launches,
+            **{f"int8_weight_matmul/{b}": n
+               for b, n in qm.launches_by_body.items()},
             "plain": attention.plain_launches}
 
 
@@ -2002,6 +2020,20 @@ def _expect_dispatches(tag: str, counts: dict, engine, since=None,
         # int8 weight once (MoE experts once an expert).
         want["int8_weight_matmul"] = w8 * (d["steps"] + fills
                                            + d["spec_rounds"])
+        # By body: bf16 activations take the decode body at a step's
+        # slots (up to 16 rows) and the prefill body at every fill (64
+        # rows and more) and verify window; f32 activations the split3
+        # (bf16 weights: the head, the router) or fma body whatever the
+        # rows.
+        kinds = _w8_kinds(engine.model)
+        step = "decode" if engine.num_slots <= 16 else "prefill"
+        by_body = {b: 0 for b in ("prefill", "decode", "split3", "fma")}
+        by_body[step] += kinds["bf16"] * d["steps"]
+        by_body["prefill"] += kinds["bf16"] * (fills + d["spec_rounds"])
+        for b in ("split3", "fma"):
+            by_body[b] += kinds[b] * (d["steps"] + fills + d["spec_rounds"])
+        want.update({f"int8_weight_matmul/{b}": n
+                     for b, n in by_body.items() if n})
     if engine.draft_model is not None:
         if _w8_per_forward(engine.draft_model):
             # Also a self-draft of a quantized target, which shares its
@@ -2026,21 +2058,33 @@ def _expect_dispatches(tag: str, counts: dict, engine, since=None,
     _expect_only(tag, counts, want)
 
 
-def _w8_per_forward(model) -> int:
-    """int8-weight launches in one forward of ``model``: each quantized
-    Dense once, each quantized MoE expert tensor once an expert."""
+def _w8_kinds(model) -> dict:
+    """int8-weight launches in one forward of ``model`` by activation
+    dtype: ``bf16`` (the prefill and decode bodies), ``split3`` (f32 over bf16
+    weights), ``fma`` (f32 over f32)."""
     from ray_dynamic_batching_tpu_torch.models.decoder import Dense
     from ray_dynamic_batching_tpu_torch.models.moe import MoEBlock
 
-    n = 0
+    kinds = {"bf16": 0, "split3": 0, "fma": 0}
+
+    def add(act, wd, n):
+        kinds["bf16" if act == torch.bfloat16 else
+              "split3" if wd == torch.bfloat16 else "fma"] += n
+
     for mod in model.module.modules():
         if isinstance(mod, Dense) and mod.weight_codes is not None:
-            n += 1
+            add(mod.dtype, mod.weight_dtype, 1)
         elif isinstance(mod, MoEBlock):
-            n += mod.num_experts * sum(
+            add(mod.dtype, mod.weight_dtype, mod.num_experts * sum(
                 getattr(mod, f"{w}_codes") is not None
-                for w in mod.expert_names())
-    return n
+                for w in mod.expert_names()))
+    return kinds
+
+
+def _w8_per_forward(model) -> int:
+    """int8-weight launches in one forward of ``model``: each quantized
+    Dense once, each quantized MoE expert tensor once an expert."""
+    return sum(_w8_kinds(model).values())
 
 
 def _serving_phase(tag: str, payloads, knobs: dict, profile: bool) -> tuple:
@@ -4292,9 +4336,11 @@ def _speed_run(tag: str, model, payloads, knobs: dict, eager: bool):
     torch.cuda.synchronize()
     counts = _counts()
     _expect_dispatches(tag, counts, engine)
+    before = _dispatch_state(engine)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, prof_wall = serve()
         torch.cuda.synchronize()
+    prof_dispatch = {n: v - before[n] for n, v in _dispatch_state(engine).items()}
     engine.stop()
     _steady(tag)
     if engine.paged:
@@ -4304,6 +4350,8 @@ def _speed_run(tag: str, model, payloads, knobs: dict, eager: bool):
                  f"{engine.num_pages} pages free after the drain")
     rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    by_kernel = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
+                        for e in rows), key=lambda r: -r[2])
     turns: dict = {}
     for sp in collector.spans:
         if sp.name == "decode.turn":
@@ -4325,7 +4373,9 @@ def _speed_run(tag: str, model, payloads, knobs: dict, eager: bool):
         turns={h: len(v) for h, v in sorted(turns.items())},
         busy_ms=busy_ms, window_ms=prof_wall * 1e3,
         idle_share=(1.0 - busy_ms / (prof_wall * 1e3)) if rows else None,
-        kernel_rows=len(rows), captures=st["captures"],
+        kernel_rows=len(rows), by_kernel=by_kernel,
+        prof_dispatch=prof_dispatch,
+        captures=st["captures"],
         capture_s=st["capture_s"], pool_mb=st["pool_bytes"] / 1e6,
         build_and_warm_s=build_s, counts=counts,
         tokens=[r.tokens for r in results])
@@ -4378,6 +4428,7 @@ def phase_graphs() -> tuple:
                              eager=mode == "eager")
             speed[f"{arm}_{mode}"] = run
             run.pop("tokens")
+            run.pop("by_kernel")
             if mode == "graphed":
                 for name, n in run["counts"].items():
                     counts[name] = counts.get(name, 0) + n
@@ -6011,7 +6062,46 @@ def _w8_parity(V: int) -> tuple:
     return out, counts
 
 
-def _w8_llama(smi: str, V: int) -> tuple:
+# Kernel names of the profiled int8 windows by role: the decode step's
+# and the fills' weight products, attention, the head (both).
+W8_PROFILE_ROLES = (("decode GEMM", "stream_kernel<__nv_bfloat16"),
+                    ("prefill GEMM", "wgmma_kernel<"),
+                    ("head / router GEMM", "stream_kernel<float"),
+                    ("decode attention", "decode_kernel<"),
+                    ("prefill attention", "flash_"))
+
+
+def _w8_by_kernel(tag: str, run: dict) -> None:
+    """18b's profiled int8 window of one arm by kernel: device ms and
+    launches, the int8 GEMM's decode body (``stream_kernel<bf16``) a
+    decode step and its prefill body (``wgmma_kernel``) a fill, beside
+    attention and the rest."""
+    d = run["prof_dispatch"]
+    steps = d["steps"]
+    fills = (d["prefill_groups"] + d["long_chunk_dispatches"]
+             + d["chunk_dispatches"])
+    busy = sum(ms for _, _, ms in run["by_kernel"])
+    roles = {r: 0.0 for r, _ in W8_PROFILE_ROLES}
+    rest = 0.0
+    for name, _, ms in run["by_kernel"]:
+        role = next((r for r, key in W8_PROFILE_ROLES if key in name), None)
+        if role is None:
+            rest += ms
+        else:
+            roles[role] += ms
+    split = "; ".join(f"{r} {ms:.2f} ms" for r, ms in roles.items())
+    print(f"[weights] profile {tag}: {busy:.2f} ms busy in a "
+          f"{run['window_ms']:.1f} ms window of {steps} steps and {fills} "
+          f"fills: {split}; the rest {rest:.2f} ms; decode GEMMs "
+          f"{roles['decode GEMM'] / max(steps, 1):.3f} ms a step, prefill "
+          f"GEMMs {roles['prefill GEMM'] / max(fills, 1):.3f} ms a fill; "
+          f"by kernel:", flush=True)
+    for name, count, ms in run["by_kernel"][:16]:
+        print(f"[weights]   {ms:9.3f} ms {count:7d} x {1e3 * ms / count:8.2f} us"
+              f"  {name[:110]}", flush=True)
+
+
+def _w8_llama(smi: str, V: int, profile: bool = False) -> tuple:
     """18b: llama3_8b bf16 at full width and depth, seed 0, served on the
     slab (phase 5's 8 requests) and the pool (phase 6's 10), without and
     then with int8 weights (the same model, quantized on the card)."""
@@ -6057,6 +6147,9 @@ def _w8_llama(smi: str, V: int) -> tuple:
             run = _speed_run(f"weights {arm} {mode}", model, load,
                              dict(knobs, quantize_weights=mode == "int8"),
                              eager=False)
+            if profile and mode == "int8":
+                _w8_by_kernel(f"{arm} int8 weights ({smi})", run)
+            run.pop("by_kernel")
             runs[mode][arm] = run
             for n, v in run.pop("counts").items():
                 counts[n] = counts.get(n, 0) + v
@@ -6123,8 +6216,9 @@ def _w8_moe(V: int) -> tuple:
     return out, counts
 
 
-def phase_weights() -> tuple:
-    """Phase 18; returns (launch counts, the phase's numbers)."""
+def phase_weights(profile: bool = False) -> tuple:
+    """Phase 18; returns (launch counts, the phase's numbers). With
+    ``profile``, 18b's int8 windows are printed by kernel."""
     from ray_dynamic_batching_tpu_torch.models.causal_lm import LLAMA3_8B
 
     t0 = time.monotonic()
@@ -6132,7 +6226,7 @@ def phase_weights() -> tuple:
     V = LLAMA3_8B.vocab_size
     with _kernel_shapes() as shapes:
         parity, c1 = _w8_parity(V)
-        llama, c2 = _w8_llama(smi, V)
+        llama, c2 = _w8_llama(smi, V, profile)
         moe, c3 = _w8_moe(V)
     launched = _held_shapes(shapes, "weights", 18)
     counts = {n: c1.get(n, 0) + c2.get(n, 0) + c3.get(n, 0)
@@ -7142,6 +7236,11 @@ def _main(stack: contextlib.ExitStack) -> None:
     if not phases <= set(all_phases):
         fail(f"unknown phases {sorted(phases - set(all_phases))}")
     dev = phase_device()
+    try:
+        import ray_dynamic_batching_tpu_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"the port's package does not import beside this script ({e}): "
+             "run chip_smoke.py from the root of a checkout")
     if args.eager:
         from ray_dynamic_batching_tpu_torch.ops import graphs
 
@@ -7195,7 +7294,7 @@ def _main(stack: contextlib.ExitStack) -> None:
     if "spec" in phases:
         by_path["spec"], spec = phase_spec()
     if "weights" in phases:
-        by_path["weights"], weights = phase_weights()
+        by_path["weights"], weights = phase_weights(args.profile)
     if "servables" in phases:
         by_path["servables"], servables = phase_servables()
     if "tp" in phases:

@@ -8,36 +8,70 @@
 // y[M, N] = x[M, K] . W[N, K]^T (+ bias[N]) with W[n, k] = wd(q[n, k]) *
 // wd(scale[n % period]) rounded to the weight dtype wd (bf16 or f32, the
 // model's), the sum in f32, y in x's dtype. Layouts: x [M, K] row-major;
-// q [N, K] int8 row-major (K contiguous: each output channel's codes come
-// in 16-byte loads); scale [period] f32; bias [N] in x's dtype or null;
-// y [M, N]. K % 16 == 0.
+// q [N, K] int8 row-major (K contiguous); scale [period] f32; bias [N] in
+// x's dtype or null; y [M, N]. K % 16 == 0.
 //
-// What bounds it on the H100: at decode (M = 16) the code bytes, one a
-// weight (mlp_up [14336, 4096] is 58.7 MB: 0.0175 ms at 3.35 TB/s); at a
-// prefill group (M = 256) the bf16 tensor-core rate. Design:
-// - Up to 16 rows of bf16 x (decode), and f32 x over bf16 weights (the
-//   lm_head of a bf16 model): mma.sync m16n8k16 (bf16 in, f32 accumulate)
-//   in stream_kernel. Each warp streams its columns' codes from device
-//   memory into registers, two 64-deep k chunks ahead of the one it
-//   multiplies, with no barrier in the loop, so many loads stay in
-//   flight; the codes become bf16 fragments in registers (code x scale,
-//   rounded as the reference rounds its dequantized weight), never a
-//   stored tile. f32 x is split into three bf16 terms (exact to f32's 24
-//   bits), three products each.
-// - More rows of bf16 x (prefill groups, chunks, verify windows):
-//   tile_kernel, a shared-memory tile GEMM that converts each codes tile
-//   once per block and feeds every warp by ldmatrix.
-// - f32 x over f32 weights (every product of an f32 model): CUDA cores
-//   (FMA), 16 rows x 128 columns a block through cp.async stages, each
-//   thread 4 x 4 outputs.
-// - Split-K: when the output tiles number fewer than three a SM, K is
-//   split over gridDim.z; every split writes its f32 partial to the
-//   scratch, and the last block of a tile to arrive sums the partials in
-//   split order (so results do not depend on block timing), adds the bias,
-//   writes y and resets the tile's counter to 0 (every launch leaves the
-//   counters at 0: graphs replay them).
+// Four bodies; the entry point reports which one it launched.
+//
+// "prefill" (bf16 x, M > 16: prefill groups and chunks, verify windows, MoE
+// experts at a fill): wgmma_kernel<BT, CH>, warp-specialised and swapped.
+// It computes y^T = W . x^T, so the weight is wgmma's A operand, taken
+// from registers, and the tokens are its N: one m64nBTk16 wgmma a 16-deep
+// step, BT = 64, 128 or 256. What bounds it on the H100: the code bytes
+// up to M ~ 128 (0.0175 ms for mlp_up's 58.7 MB at 3.35 TB/s), the bf16
+// tensor-core rate above (2MNK at 989 TFLOP/s: 0.0304 ms for mlp_up at
+// M 256), and in practice shared memory, which carries every x tile in
+// (TMA) and out (wgmma's B reads) besides the codes. One producer thread
+// keeps TMA copies of the codes (CH rows of 128 bytes, 128-byte swizzle;
+// 64 at BT 256) and of the x tile (BT rows of 128 bytes, 128-byte swizzle,
+// ragged rows and the K tail zero-filled) in flight through a ring of
+// stages with full / empty mbarriers. Two consumer warpgroups read their
+// rows' code bytes from the stage and make the A fragment in registers:
+// each byte, offset by 128, is the low byte of the f32 2^23 + u, so one
+// subtract gives the code exactly; its f32 has nothing below the top 16
+// bits, which are its bf16; one correctly rounded bf16x2 multiply by the
+// bf16 scale gives bf16(code x scale), the rounding dequantize_rows does.
+// No bf16 weight tile is stored and no barrier but the ring's is crossed.
+// CH = 128 (each warpgroup 64 channels of every stage) where the tiles
+// fill most of the card; else CH = 64 (both warpgroups on the same 64
+// channels, alternate stages), twice the blocks. When the tiles still leave
+// SMs idle K is split over a thread-block cluster along z, the largest the
+// card runs in one wave (cudaOccupancyMaxActiveClusters): each block leaves
+// its f32 partial tile in its own shared memory, and after a cluster
+// barrier block r sums rows r ceil(BT / S) .. of all partials through
+// distributed shared memory in rank order (results do not depend on block
+// timing), adds the bias and writes y row-major. No partial goes through
+// device memory.
+//
+// "decode" (bf16 x, M <= 16: a decode step's slots) and "split3" (f32 x
+// over bf16 weights: the lm_head and router of a bf16 model):
+// stream_kernel, mma.sync m16n8k16 with every warp streaming its columns'
+// codes from device memory into registers two 64-deep chunks ahead. What
+// bounds it is the code bytes, one a weight, so nothing stands between a
+// code's load and its use but registers. The codes become bf16 by the same
+// byte-permute conversion as at prefill, which keeps the conversion units
+// (16 results a clock an SM for int-to-float and float-to-bf16) out of the
+// loop: with them the conversion, not the loads, set the pace. A TMA ring
+// feeding wgmma m64n16k16 or mma.sync ran slower on the H100 at these
+// shapes (ptxas serialises wgmmas whose A registers are redefined while
+// in flight). Narrow products (q/o, down) run 16-warp blocks with K
+// whole; k/v split K over a cluster of up to 8 blocks, summed through
+// distributed shared memory in rank order. split3 splits x into three
+// bf16 terms (exact to f32's 24 bits), three products each, and splits K
+// over the caller's scratch.
+//
+// "fma" (f32 x over f32 weights: every product of an f32 model): CUDA
+// cores, 16 rows x 128 columns a block through cp.async stages.
+//
+// split3 and fma split K over gridDim.z when their tiles number fewer than
+// three a SM: every split writes its f32 partial to the caller's scratch,
+// and the last block of a tile to arrive sums the partials in split order,
+// adds the bias, writes y and resets the tile's counter to 0 (every launch
+// leaves the counters at 0: graphs replay them).
 
 #include "common.cuh"
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes via the runtime
 
 #include <algorithm>
 
@@ -47,6 +81,10 @@ constexpr int BK = 64;        // k elements a pipeline stage
 constexpr int THREADS = 128;
 constexpr int SMS = 132;      // H100 SXM
 constexpr int MAX_SPLIT = 32;
+constexpr int MAX_CLUSTER = 8;  // the portable cluster size
+
+// Body ids reported to the caller (ops/quant_matmul.py BODIES).
+enum Body { PREFILL = 0, DECODE = 1, SPLIT3 = 2, FMA = 3 };
 
 using bf16 = __nv_bfloat16;
 
@@ -63,9 +101,8 @@ __device__ __forceinline__ float weight_scale(const float* scale, int n, int N, 
 
 // The last split block of an output tile to arrive sums the partials
 // ws[s][m][n] in split order, adds the bias and writes y.
-template <typename T>
 __device__ void finish_split(const float* __restrict__ ws, int* __restrict__ cnt,
-                             const T* __restrict__ bias, T* __restrict__ y, int M,
+                             const float* __restrict__ bias, float* __restrict__ y, int M,
                              int N, int m0, int n0, int BM, int BN) {
   __shared__ int last;
   __threadfence();  // this block's partial is visible before it is counted
@@ -103,14 +140,14 @@ __device__ void finish_split(const float* __restrict__ ws, int* __restrict__ cnt
     for (int u = 0; u < U; ++u) {
       if (!ok[u]) continue;
       const int n = static_cast<int>(at[u] % N);
-      if (bias != nullptr) v[u] += rdb::to_f(bias[n]);
-      y[at[u]] = rdb::from_f<T>(v[u]);
+      if (bias != nullptr) v[u] += bias[n];
+      y[at[u]] = v[u];
     }
   }
 }
 
 // One accumulator value of row m, column n: to y (with the bias) when K
-// is not split, else to this split's partial.
+// is not split, else to this split's partial in the scratch (f32 x).
 template <typename T>
 __device__ __forceinline__ void emit(float v, int m, int n, int M, int N,
                                      const T* __restrict__ bias, T* __restrict__ y,
@@ -124,31 +161,108 @@ __device__ __forceinline__ void emit(float v, int m, int n, int M, int N,
   }
 }
 
-// --- tensor cores: bf16 x, or f32 x over bf16 weights -----------------------
-// A block's 4 warps share NT n8 tiles (32 columns at NT = 4) and MT m16
-// tiles, and split the split's k range between them: warp w takes the
-// 64-deep chunks w, w + 4, ... Lane (g, qi) reads 16 code bytes of row g
-// of each n8 tile at k offset 16 qi of a chunk, straight from device
-// memory into registers, DEPTH chunks ahead of the one it multiplies (no
-// shared memory in the loop, no barrier: the loads in flight are what
-// bounds decode). In the chunk's 16-deep step j the lane's bytes
-// 4j..4j+3 are the fragment's k 2qi, 2qi+1, 2qi+8, 2qi+9, and its x loads
-// take the same k; the dot product is unchanged. At the end warps 1-3
-// hand their sums to warp 0 through shared memory, added in warp order.
-// SPLIT3 (f32 x over bf16 weights: the lm_head of a bf16 model) splits
-// each x into three bf16 terms hi + mid + lo, exact to f32's 24 bits, and
-// runs three products per weight fragment.
-template <typename TA, int MT, int NT, bool SPLIT3>
-__global__ void __launch_bounds__(THREADS)
+// --- thread-block clusters ---------------------------------------------------
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Shared address ``a`` of this block -> the same offset in block ``rank``.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t a, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float ld_cluster(uint32_t a) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ float4 ld_cluster4(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+// Cluster launch: grid ``grid`` in clusters of (1, 1, gridDim.z).
+inline cudaLaunchConfig_t cluster_config(dim3 grid, int threads, int smem, cudaStream_t st,
+                                         cudaLaunchAttribute (&at)[1]) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = 1;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = grid.z;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Codes bytes b and b + 1 of word w, as the bf16 pair bf16(code x s) for
+// the bf16 scale pair s2: each byte, offset by 128, is the low byte of the
+// f32 2^23 + u, so one subtract gives the code exactly; a code's f32 has
+// nothing below its top 16 bits, so those are its bf16; the product is one
+// correctly rounded bf16x2 multiply (fma with -0), as dequantize_rows
+// rounds codes.to(bf16) * scale.to(bf16).
+__device__ __forceinline__ uint32_t dequant2(uint32_t w, uint32_t b, uint32_t s2) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u | b)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u | (b + 1))) - 8388736.f;
+  const uint32_t v = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632u);
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(v), "r"(s2), "r"(0x80008000u));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t scale_pair(const float* scale, int n, int N, int period) {
+  const float s = weight_scale<true>(scale, n, N, period);
+  return rdb::pack_bf16(s, s);
+}
+
+// --- up to 16 rows: mma.sync from streamed registers -------------------------
+// "decode" (bf16 x, M <= 16: a decode step's slots) and "split3" (f32 x over
+// bf16 weights: the lm_head and router of a bf16 model). What bounds both
+// is the code bytes, one a weight, so nothing stands between a code's load
+// and its use but registers: a block's warps share NT n8 tiles (32
+// columns at NT = 4) and MT m16 tiles, and split the split's k range
+// between them: warp w takes the 64-deep chunks w, w + WARPS, ... Lane (g, qi)
+// reads 16 code bytes of row g of each n8 tile at k offset 16 qi of a
+// chunk, straight from device memory into registers, DEPTH chunks ahead of
+// the one it multiplies (no shared memory in the loop, no barrier). In the
+// chunk's 16-deep step j the lane's bytes 4j..4j+3 are the fragment's k
+// 2qi, 2qi+1, 2qi+8, 2qi+9, and its x loads take the same k; the dot
+// product is unchanged. At the end warps 1.. hand their sums to warp 0
+// through shared memory, added in warp order. SPLIT3 splits each x into
+// three bf16 terms hi + mid + lo, exact to f32's 24 bits, and runs three
+// products per weight fragment.
+// The codes become bf16 fragments by dequant2. A block has 4 warps; 16
+// for bf16 x when the column tiles are few (q/o and down at decode), so
+// one tile keeps 16 warps' loads in flight without splitting K. Where K must still be split (k/v), over
+// gridDim.z: bf16 x over a thread-block cluster, each split's block
+// leaving its partial tile in its own shared memory and the cluster's
+// blocks summing it through distributed shared memory in rank order (no
+// device-memory round trip); f32 x over the caller's scratch
+// (finish_split).
+template <typename TA, int MT, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
 stream_kernel(const TA* __restrict__ x, const int8_t* __restrict__ q,
               const float* __restrict__ scale, const TA* __restrict__ bias,
               TA* __restrict__ y, float* __restrict__ ws, int* __restrict__ cnt, int M,
               int N, int K, int period, int kps) {
-  static_assert(SPLIT3 == std::is_same<TA, float>::value, "f32 x splits in three");
-  constexpr int BN = NT * 8;
+  constexpr bool SPLIT3 = std::is_same<TA, float>::value;
+  constexpr int NT = 4, BN = NT * 8;
   constexpr int DEPTH = MT == 1 ? 2 : 1;  // chunks loaded ahead
-  constexpr int WARPS = THREADS / 32;
   __shared__ float red[WARPS - 1][MT * NT * 4][32];
+  __shared__ float part[SPLIT3 ? 1 : 16 * MT][BN];  // a split's partial tile (bf16 x)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, qi = lane & 3;
   const int m0 = blockIdx.x * 16 * MT;
@@ -157,12 +271,12 @@ stream_kernel(const TA* __restrict__ x, const int8_t* __restrict__ q,
   const int kend = min(K, kbeg + kps * BK);
   const int nchunks = (kend - kbeg + BK - 1) / BK;
 
-  float sc[NT];
+  uint32_t sc[NT];  // the bf16 scale, twice
   const int8_t* qrow[NT];
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     const int n = n0 + nt * 8 + g;
-    sc[nt] = weight_scale<true>(scale, n, N, period);
+    sc[nt] = scale_pair(scale, n, N, period);
     qrow[nt] = n < N ? q + static_cast<size_t>(n) * K : nullptr;
   }
   auto load = [&](uint4 (&dst)[NT], int c) {
@@ -228,9 +342,8 @@ stream_kernel(const TA* __restrict__ x, const int8_t* __restrict__ q,
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const uint32_t w = j == 0 ? cur[nt].x : j == 1 ? cur[nt].y : j == 2 ? cur[nt].z : cur[nt].w;
-        const float s = sc[nt];
-        const uint32_t b0 = rdb::pack_bf16(code(w, 0) * s, code(w, 1) * s);
-        const uint32_t b1 = rdb::pack_bf16(code(w, 2) * s, code(w, 3) * s);
+        const uint32_t b0 = dequant2(w, 0, sc[nt]);
+        const uint32_t b1 = dequant2(w, 2, sc[nt]);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           if constexpr (SPLIT3) {
@@ -257,6 +370,7 @@ stream_kernel(const TA* __restrict__ x, const int8_t* __restrict__ q,
         for (int e = 0; e < 4; ++e) red[warp - 1][(mt * NT + nt) * 4 + e][lane] = acc[mt][nt][e];
   }
   __syncthreads();
+  const bool cluster = !SPLIT3 && gridDim.z > 1;
   if (warp == 0) {
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -267,156 +381,34 @@ stream_kernel(const TA* __restrict__ x, const int8_t* __restrict__ q,
           float v = acc[mt][nt][e];
 #pragma unroll
           for (int w = 0; w < WARPS - 1; ++w) v += red[w][(mt * NT + nt) * 4 + e][lane];
-          emit(v, m0 + mt * 16 + g + 8 * (e >> 1), n0 + nt * 8 + 2 * qi + (e & 1), M, N,
-               bias, y, ws);
+          const int r = mt * 16 + g + 8 * (e >> 1), cl = nt * 8 + 2 * qi + (e & 1);
+          if (cluster)
+            part[r][cl] = v;
+          else
+            emit(v, m0 + r, n0 + cl, M, N, bias, y, ws);
         }
   }
-  if (gridDim.z > 1) finish_split(ws, cnt, bias, y, M, N, m0, n0, 16 * MT, BN);
-}
-
-// --- bf16 x at prefill widths (M > 16): a shared-memory tile GEMM ----------
-// A block computes BM x 128 outputs with 8 warps (2 x 4, warp tiles of
-// BM/2 x 32). Each 64-deep k tile of x and of the codes arrives with
-// cp.async (3 stages); the block's threads convert the codes tile once
-// (code x scale, rounded to bf16) into a bf16 tile that every warp reads
-// with ldmatrix — converting once per block, not once per warp, is what
-// a tall M needs. The bf16 tile is double-buffered: tile kt + 1 is
-// converted while tile kt is multiplied, one barrier a tile. Rows are 128
-// bytes with their 16-byte chunks XOR-swizzled by the row (no padding,
-// conflict-free ldmatrix), so two blocks fit an SM.
-constexpr int TILE_THREADS = 256;
-
-template <int BM_>
-struct TileCfg {
-  static constexpr int BM = BM_, BN = 128, BKT = 64, STAGES = 3;
-  static constexpr int MT = BM / 32, NT = 4;  // a warp's m16 / n8 tiles
-  static constexpr int X_STAGE = BM * BKT * 2;
-  static constexpr int C_STAGE = BN * BKT;
-  static constexpr int W_BUF = BN * BKT * 2;
-  static constexpr int SMEM = STAGES * (X_STAGE + C_STAGE) + 2 * W_BUF;
-};
-
-// bf16 element offset of 16-byte chunk c (0..7) of row r in a swizzled tile.
-__device__ __forceinline__ int swz(int r, int c) { return (r * 8 + (c ^ (r & 7))) * 8; }
-
-template <int BM>
-__global__ void __launch_bounds__(TILE_THREADS)
-tile_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
-            const float* __restrict__ scale, const bf16* __restrict__ bias,
-            bf16* __restrict__ y, float* __restrict__ ws, int* __restrict__ cnt, int M,
-            int N, int K, int period, int kps) {
-  using C = TileCfg<BM>;
-  constexpr int BN = C::BN, BKT = C::BKT, STAGES = C::STAGES;
-  constexpr int MT = C::MT, NT = C::NT;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  int8_t* cs = reinterpret_cast<int8_t*>(smem + STAGES * C::X_STAGE);
-  bf16* wt = reinterpret_cast<bf16*>(smem + STAGES * (C::X_STAGE + C::C_STAGE));
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, qi = lane & 3;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int kbeg = blockIdx.z * kps * BK;
-  const int kend = min(K, kbeg + kps * BK);
-  const int nk = (kend - kbeg + BKT - 1) / BKT;
-  // Thread t converts half t % 2 of row t / 2 of every codes tile.
-  const int crow = tid >> 1, chalf = tid & 1;
-  const float sconv = weight_scale<true>(scale, n0 + crow, N, period);
-
-  auto load = [&](int kt) {
-    const int stage = kt % STAGES, k0 = kbeg + kt * BKT;
-    bf16* xd = xs + stage * BM * BKT;
-    int8_t* cd = cs + stage * BN * BKT;
-    for (int c = tid; c < BM * 8; c += TILE_THREADS) {
-      const int r = c >> 3, k = k0 + (c & 7) * 8;
-      const bool ok = m0 + r < M && k < kend;
-      rdb::cp_async16(xd + swz(r, c & 7), ok ? x + static_cast<size_t>(m0 + r) * K + k : x,
-                      ok);
+  if constexpr (SPLIT3) {
+    if (gridDim.z > 1) finish_split(ws, cnt, bias, y, M, N, m0, n0, 16 * MT, BN);
+  } else if (cluster) {
+    // Block r sums rows r ceil(16 MT / S) .. of every split's partial in
+    // rank order, adds the bias and writes y.
+    cluster_sync();
+    const int S = static_cast<int>(gridDim.z);
+    const int rows = (16 * MT + S - 1) / S;
+    const int rank = static_cast<int>(cluster_rank());
+    for (int it = threadIdx.x; it < rows * BN; it += 32 * WARPS) {
+      const int r = rank * rows + it / BN, cl = it % BN;
+      const int m = m0 + r, n = n0 + cl;
+      if (r >= 16 * MT || m >= M || n >= N) continue;
+      const uint32_t at = rdb::smem_addr(&part[r][cl]);
+      float v = 0.f;
+      for (int p = 0; p < S; ++p) v += ld_cluster(cluster_addr(at, p));
+      if (bias != nullptr) v += rdb::to_f(bias[n]);
+      y[static_cast<size_t>(m) * N + n] = rdb::from_f<TA>(v);
     }
-    for (int c = tid; c < BN * (BKT / 16); c += TILE_THREADS) {
-      const int r = c / (BKT / 16), k = k0 + (c % (BKT / 16)) * 16;
-      const bool ok = n0 + r < N && k < kend;
-      rdb::cp_async16(cd + r * BKT + (c % (BKT / 16)) * 16,
-                      ok ? q + static_cast<size_t>(n0 + r) * K + k : q, ok);
-    }
-  };
-  auto convert = [&](int kt) {
-    const int8_t* src = cs + (kt % STAGES) * BN * BKT + crow * BKT + chalf * 32;
-    bf16* dst = wt + (kt & 1) * BN * BKT;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint4 c = *reinterpret_cast<const uint4*>(src + 16 * h);
-      const uint32_t w[4] = {c.x, c.y, c.z, c.w};
-      uint32_t o[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        o[2 * i] = rdb::pack_bf16(code(w[i], 0) * sconv, code(w[i], 1) * sconv);
-        o[2 * i + 1] = rdb::pack_bf16(code(w[i], 2) * sconv, code(w[i], 3) * sconv);
-      }
-      const int chunk = chalf * 4 + 2 * h;
-      *reinterpret_cast<uint4*>(dst + swz(crow, chunk)) = make_uint4(o[0], o[1], o[2], o[3]);
-      *reinterpret_cast<uint4*>(dst + swz(crow, chunk + 1)) =
-          make_uint4(o[4], o[5], o[6], o[7]);
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  if (nk > 0) load(0);
-  rdb::cp_async_commit();
-  if (nk > 1) load(1);
-  rdb::cp_async_commit();
-  rdb::cp_async_wait<1>();
-  __syncthreads();
-  if (nk > 0) convert(0);
-  for (int kt = 0; kt < nk; ++kt) {
-    rdb::cp_async_wait<0>();
-    // Tile kt + 1 landed; tile kt's bf16 weights are whole; every warp is
-    // done with tile kt - 1 (its stage and its bf16 buffer are free).
-    __syncthreads();
-    if (kt + 2 < nk) load(kt + 2);
-    rdb::cp_async_commit();
-    if (kt + 1 < nk) convert(kt + 1);
-    const bf16* xa = xs + (kt % STAGES) * BM * BKT;
-    const bf16* wb = wt + (kt & 1) * BN * BKT;
-#pragma unroll
-    for (int kk = 0; kk < BKT / 16; ++kk) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        rdb::ldsm_x4(a[mt], rdb::smem_addr(xa + swz((wm * MT + mt) * 16 + (lane & 15),
-                                                    2 * kk + (lane >> 4))));
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t b[4];
-        const int j = lane >> 3;
-        rdb::ldsm_x4(b, rdb::smem_addr(wb + swz(wn * 32 + np * 16 + (j >> 1) * 8 + (lane & 7),
-                                                2 * kk + (j & 1))));
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          rdb::mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);
-          rdb::mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
-        }
-      }
-    }
+    cluster_sync();  // no block leaves while another reads its partial
   }
-  rdb::cp_async_wait<0>();
-
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        emit(acc[mt][nt][e], m0 + (wm * MT + mt) * 16 + g + 8 * (e >> 1),
-             n0 + wn * 32 + nt * 8 + 2 * qi + (e & 1), M, N, bias, y, ws);
-  if (gridDim.z > 1) finish_split(ws, cnt, bias, y, M, N, m0, n0, BM, BN);
 }
 
 // --- f32 x over f32 weights: CUDA cores ------------------------------------
@@ -542,10 +534,10 @@ int pick_split(int tiles, int target, int chunks, int M, int N, int K, long long
 
 // grid (x, y, split) with x * y output tiles; x must cover M or N as the
 // kernel reads it. ``target``: the blocks to aim for (split K up to it).
-template <typename Kern, typename T>
-int launch(Kern kern, dim3 tiles, int threads, int target, int smem, const void* x,
-           const void* q, const void* scale, const void* bias, void* y, int M, int N, int K,
-           int period, void* ws, long long ws_len, void* cnt, int cnt_len, cudaStream_t st) {
+template <typename Kern>
+int launch(Kern kern, dim3 tiles, int target, int smem, const void* x, const void* q,
+           const void* scale, const void* bias, void* y, int M, int N, int K, int period,
+           void* ws, long long ws_len, void* cnt, int cnt_len, cudaStream_t st) {
   if (tiles.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
   int kps = 0;
   tiles.z = pick_split(tiles.x * tiles.y, target, (K + BK - 1) / BK, M, N, K, ws_len,
@@ -554,64 +546,557 @@ int launch(Kern kern, dim3 tiles, int threads, int target, int smem, const void*
     cudaError_t err = rdb::raise_smem_limit(kern, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kern<<<tiles, threads, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(scale), static_cast<const T*>(bias), static_cast<T*>(y),
+  kern<<<tiles, THREADS, smem, st>>>(
+      static_cast<const float*>(x), static_cast<const int8_t*>(q),
+      static_cast<const float*>(scale), static_cast<const float*>(bias), static_cast<float*>(y),
       static_cast<float*>(ws), static_cast<int*>(cnt), M, N, K, period, kps);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TA, int MT, bool SPLIT3>
-int launch_stream(const void* x, const void* q, const void* scale, const void* bias,
-                  void* y, int M, int N, int K, int period, void* ws, long long ws_len,
-                  void* cnt, int cnt_len, cudaStream_t st) {
-  constexpr int NT = 4, BN = NT * 8;
-  const dim3 tiles((M + 16 * MT - 1) / (16 * MT), (N + BN - 1) / BN);
-  return launch<decltype(&stream_kernel<TA, MT, NT, SPLIT3>), TA>(
-      stream_kernel<TA, MT, NT, SPLIT3>, tiles, THREADS, 3 * SMS, 0, x, q, scale, bias, y, M,
-      N, K, period, ws, ws_len, cnt, cnt_len, st);
-}
-
-template <int BM>
-int launch_tile(const void* x, const void* q, const void* scale, const void* bias, void* y,
-                int M, int N, int K, int period, void* ws, long long ws_len, void* cnt,
-                int cnt_len, cudaStream_t st) {
-  using C = TileCfg<BM>;
-  const dim3 tiles((M + BM - 1) / BM, (N + C::BN - 1) / C::BN);
-  // Short tiles split K toward two blocks an SM, tall ones toward one:
-  // their partials cost more bytes.
-  return launch<decltype(&tile_kernel<BM>), bf16>(tile_kernel<BM>, tiles, TILE_THREADS,
-                                                  BM > 64 ? SMS : 2 * SMS, C::SMEM, x, q, scale, bias, y,
-                                                  M, N, K, period, ws, ws_len, cnt,
-                                                  cnt_len, st);
-}
-
-// bf16 x: up to 16 rows stream, taller M tiles; f32 x over bf16 weights
-// streams at any M.
-template <typename TA, bool SPLIT3>
-int launch_mma(const void* x, const void* q, const void* scale, const void* bias, void* y,
-               int M, int N, int K, int period, void* ws, long long ws_len, void* cnt,
-               int cnt_len, cudaStream_t st) {
-  if constexpr (!SPLIT3) {
-    if (M > 64)
-      return launch_tile<128>(x, q, scale, bias, y, M, N, K, period, ws, ws_len, cnt,
-                              cnt_len, st);
-    if (M > 16)
-      return launch_tile<64>(x, q, scale, bias, y, M, N, K, period, ws, ws_len, cnt,
-                             cnt_len, st);
-    return launch_stream<TA, 1, false>(x, q, scale, bias, y, M, N, K, period, ws, ws_len,
-                                       cnt, cnt_len, st);
+template <typename TA, int MT>
+int launch_stream(const void* x, const void* q, const void* scale, const void* bias, void* y,
+                  int M, int N, int K, int period, void* ws, long long ws_len, void* cnt,
+                  int cnt_len, cudaStream_t st) {
+  constexpr int BN = 32;
+  dim3 tiles((M + 16 * MT - 1) / (16 * MT), (N + BN - 1) / BN);
+  if constexpr (std::is_same<TA, float>::value) {
+    return launch(stream_kernel<TA, MT, 4>, tiles, 3 * SMS, 0, x, q, scale, bias, y, M, N, K,
+                  period, ws, ws_len, cnt, cnt_len, st);
   } else {
-    if (M <= 16)
-      return launch_stream<TA, 1, true>(x, q, scale, bias, y, M, N, K, period, ws, ws_len,
-                                        cnt, cnt_len, st);
-    if (M <= 32)
-      return launch_stream<TA, 2, true>(x, q, scale, bias, y, M, N, K, period, ws, ws_len,
-                                        cnt, cnt_len, st);
-    return launch_stream<TA, 4, true>(x, q, scale, bias, y, M, N, K, period, ws, ws_len,
-                                      cnt, cnt_len, st);
+    if (tiles.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    const int chunks = (K + BK - 1) / BK, n_tiles = tiles.x * tiles.y;
+    // Enough tiles for three 4-warp blocks an SM: as they are. Enough for
+    // a 16-warp block on most SMs (q/o, down): 16-warp blocks, K whole.
+    // Fewer (k/v): 4-warp blocks, K split over a cluster toward three
+    // blocks an SM, at least 2 chunks a split.
+    const bool wide = n_tiles >= 3 * SMS || 4 * n_tiles < 3 * SMS;
+    int split = 1;
+    if (4 * n_tiles < 3 * SMS)
+      split = std::max(1, std::min({MAX_CLUSTER, (3 * SMS + n_tiles - 1) / n_tiles,
+                                    chunks / 2}));
+    const int kps = (chunks + split - 1) / split;
+    tiles.z = split;
+    cudaLaunchAttribute at[1];
+    const cudaLaunchConfig_t cfg = cluster_config(tiles, wide ? 128 : 512, 0, st, at);
+    auto args = [&](auto kern) {
+      return cudaLaunchKernelEx(
+          &cfg, kern, static_cast<const TA*>(x), static_cast<const int8_t*>(q),
+          static_cast<const float*>(scale), static_cast<const TA*>(bias), static_cast<TA*>(y),
+          static_cast<float*>(nullptr), static_cast<int*>(nullptr), M, N, K, period, kps);
+    };
+    const cudaError_t err = wide ? args(stream_kernel<TA, MT, 4>) : args(stream_kernel<TA, MT, 16>);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
   }
 }
+
+// --- bf16 x: the warp-specialised wgmma body --------------------------------
+namespace wg {
+
+constexpr int THREADS = 384;         // warpgroup 0 the producer, 1-2 the consumers
+constexpr int PLD = 128 + 4;         // f32 partial row pitch: conflict-free scatter
+
+// BT tokens x CH channels a block. CH = 128: each consumer warpgroup owns
+// 64 channels and takes every stage. CH = 64 (the narrow products, whose
+// 128-channel tiles leave SMs idle): both own the same 64 channels and
+// take alternate stages, so twice the blocks stream codes.
+template <int BT, int CH>
+struct Cfg {
+  // k a stage: 128 (code rows of 128 bytes, 128-byte swizzle: TMA streams
+  // wide rows faster), but 64 beside 256 tokens' x (64-byte swizzle).
+  static constexpr int KS = BT == 256 ? 64 : 128;
+  static constexpr int STEPS = KS / 16;        // k16 steps a stage
+  static constexpr int X_HALF = BT * BK * 2;   // x of 64 k: BT rows of 128 bytes
+  static constexpr int X_BYTES = X_HALF * (KS / BK);
+  static constexpr int C_BYTES = CH * KS;      // CH rows of KS bytes
+  static constexpr int STAGE = X_BYTES + C_BYTES;
+  static constexpr int STAGES = 200 * 1024 / STAGE;  // a ring of ~200 KB
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int SMEM = 1024 + RING + 2 * STAGES * 8;  // 1024: alignment slack
+  static constexpr int NREG = BT / 2;                        // f32 accumulators a thread
+  // k16 steps a fragment buffer holds: a stage's 4, but 1 beside 256
+  // tokens' 128 accumulators (168 registers a thread).
+  static constexpr int UNIT = BT == 256 ? 1 : 4;
+  static constexpr int UNITS = STEPS / UNIT;                 // fragment buffers a stage
+  static constexpr int KSTEP = CH == 128 ? 1 : 2;            // stages apart a warpgroup takes
+  static constexpr int RELEASE = CH / 16;                    // warps that release a stage
+  static_assert(BT * PLD * 4 <= RING, "the partial tile fits in the ring");
+  static_assert(X_BYTES % 1024 == 0 && C_BYTES % 1024 == 0, "stages stay 1024-byte aligned");
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+// Wait for the phase of parity ``parity`` to complete. A copy that never
+// lands fails the launch (after ~2^36 cycles) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity))
+    if (clock64() - t0 > (1ll << 36)) __trap();
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma's shared-memory descriptor of a K-major tile of 128-byte rows,
+// 128-byte swizzled (as TMA lands it), 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Compiler fences: a register's value is taken and given back here, so
+// the compiler keeps a fragment's definitions before the wgmma fence and
+// its registers live until the wait that retires the wgmma reading them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d[64 x 64] += a[64 x 16] (registers) . b[16 x 64] (shared, K-major).
+__device__ __forceinline__ void mma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d[64 x 128] += a[64 x 16] (registers) . b[16 x 128] (shared, K-major).
+__device__ __forceinline__ void mma_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d[64 x 256] += a[64 x 16] (registers) . b[16 x 256] (shared, K-major).
+__device__ __forceinline__ void mma_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// One wgmma over the whole token tile: N = 2 NREG tokens.
+template <int NREG>
+__device__ __forceinline__ void mma(float (&d)[NREG], const uint32_t (&a)[4], uint64_t desc) {
+  if constexpr (NREG == 32)
+    mma_n64(d, a, desc);
+  else if constexpr (NREG == 64)
+    mma_n128(d, a, desc);
+  else
+    mma_n256(d, a, desc);
+}
+
+// Block (token tile x, channel tile y, split z): rows m0 .. m0 + BT of x
+// against channels n0 .. n0 + CH over the split's kps stages of KS k.
+// Clusters are (1, 1, gridDim.z): the splits of one output tile.
+template <int BT, int CH>
+__global__ void __launch_bounds__(THREADS, 1)
+wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmq,
+             const float* __restrict__ scale, const bf16* __restrict__ bias,
+             bf16* __restrict__ y, int M, int N, int K, int period, int kps) {
+  using C = Cfg<BT, CH>;
+  constexpr int STAGES = C::STAGES, UNIT = C::UNIT, KSTEP = C::KSTEP;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t xs0 = rdb::smem_addr(smem);
+  const uint32_t cs0 = xs0 + STAGES * C::X_BYTES;
+  const uint32_t bar0 = cs0 + STAGES * C::C_BYTES;  // full[s] at 8 s, empty[s] at 8 (STAGES + s)
+  auto full = [&](int s) { return bar0 + 8 * s; };
+  auto empty = [&](int s) { return bar0 + 8 * (STAGES + s); };
+  const int m0 = blockIdx.x * BT, n0 = blockIdx.y * CH;
+  const int kt0 = blockIdx.z * kps;
+  const int nk = max(0, min((K + C::KS - 1) / C::KS, kt0 + kps) - kt0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), C::RELEASE);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: one thread keeps the ring full.
+    if (threadIdx.x == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tmx))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tmq))
+                   : "memory");
+      int st = 0;
+      uint32_t ph = 0;
+      for (int kt = 0; kt < nk; ++kt) {
+        if (kt >= STAGES) mbar_wait(empty(st), ph ^ 1);  // its previous use released
+        mbar_expect_tx(full(st), C::STAGE);
+        const int k = (kt0 + kt) * C::KS;
+        for (int h = 0; h < C::KS / BK; ++h)
+          tma_load(xs0 + st * C::X_BYTES + h * C::X_HALF, &tmx, full(st), k + h * BK, m0);
+        tma_load(cs0 + st * C::C_BYTES, &tmq, full(st), k, n0);
+        if (++st == STAGES) {
+          st = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    cluster_sync();  // the consumers' partials are in place
+    cluster_sync();  // every block of the cluster has read them
+    return;
+  }
+
+  // Consumer warpgroups 1 and 2 (cw 0, 1): at CH = 128 channels 64 cw ..
+  // of every stage, at CH = 64 all 64 channels of stages cw, cw + 2, ...
+  const int tid = threadIdx.x - 128;
+  const int cw = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, qi = lane & 3;
+  const int r0 = (CH == 128 ? 64 * cw : 0) + 16 * warp + g;  // fragment rows r0, r0 + 8
+  const uint32_t s0 = scale_pair(scale, n0 + r0, N, period);
+  const uint32_t s1 = scale_pair(scale, n0 + r0 + 8, N, period);
+  // Chunk c of code row r sits at 16 (c ^ (r & 7)) (128-byte swizzle) or
+  // 16 (c ^ ((r >> 1) & 3)) (64-byte); rows r0 and r0 + 8 share the
+  // pattern. The lane's bytes of k step c are 2qi, 2qi + 1 (word qi / 2,
+  // low or high half) and 8 + 2qi, 9 + 2qi.
+  const int swz = C::KS == 128 ? r0 & 7 : (r0 >> 1) & 3;
+  const uint32_t wof = 4 * (qi >> 1), byte = 2 * (qi & 1);
+
+  float acc[C::NREG];
+#pragma unroll
+  for (int i = 0; i < C::NREG; ++i) acc[i] = 0.f;
+  // Fragments of UNIT k16 steps at a time, in two buffers: one unit's
+  // wgmmas run while the next unit's codes are converted.
+  uint32_t a0[UNIT][4], a1[UNIT][4];
+
+  // Unit u of stage kt: k16 steps u * UNIT ...
+  auto unit = [&](uint32_t (&f)[UNIT][4], uint32_t (&other)[UNIT][4], int kt, int u) {
+    const int st = kt % STAGES;
+    if (u == 0) {
+      mbar_wait(full(st), (kt / STAGES) & 1);
+      __syncwarp();
+    }
+    const unsigned char* row0 = smem + (cs0 - xs0) + st * C::C_BYTES + C::KS * r0;
+    const unsigned char* row1 = row0 + C::KS * 8;
+    uint32_t w[UNIT][4];
+#pragma unroll
+    for (int s = 0; s < UNIT; ++s) {
+      const int off = 16 * ((u * UNIT + s) ^ swz) + wof;
+      w[s][0] = *reinterpret_cast<const uint32_t*>(row0 + off);
+      w[s][1] = *reinterpret_cast<const uint32_t*>(row1 + off);
+      w[s][2] = *reinterpret_cast<const uint32_t*>(row0 + off + 8);
+      w[s][3] = *reinterpret_cast<const uint32_t*>(row1 + off + 8);
+    }
+#pragma unroll
+    for (int s = 0; s < UNIT; ++s) {
+      f[s][0] = dequant2(w[s][0], byte, s0);
+      f[s][1] = dequant2(w[s][1], byte, s1);
+      f[s][2] = dequant2(w[s][2], byte, s0);
+      f[s][3] = dequant2(w[s][3], byte, s1);
+      fence_regs(f[s]);
+    }
+    // x of step c: 64-k half c / 4, 32 bytes a step within it.
+    const int h = u * UNIT / 4;
+    const uint64_t db = desc_sw128(xs0 + st * C::X_BYTES + h * C::X_HALF) - 2 * 4 * h;
+    wg_fence();
+#pragma unroll
+    for (int s = 0; s < UNIT; ++s) mma<C::NREG>(acc, f[s], db + 2 * (u * UNIT + s));
+    wg_commit();
+    wg_wait<1>();  // the unit before is done: its fragments (and stage) are free
+#pragma unroll
+    for (int s = 0; s < UNIT; ++s) fence_regs(other[s]);
+    if (u == 0 && kt >= KSTEP) {  // this warpgroup's stage before is done
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty((kt - KSTEP) % STAGES));
+    }
+  };
+  const int first = CH == 128 ? 0 : cw;
+  if constexpr (C::UNITS % 2 == 0) {
+    for (int kt = first; kt < nk; kt += KSTEP)
+#pragma unroll
+      for (int u = 0; u < C::UNITS; u += 2) {
+        unit(a0, a1, kt, u);
+        unit(a1, a0, kt, u + 1);
+      }
+  } else {
+    for (int kt = first; kt < nk; kt += 2 * KSTEP) {
+      unit(a0, a1, kt, 0);
+      if (kt + KSTEP < nk) unit(a1, a0, kt + KSTEP, 0);
+    }
+  }
+  wg_wait<0>();
+#pragma unroll
+  for (int s = 0; s < UNIT; ++s) {
+    fence_regs(a0[s]);
+    fence_regs(a1[s]);
+  }
+  fence_regs(acc);
+
+  // The partial tile [BT tokens][128 columns] f32 over the ring, once both
+  // consumer warpgroups are done with it; at CH = 64 warpgroup cw's sums
+  // are columns 64 cw ...
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  float* part = reinterpret_cast<float*>(smem);
+  const int col0 = (CH == 128 ? 0 : 64 * cw) + r0;
+#pragma unroll
+  for (int i = 0; i < C::NREG; ++i) {
+    const int t = 8 * (i >> 2) + 2 * qi + (i & 1);
+    part[t * PLD + col0 + 8 * ((i >> 1) & 1)] = acc[i];
+  }
+  cluster_sync();
+
+  // Block r of the S splits sums rows r ceil(BT / S) .. of every block's
+  // partial in rank order (at CH = 64 both warpgroups' halves), adds the
+  // bias and writes y.
+  const int S = static_cast<int>(gridDim.z);
+  const int rows = (BT + S - 1) / S;
+  const int rank = static_cast<int>(cluster_rank());
+  const uint32_t pbase = rdb::smem_addr(part);
+  for (int it = tid; it < rows * (CH / 4); it += 256) {
+    const int t = rank * rows + it / (CH / 4);
+    const int c4 = 4 * (it % (CH / 4));
+    const int m = m0 + t, n = n0 + c4;
+    if (t >= BT || m >= M || n >= N) continue;
+    const uint32_t at = pbase + 4 * (t * PLD + c4);
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int q = 0; q < S; ++q) {
+      const uint32_t peer = cluster_addr(at, q);
+      float4 p = ld_cluster4(peer);
+      if (CH == 64) {
+        const float4 h = ld_cluster4(peer + 4 * 64);
+        p.x += h.x;
+        p.y += h.y;
+        p.z += h.z;
+        p.w += h.w;
+      }
+      v[0] += p.x;
+      v[1] += p.y;
+      v[2] += p.z;
+      v[3] += p.w;
+    }
+    bf16* out = y + static_cast<size_t>(m) * N + n;
+    if ((N & 3) == 0) {  // n + 3 < N too
+      if (bias != nullptr)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] += __bfloat162float(bias[n + e]);
+      *reinterpret_cast<uint2*>(out) =
+          make_uint2(rdb::pack_bf16(v[0], v[1]), rdb::pack_bf16(v[2], v[3]));
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (n + e < N)
+          out[e] = __float2bfloat16(v[e] + (bias != nullptr ? __bfloat162float(bias[n + e]) : 0.f));
+    }
+  }
+  cluster_sync();  // no block leaves while another reads its partial
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &res) == cudaSuccess &&
+        res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D map of rows x inner elements (row pitch ``pitch`` bytes), boxes of
+// box_rows x box_inner, out-of-bounds elements read as zeros.
+bool tensor_map(CUtensorMap* map, CUtensorMapDataType dtype, const void* base, int inner,
+                int rows, size_t pitch, int box_inner, int box_rows, CUtensorMapSwizzle swz) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  return encode(map, dtype, 2, const_cast<void*>(base), dims, strides, box, estr,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// How many clusters of ``split`` blocks the card runs at once (cached; a
+// size it cannot schedule counts as none).
+template <int BT, int CH>
+int max_clusters(int split) {
+  static int known[MAX_CLUSTER + 1] = {};
+  if (known[split] == 0) {
+    cudaLaunchAttribute at[1];
+    const cudaLaunchConfig_t cfg =
+        cluster_config(dim3(1, 1, split), THREADS, Cfg<BT, CH>::SMEM, nullptr, at);
+    int n = 0;
+    if (cudaOccupancyMaxActiveClusters(&n, wgmma_kernel<BT, CH>, &cfg) != cudaSuccess) {
+      cudaGetLastError();
+      n = 0;
+    }
+    known[split] = n > 0 ? n : -1;
+  }
+  return std::max(known[split], 0);
+}
+
+template <int BT, int CH>
+int launch(const void* x, const void* q, const void* scale, const void* bias, void* y, int M,
+           int N, int K, int period, cudaStream_t st) {
+  using C = Cfg<BT, CH>;
+  auto kern = wgmma_kernel<BT, CH>;
+  CUtensorMap tmx, tmq;
+  if (!tensor_map(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, 2 * static_cast<size_t>(K),
+                  BK, BT, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&tmq, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, K, N, static_cast<size_t>(K), C::KS,
+                  CH, C::KS == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = rdb::raise_smem_limit(kern, C::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tt = (M + BT - 1) / BT, ct = (N + CH - 1) / CH, nk = (K + C::KS - 1) / C::KS;
+  if (ct > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  // Split K over the largest cluster whose blocks all run in one wave (the
+  // card holds that many clusters of that size at once) while each split
+  // keeps at least 256 k.
+  int split = 1;
+  for (int s = 2; s <= MAX_CLUSTER && s * tt * ct <= SMS && nk * C::KS >= 256 * s; ++s)
+    if (max_clusters<BT, CH>(s) >= tt * ct) split = s;
+  const int kps = (nk + split - 1) / split;
+  cudaLaunchAttribute at[1];
+  const cudaLaunchConfig_t cfg = cluster_config(dim3(tt, ct, split), THREADS, C::SMEM, st, at);
+  err = cudaLaunchKernelEx(&cfg, kern, tmx, tmq, static_cast<const float*>(scale),
+                           static_cast<const bf16*>(bias), static_cast<bf16*>(y), M, N, K,
+                           period, kps);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 128-channel tiles where they alone fill most of the card; else 64.
+template <int BT>
+int launch_bt(const void* x, const void* q, const void* scale, const void* bias, void* y,
+              int M, int N, int K, int period, cudaStream_t st) {
+  const int tiles = (M + BT - 1) / BT * ((N + 127) / 128);
+  if (4 * tiles >= 3 * SMS)
+    return launch<BT, 128>(x, q, scale, bias, y, M, N, K, period, st);
+  return launch<BT, 64>(x, q, scale, bias, y, M, N, K, period, st);
+}
+
+}  // namespace wg
+
 
 }  // namespace
 
@@ -619,19 +1104,33 @@ extern "C" int rdb_int8_weight_matmul(const void* x, const void* q, const void* 
                                       const void* bias, void* y, int M, int N, int K,
                                       int period, int act_bf16, int w_bf16, void* ws,
                                       long long ws_len, void* cnt, int cnt_len,
-                                      void* stream) {
+                                      void* stream, int* body) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0 || period <= 0 || N % period != 0 ||
-      (act_bf16 && !w_bf16))
+      (act_bf16 && !w_bf16) || body == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (act_bf16)
-    return launch_mma<bf16, false>(x, q, scale, bias, y, M, N, K, period, ws, ws_len, cnt,
+  if (act_bf16) {
+    *body = M > 16 ? PREFILL : DECODE;
+    if (M <= 16)
+      return launch_stream<bf16, 1>(x, q, scale, bias, y, M, N, K, period, nullptr, 0, nullptr,
+                                    0, st);
+    if (M <= 64) return wg::launch_bt<64>(x, q, scale, bias, y, M, N, K, period, st);
+    if (M <= 128) return wg::launch_bt<128>(x, q, scale, bias, y, M, N, K, period, st);
+    return wg::launch_bt<256>(x, q, scale, bias, y, M, N, K, period, st);
+  }
+  if (w_bf16) {
+    *body = SPLIT3;
+    if (M <= 16)
+      return launch_stream<float, 1>(x, q, scale, bias, y, M, N, K, period, ws, ws_len, cnt,
+                                     cnt_len, st);
+    if (M <= 32)
+      return launch_stream<float, 2>(x, q, scale, bias, y, M, N, K, period, ws, ws_len, cnt,
+                                     cnt_len, st);
+    return launch_stream<float, 4>(x, q, scale, bias, y, M, N, K, period, ws, ws_len, cnt,
                                    cnt_len, st);
-  if (w_bf16)
-    return launch_mma<float, true>(x, q, scale, bias, y, M, N, K, period, ws, ws_len, cnt,
-                                   cnt_len, st);
+  }
+  *body = FMA;
   const dim3 tiles((N + FmaTile::BN - 1) / FmaTile::BN, (M + FmaTile::BM - 1) / FmaTile::BM);
-  return launch<decltype(&fma_kernel), float>(fma_kernel, tiles, THREADS, 3 * SMS,
-                                              FmaTile::SMEM, x, q, scale, bias, y, M, N, K,
-                                              period, ws, ws_len, cnt, cnt_len, st);
+  return launch(fma_kernel, tiles, 3 * SMS, FmaTile::SMEM, x, q, scale, bias, y, M, N, K,
+                period, ws, ws_len, cnt, cnt_len, st);
 }

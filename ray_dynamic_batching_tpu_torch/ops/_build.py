@@ -58,7 +58,8 @@ KERNELS: Dict[str, tuple] = {
     ),
     "int8_weight_matmul": (
         "rdb_int8_weight_matmul",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _L, _P, _I, _P],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _L, _P, _I, _P,
+         ctypes.POINTER(_I)],
     ),
 }
 

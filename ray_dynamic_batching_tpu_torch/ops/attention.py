@@ -110,7 +110,7 @@ def reset_counts() -> None:
     among them) and of the plain route."""
     global plain_launches
     plain_launches = 0
-    _quant.launches = 0
+    _quant.reset_counts()
     _flash.launches = 0
     _decode.launches = 0
     _decode.int8_launches = 0

@@ -22,11 +22,30 @@ of a bf16 model: tensor cores) or f32 (the ``lm_head`` and router of a
 bf16 model, whose weights are still rounded to bf16, and every product
 of an f32 model: CUDA cores).
 
-What bounds it on the H100: at decode (M = 16) the code bytes, one byte
-a weight; at a prefill group (M = 256) the bf16 tensor-core rate. When
-the output tiles leave SMs idle, the launch splits K over a per-device
-scratch (:func:`reserve`) and the last block of each tile to finish sums
-the partials in split order, so results do not depend on block timing.
+Four bodies, by the activations' dtype and rows (:data:`BODIES`), each
+counted in :data:`launches_by_body` beside :data:`launches`:
+
+- ``prefill`` (bf16 x, M > 16: prefill groups and chunks, verify windows,
+  MoE experts at a fill): a warp-specialised ``wgmma`` body computing
+  ``y^T = W . x^T``. A producer thread keeps TMA copies of codes and x in
+  flight through a ring of shared-memory stages; two consumer warpgroups
+  turn their rows' codes into bf16 A fragments in registers (the same
+  rounding as :func:`dequantize_rows`) and multiply them into the x tile
+  TMA landed, tokens as wgmma's N (64-256 a tile). The code bytes bound it
+  up to M ~ 128, the bf16 tensor-core rate (and shared memory, through
+  which every x tile passes) above.
+- ``decode`` (bf16 x, M <= 16: a decode step's slots) and ``split3`` (f32
+  x over bf16 weights: a bf16 model's ``lm_head`` and router): warps
+  stream their columns' codes from device memory into ``mma.sync``
+  fragments in registers. The code bytes bound them, one a weight.
+- ``fma`` (f32 x over f32 weights: an f32 model): CUDA cores.
+
+When the output tiles leave SMs idle (the narrow q/k/v/o products) the
+bf16 bodies split K over a thread-block cluster and sum the partials
+through distributed shared memory in rank order: no scratch, results
+independent of block timing. The f32 bodies split K over a per-device
+scratch (:func:`reserve`), the last block of each tile summing the
+partials in split order.
 
 CUDA tensors launch the kernel (or raise); CPU tensors, and CUDA tensors
 inside :func:`plain_products` (card-side comparisons only), run
@@ -39,6 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import ctypes
 from typing import Optional
 
 import torch
@@ -49,9 +69,17 @@ from ray_dynamic_batching_tpu_torch.ops import graphs
 #: Kernel launches since the last reset (plain-version calls do not count).
 launches = 0
 
-#: Split-K scratch per device: f32 partials and per-tile arrival counters.
-#: Fixed sizes: the launch picks the largest split that fits them, so a
-#: shape's split (and its numbers) never depends on what ran before.
+#: The kernel's bodies, in the order of the id its entry point reports.
+BODIES = ("prefill", "decode", "split3", "fma")
+
+#: Launches by body since the last reset (zeroed in place: graph replays
+#: add to this dict).
+launches_by_body = dict.fromkeys(BODIES, 0)
+
+#: Split-K scratch per device for the f32-activation bodies: f32 partials
+#: and per-tile arrival counters. Fixed sizes: the launch picks the
+#: largest split that fits them, so a shape's split (and its numbers)
+#: never depends on what ran before.
 WS_FLOATS = 1 << 23          # 32 MB
 WS_COUNTERS = 1 << 14
 
@@ -124,6 +152,14 @@ def _check(x, codes, scale, bias, weight_dtype) -> None:
 _workspaces: dict = {}
 
 
+def reset_counts() -> None:
+    """Zero :data:`launches` and :data:`launches_by_body`."""
+    global launches
+    launches = 0
+    for body in BODIES:
+        launches_by_body[body] = 0
+
+
 def _workspace(device: torch.device):
     """The device's split-K scratch (partials, counters), made once,
     counters zeroed then; each launch leaves them at 0. Launches on one
@@ -144,8 +180,9 @@ def _workspace(device: torch.device):
 
 
 def reserve(device) -> tuple:
-    """Make the device's split-K scratch before any graph captures a
-    launch; returns it (the caller keeps it while its graphs live)."""
+    """Make the device's split-K scratch (for f32 activations) before any
+    graph captures a launch; returns it (the caller keeps it while its
+    graphs live)."""
     from ray_dynamic_batching_tpu_torch.ops import _build
 
     device = torch.device(device)
@@ -176,17 +213,25 @@ def _launch(x2, codes, scale, bias, weight_dtype) -> torch.Tensor:
     bias = None if bias is None else bias.contiguous()
     out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
     lib = _build.load("int8_weight_matmul")
+    body = ctypes.c_int(-1)
+    act_bf16 = x2.dtype == torch.bfloat16
     with _build.launch_lock:
-        ws, cnt = _workspace(x2.device)
+        # The bf16 bodies reduce inside a cluster: no scratch.
+        ws, cnt = (None, None) if act_bf16 else _workspace(x2.device)
         rc = lib.rdb_int8_weight_matmul(
             x2.data_ptr(), codes.data_ptr(), scale.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
-            M, N, K, scale.numel(), int(x2.dtype == torch.bfloat16),
-            int(weight_dtype == torch.bfloat16), ws.data_ptr(), ws.numel(),
-            cnt.data_ptr(), cnt.numel(),
-            torch.cuda.current_stream(x2.device).cuda_stream)
+            M, N, K, scale.numel(), int(act_bf16),
+            int(weight_dtype == torch.bfloat16),
+            None if ws is None else ws.data_ptr(),
+            0 if ws is None else ws.numel(),
+            None if cnt is None else cnt.data_ptr(),
+            0 if cnt is None else cnt.numel(),
+            torch.cuda.current_stream(x2.device).cuda_stream,
+            ctypes.byref(body))
     _build.check(lib, rc, "int8_weight_matmul")
     graphs.count_launch(globals(), "launches")
+    graphs.count_launch(launches_by_body, BODIES[body.value])
     return out
 
 

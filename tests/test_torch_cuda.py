@@ -1365,12 +1365,12 @@ def _int8_case(card, M, N, K, period, act, w_dtype, bias=False, seed=0):
     return quant_matmul, x, codes, scale, b
 
 
-@pytest.mark.parametrize("act,w_dtype", [
-    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
-    (torch.float32, torch.float32)], ids=["bf16", "f32_head", "f32"])
-@pytest.mark.parametrize("M,N,K,period,bias", [
+_INT8_ACTS = [(torch.bfloat16, torch.bfloat16, "bf16"),
+               (torch.float32, torch.bfloat16, "f32_head"),
+               (torch.float32, torch.float32, "f32")]
+_INT8_SHAPES = [
     (16, 4096, 4096, 128, False),    # llama3_8b q at decode: scale per h
-    (16, 1024, 4096, 128, False),    # k / v: split K 16 ways
+    (16, 1024, 4096, 128, False),    # k / v: split K 8 ways
     (16, 14336, 4096, 14336, False),  # mlp_up
     (16, 4096, 14336, 4096, False),  # mlp_down
     (256, 4096, 4096, 4096, False),  # o at a prefill group of 4 x 64
@@ -1380,7 +1380,27 @@ def _int8_case(card, M, N, K, period, act, w_dtype, bias=False, seed=0):
     (17, 1000, 208, 8, True),        # odd M, period below N
     (3, 64, 16, 64, True),           # one 16-deep step
     (160, 128, 64, 128, False),      # moe_tiny's experts at a prefill
-])
+]
+# Every bf16 product chip_smoke.py's phase 18 launches (its _w8_cases):
+# llama3_8b's q, k/v, o, gate/up and down at 16-256 rows, and the MoE
+# experts' gate/up and down at 40-160 rows.
+_W8_PROJ = (("q", 4096, 4096, 128), ("kv", 1024, 4096, 128),
+            ("o", 4096, 4096, 4096), ("gate_up", 14336, 4096, 14336),
+            ("down", 4096, 14336, 4096))
+_W8_BF16 = ([(f"{r}-{M}", M, N, K, p) for r, N, K, p in _W8_PROJ
+             for M in (16, 64, 128, 192, 256)]
+            + [(f"expert_{r}-{M}", M, N, K, p) for r, N, K, p in _W8_PROJ[3:]
+               for M in (40, 80, 120, 160)])
+_INT8_CASES = (
+    [pytest.param(act, wd, *shape,
+                  id="-".join(str(v) for v in shape) + f"-{tag}")
+     for act, wd, tag in _INT8_ACTS for shape in _INT8_SHAPES]
+    + [pytest.param(torch.bfloat16, torch.bfloat16, M, N, K, p, False,
+                    id=f"w8-{name}-bf16")
+       for name, M, N, K, p in _W8_BF16])
+
+
+@pytest.mark.parametrize("act,w_dtype,M,N,K,period,bias", _INT8_CASES)
 def test_int8_weight_kernel_matches_plain(card, act, w_dtype, M, N, K,
                                           period, bias):
     qm, x, codes, scale, b = _int8_case(card, M, N, K, period, act, w_dtype,
@@ -1397,15 +1417,14 @@ def test_int8_weight_kernel_matches_plain(card, act, w_dtype, M, N, K,
 
 
 def test_int8_weight_kernel_is_deterministic_and_replays(card):
-    """A split-K shape (k/v at decode): two eager calls give identical
-    bits (the partials are summed in split order), and a CUDA graph of
-    the call replays to the same bits on new inputs copied in place,
-    adding one launch a replay."""
+    """A shape whose K the decode body splits over a cluster of 8 (k/v at
+    decode): two eager calls give identical bits (the partials are summed
+    in rank order), and a CUDA graph of the call replays to the same bits
+    on new inputs copied in place, adding one launch a replay."""
     from ray_dynamic_batching_tpu_torch.ops import graphs
 
     qm, x, codes, scale, _ = _int8_case(card, 16, 1024, 4096, 128,
                                         torch.bfloat16, torch.bfloat16)
-    qm.reserve(card)
     first = qm.int8_linear(x, codes, scale, weight_dtype=torch.bfloat16)
     assert torch.equal(first, qm.int8_linear(x, codes, scale,
                                              weight_dtype=torch.bfloat16))
@@ -1416,11 +1435,35 @@ def test_int8_weight_kernel_is_deterministic_and_replays(card):
     x2 = torch.randn_like(x.float()).to(x.dtype)
     want = qm.int8_linear(x2, codes, scale, weight_dtype=torch.bfloat16)
     before = qm.launches
+    decode = qm.launches_by_body["decode"]
     got = prog(x2).clone()                    # a replay
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert qm.launches == before + 1
+    assert qm.launches_by_body["decode"] == decode + 1
     assert torch.equal(prog(x).clone(), first)
+
+
+@pytest.mark.parametrize("M,act,w_dtype,body", [
+    (16, torch.bfloat16, torch.bfloat16, "decode"),
+    (17, torch.bfloat16, torch.bfloat16, "prefill"),
+    (256, torch.bfloat16, torch.bfloat16, "prefill"),
+    (16, torch.float32, torch.bfloat16, "split3"),
+    (16, torch.float32, torch.float32, "fma"),
+])
+def test_int8_weight_kernel_routes_each_shape_to_its_body(card, M, act,
+                                                          w_dtype, body):
+    """One launch on each side of the M = 16 boundary, and at a prefill
+    group's 256 rows, goes through the body meant for it (the entry
+    point reports the body it launched)."""
+    qm, x, codes, scale, _ = _int8_case(card, M, 1024, 4096, 128, act,
+                                        w_dtype)
+    before = dict(qm.launches_by_body)
+    qm.int8_linear(x, codes, scale, weight_dtype=w_dtype)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in qm.launches_by_body.items()
+             if v != before[k]}
+    assert moved == {body: 1}
 
 
 def test_int8_weight_kernel_refuses_what_it_cannot_take(card):

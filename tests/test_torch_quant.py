@@ -440,6 +440,35 @@ def test_int8_linear_plain_route(dtype):
     assert quant_matmul.launches == 0        # the plain route counts none
 
 
+@pytest.mark.parametrize("M", [16, 17, 256])
+def test_int8_linear_plain_route_moves_no_body_count(M):
+    """CPU tensors run the plain route on either side of the M = 16 rows
+    where the card's bodies divide (bf16 activations: ``decode`` up to 16
+    rows, ``prefill`` above; f32 ones: ``split3`` / ``fma``): neither
+    ``launches`` nor any entry of ``launches_by_body`` moves. The reset
+    zeroes the per-body counts in place, since a captured graph's replay
+    adds to that very dict."""
+    from ray_dynamic_batching_tpu_torch.ops import attention
+
+    counts = quant_matmul.launches_by_body
+    assert tuple(counts) == quant_matmul.BODIES
+    counts["prefill"] += 3
+    attention.reset_counts()
+    assert quant_matmul.launches_by_body is counts
+    assert set(counts.values()) == {0} and quant_matmul.launches == 0
+    rng = np.random.default_rng(M)
+    x, codes, scale = _case(rng, M, 48, 32, 16)
+    for act, wd in ((torch.bfloat16, torch.bfloat16),
+                    (torch.float32, torch.bfloat16),
+                    (torch.float32, torch.float32)):
+        got = quant_matmul.int8_linear(x.to(act), codes, scale,
+                                       weight_dtype=wd)
+        want = quant_matmul.int8_linear_plain(x.to(act), codes, scale,
+                                              weight_dtype=wd)
+        assert got.shape == (M, 48) and torch.equal(got, want)
+    assert set(counts.values()) == {0} and quant_matmul.launches == 0
+
+
 def test_int8_linear_refuses_what_it_cannot_take():
     rng = np.random.default_rng(1)
     x, codes, scale = _case(rng, 3, 48, 32, 16)
