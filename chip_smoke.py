@@ -418,7 +418,38 @@ last line:
     layer a step, flash once a layer a fill, nothing else); tok/s and the
     wall per decode step printed as
     "4 ranks time-sharing one H100 over gloo: not TP speed". It prints
-    the backend, ``torch.cuda.device_count()`` and its wall time.
+    the backend, ``torch.cuda.device_count()`` and its wall time;
+21. surface — the serving surface (``serve/{openai_api,grpc_proxy,
+    dashboard}.py``, ``state.py``, ``engine/{ingress,shm_bridge}.py``,
+    ``runtime/{native,cluster,jobs,checkpoint}.py``): phase 5's
+    deployment (llama3_8b bf16 at full width and depth, random weights
+    from seed 0, 16 slots, max_len 512) deployed once on a
+    ``ServeController`` and shared by (a)-(d). (a) an ``HTTPProxy`` with
+    ``/v1/completions -> CompletionsHandle`` takes phase 5's 8 prompts
+    (6 greedy, 2 seeded) as token-id bodies, one at a time: the greedy
+    ``choices[].tokens`` identical to the same payloads through the
+    ``DeploymentHandle`` one at a time, ``usage`` and ``finish_reason``
+    checked; then the 8 at once, and malformed bodies must get a 4xx;
+    (b) when ``import grpc`` succeeds, ``Predict`` and ``PredictStream``
+    on the 6 greedy prompts, tokens identical to (a) (otherwise it prints
+    that the door was not served and why); (c) a dashboard over
+    ``StateAPI``: ``/api/state`` lists the deployment and its replica,
+    ``/metrics`` carries ``rdb_decode_*``, and the state CLI (``--url
+    ... --iterations 1``) runs as a ``JobManager`` job that must end
+    ``SUCCEEDED``; (d) 4 greedy prompts over the ``SocketIngress`` and 4
+    from a spawned ``ShmFrontend`` process into a ``ShmBridge`` on the
+    replica's ``assign``, tokens identical to (a) (``/dev/shm``'s size
+    printed); (a)-(d) held to the engine's dispatches. (e) the head's
+    controller and HTTP ingress serve a ``ProcessDeployment`` of the
+    demo factory (two spawned worker nodes, off the card); one node is
+    SIGKILLed and the heal timed; requests resume. (f) llama3_8b at full
+    width and 2 layers (1.49 B parameters, 4.0 GB: bf16, the head f32;
+    16 GB written and read at full depth would spend a large share of
+    the time limit and the disk) saved with ``CheckpointManager`` and served from
+    ``LLMDeployment(checkpoint_dir=)``: 8 greedy prompts identical to
+    the same weights served from memory; save and restore seconds and
+    GB/s printed. Kernels 1 and 2 report their launches under
+    ``surface``. It prints its wall time.
 
 Phase 3 also holds kernel 4 (``paged_decode_attention_tp``): at llama3_8b's
 shape, q [16, 1, 32, 128] over pools [64, 128, 8, 128] in bf16 and f32
@@ -434,7 +465,7 @@ was captured after a warmup ended. Phases 5 to 13 and 16 to 18 are
 served graphed (phase 19's decoders too; its encoders and ``StreamingASR``
 run eagerly).
 
-Phases 5 to 14, 16 to 19 and 20b's runs each set every launch count to 0
+Phases 5 to 14, 16 to 19, 20b's and 21's runs each set every launch count to 0
 just before they serve and read them just after: each kernel of the path
 must have launched the number of times the engine's dispatches imply,
 the other kernels and the plain route never (a graph replay adds the
@@ -456,9 +487,9 @@ The line before the last is one JSON object with the per-kernel numbers
 (``launches`` sums the serving phases, phase 14's graphed speed runs
 among them; ``launches_by_path`` splits them) and the numbers of the
 front, controller, colocate, vision, graphs, sim, reuse, spec, weights,
-servables and tp phases (``front``, ``controller``, ``colocate``,
-``vision``, ``graphs``, ``sim``, ``reuse``, ``spec``, ``weights``,
-``servables``, ``tp``; the
+servables, tp and surface phases (``front``, ``controller``,
+``colocate``, ``vision``, ``graphs``, ``sim``, ``reuse``, ``spec``,
+``weights``, ``servables``, ``tp``, ``surface``; the
 per-hop splits under ``front.hops``, ``colocate.runs.diagnostic.turns``
 and ``vision.traced``, the front-door run under ``front.front_door``);
 the last line is
@@ -497,6 +528,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -7211,6 +7243,517 @@ def phase_tp() -> tuple:
     return counts, dict(parity=parity, baseline=baseline, wall_s=wall)
 
 
+# --- phase 21: the serving surface ------------------------------------------
+SURFACE_DIR = "build/surface"
+SURFACE_SHM_BYTES = 16 << 20     # the shm store, well inside 64 MB
+SURFACE_NEW = 32
+
+
+def _surface_client(name: str, payloads: list, store_bytes: int, out) -> None:
+    """A frontend process: submit each payload over shm, one at a time,
+    and put the token lists on ``out``. It never touches the card."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    from ray_dynamic_batching_tpu_torch.engine.shm_bridge import ShmFrontend
+
+    fe = ShmFrontend(name, store_bytes=store_bytes)
+    try:
+        tokens = []
+        for p in payloads:
+            oid = fe.submit("llama3_8b", p, slo_ms=600_000.0)
+            tokens.append(fe.get_result(oid, timeout_s=300)["tokens"])
+        out.put(tokens)
+    except Exception as e:  # noqa: BLE001 — reported to the parent
+        out.put(f"{type(e).__name__}: {e}")
+    finally:
+        fe.close(unlink=False)
+
+
+def _completion_body(p: dict) -> dict:
+    body = {"prompt": p["tokens"], "max_tokens": p["max_new_tokens"]}
+    body.update({k: p[k] for k in ("temperature", "top_k", "seed") if k in p})
+    return body
+
+
+def _same_tokens(tag: str, door: str, got: list, want: list) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            fail(f"{tag}: {door} request {i} gave other tokens than the "
+                 f"handle: {g[:8]}... against {w[:8]}...")
+    if len(got) != len(want):
+        fail(f"{tag}: {door} answered {len(got)} of {len(want)} requests")
+
+
+def _surface_openai(tag, proxy, handle, payloads) -> tuple:
+    """(a): the payloads one at a time through the handle and through
+    ``/v1/completions``; then the 8 at once through the route, and
+    malformed bodies. Returns (greedy tokens, numbers)."""
+    direct = [handle.remote(dict(p)).result(timeout=600) for p in payloads]
+    served = []
+    for p, d in zip(payloads, direct):
+        code, text = _post(proxy, "/v1/completions", _completion_body(p))
+        if code != 200:
+            fail(f"{tag}: /v1/completions answered {code}: {text[:300]}")
+        body = json.loads(text)["result"]
+        choice = body["choices"][0]
+        n = p["max_new_tokens"]
+        if (body["object"] != "text_completion"
+                or body["model"] != "llama3_8b"
+                or choice["finish_reason"] != "length"
+                or body["usage"] != {"prompt_tokens": len(p["tokens"]),
+                                     "completion_tokens": n,
+                                     "total_tokens": len(p["tokens"]) + n}):
+            fail(f"{tag}: completion envelope {json.dumps(body)[:400]}")
+        served.append(choice["tokens"])
+    greedy = [i for i, p in enumerate(payloads) if "temperature" not in p]
+    _same_tokens(tag, "/v1/completions", [served[i] for i in greedy],
+                 [direct[i].tokens for i in greedy])
+    seeded_same = [served[i] == direct[i].tokens for i in range(len(payloads))
+                   if i not in greedy]
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(payloads)) as pool:
+        burst = list(pool.map(lambda p: _post(proxy, "/v1/completions",
+                                              _completion_body(p)), payloads))
+    for code, text in burst:
+        if code != 200 or len(json.loads(text)["result"]["choices"][0][
+                "tokens"]) != SURFACE_NEW:
+            fail(f"{tag}: a completion of the burst: {code} {text[:300]}")
+    rejected = []
+    for body in ({"prompt": "text, not token ids"},
+                 {"prompt": [1, 2], "stream": True},
+                 {"prompt": [1], "temperature": "hot"}):
+        code, text = _post(proxy, "/v1/completions", body)
+        if not 400 <= code < 500:
+            fail(f"{tag}: malformed body {body} answered {code}")
+        rejected.append(code)
+    print(f"[{tag}] (a) /v1/completions: {len(greedy)} greedy completions "
+          f"token-identical to the handle, usage and finish_reason checked; "
+          f"the 2 seeded ones identical: {seeded_same}; a burst of "
+          f"{len(burst)} at once answered; malformed bodies -> {rejected}",
+          flush=True)
+    return [direct[i].tokens for i in greedy], {
+        "greedy_identical": len(greedy), "seeded_identical": seeded_same,
+        "malformed_codes": rejected}
+
+
+def _surface_grpc(tag, routes, greedy_payloads, want) -> dict:
+    """(b): Predict and PredictStream for the greedy payloads, if grpcio
+    is installed."""
+    from ray_dynamic_batching_tpu_torch.serve import grpc_proxy
+
+    if not grpc_proxy.HAVE_GRPC:
+        try:
+            import grpc  # noqa: F401
+            why = "grpc imports here, but the port's gate saw it missing"
+        except ImportError as e:
+            why = f"import grpc: {e}"
+        print(f"[{tag}] (b) gRPC door NOT served on this card: grpcio is "
+              f"not installed ({why}); Predict/PredictStream untested here",
+              flush=True)
+        return {"served": False, "why": why}
+    import grpc
+
+    proxy = grpc_proxy.GRPCProxy(routes, port=0).start()
+    client = None
+    try:
+        client = grpc_proxy.GRPCIngressClient(proxy.host, proxy.port)
+        if client.healthz() != {"status": "ok"}:
+            fail(f"{tag}: gRPC Healthz")
+        unary = [client.predict("llama3_8b", p, timeout_s=600)["tokens"]
+                 for p in greedy_payloads]
+        _same_tokens(tag, "gRPC Predict", unary, want)
+        streamed = []
+        for p in greedy_payloads:
+            msgs = list(client.predict_stream("llama3_8b", p,
+                                              timeout_s=600))
+            chunks = [m["chunk"] for m in msgs if "chunk" in m]
+            finals = [m["result"] for m in msgs if "result" in m]
+            if len(finals) != 1 or finals[0]["tokens"] != chunks:
+                fail(f"{tag}: gRPC stream chunks {chunks[:6]}... against "
+                     f"its result")
+            streamed.append(chunks)
+        _same_tokens(tag, "gRPC PredictStream", streamed, want)
+        try:
+            client.predict("nope", 1, timeout_s=30)
+            fail(f"{tag}: gRPC answered an unknown deployment")
+        except grpc.RpcError as e:
+            if e.code() != grpc.StatusCode.NOT_FOUND:
+                fail(f"{tag}: unknown deployment -> {e.code()}")
+    finally:
+        if client is not None:
+            client.close()
+        proxy.stop()
+    print(f"[{tag}] (b) gRPC (grpcio {grpc.__version__}): Predict and "
+          f"PredictStream token-identical to (a) on {len(want)} greedy "
+          f"prompts; NOT_FOUND for an unknown deployment", flush=True)
+    return {"served": True, "grpcio": grpc.__version__}
+
+
+def _surface_state(tag, controller) -> dict:
+    """(c): the dashboard's routes over a StateAPI of the controller, and
+    the state CLI run as a job against it."""
+    from ray_dynamic_batching_tpu_torch.runtime.jobs import (
+        SUCCEEDED,
+        JobManager,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.dashboard import DashboardServer
+    from ray_dynamic_batching_tpu_torch.state import StateAPI
+
+    server = DashboardServer(StateAPI(controller=controller), port=0).start()
+    try:
+        dash = types.SimpleNamespace(host="127.0.0.1", port=server.port)
+        base = f"http://127.0.0.1:{server.port}"
+        state = json.loads(_get(dash, "/api/state"))
+        names = [d["name"] for d in state["deployments"]]
+        reps = [r for r in state["replicas"] if r["deployment"] == "llama3_8b"]
+        if names != ["llama3_8b"] or len(reps) != 1 or not reps[0]["healthy"]:
+            fail(f"{tag}: /api/state lists {names} and {state['replicas']}")
+        metrics = _get(dash, "/metrics")
+        decode_lines = [ln for ln in metrics.splitlines()
+                        if ln.startswith("rdb_decode_")]
+        if not decode_lines:
+            fail(f"{tag}: /metrics carries no rdb_decode_* sample")
+        if "dashboard" not in _get(dash, "/"):
+            fail(f"{tag}: the dashboard page")
+        jobs = JobManager(workdir=os.path.join(SURFACE_DIR, "jobs"))
+        jid = jobs.submit(
+            [sys.executable, "-m", "ray_dynamic_batching_tpu_torch.state",
+             "--url", base, "--iterations", "1"],
+            env={"PYTHONPATH": os.path.dirname(os.path.abspath(__file__)),
+                 "CUDA_VISIBLE_DEVICES": ""})
+        info = jobs.wait(jid, timeout_s=120)
+        log = jobs.logs(jid)
+        if info.status != SUCCEEDED or "llama3_8b" not in log:
+            fail(f"{tag}: the state CLI job ended {info.status} "
+                 f"(rc {info.return_code}): {log[-500:]}")
+    finally:
+        server.stop()
+    print(f"[{tag}] (c) dashboard: /api/state lists llama3_8b and its "
+          f"replica, /metrics {len(decode_lines)} rdb_decode_* samples "
+          f"(e.g. {decode_lines[0]}); the state CLI ran as job {jid}: "
+          f"{info.status}, its log: {log.strip().splitlines()[:3]}",
+          flush=True)
+    return {"decode_samples": len(decode_lines), "job": info.status}
+
+
+def _surface_sockets(tag, replica, payloads, want) -> dict:
+    """(d): the payloads over the socket ingress, then from a spawned
+    frontend process over the shm bridge, both into the replica."""
+    import multiprocessing as mp
+    import uuid
+
+    from ray_dynamic_batching_tpu_torch.engine.ingress import (
+        IngressClient,
+        SocketIngress,
+    )
+    from ray_dynamic_batching_tpu_torch.engine.shm_bridge import ShmBridge
+
+    server = SocketIngress(replica.assign, port=0).start()
+    client = None
+    try:
+        client = IngressClient("127.0.0.1", server.port, timeout_s=600)
+        replies = [client.send("llama3_8b", p, slo_ms=600_000.0,
+                               request_id=f"s{i}")
+                   for i, p in enumerate(payloads)]
+    finally:
+        if client is not None:
+            client.close()
+        server.stop()
+    bad = [r for r in replies if "result" not in r]
+    if bad:
+        fail(f"{tag}: socket ingress replied {bad[0]}")
+    _same_tokens(tag, "the socket ingress",
+                 [r["result"]["tokens"] for r in replies], want)
+    shm = os.statvfs("/dev/shm")
+    shm_total, shm_free = (shm.f_blocks * shm.f_frsize,
+                           shm.f_bavail * shm.f_frsize)
+    print(f"[{tag}] /dev/shm: {shm_total / 2**20:.0f} MiB, "
+          f"{shm_free / 2**20:.0f} MiB free (the ObjectStore's default "
+          f"capacity is 64 MiB; this bridge's store "
+          f"{SURFACE_SHM_BYTES >> 20} MiB)", flush=True)
+    name = f"/rdb_surface_{os.getpid()}_{uuid.uuid4().hex[:8]}"
+    bridge = ShmBridge(name, submit=replica.assign,
+                       store_bytes=SURFACE_SHM_BYTES).start()
+    ctx = mp.get_context("spawn")
+    proc = None
+    try:
+        out = ctx.Queue()
+        proc = ctx.Process(target=_surface_client,
+                           args=(name, payloads, SURFACE_SHM_BYTES, out))
+        proc.start()
+        got = out.get(timeout=600)
+        proc.join(60)
+    finally:
+        if proc is not None and proc.is_alive():
+            proc.kill()
+            proc.join(10)
+        bridge.stop()
+    if isinstance(got, str) or proc.exitcode != 0:
+        fail(f"{tag}: the shm frontend process: {got} (exit {proc.exitcode})")
+    _same_tokens(tag, "the shm bridge", got, want)
+    print(f"[{tag}] (d) socket ingress and a spawned shm frontend "
+          f"({bridge.pumped} pumped, {bridge.errors} errors): "
+          f"{len(payloads)} greedy prompts each, token-identical to (a)",
+          flush=True)
+    return {"shm_mib": shm_total / 2**20, "shm_free_mib": shm_free / 2**20,
+            "pumped": bridge.pumped}
+
+
+def _surface_nodes(tag) -> dict:
+    """(e): a ProcessReplica deployment of the demo factory behind the
+    head's controller and HTTP ingress; a node killed and healed."""
+    from ray_dynamic_batching_tpu_torch.runtime.cluster import (
+        ProcessDeployment,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.controller import (
+        DeploymentConfig,
+        ServeController,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.handle import DeploymentHandle
+    from ray_dynamic_batching_tpu_torch.serve.proxy import (
+        HTTPProxy,
+        ProxyRouter,
+    )
+
+    controller = ServeController(control_interval_s=0.1)
+    proxy = None
+    try:
+        dep = ProcessDeployment(
+            "ray_dynamic_batching_tpu_torch.runtime.cluster:"
+            "demo_double_factory", os.path.join(SURFACE_DIR, "nodes"),
+            heartbeat_stale_s=0.5, result_timeout_s=30.0)
+        router = controller.deploy(
+            DeploymentConfig(name="double", num_replicas=2, max_restarts=3),
+            factory=dep)
+        controller.start()
+        routes = ProxyRouter()
+        routes.set_route("/api/double", DeploymentHandle(
+            router, default_slo_ms=30_000.0))
+        proxy = HTTPProxy(routes, host="127.0.0.1", port=0).start()
+        t_ready = time.monotonic()
+        for r in controller._deployments["double"].replicas:
+            if not r.wait_ready(60):
+                fail(f"{tag}: worker node {r.replica_id} never got ready")
+        ready_s = time.monotonic() - t_ready
+
+        def doubled(label: str) -> None:
+            for i in range(8):
+                code, text = _post(proxy, "/api/double", i)
+                if code != 200 or json.loads(text)["result"] != 2 * i:
+                    fail(f"{tag}: {label} request {i}: {code} {text[:200]}")
+
+        doubled("before the kill")
+        live = list(controller._deployments["double"].replicas)
+        pids = {r.process.pid for r in live}
+        t_kill = time.monotonic()
+        live[0].process.kill()
+        healed_s = None
+        while time.monotonic() - t_kill < 60:
+            now = controller._deployments["double"].replicas
+            if (controller.status()["double"]["running_replicas"] == 2
+                    and {r.process.pid for r in now} != pids
+                    and all(r.healthy() and r.wait_ready(0.01) for r in now)):
+                healed_s = time.monotonic() - t_kill
+                break
+            time.sleep(0.02)
+        if healed_s is None:
+            fail(f"{tag}: the controller did not replace the killed node")
+        doubled("after the heal")
+    finally:
+        if proxy is not None:
+            proxy.stop()
+        controller.shutdown()
+    print(f"[{tag}] (e) worker nodes: 2 spawned nodes ready in "
+          f"{ready_s:.2f} s, 8 requests over HTTP, one node SIGKILLed, "
+          f"healed (replaced and serving) in {healed_s:.2f} s, 8 more "
+          f"served", flush=True)
+    return {"ready_s": ready_s, "heal_s": healed_s}
+
+
+def _surface_checkpoint(tag, payloads) -> tuple:
+    """(f): llama3_8b at full width and 2 layers saved, restored into a
+    fresh deployment, both served on the kernels. Returns (counts of the
+    two serving windows, numbers)."""
+    import shutil
+
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        LLAMA3_8B,
+        CausalLM,
+    )
+    from ray_dynamic_batching_tpu_torch.models.convert import params_to_flax
+    from ray_dynamic_batching_tpu_torch.ops import attention
+    from ray_dynamic_batching_tpu_torch.runtime.checkpoint import (
+        CheckpointManager,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.controller import (
+        DeploymentConfig,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+    from ray_dynamic_batching_tpu_torch.utils.pytree import flatten_with_paths
+
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=2)
+    root = os.path.join(SURFACE_DIR, "checkpoint")
+    shutil.rmtree(root, ignore_errors=True)
+    summed, tokens, out = {}, {}, {}
+    try:
+        for arm in ("memory", "checkpoint"):
+            model = CausalLM(cfg, "llama3_8b", dtype=torch.bfloat16,
+                             device="cuda",
+                             seed=0 if arm == "memory" else None)
+            kw = {}
+            if arm == "memory":
+                tree = params_to_flax(model)
+                leaves = list(flatten_with_paths(tree).values())
+                out["params"] = sum(t.numel() for t in leaves)
+                nbytes = sum(t.numel() * t.element_size() for t in leaves)
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                CheckpointManager(root).save(0, tree)
+                out["save_s"] = time.monotonic() - t0
+                out["bytes"] = nbytes
+                del tree
+            else:
+                kw = dict(checkpoint_dir=root)
+            dep = LLMDeployment("llama3_8b", model=model, **SLAB_KNOBS, **kw)
+            t0 = time.monotonic()
+            dep._ensure_model()
+            torch.cuda.synchronize()
+            if arm == "checkpoint":
+                out["restore_s"] = time.monotonic() - t0
+            replica = dep.make_replica(f"llama3_8b-{arm}",
+                                       DeploymentConfig(name="llama3_8b"))
+            engine = replica.engine
+            attention.reset_counts()
+            replica.start()
+            try:
+                got = []
+                for p in payloads:
+                    req = Request(model="llama3_8b", payload=dict(p),
+                                  slo_ms=600_000.0)
+                    if not replica.assign(req):
+                        fail(f"{tag}: the {arm} replica refused a request")
+                    got.append(req.future.result(timeout=600).tokens)
+                engine.stop()
+                torch.cuda.synchronize()
+                counts = _counts()
+            finally:
+                replica.stop()
+            _expect_dispatches(f"{tag} {arm}", counts, engine)
+            for k, v in counts.items():
+                summed[k] = summed.get(k, 0) + v
+            tokens[arm] = got
+            del dep, replica, engine, model
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _same_tokens(tag, "the checkpoint-restored deployment",
+                 tokens["checkpoint"], tokens["memory"])
+    gb = out["bytes"] / 1e9
+    out.update(save_gb_s=gb / out["save_s"], restore_gb_s=gb / out["restore_s"])
+    print(f"[{tag}] (f) checkpoint: llama3_8b full width, 2 layers "
+          f"({out['params'] / 1e9:.3f} B parameters, {gb:.3f} GB: bf16, the "
+          f"head f32; cut from 32 layers: 16 GB written and read would spend "
+          f"a large share of the run's limit and the disk) saved in "
+          f"{out['save_s']:.2f} s "
+          f"({out['save_gb_s']:.3f} GB/s, device -> npz), restored into a "
+          f"fresh deployment in {out['restore_s']:.2f} s "
+          f"({out['restore_gb_s']:.3f} GB/s, npz -> device, read warm); "
+          f"{len(payloads)} greedy prompts token-identical to the same "
+          f"weights served from memory", flush=True)
+    return summed, out
+
+
+def phase_surface() -> tuple:
+    """Phase 21: llama3_8b at full depth behind every door of the serving
+    surface, one deployment shared by (a)-(d); worker nodes (e); a
+    checkpoint round trip (f). Returns (counts, numbers)."""
+    from ray_dynamic_batching_tpu_torch.ops import attention
+    from ray_dynamic_batching_tpu_torch.serve import CompletionsHandle
+    from ray_dynamic_batching_tpu_torch.serve.controller import (
+        DeploymentConfig,
+        ServeController,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.handle import DeploymentHandle
+    from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+    from ray_dynamic_batching_tpu_torch.serve.proxy import (
+        HTTPProxy,
+        ProxyRouter,
+    )
+
+    from ray_dynamic_batching_tpu_torch.utils.compile_ledger import get_ledger
+
+    tag = "surface"
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.makedirs(SURFACE_DIR, exist_ok=True)
+    # The process ledger still holds phase 20's records: its mesh engines
+    # run their programs eagerly without a warmup, so each first run lands
+    # after an earlier engine's steady-state mark, and phase 20 does not
+    # gate them. This phase gates the captures of its own engines.
+    get_ledger().reset()
+    payloads = _payloads(np.random.default_rng(0), 128256, SURFACE_NEW, 8, 2,
+                         0)     # phase 5's 8 prompts: 6 greedy, 2 seeded
+    greedy = [p for p in payloads if "temperature" not in p]
+    out = {}
+    controller = ServeController()
+    proxy = None
+    try:
+        t0 = time.monotonic()
+        dep = LLMDeployment("llama3_8b", dtype=torch.bfloat16, seed=0,
+                            **SLAB_KNOBS)
+        router = controller.deploy(
+            DeploymentConfig(name="llama3_8b", max_ongoing_requests=4096),
+            factory=dep)
+        replica = controller._deployments["llama3_8b"].replicas[0]
+        engine = replica.engine
+        print(f"[{tag}] llama3_8b bf16 {engine.model.cfg.num_layers} layers "
+              f"(slab + mono) on the controller, built and warmed in "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+        handle = DeploymentHandle(router, default_slo_ms=600_000.0)
+        routes = ProxyRouter()
+        routes.set_route("/v1/completions",
+                         CompletionsHandle(handle, model="llama3_8b"))
+        routes.set_route("/api/llama3_8b", handle)
+        proxy = HTTPProxy(routes, host="127.0.0.1", port=0).start()
+        attention.reset_counts()
+        since = _dispatch_state(engine)
+        t_doors = time.monotonic()
+        want, out["openai"] = _surface_openai(tag, proxy, handle, payloads)
+        out["grpc"] = _surface_grpc(tag, routes, greedy, want)
+        out["state"] = _surface_state(tag, controller)
+        out["sockets"] = _surface_sockets(tag, replica, greedy[:4], want[:4])
+        torch.cuda.synchronize()
+        counts = _counts()
+        out["doors_s"] = time.monotonic() - t_doors
+        _expect_dispatches(tag, counts, engine, since=since)
+        _steady(tag)
+    finally:
+        if proxy is not None:
+            proxy.stop()
+        controller.shutdown()
+    del controller, dep, router, replica, engine, handle, routes
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{tag}] (a)-(d) launches {counts} in {out['doors_s']:.1f} s",
+          flush=True)
+    out["nodes"] = _surface_nodes(tag)
+    ck_counts, out["checkpoint"] = _surface_checkpoint(
+        tag, [{k: v for k, v in p.items()
+               if k in ("tokens", "max_new_tokens")} for p in payloads])
+    _steady(tag)
+    for k, v in ck_counts.items():
+        counts[k] = counts.get(k, 0) + v
+    if not counts.get("flash_attention") or not counts.get("decode_attention"):
+        fail(f"{tag}: kernels 1 and 2 must both launch: {counts}")
+    out["wall_s"] = time.monotonic() - t_phase
+    print(f"[{tag}] phase 21 wall {out['wall_s']:.1f} s; launches {counts}",
+          flush=True)
+    return counts, out
+
+
 def main() -> None:
     with contextlib.ExitStack() as stack:
         _main(stack)
@@ -7220,7 +7763,8 @@ def _main(stack: contextlib.ExitStack) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     all_phases = (["build", "kernels", "parity"] + list(SERVING)
                   + ["front", "controller", "colocate", "vision", "graphs",
-                     "sim", "reuse", "spec", "weights", "servables", "tp"])
+                     "sim", "reuse", "spec", "weights", "servables", "tp",
+                     "surface"])
     ap.add_argument("--phases", default=",".join(all_phases),
                     help=f"comma-separated subset of {','.join(all_phases)} "
                          "(the device phase always runs)")
@@ -7276,7 +7820,7 @@ def _main(stack: contextlib.ExitStack) -> None:
         print("[slab_chunked] beside main and int8: " + "; ".join(beside),
               flush=True)
     front = controller = colocate = vision = graphed = sim = reuse = None
-    spec = weights = servables = tp = None
+    spec = weights = servables = tp = surface = None
     if "front" in phases:
         by_path["front"], front = phase_front(args.profile)
     if "controller" in phases:
@@ -7299,6 +7843,8 @@ def _main(stack: contextlib.ExitStack) -> None:
         by_path["servables"], servables = phase_servables()
     if "tp" in phases:
         by_path["tp"], tp = phase_tp()
+    if "surface" in phases:
+        by_path["surface"], surface = phase_surface()
     for name, row in kernels.items():
         split = {path: c.get(name, 0) for path, c in by_path.items()}
         row["launches"] = sum(split.values()) if split else None
@@ -7307,7 +7853,8 @@ def _main(stack: contextlib.ExitStack) -> None:
                       "controller": controller, "colocate": colocate,
                       "vision": vision, "graphs": graphed, "sim": sim,
                       "reuse": reuse, "spec": spec, "weights": weights,
-                      "servables": servables, "tp": tp}))
+                      "servables": servables, "tp": tp,
+                      "surface": surface}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],
         "count": torch.cuda.device_count()}}))

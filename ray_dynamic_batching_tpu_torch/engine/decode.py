@@ -611,6 +611,11 @@ class DecodeEngine:
         twin_kwargs = {k: v for k, v in locals().items()
                        if k not in ("self", "model", "queue", "device",
                                     "mesh", "draft_model")}
+        from ray_dynamic_batching_tpu_torch.utils.compile_cache import (
+            maybe_enable,
+        )
+
+        maybe_enable()  # kernel libraries built once are reused
         if mesh is not None and mesh.shape.get("tp", 1) > 1:
             model = self._shard_for_mesh(
                 model, mesh, paged=paged, draft_model=draft_model,

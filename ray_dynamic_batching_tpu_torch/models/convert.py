@@ -16,6 +16,11 @@ numpy arrays (``{"params": {...}}`` or the inner dict) and returns a
   experts ``moe/wi``, ``moe/wg`` ``[E, D, F]`` and ``moe/wo`` ``[E, F, D]``
   as they are.
 
+Leaves may be numpy arrays or tensors (a checkpoint restored by
+``runtime/checkpoint.py``: tensors keep their dtype and device, and
+``load_state_dict`` casts them). ``params_to_flax(model)`` is the
+inverse: a built decoder's weights as that tree, in the flax layouts.
+
 A JAX-quantized tree (``models/quant.py::quantize_tree`` output, its
 ``QTensor`` leaves as objects with ``q`` / ``scale`` or as ``{"q",
 "scale"}`` mappings of numpy arrays) bridges with no requantization:
@@ -68,7 +73,17 @@ from ray_dynamic_batching_tpu_torch.models.decoder import DecoderConfig
 
 
 def _t(x: Any) -> torch.Tensor:
+    """A leaf as a tensor: a tensor as it is (its dtype and device, which
+    ``load_state_dict`` casts from), anything else as f32."""
+    if isinstance(x, torch.Tensor):
+        return x
     return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _f32(x: Any) -> Any:
+    """A leaf for a layout function: tensors as they are, the rest as f32
+    numpy arrays (the layouts only reshape and transpose)."""
+    return x if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
 
 
 def _qtensor(x: Any):
@@ -98,7 +113,7 @@ def params_from_flax(tree: Mapping[str, Any],
         ``code_layout``, default the same) + flat scales."""
         qt = _qtensor(x)
         if qt is None:
-            sd[name] = _t(layout(np.asarray(x, dtype=np.float32)))
+            sd[name] = _t(layout(_f32(x)))
             return
         q, scale = qt
         sd[f"{name}_codes"] = torch.from_numpy(np.ascontiguousarray(
@@ -143,6 +158,34 @@ def params_from_flax(tree: Mapping[str, Any],
     if not cfg.tie_embeddings:
         put("lm_head.weight", p["lm_head"]["kernel"], lambda k: k.T)
     return sd
+
+
+@torch.no_grad()
+def params_to_flax(model: Any) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_flax` for a built decoder: its
+    weights as the JAX package's params tree ``{"params": {...}}``, each
+    leaf a tensor in the flax layout (a view of the model's weight where
+    the layout allows; dtype and device the model's). What
+    ``runtime/checkpoint.py`` saves and restores for a language model. A
+    weight-only int8 model raises: checkpoint its full-precision weights
+    and quantize after the restore."""
+    from ray_dynamic_batching_tpu_torch.models.decoder import Dense
+    from ray_dynamic_batching_tpu_torch.models.quant import is_quantized
+    from ray_dynamic_batching_tpu_torch.utils.pytree import nest_paths
+
+    if is_quantized(model):
+        raise ValueError(f"{model.name} holds int8 codes; checkpoint the "
+                         "full-precision model and quantize after restoring")
+    modules = dict(model.module.named_modules())
+    params = dict(model.module.named_parameters())
+    flat: Dict[str, Any] = {}
+    for name, (path, shape, _dims) in model.flax_leaves().items():
+        w = params[name]
+        mod_name, _, leaf = name.rpartition(".")
+        if isinstance(modules[mod_name], Dense) and leaf == "weight":
+            w = w.T   # [out, in] -> [in, out], then split into flax axes
+        flat[path] = w.reshape(shape)
+    return {"params": nest_paths(flat)}
 
 
 # --- vision families --------------------------------------------------------

@@ -98,6 +98,11 @@ class ModelProfiler:
         timing_iters: int = 5,
         max_consecutive_errors: int = 3,
     ):
+        from ray_dynamic_batching_tpu_torch.utils.compile_cache import (
+            maybe_enable,
+        )
+
+        maybe_enable()  # sweep re-runs reuse the built kernel libraries
         self.model = model
         self.warmup_iters = warmup_iters
         self.timing_iters = timing_iters

@@ -8,8 +8,9 @@ tolerance) and in-memory (``src/ray/gcs/store_client/redis_store_client.h``,
 ``in_memory_store_client.h``); here the equivalents are a process-local dict
 and an atomic-rename JSON file that survives controller restarts.
 
-Own copy of ``ray_dynamic_batching_tpu/runtime/kv.py``. Trimmed:
-:class:`NativeKVStore` raises (the native binding comes later).
+Own copy of ``ray_dynamic_batching_tpu/runtime/kv.py`` with its import
+paths rewritten, whole; :class:`NativeKVStore` runs on the port's binding
+of the native library (``runtime/native.py``).
 """
 
 from __future__ import annotations
@@ -52,15 +53,40 @@ class KVStore:
 
 
 class NativeKVStore(KVStore):
-    """Backend on the C++ KV (``native/src/rdb_native.cc``) in the
-    reference. Not ported: the port's binding to the native library comes
-    with ROADMAP queue 1 item 10, so constructing one raises."""
+    """Backend on the C++ KV (native/src/rdb_native.cc): same string API
+    plus versioned long-poll ``watch`` — the GCS-KV + long-poll pairing the
+    reference splits across ``gcs_kv_manager.cc`` and
+    ``serve/_private/long_poll.py``."""
 
     def __init__(self) -> None:
-        raise NotImplementedError(
-            "NativeKVStore binds the native C++ library, which the port "
-            "does not bind yet (ROADMAP queue 1 item 10); use KVStore or "
-            "FileKVStore")
+        from ray_dynamic_batching_tpu_torch.runtime import native
+
+        self._kv = native.KVStore()
+
+    def get(self, key: str) -> Optional[str]:
+        hit = self._kv.get(key)
+        return None if hit is None else hit[0].decode()
+
+    def get_versioned(self, key: str):
+        hit = self._kv.get(key)
+        return None if hit is None else (hit[0].decode(), hit[1])
+
+    def put(self, key: str, value: str) -> None:
+        self._kv.put(key, value.encode())
+
+    def delete(self, key: str) -> bool:
+        return self._kv.delete(key)
+
+    def keys(self, prefix: str = "") -> List[str]:
+        return sorted(self._kv.keys(prefix))
+
+    def watch(self, key: str, have_version: int = 0,
+              timeout_ms: int = 1000) -> int:
+        """Block until the key's version advances; 0 on timeout."""
+        return self._kv.watch(key, have_version, timeout_ms)
+
+    def close(self) -> None:
+        self._kv.close()
 
 
 class FileKVStore(KVStore):

@@ -5,8 +5,7 @@ Re-creation of Ray Serve's architecture, in the port as in
 deployment state and checkpoints it; routers schedule requests over
 replicas with power-of-two-choices; replicas run user callables with
 size-or-timeout batching; config changes flow over long poll. Re-exports
-what the port has ported: the reference's list less the OpenAI adapter
-(``openai_api``, ROADMAP queue 1 item 10).
+the reference's list.
 """
 
 from ray_dynamic_batching_tpu_torch.serve.api import (
@@ -80,6 +79,7 @@ from ray_dynamic_batching_tpu_torch.serve.grayhealth import (
 from ray_dynamic_batching_tpu_torch.serve.handle import DeploymentHandle
 from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment, LLMReplica
 from ray_dynamic_batching_tpu_torch.serve.long_poll import LongPollClient, LongPollHost
+from ray_dynamic_batching_tpu_torch.serve.openai_api import CompletionsHandle
 from ray_dynamic_batching_tpu_torch.serve.proxy import HTTPProxy, ProxyRouter
 from ray_dynamic_batching_tpu_torch.serve.replica import Replica
 from ray_dynamic_batching_tpu_torch.serve.router import Router
@@ -109,6 +109,7 @@ __all__ = [
     "AutoscalingConfig",
     "AutoscalingPolicy",
     "CompactedLogError",
+    "CompletionsHandle",
     "ControlFabric",
     "ControllerStore",
     "default_fabric",

@@ -43,8 +43,11 @@ weight-only int8 (``models/quant.py``): the model is quantized once in
 place and shared by every length-bucket engine, and ``auto_num_slots``
 counts its int8 bytes. ``params`` takes the JAX package's params tree
 (numpy leaves; a ``quantize_tree`` output keeps its codes) bridged by
-``models/convert.py::params_from_flax``. The reference's checkpoints
-come later.
+``models/convert.py::params_from_flax``. ``checkpoint_dir`` (with
+``checkpoint_step``, default the latest) restores the weights from a
+``runtime/checkpoint.py`` step directory instead, the JAX params tree in
+the reference's format: one the JAX package's ``CheckpointManager``
+wrote serves here as it serves there.
 
 Payload contract (as the reference)::
 
@@ -378,9 +381,12 @@ class LLMDeployment:
     (on its device, seed 1, the model dtype, its own KV dtype);
     ``draft_model`` injects one (the model itself for a self-draft).
     ``params`` (a flax params tree of numpy arrays, possibly quantized by
-    the JAX package) replaces the random weights of the model it builds.
-    ``quantize_weights=True`` quantizes the model once, in place
-    (idempotent: a pre-quantized tree passes through); a separate draft
+    the JAX package) replaces the random weights of the model it builds;
+    ``checkpoint_dir`` restores them from a checkpoint instead (step
+    ``checkpoint_step``, default the latest), into the built or injected
+    model, before any quantization. ``quantize_weights=True`` quantizes
+    the model once, in place (idempotent: a pre-quantized tree passes
+    through); a separate draft
     is not quantized, and a self-draft keeps a full-precision copy of the
     model's weights made before quantization (the reference's
     ``draft_params``).
@@ -432,10 +438,22 @@ class LLMDeployment:
         quantize_weights: bool = False,
         params: Any = None,
         mesh_backend: Optional[str] = None,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_step: Optional[int] = None,
     ) -> None:
         if params is not None and model is not None:
             raise ValueError("pass either params or model, not both — an "
                              "injected model owns its weights")
+        if checkpoint_dir is not None and params is not None:
+            raise ValueError(
+                "pass either params or checkpoint_dir, not both — the "
+                "checkpoint would be silently ignored"
+            )
+        # Real weights: restored from the checkpoint subsystem instead of
+        # a random draw, once, into the model every replica shares.
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_step = checkpoint_step
+        self._restored = False
         self.model_name = model_name
         self.num_slots = num_slots
         self.max_len = max_len
@@ -528,7 +546,7 @@ class LLMDeployment:
                     kwargs["dtype"] = self._dtype
                 if self.quantize_kv:
                     kwargs["kv_dtype"] = torch.int8
-                if self._params is not None:
+                if self._params is not None or self.checkpoint_dir:
                     kwargs["seed"] = None
                 self._model = registry.get_model(self.model_name, **kwargs)
                 if self._params is not None:
@@ -550,6 +568,8 @@ class LLMDeployment:
                     "kv_dtype=torch.int8) or pass model_name and let the "
                     "deployment build it"
                 )
+            if self.checkpoint_dir is not None and not self._restored:
+                self._restore_checkpoint()
             if self.quantize_weights:
                 if self._draft_model is self._model:
                     # A self-draft drafts from the full-precision weights
@@ -574,6 +594,26 @@ class LLMDeployment:
                     self.draft_model_name, **kwargs)
             return self._model
 
+    def _restore_checkpoint(self) -> None:
+        """Load ``checkpoint_dir``'s step (default the latest) into the
+        model, on its device: the saved flax tree restored into the
+        structure ``params_to_flax`` gives the model, then mapped back
+        (reference ``llm.py:531-541``). Caller holds ``_init_lock``."""
+        from ray_dynamic_batching_tpu_torch.models.convert import (
+            params_from_flax,
+            params_to_flax,
+        )
+        from ray_dynamic_batching_tpu_torch.runtime.checkpoint import (
+            CheckpointManager,
+        )
+
+        model = self._model
+        tree = CheckpointManager(self.checkpoint_dir).restore(
+            params_to_flax(model), step=self.checkpoint_step,
+            device=model.device)
+        load_state(model, params_from_flax(tree, model.cfg))
+        self._restored = True
+
     def _sharded_model(self, mesh: Any):
         """The deployment's model on ``mesh``, sharded once per mesh: drawn
         from ``seed`` on every rank (no rank holds the whole model), or
@@ -585,7 +625,8 @@ class LLMDeployment:
             held = self._mesh_models.get(id(mesh))
             if held is not None and held[0] is mesh:
                 return held[1]
-            fresh = self._model is None and self._params is None
+            fresh = (self._model is None and self._params is None
+                     and self.checkpoint_dir is None)
         if fresh:
             kwargs = {"device": "meta", "seed": None}
             if self._dtype is not None:

@@ -1,19 +1,139 @@
-"""Terminal SLO status rendering.
+"""State API — programmatic cluster inspection + terminal viewers.
 
-Own copy of the part of ``ray_dynamic_batching_tpu/state.py`` the live LLM
-scheduler imports: :func:`render_queue_table` (the reference's terminal
-viewer table, ``293-project/src/metrics_display.py:42-66``) and the
-thresholds it reads, :func:`slo_thresholds`.
+Re-creates two reference surfaces in one place:
+- the state API (``python/ray/util/state/api.py``): list deployments /
+  replicas / queues and a one-call summary, for tooling and tests;
+- the separate-terminal viewers (``293-project/src/metrics_display.py:18-76``
+  reading metrics.json; curses SLO viewer ``slo_viewer.py:25-72``): a
+  ``watch`` loop that re-renders compliance tables from a metrics.json the
+  live scheduler writes each interval.
 
-Trimmed: ``StateAPI``, the audit and snapshot renderers and the watch /
-URL command line, which come with the state API client (ROADMAP queue 1
-item 10).
+CLI:
+    python -m ray_dynamic_batching_tpu_torch.state --watch /path/to/metrics.json
+    python -m ray_dynamic_batching_tpu_torch.state --url http://127.0.0.1:8265
+
+Own copy of ``ray_dynamic_batching_tpu/state.py`` with its import paths
+rewritten, whole: :class:`StateAPI` reads the port's controller,
+scheduler, metrics registry and job manager (``runtime/jobs.py``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import json
+import sys
+import time
+import urllib.request
+from typing import Any, Dict, List, Optional
 
+from ray_dynamic_batching_tpu_torch.utils import metrics as m
+
+
+class StateAPI:
+    """Aggregates controller + scheduler + metrics state into plain dicts
+    (the judge-facing analogue of ``ray.util.state``'s list_* calls)."""
+
+    def __init__(self, controller=None, scheduler=None,
+                 registry: Optional[m.MetricsRegistry] = None,
+                 jobs=None) -> None:
+        self.controller = controller
+        self.scheduler = scheduler
+        self.jobs = jobs
+        self.registry = registry or m.default_registry()
+
+    # --- list_* (ref util/state/api.py) -----------------------------------
+    def list_deployments(self) -> List[Dict[str, Any]]:
+        if self.controller is None:
+            return []
+        status = self.controller.status()
+        return [
+            {"name": name, **info} for name, info in sorted(status.items())
+        ]
+
+    def list_replicas(self) -> List[Dict[str, Any]]:
+        if self.controller is None:
+            return []
+        out = []
+        for name in self.controller.deployments():
+            try:
+                router = self.controller.get_router(name)
+            except KeyError:
+                continue  # deployment deleted between snapshot and lookup
+            for r in router.replicas():
+                out.append({
+                    "deployment": name,
+                    "replica_id": r.replica_id,
+                    "healthy": r.healthy(),
+                    "queue_len": r.queue_len(),
+                    "accepting": r.accepting(),
+                    **r.stats(),
+                })
+        return out
+
+    def list_queues(self) -> Dict[str, Dict[str, float]]:
+        if self.scheduler is None:
+            return {}
+        return self.scheduler.queues.stats()
+
+    def scheduler_snapshot(self) -> Dict[str, Any]:
+        return self.scheduler.snapshot() if self.scheduler else {}
+
+    def list_jobs(self) -> List[Dict[str, Any]]:
+        """Job table (ref list_jobs in util/state/api.py)."""
+        if self.jobs is None:
+            return []
+        import dataclasses
+
+        return [dataclasses.asdict(j) for j in self.jobs.list_jobs()]
+
+    def resources(self) -> Dict[str, Any]:
+        """Cluster chip/HBM view (ref list_nodes / resource reporting)."""
+        if self.controller is None or not hasattr(self.controller, "resources"):
+            return {"nodes": {}, "reservations": []}
+        return self.controller.resources()
+
+    def metrics_text(self) -> str:
+        return self.registry.prometheus_text()
+
+    def list_audit(self, last: int = 50) -> List[Dict[str, Any]]:
+        """Merged control-plane decision log (newest last): the serve
+        controller's deploy/scale/heal/rollout records plus the scheduler's
+        replan records, ordered by wall time."""
+        out: List[Dict[str, Any]] = []
+        audit = getattr(self.controller, "audit", None)
+        if audit is not None:
+            out.extend(audit.to_dicts(last=last))
+        sched_audit = getattr(self.scheduler, "audit", None)
+        if sched_audit is not None:
+            out.extend(sched_audit.to_dicts(last=last))
+        out.sort(key=lambda r: r.get("wall_time", 0.0))
+        return out[-last:]
+
+    def alerts(self) -> Dict[str, Any]:
+        """Cluster-wide SLO observatory rollup (serve/observatory.py):
+        every (deployment/qos) burn-alert state plus the per-model
+        forecast-error and fidelity-drift instruments. Empty when the
+        controller predates the observatory (or none is attached)."""
+        obs = getattr(self.controller, "observatory", None)
+        if obs is None:
+            return {}
+        return obs.snapshot()
+
+    def summary(self) -> Dict[str, Any]:
+        good, warn = slo_thresholds()
+        return {
+            "deployments": self.list_deployments(),
+            "replicas": self.list_replicas(),
+            "queues": self.list_queues(),
+            "scheduler": self.scheduler_snapshot(),
+            "jobs": self.list_jobs(),
+            "resources": self.resources(),
+            "audit": self.list_audit(),
+            "slo_thresholds": {"good": good, "warn": warn},
+            "observatory": self.alerts(),
+        }
+
+
+# --- terminal rendering (ref metrics_display.py:42-66) ---------------------
 
 def slo_thresholds() -> tuple:
     """(good, warn) compliance thresholds from config (single source —
@@ -42,3 +162,115 @@ def render_queue_table(queues: Dict[str, Dict[str, float]],
             f"{stats.get('depth', 0):>6.0f} {c * 100:>6.1f}% {status}"
         )
     return "\n".join(lines)
+
+
+def render_audit_table(audit: List[Dict[str, Any]],
+                       last: int = 5) -> str:
+    """Recent scheduler/controller decisions, one line each (the terminal
+    face of the structured audit ring)."""
+    lines = [f"{'when':<10} {'domain':<6} {'trigger':<14} "
+             f"{'cost':>6} change"]
+    for rec in audit[-last:]:
+        diff = rec.get("diff") or {}
+        if "engines_changed" in diff:
+            change = "; ".join(
+                f"engine{e}: {c['old'] or ['-']} -> {c['new'] or ['-']}"
+                for e, c in diff["engines_changed"].items()
+            ) or "no movement"
+        else:
+            change = ", ".join(f"{k}={v}" for k, v in diff.items()) \
+                or rec.get("note", "")
+        when = time.strftime("%H:%M:%S",
+                             time.localtime(rec.get("wall_time", 0)))
+        lines.append(
+            f"{when:<10} {rec.get('domain', ''):<6} "
+            f"{rec.get('trigger', ''):<14} "
+            f"{rec.get('migration_cost', 0):>6.1f} {change}"
+        )
+    return "\n".join(lines)
+
+
+def render_snapshot(snap: Dict[str, Any]) -> str:
+    parts = [render_queue_table(snap.get("queues", {}),
+                                snap.get("rates_rps", {}))]
+    if snap.get("plan"):
+        parts.append(f"plan: {len(snap['plan'])} node(s), "
+                     f"{snap.get('schedule_changes', 0)} schedule change(s)")
+    if snap.get("audit"):
+        parts.append("recent replans:")
+        parts.append(render_audit_table(snap["audit"]))
+    return "\n".join(parts)
+
+
+def watch_metrics_file(path: str, interval_s: float = 1.0,
+                       iterations: Optional[int] = None,
+                       out=None) -> None:
+    """Separate-terminal viewer loop over the scheduler's metrics.json
+    (the reference's MetricsDisplay reads the same file it writes)."""
+    out = out if out is not None else sys.stdout  # late-bound for capture
+    n = 0
+    while iterations is None or n < iterations:
+        try:
+            with open(path) as f:
+                snap = json.load(f)
+            out.write("\x1b[2J\x1b[H" if out.isatty() else "")
+            out.write(render_snapshot(snap) + "\n")
+            out.flush()
+        except FileNotFoundError:
+            out.write(f"waiting for {path}...\n")
+        except json.JSONDecodeError:
+            pass  # mid-write; next tick wins
+        n += 1
+        if iterations is None or n < iterations:
+            time.sleep(interval_s)
+
+
+def watch_url(url: str, interval_s: float = 1.0,
+              iterations: Optional[int] = None, out=None) -> None:
+    """Viewer against a running dashboard's /api/state endpoint."""
+    out = out if out is not None else sys.stdout  # late-bound for capture
+    n = 0
+    while iterations is None or n < iterations:
+        try:
+            with urllib.request.urlopen(url.rstrip("/") + "/api/state",
+                                        timeout=5) as resp:
+                state = json.load(resp)
+            out.write("\x1b[2J\x1b[H" if out.isatty() else "")
+            queues = state.get("queues", {})
+            deployments = state.get("deployments", [])
+            if deployments:
+                out.write(f"{'deployment':<20} {'replicas':>8} healthy\n")
+                for d in deployments:
+                    out.write(
+                        f"{d['name']:<20} {d.get('running_replicas', 0):>8} "
+                        f"{d.get('healthy', True)}\n"
+                    )
+            if queues:
+                out.write(render_queue_table(queues) + "\n")
+            out.flush()
+        except Exception as e:  # noqa: BLE001 — viewer keeps retrying
+            out.write(f"unreachable: {e}\n")
+        n += 1
+        if iterations is None or n < iterations:
+            time.sleep(interval_s)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__)
+    group = parser.add_mutually_exclusive_group(required=True)
+    group.add_argument("--watch", help="metrics.json path to tail")
+    group.add_argument("--url", help="dashboard base URL")
+    parser.add_argument("--interval", type=float, default=1.0)
+    parser.add_argument("--iterations", type=int, default=None)
+    args = parser.parse_args(argv)
+    if args.watch is not None:
+        watch_metrics_file(args.watch, args.interval, args.iterations)
+    else:
+        watch_url(args.url, args.interval, args.iterations)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

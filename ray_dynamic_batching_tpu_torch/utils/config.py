@@ -10,11 +10,12 @@ thresholds and the chaos seed. The planner (``scheduler/nexus.py``),
 deployment sizing (``serve/llm.py``), the live schedulers
 (``scheduler/llm_control.py``, ``scheduler/control.py``, which also reads
 ``rate_min_span_s``) and the status table (``state.py``) read the
-scheduling, memory, queue and threshold fields. The batching block
+scheduling, memory, queue and threshold fields; ``utils/compile_cache.py``
+reads ``compilation_cache_dir``, where the kernel libraries are built. The batching block
 (``max_batch_size``, ``default_batch_wait_timeout_s``,
 ``default_max_batch_size``, ``min_seq_bucket``, ``max_seq_len``) is read
-by no ported module yet. Trimmed: the reference's XLA
-compile-management block (no counterpart in eager torch), the staleness
+by no ported module yet. Trimmed: the rest of the
+reference's XLA compile-management block (no counterpart in eager torch), the staleness
 flag ``discard_stale_requests`` (which the reference reads nowhere), and
 its control-plane timing, transport, metrics interval and RPC-failure
 knobs, which no ported module reads.
@@ -95,6 +96,13 @@ class RDBConfig:
     hbm_budget_bytes: int = 14 * 1024**3
     # Fraction of HBM the scheduler may plan against (scratch/fragmentation slack).
     hbm_plan_fraction: float = 0.9
+
+    # --- build cache ---
+    # Directory where the CUDA kernel libraries are built and reused across
+    # processes and checkouts (utils/compile_cache.py; "" keeps each
+    # checkout's build/torch_kernels/). The reference's persistent
+    # compilation cache knob, same variable.
+    compilation_cache_dir: str = ""
 
     # --- queues (ref 293-project/src/scheduler.py:190) ---
     max_queue_len: int = 4096

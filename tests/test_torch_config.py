@@ -18,7 +18,7 @@ PORT_FIELDS = [f.name for f in dataclasses.fields(t_config.RDBConfig)]
 OVERRIDES = {int: "7", float: "0.375", bool: "0", str: "x"}
 
 TRIMMED = ("compile_cost_default_ms", "compile_amortization_intervals",
-           "compilation_cache_dir", "discard_stale_requests",
+           "health_check_timeout_ms", "discard_stale_requests",
            "health_check_period_ms", "actor_max_restarts")
 
 

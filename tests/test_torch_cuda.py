@@ -26,7 +26,11 @@ two-shard front door admitting within its bound in front of a 2-layer
 llama3_8b deployment; and KV reuse's new inputs: flash on a paged chunk
 past a borrowed prefix and on a session chunk from an unaligned base,
 the paged kernel over tables sharing their head pages, and a spill
-reload and a parcel import writing the pool in place. This file imports no JAX, so it runs on a machine without it::
+reload and a parcel import writing the pool in place; the serving
+surface: a bf16 checkpoint round trip on the card, `/v1/completions` on
+llama_tiny through kernels 1 and 2 against the handle, and the native
+library built by g++ on the card machine. This file imports no JAX, so
+it runs on a machine without it::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -1633,3 +1637,126 @@ def test_tp_engine_on_gloo_ranks_sharing_the_card(card):
     finally:
         mesh.shutdown()
     assert not any(p.is_alive() for p in procs)
+
+
+# --- the serving surface: checkpoints, /v1/completions, the native library ---
+def test_bf16_checkpoint_round_trip_on_the_card(card, tmp_path):
+    """A bf16 llama_tiny on the card saved with ``CheckpointManager`` and
+    restored into a fresh deployment on the card: every leaf bit for bit
+    in its own dtype (bf16 as raw two-byte items, never through numpy
+    floats), on the card."""
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        TINY_LM,
+        CausalLM,
+    )
+    from ray_dynamic_batching_tpu_torch.models.convert import params_to_flax
+    from ray_dynamic_batching_tpu_torch.runtime.checkpoint import (
+        CheckpointManager,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+    from ray_dynamic_batching_tpu_torch.utils.pytree import (
+        flatten_with_paths,
+    )
+
+    src = CausalLM(TINY_LM, "llama_tiny", dtype=torch.bfloat16, device=card,
+                   seed=3)
+    CheckpointManager(tmp_path).save(1, params_to_flax(src))
+    dep = LLMDeployment("llama_tiny", dtype=torch.bfloat16, device=card,
+                        checkpoint_dir=str(tmp_path))
+    got = flatten_with_paths(params_to_flax(dep._ensure_model()))
+    want = flatten_with_paths(params_to_flax(src))
+    assert list(got) == list(want)
+    assert any(w.dtype == torch.bfloat16 for w in want.values())
+    for k, w in want.items():
+        g = got[k]
+        # bf16 weights; the norms' scales and the head stay f32.
+        assert g.device.type == "cuda" and g.dtype == w.dtype, k
+        if w.dtype == torch.bfloat16:
+            g, w = g.view(torch.int16), w.view(torch.int16)
+        assert torch.equal(g, w), k
+
+
+def test_completions_route_on_the_kernels_equals_the_handle(card):
+    """``/v1/completions`` on llama_tiny served on the card: kernels 1 and
+    2 launch, and the completions' tokens equal the handle's on the same
+    payloads."""
+    import http.client
+    import json
+
+    from ray_dynamic_batching_tpu_torch.ops import attention as att
+    from ray_dynamic_batching_tpu_torch.serve import CompletionsHandle
+    from ray_dynamic_batching_tpu_torch.serve.controller import (
+        DeploymentConfig,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.handle import DeploymentHandle
+    from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+    from ray_dynamic_batching_tpu_torch.serve.proxy import (
+        HTTPProxy,
+        ProxyRouter,
+    )
+    from ray_dynamic_batching_tpu_torch.serve.router import Router
+
+    gen = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(1, 500, (n,), generator=gen).tolist()
+               for n in (3, 7, 12)]
+    dep = LLMDeployment("llama_tiny", num_slots=4, max_len=64,
+                        prompt_buckets=[16], default_max_new_tokens=6,
+                        dtype=torch.float32, device=card, seed=0)
+    replica = dep.make_replica("t", DeploymentConfig(name="llama_tiny"))
+    replica.start()
+    router = Router("llama_tiny", replicas=[replica],
+                    max_assign_timeout_s=30.0)
+    handle = DeploymentHandle(router, default_slo_ms=1e7)
+    routes = ProxyRouter()
+    routes.set_route("/v1/completions", CompletionsHandle(handle,
+                                                          "llama_tiny"))
+    proxy = HTTPProxy(routes, host="127.0.0.1", port=0).start()
+    try:
+        att.reset_counts()
+        want = [handle.remote({"tokens": p, "max_new_tokens": 6}
+                              ).result(timeout=120).tokens for p in prompts]
+        got = []
+        for p in prompts:
+            conn = http.client.HTTPConnection("127.0.0.1", proxy.port,
+                                              timeout=120)
+            conn.request("POST", "/v1/completions",
+                         body=json.dumps({"prompt": p, "max_tokens": 6}))
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+            conn.close()
+            assert resp.status == 200
+            assert body["result"]["usage"]["completion_tokens"] == 6
+            got.append(body["result"]["choices"][0]["tokens"])
+        assert fl.launches > 0 and dec.launches > 0
+        assert got == want
+    finally:
+        proxy.stop()
+        router.close()
+        replica.stop(timeout_s=5.0, drain=False)
+
+
+def test_native_library_builds_with_gxx_on_this_machine(tmp_path,
+                                                        monkeypatch):
+    """The native runtime library built by ``g++`` from ``native/src``
+    here, into a fresh directory, and a queue and store working through
+    it."""
+    import os
+    import uuid
+
+    from ray_dynamic_batching_tpu_torch.runtime import native
+
+    if not torch.cuda.is_available():
+        pytest.skip("runs on the card machine")
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "native")
+    monkeypatch.setattr(native, "_LIB", None)
+    path = native.build_native()
+    assert path.parent == tmp_path / "native" and path.exists()
+    name = f"/rdbcuda_{os.getpid()}_{uuid.uuid4().hex[:8]}"
+    q = native.NativeQueue(name + ".q", capacity=4, item_size=32)
+    s = native.ObjectStore(name + ".s", capacity_bytes=1 << 16)
+    try:
+        assert q.push(b"x") and q.pop_batch(2, timeout_ms=100) == [b"x"]
+        assert s.put(1, b"y") and s.get(1) == b"y"
+    finally:
+        q.close()
+        s.close()

@@ -15,6 +15,11 @@ with the same modules blocked, captures a handle request's flight record
 runs the simulator's smoke, a partition and a migration twin, and a
 live sharded front door. Another profiles DistilBERT, collates and
 transcribes a clip through the ASR model and reads moe_tiny's aux loss.
+The serving surface's probe imports every door, the native binding, the
+worker nodes, the job manager and the state API, restores a checkpoint
+into a deployment and answers one ``/v1/completions`` request; a last
+one blocks grpcio as well and imports the ``serve`` package and the gRPC
+door's module.
 """
 
 import ast
@@ -467,3 +472,105 @@ def test_tensor_parallel_replica_runs_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == "3 [[], []]"
+
+
+_SURFACE_PROBE = """
+import sys
+import tempfile
+for name in {forbidden!r}:
+    sys.modules[name] = None      # any import of them now raises
+import http.client
+import json
+import torch
+torch.set_num_threads(2)
+import ray_dynamic_batching_tpu_torch.engine.ingress
+import ray_dynamic_batching_tpu_torch.engine.shm_bridge
+import ray_dynamic_batching_tpu_torch.runtime.cluster
+import ray_dynamic_batching_tpu_torch.runtime.jobs
+import ray_dynamic_batching_tpu_torch.runtime.native
+import ray_dynamic_batching_tpu_torch.serve.dashboard
+import ray_dynamic_batching_tpu_torch.serve.grpc_proxy
+import ray_dynamic_batching_tpu_torch.state
+import ray_dynamic_batching_tpu_torch.utils.compile_cache
+from ray_dynamic_batching_tpu_torch.models import causal_lm
+from ray_dynamic_batching_tpu_torch.models.convert import params_to_flax
+from ray_dynamic_batching_tpu_torch.runtime.checkpoint import (
+    CheckpointManager,
+)
+from ray_dynamic_batching_tpu_torch.serve import CompletionsHandle
+from ray_dynamic_batching_tpu_torch.serve.controller import DeploymentConfig
+from ray_dynamic_batching_tpu_torch.serve.handle import DeploymentHandle
+from ray_dynamic_batching_tpu_torch.serve.llm import LLMDeployment
+from ray_dynamic_batching_tpu_torch.serve.proxy import HTTPProxy, ProxyRouter
+from ray_dynamic_batching_tpu_torch.serve.router import Router
+root = tempfile.mkdtemp()
+src = causal_lm.CausalLM(causal_lm.TINY_LM, name="llama_tiny",
+                         dtype=torch.float32, device="cpu", seed=7)
+CheckpointManager(root).save(3, params_to_flax(src))
+dep = LLMDeployment("llama_tiny", num_slots=2, max_len=32,
+                    prompt_buckets=[8], default_max_new_tokens=3,
+                    dtype=torch.float32, device="cpu", checkpoint_dir=root,
+                    warmup=False)
+replica = dep.make_replica("probe", DeploymentConfig(name="llama_tiny"))
+assert torch.equal(replica.engine.model.module.final_norm.scale,
+                   src.module.final_norm.scale)
+replica.start()
+router = Router("llama_tiny", replicas=[replica], max_assign_timeout_s=30.0)
+routes = ProxyRouter()
+routes.set_route("/v1/completions", CompletionsHandle(
+    DeploymentHandle(router, default_slo_ms=1e7), model="llama_tiny"))
+proxy = HTTPProxy(routes, host="127.0.0.1", port=0).start()
+try:
+    conn = http.client.HTTPConnection("127.0.0.1", proxy.port, timeout=60)
+    conn.request("POST", "/v1/completions",
+                 body=json.dumps({{"prompt": [1, 2, 3], "max_tokens": 3}}))
+    body = json.loads(conn.getresponse().read())
+    conn.close()
+    print(body["result"]["usage"]["completion_tokens"],
+          body["result"]["choices"][0]["finish_reason"])
+finally:
+    proxy.stop()
+    router.close()
+    replica.stop(timeout_s=5.0, drain=False)
+"""
+
+
+def test_serving_surface_runs_with_jax_blocked():
+    """Every module of the serving surface imports with JAX, flax and the
+    JAX package blocked; a checkpoint the port wrote restores into an
+    ``LLMDeployment(checkpoint_dir=)`` that answers one
+    ``/v1/completions`` request on the CPU."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", _SURFACE_PROBE.format(forbidden=FORBIDDEN)],
+        capture_output=True, text=True, timeout=120, cwd=str(ROOT), env=env,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "3 length"
+
+
+_NO_GRPC_PROBE = """
+import sys
+for name in {forbidden!r} + ("grpc",):
+    sys.modules[name] = None      # any import of them now raises
+import ray_dynamic_batching_tpu_torch.serve as serve
+from ray_dynamic_batching_tpu_torch.serve import grpc_proxy
+assert serve.CompletionsHandle is not None
+assert grpc_proxy.HAVE_GRPC is False and grpc_proxy.grpc is None
+try:
+    grpc_proxy.GRPCProxy(serve.ProxyRouter())
+except RuntimeError as e:
+    print(e)
+"""
+
+
+def test_serve_imports_without_grpc():
+    """With grpcio blocked too, the ``serve`` package and the gRPC door's
+    module import; building the door raises and says why."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", _NO_GRPC_PROBE.format(forbidden=FORBIDDEN)],
+        capture_output=True, text=True, timeout=120, cwd=str(ROOT), env=env,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "grpcio is not installed"

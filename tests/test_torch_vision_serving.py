@@ -175,11 +175,20 @@ def test_model_host_refcounts_and_seeded_weights():
 
 
 def test_model_host_refuses_checkpoints():
-    with pytest.raises(NotImplementedError, match="runtime/checkpoint"):
-        ModelHost(checkpoint_dir="/nonexistent", device="cpu")
-    host = ModelHost(device="cpu")
-    with pytest.raises(NotImplementedError, match="runtime/checkpoint"):
+    """What the host still refuses: saving a model it has not loaded, or
+    with nowhere to write. A model with no checkpoint directory under
+    ``checkpoint_dir`` is drawn from the seed (the reference's rule)."""
+    host = ModelHost(checkpoint_dir="/nonexistent", device="cpu", seed=3)
+    with pytest.raises(KeyError, match="not loaded"):
         host.save_checkpoint("vit_tiny")
+    a = host.acquire("vit_tiny")
+    b = ModelHost(device="cpu", seed=3).acquire("vit_tiny")
+    assert all(torch.equal(x, y) for x, y in zip(
+        a.state_dict().values(), b.state_dict().values()))
+    bare = ModelHost(device="cpu")
+    bare.acquire("vit_tiny")
+    with pytest.raises(ValueError, match="no checkpoint_dir"):
+        bare.save_checkpoint("vit_tiny")
 
 
 # --- the engine twins --------------------------------------------------------
