@@ -8,7 +8,7 @@ Phases, each printing its own lines; any failure exits non-zero before the
 last line:
 
 1. device — the card's name and power limit (``nvidia-smi``);
-2. build — ``nvcc`` builds the four kernels from ``csrc/`` (one process
+2. build — ``nvcc`` builds the kernels from ``csrc/`` (one process
    each, in parallel);
 3. kernels — each kernel against its plain PyTorch version at the main
    paths' shapes, in bf16 and f32 (the paged kernel also at a Tq = 4
@@ -236,7 +236,8 @@ last line:
     and the slab trains' row-cache chunks among them), each served by an
     eager and a graphed engine: greedy tokens identical, launch counts
     equal, and the graphed engine captured. Speed, printed only:
-    llama3_8b at full width and depth, bf16, phase 5's 8 requests on the
+    llama3_8b at full width, ``SPEED_LAYERS`` = 8 layers (cut from 32 for
+    the time limit), bf16, phase 5's 8 requests on the
     slab arm and phase 6's 10 on the paged arm, eager then graphed, each
     served twice — once with a span collector (tok/s, TTFT p50 / max,
     ``decode.turn`` a step p50 by horizon) and once under
@@ -306,8 +307,9 @@ last line:
     draft on each of the five arms: tokens identical and acceptance at
     least 0.99, so that every fill path of the draft (group prefill,
     long-fill replay at a fill's and a train's end, catch-ups, int8) is
-    held by what it proposes. (b) llama3_8b bf16 at full width and depth,
-    the target module as its own draft (``LLMDeployment(draft_model=)``),
+    held by what it proposes. (b) llama3_8b bf16 at full width,
+    ``SPEED_LAYERS`` = 8 layers (cut from 32 for the time limit), the
+    target module as its own draft (``LLMDeployment(draft_model=)``),
     on the slab and paged (chunked) arms beside the same deployment
     without a draft: phase 5's 6 greedy requests, then phase 5's whole
     mix (its 2 sampled rows make every step they share plain, each
@@ -345,8 +347,9 @@ last line:
     version (1e-3), then phase 6's 10 requests on the slab, paged, slab
     train, int8-KV and int8-KV paged arms, graphed through the kernel and
     eager through the plain version (``quant_matmul.plain_products``):
-    greedy tokens identical. (b) llama3_8b bf16 at full width and depth,
-    random weights from seed 0: phase 5's 8 requests on the slab and
+    greedy tokens identical. (b) llama3_8b bf16 at full width,
+    ``SPEED_LAYERS`` = 8 layers (cut from 32 for the time limit), random
+    weights from seed 0: phase 5's 8 requests on the slab and
     phase 6's 10 on the pool, graphed, first in bf16 and then with the
     same model quantized on the card; printed side by side: tok/s, TTFT
     p50 and max, ``decode.turn`` ms a step, the device's idle share,
@@ -408,7 +411,8 @@ last line:
     gathered logits bit-identical); each rank reports its kernel counts
     and the arm's kernel (2 on the slab, 4 — kernel 3 per kv-head
     shard — on the pool) must have launched on every rank. (b) BASELINE
-    config 4: llama3_8b bf16 at full width and depth, TP = 4, served
+    config 4: llama3_8b bf16 at full width, ``SPEED_LAYERS`` = 8 layers
+    (cut from 32 so phase 22 fits the time limit), TP = 4, served
     through ``LLMDeployment(paged=True, num_slots=16,
     mesh_backend="gloo", warmup=False)`` (a mesh engine's programs run
     eagerly: warming them would only record the capture ledger) and
@@ -450,6 +454,38 @@ last line:
     the same weights served from memory; save and restore seconds and
     GB/s printed. Kernels 1 and 2 report their launches under
     ``surface``. It prints its wall time.
+22. train — the training path (``parallel/{train,optim,pipeline}.py``,
+    ``ops/ring_attention.py``, kernel 1's backward
+    ``csrc/flash_attention_bwd.cu`` behind ``FlashAttentionFn``). (a) the
+    backward against autograd of the plain version on the same inputs,
+    causal + a key mask: llama3_8b's training shape q [4, 512, 32, 128],
+    k/v [4, 512, 8, 128] in f32 and bf16, a small GQA case and a case
+    with fully masked rows (their dq must be exactly 0); out / dq / dk /
+    dv max abs error over the reference's largest |value| against
+    ``TRAIN_TOL``; at the training shape in bf16, forward + backward
+    timed beside the plain version's autograd, SDPA forward + backward on
+    the same tensors, and the bound (q, k, v, dO, the mask, out, dq, dk,
+    dv moved once; 12 H FLOPs an attended pair a head); the bare launch
+    must refuse an input that requires grad. (b) llama3_8b at full width:
+    f32 at 2 layers, one step's loss and gradients through kernel 1 and
+    its backward against the plain route; then bf16 compute over f32
+    params and AdamW moments at ``TRAIN_LAYERS`` = 4 layers (1.92 B
+    params: AdamW's 16 B a param puts all 32 layers, 128 GB, past the
+    card), B 4 x T 512, random weights from seed 0, 5 steps on one
+    batch, AdamW at 1e-4: the loss must fall; step ms, tokens/s, model
+    TFLOP/s and peak
+    memory printed. Its counts are set to 0 just before the 5 steps and
+    read after: kernel 1 and its backward once a layer a step, nothing
+    else. (c) two gloo worlds of four ranks on cuda:0, one after the
+    other, each against the one-card step computed (and reduced to its
+    loss and gradients on the host) before the world starts: dp x sp x
+    tp = 1 x 2 x 2, llama3_8b at full width, 2 layers, f32 (ring
+    attention over sp, TP collectives; each rank's gradient slices
+    against a file of the one-card gradients it maps), and pp x ep = 2 x
+    2, moe_tiny in two GPipe stages with its experts over ep (the
+    gradients merged from every rank); loss within ``TRAIN_LOSS_TOL``,
+    every leaf within ``TRAIN_GRAD_TOL``; then two steps whose loss
+    falls. Not distributed speed: the ranks time-share one card.
 
 Phase 3 also holds kernel 4 (``paged_decode_attention_tp``): at llama3_8b's
 shape, q [16, 1, 32, 128] over pools [64, 128, 8, 128] in bf16 and f32
@@ -465,7 +501,7 @@ was captured after a warmup ended. Phases 5 to 13 and 16 to 18 are
 served graphed (phase 19's decoders too; its encoders and ``StreamingASR``
 run eagerly).
 
-Phases 5 to 14, 16 to 19, 20b's and 21's runs each set every launch count to 0
+Phases 5 to 14, 16 to 19, 20b's, 21's and 22b's runs each set every launch count to 0
 just before they serve and read them just after: each kernel of the path
 must have launched the number of times the engine's dispatches imply,
 the other kernels and the plain route never (a graph replay adds the
@@ -487,9 +523,9 @@ The line before the last is one JSON object with the per-kernel numbers
 (``launches`` sums the serving phases, phase 14's graphed speed runs
 among them; ``launches_by_path`` splits them) and the numbers of the
 front, controller, colocate, vision, graphs, sim, reuse, spec, weights,
-servables, tp and surface phases (``front``, ``controller``,
+servables, tp, surface and train phases (``front``, ``controller``,
 ``colocate``, ``vision``, ``graphs``, ``sim``, ``reuse``, ``spec``,
-``weights``, ``servables``, ``tp``, ``surface``; the
+``weights``, ``servables``, ``tp``, ``surface``, ``train``; the
 per-hop splits under ``front.hops``, ``colocate.runs.diagnostic.turns``
 and ``vision.traced``, the front-door run under ``front.front_door``);
 the last line is
@@ -551,6 +587,27 @@ POOL = SLOTS * NP
 # heads of 104.
 VIT_SHAPE = (64, 197, 12, 64)
 VIT_G_SHAPE = (32, 257, 16, 104)
+
+
+# The depth of the speed-only llama3_8b runs of phases 14, 17b, 18b and 20b
+# (full width): cut from 32 so the script, phase 22 with it, fits the chip
+# call's time limit (PERF.md section 4).
+SPEED_LAYERS = 8
+SPEED_NAME = "llama3_8b_speed_cut"   # 20b's registry name for it
+
+
+def _speed_model(**kwargs):
+    """llama3_8b at full width and SPEED_LAYERS deep (bf16, seed 0 unless
+    ``kwargs`` say otherwise)."""
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        LLAMA3_8B,
+        CausalLM,
+    )
+
+    kwargs.setdefault("dtype", torch.bfloat16)
+    kwargs.setdefault("seed", 0)
+    return CausalLM(dataclasses.replace(LLAMA3_8B, num_layers=SPEED_LAYERS),
+                    "llama3_8b", **kwargs)
 
 
 def fail(msg: str) -> None:
@@ -1699,6 +1756,7 @@ def _counts() -> dict:
     from ray_dynamic_batching_tpu_torch.ops import quant_matmul as qm
 
     return {"flash_attention": fl.launches,
+            "flash_attention_bwd": fl.bwd_launches,
             "decode_attention": dec.launches,
             "paged_decode_attention": dec.paged_launches,
             "decode_attention_int8": dec.int8_launches,
@@ -4419,7 +4477,7 @@ def phase_graphs() -> tuple:
     """Phase 14: graphed against eager. Parity (gated): llama3_8b at full
     width, 2 layers, f32, phase 6's 10 requests on the slab, paged, int8,
     int8-paged and slab-train arms. Speed (printed, not gated): llama3_8b
-    at full width and depth, bf16, phase 5's 8 requests on the slab arm
+    at full width, SPEED_LAYERS deep, bf16, phase 5's 8 requests on the slab arm
     and phase 6's 10 on the paged arm, eager then graphed. Returns (the
     graphed speed runs' launch counts, the phase's numbers)."""
     from ray_dynamic_batching_tpu_torch.models.causal_lm import (
@@ -4448,8 +4506,7 @@ def phase_graphs() -> tuple:
         gc.collect()
         torch.cuda.empty_cache()
 
-    model = CausalLM(LLAMA3_8B, "llama3_8b", dtype=torch.bfloat16,
-                     device="cuda", seed=0)
+    model = _speed_model(device="cuda")
     speed, counts = {}, {}
     for arm, knobs, load in (
             ("slab", SLAB_KNOBS,
@@ -5832,7 +5889,7 @@ def _fmt(r: dict) -> str:
 
 
 def _spec_llama(smi: str, V: int) -> tuple:
-    """17b: llama3_8b bf16 at full depth, self-draft (the target module
+    """17b: llama3_8b bf16, SPEED_LAYERS deep, self-draft (the target module
     as ``draft_model``), slab and paged (chunked): phase 5's 6 greedy
     requests alone, then phase 5's mix (2 sampled rows: plain steps and
     catch-ups); each beside the same deployment without a draft."""
@@ -5843,8 +5900,7 @@ def _spec_llama(smi: str, V: int) -> tuple:
 
     mix = _payloads(np.random.default_rng(0), V, 32, 8, 2, 0)
     greedy = [p for p in mix if not p.get("temperature")]
-    model = CausalLM(LLAMA3_8B, "llama3_8b", dtype=torch.bfloat16,
-                     device="cuda", seed=0)
+    model = _speed_model(device="cuda")
     out, counts = {}, {}
     for arm, knobs in (("slab", SLAB_KNOBS), ("paged", PAGED_KNOBS)):
         tag = f"spec llama3_8b {arm}"
@@ -6134,7 +6190,7 @@ def _w8_by_kernel(tag: str, run: dict) -> None:
 
 
 def _w8_llama(smi: str, V: int, profile: bool = False) -> tuple:
-    """18b: llama3_8b bf16 at full width and depth, seed 0, served on the
+    """18b: llama3_8b bf16 at full width, SPEED_LAYERS deep, seed 0, served on the
     slab (phase 5's 8 requests) and the pool (phase 6's 10), without and
     then with int8 weights (the same model, quantized on the card)."""
     from ray_dynamic_batching_tpu_torch.models.causal_lm import (
@@ -6156,8 +6212,7 @@ def _w8_llama(smi: str, V: int, profile: bool = False) -> tuple:
                                             8, 2, 0)),
              "paged": (PAGED_KNOBS, _payloads(np.random.default_rng(1), V,
                                               32, 8, 2, 2))}
-    model = CausalLM(LLAMA3_8B, "llama3_8b", dtype=torch.bfloat16,
-                     device="cuda", seed=0)
+    model = _speed_model(device="cuda")
     budget = torch.cuda.get_device_properties(0).total_memory
     runs, counts = {}, {}
     for mode in ("bf16", "int8"):
@@ -7158,7 +7213,12 @@ def _tp_baseline(payloads) -> tuple:
     t0 = time.monotonic()
     # Not warmed: a mesh engine's programs run eagerly, so warming them
     # would only record the capture ledger, ~35 s of four ranks on one card.
-    dep = LLMDeployment("llama3_8b", dtype=torch.bfloat16, seed=0,
+    # SPEED_LAYERS deep, under a name of its own so that every rank draws
+    # its shard from the seed (a model handed in is broadcast whole).
+    from ray_dynamic_batching_tpu_torch.models.base import register_model
+
+    register_model(SPEED_NAME)(_speed_model)
+    dep = LLMDeployment(SPEED_NAME, dtype=torch.bfloat16, seed=0,
                         mesh_backend="gloo", warmup=False, **PAGED_KNOBS)
     replica = dep.make_replica("llama3_8b-tp4",
                                DeploymentConfig(name="llama3_8b"),
@@ -7754,6 +7814,500 @@ def phase_surface() -> tuple:
     return counts, out
 
 
+# --- phase 22: training ------------------------------------------------------
+TRAIN_BWD_SOURCE = "ray_dynamic_batching_tpu_torch/csrc/flash_attention_bwd.cu"
+# The backward of kernel 1's masked/causal body (port-own: the JAX package
+# differentiates its attention with XLA's autodiff).
+TRAIN_BWD_REPLACES = "ray_dynamic_batching_tpu/ops/flash_attention.py:154"
+# dQ/dK/dV held to the plain version's autograd: max abs error over the
+# largest |gradient| of the reference.
+TRAIN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _train_attn_inputs(B, T, N, K, H, dtype, gen, masked_row=False):
+    """q [B, T, N, H], k/v [B, T, K, H] ~ N(0, 1), a key mask with row 1's
+    last quarter padding (and with ``masked_row`` row 0's first 3 keys
+    padding: its first 3 query rows attend nothing under causal), dO."""
+    mk = lambda *shape: torch.randn(*shape, generator=gen, device="cuda",
+                                    dtype=torch.float32).to(dtype)
+    tm = torch.ones((B, T), dtype=torch.bool, device="cuda")
+    tm[min(1, B - 1), 3 * T // 4:] = False
+    if masked_row:
+        tm[0, :3] = False
+    return dict(q=mk(B, T, N, H), k=mk(B, T, K, H), v=mk(B, T, K, H),
+                dout=mk(B, T, N, H), keep=tm[:, None, None, :].expand(
+                    B, 1, T, T).to(torch.int8).contiguous()[:, 0])
+
+
+def _train_attn_grads(x, kernel: bool):
+    """(out, dq, dk, dv): FlashAttentionFn (kernel) or autograd of the
+    plain version on the same inputs, causal."""
+    from ray_dynamic_batching_tpu_torch.ops import flash_attention as fl
+
+    q, k, v = (x[n].detach().requires_grad_(True) for n in "qkv")
+    if kernel:
+        out = fl.flash_attention(q, k, v, causal=True,
+                                 mask=x["keep"][:, None])
+    else:
+        out = fl.flash_attention_plain(q, k, v, x["keep"], causal=True)
+    return (out, *torch.autograd.grad(out, (q, k, v), x["dout"]))
+
+
+def _train_attn_cost(x) -> tuple:
+    """Forward + backward: q, k, v, dO, the mask and out, dq, dk, dv moved
+    once each; 12 H FLOPs an attended (row, key) pair a query head (QK^T
+    and PV forward; dV, dP, dQ, dK backward)."""
+    keep = (x["keep"] != 0) & torch.ones(
+        x["keep"].shape[1:], dtype=torch.bool, device="cuda").tril()
+    pairs = int(keep.sum().item())
+    N, H = x["q"].shape[2:]
+    nbytes = 3 * _nbytes(x["q"], x["k"], x["v"]) + _nbytes(x["keep"])
+    return nbytes, 12 * N * H * pairs
+
+
+def _train_sdpa(x):
+    """The library call: SDPA forward + backward on the same tensors (the
+    causal and key masks as one boolean mask)."""
+    T = x["q"].shape[1]
+    mask = (x["keep"] != 0)[:, None] & torch.ones(
+        (T, T), dtype=torch.bool, device="cuda").tril()
+    q, k, v = (x[n].detach().requires_grad_(True) for n in "qkv")
+    out = _sdpa(q, k, v, mask)
+    return torch.autograd.grad(out, (q, k, v), x["dout"])
+
+
+def _train_kernel_row() -> dict:
+    """22a: the backward kernel against autograd of the plain version at
+    llama3_8b's training shape (bf16, f32), a small GQA case and a case
+    with fully masked rows; fwd + bwd times beside the plain version,
+    SDPA forward + backward and the bound."""
+    from ray_dynamic_batching_tpu_torch.ops import attention
+    from ray_dynamic_batching_tpu_torch.ops import flash_attention as fl
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    row = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": TRAIN_BWD_SOURCE, "replaces": TRAIN_BWD_REPLACES}
+    cases = [("llama3_8b", (4, 512, 32, 8, 128), False),
+             ("gqa_small", (2, 80, 8, 2, 64), False),
+             ("masked_rows", (2, 96, 4, 4, 128), True)]
+    for case, dims, masked in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = _train_attn_inputs(*dims, dtype, gen, masked_row=masked)
+            got = _train_attn_grads(x, kernel=True)
+            torch.cuda.synchronize()
+            want = _train_attn_grads(x, kernel=False)
+            errs = []
+            for g, w in zip(got, want):
+                if not torch.isfinite(g.float()).all():
+                    fail(f"22a {case}: non-finite gradient")
+                scale = max(w.float().abs().max().item(), 1e-30)
+                errs.append((g.float() - w.float()).abs().max().item()
+                            / scale)
+            if masked:
+                dead = got[1][0, :3].float().abs().max().item()
+                if dead != 0.0:
+                    fail(f"22a {case}: a fully masked row's dq is {dead}, "
+                         "not 0")
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            print(f"[train] 22a {case} {tag} q{tuple(x['q'].shape)} "
+                  f"k{tuple(x['k'].shape)}: out / dq / dk / dv max abs err "
+                  f"over max |ref| " + " / ".join(f"{e:.3e}" for e in errs)
+                  + f" (tol {TRAIN_TOL[dtype]:.0e})", flush=True)
+            if not max(errs) <= TRAIN_TOL[dtype]:
+                fail(f"22a {case} {tag}: {errs} > {TRAIN_TOL[dtype]}")
+            row[f"{case}_max_rel_err_{tag}"] = errs
+            if case == "llama3_8b" and dtype == torch.bfloat16:
+                nbytes, flops = _train_attn_cost(x)
+                b_ms, b_by = bound(nbytes, flops, dtype)
+                row.update(
+                    q_shape=list(x["q"].shape), kv_shape=list(x["k"].shape),
+                    dtype="bfloat16", max_abs_err=max(errs[1:]),
+                    ms=time_ms(lambda: _train_attn_grads(x, True), 5, 3),
+                    plain_ms=time_ms(lambda: _train_attn_grads(x, False),
+                                     3, 3),
+                    library_ms=time_ms(lambda: _train_sdpa(x), 5, 3),
+                    bound_ms=b_ms, bound_by=b_by, bound_mb=nbytes / 1e6,
+                    timed="forward + backward")
+                fwd = time_ms(lambda: fl.flash_attention(
+                    x["q"], x["k"], x["v"], causal=True,
+                    mask=x["keep"][:, None]), 5, 3)
+                row["forward_ms"] = fwd
+                print(f"[train] 22a llama3_8b bf16 forward + backward: "
+                      f"kernel {row['ms']:.4f} ms (forward alone "
+                      f"{fwd:.4f}), plain {row['plain_ms']:.4f} ms, sdpa "
+                      f"{row['library_ms']:.4f} ms, bound "
+                      f"{row['bound_ms']:.4f} ms ({b_by}, "
+                      f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)",
+                      flush=True)
+    # The guard: the bare launch refuses an input that requires grad.
+    x = _train_attn_inputs(1, 32, 2, 2, 64, torch.bfloat16, gen)
+    q = x["q"].detach().requires_grad_(True)
+    try:
+        fl._launch(q, x["k"], x["v"], None, causal=True, scale=0.125)
+    except RuntimeError as e:
+        print(f"[train] 22a guard: the bare launch refused ({e})",
+              flush=True)
+    else:
+        fail("22a: the bare kernel-1 launch took an input that requires "
+             "grad")
+    attention.reset_counts()   # comparison launches do not count
+    return row
+
+
+TRAIN_LAYERS = 4          # 22b: AdamW state is 16 B a param (see PERF.md)
+TRAIN_PARITY_LAYERS = 2   # 22b's parity and 22c's TP / ring program
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-3           # 22c's steps and the parity's state (optax's 1e-3)
+# 22b's AdamW rate: at 1e-3 the 1.92 B-param model overshoots after its
+# third step on one batch (call 2 of PR 20: 12.29 9.44 7.01 7.26 8.12).
+TRAIN_RUN_LR = 1e-4
+# 22b / 22c: each gradient leaf against its reference, max abs error over
+# the leaf's largest |gradient|; losses relative.
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_DIR = "build/train22"
+
+
+def _train_batch(cfg, B: int, T: int, seed: int):
+    """Tokens [B, T] from a seed and a mask with the last row's final
+    quarter padding (host tensors: every rank cuts its own share)."""
+    gen = torch.Generator().manual_seed(seed)
+    tok = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                        dtype=torch.int32)
+    mask = torch.ones((B, T), dtype=torch.int32)
+    mask[-1, 3 * T // 4:] = 0
+    return tok, mask
+
+
+def _grad_errs(got: dict, want: dict, scale: dict = None) -> dict:
+    """Each leaf's max abs error over its reference's largest entry."""
+    out = {}
+    for n, w in want.items():
+        g = got[n].to(w.device).float()
+        s = (scale or {}).get(n) or w.abs().max().item()
+        out[n] = (g - w.float()).abs().max().item() / max(s, 1e-30)
+    return out
+
+
+def _train_parity() -> dict:
+    """22b parity: llama3_8b full width, 2 layers, f32; one step's loss and
+    gradients through kernel 1 (+ its backward) against the plain route."""
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        LLAMA3_8B,
+        CausalLM,
+    )
+    from ray_dynamic_batching_tpu_torch.ops import attention
+    from ray_dynamic_batching_tpu_torch.ops import flash_attention as fl
+    from ray_dynamic_batching_tpu_torch.parallel import optim
+    from ray_dynamic_batching_tpu_torch.parallel import train
+
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=TRAIN_PARITY_LAYERS)
+    model = CausalLM(cfg, name="llama3_8b", dtype=torch.float32,
+                     device="cuda", seed=0)
+    params, _ = train.make_sharded_train_state(model, None,
+                                               optim.adamw(TRAIN_LR))
+    tok, mask = _train_batch(cfg, 2, 128, 22)
+    attention.reset_counts()
+    loss, grads = train.loss_and_grads(model, None, params, tok, mask)
+    grads = {n: g.clone() for n, g in grads.items()}
+    launched = (fl.launches, fl.bwd_launches)
+    with attention.plain_attention():
+        loss_p, grads_p = train.loss_and_grads(model, None, params, tok,
+                                               mask)
+    errs = _grad_errs(grads, grads_p)
+    worst = max(errs, key=errs.get)
+    rel = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+    print(f"[train] 22b parity llama3_8b f32 {TRAIN_PARITY_LAYERS} layers "
+          f"B2 x T128: loss {float(loss):.6f} kernel vs {float(loss_p):.6f} "
+          f"plain (rel {rel:.2e}, tol {TRAIN_LOSS_TOL:.0e}); gradients max "
+          f"err / max |ref| {errs[worst]:.3e} ({worst}; tol "
+          f"{TRAIN_GRAD_TOL:.0e}); kernel 1 / backward launches {launched}",
+          flush=True)
+    if rel > TRAIN_LOSS_TOL or errs[worst] > TRAIN_GRAD_TOL:
+        fail("22b parity: the kernel route's loss or gradients differ from "
+             "the plain route's")
+    if launched != (TRAIN_PARITY_LAYERS, TRAIN_PARITY_LAYERS):
+        fail(f"22b parity: launches {launched}, expected one forward and "
+             "one backward a layer")
+    del model, params, grads, grads_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    attention.reset_counts()
+    return dict(loss_rel_err=rel, grad_max_rel_err=errs[worst])
+
+
+def _train_run(smi: str) -> tuple:
+    """22b training: llama3_8b full width, bf16 compute over f32 params and
+    AdamW moments, TRAIN_LAYERS layers, B 4 x T 512, TRAIN_STEPS steps on
+    one batch. Returns (the steps' launch counts, summary)."""
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        LLAMA3_8B,
+        CausalLM,
+    )
+    from ray_dynamic_batching_tpu_torch.ops import attention
+    from ray_dynamic_batching_tpu_torch.parallel import optim
+    from ray_dynamic_batching_tpu_torch.parallel import train
+
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=TRAIN_LAYERS)
+    B, T = 4, 512
+    torch.cuda.reset_peak_memory_stats()
+    model = CausalLM(cfg, name="llama3_8b", dtype=torch.bfloat16,
+                     device="cuda", seed=0)
+    opt = optim.adamw(TRAIN_RUN_LR)
+    params, opt_state = train.make_sharded_train_state(model, None, opt)
+    n_params = sum(p.numel() for p in params.values())
+    step = train.make_train_step(model, None, opt)
+    tok, mask = _train_batch(cfg, B, T, 23)
+    tok, mask = tok.cuda(), mask.cuda()
+    torch.cuda.synchronize()
+    attention.reset_counts()      # the main path's run starts here
+    losses, ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, tok, mask)
+        losses.append(float(loss))     # one host read a step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = _counts()
+    want = {"flash_attention": TRAIN_LAYERS * TRAIN_STEPS,
+            "flash_attention_bwd": TRAIN_LAYERS * TRAIN_STEPS}
+    _expect_only("22b training", counts, want)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"22b training: losses {losses} do not fall")
+    steady = statistics.median(ms[1:])
+    tokens = B * T
+    flops = 3 * model.flops_per_sample(T) * B       # forward + backward
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    summary = dict(layers=TRAIN_LAYERS, params=n_params, batch=[B, T],
+                   losses=losses, step_ms=ms, steady_step_ms=steady,
+                   tokens_per_s=tokens / steady * 1e3,
+                   model_tflops=flops / steady / 1e9, peak_gb=peak,
+                   card=smi)
+    print(f"[train] 22b llama3_8b bf16 / f32 params + AdamW, "
+          f"{TRAIN_LAYERS} layers ({n_params / 1e9:.3f} B params), B {B} x "
+          f"T {T}: losses " + " ".join(f"{x:.4f}" for x in losses)
+          + f"; step {steady:.1f} ms (median of steps 2-{TRAIN_STEPS}; "
+          f"first {ms[0]:.1f}), {summary['tokens_per_s']:.0f} tokens/s, "
+          f"{summary['model_tflops']:.1f} model TFLOP/s, peak "
+          f"{peak:.2f} GB; launches {counts} ({smi})", flush=True)
+    del model, params, opt_state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+def _rank_grad_check(ctx, seq, key: str, ref_path: str) -> dict:
+    """A rank's gradients (kept by ``loss_and_grads``) against its slice
+    of the reference file: each leaf's max abs error over the whole
+    reference leaf's largest entry."""
+    from ray_dynamic_batching_tpu_torch.parallel.mesh import shard_plan
+
+    ref = torch.load(ref_path, mmap=True)
+    plan = shard_plan(ctx.mesh, ctx.objects[key])
+    grads = ctx.objects.pop((key, "grads"))
+    return {n: (g.float() - plan[n].take(ref["grads"][n]).to(g.device))
+            .abs().max().item() / max(ref["scale"][n], 1e-30)
+            for n, g in grads.items()}
+
+
+def _rank_grads_np(ctx, seq, key: str) -> dict:
+    """A rank's kept gradients as numpy with the cuts of its slices."""
+    from ray_dynamic_batching_tpu_torch.parallel.mesh import shard_plan
+
+    plan = shard_plan(ctx.mesh, ctx.objects[key])
+    return {n: (g.float().cpu().numpy(),
+                [(c.dim, c.parts, c.index) for c in plan[n].cuts()])
+            for n, g in ctx.objects.pop((key, "grads")).items()}
+
+
+def _merge_grads(per_rank, shapes) -> dict:
+    out = {}
+    for n, shape in shapes.items():
+        full = torch.full(shape, float("nan"))
+        for rank in per_rank:
+            if n in rank:
+                g, cuts = rank[n]
+                view = full
+                for dim, parts, index in cuts:
+                    m = view.shape[dim] // parts
+                    view = view.narrow(dim, index * m, m)
+                view.copy_(torch.from_numpy(g))
+        out[n] = full
+    return out
+
+
+def _world_run(tag: str, conf: dict, build, steps_fn, check) -> dict:
+    """One gloo world of four ranks on cuda:0: build the train state,
+    check one step's loss and gradients, take two steps; the ranks end."""
+    from ray_dynamic_batching_tpu_torch.parallel import mesh as pm
+
+    t0 = time.monotonic()
+    mesh = pm.build_mesh(pm.MeshConfig(**conf), ["cuda:0"] * 4,
+                         backend="gloo")
+    procs = list(mesh.world._procs)
+    try:
+        t1 = time.monotonic()
+        state = build(mesh)
+        out = check(mesh, state)
+        losses = steps_fn(mesh, state)
+        if not (np.isfinite(losses).all() and losses[1] < losses[0]):
+            fail(f"22c {tag}: two steps' losses {losses}")
+        out.update(step_losses=losses, spawn_s=t1 - t0,
+                   wall_s=time.monotonic() - t0)
+    finally:
+        mesh.shutdown()
+    if any(p.is_alive() for p in procs):
+        fail(f"22c {tag}: a rank outlived its mesh")
+    print(f"[train] 22c {tag}: two steps' losses {losses[0]:.6f} -> "
+          f"{losses[1]:.6f}; world {out['wall_s']:.1f} s ({TP_LABEL})",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_mesh_tp_sp() -> dict:
+    """22c dp x sp x tp = 1 x 2 x 2: llama3_8b full width, 2 layers, f32 —
+    ring attention over sp, TP collectives over tp — against the one-card
+    step (its loss and gradients kept on the host; the gradients through a
+    file each rank maps and slices)."""
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        LLAMA3_8B,
+        CausalLM,
+    )
+    from ray_dynamic_batching_tpu_torch.parallel import mesh as pm
+    from ray_dynamic_batching_tpu_torch.parallel import optim
+    from ray_dynamic_batching_tpu_torch.parallel import train
+
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=TRAIN_PARITY_LAYERS)
+    tok, mask = _train_batch(cfg, 2, 128, 24)
+    opt = optim.adamw(TRAIN_LR)
+    model = CausalLM(cfg, name="llama3_8b", dtype=torch.float32,
+                     device="cuda", seed=0)
+    params, _ = train.make_sharded_train_state(model, None, opt)
+    ref_loss, grads = train.loss_and_grads(model, None, params, tok, mask)
+    ref_loss = float(ref_loss)
+    os.makedirs(TRAIN_DIR, exist_ok=True)
+    ref_path = os.path.join(TRAIN_DIR, "tp_sp_ref.pt")
+    torch.save({"grads": {n: g.cpu() for n, g in grads.items()},
+                "scale": {n: g.abs().max().item()
+                          for n, g in grads.items()}}, ref_path)
+    del model, params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def build(mesh):
+        shard = pm.build_sharded_model(mesh, CausalLM, cfg, "llama3_8b",
+                                       dtype=torch.float32, seed=0)
+        return shard, train.make_sharded_train_state(shard, mesh, opt)
+
+    def check(mesh, state):
+        shard, (p, _s) = state
+        loss, _ = train.loss_and_grads(shard, mesh, p, tok, mask)
+        errs = {}
+        for r in mesh.world.call(_rank_grad_check, shard.tp_shard.key,
+                                 ref_path):
+            for n, e in r.items():
+                errs[n] = max(errs.get(n, 0.0), e)
+        worst = max(errs, key=errs.get)
+        rel = abs(float(loss) - ref_loss) / abs(ref_loss)
+        print(f"[train] 22c sp2 x tp2 llama3_8b f32 {TRAIN_PARITY_LAYERS} "
+              f"layers B2 x T128: loss {float(loss):.6f} vs one card "
+              f"{ref_loss:.6f} (rel {rel:.2e}); every rank's gradient "
+              f"slice vs the one-card step: max err / max |ref| "
+              f"{errs[worst]:.3e} ({worst}; tol {TRAIN_GRAD_TOL:.0e})",
+              flush=True)
+        if rel > TRAIN_LOSS_TOL or errs[worst] > TRAIN_GRAD_TOL:
+            fail("22c sp x tp: loss or gradients differ from the one-card "
+                 "step")
+        return dict(loss_rel_err=rel, grad_max_rel_err=errs[worst])
+
+    def steps(mesh, state):
+        shard, (p, s) = state
+        step = train.make_train_step(shard, mesh, opt)
+        return [float(step(p, s, tok, mask)[2]) for _ in range(2)]
+
+    try:
+        return _world_run("sp2 x tp2", dict(sp=2, tp=2), build, steps, check)
+    finally:
+        os.remove(ref_path)
+
+
+def _train_mesh_pp_ep() -> dict:
+    """22c pp x ep = 2 x 2: moe_tiny (its registered config, 2 layers) in
+    two GPipe stages with its experts over ep, against the one-card step;
+    the gradients merged from every rank."""
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        TINY_MOE,
+        CausalLM,
+    )
+    from ray_dynamic_batching_tpu_torch.parallel import optim
+    from ray_dynamic_batching_tpu_torch.parallel import pipeline
+    from ray_dynamic_batching_tpu_torch.parallel import train
+
+    tok, mask = _train_batch(TINY_MOE, 4, 64, 25)
+    opt = optim.adamw(TRAIN_LR)
+    model = CausalLM(TINY_MOE, name="moe_tiny", dtype=torch.float32,
+                     device="cuda", seed=0)
+    params, _ = train.make_sharded_train_state(model, None, opt)
+    ref_loss, ref = train.loss_and_grads(model, None, params, tok, mask)
+    ref_loss = float(ref_loss)
+    ref = {n: g.cpu() for n, g in ref.items()}
+    del params
+
+    def build(mesh):
+        pmodel = pipeline.PipelinedCausalLM(model, mesh, n_microbatches=2)
+        return pmodel, pipeline.make_pp_train_state(pmodel, opt)
+
+    def check(mesh, state):
+        pmodel, (p, _s) = state
+        loss, _ = pipeline.pp_loss_and_grads(pmodel, p, tok, mask)
+        merged = _merge_grads(
+            mesh.world.call(_rank_grads_np, pmodel.model.tp_shard.key),
+            {n: tuple(g.shape) for n, g in ref.items()})
+        errs = _grad_errs(merged, ref)
+        worst = max(errs, key=errs.get)
+        rel = abs(float(loss) - ref_loss) / abs(ref_loss)
+        print(f"[train] 22c pp2 x ep2 moe_tiny f32 B4 x T64, 2 "
+              f"microbatches: loss {float(loss):.6f} vs one card "
+              f"{ref_loss:.6f} (rel {rel:.2e}); merged gradients max err / "
+              f"max |ref| {errs[worst]:.3e} ({worst}; tol "
+              f"{TRAIN_GRAD_TOL:.0e})", flush=True)
+        if rel > TRAIN_LOSS_TOL or errs[worst] > TRAIN_GRAD_TOL:
+            fail("22c pp x ep: loss or gradients differ from the one-card "
+                 "step")
+        return dict(loss_rel_err=rel, grad_max_rel_err=errs[worst])
+
+    def steps(mesh, state):
+        pmodel, (p, s) = state
+        step = pipeline.make_pp_train_step(pmodel, opt)
+        return [float(step(p, s, tok, mask)[2]) for _ in range(2)]
+
+    return _world_run("pp2 x ep2", dict(pp=2, ep=2), build, steps, check)
+
+
+def phase_train(smi: str) -> tuple:
+    """Phase 22 (see the module docstring). Returns (the main path's launch
+    counts, the backward kernel's row, summary)."""
+    t0 = time.monotonic()
+    row = _train_kernel_row()
+    parity = _train_parity()
+    counts, run = _train_run(smi)
+    meshes = {"sp2_tp2": _train_mesh_tp_sp(), "pp2_ep2": _train_mesh_pp_ep()}
+    wall = time.monotonic() - t0
+    print(f"[train] phase 22 took {wall:.1f} s", flush=True)
+    return counts, row, dict(parity=parity, run=run, meshes=meshes,
+                             wall_s=wall)
+
+
+def _phase_time(name: str, fn, *args):
+    """``fn(*args)``, printing its wall seconds (the script's time budget,
+    PERF.md section 4)."""
+    t0 = time.monotonic()
+    out = fn(*args)
+    print(f"[time] {name}: {time.monotonic() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     with contextlib.ExitStack() as stack:
         _main(stack)
@@ -7764,7 +8318,7 @@ def _main(stack: contextlib.ExitStack) -> None:
     all_phases = (["build", "kernels", "parity"] + list(SERVING)
                   + ["front", "controller", "colocate", "vision", "graphs",
                      "sim", "reuse", "spec", "weights", "servables", "tp",
-                     "surface"])
+                     "surface", "train"])
     ap.add_argument("--phases", default=",".join(all_phases),
                     help=f"comma-separated subset of {','.join(all_phases)} "
                          "(the device phase always runs)")
@@ -7791,18 +8345,22 @@ def _main(stack: contextlib.ExitStack) -> None:
         stack.enter_context(graphs.disable_capture())
         print("[device] --eager: every engine runs its programs eagerly",
               flush=True)
+    t_start = time.monotonic()
     if "build" in phases:
         phase_build()
-    kernels = phase_kernels() if "kernels" in phases else {}
+    kernels = (_phase_time("kernels", phase_kernels) if "kernels" in phases
+               else {})
+    print(f"[time] through phase 3: {time.monotonic() - t_start:.1f} s",
+          flush=True)
     if "parity" in phases:
-        phase_parity()
+        _phase_time("parity", phase_parity)
     by_path, cache, summary = {}, {}, {}
     for phase, (path, seed, n_long, knobs) in SERVING.items():
         if phase in phases:
             payloads = _payloads(np.random.default_rng(seed), 128256, 32, 8,
                                  2, n_long)
-            by_path[path], cache[path], summary[path] = _serving_phase(
-                phase, payloads, knobs, args.profile)
+            by_path[path], cache[path], summary[path] = _phase_time(
+                phase, _serving_phase, phase, payloads, knobs, args.profile)
     if cache:
         print("[cache] KV cache bytes by serving phase: " + ", ".join(
             f"{p} {b / 1e9:.3f} GB" for p, b in cache.items()), flush=True)
@@ -7820,31 +8378,40 @@ def _main(stack: contextlib.ExitStack) -> None:
         print("[slab_chunked] beside main and int8: " + "; ".join(beside),
               flush=True)
     front = controller = colocate = vision = graphed = sim = reuse = None
-    spec = weights = servables = tp = surface = None
+    spec = weights = servables = tp = surface = training = None
     if "front" in phases:
-        by_path["front"], front = phase_front(args.profile)
+        by_path["front"], front = _phase_time("front", phase_front,
+                                              args.profile)
     if "controller" in phases:
-        by_path["controller"], controller = phase_controller(front)
+        by_path["controller"], controller = _phase_time(
+            "controller", phase_controller, front)
     if "colocate" in phases:
-        by_path["colocate"], colocate = phase_colocate()
+        by_path["colocate"], colocate = _phase_time("colocate", phase_colocate)
     if "vision" in phases:
-        by_path["vision"], vision = phase_vision()
+        by_path["vision"], vision = _phase_time("vision", phase_vision)
     if "graphs" in phases and not args.eager:
-        by_path["graphs"], graphed = phase_graphs()
+        by_path["graphs"], graphed = _phase_time("graphs", phase_graphs)
     if "sim" in phases:
-        sim = phase_sim()
+        sim = _phase_time("sim", phase_sim)
     if "reuse" in phases:
-        by_path["reuse"], reuse = phase_reuse()
+        by_path["reuse"], reuse = _phase_time("reuse", phase_reuse)
     if "spec" in phases:
-        by_path["spec"], spec = phase_spec()
+        by_path["spec"], spec = _phase_time("spec", phase_spec)
     if "weights" in phases:
-        by_path["weights"], weights = phase_weights(args.profile)
+        by_path["weights"], weights = _phase_time("weights", phase_weights,
+                                                  args.profile)
     if "servables" in phases:
-        by_path["servables"], servables = phase_servables()
+        by_path["servables"], servables = _phase_time("servables",
+                                                      phase_servables)
     if "tp" in phases:
-        by_path["tp"], tp = phase_tp()
+        by_path["tp"], tp = _phase_time("tp", phase_tp)
     if "surface" in phases:
-        by_path["surface"], surface = phase_surface()
+        by_path["surface"], surface = _phase_time("surface", phase_surface)
+    if "train" in phases:
+        by_path["train"], kernels["flash_attention_bwd"], training = \
+            _phase_time("train", phase_train, dev["smi"])
+    print(f"[time] all phases: {time.monotonic() - t_start:.1f} s",
+          flush=True)
     for name, row in kernels.items():
         split = {path: c.get(name, 0) for path, c in by_path.items()}
         row["launches"] = sum(split.values()) if split else None
@@ -7854,7 +8421,7 @@ def _main(stack: contextlib.ExitStack) -> None:
                       "vision": vision, "graphs": graphed, "sim": sim,
                       "reuse": reuse, "spec": spec, "weights": weights,
                       "servables": servables, "tp": tp,
-                      "surface": surface}))
+                      "surface": surface, "train": training}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],
         "count": torch.cuda.device_count()}}))

@@ -159,7 +159,7 @@ def launch(lib, q, k, v) -> torch.Tensor:
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(), B,
         Tq, k.shape[1], N, k.shape[2], H, q.stride(0), q.stride(1),
         k.stride(0), k.stride(1), v.stride(0), v.stride(1), H ** -0.5, 0, 1,
-        torch.cuda.current_stream().cuda_stream)
+        None, torch.cuda.current_stream().cuda_stream)
     if rc:
         sys.exit(f"launch failed: {rc}")
     return out

@@ -179,8 +179,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   const int8_t* __restrict__ mask, __nv_bfloat16* __restrict__ out,
-                  int Tq, int Tk, int N, int K, int h, Strides st, float scale,
-                  int causal) {
+                  float* __restrict__ lse, int Tq, int Tk, int N, int K, int h, Strides st,
+                  float scale, int causal) {
   constexpr int THREADS = 256;
   constexpr int NCH = HP / 8;   // 16-byte chunks per row
   constexpr int KS = HP / 16;   // k-steps of QK^T
@@ -482,6 +482,11 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   for (int hh = 0; hh < 2; ++hh) {
     const float l = lq[hh] + xw[(NT * 4 + hh) * 32];
     inv[hh] = l == 0.f ? 1.f : 1.f / l;  // one reciprocal a row, not H divisions
+    // Training: the row's log-sum-exp for the backward (LSE [B, N, Tq]);
+    // null in every serving call.
+    const int rl = w16 + lane / 4 + 8 * hh;
+    if (lse != nullptr && lane % 4 == 0 && rl < rows)
+      lse[(static_cast<size_t>(b) * N + n) * Tq + q0 + rl] = l == 0.f ? 0.f : m_r[hh] + logf(l);
   }
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
@@ -807,7 +812,7 @@ cudaError_t launch_vision(const __nv_bfloat16* q, const __nv_bfloat16* k,
 
 template <int HP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        const int8_t* mask, void* out, int B, int Tq, int Tk,
+                        const int8_t* mask, void* out, float* lse, int B, int Tq, int Tk,
                         int N, int K, int h, Strides st, float scale, int causal,
                         cudaStream_t stream) {
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
@@ -815,8 +820,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   auto* op = static_cast<__nv_bfloat16*>(out);
   const int ntiles = (Tk + TBK - 1) / TBK;
-  if (mask == nullptr && !causal && Tq > 0 && Tk > 0) {
-    // The vision body, when one head's K and V fit in shared memory.
+  if (mask == nullptr && !causal && lse == nullptr && Tq > 0 && Tk > 0) {
+    // The vision body, when one head's K and V fit in shared memory (never
+    // for training, which needs body A's LSE).
     const size_t smem = Vision<HP, HP>::smem(Tk);
     int dev = 0, optin = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -839,7 +845,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Tq + TBQ - 1) / TBQ, N, B);
-  kern<<<grid, 256, smem, stream>>>(qp, kp, vp, mask, op, Tq, Tk, N, K, h, st, scale, causal);
+  kern<<<grid, 256, smem, stream>>>(qp, kp, vp, mask, op, lse, Tq, Tk, N, K, h, st, scale,
+                                    causal);
   return cudaGetLastError();
 }
 
@@ -853,8 +860,8 @@ template <typename T, int HP>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int8_t* __restrict__ mask,
-                 T* __restrict__ out, int Tq, int Tk, int N, int K, int h,
-                 Strides st, float scale, int causal) {
+                 T* __restrict__ out, float* __restrict__ lse, int Tq, int Tk, int N,
+                 int K, int h, Strides st, float scale, int causal) {
   constexpr int HP1 = HP + 1;     // padded smem row (odd: no bank conflicts)
   constexpr int DPT = HP / TPR;   // head dims per thread
   constexpr int KPT = BK / TPR;   // keys per thread per tile
@@ -988,12 +995,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < DPT; ++i)
       if (part + TPR * i < h) ob[part + TPR * i] = rdb::from_f<T>(acc[i] / denom);
+    if (lse != nullptr && part == 0)
+      lse[(static_cast<size_t>(b) * N + n) * Tq + qi] = l_i == 0.f ? 0.f : m_i + logf(l_i);
   }
 }
 
 template <typename T, int HP>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int8_t* mask, void* out, int B, int Tq, int Tk,
+                   const int8_t* mask, void* out, float* lse, int B, int Tq, int Tk,
                    int N, int K, int h, Strides st, float scale, int causal,
                    cudaStream_t stream) {
   const size_t smem =
@@ -1004,7 +1013,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   dim3 grid((Tq + BQ - 1) / BQ, N, B);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(out), Tq, Tk, N, K, h, st,
+      static_cast<const T*>(v), mask, static_cast<T*>(out), lse, Tq, Tk, N, K, h, st,
       scale, causal);
   return cudaGetLastError();
 }
@@ -1014,14 +1023,18 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16. H: a multiple of 8, at most 128.
 // *_bs / *_ts: q, k and v's batch and token strides in elements (a token
 // stride times Tq or Tk at most 2^31 - 1). Returns a cudaError_t (0 =
-// launched).
+// launched). lse: null (serving), or a [B, N, Tq] f32 buffer that gets each
+// row's log-sum-exp of the scaled scores (0 for a row with no attended key),
+// the saved state of flash_attention_bwd.cu; a call with lse takes body A
+// (or the f32 body), never the vision body.
 extern "C" int rdb_flash_attention(const void* q, const void* k, const void* v,
                                    const void* mask, void* out, int B, int Tq,
                                    int Tk, int N, int K, int H, long long q_bs,
                                    long long q_ts, long long k_bs, long long k_ts,
                                    long long v_bs, long long v_ts, float scale,
-                                   int causal, int dtype, void* stream) {
+                                   int causal, int dtype, void* lse_out, void* stream) {
   const int8_t* m = static_cast<const int8_t*>(mask);
+  float* lse = static_cast<float*>(lse_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr long long I32 = 0x7fffffffLL;
   if (H <= 0 || H > 128 || H % 8 != 0 || q_ts * Tq > I32 || k_ts * Tk > I32 || v_ts * Tk > I32)
@@ -1030,10 +1043,10 @@ extern "C" int rdb_flash_attention(const void* q, const void* k, const void* v,
                    static_cast<int>(v_ts)};
   const bool narrow = H <= 64;
   if (dtype == 0)
-    return narrow ? launch<float, 64>(q, k, v, m, out, B, Tq, Tk, N, K, H, st, scale, causal, s)
-                  : launch<float, 128>(q, k, v, m, out, B, Tq, Tk, N, K, H, st, scale, causal, s);
+    return narrow ? launch<float, 64>(q, k, v, m, out, lse, B, Tq, Tk, N, K, H, st, scale, causal, s)
+                  : launch<float, 128>(q, k, v, m, out, lse, B, Tq, Tk, N, K, H, st, scale, causal, s);
   if (dtype == 1)
-    return narrow ? launch_bf16<64>(q, k, v, m, out, B, Tq, Tk, N, K, H, st, scale, causal, s)
-                  : launch_bf16<128>(q, k, v, m, out, B, Tq, Tk, N, K, H, st, scale, causal, s);
+    return narrow ? launch_bf16<64>(q, k, v, m, out, lse, B, Tq, Tk, N, K, H, st, scale, causal, s)
+                  : launch_bf16<128>(q, k, v, m, out, lse, B, Tq, Tk, N, K, H, st, scale, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -19,7 +19,19 @@ numpy arrays (``{"params": {...}}`` or the inner dict) and returns a
 Leaves may be numpy arrays or tensors (a checkpoint restored by
 ``runtime/checkpoint.py``: tensors keep their dtype and device, and
 ``load_state_dict`` casts them). ``params_to_flax(model)`` is the
-inverse: a built decoder's weights as that tree, in the flax layouts.
+inverse: a built decoder's weights as that tree, in the flax layouts
+(``params_to_flax(model, params)``: a dict of tensors keyed by the
+port's parameter names, such as a train state's f32 params, instead).
+
+A train state (``parallel/train.py``) bridges with optax's state:
+:func:`opt_state_to_flax` / :func:`opt_state_from_flax` map
+``(ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState())`` with
+``mu`` / ``nu`` keyed by the port's names to the same namedtuples with
+``mu`` / ``nu`` as flax params trees, optax's layout, and back;
+:func:`train_state_from_flax` takes the JAX package's ``(params,
+opt_state)`` whole. ``parallel/pipeline.py``'s split tree (``{"outer",
+"layers"}``, the layers stacked) is the reference's and is made from, and
+merged back into, the flax tree there.
 
 A JAX-quantized tree (``models/quant.py::quantize_tree`` output, its
 ``QTensor`` leaves as objects with ``q`` / ``scale`` or as ``{"q",
@@ -161,7 +173,9 @@ def params_from_flax(tree: Mapping[str, Any],
 
 
 @torch.no_grad()
-def params_to_flax(model: Any) -> Dict[str, Any]:
+def params_to_flax(model: Any,
+                   params: Optional[Mapping[str, torch.Tensor]] = None
+                   ) -> Dict[str, Any]:
     """The inverse of :func:`params_from_flax` for a built decoder: its
     weights as the JAX package's params tree ``{"params": {...}}``, each
     leaf a tensor in the flax layout (a view of the model's weight where
@@ -177,9 +191,12 @@ def params_to_flax(model: Any) -> Dict[str, Any]:
         raise ValueError(f"{model.name} holds int8 codes; checkpoint the "
                          "full-precision model and quantize after restoring")
     modules = dict(model.module.named_modules())
-    params = dict(model.module.named_parameters())
+    if params is None:
+        params = dict(model.module.named_parameters())
     flat: Dict[str, Any] = {}
     for name, (path, shape, _dims) in model.flax_leaves().items():
+        if name not in params:      # a pipeline stage's share
+            continue
         w = params[name]
         mod_name, _, leaf = name.rpartition(".")
         if isinstance(modules[mod_name], Dense) and leaf == "weight":
@@ -321,3 +338,53 @@ def asr_params_from_flax(tree: Mapping[str, Any]
     sd = _encoder_tree(tree["encoder"], "encoder", kernel)
     sd.update(_encoder_tree(tree["decoder"], "decoder", kernel))
     return sd
+
+
+def opt_state_to_flax(model: Any, opt_state: Any) -> Any:
+    """optax's state tree for ``opt_state`` (``parallel/optim.py``'s, its
+    moments keyed by port names): the same namedtuples with ``mu`` / ``nu``
+    as flax params trees (``{"params": {...}}``, flax layouts)."""
+    from ray_dynamic_batching_tpu_torch.parallel.optim import (
+        ScaleByAdamState,
+    )
+
+    adam = opt_state[0]
+    return (ScaleByAdamState(adam.count, params_to_flax(model, adam.mu),
+                             params_to_flax(model, adam.nu)),
+            *opt_state[1:])
+
+
+def opt_state_from_flax(tree: Any, cfg: DecoderConfig,
+                        device: Any = None) -> Any:
+    """The inverse of :func:`opt_state_to_flax`: optax's adamw state (the
+    JAX package's, or one restored from a checkpoint) with its moments as
+    f32 tensors keyed by port names, on ``device`` (default: where they
+    are)."""
+    from ray_dynamic_batching_tpu_torch.parallel.optim import (
+        EmptyState,
+        ScaleByAdamState,
+    )
+
+    adam = tree[0]
+
+    def moments(t):
+        return {n: _t(x).to(device=device, dtype=torch.float32)
+                .contiguous() for n, x in params_from_flax(t, cfg).items()}
+
+    count = adam.count if isinstance(adam.count, torch.Tensor) else \
+        torch.tensor(np.asarray(adam.count), dtype=torch.int32)
+    return (ScaleByAdamState(count.to(device=device, dtype=torch.int32),
+                             moments(adam.mu), moments(adam.nu)),
+            EmptyState(), EmptyState())
+
+
+def train_state_from_flax(params: Mapping[str, Any], opt_state: Any,
+                          cfg: DecoderConfig, device: Any = None):
+    """(params, opt_state) of the port from the JAX package's: params as
+    f32 tensors keyed by port names (what ``parallel/train.py`` trains),
+    the optax state by :func:`opt_state_from_flax`."""
+    flat = {n: _t(x).to(device=device, dtype=torch.float32).contiguous()
+            for n, x in params_from_flax(params, cfg).items()}
+    state = None if opt_state is None else opt_state_from_flax(
+        opt_state, cfg, device)
+    return flat, state

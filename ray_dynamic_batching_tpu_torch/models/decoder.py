@@ -54,9 +54,16 @@ gathered before sampling. Where the kv heads replicate but q is cut
 index ``n // G``: the attention reads the contiguous window of kv heads
 its heads need.
 
-Trimmed: the ring-attention branch of that path (the sequence sharded
-over the ``sp`` mesh axis) and MoE's expert parallelism (ROADMAP queue 1
-item 8b).
+In training (``parallel/train.py``) the same collectives are
+autograd-aware (``parallel/mesh.py::AxisGroup``): the column-parallel
+inputs of q/k/v and of the MLP pass through ``attn_in`` / ``mlp_in``
+(identity forward, gradient summed over tp), the row-parallel sums and
+the embedding's sum pass the gradient through, and the gathered logits
+hand each rank its slice of the gradient. The no-cache path makes the
+int8 keep-mask of its token mask once per forward and every layer's
+attention takes it; under ``ops/attention.sequence_parallel`` it takes
+ring attention over the sequence chunks instead (the model then sees this
+rank's chunk and its global positions).
 """
 
 from __future__ import annotations
@@ -445,6 +452,10 @@ class DecoderLayer(nn.Module):
         # its query heads read (parallel/mesh.py::apply_tp).
         self.heads = (N, K)
         self.kv_window: Optional[Tuple[int, int]] = None
+        # Under a mesh that cuts q/k/v (or the MLP's columns): the input's
+        # gradient is summed over tp (AxisGroup.copy_in); None otherwise.
+        self.attn_in: Optional[Callable] = None
+        self.mlp_in: Optional[Callable] = None
         self.attn_norm = _norm(cfg, device)
         self.q = Dense(D, N * H, b, dtype, device, flax_out=(N, H))
         self.k = Dense(D, K * H, b, dtype, device, flax_out=(K, H))
@@ -484,6 +495,8 @@ class DecoderLayer(nn.Module):
         B, T, _ = x.shape
         (N, K), H = self.heads, cfg.head_dim
         y = self.attn_norm(x).to(self.dtype)
+        if self.attn_in is not None:
+            y = self.attn_in(y)
         q = self.q(y).view(B, T, N, H)
         k = self.k(y).view(B, T, K, H)
         v = self.v(y).view(B, T, K, H)
@@ -547,13 +560,15 @@ class DecoderLayer(nn.Module):
             # token mask (the reference's no-cache path).
             attn = attn_ops.self_attention(q, self._kv_heads(k),
                                            self._kv_heads(v), token_mask,
-                                           causal=True)
+                                           causal=True, keep=mask)
         else:
             attn = attn_ops.dot_product_attention(
                 q, self._kv_heads(k), self._kv_heads(v), mask=mask)
         x = x + self.o(attn.reshape(B, T, N * H))
 
         y = self.mlp_norm(x).to(self.dtype)
+        if self.mlp_in is not None:
+            y = self.mlp_in(y)
         if cfg.num_experts > 0:
             if return_aux:
                 y, aux = self.moe(y, return_aux=True)
@@ -630,12 +645,7 @@ class DecoderModule(nn.Module):
         ``return_aux`` returns (logits, aux): the MoE layers'
         load-balance losses summed, a 0-d f32 tensor (0 for a dense
         model)."""
-        x = self._embed(tokens.long())
-        if self.cfg.pos == "learned":
-            # A row steered past capacity (its write dropped, its output
-            # never used) may sit past the table; clamp it in range.
-            x = x + self.pos_embed(
-                torch.clamp(positions.long(), max=self.cfg.max_seq_len - 1))
+        x = self.embed_tokens(tokens, positions)
         # Per-forward tables shared by every layer (host work once, not
         # once per layer).
         rope = None
@@ -643,7 +653,10 @@ class DecoderModule(nn.Module):
             rope = rope_tables(positions, self.cfg.head_dim,
                                self.cfg.rope_theta)
         # The int8 keep-mask the attention kernels read, made once here:
-        # every layer's kernel takes it as it is.
+        # every layer's kernel takes it as it is (on the no-cache path, the
+        # token mask's).
+        if mask is None and cache is None and token_mask is not None:
+            mask = token_mask[:, None, None, :].bool()
         mask = attn_ops.kernel_mask(mask, *tokens.shape)
         write_index = None
         if cache is not None and page_table is not None:
@@ -664,9 +677,32 @@ class DecoderModule(nn.Module):
                 x, layer_aux = x
                 if layer_aux is not None:
                     aux = aux + layer_aux
+        logits = self.logits_of(x, take)
+        return (logits, aux) if return_aux else logits
+
+    def embed_tokens(self, tokens: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+        """The residual stream's input: token (and learned position)
+        embeddings [B, T, D]."""
+        x = self._embed(tokens.long())
+        if self.cfg.pos == "learned":
+            # A row steered past capacity (its write dropped, its output
+            # never used) may sit past the table; clamp it in range.
+            x = x + self.pos_embed(
+                torch.clamp(positions.long(), max=self.cfg.max_seq_len - 1))
+        return x
+
+    def logits_of(self, x: torch.Tensor,
+                  take: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The final norm and the head over the residual stream x [B, T, D]
+        (only rows ``take`` [B] with it), gathered over tp."""
         x = self.final_norm(x)
         if take is not None:
             x = x[torch.arange(x.shape[0], device=x.device), take.long()]
+        if self.gather_logits:
+            # A vocabulary-sharded head is column-parallel: in training
+            # its input's gradient is summed over tp.
+            x = self.tp.copy_in(x)
         if self.cfg.tie_embeddings:
             w = self.tok_embed.weight
             logits = F.linear(x.to(w.dtype), w)
@@ -674,7 +710,7 @@ class DecoderModule(nn.Module):
             logits = self.lm_head(x.float())
         if self.gather_logits:
             logits = self.tp.gather_last(logits)
-        return (logits, aux) if return_aux else logits
+        return logits
 
     def _embed(self, ids: torch.Tensor) -> torch.Tensor:
         """Token embeddings; a vocabulary-sharded table looks up the ids

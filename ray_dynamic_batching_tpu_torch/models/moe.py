@@ -20,10 +20,19 @@ index of the flax last axis, shared by every expert (``wi_scale`` [F],
 ``wo_scale`` [D]); each expert's product is then one
 ``ops/quant_matmul.int8_linear`` over the rows dispatched to it.
 
-Trimmed: the sharding constraints (``_constrain``) are no-ops on one card
-and are not ported; the load-balance loss is computed only when asked
-(``return_aux=True``) and not sown into a training collection — expert
-parallelism and the loss's use in training are ROADMAP queue 1 item 8b.
+Expert parallelism (``parallel/mesh.py::apply_tp`` on a mesh with ``ep``
+above 1): a rank holds experts ``[e0, e0 + n)`` (``experts``), every rank
+routes every token (the router replicates), each runs its own experts on
+the dispatched tokens, and a sum over the ``ep`` group adds the partial
+outputs — the reference's math, whose ``_constrain`` calls are layout
+hints only. Under ``tp`` the experts' hidden columns are cut too: ``wo``'s
+partial products are summed over ``tp`` before the combine. In training
+the sums pass their gradient through, and the expert path's inputs (the
+tokens and the combine weights) have theirs summed over ``ep`` and
+``tp`` (``AxisGroup.copy_in``), so the router's gradient is whole on
+every rank. The load-balance loss (``return_aux=True``) is the
+reference's, over the router's statistics, which every rank holds whole;
+``parallel/train.py`` adds ``MOE_AUX_COEF`` times it to the loss.
 """
 
 from __future__ import annotations
@@ -62,6 +71,12 @@ class MoEBlock(nn.Module):
             self.register_parameter(f"{name}_codes", None)
             self.register_parameter(f"{name}_scale", None)
         self.weight_dtype: Optional[torch.dtype] = None
+        # Under a mesh (parallel/mesh.py::apply_tp): this rank's experts
+        # (first, count), the ep group over which their outputs sum, and
+        # the tp group where their hidden columns are cut.
+        self.experts = (0, num_experts)
+        self.ep = None
+        self.tp = None
 
     def expert_names(self):
         return EXPERTS if self.gated else ("wi", "wo")
@@ -113,7 +128,14 @@ class MoEBlock(nn.Module):
         gate_e = torch.einsum("btke,btk->bte", choice, top_gates)
         combine = dispatch * gate_e[..., None]
 
-        xe = torch.einsum("btec,btd->becd", dispatch, x.float())
+        xf = x.float()
+        for group in (self.ep, self.tp):
+            if group is not None:
+                xf = group.copy_in(xf)
+        if self.ep is not None:
+            combine = self.ep.copy_in(combine)
+        e0, n = self.experts
+        xe = torch.einsum("btec,btd->becd", dispatch[:, :, e0:e0 + n], xf)
         xe = xe.to(self.dtype)
         h = self._experts(xe, "wi")
         if self.gated:
@@ -121,7 +143,13 @@ class MoEBlock(nn.Module):
         else:
             h = F.gelu(h, approximate="tanh")
         ye = self._experts(h, "wo")
-        y = torch.einsum("btec,becd->btd", combine, ye.float()).to(x.dtype)
+        if self.tp is not None:
+            ye = self.tp.all_reduce(ye)
+        y = torch.einsum("btec,becd->btd", combine[:, :, e0:e0 + n],
+                         ye.float())
+        if self.ep is not None:
+            y = self.ep.all_reduce(y)
+        y = y.to(x.dtype)
         if not return_aux:
             return y
         # Load-balance loss (Shazeer / GShard): E * sum_e f_e * p_e.

@@ -44,6 +44,11 @@ KERNELS: Dict[str, tuple] = {
     "flash_attention": (
         "rdb_flash_attention",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
+         _F, _I, _I, _P, _P],
+    ),
+    "flash_attention_bwd": (
+        "rdb_flash_attention_bwd",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
          _F, _I, _I, _P],
     ),
     "decode_attention": (

@@ -22,9 +22,11 @@ Port of ``ray_dynamic_batching_tpu/ops/attention.py::dot_product_attention``
   ``_xla_attention``, counted apart in :data:`plain_launches`.
 
 :func:`self_attention` is the reference's no-cache entry point: it builds
-the padding mask from a ``[B, T]`` token mask and dispatches as above
-(the reference's ``sequence_parallel`` ring branch is trimmed: ROADMAP
-queue 1 item 8b).
+the padding mask from a ``[B, T]`` token mask (or takes the int8 keep-mask
+a model made once for all its layers) and dispatches as above. Under an
+active :func:`sequence_parallel` whose mesh has ``sp`` above 1 it takes
+the ring branch instead (``ops/ring_attention.py``): q/k/v and the token
+mask are then this rank's sequence chunk.
 
 :func:`tensor_parallel` is the reference's TP context (``attention.py:
 57-75``, ``:214-222``): while a mesh engine's paged decode step runs inside
@@ -69,6 +71,11 @@ plain_launches = 0
 _PLAIN: contextvars.ContextVar[bool] = contextvars.ContextVar(
     "plain_attention", default=False
 )
+# (mesh, axis) while a sequence-parallel train step runs (the reference's
+# _SP_CTX).
+_SP_CTX: contextvars.ContextVar[Optional[tuple]] = contextvars.ContextVar(
+    "sequence_parallel_ctx", default=None
+)
 # (mesh, axis, heads_split) while a TP engine's paged decode step runs.
 # A ContextVar, as in the reference: two engines on two threads never
 # see each other's mesh.
@@ -87,6 +94,18 @@ def plain_attention():
         yield
     finally:
         _PLAIN.reset(token)
+
+
+@contextlib.contextmanager
+def sequence_parallel(mesh, axis: str = "sp"):
+    """While active, :func:`self_attention` routes through ring attention
+    over the mesh's ``axis`` when that axis has more than one rank
+    (reference ``attention.py:46-55``); the train step enters it."""
+    token = _SP_CTX.set((mesh, axis))
+    try:
+        yield
+    finally:
+        _SP_CTX.reset(token)
 
 
 @contextlib.contextmanager
@@ -112,6 +131,7 @@ def reset_counts() -> None:
     plain_launches = 0
     _quant.reset_counts()
     _flash.launches = 0
+    _flash.bwd_launches = 0
     _decode.launches = 0
     _decode.int8_launches = 0
     _decode.paged_launches = 0
@@ -244,16 +264,26 @@ def self_attention(
     *,
     causal: bool = True,
     scale: Optional[float] = None,
+    keep: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Self-attention over a full (un-cached) sequence (reference
     ``attention.py:76-105``); q/k/v [B, T, *, H], token_mask [B, T]
-    nonzero = valid. Dense attention with the causal flag and the padding
-    mask ``token_mask[:, None, None, :]``, through
-    :func:`dot_product_attention` (so T >= 16 takes the flash kernel).
-    The reference's ring branch under ``sequence_parallel`` is trimmed
-    (multi-GPU)."""
-    mask = None
-    if token_mask is not None:
+    nonzero = valid. Under an active :func:`sequence_parallel` with sp > 1
+    this rank's chunk through ring attention; otherwise dense attention
+    with the causal flag and the padding mask ``token_mask[:, None, None,
+    :]`` (or ``keep``, that mask as the int8 keep-mask [B, 1, T, T] a
+    model makes once per forward), through :func:`dot_product_attention`
+    (so T >= 16 takes the flash kernel)."""
+    ctx = _SP_CTX.get()
+    if ctx is not None and ctx[0].shape.get(ctx[1], 1) > 1:
+        from ray_dynamic_batching_tpu_torch.ops.ring_attention import (
+            ring_self_attention,
+        )
+
+        return ring_self_attention(ctx[0], q, k, v, token_mask,
+                                   causal=causal, scale=scale, axis=ctx[1])
+    mask = keep
+    if mask is None and token_mask is not None:
         mask = token_mask[:, None, None, :].bool()
     return dot_product_attention(q, k, v, causal=causal, mask=mask,
                                  scale=scale)

@@ -35,6 +35,21 @@ an int8 mask that is not 16-byte aligned is copied first.
 On a CUDA tensor :func:`flash_attention` launches the kernel or raises;
 on a CPU tensor it runs :func:`flash_attention_plain`, the same function
 written in PyTorch, which the tests hold against the JAX kernel.
+
+Training: the kernel's output from a ctypes launch has no ``grad_fn``, so
+when grad mode is on and q, k or v requires grad, :func:`flash_attention`
+goes through :class:`FlashAttentionFn` (port-own; the JAX package
+differentiates its attention with XLA's autodiff). Its forward is the same
+kernel launch with the LSE pointer set: body A (or the f32 body) also
+writes each row's log-sum-exp of the scaled scores, ``[B, N, Tq]`` f32,
+and never takes the vision body. Its backward is
+``csrc/flash_attention_bwd.cu`` (a preprocess for ``D = rowsum(dO o O)``,
+a dK/dV kernel that sums GQA's query heads of a kv head inside one block,
+and a dQ kernel; P recomputed from the LSE), counted in
+:data:`bwd_launches`. On CPU tensors the same function runs
+:func:`flash_attention_fwd_plain` and :func:`flash_attention_bwd_plain`.
+The bare launch refuses an input that requires grad while grad mode is on,
+so a cut gradient cannot come back silently.
 """
 
 from __future__ import annotations
@@ -54,6 +69,8 @@ MIN_QUERY_FOR_KERNEL = 16
 #: Kernel launches since the last reset (plain-version calls do not count;
 #: a graph replay adds the launches its capture recorded).
 launches = 0
+#: Backward-kernel launches (one per FlashAttentionFn backward on the card).
+bwd_launches = 0
 
 
 def keep_mask(mask: Optional[torch.Tensor], B: int, Tq: int, Tk: int
@@ -65,6 +82,44 @@ def keep_mask(mask: Optional[torch.Tensor], B: int, Tq: int, Tk: int
         return None
     return mask.expand(B, 1, Tq, Tk).reshape(B, Tq, Tk).to(
         torch.int8).contiguous()
+
+
+def _scores(q, k, mask, causal, scale):
+    """(scaled f32 scores [B, K, G, Tq, Tk] with masked keys at NEG_INF,
+    the attended mask broadcastable to them)."""
+    B, Tq, N, H = q.shape
+    _, Tk, K, _ = k.shape
+    qg = q.reshape(B, Tq, K, N // K, H).float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * scale
+    valid = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        qpos = torch.arange(Tq, device=q.device)[:, None]
+        kpos = torch.arange(Tk, device=q.device)[None, :]
+        valid = kpos <= qpos + (Tk - Tq)
+    valid = valid[None, None, None]
+    if mask is not None:
+        valid = valid & (mask != 0)[:, None, None]
+    return torch.where(valid, s, torch.full_like(s, NEG_INF)), valid
+
+
+def flash_attention_fwd_plain(q, k, v, mask=None, *, causal: bool = False,
+                              scale: Optional[float] = None):
+    """(out, lse): :func:`flash_attention_plain`'s output and each row's
+    log-sum-exp of the scaled scores, ``[B, N, Tq]`` f32 (0 for a row with
+    no attended key), what the kernel writes through its LSE pointer."""
+    B, Tq, N, H = q.shape
+    scale = H ** -0.5 if scale is None else scale
+    s, valid = _scores(q, k, mask, causal, scale)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    pv = torch.einsum("bkgqs,bskh->bkgqh", p.to(v.dtype).float(), v.float())
+    out = pv / torch.where(l == 0.0, torch.ones_like(l), l)
+    lse = torch.where(l == 0.0, torch.zeros_like(l),
+                      m + torch.log(torch.where(l == 0.0, torch.ones_like(l),
+                                                l)))
+    return (out.permute(0, 3, 1, 2, 4).reshape(B, Tq, N, H).to(q.dtype),
+            lse.reshape(B, N, Tq))
 
 
 def flash_attention_plain(
@@ -79,28 +134,37 @@ def flash_attention_plain(
     """What the kernel computes, in PyTorch. q [B, Tq, N, H], k/v
     [B, Tk, K, H] (any strides), mask int8 [B, Tq, Tk] (1 = attend) or
     None. Scores and the softmax in f32; probabilities rounded to the
-    input type before the PV product; a row with no attended key gives 0."""
+    input type before the PV product; a row with no attended key gives 0.
+    Differentiable by autograd: the reference the backward kernel is held
+    to."""
+    return flash_attention_fwd_plain(q, k, v, mask, causal=causal,
+                                     scale=scale)[0]
+
+
+def flash_attention_bwd_plain(q, k, v, out, dout, lse, mask=None, *,
+                              causal: bool = False,
+                              scale: Optional[float] = None):
+    """What the backward kernel computes, in PyTorch: (dq, dk, dv) in the
+    inputs' dtypes from the saved ``out`` and ``lse`` (P recomputed as
+    ``exp(s - lse)`` on attended keys, ``D = rowsum(dout o out)``, ``dS =
+    P o (dP - D)``); GQA's query heads summed into their kv head."""
     B, Tq, N, H = q.shape
     _, Tk, K, _ = k.shape
     G = N // K
     scale = H ** -0.5 if scale is None else scale
-    qg = q.reshape(B, Tq, K, G, H).float()
-    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * scale
-    valid = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
-    if causal:
-        qpos = torch.arange(Tq, device=q.device)[:, None]
-        kpos = torch.arange(Tk, device=q.device)[None, :]
-        valid = kpos <= qpos + (Tk - Tq)
-    valid = valid[None, None, None]
-    if mask is not None:
-        valid = valid & (mask != 0)[:, None, None]
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
-    l = p.sum(dim=-1, keepdim=True)
-    pv = torch.einsum("bkgqs,bskh->bkgqh", p.to(v.dtype).float(), v.float())
-    out = pv / torch.where(l == 0.0, torch.ones_like(l), l)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Tq, N, H).to(q.dtype)
+    s, valid = _scores(q, k, mask, causal, scale)
+    p = torch.where(valid, torch.exp(s - lse.reshape(B, K, G, Tq, 1)),
+                    torch.zeros_like(s))
+    do = dout.reshape(B, Tq, K, G, H).float()
+    d = (do * out.reshape(B, Tq, K, G, H).float()).sum(-1)   # [B,Tq,K,G]
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, do)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", do, v.float())
+    ds = p * (dp - d.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, k.float()) * scale
+    dk = torch.einsum("bkgqs,bqkgh->bskh",
+                      ds, q.reshape(B, Tq, K, G, H).float()) * scale
+    return (dq.reshape(B, Tq, N, H).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
@@ -116,9 +180,17 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.contiguous()
 
 
-def _launch(q, k, v, mask_i8, *, causal: bool, scale: float) -> torch.Tensor:
+def _launch(q, k, v, mask_i8, *, causal: bool, scale: float,
+            lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One kernel-1 launch; ``lse`` ([B, N, Tq] f32) also takes each row's
+    log-sum-exp (training's forward)."""
     from ray_dynamic_batching_tpu_torch.ops import _build
 
+    if lse is None and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash kernel: an input requires grad and the bare launch has no "
+            "backward; call flash_attention (FlashAttentionFn) instead")
     B, Tq, N, H = q.shape
     _, Tk, K, _ = k.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -154,11 +226,73 @@ def _launch(q, k, v, mask_i8, *, causal: bool, scale: float) -> torch.Tensor:
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), float(scale), int(causal),
             0 if q.dtype == torch.float32 else 1,
+            lse.data_ptr() if lse is not None else None,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, rc, "flash_attention")
     graphs.count_launch(globals(), "launches")
     return out
+
+
+def _launch_bwd(q, k, v, out, dout, lse, mask_i8, *, causal: bool,
+                scale: float):
+    """(dq, dk, dv) from ``csrc/flash_attention_bwd.cu``."""
+    from ray_dynamic_batching_tpu_torch.ops import _build
+
+    B, Tq, N, H = q.shape
+    _, Tk, K, _ = k.shape
+    q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
+    if mask_i8 is not None:
+        mask_i8 = mask_i8.contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    scratch = torch.empty((B, N, Tq), dtype=torch.float32, device=q.device)
+    lib = _build.load("flash_attention_bwd")
+    with _build.launch_lock:
+        rc = lib.rdb_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(),
+            mask_i8.data_ptr() if mask_i8 is not None else None,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
+            B, Tq, Tk, N, K, H, float(scale), int(causal),
+            0 if q.dtype == torch.float32 else 1,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(lib, rc, "flash_attention_bwd")
+    graphs.count_launch(globals(), "bwd_launches")
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Kernel 1 with a backward (see the module docstring). Inputs: q, k,
+    v, the int8 keep-mask [B, Tq, Tk] or None (saved by reference, never
+    differentiated), causal, scale."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask_i8, causal: bool, scale: float):
+        if q.is_cuda:
+            B, Tq, N, _ = q.shape
+            lse = torch.empty((B, N, Tq), dtype=torch.float32,
+                              device=q.device)
+            out = _launch(q, k, v, mask_i8, causal=causal, scale=scale,
+                          lse=lse)
+        else:
+            out, lse = flash_attention_fwd_plain(q, k, v, mask_i8,
+                                                 causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse, mask_i8)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, mask_i8 = ctx.saved_tensors
+        if dout.is_cuda:
+            dq, dk, dv = _launch_bwd(q, k, v, out, dout, lse, mask_i8,
+                                     causal=ctx.causal, scale=ctx.scale)
+        else:
+            dq, dk, dv = flash_attention_bwd_plain(
+                q, k, v, out, dout, lse, mask_i8, causal=ctx.causal,
+                scale=ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -180,6 +314,8 @@ def flash_attention(
         raise ValueError(f"query heads {N} not divisible by kv heads {K}")
     scale = H ** -0.5 if scale is None else float(scale)
     mask_i8 = keep_mask(mask, B, Tq, Tk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, mask_i8, causal, scale)
     if q.is_cuda:
         return _launch(q, k, v, mask_i8, causal=causal, scale=scale)
     return flash_attention_plain(q, k, v, mask_i8, causal=causal, scale=scale)

@@ -59,6 +59,97 @@ def pg_allgather(group, x: torch.Tensor, size: int) -> torch.Tensor:
     return torch.stack(out)
 
 
+def pg_exchange(group, send: torch.Tensor, dst: int, recv_like: torch.Tensor,
+                src: int, rank: int, stage: bool) -> torch.Tensor:
+    """Send ``send`` to group rank ``dst`` while receiving a tensor shaped
+    like ``recv_like`` from ``src`` (a ring hop). Even ranks post their send
+    first and odd ranks their receive, so a ring of blocking transports
+    never waits on itself. ``stage``: gloo moves host memory only, so CUDA
+    tensors go through the host."""
+    out_dev = recv_like.device
+    s = send.detach().contiguous()
+    r = torch.empty(recv_like.shape, dtype=recv_like.dtype,
+                    device="cpu" if stage else out_dev)
+    if stage:
+        s = s.cpu()
+    ops = [lambda: group.send([s], dst, 0), lambda: group.recv([r], src, 0)]
+    works = [op() for op in (ops if rank % 2 == 0 else ops[::-1])]
+    for w in works:
+        w.wait()
+    return r.to(out_dev) if stage else r
+
+
+def pg_send(group, x: torch.Tensor, dst: int, stage: bool) -> None:
+    """Send ``x`` to group rank ``dst`` (through the host when ``stage``)."""
+    x = x.detach().contiguous()
+    group.send([x.cpu() if stage else x], dst, 0).wait()
+
+
+def pg_recv(group, like: torch.Tensor, src: int, stage: bool) -> torch.Tensor:
+    """A tensor shaped like ``like`` from group rank ``src``."""
+    r = torch.empty(like.shape, dtype=like.dtype,
+                    device="cpu" if stage else like.device)
+    group.recv([r], src, 0).wait()
+    return r.to(like.device) if stage else r
+
+
+def grad_flows(x: torch.Tensor) -> bool:
+    """Whether a collective on ``x`` must be autograd-aware: grad mode on
+    and ``x`` in a graph. Serving (no grad, inference, graph capture)
+    keeps the in-place collectives."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class SumForward(torch.autograd.Function):
+    """All-reduce forward, identity backward: after a row-parallel product
+    (its partial sums), a vocabulary-sharded embedding or an expert
+    partial. Every rank's loss sees the same sum, and each rank's
+    gradient of the sum is already whole."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        pg_allreduce(group, y, "sum")
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class SumBackward(torch.autograd.Function):
+    """Identity forward, all-reduce backward: the input of a
+    column-parallel product, whose gradient each rank holds only for its
+    own columns."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        pg_allreduce(ctx.group, g, "sum")
+        return g, None
+
+
+class GatherLast(torch.autograd.Function):
+    """Gather along the last dimension forward (vocabulary-sharded
+    logits), this rank's slice of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, size: int, index: int):
+        ctx.n, ctx.index = x.shape[-1], index
+        parts = pg_allgather(group, x.contiguous(), size)
+        return torch.cat(list(parts.unbind(0)), dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(-1, ctx.index * ctx.n, ctx.n).contiguous(), None,
+                None, None)
+
+
 class CollectiveGroup:
     """A named collective group over one or more mesh axes, as this rank
     sees it. The group's world size is the product of its axis sizes
@@ -81,6 +172,10 @@ class CollectiveGroup:
         return n
 
     # --- helpers ---------------------------------------------------------
+    def _group(self):
+        """The process group over this group's axes."""
+        return self.mesh.group_for(self.axes)
+
     def _linear_index(self) -> int:
         idx = 0
         for ax in self.axes:
@@ -105,7 +200,7 @@ class CollectiveGroup:
     def _allreduce(self, x: torch.Tensor, op: str) -> torch.Tensor:
         out = self._local(x)
         if self.size > 1:
-            pg_allreduce(self.mesh.group, out, op)
+            pg_allreduce(self._group(), out, op)
         if op == "mean":
             out = out / self.size
         return out
@@ -115,7 +210,7 @@ class CollectiveGroup:
         x = self._local(x)
         if self.size == 1:
             return x[None]
-        return pg_allgather(self.mesh.group, x, self.size)
+        return pg_allgather(self._group(), x, self.size)
 
     def device_put(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's chunk of a stacked ``[G * c, ...]`` array (slot g
@@ -181,7 +276,7 @@ class CollectiveGroup:
         self._check_leading(x)
         out = self._local(x)
         if self.size > 1:
-            pg_broadcast(self.mesh.group, out, root)
+            pg_broadcast(self._group(), out, root)
         return out
 
     def permute(self, x: torch.Tensor,

@@ -7,11 +7,17 @@ writes the collectives out in the model (``models/decoder.py``) on the
 mesh's ``tp`` process group.
 
 - :class:`MeshConfig` and ``AXIS_ORDER`` are the reference's, ``auto``
-  included. This slice activates ``tp``: a mesh with ``dp``, ``sp``,
-  ``pp`` or ``ep`` above 1 raises ``NotImplementedError`` (ROADMAP queue 1
-  item 8b).
+  included. Every axis is active: ``tp`` (serving and training), ``dp``
+  and ``sp`` (training's batch rows and sequence chunks, with ring
+  attention over ``sp``), ``pp`` (``parallel/pipeline.py``'s stages) and
+  ``ep`` (``models/moe.py``'s experts).
 - A :class:`Mesh` is one rank's view: every rank's device, the axis sizes,
-  this rank's index and the process group of the active axis.
+  this rank's index and coordinates (ranks laid out over ``AXIS_ORDER``
+  row-major, as the reference reshapes its devices), the world's process
+  group and one :class:`AxisGroup` per axis above 1 (``mesh.tp``,
+  ``mesh.dp``, ``mesh.sp``, ``mesh.pp``, ``mesh.ep``, and ``mesh.data``
+  over ``dp`` x ``sp``: the ranks that hold different data and the same
+  weights).
   :func:`build_mesh` of more than one device starts the ranks: the caller
   becomes rank 0 and ``parallel/spmd.World`` spawns the others. The
   backend is the caller's (``nccl`` or ``gloo``); by default NCCL when
@@ -34,8 +40,9 @@ mesh's ``tp`` process group.
 - :func:`multihost_init` is the reference's distributed bootstrap on
   ``torch.distributed.init_process_group``.
 
-Trimmed: ``batch_sharding`` and ``seq_sharding`` (the ``dp`` and ``sp``
-axes, ROADMAP queue 1 item 8b).
+- :func:`batch_sharding` / :func:`seq_sharding` are the reference's data
+  layouts as this rank's share: the contiguous block of batch rows of its
+  ``dp`` index and the contiguous sequence chunk of its ``sp`` index.
 """
 
 from __future__ import annotations
@@ -96,34 +103,55 @@ class MeshConfig:
         return MeshConfig(dp=n_devices // (tp * sp), sp=sp, tp=tp)
 
 
-class TPGroup:
-    """The collectives a sharded model issues on its mesh's ``tp`` group:
-    the sum of the row-parallel products and of the vocabulary-sharded
-    embedding, and the gather of vocabulary-sharded logits."""
+class AxisGroup:
+    """The collectives a sharded model issues on one axis group of its
+    mesh (``size`` ranks, this rank at ``index``): the sum of row-parallel
+    products, of a vocabulary-sharded embedding and of expert partials,
+    and the gather of vocabulary-sharded logits.
 
-    def __init__(self, group, size: int) -> None:
+    Serving (no grad) runs them in place on the group. Under autograd
+    (grad mode on and the input requiring grad) each is the
+    ``torch.autograd.Function`` of ``parallel/collective.py`` with its
+    conjugate on the way back: :meth:`all_reduce` sums forward and passes
+    the gradient through; :meth:`copy_in` (a column-parallel input) passes
+    forward and sums the gradient; :meth:`gather_last` gathers forward and
+    keeps this rank's slice of the gradient."""
+
+    def __init__(self, group, size: int, index: int = 0) -> None:
         self.group = group
         self.size = size
+        self.index = index
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum ``x`` over the ranks, in place; every rank ends with the
-        same values."""
-        from ray_dynamic_batching_tpu_torch.parallel.collective import (
-            pg_allreduce,
-        )
+        """Sum ``x`` over the ranks; every rank ends with the same values
+        (in place when no gradient flows)."""
+        from ray_dynamic_batching_tpu_torch.parallel import collective
 
+        if collective.grad_flows(x):
+            return collective.SumForward.apply(x, self.group)
         x = x.contiguous()
-        pg_allreduce(self.group, x, "sum")
+        collective.pg_allreduce(self.group, x, "sum")
+        return x
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as it is; under autograd its gradient is summed over the
+        ranks (the input of a column-parallel product)."""
+        from ray_dynamic_batching_tpu_torch.parallel import collective
+
+        if collective.grad_flows(x):
+            return collective.SumBackward.apply(x, self.group)
         return x
 
     def gather_last(self, x: torch.Tensor) -> torch.Tensor:
         """Concatenate every rank's ``x`` along its last dimension, in rank
         order (the logits of a vocabulary-sharded head)."""
-        from ray_dynamic_batching_tpu_torch.parallel.collective import (
-            pg_allgather,
-        )
+        from ray_dynamic_batching_tpu_torch.parallel import collective
 
-        parts = pg_allgather(self.group, x.contiguous(), self.size)
+        if collective.grad_flows(x):
+            return collective.GatherLast.apply(x, self.group, self.size,
+                                               self.index)
+        parts = collective.pg_allgather(self.group, x.contiguous(),
+                                        self.size)
         return torch.cat(list(parts.unbind(0)), dim=-1)
 
 
@@ -134,15 +162,22 @@ class Mesh:
 
     def __init__(self, shape: Dict[str, int], devices: Sequence[torch.device],
                  rank: int = 0, backend: Optional[str] = None, group=None,
-                 world=None) -> None:
+                 world=None, groups: Optional[Dict[tuple, Any]] = None
+                 ) -> None:
+        from ray_dynamic_batching_tpu_torch.parallel.spmd import coords_of
+
         self.shape = {ax: int(shape.get(ax, 1)) for ax in AXIS_ORDER}
         self.devices = [torch.device(d) for d in devices]
         self.rank = int(rank)
         self.backend = backend
         self.group = group
         self.world = world
-        self.tp = (TPGroup(group, self.shape["tp"])
-                   if self.shape["tp"] > 1 else None)
+        self.groups = dict(groups or {})
+        self.coords = coords_of(self.rank, self.shape)
+        for axes, name in ((("dp",), "dp"), (("pp",), "pp"), (("sp",), "sp"),
+                           (("tp",), "tp"), (("ep",), "ep"),
+                           (("dp", "sp"), "data")):
+            setattr(self, name, self.axis_group(axes))
 
     @property
     def device(self) -> torch.device:
@@ -158,8 +193,33 @@ class Mesh:
         return self.rank == 0
 
     def axis_index(self, axis: str) -> int:
-        """This rank's index along ``axis`` (only ``tp`` is active)."""
-        return self.rank if self.shape.get(axis, 1) > 1 else 0
+        """This rank's coordinate along ``axis``."""
+        return self.coords[axis]
+
+    def group_for(self, axes: Sequence[str]):
+        """The process group over ``axes`` (None when they span one rank):
+        the world's where they span every rank."""
+        axes = tuple(ax for ax in AXIS_ORDER if ax in axes)
+        n = 1
+        for ax in axes:
+            n *= self.shape[ax]
+        if n == 1:
+            return None
+        if n == len(self.devices):
+            return self.group
+        return self.groups.get(axes)
+
+    def axis_group(self, axes: Sequence[str]) -> Optional[AxisGroup]:
+        """An :class:`AxisGroup` over ``axes`` (None when they span one
+        rank): this rank's linear index over them, in ``AXIS_ORDER``."""
+        axes = tuple(ax for ax in AXIS_ORDER if ax in axes)
+        n, index = 1, 0
+        for ax in axes:
+            n *= self.shape[ax]
+            index = index * self.shape[ax] + self.coords[ax]
+        if n == 1:
+            return None
+        return AxisGroup(self.group_for(axes), n, index)
 
     def shutdown(self) -> None:
         """End the ranks of this mesh (rank 0 only; idempotent)."""
@@ -215,12 +275,6 @@ def build_mesh(config: MeshConfig,
             f"sp={config.sp} tp={config.tp} ep={config.ep}) but only "
             f"{len(devices)} available"
         )
-    inactive = {ax: getattr(config, ax) for ax in ("dp", "pp", "sp", "ep")
-                if getattr(config, ax) > 1}
-    if inactive:
-        raise NotImplementedError(
-            f"mesh axes {inactive}: this port activates tp only; data, "
-            f"pipeline, sequence and expert parallelism are {ITEM_8B}")
     devices = devices[:n]
     if n == 1:
         return single_device_mesh(devices[0])
@@ -236,7 +290,8 @@ def build_mesh(config: MeshConfig,
         raise ValueError(f"unknown backend {backend!r} (nccl or gloo)")
     shape = {ax: getattr(config, ax) for ax in AXIS_ORDER}
     world = spmd.World(devices, shape, backend)
-    logger.info("mesh tp=%d over %s (%s)", config.tp,
+    logger.info("mesh %s over %s (%s)",
+                {ax: n for ax, n in shape.items() if n > 1},
                 [str(d) for d in devices], backend)
     return world.mesh
 
@@ -272,17 +327,26 @@ def _feasible_spec(spec: Spec, shape: Tuple[int, ...], mesh: Mesh) -> Spec:
 class LeafShard:
     """How one port parameter is cut: dimension ``dim`` of the port's
     tensor into ``parts`` equal slices, this rank keeping slice
-    ``index`` (``dim`` None: the whole tensor)."""
+    ``index`` (``dim`` None: the whole tensor); ``then`` a second cut on
+    another dimension (a MoE expert tensor over ``ep`` and ``tp``)."""
 
     dim: Optional[int]
     parts: int = 1
     index: int = 0
+    then: Optional["LeafShard"] = None
 
     def take(self, full: torch.Tensor) -> torch.Tensor:
-        if self.dim is None or self.parts == 1:
-            return full
-        n = full.shape[self.dim] // self.parts
-        return full.narrow(self.dim, self.index * n, n)
+        out = full
+        if self.dim is not None and self.parts > 1:
+            n = full.shape[self.dim] // self.parts
+            out = full.narrow(self.dim, self.index * n, n)
+        return out if self.then is None else self.then.take(out)
+
+    def cuts(self) -> List["LeafShard"]:
+        """Every cut of this leaf, as single cuts (outermost first)."""
+        out = [] if self.dim is None or self.parts == 1 else [
+            LeafShard(self.dim, self.parts, self.index)]
+        return out + (self.then.cuts() if self.then is not None else [])
 
 
 def param_shardings(mesh: Mesh, model: Any) -> Dict[str, Spec]:
@@ -309,7 +373,7 @@ def shard_plan(mesh: Mesh, model: Any) -> Dict[str, LeafShard]:
     specs = param_path_specs(model)
     for name, (path, spec, shape, dims) in specs.items():
         feasible = _feasible_spec(spec, shape, mesh)
-        plan[name] = LeafShard(None)
+        cuts = []
         for i, ax in enumerate(feasible):
             if ax is None:
                 continue
@@ -321,7 +385,12 @@ def shard_plan(mesh: Mesh, model: Any) -> Dict[str, LeafShard]:
                 index = 0
                 for a in axes:
                     index = index * mesh.shape[a] + mesh.axis_index(a)
-                plan[name] = LeafShard(dims[i], parts, index)
+                cuts.append((dims[i], parts, index))
+        shard = LeafShard(None)
+        for dim, parts, index in reversed(cuts):
+            shard = LeafShard(dim, parts, index,
+                              then=shard if shard.dim is not None else None)
+        plan[name] = shard
     for name, shard in list(plan.items()):
         if name.endswith(".weight") and shard.dim == 0:
             bias = name[: -len("weight")] + "bias"
@@ -340,10 +409,6 @@ def _refuse(model: Any) -> None:
             "a weight-only int8 model on a TP mesh is not supported yet: "
             "the sharding rules key on kernel paths, which quantization "
             "rewrites into codes and scales")
-    if getattr(model.cfg, "num_experts", 0) > 0:
-        raise NotImplementedError(
-            f"{model.name}: a mixture of experts on a mesh needs its "
-            f"expert (ep) layout, {ITEM_8B}")
 
 
 def _recipe(model: Any) -> tuple:
@@ -412,7 +477,10 @@ def apply_tp(model: Any, mesh: Mesh, plan: Dict[str, LeafShard],
     """Mark a model whose parameters hold this rank's slices (``plan``):
     each layer's local head counts, its kv-head window where k/v
     replicate but q is cut, and the collectives of the row-parallel
-    products, the embedding and the head (``models/decoder.py``)."""
+    products, of their column-parallel inputs (the gradient sum, in
+    training), of the embedding and the head (``models/decoder.py``),
+    and a MoE layer's experts over ``ep`` (and their columns over
+    ``tp``, ``models/moe.py``)."""
     cfg = model.cfg
     tp = mesh.shape["tp"]
     module = model.module
@@ -435,11 +503,25 @@ def apply_tp(model: Any, mesh: Mesh, plan: Dict[str, LeafShard],
     for i, layer in enumerate(module.layers):
         layer.heads = (N, K)
         layer.kv_window = kv_window
+        if q_cut or kv_cut:
+            layer.attn_in = mesh.tp.copy_in
         for proj in ("o", "mlp_down"):
             dense = getattr(layer, proj, None)
             if dense is not None and plan[f"layers.{i}.{proj}.weight"].dim \
                     is not None:
                 dense.reduce = mesh.tp.all_reduce
+        if getattr(layer, "mlp_up", None) is not None and \
+                plan[f"layers.{i}.mlp_up.weight"].dim is not None:
+            layer.mlp_in = mesh.tp.copy_in
+        moe = getattr(layer, "moe", None)
+        if moe is not None:
+            cuts = {c.dim: c for c in plan[f"layers.{i}.moe.wi"].cuts()}
+            if 0 in cuts:     # experts over ep
+                n = cfg.num_experts // cuts[0].parts
+                moe.experts = (cuts[0].index * n, n)
+                moe.ep = mesh.ep
+            if 2 in cuts:     # expert columns over tp
+                moe.tp = mesh.tp
     embed = plan["tok_embed.weight"]
     if embed.dim is not None:
         rows = cfg.vocab_size // embed.parts
@@ -448,7 +530,8 @@ def apply_tp(model: Any, mesh: Mesh, plan: Dict[str, LeafShard],
     module.tp = mesh.tp
     module.gather_logits = head is not None and head.dim is not None
     model.kv_heads = K
-    model.tp_shard = TPShard(mesh, key, kv_cut and q_cut)
+    model.tp_shard = TPShard(mesh, key, kv_cut and q_cut,
+                             kv_window is not None)
 
 
 @dataclasses.dataclass
@@ -461,6 +544,7 @@ class TPShard:
     mesh: Mesh
     key: str
     heads_split: bool
+    kv_window: bool = False
 
 
 def _start_shard(mesh: Mesh, model_or_recipe, source: tuple):
@@ -485,8 +569,9 @@ def shard_params(mesh: Mesh, model: Any) -> Any:
     a new model on rank 0's device; every other rank holds its own under
     the same key. Each whole weight is broadcast from rank 0 once and cut
     on every rank. ``model`` itself is left as it is. A mesh of one rank
-    returns ``model``."""
-    if mesh.shape["tp"] == 1:
+    returns ``model``; a mesh of several with no cut (dp, sp, pp only)
+    still gives every rank its whole twin."""
+    if mesh.size == 1:
         return model
     _refuse(model)
     with torch.inference_mode(False), torch.no_grad():
@@ -503,7 +588,7 @@ def build_sharded_model(mesh: Mesh, model_cls, cfg, name: str,
     one whole leaf."""
     recipe = (model_cls, cfg, name, dtype, kv_dtype)
     probe = _twin(recipe, torch.device("meta"))
-    if mesh.shape["tp"] == 1:
+    if mesh.size == 1:
         model = model_cls(cfg, name=name, dtype=dtype, device=mesh.device,
                           seed=seed, kv_dtype=kv_dtype)
         return model
@@ -534,6 +619,28 @@ def _check_sharded(mesh: Mesh, model: Any) -> None:
     shard = getattr(model, "tp_shard", None)
     if mesh.shape["tp"] > 1 and (shard is None or shard.mesh is not mesh):
         raise ValueError(f"{model.name} is not sharded over {mesh!r}")
+
+
+def batch_sharding(mesh: Mesh, batch: int) -> slice:
+    """This rank's rows of a ``[B, ...]`` batch split over ``dp`` (the
+    reference's ``P("dp", ...)``: contiguous blocks in ``dp`` order)."""
+    dp = mesh.shape["dp"]
+    if batch % dp:
+        raise ValueError(f"batch {batch} does not split over dp={dp}")
+    n = batch // dp
+    return slice(mesh.axis_index("dp") * n, (mesh.axis_index("dp") + 1) * n)
+
+
+def seq_sharding(mesh: Mesh, length: int) -> slice:
+    """This rank's positions of a ``[B, T, ...]`` sequence split over
+    ``sp`` (the reference's ``P("dp", "sp")``: contiguous chunks in
+    ``sp`` order; global position = chunk index * T_local + offset)."""
+    sp = mesh.shape["sp"]
+    if length % sp:
+        raise ValueError(f"sequence length {length} not divisible by "
+                         f"sp={sp}")
+    n = length // sp
+    return slice(mesh.axis_index("sp") * n, (mesh.axis_index("sp") + 1) * n)
 
 
 def replicate(mesh: Mesh, tree: Any) -> Any:

@@ -13,6 +13,12 @@ module keeps those processes in step.
   picks the default and refuses NCCL on a device listed twice). The
   group's rendezvous runs through a ``TCPStore`` on ``127.0.0.1`` at a
   port the operating system picks, so two worlds never collide.
+- **Axis groups.** Beside the world's group, every rank joins one group
+  for each mesh axis above 1 and one over ``dp`` x ``sp`` together
+  (:data:`GROUP_AXES`): the ranks that share its coordinates on the
+  other axes (:func:`line_of`; ranks are laid out over ``AXIS_ORDER``
+  row-major, :func:`coords_of`). Where a set spans the whole world its
+  group is the world's.
 - **Control runs over pipes, data over the group.** The leader sends
   each follower a pickled message over its own pipe: a module-level
   function and its arguments. A follower blocks on its pipe, so an idle
@@ -97,6 +103,67 @@ def _items(out: Any) -> Sequence[Any]:
     return out if isinstance(out, (tuple, list)) else (out,)
 
 
+#: The axis sets a multi-axis mesh gives a process group of their own:
+#: each axis, and the data axes together (the gradient sum of training).
+GROUP_AXES = (("dp",), ("pp",), ("sp",), ("tp",), ("ep",), ("dp", "sp"))
+
+
+def coords_of(rank: int, shape: Dict[str, int]) -> Dict[str, int]:
+    """A rank's coordinate on every axis: the mesh lays its ranks out over
+    ``AXIS_ORDER`` row-major, as the reference reshapes its devices."""
+    from ray_dynamic_batching_tpu_torch.parallel.mesh import AXIS_ORDER
+
+    out = {}
+    for ax in reversed(AXIS_ORDER):
+        out[ax] = rank % shape[ax]
+        rank //= shape[ax]
+    return out
+
+
+def line_of(rank: int, shape: Dict[str, int], axes: Sequence[str]
+            ) -> List[int]:
+    """The ranks that share ``rank``'s coordinates off ``axes``, in the
+    order of their linear index over ``axes``: the members of its group
+    over those axes."""
+    from ray_dynamic_batching_tpu_torch.parallel.mesh import AXIS_ORDER
+
+    mine = coords_of(rank, shape)
+    n = 1
+    for ax in AXIS_ORDER:
+        n *= shape[ax]
+    members = [r for r in range(n)
+               if all(coords_of(r, shape)[ax] == mine[ax]
+                      for ax in AXIS_ORDER if ax not in axes)]
+    return members
+
+
+def make_axis_groups(store, rank: int, shape: Dict[str, int], backend: str,
+                     device: torch.device, timeout: datetime.timedelta,
+                     world_group) -> Dict[tuple, Any]:
+    """This rank's process group over each axis set of ``GROUP_AXES``
+    whose size is above 1: the world's own group where the set spans every
+    rank, else a group of the rank's line (every rank builds its groups in
+    the same order, each line on a store prefix of its own)."""
+    size = 1
+    for n in shape.values():
+        size *= n
+    groups: Dict[tuple, Any] = {}
+    for axes in GROUP_AXES:
+        n = 1
+        for ax in axes:
+            n *= shape[ax]
+        if n == 1:
+            continue
+        if n == size:
+            groups[axes] = world_group
+            continue
+        members = line_of(rank, shape, axes)
+        groups[axes] = make_group(
+            store, members.index(rank), n, backend, device, timeout,
+            prefix="/".join(axes) + "/" + "-".join(map(str, members)))
+    return groups
+
+
 def make_group(store, rank: int, size: int, backend: str,
                device: torch.device, timeout: datetime.timedelta,
                prefix: str = "tp"):
@@ -165,8 +232,10 @@ def _follower_main(rank: int, size: int, port: int, devices: List[str],
     timeout = datetime.timedelta(seconds=timeout_s)
     store = dist.TCPStore("127.0.0.1", port, size, False, timeout=timeout)
     group = make_group(store, rank, size, backend, device, timeout)
+    groups = make_axis_groups(store, rank, shape, backend, device, timeout,
+                              group)
     mesh = Mesh(shape, [torch.device(d) for d in devices], rank, backend,
-                group)
+                group, groups=groups)
     ctx = RankContext(mesh)
     while True:
         try:
@@ -243,11 +312,13 @@ class World:
         try:
             group = make_group(self._store, 0, self.size, backend,
                                self.devices[0], timeout)
+            groups = make_axis_groups(self._store, 0, dict(shape), backend,
+                                      self.devices[0], timeout, group)
         except BaseException:
             self._kill()
             raise
         self.mesh = Mesh(dict(shape), self.devices, 0, backend, group,
-                         world=self)
+                         world=self, groups=groups)
         self.ctx = RankContext(self.mesh)
         self._finalizer = weakref.finalize(self, _stop_procs, self._conns,
                                            self._procs)
@@ -410,13 +481,16 @@ class World:
             self._ids.clear()
             self.ctx.objects.clear()
             self.ctx.handles.clear()
-            group = getattr(self.mesh, "group", None)
-            if group is not None and hasattr(group, "shutdown"):
-                try:
-                    group.shutdown()
-                except Exception:  # noqa: BLE001 — peers are gone already
-                    pass
+            groups = [getattr(self.mesh, "group", None)]
+            groups += list(getattr(self.mesh, "groups", {}).values())
+            for group in {id(g): g for g in groups if g is not None}.values():
+                if hasattr(group, "shutdown"):
+                    try:
+                        group.shutdown()
+                    except Exception:  # noqa: BLE001 — peers are gone
+                        pass
             self.mesh.group = None
+            self.mesh.groups = {}
 
     def _kill(self) -> None:
         _stop_procs(self._conns, self._procs, 5.0)

@@ -29,8 +29,14 @@ loads it back.
 
 :class:`CheckpointManager` keeps the reference's step directories
 (``root/step_<N>/``), ``metadata.json`` and keep-last-N gc.
-``save_train_state`` / ``restore_train_state`` wait for training in the
-port (ROADMAP queue 1 item 8b) and raise.
+:func:`save_train_state` / :func:`restore_train_state` are the
+reference's (``{"params": ..., "opt_state": ...}`` under one step, the
+step in the metadata). Given ``model=``, they take and give the port's
+train state (``parallel/train.py``: f32 params and optax-shaped moments
+keyed by port names) and store it as the JAX package does — the flax
+params tree and optax's state (``opt_state/0/.count``,
+``opt_state/0/.mu/params/...``) through ``models/convert.py`` — so a
+train state saved by either package resumes in the other.
 """
 
 from __future__ import annotations
@@ -57,7 +63,6 @@ from ray_dynamic_batching_tpu_torch.utils.pytree import (
 logger = get_logger("checkpoint")
 
 _STEP_DIR = re.compile(r"^step_(\d+)$")
-ITEM_8B = "ROADMAP queue 1 item 8b"
 
 
 def _dtype_name(dtype: Any) -> str:
@@ -266,16 +271,76 @@ class CheckpointManager:
             logger.info("checkpoint gc: removed step_%d", victim)
 
 
-def save_train_state(*args: Any, **kwargs: Any) -> Path:
-    """Params + optimizer state under one step, in the reference. The port
-    has no trainer yet."""
-    raise NotImplementedError(
-        f"save_train_state checkpoints a trainer's state; the port's "
-        f"training comes with {ITEM_8B}")
+def save_train_state(manager: CheckpointManager, step: int, params: Any,
+                     opt_state: Any = None, *, model: Any = None,
+                     **metadata: Any) -> Path:
+    """Params (+ optional optimizer state) under one step (reference
+    ``checkpoint.py:183-194``). With ``model``, ``params`` / ``opt_state``
+    are a port train state, saved in the JAX package's layout (one
+    device's: a mesh rank holds slices, and gathering them whole is
+    ROADMAP queue 1 item 8c)."""
+    if getattr(model, "tp_shard", None) is not None:
+        raise NotImplementedError(
+            f"{model.name} is sharded over a mesh: a rank's train state is "
+            "slices; saving it whole is ROADMAP queue 1 item 8c")
+    if model is not None:
+        from ray_dynamic_batching_tpu_torch.models.convert import (
+            opt_state_to_flax,
+            params_to_flax,
+        )
+
+        params = params_to_flax(model, params)
+        if opt_state is not None:
+            opt_state = opt_state_to_flax(model, opt_state)
+    tree = {"params": params}
+    if opt_state is not None:
+        tree["opt_state"] = opt_state
+    return manager.save(step, tree, metadata={"step": step, **metadata})
 
 
-def restore_train_state(*args: Any, **kwargs: Any):
-    """Inverse of :func:`save_train_state`; waits for the same item."""
-    raise NotImplementedError(
-        f"restore_train_state restores a trainer's state; the port's "
-        f"training comes with {ITEM_8B}")
+def restore_train_state(manager: CheckpointManager, params_target: Any,
+                        opt_state_target: Any = None,
+                        step: Optional[int] = None,
+                        params_shardings: Optional[Any] = None,
+                        opt_state_shardings: Optional[Any] = None, *,
+                        model: Any = None,
+                        device: Union[str, torch.device, None] = None):
+    """Inverse of :func:`save_train_state`; returns (params, opt_state or
+    None, step restored) (reference ``checkpoint.py:197-223``). With
+    ``model`` the targets and the result are a port train state (leaves
+    on ``device``, default the targets'); either shardings tree may be
+    given without the other."""
+    step = step if step is not None else manager.latest_step()
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {manager.root}")
+    if model is not None:
+        from ray_dynamic_batching_tpu_torch.models.convert import (
+            opt_state_from_flax,
+            opt_state_to_flax,
+            params_from_flax,
+            params_to_flax,
+        )
+
+        if device is None:
+            device = next(iter(params_target.values())).device
+        params_target = params_to_flax(model, params_target)
+        if opt_state_target is not None:
+            opt_state_target = opt_state_to_flax(model, opt_state_target)
+    target = {"params": params_target}
+    if opt_state_target is not None:
+        target["opt_state"] = opt_state_target
+    shardings = {}
+    if params_shardings is not None:
+        shardings["params"] = params_shardings
+    if opt_state_shardings is not None and opt_state_target is not None:
+        shardings["opt_state"] = opt_state_shardings
+    restored = restore_pytree(manager._dir(step), target, shardings or None,
+                              None if model is not None else device)
+    params, opt_state = restored["params"], restored.get("opt_state")
+    if model is not None:
+        params = {n: t.to(device=device, dtype=torch.float32).contiguous()
+                  .requires_grad_(True)
+                  for n, t in params_from_flax(params, model.cfg).items()}
+        if opt_state is not None:
+            opt_state = opt_state_from_flax(opt_state, model.cfg, device)
+    return params, opt_state, step

@@ -7,6 +7,8 @@ order JAX flattens them, so the keys of a checkpoint written by either
 package are the same strings in the same order:
 
 - a mapping: its keys sorted, the key itself in the path;
+- a namedtuple (optax's ``ScaleByAdamState``, ``EmptyState``): its fields
+  in order, each as ``.<field>`` in the path (JAX's ``GetAttrKey``);
 - a list or tuple: its items by index;
 - ``None``: an empty node (no leaf);
 - anything else (a tensor, a numpy array, a Python number): a leaf.
@@ -21,10 +23,16 @@ from collections.abc import Mapping
 from typing import Any, Dict, Iterator, List, Tuple
 
 
+def _is_namedtuple(node: Any) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
 def _children(node: Any):
     """(key, child) pairs of a container node, or None for a leaf."""
     if isinstance(node, Mapping):
         return [(k, node[k]) for k in sorted(node)]
+    if _is_namedtuple(node):
+        return [(f".{f}", getattr(node, f)) for f in node._fields]
     if isinstance(node, (list, tuple)):
         return list(enumerate(node))
     return None
@@ -74,6 +82,8 @@ def unflatten_like(target: Any, leaves: List[Any]) -> Any:
             return {k: rebuild(node[k]) for k in sorted(node)}
         if isinstance(node, list):
             return [rebuild(c) for c in node]
+        if _is_namedtuple(node):
+            return type(node)(*(rebuild(c) for c in node))
         if isinstance(node, tuple):
             return tuple(rebuild(c) for c in node)
         return next(it)
@@ -96,7 +106,8 @@ def nest_paths(flat: Dict[str, Any]) -> Dict[str, Any]:
 
 def treedef_str(tree: Any) -> str:
     """The structure as JAX prints a ``PyTreeDef``: ``*`` for a leaf,
-    ``None``, ``{'k': ...}`` with sorted keys, ``[...]`` and ``(...)``."""
+    ``None``, ``{'k': ...}`` with sorted keys, ``[...]``, ``(...)`` and a
+    namedtuple as ``CustomNode(namedtuple[Name], [...])``."""
 
     def render(node: Any) -> str:
         if node is None:
@@ -106,6 +117,9 @@ def treedef_str(tree: Any) -> str:
                                    for k in sorted(node)) + "}"
         if isinstance(node, list):
             return "[" + ", ".join(render(c) for c in node) + "]"
+        if _is_namedtuple(node):
+            inner = ", ".join(render(c) for c in node)
+            return f"CustomNode(namedtuple[{type(node).__name__}], [{inner}])"
         if isinstance(node, tuple):
             inner = ", ".join(render(c) for c in node)
             return f"({inner},)" if len(node) == 1 else f"({inner})"

@@ -240,11 +240,19 @@ def test_managers_keep_the_same_steps_and_files(tmp_path):
     assert "step_40.tmp" not in t["dirs"] and "step_40.old" not in t["dirs"]
 
 
-def test_train_state_waits_for_training():
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        t_ckpt.save_train_state(None, 1, {})
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        t_ckpt.restore_train_state(None, {})
+def test_train_state_waits_for_training(tmp_path):
+    """The train-state pair is no longer a stand-in: a tree saved with it
+    restores under one step, with the step in the metadata (the port's
+    train states are held against the JAX package in
+    ``tests/test_torch_train_checkpoint.py``)."""
+    mgr = t_ckpt.CheckpointManager(tmp_path)
+    params = {"w": torch.arange(6, dtype=torch.float32).reshape(2, 3)}
+    t_ckpt.save_train_state(mgr, 1, params, {"m": torch.ones(2)}, tag="x")
+    got, opt, step = t_ckpt.restore_train_state(
+        mgr, {"w": torch.zeros(2, 3)}, {"m": torch.zeros(2)})
+    assert step == 1 and mgr.metadata(1) == {"step": 1, "tag": "x"}
+    assert torch.equal(got["w"], params["w"])
+    assert torch.equal(opt["m"], torch.ones(2))
 
 
 # --- the decoder tree ------------------------------------------------------

@@ -29,7 +29,12 @@ the paged kernel over tables sharing their head pages, and a spill
 reload and a parcel import writing the pool in place; the serving
 surface: a bf16 checkpoint round trip on the card, `/v1/completions` on
 llama_tiny through kernels 1 and 2 against the handle, and the native
-library built by g++ on the card machine. This file imports no JAX, so
+library built by g++ on the card machine; training: kernel 1's backward
+(``csrc/flash_attention_bwd.cu`` behind ``FlashAttentionFn``) against
+autograd of the plain version at llama3_8b's training shape, GQA, Tq <
+Tk and a fully masked row, the bare launch refusing an input that
+requires grad, and a 2-layer llama3_8b train step's loss and gradients,
+kernel route against plain route. This file imports no JAX, so
 it runs on a machine without it::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1760,3 +1765,93 @@ def test_native_library_builds_with_gxx_on_this_machine(tmp_path,
     finally:
         q.close()
         s.close()
+
+
+# --- training: kernel 1's backward -------------------------------------------
+def _bwd_case(card, B, Tq, Tk, N, K, H, dtype, causal, masked_rows):
+    gen = torch.Generator(device=card).manual_seed(Tq * 7 + N)
+    q = _rand(gen, (B, Tq, N, H), dtype, card)
+    k = _rand(gen, (B, Tk, K, H), dtype, card)
+    v = _rand(gen, (B, Tk, K, H), dtype, card)
+    dout = _rand(gen, (B, Tq, N, H), dtype, card)
+    tm = torch.ones((B, Tk), dtype=torch.bool, device=card)
+    tm[-1, 3 * Tk // 4:] = False
+    if masked_rows:
+        tm[0, :Tk - Tq + 3] = False      # query rows 0..2 of row 0: nothing
+    keep = tm[:, None, :].expand(B, Tq, Tk).to(torch.int8).contiguous()
+    return q, k, v, dout, keep
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Tq,Tk,N,K,H,causal,masked_rows", [
+    (4, 512, 512, 32, 8, 128, True, False),   # llama3_8b's training shape
+    (2, 80, 80, 8, 2, 64, True, False),       # small GQA, ragged tiles
+    (2, 96, 96, 4, 4, 128, True, True),       # fully masked rows
+    (2, 40, 100, 4, 2, 64, True, False),      # Tq < Tk: the diagonal offset
+    (1, 70, 70, 4, 1, 16, False, False),      # head_dim 16, not causal
+])
+def test_flash_backward_matches_plain_autograd(card, B, Tq, Tk, N, K, H,
+                                               dtype, causal, masked_rows):
+    q, k, v, dout, keep = _bwd_case(card, B, Tq, Tk, N, K, H, dtype, causal,
+                                    masked_rows)
+    fl.bwd_launches = 0
+    xs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = fl.flash_attention(*xs, causal=causal, mask=keep[:, None])
+    got = [out] + list(torch.autograd.grad(out, xs, dout))
+    assert fl.bwd_launches == 1
+    ys = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    ref = fl.flash_attention_plain(*ys, keep, causal=causal)
+    want = [ref] + list(torch.autograd.grad(ref, ys, dout))
+    for g, w in zip(got, want):
+        assert torch.isfinite(g.float()).all()
+        scale = w.float().abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= \
+            TOL[dtype] * max(scale, 1.0)
+    if masked_rows:
+        assert not got[1][0, :3].any()
+
+
+def test_bare_flash_launch_refuses_grad_inputs(card):
+    q = torch.randn((1, 32, 2, 64), device=card, dtype=torch.bfloat16)
+    k = torch.randn((1, 32, 2, 64), device=card, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fl._launch(q.requires_grad_(True), k, k, None, causal=True,
+                   scale=0.125)
+    out = fl.flash_attention(q, k, k, causal=True)   # through the Function
+    assert out.grad_fn is not None
+
+
+def test_two_layer_train_step_kernel_vs_plain(card):
+    """llama3_8b at full width, 2 layers, f32: one step's loss and
+    gradients through kernel 1 and its backward against the plain
+    route."""
+    import dataclasses
+
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        LLAMA3_8B,
+        CausalLM,
+    )
+    from ray_dynamic_batching_tpu_torch.ops import attention
+    from ray_dynamic_batching_tpu_torch.parallel import optim, train
+
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=2)
+    model = CausalLM(cfg, name="llama3_8b", dtype=torch.float32,
+                     device=card, seed=0)
+    params, _ = train.make_sharded_train_state(model, None,
+                                               optim.adamw(1e-3))
+    gen = torch.Generator().manual_seed(3)
+    tok = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen)
+    mask = torch.ones((2, 64), dtype=torch.int32)
+    mask[1, 40:] = 0
+    attention.reset_counts()
+    loss, grads = train.loss_and_grads(model, None, params, tok, mask)
+    grads = {n: g.clone() for n, g in grads.items()}
+    assert fl.launches == 2 and fl.bwd_launches == 2
+    with attention.plain_attention():
+        loss_p, grads_p = train.loss_and_grads(model, None, params, tok,
+                                               mask)
+    assert abs(float(loss) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+    for n in grads:
+        scale = grads_p[n].abs().max().item()
+        assert (grads[n] - grads_p[n]).abs().max().item() <= \
+            1e-4 * max(scale, 1e-30), n

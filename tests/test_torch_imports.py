@@ -19,7 +19,9 @@ The serving surface's probe imports every door, the native binding, the
 worker nodes, the job manager and the state API, restores a checkpoint
 into a deployment and answers one ``/v1/completions`` request; a last
 one blocks grpcio as well and imports the ``serve`` package and the gRPC
-door's module.
+door's module. The training probe (optax blocked too) takes train steps on
+one device, on a dp x sp gloo world (ring attention) and through a pp x
+ep pipeline of moe_tiny, and round-trips a train-state checkpoint.
 """
 
 import ast
@@ -33,7 +35,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "ray_dynamic_batching_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "ray_dynamic_batching_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_dynamic_batching_tpu")
 
 
 def _forbidden(module: str) -> bool:
@@ -574,3 +576,66 @@ def test_serve_imports_without_grpc():
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == "grpcio is not installed"
+
+
+_TRAIN_PROBE = """
+import sys, tempfile
+for name in {forbidden!r}:
+    sys.modules[name] = None      # any import of them now raises
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from ray_dynamic_batching_tpu_torch.models import causal_lm
+from ray_dynamic_batching_tpu_torch.ops import ring_attention  # noqa: F401
+from ray_dynamic_batching_tpu_torch.parallel import mesh, optim, pipeline
+from ray_dynamic_batching_tpu_torch.parallel import train
+from ray_dynamic_batching_tpu_torch.runtime import checkpoint
+from tests import torch_ranks
+rng = np.random.default_rng(0)
+tok = rng.integers(0, 512, (4, 16)).astype(np.int32)
+msk = np.ones((4, 16), np.int32)
+opt = optim.adamw(1e-3)
+lm = causal_lm.CausalLM(causal_lm.TINY_LM, name="llama_tiny",
+                        dtype=torch.float32, device="cpu", seed=0)
+p, s = train.make_sharded_train_state(lm, None, opt)
+step = train.make_train_step(lm, None, opt)
+losses = [float(step(p, s, tok, msk)[2]) for _ in range(2)]
+with tempfile.TemporaryDirectory() as d:
+    m = checkpoint.CheckpointManager(d)
+    checkpoint.save_train_state(m, 2, p, s, model=lm)
+    p2, s2, at = checkpoint.restore_train_state(m, p, s, model=lm)
+    assert at == 2 and all(torch.equal(p[n], p2[n]) for n in p)
+worlds = []
+try:
+    dpsp = mesh.build_mesh(mesh.MeshConfig(dp=2, sp=2), ["cpu"] * 4)
+    worlds.append(dpsp)
+    q, o = train.make_sharded_train_state(lm, dpsp, opt)
+    losses.append(float(train.make_train_step(lm, dpsp, opt)(q, o, tok, msk)[2]))
+    ranks = dpsp.world.call(torch_ranks.imports_of)
+    ppep = mesh.build_mesh(mesh.MeshConfig(pp=2, ep=2), ["cpu"] * 4)
+    worlds.append(ppep)
+    moe = causal_lm.CausalLM(causal_lm.TINY_MOE, name="moe_tiny",
+                             dtype=torch.float32, device="cpu", seed=0)
+    pm = pipeline.PipelinedCausalLM(moe, ppep)
+    q, o = pipeline.make_pp_train_state(pm, opt)
+    losses.append(float(pipeline.make_pp_train_step(pm, opt)(q, o, tok, msk)[2]))
+    ranks += ppep.world.call(torch_ranks.imports_of)
+finally:
+    for w in worlds:
+        w.shutdown()
+print(all(np.isfinite(losses)), losses[1] < losses[0], ranks)
+"""
+
+
+def test_training_runs_with_jax_blocked():
+    """``parallel/{train,pipeline,optim}.py``, ``ops/ring_attention.py`` and
+    the train-state checkpoint with JAX, flax, optax and the JAX package
+    blocked, on the leader and on every spawned rank."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", _TRAIN_PROBE.format(forbidden=FORBIDDEN)],
+        capture_output=True, text=True, timeout=150, cwd=str(ROOT), env=env,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == (
+        "True True " + str([[]] * 8))

@@ -75,17 +75,17 @@ def test_mesh_config_auto_refusals_match_jax(args):
 
 
 def test_build_mesh_refusals_start_no_process():
-    """Too few devices is the reference's ValueError; inactive axes are
-    item 8b; NCCL on a card listed twice, a shared card with no backend
-    named, CPU devices under NCCL and an unknown backend raise before any
-    process starts."""
+    """Too few devices is the reference's ValueError (on any axis: dp,
+    sp, pp and ep are active now); NCCL on a card listed twice, a shared
+    card with no backend named, CPU devices under NCCL and an unknown
+    backend raise before any process starts."""
     before = len(multiprocessing.active_children())
     with pytest.raises(ValueError, match="devices"):
         j_mesh.build_mesh(j_mesh.MeshConfig(dp=1000))
     with pytest.raises(ValueError, match="devices"):
         t_mesh.build_mesh(t_mesh.MeshConfig(dp=1000), ["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        t_mesh.build_mesh(t_mesh.MeshConfig(dp=2), ["cpu"] * 2)
+    with pytest.raises(ValueError, match="devices"):
+        t_mesh.build_mesh(t_mesh.MeshConfig(dp=2, sp=2), ["cpu"] * 2)
     card = [torch.device("cuda", 0)] * 4
     with pytest.raises(ValueError, match="NCCL"):
         t_mesh.build_mesh(t_mesh.MeshConfig(tp=4), card, backend="nccl")
@@ -278,10 +278,6 @@ def test_unsupported_models_refuse_before_any_rank_works(worlds):
 
     mesh = worlds[2]
     seq = mesh.world._seq
-    moe = t_lm.CausalLM(t_lm.TINY_MOE, name="moe_tiny", dtype=torch.float32,
-                        device="cpu", seed=0)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        t_mesh.shard_params(mesh, moe)
     q = t_lm.CausalLM(t_lm.TINY_LM, name="llama_tiny", dtype=torch.float32,
                       device="cpu", seed=0)
     quantize_tree(q)

@@ -126,3 +126,36 @@ def fail_on(ctx, seq, rank):
     if ctx.rank == rank:
         raise RuntimeError(f"rank {rank} fails on purpose")
     return ctx.rank
+
+
+# --- training (tests/test_torch_train.py, test_torch_pipeline.py) ---------
+def train_grads(ctx, seq, key):
+    """A rank's gradients from its last ``loss_and_grads`` (as numpy) and
+    the cuts of its slice of each leaf, ``[(dim, parts, index), ...]``."""
+    from ray_dynamic_batching_tpu_torch.parallel.mesh import shard_plan
+
+    model = ctx.objects[key]
+    plan = shard_plan(ctx.mesh, model)
+    return {n: (g.detach().float().cpu().numpy(),
+                [(c.dim, c.parts, c.index) for c in plan[n].cuts()])
+            for n, g in ctx.objects[(key, "grads")].items()}
+
+
+def ring_case(ctx, seq, q, k, v, mask, dout, causal):
+    """Ring attention of this rank's sp chunk of whole q/k/v [B, T, *, H]
+    (numpy) and its gradients against ``dout``: (out, dq, dk, dv) chunks
+    as numpy."""
+    from ray_dynamic_batching_tpu_torch.ops.ring_attention import (
+        ring_self_attention,
+    )
+    from ray_dynamic_batching_tpu_torch.parallel.mesh import seq_sharding
+
+    cols = seq_sharding(ctx.mesh, q.shape[1])
+    t = {n: torch.from_numpy(np.ascontiguousarray(x[:, cols])).requires_grad_(
+        n in "qkv") for n, x in dict(q=q, k=k, v=v).items()}
+    out = ring_self_attention(ctx.mesh, t["q"], t["k"], t["v"],
+                              torch.from_numpy(mask[:, cols]), causal=causal)
+    grads = torch.autograd.grad(
+        out, (t["q"], t["k"], t["v"]),
+        torch.from_numpy(np.ascontiguousarray(dout[:, cols])))
+    return [out.detach().numpy()] + [g.numpy() for g in grads]
