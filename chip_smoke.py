@@ -465,8 +465,10 @@ last line:
     ``TRAIN_TOL``; at the training shape in bf16, forward + backward
     timed beside the plain version's autograd, SDPA forward + backward on
     the same tensors, and the bound (q, k, v, dO, the mask, out, dq, dk,
-    dv moved once; 12 H FLOPs an attended pair a head); the bare launch
-    must refuse an input that requires grad. (b) llama3_8b at full width:
+    dv moved once; 12 H FLOPs an attended pair a head) and the
+    backward's own bound (10 H FLOPs a pair); the bare launch must
+    refuse an input that requires grad. (b)
+    llama3_8b at full width:
     f32 at 2 layers, one step's loss and gradients through kernel 1 and
     its backward against the plain route; then bf16 compute over f32
     params and AdamW moments at ``TRAIN_LAYERS`` = 4 layers (1.92 B
@@ -476,9 +478,16 @@ last line:
     TFLOP/s and peak
     memory printed. Its counts are set to 0 just before the 5 steps and
     read after: kernel 1 and its backward once a layer a step, nothing
-    else. (c) two gloo worlds of four ranks on cuda:0, one after the
-    other, each against the one-card step computed (and reduced to its
-    loss and gradients on the host) before the world starts: dp x sp x
+    else. A sixth step then runs under ``torch.profiler`` (CUDA activity)
+    and prints its device time by kernel family (attention forward and
+    backward, GEMMs, AdamW, the rest), its idle share, and kernel 1's
+    forward and its backward's kernels a layer at the training shape
+    (the preprocess, and one launch for the dK/dV and dQ roles; 22a's
+    own short profiles traced nothing after phase 14's sessions in a
+    whole-script run). (c) two gloo
+    worlds of four ranks on cuda:0, one after the other, each against the
+    one-card step computed (and reduced to its loss and gradients on the
+    host) before the world starts: dp x sp x
     tp = 1 x 2 x 2, llama3_8b at full width, 2 layers, f32 (ring
     attention over sp, TP collectives; each rank's gradient slices
     against a file of the one-card gradients it maps), and pp x ep = 2 x
@@ -7865,6 +7874,58 @@ def _train_attn_cost(x) -> tuple:
     return nbytes, 12 * N * H * pairs
 
 
+def _train_bwd_cost(x) -> tuple:
+    """The backward alone: q, k, v, out, dO, the mask and the LSE read
+    once, dq, dk, dv written once; 10 H FLOPs an attended pair a query
+    head (QK^T recomputed, dV, dP, dQ, dK)."""
+    keep = (x["keep"] != 0) & torch.ones(
+        x["keep"].shape[1:], dtype=torch.bool, device="cuda").tril()
+    pairs = int(keep.sum().item())
+    B, T, N, H = x["q"].shape
+    nbytes = (_nbytes(x["q"], x["k"], x["v"], x["q"], x["dout"], x["keep"])
+              + _nbytes(x["q"], x["k"], x["v"]) + 4 * B * N * T)
+    return nbytes, 10 * N * H * pairs
+
+
+# Kernel names by role: kernel 1's forward and its backward's kernels.
+# The bf16 route runs the dK/dV and dQ roles in one launch
+# (``bwd_bf16_kernel``); the FMA route (f32) as two kernels.
+TRAIN_BWD_ROLES = (
+    ("forward", ("flash_bf16_kernel",)),
+    ("preprocess", ("pre_bf16_kernel", "bwd_pre_kernel")),
+    ("dK/dV + dQ", ("bwd_bf16_kernel",)),
+    ("dK/dV", ("bwd_dkdv_kernel",)),
+    ("dQ", ("bwd_dq_kernel",)),
+)
+# 22b's profiled (bf16) step by kernel family (first match wins).
+TRAIN_STEP_FAMILIES = (
+    ("attention forward", ("flash_bf16_kernel",)),
+    ("attention backward", ("pre_bf16_kernel", "bwd_bf16_kernel")),
+    ("GEMMs", ("gemm", "Gemm", "GEMM", "nvjet", "xmma", "cutlass",
+               "sm90_")),
+    ("AdamW", ("multi_tensor_apply",)),
+    ("softmax / loss", ("softmax", "nll_loss", "cross_entropy")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise / copies", ("elementwise", "vectorized", "copy",
+                              "Memcpy", "Memset", "fill")),
+)
+
+
+def _by_role(prof, roles, calls: int = 1) -> dict:
+    """Device ms a call by role (the first role whose name fragment a
+    kernel's name holds; the others under "rest") from a
+    ``torch.profiler`` run over ``calls`` calls."""
+    out = {role: 0.0 for role, _ in roles}
+    out["rest"] = 0.0
+    for e in prof.key_averages():
+        if e.self_device_time_total <= 0:
+            continue
+        role = next((r for r, keys in roles
+                     if any(k in e.key for k in keys)), "rest")
+        out[role] += e.self_device_time_total / 1e3 / calls
+    return out
+
+
 def _train_sdpa(x):
     """The library call: SDPA forward + backward on the same tensors (the
     causal and key masks as one boolean mask)."""
@@ -7932,13 +7993,18 @@ def _train_kernel_row() -> dict:
                     x["q"], x["k"], x["v"], causal=True,
                     mask=x["keep"][:, None]), 5, 3)
                 row["forward_ms"] = fwd
+                bw_bytes, bw_flops = _train_bwd_cost(x)
+                bw_ms, bw_by = bound(bw_bytes, bw_flops, dtype)
+                row.update(bwd_bound_ms=bw_ms, bwd_bound_by=bw_by)
                 print(f"[train] 22a llama3_8b bf16 forward + backward: "
                       f"kernel {row['ms']:.4f} ms (forward alone "
                       f"{fwd:.4f}), plain {row['plain_ms']:.4f} ms, sdpa "
                       f"{row['library_ms']:.4f} ms, bound "
                       f"{row['bound_ms']:.4f} ms ({b_by}, "
-                      f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)",
-                      flush=True)
+                      f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP); "
+                      f"the backward's own bound {bw_ms:.4f} ms ({bw_by}, "
+                      f"{bw_bytes / 1e6:.1f} MB, {bw_flops / 1e9:.1f} "
+                      f"GFLOP)", flush=True)
     # The guard: the bare launch refuses an input that requires grad.
     x = _train_attn_inputs(1, 32, 2, 2, 64, torch.bfloat16, gen)
     q = x["q"].detach().requires_grad_(True)
@@ -8074,6 +8140,8 @@ def _train_run(smi: str) -> tuple:
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"22b training: losses {losses} do not fall")
     steady = statistics.median(ms[1:])
+    prof_step = _train_step_profile(step, params, opt_state, tok, mask)
+    params, opt_state = prof_step.pop("state")
     tokens = B * T
     flops = 3 * model.flops_per_sample(T) * B       # forward + backward
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -8081,7 +8149,7 @@ def _train_run(smi: str) -> tuple:
                    losses=losses, step_ms=ms, steady_step_ms=steady,
                    tokens_per_s=tokens / steady * 1e3,
                    model_tflops=flops / steady / 1e9, peak_gb=peak,
-                   card=smi)
+                   profiled_step=prof_step, card=smi)
     print(f"[train] 22b llama3_8b bf16 / f32 params + AdamW, "
           f"{TRAIN_LAYERS} layers ({n_params / 1e9:.3f} B params), B {B} x "
           f"T {T}: losses " + " ".join(f"{x:.4f}" for x in losses)
@@ -8093,6 +8161,48 @@ def _train_run(smi: str) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     return counts, summary
+
+
+def _train_step_profile(step, params, opt_state, tok, mask) -> dict:
+    """One more 22b step under ``torch.profiler`` (CUDA activity): its
+    wall ms, device busy ms and idle share, device ms by kernel family
+    (``TRAIN_STEP_FAMILIES``), kernel 1's and its backward's kernels a
+    layer (``TRAIN_BWD_ROLES``) and the top kernels; "state" is the
+    state the step returns."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, tok, mask)
+        float(loss)
+        wall = (time.perf_counter() - t0) * 1e3
+    fam = _by_role(prof, TRAIN_STEP_FAMILIES)
+    busy = sum(fam.values())
+    # Kernel 1 and its backward run once a layer of the step.
+    split = _by_role(prof, TRAIN_BWD_ROLES, TRAIN_LAYERS)
+    rows = sorted((e for e in prof.key_averages()
+                   if e.self_device_time_total > 0),
+                  key=lambda e: -e.self_device_time_total)
+    top = [(e.key[:100], e.count, e.self_device_time_total / 1e3)
+           for e in rows[:12]]
+    if not busy:
+        print(f"[train] 22b profiled step: wall {wall:.1f} ms, device time "
+              "not measured (no device time traced)", flush=True)
+        return dict(wall_ms=wall, busy_ms=None, by_family_ms=None, top=[],
+                    bwd_split_ms=None, state=(params, opt_state))
+    print(f"[train] 22b profiled step: wall {wall:.1f} ms, device busy "
+          f"{busy:.1f} ms (idle {100 * (1 - busy / wall):.1f}%); by family "
+          + ", ".join(f"{f} {t:.2f} ms ({100 * t / busy:.1f}%)"
+                      for f, t in fam.items()), flush=True)
+    for name, count, t in top:
+        print(f"[train]   {t:8.2f} ms x{count:<5d} {name}", flush=True)
+    print("[train] 22b profiled step, a layer's kernel 1 and backward "
+          "(B 4 x T 512, 32 / 8 heads of 128, causal + key mask): "
+          + ", ".join(f"{r} {t:.4f} ms" for r, t in split.items()
+                      if t and r != "rest"), flush=True)
+    return dict(wall_ms=wall, busy_ms=busy, by_family_ms=fam, top=top,
+                bwd_split_ms=split, state=(params, opt_state))
 
 
 def _rank_grad_check(ctx, seq, key: str, ref_path: str) -> dict:
@@ -8292,6 +8402,7 @@ def phase_train(smi: str) -> tuple:
     row = _train_kernel_row()
     parity = _train_parity()
     counts, run = _train_run(smi)
+    row["split_ms"] = run["profiled_step"]["bwd_split_ms"]
     meshes = {"sp2_tp2": _train_mesh_tp_sp(), "pp2_ep2": _train_mesh_pp_ep()}
     wall = time.monotonic() - t0
     print(f"[train] phase 22 took {wall:.1f} s", flush=True)

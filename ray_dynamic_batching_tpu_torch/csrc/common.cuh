@@ -127,6 +127,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// Byte offset of 16-byte chunk c of row r in a [rows][HP] bf16 tile, the
+// chunk index XOR-ed with r % 8: the 8 rows one ldmatrix reads hit 8
+// different bank groups. A row holds HP / 8 (8 or 16) chunks, so the XOR
+// stays inside the row. Kernel 1's tiles and its backward's.
+template <int HP>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * (HP * 2) + ((c ^ (r & 7)) << 4);
+}
+
+// ex2.approx: the exp the fast __expf is built on, for scores already in
+// log2 units.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Two int8 codes as a bf16 pair (exact: |code| <= 127).
 __device__ __forceinline__ uint32_t codes_bf16(int8_t lo, int8_t hi) {
   return pack_bf16(static_cast<float>(lo), static_cast<float>(hi));

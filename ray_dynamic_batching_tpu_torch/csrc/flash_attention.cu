@@ -121,10 +121,12 @@
 
 namespace {
 
+using rdb::ex2;
 using rdb::ldsm_x4;
 using rdb::ldsm_x4_t;
 using rdb::mma_bf16;
 using rdb::pack_bf16;
+using rdb::swz;
 
 // Element strides of q, k and v over batch rows and tokens (a token
 // stride times the length fits 32 bits; rdb_flash_attention checks).
@@ -144,15 +146,6 @@ cudaError_t set_smem(Kern kern, size_t smem) {
 constexpr int TBQ = 64;   // query rows per head per block (4 slabs x 16)
 constexpr int TBK = 64;   // keys per KV tile
 constexpr int MROW = TBK + 16;  // mask tile row bytes (padded)
-
-// Byte offset of 16-byte chunk c of row r in a [rows][HP] bf16 tile, the
-// chunk index XOR-ed with r % 8: the 8 rows one ldmatrix reads hit 8
-// different bank groups. A row holds HP / 8 (8 or 16) chunks, so the XOR
-// stays inside the row.
-template <int HP>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * (HP * 2) + ((c ^ (r & 7)) << 4);
-}
 
 template <int HP>
 struct FlashSmem {
@@ -526,14 +519,6 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
     }
   }
   rdb::cp_async_wait<I>();
-}
-
-// ex2.approx: the exp the fast __expf is built on, for scores already in
-// log2 units.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // The max and the sum of v[0..7], as trees (three dependent steps, not

@@ -31,8 +31,10 @@ surface: a bf16 checkpoint round trip on the card, `/v1/completions` on
 llama_tiny through kernels 1 and 2 against the handle, and the native
 library built by g++ on the card machine; training: kernel 1's backward
 (``csrc/flash_attention_bwd.cu`` behind ``FlashAttentionFn``) against
-autograd of the plain version at llama3_8b's training shape, GQA, Tq <
-Tk and a fully masked row, the bare launch refusing an input that
+autograd of the plain version at llama3_8b's training shape, GQA (G 4
+and 8), Tq < Tk (a 64-row chunk over 576 keys), a fully masked row, a
+key tile voided mid-row, head_dims 16 and 104, and bit-identical
+gradients from two calls; the bare launch refusing an input that
 requires grad, and a 2-layer llama3_8b train step's loss and gradients,
 kernel route against plain route. This file imports no JAX, so
 it runs on a machine without it::
@@ -1768,7 +1770,11 @@ def test_native_library_builds_with_gxx_on_this_machine(tmp_path,
 
 
 # --- training: kernel 1's backward -------------------------------------------
-def _bwd_case(card, B, Tq, Tk, N, K, H, dtype, causal, masked_rows):
+def _bwd_case(card, B, Tq, Tk, N, K, H, dtype, causal, pattern):
+    """Seeded q, k, v, dO and a key mask with the last batch row's final
+    quarter padding; ``pattern`` True also voids batch row 0's first keys
+    (its query rows 0..2 attend nothing under causal), "void_tile" voids
+    keys 64..127 of batch row 0 (a whole key tile mid-row)."""
     gen = torch.Generator(device=card).manual_seed(Tq * 7 + N)
     q = _rand(gen, (B, Tq, N, H), dtype, card)
     k = _rand(gen, (B, Tk, K, H), dtype, card)
@@ -1776,28 +1782,40 @@ def _bwd_case(card, B, Tq, Tk, N, K, H, dtype, causal, masked_rows):
     dout = _rand(gen, (B, Tq, N, H), dtype, card)
     tm = torch.ones((B, Tk), dtype=torch.bool, device=card)
     tm[-1, 3 * Tk // 4:] = False
-    if masked_rows:
+    if pattern == "void_tile":
+        tm[0, 64:128] = False
+    elif pattern:
         tm[0, :Tk - Tq + 3] = False      # query rows 0..2 of row 0: nothing
     keep = tm[:, None, :].expand(B, Tq, Tk).to(torch.int8).contiguous()
     return q, k, v, dout, keep
 
 
+def _flash_grads(q, k, v, dout, keep, causal):
+    """(out, dq, dk, dv) through FlashAttentionFn."""
+    xs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = fl.flash_attention(*xs, causal=causal, mask=keep[:, None])
+    return [out] + list(torch.autograd.grad(out, xs, dout))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,Tq,Tk,N,K,H,causal,masked_rows", [
+@pytest.mark.parametrize("B,Tq,Tk,N,K,H,causal,pattern", [
     (4, 512, 512, 32, 8, 128, True, False),   # llama3_8b's training shape
     (2, 80, 80, 8, 2, 64, True, False),       # small GQA, ragged tiles
     (2, 96, 96, 4, 4, 128, True, True),       # fully masked rows
     (2, 40, 100, 4, 2, 64, True, False),      # Tq < Tk: the diagonal offset
     (1, 70, 70, 4, 1, 16, False, False),      # head_dim 16, not causal
+    (2, 80, 80, 8, 2, 104, True, False),      # head_dim 104 on HP-128 tiles
+    (1, 96, 96, 32, 4, 128, True, False),     # G = 8 query heads a kv head
+    (2, 200, 200, 4, 2, 128, False, "void_tile"),  # a void key tile mid-row
+    (2, 200, 200, 4, 2, 64, True, "void_tile"),    # ... causal, HP 64
+    (1, 64, 576, 32, 8, 128, True, False),    # a 64-row chunk over 576 keys
 ])
 def test_flash_backward_matches_plain_autograd(card, B, Tq, Tk, N, K, H,
-                                               dtype, causal, masked_rows):
+                                               dtype, causal, pattern):
     q, k, v, dout, keep = _bwd_case(card, B, Tq, Tk, N, K, H, dtype, causal,
-                                    masked_rows)
+                                    pattern)
     fl.bwd_launches = 0
-    xs = [t.detach().requires_grad_(True) for t in (q, k, v)]
-    out = fl.flash_attention(*xs, causal=causal, mask=keep[:, None])
-    got = [out] + list(torch.autograd.grad(out, xs, dout))
+    got = _flash_grads(q, k, v, dout, keep, causal)
     assert fl.bwd_launches == 1
     ys = [t.detach().requires_grad_(True) for t in (q, k, v)]
     ref = fl.flash_attention_plain(*ys, keep, causal=causal)
@@ -1807,8 +1825,24 @@ def test_flash_backward_matches_plain_autograd(card, B, Tq, Tk, N, K, H,
         scale = w.float().abs().max().item()
         assert (g.float() - w.float()).abs().max().item() <= \
             TOL[dtype] * max(scale, 1.0)
-    if masked_rows:
+    if pattern is True:
         assert not got[1][0, :3].any()
+
+
+@pytest.mark.parametrize("B,Tq,Tk,N,K,H,causal,pattern", [
+    (4, 512, 512, 32, 8, 128, True, False),   # llama3_8b's training shape
+    (2, 200, 200, 4, 2, 64, True, "void_tile"),
+])
+def test_flash_backward_is_deterministic(card, B, Tq, Tk, N, K, H, causal,
+                                         pattern):
+    """Every gradient element is written by one block, with no atomics:
+    two backward calls on the same bf16 inputs give the same bits."""
+    case = _bwd_case(card, B, Tq, Tk, N, K, H, torch.bfloat16, causal,
+                     pattern)
+    first = _flash_grads(*case, causal)
+    second = _flash_grads(*case, causal)
+    for a, b in zip(first[1:], second[1:]):
+        assert torch.equal(a, b)
 
 
 def test_bare_flash_launch_refuses_grad_inputs(card):

@@ -3,10 +3,12 @@
 - Kernel 1's plain version (``flash_attention_plain``), differentiated by
   autograd, and :class:`FlashAttentionFn` (the kernel's autograd function;
   on CPU tensors its plain forward and backward) against ``jax.vjp`` of
-  the JAX package's attention, causal + key mask, GQA: 1e-5 absolute
-  (f32). A fully masked row: ``FlashAttentionFn``'s gradients equal
-  autograd's of the plain version, zeros included. The bare launch
-  refuses an input that requires grad.
+  the JAX package's attention, causal + key mask, at the backward
+  kernel's card-test shapes cut to CPU size (head_dims 16, 64, 104 and
+  128, GQA 2 and 4, a key tile masked whole): 1e-5 absolute (f32). A
+  fully masked row: ``FlashAttentionFn``'s gradients equal autograd's of
+  the plain version, zeros included. The bare launch refuses an input
+  that requires grad.
 - ``parallel/optim.adamw`` against ``optax.adamw(1e-3)`` on identical
   gradients (params, moments and count after each in-place step): 1e-6.
 - ``parallel/train.causal_lm_loss`` and its gradients on llama_tiny and
@@ -136,7 +138,9 @@ def _merge(per_rank, shapes) -> dict:
 
 
 # --- kernel 1's gradient ------------------------------------------------------
-def _attn_inputs(seed, B_=2, T_=40, N=4, K=2, H=16):
+def _attn_inputs(seed, B_=2, T_=40, N=4, K=2, H=16, void=None):
+    """Seeded q, k, v, dO and a key mask with batch row 1 padded from key
+    29; ``void`` (a slice) masks those keys of batch row 0 as well."""
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B_, T_, N, H)).astype(np.float32)
     k = rng.standard_normal((B_, T_, K, H)).astype(np.float32)
@@ -144,12 +148,26 @@ def _attn_inputs(seed, B_=2, T_=40, N=4, K=2, H=16):
     dout = rng.standard_normal((B_, T_, N, H)).astype(np.float32)
     tm = np.ones((B_, T_), bool)
     tm[1, 29:] = False
+    if void is not None:
+        tm[0, void] = False
     return q, k, v, dout, tm
 
 
+# The backward kernel's card-test shapes (tests/test_torch_cuda.py), cut
+# to CPU size: (T, N, K, H, keys voided in batch row 0).
+ATTN_GRAD_SHAPES = {
+    "t40_h16": (40, 4, 2, 16, None),
+    "gqa4_t80_h64": (80, 8, 2, 64, None),
+    "void_tile_t96_h128": (96, 4, 2, 128, slice(64, 96)),
+    "h104": (48, 4, 2, 104, None),
+}
+
+
+@pytest.mark.parametrize("shape", list(ATTN_GRAD_SHAPES))
 @pytest.mark.parametrize("route", ["plain_autograd", "flash_fn"])
-def test_attention_grads_match_jax(route):
-    q, k, v, dout, tm = _attn_inputs(0)
+def test_attention_grads_match_jax(route, shape):
+    T_, N, K, H, void = ATTN_GRAD_SHAPES[shape]
+    q, k, v, dout, tm = _attn_inputs(0, T_=T_, N=N, K=K, H=H, void=void)
 
     def f(q, k, v):
         return j_attn.self_attention(q, k, v, jnp.asarray(tm), causal=True)
