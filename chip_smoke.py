@@ -177,9 +177,10 @@ last line:
     before the phase (both read with cuBLAS's per-thread workspaces
     dropped: the process keeps one for each thread that ran a GEMM, and
     the phase starts several threads). The same traffic then runs again
-    at 0.2 as a diagnostic that gates nothing but a lost request: at 0.2
-    the packer admits a pair the host-bound card cannot keep, and the
-    run prints how far it falls short. The diagnostic run alone is
+    at 0.2, in halves of 10 s (cut from 20 for the time limit), as a
+    diagnostic that gates nothing but a lost request: at 0.2 the packer
+    admits a pair the host-bound card cannot keep, and the run prints how
+    far it falls short. The diagnostic run alone is
     traced: each contract's ``decode.turn`` time per step is printed
     against the number of sequences active in the turn.
 
@@ -236,7 +237,7 @@ last line:
     and the slab trains' row-cache chunks among them), each served by an
     eager and a graphed engine: greedy tokens identical, launch counts
     equal, and the graphed engine captured. Speed, printed only:
-    llama3_8b at full width, ``SPEED_LAYERS`` = 8 layers (cut from 32 for
+    llama3_8b at full width, ``SPEED_LAYERS`` = 2 layers (cut from 32 for
     the time limit), bf16, phase 5's 8 requests on the
     slab arm and phase 6's 10 on the paged arm, eager then graphed, each
     served twice — once with a span collector (tok/s, TTFT p50 / max,
@@ -308,7 +309,7 @@ last line:
     least 0.99, so that every fill path of the draft (group prefill,
     long-fill replay at a fill's and a train's end, catch-ups, int8) is
     held by what it proposes. (b) llama3_8b bf16 at full width,
-    ``SPEED_LAYERS`` = 8 layers (cut from 32 for the time limit), the
+    ``SPEED_LAYERS`` = 2 layers (cut from 32 for the time limit), the
     target module as its own draft (``LLMDeployment(draft_model=)``),
     on the slab and paged (chunked) arms beside the same deployment
     without a draft: phase 5's 6 greedy requests, then phase 5's whole
@@ -348,7 +349,7 @@ last line:
     train, int8-KV and int8-KV paged arms, graphed through the kernel and
     eager through the plain version (``quant_matmul.plain_products``):
     greedy tokens identical. (b) llama3_8b bf16 at full width,
-    ``SPEED_LAYERS`` = 8 layers (cut from 32 for the time limit), random
+    ``SPEED_LAYERS`` = 2 layers (cut from 32 for the time limit), random
     weights from seed 0: phase 5's 8 requests on the slab and
     phase 6's 10 on the pool, graphed, first in bf16 and then with the
     same model quantized on the card; printed side by side: tok/s, TTFT
@@ -411,7 +412,7 @@ last line:
     gathered logits bit-identical); each rank reports its kernel counts
     and the arm's kernel (2 on the slab, 4 — kernel 3 per kv-head
     shard — on the pool) must have launched on every rank. (b) BASELINE
-    config 4: llama3_8b bf16 at full width, ``SPEED_LAYERS`` = 8 layers
+    config 4: llama3_8b bf16 at full width, ``SPEED_LAYERS`` = 2 layers
     (cut from 32 so phase 22 fits the time limit), TP = 4, served
     through ``LLMDeployment(paged=True, num_slots=16,
     mesh_backend="gloo", warmup=False)`` (a mesh engine's programs run
@@ -421,8 +422,29 @@ last line:
     rank's launches held to what the dispatches imply (kernel 4 once a
     layer a step, flash once a layer a fill, nothing else); tok/s and the
     wall per decode step printed as
-    "4 ranks time-sharing one H100 over gloo: not TP speed". It prints
-    the backend, ``torch.cuda.device_count()`` and its wall time;
+    "4 ranks time-sharing one H100 over gloo: not TP speed". (c) in
+    20a's worlds, on the f32 shard, after its arms: speculation on the
+    TP slab engine with a self-draft and a divergent draft (the target's
+    weights, each times 1 + ``TP_DRAFT_NOISE`` n with n drawn from a
+    seed for the whole leaf; each rank builds the target's shard from
+    its seed and cuts the noise to its slice) at tp 2 and tp 4, greedy
+    tokens and acceptance (accepted / drafted) against the one-card spec
+    engine's, whose divergent acceptance must lie strictly between 0
+    and 1 (so that the draft's proposals reach the output), kernel 2 on
+    every rank; at tp 2 a paged
+    engine with prefix, session and spill caches in phase 16's shape (a
+    300-token prefix served then hit, a 216-token history whose turn 2
+    borrows its page, every prefix entry spilled and the prompt
+    reloaded), its answers against the one-card engine's and every page
+    free once the caches clear; then the fabric: a stream migrated
+    mid-decode from a TP 2 paged engine to a one-card paged engine (its
+    tokens against the same stream served straight, the export's gather
+    over gloo timed) and a prefix the one-card engine published pushed
+    to the TP engine, where a prompt sharing it hits; kernel 4 on every
+    rank. Each part prints its seconds; each part's counts are set to 0
+    on every rank just before it and read just after (the kernels line's
+    ``tp_spec``, ``tp_reuse``, ``tp_fabric``, every rank summed). It
+    prints the backend, ``torch.cuda.device_count()`` and its wall time;
 21. surface — the serving surface (``serve/{openai_api,grpc_proxy,
     dashboard}.py``, ``state.py``, ``engine/{ingress,shm_bridge}.py``,
     ``runtime/{native,cluster,jobs,checkpoint}.py``): phase 5's
@@ -492,9 +514,21 @@ last line:
     attention over sp, TP collectives; each rank's gradient slices
     against a file of the one-card gradients it maps), and pp x ep = 2 x
     2, moe_tiny in two GPipe stages with its experts over ep (the
+    gradients merged from every rank), and sp x ep = 2 x 2, moe_tiny
+    with each MoE layer routing the gathered sequence (capacity over the
+    whole of it), ring attention over sp and its experts over ep (the
     gradients merged from every rank); loss within ``TRAIN_LOSS_TOL``,
     every leaf within ``TRAIN_GRAD_TOL``; then two steps whose loss
-    falls. Not distributed speed: the ranks time-share one card.
+    falls (every rank's counts read around the check and the steps: the
+    kernels line's ``train_mesh``). After its two steps the sp x ep
+    world's train state, params and AdamW moments, is saved whole
+    (``save_train_state`` of rank 0's shard: every rank's distinct
+    slices sent to rank 0), restored as one device's state onto the card
+    and held bit for bit against the world's leaves gathered again;
+    seconds and bytes printed, the checkpoint removed (the sp x tp
+    world's llama3_8b state, 17.84 GB with its moments, would spend
+    ~100 s of the time limit). Not distributed speed: the ranks time-share one
+    card.
 
 Phase 3 also holds kernel 4 (``paged_decode_attention_tp``): at llama3_8b's
 shape, q [16, 1, 32, 128] over pools [64, 128, 8, 128] in bf16 and f32
@@ -511,9 +545,14 @@ served graphed (phase 19's decoders too; its encoders and ``StreamingASR``
 run eagerly).
 
 Phases 5 to 14, 16 to 19, 20b's, 21's and 22b's runs each set every launch count to 0
-just before they serve and read them just after: each kernel of the path
-must have launched the number of times the engine's dispatches imply,
-the other kernels and the plain route never (a graph replay adds the
+just before they serve and read them just after (20c's parts and 22c's
+worlds read every rank's counts the same way, for the kernels line; on
+every rank 20c's kernel must have launched and, in both, the plain
+route and the kv-head gather never, but their counts are not held to
+dispatches): each kernel of the path must have
+launched the number of times the
+engine's dispatches imply, the other kernels, the plain route and the
+kv-head gather of a straddling TP layout never (a graph replay adds the
 launches its capture recorded); a quantized model's int8 GEMM once per
 int8 weight (each MoE expert's apart) in every forward. Phase 11 builds three engines inside its
 window (v1, the heal's replacement, v2); each engine's warmup dispatches
@@ -568,6 +607,7 @@ import http.client
 import json
 import os
 import platform
+import shutil
 import statistics
 import subprocess
 import sys
@@ -600,8 +640,9 @@ VIT_G_SHAPE = (32, 257, 16, 104)
 
 # The depth of the speed-only llama3_8b runs of phases 14, 17b, 18b and 20b
 # (full width): cut from 32 so the script, phase 22 with it, fits the chip
-# call's time limit (PERF.md section 4).
-SPEED_LAYERS = 8
+# call's time limit, and from 8 to 2 for 20c and 22c's additions (PERF.md
+# section 4).
+SPEED_LAYERS = 2
 SPEED_NAME = "llama3_8b_speed_cut"   # 20b's registry name for it
 
 
@@ -1775,7 +1816,11 @@ def _counts() -> dict:
             "int8_weight_matmul": qm.launches,
             **{f"int8_weight_matmul/{b}": n
                for b, n in qm.launches_by_body.items()},
-            "plain": attention.plain_launches}
+            "plain": attention.plain_launches,
+            # A TP rank whose query heads straddle a kv group gathers one
+            # kv head a query head (no card path runs that layout: held
+            # at 0 wherever a phase holds its counts).
+            "kv_gather": attention.kv_gathers}
 
 
 def _expect_only(tag: str, counts: dict, want: dict) -> None:
@@ -3123,7 +3168,8 @@ def phase_controller(front: dict | None) -> tuple:
 # phase 12 (llama3_8b, bf16, full width and depth; 16 slots where a count
 # is pinned, capacity 512, prompt bucket 64, groups of 4, 32 new tokens).
 # Each contract is offered 0.1 of the 16-slot row's full-occupancy
-# throughput; 0.2 runs after it as a diagnostic: there the surged pair
+# throughput; 0.2 runs after it as a diagnostic, in halves of 10 s (cut
+# from 20 for the script's time limit): there the surged pair
 # saturates the card although the packer admits it (PERF.md), since the
 # planner's fraction counts decode steps at full occupancy and no
 # prefill, while a co-tenant's partly filled step costs a whole step.
@@ -3133,7 +3179,7 @@ COLOCATE = dict(
     slots=(4, 8, 16, 32), groups=(1, NB), timing_iters=8, warmup_iters=2,
     pinned=SLOTS, length_buckets=(256, S), long_prompt=300,
     contracts=("llama_a", "llama_b"), util=0.1, diagnostic_util=0.2,
-    surge=2.0, surge_seen=1.5, half_s=20.0,
+    surge=2.0, surge_seen=1.5, half_s=20.0, diagnostic_half_s=10.0,
     headroom=0.85, monitoring_interval_s=2.0, rate_window_s=8.0,
     max_new=32, prompt=(40, 61), probe_len=48, seed=11, expect_auto=256,
 )
@@ -3310,9 +3356,11 @@ def _colocate_body(dev, ttft_slo_ms: float, profiles_dir: str,
           f"{at_once}", flush=True)
     out["slo_at_once"] = at_once
     runs = {}
-    for label, util, gated in (("gated", c["util"], True),
-                               ("diagnostic", c["diagnostic_util"], False)):
-        run = _colocate_traffic(tag, c, util, model, decode, knobs,
+    for label, util, half_s, gated in (
+            ("gated", c["util"], c["half_s"], True),
+            ("diagnostic", c["diagnostic_util"], c["diagnostic_half_s"],
+             False)):
+        run = _colocate_traffic(tag, c, util, half_s, model, decode, knobs,
                                 token_slo, ttft_slo_ms, engines, warmed,
                                 probe=gated, traced=not gated)
         runs[label] = _traffic_report(f"{tag} {label} {util}", c, run,
@@ -3331,19 +3379,19 @@ def _colocate_body(dev, ttft_slo_ms: float, profiles_dir: str,
     return out
 
 
-def _colocate_traffic(tag, c, util, model, decode, knobs, token_slo,
+def _colocate_traffic(tag, c, util, half_s, model, decode, knobs, token_slo,
                       ttft_slo_ms, engines, warmed, probe: bool,
                       traced: bool = False) -> dict:
     """Serve ``llama_a`` and ``llama_b`` colocated on the card under an
     ``LLMLiveScheduler``: each is offered ``util`` of the pinned row's
-    full-occupancy throughput for one half, then ``llama_a`` the surge
-    multiple of it for the second. With ``probe``, a greedy probe goes
-    through ``llama_a``'s colocated engine and a lone engine of its
-    shape. With ``traced``, a collector is installed for the traffic and
-    every request carries a trace context of its own; the record then
-    holds the spans and each trace's contract. Appends every engine built
-    to ``engines`` (and the warmed ones to ``warmed``), and returns the
-    run's record."""
+    full-occupancy throughput for one half of ``half_s`` seconds, then
+    ``llama_a`` the surge multiple of it for the second. With ``probe``,
+    a greedy probe goes through ``llama_a``'s colocated engine and a lone
+    engine of its shape. With ``traced``, a collector is installed for
+    the traffic and every request carries a trace context of its own; the
+    record then holds the spans and each trace's contract. Appends every
+    engine built to ``engines`` (and the warmed ones to ``warmed``), and
+    returns the run's record."""
     import random
     import uuid
 
@@ -3419,7 +3467,7 @@ def _colocate_traffic(tag, c, util, model, decode, knobs, token_slo,
             for m in (a, b):
                 rps = rates[m] * (mult if m == a else 1.0) / max_new
                 t = float(arr.exponential(1.0 / rps))
-                while t < c["half_s"]:
+                while t < half_s:
                     events.append((t, m))
                     t += float(arr.exponential(1.0 / rps))
             events.sort()
@@ -3439,7 +3487,7 @@ def _colocate_traffic(tag, c, util, model, decode, knobs, token_slo,
                     trace_ctx=ctx)
                 sent.setdefault((m, half), []).append(req)
                 sched.submit_request(req)
-            time.sleep(max(0.0, t0 + c["half_s"] - time.monotonic()))
+            time.sleep(max(0.0, t0 + half_s - time.monotonic()))
             plan_now = {p.model: p for x in sched._current_plan for p in x}
             halves.append(dict(
                 start_wall=t_wall, busy=chip.busy_fractions(),
@@ -7094,8 +7142,277 @@ def _tp_serve(model, payloads, knobs: dict, mesh=None) -> tuple:
     return [r.future.result(timeout=60) for r in reqs], engine
 
 
-def _tp_parity(payloads) -> dict:
-    """20a (see the module docstring)."""
+# --- 20c: drafts, KV reuse and the page fabric on a TP engine ---------------
+TP_SPEC_DRAFTS = ("self", "divergent")
+# The divergent draft: the target's weights, each times (1 + TP_DRAFT_NOISE
+# n), n standard normal drawn for the whole leaf from TP_DRAFT_SEED plus the
+# leaf's index. A draft from another seed is rejected at every proposal at
+# random weights (acceptance 0), and then a wrongly cut draft would pass;
+# at 0.1 this one took 1 proposal in 76, at 0.01 about half (PERF.md section 6).
+TP_DRAFT_NOISE = 0.01
+TP_DRAFT_SEED = 1
+
+
+def _perturb_draft(model, plan=None) -> None:
+    """Turn ``model`` (the target's weights) into the divergent draft in
+    place; on a mesh rank, ``plan`` (``parallel/mesh.shard_plan``) cuts
+    each whole leaf's noise to the rank's slice."""
+    with torch.no_grad():
+        for i, (n, p) in enumerate(sorted(model.module.named_parameters())):
+            whole = list(p.shape)
+            for c in (plan[n].cuts() if plan else []):
+                whole[c.dim] *= c.parts
+            gen = torch.Generator(device=p.device)
+            gen.manual_seed(TP_DRAFT_SEED + i)
+            noise = torch.randn(whole, generator=gen, device=p.device,
+                                dtype=torch.float32)
+            if plan:
+                noise = plan[n].take(noise)
+            p.mul_(1.0 + TP_DRAFT_NOISE * noise.to(p.dtype))
+            del noise
+
+
+def _rank_perturb_draft(ctx, seq, key: str) -> None:
+    from ray_dynamic_batching_tpu_torch.parallel.mesh import shard_plan
+
+    model = ctx.objects[key]
+    _perturb_draft(model, shard_plan(ctx.mesh, model))
+TP_REUSE_KNOBS = dict(PAGED_KNOBS, **REUSE_CACHES, host_spill_pages=16)
+
+
+def _tp_window(mesh, paths: dict, name: str, fn, *args):
+    """``fn(*args)`` with every rank's counts set to 0 just before and read
+    just after; the ranks' counts summed into ``paths[name]``. Fails when
+    any rank ran the plain route or the kv-head gather in the window.
+    Returns (fn's result, each rank's counts)."""
+    mesh.world.call(_rank_reset)
+    out = fn(*args)
+    counts = mesh.world.call(_rank_counts)
+    stray = [(r, c.get("plain", 0), c.get("kv_gather", 0))
+             for r, c in enumerate(counts)
+             if c.get("plain") or c.get("kv_gather")]
+    if stray:
+        fail(f"{name}: the plain route or the kv-head gather ran on a rank "
+             f"(rank, plain, kv_gather): {stray}")
+    total = paths.setdefault(name, {})
+    for c in counts:
+        for k, n in c.items():
+            total[k] = total.get(k, 0) + n
+    return out, counts
+
+
+def _every_rank(tag: str, counts: list, kernel: str) -> list:
+    per_rank = [c.get(kernel, 0) for c in counts]
+    if not all(per_rank):
+        fail(f"{tag}: {kernel} did not launch on every rank: {counts}")
+    return per_rank
+
+
+def _tp_spec_run(model, draft, payloads, mesh=None) -> dict:
+    """20c (a): ``payloads`` on a slab engine speculating with ``draft``
+    (eager); tokens, acceptance (accepted / drafted) and rounds."""
+    res, engine = _tp_serve(model, payloads, dict(SLAB_KNOBS,
+                                                  draft_model=draft), mesh)
+    out = dict(tokens=[r.tokens for r in res],
+               acceptance=engine.spec_acceptance(),
+               rounds=engine.spec_rounds)
+    engine.release_buffers()
+    return out
+
+
+def _tp_reuse_run(tag: str, model, V: int, mesh=None) -> dict:
+    """20c (b), phase 16's four-arm shape on the pool (f32, eager, cache
+    knobs ``TP_REUSE_KNOBS``): a shared 300-token prefix served, then hit;
+    a session's 216-token history whose turn 2 borrows its full page; a
+    prefix hit in memory, then every entry spilled to host memory and the
+    same prompt reloaded. Returns every answer's tokens; fails on a book
+    that is off and on a page that is not free once the caches clear."""
+    from ray_dynamic_batching_tpu_torch.engine.decode import DecodeEngine
+    from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
+
+    rng = np.random.default_rng(2022)
+    name = model.name
+    q = RequestQueue("reuse", max_len=256)
+    engine = DecodeEngine(model, q, device="cuda", mesh=mesh,
+                          **TP_REUSE_KNOBS)
+    head = rng.integers(0, V, 300).tolist()
+    p1, p2, p3 = (head + rng.integers(0, V, n).tolist() for n in (20, 13, 9))
+    answers = _reuse_serve(engine, q, [{"tokens": p1, "max_new_tokens": 16}])
+    hits = _reuse_counter("PREFIX_HITS", name, "page")
+    answers += _reuse_serve(engine, q, [{"tokens": p2, "max_new_tokens": 16}])
+    _same(tag, "page prefix hits",
+          _reuse_counter("PREFIX_HITS", name, "page") - hits, 1)
+    t1 = rng.integers(0, V, 200).tolist()
+    s1 = _reuse_serve(engine, q, [{"tokens": t1, "max_new_tokens": 16,
+                                   "session_id": "tp"}])
+    t2 = t1 + s1[0] + rng.integers(0, V, 20).tolist()
+    hits = _reuse_counter("SESSION_HITS", name)
+    seen = engine._page_journal.total
+    s2 = _reuse_serve(engine, q, [{"tokens": t2, "max_new_tokens": 16,
+                                   "session_id": "tp"}])
+    _same(tag, "session hits", _reuse_counter("SESSION_HITS", name) - hits,
+          1)
+    journal = engine._page_journal
+    borrowed = [e["pages"] for e in journal.snapshot()[-(journal.total -
+                                                           seen):]
+                if e["kind"] == "cow_copy" and e.get("source") == "session"]
+    _same(tag, "pages turn 2 borrowed from the session", borrowed,
+          [len(t1 + s1[0]) // PS])
+    in_memory = _reuse_serve(engine, q, [{"tokens": p3,
+                                          "max_new_tokens": 16}])
+    t0 = time.monotonic()
+    while len(engine.paged_prefix):
+        engine._reclaim_cache_pins()      # spill + evict every entry
+    spill_s = time.monotonic() - t0
+    reloads = engine.host_spill.reloads
+    reloaded = _reuse_serve(engine, q, [{"tokens": p3,
+                                         "max_new_tokens": 16}])
+    _same(tag, "reloads", engine.host_spill.reloads - reloads, 1)
+    _same(tag, "spill-reloaded prefix against the in-memory hit", reloaded,
+          in_memory)
+    _drained(tag, engine)
+    engine.release_buffers()
+    return dict(tokens=answers + s1 + s2 + in_memory + reloaded,
+                spill_s=spill_s)
+
+
+def _tp_fabric_run(tag: str, one_card, shard, mesh, V: int) -> dict:
+    """20c (c): one stream migrated mid-decode from a TP 2 paged engine to
+    a one-card paged engine (its tokens against the same stream served
+    straight on the one-card engine), then a prefix the one-card engine
+    published pushed to the TP engine, where a prompt sharing it hits.
+    The export's gather over the tp group timed."""
+    from ray_dynamic_batching_tpu_torch.engine import pagefabric
+    from ray_dynamic_batching_tpu_torch.engine.decode import DecodeEngine
+    from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+
+    rng = np.random.default_rng(2023)
+    knobs = dict(PAGED_KNOBS, prefix_cache_size=8)
+    sq, dq = RequestQueue("src", max_len=256), RequestQueue("dst", max_len=256)
+    src = DecodeEngine(shard, sq, device="cuda", mesh=mesh, **knobs)
+    dst = DecodeEngine(one_card, dq, device="cuda", **knobs)
+    m = {"tokens": rng.integers(0, V, 150).tolist(), "max_new_tokens": 24}
+    straight = _reuse_serve(dst, dq, [m])
+    req = Request(model="reuse", payload=m, slo_ms=600_000.0)
+    sq.add_request(req)
+    while not src.live_stream_ids():
+        src._admit()
+        src._pump_prefill()
+        if src._active_mask.any():
+            src._step()
+    idx = next(i for i, sl in enumerate(src._slots) if not sl.free)
+    t0 = time.monotonic()
+    parcel = pagefabric.export_stream_parcel(src, idx)
+    export_ms = (time.monotonic() - t0) * 1e3
+    K = shard.cfg.num_kv_heads
+    if tuple(parcel.payload["k"].shape[3:]) != (K, shard.cfg.head_dim):
+        fail(f"{tag}: the TP engine's parcel holds "
+             f"{tuple(parcel.payload['k'].shape)}, not every kv head")
+    if not src.request_migration(req.request_id, dst.accept_parcel):
+        fail(f"{tag}: the live stream was not accepted for migration")
+    src._service_fabric()
+    dst.run_until_idle(timeout_s=300)
+    src.run_until_idle(timeout_s=300)
+    _same(tag, "migrations out / in", (src.migrated_out, dst.migrated_in),
+          (1, 1))
+    _same(tag, "migrated stream against the straight run",
+          [req.future.result(timeout=5).tokens], straight)
+    prompt = rng.integers(0, V, 2 * PS + 10).tolist()
+    for _ in range(2):
+        _reuse_serve(dst, dq, [{"tokens": prompt, "max_new_tokens": 4}])
+    hexkey, n_pages, _hits = dst.paged_prefix.hot(limit=4)[0]
+    push = pagefabric.export_prefix_parcel(dst, bytes.fromhex(hexkey))
+    if not src.accept_parcel(push):
+        fail(f"{tag}: the TP engine refused a prefix push")
+    src.run_until_idle(timeout_s=300)
+    _same(tag, "pushes in", src.pushes_in, 1)
+    hits = _reuse_counter("PREFIX_HITS", shard.name, "page")
+    _reuse_serve(src, sq, [{"tokens": prompt[:n_pages * PS] + rng.integers(
+        0, V, 7).tolist(), "max_new_tokens": 4}])
+    _same(tag, "the pushed prefix's hits on the TP engine",
+          _reuse_counter("PREFIX_HITS", shard.name, "page") - hits, 1)
+    for e in (src, dst):
+        _drained(tag, e)
+        e.release_buffers()
+    return dict(export_ms=export_ms, parcel_bytes=parcel.nbytes,
+                pushed_pages=n_pages)
+
+
+def _tp_extra(tp: int, mesh, shard, cfg, want: dict, one_card,
+              payloads, paths: dict) -> dict:
+    """20c (see the module docstring) on a TP world's f32 shard: the
+    drafts at every tp, the caches and the fabric at tp 2."""
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import CausalLM
+    from ray_dynamic_batching_tpu_torch.parallel import mesh as pm
+    from ray_dynamic_batching_tpu_torch.parallel import spmd
+
+    out = {}
+    greedy = [i for i, p in enumerate(payloads) if "temperature" not in p]
+    for draft in TP_SPEC_DRAFTS:
+        t0 = time.monotonic()
+        dshard = shard
+        if draft == "divergent":
+            dshard = pm.build_sharded_model(mesh, CausalLM, cfg, "llama3_8b",
+                                            dtype=torch.float32, seed=0)
+            mesh.world.call(_rank_perturb_draft, dshard.tp_shard.key)
+        got, counts = _tp_window(mesh, paths, "tp_spec", _tp_spec_run,
+                                 shard, dshard, payloads, mesh)
+        ref = want[("spec", draft)]
+        tag = f"20c tp={tp} {draft}-draft spec"
+        same = [got["tokens"][i] == ref["tokens"][i] for i in greedy]
+        per_rank = _every_rank(tag, counts, "decode_attention")
+        print(f"[tp] {tag}: greedy tokens {sum(same)}/{len(same)} identical "
+              f"to the one-card spec engine, acceptance {got['acceptance']} "
+              f"(one card {ref['acceptance']}), {got['rounds']} rounds; "
+              f"decode_attention launches by rank {per_rank}; "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+        if not all(same) or got["acceptance"] != ref["acceptance"]:
+            fail(f"{tag}: tokens or acceptance differ from the one-card "
+                 "spec engine's")
+        out[f"tp{tp}_spec_{draft}"] = dict(
+            greedy_identical=True, acceptance=got["acceptance"],
+            rounds=got["rounds"], launches_by_rank=per_rank,
+            wall_s=time.monotonic() - t0)
+        if dshard is not shard:
+            spmd.drop_objects(mesh.world, dshard.tp_shard.key)
+            del dshard
+    if tp != 2:
+        return out
+    V = cfg.vocab_size
+    t0 = time.monotonic()
+    tag = "20c tp=2 reuse"
+    got, counts = _tp_window(mesh, paths, "tp_reuse", _tp_reuse_run, tag,
+                             shard, V, mesh)
+    _same(tag, "tokens against the one-card engine", got["tokens"],
+          want["reuse"]["tokens"])
+    per_rank = _every_rank(tag, counts, "paged_decode_attention_tp")
+    out["tp2_reuse"] = dict(identical=True, spill_s=got["spill_s"],
+                            launches_by_rank=per_rank,
+                            wall_s=time.monotonic() - t0)
+    print(f"[tp] {tag}: prefix hit, session turn 2 (one page borrowed), "
+          f"spill of every entry ({got['spill_s'] * 1e3:.1f} ms) and reload: "
+          f"tokens identical to the one-card engine, every page free after; "
+          f"kernel 4 launches by rank {per_rank}; "
+          f"{out['tp2_reuse']['wall_s']:.1f} s", flush=True)
+    t0 = time.monotonic()
+    tag = "20c tp=2 fabric"
+    got, counts = _tp_window(mesh, paths, "tp_fabric", _tp_fabric_run, tag,
+                             one_card, shard, mesh, V)
+    per_rank = _every_rank(tag, counts, "paged_decode_attention_tp")
+    out["tp2_fabric"] = dict(got, launches_by_rank=per_rank,
+                             wall_s=time.monotonic() - t0)
+    print(f"[tp] {tag}: a stream migrated TP 2 -> one card mid-decode, "
+          f"tokens identical to the straight run; a {got['pushed_pages']}-"
+          f"page prefix pushed one card -> TP 2 hits; the stream's export "
+          f"({got['parcel_bytes'] / 1e6:.1f} MB, gathered over gloo) "
+          f"{got['export_ms']:.1f} ms; kernel 4 launches by rank "
+          f"{per_rank}; {out['tp2_fabric']['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def _tp_parity(payloads, paths: dict) -> dict:
+    """20a and 20c (see the module docstring)."""
     from ray_dynamic_batching_tpu_torch.models.causal_lm import (
         LLAMA3_8B,
         CausalLM,
@@ -7113,6 +7430,7 @@ def _tp_parity(payloads) -> dict:
     mask[3, 9:] = 0
     out = {}
     want, want_logits = {}, {}
+    one_card = None
     for kv in (None, torch.int8):
         model = CausalLM(cfg, name="llama3_8b", dtype=torch.float32,
                          device="cuda", seed=0, kv_dtype=kv)
@@ -7125,6 +7443,29 @@ def _tp_parity(payloads) -> dict:
                     res, engine = _tp_serve(model, payloads, knobs)
                     want[arm] = [r.tokens for r in res]
                     engine.release_buffers()
+            if kv is None:
+                # 20c's one-card references; the model stays for the
+                # fabric's one-card engine.
+                t0 = time.monotonic()
+                divergent = CausalLM(cfg, name="llama3_8b",
+                                     dtype=torch.float32, device="cuda",
+                                     seed=0)
+                _perturb_draft(divergent)
+                for draft in TP_SPEC_DRAFTS:
+                    want[("spec", draft)] = _tp_spec_run(
+                        model, model if draft == "self" else divergent,
+                        payloads)
+                del divergent
+                acc = want[("spec", "divergent")]["acceptance"]
+                if not 0.0 < acc < 1.0:
+                    fail(f"20c: the divergent draft's acceptance on one "
+                         f"card is {acc}, not strictly between 0 and 1")
+                want["reuse"] = _tp_reuse_run("20c one-card reuse", model,
+                                              cfg.vocab_size)
+                one_card = model
+                print(f"[tp] 20c one-card references (spec with both "
+                      f"drafts, reuse): {time.monotonic() - t0:.1f} s",
+                      flush=True)
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -7187,6 +7528,10 @@ def _tp_parity(payloads) -> dict:
                     engine.release_buffers()
                     out[f"tp{tp}_{arm}"] = dict(greedy_identical=all(same),
                                                 launches_by_rank=per_rank)
+                if kv is None:
+                    with graphs.disable_capture():
+                        out.update(_tp_extra(tp, mesh, shard, cfg, want,
+                                             one_card, payloads, paths))
                 spmd.drop_objects(mesh.world, key)
                 del shard
         finally:
@@ -7196,6 +7541,9 @@ def _tp_parity(payloads) -> dict:
                 fail(f"20a tp={tp}: a rank outlived its mesh")
         gc.collect()
         torch.cuda.empty_cache()
+    del one_card
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -7303,13 +7651,14 @@ def phase_tp() -> tuple:
           flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    paths = {}
     parity = _tp_parity(_payloads(np.random.default_rng(1), 128256, 32, 8,
-                                  2, 2))
-    counts, baseline = _tp_baseline(
+                                  2, 2), paths)
+    paths["tp"], baseline = _tp_baseline(
         _payloads(np.random.default_rng(0), 128256, 32, 8, 2, 0))
     wall = time.monotonic() - t0
     print(f"[tp] phase 20 took {wall:.1f} s", flush=True)
-    return counts, dict(parity=parity, baseline=baseline, wall_s=wall)
+    return paths, dict(parity=parity, baseline=baseline, wall_s=wall)
 
 
 # --- phase 21: the serving surface ------------------------------------------
@@ -8245,9 +8594,13 @@ def _merge_grads(per_rank, shapes) -> dict:
     return out
 
 
-def _world_run(tag: str, conf: dict, build, steps_fn, check) -> dict:
+def _world_run(tag: str, conf: dict, build, steps_fn, check,
+               paths: dict, after=None) -> dict:
     """One gloo world of four ranks on cuda:0: build the train state,
-    check one step's loss and gradients, take two steps; the ranks end."""
+    check one step's loss and gradients, take two steps (every rank's
+    counts set to 0 before the check and read after the steps, summed
+    into ``paths["train_mesh"]``), then ``after`` (22c (e)); the ranks
+    end."""
     from ray_dynamic_batching_tpu_torch.parallel import mesh as pm
 
     t0 = time.monotonic()
@@ -8257,12 +8610,17 @@ def _world_run(tag: str, conf: dict, build, steps_fn, check) -> dict:
     try:
         t1 = time.monotonic()
         state = build(mesh)
-        out = check(mesh, state)
-        losses = steps_fn(mesh, state)
+        (out, losses), counts = _tp_window(
+            mesh, paths, "train_mesh",
+            lambda: (check(mesh, state), steps_fn(mesh, state)))
         if not (np.isfinite(losses).all() and losses[1] < losses[0]):
             fail(f"22c {tag}: two steps' losses {losses}")
         out.update(step_losses=losses, spawn_s=t1 - t0,
-                   wall_s=time.monotonic() - t0)
+                   bwd_launches_by_rank=[c["flash_attention_bwd"]
+                                         for c in counts])
+        if after is not None:
+            out.update(after(mesh, state))
+        out["wall_s"] = time.monotonic() - t0
     finally:
         mesh.shutdown()
     if any(p.is_alive() for p in procs):
@@ -8275,7 +8633,7 @@ def _world_run(tag: str, conf: dict, build, steps_fn, check) -> dict:
     return out
 
 
-def _train_mesh_tp_sp() -> dict:
+def _train_mesh_tp_sp(paths: dict) -> dict:
     """22c dp x sp x tp = 1 x 2 x 2: llama3_8b full width, 2 layers, f32 —
     ring attention over sp, TP collectives over tp — against the one-card
     step (its loss and gradients kept on the host; the gradients through a
@@ -8337,12 +8695,143 @@ def _train_mesh_tp_sp() -> dict:
         return [float(step(p, s, tok, mask)[2]) for _ in range(2)]
 
     try:
-        return _world_run("sp2 x tp2", dict(sp=2, tp=2), build, steps, check)
+        return _world_run("sp2 x tp2", dict(sp=2, tp=2), build, steps,
+                          check, paths)
     finally:
         os.remove(ref_path)
 
 
-def _train_mesh_pp_ep() -> dict:
+def _train_whole_save(shard, p, s, keep: dict) -> dict:
+    """22c (e), in the sp x ep world: its train state after the two steps
+    (params and AdamW moments) saved whole (``save_train_state(model=<rank
+    0's shard>)``: every rank's distinct slices sent to rank 0), then the
+    world's leaves gathered again onto the host for the check
+    (:func:`_train_whole_check`, run once the world has ended and freed
+    the card)."""
+    from ray_dynamic_batching_tpu_torch.parallel import train
+    from ray_dynamic_batching_tpu_torch.runtime import checkpoint as ck
+
+    root = os.path.join(TRAIN_DIR, "whole")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.monotonic()
+    path = ck.save_train_state(ck.CheckpointManager(root), 2, p, s,
+                               model=shard, note="sp2 x ep2")
+    save_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    keep["twin"], keep["params"], keep["opt"] = train.gather_train_state(
+        shard, p, s)
+    keep["root"] = root
+    return dict(whole_save_mb=sum(f.stat().st_size for f in path.iterdir())
+                / 1e6, whole_save_s=save_s,
+                whole_gather_s=time.monotonic() - t0)
+
+
+def _train_whole_check(keep: dict, out: dict) -> dict:
+    """22c (e), after the world: the checkpoint restored as one device's
+    train state onto the card (the gathered trees give the targets'
+    structure; the restore makes new tensors), held bit for bit against
+    the world's gathered leaves; the checkpoint removed."""
+    from ray_dynamic_batching_tpu_torch.runtime import checkpoint as ck
+
+    tag = "22c (e) sp2 x ep2 whole save"
+    gp, gs = keep.pop("params"), keep.pop("opt")
+    t0 = time.monotonic()
+    rp, rs, at = ck.restore_train_state(
+        ck.CheckpointManager(keep["root"]), gp, gs, model=keep.pop("twin"),
+        device="cuda")
+    restore_s = time.monotonic() - t0
+    if at != 2 or set(rp) != set(gp):
+        fail(f"{tag}: restored step {at}, leaves {sorted(rp)[:3]}...")
+    if int(rs[0].count) != 2 or int(gs[0].count) != 2:
+        fail(f"{tag}: step count {int(rs[0].count)}")
+    trees = [(rp, gp), (rs[0].mu, gs[0].mu), (rs[0].nu, gs[0].nu)]
+    for got, want in trees:
+        for n, w in want.items():
+            if got[n].device.type != "cuda" or not torch.equal(
+                    got[n].detach().cpu(), w):
+                fail(f"{tag}: {n} restored on one card differs from the "
+                     "world's gathered leaf")
+    del rp, rs, gp, gs, trees
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(keep["root"], ignore_errors=True)
+    print(f"[train] {tag}: the params and AdamW moments "
+          f"({out['whole_save_mb']:.2f} MB) "
+          f"gathered from the four ranks and saved in "
+          f"{out['whole_save_s']:.1f} s, restored as one device's onto the "
+          f"card in {restore_s:.1f} s, bit for bit the world's leaves "
+          f"gathered again ({out['whole_gather_s']:.1f} s); checkpoint "
+          "removed", flush=True)
+    return dict(whole_restore_s=restore_s)
+
+
+def _train_mesh_moe_sp(paths: dict) -> dict:
+    """22c (d) sp x ep = 2 x 2: moe_tiny at its registered config, routing
+    with capacity over the whole sequence (each MoE layer gathers the sp
+    chunks), ring attention over sp, experts over ep, against the
+    one-card step; the gradients merged from every rank."""
+    from ray_dynamic_batching_tpu_torch.models.causal_lm import (
+        TINY_MOE,
+        CausalLM,
+    )
+    from ray_dynamic_batching_tpu_torch.parallel import mesh as pm
+    from ray_dynamic_batching_tpu_torch.parallel import optim
+    from ray_dynamic_batching_tpu_torch.parallel import train
+
+    tok, mask = _train_batch(TINY_MOE, 4, 64, 26)
+    opt = optim.adamw(TRAIN_LR)
+    model = CausalLM(TINY_MOE, name="moe_tiny", dtype=torch.float32,
+                     device="cuda", seed=0)
+    params, _ = train.make_sharded_train_state(model, None, opt)
+    ref_loss, ref = train.loss_and_grads(model, None, params, tok, mask)
+    ref_loss = float(ref_loss)
+    ref = {n: g.cpu() for n, g in ref.items()}
+    del params
+
+    def build(mesh):
+        shard = pm.shard_params(mesh, model)
+        return shard, train.make_sharded_train_state(shard, mesh, opt)
+
+    def check(mesh, state):
+        shard, (p, _s) = state
+        loss, _ = train.loss_and_grads(shard, mesh, p, tok, mask)
+        merged = _merge_grads(
+            mesh.world.call(_rank_grads_np, shard.tp_shard.key),
+            {n: tuple(g.shape) for n, g in ref.items()})
+        errs = _grad_errs(merged, ref)
+        worst = max(errs, key=errs.get)
+        rel = abs(float(loss) - ref_loss) / abs(ref_loss)
+        print(f"[train] 22c sp2 x ep2 moe_tiny f32 B4 x T64: loss "
+              f"{float(loss):.6f} vs one card {ref_loss:.6f} (rel "
+              f"{rel:.2e}); merged gradients max err / max |ref| "
+              f"{errs[worst]:.3e} ({worst}; tol {TRAIN_GRAD_TOL:.0e})",
+              flush=True)
+        if rel > TRAIN_LOSS_TOL or errs[worst] > TRAIN_GRAD_TOL:
+            fail("22c sp x ep: loss or gradients differ from the one-card "
+                 "step")
+        return dict(loss_rel_err=rel, grad_max_rel_err=errs[worst])
+
+    def steps(mesh, state):
+        shard, (p, s) = state
+        step = train.make_train_step(shard, mesh, opt)
+        return [float(step(p, s, tok, mask)[2]) for _ in range(2)]
+
+    keep = {}
+
+    def save_whole(mesh, state):
+        shard, (p, s) = state
+        return _train_whole_save(shard, p, s, keep)
+
+    try:
+        out = _world_run("sp2 x ep2", dict(sp=2, ep=2), build, steps, check,
+                         paths, after=save_whole)
+        out.update(_train_whole_check(keep, out))
+        return out
+    finally:
+        shutil.rmtree(os.path.join(TRAIN_DIR, "whole"), ignore_errors=True)
+
+
+def _train_mesh_pp_ep(paths: dict) -> dict:
     """22c pp x ep = 2 x 2: moe_tiny (its registered config, 2 layers) in
     two GPipe stages with its experts over ep, against the one-card step;
     the gradients merged from every rank."""
@@ -8392,7 +8881,8 @@ def _train_mesh_pp_ep() -> dict:
         step = pipeline.make_pp_train_step(pmodel, opt)
         return [float(step(p, s, tok, mask)[2]) for _ in range(2)]
 
-    return _world_run("pp2 x ep2", dict(pp=2, ep=2), build, steps, check)
+    return _world_run("pp2 x ep2", dict(pp=2, ep=2), build, steps, check,
+                      paths)
 
 
 def phase_train(smi: str) -> tuple:
@@ -8403,11 +8893,14 @@ def phase_train(smi: str) -> tuple:
     parity = _train_parity()
     counts, run = _train_run(smi)
     row["split_ms"] = run["profiled_step"]["bwd_split_ms"]
-    meshes = {"sp2_tp2": _train_mesh_tp_sp(), "pp2_ep2": _train_mesh_pp_ep()}
+    paths = {"train": counts}
+    meshes = {"sp2_tp2": _train_mesh_tp_sp(paths),
+              "pp2_ep2": _train_mesh_pp_ep(paths),
+              "sp2_ep2": _train_mesh_moe_sp(paths)}
     wall = time.monotonic() - t0
     print(f"[train] phase 22 took {wall:.1f} s", flush=True)
-    return counts, row, dict(parity=parity, run=run, meshes=meshes,
-                             wall_s=wall)
+    return paths, row, dict(parity=parity, run=run, meshes=meshes,
+                            wall_s=wall)
 
 
 def _phase_time(name: str, fn, *args):
@@ -8515,12 +9008,14 @@ def _main(stack: contextlib.ExitStack) -> None:
         by_path["servables"], servables = _phase_time("servables",
                                                       phase_servables)
     if "tp" in phases:
-        by_path["tp"], tp = _phase_time("tp", phase_tp)
+        tp_paths, tp = _phase_time("tp", phase_tp)
+        by_path.update(tp_paths)
     if "surface" in phases:
         by_path["surface"], surface = _phase_time("surface", phase_surface)
     if "train" in phases:
-        by_path["train"], kernels["flash_attention_bwd"], training = \
+        train_paths, kernels["flash_attention_bwd"], training = \
             _phase_time("train", phase_train, dev["smi"])
+        by_path.update(train_paths)
     print(f"[time] all phases: {time.monotonic() - t_start:.1f} s",
           flush=True)
     for name, row in kernels.items():

@@ -69,23 +69,32 @@ padding to compiled widths is gone (a group is exactly its rows, so no
 index is written twice): every group width is its own key.
 
 Tensor parallelism (``mesh=``, a ``parallel/mesh.Mesh`` with ``tp`` > 1;
-reference ``decode.py:540-579``, ``:651-694``, ``:1151-1160``): the
-reference's refusals come first and in its order — a draft on a paged
-mesh engine, ``quantize_weights``, a paged engine over a model with no
-``paged_cache_pspec`` (``ValueError``) — and then the port's stand-ins
-(``NotImplementedError``, ROADMAP queue 1 item 8b): any draft (the TP
-slab arm's speculation), prefix, session and spill caches, and the page
-fabric. Then the model is sharded (``parallel/mesh.shard_params``,
-unless it already is), each rank allocates its share of the kv heads,
-and every rank builds a twin of the engine (``parallel/spmd.py``): every
-program and every other device write of the leader (the row cache of a
-long fill, the page-table upload, warmup) runs first on each follower's
-twin on the same host inputs, then here, so the ranks issue the same
-collectives in the same order. The page table, lengths mirror, allocator
-and its journal, admission and results stay on rank 0. The paged decode
-step runs inside ``ops/attention.tensor_parallel``, so its paged kernel
-launches are kernel 4's (kernel 3 on the rank's shard). Programs of a
-mesh engine run eagerly (``jit_model.eager_reason_for``).
+reference ``decode.py:540-579``, ``:651-694``, ``:846-851``,
+``:1151-1160``): the reference's refusals come first and in its order —
+a draft on a paged mesh engine, ``quantize_weights``, a paged engine over
+a model with no ``paged_cache_pspec`` (``ValueError``). Then the model is
+sharded (``parallel/mesh.shard_params``, unless it already is) and so is
+a draft: a self-draft is the target's shard, a draft with its own
+weights gets its own, cut by the same rules. Each rank allocates its
+share of the kv heads (the draft's slab too), and every rank builds a
+twin of the engine over its shards (``parallel/spmd.py``): every program
+and every other device write of the leader (the row caches of a long
+fill and of the draft's replay, the page-table upload, the reuse
+programs' row seeds and extracts, a migrated stream's lengths and
+counts, warmup) runs first on each follower's twin on the same host
+inputs, then here, so the ranks issue the same collectives in the same
+order; what such a call returns (a row, a stored session or prefix
+segment) lives on every rank under one handle, each rank's own kv-head
+shard. The page table, lengths mirror, allocator and its journal, the
+prefix digests and the caches' LRU books, the spill tier's accounting,
+admission, the draft's accept logic and results stay on rank 0. The
+spill tier moves each rank's own shard of a page (:class:`_RankPages`);
+a parcel (:meth:`_read_pages` / :meth:`_write_pages`) holds every kv
+head, gathered over the tp group on export and cut per rank on import,
+so it moves between a TP engine and a one-card engine either way. The
+paged decode step runs inside ``ops/attention.tensor_parallel``, so its
+paged kernel launches are kernel 4's (kernel 3 on the rank's shard).
+Programs of a mesh engine run eagerly (``jit_model.eager_reason_for``).
 
 Weight-only int8 (``quantize_weights=True``): the model's matmul weights
 become int8 codes + f32 scales in place at construction
@@ -332,6 +341,15 @@ class _Slot:
     @property
     def free(self) -> bool:
         return self.request is None
+
+
+@dataclass(eq=False)
+class _RankPages:
+    """One rank's host copy of a spilled page run (its kv-head shard on a
+    mesh engine): what the spill tier holds on rank 0, each follower
+    holding its own under the same handle (``parallel/spmd.py``)."""
+
+    planes: Dict[str, torch.Tensor]
 
 
 @dataclass
@@ -617,11 +635,9 @@ class DecodeEngine:
 
         maybe_enable()  # kernel libraries built once are reused
         if mesh is not None and mesh.shape.get("tp", 1) > 1:
-            model = self._shard_for_mesh(
+            model, draft_model = self._shard_for_mesh(
                 model, mesh, paged=paged, draft_model=draft_model,
-                quantize_weights=quantize_weights,
-                caches=(prefix_cache_size, session_cache_size,
-                        host_spill_pages))
+                quantize_weights=quantize_weights)
             device = mesh.device
         else:
             mesh = None
@@ -767,8 +783,10 @@ class DecodeEngine:
         # matching prompt instead of recomputing.
         self.host_spill: Optional[HostSpillTier] = None
         if host_spill_pages > 0 and self.paged_prefix is not None:
+            # On a mesh every rank spills and reloads its own kv-head
+            # shard of the pages; rank 0 keeps the accounting.
             self.host_spill = HostSpillTier(
-                host_spill_pages, self._read_pages, self._write_pages,
+                host_spill_pages, self._spill_read, self._spill_write,
                 journal=self._page_journal)
         # Multi-turn session continuation (0 = off): the paged store pins
         # the finished slot's pages, the slab store copies its row.
@@ -924,15 +942,25 @@ class DecodeEngine:
             from ray_dynamic_batching_tpu_torch.parallel import spmd
 
             self._tp_key = self.mesh.world.new_key("engine")
-            spmd.attach_engine(self.mesh.world, self._tp_key,
-                               self.model.tp_shard.key, twin_kwargs)
+            spmd.attach_engine(
+                self.mesh.world, self._tp_key, self.model.tp_shard.key,
+                twin_kwargs, None if draft_model is None
+                else draft_model.tp_shard.key)
+            # Every rank's shared cache under one handle, so the reuse
+            # programs can take it as an argument (World.encode).
+            self._spmd("_own_cache")
+
+    def _own_cache(self):
+        return self._cache
 
     @staticmethod
     def _shard_for_mesh(model, mesh, *, paged: bool, draft_model,
-                        quantize_weights: bool, caches) -> Any:
-        """The reference's mesh refusals in its order, then the port's
-        stand-ins, all before any sharding work; then rank 0's shard of
-        ``model`` (the model itself when it already is one)."""
+                        quantize_weights: bool) -> Tuple[Any, Any]:
+        """The reference's mesh refusals in its order, before any sharding
+        work; then rank 0's shards of ``model`` and of ``draft_model``
+        (each the model itself when it already is one): a self-draft is
+        the target's shard, a draft with its own weights gets its own
+        (reference ``decode.py:846-851``)."""
         from ray_dynamic_batching_tpu_torch.parallel import mesh as mesh_mod
 
         if paged and draft_model is not None:
@@ -951,22 +979,23 @@ class DecodeEngine:
                 "paged=True on a TP mesh needs the model to define "
                 "paged_cache_pspec (the pool's sharding layout) — see "
                 "CausalLM.paged_cache_pspec")
-        if draft_model is not None:
-            raise NotImplementedError(
-                "speculative decoding on a TP slab engine (a draft model "
-                f"or a self-draft) is {mesh_mod.ITEM_8B}")
-        if any(caches):
-            raise NotImplementedError(
-                "prefix, session and host-spill caches on a TP engine are "
-                f"{mesh_mod.ITEM_8B}")
-        shard = getattr(model, "tp_shard", None)
-        if shard is not None:
-            if shard.mesh is not mesh:
-                raise ValueError(f"{model.name} is sharded over another mesh")
-            return model
-        if not mesh.is_leader:
-            raise ValueError("a follower rank's engine takes its shard")
-        return mesh_mod.shard_params(mesh, model)
+
+        def shard_of(m):
+            shard = getattr(m, "tp_shard", None)
+            if shard is not None:
+                if shard.mesh is not mesh:
+                    raise ValueError(f"{m.name} is sharded over another mesh")
+                return m
+            if not mesh.is_leader:
+                raise ValueError("a follower rank's engine takes its shard")
+            return mesh_mod.shard_params(mesh, m)
+
+        target = shard_of(model)
+        if draft_model is None:
+            return target, None
+        if draft_model is model or draft_model is target:
+            return target, target
+        return target, shard_of(draft_model)
 
     def _spmd(self, attr: str, *args) -> Any:
         """``getattr(self, attr)(*args)``; on rank 0 of a mesh engine,
@@ -1945,6 +1974,12 @@ class DecodeEngine:
         self._commit_and_register(req, prompt, opts, slot_idx, row, last,
                                   after_commit=after_commit)
 
+    def _make_draft_row(self):
+        C = self.prompt_buckets[-1]
+        with torch.inference_mode():
+            return self.draft_model.make_cache(
+                1, -(-self._dcache.capacity // C) * C)
+
     def _draft_long_fill(self, prompt: np.ndarray, slot_idx: int,
                          warm: bool = False) -> None:
         """The whole prompt through the draft's chunk program (chunks of
@@ -1955,9 +1990,7 @@ class DecodeEngine:
         (warmup): no interleave, and the chunks are not counted in
         ``draft_chunk_dispatches``."""
         C = self.prompt_buckets[-1]
-        with torch.inference_mode():
-            row = self.draft_model.make_cache(
-                1, -(-self._dcache.capacity // C) * C)
+        row = self._spmd("_make_draft_row")
 
         def chunk(*args):
             if not warm:
@@ -2476,33 +2509,90 @@ class DecodeEngine:
     def _read_pages(self, page_ids: List[int]) -> Dict[str, torch.Tensor]:
         """The listed pages' contents in host tensors (pinned on the card):
         k/v ``[L, n, ps, K, H]`` and, on an int8 pool, the scale planes
-        ``[L, n, ps, K]``. The copies are queued on the engine's stream,
-        behind every program that wrote those pages, and waited for."""
+        ``[L, n, ps, K]``, every kv head: on rank 0 of a mesh engine each
+        rank reads its kv-head shard and the shards are gathered over the
+        tp group (:meth:`_gather_pages`), so a parcel keeps the JAX
+        package's layout whatever engine made it. The copies are queued
+        on the engine's stream, behind every program that wrote those
+        pages, and waited for."""
+        return self._spmd("_gather_pages", page_ids)
+
+    def _gather_pages(self, page_ids: List[int]) -> Dict[str, torch.Tensor]:
+        """Every rank's half of :meth:`_read_pages`: its shard of the
+        pages, all-gathered over tp where the pool's kv heads are cut
+        (where they replicate, every rank's pages are whole already)."""
+        planes = self._page_planes(page_ids)
+        if self.mesh is not None and self.model.tp_shard.heads_split:
+            from ray_dynamic_batching_tpu_torch.parallel.collective import (
+                pg_allgather,
+            )
+
+            tp = self.mesh.tp
+            planes = {name: torch.cat(list(pg_allgather(
+                tp.group, g.contiguous(), tp.size).unbind(0)), dim=3)
+                for name, g in planes.items()}
+        return self._to_host(planes)
+
+    def _page_planes(self, page_ids: List[int]) -> Dict[str, torch.Tensor]:
+        """This rank's planes of the listed pages, on the device."""
         idx = torch.tensor(page_ids, dtype=torch.long, device=self.device)
+        with torch.inference_mode():
+            return {name: plane.index_select(1, idx)
+                    for name, plane in _kv_planes(self._cache).items()}
+
+    def _to_host(self, planes: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
         pin = self.device.type == "cuda"
         out = {}
-        with torch.inference_mode():
-            for name, plane in _kv_planes(self._cache).items():
-                g = plane.index_select(1, idx)
-                host = torch.empty(g.shape, dtype=g.dtype, pin_memory=pin)
-                host.copy_(g, non_blocking=pin)
-                out[name] = host
+        for name, g in planes.items():
+            host = torch.empty(g.shape, dtype=g.dtype, pin_memory=pin)
+            host.copy_(g, non_blocking=pin)
+            out[name] = host
         if pin:
             torch.cuda.current_stream(self.device).synchronize()
         return out
 
     def _write_pages(self, page_ids: List[int], payload: Dict) -> None:
         """Copy page contents (host tensors or numpy arrays in the layout
-        :meth:`_read_pages` gives) into the listed pages, in place on the
-        engine's stream: the pool keeps its address, which the captured
-        programs hold."""
+        :meth:`_read_pages` gives, every kv head) into the listed pages,
+        in place on the engine's stream: the pool keeps its address, which
+        the captured programs hold. On rank 0 of a mesh engine the whole
+        payload goes to every rank, which keeps its kv-head shard."""
+        self._spmd("_write_pages_here", page_ids, payload)
+
+    def _write_pages_here(self, page_ids: List[int], payload: Dict) -> None:
         idx = torch.tensor(page_ids, dtype=torch.long, device=self.device)
         with torch.inference_mode():
             for name, plane in _kv_planes(self._cache).items():
                 src = torch.as_tensor(payload[name])
+                K = plane.shape[3]
+                if src.shape[3] != K:
+                    # A whole-heads payload on a rank holding a shard.
+                    src = src.narrow(3, self.mesh.axis_index("tp") * K, K)
                 plane.index_copy_(1, idx, src.to(
                     device=self.device, dtype=plane.dtype,
                     non_blocking=src.is_pinned()))
+
+    def _spill_read(self, page_ids: List[int]) -> "_RankPages":
+        """The spill tier's read: the pages' planes copied to host memory
+        as they lie in this rank's pool. On a mesh engine every rank
+        copies its own kv-head shard and keeps it under the handle of
+        rank 0's :class:`_RankPages` (dropped on every rank when rank 0's
+        entry goes)."""
+        return self._spmd("_spill_read_here", page_ids)
+
+    def _spill_read_here(self, page_ids: List[int]) -> "_RankPages":
+        return _RankPages(self._to_host(self._page_planes(page_ids)))
+
+    def _spill_write(self, page_ids: List[int], pages: "_RankPages") -> None:
+        """The spill tier's reload: the planes written back into the
+        listed pages; on a mesh engine every rank writes its own shard
+        back (``pages`` travels as its handle)."""
+        self._spmd("_spill_write_here", page_ids, pages)
+
+    def _spill_write_here(self, page_ids: List[int],
+                          pages: "_RankPages") -> None:
+        self._write_pages_here(page_ids, pages.planes)
 
     def _reload_spilled_prefix(
             self, prompt: np.ndarray) -> Optional[Tuple[List[int], int]]:
@@ -3170,7 +3260,6 @@ class DecodeEngine:
         left decoding untouched on False/raise. Returns False if the
         stream is not live here (advisory — a stream that finishes
         before service is simply skipped, duplicates are harmless)."""
-        self._refuse_fabric()
         if not self.paged:
             return False
         live = any(
@@ -3190,7 +3279,6 @@ class DecodeEngine:
         """Thread-safe: export prefix-cache entry ``key`` as a push
         parcel through ``deliver`` at the next service point (skipped
         if evicted by then)."""
-        self._refuse_fabric()
         if not self.paged or self.paged_prefix is None:
             return False
         with self._fabric_lock:
@@ -3205,7 +3293,6 @@ class DecodeEngine:
         chain (reclaim cache pins -> capacity-truncate), so a stale
         accept is honest, never corrupting. A False return leaves the
         source slot untouched — it simply resumes decoding."""
-        self._refuse_fabric()
         if not self.paged or parcel.page_size != self.page_size:
             return False
         if parcel.kind == STREAM:
@@ -3241,12 +3328,6 @@ class DecodeEngine:
         with self._fabric_lock:
             self._parcel_in_q.append(parcel)
         return True
-
-    def _refuse_fabric(self) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "the page fabric (migrations, prefix pushes) on a TP engine "
-                "is ROADMAP queue 1 item 8b")
 
     def _fabric_pending(self) -> bool:
         if not self.paged:
@@ -3407,16 +3488,24 @@ class DecodeEngine:
         self._pres[slot_idx] = float(s.get("presence_penalty", 0.0))
         self._freq[slot_idx] = float(s.get("frequency_penalty", 0.0))
         self._sampling_dev = None  # host arrays changed
-        with torch.inference_mode():
-            # In place: the captured programs hold these addresses.
-            self._cache.lengths[slot_idx] = int(parcel.cache_len)
-            if self._pres[slot_idx] or self._freq[slot_idx]:
-                vocab = int(self._counts.shape[1])
-                row = np.bincount(
-                    np.asarray(parcel.generated, np.int64) % vocab,
-                    minlength=vocab,
-                )[:vocab].astype(np.int32)
-                self._counts[slot_idx].copy_(torch.from_numpy(row))
+        row = None
+        if self._pres[slot_idx] or self._freq[slot_idx]:
+            vocab = int(self._counts.shape[1])
+            row = np.bincount(
+                np.asarray(parcel.generated, np.int64) % vocab,
+                minlength=vocab,
+            )[:vocab].astype(np.int32)
+        self._spmd("_resume_slot", slot_idx, int(parcel.cache_len), row)
+
+    @torch.inference_mode()
+    def _resume_slot(self, slot_idx: int, cache_len: int,
+                     counts: Optional[np.ndarray]) -> None:
+        """A migrated stream's device state on every rank, in place (the
+        captured programs hold these addresses): its cache length and,
+        with penalties, its counts row."""
+        self._cache.lengths[slot_idx] = cache_len
+        if counts is not None:
+            self._counts[slot_idx].copy_(torch.from_numpy(counts))
 
     def _fulfill_truncated(self, parcel: PageParcel) -> None:
         """Destination-OOM fallback after accept: resolve the stream as

@@ -52,7 +52,8 @@ zeros elsewhere and sums; the vocabulary-sharded head's logits are
 gathered before sampling. Where the kv heads replicate but q is cut
 (``kv_window``), a rank's query head reads the kv head of its GLOBAL
 index ``n // G``: the attention reads the contiguous window of kv heads
-its heads need.
+its heads need, and where the rank's heads straddle a group boundary
+(``kv_index``) each head's own kv head of it.
 
 In training (``parallel/train.py``) the same collectives are
 autograd-aware (``parallel/mesh.py::AxisGroup``): the column-parallel
@@ -452,6 +453,9 @@ class DecoderLayer(nn.Module):
         # its query heads read (parallel/mesh.py::apply_tp).
         self.heads = (N, K)
         self.kv_window: Optional[Tuple[int, int]] = None
+        # Where those query heads straddle a group boundary: each local
+        # head's index into the window ([N] long), else None.
+        self.kv_index: Optional[torch.Tensor] = None
         # Under a mesh that cuts q/k/v (or the MLP's columns): the input's
         # gradient is summed over tp (AxisGroup.copy_in); None otherwise.
         self.attn_in: Optional[Callable] = None
@@ -587,11 +591,16 @@ class DecoderLayer(nn.Module):
         """The kv heads (axis 2 of k/v and their scales, slab, pool or
         fresh) this rank's query heads read: all of them, or under a mesh
         that cuts q but replicates k/v, the window of their global
-        indices."""
+        indices; where the heads straddle a group boundary, one kv head
+        per query head, gathered from the window (the route then sees
+        grouped-query attention of group 1)."""
         if self.kv_window is None:
             return t
         first, count = self.kv_window
-        return t.narrow(2, first, count)
+        t = t.narrow(2, first, count)
+        if self.kv_index is not None:
+            t = attn_ops.gather_kv_heads(t, self.kv_index)
+        return t
 
 
 class DecoderModule(nn.Module):

@@ -33,6 +33,13 @@ tokens and the combine weights) have theirs summed over ``ep`` and
 every rank. The load-balance loss (``return_aux=True``) is the
 reference's, over the router's statistics, which every rank holds whole;
 ``parallel/train.py`` adds ``MOE_AUX_COEF`` times it to the loss.
+
+Under sequence parallelism (``sp`` above 1) routing with capacity runs
+over the whole sequence, as the reference computes it: each layer
+gathers every rank's chunk over the ``sp`` group (``AxisGroup.gather_dim``,
+whose backward is the matching reduce-scatter), routes and runs the
+experts as on one rank, and keeps its own chunk of the output; every sp
+rank then holds the whole sequence's load-balance loss.
 """
 
 from __future__ import annotations
@@ -77,6 +84,9 @@ class MoEBlock(nn.Module):
         self.experts = (0, num_experts)
         self.ep = None
         self.tp = None
+        # Under a mesh with sp above 1: the sp group whose sequence chunks
+        # the layer gathers before routing.
+        self.sp = None
 
     def expert_names(self):
         return EXPERTS if self.gated else ("wi", "wo")
@@ -100,6 +110,12 @@ class MoEBlock(nn.Module):
     def forward(self, x: torch.Tensor, return_aux: bool = False):
         """x [B, T, D] -> [B, T, D] in x's dtype (and the load-balance
         loss, a 0-d f32 tensor, with ``return_aux``)."""
+        chunk = None
+        if self.sp is not None:
+            # Capacity is over the whole sequence: route every chunk's
+            # tokens here, keep this rank's rows of the output below.
+            chunk = (self.sp.index * x.shape[1], x.shape[1])
+            x = self.sp.gather_dim(x, 1)
         B, T, D = x.shape
         E, k = self.num_experts, self.top_k
         C = max(1, math.ceil(k * T / E * self.capacity_factor))
@@ -150,6 +166,8 @@ class MoEBlock(nn.Module):
         if self.ep is not None:
             y = self.ep.all_reduce(y)
         y = y.to(x.dtype)
+        if chunk is not None:
+            y = y.narrow(1, *chunk)
         if not return_aux:
             return y
         # Load-balance loss (Shazeer / GShard): E * sum_e f_e * p_e.

@@ -34,7 +34,11 @@ it, the paged kernel route passes the mesh to
 ``decode_attention.paged_decode_attention``, which launches kernel 3 on
 this rank's shard of the kv heads (kernel 4's per-shard body). Where the
 model's kv heads replicate under the mesh (they do not divide), the
-route declines as the reference's does and the gather path runs.
+route declines as the reference's does and the gather path runs. Where
+a rank's query heads straddle a group boundary (6 q over 3 kv heads at
+tp 2), the model first gathers one kv head per query head
+(:func:`gather_kv_heads`, counted in :data:`kv_gathers`): each route then
+sees grouped-query attention of group 1 over the rank's heads.
 
 With ``k_scale``/``v_scale`` (the int8 KV cache: k/v hold codes) the
 routes stay the same: the two decode kernels read the codes and apply the
@@ -67,6 +71,8 @@ from ray_dynamic_batching_tpu_torch.ops import quant_matmul as _quant
 
 #: Calls routed to :func:`reference_attention` since the last reset.
 plain_launches = 0
+#: kv-head gathers of :func:`gather_kv_heads` since the last reset.
+kv_gathers = 0
 
 _PLAIN: contextvars.ContextVar[bool] = contextvars.ContextVar(
     "plain_attention", default=False
@@ -127,8 +133,9 @@ def tensor_parallel(mesh, axis: str = "tp", heads_split: bool = True):
 def reset_counts() -> None:
     """Zero the launch counts of every kernel (the int8-weight product's
     among them) and of the plain route."""
-    global plain_launches
+    global plain_launches, kv_gathers
     plain_launches = 0
+    kv_gathers = 0
     _quant.reset_counts()
     _flash.launches = 0
     _flash.bwd_launches = 0
@@ -138,6 +145,17 @@ def reset_counts() -> None:
     _decode.paged_int8_launches = 0
     _decode.tp_paged_launches = 0
     _decode.tp_paged_int8_launches = 0
+
+
+def gather_kv_heads(t: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``t`` (k/v or their scales, kv heads on axis 2) with one kv head per
+    query head, ``index`` [N] naming each: a TP rank whose query heads
+    straddle a group boundary (``models/decoder.py`` ``kv_index``). The
+    kernel routes assume that each group of G query heads reads one kv
+    head of a contiguous window; after this gather they see group 1,
+    which every route takes. Counted in :data:`kv_gathers`."""
+    graphs.count_launch(globals(), "kv_gathers")
+    return t.index_select(2, index)
 
 
 def kernel_mask(mask: Optional[torch.Tensor], B: int, Tq: int

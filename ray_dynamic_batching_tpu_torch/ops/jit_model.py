@@ -288,8 +288,9 @@ ASR_PROGRAMS: Tuple[JitProgram, ...] = tuple(
 MESH_EAGER_REASON = {
     "gloo": "gloo's collectives run on the host (CUDA tensors are staged "
             "through host memory), and a CUDA graph cannot capture them",
-    "nccl": "capturing a TP program's NCCL collectives in a CUDA graph is "
-            "ROADMAP queue 1 item 8b",
+    "nccl": "capturing a TP program's NCCL collectives in a CUDA graph "
+            "waits for a machine with two devices, where it can be "
+            "verified",
 }
 
 

@@ -150,6 +150,26 @@ class GatherLast(torch.autograd.Function):
                 None, None)
 
 
+class GatherDim(torch.autograd.Function):
+    """Gather along dimension ``dim`` forward (every rank's chunk in rank
+    order: a MoE layer's tokens over ``sp``), and backward the matching
+    reduce-scatter: the gradient summed over the ranks, this rank's chunk
+    of it kept (each rank's output used only its own chunk's rows)."""
+
+    @staticmethod
+    def forward(ctx, x, group, size: int, index: int, dim: int):
+        ctx.group, ctx.n, ctx.index, ctx.dim = group, x.shape[dim], index, dim
+        parts = pg_allgather(group, x.contiguous(), size)
+        return torch.cat(list(parts.unbind(0)), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        pg_allreduce(ctx.group, g, "sum")
+        return (g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n).contiguous(),
+                None, None, None, None)
+
+
 class CollectiveGroup:
     """A named collective group over one or more mesh axes, as this rank
     sees it. The group's world size is the product of its axis sizes

@@ -64,9 +64,6 @@ AXIS_ORDER = ("dp", "pp", "sp", "tp", "ep")
 #: a tuple of axis names, or None (replicated). ``()`` replicates all.
 Spec = Tuple[Any, ...]
 
-ITEM_8B = "ROADMAP queue 1 item 8b"
-
-
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Axis sizes for the five-way parallelism mesh.
@@ -107,15 +104,18 @@ class AxisGroup:
     """The collectives a sharded model issues on one axis group of its
     mesh (``size`` ranks, this rank at ``index``): the sum of row-parallel
     products, of a vocabulary-sharded embedding and of expert partials,
-    and the gather of vocabulary-sharded logits.
+    the gather of vocabulary-sharded logits and of a MoE layer's sequence
+    chunks.
 
     Serving (no grad) runs them in place on the group. Under autograd
     (grad mode on and the input requiring grad) each is the
     ``torch.autograd.Function`` of ``parallel/collective.py`` with its
     conjugate on the way back: :meth:`all_reduce` sums forward and passes
     the gradient through; :meth:`copy_in` (a column-parallel input) passes
-    forward and sums the gradient; :meth:`gather_last` gathers forward and
-    keeps this rank's slice of the gradient."""
+    forward and sums the gradient; :meth:`gather_last` and
+    :meth:`gather_dim` gather forward and keep this rank's slice of the
+    gradient (summed over the ranks first for :meth:`gather_dim`, whose
+    every rank's output reads every rank's input)."""
 
     def __init__(self, group, size: int, index: int = 0) -> None:
         self.group = group
@@ -141,6 +141,19 @@ class AxisGroup:
         if collective.grad_flows(x):
             return collective.SumBackward.apply(x, self.group)
         return x
+
+    def gather_dim(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Concatenate every rank's ``x`` along ``dim``, in rank order (a
+        MoE layer's sequence chunks over ``sp``); under autograd the
+        gradient is reduce-scattered back (``collective.GatherDim``)."""
+        from ray_dynamic_batching_tpu_torch.parallel import collective
+
+        if collective.grad_flows(x):
+            return collective.GatherDim.apply(x, self.group, self.size,
+                                              self.index, dim)
+        parts = collective.pg_allgather(self.group, x.contiguous(),
+                                        self.size)
+        return torch.cat(list(parts.unbind(0)), dim=dim)
 
     def gather_last(self, x: torch.Tensor) -> torch.Tensor:
         """Concatenate every rank's ``x`` along its last dimension, in rank
@@ -476,7 +489,9 @@ def apply_tp(model: Any, mesh: Mesh, plan: Dict[str, LeafShard],
              key: str) -> None:
     """Mark a model whose parameters hold this rank's slices (``plan``):
     each layer's local head counts, its kv-head window where k/v
-    replicate but q is cut, and the collectives of the row-parallel
+    replicate but q is cut (and, where the rank's query heads straddle a
+    group boundary, each local head's index into that window), a MoE
+    layer's ``sp`` group, and the collectives of the row-parallel
     products, of their column-parallel inputs (the gradient sum, in
     training), of the embedding and the head (``models/decoder.py``),
     and a MoE layer's experts over ``ep`` (and their columns over
@@ -488,21 +503,21 @@ def apply_tp(model: Any, mesh: Mesh, plan: Dict[str, LeafShard],
     kv_cut = plan["layers.0.k.weight"].dim is not None
     N = cfg.num_heads // (tp if q_cut else 1)
     K = cfg.num_kv_heads // (tp if kv_cut else 1)
-    kv_window = None
+    kv_window = kv_index = None
     G = cfg.num_heads // cfg.num_kv_heads
     if q_cut and not kv_cut:
         first = mesh.axis_index("tp") * N      # global index of local head 0
-        if N % G == 0:
-            kv_window = (first // G, N // G)
-        elif G % N == 0:
-            kv_window = (first // G, 1)
-        else:
-            raise NotImplementedError(
-                f"{model.name}: {N} query heads a rank over {G}-head groups "
-                "do not map onto a contiguous kv-head window")
+        lo, hi = first // G, (first + N - 1) // G
+        kv_window = (lo, hi - lo + 1)
+        if N % G and G % N:
+            # The rank's query heads straddle a group boundary: each reads
+            # its own kv head of the window (ops/attention.gather_kv_heads).
+            kv_index = torch.tensor([(first + n) // G - lo for n in range(N)],
+                                    dtype=torch.long, device=mesh.device)
     for i, layer in enumerate(module.layers):
         layer.heads = (N, K)
         layer.kv_window = kv_window
+        layer.kv_index = kv_index
         if q_cut or kv_cut:
             layer.attn_in = mesh.tp.copy_in
         for proj in ("o", "mlp_down"):
@@ -522,6 +537,9 @@ def apply_tp(model: Any, mesh: Mesh, plan: Dict[str, LeafShard],
                 moe.ep = mesh.ep
             if 2 in cuts:     # expert columns over tp
                 moe.tp = mesh.tp
+            # Routing with capacity runs over the whole sequence: under sp
+            # each layer gathers the chunks and keeps its own.
+            moe.sp = mesh.sp
     embed = plan["tok_embed.weight"]
     if embed.dim is not None:
         rows = cfg.vocab_size // embed.parts

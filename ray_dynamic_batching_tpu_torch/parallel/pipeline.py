@@ -223,6 +223,10 @@ def pp_rank_grads(model, mesh, params: Params, tokens, attn_mask,
              for n, p in params.items()}
     for p in params.values():
         p.grad = None
+    if getattr(model, "tp_shard", None) is not None and \
+            model.tp_shard.kv_window:
+        for n in train_mod._replicated_kv(grads):
+            _reduce(mesh.tp, grads[n])
     for n, g in grads.items():
         if n.startswith(_OUTER):
             _reduce(mesh.pp, g)
@@ -385,7 +389,6 @@ def make_pp_train_state(pmodel: PipelinedCausalLM, optimizer,
     if train_mod._key_of(model) is None:
         model = mesh_mod.shard_params(mesh, model)
         pmodel.model = model
-    train_mod._check_trainable(model, mesh)
     key = train_mod._key_of(model)
     start = None if params is None else {
         n: train_mod._as_tensor(x, "cpu").float().numpy()

@@ -520,26 +520,29 @@ def _stop_procs(conns, procs, timeout_s: float = 30.0) -> None:
 
 
 def _attach_body(ctx: RankContext, seq: int, key: str, model_key: str,
-                 kwargs: dict) -> None:
+                 kwargs: dict, draft_key: Optional[str]) -> None:
     """A follower builds its twin of rank 0's engine ``key`` over its
-    shard ``model_key``; its queue stays empty (rank 0 admits)."""
+    shard ``model_key`` (and its draft's shard ``draft_key``: the same
+    object for a self-draft); its queue stays empty (rank 0 admits)."""
     if ctx.rank == 0:
         return None
     from ray_dynamic_batching_tpu_torch.engine.decode import DecodeEngine
     from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
 
     model = ctx.objects[model_key]
+    draft = None if draft_key is None else ctx.objects[draft_key]
     ctx.objects[key] = DecodeEngine(
         model, RequestQueue(f"{model.name}:{key}", max_len=1),
-        mesh=ctx.mesh, **kwargs)
+        mesh=ctx.mesh, draft_model=draft, **kwargs)
     return None
 
 
 def attach_engine(world: World, key: str, model_key: str,
-                  kwargs: dict) -> None:
+                  kwargs: dict, draft_key: Optional[str] = None) -> None:
     """Every follower builds its twin of rank 0's engine ``key`` with the
-    same constructor arguments."""
-    world.call(_attach_body, key, model_key, kwargs)
+    same constructor arguments, over its shards of the model and the
+    draft."""
+    world.call(_attach_body, key, model_key, kwargs, draft_key)
 
 
 def _drop_body(ctx: RankContext, seq: int, keys: tuple) -> None:

@@ -25,20 +25,23 @@ collectives are written out:
   host batch every rank holds), the weight count is the GLOBAL one
   (all-reduced over dp x sp first, so ranks with fewer valid tokens are
   not over-weighted), and the aux loss, a mean over batch rows, counts
-  ``1 / dp`` a dp rank. Summing the ranks' shares is the reference's loss.
+  ``1 / dp`` a dp rank and ``1 / sp`` an sp rank (a MoE layer routes the
+  whole sequence on every sp rank, ``models/moe.py``). Summing the ranks'
+  shares is the reference's loss.
 - **The gradients.** ``backward`` runs through the autograd-aware TP/EP
   collectives (``parallel/collective.py``) and, with sp > 1, ring
-  attention's backward; each gradient is then summed over the dp x sp
-  group (``mesh.data``). AdamW updates each rank's slices in place.
-
-Refused, before any rank works: a mixture of experts with sp > 1 (its
-per-row capacity is over the whole sequence), and a TP mesh whose kv
-heads replicate while q is cut (``kv_window``: the kv projections' grads
-would be partial per rank).
+  attention's backward and the MoE layers' sequence gathers; each
+  gradient is then summed over the dp x sp group (``mesh.data``). Where
+  the kv heads replicate over tp while q is cut (``kv_window``), a rank's
+  gradient of the k/v projections covers only the kv heads its query
+  heads read: those are summed over the ``tp`` group first, so every rank
+  holds the reference's gradient. AdamW updates each rank's slices in
+  place.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -129,7 +132,8 @@ def rank_loss(model, mesh, params: Params, tokens: torch.Tensor,
     if mesh.data is not None:
         pg_allreduce(mesh.data.group, count, "sum")
     count = torch.clamp(count, min=1.0)
-    return (ce / count + MOE_AUX_COEF * aux / mesh.shape["dp"]), count
+    share = mesh.shape["dp"] * mesh.shape["sp"]
+    return (ce / count + MOE_AUX_COEF * aux / share), count
 
 
 def rank_grads(model, mesh, params: Params, tokens, attn_mask
@@ -153,6 +157,10 @@ def rank_grads(model, mesh, params: Params, tokens, attn_mask
     for p in params.values():
         p.grad = None
     total = loss.detach().clone()
+    shard = getattr(model, "tp_shard", None)
+    if shard is not None and shard.kv_window:
+        for n in _replicated_kv(grads):
+            pg_allreduce(mesh.tp.group, grads[n], "sum")
     if mesh.data is not None:
         for g in grads.values():
             pg_allreduce(mesh.data.group, g, "sum")
@@ -160,19 +168,14 @@ def rank_grads(model, mesh, params: Params, tokens, attn_mask
     return total, grads
 
 
+def _replicated_kv(grads: Params):
+    """The k/v projection leaves (weights and biases) of ``grads``: whole
+    on every rank of a ``kv_window`` layout, each rank's gradient partial."""
+    return [n for n in grads
+            if re.fullmatch(r"layers\.\d+\.[kv]\.(weight|bias)", n)]
+
+
 # --- the train state ------------------------------------------------------
-
-def _check_trainable(model, mesh) -> None:
-    if getattr(model.cfg, "num_experts", 0) > 0 and mesh.shape["sp"] > 1:
-        raise ValueError(
-            f"{model.name}: a mixture of experts routes with capacity over "
-            "the whole sequence; sp > 1 would cut it per chunk")
-    shard = getattr(model, "tp_shard", None)
-    if shard is not None and shard.kv_window:
-        raise ValueError(
-            f"{model.name}: the kv heads replicate over tp while q is cut; "
-            "training needs tp to divide the kv heads")
-
 
 def _leaves(model) -> Params:
     """The f32 params of a rank's model, from its own weights: an f32 leaf
@@ -200,21 +203,41 @@ def _slices(model, full: Dict[str, Any], device) -> Params:
     return out
 
 
-def _state_body(ctx, seq, key: str, optimizer, start) -> Tuple:
+def _state_body(ctx, seq, key: str, optimizer, start, moments) -> Tuple:
     """Every rank's half of :func:`make_sharded_train_state`."""
     model = ctx.objects[key]
     ctx.objects[(key, "train")] = _new_state(model, optimizer, start,
-                                             ctx.mesh.device)
+                                             ctx.mesh.device, moments)
     return None
 
 
-def _new_state(model, optimizer, start, device):
+def _new_state(model, optimizer, start, device, moments=None):
     if start is None:
         params = _leaves(model)
     else:
         params = {n: t.requires_grad_(True)
                   for n, t in _slices(model, start, device).items()}
-    return params, optimizer.init(params)
+    state = optimizer.init(params)
+    if moments is not None:
+        # A whole optimizer state (a restored checkpoint's): this rank's
+        # slice of each moment, cut as its param is.
+        count, mu, nu = moments
+        adam = state[0]
+        adam.count.fill_(int(count))
+        for mine, whole in ((adam.mu, mu), (adam.nu, nu)):
+            for n, t in _slices(model, whole, device).items():
+                mine[n].copy_(t)
+    return params, state
+
+
+def _whole_moments(opt_state) -> Optional[tuple]:
+    """(count, mu, nu) of a whole optimizer state as host numbers."""
+    if opt_state is None:
+        return None
+    adam = opt_state[0]
+    host = lambda tree: {n: _as_tensor(x, "cpu").detach().float().numpy()
+                         for n, x in tree.items()}
+    return int(_as_tensor(adam.count, "cpu")), host(adam.mu), host(adam.nu)
 
 
 def _key_of(model) -> Optional[str]:
@@ -223,7 +246,8 @@ def _key_of(model) -> Optional[str]:
 
 
 def make_sharded_train_state(model, mesh, optimizer,
-                             params: Optional[Dict[str, Any]] = None
+                             params: Optional[Dict[str, Any]] = None,
+                             opt_state: Any = None
                              ) -> Tuple[Params, Any]:
     """(params, opt_state) of rank 0; every rank holds its own (reference
     ``train.py:50-62``). ``model`` is rank 0's shard of a model on the mesh
@@ -232,21 +256,113 @@ def make_sharded_train_state(model, mesh, optimizer,
     start from the model's weights in f32 (the reference's ``rng``: a port
     model draws its weights from its own seed), or from ``params`` (whole
     leaves keyed by port names, e.g.
-    ``models/convert.train_state_from_flax``'s)."""
+    ``models/convert.train_state_from_flax``'s or a restored checkpoint's);
+    ``opt_state``, a whole AdamW state beside them, is cut the same way
+    (else the moments start at zero)."""
     from ray_dynamic_batching_tpu_torch.parallel import mesh as mesh_mod
 
+    moments = _whole_moments(opt_state)
     if mesh is None or mesh.size == 1:
-        _check_trainable(model, mesh_mod.single_device_mesh(model.device)
-                         if mesh is None else mesh)
-        return _new_state(model, optimizer, params, model.device)
+        return _new_state(model, optimizer, params, model.device, moments)
     if _key_of(model) is None:
         model = mesh_mod.shard_params(mesh, model)
-    _check_trainable(model, mesh)
     key = _key_of(model)
     start = None if params is None else {
-        n: _as_tensor(x, "cpu").float().numpy() for n, x in params.items()}
-    mesh.world.call(_state_body, key, optimizer, start)
+        n: _as_tensor(x, "cpu").detach().float().numpy()
+        for n, x in params.items()}
+    mesh.world.call(_state_body, key, optimizer, start, moments)
     return mesh.world.ctx.objects[(key, "train")]
+
+
+def _gather_body(ctx, seq, key: str, moments: bool):
+    """Every rank's half of :func:`gather_train_state`. Which ranks hold
+    which slice of each leaf follows from every rank's plan (and, on a
+    pipeline, from the leaves each rank's state holds, all-gathered once);
+    the lowest rank holding each distinct slice sends it to rank 0 (in
+    leaf order, on the world's group), which puts it in place along that
+    rank's cuts. Replicas (dp, sp, the copies of an uncut leaf) send
+    nothing. Returns rank 0's whole trees (host f32) and the step count,
+    None elsewhere."""
+    from ray_dynamic_batching_tpu_torch.parallel import mesh as mesh_mod
+    from ray_dynamic_batching_tpu_torch.parallel.collective import (
+        pg_allgather,
+        pg_recv,
+        pg_send,
+    )
+
+    mesh, dev = ctx.mesh, ctx.mesh.device
+    stage = mesh.backend == "gloo" and dev.type == "cuda"
+    model = ctx.objects[key]
+    params, opt_state = ctx.objects[(key, "train")]
+    local = dict(model.module.named_parameters())
+    whole = dict(mesh_mod._twin(mesh_mod._recipe(model), torch.device("meta"))
+                 .module.named_parameters())
+    names = sorted(local)
+    held = pg_allgather(mesh.group, torch.tensor(
+        [n in params for n in names], dtype=torch.int32, device=dev),
+        mesh.size).cpu()
+    plans = [mesh_mod.shard_plan(mesh_mod.Mesh(mesh.shape, mesh.devices, r),
+                                 model) for r in range(mesh.size)]
+    trees = [params] + ([opt_state[0].mu, opt_state[0].nu] if moments
+                        else [])
+    out: list = [{} for _ in trees]
+    for i, n in enumerate(names):
+        senders: Dict[tuple, int] = {}
+        for r in range(mesh.size):
+            cuts = tuple((c.dim, c.parts, c.index) for c in plans[r][n].cuts())
+            if held[r, i] and cuts not in senders:
+                senders[cuts] = r
+        if ctx.rank != 0:
+            if ctx.rank in senders.values():
+                for tree in trees:
+                    pg_send(mesh.group, tree[n].detach().float(), 0, stage)
+            continue
+        fulls = [torch.empty(whole[n].shape, dtype=torch.float32)
+                 for _ in trees]
+        for cuts, r in senders.items():
+            for tree, full in zip(trees, fulls):
+                part = (tree[n].detach().float() if r == 0 else pg_recv(
+                    mesh.group, torch.empty(local[n].shape,
+                                            dtype=torch.float32, device=dev),
+                    r, stage))
+                view = full
+                for dim, parts, index in cuts:
+                    m = view.shape[dim] // parts
+                    view = view.narrow(dim, index * m, m)
+                view.copy_(part)
+        for full, dst in zip(fulls, out):
+            if senders:
+                dst[n] = full
+    if ctx.rank != 0:
+        return None
+    count = int(opt_state[0].count) if moments else None
+    return out, count
+
+
+def gather_train_state(model, params: Params, opt_state: Any = None):
+    """(a whole twin of ``model`` on the meta device, whole params,
+    whole opt_state or None) of the mesh train state whose rank-0 params
+    are ``params``: every leaf gathered from the ranks' slices along the
+    axes ``parallel/mesh.py``'s plan cut, the AdamW moments the same way,
+    on rank 0's host (f32). What a whole checkpoint of a sharded train
+    state saves (``runtime/checkpoint.save_train_state``)."""
+    from ray_dynamic_batching_tpu_torch.parallel import mesh as mesh_mod
+    from ray_dynamic_batching_tpu_torch.parallel.optim import (
+        EmptyState,
+        ScaleByAdamState,
+    )
+
+    mesh = model.tp_shard.mesh
+    key = _find_key(mesh, params)
+    trees, count = mesh.world.call(_gather_body, key,
+                                   opt_state is not None)[0]
+    twin = mesh_mod._twin(mesh_mod._recipe(model), torch.device("meta"))
+    state = None
+    if opt_state is not None:
+        state = (ScaleByAdamState(torch.tensor(count, dtype=torch.int32),
+                                  trees[1], trees[2]),
+                 EmptyState(), EmptyState())
+    return twin, trees[0], state
 
 
 def _find_key(mesh, params: Params) -> str:

@@ -276,13 +276,21 @@ def save_train_state(manager: CheckpointManager, step: int, params: Any,
                      **metadata: Any) -> Path:
     """Params (+ optional optimizer state) under one step (reference
     ``checkpoint.py:183-194``). With ``model``, ``params`` / ``opt_state``
-    are a port train state, saved in the JAX package's layout (one
-    device's: a mesh rank holds slices, and gathering them whole is
-    ROADMAP queue 1 item 8c)."""
+    are a port train state, saved in the JAX package's layout. Where
+    ``model`` is rank 0's shard on a mesh, ``params`` / ``opt_state`` are
+    rank 0's train state: every leaf's slices (the AdamW moments' too) are
+    gathered whole to rank 0 along the axes the mesh's plan cut
+    (``parallel/train.gather_train_state``), and rank 0 writes one
+    checkpoint, the same as one device's: it restores on one device, over
+    a mesh (restore whole, then ``make_sharded_train_state`` cuts it) and
+    in the JAX package."""
     if getattr(model, "tp_shard", None) is not None:
-        raise NotImplementedError(
-            f"{model.name} is sharded over a mesh: a rank's train state is "
-            "slices; saving it whole is ROADMAP queue 1 item 8c")
+        from ray_dynamic_batching_tpu_torch.parallel.train import (
+            gather_train_state,
+        )
+
+        model, params, opt_state = gather_train_state(model, params,
+                                                      opt_state)
     if model is not None:
         from ray_dynamic_batching_tpu_torch.models.convert import (
             opt_state_to_flax,

@@ -36,7 +36,11 @@ and 8), Tq < Tk (a 64-row chunk over 576 keys), a fully masked row, a
 key tile voided mid-row, head_dims 16 and 104, and bit-identical
 gradients from two calls; the bare launch refusing an input that
 requires grad, and a 2-layer llama3_8b train step's loss and gradients,
-kernel route against plain route. This file imports no JAX, so
+kernel route against plain route; tensor parallelism on gloo ranks
+sharing the card: a tp-2 engine's tokens (and with a divergent draft, its
+acceptance) against the one-card engine's, kernels 2 and 4 launched,
+and a parcel scattered into a tp-2 pool and gathered back
+bit-identical to the one-card export. This file imports no JAX, so
 it runs on a machine without it::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1204,6 +1208,21 @@ def _draft_of(card):
                     device=card, seed=1)
 
 
+def _noisy_draft_of(card):
+    """``_tiny_lm``'s weights, each leaf plus seeded noise of 0.1 of its
+    mean |w| (``tests/test_torch_tp_spec.py``'s recipe): a divergent
+    draft whose proposals are partly accepted, so they reach the output."""
+    import numpy as np
+
+    draft = _tiny_lm(card)
+    rng = np.random.default_rng(1)
+    with torch.no_grad():
+        for _n, p in sorted(draft.module.named_parameters()):
+            noise = rng.standard_normal(tuple(p.shape)).astype(np.float32)
+            p.add_(0.1 * p.abs().mean() * torch.from_numpy(noise).to(card))
+    return draft
+
+
 @pytest.mark.parametrize("arm", list(_ARMS))
 def test_spec_engine_graphed_equals_eager(card, arm):
     """A speculative engine (divergent draft, three proposals a round) on
@@ -1640,6 +1659,110 @@ def test_tp_engine_on_gloo_ranks_sharing_the_card(card):
         shard = pm.shard_params(mesh, model)
         for kw in ({}, {"paged": True, "page_size": 128}):
             assert serve(shard, mesh, **kw) == serve(model, None, **kw)
+        assert not mesh.world.failed
+    finally:
+        mesh.shutdown()
+    assert not any(p.is_alive() for p in procs)
+
+
+def test_tp_spec_engine_on_gloo_ranks_sharing_the_card(card):
+    """A tp-2 slab engine speculating with a divergent draft (the target
+    plus seeded noise; each rank holds its shard of both) serves the
+    one-card spec engine's greedy tokens at its acceptance rate, which
+    lies strictly between 0 and 1; kernel 2 launched on rank 0's shard
+    (every rank's count: ``chip_smoke.py`` 20c)."""
+    import numpy as np
+
+    from ray_dynamic_batching_tpu_torch.engine.decode import DecodeEngine
+    from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+    from ray_dynamic_batching_tpu_torch.ops import attention, graphs
+    from ray_dynamic_batching_tpu_torch.ops import decode_attention as dec
+    from ray_dynamic_batching_tpu_torch.parallel import mesh as pm
+
+    model, draft = _tiny_lm(card), _noisy_draft_of(card)
+    rng = np.random.default_rng(4)
+    payloads = [{"tokens": rng.integers(1, 500, n).tolist(),
+                 "max_new_tokens": 8} for n in (5, 12, 30, 40)]
+
+    def serve(m, d, mesh):
+        q = RequestQueue("t", max_len=64)
+        with graphs.disable_capture():
+            engine = DecodeEngine(m, q, device=card, mesh=mesh, num_slots=4,
+                                  max_len=128, prompt_buckets=[16],
+                                  decode_horizon=4, draft_model=d,
+                                  spec_tokens=3)
+        reqs = [Request(model="t", payload=p, slo_ms=6e4) for p in payloads]
+        for r in reqs:
+            q.add_request(r)
+        engine.run_until_idle(timeout_s=120)
+        out = ([r.future.result(timeout=10).tokens for r in reqs],
+               engine.spec_acceptance(), engine.spec_rounds)
+        engine.release_buffers()
+        return out
+
+    want = serve(model, draft, None)
+    assert 0.0 < want[1] < 1.0
+    mesh = pm.build_mesh(pm.MeshConfig(tp=2), [card, card], backend="gloo")
+    procs = list(mesh.world._procs)
+    try:
+        shard = pm.shard_params(mesh, model)
+        attention.reset_counts()
+        got = serve(shard, pm.shard_params(mesh, draft), mesh)
+        assert got == want and got[2] > 0
+        assert dec.launches > 0      # kernel 2 on this rank's shard
+        assert not mesh.world.failed
+    finally:
+        mesh.shutdown()
+    assert not any(p.is_alive() for p in procs)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, torch.int8])
+def test_tp_parcel_scatter_and_gather_bit_identical(card, kv_dtype):
+    """Pages a one-card paged engine filled, exported as a parcel (every
+    kv head), written into a tp-2 engine's pool (each rank keeps its
+    kv-head shard) and exported from it again (the shards gathered over
+    the tp group): bit-identical to the one-card export."""
+    import numpy as np
+
+    from ray_dynamic_batching_tpu_torch.engine.decode import DecodeEngine
+    from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
+    from ray_dynamic_batching_tpu_torch.engine.request import Request
+    from ray_dynamic_batching_tpu_torch.ops import graphs
+    from ray_dynamic_batching_tpu_torch.parallel import mesh as pm
+
+    model = _tiny_lm(card, kv_dtype)
+    knobs = dict(num_slots=2, max_len=384, prompt_buckets=[128],
+                 paged=True, page_size=128, prefix_cache_size=4)
+    with graphs.disable_capture():
+        one = DecodeEngine(model, RequestQueue("o", max_len=512),
+                           device=card, **knobs)
+    rng = np.random.default_rng(5)
+    req = Request(model="o", payload={"tokens": rng.integers(
+        1, 500, 300).tolist(), "max_new_tokens": 2}, slo_ms=6e4)
+    one.queue.add_request(req)
+    one.run_until_idle(timeout_s=120)
+    req.future.result(timeout=10)
+    # The prompt's published pages (the prefix cache pins them).
+    pages = list(max(one.paged_prefix._entries.values(), key=len))
+    want = one._read_pages(pages)
+    one.release_buffers()
+    assert len(pages) == 2 and want["k"].shape[3] == model.cfg.num_kv_heads
+    assert want["k"].float().abs().sum() > 0
+    mesh = pm.build_mesh(pm.MeshConfig(tp=2), [card, card], backend="gloo")
+    procs = list(mesh.world._procs)
+    try:
+        shard = pm.shard_params(mesh, model)
+        with graphs.disable_capture():
+            tp = DecodeEngine(shard, RequestQueue("t", max_len=512),
+                              device=card, mesh=mesh, **knobs)
+        assert tp._cache.k.shape[3] * 2 == model.cfg.num_kv_heads
+        tp._write_pages(pages, want)
+        got = tp._read_pages(pages)
+        tp.release_buffers()
+        assert got.keys() == want.keys()
+        for name in want:
+            assert torch.equal(got[name], want[name]), name
         assert not mesh.world.failed
     finally:
         mesh.shutdown()

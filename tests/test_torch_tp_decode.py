@@ -12,10 +12,13 @@ paged monolithic, with the f32 KV cache here and the int8 one in
 ``tests/test_torch_tp_int8.py`` (which also checks that params and
 caches are cut). At tp 4 the two kv heads replicate while q is cut (each
 rank's query head reads the kv head of its global index), and the paged
-read takes the gather path as the reference's kernel declines. The reference's refusals and the
-port's item-8b stand-ins raise before any rank does work; a 2-device
-bundle's ``make_replica`` answers requests with the JAX engine's tokens
-and leaves no process behind.
+read takes the gather path as the reference's kernel declines. The
+reference's refusals raise before any rank does work; the page fabric's
+entry points take a TP engine's streams and parcels as a one-card
+engine's (the round trips: ``tests/test_torch_tp_reuse.py``; drafts:
+``tests/test_torch_tp_spec.py``); a 2-device bundle's ``make_replica``
+answers requests with the JAX engine's tokens and leaves no process
+behind.
 """
 
 from __future__ import annotations
@@ -206,8 +209,8 @@ def params_and_caches_are_cut(models, sharded, worlds, tp):
 
 
 def test_refusals_raise_before_any_sharding(models, worlds):
-    """The reference's refusals (ValueError) in its order, then the port's
-    item-8b stand-ins (NotImplementedError): none reaches the ranks."""
+    """The reference's refusals (ValueError) in its order: none reaches
+    the ranks."""
     _jm, _p, tm = models["f32"]
     mesh = worlds[2]
     seq = mesh.world._seq
@@ -215,13 +218,13 @@ def test_refusals_raise_before_any_sharding(models, worlds):
     cases = [
         (ValueError, "TP-mesh paged",
          dict(paged=True, draft_model=tm, quantize_weights=True)),
+        (ValueError, "TP-mesh paged",
+         dict(paged=True, page_size=128, draft_model=tm,
+              prefix_cache_size=2)),
         (ValueError, "quantize_weights", dict(quantize_weights=True,
                                               prefix_cache_size=2)),
-        (NotImplementedError, "item 8b", dict(draft_model=tm)),
-        (NotImplementedError, "item 8b", dict(prefix_cache_size=2)),
-        (NotImplementedError, "item 8b", dict(session_cache_size=2)),
-        (NotImplementedError, "item 8b",
-         dict(paged=True, page_size=128, host_spill_pages=4)),
+        (ValueError, "quantize_weights", dict(quantize_weights=True,
+                                              draft_model=tm)),
     ]
     for exc, match, kw in cases:
         with pytest.raises(exc, match=match):
@@ -237,17 +240,75 @@ def test_refusals_raise_before_any_sharding(models, worlds):
 
 
 def test_page_fabric_refused_on_a_tp_engine(sharded, worlds):
+    """A TP paged engine's fabric entry points answer as a one-card
+    engine's: nothing is refused for the mesh (a stream that is not live
+    is not queued, a push is queued, a stream parcel is accepted into a
+    free slot), and its queued push is served (skipped: the entry is
+    gone)."""
+    from ray_dynamic_batching_tpu_torch.engine.pagefabric import (
+        STREAM,
+        PageParcel,
+    )
+
     engine = DecodeEngine(sharded[2, "f32"], RequestQueue("t"),
                           device="cpu", mesh=worlds[2], paged=True,
-                          page_size=128, **BASE)
+                          page_size=128, prefix_cache_size=2, **BASE)
     try:
-        for call in (lambda: engine.request_migration("r", None),
-                     lambda: engine.request_prefix_push(b"k", None),
-                     lambda: engine.accept_parcel(None)):
-            with pytest.raises(NotImplementedError, match="item 8b"):
-                call()
+        assert not engine.request_migration("r", None)
+        assert engine.request_prefix_push(b"k", None)
+        parcel = PageParcel(kind=STREAM, page_size=128, cache_len=3,
+                            payload={}, digest=b"", src="t",
+                            generated=[1], max_new_tokens=4)
+        assert engine.accept_parcel(parcel)
+        with engine._fabric_lock:
+            engine._parcel_in_q.clear()
+        engine._service_fabric()
+        assert engine.pushes_out == 0 and not engine._fabric_pending()
     finally:
         engine.release_buffers()
+    assert not worlds[2].world.failed
+
+
+@pytest.mark.timeout(180)
+@pytest.mark.parametrize("arm", ["slab_mono", "paged_chunked"])
+def test_straddling_query_groups_serve_the_jax_tokens(worlds, arm):
+    """6 query heads over 3 kv heads at tp 2: each rank's 3 query heads
+    straddle a group boundary (rank 0 reads kv heads 0, 0, 1 and rank 1
+    1, 2, 2 of the replicated kv heads); greedy tokens equal the JAX
+    single-device engine's, each rank gathering one kv head a query head
+    (``ops/attention.gather_kv_heads``)."""
+    import dataclasses
+
+    straddle = dict(d_model=96, num_heads=6, num_kv_heads=3)
+    jm = j_lm.CausalLM(dataclasses.replace(j_lm.TINY_LM, **straddle),
+                       name="llama_6q3kv", dtype=jnp.float32)
+    params = jm.init(jax.random.PRNGKey(0))
+    tm = t_lm.CausalLM(dataclasses.replace(t_lm.TINY_LM, **straddle),
+                       name="llama_6q3kv", dtype=torch.float32,
+                       device="cpu", seed=None)
+    tm.module.load_state_dict(params_from_flax(
+        jax.tree_util.tree_map(np.asarray, params), tm.cfg))
+    jq = JQueue("j", max_len=256)
+    je = JEngine(jm, params, jq, **BASE)
+    jreqs = [JRequest(model="j", payload=p, slo_ms=6e4) for p in _payloads()]
+    for r in jreqs:
+        jq.add_request(r)
+    je.run_until_idle(timeout_s=120)
+    mesh = worlds[2]
+    shard = t_mesh.shard_params(mesh, tm)
+    try:
+        layouts = mesh.world.call(torch_ranks.sharded_layout,
+                                  shard.tp_shard.key)
+        assert [lay["kv_index"] for lay in layouts] == [[0, 0, 1],
+                                                        [0, 1, 1]]
+        assert [lay["kv_window"] for lay in layouts] == [(0, 2), (1, 2)]
+        got, engine = _serve(shard, mesh, warm=False, **ARMS[arm])
+        engine.release_buffers()
+        assert got == [r.future.result(timeout=5).tokens for r in jreqs]
+        assert all(mesh.world.call(torch_ranks.kv_gathers))
+    finally:
+        spmd.drop_objects(mesh.world, shard.tp_shard.key)
+    assert not mesh.world.failed
 
 
 def test_two_device_bundle_replica_serves_the_jax_tokens(models,

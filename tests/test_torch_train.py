@@ -15,16 +15,20 @@
   moe_tiny against ``jax.value_and_grad(train.causal_lm_loss)``: loss
   1e-5 relative, every gradient leaf within 1e-4 of its largest entry.
 - Train steps: the port's losses over 3 steps against the JAX package's
-  ``make_train_step`` (one device), and on gloo CPU worlds of 4 ranks,
-  dp x sp (2 x 2: ring attention, batch rows) and sp x tp (2 x 2: ring
-  attention, TP collectives), the one-step loss and the gradients merged
-  from every rank's slice against JAX's, and the 3-step losses against
-  the JAX step's. Each world is spawned once for the module.
+  ``make_train_step`` (one device), and on gloo CPU worlds, dp x sp
+  (2 x 2: ring attention, batch rows), sp x tp (2 x 2: ring attention,
+  TP collectives), moe_tiny over sp x ep (2 x 2: routing over the whole
+  sequence), llama_tiny at tp 4 (its kv heads replicate while q is cut)
+  and a 6 q / 3 kv head variant at tp 2 (query groups straddle the
+  ranks): the one-step loss and the gradients merged from every rank's
+  slice against JAX's (1e-4 of each leaf's largest entry), and the
+  3-step losses against the JAX step's. Each world is spawned once for
+  the module, on first use.
 """
 
 from __future__ import annotations
 
-import types
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -52,8 +56,25 @@ from tests import torch_ranks
 torch.set_num_threads(2)
 
 B, T = 4, 32
+#: A TINY_LM whose 6 query heads over 3 kv heads straddle a group
+#: boundary at tp 2 (each rank's 3 query heads read kv heads 0,0,1 and
+#: 1,2,2).
+STRADDLE = dict(d_model=96, num_heads=6, num_kv_heads=3)
 CFGS = {"llama_tiny": ("TINY_LM", j_lm.TINY_LM),
-        "moe_tiny": ("TINY_MOE", j_lm.TINY_MOE)}
+        "moe_tiny": ("TINY_MOE", j_lm.TINY_MOE),
+        "llama_6q3kv": (dataclasses.replace(t_lm.TINY_LM, **STRADDLE),
+                        dataclasses.replace(j_lm.TINY_LM, **STRADDLE))}
+#: Mesh layouts of test_mesh_step_matches_jax: (model, mesh axes).
+MESH_CASES = {
+    "dp2_sp2": ("llama_tiny", (("dp", 2), ("sp", 2))),
+    "sp2_tp2": ("llama_tiny", (("sp", 2), ("tp", 2))),
+    # Routing with capacity over the whole sequence, experts over ep.
+    "moe_sp2_ep2": ("moe_tiny", (("sp", 2), ("ep", 2))),
+    # The two kv heads replicate while q is cut (kv_window).
+    "tp4_kv_window": ("llama_tiny", (("tp", 4),)),
+    # Query groups straddle the rank boundary (kv_index).
+    "tp2_straddle": ("llama_6q3kv", (("tp", 2),)),
+}
 
 
 def _batch(seed: int = 0, V: int = 512):
@@ -68,45 +89,69 @@ def _batch(seed: int = 0, V: int = 512):
 @pytest.fixture(scope="module")
 def lms():
     out = {}
-    for name, (tname, cfg) in CFGS.items():
+    for name, (tcfg, cfg) in CFGS.items():
         jm = j_lm.CausalLM(cfg, name=name, dtype=jnp.float32)
         params = jax.tree_util.tree_map(np.asarray,
                                         jm.init(jax.random.PRNGKey(0)))
-        tm = t_lm.CausalLM(getattr(t_lm, tname), name=name,
+        tcfg = getattr(t_lm, tcfg) if isinstance(tcfg, str) else tcfg
+        tm = t_lm.CausalLM(tcfg, name=name,
                            dtype=torch.float32, device="cpu", seed=None)
         tm.module.load_state_dict(params_from_flax(params, tm.cfg))
         out[name] = (jm, params, tm)
     return out
 
 
+class _Lazy(dict):
+    """A dict whose missing entries ``make(key)`` fills once."""
+
+    def __init__(self, make):
+        super().__init__()
+        self._make = make
+
+    def __missing__(self, key):
+        self[key] = value = self._make(key)
+        return value
+
+
 @pytest.fixture(scope="module")
-def jax_step(lms):
-    """The JAX package's one-device results for llama_tiny: loss and
-    grads (port names) of the first batch, and the losses of 3 steps."""
-    jm, params, tm = lms["llama_tiny"]
-    tok, mask = _batch()
-    loss, grads = jax.value_and_grad(lambda p: j_train.causal_lm_loss(
-        jm, p, jnp.asarray(tok), jnp.asarray(mask)))(params)
-    mesh = j_mesh.single_device_mesh()
-    tx = optax.adamw(1e-3)
-    step = j_train.make_train_step(jm, mesh, tx)
-    p = jax.tree_util.tree_map(jnp.asarray, params)
-    s = tx.init(p)
-    losses = []
-    for _ in range(3):
-        p, s, l = step(p, s, jnp.asarray(tok), jnp.asarray(mask))
-        losses.append(float(l))
-    return float(loss), params_from_flax(
-        jax.tree_util.tree_map(np.asarray, grads), tm.cfg), losses
+def jax_steps(lms):
+    """The JAX package's one-device results for a model, on first use:
+    loss and grads (port names) of the first batch, and the losses of 3
+    steps."""
+    def run(name):
+        jm, params, tm = lms[name]
+        tok, mask = _batch()
+        loss, grads = jax.value_and_grad(lambda p: j_train.causal_lm_loss(
+            jm, p, jnp.asarray(tok), jnp.asarray(mask)))(params)
+        mesh = j_mesh.single_device_mesh()
+        tx = optax.adamw(1e-3)
+        step = j_train.make_train_step(jm, mesh, tx)
+        p = jax.tree_util.tree_map(jnp.asarray, params)
+        s = tx.init(p)
+        losses = []
+        for _ in range(3):
+            p, s, l = step(p, s, jnp.asarray(tok), jnp.asarray(mask))
+            losses.append(float(l))
+        return float(loss), params_from_flax(
+            jax.tree_util.tree_map(np.asarray, grads), tm.cfg), losses
+
+    return _Lazy(run)
+
+
+@pytest.fixture(scope="module")
+def jax_step(jax_steps):
+    return jax_steps["llama_tiny"]
 
 
 @pytest.fixture(scope="module")
 def worlds():
-    built = {}
+    """A gloo world of CPU ranks per mesh layout, spawned on first use."""
+    def build(axes):
+        cfg = t_mesh.MeshConfig(**dict(axes))
+        return t_mesh.build_mesh(cfg, ["cpu"] * cfg.n_devices)
+
+    built = _Lazy(build)
     try:
-        for conf in (("dp", 2, "sp", 2), ("sp", 2, "tp", 2)):
-            cfg = t_mesh.MeshConfig(**{conf[0]: conf[1], conf[2]: conf[3]})
-            built[conf] = t_mesh.build_mesh(cfg, ["cpu"] * 4)
         yield built
     finally:
         for mesh in built.values():
@@ -288,13 +333,14 @@ def test_three_steps_match_the_jax_step(lms, jax_step):
 
 # --- meshes -------------------------------------------------------------------
 @pytest.mark.timeout(150)
-@pytest.mark.parametrize("conf", [("dp", 2, "sp", 2), ("sp", 2, "tp", 2)],
-                         ids=["dp2_sp2", "sp2_tp2"])
-def test_mesh_step_matches_jax(lms, jax_step, worlds, conf):
-    _jm, params, _ = lms["llama_tiny"]
-    mesh = worlds[conf]
+@pytest.mark.parametrize("case", list(MESH_CASES))
+def test_mesh_step_matches_jax(lms, jax_steps, worlds, case):
+    name, axes = MESH_CASES[case]
+    _jm, params, whole = lms[name]
+    jax_step = jax_steps[name]
+    mesh = worlds[axes]
     tok, mask = _batch()
-    tm = t_lm.CausalLM(t_lm.TINY_LM, name="llama_tiny", dtype=torch.float32,
+    tm = t_lm.CausalLM(whole.cfg, name=name, dtype=torch.float32,
                        device="cpu", seed=None)
     tm.module.load_state_dict(params_from_flax(params, tm.cfg))
     opt = optim.adamw(1e-3)
@@ -314,15 +360,13 @@ def test_mesh_step_matches_jax(lms, jax_step, worlds, conf):
 
 
 def test_mesh_refusals():
-    """MoE with sp > 1 and a TP layout whose kv heads replicate under a
-    cut q are refused before any rank works."""
-    sp2 = t_mesh.Mesh({"sp": 2}, ["cpu"] * 2)
-    moe = types.SimpleNamespace(cfg=t_lm.TINY_MOE, name="moe_tiny",
-                                tp_shard=None)
-    with pytest.raises(ValueError, match="sp > 1"):
-        t_train._check_trainable(moe, sp2)
-    lm = types.SimpleNamespace(
-        cfg=t_lm.TINY_LM, name="llama_tiny",
-        tp_shard=types.SimpleNamespace(kv_window=True))
-    with pytest.raises(ValueError, match="kv heads"):
-        t_train._check_trainable(lm, t_mesh.Mesh({"tp": 4}, ["cpu"] * 4))
+    """What the reference also refuses: a batch whose rows do not split
+    over dp, a sequence that does not split over sp (its shardings would
+    not divide the arrays)."""
+    mesh = t_mesh.Mesh({"dp": 2, "sp": 2}, ["cpu"] * 4, rank=3)
+    with pytest.raises(ValueError, match="dp=2"):
+        t_mesh.batch_sharding(mesh, 3)
+    with pytest.raises(ValueError, match="sp=2"):
+        t_mesh.seq_sharding(mesh, 31)
+    assert t_mesh.batch_sharding(mesh, 4) == slice(2, 4)
+    assert t_mesh.seq_sharding(mesh, 32) == slice(16, 32)

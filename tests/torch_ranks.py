@@ -28,7 +28,9 @@ def sharded_layout(ctx, seq, key):
             "gather_logits": model.module.gather_logits,
             "kv_heads": model.kv_heads,
             "o_reduce": layer.o.reduce is not None,
-            "heads_split": model.tp_shard.heads_split}
+            "heads_split": model.tp_shard.heads_split,
+            "kv_index": (None if layer.kv_index is None
+                         else layer.kv_index.tolist())}
 
 
 def engine_footprint(ctx, seq, key):
@@ -159,3 +161,23 @@ def ring_case(ctx, seq, q, k, v, mask, dout, causal):
         out, (t["q"], t["k"], t["v"]),
         torch.from_numpy(np.ascontiguousarray(dout[:, cols])))
     return [out.detach().numpy()] + [g.numpy() for g in grads]
+
+
+def draft_layout(ctx, seq, key):
+    """A rank's engine ``key``'s draft: whether it is the target itself,
+    its shard's key, its first layer's local heads and its cache's kv
+    heads (rank 0's engine is passed in ``ctx.objects`` by the test)."""
+    engine = ctx.objects[key]
+    draft = engine.draft_model
+    return {"self": draft is engine.model,
+            "key": draft.tp_shard.key,
+            "heads": draft.module.layers[0].heads,
+            "cache_kv_heads": tuple(engine._dcache.k.shape)[3]}
+
+
+
+def kv_gathers(ctx, seq):
+    """This rank's count of per-query-head kv gathers."""
+    from ray_dynamic_batching_tpu_torch.ops import attention
+
+    return attention.kv_gathers
