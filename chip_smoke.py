@@ -56,7 +56,10 @@ last line:
    no-cache forward with the token mask at T 64, 128 and 256; the slab
    decode kernel at Whisper's step over its 40-position cache and its
    cross read over 1500 states (G = 1); kernels 2 and 3 at head_dim 16
-   (llama_tiny's step), bf16 and int8. Held but not timed: the rest
+   (llama_tiny's step), bf16 and int8. Every check of kernels 1-3 also
+   holds the body the launch reported (kernel 1: fma, A, B or C; kernels
+   2-3: the 16-row scan or the single-row scan) to the launchers' shape
+   rule (``body_for``) and prints it. Held but not timed: the rest
    (Whisper's 2-layer apply and its stream, DistilBERT at T = 8, the tiny
    servables' shapes);
 4. parity — llama3_8b at full width, 2 layers, f32, with the model's own
@@ -88,7 +91,7 @@ last line:
     ``DeploymentHandle(default_slo_ms=300000)``, an ``HTTPProxy`` on
     127.0.0.1 in front. Saturation: 16 greedy requests of 40-60 tokens
     through ``handle.remote`` (tok/s, capacity = tok/s / 32 req/s); then
-    Poisson arrivals at 0.6 x capacity for 8 s from ``WorkloadDriver``
+    Poisson arrivals at 0.6 x capacity for 5 s from ``WorkloadDriver``
     (TTFT p50 / p99, the engine's TTFT breakdown, KV occupancy, the
     handle + router hop per request); then one buffered and one streamed
     ``POST /api/llama3_8b``, and ``GET /metrics``, which must carry the
@@ -110,7 +113,7 @@ last line:
     gossip_interval_s=0.2)`` as its admission, in front of the same
     handle; the global budget's rate is 0.5 x the capacity just measured,
     its burst 1 s of that rate; Poisson arrivals (phase 10's prompts) at
-    1.0 x the capacity for 8 s, alternating between the proxies. It fails
+    1.0 x the capacity for 5 s, alternating between the proxies. It fails
     unless the fleet admits no more than ``rate T + burst + (N - 1) rate
     staleness + N`` (the bound the reference's ``serve/frontdoor.py``
     states; T up to the last admission decision, staleness the largest
@@ -163,8 +166,9 @@ last line:
     would need two cards for the pair; the phase prints the plan it would
     give). Poisson arrivals of 40-60-token greedy prompts with 32 new
     tokens (seed 11) offer each contract 0.1 of the 16-slot row's
-    full-occupancy throughput for 20 s, then 20 s with ``llama_a`` at
-    twice that. Per contract and half: sent, completed, dropped, stale,
+    full-occupancy throughput for 12 s, then 12 s with ``llama_a`` at
+    twice that (halves cut from 20 s for the time limit: the rate window
+    is 8 s). Per contract and half: sent, completed, dropped, stale,
     SLO compliance, token gap and TTFT; planned fractions beside measured
     busy shares; the audit log; which branch the replan after the surge
     took, and whether it moved the plan. The phase fails on a dropped,
@@ -177,7 +181,7 @@ last line:
     before the phase (both read with cuBLAS's per-thread workspaces
     dropped: the process keeps one for each thread that ran a GEMM, and
     the phase starts several threads). The same traffic then runs again
-    at 0.2, in halves of 10 s (cut from 20 for the time limit), as a
+    at 0.2, in halves of 6 s (cut from 20 for the time limit), as a
     diagnostic that gates nothing but a lost request: at 0.2 the packer
     admits a pair the host-bound card cannot keep, and the run prints how
     far it falls short. The diagnostic run alone is
@@ -202,8 +206,8 @@ last line:
     ``ReplicaEngine``s on the card under one ``LiveScheduler`` (monitor
     every 5 s, rate window 10 s, 5% threshold), SLOs 2000 / 1500 /
     4000 ms, Poisson arrivals of one NHWC example at min(200, max(0.2,
-    0.010 x profiled peak)) rps for 60 s, resnet50's rate doubled at
-    30 s. It prints the plans, the replans with their rates, per model
+    0.010 x profiled peak)) rps for 30 s (cut from 60 for the time
+    limit), resnet50's rate doubled at 15 s. It prints the plans, the replans with their rates, per model
     the sent / completed / stale / dropped counts and the compliance of
     each half, per engine the batches, busy share beside the planned
     occupancy and step / profiled-latency ratios, and resnet50's queue
@@ -212,7 +216,7 @@ last line:
     not accounted for, when no rate-change replan after the shift saw
     resnet50 at 1.5 x its offered rate, or on a compliance under 0.95 in
     any half of any model. After the gated run (its numbers read first,
-    with tracing off throughout), 10 s more at the second half's rates
+    with tracing off throughout), 5 s more at the second half's rates
     run traced: every 4th arrival goes in under a load root and a
     ``handle.remote`` span (``tools/run_slo_demo.py``'s shape); the
     phase prints those requests' per-hop p50 / p95, the 5 slowest
@@ -326,7 +330,8 @@ last line:
     the registry's ``gpt2_draft`` (``LLMDeployment(draft_model_name=)``,
     seed 1), bf16, random weights, at ``bench_llm_serving``'s shape cut
     to the phase (64 slots, ``max_len`` 256, one bucket of 64, horizon
-    32, groups of 8): 64 requests of 48 tokens and 96 new, with and
+    32, groups of 8): 64 requests of 48 tokens and 48 new (96 before
+    the time limit's cut), with and
     without the draft, slab and paged; random weights put acceptance
     near 0, the reference's bounded-degradation floor. Every window:
     launch counts held to the dispatches (the target's decode kernel
@@ -383,15 +388,23 @@ last line:
     1-512 x seq 64 / 128 / 256) into ``build/profiles_h100/``, then one
     ``ReplicaEngine`` planned by ``SquishyBinPacker`` from those rows
     (seq bucket 128) under a ``LiveScheduler``, Poisson arrivals of ragged
-    token ids (8-128 tokens) for 30 s at min(200, max(0.2, 0.010 x the
+    token ids (8-128 tokens) for 12 s (cut from 30 for the time limit)
+    at min(200, max(0.2, 0.010 x the
     profiled peak)) rps: compliance per half against the 100 ms SLO
     (stale and dropped count as misses), gated at 0.95, every request
     accounted for. (c) whisper_large_v3 bf16 at full width and depth:
     ``bench_asr_rtf``'s shape (batch 8 x 30 s, 32 tokens, median of 3;
-    RTF, latency, encode / prefill / steps), a 10 s clip streamed in
-    200-frame chunks (8 new tokens a chunk), and the served roundtrip
-    controller -> router -> replica -> ``StreamingASR`` factory, 4
-    requests, each transcript equal to a direct ``StreamingASR`` run. (d)
+    RTF, latency, encode / prefill / steps; the encoder's launches all on
+    kernel 1's body C and every step's reads on the single-row scan,
+    gated; the repeats' tokens equal; their sha1 printed), a 10 s clip
+    streamed in 200-frame chunks (8 new tokens a chunk), and the served
+    roundtrip controller -> router -> replica -> ``StreamingASR``
+    factory, 4 requests, each transcript equal to a direct
+    ``StreamingASR`` run (the transcripts and their sha1 printed, to set
+    beside another tree's: ``whisper_tokens`` gives them for a tree whose
+    script does not, and measures where two trees' transcripts and RTF
+    rows first differ against two bf16 ulps of the top logit, with an f32
+    plain-route witness of which token wins there). (d)
     gpt2_medium bf16 at full depth: ``ModelProfiler`` rows over batch
     1-32 x seq 64 / 128 / 256 with ``flops_per_sample`` beside each.
     Launches are held to what each run implies (one flash or decode call
@@ -404,7 +417,8 @@ last line:
     this one card — the script needs one card, and NCCL takes one rank
     per card, so the NCCL path is not run. (a) f32 parity at
     full width, 2 layers: TP 4 engines against the single-card engine on
-    phase 6's 10 requests, on the slab and paged arms, mono and chunked,
+    phase 6's 10 prompts (``TP_NEW_TOKENS`` = 16 new tokens each, cut from
+    32 for the time limit), on the slab and paged arms, mono and chunked,
     each with the f32 and the int8 KV cache, and TP 2 engines on the f32
     ones (the int8 pool's tp 2 shards are held in phase 3): greedy tokens
     identical; the logits of a prefill and a step through the TP model
@@ -569,7 +583,9 @@ warmed).
 
 The line before the last is one JSON object with the per-kernel numbers
 (``launches`` sums the serving phases, phase 14's graphed speed runs
-among them; ``launches_by_path`` splits them) and the numbers of the
+among them; ``launches_by_path`` splits them; kernel 1's row has its
+``launches_by_body`` and kernel 2's the bodies of kernels 2-4, every
+phase but phase 3 summed) and the numbers of the
 front, controller, colocate, vision, graphs, sim, reuse, spec, weights,
 servables, tp, surface and train phases (``front``, ``controller``,
 ``colocate``, ``vision``, ``graphs``, ``sim``, ``reuse``, ``spec``,
@@ -666,18 +682,33 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+#: Clock cycles of the card a second, for the spin kernel's length (H100
+#: SXM at its boost clock, 1.98 GHz: a spin of N cycles lasts at least
+#: N / SPIN_HZ seconds at any lower clock).
+SPIN_HZ = 1.98e9
+SPIN_MAX_CYCLES = 50_000_000      # ~30 ms at the clocks the card runs
+
+
 def time_ms(fn, launches: int = 20, batches: int = 5) -> float:
     """Device time of one call: the median over ``batches`` of (CUDA-event
     time of ``launches`` back-to-back calls) / ``launches``. A spin kernel
     queued first keeps the card busy while the host enqueues the batch,
-    so host-side wrapper time does not enter the measurement."""
+    so host-side wrapper time does not enter the measurement; it spins
+    for twice the host time of a batch (one call timed on the host), at
+    least 2 ms and at most ``SPIN_MAX_CYCLES``."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin = int(min(SPIN_MAX_CYCLES,
+                   SPIN_HZ * max(2e-3, 2.0 * launches * host_s)))
     per_call = []
     for _ in range(batches):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(50_000_000)   # ~30 ms of spinning at H100 clocks
+        torch.cuda._sleep(spin)
         start.record()
         for _ in range(launches):
             fn()
@@ -881,21 +912,38 @@ def _scales(x) -> list:
     return [x[n] for n in ("ks", "vs") if n in x]
 
 
+def _mask_bytes(keep) -> int:
+    """Bytes of the int8 keep-mask as its layout stores them, each read
+    once: one row of ``ceil(Tk / 16) * 16`` bytes for each distinct
+    (batch row, query row) — a row stride of 0 stores one row for all
+    query rows (``flash_attention.mask_strides``)."""
+    from ray_dynamic_batching_tpu_torch.ops import flash_attention as fl
+
+    if keep is None:
+        return 0
+    B, Tq, Tk = keep.shape
+    bs, rs = fl.mask_strides(keep)
+    return (1 if bs == 0 else B) * (1 if rs == 0 else Tq) * (-(-Tk // 16) * 16)
+
+
 def _dense_cost(x) -> tuple:
     """Bytes (q, k, v, the scales of int8 k/v, out once each, the int8
-    mask one byte an entry) and FLOPs (4 B N Tq S H) of a dense-window
-    call, printed beside the recount over attended positions."""
+    mask as its layout stores it) and FLOPs (4 B N Tq S H) of a
+    dense-window call, printed beside the recount over attended
+    positions."""
     B, tq, n_heads, head_dim = x["q"].shape
     Tk = x["k"].shape[1]
-    nbytes = _nbytes(x["q"], x["k"], x["v"], x["q"], *_scales(x), x["keep"])
+    nbytes = (_nbytes(x["q"], x["k"], x["v"], x["q"], *_scales(x))
+              + _mask_bytes(x["keep"]))
     return nbytes, 4 * B * n_heads * tq * Tk * head_dim
 
 
 def _masked_cost(x) -> tuple:
     """What this call's data needs (kernels 1 and 2): the K/V (and, int8,
     the scales) of the positions that at least one window row attends,
-    read once, plus q, out and the int8 mask; FLOPs 4 N H per attended
-    (row, key) pair. The kernels skip the 64-key tiles no row attends."""
+    read once, plus q, out and the int8 mask as its layout stores it;
+    FLOPs 4 N H per attended (row, key) pair. The kernels skip the 64-key
+    tiles no row attends."""
     keep = x["keep"] != 0                               # [B, Tq, Tk]
     if x.get("causal"):     # the kernel applies the causal rule itself
         Tq, Tk = keep.shape[1:]
@@ -908,7 +956,8 @@ def _masked_cost(x) -> tuple:
     kv_elt = kv_heads * head_dim * x["k"].element_size()
     if "ks" in x:
         kv_elt += kv_heads * 4
-    nbytes = 2 * positions * kv_elt + 2 * _nbytes(x["q"]) + _nbytes(x["keep"])
+    nbytes = (2 * positions * kv_elt + 2 * _nbytes(x["q"])
+              + _mask_bytes(x["keep"]))
     return nbytes, 4 * n_heads * head_dim * pairs
 
 
@@ -1399,19 +1448,79 @@ def _kernel_shapes():
             setattr(mod, fn_name, fn)
 
 
+def _live_bodies() -> dict:
+    """Launches of kernel 1 by body and of kernels 2-4 by body since the
+    last ``attention.reset_counts`` (``launches_by_body``)."""
+    from ray_dynamic_batching_tpu_torch.ops import decode_attention as dec
+    from ray_dynamic_batching_tpu_torch.ops import flash_attention as fl
+
+    return {**{f"flash_attention/{b}": n
+               for b, n in fl.launches_by_body.items()},
+            **{f"decode_kernels/{b}": n
+               for b, n in dec.launches_by_body.items()}}
+
+
+#: Launches by body banked at each ``_reset_counts``: with the live counts,
+#: the script's running totals (read as differences around a window).
+_BODY_BANK: dict = {}
+
+
+def _bodies() -> dict:
+    """Launches of kernel 1 by body and of kernels 2-4 by body since the
+    process started: the banked totals plus the live counts."""
+    return {k: n + _BODY_BANK.get(k, 0) for k, n in _live_bodies().items()}
+
+
+def _reset_counts() -> None:
+    """``attention.reset_counts()``, which zeroes every launch count, the
+    launches by body among them; those are banked first (``_bodies``)."""
+    from ray_dynamic_batching_tpu_torch.ops import attention
+
+    for k, n in _live_bodies().items():
+        _BODY_BANK[k] = _BODY_BANK.get(k, 0) + n
+    attention.reset_counts()
+
+
+def _body_delta(before: dict) -> dict:
+    return {k: n - before.get(k, 0) for k, n in _bodies().items()
+            if n != before.get(k, 0)}
+
+
+def _want_body(name: str, x) -> str:
+    """The body the launchers' shape rule names for a phase-3 case."""
+    from ray_dynamic_batching_tpu_torch.ops import decode_attention as dec
+    from ray_dynamic_batching_tpu_torch.ops import flash_attention as fl
+
+    B, Tq, N, H = x["q"].shape
+    if name == "flash_attention":
+        return "flash_attention/" + fl.body_for(
+            x["q"].dtype, Tq, x["k"].shape[1], H,
+            masked=x.get("keep") is not None, causal=x.get("causal", False))
+    return "decode_kernels/" + dec.body_for(Tq, N, x["k"].shape[2])
+
+
 def _check(name: str, tag: str, sp, x, dtype) -> float:
     """The kernel against its plain version on ``x``: max abs error, held
-    to the dtype's tolerance (fails the run past it)."""
+    to the dtype's tolerance (fails the run past it); the body it ran
+    (kernels 1-3), held to the launcher's shape rule."""
     _CHECKED.add(_shape_key(name, x["q"], x["k"]))
+    before = _bodies()
     out = sp["kernel"](x)
     torch.cuda.synchronize()
+    ran = _body_delta(before)
+    body = ""
+    if name != "int8_weight_matmul":
+        want = _want_body(name, x)
+        if ran != {want: 1}:
+            fail(f"{name} {tag}: ran {ran}, the shape rule names {want}")
+        body = f", body {want.split('/')[1]}"
     ref = sp["plain"](x)
     err = (out.float() - ref.float()).abs().max().item()
     if not torch.isfinite(out.float()).all():
         fail(f"{name} {tag}: non-finite output")
     print(f"[kernels] {name} {tag} q{tuple(x['q'].shape)} "
           f"k{tuple(x['k'].shape)}: max_abs_err {err:.3e} "
-          f"(tol {TOL[dtype]:.0e})", flush=True)
+          f"(tol {TOL[dtype]:.0e}){body}", flush=True)
     if not err <= TOL[dtype]:
         fail(f"{name} {tag}: max_abs_err {err} > {TOL[dtype]}")
     return err
@@ -1456,7 +1565,6 @@ def _print_times(name: str, row: dict) -> None:
 
 
 def phase_kernels() -> dict:
-    from ray_dynamic_batching_tpu_torch.ops import attention
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rng = np.random.default_rng(0)
@@ -1511,7 +1619,7 @@ def phase_kernels() -> dict:
         results[name] = row
     results["int8_weight_matmul"] = _w8_kernel_row()
     results["paged_decode_attention_tp"] = _tp_kernel_row()
-    attention.reset_counts()   # comparison launches do not count
+    _reset_counts()   # comparison launches do not count
     return results
 
 
@@ -1887,7 +1995,7 @@ def _parity(model, tag: str) -> tuple:
             second, cache = model.decode_step(nxt, cache, active)
             return first.float(), second.float()
 
-    attention.reset_counts()
+    _reset_counts()
     got_slab = run_slab(tokens, attn)
     _expect_only(f"parity {tag} slab", _counts(), {
         "flash_attention": 2, "decode_attention" + suffix: 2})
@@ -1949,7 +2057,7 @@ def _parity(model, tag: str) -> tuple:
             return (torch.stack([first_0[0], first_1[1]]).float(),
                     second.float())
 
-    attention.reset_counts()
+    _reset_counts()
     got_paged = run_paged()
     _expect_only(f"parity {tag} paged", _counts(), {
         "flash_attention": 2, "paged_decode_attention" + suffix: 4})
@@ -2031,7 +2139,6 @@ def _serve(tag: str, payloads, dep_kwargs: dict, profile: bool):
     the launch counts zeroed just before, and return (results, counts,
     engine, wall seconds). The loop thread is stopped, the replica not."""
     from ray_dynamic_batching_tpu_torch.engine.request import Request
-    from ray_dynamic_batching_tpu_torch.ops import attention
     from ray_dynamic_batching_tpu_torch.serve.controller import (
         DeploymentConfig,
     )
@@ -2054,7 +2161,7 @@ def _serve(tag: str, payloads, dep_kwargs: dict, profile: bool):
 
         prof = _profile(activities=[ProfilerActivity.CUDA])
     with prof:
-        attention.reset_counts()
+        _reset_counts()
         replica.start()
         t_start = time.monotonic()
         reqs = []
@@ -2489,7 +2596,6 @@ def phase_front(profile: bool) -> tuple:
         WorkloadDriver,
         arrival_times,
     )
-    from ray_dynamic_batching_tpu_torch.ops import attention
     from ray_dynamic_batching_tpu_torch.serve.controller import (
         DeploymentConfig,
     )
@@ -2509,7 +2615,7 @@ def phase_front(profile: bool) -> tuple:
     )
     from ray_dynamic_batching_tpu_torch.utils.tracing import tracer
 
-    tag, max_new, duration_s = "front", 32, 8.0
+    tag, max_new, duration_s = "front", 32, 5.0
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.monotonic()
@@ -2540,7 +2646,7 @@ def phase_front(profile: bool) -> tuple:
         prof = _profile(activities=[ProfilerActivity.CUDA])
     try:
         with prof:
-            attention.reset_counts()
+            _reset_counts()
             t_window = time.monotonic()
             replica.start()
             router = Router("llama3_8b", replicas=[replica],
@@ -2691,7 +2797,7 @@ def phase_front(profile: bool) -> tuple:
 # share of the capacity just measured, with a burst of ``burst_s`` of it,
 # offered Poisson arrivals at ``offered_share`` of it.
 FRONT_DOOR = dict(n_shards=2, gossip_interval_s=0.2, budget_share=0.5,
-                  burst_s=1.0, offered_share=1.0, duration_s=8.0, seed=13)
+                  burst_s=1.0, offered_share=1.0, duration_s=5.0, seed=13)
 
 
 class _TimedShard:
@@ -2941,7 +3047,6 @@ def _controller_run(front: dict | None) -> dict:
     read the status, redeploy in place, heal a wedged engine and roll to
     v2; shut everything down. Returns plain numbers only, so nothing of
     the phase outlives this call."""
-    from ray_dynamic_batching_tpu_torch.ops import attention
     from ray_dynamic_batching_tpu_torch.serve import api as serve
     from ray_dynamic_batching_tpu_torch.serve.controller import (
         DeploymentConfig,
@@ -2978,7 +3083,7 @@ def _controller_run(front: dict | None) -> dict:
         }],
     }]})
     out = {}
-    attention.reset_counts()
+    _reset_counts()
     t_phase = time.monotonic()
     try:
         # 1. Deploy: the module controller and proxy, as the README does.
@@ -3168,8 +3273,8 @@ def phase_controller(front: dict | None) -> tuple:
 # phase 12 (llama3_8b, bf16, full width and depth; 16 slots where a count
 # is pinned, capacity 512, prompt bucket 64, groups of 4, 32 new tokens).
 # Each contract is offered 0.1 of the 16-slot row's full-occupancy
-# throughput; 0.2 runs after it as a diagnostic, in halves of 10 s (cut
-# from 20 for the script's time limit): there the surged pair
+# throughput (halves of 12 s); 0.2 runs after it as a diagnostic, in
+# halves of 6 s (both cut from 20 for the script's time limit): there the surged pair
 # saturates the card although the packer admits it (PERF.md), since the
 # planner's fraction counts decode steps at full occupancy and no
 # prefill, while a co-tenant's partly filled step costs a whole step.
@@ -3179,7 +3284,7 @@ COLOCATE = dict(
     slots=(4, 8, 16, 32), groups=(1, NB), timing_iters=8, warmup_iters=2,
     pinned=SLOTS, length_buckets=(256, S), long_prompt=300,
     contracts=("llama_a", "llama_b"), util=0.1, diagnostic_util=0.2,
-    surge=2.0, surge_seen=1.5, half_s=20.0, diagnostic_half_s=10.0,
+    surge=2.0, surge_seen=1.5, half_s=12.0, diagnostic_half_s=6.0,
     headroom=0.85, monitoring_interval_s=2.0, rate_window_s=8.0,
     max_new=32, prompt=(40, 61), probe_len=48, seed=11, expect_auto=256,
 )
@@ -3775,14 +3880,13 @@ def phase_colocate() -> tuple:
     """Phase 12; returns (counts, the phase's numbers)."""
     from ray_dynamic_batching_tpu_torch.models import registry  # noqa: F401
     from ray_dynamic_batching_tpu_torch.models.base import _MODEL_SLOS
-    from ray_dynamic_batching_tpu_torch.ops import attention
 
     mem_before = _tensor_bytes_on_card()
     budget = torch.cuda.get_device_properties(0).total_memory
     smi = _smi()
     print(f"[colocate] hbm_budget_bytes {budget} (the card's total memory; "
           f"{smi})", flush=True)
-    attention.reset_counts()
+    _reset_counts()
     t0 = time.monotonic()
     out = _colocate_run(torch.device("cuda", 0), budget,
                         _MODEL_SLOS[COLOCATE["model"]].latency_slo_ms,
@@ -3834,10 +3938,10 @@ VISION = dict(
     workload=(("resnet50", 2000.0, 0.010, 2.0),
               ("shufflenet_v2", 1500.0, 0.010, 1.0),
               ("vit_b_16", 4000.0, 0.010, 1.0)),
-    max_rps=200.0, min_rps=0.2, duration_s=60.0, engines=3,
+    max_rps=200.0, min_rps=0.2, duration_s=30.0, engines=3,
     # The traced window after the gated run: its length, and every how
     # many arrivals one goes in traced.
-    traced_s=10.0, traced_every=4,
+    traced_s=5.0, traced_every=4,
     hbm_budget_bytes=12 << 30, gate=0.95, surge_seen=1.5,
     vit="vit_b_16", classes=1000,
     # Flash launches a forward (one a layer); the other models have none.
@@ -3919,7 +4023,7 @@ def _vision_parity(c: dict) -> dict:
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
-    attention.reset_counts()   # comparison launches do not count
+    _reset_counts()   # comparison launches do not count
     return errs
 
 
@@ -4001,7 +4105,6 @@ def _vision_slo_run(c: dict, profiles_dir: str) -> tuple:
         WorkloadDriver,
     )
     from ray_dynamic_batching_tpu_torch.models.base import get_model
-    from ray_dynamic_batching_tpu_torch.ops import attention
     from ray_dynamic_batching_tpu_torch.profiles.table import BatchProfile
     from ray_dynamic_batching_tpu_torch.scheduler.control import (
         LiveScheduler,
@@ -4049,7 +4152,7 @@ def _vision_slo_run(c: dict, profiles_dir: str) -> tuple:
             depths.append((time.monotonic() - t_start,
                            {n: len(queues.queue(n)) for n in names}))
 
-    attention.reset_counts()
+    _reset_counts()
     for e in engines:
         e.track_ratios = True
         e.start()
@@ -4388,7 +4491,7 @@ def _graph_parity(model, arm: str, knobs: dict, payloads,
     from ray_dynamic_batching_tpu_torch.engine.decode import DecodeEngine
     from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
     from ray_dynamic_batching_tpu_torch.engine.request import Request
-    from ray_dynamic_batching_tpu_torch.ops import attention, graphs
+    from ray_dynamic_batching_tpu_torch.ops import graphs
 
     tag = tag or f"graphs parity {arm}"
     runs = {}
@@ -4401,7 +4504,7 @@ def _graph_parity(model, arm: str, knobs: dict, payloads,
             engine.warmup()
         reqs = [Request(model=arm, payload=p, slo_ms=600_000.0)
                 for p in payloads]
-        attention.reset_counts()
+        _reset_counts()
         for r in reqs:
             queue.add_request(r)
         engine.run_until_idle(timeout_s=300)
@@ -4441,7 +4544,7 @@ def _speed_run(tag: str, model, payloads, knobs: dict, eager: bool):
     from torch.profiler import ProfilerActivity, profile
 
     from ray_dynamic_batching_tpu_torch.engine.request import Request
-    from ray_dynamic_batching_tpu_torch.ops import attention, graphs
+    from ray_dynamic_batching_tpu_torch.ops import graphs
     from ray_dynamic_batching_tpu_torch.serve.controller import (
         DeploymentConfig,
     )
@@ -4474,7 +4577,7 @@ def _speed_run(tag: str, model, payloads, knobs: dict, eager: bool):
         return res, time.monotonic() - t
 
     collector = ChromeTraceCollector()
-    attention.reset_counts()
+    _reset_counts()
     tracer().set_exporter(collector.export)
     try:
         results, wall = serve()
@@ -5046,7 +5149,6 @@ def _reuse_kernels(tag: str, engine, dtype) -> dict:
     inputs (the phase-3 tolerance); in bf16 also timed beside the plain
     version and SDPA (or the gather yardstick), with its bound. These
     launches do not count: the counts are reset after."""
-    from ray_dynamic_batching_tpu_torch.ops import attention
 
     specs = _kernel_specs()
     gen = torch.Generator(device="cuda").manual_seed(16)
@@ -5062,7 +5164,7 @@ def _reuse_kernels(tag: str, engine, dtype) -> dict:
             row.update(_timed(sp, x, dtype))
             _print_times(f"{name} {case}", row)
         rows[case] = row
-    attention.reset_counts()
+    _reset_counts()
     return rows
 
 
@@ -5173,7 +5275,6 @@ def _queue_books(tag: str, replica) -> dict:
 def _reuse_bf16(V: int) -> tuple:
     """Phase 16's full-depth paged run; returns (launch counts, numbers)."""
     from ray_dynamic_batching_tpu_torch.engine.request import Request
-    from ray_dynamic_batching_tpu_torch.ops import attention
     from ray_dynamic_batching_tpu_torch.serve.controller import (
         DeploymentConfig,
         ServeController,
@@ -5217,7 +5318,7 @@ def _reuse_bf16(V: int) -> tuple:
         return res
 
     fabric = KVPageFabric()
-    attention.reset_counts()
+    _reset_counts()
     t_start = time.monotonic()
     # Shared prefix: one miss, then seven concurrent hits on the holder.
     prefix = rng.integers(0, V, REUSE_PREFIX).tolist()
@@ -5395,7 +5496,6 @@ def _reuse_slab(V: int) -> tuple:
     """Phase 16's slab arm at full depth: the shared-prefix and session
     runs at chunk granularity; returns (launch counts, numbers)."""
     from ray_dynamic_batching_tpu_torch.engine.request import Request
-    from ray_dynamic_batching_tpu_torch.ops import attention
     from ray_dynamic_batching_tpu_torch.serve.controller import (
         DeploymentConfig,
     )
@@ -5420,7 +5520,7 @@ def _reuse_slab(V: int) -> tuple:
             fail(f"{tag}: a request was cut short")
         return res
 
-    attention.reset_counts()
+    _reset_counts()
     prefix = rng.integers(0, V, REUSE_PREFIX).tolist()
     tails = [rng.integers(0, V, int(n)).tolist()
              for n in rng.integers(16, 49, 8)]
@@ -5577,15 +5677,13 @@ def _spec_window(tag: str, engine, payloads, submit, wait) -> dict:
     no round took it)."""
     import collections
 
-    from ray_dynamic_batching_tpu_torch.ops import attention
-
     spec = engine.draft_model is not None
     state0 = _dispatch_state(engine)
     books0 = _spec_books(engine) if spec else None
     log0 = len(engine.round_log) if spec else 0
     widths0 = collections.Counter(getattr(engine, "catchup_widths", {}))
     captures0 = engine.capture_stats()["captures"]
-    attention.reset_counts()
+    _reset_counts()
     t0 = time.monotonic()
     futures = submit(payloads)
     results = wait(futures)
@@ -6010,8 +6108,8 @@ def _spec_gpt2(smi: str) -> tuple:
     """17c: gpt2_medium (24 layers x 16 heads of 64, vocab 50257) with
     the registry's gpt2_draft, both bf16 at their published widths and
     depths with random weights (the draft from seed 1), 64 greedy
-    48-token requests at once, with and without the draft, slab and
-    paged: random weights put acceptance near 0, so this is the
+    48-token requests of 48 new tokens at once, with and without the
+    draft, slab and paged: random weights put acceptance near 0, so this is the
     reference's bounded-degradation floor."""
     from ray_dynamic_batching_tpu_torch.models.causal_lm import (
         GPT2_MEDIUM,
@@ -6020,7 +6118,7 @@ def _spec_gpt2(smi: str) -> tuple:
 
     V = GPT2_MEDIUM.vocab_size
     rng = np.random.default_rng(17)
-    load = [{"tokens": rng.integers(0, V, 48).tolist(), "max_new_tokens": 96}
+    load = [{"tokens": rng.integers(0, V, 48).tolist(), "max_new_tokens": 48}
             for _ in range(64)]
     model = CausalLM(GPT2_MEDIUM, "gpt2_medium", dtype=torch.bfloat16,
                      device="cuda", seed=0)
@@ -6122,7 +6220,7 @@ def _w8_serve(tag: str, model, knobs: dict, payloads, plain: bool):
     from ray_dynamic_batching_tpu_torch.engine.decode import DecodeEngine
     from ray_dynamic_batching_tpu_torch.engine.queue import RequestQueue
     from ray_dynamic_batching_tpu_torch.engine.request import Request
-    from ray_dynamic_batching_tpu_torch.ops import attention, graphs
+    from ray_dynamic_batching_tpu_torch.ops import graphs
     from ray_dynamic_batching_tpu_torch.ops import quant_matmul as qm
 
     with graphs.disable_capture() if plain else contextlib.nullcontext():
@@ -6132,7 +6230,7 @@ def _w8_serve(tag: str, model, knobs: dict, payloads, plain: bool):
         engine.warmup()
     reqs = [Request(model="w8", payload=p, slo_ms=600_000.0)
             for p in payloads]
-    attention.reset_counts()
+    _reset_counts()
     with qm.plain_products() if plain else contextlib.nullcontext():
         for r in reqs:
             queue.add_request(r)
@@ -6399,7 +6497,7 @@ SERVABLES = dict(
     # one replica at phase 13's rate rule under the 100 ms SLO.
     bert_buckets=[1, 8, 32, 128, 256, 512], bert_seqs=(64, 128, 256),
     bert_serve_seq=128, bert_tokens=(8, 128), bert_util=0.010,
-    max_rps=200.0, min_rps=0.2, bert_duration_s=30.0, gate=0.95,
+    max_rps=200.0, min_rps=0.2, bert_duration_s=12.0, gate=0.95,
     hbm_budget_bytes=12 << 30,
     # 19c: whisper_large_v3 bf16 at full depth: bench_asr_rtf's shape,
     # a 10 s stream in 200-frame chunks, the served roundtrip.
@@ -6429,7 +6527,7 @@ def _route_parity(tag: str, model, inputs, launches: dict, tol: float,
     to ``launches``."""
     from ray_dynamic_batching_tpu_torch.ops import attention
 
-    attention.reset_counts()
+    _reset_counts()
     with torch.inference_mode():
         out = model(*inputs)
         torch.cuda.synchronize()
@@ -6451,7 +6549,7 @@ def _route_parity(tag: str, model, inputs, launches: dict, tol: float,
     if not err <= tol or not same:
         fail(f"servables {tag}: logits off the plain route by {err} "
              f"(argmax identical: {same})")
-    attention.reset_counts()
+    _reset_counts()
     return {"max_abs_err": err, "launches": counts}
 
 
@@ -6485,6 +6583,174 @@ def _asr_transcribe(model, mel, mask, tokens: int) -> tuple:
         toks = torch.stack(out, dim=1).cpu()
         t3 = time.perf_counter()
     return toks, (t1 - t0, t2 - t1, t3 - t2)
+
+
+def _digest(tokens) -> str:
+    """sha1 of greedy tokens (a tensor or nested lists), to compare runs of
+    two trees."""
+    import hashlib
+
+    if isinstance(tokens, torch.Tensor):
+        tokens = tokens.tolist()
+    return hashlib.sha1(json.dumps(tokens).encode()).hexdigest()[:16]
+
+
+def _asr_logits_at(model, clip, k: int, prefix=None):
+    """f32 logits of the k-th token ``StreamingASR`` emits for ``clip``
+    (one flush: the clip is shorter than a chunk), by its greedy loop, or
+    with ``prefix`` (a transcript, the start token first) fed that
+    transcript's tokens instead of its own argmax."""
+    from ray_dynamic_batching_tpu_torch.models.asr import collate_audio
+
+    cfg = model.cfg
+    mel, mask = collate_audio([clip], 1)
+    with torch.inference_mode():
+        enc, emask = model.encode(torch.from_numpy(mel).cuda(),
+                                  torch.from_numpy(mask).cuda())
+        tokens = torch.zeros((1, 16), dtype=torch.int32, device="cuda")
+        tokens[0, 0] = cfg.sot_token
+        text = torch.zeros_like(tokens)
+        text[0, 0] = 1
+        cache = model.make_cache(1, max_len=16 + SERVABLES["stream_new"])
+        logits, cache = model.prefill(tokens, text, enc, emask, cache)
+        active = torch.ones((1,), dtype=torch.bool, device="cuda")
+        for i in range(k):
+            step = (torch.argmax(logits[0].float()) if prefix is None else
+                    torch.tensor(prefix[i + 1], device="cuda"))
+            logits, cache = model.decode_step(step.to(torch.int32).view(1, 1),
+                                              enc, emask, cache, active)
+        return logits[0].float()
+
+
+def _asr_forced_logits(model, mel, mask, toks, at) -> dict:
+    """f32 logits [B, V] of ``_asr_transcribe``'s program (the same cache
+    length) at each token index in ``at``, every step fed ``toks``'s
+    previous token ([B, T]) instead of its own argmax."""
+    B = mel.shape[0]
+    cfg = model.cfg
+    out = {}
+    with torch.inference_mode():
+        enc, emask = model.encode(mel, mask)
+        cache = model.make_cache(B, max_len=SERVABLES["rtf_tokens"] + 8)
+        sot = torch.full((B, 1), cfg.sot_token, dtype=torch.int32,
+                         device="cuda")
+        logits, cache = model.prefill(sot, torch.ones_like(sot), enc, emask,
+                                      cache)
+        active = torch.ones((B,), dtype=torch.bool, device="cuda")
+        for j in range(max(at) + 1):
+            if j:
+                logits, cache = model.decode_step(
+                    toks[:, j - 1:j].to(torch.int32).cuda(), enc, emask,
+                    cache, active)
+            if j in at:
+                out[j] = logits.float()
+    return out
+
+
+def _gaps(lg, a: int, b: int) -> dict:
+    """The top of one row of logits and the gaps of tokens a and b below
+    it, against two bf16 ulps of the top."""
+    import math
+
+    top = lg.max().item()
+    tol = 2 * 2.0 ** (math.floor(math.log2(abs(top))) - 7)
+    gaps = [top - lg[a].item(), top - lg[b].item()]
+    return dict(top=top, gaps=gaps, tol=tol, near_tie=max(gaps) <= tol)
+
+
+def _witness_of(lg, a: int, b: int) -> dict:
+    """What f32 logits say of two candidate tokens: the top token, each
+    candidate's gap below the top, and which of the two is higher."""
+    top = lg.max().item()
+    la, lb = lg[a].item(), lg[b].item()
+    return dict(top_token=int(lg.argmax().item()), gaps=[top - la, top - lb],
+                picks="this" if la > lb else "other" if lb > la else "tie")
+
+
+def whisper_tokens(reference=None, witness: bool = False) -> dict:
+    """19c's greedy outputs alone, for a tree whose script does not print
+    them: the RTF batch's tokens and the served clips' direct transcripts
+    (``_asr_serving``'s inputs from the same seed), as sha1 digests. With
+    ``reference`` (another tree's ``whisper_tokens``), each served clip
+    and each RTF row that differs is measured where it first differs (the
+    two trees share the tokens before it): this tree's top logit there
+    and the gaps of both tokens below it, against two bf16 ulps of the top
+    (a near tie, which rounding in either tree may break either way).
+    With ``witness``, the same logits also come from the bf16 weights cast
+    to f32 on the attention's plain route, TF32 off (no kernel of either
+    tree runs): which of the two tokens they put higher."""
+    from ray_dynamic_batching_tpu_torch.models.asr import StreamingASR
+    from ray_dynamic_batching_tpu_torch.models.base import get_model
+    from ray_dynamic_batching_tpu_torch.ops import attention
+
+    c = SERVABLES
+    model = get_model("whisper_large_v3", seed=0).eval()
+    cfg = model.cfg
+    rng = np.random.default_rng(3)
+    B, frames = c["rtf_batch"], int(c["rtf_audio_s"] * 100)
+    mel = torch.from_numpy(rng.standard_normal((B, frames, cfg.n_mels))
+                           .astype(np.float32)).cuda()
+    mask = torch.ones((B, frames), dtype=torch.int32, device="cuda")
+    toks = _asr_transcribe(model, mel, mask, c["rtf_tokens"])[0]
+    rng.standard_normal((c["stream_frames"], cfg.n_mels))   # the stream's clip
+    clips = [rng.standard_normal((n, cfg.n_mels)).astype(np.float32)
+             for n in c["serve_clips"]]
+    direct = []
+    for a in clips:
+        asr = StreamingASR(model, chunk_frames=c["stream_chunk"],
+                           max_new_tokens=c["stream_new"])
+        asr.feed(a)
+        if asr._buffer:
+            asr.flush()
+        direct.append(asr.transcript)
+    out = dict(rtf=_digest(toks), served=_digest(direct), direct=direct,
+               rtf_tokens=toks.tolist())
+    if reference is None:
+        return out
+    clip_diffs, row_diffs = [], []
+    for i, (got, want) in enumerate(zip(direct, reference["direct"])):
+        j = _first_difference(got, want)
+        if j is not None:
+            lg = _asr_logits_at(model, clips[i], j - 1)
+            clip_diffs.append(dict(clip=i, index=j, tokens=[got[j], want[j]],
+                                   **_gaps(lg, got[j], want[j])))
+    for r, (got, want) in enumerate(zip(out["rtf_tokens"],
+                                        reference["rtf_tokens"])):
+        j = _first_difference(got, want)
+        if j is not None:
+            row_diffs.append(dict(row=r, index=j, tokens=[got[j], want[j]]))
+    if row_diffs:
+        forced = _asr_forced_logits(model, mel, mask, toks,
+                                    {d["index"] for d in row_diffs})
+        for d in row_diffs:
+            d.update(_gaps(forced[d["index"]][d["row"]], *d["tokens"]))
+    if witness and (clip_diffs or row_diffs):
+        f32 = get_model("whisper_large_v3", seed=None,
+                        dtype=torch.float32).eval()
+        f32.load_state_dict(model.state_dict())    # the bf16 weights, cast
+        del model
+        tf32 = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            with attention.plain_attention():
+                for d in clip_diffs:
+                    lg = _asr_logits_at(f32, clips[d["clip"]], d["index"] - 1,
+                                        prefix=direct[d["clip"]])
+                    d["witness"] = _witness_of(lg, *d["tokens"])
+                if row_diffs:
+                    forced = _asr_forced_logits(
+                        f32, mel, mask, toks, {d["index"] for d in row_diffs})
+                    for d in row_diffs:
+                        d["witness"] = _witness_of(
+                            forced[d["index"]][d["row"]], *d["tokens"])
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = tf32
+    out["differences"] = clip_diffs
+    out["rtf_differences"] = row_diffs
+    return out
 
 
 def _mel_batch(rng, frames, n_mels: int):
@@ -6526,7 +6792,7 @@ def _tiny_lm_parity(name: str, c: dict) -> dict:
                 engine = replica.engine
                 reqs = [Request(model=name, payload={"tokens": p},
                                 slo_ms=600_000.0) for p in prompts]
-                attention.reset_counts()
+                _reset_counts()
                 for r in reqs:
                     engine.queue.add_request(r)
                 engine.run_until_idle(timeout_s=300)
@@ -6550,7 +6816,7 @@ def _tiny_lm_parity(name: str, c: dict) -> dict:
             fail(f"servables {name} {arm}: {kind} never launched, or the "
                  f"plain route did: {counts}")
         out[arm] = {"greedy_identical": True, "launches": counts}
-    attention.reset_counts()
+    _reset_counts()
     return out
 
 
@@ -6570,7 +6836,7 @@ def _tiny_asr_parity(c: dict) -> dict:
         ctx = (attention.plain_attention() if mode == "plain"
                else contextlib.nullcontext())
         with ctx:
-            attention.reset_counts()
+            _reset_counts()
             got = []
             for clip in clips:
                 stream = StreamingASR(model, chunk_frames=c["tiny_chunk"],
@@ -6592,7 +6858,7 @@ def _tiny_asr_parity(c: dict) -> dict:
     if not counts["decode_attention"] or not counts["flash_attention"]:
         fail(f"servables whisper_tiny_test: a kernel never launched: "
              f"{counts}")
-    attention.reset_counts()
+    _reset_counts()
     return {"transcripts_identical": True, "launches": counts}
 
 
@@ -6656,7 +6922,7 @@ def _servable_parity(c: dict) -> dict:
             ctx = (attention.plain_attention() if mode == "plain"
                    else contextlib.nullcontext())
             with ctx:
-                attention.reset_counts()
+                _reset_counts()
                 toks, _ = _asr_transcribe(asr, mel, mask, c["rtf_tokens"])
                 runs[mode] = (toks, _counts())
         same = torch.equal(runs["kernel"][0], runs["plain"][0])
@@ -6760,7 +7026,6 @@ def _bert_serving(c: dict) -> tuple:
         WorkloadDriver,
     )
     from ray_dynamic_batching_tpu_torch.models.base import get_model, get_slo
-    from ray_dynamic_batching_tpu_torch.ops import attention
     from ray_dynamic_batching_tpu_torch.scheduler.control import (
         LiveScheduler,
     )
@@ -6771,7 +7036,7 @@ def _bert_serving(c: dict) -> tuple:
     name = "distilbert_sst2"
     slo = get_slo(name).latency_slo_ms
     model = get_model(name).eval()
-    attention.reset_counts()
+    _reset_counts()
     prof, rows, forwards = _sweep(f"profile {name}", model,
                                   c["bert_buckets"], c["bert_seqs"], c)
     torch.cuda.synchronize()
@@ -6806,7 +7071,7 @@ def _bert_serving(c: dict) -> tuple:
                                               "model": name})
 
     b0 = batches()
-    attention.reset_counts()
+    _reset_counts()
     engine.start()
     try:
         plans = sched.rebalance(rates={name: rate})
@@ -6878,7 +7143,6 @@ def _asr_serving(c: dict) -> tuple:
     ``StreamingASR``, each transcript equal to a direct run."""
     from ray_dynamic_batching_tpu_torch.models.asr import StreamingASR
     from ray_dynamic_batching_tpu_torch.models.base import get_model
-    from ray_dynamic_batching_tpu_torch.ops import attention
     from ray_dynamic_batching_tpu_torch.serve.controller import (
         DeploymentConfig,
         ServeController,
@@ -6893,15 +7157,26 @@ def _asr_serving(c: dict) -> tuple:
                            .astype(np.float32)).cuda()
     mask = torch.ones((B, frames), dtype=torch.int32, device="cuda")
     _asr_transcribe(model, mel, mask, c["rtf_tokens"])     # warm
-    attention.reset_counts()
-    times = [_asr_transcribe(model, mel, mask, c["rtf_tokens"])[1]
-             for _ in range(c["rtf_repeats"])]
+    _reset_counts()
+    before = _bodies()
+    runs = [_asr_transcribe(model, mel, mask, c["rtf_tokens"])
+            for _ in range(c["rtf_repeats"])]
+    times = [t for _, t in runs]
     torch.cuda.synchronize()
     counts = _counts()
     L, E, n = cfg.dec_layers, cfg.enc_layers, c["rtf_repeats"]
     _expect_only("servables whisper rtf", counts, {
         "flash_attention": E * n,
         "decode_attention": 2 * L * c["rtf_tokens"] * n})
+    # The encoder's layers on body C, every step's self and cross reads
+    # (one row a (slot, head)) on the single-row scan.
+    bodies = _body_delta(before)
+    want = {"flash_attention/C": E * n,
+            "decode_kernels/row": 2 * L * c["rtf_tokens"] * n}
+    if bodies != want:
+        fail(f"servables whisper rtf: bodies {bodies}, expected {want}")
+    if any(not torch.equal(t, runs[0][0]) for t, _ in runs):
+        fail("servables whisper rtf: the repeats' tokens differ")
     totals = [sum(t) for t in times]
     med = statistics.median(totals)
     split = times[totals.index(med)]
@@ -6916,7 +7191,8 @@ def _asr_serving(c: dict) -> tuple:
                    audio_s=c["rtf_audio_s"], tokens=c["rtf_tokens"],
                    encode_ms=split[0] * 1e3, prefill_ms=split[1] * 1e3,
                    steps_ms=split[2] * 1e3,
-                   runs_ms=[t * 1e3 for t in totals])
+                   runs_ms=[t * 1e3 for t in totals], bodies=bodies,
+                   tokens_sha1=_digest(runs[0][0]))
     del mel, mask
 
     # The stream: a 10 s clip fed 100 frames at a time, 200-frame chunks.
@@ -6924,7 +7200,7 @@ def _asr_serving(c: dict) -> tuple:
         np.float32)
     stream = StreamingASR(model, chunk_frames=c["stream_chunk"],
                           max_new_tokens=c["stream_new"])
-    attention.reset_counts()
+    _reset_counts()
     chunks = []
     for i in range(0, len(clip), c["stream_feed"]):
         t0 = time.perf_counter()
@@ -6971,7 +7247,7 @@ def _asr_serving(c: dict) -> tuple:
         return transcribe
 
     controller = ServeController(control_interval_s=0.2)
-    attention.reset_counts()
+    _reset_counts()
     t0 = time.monotonic()
     try:
         router = controller.deploy(
@@ -6992,6 +7268,9 @@ def _asr_serving(c: dict) -> tuple:
           f"replica -> StreamingASR), {len(clips)} requests in {wall:.1f} s:"
           f" transcripts equal to direct runs {same}; launches {r_counts}",
           flush=True)
+    print(f"[servables] whisper tokens: rtf batch sha1 "
+          f"{rtf_row['tokens_sha1']}, served transcripts sha1 "
+          f"{_digest(served)} {served}", flush=True)
     if not same:
         fail(f"servables whisper: served transcripts {served} differ from "
              f"direct runs {direct}")
@@ -7013,10 +7292,9 @@ def _gpt2_rows(c: dict) -> tuple:
     """19d: gpt2_medium bf16 at full depth, no cache: ``ModelProfiler``
     rows over (batch, seq) with ``flops_per_sample`` beside each."""
     from ray_dynamic_batching_tpu_torch.models.base import get_model
-    from ray_dynamic_batching_tpu_torch.ops import attention
 
     model = get_model("gpt2_medium", seed=0).eval()
-    attention.reset_counts()
+    _reset_counts()
     _, rows, forwards = _sweep("profile gpt2_medium (no cache)", model,
                                c["gpt2_buckets"], c["gpt2_seqs"], c)
     torch.cuda.synchronize()
@@ -7079,7 +7357,10 @@ def _held_shapes(shapes, tag: str = "spec", phase: int = 17) -> list:
 
 # --- phase 20: tensor-parallel serving --------------------------------------
 TP_PARITY_LAYERS = 2
-# arm -> (KV dtype, knobs): phase 6's 10 requests through each.
+# 20a / 20c: phase 6's prompts with 16 new tokens (32 there): the arms'
+# eager gloo steps are most of the phase's time.
+TP_NEW_TOKENS = 16
+# arm -> (KV dtype, knobs): phase 6's 10 prompts through each.
 TP_ARMS = {
     "slab": (None, SLAB_KNOBS),
     "slab_chunked": (None, dict(SLAB_KNOBS, chunked_prefill=True)),
@@ -7103,10 +7384,9 @@ def _rank_counts(ctx, seq) -> dict:
 
 
 def _rank_reset(ctx, seq) -> None:
-    from ray_dynamic_batching_tpu_torch.ops import attention
 
     torch.cuda.synchronize()
-    attention.reset_counts()
+    _reset_counts()
 
 
 def _rank_logits(ctx, seq, key: str, tokens, mask) -> tuple:
@@ -7652,8 +7932,8 @@ def phase_tp() -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     paths = {}
-    parity = _tp_parity(_payloads(np.random.default_rng(1), 128256, 32, 8,
-                                  2, 2), paths)
+    parity = _tp_parity(_payloads(np.random.default_rng(1), 128256,
+                                  TP_NEW_TOKENS, 8, 2, 2), paths)
     paths["tp"], baseline = _tp_baseline(
         _payloads(np.random.default_rng(0), 128256, 32, 8, 2, 0))
     wall = time.monotonic() - t0
@@ -8000,7 +8280,6 @@ def _surface_checkpoint(tag, payloads) -> tuple:
         CausalLM,
     )
     from ray_dynamic_batching_tpu_torch.models.convert import params_to_flax
-    from ray_dynamic_batching_tpu_torch.ops import attention
     from ray_dynamic_batching_tpu_torch.runtime.checkpoint import (
         CheckpointManager,
     )
@@ -8042,7 +8321,7 @@ def _surface_checkpoint(tag, payloads) -> tuple:
             replica = dep.make_replica(f"llama3_8b-{arm}",
                                        DeploymentConfig(name="llama3_8b"))
             engine = replica.engine
-            attention.reset_counts()
+            _reset_counts()
             replica.start()
             try:
                 got = []
@@ -8087,7 +8366,6 @@ def phase_surface() -> tuple:
     """Phase 21: llama3_8b at full depth behind every door of the serving
     surface, one deployment shared by (a)-(d); worker nodes (e); a
     checkpoint round trip (f). Returns (counts, numbers)."""
-    from ray_dynamic_batching_tpu_torch.ops import attention
     from ray_dynamic_batching_tpu_torch.serve import CompletionsHandle
     from ray_dynamic_batching_tpu_torch.serve.controller import (
         DeploymentConfig,
@@ -8136,7 +8414,7 @@ def phase_surface() -> tuple:
                          CompletionsHandle(handle, model="llama3_8b"))
         routes.set_route("/api/llama3_8b", handle)
         proxy = HTTPProxy(routes, host="127.0.0.1", port=0).start()
-        attention.reset_counts()
+        _reset_counts()
         since = _dispatch_state(engine)
         t_doors = time.monotonic()
         want, out["openai"] = _surface_openai(tag, proxy, handle, payloads)
@@ -8291,7 +8569,6 @@ def _train_kernel_row() -> dict:
     llama3_8b's training shape (bf16, f32), a small GQA case and a case
     with fully masked rows; fwd + bwd times beside the plain version,
     SDPA forward + backward and the bound."""
-    from ray_dynamic_batching_tpu_torch.ops import attention
     from ray_dynamic_batching_tpu_torch.ops import flash_attention as fl
 
     gen = torch.Generator(device="cuda").manual_seed(22)
@@ -8365,7 +8642,7 @@ def _train_kernel_row() -> dict:
     else:
         fail("22a: the bare kernel-1 launch took an input that requires "
              "grad")
-    attention.reset_counts()   # comparison launches do not count
+    _reset_counts()   # comparison launches do not count
     return row
 
 
@@ -8422,7 +8699,7 @@ def _train_parity() -> dict:
     params, _ = train.make_sharded_train_state(model, None,
                                                optim.adamw(TRAIN_LR))
     tok, mask = _train_batch(cfg, 2, 128, 22)
-    attention.reset_counts()
+    _reset_counts()
     loss, grads = train.loss_and_grads(model, None, params, tok, mask)
     grads = {n: g.clone() for n, g in grads.items()}
     launched = (fl.launches, fl.bwd_launches)
@@ -8447,7 +8724,7 @@ def _train_parity() -> dict:
     del model, params, grads, grads_p
     gc.collect()
     torch.cuda.empty_cache()
-    attention.reset_counts()
+    _reset_counts()
     return dict(loss_rel_err=rel, grad_max_rel_err=errs[worst])
 
 
@@ -8459,7 +8736,6 @@ def _train_run(smi: str) -> tuple:
         LLAMA3_8B,
         CausalLM,
     )
-    from ray_dynamic_batching_tpu_torch.ops import attention
     from ray_dynamic_batching_tpu_torch.parallel import optim
     from ray_dynamic_batching_tpu_torch.parallel import train
 
@@ -8475,7 +8751,7 @@ def _train_run(smi: str) -> tuple:
     tok, mask = _train_batch(cfg, B, T, 23)
     tok, mask = tok.cuda(), mask.cuda()
     torch.cuda.synchronize()
-    attention.reset_counts()      # the main path's run starts here
+    _reset_counts()      # the main path's run starts here
     losses, ms = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -8903,11 +9179,17 @@ def phase_train(smi: str) -> tuple:
                             wall_s=wall)
 
 
+#: phase -> launches of kernel 1 and kernels 2-4 by body in that phase.
+_PHASE_BODIES: dict = {}
+
+
 def _phase_time(name: str, fn, *args):
     """``fn(*args)``, printing its wall seconds (the script's time budget,
-    PERF.md section 4)."""
+    PERF.md section 4); the phase's launches by body are kept."""
     t0 = time.monotonic()
+    before = _bodies()
     out = fn(*args)
+    _PHASE_BODIES[name] = _body_delta(before)
     print(f"[time] {name}: {time.monotonic() - t0:.1f} s", flush=True)
     return out
 
@@ -9022,6 +9304,16 @@ def _main(stack: contextlib.ExitStack) -> None:
         split = {path: c.get(name, 0) for path, c in by_path.items()}
         row["launches"] = sum(split.values()) if split else None
         row["launches_by_path"] = split
+    # The bodies every phase but phase 3 (comparisons) launched: kernel 1's
+    # on its row, kernels 2-4's (one counter) on kernel 2's.
+    for name, prefix in (("flash_attention", "flash_attention/"),
+                         ("decode_attention", "decode_kernels/")):
+        if name in kernels:
+            kernels[name]["launches_by_body"] = {
+                k.removeprefix(prefix): sum(
+                    d.get(k, 0) for ph, d in _PHASE_BODIES.items()
+                    if ph != "kernels")
+                for k in _bodies() if k.startswith(prefix)}
     print(json.dumps({"kernels": list(kernels.values()), "front": front,
                       "controller": controller, "colocate": colocate,
                       "vision": vision, "graphs": graphed, "sim": sim,

@@ -29,6 +29,15 @@ Variants:
   every tile for the warps of one batch row; prints the median cycles of
   QK^T + row max, exp + pack, and PV + the wait for the next tile.
 
+``--body c`` instead times body C (the long-row body: TMA + wgmma) at the
+servables' rows it takes — Whisper's encoder [8,1500,20,64], DistilBERT
+[32,256,12,64] and gpt2_medium's no-cache [8,256,16,64] (causal), each
+under its key mask as the models make it — against its variants:
+
+- ``one_block_an_sm``: ``__launch_bounds__(288, 1)``, so ptxas may keep
+  every accumulator in registers (no spills) at one block an SM;
+- ``stages_2`` / ``stages_4``: a 2- or 4-deep K / V / mask ring.
+
 Exits non-zero without a card. Numbers go to standard output; PERF.md
 quotes them with the card's name and power limit.
 """
@@ -91,7 +100,7 @@ VARIANTS = {
         "    const int d = (blockIdx.x + blockIdx.y) % 3 * 700;\n"
         "    while (clock64() - t0 < d) {\n    }\n  }")],
     "exp_f16x2": [
-        ("// ex2.approx: the exp", EX2H2 + "// ex2.approx: the exp"),
+        ("// --- bf16: tensor cores", EX2H2 + "// --- bf16: tensor cores"),
         ("#pragma unroll\n    for (int c = 0; c < 4; ++c)\n"
          "      p[c] = FULL || j < 2 * kg ? ex2(fmaf(s[j][c], scale2, neg_m[c / 2])) : 0.f;",
          "#pragma unroll\n    for (int c = 0; c < 4; c += 2) {\n"
@@ -100,7 +109,7 @@ VARIANTS = {
          "      p[c] = FULL || j < 2 * kg ? e.x : 0.f;\n"
          "      p[c + 1] = FULL || j < 2 * kg ? e.y : 0.f;\n    }")],
     "stamps": [
-        ("// ex2.approx: the exp", STAMP_FN + "// ex2.approx: the exp"),
+        ("// --- bf16: tensor cores", STAMP_FN + "// --- bf16: tensor cores"),
         ("int k0, int kg, int Tk, float scale2, int lane) {",
          "int k0, int kg, int Tk, float scale2, int lane, int sb) {\n  stamp(sb);"),
         ("    neg_m[hh] = -m_new;\n  }", "    neg_m[hh] = -m_new;\n  }\n  stamp(sb + 1);"),
@@ -113,12 +122,28 @@ VARIANTS = {
 }
 
 
-def build_all() -> dict:
+RING = "constexpr int STAGES = 3;        // the K / V / mask ring"
+VARIANTS_C = {
+    "committed": [],
+    "one_block_an_sm": [("__global__ void __launch_bounds__(THREADS, 2)\n"
+                         "flash_long_kernel(",
+                         "__global__ void __launch_bounds__(THREADS, 1)\n"
+                         "flash_long_kernel(")],
+    "stages_2": [(RING, RING.replace("= 3", "= 2"))],
+    "stages_4": [(RING, RING.replace("= 3", "= 4"))],
+}
+# Body C's rows: (name, shape, causal), each under a key mask.
+ROWS_C = (("whisper_encoder", (8, 1500, 20, 64), False),
+          ("distilbert_T256", (32, 256, 12, 64), False),
+          ("gpt2_apply_T256", (8, 256, 16, 64), True))
+
+
+def build_all(variants=VARIANTS) -> dict:
     """name -> the bound library; one nvcc per variant, all at once."""
     OUT.mkdir(parents=True, exist_ok=True)
     source = (_build.CSRC / "flash_attention.cu").read_text()
     procs = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in variants.items():
         text = source.replace('#include "common.cuh"',
                               f'#include "{_build.CSRC / "common.cuh"}"')
         for old, new in edits:
@@ -142,27 +167,59 @@ def build_all() -> dict:
             sys.exit(f"variant {name}: nvcc failed\n{log}")
         regs = [ln.split("Used")[1].split(",")[0].strip()
                 for ln in log.splitlines() if "Used" in ln]
-        print(f"[build] {name}: registers by kernel {regs}", flush=True)
+        spills = [ln.strip() for ln in log.splitlines() if "spill" in ln]
+        print(f"[build] {name}: registers by kernel {regs}; {spills[:1]}",
+              flush=True)
         lib = ctypes.CDLL(str(OUT / f"lib{name}.so"))
         getattr(lib, fn_name).argtypes = argtypes
         getattr(lib, fn_name).restype = ctypes.c_int
         libs[name] = lib
-    libs["stamps"].rdb_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                          ctypes.c_int]
+    if "stamps" in libs:
+        libs["stamps"].rdb_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                              ctypes.c_int]
     return libs
 
 
-def launch(lib, q, k, v) -> torch.Tensor:
+def launch(lib, q, k, v, keep=None, causal=False) -> torch.Tensor:
+    """One launch of a build; ``keep`` a keep-mask view (``keep_mask``)."""
     B, Tq, N, H = q.shape
     out = torch.empty((B, Tq, N, H), dtype=q.dtype, device=q.device)
+    body = ctypes.c_int(-1)
+    mbs, mrs = (0, 0) if keep is None else fl.mask_strides(keep)
     rc = lib.rdb_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(), B,
-        Tq, k.shape[1], N, k.shape[2], H, q.stride(0), q.stride(1),
-        k.stride(0), k.stride(1), v.stride(0), v.stride(1), H ** -0.5, 0, 1,
-        None, torch.cuda.current_stream().cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if keep is None else keep.data_ptr(), mbs, mrs, out.data_ptr(),
+        B, Tq, k.shape[1], N, k.shape[2], H, q.stride(0), q.stride(1),
+        k.stride(0), k.stride(1), v.stride(0), v.stride(1), H ** -0.5,
+        int(causal), 1, None, torch.cuda.current_stream().cuda_stream,
+        ctypes.byref(body))
     if rc:
         sys.exit(f"launch failed: {rc}")
     return out
+
+
+def main_c(dev) -> None:
+    """Body C's rows against its variants (``--body c``)."""
+    libs = build_all(VARIANTS_C)
+    for name, shape, causal in ROWS_C:
+        x = cs._own_stream(cs._servable_case(*shape[:3], shape[1],
+                                             shape[2], shape[3], "key",
+                                             causal), 0)(torch.bfloat16,
+                                                         None, None)
+        ref = fl.flash_attention_plain(x["q"], x["k"], x["v"], x["keep"],
+                                       causal=causal).float()
+        sdpa = cs.time_ms(lambda: cs._sdpa(x["q"], x["k"], x["v"],
+                                           x["mask"]))
+        print(f"[{name}] {tuple(shape)} sdpa {sdpa:.4f} ms", flush=True)
+        for var, lib in libs.items():
+            out = launch(lib, x["q"], x["k"], x["v"], x["keep"], causal)
+            torch.cuda.synchronize()
+            err = (out.float() - ref).abs().max().item()
+            ms = cs.time_ms(lambda: launch(lib, x["q"], x["k"], x["v"],
+                                           x["keep"], causal))
+            print(f"[{name}] {var}: {ms:.4f} ms, max_abs_err {err:.3e}",
+                  flush=True)
+    print(f"[device] {dev['smi']}", flush=True)
 
 
 def stamp_medians(lib, x) -> str:
@@ -188,6 +245,9 @@ def stamp_medians(lib, x) -> str:
 
 def main() -> None:
     dev = cs.phase_device()
+    if sys.argv[1:] == ["--body", "c"]:
+        main_c(dev)
+        return
     libs = build_all()
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, shape in (("vit", cs.VIT_SHAPE), ("vit_g", cs.VIT_G_SHAPE)):

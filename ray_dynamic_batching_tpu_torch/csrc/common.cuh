@@ -1,6 +1,7 @@
 // Shared helpers for the port's attention kernels (sm_90a, plain C ABI).
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes via the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -706,6 +707,467 @@ struct DecodeScan {
     if (tid == 0) cnt[slot] = 0;  // ready for the next launch
   }
 };
+
+// The single-row decode scan: one window row a (slot, KV head), R = Tq * G
+// = 1 (Whisper's cross read over its 1500 states and its step, the GPT-2
+// steps), shared by the slab and the paged kernels as DecodeScan is, so
+// that the two stay bit-identical at R = 1. Same rule as DecodeScan:
+// masked scores NEG_INF, p not zeroed (a row that attends no key averages
+// V), keys past the tile's n at -inf (p = 0), l from the unrounded p, p (or
+// p * vsc with int8 codes) rounded to T before PV, l == 0 finalizes to 0.
+//
+// The work is bytes: each key's K and V row read once. DecodeScan pads the
+// one row to a 16-row mma.sync tile and crosses three block barriers a
+// tile; this body has no tensor-core product and no block barrier in the
+// scan:
+//
+// - Four warps a block; warp w takes keys 16 w .. 16 w + 15 of every live
+//   64-key tile. A key row is LPK lanes (8 for a 64-wide bf16 row: 16 bytes
+//   a lane), so a warp reads 32 / LPK keys at once, each lane one 16-byte
+//   chunk; the dot product reduces over the key's lanes by shuffle.
+// - Each warp keeps its own ring (STAGES tiles deep) of its keys' K and V
+//   rows, their scales and their 16 mask bytes, filled by its own cp.async
+//   groups: a warp waits only for its own copies (__syncwarp, no block
+//   barrier).
+// - Each warp keeps its own online softmax over its keys: the running max
+//   of a tile is the max over the warp's 16 keys, and p is rounded against
+//   it. At the end the four warps merge through shared memory with weights
+//   exp(m_w - M) in warp order, then the splits merge as DecodeScan's do
+//   (the last block of a (slot, KV head) to arrive, in split order, the
+//   same [m][l][acc] partials in the same scratch).
+// - Splits are split_tiles(B * K, S) tiles long: at least two (so never
+//   more of them than 128-position splits, which the caller's scratch is
+//   sized for), and long enough that B * K * splits stays within TARGET_BLOCKS
+//   — Whisper's cross read (B K = 160, 24 tiles) takes 3 splits of 8 tiles
+//   where DecodeScan took 12 of 2; gpt2_medium's step (B K = 1024) one.
+//   Both kernels compute it from (B * K, S) alone.
+template <typename T, typename TK, int HV>
+struct RowScan {
+  static constexpr int BS = 64;                 // keys per tile
+  static constexpr int WARPS = 4;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int KPW = BS / WARPS;        // keys a warp takes of a tile
+  static constexpr int STAGES = 3;              // a warp's ring, in tiles
+  static constexpr int ROWB = HV * static_cast<int>(sizeof(TK));  // bytes a key row
+  static constexpr int NCH = ROWB / 16;         // 16-byte chunks a key row
+  static constexpr int LPK = NCH <= 2 ? 2 : NCH <= 4 ? 4 : NCH <= 8 ? 8 : NCH <= 16 ? 16 : 32;
+  static constexpr int KPR = 32 / LPK;          // keys a warp reads at once
+  static constexpr int ROUNDS = KPW / KPR;
+  static constexpr int CH = 16 / static_cast<int>(sizeof(TK));  // elements a chunk
+  static constexpr bool QUANT = std::is_same<TK, int8_t>::value;
+  static constexpr int KB = KPW * ROWB;         // a warp's K (or V) rows of a tile
+  static constexpr int SCB = QUANT ? 2 * KPW * 4 : 0;
+  static constexpr int STAGE = 2 * KB + SCB + 16;   // + the keys' 16 mask bytes
+  static constexpr int TARGET_BLOCKS = 4 * 132;
+  static_assert(ROWB % 16 == 0 && NCH <= 32 && KPR <= KPW, "row of 16-byte chunks");
+  static_assert(QUANT || std::is_same<TK, T>::value, "K/V are the query type or int8 codes");
+
+  // Tiles a split holds for B * K (slot, KV head)s over S positions: as
+  // many splits as keep B * K * splits within TARGET_BLOCKS (one wave of
+  // resident blocks: four 49 KB blocks an SM at a 64-wide bf16 row).
+  __host__ __device__ static int split_tiles(int BK, int S) {
+    const int ntiles = (S + BS - 1) / BS;
+    const int want = TARGET_BLOCKS / BK > 1 ? TARGET_BLOCKS / BK : 1;  // splits a slot
+    const int lt = (ntiles + want - 1) / want;
+    return lt < 2 ? 2 : lt;
+  }
+  static size_t smem_bytes(size_t extra) {
+    return static_cast<size_t>(WARPS) * STAGES * STAGE + sizeof(float) * WARPS * (HV + 2) + 16 +
+           extra;
+  }
+  // Whether the merge's scratch holds B x K (slot, KV head)s of nsplit
+  // partials of one row.
+  static bool merge_fits(int nsplit, int B, int K, long long ws_len, int cnt_len) {
+    return static_cast<long long>(B) * K * nsplit * (HV + 2) <= ws_len &&
+           static_cast<long long>(B) * K <= cnt_len;
+  }
+
+  unsigned char* ring;  // [WARPS][STAGES][STAGE]: K rows, V rows, scales, mask bytes
+  float* wm;            // [WARPS] each warp's running max
+  float* wl;            // [WARPS] ... sum
+  float* wacc;          // [WARPS][HV] ... accumulator
+  int* last;            // the merge flag
+  unsigned char* extra;
+  float M, L, A;        // this block's merged state (thread t < HV: column t)
+
+  __device__ RowScan(unsigned char* smem) {
+    ring = smem;
+    wm = reinterpret_cast<float*>(ring + WARPS * STAGES * STAGE);
+    wl = wm + WARPS;
+    wacc = wl + WARPS;
+    last = reinterpret_cast<int*>(wacc + WARPS * HV);
+    extra = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(last + 1) + 15) & ~static_cast<uintptr_t>(15));
+  }
+  __device__ unsigned char* stage(int w, int s) const { return ring + (w * STAGES + s) * STAGE; }
+
+  // The lane's CH query elements of chunk lane % LPK, widened (0 past HV).
+  __device__ static void load_q(const T* __restrict__ qrow, int lane, float (&qf)[CH]) {
+    constexpr int VQ = 16 / sizeof(T);
+    const int c = lane % LPK;
+#pragma unroll
+    for (int i = 0; i < CH; i += VQ) {
+      if (c < NCH)
+        load_vec<T>(qrow + c * CH + i, qf + i);
+      else
+#pragma unroll
+        for (int e = 0; e < VQ; ++e) qf[i + e] = 0.f;
+    }
+  }
+
+  // Warp w's part of one tile into its stage s, one cp.async group: keys
+  // j = 16 w + u < n at ksrc / vsrc + j * rs (zero-filled past n), their
+  // scales at ksc / vsc + j * sst, and the 16 mask bytes at msk + 16 w
+  // (msk null: none).
+  __device__ void issue(int w, int s, const TK* __restrict__ ksrc, const TK* __restrict__ vsrc,
+                        size_t rs, const float* __restrict__ ksc, const float* __restrict__ vsc,
+                        size_t sst, const int8_t* __restrict__ msk, int n, int lane) const {
+    unsigned char* st = stage(w, s);
+    for (int e = lane; e < KPW * NCH; e += 32) {
+      const int u = e / NCH, c = e % NCH, j = KPW * w + u;
+      const bool in = j < n;
+      cp_async16(st + u * ROWB + c * 16, in ? ksrc + j * rs + c * CH : ksrc, in);
+      cp_async16(st + KB + u * ROWB + c * 16, in ? vsrc + j * rs + c * CH : vsrc, in);
+    }
+    if constexpr (QUANT) {
+      const int u = lane % KPW, j = KPW * w + u;
+      const float* src = lane < KPW ? ksc : vsc;
+      cp_async4(st + 2 * KB + 4 * lane, j < n ? src + j * sst : src, j < n);
+    }
+    if (msk != nullptr && lane == 0)
+      cp_async16(st + 2 * KB + SCB, msk + KPW * w, KPW * w < n);
+    cp_async_commit();
+  }
+
+  // Warp w's keys of the tile in stage s (n keys in the tile): scores, the
+  // warp's online-softmax update, then acc = acc * alpha + p v over its
+  // keys. ``valid(j, byte)``: whether the row attends key j (< n) of the
+  // tile, given the mask byte staged for it (stale when none was staged).
+  template <typename Valid>
+  __device__ void tile(int w, int s, int n, int lane, const float (&qf)[CH], float scale,
+                       Valid valid, float& m, float& l, float (&acc)[CH]) const {
+    const unsigned char* st = stage(w, s);
+    const float* ksc = reinterpret_cast<const float*>(st + 2 * KB);
+    const float* vsc = ksc + KPW;
+    const int8_t* mb = reinterpret_cast<const int8_t*>(st + 2 * KB + SCB);
+    const int c = lane % LPK, g = lane / LPK;
+    float sc[ROUNDS];
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+      const int u = r * KPR + g, j = KPW * w + u;
+      float dot = 0.f;
+      if (c < NCH) {
+        float kf[CH];
+        load_vec<TK>(reinterpret_cast<const TK*>(st + u * ROWB + c * 16), kf);
+#pragma unroll
+        for (int e = 0; e < CH; ++e) dot = fmaf(qf[e], kf[e], dot);
+      }
+#pragma unroll
+      for (int o = 1; o < LPK; o <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      float x = -INFINITY;  // ragged tail: not a key at all
+      if (j < n) {
+        x = NEG_INF;
+        if (valid(j, mb[u])) {
+          x = dot * scale;
+          if constexpr (QUANT) x = x * ksc[u];
+        }
+      }
+      sc[r] = x;
+    }
+    float mx = sc[0];
+#pragma unroll
+    for (int r = 1; r < ROUNDS; ++r) mx = fmaxf(mx, sc[r]);
+#pragma unroll
+    for (int o = LPK; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float m_new = fmaxf(m, mx);
+    const float alpha = expf(m - m_new);
+    float p[ROUNDS];
+    float ps = 0.f;
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+      p[r] = expf(sc[r] - m_new);
+      ps += p[r];
+    }
+#pragma unroll
+    for (int o = LPK; o < 32; o <<= 1) ps += __shfl_xor_sync(0xffffffffu, ps, o);
+    l = l * alpha + ps;
+    m = m_new;
+#pragma unroll
+    for (int e = 0; e < CH; ++e) acc[e] *= alpha;
+    if (c < NCH) {
+#pragma unroll
+      for (int r = 0; r < ROUNDS; ++r) {
+        const int u = r * KPR + g;
+        float pr;
+        if constexpr (QUANT)
+          pr = round_to<T>(p[r] * vsc[u]);
+        else
+          pr = round_to<T>(p[r]);
+        float vf[CH];
+        load_vec<TK>(reinterpret_cast<const TK*>(st + KB + u * ROWB + c * 16), vf);
+#pragma unroll
+        for (int e = 0; e < CH; ++e) acc[e] = fmaf(pr, vf[e], acc[e]);
+      }
+    }
+  }
+
+  // Warp w's state into shared memory (its key groups' accumulators summed
+  // first); then, after a block barrier, (M, L, A) of the block, column t
+  // = threadIdx.x < HV: the warps merged in order with weights exp(m_w - M).
+  __device__ void merge_warps(int w, int lane, float m, float l, float (&acc)[CH]) {
+#pragma unroll
+    for (int e = 0; e < CH; ++e)
+#pragma unroll
+      for (int o = LPK; o < 32; o <<= 1) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+    const int c = lane % LPK;
+    if (lane < LPK && c < NCH)
+#pragma unroll
+      for (int e = 0; e < CH; ++e) wacc[w * HV + c * CH + e] = acc[e];
+    if (lane == 0) {
+      wm[w] = m;
+      wl[w] = l;
+    }
+    __syncthreads();
+    const int t = threadIdx.x;
+    M = wm[0];
+#pragma unroll
+    for (int i = 1; i < WARPS; ++i) M = fmaxf(M, wm[i]);
+    L = 0.f;
+    A = 0.f;
+#pragma unroll
+    for (int i = 0; i < WARPS; ++i) {
+      const float wt = expf(wm[i] - M);
+      L += wt * wl[i];
+      if (t < HV) A += wt * wacc[i * HV + t];
+    }
+  }
+
+  // out[0 .. HV) <- A / L (0 where L == 0), or the merge of this (slot,
+  // KV head)'s n_live live splits: partials [m][l][acc HV] at ws[(slot *
+  // nsplit + split) * (HV + 2)], arrivals counted in cnt[slot], merged by
+  // the last to arrive in split order (split_live names the same splits in
+  // every block of the slot).
+  template <typename SplitLive>
+  __device__ void finish(T* __restrict__ out, float* __restrict__ ws, int* __restrict__ cnt,
+                         size_t slot, int split, int nsplit, int n_live,
+                         SplitLive split_live) {
+    const int t = threadIdx.x;
+    if (n_live == 1) {
+      if (t < HV) out[t] = from_f<T>(A / (L == 0.f ? 1.f : L));
+      return;
+    }
+    constexpr int STRIDE = HV + 2;
+    float* part = ws + (slot * nsplit + split) * STRIDE;
+    if (t == 0) {
+      part[0] = M;
+      part[1] = L;
+    }
+    if (t < HV) part[2 + t] = A;
+    __threadfence();
+    __syncthreads();
+    if (t == 0) *last = atomicAdd(cnt + slot, 1) == n_live - 1;
+    __syncthreads();
+    if (!*last) return;
+    __threadfence();
+    const float* base = ws + slot * nsplit * STRIDE;
+    float Mx = -INFINITY;
+    for (int s = 0; s < nsplit; ++s)
+      if (split_live(s)) Mx = fmaxf(Mx, __ldcg(base + s * STRIDE));
+    float Ls = 0.f, As = 0.f;
+    for (int s = 0; s < nsplit; ++s) {
+      if (!split_live(s)) continue;
+      const float wt = expf(__ldcg(base + s * STRIDE) - Mx);
+      Ls += wt * __ldcg(base + s * STRIDE + 1);
+      if (t < HV) As += wt * __ldcg(base + s * STRIDE + 2 + t);
+    }
+    if (t < HV) out[t] = from_f<T>(As / (Ls == 0.f ? 1.f : Ls));
+    if (t == 0) cnt[slot] = 0;  // ready for the next launch
+  }
+};
+
+// --- Hopper: mbarriers, TMA, wgmma (sm_90a) --------------------------------
+// The int8 GEMM's prefill body and kernel 1's body C share these.
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+// Wait for the phase of parity ``parity`` to complete. A copy that never
+// lands fails the launch (after ~2^36 cycles) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity))
+    if (clock64() - t0 > (1ll << 36)) __trap();
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma's shared-memory descriptor of a K-major tile of 128-byte rows,
+// 128-byte swizzled (as TMA lands it), 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Compiler fences: a register's value is taken and given back here, so
+// the compiler keeps a fragment's definitions before the wgmma fence and
+// its registers live until the wait that retires the wgmma reading them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// A 3-D / 4-D box of a tensor map into shared memory (coordinates innermost
+// first), completing on the mbarrier ``bar``.
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// wgmma's descriptor of an MN-major tile of 128-byte rows (64 bf16 along
+// N, contiguous), 128-byte swizzled as TMA lands it: 8 rows along K 1024
+// bytes apart (SBO); LBO, the stride between 64-wide atoms along N, is
+// never used at N = 64.
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(8192 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d[64 x 64] += a[64 x 16] (registers, the accumulator layout of a
+// 64-row tile) . b[16 x 64] (shared): TB = false, b K-major; TB = true,
+// b MN-major (a [key][dim] V tile).
+template <bool TB>
+__device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TB ? 1 : 0));
+}
+
+// d[64 x 64] (+)= a[64 x 16] (shared, K-major) . b[16 x 64] (shared,
+// K-major); ``acc`` 0 overwrites d.
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda).
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &res) == cudaSuccess &&
+        res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// --- the int8 keep-mask ------------------------------------------------------
+// Kernels 1 and 2 read the mask [B, Tq, Tk] through a batch stride and a
+// row stride (bytes): the row stride is 0 (one key row per batch row:
+// every query row reads it) or a multiple of 16 at least Tk, the batch
+// stride a multiple of 16 (0: one row for every batch row). So every read
+// is a 16-byte load, cp.async or TMA box; a row's bytes past Tk (padding,
+// whatever it holds) are cleared where they are read as whole chunks.
+
+// The 16 mask bytes w of keys k0 .. k0 + 15 with those at or past Tk
+// cleared.
+__device__ __forceinline__ uint4 clear_past(uint4 w, int k0, int Tk) {
+  const int keep = Tk - k0;
+  if (keep >= 16) return w;
+  uint32_t* x = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int b = keep - 4 * i;  // bytes of word i that stay
+    x[i] = b >= 4 ? x[i] : b <= 0 ? 0u : x[i] & ((1u << (8 * b)) - 1u);
+  }
+  return w;
+}
 
 // Raise a kernel's dynamic shared-memory limit to at least `smem`; never
 // lower it. A CUDA graph's launch of the kernel runs under the limit in

@@ -9,17 +9,26 @@
 // Layouts: q/out [B, Tq, N, H]; k/v [B, Tk, K, H]; mask [B, Tq, Tk] int8.
 // q, k and v take any batch and token strides (in elements, each a
 // multiple of 16 bytes), so the views of a packed qkv projection go in as
-// they are; heads are H apart and the last dim is contiguous. out and the
-// mask are contiguous. H is any multiple of 8 up to 128: rows are padded
+// they are; heads are H apart and the last dim is contiguous. out is
+// contiguous. The mask comes with its batch and row strides in bytes
+// (ops/flash_attention.py keep_mask): the row stride is 0 for a key row
+// that every query row reads (DistilBERT's and Whisper's key masks, gpt2's
+// token mask under the causal flag) or a multiple of 16 of at least Tk,
+// the batch stride a multiple of 16; so every mask read is a 16-byte load,
+// cp.async or TMA box (bytes past Tk cleared or never read as attended),
+// and a key row is read once a block. H is any multiple of 8 up to 128: rows are padded
 // to HP = 64 or 128 in shared memory and in registers, the padded columns
 // of Q, K and V are zero-filled (they add nothing to QK^T and give output
 // columns that are never written), so both bodies reuse the HP tiles with
 // a runtime width — ViT-G/14's 104 runs on the 128 tiles.
 //
-// Two bf16 bodies, picked by shape in launch_bf16 (no flag selects one):
+// Three bf16 bodies, picked by shape alone in bf16_body (no flag selects
+// one; the entry point reports the one it launched, rdb_flash_body the one
+// it would launch):
 //
 // A. The LLM shape (a mask or causal, or a K/V too large to stay in shared
-//    memory). On the serving path every launch is a 64-row chunk over a
+//    memory; fewer than 128 query rows, head_dim past 64, or an LSE
+//    output). On the serving path every launch is a 64-row chunk over a
 //    512-position row cache (slab prefill groups, long-fill chunks, paged
 //    chunks over the gathered view), and the mask voids most KV tiles: at
 //    the main shape 7 of 8. The work the function needs is the K/V of the
@@ -30,7 +39,8 @@
 //    epilogue, each a dependent step of a block that has one tile of work.
 //
 //    - Mask-void tile skipping. Each block first reads its 64 rows of the
-//      mask (<= 32 KB at Tk = 512) and marks every 64-key tile that some
+//      mask (<= 32 KB at Tk = 512; one row of a key-row mask, the KROW
+//      instantiation) and marks every 64-key tile that some
 //      row attends under the mask and the causal rule; it then walks the
 //      live tiles only. Exact under the flash rule: a masked key's p is
 //      zeroed, so a wholly masked tile leaves m, l and acc as they were.
@@ -113,11 +123,55 @@
 //    global memory, or split the 13th slab over the four warps measured
 //    no better; wgmma is the next step.
 //
+// C. Long rows (bf16, head_dim <= 64, Tq >= 128, no LSE, not body B's
+//    case): Whisper-large-v3's encoder [8,1500,20,64] under its frame
+//    mask, DistilBERT's [32,T,12,64] at T 128 / 256, gpt2_medium's no-cache
+//    [8,T,16,64] at T 128 / 256 (causal + token mask). 4-24 live tiles a
+//    row of dense work: what bounds it is the products (92 GFLOP at
+//    Whisper's shape, 0.0819 ms at the bf16 peak) or, at the short rows,
+//    q, k and v read once. Body A spent it on per-tile work long rows do
+//    not need — a max exchange and a named barrier between key halves, a
+//    block barrier a tile, the halves' sum — and, at Tk = 1500, on byte
+//    loads of the mask: 3.04 ms at Whisper's shape against SDPA's 0.459.
+//    This body is Hopper's warp-specialised layout (namespace bodyc):
+//
+//    - One block per (128 query rows, query head, batch row), 288 threads:
+//      warpgroups 0 and 1 consume, warp 8 produces. One producer thread
+//      keeps TMA loads in flight: Q once, then each live 64-key tile's K,
+//      V and mask bytes (a 64 x 128 box of a dense mask, or 64 bytes of a
+//      key row) through a 3-stage ring with full / empty mbarriers. TMA
+//      zero-fills rows past Tq / Tk and columns past h, so there are no
+//      edge cases in the consumers' loads.
+//    - Each consumer warpgroup owns 64 query rows across the whole tile:
+//      S = Q K^T is four SS-wgmma m64n64k16 (Q and K from shared memory,
+//      128-byte swizzled as TMA lands them), so a quad of lanes holds a
+//      row's 64 scores and the row max over the whole tile is two
+//      shuffles — no max exchange, no named barrier, no halves' sum. p is
+//      rounded to bf16 against that running max, where the reference's
+//      p.astype(v.dtype) rounds it; the running sum takes the unrounded p;
+//      keys past Tk and masked keys get NEG_INF and p = 0.
+//    - O += P V is four RS-wgmma m64n64k16: P from registers (the score
+//      accumulator's layout is the A fragment's), V from shared memory as
+//      an MN-major operand (a [key][dim] tile, transposed by the
+//      instruction). ptxas does not serialise them (no C7513).
+//    - Void tiles are skipped as body A skips them (the same prepass, a
+//      key row read once); a row with no attended key gives 0.
+//    - Two blocks an SM (~92 KB of shared memory, 96 registers a thread,
+//      a few spilled): one block's softmax overlaps the other's products.
+//
+//    On an H100 (700 W; chip_smoke.py phase 3, PERF.md): Whisper's encoder
+//    0.372 ms (SDPA 0.457; ~250 TFLOP/s, 4.5x the bound), DistilBERT T 256
+//    0.047 (0.057), gpt2_medium T 256 0.016 (0.025). What is left: no
+//    overlap of a warpgroup's softmax with its own products (FA3's
+//    ping-pong), and at short rows the prepass, Q's load and the epilogue.
+//
 // f32 (the model-parity runs and f32 tests, tolerance 1e-4) keeps the
 // first version's FMA body below: TF32 tensor cores keep ~3 decimal
 // digits and would not meet 1e-4.
 
 #include "common.cuh"
+
+#include <cstring>
 
 namespace {
 
@@ -129,10 +183,13 @@ using rdb::pack_bf16;
 using rdb::swz;
 
 // Element strides of q, k and v over batch rows and tokens (a token
-// stride times the length fits 32 bits; rdb_flash_attention checks).
+// stride times the length fits 32 bits; rdb_flash_attention checks), and
+// the keep-mask's batch and row strides in bytes (multiples of 16; a row
+// stride of 0: one key row for every query row of the batch row).
 struct Strides {
   long long qb, kb, vb;
   int qt, kt, vt;
+  long long mb, mr;
 };
 
 // A kernel's dynamic shared-memory limit, raised before a launch that needs
@@ -165,8 +222,10 @@ struct FlashSmem {
 // Body A. Grid (ceil(Tq / 64), N, B), 8 warps a block: warp w takes query
 // rows 16 (w % 4) .. + 15 and the key half w / 4 (32 keys) of every tile,
 // with its own running (l, o) and the slab's shared running max; the two
-// halves are summed once, at the end. h <= HP is the head dim.
-template <int HP>
+// halves are summed once, at the end. h <= HP is the head dim. KROW: the
+// mask is one key row for every query row (row stride 0), read and staged
+// once; otherwise rows are st.mr bytes apart.
+template <int HP, bool KROW>
 __global__ void __launch_bounds__(256)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -207,7 +266,10 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* qb = q + b * st.qb + static_cast<size_t>(n) * h;
   const __nv_bfloat16* kb = k + b * st.kb + static_cast<size_t>(kvh) * h;
   const __nv_bfloat16* vb = v + b * st.vb + static_cast<size_t>(kvh) * h;
-  const int8_t* mb = mask == nullptr ? nullptr : mask + (static_cast<size_t>(b) * Tq + q0) * Tk;
+  // The block's mask rows: row r at mb + r * st.mr. A key-row mask (st.mr
+  // 0) is read as its one row, for every query row.
+  const int mrows = KROW ? 1 : rows;
+  const int8_t* mb = mask == nullptr ? nullptr : mask + b * st.mb + q0 * st.mr;
 
   // The Q tile; rows past Tq and columns past h are zero.
   for (int e = tid; e < TBQ * NCH; e += THREADS) {
@@ -221,39 +283,35 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   for (int t = tid; t < ntiles; t += THREADS) live[t] = 0;
   __syncthreads();
   if (mb != nullptr) {
-    if (Tk % 16 == 0) {
-      // 16-byte chunks, eight loads in flight per thread before any is used.
-      constexpr int U = 8;
-      const int cpr = Tk / 16;
-      const int total = rows * cpr;
-      for (int e0 = tid; e0 < total; e0 += U * THREADS) {
-        uint4 w[U];
+    // 16-byte chunks (bytes past Tk cleared), eight loads in flight per
+    // thread before any is used. A key row stands for the block's last
+    // row under the causal rule (the row that attends the most keys).
+    constexpr int U = 8;
+    const int cpr = (Tk + 15) / 16;
+    const int total = mrows * cpr;
+    for (int e0 = tid; e0 < total; e0 += U * THREADS) {
+      uint4 w[U];
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int e = e0 + u * THREADS;
-          w[u] = e < total ? *reinterpret_cast<const uint4*>(
-                                 mb + static_cast<size_t>(e / cpr) * Tk + (e % cpr) * 16)
-                           : make_uint4(0u, 0u, 0u, 0u);
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          if ((w[u].x | w[u].y | w[u].z | w[u].w) == 0u) continue;
-          const int e = e0 + u * THREADS;
-          const int r = e / cpr, c = e % cpr;
-          bool any = !causal;
-          if (causal) {
-            const int8_t* by = reinterpret_cast<const int8_t*>(&w[u]);
-#pragma unroll
-            for (int i = 0; i < 16; ++i)
-              any = any || (by[i] != 0 && c * 16 + i <= q0 + r + offset);
-          }
-          if (any) live[(c * 16) / TBK] = 1;
-        }
+      for (int u = 0; u < U; ++u) {
+        const int e = e0 + u * THREADS;
+        w[u] = e < total ? *reinterpret_cast<const uint4*>(mb + (e / cpr) * st.mr +
+                                                           (e % cpr) * 16)
+                         : make_uint4(0u, 0u, 0u, 0u);
       }
-    } else {
-      for (int e = tid; e < rows * Tk; e += THREADS) {
-        const int r = e / Tk, key = e % Tk;
-        if (mb[e] != 0 && (!causal || key <= q0 + r + offset)) live[key / TBK] = 1;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e = e0 + u * THREADS;
+        const int r = KROW ? rows - 1 : e / cpr, c = e % cpr;
+        if (Tk % 16 != 0) w[u] = rdb::clear_past(w[u], c * 16, Tk);
+        if ((w[u].x | w[u].y | w[u].z | w[u].w) == 0u) continue;
+        bool any = !causal;
+        if (causal) {
+          const int8_t* by = reinterpret_cast<const int8_t*>(&w[u]);
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+            any = any || (by[i] != 0 && c * 16 + i <= q0 + r + offset);
+        }
+        if (any) live[(c * 16) / TBK] = 1;
       }
     }
   } else {
@@ -284,19 +342,13 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       rdb::cp_async16(vd + swz<HP>(r, c), in ? vb + (k0 + r) * st.vt + c * 8 : vb, in);
     }
     if (mb != nullptr) {
+      // Chunks past Tk are zero-filled; the bytes past Tk inside the last
+      // one are never read as attended (key < Tk below).
       int8_t* md = msk + buf * TBQ * MROW;
-      if (Tk % 16 == 0) {
-        for (int e = tid; e < TBQ * (TBK / 16); e += THREADS) {
-          const int r = e / (TBK / 16), c = e % (TBK / 16);
-          const bool in = r < rows && k0 + c * 16 < Tk;
-          rdb::cp_async16(md + r * MROW + c * 16,
-                          in ? mb + static_cast<size_t>(r) * Tk + k0 + c * 16 : mb, in);
-        }
-      } else {
-        for (int e = tid; e < TBQ * TBK; e += THREADS) {
-          const int r = e / TBK, c = e % TBK;
-          md[r * MROW + c] = (r < rows && k0 + c < Tk) ? mb[static_cast<size_t>(r) * Tk + k0 + c] : 0;
-        }
+      for (int e = tid; e < (KROW ? TBK / 16 : TBQ * (TBK / 16)); e += THREADS) {
+        const int r = e / (TBK / 16), c = e % (TBK / 16);
+        const bool in = r < mrows && k0 + c * 16 < Tk;
+        rdb::cp_async16(md + r * MROW + c * 16, in ? mb + r * st.mr + k0 + c * 16 : mb, in);
       }
     }
     rdb::cp_async_commit();
@@ -366,7 +418,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh)
           mpair[hh] = *reinterpret_cast<const uint16_t*>(
-              mt + (w16 + lane / 4 + 8 * hh) * MROW + kb0 + 8 * j + 2 * (lane % 4));
+              mt + (KROW ? 0 : w16 + lane / 4 + 8 * hh) * MROW + kb0 + 8 * j + 2 * (lane % 4));
       }
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -795,39 +847,375 @@ cudaError_t launch_vision(const __nv_bfloat16* q, const __nv_bfloat16* k,
   return cudaGetLastError();
 }
 
+// --- body C: long rows at head_dim <= 64 ------------------------------------
+// Warp-specialised on Hopper's TMA and wgmma (see the header). Grid
+// (ceil(Tq / 128), N, B), 288 threads: warpgroups 0 and 1 consume (64 query
+// rows each, over the whole of every live 64-key tile), warp 8 produces.
+namespace bodyc {
+
+constexpr int BQ = 128;          // query rows a block
+constexpr int BK = 64;           // keys a tile
+constexpr int STAGES = 3;        // the K / V / mask ring
+constexpr int THREADS = 288;
+constexpr int ROWB = 128;        // bytes of a 64-wide bf16 row
+constexpr int Q_BYTES = BQ * ROWB;
+constexpr int KV_BYTES = BK * ROWB;
+constexpr int M_BYTES = BQ * BK;  // a dense mask tile; a key-row one uses 64 bytes of it
+constexpr int STAGE = 2 * KV_BYTES + M_BYTES;
+
+// Dynamic shared memory: 1024 of alignment slack, Q, the ring, 2 STAGES + 1
+// mbarriers, the live list (ntiles) and its count.
+inline size_t smem_bytes(int ntiles) {
+  return 1024 + Q_BYTES + STAGES * STAGE + 8 * (2 * STAGES + 1) +
+         sizeof(int) * (2 * static_cast<size_t>(ntiles) + 1);
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+flash_long_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
+                  const __grid_constant__ CUtensorMap tmv, const __grid_constant__ CUtensorMap tmm,
+                  const int8_t* __restrict__ mask, __nv_bfloat16* __restrict__ out, int Tq,
+                  int Tk, int N, int K, int h, Strides st, float scale, int causal) {
+  extern __shared__ unsigned char raw_smem[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw_smem) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t qs = rdb::smem_addr(sm);
+  const uint32_t ring = qs + Q_BYTES;
+  const uint32_t bars = ring + STAGES * STAGE;
+  auto kst = [&](int s) { return ring + s * STAGE; };
+  auto vst = [&](int s) { return ring + s * STAGE + KV_BYTES; };
+  auto mst = [&](int s) { return ring + s * STAGE + 2 * KV_BYTES; };
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+  const uint32_t qbar = bars + 8 * 2 * STAGES;
+  const int ntiles = (Tk + BK - 1) / BK;
+  int* live = reinterpret_cast<int*>(sm + Q_BYTES + STAGES * STAGE + 8 * (2 * STAGES + 1));
+  int* list = live + ntiles;
+  int* nlive = list + ntiles;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int q0 = blockIdx.x * BQ;
+  const int n = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = n / (N / K);
+  const int rows = min(BQ, Tq - q0);
+  const int offset = Tk - Tq;
+  const bool krow = st.mr == 0;
+  const int8_t* mb = mask == nullptr ? nullptr : mask + b * st.mb + q0 * st.mr;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      rdb::mbar_init(full(s), 1);
+      rdb::mbar_init(empty(s), 8);  // the consumer warps
+    }
+    rdb::mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Live tiles, as body A marks them: some row of the block attends some
+  // key of the tile under the mask and the causal rule. A key row is read
+  // once (it stands for the block's last row under the causal rule).
+  for (int t = tid; t < ntiles; t += THREADS) live[t] = 0;
+  __syncthreads();
+  if (mb != nullptr) {
+    const int cpr = (Tk + 15) / 16;
+    const int total = (krow ? 1 : rows) * cpr;
+    for (int e = tid; e < total; e += THREADS) {
+      const int r = krow ? rows - 1 : e / cpr, c = e % cpr;
+      const uint4 w = rdb::clear_past(
+          *reinterpret_cast<const uint4*>(mb + (krow ? 0 : r) * st.mr + c * 16), c * 16, Tk);
+      if ((w.x | w.y | w.z | w.w) == 0u) continue;
+      bool any = !causal;
+      if (causal) {
+        const int8_t* by = reinterpret_cast<const int8_t*>(&w);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) any = any || (by[i] != 0 && c * 16 + i <= q0 + r + offset);
+      }
+      if (any) live[(c * 16) / BK] = 1;
+    }
+  } else {
+    const int kv_end = causal ? min(Tk, q0 + rows + offset) : Tk;
+    for (int t = tid; t < ntiles; t += THREADS) live[t] = t * BK < kv_end ? 1 : 0;
+  }
+  __syncthreads();
+  if (warp == 0) {  // compact the live tiles, 32 at a time
+    int cnt = 0;
+    for (int t0 = 0; t0 < ntiles; t0 += 32) {
+      const bool on = t0 + lane < ntiles && live[t0 + lane] != 0;
+      const unsigned bal = __ballot_sync(0xffffffffu, on);
+      if (on) list[cnt + __popc(bal & ((1u << lane) - 1u))] = t0 + lane;
+      cnt += __popc(bal);
+    }
+    if (lane == 0) *nlive = cnt;
+  }
+  __syncthreads();
+  const int nl = *nlive;
+
+  if (warp == 8) {
+    // Producer: one thread keeps Q, then STAGES tiles of K, V and their
+    // mask bytes in flight (TMA zero-fills rows past Tq / Tk and columns
+    // past h).
+    if (lane == 0) {
+      rdb::prefetch_map(&tmq);
+      rdb::prefetch_map(&tmk);
+      rdb::prefetch_map(&tmv);
+      if (mb != nullptr) rdb::prefetch_map(&tmm);
+      rdb::mbar_expect_tx(qbar, Q_BYTES);
+      rdb::tma_load4(qs, &tmq, qbar, 0, n, q0, b);
+      const int mbox = mb == nullptr ? 0 : krow ? BK : M_BYTES;
+      const int mbc = st.mb == 0 ? 0 : b;
+      for (int i = 0; i < nl; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) rdb::mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);
+        const int k0 = list[i] * BK;
+        rdb::mbar_expect_tx(full(s), 2 * KV_BYTES + mbox);
+        rdb::tma_load4(kst(s), &tmk, full(s), 0, kvh, k0, b);
+        rdb::tma_load4(vst(s), &tmv, full(s), 0, kvh, k0, b);
+        if (mb != nullptr) rdb::tma_load3(mst(s), &tmm, full(s), k0, krow ? 0 : q0, mbc);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup cw owns rows q0 + 64 cw .. + 63; this thread's
+  // accumulator cells (j, c) sit at row rl + 8 (c / 2) of the block and
+  // key (or output column) 8 j + 2 (lane % 4) + c % 2 of the tile.
+  const int cw = warp / 4;
+  const int rl = 64 * cw + 16 * (warp % 4) + lane / 4;
+  const float scale2 = scale * 1.4426950408889634f;  // scores to log2 units
+  const uint64_t qd = rdb::desc_sw128(qs + cw * (Q_BYTES / 2));
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m_r[2] = {rdb::NEG_INF, rdb::NEG_INF};  // log2 units
+  float l_r[2] = {0.f, 0.f};  // this thread's columns; quad-summed at the end
+  rdb::mbar_wait(qbar, 0);
+  for (int i = 0; i < nl; ++i) {
+    const int s = i % STAGES;
+    rdb::mbar_wait(full(s), (i / STAGES) & 1);
+    const int k0 = list[i] * BK;
+    // S = Q K^T: four k16 steps, Q and K both from shared memory.
+    float sc[32];
+    const uint64_t kd = rdb::desc_sw128(kst(s));
+    rdb::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) rdb::mma_ss_n64(sc, qd + 2 * kk, kd + 2 * kk, kk);
+    rdb::wg_commit();
+    rdb::wg_wait<0>();
+    rdb::fence_regs(sc);
+
+    // Validity and the row max over the whole tile (the quad holds it).
+    const int8_t* mt = reinterpret_cast<const int8_t*>(sm + (mst(s) - qs));
+    uint32_t valid = 0;
+    float mx[2] = {rdb::NEG_INF, rdb::NEG_INF};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint16_t mpair[2] = {0xffffu, 0xffffu};
+      if (mb != nullptr) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          mpair[hh] = *reinterpret_cast<const uint16_t*>(
+              mt + (krow ? 0 : (rl + 8 * hh) * BK) + 8 * j + 2 * (lane % 4));
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int key = k0 + 8 * j + 2 * (lane % 4) + (c % 2);
+        bool ok = key < Tk && ((mpair[c / 2] >> (8 * (c % 2))) & 0xffu) != 0;
+        if (causal) ok = ok && key <= q0 + rl + 8 * (c / 2) + offset;
+        valid |= (ok ? 1u : 0u) << (4 * j + c);
+        if (!ok) sc[4 * j + c] = rdb::NEG_INF;
+        mx[c / 2] = fmaxf(mx[c / 2], sc[4 * j + c]);
+      }
+    }
+    float corr[2], neg_m[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float m = mx[hh];
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      const float m_new = fmaxf(m_r[hh], m * scale2);
+      corr[hh] = rdb::ex2(m_r[hh] - m_new);
+      m_r[hh] = m_new;
+      neg_m[hh] = -m_new;
+    }
+    // P (masked keys exactly 0) rounded to bf16 as the A fragments of PV;
+    // the running sums take the unrounded p.
+    uint32_t pa[4][4];
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        p[c] = ((valid >> (4 * j + c)) & 1u) ? rdb::ex2(fmaf(sc[4 * j + c], scale2, neg_m[c / 2]))
+                                             : 0.f;
+        ps[c / 2] += p[c];
+      }
+      pa[j / 2][(j % 2) * 2] = rdb::pack_bf16(p[0], p[1]);
+      pa[j / 2][(j % 2) * 2 + 1] = rdb::pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) l_r[hh] = l_r[hh] * corr[hh] + ps[hh];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[4 * j] *= corr[0];
+      o[4 * j + 1] *= corr[0];
+      o[4 * j + 2] *= corr[1];
+      o[4 * j + 3] *= corr[1];
+    }
+    // O += P V: four k16 steps of 16 keys, P from registers, V (a [key][dim]
+    // tile: MN-major) from shared memory.
+    const uint64_t vd = rdb::desc_sw128_mn(vst(s));
+#pragma unroll
+    for (int kj = 0; kj < 4; ++kj) rdb::fence_regs(pa[kj]);
+    rdb::fence_regs(o);
+    rdb::wg_fence();
+#pragma unroll
+    for (int kj = 0; kj < 4; ++kj) rdb::mma_rs_n64<true>(o, pa[kj], vd + (KV_BYTES / 4 / 16) * kj);
+    rdb::wg_commit();
+    rdb::wg_wait<0>();
+    rdb::fence_regs(o);
+#pragma unroll
+    for (int kj = 0; kj < 4; ++kj) rdb::fence_regs(pa[kj]);
+    __syncwarp();
+    if (lane == 0) rdb::mbar_arrive(empty(s));  // this warp is done with the stage
+  }
+
+  // l over the quad; out straight from the accumulators, columns < h, rows
+  // < Tq; a row with no attended key has l == 0 and o == 0.
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float l = l_r[hh];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = l == 0.f ? 1.f : 1.f / l;
+    const int row = q0 + rl + 8 * hh;
+    if (row >= Tq) continue;
+    __nv_bfloat16* orow = out + ((static_cast<size_t>(b) * Tq + row) * N + n) * h + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (8 * j < h)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            rdb::pack_bf16(o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
+  }
+}
+
+// A tensor map over a [B, T, heads, H] bf16 view (element strides: batch
+// bs, token ts, heads H apart), boxes of `rows` tokens x 64 columns of one
+// head, 128-byte swizzled; out-of-bounds reads are zeros. A size-1
+// dimension's stride is never used and is replaced by a legal one.
+bool qkv_map(CUtensorMap* map, const void* base, int B, int T, int heads, int h, long long bs,
+             long long ts, int rows) {
+  rdb::EncodeTiled encode = rdb::tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const long long hb = 2LL * h;
+  const long long tsb = T == 1 ? hb * heads : 2 * ts;
+  const long long bsb = B == 1 ? tsb * T : 2 * bs;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(hb), static_cast<cuuint64_t>(tsb),
+                                 static_cast<cuuint64_t>(bsb)};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The keep-mask as [B or 1, Tq or 1, Tk] bytes (batch stride mbs, row
+// stride mrs, 0 meaning one of them), boxes of 64 keys x 128 rows (x 1
+// for a key row); keys past Tk and rows past Tq read as zeros.
+bool mask_map(CUtensorMap* map, const void* base, int B, int Tq, int Tk, long long mbs,
+              long long mrs) {
+  rdb::EncodeTiled encode = rdb::tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const int rows = mrs == 0 ? 1 : Tq, bats = mbs == 0 ? 1 : B;
+  const long long rsb = mrs == 0 ? (Tk + 15) / 16 * 16 : mrs;
+  const long long bsb = mbs == 0 ? rsb * rows : mbs;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Tk), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(bats)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(rsb), static_cast<cuuint64_t>(bsb)};
+  const cuuint32_t box[3] = {BK, static_cast<cuuint32_t>(mrs == 0 ? 1 : BQ), 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims, strides,
+                box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                   const int8_t* mask, __nv_bfloat16* out, int B, int Tq, int Tk, int N, int K,
+                   int h, Strides st, float scale, int causal, cudaStream_t stream) {
+  CUtensorMap tmq, tmk, tmv, tmm;
+  std::memset(&tmm, 0, sizeof(tmm));
+  if (!qkv_map(&tmq, q, B, Tq, N, h, st.qb, st.qt, BQ) ||
+      !qkv_map(&tmk, k, B, Tk, K, h, st.kb, st.kt, BK) ||
+      !qkv_map(&tmv, v, B, Tk, K, h, st.vb, st.vt, BK) ||
+      (mask != nullptr && !mask_map(&tmm, mask, B, Tq, Tk, st.mb, st.mr)))
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes((Tk + BK - 1) / BK);
+  const cudaError_t err = set_smem(flash_long_kernel, smem);
+  if (err != cudaSuccess) return err;
+  flash_long_kernel<<<dim3((Tq + BQ - 1) / BQ, N, B), THREADS, smem, stream>>>(
+      tmq, tmk, tmv, tmm, mask, out, Tq, Tk, N, K, h, st, scale, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace bodyc
+
+// The bf16 body a call takes, by shape alone (the one rule: launch_bf16
+// launches by it, rdb_flash_body reports it): 2 the vision body, when
+// nothing masks and one head's K and V fit in shared memory (never for
+// training, which needs body A's LSE); 3 body C, rows of 128 queries and
+// more at HP 64 with no LSE (training stays on A); else 1, body A.
+template <int HP>
+cudaError_t bf16_body(int Tq, int Tk, bool masked, bool causal, bool lse, int* body) {
+  if (!masked && !causal && !lse && Tq > 0 && Tk > 0) {
+    int dev = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    if (Vision<HP, HP>::smem(Tk) <= static_cast<size_t>(optin)) {
+      *body = 2;
+      return cudaSuccess;
+    }
+  }
+  *body = HP == 64 && !lse && Tq >= bodyc::BQ ? 3 : 1;
+  return cudaSuccess;
+}
+
 template <int HP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         const int8_t* mask, void* out, float* lse, int B, int Tq, int Tk,
-                        int N, int K, int h, Strides st, float scale, int causal,
+                        int N, int K, int h, Strides st, float scale, int causal, int* body,
                         cudaStream_t stream) {
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   auto* op = static_cast<__nv_bfloat16*>(out);
   const int ntiles = (Tk + TBK - 1) / TBK;
-  if (mask == nullptr && !causal && lse == nullptr && Tq > 0 && Tk > 0) {
-    // The vision body, when one head's K and V fit in shared memory (never
-    // for training, which needs body A's LSE).
+  cudaError_t err = bf16_body<HP>(Tq, Tk, mask != nullptr, causal != 0, lse != nullptr, body);
+  if (err != cudaSuccess) return err;
+  if (*body == 2) {
     const size_t smem = Vision<HP, HP>::smem(Tk);
-    int dev = 0, optin = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return err;
-    if (smem <= static_cast<size_t>(optin)) {
-      if constexpr (HP == 64)
-        return launch_vision<64, 64>(qp, kp, vp, op, B, Tq, Tk, N, K, h, st, scale, smem, stream);
-      else if (h <= 112)
-        return launch_vision<128, 112>(qp, kp, vp, op, B, Tq, Tk, N, K, h, st, scale, smem,
-                                       stream);
-      else
-        return launch_vision<128, 128>(qp, kp, vp, op, B, Tq, Tk, N, K, h, st, scale, smem,
-                                       stream);
-    }
+    if constexpr (HP == 64)
+      return launch_vision<64, 64>(qp, kp, vp, op, B, Tq, Tk, N, K, h, st, scale, smem, stream);
+    else if (h <= 112)
+      return launch_vision<128, 112>(qp, kp, vp, op, B, Tq, Tk, N, K, h, st, scale, smem,
+                                     stream);
+    else
+      return launch_vision<128, 128>(qp, kp, vp, op, B, Tq, Tk, N, K, h, st, scale, smem,
+                                     stream);
+  }
+  if constexpr (HP == 64) {
+    if (*body == 3)
+      return bodyc::launch(qp, kp, vp, mask, op, B, Tq, Tk, N, K, h, st, scale, causal, stream);
   }
   const size_t smem = FlashSmem<HP>::bytes(ntiles);
-  auto kern = flash_bf16_kernel<HP>;
-  cudaError_t err = set_smem(kern, smem);
+  auto kern = mask != nullptr && st.mr == 0 ? flash_bf16_kernel<HP, true>
+                                            : flash_bf16_kernel<HP, false>;
+  err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Tq + TBQ - 1) / TBQ, N, B);
   kern<<<grid, 256, smem, stream>>>(qp, kp, vp, mask, op, lse, Tq, Tk, N, K, h, st, scale,
@@ -873,9 +1261,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * st.kb + static_cast<size_t>(kvh) * h;
   const T* vb = v + b * st.vb + static_cast<size_t>(kvh) * h;
   const int8_t* mrow =
-      (mask != nullptr && row_live)
-          ? mask + (static_cast<size_t>(b) * Tq + qi) * Tk
-          : nullptr;
+      (mask != nullptr && row_live) ? mask + b * st.mb + qi * st.mr : nullptr;
 
   // Stage the query tile; rows past Tq and columns past h are zero.
   for (int e = tid * VEC; e < BQ * HP; e += THREADS * VEC) {
@@ -1007,31 +1393,60 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32, 1 = bfloat16. H: a multiple of 8, at most 128.
 // *_bs / *_ts: q, k and v's batch and token strides in elements (a token
-// stride times Tq or Tk at most 2^31 - 1). Returns a cudaError_t (0 =
-// launched). lse: null (serving), or a [B, N, Tq] f32 buffer that gets each
-// row's log-sum-exp of the scaled scores (0 for a row with no attended key),
-// the saved state of flash_attention_bwd.cu; a call with lse takes body A
-// (or the f32 body), never the vision body.
+// stride times Tq or Tk at most 2^31 - 1). mask: int8 [B, Tq, Tk] or null,
+// with batch stride mask_bs and row stride mask_rs in bytes: multiples of
+// 16, mask_rs 0 (one key row for all rows) or at least Tk, the pointer
+// 16-byte aligned. Returns a cudaError_t (0 = launched). lse: null
+// (serving), or a [B, N, Tq] f32 buffer that gets each row's log-sum-exp
+// of the scaled scores (0 for a row with no attended key), the saved state
+// of flash_attention_bwd.cu; a call with lse takes body A (or the f32
+// body), never the vision body or body C. *body: the body launched — 0
+// the f32 FMA body, 1 body A, 2 the vision body (B), 3 body C.
 extern "C" int rdb_flash_attention(const void* q, const void* k, const void* v,
-                                   const void* mask, void* out, int B, int Tq,
-                                   int Tk, int N, int K, int H, long long q_bs,
-                                   long long q_ts, long long k_bs, long long k_ts,
-                                   long long v_bs, long long v_ts, float scale,
-                                   int causal, int dtype, void* lse_out, void* stream) {
+                                   const void* mask, long long mask_bs, long long mask_rs,
+                                   void* out, int B, int Tq, int Tk, int N, int K, int H,
+                                   long long q_bs, long long q_ts, long long k_bs,
+                                   long long k_ts, long long v_bs, long long v_ts, float scale,
+                                   int causal, int dtype, void* lse_out, void* stream,
+                                   int* body) {
   const int8_t* m = static_cast<const int8_t*>(mask);
   float* lse = static_cast<float*>(lse_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr long long I32 = 0x7fffffffLL;
-  if (H <= 0 || H > 128 || H % 8 != 0 || q_ts * Tq > I32 || k_ts * Tk > I32 || v_ts * Tk > I32)
+  if (body == nullptr || H <= 0 || H > 128 || H % 8 != 0 || q_ts * Tq > I32 || k_ts * Tk > I32 ||
+      v_ts * Tk > I32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (m != nullptr && (mask_bs % 16 != 0 || mask_rs % 16 != 0 || mask_bs < 0 ||
+                       (mask_rs != 0 && mask_rs < Tk) ||
+                       reinterpret_cast<uintptr_t>(m) % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides st{q_bs, k_bs, v_bs, static_cast<int>(q_ts), static_cast<int>(k_ts),
-                   static_cast<int>(v_ts)};
+                   static_cast<int>(v_ts), mask_bs, mask_rs};
   const bool narrow = H <= 64;
-  if (dtype == 0)
+  if (dtype == 0) {
+    *body = 0;
     return narrow ? launch<float, 64>(q, k, v, m, out, lse, B, Tq, Tk, N, K, H, st, scale, causal, s)
                   : launch<float, 128>(q, k, v, m, out, lse, B, Tq, Tk, N, K, H, st, scale, causal, s);
+  }
   if (dtype == 1)
-    return narrow ? launch_bf16<64>(q, k, v, m, out, lse, B, Tq, Tk, N, K, H, st, scale, causal, s)
-                  : launch_bf16<128>(q, k, v, m, out, lse, B, Tq, Tk, N, K, H, st, scale, causal, s);
+    return narrow ? launch_bf16<64>(q, k, v, m, out, lse, B, Tq, Tk, N, K, H, st, scale, causal,
+                                    body, s)
+                  : launch_bf16<128>(q, k, v, m, out, lse, B, Tq, Tk, N, K, H, st, scale, causal,
+                                     body, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The body rdb_flash_attention launches for a call of this shape (its
+// rule, bf16_body; the f32 FMA body for dtype 0), written to *body as
+// rdb_flash_attention reports it; launches nothing. Returns a cudaError_t.
+extern "C" int rdb_flash_body(int Tq, int Tk, int H, int dtype, int masked, int causal, int lse,
+                              int* body) {
+  if (body == nullptr || H <= 0 || H > 128 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    *body = 0;
+    return 0;
+  }
+  return static_cast<int>(H <= 64 ? bf16_body<64>(Tq, Tk, masked, causal, lse, body)
+                                  : bf16_body<128>(Tq, Tk, masked, causal, lse, body));
 }

@@ -624,92 +624,18 @@ struct Cfg {
   static_assert(X_BYTES % 1024 == 0 && C_BYTES % 1024 == 0, "stages stay 1024-byte aligned");
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-// Wait for the phase of parity ``parity`` to complete. A copy that never
-// lands fails the launch (after ~2^36 cycles) instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try(bar, parity))
-    if (clock64() - t0 > (1ll << 36)) __trap();
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma's shared-memory descriptor of a K-major tile of 128-byte rows,
-// 128-byte swizzled (as TMA lands it), 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
-  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Compiler fences: a register's value is taken and given back here, so
-// the compiler keeps a fragment's definitions before the wgmma fence and
-// its registers live until the wait that retires the wgmma reading them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// d[64 x 64] += a[64 x 16] (registers) . b[16 x 64] (shared, K-major).
-__device__ __forceinline__ void mma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
+// The ring's barriers, TMA, and wgmma's descriptors, fences and m64n64
+// product live in common.cuh (one copy for this file and kernel 1).
+using rdb::desc_sw128;
+using rdb::fence_regs;
+using rdb::mbar_arrive;
+using rdb::mbar_expect_tx;
+using rdb::mbar_init;
+using rdb::mbar_wait;
+using rdb::tma_load;
+using rdb::wg_commit;
+using rdb::wg_fence;
+using rdb::wg_wait;
 
 // d[64 x 128] += a[64 x 16] (registers) . b[16 x 128] (shared, K-major).
 __device__ __forceinline__ void mma_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
@@ -790,7 +716,7 @@ __device__ __forceinline__ void mma_n256(float (&d)[128], const uint32_t (&a)[4]
 template <int NREG>
 __device__ __forceinline__ void mma(float (&d)[NREG], const uint32_t (&a)[4], uint64_t desc) {
   if constexpr (NREG == 32)
-    mma_n64(d, a, desc);
+    rdb::mma_rs_n64<false>(d, a, desc);
   else if constexpr (NREG == 64)
     mma_n128(d, a, desc);
   else
@@ -1000,30 +926,11 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CU
   cluster_sync();  // no block leaves while another reads its partial
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda).
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &res) == cudaSuccess &&
-        res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A 2-D map of rows x inner elements (row pitch ``pitch`` bytes), boxes of
 // box_rows x box_inner, out-of-bounds elements read as zeros.
 bool tensor_map(CUtensorMap* map, CUtensorMapDataType dtype, const void* base, int inner,
                 int rows, size_t pitch, int box_inner, int box_rows, CUtensorMapSwizzle swz) {
-  EncodeTiled encode = encoder();
+  rdb::EncodeTiled encode = rdb::tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};

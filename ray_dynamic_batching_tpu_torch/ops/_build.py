@@ -31,6 +31,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
+    # Compile a source's many kernel instantiations on every core (the
+    # decode sources hold 64): the build gates the smoke run's time limit.
+    "--split-compile=0",
 ]
 
 _P = ctypes.c_void_p
@@ -43,8 +46,8 @@ _L = ctypes.c_longlong
 KERNELS: Dict[str, tuple] = {
     "flash_attention": (
         "rdb_flash_attention",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
-         _F, _I, _I, _P, _P],
+        [_P, _P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L,
+         _L, _L, _F, _I, _I, _P, _P, ctypes.POINTER(_I)],
     ),
     "flash_attention_bwd": (
         "rdb_flash_attention_bwd",
@@ -53,19 +56,26 @@ KERNELS: Dict[str, tuple] = {
     ),
     "decode_attention": (
         "rdb_decode_attention",
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
-         _P, _L, _P, _I, _P],
+        [_P, _P, _P, _P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+         _I, _P, _L, _P, _I, _P, ctypes.POINTER(_I)],
     ),
     "paged_decode_attention": (
         "rdb_paged_decode_attention",
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-         _F, _I, _I, _P, _L, _P, _I, _P],
+         _F, _I, _I, _P, _L, _P, _I, _P, ctypes.POINTER(_I)],
     ),
     "int8_weight_matmul": (
         "rdb_int8_weight_matmul",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _L, _P, _I, _P,
          ctypes.POINTER(_I)],
     ),
+}
+
+# kernel -> {C function: argtypes} of the launch rules each library
+# exports beside its entry point (they launch nothing; int return).
+RULES: Dict[str, Dict[str, list]] = {
+    "flash_attention": {"rdb_flash_body": [_I] * 7 + [ctypes.POINTER(_I)]},
+    "decode_attention": {"rdb_row_split_tiles": [_I, _I]},
 }
 
 _lock = threading.Lock()
@@ -144,6 +154,9 @@ def load(name: str) -> ctypes.CDLL:
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            for rule, rule_args in RULES.get(name, {}).items():
+                getattr(lib, rule).argtypes = rule_args
+                getattr(lib, rule).restype = ctypes.c_int
             lib.rdb_cuda_error_string.argtypes = [ctypes.c_int]
             lib.rdb_cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib

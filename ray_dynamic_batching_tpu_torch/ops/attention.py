@@ -132,13 +132,17 @@ def tensor_parallel(mesh, axis: str = "tp", heads_split: bool = True):
 
 def reset_counts() -> None:
     """Zero the launch counts of every kernel (the int8-weight product's
-    among them) and of the plain route."""
+    among them, and each kernel's launches by body) and of the plain
+    route."""
     global plain_launches, kv_gathers
     plain_launches = 0
     kv_gathers = 0
     _quant.reset_counts()
     _flash.launches = 0
     _flash.bwd_launches = 0
+    for counts in (_flash.launches_by_body, _decode.launches_by_body):
+        for body in counts:
+            counts[body] = 0
     _decode.launches = 0
     _decode.int8_launches = 0
     _decode.paged_launches = 0
@@ -160,10 +164,13 @@ def gather_kv_heads(t: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
 
 def kernel_mask(mask: Optional[torch.Tensor], B: int, Tq: int
                 ) -> Optional[torch.Tensor]:
-    """A mask broadcastable to [B, 1, Tq, S] (True = attend) -> the dense
-    int8 [B, 1, Tq, S] keep-mask the kernels read, which their wrappers
-    take as it is (no cast, no copy). A model makes it once per forward
-    for all its layers; a boolean mask would be cast again in each."""
+    """A mask broadcastable to [B, 1, Tq, S] (True = attend) -> the int8
+    [B, 1, Tq, S] keep-mask view the kernels read
+    (``flash_attention.keep_mask``: one zero-padded key row of row stride
+    0 when the mask does not vary over the rows, else rows padded to 16
+    bytes), which their wrappers take as it is (no cast, no copy). A model
+    makes it once per forward for all its layers; a boolean mask would be
+    cast again in each."""
     if mask is None:
         return None
     return _flash.keep_mask(mask, B, Tq, mask.shape[-1]).unsqueeze(1)

@@ -17,7 +17,17 @@ What bounds it on the H100: the bytes of the K/V positions some window
 row attends. Each block reads its slot's mask row first and skips the
 64-key tiles and splits no row attends (exact under the reference's rule
 unless a row attends nothing, when everything is read so that it gets
-the mean of V).
+the mean of V). The mask is the keep-mask view of
+``flash_attention.keep_mask`` (a row stride of 0 or a multiple of 16),
+read in 16-byte chunks.
+
+**One window row** (R = Tq * N / K = 1: Whisper's cross read and step,
+the GPT-2 steps; :func:`body_for`): both kernels take the single-row scan
+(``csrc/common.cuh`` ``RowScan``) — four warps a block, each with its own
+``cp.async`` ring of its 16 keys of every tile and its own online softmax,
+merged through shared memory, splits of :func:`row_split_tiles` tiles so
+that the grid is about one wave. Each launch reports its body, counted in
+:data:`launches_by_body`.
 
 **Paged** — replaces ``_paged_decode_attention`` (the same ``_scan_tile``
 body over a page pool). The kernel is ``csrc/paged_decode_attention.cu``:
@@ -73,12 +83,16 @@ apart (:data:`int8_launches`, :data:`paged_int8_launches`).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
 from ray_dynamic_batching_tpu_torch.ops import graphs
-from ray_dynamic_batching_tpu_torch.ops.flash_attention import keep_mask
+from ray_dynamic_batching_tpu_torch.ops.flash_attention import (
+    keep_mask,
+    mask_strides,
+)
 
 NEG_INF = -1e30
 
@@ -119,6 +133,28 @@ paged_int8_launches = 0
 #: heads since the last reset (likewise; not counted in the two above).
 tp_paged_launches = 0
 tp_paged_int8_launches = 0
+#: Launches of kernels 2-4 by the body they ran (``csrc/common.cuh``):
+#: "scan" (DecodeScan, R = Tq * N / K >= 2) or "row" (RowScan, R = 1),
+#: since the last reset (likewise).
+BODIES = ("scan", "row")
+launches_by_body = dict.fromkeys(BODIES, 0)
+
+
+def body_for(Tq: int, N: int, K: int) -> str:
+    """The body kernels 2 and 3 launch for a window of Tq rows of N query
+    heads over K KV heads: "row" when R = Tq * N / K is 1, else "scan"."""
+    return "row" if Tq * (N // K) == 1 else "scan"
+
+
+def row_split_tiles(BK: int, S: int) -> int:
+    """64-key tiles a split of the single-row scan holds for B * K = ``BK``
+    (slot, KV head)s over S positions, as kernels 2 and 3 cut them
+    (``rdb_row_split_tiles``: ``RowScan::split_tiles``, as many splits as
+    keep B * K * splits within about one wave of blocks, at least two
+    tiles a split). Builds the kernel's library on first use."""
+    from ray_dynamic_batching_tpu_torch.ops import _build
+
+    return int(_build.load("decode_attention").rdb_row_split_tiles(BK, S))
 
 
 def decode_attention_plain(
@@ -303,23 +339,30 @@ def _launch(q, k, v, mask_i8, k_scale, v_scale, *, scale: float
     _, S, K, _ = k.shape
     q, k, v, k_scale, v_scale, dtype, int8 = _kernel_args(
         q, k, v, k_scale, v_scale, "decode kernel")
-    if mask_i8 is not None and mask_i8.device != q.device:
-        raise ValueError("decode kernel: mask on another device")
-    if mask_i8 is not None and mask_i8.data_ptr() % 16:
-        mask_i8 = mask_i8.clone()     # the kernel reads it in 16-byte loads
+    mbs = mrs = 0
+    if mask_i8 is not None:
+        strides = mask_strides(mask_i8)
+        if (mask_i8.device != q.device or tuple(mask_i8.shape) != (B, Tq, S)
+                or strides is None):
+            raise ValueError(f"decode kernel: mask must be an int8 [{B}, {Tq}, "
+                             f"{S}] keep_mask layout (mask_strides)")
+        mbs, mrs = strides
     out = torch.empty_like(q)
     lib = _build.load("decode_attention")
+    body = ctypes.c_int(-1)
     with _build.launch_lock:
         ws, cnt = _workspace(q.device, B, K, S, Tq * (N // K), H)
         rc = lib.rdb_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
-            _ptr(v_scale), _ptr(mask_i8), out.data_ptr(), B, Tq, S, N, K,
-            H, float(scale), dtype, int(int8), ws.data_ptr(), ws.numel(),
-            cnt.data_ptr(), cnt.numel(),
+            _ptr(v_scale), _ptr(mask_i8), mbs, mrs, out.data_ptr(), B, Tq, S,
+            N, K, H, float(scale), dtype, int(int8), ws.data_ptr(),
+            ws.numel(), cnt.data_ptr(), cnt.numel(),
             torch.cuda.current_stream(q.device).cuda_stream,
+            ctypes.byref(body),
         )
     _build.check(lib, rc, "decode_attention")
     graphs.count_launch(globals(), "int8_launches" if int8 else "launches")
+    graphs.count_launch(launches_by_body, BODIES[body.value])
     return out
 
 
@@ -416,6 +459,7 @@ def _launch_paged(q, k, v, page_table, lengths, k_scale, v_scale, *,
             raise ValueError("paged decode kernel: inputs on another device")
     out = torch.empty_like(q)
     lib = _build.load("paged_decode_attention")
+    body = ctypes.c_int(-1)
     with _build.launch_lock:
         ws, cnt = _workspace(q.device, B, K, NP * ps, Tq * (N // K), H)
         rc = lib.rdb_paged_decode_attention(
@@ -424,11 +468,13 @@ def _launch_paged(q, k, v, page_table, lengths, k_scale, v_scale, *,
             out.data_ptr(), B, Tq, N, K, H, P, ps, NP, float(scale), dtype,
             int(int8), ws.data_ptr(), ws.numel(), cnt.data_ptr(),
             cnt.numel(), torch.cuda.current_stream(q.device).cuda_stream,
+            ctypes.byref(body),
         )
     _build.check(lib, rc, "paged_decode_attention")
     prefix = "tp_" if tp > 1 else ""
     graphs.count_launch(globals(), prefix + ("paged_int8_launches" if int8
                                              else "paged_launches"))
+    graphs.count_launch(launches_by_body, BODIES[body.value])
     return out
 
 

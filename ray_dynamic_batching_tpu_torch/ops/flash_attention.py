@@ -22,15 +22,36 @@ Which body takes which shape (decided in the launcher, by shape alone):
   104): one block per (query head, batch row) that loads K/V once and whose
   warps walk the 16-row query slabs over every key. What bounds it: q, k,
   v and out, each moved once.
+- bf16, head_dim <= 64, Tq >= 128, no LSE, not the vision case (Whisper's
+  encoder, DistilBERT and gpt2_medium's no-cache forward at T 128 / 256):
+  body C, one block per (128 query rows, query head, batch row) on
+  Hopper's TMA and ``wgmma``: a producer warp keeps Q and each live
+  64-key tile's K, V and mask bytes in flight, two consumer warpgroups own
+  64 rows each across the whole tile (S by SS-``wgmma``, P V by
+  RS-``wgmma`` from registers). What bounds it: the products at the long
+  rows, q/k/v read once at the short ones.
 - f32 (parity runs): an FMA body, one block per 64-row tile (TF32 would
   miss the f32 tolerance).
+
+:func:`body_for` asks the kernel's library which body a shape takes;
+each launch reports the body it ran, counted in :data:`launches_by_body`
+(zeroed with the launch counts by ``attention.reset_counts``).
+
+**The keep-mask layout** (:func:`keep_mask`, read by kernels 1 and 2): an
+int8 ``[B, Tq, Tk]`` view whose row stride is 0 when the mask is one key
+row per batch row (then that row, zero-padded to a multiple of 16 bytes,
+is all that is stored and read) and otherwise a multiple of 16 of at
+least Tk (rows zero-padded; exactly the dense contiguous tensor when
+Tk % 16 == 0), its batch stride a multiple of 16. The kernels take the
+two strides and read the mask only in 16-byte loads, ``cp.async`` or TMA
+boxes. The plain versions read the same views.
 
 q, k and v go in with their own batch and token strides (heads ``H`` apart,
 the last dim contiguous), so the views of a packed qkv projection
 (``models/vit.py``) are read in place; a tensor laid out otherwise, or with
 a stride that breaks 16-byte chunks, is copied first. The output is a fresh
-contiguous ``[B, Tq, N, H]``. The kernel reads the mask in 16-byte loads, so
-an int8 mask that is not 16-byte aligned is copied first.
+contiguous ``[B, Tq, N, H]``. A mask not in the keep-mask layout is
+refused by the launch (the wrappers make it with :func:`keep_mask`).
 
 On a CUDA tensor :func:`flash_attention` launches the kernel or raises;
 on a CPU tensor it runs :func:`flash_attention_plain`, the same function
@@ -64,6 +85,7 @@ so a cut gradient cannot come back silently.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -83,15 +105,86 @@ launches = 0
 bwd_launches = 0
 
 
+def mask_strides(m: torch.Tensor) -> Optional[tuple]:
+    """(batch stride, row stride) in bytes of an int8 [B, Tq, Tk] view laid
+    out as kernels 1 and 2 read it — the last dim contiguous, the row
+    stride 0 (one key row for every query row) or a multiple of 16 of at
+    least Tk, the batch stride a multiple of 16, the data 16-byte aligned,
+    and the storage holding every row's last 16-byte chunk (the kernels
+    read a row to ``ceil(Tk / 16) * 16`` bytes; a size-1 dim's stride is
+    never used and comes back 0) — or None."""
+    if m.dtype != torch.int8 or m.dim() != 3:
+        return None
+    B, Tq, Tk = m.shape
+    bs = 0 if B == 1 else m.stride(0)
+    rs = 0 if Tq == 1 else m.stride(1)
+    end = (m.storage_offset() + (B - 1) * bs + (Tq - 1) * rs
+           + -(-Tk // 16) * 16)
+    ok = ((Tk == 1 or m.stride(2) == 1) and bs % 16 == 0 and bs >= 0
+          and rs % 16 == 0 and (rs == 0 or rs >= Tk)
+          and m.data_ptr() % 16 == 0
+          and end <= m.untyped_storage().nbytes())
+    return (bs, rs) if ok else None
+
+
 def keep_mask(mask: Optional[torch.Tensor], B: int, Tq: int, Tk: int
               ) -> Optional[torch.Tensor]:
-    """A mask broadcastable to [B, 1, Tq, Tk] (True = attend) -> the dense
-    contiguous int8 [B, Tq, Tk] both kernels read (raises on another
-    pattern, e.g. a per-head mask)."""
+    """A mask broadcastable to [B, 1, Tq, Tk] (True or nonzero = attend) ->
+    the int8 keep-mask [B, Tq, Tk] both kernels read, a view laid out as
+    :func:`mask_strides` says:
+
+    - a mask that does not vary over the query rows (one key row per batch
+      row: DistilBERT's and Whisper's key masks, gpt2's token mask under
+      the causal flag) -> row stride 0 over one zero-padded row of
+      ``ceil(Tk / 16) * 16`` bytes per batch row;
+    - any other mask with Tk % 16 == 0 -> dense and contiguous (the LLM
+      paths' masks, as they always were);
+    - any other -> rows zero-padded to a multiple of 16 bytes.
+
+    An int8 view already laid out so (the keep-mask a model makes once per
+    forward) comes back as it is. Raises on another pattern, e.g. a
+    per-head mask."""
     if mask is None:
         return None
-    return mask.expand(B, 1, Tq, Tk).reshape(B, Tq, Tk).to(
-        torch.int8).contiguous()
+    m = mask.expand(B, 1, Tq, Tk)[:, 0]
+    if mask_strides(m) is not None:
+        return m
+    pad = -(-Tk // 16) * 16
+    if Tq > 1 and m.stride(1) == 0:
+        row = torch.zeros((B, pad), dtype=torch.int8, device=m.device)
+        row[:, :Tk] = m[:, 0]
+        return row[:, None, :Tk].expand(B, Tq, Tk)
+    if Tk == pad:
+        return m.to(torch.int8).contiguous()
+    dense = torch.zeros((B, Tq, pad), dtype=torch.int8, device=m.device)
+    dense[:, :, :Tk] = m
+    return dense[:, :, :Tk]
+
+
+#: Kernel 1's bodies, by the code the kernel reports (0-3).
+BODIES = ("fma", "A", "B", "C")
+#: Launches by the body the kernel reported since the last reset (a graph
+#: replay adds the launches its capture recorded).
+launches_by_body = dict.fromkeys(BODIES, 0)
+
+
+def body_for(dtype, Tq: int, Tk: int, H: int, *, masked: bool, causal: bool,
+             lse: bool = False) -> str:
+    """The body ``csrc/flash_attention.cu`` launches for this call on the
+    current card, by its own shape rule (``rdb_flash_body``, which
+    launches nothing): "fma" (f32), "B" (the vision body: bf16, no mask,
+    not causal, no LSE, one head's K and V resident in shared memory), "C"
+    (the long-row body: bf16, head_dim <= 64, Tq >= 128, no LSE) or "A".
+    Builds the kernel's library on first use, like a launch."""
+    from ray_dynamic_batching_tpu_torch.ops import _build
+
+    lib = _build.load("flash_attention")
+    body = ctypes.c_int(-1)
+    rc = lib.rdb_flash_body(Tq, Tk, H, 0 if dtype == torch.float32 else 1,
+                            int(masked), int(causal), int(lse),
+                            ctypes.byref(body))
+    _build.check(lib, rc, "flash_attention body rule")
+    return BODIES[body.value]
 
 
 def _scores(q, k, mask, causal, scale):
@@ -221,26 +314,32 @@ def _launch(q, k, v, mask_i8, *, causal: bool, scale: float,
         if t.stride(1) * t.shape[1] >= 2 ** 31:
             raise ValueError("flash kernel: a token stride times the length "
                              "must fit 32 bits")
-    if mask_i8 is not None and (mask_i8.device != q.device
-                                or tuple(mask_i8.shape) != (B, Tq, Tk)):
-        raise ValueError(f"flash kernel: mask must be int8 [{B}, {Tq}, {Tk}]")
-    if mask_i8 is not None and mask_i8.data_ptr() % 16:
-        mask_i8 = mask_i8.clone()     # the kernel reads it in 16-byte loads
+    mbs = mrs = 0
+    if mask_i8 is not None:
+        strides = mask_strides(mask_i8)
+        if (mask_i8.device != q.device or tuple(mask_i8.shape) != (B, Tq, Tk)
+                or strides is None):
+            raise ValueError(f"flash kernel: mask must be an int8 [{B}, {Tq}, "
+                             f"{Tk}] keep_mask layout (mask_strides)")
+        mbs, mrs = strides
     out = torch.empty((B, Tq, N, H), dtype=q.dtype, device=q.device)
     lib = _build.load("flash_attention")
+    body = ctypes.c_int(-1)
     with _build.launch_lock:
         rc = lib.rdb_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            mask_i8.data_ptr() if mask_i8 is not None else None,
+            mask_i8.data_ptr() if mask_i8 is not None else None, mbs, mrs,
             out.data_ptr(), B, Tq, Tk, N, K, H,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), float(scale), int(causal),
             0 if q.dtype == torch.float32 else 1,
             lse.data_ptr() if lse is not None else None,
             torch.cuda.current_stream(q.device).cuda_stream,
+            ctypes.byref(body),
         )
     _build.check(lib, rc, "flash_attention")
     graphs.count_launch(globals(), "launches")
+    graphs.count_launch(launches_by_body, BODIES[body.value])
     return out
 
 

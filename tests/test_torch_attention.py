@@ -402,6 +402,19 @@ class TestPagedDispatcherRule:
         t_attention.reset_counts()
         assert t_decode.paged_launches == 0
 
+    def test_reset_counts_zeroes_the_launches_by_body(self):
+        """Each kernel's launches by body are launch counts like the rest:
+        zeroed in place (a captured graph's record keeps adding to the
+        same dicts)."""
+        by_body = (t_flash.launches_by_body, t_decode.launches_by_body)
+        for counts in by_body:
+            for body in counts:
+                counts[body] = 3
+        t_attention.reset_counts()
+        assert t_flash.launches_by_body is by_body[0]
+        assert t_decode.launches_by_body is by_body[1]
+        assert all(n == 0 for counts in by_body for n in counts.values())
+
     def test_plain_attention_covers_the_paged_kernel(self):
         rng = np.random.default_rng(11)
         q, k, v, table, lens = _paged_inputs(rng, 2, 1, 4, 2, 32, 4, 128, 2,
@@ -413,3 +426,141 @@ class TestPagedDispatcherRule:
         want = t_decode.paged_decode_attention_plain(
             _t(q), _t(k), _t(v), _t(table), _t(lens))
         assert torch.equal(got, want)
+
+
+class TestKeepMaskLayout:
+    """``keep_mask``'s layouts (what kernels 1 and 2 read through a batch
+    and a row stride): a key row of row stride 0, rows padded to 16 bytes,
+    the dense contiguous layout where Tk % 16 == 0 — and the plain
+    versions give the same values on every one of them."""
+
+    @staticmethod
+    def _storage(t):
+        return torch.tensor(t.untyped_storage().tolist(), dtype=torch.uint8)
+
+    @pytest.mark.parametrize("B,Tq,Tk", [(3, 130, 150), (2, 16, 64),
+                                         (4, 1, 1500)])
+    def test_key_rows(self, B, Tq, Tk):
+        rng = np.random.default_rng(Tk)
+        n = rng.integers(1, Tk + 1, B)
+        key = _t(np.arange(Tk)[None, :] < n[:, None])[:, None, None]
+        keep = t_flash.keep_mask(key, B, Tq, Tk)
+        assert keep.dtype == torch.int8 and tuple(keep.shape) == (B, Tq, Tk)
+        pad = -(-Tk // 16) * 16
+        bs, rs = t_flash.mask_strides(keep)
+        assert rs == 0 and bs in (0, pad)
+        assert torch.equal(keep.bool(), key[:, 0].expand(B, Tq, Tk))
+        # The padding past Tk in each row is zero.
+        rows = self._storage(keep).reshape(-1, pad)
+        assert rows[:, Tk:].sum().item() == 0
+        # A layout already right comes back as it is; so does its [B, 1, ...]
+        # view (what a model hands every layer).
+        again = t_flash.keep_mask(keep[:, None], B, Tq, Tk)
+        assert again.data_ptr() == keep.data_ptr()
+        assert again.stride() == keep.stride()
+
+    def test_batch_broadcast_key_row(self):
+        key = _t(np.arange(40) < 25)[None, None, None]       # [1, 1, 1, 40]
+        keep = t_flash.keep_mask(key, 3, 20, 40)
+        assert keep.stride(1) == 0 and keep.stride(0) == 48
+        assert torch.equal(keep.bool(), key[0, 0].expand(3, 20, 40))
+
+    def test_padded_dense_rows(self):
+        rng = np.random.default_rng(3)
+        B, Tq, Tk = 2, 24, 150
+        mask = _t(rng.random((B, 1, Tq, Tk)) < 0.5)
+        keep = t_flash.keep_mask(mask, B, Tq, Tk)
+        assert t_flash.mask_strides(keep) == (Tq * 160, 160)
+        assert torch.equal(keep.bool(), mask[:, 0])
+        rows = self._storage(keep).reshape(-1, 160)
+        assert rows[:, Tk:].sum().item() == 0
+
+    def test_aligned_dense_layout_is_unchanged(self):
+        """Tk % 16 == 0 and a mask that varies over the rows: the dense
+        contiguous int8 tensor, exactly the layout before key rows."""
+        rng = np.random.default_rng(4)
+        mask = _t(rng.random((2, 1, 8, 512)) < 0.5)
+        keep = t_flash.keep_mask(mask, 2, 8, 512)
+        assert keep.is_contiguous()
+        assert torch.equal(keep, mask.reshape(2, 8, 512).to(torch.int8))
+        assert t_flash.mask_strides(keep) == (8 * 512, 512)
+
+    def test_mask_strides_refuses_other_layouts(self):
+        m = torch.zeros((2, 4, 40), dtype=torch.int8)
+        assert t_flash.mask_strides(m) is None                 # rows 40 apart
+        assert t_flash.mask_strides(m.float()) is None
+        assert t_flash.mask_strides(torch.zeros((2, 4, 48),
+                                                dtype=torch.int8)[..., :40]) \
+            == (192, 48)
+        assert t_flash.mask_strides(torch.zeros((2, 4, 32),
+                                                dtype=torch.int8)[..., 1:31]) \
+            is None                                            # unaligned
+
+    @pytest.mark.parametrize("case", ["key_row_of_one", "single_row",
+                                      "dense_short_storage"])
+    def test_mask_strides_refuses_rows_short_of_their_last_chunk(self, case):
+        """The kernels read each row to ``ceil(Tk / 16) * 16`` bytes: a view
+        whose storage ends before that is refused, and ``keep_mask`` copies
+        it into the padded layout, the same values."""
+        Tk = 40
+        base = torch.from_numpy(
+            np.random.default_rng(len(case)).random(2 * 4 * 48) < 0.5
+        ).to(torch.int8)
+        if case == "key_row_of_one":        # one int8 key row, expanded
+            B, Tq = 1, 20
+            m = base[:Tk].clone().view(1, 1, Tk).expand(B, Tq, Tk)
+            roomy = base[:Tk].view(1, 1, Tk).expand(B, Tq, Tk)
+        elif case == "single_row":
+            B, Tq = 1, 1
+            m, roomy = base[:Tk].clone().view(1, 1, Tk), base[:Tk].view(1, 1, Tk)
+        else:                               # 8 bytes short of the last chunk
+            B, Tq = 2, 4
+            m = base[:-8].clone().as_strided((B, Tq, Tk), (192, 48, 1))
+            roomy = base.as_strided((B, Tq, Tk), (192, 48, 1))
+        assert t_flash.mask_strides(m) is None
+        keep = t_flash.keep_mask(m[:, None], B, Tq, Tk)
+        assert t_flash.mask_strides(keep) is not None
+        assert keep.data_ptr() != m.data_ptr()
+        assert torch.equal(keep, m)
+        # The same view over storage that holds the chunk: read in place.
+        assert t_flash.mask_strides(roomy) is not None
+        assert t_flash.keep_mask(roomy[:, None], B, Tq, Tk).data_ptr() \
+            == roomy.data_ptr()
+
+    @pytest.mark.parametrize("kind", ["key", "dense_padded", "dense"])
+    def test_plain_versions_equal_on_every_layout(self, kind):
+        rng = np.random.default_rng(len(kind))
+        B, Tq, N, K, H = 2, 20, 4, 2, 16
+        Tk = 64 if kind == "dense" else 150
+        q, k, v = _qkv(rng, B, Tq, Tk, N, K, H)
+        if kind == "key":
+            mask = _t(np.arange(Tk)[None, :]
+                      < np.array([Tk, 70])[:, None])[:, None, None]
+        else:
+            mask = _t(rng.random((B, 1, Tq, Tk)) < 0.6)
+        keep = t_flash.keep_mask(mask, B, Tq, Tk)
+        dense = mask.expand(B, 1, Tq, Tk)[:, 0].to(torch.int8).contiguous()
+        for causal in (False, True):
+            assert torch.equal(
+                t_flash.flash_attention_plain(_t(q), _t(k), _t(v), keep,
+                                              causal=causal),
+                t_flash.flash_attention_plain(_t(q), _t(k), _t(v), dense,
+                                              causal=causal))
+        q1 = _t(q[:, :1])
+        keep1 = t_flash.keep_mask(mask[:, :, :1], B, 1, Tk)
+        assert torch.equal(
+            t_decode.decode_attention_plain(q1, _t(k), _t(v), keep1),
+            t_decode.decode_attention_plain(q1, _t(k), _t(v),
+                                            dense[:, :1].contiguous()))
+
+
+class TestKernelBodyRule:
+    """The body kernels 2 and 3 pick by shape (``decode_attention.body_for``;
+    kernel 1's rule lives in its library and is held on the card); the
+    card tests check each launch reports the body named here."""
+
+    @pytest.mark.parametrize("Tq,N,K,want", [
+        (1, 20, 20, "row"), (1, 16, 16, "row"), (1, 32, 8, "scan"),
+        (5, 16, 16, "scan"), (2, 4, 4, "scan")])
+    def test_decode_bodies(self, Tq, N, K, want):
+        assert t_decode.body_for(Tq, N, K) == want

@@ -40,7 +40,13 @@ kernel route against plain route; tensor parallelism on gloo ranks
 sharing the card: a tp-2 engine's tokens (and with a divergent draft, its
 acceptance) against the one-card engine's, kernels 2 and 4 launched,
 and a parcel scattered into a tp-2 pool and gathered back
-bit-identical to the one-card export. This file imports no JAX, so
+bit-identical to the one-card export; kernel 1's body C (TMA + wgmma)
+at the servables' long rows and at Tk 1500, 257 and 150 on key-row and
+padded dense masks (a fully masked row gives 0), the body each shape
+lands on (and the launch rules kernels 1-3's libraries export), kernels
+2-3's single-row scan against the plain version and
+bit-identical slab vs paged at G = 1 over 1500 positions, and the
+16-row scan on the strided mask layouts. This file imports no JAX, so
 it runs on a machine without it::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -48,6 +54,8 @@ it runs on a machine without it::
 Tolerance: f32 1e-4 (the same math summed in another order), bf16 2e-2
 (a couple of bf16 ulps at |x| < 4).
 """
+
+import ctypes
 
 import pytest
 import torch
@@ -415,16 +423,17 @@ def test_decode_kernels_refuse_a_small_merge_workspace(card):
     for n_ws, n_cnt, ok in [(need - 1, B * K, False), (need, B * K - 1, False),
                             (need, B * K, True)]:
         ws = torch.zeros((need,), device=card)
+        body = ctypes.c_int(-1)
         rc = slab.rdb_decode_attention(
-            q.data_ptr(), k.data_ptr(), k.data_ptr(), None, None, None,
+            q.data_ptr(), k.data_ptr(), k.data_ptr(), None, None, None, 0, 0,
             out.data_ptr(), B, Tq, S, N, K, H, 0.125, 0, 0, ws.data_ptr(),
-            n_ws, cnt.data_ptr(), n_cnt, stream)
+            n_ws, cnt.data_ptr(), n_cnt, stream, ctypes.byref(body))
         assert (rc == 0) == ok
         rc = paged.rdb_paged_decode_attention(
             q.data_ptr(), pool.data_ptr(), pool.data_ptr(), None, None,
             table.data_ptr(), lens.data_ptr(), out.data_ptr(), B, Tq, N, K,
             H, 2, 128, 2, 0.125, 0, 0, ws.data_ptr(), n_ws, cnt.data_ptr(),
-            n_cnt, stream)
+            n_cnt, stream, ctypes.byref(body))
         assert (rc == 0) == ok
     torch.cuda.synchronize()
     assert int(cnt.abs().sum().item()) == 0
@@ -2012,3 +2021,234 @@ def test_two_layer_train_step_kernel_vs_plain(card):
         scale = grads_p[n].abs().max().item()
         assert (grads[n] - grads_p[n]).abs().max().item() <= \
             1e-4 * max(scale, 1e-30), n
+
+
+# --- body C (kernel 1's long rows) and the single-row scan (kernels 2, 3) ---
+def _key_rows(gen, B, Tk, dev, lo=None):
+    """[B, 1, 1, Tk] bool: each batch row's keys a prefix of lo .. Tk."""
+    lo = max(1, 3 * Tk // 4) if lo is None else lo
+    n = torch.randint(lo, Tk + 1, (B,), generator=gen, device=dev)
+    return (torch.arange(Tk, device=dev)[None, :] < n[:, None])[:, None, None]
+
+
+def _body_delta(by_body, before):
+    return {b: by_body[b] - before[b] for b in by_body if by_body[b] != before[b]}
+
+
+@pytest.mark.parametrize("B,Tq,Tk,N,K,H,mask_kind,causal", [
+    (32, 128, 128, 12, 12, 64, "key", False),     # DistilBERT T 128
+    (32, 256, 256, 12, 12, 64, "key", False),     # DistilBERT T 256
+    (8, 1500, 1500, 20, 20, 64, "key", False),    # Whisper's encoder
+    (8, 128, 128, 16, 16, 64, "key", True),       # gpt2_medium no-cache T 128
+    (8, 256, 256, 16, 16, 64, "key", True),       # ... T 256
+    (2, 300, 257, 8, 2, 64, "dense", False),      # Tk 257, GQA, a dense mask
+    (2, 130, 150, 4, 4, 64, "key", True),         # Tk 150, causal, Tq != Tk
+    (2, 200, 150, 4, 2, 64, "dense", True),       # dense + causal, Tq > Tk
+    (1, 128, 1500, 4, 4, 32, "none", True),       # head_dim 32, no mask
+    (2, 140, 200, 4, 4, 64, "masked_row", False),  # a row with no key: 0
+])
+def test_flash_body_c_matches_plain(card, B, Tq, Tk, N, K, H, mask_kind,
+                                    causal):
+    """Body C (bf16, head_dim <= 64, Tq >= 128) against the plain version
+    at the servables' shapes and at unaligned Tk, on the keep-mask layouts
+    the models hand over: a key row (row stride 0) and dense rows padded
+    to 16 bytes."""
+    gen = torch.Generator(device=card).manual_seed(Tq * 7 + Tk)
+    dtype = torch.bfloat16
+    q = _rand(gen, (B, Tq, N, H), dtype, card)
+    k = _rand(gen, (B, Tk, K, H), dtype, card)
+    v = _rand(gen, (B, Tk, K, H), dtype, card)
+    mask = None
+    if mask_kind == "key":
+        mask = _key_rows(gen, B, Tk, card)
+    elif mask_kind in ("dense", "masked_row"):
+        mask = torch.rand((B, 1, Tq, Tk), generator=gen, device=card) < 0.7
+        if mask_kind == "masked_row":
+            mask[0, 0, 5] = False
+    keep = fl.keep_mask(mask, B, Tq, Tk)
+    if mask_kind == "key":
+        assert keep.stride(1) == 0
+    elif keep is not None:
+        assert keep.stride(1) % 16 == 0 and keep.stride(1) >= Tk
+    before = dict(fl.launches_by_body)
+    out = fl.flash_attention(q, k, v, causal=causal,
+                             mask=None if keep is None else keep[:, None])
+    torch.cuda.synchronize()
+    assert _body_delta(fl.launches_by_body, before) == {"C": 1}
+    ref = fl.flash_attention_plain(q, k, v, keep, causal=causal)
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    if mask_kind == "masked_row":
+        assert out[0, 5].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype,Tq,Tk,H,masked,causal,lse,want", [
+    (torch.bfloat16, 1500, 1500, 64, True, False, False, "C"),  # Whisper
+    (torch.bfloat16, 128, 128, 64, True, False, False, "C"),    # BERT 128
+    (torch.bfloat16, 256, 256, 64, True, True, False, "C"),     # gpt2 256
+    (torch.bfloat16, 64, 64, 64, True, False, False, "A"),      # BERT 64
+    (torch.bfloat16, 64, 512, 128, True, False, False, "A"),    # LLM chunk
+    (torch.bfloat16, 512, 512, 128, True, True, True, "A"),     # training
+    (torch.bfloat16, 256, 256, 64, True, True, True, "A"),      # an LSE
+    (torch.bfloat16, 197, 197, 64, False, False, False, "B"),   # ViT-B/16
+    (torch.bfloat16, 257, 257, 104, False, False, False, "B"),  # ViT-G/14
+    (torch.bfloat16, 1000, 4000, 64, False, False, False, "C"),
+    (torch.float32, 1500, 1500, 64, True, False, False, "fma"),
+])
+def test_flash_body_rule(card, dtype, Tq, Tk, H, masked, causal, lse, want):
+    """The body kernel 1's library names for a shape
+    (``flash_attention.body_for``, ``rdb_flash_body``)."""
+    assert fl.body_for(dtype, Tq, Tk, H, masked=masked, causal=causal,
+                       lse=lse) == want
+
+
+@pytest.mark.parametrize("dtype,Tq,Tk,H,mask_kind,causal,lse,want", [
+    (torch.bfloat16, 1500, 1500, 64, "key", False, False, "C"),
+    (torch.bfloat16, 256, 256, 64, "key", True, False, "C"),
+    (torch.bfloat16, 128, 128, 48, "none", True, False, "C"),
+    (torch.bfloat16, 64, 256, 64, "key", False, False, "A"),    # Tq < 128
+    (torch.bfloat16, 256, 256, 128, "key", True, False, "A"),   # head_dim 128
+    (torch.bfloat16, 256, 256, 64, "key", True, True, "A"),     # an LSE
+    (torch.bfloat16, 197, 197, 64, "none", False, False, "B"),  # vision
+    (torch.bfloat16, 1000, 4000, 64, "none", False, False, "C"),  # K/V > B's
+    (torch.float32, 256, 256, 64, "key", False, False, "fma"),
+])
+def test_flash_route_lands_on_its_body(card, dtype, Tq, Tk, H, mask_kind,
+                                       causal, lse, want):
+    """Each shape launches the body named here, the one
+    ``flash_attention.body_for`` names."""
+    gen = torch.Generator(device=card).manual_seed(Tq + H)
+    B, N = 1, 2
+    q = _rand(gen, (B, Tq, N, H), dtype, card)
+    k = _rand(gen, (B, Tk, N, H), dtype, card)
+    v = _rand(gen, (B, Tk, N, H), dtype, card)
+    keep = fl.keep_mask(_key_rows(gen, B, Tk, card), B, Tq, Tk) \
+        if mask_kind == "key" else None
+    assert fl.body_for(dtype, Tq, Tk, H, masked=keep is not None,
+                       causal=causal, lse=lse) == want
+    before = dict(fl.launches_by_body)
+    if lse:
+        lse_buf = torch.empty((B, N, Tq), dtype=torch.float32, device=card)
+        fl._launch(q, k, v, keep, causal=causal, scale=H ** -0.5, lse=lse_buf)
+    else:
+        fl.flash_attention(q, k, v, causal=causal,
+                           mask=None if keep is None else keep[:, None])
+    torch.cuda.synchronize()
+    assert _body_delta(fl.launches_by_body, before) == {want: 1}
+
+
+# (B * K, S) -> tiles a split of the single-row scan, as
+# ``tests/test_torch_kernel_rules.py`` models the rule (``ROW_SPLITS``).
+ROW_SPLITS = {(8 * 20, 1500): 8, (64 * 16, 256): 4, (8 * 20, 40): 2,
+              (1, 32768): 2}
+
+
+def test_row_split_tiles_rule(card):
+    """Kernels 2-3's split rule (``rdb_row_split_tiles``) at the servables'
+    shapes, and its bounds over a sweep: at least two tiles a split, and
+    no more splits than keep B * K * splits within 4 x 132 blocks (or one
+    split a slot)."""
+    for (BK, S), lt in ROW_SPLITS.items():
+        assert dec.row_split_tiles(BK, S) == lt
+    for BK in (1, 7, 160, 528, 529, 4096):
+        for S in (1, 64, 65, 1500, 8192):
+            lt = dec.row_split_tiles(BK, S)
+            nsplit = -(-(-(-S // 64)) // lt)
+            assert lt >= 2 and BK * nsplit <= max(BK, 4 * 132)
+
+
+def _row_case(gen, B, S, N, H, dtype, card, int8=False):
+    q = _rand(gen, (B, 1, N, H), dtype, card)
+    if int8:
+        k, ks = _int8(gen, (B, S, N, H), card)
+        v, vs = _int8(gen, (B, S, N, H), card)
+        return q, k, v, ks, vs
+    return (q, _rand(gen, (B, S, N, H), dtype, card),
+            _rand(gen, (B, S, N, H), dtype, card), None, None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,N,H,int8,kind", [
+    (8, 1500, 20, 64, False, "key"),      # Whisper's cross read
+    (8, 40, 20, 64, False, "stair"),      # Whisper's step
+    (64, 256, 16, 64, False, "stair"),    # gpt2_medium's step
+    (16, 64, 4, 16, False, "stair"),      # head_dim 16
+    (4, 700, 8, 128, True, "key"),        # int8 codes, head_dim 128
+    (3, 384, 12, 64, False, "none_row"),  # a slot that attends nothing
+])
+def test_row_scan_matches_plain(card, dtype, B, S, N, H, int8, kind):
+    """Kernel 2 at R = Tq * G = 1 takes the single-row scan and gives the
+    plain version's result (a row that attends nothing: the mean of V)."""
+    gen = torch.Generator(device=card).manual_seed(S + H + int8)
+    q, k, v, ks, vs = _row_case(gen, B, S, N, H, dtype, card, int8)
+    if kind == "key":
+        mask = _key_rows(gen, B, S, card)
+    else:
+        lens = torch.randint(0, S, (B,), generator=gen, device=card)
+        mask = _slab_window(lens, 1, S, card)
+        if kind == "none_row":
+            mask[1] = False
+    before = dict(dec.launches_by_body)
+    out = dec.decode_attention(q, k, v, mask=mask, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert _body_delta(dec.launches_by_body, before) == {"row": 1}
+    ref = dec.decode_attention_plain(q, k, v, fl.keep_mask(mask, B, 1, S),
+                                     k_scale=ks, v_scale=vs)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    _, counters = dec._workspaces[q.device.index]
+    assert int(counters.abs().sum().item()) == 0
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_scan_slab_and_paged_bit_identical(card, dtype, int8):
+    """Kernels 2 and 3 at G = 1 over 1500 positions (the slab) and the same
+    positions cut into 128-position pages (12 pages: 1536 positions): the
+    same splits, tiles and merge, so the same bits."""
+    gen = torch.Generator(device=card).manual_seed(1500 + int8)
+    B, S, N, H, ps, NP = 8, 1500, 20, 64, 128, 12
+    q, k, v, ks, vs = _row_case(gen, B, S, N, H, dtype, card, int8)
+    lengths = torch.tensor([1499, 1200, 1152, 1151, 383, 384, 64, 0],
+                           dtype=torch.int32, device=card)
+    perm = torch.randperm(B * NP, generator=gen, device=card)
+    table = perm.reshape(B, NP).to(torch.int32)
+    flat = table.long().reshape(-1)
+
+    def pages(x):
+        full = torch.zeros((B, NP * ps) + tuple(x.shape[2:]), dtype=x.dtype,
+                           device=card)
+        full[:, :S] = x
+        out = torch.empty((B * NP, ps) + tuple(x.shape[2:]), dtype=x.dtype,
+                          device=card)
+        out[flat] = full.reshape((-1, ps) + tuple(x.shape[2:]))
+        return out
+
+    before = dict(dec.launches_by_body)
+    paged = dec.paged_decode_attention(
+        q, pages(k), pages(v), table, lengths,
+        k_scale=None if ks is None else pages(ks),
+        v_scale=None if vs is None else pages(vs))
+    slab = dec.decode_attention(q, k, v,
+                                mask=paged_window_mask(lengths, S, 1),
+                                k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert _body_delta(dec.launches_by_body, before) == {"row": 2}
+    assert torch.equal(paged, slab)
+
+
+@pytest.mark.parametrize("Tq", [2, 8])
+def test_decode_scan_reads_key_rows_and_padded_rows(card, Tq):
+    """Kernel 2's DecodeScan body (R >= 2) on the keep-mask layouts at an
+    unaligned S: a key row (row stride 0) and dense rows padded to 16."""
+    gen = torch.Generator(device=card).manual_seed(Tq)
+    B, S, N, K, H = 4, 1500, 8, 8, 64
+    q = _rand(gen, (B, Tq, N, H), torch.bfloat16, card)
+    k = _rand(gen, (B, S, K, H), torch.bfloat16, card)
+    v = _rand(gen, (B, S, K, H), torch.bfloat16, card)
+    for mask in (_key_rows(gen, B, S, card),
+                 torch.rand((B, 1, Tq, S), generator=gen, device=card) < 0.5):
+        keep = fl.keep_mask(mask, B, Tq, S)
+        out = dec.decode_attention(q, k, v, mask=keep[:, None])
+        torch.cuda.synchronize()
+        ref = dec.decode_attention_plain(q, k, v, keep)
+        assert (out.float() - ref.float()).abs().max().item() <= 2e-2

@@ -11,7 +11,8 @@ replicate while q is cut. The greedy streams and the acceptance rate
 (accepted / drafted) must equal the JAX package's TP spec engine's on the
 same mesh of fake CPU devices, on the monolithic slab arm (prompts past
 the bucket take the long fill, the draft's replay included) and the slab
-train.
+train. This file holds the tp 2 cases; ``test_torch_tp_spec_tp4.py`` the
+tp 4 ones (one file held a test worker for over 300 s).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ ARMS = {"slab_mono": {}, "slab_train": dict(chunked_prefill=True)}
 CASES = [(2, "self", "slab_mono"), (2, "divergent", "slab_mono"),
          (4, "self", "slab_mono"), (4, "divergent", "slab_mono"),
          (2, "divergent", "slab_train"), (4, "divergent", "slab_train")]
+TP = 2    # the world size this file's cases run on
 
 
 def _payloads():
@@ -71,17 +73,18 @@ def models():
     return jm, out
 
 
-@pytest.fixture(scope="module")
-def worlds():
-    built = {}
+def world_of(tp: int):
+    """One spawned gloo world of ``tp`` CPU ranks, shut down after."""
+    mesh = t_mesh.build_mesh(t_mesh.MeshConfig(tp=tp), ["cpu"] * tp)
     try:
-        for tp in (2, 4):
-            built[tp] = t_mesh.build_mesh(t_mesh.MeshConfig(tp=tp),
-                                          ["cpu"] * tp)
-        yield built
+        yield mesh
     finally:
-        for mesh in built.values():
-            mesh.shutdown()
+        mesh.shutdown()
+
+
+@pytest.fixture(scope="module")
+def world():
+    yield from world_of(TP)
 
 
 def _jax_spec(models, tp, draft, arm):
@@ -99,12 +102,9 @@ def _jax_spec(models, tp, draft, arm):
             engine.spec_acceptance())
 
 
-@pytest.mark.timeout(240)
-@pytest.mark.parametrize("tp,draft,arm", CASES)
-def test_tp_spec_matches_jax_spec_engine_on_the_mesh(models, worlds, tp,
-                                                     draft, arm):
+def check_case(models, mesh, tp, draft, arm):
+    """The TP spec engine's streams and acceptance against the JAX one's."""
     _jm, trees = models
-    mesh = worlds[tp]
     target = t_mesh.shard_params(mesh, trees["target"][1])
     dmodel = target if draft == "self" else trees[draft][1]
     q = RequestQueue("t", max_len=256)
@@ -134,3 +134,10 @@ def test_tp_spec_matches_jax_spec_engine_on_the_mesh(models, worlds, tp,
         mesh.world.ctx.objects.pop(engine._tp_key, None)
         engine.release_buffers()
     assert not mesh.world.failed
+
+
+@pytest.mark.timeout(240)
+@pytest.mark.parametrize("tp,draft,arm", [c for c in CASES if c[0] == TP])
+def test_tp_spec_matches_jax_spec_engine_on_the_mesh(models, world, tp,
+                                                     draft, arm):
+    check_case(models, world, tp, draft, arm)
